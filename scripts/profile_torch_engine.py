@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch/CUDA port's serving loop, on one GPU.
+
+    python3 scripts/profile_torch_engine.py [--layers 32] [--steps 8] [--out FILE]
+
+Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
+from a seed, int8 paged KV, page 64), warms it with one short run, then
+admits 16 requests of 200-256 prompt tokens into a fresh engine and
+traces one prefill wave and `--steps` decode steps with torch.profiler.
+For each phase it prints the host wall time (with and without the
+profiler), the device time summed over kernels, the device busy share
+(kernel time / wall time) and the kernel time by group and by name;
+--out FILE also writes the full profiler tables there. Needs a CUDA
+device; prints the card's name and power limit beside the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+GROUPS = (("prefill kernel", ("prefill_fwd_kernel",)),
+          ("paged kernel", ("decode_kernel",)),
+          ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")),
+          ("elementwise / copy / reduce", ()))
+
+
+def _group(name: str) -> str:
+    for g, keys in GROUPS:
+        if any(k in name for k in keys):
+            return g
+    return GROUPS[-1][0]
+
+
+def _device_rows(prof):
+    import torch
+
+    rows = []
+    for r in prof.key_averages():
+        if getattr(r, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(r, "self_device_time_total", None)
+        if us is None:
+            us = r.self_cuda_time_total
+        rows.append((r.key, r.count, us / 1e3))
+    return rows
+
+
+def _report(tag, prof, wall_ms, plain_ms, n_units, unit, out):
+    rows = _device_rows(prof)
+    dev_ms = sum(ms for _, _, ms in rows)
+    print(f"{tag}: wall {wall_ms:.3f} ms traced, {plain_ms:.3f} ms untraced "
+          f"per {unit} ({n_units} {unit}s); device kernels {dev_ms / n_units:.3f} "
+          f"ms per {unit}; device busy share {dev_ms / (wall_ms * n_units):.3f} "
+          f"traced, {dev_ms / (plain_ms * n_units):.3f} untraced", flush=True)
+    groups = collections.Counter()
+    for name, _, ms in rows:
+        groups[_group(name)] += ms
+    for g, ms in groups.most_common():
+        print(f"  {g}: {ms / n_units:.3f} ms per {unit} "
+              f"({ms / max(dev_ms, 1e-9):.1%})", flush=True)
+    for name, count, ms in sorted(rows, key=lambda r: -r[2])[:10]:
+        print(f"    {ms / n_units:8.3f} ms  x{count // n_units:<5d} {name[:90]}",
+              flush=True)
+    out.write(f"== {tag}\n")
+    try:
+        table = prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60)
+    except (AttributeError, KeyError):
+        table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=60)
+    out.write(table + "\n")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--out", default=None,
+                    help="file for the full profiler tables")
+    args = ap.parse_args()
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
+        return 1
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import Engine
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    _build.build_all()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=args.layers)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+
+    def engine(n_new):
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype="int8", device="cuda")
+        rng = np.random.RandomState(0)
+        for n in rng.randint(200, 257, 16):
+            eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), n_new)
+        return eng
+
+    engine(4).run()  # warm-up: cuBLAS handles, allocator, kernel libraries
+    untraced = engine(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    untraced._prefill_admitted(untraced.sched.admit())
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    del untraced
+    eng = engine(2 * args.steps + 4)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out or os.devnull, "w") as out:
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            eng._flush_released()
+            eng._prefill_admitted(eng.sched.admit())
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _report(f"prefill wave (16 prompts, {eng.stats.prefill_tokens} tokens, "
+                f"{cfg.n_layers} layers)", prof, wall, plain, 1, "wave", out)
+        eng.step()  # first decode step outside the trace
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            eng.step()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3 / args.steps
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / args.steps
+        _report(f"decode step (batch 16, {cfg.n_layers} layers)", prof, wall,
+                plain, args.steps, "step", out)
+    eng.run()
+    print(f"card: {smi}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
