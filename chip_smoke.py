@@ -9,17 +9,25 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes: max/mean abs error within bf16 tolerances (max < 2e-2,
    mean < 2e-3, SURVEY.md §4; the plain version runs on the same inputs
-   upcast to fp32), and times with CUDA events: kernel, plain version, one
-   PyTorch library call for the same function where one exists (a
-   yardstick only: the port never calls it), and the least time the card
-   could take (bytes over 3.35 TB/s vs operations over 989 TFLOP/s).
-3. The main path, with every launch count zeroed just before it and read
-   just after: the library surface (flash_attn_func, flash_attn_with_kvcache
-   contiguous and paged), then the serving engine at Llama-3-8B width
-   (32 layers, random bf16 weights from a seed, int8 paged KV, page 64)
-   answering 16 requests of 200-256 prompt tokens and 32 new tokens each.
+   upcast to fp32; LSE within 1e-3 with the same -inf rows), and times with
+   CUDA events: kernel, plain version, one PyTorch library call for the
+   same function where one exists (a yardstick only: the port never calls
+   it), and the least time the card could take (bytes over 3.35 TB/s vs
+   operations over 989 TFLOP/s, counting the work these inputs need).
+   Kernels: prefill, split-KV decode + combine, paged decode, varlen and
+   paged prefill.
+3. The main path, each part with every launch count zeroed just before it
+   and read just after: the library surface (flash_attn_func,
+   flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
+   contiguous and paged); the serving engine at Llama-3-8B width (32
+   layers, random bf16 weights from a seed, int8 paged KV, page 64)
+   answering 16 requests of 200-256 prompt tokens and 32 new tokens each;
+   then, with the same weights, an engine with chunked prefill (chunks of
+   512) and the prefix cache answering 4 long prompts, 9 prompts that share
+   a 1024-token system prompt and 4 short ones.
 4. The same model cut to 2 layers, on the card (kernels) and on the CPU
-   (plain versions) with the same weights: prefill and decode logits agree.
+   (plain versions) with the same weights: prefill, decode, chunked prefill
+   and prefix-hit suffix logits agree.
 5. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
 """
@@ -68,6 +76,18 @@ def _time_ms(fn, iters: int = 20) -> float:
 def _bound(nbytes: float, flops: float):
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _visible_pairs(sq: int, sk: int, q_start: int = 0, wl: int = -1,
+                   wr: int = -1) -> int:
+    """(row, column) pairs a band lets through: row r (position q_start + r)
+    sees columns c < sk with pos - wl <= c <= pos + wr (-1 = unbounded)."""
+    import numpy as np
+
+    pos = q_start + np.arange(sq)
+    hi = np.full(sq, sk - 1) if wr < 0 else np.minimum(sk - 1, pos + wr)
+    lo = np.zeros(sq, np.int64) if wl < 0 else np.maximum(0, pos - wl)
+    return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def _err(out, ref, tol_max=2e-2, tol_mean=2e-3, what=""):
@@ -247,6 +267,135 @@ def kernel_phase(records):
         if quant and lengths == "serve":
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=by, library_ms=None)
+    ok &= varlen_kernels(records, rn)
+    ok &= paged_prefill_kernels(records, rn, gen)
+    return ok
+
+
+def varlen_kernels(records, rn):
+    """Kernel 4 (packed varlen) against its plain version; SDPA times the
+    equal-length case, where packed varlen is batched causal attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import varlen
+
+    dev, hq, hkv, d = "cuda", 32, 8, 128
+    scale = d ** -0.5
+    lens_a = [200, 1100, 512, 300, 700, 384, 450, 450]  # total 4096
+    cases = (("8 packed causal", lens_a, lens_a, True, (-1, -1)),
+             ("8 packed, lens_k != lens_q, band (128, 64)", lens_a,
+              [256, 1000, 600, 300, 640, 400, 500, 396], False, (128, 64)),
+             ("one zero-length sequence, causal", [300, 0, 517, 64],
+              [300, 0, 517, 64], True, (-1, -1)),
+             ("equal lengths 8 x 512, causal", [512] * 8, [512] * 8, True,
+              (-1, -1)))
+    ok = True
+    rec = records["varlen"]
+    for tag, lq, lk, causal, window in cases:
+        q = rn(sum(lq), hq, d)
+        k, v = rn(sum(lk), hkv, d), rn(sum(lk), hkv, d)
+        cu_q = torch.tensor([0] + lq, device=dev).cumsum(0).int()
+        cu_k = torch.tensor([0] + lk, device=dev).cumsum(0).int()
+        wl, wr = window[0], 0 if causal else window[1]
+
+        def run(q=q, k=k, v=v, cu_q=cu_q, cu_k=cu_k, lq=lq, lk=lk,
+                causal=causal, window=window, lse=False):
+            return varlen.varlen_attention(q, k, v, cu_q, cu_k, max(lq),
+                                           max(lk), causal=causal,
+                                           window_size=window, return_lse=lse)
+
+        o, lse = run(lse=True)
+        ro, rl = varlen._varlen_plain(q.float(), k.float(), v.float(), cu_q,
+                                      cu_k, scale, wl, wr, 0.0, True)
+        print(f"varlen {tag}: lens_q {lq} lens_k {lk} hq={hq} hkv={hkv} "
+              f"d={d} bf16", flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "")
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: varlen._varlen_plain(
+            q, k, v, cu_q, cu_k, scale, wl, wr, 0.0, False), iters=3)
+        pairs = sum(_visible_pairs(a, b, 0, wl, wr) for a, b in zip(lq, lk))
+        bound_ms, by = _bound(2 * (2 * sum(lq) * hq * d + 2 * sum(lk) * hkv * d),
+                              4 * hq * pairs * d)
+        lib = ""
+        if len(set(lq)) == 1 and lq == lk:
+            qb = q.view(len(lq), lq[0], hq, d).transpose(1, 2)
+            kb = k.view(len(lk), lk[0], hkv, d).transpose(1, 2)
+            vb = v.view(len(lk), lk[0], hkv, d).transpose(1, 2)
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                qb, kb, vb, is_causal=True, enable_gqa=True))
+            lib = f" library_ms(sdpa is_causal, batched {len(lq)} x {lq[0]}) {lib_ms:.4f}"
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                       library_ms=lib_ms)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+              f"({by}){lib}", flush=True)
+    return ok
+
+
+def paged_prefill_kernels(records, rn, gen):
+    """Kernel 5 (paged prefill) against its plain version: the engine's
+    chunk batch (int8 pages) and the varlen paged route's shape (bf16)."""
+    import torch
+
+    from mfa_tpu_torch.kernels import paged_prefill
+    from mfa_tpu_torch.kernels.quant import quantize_rows
+
+    dev, hq, hkv, d, page = "cuda", 32, 8, 128, 64
+    scale = d ** -0.5
+    cases = (("engine chunk batch: 4 x 512, q_start 0/1024/2048/3072, int8 "
+              "pages", True, [0, 1024, 2048, 3072], 512, None),
+             ("varlen paged route: q_start 0, lens 512/1024/300/700, bf16 "
+              "pages", False, [0, 0, 0, 0], 1024, [512, 1024, 300, 700]))
+    ok = True
+    rec = records["paged_prefill"]
+    for tag, quant, q_start, sq, q_lens in cases:
+        b = len(q_start)
+        q_lens = q_lens or [sq] * b
+        lens = [s + n for s, n in zip(q_start, q_lens)]
+        pps = max(lens) // page + 1
+        P = b * pps + 1
+        q = rn(b, sq, hq, d)
+        kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+        if quant:
+            (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
+        else:
+            kp, vp, ks, vs = kf, vf, None, None
+        table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+                 ).reshape(b, pps).to(torch.int32)  # non-contiguous pages
+        L = torch.tensor(lens, dtype=torch.int32, device=dev)
+        QS = torch.tensor(q_start, dtype=torch.int32, device=dev)
+        QL = torch.tensor(q_lens, dtype=torch.int32, device=dev)
+
+        def run(lse=False):
+            return paged_prefill.paged_prefill_attention(
+                q, kp, vp, L, QS, table, q_lens=QL, k_scales=ks, v_scales=vs,
+                causal=True, return_lse=lse)
+
+        o, lse = run(True)
+        ro, rl = paged_prefill._paged_prefill_plain(
+            q.float(), kp, vp, ks, vs, L, QS, QL, table, scale, -1, 0, 0.0)
+        print(f"paged_prefill {tag}: hq={hq} hkv={hkv} d={d} page={page}",
+              flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "")
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: paged_prefill._paged_prefill_plain(
+            q, kp, vp, ks, vs, L, QS, QL, table, scale, -1, 0, 0.0), iters=3)
+        # each row's KV pages once (int8: payload + fp32 scales), q in, o out
+        kv_rows = sum(-(-n // page) * page for n in lens) * hkv
+        nbytes = 2 * kv_rows * d * kp.element_size() + (8 * kv_rows if quant else 0) \
+            + b * pps * 4 + 2 * b * sq * hq * d * 2
+        pairs = sum(_visible_pairs(n, n_k, s, -1, 0)
+                    for s, n, n_k in zip(q_start, q_lens, lens))
+        bound_ms, by = _bound(nbytes, 4 * hq * pairs * d)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a "
+              f"bound_ms {bound_ms:.4f} ({by})", flush=True)
+        if quant:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=by, library_ms=None)
     return ok
 
 
@@ -273,18 +422,36 @@ def library_surface(counts):
                          dtype=torch.int32).reshape(16, 4)
     o3 = mfa_tpu_torch.flash_attn_with_kvcache(qd, kp, vp, cache_seqlens=200,
                                                block_table=table)
+    # packed varlen (8 sequences, 4096 tokens) and its paged route over the
+    # pool above (4 sequences, pages through a table)
+    lens = [200, 1100, 512, 300, 700, 384, 450, 450]
+    cu = torch.tensor([0] + lens, device="cuda").cumsum(0).int()
+    qv, kv, vv = rn(4096, 32, 128), rn(4096, 8, 128), rn(4096, 8, 128)
+    o4 = mfa_tpu_torch.flash_attn_varlen_func(qv, kv, vv, cu, cu, max(lens),
+                                              max(lens), causal=True)
+    plens = [100, 256, 37, 180]
+    cu_p = torch.tensor([0] + plens, device="cuda").cumsum(0).int()
+    qp = rn(sum(plens), 32, 128)
+    o5 = mfa_tpu_torch.flash_attn_varlen_func(qp, kp, vp, cu_p, cu_p,
+                                              max(plens), max(plens),
+                                              causal=True,
+                                              block_table=table[:4])
     torch.cuda.synchronize()
     got = dict(_build.launches)
     counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
     print(f"library surface launches {got}", flush=True)
-    ok = all(bool(torch.isfinite(o.float()).all()) for o in (o1, o2, o3))
+    outs = (o1, o2, o3, o4, o5)
+    ok = all(bool(torch.isfinite(o.float()).all()) for o in outs)
     ok &= o1.shape == q.shape and o2.shape == qd.shape and o3.shape == qd.shape
-    ok &= all(got.get(n, 0) >= 1 for n in ("prefill", "decode", "combine", "paged"))
+    ok &= o4.shape == qv.shape and o5.shape == qp.shape
+    ok &= all(got.get(n, 0) >= 1 for n in ("prefill", "decode", "combine",
+                                           "paged", "varlen", "paged_prefill"))
     return ok
 
 
-def engine_phase(counts, ident):
-    """Main path, part 2: the serving engine at Llama-3-8B width."""
+def engine_phase(counts, ident, state):
+    """Main path, part 2: the serving engine at Llama-3-8B width. Leaves
+    the weights in `state` for part 3."""
     import numpy as np
     import torch
 
@@ -295,6 +462,7 @@ def engine_phase(counts, ident):
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
     params = llama.init_params(cfg, seed=SEED, device="cuda")
+    state.update(params=params, cfg=cfg)
     torch.cuda.synchronize()
     print(f"engine: Llama-3-8B width, {cfg.n_layers} layers, vocab "
           f"{cfg.vocab_size}, bf16 weights from seed {SEED} "
@@ -329,6 +497,82 @@ def engine_phase(counts, ident):
           f"{step_tokens / stats.decode_s:.1f} tok/s ({step_tokens} tokens in "
           f"{stats.steps} steps, {stats.decode_s:.3f} s), peak memory "
           f"{peak_gb:.2f} GB [{ident}]", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return ok
+
+
+def chunked_engine_phase(counts, ident, state):
+    """Main path, part 3: the same weights behind an engine with chunked
+    prefill (chunks of 512) and the prefix cache. (a) 4 long prompts take
+    the chunked path; (b) a request with a 1024-token system prompt runs
+    until its prefill completes, then 8 more with the same system prompt
+    hit its 16 cached pages and prefill only their suffix; (c) 4 short
+    prompts take whole-prompt prefill (kernel 1)."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.serve.engine import Engine
+
+    params, cfg = state.pop("params"), state.pop("cfg")
+    torch.cuda.reset_peak_memory_stats()
+    gen_tokens, page = 32, 64
+    eng = Engine(params, cfg, num_pages=512, page_size=page, max_seqs=16,
+                 pages_per_seq=64, quant_dtype="int8", prefill_chunk=512,
+                 prefix_cache=True, device="cuda")
+    free0 = eng.sched.allocator.free_pages
+    rng = np.random.RandomState(SEED)
+
+    def toks(n):
+        return [int(t) for t in rng.randint(0, cfg.vocab_size, int(n))]
+
+    system = toks(1024)
+    longs = [toks(n) for n in rng.randint(2500, 4001, 4)]
+    first = system + toks(64)
+    hits = [system + toks(n) for n in rng.randint(64, 193, 8)]
+    shorts = [toks(n) for n in rng.randint(100, 257, 4)]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, gen_tokens) for p in longs + [first] + shorts]
+    steps_to_first = 0
+    while not reqs[4].generated:
+        eng.step()
+        steps_to_first += 1
+    reqs += [eng.submit(p, gen_tokens) for p in hits]
+    stats = eng.run()
+    wall = time.perf_counter() - t0
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    retained = len(eng.sched.prefix.pages)
+    ok = len(reqs) == 17
+    ok &= all(len(r.generated) == gen_tokens for r in reqs)
+    ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+    ok &= stats.prefill_tokens <= prompt_tokens - 8 * 1024
+    ok &= eng.sched.allocator.free_pages + retained == free0
+    ok &= got.get("paged_prefill", 0) == cfg.n_layers * stats.chunk_batches
+    ok &= got.get("prefill", 0) == cfg.n_layers * stats.prefill_batches
+    ok &= got.get("paged", 0) == cfg.n_layers * stats.steps
+    step_tokens = stats.decode_tokens - len(reqs)  # first tokens come from prefill
+    print(f"chunked engine launches {got}: paged_prefill = {cfg.n_layers} "
+          f"layers x {stats.chunk_batches} chunk batches, prefill = "
+          f"{cfg.n_layers} x {stats.prefill_batches} waves, paged = "
+          f"{cfg.n_layers} x {stats.steps} decode steps", flush=True)
+    print(f"chunked engine: {len(reqs)} requests finished with {gen_tokens} "
+          f"tokens: {all(len(r.generated) == gen_tokens for r in reqs)}; "
+          f"system prompt done after {steps_to_first} steps; prefilled "
+          f"{stats.prefill_tokens} of {prompt_tokens} prompt tokens (<= "
+          f"{prompt_tokens - 8 * 1024}); free pages {eng.sched.allocator.free_pages}"
+          f" + {retained} held by the prefix cache of {free0}", flush=True)
+    print(f"chunked engine: prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
+          f"tok/s ({stats.prefill_tokens} tokens in {stats.prefill_s:.3f} s, "
+          f"{stats.chunk_batches} chunk batches + {stats.prefill_batches} "
+          f"whole waves), decode {step_tokens / stats.decode_s:.1f} tok/s "
+          f"({step_tokens} tokens in {stats.steps} steps, {stats.decode_s:.3f} "
+          f"s), {wall:.3f} s wall, peak memory {peak_gb:.2f} GB [{ident}]",
+          flush=True)
     del eng, params
     torch.cuda.empty_cache()
     return ok
@@ -336,7 +580,9 @@ def engine_phase(counts, ident):
 
 def cpu_vs_cuda_phase():
     """Phase 4: 2 layers at the 8B widths, kernels on the card vs plain
-    versions on the CPU, same weights and prompts."""
+    versions on the CPU, same weights and prompts: whole-prompt prefill, a
+    decode step, a 256-token prompt in 2 chunks of 128, and a prefix hit
+    (its first 2 pages shared) prefilling only a 60-token suffix chunk."""
     import numpy as np
     import torch
 
@@ -350,6 +596,8 @@ def cpu_vs_cuda_phase():
     rng = np.random.RandomState(SEED + 2)
     prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in (37, 90)]
     pages = [[1, 2], [3, 4, 5]]
+    long = list(rng.randint(0, cfg.vocab_size, 256))
+    hit = long[:128] + list(rng.randint(0, cfg.vocab_size, 60))
     out = {}
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
         cache = llama.build_kv_caches(cfg, 16, 64, 2, 4, "int8", device=dev)
@@ -357,9 +605,18 @@ def cpu_vs_cuda_phase():
         toks = out["toks"] if "toks" in out else lg1.argmax(-1).cpu()
         out["toks"] = toks
         cache, lg2 = llama.decode_step(params, cfg, cache, [0, 1], toks)
-        out[dev] = (lg1.float().cpu(), lg2.float().cpu())
+        cc = llama.build_kv_caches(cfg, 16, 64, 2, 8, "int8", device=dev)
+        for off in (0, 128):
+            cc, lg3 = llama.prefill_chunk_batch(params, cfg, cc, [0], [[6, 7, 8, 9]],
+                                                [long[off:off + 128]], [off], [256],
+                                                128)
+        cc, lg4 = llama.prefill_chunk_batch(params, cfg, cc, [1], [[6, 7, 10]],
+                                            [hit[128:]], [128], [188], 64)
+        out[dev] = tuple(x.float().cpu() for x in (lg1, lg2, lg3, lg4))
     ok = True
-    for i, name in enumerate(("prefill_batch", "decode_step")):
+    for i, name in enumerate(("prefill_batch", "decode_step",
+                              "prefill_chunk_batch 2 x 128",
+                              "prefix-hit suffix chunk")):
         a, r = out["cuda"][i], out["cpu"][i]
         d = (a - r).abs()
         # bf16 activations rounded in other summation orders on the two
@@ -415,14 +672,21 @@ def main() -> int:
                     "mfa_tpu/kernels/decode.py:148"),
         "paged": ("mfa_tpu_torch/csrc/paged.cu",
                   "mfa_tpu/kernels/paged.py:122"),
+        "varlen": ("mfa_tpu_torch/csrc/prefill.cu",
+                   "mfa_tpu/kernels/varlen.py:53"),
+        "paged_prefill": ("mfa_tpu_torch/csrc/paged_prefill.cu",
+                          "mfa_tpu/kernels/paged_prefill.py:50"),
     }
     records = {n: {"name": n, "route": "cuda", "source": s, "replaces": r}
                for n, (s, r) in sources.items()}
     phases = {}
     counts = {}
+    state = {}
     for name, fn in (("kernels", lambda: kernel_phase(records)),
                      ("library_surface", lambda: library_surface(counts)),
-                     ("engine_8b", lambda: engine_phase(counts, ident)),
+                     ("engine_8b", lambda: engine_phase(counts, ident, state)),
+                     ("chunked_prefix_engine_8b",
+                      lambda: chunked_engine_phase(counts, ident, state)),
                      ("cuda_vs_cpu", cpu_vs_cuda_phase)):
         t0 = time.perf_counter()
         try:

@@ -6,16 +6,16 @@ package mirrors its module names (dispatch/config.py, kernels/prefill.py,
 ported path is a hand-written CUDA kernel (mfa_tpu_torch/csrc), built with
 nvcc at first use; on CPU tensors each kernel wrapper runs its plain
 PyTorch version instead.
-
-`flash_attn_varlen_func` is not ported yet (see ROADMAP.md Queue 1).
 """
 
 __version__ = "0.1.0"
 
-from mfa_tpu_torch.interface import flash_attn_func, flash_attn_with_kvcache
+from mfa_tpu_torch.interface import (flash_attn_func, flash_attn_varlen_func,
+                                     flash_attn_with_kvcache)
 
 __all__ = [
     "flash_attn_func",
+    "flash_attn_varlen_func",
     "flash_attn_with_kvcache",
     "__version__",
 ]

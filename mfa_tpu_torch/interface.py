@@ -1,7 +1,9 @@
 """Public API (counterpart of mfa_tpu/interface.py).
 
 The reference's layouts at the boundary: [batch, seq, heads, head_dim] for
-flash_attn_func; flash_attn_with_kvcache takes a contiguous cache
+flash_attn_func; packed [total, heads, head_dim] with cu_seqlens (or a
+paged pool with block_table) for flash_attn_varlen_func;
+flash_attn_with_kvcache takes a contiguous cache
 [batch, max_seqlen, kv_heads, head_dim] or a paged pool [num_pages,
 page_size, kv_heads, head_dim] with block_table. Kernels run on
 [batch, heads, seq, head_dim] and [kv_heads, num_pages, page, head_dim];
@@ -18,8 +20,13 @@ import torch
 from mfa_tpu_torch.dispatch.config import validate_attention_inputs
 from mfa_tpu_torch.kernels.decode import decode_attention, paged_decode_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
+from mfa_tpu_torch.kernels.varlen import varlen_attention
 
-__all__ = ["flash_attn_func", "flash_attn_with_kvcache"]
+__all__ = [
+    "flash_attn_func",
+    "flash_attn_varlen_func",
+    "flash_attn_with_kvcache",
+]
 
 
 def flash_attn_func(
@@ -50,6 +57,41 @@ def flash_attn_func(
     return out.transpose(1, 2)
 
 
+def flash_attn_varlen_func(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cu_seqlens_q,
+    cu_seqlens_k,
+    max_seqlen_q: int,
+    max_seqlen_k: int,
+    causal: bool = False,
+    block_table: Optional[torch.Tensor] = None,
+    softmax_scale: Optional[float] = None,
+    softcap: float = 0.0,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    window_size: tuple = (-1, -1),
+    sink_tokens: int = 0,
+) -> torch.Tensor:
+    """Varlen (continuous batching) attention (reference: interface.py:40-92).
+
+    q: (total_q, nheads, headdim); k/v: (total_k, nheads_k, headdim) -> the
+    varlen kernel, or with block_table (batch, max_pages_per_seq) a paged
+    pool (num_pages, page_size, nheads_k, headdim) -> the paged prefill
+    kernel. cu_seqlens_*: (batch+1,) int32 cumulative lengths. causal is
+    top-left aligned per sequence; window_size: (left, right) on
+    sequence-local positions. ALiBi and sinks are not ported yet. Returns
+    (total_q, nheads, headdim).
+    """
+    return varlen_attention(
+        q, k, v, cu_seqlens_q, cu_seqlens_k, int(max_seqlen_q),
+        int(max_seqlen_k), causal=causal, block_table=block_table,
+        softmax_scale=softmax_scale, logit_softcap=float(softcap),
+        alibi_slopes=alibi_slopes,
+        window_size=(int(window_size[0]), int(window_size[1])),
+        sink_tokens=int(sink_tokens))
+
+
 def flash_attn_with_kvcache(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -60,6 +102,8 @@ def flash_attn_with_kvcache(
     softmax_scale: Optional[float] = None,
     window_size: tuple = (-1, -1),
     softcap: float = 0.0,
+    sink_tokens: int = 0,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention against a KV cache (reference: interface.py:95-124).
 
@@ -69,8 +113,12 @@ def flash_attn_with_kvcache(
     (num_pages, page_size, nheads_k, headdim) with block_table (batch,
     max_pages_per_seq) -> the paged kernel. cache_seqlens: int or (batch,)
     valid lengths (None = full). window_size: only `left` applies (the
-    query is the last token). Returns (batch, 1, nheads, headdim).
+    query is the last token). Sinks and ALiBi are not ported yet. Returns
+    (batch, 1, nheads, headdim).
     """
+    if sink_tokens or alibi_slopes is not None:
+        raise NotImplementedError("sink_tokens and alibi_slopes are not "
+                                  "ported yet")
     if q.shape[1] != 1:
         raise ValueError(
             "flash_attn_with_kvcache currently only supports seqlen_q=1 for "

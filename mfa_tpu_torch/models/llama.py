@@ -4,8 +4,9 @@ Params are a plain dict of tensors: `layers` is a list of per-layer dicts
 (wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up, w_down), plus embed,
 final_norm and lm_head. Projections are plain `@` (as the JAX package
 leaves them to XLA); attention runs through the port's kernels:
-prefill_batch -> kernels/prefill.py (kernel 1), decode_step ->
-kernels/paged.py (kernel 3) over the int8 or bf16 paged cache.
+prefill_batch -> kernels/prefill.py (kernel 1), prefill_chunk_batch ->
+kernels/paged_prefill.py (kernel 5), decode_step -> kernels/paged.py
+(kernel 3), over the int8 or bf16 paged cache.
 
 decode_step keeps the JAX package's DEFERRED-APPEND structure: each layer
 attends over the stored cache with pos_offset=1 and return_lse=True, the
@@ -35,6 +36,7 @@ from mfa_tpu_torch.cache.paged_cache import (StackedKVCache,
                                              scatter_span_rows)
 from mfa_tpu_torch.dispatch.config import resolve_device
 from mfa_tpu_torch.kernels.paged import paged_attention
+from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.kernels.quant import quantize_rows
 
@@ -453,6 +455,122 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     cache.block_tables[seq_slots] = table_rows
     cache.lengths[seq_slots] = true_lens
     return cache, logits
+
+
+def prefill_chunk_batch(params, cfg: LlamaConfig, cache: StackedKVCache,
+                        reqs_slots, reqs_pages, chunk_tokens, offsets, totals,
+                        chunk: int):
+    """Advance n prompts by one chunk each, in one batched pass (chunked
+    prefill and prefix-cache suffixes). chunk_tokens[i]: THIS chunk's
+    tokens (len <= chunk); offsets[i]: absolute, page-aligned position of
+    its first token; totals[i]: the full prompt length. Writes the chunk's
+    K/V pages, and for rows that finish their prompt the lengths, IN
+    PLACE. Returns (cache, logits [n, vocab] fp32): row i is meaningful iff
+    the row finished (offsets[i] + len(chunk_tokens[i]) >= totals[i])."""
+    page = cache.page_size
+    if chunk % page:
+        raise ValueError(f"chunk {chunk} is not a multiple of the page size "
+                         f"{page}")
+    n = len(reqs_slots)
+    toks = np.zeros((n, chunk), np.int64)
+    offs = np.zeros((n,), np.int64)
+    table_rows = np.zeros((n, cache.pages_per_seq), np.int32)
+    finals = np.zeros((n,), bool)
+    final_lens = np.zeros((n,), np.int64)
+    for i in range(n):
+        ct = np.asarray(chunk_tokens[i], np.int64)
+        if int(offsets[i]) % page or ct.shape[0] > chunk:
+            raise ValueError(f"row {i}: offset {offsets[i]} must be page "
+                             f"aligned and the chunk at most {chunk} tokens")
+        toks[i, : ct.shape[0]] = ct
+        offs[i] = int(offsets[i])
+        finals[i] = int(offsets[i]) + ct.shape[0] >= int(totals[i])
+        final_lens[i] = int(totals[i])
+        table_rows[i, : len(reqs_pages[i])] = np.asarray(
+            list(reqs_pages[i]), np.int32)
+    dev = cache.lengths.device
+
+    def dev_t(a):
+        return torch.as_tensor(a, device=dev)
+
+    return _prefill_chunk(params, cfg, cache,
+                          dev_t(np.asarray(reqs_slots, np.int64)),
+                          dev_t(table_rows), dev_t(toks), dev_t(offs),
+                          dev_t(finals), dev_t(final_lens))
+
+
+def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
+                   table_rows, tokens, offsets, final_mask, final_lens):
+    """One chunk for each of n prompts (mfa_tpu's _prefill_chunk_jit).
+
+    WRITE-THEN-ATTEND, as in the JAX package: each layer first writes the
+    chunk's (quantized) K/V rows into its pages, then the paged prefill
+    kernel reads the prefix and the chunk back through the block table
+    with kv_len = min(final_lens, offsets + chunk) and q_start = offsets,
+    so the chunk attends to its own rows after quantization. Padded chunk
+    rows past the table width write into the null page 0."""
+    n, chunk = tokens.shape
+    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    page = cache.page_size
+    pps = cache.pages_per_seq
+    chunk_pages = chunk // page
+    P = cache.num_pages  # merged-pool per-layer stride
+    dev = tokens.device
+    x = _embed(params, tokens, cfg)  # [n, chunk, d]
+    positions = offsets[:, None] + torch.arange(chunk, device=dev)[None]
+    pidx = offsets[:, None] // page + torch.arange(chunk_pages, device=dev)[None]
+    page_ids = torch.where(
+        pidx < pps, table_rows.long().gather(1, pidx.clamp(max=pps - 1)),
+        torch.zeros((), dtype=torch.long, device=dev)).reshape(-1)
+    kv_len = torch.minimum(final_lens, offsets + chunk)
+    store = cache.k_pages.dtype
+    rope = _rope_tables(positions, hd, *_rope_args(cfg))
+    for li, lp in enumerate(params["layers"]):
+        h = _rms_norm(x, lp["attn_norm"], cfg)
+        q, k, v = _qkv(h, lp, cfg, n, chunk)
+        q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
+        ids_l = page_ids + li * P
+        kq, ks_new = _store_rows(cache.quant_dtype, store,
+                                 k.permute(2, 0, 1, 3).reshape(hkv, -1, hd))
+        vq, vs_new = _store_rows(cache.quant_dtype, store,
+                                 v.permute(2, 0, 1, 3).reshape(hkv, -1, hd))
+        cache.k_pages[:, ids_l] = pack_pages_payload(kq, n * chunk_pages, page)
+        cache.v_pages[:, ids_l] = pack_pages_payload(vq, n * chunk_pages, page)
+        if ks_new is not None:
+            cache.k_scales[:, ids_l] = ks_new.reshape(hkv, n * chunk_pages, page)
+            cache.v_scales[:, ids_l] = vs_new.reshape(hkv, n * chunk_pages, page)
+        attn = paged_prefill_attention(
+            q.to(cfg.dtype), cache.k_pages, cache.v_pages, kv_len, offsets,
+            table_rows + li * P, k_scales=cache.k_scales,
+            v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
+            causal=True, window_left=cfg.window_left,
+            quant_dtype=cache.quant_dtype)
+        x = _attn_residual(x, attn.reshape(n, chunk, cfg.n_heads * hd), lp, cfg)
+        x = _mlp(x, lp, cfg)
+    x = _rms_norm(x, params["final_norm"], cfg)
+    last_idx = torch.clamp(final_lens - 1 - offsets, 0, chunk - 1)
+    logits = _unembed(params, x[torch.arange(n, device=dev), last_idx], cfg)
+    cache.lengths[seq_slots] = torch.where(
+        final_mask, final_lens, cache.lengths[seq_slots].long()
+    ).to(cache.lengths.dtype)
+    cache.block_tables[seq_slots] = table_rows
+    return cache, logits
+
+
+def prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache,
+                  seq_slot: int, pages, tokens_1d, offset: int,
+                  total_len: int):
+    """Single-request convenience over prefill_chunk_batch: prefill this
+    chunk (tokens_1d, starting at absolute page-aligned `offset`) into slot
+    seq_slot. Returns (cache, logits [vocab] on the final chunk, else
+    None)."""
+    tokens_1d = np.asarray(tokens_1d, np.int64)
+    n_tok = int(tokens_1d.shape[0])
+    chunk = -(-n_tok // cache.page_size) * cache.page_size
+    cache, logits = prefill_chunk_batch(
+        params, cfg, cache, [seq_slot], [list(pages)], [tokens_1d], [offset],
+        [total_len], chunk)
+    return cache, (logits[0] if offset + n_tok >= total_len else None)
 
 
 def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,

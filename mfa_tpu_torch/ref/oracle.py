@@ -9,11 +9,12 @@ Layouts are the public [batch, seq, heads, head_dim].
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["attention_ref", "decode_ref", "paged_decode_ref"]
+__all__ = ["attention_ref", "varlen_attention_ref", "decode_ref",
+           "paged_decode_ref"]
 
 _MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 
@@ -80,6 +81,36 @@ def attention_ref(
     probs = torch.where(row_any, probs, torch.zeros((), device=dev))
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     return out.to(orig_dtype)
+
+
+def varlen_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cu_seqlens_q: Sequence[int],
+    cu_seqlens_k: Sequence[int],
+    causal: bool = False,
+    softmax_scale: Optional[float] = None,
+    window_size: tuple = (-1, -1),
+) -> torch.Tensor:
+    """Varlen (packed) attention oracle.
+
+    q: [total_q, num_heads, head_dim]; k/v: [total_k, num_kv_heads,
+    head_dim]; cu_seqlens as host ints. Causal (and the window) are top-left
+    aligned on each sequence's own positions, as the reference recomputes
+    row/col from per-sequence offsets (csrc/mfa/prefill.cuh:19-33, 393-421).
+    """
+    cu_q = [int(x) for x in cu_seqlens_q]
+    cu_k = [int(x) for x in cu_seqlens_k]
+    outs = []
+    for b in range(len(cu_q) - 1):
+        qb = q[cu_q[b]:cu_q[b + 1]][None]  # [1, sq, h, d]
+        kb = k[cu_k[b]:cu_k[b + 1]][None]
+        vb = v[cu_k[b]:cu_k[b + 1]][None]
+        outs.append(attention_ref(qb, kb, vb, causal=causal,
+                                  softmax_scale=softmax_scale,
+                                  window_size=window_size)[0])
+    return torch.cat(outs, dim=0)
 
 
 def decode_ref(

@@ -1,15 +1,15 @@
 """Generation engine, synchronous loop (counterpart of mfa_tpu/serve/engine.py).
 
 Step shape: release finished slots -> admit -> prefill admitted prompts
-(kernel 1, writes KV pages) -> map pages for the next position -> one
-batched decode step over all active slots (kernel 3) -> greedy sample ->
-append / finish. Decode batches are padded to power-of-two buckets, the
-padding rows pointing at a free scratch slot whose junk append is rolled
-back by the next step's batched release, as in the JAX engine.
+(kernel 1, writes KV pages) -> advance every in-progress long prompt or
+prefix-cache suffix by one chunk (kernel 5, write-then-attend) -> map
+pages for the next position -> one batched decode step over the requests
+whose prefill is complete (kernel 3) -> greedy sample -> append / finish.
+Decode and chunk batches are padded to power-of-two buckets, the padding
+rows pointing at a free scratch slot, as in the JAX engine.
 
 Not ported yet (raise NotImplementedError): decode bursts, the pipelined
-loop, chunked prefill, the prefix cache, speculative decoding, recovery,
-meshes and vision.
+loop, speculative decoding, recovery, meshes and vision.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ class EngineStats:
     steps: int = 0
     preemptions: int = 0
     prefill_batches: int = 0
+    chunk_batches: int = 0  # prefill_chunk_batch calls
     # host seconds of prefill waves and decode steps, each ending in the
     # readback of its sampled tokens (so the device work is included)
     prefill_s: float = 0.0
@@ -68,12 +69,17 @@ class Engine:
         vision=None,
     ):
         """params must live on `device` (init_params / params_from_numpy
-        with the same device). The cache is created there."""
-        if (mesh is not None or prefill_chunk is not None or prefix_cache
-                or draft_params is not None or vision is not None):
+        with the same device). The cache is created there.
+
+        prefill_chunk: prompts longer than this many tokens are ingested one
+        page-aligned chunk per step, interleaved with decode (a multiple of
+        page_size). prefix_cache: requests reuse the pages of an earlier
+        prompt's shared prefix and prefill only their suffix."""
+        if mesh is not None or draft_params is not None or vision is not None:
             raise NotImplementedError(
-                "meshes, chunked prefill, the prefix cache, speculative "
-                "decoding and vision are not ported yet")
+                "meshes, speculative decoding and vision are not ported yet")
+        if prefill_chunk is not None and prefill_chunk % page_size != 0:
+            raise ValueError("prefill_chunk must be a multiple of page_size")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.page_size = page_size
@@ -82,7 +88,8 @@ class Engine:
         self.cache = llama.build_kv_caches(
             cfg, num_pages, page_size, max_seqs, pages_per_seq, quant_dtype,
             device=self.device)
-        self.sched = Scheduler(max_seqs, pages_per_seq, page_size, num_pages)
+        self.sched = Scheduler(max_seqs, pages_per_seq, page_size, num_pages,
+                               prefix_cache=prefix_cache)
         self.sampling = sampling or SamplingParams()
         self.stats = EngineStats()
         # Finished slots awaiting their device-metadata clear: one batched
@@ -91,6 +98,8 @@ class Engine:
         self._next_uid = 0
         self._stream_pos: Dict[int, int] = {}  # uid -> tokens consumed
         self._all_reqs: Dict[int, Request] = {}
+        self.prefill_chunk = prefill_chunk
+        self._prefilling: Dict[int, tuple] = {}  # uid -> (req, pos, tokens)
 
     def submit(self, prompt: List[int], max_new_tokens: int,
                eos_token: Optional[int] = None,
@@ -132,13 +141,23 @@ class Engine:
         return ids.cpu().numpy(), lps.cpu().numpy()
 
     def _prefill_admitted(self, reqs: List[Request]) -> None:
-        """Prefill all newly admitted prompts in one batched pass. Resumed
-        (preempted) requests re-prefill their prompt plus all but the last
-        generated token; the last one replays through the decode step."""
+        """Prefill all newly admitted prompts in one batched pass. Long
+        prompts (past prefill_chunk) and prefix-cache hits, whose suffix
+        starts at a page-aligned offset, go to the chunked path instead.
+        Resumed (preempted) requests re-prefill their prompt plus all but
+        the last generated token; the last one replays through the decode
+        step."""
+        toks_of = {r.uid: r.prompt + r.generated[:-1] for r in reqs}
+        for r in reqs:
+            toks = toks_of[r.uid]
+            if ((self.prefill_chunk is not None
+                    and len(toks) > self.prefill_chunk) or r.cached_len > 0):
+                self._prefilling[r.uid] = (r, r.cached_len, toks)
+        reqs = [r for r in reqs if r.uid not in self._prefilling]
         if not reqs:
             return
         t0 = time.perf_counter()
-        token_lists = [r.prompt + r.generated[:-1] for r in reqs]
+        token_lists = [toks_of[r.uid] for r in reqs]
         self.cache, logits = llama.prefill_batch(
             self.params, self.cfg, self.cache, [r.slot for r in reqs],
             [r.pages for r in reqs], token_lists)
@@ -147,6 +166,8 @@ class Engine:
         self.stats.prefill_s += time.perf_counter() - t0
         for req, toks, first, flp in zip(reqs, token_lists, firsts, first_lps):
             self.stats.prefill_tokens += len(toks)
+            if self.sched.prefix is not None:
+                self.sched.prefix.register(req)
             if not req.generated:  # fresh request (not a resume)
                 req.generated.append(int(first))
                 req.logprobs.append(float(flp))
@@ -160,13 +181,16 @@ class Engine:
         request and retry."""
         m_slots, m_idx, m_ids = [], [], []
         preempted = set()
-        for req in list(self.sched.active.values()):
+        for req in self._decode_ready():
             while req.uid not in preempted:
                 try:
                     pairs = self.sched.ensure_decode_pages(req, n)
                 except MemoryError:
+                    # mid-prefill requests are no victims: their chunk
+                    # offsets would not survive the re-prefill
                     victims = [r for r in self.sched.active.values()
-                               if r.uid not in preempted]
+                               if r.uid not in preempted
+                               and r.uid not in self._prefilling]
                     if len(victims) <= 1:
                         raise  # nothing left to steal from
                     victim = max(victims, key=lambda r: r.uid)
@@ -187,6 +211,76 @@ class Engine:
         if m_slots:
             self.cache = map_pages(self.cache, m_slots, m_idx, m_ids)
 
+    def _scratch_slot(self) -> Optional[int]:
+        """A free slot for padding rows, or None when every slot is busy."""
+        for cand in range(self.sched.max_seqs):
+            if cand not in self.sched.active:
+                return cand
+        return None
+
+    def _advance_chunked_prefill(self) -> None:
+        """Advance EVERY in-progress long prompt (or prefix-hit suffix) by
+        one chunk in a single batched pass (llama.prefill_chunk_batch):
+        prefill work per step stays bounded, and concurrent long prompts do
+        not serialize."""
+        if not self._prefilling:
+            return
+        t0 = time.perf_counter()
+        items = list(self._prefilling.values())
+        page = self.page_size
+        if self.prefill_chunk is not None:
+            chunk = self.prefill_chunk
+        else:
+            # suffix-only mode (prefix-cache hits): one chunk covers the
+            # largest remaining suffix, bucketed to power-of-two pages
+            max_rem = max(len(t) - pos for _, pos, t in items)
+            np_pages = -(-max_rem // page)
+            chunk = (1 << max(np_pages - 1, 0).bit_length()) * page
+        pad_rows = _bucket(len(items)) - len(items)
+        scratch = self._scratch_slot() if pad_rows else None
+        if scratch is None:
+            pad_rows = 0  # every slot busy: the batch runs unpadded
+        slots, pages_l, chunk_toks, offs, totals = [], [], [], [], []
+        for req, pos, tokens in items:
+            slots.append(req.slot)
+            pages_l.append(req.pages)
+            chunk_toks.append(tokens[pos: pos + chunk])
+            offs.append(pos)
+            totals.append(len(tokens))
+        for _ in range(pad_rows):
+            slots.append(scratch)
+            pages_l.append([])      # zero table row -> null-page writes
+            chunk_toks.append([0])
+            offs.append(0)
+            totals.append(chunk + page)  # never "final"
+        self.cache, logits = llama.prefill_chunk_batch(
+            self.params, self.cfg, self.cache, slots, pages_l, chunk_toks,
+            offs, totals, chunk)
+        # logits carry the padded bucket rows; sample only the real items
+        ids, lps = self._sample(logits[: len(items)])
+        self.stats.chunk_batches += 1
+        self.stats.prefill_s += time.perf_counter() - t0
+        for i, (req, pos, tokens) in enumerate(items):
+            pos += min(chunk, len(tokens) - pos)
+            if pos < len(tokens):
+                self._prefilling[req.uid] = (req, pos, tokens)
+                continue
+            del self._prefilling[req.uid]
+            self.stats.prefill_tokens += len(tokens) - req.cached_len
+            if self.sched.prefix is not None:
+                self.sched.prefix.register(req)
+            if not req.generated:
+                req.generated.append(int(ids[i]))
+                req.logprobs.append(float(lps[i]))
+                self.stats.decode_tokens += 1
+            if req.done:
+                self._finish(req)
+
+    def _decode_ready(self) -> List[Request]:
+        """Active requests whose prefill is complete."""
+        return [r for r in self.sched.active.values()
+                if r.uid not in self._prefilling]
+
     def _pad_batch(self, active):
         """Pad the active batch to a power-of-two bucket. Padding rows point
         at a free scratch slot whose junk appends the caller rolls back;
@@ -201,10 +295,7 @@ class Engine:
             tokens[i] = r.generated[-1]
         scratch = None
         if nb > n:
-            for cand in range(self.sched.max_seqs):
-                if cand not in self.sched.active:
-                    scratch = cand
-                    break
+            scratch = self._scratch_slot()
             if scratch is None:
                 return slots[:n], tokens[:n], None
             slots[n:] = scratch
@@ -232,13 +323,16 @@ class Engine:
                 self._finish(req)
 
     def step(self) -> None:
-        """One engine iteration: admit, prefill, batched decode step."""
+        """One engine iteration: admit, prefill, one chunk of every
+        in-progress chunked prefill, batched decode step."""
         self._flush_released()
         self._prefill_admitted(self.sched.admit())
-        if not self.sched.active:
+        self._advance_chunked_prefill()
+        active = self._decode_ready()
+        if not active:
             return
         self._map_new_pages(1)
-        self._decode_active(list(self.sched.active.values()))
+        self._decode_active(active)
 
     def _finish(self, req: Request) -> None:
         slot = req.slot

@@ -7,7 +7,9 @@ Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
 admits 16 requests of 200-256 prompt tokens into a fresh engine and
 traces one prefill wave and `--steps` decode steps with torch.profiler.
-For each phase it prints the host wall time (with and without the
+Then an engine with chunked prefill (chunks of 512) takes 4 prompts of
+4000 tokens and traces one chunk batch: 4 x 512 tokens at q_start 1536
+(after three untraced warm chunks). For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -27,6 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 GROUPS = (("prefill kernel", ("prefill_fwd_kernel",)),
+          ("paged prefill kernel", ("paged_prefill_kernel",)),
           ("paged kernel", ("decode_kernel",)),
           ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")),
           ("elementwise / copy / reduce", ()))
@@ -155,6 +158,39 @@ def main() -> int:
         _report(f"decode step (batch 16, {cfg.n_layers} layers)", prof, wall,
                 plain, args.steps, "step", out)
     eng.run()
+    del eng
+
+    def chunk_engine():
+        """4 prompts of 4000 tokens, advanced by 3 chunks of 512 (the
+        chunk batch's shapes are then warm); the next chunk starts at
+        q_start 1536."""
+        e = Engine(params, cfg, num_pages=4 * 64 + 1, page_size=64,
+                   max_seqs=16, pages_per_seq=64, quant_dtype="int8",
+                   prefill_chunk=512, device="cuda")
+        rng = np.random.RandomState(1)
+        for _ in range(4):
+            e.submit(list(rng.randint(0, cfg.vocab_size, 4000)), 1)
+        e._prefill_admitted(e.sched.admit())
+        for _ in range(3):
+            e._advance_chunked_prefill()
+        torch.cuda.synchronize()
+        return e
+
+    eng = chunk_engine()
+    t0 = time.perf_counter()
+    eng._advance_chunked_prefill()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    del eng
+    eng = chunk_engine()
+    with open(args.out or os.devnull, "a") as out:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            eng._advance_chunked_prefill()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _report(f"chunk batch (4 x 512 tokens at q_start 1536, "
+                f"{cfg.n_layers} layers)", prof, wall, plain, 1, "batch", out)
     print(f"card: {smi}", flush=True)
     return 0
 

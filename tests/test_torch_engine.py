@@ -99,7 +99,7 @@ def test_eos_and_stop_end_generation(params):
 def test_unported_engine_options_raise(params):
     _, tp = params
     with pytest.raises(NotImplementedError):
-        Engine(tp, TCFG, device="cpu", prefix_cache=True)
+        Engine(tp, TCFG, device="cpu", draft_params=tp)
     with pytest.raises(NotImplementedError):
         Engine(tp, TCFG, device="cpu").run(burst=4)
     with pytest.raises(NotImplementedError):

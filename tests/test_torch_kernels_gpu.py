@@ -135,3 +135,76 @@ def test_launch_counts_and_misaligned_views(dev):
     ro = prefill._prefill_plain(q.float(), k.float(), k.float(), 64 ** -0.5,
                                 -1, 0, 0.0, False)
     assert (o.float() - ro).abs().max() < 2e-2
+
+
+@pytest.mark.parametrize("lens_q,lens_k,hq,hkv,d,causal,window,softcap,dtype", [
+    ([200, 1100, 0, 513], [200, 1100, 0, 513], 32, 8, 128, True, (-1, -1), 0.0, BF),
+    ([100, 37, 300], [130, 64, 200], 8, 2, 128, False, (128, 64), 0.0, BF),
+    ([30, 5], [10, 0], 4, 2, 64, True, (3, -1), 0.0, HF),   # dead rows
+    ([65, 1, 64], [65, 1, 64], 4, 4, 64, True, (-1, -1), 30.0, BF),
+])
+def test_varlen_kernel(dev, lens_q, lens_k, hq, hkv, d, causal, window, softcap,
+                       dtype):
+    from mfa_tpu_torch.kernels import _build, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = _rn(gen, sum(lens_q), hq, d, dtype=dtype)
+    k, v = (_rn(gen, sum(lens_k), hkv, d, dtype=dtype) for _ in range(2))
+    cu_q = torch.tensor([0] + lens_q, device=dev).cumsum(0).int()
+    cu_k = torch.tensor([0] + lens_k, device=dev).cumsum(0).int()
+    _build.reset_launches()
+    o, lse = varlen.varlen_attention(q, k, v, cu_q, cu_k, max(lens_q), max(lens_k),
+                                     causal=causal, window_size=window,
+                                     logit_softcap=softcap, return_lse=True)
+    assert _build.launches["varlen"] == 1
+    ro, rl = varlen._varlen_plain(q.float(), k.float(), v.float(), cu_q, cu_k,
+                                  d ** -0.5, window[0], 0 if causal else window[1],
+                                  softcap, True)
+    assert o.dtype == dtype and lse.shape == (hq, sum(lens_q))
+    _close(o, lse, ro, rl)
+
+
+@pytest.mark.parametrize(
+    "hq,hkv,page,d,quant,dtype,q_start,sq,lens,q_lens,causal,window,softcap", [
+        (32, 8, 64, 128, True, BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        (8, 2, 16, 128, False, BF, [16, 0], 100, [116, 70], [100, 40], False,
+         (10, 6), 0.0),
+        (4, 4, 64, 64, False, HF, [64, 0], 130, [194, 100], None, True, (40, -1),
+         0.0),
+        (16, 2, 32, 128, True, HF, [96, 0], 64, [160, 64], None, True, (-1, -1),
+         20.0),
+    ])
+def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
+                              lens, q_lens, causal, window, softcap):
+    from mfa_tpu_torch.kernels import _build, paged_prefill
+    from mfa_tpu_torch.kernels.quant import quantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, pps = len(lens), 400 // page + 1
+    P = b * pps + 3
+    q = _rn(gen, b, sq, hq, d, dtype=dtype)
+    kf, vf = _rn(gen, hkv, P, page, d, dtype=dtype), _rn(gen, hkv, P, page, d, dtype=dtype)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
+    else:
+        kp, vp, ks, vs = kf, vf, None, None
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    ql = (L - qs).clamp(min=0) if q_lens is None else torch.tensor(
+        q_lens, dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    o, lse = paged_prefill.paged_prefill_attention(
+        q, kp, vp, L, qs, table, q_lens=ql, k_scales=ks, v_scales=vs,
+        causal=causal, window_left=window[0], window_right=window[1],
+        logit_softcap=softcap, return_lse=True)
+    assert _build.launches["paged_prefill"] == 1
+    # int8 pages contract in bf16: the kernel rounds fp16 q to bf16 first
+    q_ref = q.to(BF).float() if quant else q.float()
+    ro, rl = paged_prefill._paged_prefill_plain(
+        q_ref, kp, vp, ks, vs, L, qs, ql, table, d ** -0.5, window[0],
+        0 if causal else window[1], softcap)
+    assert o.dtype == dtype and lse.shape == (b, hq, sq)
+    _close(o, lse, ro, rl)
