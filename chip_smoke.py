@@ -15,19 +15,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    it), and the least time the card could take (bytes over 3.35 TB/s vs
    operations over 989 TFLOP/s, counting the work these inputs need).
    Kernels: prefill, split-KV decode + combine, paged decode, varlen and
-   paged prefill.
+   paged prefill; the five backward launches (fused, the dK/dV + dQ split,
+   the varlen split) within max |a - r| <= 2e-2 max |r| and mean |a - r| <=
+   2e-2 mean |r| for each of dq, dk, dv, and fused against split.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
-   contiguous and paged); the serving engine at Llama-3-8B width (32
-   layers, random bf16 weights from a seed, int8 paged KV, page 64)
-   answering 16 requests of 200-256 prompt tokens and 32 new tokens each;
-   then, with the same weights, an engine with chunked prefill (chunks of
-   512) and the prefix cache answering 4 long prompts, 9 prompts that share
-   a 1024-token system prompt and 4 short ones.
+   contiguous and paged, and the gradient functions flash_attn_func_grad,
+   flash_attention_bwd(fused=False), flash_attn_varlen_func_grad); the
+   serving engine at Llama-3-8B width (32 layers, random bf16 weights from
+   a seed, int8 paged KV, page 64) answering 16 requests of 200-256 prompt
+   tokens and 32 new tokens each; then, with the same weights, an engine
+   with chunked prefill (chunks of 512) and the prefix cache answering 4
+   long prompts, 9 prompts that share a 1024-token system prompt and 4
+   short ones; then, with the same weights and the engines freed, three
+   SGD train steps of the full 32-layer model on 4 x 2049 tokens with
+   remat (every layer's backward through the fused backward kernel).
 4. The same model cut to 2 layers, on the card (kernels) and on the CPU
    (plain versions) with the same weights: prefill, decode, chunked prefill
-   and prefix-hit suffix logits agree.
+   and prefix-hit suffix logits agree, and one SGD train step gives the
+   same loss and gradients.
 5. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
 """
@@ -269,6 +276,7 @@ def kernel_phase(records):
                        bound_by=by, library_ms=None)
     ok &= varlen_kernels(records, rn)
     ok &= paged_prefill_kernels(records, rn, gen)
+    ok &= backward_kernels(records, rn)
     return ok
 
 
@@ -399,12 +407,177 @@ def paged_prefill_kernels(records, rn, gen):
     return ok
 
 
+def _bwd_close(got, ref, what):
+    """Each of dq, dk, dv within max |a - r| <= 2e-2 max |r| and mean |a - r|
+    <= 2e-2 mean |r|, and finite: only P and dS round to bf16 before their
+    products, and the fused kernel's dQ atomics change the summation order.
+    Returns (largest max abs error, ok)."""
+    import torch
+
+    worst, ok = 0.0, True
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        if g is None:
+            continue
+        d = (g.float() - r.float()).abs()
+        mx, mean = float(d.max()), float(d.mean())
+        rmax, rmean = float(r.float().abs().max()), float(r.float().abs().mean())
+        good = bool(torch.isfinite(g.float()).all()) and mx <= 2e-2 * rmax \
+            and mean <= 2e-2 * rmean
+        print(f"  {what} {name}: max_abs_err {mx:.3e} (<= {2e-2 * rmax:.3e}) "
+              f"mean {mean:.3e} (<= {2e-2 * rmean:.3e}) {'ok' if good else 'FAIL'}",
+              flush=True)
+        worst, ok = max(worst, mx), ok and good
+    return worst, ok
+
+
+def backward_kernels(records, rn):
+    """Kernels 11-14: the five backward launches against their plain
+    version (fp32 on the same bf16 inputs, dO ~ N(0, 1)), fused against
+    split, and each launch timed alone. The bound counts 10 * hq * d flops
+    per visible pair for the whole backward (5 products), 8 for the dK/dV
+    launch, 6 for the dQ launch; bytes read q, k, v, O (or delta), dO, LSE
+    once and write the launch's gradients once."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import backward, prefill, varlen
+
+    dev, bf = "cuda", torch.bfloat16
+    ok = True
+    #        tag, b, hq, hkv, sq, sk, d, window (left, right), record
+    dense = (("training shape, causal", 4, 32, 8, 2048, 2048, 128, (-1, 0), True),
+             ("d 64, causal", 2, 32, 8, 1024, 1024, 64, (-1, 0), False),
+             ("sq 128 < sk 512, causal", 1, 32, 8, 128, 512, 128, (-1, 0), False),
+             ("sq 300, sk 8, window (4, -1) causal: dead rows", 1, 32, 8, 300, 8,
+              128, (4, 0), False))
+    for tag, b, hq, hkv, sq, sk, d, (wl, wr), record in dense:
+        scale = d ** -0.5
+        q, k, v = rn(b, hq, sq, d), rn(b, hkv, sk, d), rn(b, hkv, sk, d)
+        do = rn(b, hq, sq, d)
+        o, lse = prefill.prefill_attention(q, k, v, window_size=(wl, wr),
+                                           return_lse=True)
+        print(f"backward {tag}: b={b} hq={hq} hkv={hkv} sq={sq} sk={sk} d={d} "
+              f"bf16", flush=True)
+        ref = backward._bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                  do.float(), scale, wl, wr, 0.0)
+        kw = dict(window_size=(wl, wr))
+        fused = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=True, **kw)
+        split = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+        e_f, g1 = _bwd_close(fused, ref, "fused")
+        e_kv, g2 = _bwd_close((None,) + split[1:], ref, "split dkv")
+        e_q, g3 = _bwd_close(split[:1] + (None, None), ref, "split dq")
+        _, g4 = _bwd_close(fused, split, "fused vs split")
+        ok &= g1 and g2 and g3 and g4
+        dead = torch.isneginf(lse)
+        if dead.any():  # rows that saw no column: zero gradients, exactly
+            zero = all(bool((g[dead] == 0).all()) for g in (fused[0], split[0]))
+            print(f"  {int(dead.sum())} dead rows: dq exactly 0 in both {zero}",
+                  flush=True)
+            ok &= zero
+        for n, e in (("bwd_fused", e_f), ("bwd_dkv", e_kv), ("bwd_dq", e_q)):
+            records[n]["max_abs_err"] = max(records[n].get("max_abs_err", 0.0), e)
+        args = backward._dense_cuda_inputs(q, k, v, o, lse, do) + (scale, wl, wr, 0.0)
+        launch = {"bwd_fused": backward._launch_fused,
+                  "bwd_dkv": backward._launch_dkv, "bwd_dq": backward._launch_dq}
+        ms = {n: _time_ms(lambda fn=fn: fn(*args), iters=5)
+              for n, fn in launch.items()}
+        plain_ms = _time_ms(lambda: backward._bwd_plain(
+            q, k, v, o, lse, do, scale, wl, wr, 0.0), iters=2)
+        pairs = b * hq * _visible_pairs(sq, sk, 0, wl, wr)
+        qb, kb = b * hq * sq * d * 2, b * hkv * sk * d * 2
+        row_b = b * hq * sq * 4
+        bounds = {"bwd_fused": _bound(4 * qb + 4 * kb + row_b, 10 * pairs * d),
+                  "bwd_dkv": _bound(2 * qb + 2 * kb + 2 * row_b + 2 * kb, 8 * pairs * d),
+                  "bwd_dq": _bound(2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)}
+        lib = ""
+        lib_ms = None
+        if record:
+            # SDPA's backward alone: autograd.grad over the retained graph of
+            # one SDPA call (is_causal, enable_gqa) at the same shape
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                enable_gqa=True)
+            lib_ms = _time_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), do, retain_graph=True), iters=5)
+            lib = f" library_ms(sdpa backward alone) {lib_ms:.4f}"
+            del ql, kl, vl, ol
+        print(f"  fused ms {ms['bwd_fused']:.4f} split ms {ms['bwd_dkv']:.4f} + "
+              f"{ms['bwd_dq']:.4f} = {ms['bwd_dkv'] + ms['bwd_dq']:.4f} plain_ms "
+              f"{plain_ms:.4f} bound_ms {bounds['bwd_fused'][0]:.4f} "
+              f"({bounds['bwd_fused'][1]}; dkv {bounds['bwd_dkv'][0]:.4f}, dq "
+              f"{bounds['bwd_dq'][0]:.4f}){lib}", flush=True)
+        if record:
+            for n in ms:
+                records[n].update(ms=ms[n], plain_ms=plain_ms, bound_ms=bounds[n][0],
+                                  bound_by=bounds[n][1],
+                                  library_ms=lib_ms if n == "bwd_fused" else None)
+        del ref, fused, split, args
+        torch.cuda.empty_cache()
+
+    hq, hkv, d = 32, 8, 128
+    scale = d ** -0.5
+    lens_a = [200, 1100, 512, 300, 700, 384, 450, 450]
+    cases = (("8 packed causal", lens_a, lens_a, (-1, 0), 0.0),
+             ("8 packed, lens_k != lens_q, band (128, 64)", lens_a,
+              [256, 1000, 600, 300, 640, 400, 500, 396], (128, 64), 0.0),
+             ("one zero-length sequence, causal", [300, 0, 517, 64],
+              [300, 0, 517, 64], (-1, 0), 0.0),
+             ("8 packed causal, softcap 30", lens_a, lens_a, (-1, 0), 30.0))
+    for i, (tag, lq, lk, (wl, wr), cap) in enumerate(cases):
+        q = rn(sum(lq), hq, d)
+        k, v = rn(sum(lk), hkv, d), rn(sum(lk), hkv, d)
+        do = rn(sum(lq), hq, d)
+        cu_q = torch.tensor([0] + lq, device=dev).cumsum(0).int()
+        cu_k = torch.tensor([0] + lk, device=dev).cumsum(0).int()
+        o, lse = varlen.varlen_attention(q, k, v, cu_q, cu_k, max(lq), max(lk),
+                                         window_size=(wl, wr), logit_softcap=cap,
+                                         return_lse=True)
+        print(f"varlen backward {tag}: lens_q {lq} lens_k {lk} hq={hq} hkv={hkv} "
+              f"d={d} bf16", flush=True)
+        got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu_q, cu_k,
+                                            window_size=(wl, wr), logit_softcap=cap)
+        ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(),
+                                         lse, do.float(), cu_q, cu_k, scale, wl, wr,
+                                         cap)
+        e_q, g1 = _bwd_close(got[:1] + (None, None), ref, "varlen dq")
+        e_kv, g2 = _bwd_close((None,) + got[1:], ref, "varlen dkv")
+        ok &= g1 and g2
+        records["varlen_bwd_dq"]["max_abs_err"] = max(
+            records["varlen_bwd_dq"].get("max_abs_err", 0.0), e_q)
+        records["varlen_bwd_dkv"]["max_abs_err"] = max(
+            records["varlen_bwd_dkv"].get("max_abs_err", 0.0), e_kv)
+        args = backward._varlen_cuda_inputs(q, k, v, o, lse, do, cu_q, cu_k)
+        tail = (cu_q, cu_k)
+        ms_kv = _time_ms(lambda: backward._launch_varlen_dkv(
+            *args, *tail, max(lk), scale, wl, wr, cap), iters=5)
+        ms_q = _time_ms(lambda: backward._launch_varlen_dq(
+            *args, *tail, max(lq), scale, wl, wr, cap), iters=5)
+        plain_ms = _time_ms(lambda: backward._varlen_bwd_plain(
+            q, k, v, o, lse, do, cu_q, cu_k, scale, wl, wr, cap), iters=2)
+        pairs = hq * sum(_visible_pairs(a, b_, 0, wl, wr) for a, b_ in zip(lq, lk))
+        qb, kb, row_b = sum(lq) * hq * d * 2, sum(lk) * hkv * d * 2, sum(lq) * hq * 4
+        b_kv = _bound(2 * qb + 2 * kb + 2 * row_b + 2 * kb, 8 * pairs * d)
+        b_q = _bound(2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)
+        b_all = _bound(4 * qb + 4 * kb + row_b, 10 * pairs * d)
+        print(f"  dkv ms {ms_kv:.4f} + dq ms {ms_q:.4f} = {ms_kv + ms_q:.4f} "
+              f"plain_ms {plain_ms:.4f} bound_ms {b_all[0]:.4f} ({b_all[1]}; dkv "
+              f"{b_kv[0]:.4f}, dq {b_q[0]:.4f}) library_ms n/a (ragged)", flush=True)
+        if i == 0:
+            records["varlen_bwd_dkv"].update(ms=ms_kv, plain_ms=plain_ms,
+                                             bound_ms=b_kv[0], bound_by=b_kv[1],
+                                             library_ms=None)
+            records["varlen_bwd_dq"].update(ms=ms_q, plain_ms=plain_ms,
+                                            bound_ms=b_q[0], bound_by=b_q[1],
+                                            library_ms=None)
+    return ok
+
+
 def library_surface(counts):
     """Main path, part 1: the reference library's own entry points."""
     import torch
 
     import mfa_tpu_torch
-    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.kernels import _build, autodiff, backward, prefill
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
 
@@ -436,16 +609,32 @@ def library_surface(counts):
                                               max(plens), max(plens),
                                               causal=True,
                                               block_table=table[:4])
+    # the gradient functions: [b, s, h, d] with a backward (fused kernel),
+    # flash_attention_bwd on the split, packed varlen with a backward
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, qv, kv, vv)]
+    o6 = autodiff.flash_attn_func_grad(*leaves[:3], causal=True)
+    o7 = autodiff.flash_attn_varlen_func_grad(*leaves[3:], cu, cu, max(lens),
+                                              max(lens), causal=True)
+    grads = torch.autograd.grad((o6.float() * o1.float()).sum()
+                                + (o7.float() * o4.float()).sum(), leaves)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        ot, lse = prefill.prefill_attention(qt, kt, vt, causal=True,
+                                            return_lse=True)
+        grads += backward.flash_attention_bwd(qt, kt, vt, ot, lse, ot,
+                                              causal=True, fused=False)
     torch.cuda.synchronize()
     got = dict(_build.launches)
     counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
     print(f"library surface launches {got}", flush=True)
-    outs = (o1, o2, o3, o4, o5)
+    outs = (o1, o2, o3, o4, o5, o6, o7) + grads
     ok = all(bool(torch.isfinite(o.float()).all()) for o in outs)
     ok &= o1.shape == q.shape and o2.shape == qd.shape and o3.shape == qd.shape
     ok &= o4.shape == qv.shape and o5.shape == qp.shape
-    ok &= all(got.get(n, 0) >= 1 for n in ("prefill", "decode", "combine",
-                                           "paged", "varlen", "paged_prefill"))
+    ok &= all(g.shape == t.shape for g, t in zip(grads, leaves + [qt, kt, vt]))
+    ok &= all(got.get(n, 0) >= 1 for n in (
+        "prefill", "decode", "combine", "paged", "varlen", "paged_prefill",
+        "bwd_fused", "bwd_dkv", "bwd_dq", "varlen_bwd_dkv", "varlen_bwd_dq"))
     return ok
 
 
@@ -573,7 +762,76 @@ def chunked_engine_phase(counts, ident, state):
           f"({step_tokens} tokens in {stats.steps} steps, {stats.decode_s:.3f} "
           f"s), {wall:.3f} s wall, peak memory {peak_gb:.2f} GB [{ident}]",
           flush=True)
-    del eng, params
+    del eng
+    state.update(params=params, cfg=cfg)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def train_phase(counts, ident, state):
+    """Main path, part 4: three SGD train steps of the full Llama-3-8B
+    (32 layers, the engines' random bf16 weights, their KV pools freed) on
+    4 x 2049 tokens from numpy.random.RandomState(SEED) (benchmark/train.py's
+    batch and sequence), remat on. Each layer's attention runs kernel 1 in
+    the forward and again in the remat recompute, and the fused backward
+    kernel. SGD, not AdamW: AdamW's two moments would add 32-64 GB to the
+    16 GB of weights and 16 GB of gradients on an 80 GB card."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+
+    params, cfg = state.pop("params"), state.pop("cfg")
+    lr, b, s = 1.0, 4, 2048
+    rng = np.random.RandomState(SEED)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s + 1)),
+                             device="cuda")
+    before = {n: params["layers"][i][n].clone()
+              for i, n in ((0, "wq"), (cfg.n_layers - 1, "w_down"))}
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, ok = [], [], True
+    for step in range(3):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = llama.train_step(params, tokens, cfg, lr=lr, remat=True)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = dict(_build.launches)
+        counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+        good = got.get("bwd_fused", 0) == cfg.n_layers \
+            and got.get("prefill", 0) == 2 * cfg.n_layers
+        print(f"train step {step + 1}: loss {losses[-1]:.6f}, {times[-1] * 1e3:.1f} "
+              f"ms, launches {got} (bwd_fused = {cfg.n_layers} layers, prefill = "
+              f"2 x {cfg.n_layers}: forward + remat recompute) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    changed = {n: not torch.equal(t, params["layers"][i][n])
+               for (n, t), i in zip(before.items(), (0, cfg.n_layers - 1))}
+    ok &= all(math.isfinite(x) for x in losses) and losses[2] < losses[0]
+    ok &= all(changed.values())
+    n_mat = sum(p.numel() for p in llama.param_tensors(params) if p.dim() == 2) \
+        - params["embed"].numel()
+    pairs = b * s * (s + 1) // 2
+    model_flops = 6 * n_mat * b * s + 12 * cfg.n_layers * cfg.n_heads * \
+        cfg.head_dim * pairs
+    step_s = sum(times[1:]) / 2
+    print(f"train: Llama-3-8B, {cfg.n_layers} layers, b {b} x {s} tokens, remat, "
+          f"SGD lr {lr}: losses {losses} (falling: {losses[2] < losses[0]}), "
+          f"weights changed {changed}", flush=True)
+    print(f"train: step {step_s * 1e3:.1f} ms (mean of steps 2-3; step 1 "
+          f"{times[0] * 1e3:.1f} ms), {b * s / step_s:.1f} train tokens/s, peak "
+          f"memory {peak_gb:.2f} GB; model-FLOPs share {model_flops / step_s / PEAK_BF16_FLOPS:.4f} "
+          f"= (6 N T + 12 L hq d P) / step time / 989 TFLOP/s with N = {n_mat} "
+          f"weights in matmuls (layers + lm_head, not the embedding table), T = "
+          f"{b * s} tokens, P = {pairs} causal pairs, remat recompute not "
+          f"counted [{ident}]", flush=True)
+    for p in llama.param_tensors(params):
+        p.grad = None
+    del params, before
     torch.cuda.empty_cache()
     return ok
 
@@ -631,7 +889,30 @@ def cpu_vs_cuda_phase():
               f"agree {bool(torch.equal(a.argmax(-1), r.argmax(-1)))} "
               f"{'ok' if good else 'FAIL'}", flush=True)
         ok &= good
-    return ok
+    # one SGD train step on b 1 x 65 tokens, same weights on both devices
+    toks = rng.randint(0, cfg.vocab_size, (1, 65))
+    res = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        params, loss = llama.train_step(params, toks, cfg, lr=1.0)
+        res[dev] = (float(loss), [p.grad.float().cpu()
+                                  for p in llama.param_tensors(params)])
+    d_loss = abs(res["cuda"][0] - res["cpu"][0])
+    good = d_loss <= 5e-2
+    worst_cos, worst_ratio = 1.0, 0.0
+    for a, r in zip(res["cuda"][1], res["cpu"][1]):
+        na, nr = float(a.norm()), float(r.norm())
+        if na == 0.0 and nr == 0.0:
+            continue
+        cos = float((a * r).sum()) / max(na * nr, 1e-30)
+        worst_cos = min(worst_cos, cos)
+        worst_ratio = max(worst_ratio, abs(na / max(nr, 1e-30) - 1.0))
+    good &= worst_cos >= 0.99 and worst_ratio <= 0.05
+    print(f"cuda vs cpu train_step (2 layers, 1 x 65 tokens, SGD): loss "
+          f"{res['cuda'][0]:.5f} vs {res['cpu'][0]:.5f} (|diff| {d_loss:.2e} <= "
+          f"5e-2); over {len(res['cpu'][1])} weight tensors the least gradient "
+          f"cosine {worst_cos:.5f} (>= 0.99), the largest norm ratio - 1 "
+          f"{worst_ratio:.4f} (<= 0.05) {'ok' if good else 'FAIL'}", flush=True)
+    return ok and good
 
 
 def main() -> int:
@@ -676,6 +957,16 @@ def main() -> int:
                    "mfa_tpu/kernels/varlen.py:53"),
         "paged_prefill": ("mfa_tpu_torch/csrc/paged_prefill.cu",
                           "mfa_tpu/kernels/paged_prefill.py:50"),
+        "bwd_fused": ("mfa_tpu_torch/csrc/backward.cu",
+                      "mfa_tpu/kernels/backward.py:163"),
+        "bwd_dkv": ("mfa_tpu_torch/csrc/backward.cu",
+                    "mfa_tpu/kernels/backward.py:413"),
+        "bwd_dq": ("mfa_tpu_torch/csrc/backward.cu",
+                   "mfa_tpu/kernels/backward.py:513"),
+        "varlen_bwd_dkv": ("mfa_tpu_torch/csrc/backward.cu",
+                           "mfa_tpu/kernels/backward.py:1060"),
+        "varlen_bwd_dq": ("mfa_tpu_torch/csrc/backward.cu",
+                          "mfa_tpu/kernels/backward.py:1142"),
     }
     records = {n: {"name": n, "route": "cuda", "source": s, "replaces": r}
                for n, (s, r) in sources.items()}
@@ -687,6 +978,7 @@ def main() -> int:
                      ("engine_8b", lambda: engine_phase(counts, ident, state)),
                      ("chunked_prefix_engine_8b",
                       lambda: chunked_engine_phase(counts, ident, state)),
+                     ("train_8b", lambda: train_phase(counts, ident, state)),
                      ("cuda_vs_cpu", cpu_vs_cuda_phase)):
         t0 = time.perf_counter()
         try:

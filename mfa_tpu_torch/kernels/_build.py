@@ -28,7 +28,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("prefill.cu", "decode.cu", "paged.cu", "paged_prefill.cu")
+SOURCES = ("prefill.cu", "decode.cu", "paged.cu", "paged_prefill.cu",
+           "backward.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -143,6 +144,23 @@ def dense(t: torch.Tensor) -> torch.Tensor:
     16-byte vectors, and a view that starts mid-vector would fault."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd would record a graph through these tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """A kernel launch builds no autograd graph: raise instead of returning
+    an output whose gradient would be silently missing."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is not differentiable and an input "
+            f"requires grad; use mfa_tpu_torch.kernels.autodiff "
+            f"(flash_attention_grad, flash_attn_func_grad, "
+            f"flash_attn_varlen_func_grad), or call under torch.no_grad()")
 
 
 def same_device(name: str, *tensors: torch.Tensor) -> None:

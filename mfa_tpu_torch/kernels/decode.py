@@ -101,6 +101,7 @@ def _decode_partials_plain(q, k_cache, v_cache, lens, scale, num_splits, tps,
 
 def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
                  window_left, softcap):
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     batch, num_heads, d = q.shape
     hkv, max_s = k_cache.shape[1], k_cache.shape[2]
     group = num_heads // hkv

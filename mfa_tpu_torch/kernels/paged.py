@@ -77,6 +77,8 @@ def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
 
 def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
                 window_left, softcap, pos_offset):
+    _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales,
+                       v_scales)
     batch, num_heads, d = q.shape
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv

@@ -92,6 +92,8 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
 def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
                         q_start, q_lens, table, scale, window_left,
                         window_right, softcap):
+    _build.refuse_grad("paged_prefill_attention", q, k_pages, v_pages,
+                       k_scales, v_scales)
     batch, sq, num_heads, d = q.shape
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv

@@ -56,6 +56,7 @@ def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
 
 def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
                   return_lse):
+    _build.refuse_grad("prefill_attention", q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise NotImplementedError(
             f"the prefill kernel takes bf16/fp16, got {q.dtype}")

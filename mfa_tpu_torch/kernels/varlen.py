@@ -52,6 +52,7 @@ def _varlen_plain(q, k, v, cu_q, cu_k, scale, window_left, window_right,
 
 def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
                  window_right, softcap, return_lse):
+    _build.refuse_grad("varlen_attention", q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise NotImplementedError(
             f"the varlen kernel takes bf16/fp16, got {q.dtype}")

@@ -1,4 +1,4 @@
-"""Llama-style transformer, serving subset (counterpart of mfa_tpu/models/llama.py).
+"""Llama-style transformer: serving and training (counterpart of mfa_tpu/models/llama.py).
 
 Params are a plain dict of tensors: `layers` is a list of per-layer dicts
 (wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up, w_down), plus embed,
@@ -6,7 +6,9 @@ final_norm and lm_head. Projections are plain `@` (as the JAX package
 leaves them to XLA); attention runs through the port's kernels:
 prefill_batch -> kernels/prefill.py (kernel 1), prefill_chunk_batch ->
 kernels/paged_prefill.py (kernel 5), decode_step -> kernels/paged.py
-(kernel 3), over the int8 or bf16 paged cache.
+(kernel 3), over the int8 or bf16 paged cache; forward / loss_fn /
+train_step -> kernels/autodiff.flash_attention_grad (kernel 1 forward, the
+fused backward kernel).
 
 decode_step keeps the JAX package's DEFERRED-APPEND structure: each layer
 attends over the stored cache with pos_offset=1 and return_lse=True, the
@@ -17,7 +19,7 @@ XLA copy-insertion reason for it does not exist, but it defines the
 reference numerics.
 
 Not ported yet (raise NotImplementedError): MoE, qk_norm, sliding layer
-patterns, int8 weights, meshes, vision, training.
+patterns, int8 weights, meshes, vision.
 """
 
 from __future__ import annotations
@@ -29,12 +31,14 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from mfa_tpu_torch.cache.paged_cache import (StackedKVCache,
                                              create_stacked_cache,
                                              pack_pages_payload,
                                              scatter_span_rows)
 from mfa_tpu_torch.dispatch.config import resolve_device
+from mfa_tpu_torch.kernels.autodiff import flash_attention_grad
 from mfa_tpu_torch.kernels.paged import paged_attention
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
@@ -271,6 +275,95 @@ def _rope(x, positions, theta: float, scale: float = 1.0,
 
 def _rope_args(cfg: LlamaConfig):
     return (cfg.rope_theta, cfg.rope_scale, cfg.rope_scaling)
+
+
+# ---------------- training path ----------------
+
+
+def param_tensors(params: Params) -> list:
+    """Every weight tensor of the params, in a fixed order (what an
+    optimizer is built over)."""
+    return ([lp[k] for lp in params["layers"] for k in _LAYER_KEYS]
+            + [params[k] for k in ("embed", "final_norm", "lm_head")])
+
+
+def _train_layer(x, lp, rope, cfg: LlamaConfig):
+    """One decoder layer on the full sequence x [b, s, dim]: causal flash
+    attention through the differentiable kernels (_attention_sharded of the
+    JAX package without a mesh), then the MLP."""
+    b, s, _ = x.shape
+    h = _rms_norm(x, lp["attn_norm"], cfg)
+    q, k, v = _qkv(h, lp, cfg, b, s)
+    q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
+    attn = flash_attention_grad(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        softmax_scale=cfg.attn_scale, window_size=(cfg.window_left, -1)
+    ).transpose(1, 2)
+    x = _attn_residual(x, attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp,
+                       cfg)
+    return _mlp(x, lp, cfg)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            remat: bool = False, input_embeds=None,
+            image_block_ids=None) -> torch.Tensor:
+    """Full-sequence causal forward: tokens [b, s] -> logits [b, s, vocab]
+    fp32. remat=True checkpoints each layer (torch.utils.checkpoint,
+    non-reentrant): the backward recomputes the layer, so its attention
+    forward runs twice. input_embeds / image_block_ids (vision) are not
+    ported yet."""
+    if input_embeds is not None or image_block_ids is not None:
+        raise NotImplementedError("input_embeds and image_block_ids (vision) "
+                                  "are not ported yet")
+    s = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(s, device=x.device)[None]
+    rope = _rope_tables(positions, cfg.head_dim, *_rope_args(cfg))
+    for lp in params["layers"]:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _train_layer, x, lp, rope, cfg, use_reentrant=False)
+        else:
+            x = _train_layer(x, lp, rope, cfg)
+    x = _rms_norm(x, params["final_norm"], cfg)
+    return _unembed(params, x, cfg)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            remat: bool = False) -> torch.Tensor:
+    """Mean next-token cross entropy of tokens [b, s] (tokens[:, :-1]
+    predict tokens[:, 1:])."""
+    logits = forward(params, tokens[:, :-1], cfg, remat=remat)
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+
+
+def train_step(params: Params, tokens, cfg: LlamaConfig, lr: float = 1e-3,
+               remat: bool = False, optimizer=None):
+    """One training step -> (params, loss).
+
+    Unlike the pure JAX version this updates the weight tensors IN PLACE
+    (under torch.no_grad()) and returns the same dict: without an optimizer
+    by plain SGD, p - lr * g in p's dtype (the JAX default); with a
+    torch.optim.Optimizer built over param_tensors(params) (the counterpart
+    of an optax transformation, its state held by the optimizer object) by
+    optimizer.step(). The weights become leaf tensors that require grad;
+    on return each holds this step's gradient in .grad (cleared at the
+    start of the next step)."""
+    leaves = param_tensors(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    tokens = torch.as_tensor(tokens, device=leaves[0].device).long()
+    loss = loss_fn(params, tokens, cfg, remat=remat)
+    loss.backward()
+    with torch.no_grad():
+        if optimizer is None:
+            for p in leaves:
+                p.sub_(lr * p.grad.to(p.dtype))
+        else:
+            optimizer.step()
+    return params, loss.detach()
 
 
 # ---------------- serving path (paged cache) ----------------

@@ -9,7 +9,9 @@ admits 16 requests of 200-256 prompt tokens into a fresh engine and
 traces one prefill wave and `--steps` decode steps with torch.profiler.
 Then an engine with chunked prefill (chunks of 512) takes 4 prompts of
 4000 tokens and traces one chunk batch: 4 x 512 tokens at q_start 1536
-(after three untraced warm chunks). For each phase it prints the host wall time (with and without the
+(after three untraced warm chunks). Last, with the same weights, one SGD
+train step of the model on 4 x 2049 tokens with remat (after one untraced
+warm step). For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -31,6 +33,8 @@ sys.path.insert(0, ROOT)
 GROUPS = (("prefill kernel", ("prefill_fwd_kernel",)),
           ("paged prefill kernel", ("paged_prefill_kernel",)),
           ("paged kernel", ("decode_kernel",)),
+          ("backward kernel", ("bwd_dkv_kernel", "bwd_dq_kernel")),
+          ("loss (softmax, nll)", ("SoftMax", "nll_loss")),
           ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")),
           ("elementwise / copy / reduce", ()))
 
@@ -191,6 +195,28 @@ def main() -> int:
             wall = (time.perf_counter() - t0) * 1e3
         _report(f"chunk batch (4 x 512 tokens at q_start 1536, "
                 f"{cfg.n_layers} layers)", prof, wall, plain, 1, "batch", out)
+    del eng
+    torch.cuda.empty_cache()
+
+    tokens = torch.as_tensor(
+        np.random.RandomState(2).randint(0, cfg.vocab_size, (4, 2049)),
+        device="cuda")
+
+    def train():
+        llama.train_step(params, tokens, cfg, lr=1.0, remat=True)
+        torch.cuda.synchronize()
+
+    train()  # warm-up: autograd, the backward kernel, gradient buffers
+    t0 = time.perf_counter()
+    train()
+    plain = (time.perf_counter() - t0) * 1e3
+    with open(args.out or os.devnull, "a") as out:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            train()
+            wall = (time.perf_counter() - t0) * 1e3
+        _report(f"train step (4 x 2048 tokens, remat, SGD, {cfg.n_layers} "
+                f"layers)", prof, wall, plain, 1, "step", out)
     print(f"card: {smi}", flush=True)
     return 0
 

@@ -21,7 +21,8 @@ def test_import_loads_neither_jax_nor_mfa_tpu():
         "import mfa_tpu_torch, mfa_tpu_torch.serve.engine, "
         "mfa_tpu_torch.kernels.decode, mfa_tpu_torch.kernels.paged, "
         "mfa_tpu_torch.kernels.varlen, mfa_tpu_torch.kernels.paged_prefill, "
-        "mfa_tpu_torch.ref.oracle\n"
+        "mfa_tpu_torch.kernels.backward, mfa_tpu_torch.kernels.autodiff, "
+        "mfa_tpu_torch.models.llama, mfa_tpu_torch.ref.oracle\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'mfa_tpu' or m.startswith('mfa_tpu.'))\n"
         "print(bad)\n"

@@ -208,3 +208,123 @@ def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
         0 if causal else window[1], softcap)
     assert o.dtype == dtype and lse.shape == (b, hq, sq)
     _close(o, lse, ro, rl)
+
+
+# ---------------- backward kernels (kernels/backward.py) ----------------
+
+
+def _bwd_close(got, ref, what):
+    """Stated limits: max |a - r| <= 2e-2 max |r| and mean |a - r| <= 2e-2
+    mean |r| (P and dS round to bf16/fp16 before their products, and the
+    fused kernel's dQ atomics change the summation order)."""
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all(), (what, name)
+        d = (g - r).abs()
+        assert d.max() <= 2e-2 * r.abs().max() + 1e-6, (what, name, float(d.max()))
+        assert d.mean() <= 2e-2 * r.abs().mean() + 1e-6, (what, name, float(d.mean()))
+
+
+def _bwd_inputs(gen, b, hq, hkv, sq, sk, d, causal, window, softcap, dtype):
+    from mfa_tpu_torch.kernels import prefill
+
+    q, k, v = (_rn(gen, b, hq, sq, d, dtype=dtype), _rn(gen, b, hkv, sk, d, dtype=dtype),
+               _rn(gen, b, hkv, sk, d, dtype=dtype))
+    do = _rn(gen, b, hq, sq, d, dtype=dtype)
+    with torch.no_grad():
+        o, lse = prefill.prefill_attention(q, k, v, causal=causal, window_size=window,
+                                           logit_softcap=softcap, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,softcap,dtype", [
+    (2, 8, 2, 300, 300, 128, True, (-1, -1), 0.0, BF),
+    (1, 8, 2, 128, 512, 128, True, (-1, -1), 0.0, BF),   # key tiles with no live row
+    (1, 4, 4, 300, 8, 64, True, (4, -1), 0.0, BF),       # dead rows
+    (2, 4, 1, 100, 37, 64, False, (-1, -1), 0.0, HF),
+    (1, 4, 2, 256, 256, 64, False, (64, 0), 0.0, BF),
+    (1, 4, 2, 130, 130, 128, True, (-1, -1), 30.0, HF),
+])
+def test_backward_kernels(dev, b, hq, hkv, sq, sk, d, causal, window, softcap, dtype):
+    from mfa_tpu_torch.kernels import _build, backward
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, o, lse, do = _bwd_inputs(gen, b, hq, hkv, sq, sk, d, causal, window,
+                                      softcap, dtype)
+    kw = dict(causal=causal, window_size=window, logit_softcap=softcap)
+    ref = backward._bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                              do.float(), d ** -0.5, window[0],
+                              0 if causal else window[1], softcap)
+    _build.reset_launches()
+    fused = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=True, **kw)
+    split = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+    assert dict(_build.launches) == {"bwd_fused": 1, "bwd_dkv": 1, "bwd_dq": 1}
+    assert all(g.dtype == dtype for g in fused + split)
+    _bwd_close(fused, ref, "fused")
+    _bwd_close(split, ref, "split")
+    _bwd_close(fused, split, "fused vs split")
+    again = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(split, again))  # deterministic
+
+
+@pytest.mark.parametrize("lens_q,lens_k,hq,hkv,d,causal,window,softcap,dtype", [
+    ([200, 1100, 0, 513], [200, 1100, 0, 513], 8, 2, 128, True, (-1, -1), 0.0, BF),
+    ([100, 37, 300], [130, 64, 200], 8, 2, 128, False, (128, 64), 0.0, BF),
+    ([30, 5], [10, 0], 4, 2, 64, True, (3, -1), 0.0, HF),   # dead rows
+    ([65, 1, 64], [65, 1, 64], 4, 4, 64, True, (-1, -1), 30.0, BF),
+])
+def test_varlen_backward_kernels(dev, lens_q, lens_k, hq, hkv, d, causal, window,
+                                 softcap, dtype):
+    from mfa_tpu_torch.kernels import _build, backward, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = _rn(gen, sum(lens_q), hq, d, dtype=dtype)
+    k, v = (_rn(gen, sum(lens_k), hkv, d, dtype=dtype) for _ in range(2))
+    do = _rn(gen, sum(lens_q), hq, d, dtype=dtype)
+    cu_q = torch.tensor([0] + lens_q, device=dev).cumsum(0).int()
+    cu_k = torch.tensor([0] + lens_k, device=dev).cumsum(0).int()
+    kw = dict(causal=causal, window_size=window, logit_softcap=softcap)
+    o, lse = varlen.varlen_attention(q, k, v, cu_q, cu_k, max(lens_q), max(lens_k),
+                                     return_lse=True, **kw)
+    _build.reset_launches()
+    got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu_q, cu_k, **kw)
+    assert dict(_build.launches) == {"varlen_bwd_dkv": 1, "varlen_bwd_dq": 1}
+    ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), cu_q, cu_k, d ** -0.5, window[0],
+                                     0 if causal else window[1], softcap)
+    _bwd_close(got, ref, "varlen")
+    again = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu_q, cu_k, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_autograd_functions_on_the_card(dev):
+    """flash_attn_func_grad and flash_attn_varlen_func_grad end to end: the
+    card's gradients against the same Functions on the CPU (plain versions)
+    from the same bf16 inputs; the bare kernel routes refuse to build a
+    detached output for inputs that require grad."""
+    from mfa_tpu_torch.kernels import _build, autodiff, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = _rn(gen, 2, 256, 8, 128), _rn(gen, 2, 256, 2, 128), _rn(gen, 2, 256, 2, 128)
+    w = _rn(gen, 2, 256, 8, 128)
+    lens = [100, 256, 0, 156]
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).int()
+    qv, kv, vv = q.reshape(512, 8, 128), k.reshape(512, 2, 128), v.reshape(512, 2, 128)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.detach().to(where).requires_grad_() for t in (q, k, v, qv, kv, vv)]
+        ww = w.to(where)
+        _build.reset_launches()
+        o1 = autodiff.flash_attn_func_grad(*leaves[:3], causal=True)
+        o2 = autodiff.flash_attn_varlen_func_grad(*leaves[3:], cu.to(where), cu.to(where),
+                                                  256, 256, causal=True)
+        loss = (o1.float() * ww.float()).sum() + (o2.float() * ww.reshape(512, 8, 128)
+                                                  .float()).sum()
+        grads[where] = torch.autograd.grad(loss, leaves)
+        if where == "cuda":
+            assert dict(_build.launches) == {"prefill": 1, "varlen": 1, "bwd_fused": 1,
+                                             "varlen_bwd_dkv": 1, "varlen_bwd_dq": 1}
+    _bwd_close(grads["cuda"][:3], [g.to(dev) for g in grads["cpu"][:3]], "func")
+    _bwd_close(grads["cuda"][3:], [g.to(dev) for g in grads["cpu"][3:]], "varlen")
+    with pytest.raises(RuntimeError, match="autodiff"):
+        prefill.prefill_attention(q.requires_grad_(), k, v, causal=True)
