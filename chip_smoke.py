@@ -17,7 +17,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    Kernels: prefill, split-KV decode + combine, paged decode, varlen and
    paged prefill; the five backward launches (fused, the dK/dV + dQ split,
    the varlen split) within max |a - r| <= 2e-2 max |r| and mean |a - r| <=
-   2e-2 mean |r| for each of dq, dk, dv, and fused against split.
+   2e-2 mean |r| for each of dq, dk, dv, and fused against split; at
+   Gemma3-4B's head_dim 256, prefill (causal, window 1023 and none) and
+   paged decode (int8 and bf16 pages, group 2, window 1023), and the
+   image-block prefill (kernel 9) in four cases, one of them with no image
+   equal to kernel 1's causal output.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -30,11 +34,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    long prompts, 9 prompts that share a 1024-token system prompt and 4
    short ones; then, with the same weights and the engines freed, three
    SGD train steps of the full 32-layer model on 4 x 2049 tokens with
-   remat (every layer's backward through the fused backward kernel).
-4. The same model cut to 2 layers, on the card (kernels) and on the CPU
+   remat (every layer's backward through the fused backward kernel); then,
+   with those weights freed, the engine at Gemma3-4B's full width and depth
+   (34 layers, head_dim 256, 5 sliding layers of window 1024 to 1 global,
+   the 27-layer SigLIP tower at 896 px, random bf16 weights from a seed,
+   int8 paged KV) answering 6 image prompts (7 images; two runs start past
+   the window) and 4 text prompts, 32 new tokens each: image prompts
+   prefill through the tower and kernel 9, text prompts through kernel 1
+   at d 256, every decode step through the paged kernel at d 256.
+4. The 8B model cut to 2 layers, on the card (kernels) and on the CPU
    (plain versions) with the same weights: prefill, decode, chunked prefill
    and prefix-hit suffix logits agree, and one SGD train step gives the
-   same loss and gradients.
+   same loss and gradients; then Gemma3-4B cut to 2 layers (one sliding,
+   one global) with a 2-layer tower at 224 px: image-prompt prefill and
+   the next decode step's logits agree.
 5. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
 """
@@ -51,6 +64,7 @@ import time
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 SEED = 0
+IMAGE_TOKEN = 262144  # Gemma3's <image> soft-token id (image_token_index)
 
 
 def _fail(msg: str) -> int:
@@ -277,6 +291,147 @@ def kernel_phase(records):
     ok &= varlen_kernels(records, rn)
     ok &= paged_prefill_kernels(records, rn, gen)
     ok &= backward_kernels(records, rn)
+    ok &= gemma3_kernels(records, rn, gen)
+    return ok
+
+
+def gemma3_kernels(records, rn, gen):
+    """Gemma3-4B's attention shapes (8 q / 4 kv heads of head_dim 256):
+    kernel 1 at d 256 (the text wave), the paged kernel at d 256 (every
+    decode step), and kernel 9 (the image wave) in four cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import blockmask, paged, prefill
+    from mfa_tpu_torch.kernels.quant import quantize_rows
+
+    dev, b, hq, hkv, s, d = "cuda", 4, 8, 4, 2048, 256
+    scale = d ** -0.5
+    ok = True
+    q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+    io_bytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    for wl in (1023, -1):
+        o, lse = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1),
+                                           return_lse=True)
+        ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), scale,
+                                        wl, 0, 0.0, True)
+        print(f"prefill d256 causal window {wl}: b={b} hq={hq} hkv={hkv} s={s} bf16",
+              flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "")
+        records["prefill"]["max_abs_err"] = max(records["prefill"]["max_abs_err"], mx)
+        ms = _time_ms(lambda: prefill.prefill_attention(q, k, v, causal=True,
+                                                        window_size=(wl, -1)))
+        plain_ms = _time_ms(lambda: prefill._prefill_plain(q, k, v, scale, wl, 0, 0.0,
+                                                           False), iters=3)
+        if wl < 0:
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        else:
+            band = blockmask.block_mask(torch.full((1, s), -1, device=dev), wl)[0]
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True))
+        bound_ms, by = _bound(io_bytes, 4 * b * hq * _visible_pairs(s, s, 0, wl, 0) * d)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(sdpa"
+              f"{' is_causal' if wl < 0 else ' + band mask'}) {lib_ms:.4f} bound_ms "
+              f"{bound_ms:.4f} ({by})", flush=True)
+    del o, lse, ro, rl
+
+    # -- paged decode at d 256: group 2, lengths 300-2000, window 1023
+    page, nb = 64, 10
+    lens_l = [300 + (1700 * i) // (nb - 1) for i in range(nb)]
+    pps = max(lens_l) // page + 1
+    P = nb * pps + 1
+    qd = rn(nb, hq, d)
+    kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+    bt = (torch.randperm(P - 1, generator=gen, device=dev)[: nb * pps] + 1
+          ).reshape(nb, pps).to(torch.int32)
+    L = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    for quant in (True, False):
+        if quant:
+            (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
+        else:
+            kp, vp, ks, vs = kf, vf, None, None
+
+        def run(kp=kp, vp=vp, ks=ks, vs=vs):
+            return paged.paged_attention(qd, kp, vp, L, bt, k_scales=ks, v_scales=vs,
+                                         window_left=1023, pos_offset=1,
+                                         return_lse=True)
+
+        o, lse = run()
+        ro, rl = paged._paged_plain(qd.float(), kp, vp, ks, vs, L, bt, scale, 1023,
+                                    0.0, 1)
+        print(f"paged d256 {'int8' if quant else 'bf16'} pages b={nb} hq={hq} "
+              f"hkv={hkv} page={page} lens={min(lens_l)}..{max(lens_l)} window 1023 "
+              f"pos_offset=1", flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "")
+        records["paged"]["max_abs_err"] = max(records["paged"]["max_abs_err"], mx)
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: paged._paged_plain(
+            qd, kp, vp, ks, vs, L, bt, scale, 1023, 0.0, 1), iters=3)
+        rows = sum(min(n, 1023) for n in lens_l) * hkv  # the window's rows
+        nbytes = 2 * rows * d * kp.element_size() + (8 * rows if quant else 0) \
+            + nb * pps * 4 + 2 * nb * hq * d * 2 + nb * hq * 4
+        bound_ms, by = _bound(nbytes, 4 * hq // hkv * rows * d)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a "
+              f"bound_ms {bound_ms:.4f} ({by})", flush=True)
+
+    # -- kernel 9: image-block prefill
+    def ids_of(bb, ss, runs):
+        ids = torch.full((bb, ss), -1, dtype=torch.int32, device=dev)
+        for i in range(bb):
+            for gi, (a, z) in enumerate(runs):
+                ids[i, a:z + 1] = gi
+        return ids
+
+    rec = records["blockmask"]
+    cases = (("Gemma3-4B image wave: one 256-token run at 700, window 1023",
+              (q, k, v), ids_of(b, s, [(700, 955)]), 1023, True),
+             ("same, global layer (no window)", (q, k, v), ids_of(b, s, [(700, 955)]),
+              -1, False),
+             ("two runs across tile edges, s 1000, window 255",
+              (rn(2, hq, 1000, d), rn(2, hkv, 1000, d), rn(2, hkv, 1000, d)),
+              ids_of(2, 1000, [(100, 200), (383, 700)]), 255, False),
+             ("d 128, s 777, one run 250-520, window 127",
+              (rn(2, 16, 777, 128), rn(2, 8, 777, 128), rn(2, 8, 777, 128)),
+              ids_of(2, 777, [(250, 520)]), 127, False),
+             ("no image (all ids -1), window 1023: kernel 1's causal output",
+              (q, k, v), ids_of(b, s, []), 1023, False))
+    for tag, (qq, kk, vv), ids, wl, record in cases:
+        bb, hh, ss, dd = qq.shape
+        o = blockmask.image_block_prefill(qq, kk, vv, ids, window_left=wl)
+        ro = blockmask._image_block_plain(qq.float(), kk.float(), vv.float(), ids,
+                                          dd ** -0.5, wl)
+        print(f"blockmask {tag}: b={bb} hq={hh} hkv={kk.shape[1]} s={ss} d={dd} bf16",
+              flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        if not (ids >= 0).any():
+            same = torch.equal(o, prefill.prefill_attention(qq, kk, vv, causal=True,
+                                                            window_size=(wl, -1)))
+            print(f"  equal to kernel 1's causal output: {same}", flush=True)
+            ok &= same
+            continue
+        ms = _time_ms(lambda: blockmask.image_block_prefill(qq, kk, vv, ids,
+                                                            window_left=wl))
+        plain_ms = _time_ms(lambda: blockmask._image_block_plain(
+            qq, kk, vv, ids, dd ** -0.5, wl), iters=3)
+        mask = blockmask.block_mask(ids, wl)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask[:, None], enable_gqa=True))
+        pairs = int(mask.sum())
+        nbytes = 2 * (2 * qq.numel() + 2 * kk.numel()) + ids.numel() * 4
+        bound_ms, by = _bound(nbytes, 4 * hh * pairs * dd)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(sdpa + bool mask) "
+              f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({by}); visible pairs {pairs} of "
+              f"{bb * ss * ss} per head", flush=True)
+        if record:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                       library_ms=lib_ms)
+        del mask
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -491,7 +646,7 @@ def backward_kernels(records, rn):
                   "bwd_dq": _bound(2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)}
         lib = ""
         lib_ms = None
-        if record:
+        if (wl, wr) == (-1, 0) and sq == sk:
             # SDPA's backward alone: autograd.grad over the retained graph of
             # one SDPA call (is_causal, enable_gqa) at the same shape
             ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -836,6 +991,175 @@ def train_phase(counts, ident, state):
     return ok
 
 
+def _gemma3_prompts(rng, n_img_short=4, n_img_long=2, n_text=4):
+    """Image prompts (text, 256 <image> tokens per image, text; the first
+    with two images; the long ones' run after 1100 text tokens, past the
+    1024 window) and text-only prompts, as token lists, and each image
+    prompt's image count."""
+    def text(lo, hi):
+        return [int(t) for t in rng.randint(0, IMAGE_TOKEN, rng.randint(lo, hi + 1))]
+
+    img = [IMAGE_TOKEN] * 256
+    prompts, n_images = [], []
+    for i in range(n_img_short):
+        p = text(100, 300) + img + text(50, 200)
+        if i == 0:
+            p += img + text(20, 60)
+        prompts.append(p)
+        n_images.append(2 if i == 0 else 1)
+    for _ in range(n_img_long):
+        prompts.append(text(1100, 1150) + img + text(20, 100))
+        n_images.append(1)
+    texts = [text(300, 1800) for _ in range(n_text)]
+    return prompts, n_images, texts
+
+
+def engine_gemma3_phase(counts, ident):
+    """Main path, part 5: Gemma3-4B multimodal serving at full width and
+    depth (the 8B weights are freed by then): 34 text layers and the
+    27-layer tower, random bf16 weights from SEED, int8 paged KV with
+    64-token pages, 6 image prompts (7 random 896 x 896 images) and 4 text
+    prompts of 300-1800 tokens, 32 new tokens each. Launches: kernel 9 34
+    per image wave, kernel 1 34 per text wave, the paged kernel 34 per
+    decode step."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama, vision
+    from mfa_tpu_torch.serve.engine import Engine
+
+    cfg, vcfg = llama.LlamaConfig.gemma3_4b(), vision.SiglipVisionConfig()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device="cuda")
+    vparams = vision.init_vision_params(vcfg, cfg.dim, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_text = sum(p.numel() for p in llama.param_tensors(params))
+    n_vis = sum(t.numel() for lp in vparams["layers"] for t in lp.values()) + sum(
+        t.numel() for k_, t in vparams.items() if k_ != "layers")
+    print(f"engine: Gemma3-4B, {cfg.n_layers} layers (window {cfg.sliding_window}, "
+          f"global layers {[i for i, f in enumerate(cfg.layer_pattern) if not f]}), "
+          f"head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, {n_text} text weights + "
+          f"{n_vis} tower weights in bf16 from seed {SEED} "
+          f"({time.perf_counter() - t0:.1f} s to build)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    gen_tokens = 32
+    eng = Engine(params, cfg, num_pages=512, page_size=64, max_seqs=16,
+                 pages_per_seq=40, quant_dtype="int8", device="cuda",
+                 vision=(vparams, vcfg, IMAGE_TOKEN))
+    free0 = eng.sched.allocator.free_pages
+    rng = np.random.RandomState(SEED)
+    prompts, n_images, texts = _gemma3_prompts(rng)
+    pixels = [rng.standard_normal((n, 3, vcfg.image_size, vcfg.image_size)
+                                  ).astype(np.float32) for n in n_images]
+    _build.reset_launches()
+    reqs = [eng.submit(p, gen_tokens, images=px) for p, px in zip(prompts, pixels)]
+    reqs += [eng.submit(p, gen_tokens) for p in texts]
+    stats = eng.run()
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.n_layers
+    text_waves = stats.prefill_batches - stats.image_batches
+    ok = all(len(r.generated) == gen_tokens for r in reqs)
+    ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+    ok &= eng.sched.allocator.free_pages == free0
+    ok &= stats.image_batches >= 1 and text_waves >= 1
+    ok &= got.get("blockmask", 0) == L * stats.image_batches
+    ok &= got.get("prefill", 0) == L * text_waves
+    ok &= got.get("paged", 0) == L * stats.steps
+    ok &= not got.get("paged_prefill", 0)
+    print(f"gemma3 engine launches {got}: blockmask = {L} layers x "
+          f"{stats.image_batches} image waves, prefill = {L} x {text_waves} text "
+          f"waves, paged = {L} x {stats.steps} decode steps", flush=True)
+    # the tower alone, warm, on one image and on the wave's seven
+    one = torch.as_tensor(pixels[0][:1], device="cuda")
+    every = torch.cat([torch.as_tensor(p, device="cuda") for p in pixels])
+    tower_1 = _time_ms(lambda: vision.gemma3_image_features(vparams, one, vcfg),
+                       iters=3)
+    tower_all = _time_ms(lambda: vision.gemma3_image_features(vparams, every, vcfg),
+                         iters=2)
+    img_tok, text_tok = stats.image_prefill_tokens, stats.prefill_tokens - \
+        stats.image_prefill_tokens
+    text_s = stats.prefill_s - stats.image_prefill_s
+    step_tokens = stats.decode_tokens - len(reqs)
+    print(f"gemma3 engine: {len(reqs)} requests ({len(prompts)} with "
+          f"{sum(n_images)} images, {len(texts)} text) finished with {gen_tokens} "
+          f"tokens: {all(len(r.generated) == gen_tokens for r in reqs)}; free pages "
+          f"{eng.sched.allocator.free_pages} of {free0} returned", flush=True)
+    print(f"gemma3 engine: vision tower + projector {tower_1:.3f} ms for one image, "
+          f"{tower_all / len(every):.3f} ms per image for the wave's {len(every)}; "
+          f"image wave prefill {img_tok / stats.image_prefill_s:.1f} tok/s ({img_tok} "
+          f"tokens in {stats.image_prefill_s:.3f} s, tower included), text wave "
+          f"prefill {text_tok / text_s:.1f} tok/s ({text_tok} tokens in "
+          f"{text_s:.3f} s), decode {step_tokens / stats.decode_s:.1f} tok/s "
+          f"({step_tokens} tokens in {stats.steps} steps, {stats.decode_s:.3f} s), "
+          f"peak memory {peak_gb:.2f} GB [{ident}]", flush=True)
+    del eng, params, vparams, every
+    torch.cuda.empty_cache()
+    return ok
+
+
+def cpu_vs_cuda_gemma3_phase():
+    """Phase 4, Gemma3: 2 text layers (one sliding, one global) at
+    Gemma3-4B widths and a 2-layer tower at 224 px (16 x 16 patches, 256
+    soft tokens), kernels on the card vs plain versions on the CPU, same
+    weights: a wave of two image prompts (one run after 1100 text tokens,
+    past the window) and the next decode step."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.models import llama, vision
+
+    cfg = dataclasses.replace(llama.LlamaConfig.gemma3_4b(), n_layers=2,
+                              layer_pattern=(True, False))
+    vcfg = dataclasses.replace(vision.SiglipVisionConfig(), n_layers=2, image_size=224)
+    p_gpu = llama.init_params(cfg, seed=SEED + 3, device="cuda")
+    v_gpu = vision.init_vision_params(vcfg, cfg.dim, seed=SEED + 3, device="cuda")
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k_: to_cpu(v_) for k_, v_ in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v_) for v_ in tree]
+        return tree.cpu()
+
+    rng = np.random.RandomState(SEED + 3)
+    prompts, n_images, _ = _gemma3_prompts(rng, 1, 1, 0)
+    pixels = [rng.standard_normal((n, 3, 224, 224)).astype(np.float32) for n in n_images]
+    # each prompt's pages plus one for the decoded token
+    needs = [-(-len(p) // 64) + 1 for p in prompts]
+    pages = [list(range(1 + sum(needs[:i]), 1 + sum(needs[:i + 1])))
+             for i in range(len(needs))]
+    out = {}
+    for dev, params, vparams in (("cuda", p_gpu, v_gpu),
+                                 ("cpu", to_cpu(p_gpu), to_cpu(v_gpu))):
+        cache = llama.build_kv_caches(cfg, sum(needs) + 1, 64, 2, 32, "int8",
+                                      device=dev)
+        cache, lg1 = llama.prefill_batch(params, cfg, cache, [0, 1], pages, prompts,
+                                         vision=(vparams, vcfg, IMAGE_TOKEN),
+                                         pixel_lists=pixels)
+        toks = out["toks"] if "toks" in out else lg1.argmax(-1).cpu()
+        out["toks"] = toks
+        cache, lg2 = llama.decode_step(params, cfg, cache, [0, 1], toks)
+        out[dev] = tuple(x.float().cpu() for x in (lg1, lg2))
+    ok = True
+    for i, name in enumerate(("image prefill_batch", "decode_step")):
+        a, r = out["cuda"][i], out["cpu"][i]
+        d = (a - r).abs()
+        tol_max, tol_mean = 0.25, 0.02  # as for the 8B model above
+        good = bool(torch.isfinite(a).all()) and float(d.max()) < tol_max \
+            and float(d.mean()) < tol_mean
+        print(f"gemma3 cuda vs cpu {name} logits [{tuple(a.shape)}], prompts "
+              f"{[len(p) for p in prompts]}: max_abs {float(d.max()):.3e} (< {tol_max})"
+              f" mean_abs {float(d.mean()):.3e} (< {tol_mean}), |ref| max "
+              f"{float(r.abs().max()):.2f}, argmax agree "
+              f"{bool(torch.equal(a.argmax(-1), r.argmax(-1)))} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    return ok
+
+
 def cpu_vs_cuda_phase():
     """Phase 4: 2 layers at the 8B widths, kernels on the card vs plain
     versions on the CPU, same weights and prompts: whole-prompt prefill, a
@@ -967,6 +1291,8 @@ def main() -> int:
                            "mfa_tpu/kernels/backward.py:1060"),
         "varlen_bwd_dq": ("mfa_tpu_torch/csrc/backward.cu",
                           "mfa_tpu/kernels/backward.py:1142"),
+        "blockmask": ("mfa_tpu_torch/csrc/blockmask.cu",
+                      "mfa_tpu/kernels/blockmask.py:54"),
     }
     records = {n: {"name": n, "route": "cuda", "source": s, "replaces": r}
                for n, (s, r) in sources.items()}
@@ -979,7 +1305,10 @@ def main() -> int:
                      ("chunked_prefix_engine_8b",
                       lambda: chunked_engine_phase(counts, ident, state)),
                      ("train_8b", lambda: train_phase(counts, ident, state)),
-                     ("cuda_vs_cpu", cpu_vs_cuda_phase)):
+                     ("engine_gemma3_4b_vision",
+                      lambda: engine_gemma3_phase(counts, ident)),
+                     ("cuda_vs_cpu", cpu_vs_cuda_phase),
+                     ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase)):
         t0 = time.perf_counter()
         try:
             phases[name] = bool(fn())

@@ -277,7 +277,10 @@ int launch_decode(const DecodeParams& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Dispatch on head_dim and the q rows per block (rounded up to 1/2/4/8).
+// Dispatch on head_dim (64, 128, 256) and the q rows per block (rounded up
+// to 1/2/4/8). At D = 256 each thread owns two features (DPT = 2) and the
+// K/V tiles take ~66 KB of shared memory for 16-bit pages (~33 KB for int8),
+// past the 48 KB default: launch_decode opts in.
 template <typename TQ, typename TKV, typename TV, bool PAGED, bool FINAL>
 int launch_decode_dg(const DecodeParams& p, int d, int batch, cudaStream_t stream) {
   const int g = p.group;
@@ -289,6 +292,7 @@ int launch_decode_dg(const DecodeParams& p, int d, int batch, cudaStream_t strea
   return MFA_BAD_CONFIG;
   if (d == 64) { MFA_DEC_G(64) }
   if (d == 128) { MFA_DEC_G(128) }
+  if (d == 256) { MFA_DEC_G(256) }
 #undef MFA_DEC_G
   return MFA_BAD_CONFIG;
 }

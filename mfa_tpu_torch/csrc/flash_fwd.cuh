@@ -16,7 +16,17 @@
 // (conflict-free 32-bit operand reads), and the S accumulator is reused as
 // the A operand of P.V without a round trip through shared memory. No
 // cp.async/TMA pipelining yet: loads and math do not overlap (later work:
-// wgmma + TMA).
+// wgmma + TMA). At d = 256 the O accumulator alone takes 128 registers a
+// thread, and Q's fragments would take 64 more: there each warp stages its
+// 16 Q rows in shared memory once and reads one 16-column A fragment per
+// product step instead (FlashSmem::Q_SMEM).
+//
+// A visibility policy (the last template argument) can let columns through
+// that the band masks: the image-block kernel (blockmask.cu) adds "same
+// image run" with it. The default adds nothing and compiles to the band
+// test alone. Every tile that such a policy reaches beyond the band lies
+// above the diagonal or left of the window, so the needs_mask test below
+// already masks it element by element.
 //
 // Numerics (the repository guide's "Softmax-kernel numerics rules"): the
 // running max m is kept in the raw score domain and every exponent is
@@ -58,15 +68,20 @@ __device__ __forceinline__ void mma16816<__half>(float c[4], const uint32_t a[4]
 }
 
 // Shared-memory plan: K tile [BN][D + 8], V^T tile [D][BN + 8] (both in the
-// compute dtype T), then the tile's K and V scales (quantized sources only).
+// compute dtype T), then the tile's K and V scales (quantized sources), its
+// column run ids (a visibility policy), and at D > 128 the block's Q rows
+// [BM][D + 8].
 template <typename T, int D>
 struct FlashSmem {
-  static constexpr int KS = D + 8;      // K row stride (elements): conflict-free
+  static constexpr bool Q_SMEM = D > 128;  // Q fragments read from shared memory
+  static constexpr int KS = D + 8;      // K and Q row stride (elements): conflict-free
   static constexpr int VS = FA_BN + 8;  // V^T row stride (elements)
   static constexpr size_t v_off = sizeof(T) * FA_BN * KS;
   static constexpr size_t sc_off = v_off + sizeof(T) * D * VS;
-  static constexpr size_t bytes(bool quant) {
-    return sc_off + (quant ? sizeof(float) * 2 * FA_BN : 0);
+  static constexpr size_t ids_off = sc_off + sizeof(float) * 2 * FA_BN;
+  static constexpr size_t q_off = ids_off + sizeof(int) * FA_BN;
+  static constexpr size_t bytes(bool quant, bool ids = false) {
+    return Q_SMEM ? q_off + sizeof(T) * FA_BM * KS : ids ? q_off : quant ? ids_off : sc_off;
   }
 };
 
@@ -172,32 +187,94 @@ struct TileBand {
   int wl, wr;          // band around each row, -1 = unbounded
 };
 
-template <typename T, int D, class Src>
+// Live KV tiles of the q rows [q0, q0 + BM) against sk keys.
+__device__ __forceinline__ TileBand band_of(int q0, int sk, int wl, int wr) {
+  TileBand t;
+  t.last = (sk + FA_BN - 1) / FA_BN - 1;
+  if (wr >= 0) t.last = min(t.last, (q0 + FA_BM - 1 + wr) / FA_BN);
+  t.first = wl >= 0 ? max(0, (q0 - wl) / FA_BN) : 0;
+  t.pos_lo = q0;
+  t.pos_hi = q0 + FA_BM - 1;
+  t.all_live = true;
+  t.wl = wl;
+  t.wr = wr;
+  return t;
+}
+
+// Rows q0 + warp*16 + g (+8) of one (sequence, head): q/o rows `q_stride`
+// elements apart, LSE entries 1 apart.
+template <typename T>
+__device__ __forceinline__ TileRows<T> rows_of(const T* qp, T* op, float* lp, int q_stride,
+                                               int q0, int sq) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  TileRows<T> rows;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = q0 + warp * 16 + (lane >> 2) + 8 * x;
+    const bool in = r < sq;
+    rows.q[x] = in ? qp + (size_t)r * q_stride : nullptr;
+    rows.o[x] = in ? op + (size_t)r * q_stride : nullptr;
+    rows.lse[x] = (in && lp != nullptr) ? lp + r : nullptr;
+    rows.pos[x] = r;
+    rows.live[x] = true;
+  }
+  return rows;
+}
+
+// The default visibility policy: the band alone.
+struct BandOnly {
+  static constexpr bool ENABLED = false;
+};
+
+// Vis: the visibility policy. When Vis::ENABLED, Vis::extra(x, id) says
+// whether this thread's row x sees a column whose id (staged from
+// Vis::col_ids) is `id`, beyond the band.
+template <typename T, int D, class Src, class Vis = BandOnly>
 __device__ __forceinline__ void flash_fwd_tile(const Src& src, const TileRows<T>& rows,
                                                const TileBand& band, float scale_log2e,
                                                float softcap, float softcap_mul,
-                                               unsigned char* smem) {
+                                               unsigned char* smem, const Vis& vis = Vis{}) {
   using SM = FlashSmem<T, D>;
   constexpr int KS = SM::KS, VS = SM::VS;
+  constexpr bool Q_SMEM = SM::Q_SMEM;
   T* ks = reinterpret_cast<T*>(smem);
   T* vts = reinterpret_cast<T*>(smem + SM::v_off);
   float* ksc = reinterpret_cast<float*>(smem + SM::sc_off);
   float* vsc = ksc + FA_BN;
+  int* cids = reinterpret_cast<int*>(smem + SM::ids_off);
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int sk = src.sk;
   const int wl = band.wl, wr = band.wr;
 
-  // Q as mma A fragments, resident for the whole KV loop.
-  uint32_t qf[D / 16][4];
+  // Q as mma A fragments: resident in registers for the whole KV loop, or
+  // (Q_SMEM) this warp's 16 rows staged once in shared memory, each quad
+  // copying its own two rows as 16-byte vectors.
+  uint32_t qf[Q_SMEM ? 1 : D / 16][4];
+  const T* qs = reinterpret_cast<const T*>(smem + SM::q_off) + ((tid >> 5) * 16 + g) * KS;
+  if constexpr (Q_SMEM) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + t4 * 2;
+    for (int x = 0; x < 2; ++x) {
+      T* dst = reinterpret_cast<T*>(smem + SM::q_off) + ((tid >> 5) * 16 + g + 8 * x) * KS;
+      const T* qr = rows.q[x];
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const T* qr = rows.q[x & 1];
-      qf[kc][x] = qr ? *reinterpret_cast<const uint32_t*>(qr + c + (x >> 1) * 8) : 0u;
+      for (int j = 0; j < D / 32; ++j) {
+        const int c = (t4 + 4 * j) * 8;
+        *reinterpret_cast<uint4*>(dst + c) =
+            qr ? *reinterpret_cast<const uint4*>(qr + c) : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const int c = kc * 16 + t4 * 2;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const T* qr = rows.q[x & 1];
+        qf[kc][x] = qr ? *reinterpret_cast<const uint32_t*>(qr + c + (x >> 1) * 8) : 0u;
+      }
     }
   }
 
@@ -218,6 +295,10 @@ __device__ __forceinline__ void flash_fwd_tile(const Src& src, const TileRows<T>
         vsc[i] = s < 0 ? 0.f : src.v_scale[s];
       }
     }
+    if constexpr (Vis::ENABLED) {
+      for (int i = tid; i < FA_BN; i += FA_THREADS)
+        cids[i] = kv0 + i < sk ? vis.col_ids[kv0 + i] : -1;
+    }
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x BN columns.
@@ -226,13 +307,25 @@ __device__ __forceinline__ void flash_fwd_tile(const Src& src, const TileRows<T>
     for (int nt = 0; nt < FA_BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t qa[4];
+      if constexpr (Q_SMEM) {
+        const T* qr = qs + kc * 16 + t4 * 2;
+        qa[0] = *reinterpret_cast<const uint32_t*>(qr);
+        qa[1] = *reinterpret_cast<const uint32_t*>(qr + 8 * KS);
+        qa[2] = *reinterpret_cast<const uint32_t*>(qr + 8);
+        qa[3] = *reinterpret_cast<const uint32_t*>(qr + 8 * KS + 8);
+      }
 #pragma unroll
       for (int nt = 0; nt < FA_BN / 8; ++nt) {
         const T* kr = ks + (nt * 8 + g) * KS + kc * 16 + t4 * 2;
         uint32_t bfr[2];
         bfr[0] = *reinterpret_cast<const uint32_t*>(kr);
         bfr[1] = *reinterpret_cast<const uint32_t*>(kr + 8);
-        mma16816<T>(s[nt], qf[kc], bfr);
+        if constexpr (Q_SMEM) {
+          mma16816<T>(s[nt], qa, bfr);
+        } else {
+          mma16816<T>(s[nt], qf[kc], bfr);
+        }
       }
     }
 
@@ -257,11 +350,14 @@ __device__ __forceinline__ void flash_fwd_tile(const Src& src, const TileRows<T>
       for (int nt = 0; nt < FA_BN / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + nt * 8 + t4 * 2 + (e & 1);
+          const int c = nt * 8 + t4 * 2 + (e & 1);
+          const int col = kv0 + c;
           const int row = rows.pos[e >> 1];
-          bool ok = rows.live[e >> 1] && col < sk;
-          if (wr >= 0) ok = ok && (col <= row + wr);
-          if (wl >= 0) ok = ok && (col >= row - wl);
+          bool in_band = true;
+          if (wr >= 0) in_band = col <= row + wr;
+          if (wl >= 0) in_band = in_band && (col >= row - wl);
+          if constexpr (Vis::ENABLED) in_band = in_band || vis.extra(e >> 1, cids[c]);
+          const bool ok = rows.live[e >> 1] && col < sk && in_band;
           if (!ok) s[nt][e] = MFA_MASK;
         }
       }

@@ -20,46 +20,15 @@
 // Layout: q [total_q, hq, D], k/v [total_k, hkv, D], o like q, lse
 // [hq, total_q] (flash-attn's varlen softmax_lse layout).
 //
+// mfa_prefill_fwd takes head_dim 64, 128 and 256 (Gemma); mfa_varlen_fwd
+// 64 and 128.
+//
 // Both: fp32 LSE, GQA by head index (kv head = h / (hq / hkv)); causal is
 // top-left aligned per sequence and expressed as window_right = 0; the
 // window (left, right) counts from each row's own position.
 #include "flash_fwd.cuh"
 
 namespace {
-
-// Live KV tiles of the q rows [q0, q0 + BM) against sk keys.
-__device__ __forceinline__ TileBand band_of(int q0, int sk, int wl, int wr) {
-  TileBand t;
-  t.last = (sk + FA_BN - 1) / FA_BN - 1;
-  if (wr >= 0) t.last = min(t.last, (q0 + FA_BM - 1 + wr) / FA_BN);
-  t.first = wl >= 0 ? max(0, (q0 - wl) / FA_BN) : 0;
-  t.pos_lo = q0;
-  t.pos_hi = q0 + FA_BM - 1;
-  t.all_live = true;
-  t.wl = wl;
-  t.wr = wr;
-  return t;
-}
-
-// Rows q0 + warp*16 + g (+8) of one (sequence, head): q/o rows `q_stride`
-// elements apart, LSE entries 1 apart.
-template <typename T>
-__device__ __forceinline__ TileRows<T> rows_of(const T* qp, T* op, float* lp, int q_stride,
-                                               int q0, int sq) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  TileRows<T> rows;
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const int r = q0 + warp * 16 + (lane >> 2) + 8 * x;
-    const bool in = r < sq;
-    rows.q[x] = in ? qp + (size_t)r * q_stride : nullptr;
-    rows.o[x] = in ? op + (size_t)r * q_stride : nullptr;
-    rows.lse[x] = (in && lp != nullptr) ? lp + r : nullptr;
-    rows.pos[x] = r;
-    rows.live[x] = true;
-  }
-  return rows;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS)
@@ -155,8 +124,10 @@ extern "C" int mfa_prefill_fwd(const void* q, const void* k, const void* v, void
                       scale_log2e, softcap, softcap_mul, s)
   if (dtype == MFA_BF16 && d == 64) MFA_PREFILL(__nv_bfloat16, 64);
   if (dtype == MFA_BF16 && d == 128) MFA_PREFILL(__nv_bfloat16, 128);
+  if (dtype == MFA_BF16 && d == 256) MFA_PREFILL(__nv_bfloat16, 256);
   if (dtype == MFA_F16 && d == 64) MFA_PREFILL(__half, 64);
   if (dtype == MFA_F16 && d == 128) MFA_PREFILL(__half, 128);
+  if (dtype == MFA_F16 && d == 256) MFA_PREFILL(__half, 256);
 #undef MFA_PREFILL
   return MFA_BAD_CONFIG;
 }

@@ -26,7 +26,7 @@ from mfa_tpu_torch.kernels import _build
 _LOG2E = math.log2(math.e)
 TILE = 64  # tokens per kernel tile (csrc/decode_common.cuh DEC_TILE)
 MAX_GROUP = 8  # q heads per kv head the kernels take
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)  # shared with the paged kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _F, _F, _F, _P]

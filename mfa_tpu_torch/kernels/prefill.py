@@ -22,7 +22,10 @@ _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
              _F, _F, _F, _P]
+# head_dims of the kernels on the shared forward tile (varlen, paged
+# prefill) and of the backward; mfa_prefill_fwd also takes 256 (Gemma)
 KERNEL_HEAD_DIMS = (64, 128)
+PREFILL_HEAD_DIMS = KERNEL_HEAD_DIMS + (256,)
 
 
 def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
@@ -62,9 +65,9 @@ def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
             f"the prefill kernel takes bf16/fp16, got {q.dtype}")
     batch, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in PREFILL_HEAD_DIMS:
         raise NotImplementedError(f"the prefill kernel takes head_dim in "
-                                  f"{KERNEL_HEAD_DIMS}, got {d}")
+                                  f"{PREFILL_HEAD_DIMS}, got {d}")
     _build.same_device("prefill_attention", q, k, v)
     _build.expect_shape("prefill_attention", "k", k, (batch, hkv, sk, d))
     _build.expect_shape("prefill_attention", "v", v, k.shape)

@@ -1,14 +1,24 @@
 """Llama-style transformer: serving and training (counterpart of mfa_tpu/models/llama.py).
 
 Params are a plain dict of tensors: `layers` is a list of per-layer dicts
-(wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up, w_down), plus embed,
-final_norm and lm_head. Projections are plain `@` (as the JAX package
-leaves them to XLA); attention runs through the port's kernels:
-prefill_batch -> kernels/prefill.py (kernel 1), prefill_chunk_batch ->
-kernels/paged_prefill.py (kernel 5), decode_step -> kernels/paged.py
-(kernel 3), over the int8 or bf16 paged cache; forward / loss_fn /
-train_step -> kernels/autodiff.flash_attention_grad (kernel 1 forward, the
-fused backward kernel).
+(wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up, w_down; Gemma3 adds
+q_norm, k_norm, post_attn_norm, post_mlp_norm), plus embed, final_norm and
+lm_head. Projections are plain `@` (as the JAX package leaves them to
+XLA); attention runs through the port's kernels: prefill_batch ->
+kernels/prefill.py (kernel 1), or kernels/blockmask.py (the image-block
+kernel) for image prompts, prefill_chunk_batch -> kernels/paged_prefill.py (kernel 5),
+decode_step -> kernels/paged.py (kernel 3), over the int8 or bf16 paged
+cache; forward / loss_fn / train_step ->
+kernels/autodiff.flash_attention_grad (kernel 1 forward, the fused
+backward kernel), or the image-block kernel under image_block_ids
+(inference only).
+
+Gemma3 (LlamaConfig.gemma3_4b): (1 + w) RMSNorms, per-head q/k norms, post
+norms on the attention and MLP outputs, gelu-tanh, sqrt(dim)-scaled
+embeddings, query_pre_attn_scalar, and a per-layer pattern of sliding
+(window, local RoPE theta, unscaled positions) and global (full causal,
+global theta, linear position scale) layers: each layer passes its own
+window to the kernels (_layer_plan).
 
 decode_step keeps the JAX package's DEFERRED-APPEND structure: each layer
 attends over the stored cache with pos_offset=1 and return_lse=True, the
@@ -18,8 +28,8 @@ ONE append after the layer loop writes every layer's row. In PyTorch the
 XLA copy-insertion reason for it does not exist, but it defines the
 reference numerics.
 
-Not ported yet (raise NotImplementedError): MoE, qk_norm, sliding layer
-patterns, int8 weights, meshes, vision.
+Not ported yet (raise NotImplementedError): MoE, logit softcaps, int8
+weights, meshes.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from mfa_tpu_torch.cache.paged_cache import (StackedKVCache,
                                              scatter_span_rows)
 from mfa_tpu_torch.dispatch.config import resolve_device
 from mfa_tpu_torch.kernels.autodiff import flash_attention_grad
+from mfa_tpu_torch.kernels.blockmask import (dense_masked_attention,
+                                             image_block_prefill)
 from mfa_tpu_torch.kernels.paged import paged_attention
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
@@ -59,36 +71,81 @@ class LlamaConfig:
     # Mistral-style uniform sliding window (None = full causal).
     sliding_window: Optional[int] = None
     # linear RoPE position scaling, and the non-linear inv_freq rescale
-    # tuple ("llama3", ...) / ("yarn", ...) of mfa_tpu's LlamaConfig
+    # tuple ("llama3", ...) / ("yarn", ...) of mfa_tpu's LlamaConfig. With
+    # a dual RoPE config (rope_theta_local set) both apply to the global
+    # layers only (_sub_rope).
     rope_scale: float = 1.0
     rope_scaling: Optional[tuple] = None
-    # family knobs of the JAX config that this slice does not serve yet
-    n_experts: int = 0
-    qk_norm: bool = False
+    # Gemma family knobs (mfa_tpu's LlamaConfig):
+    head_dim_override: Optional[int] = None  # head_dim != dim / n_heads
+    hidden_act: str = "silu"                 # "silu" | "gelu_tanh"
+    norm_offset: bool = False                # RMSNorm x * (1 + w)
+    embed_scale: bool = False                # embeddings * sqrt(dim)
+    query_scale: Optional[float] = None      # softmax scale override
+    post_norms: bool = False                 # norms on attn / MLP outputs
+    qk_norm: bool = False                    # RMSNorm per q/k head
+    # per-layer sliding flags, repeating (True = sliding window, local
+    # RoPE); Gemma3-4B gives all 34 since its period 6 does not divide 34
     layer_pattern: Optional[tuple] = None
+    rope_theta_local: Optional[float] = None  # RoPE theta of sliding layers
+    # family knobs of the JAX config that the port does not serve yet
+    n_experts: int = 0
+    attn_softcap: Optional[float] = None
+    logit_softcap: Optional[float] = None
 
     def __post_init__(self):
-        if self.n_experts or self.qk_norm or self.layer_pattern:
+        if self.n_experts or self.attn_softcap or self.logit_softcap:
             raise NotImplementedError(
-                "MoE, qk_norm and sliding layer patterns are not ported yet")
+                "MoE and logit softcaps are not ported yet")
+        if self.hidden_act not in ("silu", "gelu_tanh"):
+            raise ValueError(f"hidden_act {self.hidden_act!r}")
+        if self.layer_pattern is not None and (
+                not self.layer_pattern or self.n_layers % len(self.layer_pattern)):
+            raise ValueError(f"layer pattern period {len(self.layer_pattern)} "
+                             f"must divide n_layers {self.n_layers}")
 
     @property
     def head_dim(self) -> int:
-        return self.dim // self.n_heads
+        return self.head_dim_override or self.dim // self.n_heads
 
     @property
     def attn_scale(self) -> float:
-        return self.head_dim ** -0.5
+        return (self.query_scale if self.query_scale is not None
+                else self.head_dim ** -0.5)
 
     @property
     def window_left(self) -> int:
         return -1 if self.sliding_window is None else self.sliding_window - 1
+
+    @property
+    def sliding_pattern(self) -> Optional[tuple]:
+        """Repeating per-layer sliding flags, or None (uniform layers)."""
+        return None if self.layer_pattern is None else tuple(self.layer_pattern)
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
         """meta-llama/Meta-Llama-3-8B config.json: 32 layers, dim 4096,
         32 q / 8 kv heads, ffn 14336, vocab 128256, rope_theta 5e5."""
         return LlamaConfig(vocab_size=128256)
+
+    @staticmethod
+    def gemma3_4b() -> "LlamaConfig":
+        """google/gemma-3-4b-it text_config: 34 layers, dim 2560, 8 q / 4
+        kv heads of head_dim 256, ffn 10240, vocab 262208, rms_norm_eps
+        1e-6, query_pre_attn_scalar 256, gelu_pytorch_tanh; sliding window
+        1024 with 5 sliding layers to 1 global (layer i global iff (i + 1)
+        % 6 == 0, as layer_types gives them); rope_theta 1e6 with linear
+        scaling 8 on the global layers, rope_local_base_freq 1e4 on the
+        sliding ones; no softcaps. The fields mfa_tpu's
+        convert.config_from_hf derives from that config."""
+        return LlamaConfig(
+            vocab_size=262208, dim=2560, n_layers=34, n_heads=8, n_kv_heads=4,
+            ffn_dim=10240, rope_theta=1000000.0, norm_eps=1e-6,
+            sliding_window=1024, rope_scale=8.0, head_dim_override=256,
+            hidden_act="gelu_tanh", norm_offset=True, embed_scale=True,
+            query_scale=256.0 ** -0.5, post_norms=True, qk_norm=True,
+            layer_pattern=tuple((i + 1) % 6 != 0 for i in range(34)),
+            rope_theta_local=10000.0)
 
     @staticmethod
     def tiny(vocab=256, dim=128, layers=2, heads=4, kv_heads=2, ffn=256,
@@ -100,15 +157,25 @@ class LlamaConfig:
 
 
 Params = Dict[str, Any]
-_NORMS = ("attn_norm", "mlp_norm", "final_norm")
+_NORMS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
+          "post_attn_norm", "post_mlp_norm")
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm", "w_gate",
                "w_up", "w_down")
+_GEMMA_KEYS = ("q_norm", "k_norm", "post_attn_norm", "post_mlp_norm")
+
+
+def _layer_keys(cfg: LlamaConfig) -> tuple:
+    """The per-layer weight names of this config, in a fixed order."""
+    extra = (("q_norm", "k_norm") if cfg.qk_norm else ()) + (
+        ("post_attn_norm", "post_mlp_norm") if cfg.post_norms else ())
+    return _LAYER_KEYS + extra
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
                 quantize: Optional[str] = None) -> Params:
     """Random weights in cfg.dtype from a seeded torch.Generator on the
-    device (normal * fan_in^-0.5, embed * 0.02, norms at one). int8
+    device (normal * fan_in^-0.5, embed * 0.02; fp32 norms at their
+    identity: one, or zero under norm_offset, which applies 1 + w). int8
     weights (quantize="int8") are not ported yet."""
     if quantize is not None:
         raise NotImplementedError("int8 weights are not ported yet")
@@ -120,12 +187,13 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
         w = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
         return w.mul_(scale if scale is not None else shape[-2] ** -0.5)
 
-    def norm():
-        return torch.ones((d,), dtype=torch.float32, device=dev)
+    def norm(width=d):
+        fill = torch.zeros if cfg.norm_offset else torch.ones
+        return fill((width,), dtype=torch.float32, device=dev)
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append(dict(
+        lp = dict(
             wq=dense((d, cfg.n_heads * hd)),
             wk=dense((d, cfg.n_kv_heads * hd)),
             wv=dense((d, cfg.n_kv_heads * hd)),
@@ -135,7 +203,12 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
             w_gate=dense((d, cfg.ffn_dim)),
             w_up=dense((d, cfg.ffn_dim)),
             w_down=dense((cfg.ffn_dim, d)),
-        ))
+        )
+        if cfg.qk_norm:
+            lp.update(q_norm=norm(hd), k_norm=norm(hd))
+        if cfg.post_norms:
+            lp.update(post_attn_norm=norm(), post_mlp_norm=norm())
+        layers.append(lp)
     return dict(layers=layers, embed=dense((cfg.vocab_size, d), 0.02),
                 final_norm=norm(), lm_head=dense((d, cfg.vocab_size)))
 
@@ -154,11 +227,12 @@ def params_from_numpy(tree, cfg: LlamaConfig, device) -> Params:
         return torch.tensor(a, dtype=dtype, device=dev)
 
     stacked = tree["layers"]
-    extra = set(stacked) - set(_LAYER_KEYS)
+    keys = _layer_keys(cfg)
+    extra = set(stacked) - set(keys)
     if extra:
         raise NotImplementedError(f"layer params {sorted(extra)} are not "
                                   f"ported yet")
-    layers = [{k: t(stacked[k][i], k) for k in _LAYER_KEYS}
+    layers = [{k: t(stacked[k][i], k) for k in keys}
               for i in range(cfg.n_layers)]
     return dict(layers=layers, embed=t(tree["embed"], "embed"),
                 final_norm=t(tree["final_norm"], "final_norm"),
@@ -168,6 +242,8 @@ def params_from_numpy(tree, cfg: LlamaConfig, device) -> Params:
 def _rms_norm(x, w, cfg: LlamaConfig):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
+    if cfg.norm_offset:  # Gemma: the weight is stored as w, applied 1 + w
+        w = 1.0 + w
     return (xf * torch.rsqrt(var + cfg.norm_eps) * w).to(x.dtype)
 
 
@@ -176,22 +252,42 @@ def _qkv(h, lp, cfg: LlamaConfig, *lead):
     q = (h @ lp["wq"]).reshape(*lead, cfg.n_heads, hd)
     k = (h @ lp["wk"]).reshape(*lead, cfg.n_kv_heads, hd)
     v = (h @ lp["wv"]).reshape(*lead, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:  # each head normalized before RoPE
+        q = _rms_norm(q, lp["q_norm"], cfg)
+        k = _rms_norm(k, lp["k_norm"], cfg)
     return q, k, v
+
+
+def _act(x, hidden_act: str):
+    """The family activation on the gate projection (gelu_tanh: Gemma)."""
+    if hidden_act == "gelu_tanh":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    return torch.nn.functional.silu(x)
 
 
 def _mlp(x, lp, cfg: LlamaConfig):
     h = _rms_norm(x, lp["mlp_norm"], cfg)
-    gate = torch.nn.functional.silu(h @ lp["w_gate"])
-    return x + (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    gate = _act(h @ lp["w_gate"], cfg.hidden_act)
+    out = (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    if cfg.post_norms:
+        out = _rms_norm(out, lp["post_mlp_norm"], cfg)
+    return x + out
 
 
 def _attn_residual(x, attn_flat, lp, cfg: LlamaConfig):
-    """o-projection + residual. attn_flat: [..., n_heads*head_dim]."""
-    return x + attn_flat.to(x.dtype) @ lp["wo"]
+    """o-projection (+ post-attention norm) + residual. attn_flat: [...,
+    n_heads*head_dim]."""
+    out = attn_flat.to(x.dtype) @ lp["wo"]
+    if cfg.post_norms:
+        out = _rms_norm(out, lp["post_attn_norm"], cfg)
+    return x + out
 
 
 def _embed(params, tokens, cfg: LlamaConfig):
-    return params["embed"][tokens]
+    x = params["embed"][tokens]
+    if cfg.embed_scale:  # Gemma: sqrt(dim) rounded to the activation dtype
+        x = x * float(torch.tensor(cfg.dim ** 0.5, dtype=x.dtype))
+    return x
 
 
 def _unembed(params, x, cfg: LlamaConfig):
@@ -273,8 +369,41 @@ def _rope(x, positions, theta: float, scale: float = 1.0,
                                         scaling))
 
 
-def _rope_args(cfg: LlamaConfig):
+def _sub_rope(cfg: LlamaConfig, sliding: bool):
+    """(theta, linear position scale, freq rescaling) of a layer. With a
+    dual RoPE config (rope_theta_local set: Gemma3's local 1e4 / global
+    1e6) sliding layers use the local theta with unscaled positions, and
+    the scalings apply to the global layers only; otherwise every layer
+    shares one rotary."""
+    if sliding and cfg.rope_theta_local is not None:
+        return (cfg.rope_theta_local, 1.0, None)
     return (cfg.rope_theta, cfg.rope_scale, cfg.rope_scaling)
+
+
+def _layer_plan(cfg: LlamaConfig) -> list:
+    """Per layer (window_left, rope args): sliding layers of the pattern
+    take cfg's window and the local rotary, global layers full causal
+    attention (mfa_tpu's _scan_layers, unrolled)."""
+    pattern = cfg.sliding_pattern
+    if pattern is None:
+        return [(cfg.window_left, _sub_rope(cfg, False))] * cfg.n_layers
+    plan = []
+    for li in range(cfg.n_layers):
+        sliding = bool(pattern[li % len(pattern)])
+        plan.append((cfg.window_left if sliding else -1, _sub_rope(cfg, sliding)))
+    return plan
+
+
+def _layer_ropes(cfg: LlamaConfig, positions):
+    """Per layer (window_left, (cos, sin)) for positions [..., seq]: one
+    table per distinct rotary."""
+    tables = {}
+    out = []
+    for wl, rope in _layer_plan(cfg):
+        if rope not in tables:
+            tables[rope] = _rope_tables(positions, cfg.head_dim, *rope)
+        out.append((wl, tables[rope]))
+    return out
 
 
 # ---------------- training path ----------------
@@ -283,22 +412,55 @@ def _rope_args(cfg: LlamaConfig):
 def param_tensors(params: Params) -> list:
     """Every weight tensor of the params, in a fixed order (what an
     optimizer is built over)."""
-    return ([lp[k] for lp in params["layers"] for k in _LAYER_KEYS]
+    return ([lp[k] for lp in params["layers"] for k in _LAYER_KEYS + _GEMMA_KEYS
+             if k in lp]
             + [params[k] for k in ("embed", "final_norm", "lm_head")])
 
 
-def _train_layer(x, lp, rope, cfg: LlamaConfig):
+def _attention_blockmask(q, k, v, cfg: LlamaConfig, window_left: int,
+                         block_ids):
+    """Attention on [b, s, h, d] under the Gemma3 multimodal mask, (causal
+    AND window) OR same-image-run, through the image-block kernel
+    (kernels/blockmask.py). block_ids [b, s] int32: contiguous image-run
+    id per token, -1 = text. The config has no attention softcap (it
+    raises on one), which the image-block mask does not take either."""
+    return image_block_prefill(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), block_ids,
+        softmax_scale=cfg.attn_scale, window_left=window_left).transpose(1, 2)
+
+
+def _attention_dense_masked(q, k, v, cfg: LlamaConfig, window_left: int,
+                            extra_mask):
+    """Dense fp32 attention on [b, s, h, d] with mask = (causal AND window)
+    OR extra_mask [b, s, s]: the reference of the multimodal mask algebra
+    that the image-block kernel tiles (mfa_tpu's
+    _attention_dense_masked)."""
+    s = q.shape[1]
+    row = torch.arange(s, device=q.device)[:, None]
+    col = torch.arange(s, device=q.device)[None, :]
+    band = col <= row
+    if window_left >= 0:
+        band &= col >= row - window_left
+    return dense_masked_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        band[None] | extra_mask.to(q.device), cfg.attn_scale).transpose(1, 2)
+
+
+def _train_layer(x, lp, wl, rope, cfg: LlamaConfig, image_block_ids=None):
     """One decoder layer on the full sequence x [b, s, dim]: causal flash
-    attention through the differentiable kernels (_attention_sharded of the
-    JAX package without a mesh), then the MLP."""
+    attention with this layer's window through the differentiable kernels
+    (_attention_sharded of the JAX package without a mesh), or the
+    image-block kernel under image_block_ids (no gradient), then the MLP."""
     b, s, _ = x.shape
     h = _rms_norm(x, lp["attn_norm"], cfg)
     q, k, v = _qkv(h, lp, cfg, b, s)
     q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
-    attn = flash_attention_grad(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-        softmax_scale=cfg.attn_scale, window_size=(cfg.window_left, -1)
-    ).transpose(1, 2)
+    if image_block_ids is not None:
+        attn = _attention_blockmask(q, k, v, cfg, wl, image_block_ids)
+    else:
+        attn = flash_attention_grad(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+            softmax_scale=cfg.attn_scale, window_size=(wl, -1)).transpose(1, 2)
     x = _attn_residual(x, attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp,
                        cfg)
     return _mlp(x, lp, cfg)
@@ -310,21 +472,24 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     """Full-sequence causal forward: tokens [b, s] -> logits [b, s, vocab]
     fp32. remat=True checkpoints each layer (torch.utils.checkpoint,
     non-reentrant): the backward recomputes the layer, so its attention
-    forward runs twice. input_embeds / image_block_ids (vision) are not
-    ported yet."""
-    if input_embeds is not None or image_block_ids is not None:
-        raise NotImplementedError("input_embeds and image_block_ids (vision) "
-                                  "are not ported yet")
+    forward runs twice.
+
+    input_embeds: optional [b, s, dim] embeddings (multimodal: image
+    features already merged, models/vision.py). image_block_ids: optional
+    [b, s] int32 image-run id per token (-1 = text); it ORs same-run
+    visibility into the causal/window mask and routes attention through
+    the image-block kernel, which has no backward: inference only, as in
+    JAX (on the card the kernel refuses inputs that require grad)."""
     s = tokens.shape[1]
-    x = _embed(params, tokens, cfg)
+    x = input_embeds if input_embeds is not None else _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)[None]
-    rope = _rope_tables(positions, cfg.head_dim, *_rope_args(cfg))
-    for lp in params["layers"]:
+    for lp, (wl, rope) in zip(params["layers"], _layer_ropes(cfg, positions)):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _train_layer, x, lp, rope, cfg, use_reentrant=False)
+                _train_layer, x, lp, wl, rope, cfg, image_block_ids,
+                use_reentrant=False)
         else:
-            x = _train_layer(x, lp, rope, cfg)
+            x = _train_layer(x, lp, wl, rope, cfg, image_block_ids)
     x = _rms_norm(x, params["final_norm"], cfg)
     return _unembed(params, x, cfg)
 
@@ -458,7 +623,7 @@ def _append_all_layers(cache: StackedKVCache, kq_all, ks_all, vq_all, vs_all,
 
 
 def prefill_batch(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
-                  pages_list, token_lists):
+                  pages_list, token_lists, vision=None, pixel_lists=None):
     """Prefill n prompts in one batched pass; writes their K/V pages and
     table rows IN PLACE. Prompts are padded to a shared power-of-two page
     count (as in the JAX package); padded rows write into the null page 0
@@ -467,6 +632,13 @@ def prefill_batch(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     seq_slots: [n] slot ids; pages_list: per-request page id lists;
     token_lists: per-request token lists. Returns (cache, logits [n, vocab]
     fp32) at each prompt's last position.
+
+    vision: optional (vparams, vcfg, image_token_id) for Gemma3 image
+    prompts; pixel_lists: per-request [k_i, 3, H, W] pixels (or None) in
+    request order. Their projected features replace the <image>
+    placeholder rows (models/vision.py) and every layer attends through
+    the image-block kernel; padded rows carry run id -1.
+    Decode afterwards is plain causal.
     """
     page = cache.page_size
     pps = cache.pages_per_seq
@@ -491,23 +663,37 @@ def prefill_batch(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     def dev_t(a):
         return torch.as_tensor(a, device=dev)
 
+    tokens = dev_t(toks)
+    embeds = block_ids = None
+    if vision is not None and pixel_lists is not None and any(
+            p is not None for p in pixel_lists):
+        from mfa_tpu_torch.models import vision as vis
+
+        vparams, vcfg, image_tok = vision
+        pixels = torch.cat([torch.as_tensor(p, device=dev)
+                            for p in pixel_lists if p is not None])
+        feats = vis.gemma3_image_features(vparams, pixels, vcfg)
+        embeds = vis.merge_image_embeds(_embed(params, tokens, cfg), tokens,
+                                        feats, image_tok)
+        block_ids = vis.image_block_ids_from_tokens(tokens, image_tok)
     return _prefill(params, cfg, cache, dev_t(np.asarray(seq_slots, np.int64)),
-                    dev_t(table_rows), dev_t(page_ids), dev_t(toks),
-                    dev_t(np.asarray(lens, np.int32)))
+                    dev_t(table_rows), dev_t(page_ids), tokens,
+                    dev_t(np.asarray(lens, np.int32)), embeds, block_ids)
 
 
 def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
-             table_rows, page_ids, tokens, true_lens):
+             table_rows, page_ids, tokens, true_lens, input_embeds=None,
+             image_block_ids=None):
     n, s = tokens.shape
     hd, hkv = cfg.head_dim, cfg.n_kv_heads
     page = cache.page_size
     npg = page_ids.shape[1]
-    x = _embed(params, tokens, cfg)  # [n, s, d]
+    x = (input_embeds if input_embeds is not None
+         else _embed(params, tokens, cfg))  # [n, s, d]
     positions = torch.arange(s, device=x.device)[None]
     store = cache.k_pages.dtype
-    rope = _rope_tables(positions, hd, *_rope_args(cfg))
     ys = []
-    for lp in params["layers"]:
+    for lp, (wl, rope) in zip(params["layers"], _layer_ropes(cfg, positions)):
         h = _rms_norm(x, lp["attn_norm"], cfg)
         q, k, v = _qkv(h, lp, cfg, n, s)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
@@ -517,10 +703,13 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         vq, vs_new = _store_rows(cache.quant_dtype, store, v.permute(2, 0, 1, 3))
         kq = pack_pages_payload(kq, n * npg, page)
         vq = pack_pages_payload(vq, n * npg, page)
-        attn = prefill_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, softmax_scale=cfg.attn_scale,
-            window_size=(cfg.window_left, -1)).transpose(1, 2)
+        if image_block_ids is not None:
+            attn = _attention_blockmask(q, k, v, cfg, wl, image_block_ids)
+        else:
+            attn = prefill_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True, softmax_scale=cfg.attn_scale,
+                window_size=(wl, -1)).transpose(1, 2)
         x = _attn_residual(x, attn.reshape(n, s, cfg.n_heads * hd), lp, cfg)
         x = _mlp(x, lp, cfg)
         if ks_new is not None:
@@ -617,8 +806,9 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         torch.zeros((), dtype=torch.long, device=dev)).reshape(-1)
     kv_len = torch.minimum(final_lens, offsets + chunk)
     store = cache.k_pages.dtype
-    rope = _rope_tables(positions, hd, *_rope_args(cfg))
+    plan = _layer_ropes(cfg, positions)
     for li, lp in enumerate(params["layers"]):
+        wl, rope = plan[li]
         h = _rms_norm(x, lp["attn_norm"], cfg)
         q, k, v = _qkv(h, lp, cfg, n, chunk)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
@@ -636,8 +826,7 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             q.to(cfg.dtype), cache.k_pages, cache.v_pages, kv_len, offsets,
             table_rows + li * P, k_scales=cache.k_scales,
             v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
-            causal=True, window_left=cfg.window_left,
-            quant_dtype=cache.quant_dtype)
+            causal=True, window_left=wl, quant_dtype=cache.quant_dtype)
         x = _attn_residual(x, attn.reshape(n, chunk, cfg.n_heads * hd), lp, cfg)
         x = _mlp(x, lp, cfg)
     x = _rms_norm(x, params["final_norm"], cfg)
@@ -688,9 +877,10 @@ def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     x = _embed(params, tokens, cfg)[:, None]  # [n, 1, d]
     positions = lens[:, None]
     store = cache.k_pages.dtype
-    rope = _rope_tables(positions, hd, *_rope_args(cfg))
+    plan = _layer_ropes(cfg, positions)
     ys = []
     for li, lp in enumerate(params["layers"]):
+        wl, rope = plan[li]
         h = _rms_norm(x, lp["attn_norm"], cfg)
         q, k, v = _qkv(h, lp, cfg, n, 1)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
@@ -700,7 +890,7 @@ def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             q[:, 0].to(cfg.dtype), cache.k_pages, cache.v_pages, lens,
             tables + li * cache.num_pages, k_scales=cache.k_scales,
             v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
-            window_left=cfg.window_left, quant_dtype=cache.quant_dtype,
+            window_left=wl, quant_dtype=cache.quant_dtype,
             pos_offset=1, return_lse=True,
         )  # [n, heads, hd], [n, heads]
         attn = _merge_deferred(o_c[:, None], lse_c[:, None], q, kq, ks_new,

@@ -1,15 +1,18 @@
 """Generation engine, synchronous loop (counterpart of mfa_tpu/serve/engine.py).
 
 Step shape: release finished slots -> admit -> prefill admitted prompts
-(kernel 1, writes KV pages) -> advance every in-progress long prompt or
-prefix-cache suffix by one chunk (kernel 5, write-then-attend) -> map
-pages for the next position -> one batched decode step over the requests
-whose prefill is complete (kernel 3) -> greedy sample -> append / finish.
-Decode and chunk batches are padded to power-of-two buckets, the padding
-rows pointing at a free scratch slot, as in the JAX engine.
+(kernel 1, writes KV pages; image prompts, with vision=, in a wave of
+their own through the vision tower and the image-block kernel) ->
+advance every
+in-progress long prompt or prefix-cache suffix by one chunk (kernel 5,
+write-then-attend) -> map pages for the next position -> one batched
+decode step over the requests whose prefill is complete (kernel 3) ->
+greedy sample -> append / finish. Decode and chunk batches are padded to
+power-of-two buckets, the padding rows pointing at a free scratch slot, as
+in the JAX engine.
 
 Not ported yet (raise NotImplementedError): decode bursts, the pipelined
-loop, speculative decoding, recovery, meshes and vision.
+loop, speculative decoding, recovery and meshes.
 """
 
 from __future__ import annotations
@@ -34,8 +37,13 @@ class EngineStats:
     decode_tokens: int = 0
     steps: int = 0
     preemptions: int = 0
-    prefill_batches: int = 0
+    prefill_batches: int = 0  # prefill_batch calls, image waves included
     chunk_batches: int = 0  # prefill_chunk_batch calls
+    # the image waves among prefill_batches: their calls, prompt tokens
+    # and host seconds (also counted in prefill_tokens / prefill_s)
+    image_batches: int = 0
+    image_prefill_tokens: int = 0
+    image_prefill_s: float = 0.0
     # host seconds of prefill waves and decode steps, each ending in the
     # readback of its sampled tokens (so the device work is included)
     prefill_s: float = 0.0
@@ -74,10 +82,17 @@ class Engine:
         prefill_chunk: prompts longer than this many tokens are ingested one
         page-aligned chunk per step, interleaved with decode (a multiple of
         page_size). prefix_cache: requests reuse the pages of an earlier
-        prompt's shared prefix and prefill only their suffix."""
-        if mesh is not None or draft_params is not None or vision is not None:
+        prompt's shared prefix and prefill only their suffix.
+
+        vision: optional (vision_params, SiglipVisionConfig,
+        image_token_id), on `device` too, enabling submit(..., images=)
+        Gemma3 image prompts: their prefill merges the projected image
+        features over the placeholder rows under the image-block mask
+        (the image-block kernel); decode is unchanged (the images live in
+        the prompt)."""
+        if mesh is not None or draft_params is not None:
             raise NotImplementedError(
-                "meshes, speculative decoding and vision are not ported yet")
+                "meshes and speculative decoding are not ported yet")
         if prefill_chunk is not None and prefill_chunk % page_size != 0:
             raise ValueError("prefill_chunk must be a multiple of page_size")
         self.device = resolve_device(device)
@@ -100,14 +115,31 @@ class Engine:
         self._all_reqs: Dict[int, Request] = {}
         self.prefill_chunk = prefill_chunk
         self._prefilling: Dict[int, tuple] = {}  # uid -> (req, pos, tokens)
+        self.vision = vision
 
     def submit(self, prompt: List[int], max_new_tokens: int,
                eos_token: Optional[int] = None,
-               stop: Optional[List[List[int]]] = None) -> Request:
+               stop: Optional[List[List[int]]] = None, images=None) -> Request:
         """stop: token-id sequences that end generation when the output ends
-        with one of them (the matched tokens stay in the output)."""
+        with one of them (the matched tokens stay in the output).
+        images: [n_images, 3, H, W] pixels matching the prompt's <image>
+        placeholder runs (needs the engine's vision= tuple); image prompts
+        prefill whole (never chunked) and never share prefix pages."""
+        if images is not None:
+            if self.vision is None:
+                raise ValueError(
+                    "images= requires an Engine vision= tuple "
+                    "(vision_params, vision_cfg, image_token_id)")
+            image_tok, vcfg = self.vision[2], self.vision[1]
+            n_img = images.shape[0]
+            placeholders = sum(1 for t in prompt if t == image_tok)
+            if placeholders != n_img * vcfg.mm_tokens_per_image:
+                raise ValueError(
+                    f"{n_img} images need {n_img * vcfg.mm_tokens_per_image} "
+                    f"<image> tokens (id {image_tok}), the prompt has "
+                    f"{placeholders}")
         req = Request(self._next_uid, list(prompt), max_new_tokens,
-                      eos_token, stop=stop)
+                      eos_token, stop=stop, images=images)
         self._next_uid += 1
         self.sched.submit(req)
         self._stream_pos[req.uid] = 0
@@ -141,39 +173,54 @@ class Engine:
         return ids.cpu().numpy(), lps.cpu().numpy()
 
     def _prefill_admitted(self, reqs: List[Request]) -> None:
-        """Prefill all newly admitted prompts in one batched pass. Long
-        prompts (past prefill_chunk) and prefix-cache hits, whose suffix
-        starts at a page-aligned offset, go to the chunked path instead.
-        Resumed (preempted) requests re-prefill their prompt plus all but
-        the last generated token; the last one replays through the decode
-        step."""
+        """Prefill all newly admitted prompts in one batched pass, the image
+        prompts in a second one. Long text prompts (past prefill_chunk) and
+        prefix-cache hits, whose suffix starts at a page-aligned offset, go
+        to the chunked path instead; image prompts always prefill whole
+        (the image-block mask needs every prompt row in one pass). Resumed
+        (preempted) requests re-prefill their prompt plus all but the last
+        generated token, with their images; the last one replays through
+        the decode step."""
         toks_of = {r.uid: r.prompt + r.generated[:-1] for r in reqs}
         for r in reqs:
             toks = toks_of[r.uid]
-            if ((self.prefill_chunk is not None
-                    and len(toks) > self.prefill_chunk) or r.cached_len > 0):
+            if (((self.prefill_chunk is not None
+                    and len(toks) > self.prefill_chunk) or r.cached_len > 0)
+                    and r.images is None):
                 self._prefilling[r.uid] = (r, r.cached_len, toks)
         reqs = [r for r in reqs if r.uid not in self._prefilling]
-        if not reqs:
-            return
-        t0 = time.perf_counter()
-        token_lists = [toks_of[r.uid] for r in reqs]
-        self.cache, logits = llama.prefill_batch(
-            self.params, self.cfg, self.cache, [r.slot for r in reqs],
-            [r.pages for r in reqs], token_lists)
-        firsts, first_lps = self._sample(logits)
-        self.stats.prefill_batches += 1
-        self.stats.prefill_s += time.perf_counter() - t0
-        for req, toks, first, flp in zip(reqs, token_lists, firsts, first_lps):
-            self.stats.prefill_tokens += len(toks)
-            if self.sched.prefix is not None:
-                self.sched.prefix.register(req)
-            if not req.generated:  # fresh request (not a resume)
-                req.generated.append(int(first))
-                req.logprobs.append(float(flp))
-                self.stats.decode_tokens += 1
-            if req.done:
-                self._finish(req)
+        # text prompts keep kernel 1; image prompts, padded to their own
+        # longest prompt, take the tower and the image-block kernel
+        text_reqs = [r for r in reqs if r.images is None]
+        img_reqs = [r for r in reqs if r.images is not None]
+        for group, vision in ((text_reqs, None), (img_reqs, self.vision)):
+            if not group:
+                continue
+            t0 = time.perf_counter()
+            token_lists = [toks_of[r.uid] for r in group]
+            self.cache, logits = llama.prefill_batch(
+                self.params, self.cfg, self.cache, [r.slot for r in group],
+                [r.pages for r in group], token_lists, vision=vision,
+                pixel_lists=[r.images for r in group] if vision else None)
+            firsts, first_lps = self._sample(logits)
+            secs = time.perf_counter() - t0
+            self.stats.prefill_batches += 1
+            self.stats.prefill_s += secs
+            if vision is not None:
+                self.stats.image_batches += 1
+                self.stats.image_prefill_s += secs
+                self.stats.image_prefill_tokens += sum(map(len, token_lists))
+            for req, toks, first, flp in zip(group, token_lists, firsts,
+                                             first_lps):
+                self.stats.prefill_tokens += len(toks)
+                if self.sched.prefix is not None and req.images is None:
+                    self.sched.prefix.register(req)
+                if not req.generated:  # fresh request (not a resume)
+                    req.generated.append(int(first))
+                    req.logprobs.append(float(flp))
+                    self.stats.decode_tokens += 1
+                if req.done:
+                    self._finish(req)
 
     def _map_new_pages(self, n: int = 1) -> None:
         """Map pages for the next n decode positions of every active

@@ -25,6 +25,9 @@ class Request:
     eos_token: Optional[int] = None
     # finish when the generation ends with any of these token-id lists
     stop: Optional[List[List[int]]] = None
+    # multimodal: [n_images, 3, H, W] pixels whose projected features fill
+    # the prompt's <image> placeholder runs (Gemma3; the engine's vision=)
+    images: Optional[object] = None
     # filled during execution
     generated: List[int] = dataclasses.field(default_factory=list)
     logprobs: List[float] = dataclasses.field(default_factory=list)
@@ -202,7 +205,10 @@ class Scheduler:
         admitted = []
         while self.waiting and self._free_slots:
             req = self.waiting[0]
-            keys, shared = self.prefix.match(req.prompt)
+            # image prompts never share prefix pages: equal token ids do not
+            # mean equal KV (the placeholders' KV depends on the pixels)
+            keys, shared = (([], []) if req.images is not None
+                            else self.prefix.match(req.prompt))
             cached_len = len(shared) * self.page_size
             need = max(1, -(-(req.total_len - cached_len) // self.page_size))
             if self.allocator.free_pages < need + 1:

@@ -11,7 +11,12 @@ Then an engine with chunked prefill (chunks of 512) takes 4 prompts of
 4000 tokens and traces one chunk batch: 4 x 512 tokens at q_start 1536
 (after three untraced warm chunks). Last, with the same weights, one SGD
 train step of the model on 4 x 2049 tokens with remat (after one untraced
-warm step). For each phase it prints the host wall time (with and without the
+warm step). Then, with those weights freed, Gemma3-4B at full width and
+depth with its 27-layer SigLIP tower (random bf16 weights, int8 paged KV):
+one image wave of chip_smoke.py's 6 image prompts (7 images of 896 x
+896), after one untraced warm wave, and the tower alone on the same 7
+images; the tower's trace splits the wave's device time into the tower,
+the text projections, the glue and kernel 9. For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -31,6 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 GROUPS = (("prefill kernel", ("prefill_fwd_kernel",)),
+          ("image-block kernel", ("image_block_kernel",)),
           ("paged prefill kernel", ("paged_prefill_kernel",)),
           ("paged kernel", ("decode_kernel",)),
           ("backward kernel", ("bwd_dkv_kernel", "bwd_dq_kernel")),
@@ -84,6 +90,79 @@ def _report(tag, prof, wall_ms, plain_ms, n_units, unit, out):
         table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=60)
     out.write(table + "\n")
+    return {g: ms / n_units for g, ms in groups.items()}, dev_ms / n_units
+
+
+def gemma3_image_wave(acts, out_path) -> None:
+    """Gemma3-4B image wave: device time of the wave by group, and of the
+    tower alone on the same images (its matmuls and elementwise kernels
+    are subtracted from the wave's to leave the text stack's)."""
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from chip_smoke import IMAGE_TOKEN, _gemma3_prompts
+    from mfa_tpu_torch.models import llama, vision
+    from mfa_tpu_torch.serve.engine import Engine
+
+    cfg, vcfg = llama.LlamaConfig.gemma3_4b(), vision.SiglipVisionConfig()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    vparams = vision.init_vision_params(vcfg, cfg.dim, seed=0, device="cuda")
+    rng = np.random.RandomState(0)
+    prompts, n_images, _ = _gemma3_prompts(rng, n_text=0)
+    pixels = [rng.standard_normal((n, 3, vcfg.image_size, vcfg.image_size)
+                                  ).astype(np.float32) for n in n_images]
+
+    def engine():
+        eng = Engine(params, cfg, num_pages=256, page_size=64, max_seqs=8,
+                     pages_per_seq=40, quant_dtype="int8", device="cuda",
+                     vision=(vparams, vcfg, IMAGE_TOKEN))
+        for p, px in zip(prompts, pixels):
+            eng.submit(p, 1, images=px)
+        return eng
+
+    def wave(eng):
+        t0 = time.perf_counter()
+        eng._prefill_admitted(eng.sched.admit())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wave(engine())  # warm-up
+    plain = wave(engine())
+    eng = engine()
+    n_tok = sum(len(p) for p in prompts)
+    with open(out_path or os.devnull, "a") as out:
+        with profile(activities=acts) as prof:
+            wall = wave(eng)
+        g_wave, dev_wave = _report(
+            f"gemma3 image wave ({len(prompts)} prompts, {sum(n_images)} images, "
+            f"{n_tok} tokens, {cfg.n_layers} layers)", prof, wall, plain, 1, "wave",
+            out)
+        every = torch.cat([torch.as_tensor(p, device="cuda") for p in pixels])
+
+        def tower():
+            t0 = time.perf_counter()
+            vision.gemma3_image_features(vparams, every, vcfg)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        tower()
+        plain = tower()
+        with profile(activities=acts) as prof:
+            wall = tower()
+        g_tower, dev_tower = _report(
+            f"gemma3 vision tower + projector alone ({len(every)} images)", prof,
+            wall, plain, 1, "call", out)
+    mm, ew = "matmul", "elementwise / copy / reduce"
+    proj = g_wave.get(mm, 0.0) - g_tower.get(mm, 0.0)
+    glue = (g_wave.get(ew, 0.0) + g_wave.get("loss (softmax, nll)", 0.0)
+            - g_tower.get(ew, 0.0) - g_tower.get("loss (softmax, nll)", 0.0))
+    k9 = g_wave.get("image-block kernel", 0.0)
+    print(f"gemma3 image wave by group: vision tower + projector {dev_tower:.3f} ms "
+          f"({dev_tower / dev_wave:.1%}), text projections {proj:.3f} ms "
+          f"({proj / dev_wave:.1%}), text glue {glue:.3f} ms ({glue / dev_wave:.1%}), "
+          f"kernel 9 {k9:.3f} ms ({k9 / dev_wave:.1%}) of {dev_wave:.3f} ms device",
+          flush=True)
 
 
 def main() -> int:
@@ -217,6 +296,9 @@ def main() -> int:
             wall = (time.perf_counter() - t0) * 1e3
         _report(f"train step (4 x 2048 tokens, remat, SGD, {cfg.n_layers} "
                 f"layers)", prof, wall, plain, 1, "step", out)
+    del params, tokens
+    torch.cuda.empty_cache()
+    gemma3_image_wave(acts, args.out)
     print(f"card: {smi}", flush=True)
     return 0
 

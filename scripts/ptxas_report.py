@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Registers, shared memory and spills of every kernel the port compiles.
+
+    python3 scripts/ptxas_report.py [--match 256]
+
+Compiles each source of mfa_tpu_torch/kernels/_build.SOURCES with the
+port's own nvcc flags plus `-Xptxas -v` (all sources at once, into a
+temporary directory), and prints one line per kernel instantiation:
+registers a thread, spill stores and loads in bytes, the stack frame, and
+the demangled name. --match keeps only the names containing the string.
+Exits non-zero if a source does not compile. Needs nvcc (the CUDA
+toolkit), not a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def _demangle(names):
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not os.path.exists(tool):
+        tool = shutil.which("c++filt")
+    if not tool:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def parse(log: str):
+    """ptxas -v output -> [(mangled name, registers, spill stores, spill
+    loads, stack bytes)] in the order ptxas printed them."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = [m.group(1), None, None, None, None]
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur[4], cur[2], cur[3] = (int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[1] = int(m.group(1))
+    return [tuple(r) for r in rows]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--match", default="")
+    args = ap.parse_args()
+    from mfa_tpu_torch.kernels import _build
+
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for src in _build.SOURCES:
+            cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                   os.path.join(tmp, src + ".so"), os.path.join(_build.CSRC, src)]
+            procs[src] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+        failed = False
+        for src, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                print(f"{src}: nvcc failed\n{log}", flush=True)
+                failed = True
+                continue
+            rows = parse(log)
+            names = _demangle([r[0] for r in rows])
+            for (_, regs, st, ld, stack), name in zip(rows, names):
+                if args.match and args.match not in name:
+                    continue
+                print(f"{src}: {regs} registers, spill stores {st} B, spill "
+                      f"loads {ld} B, stack {stack} B: {name}", flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

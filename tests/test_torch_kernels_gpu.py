@@ -41,6 +41,11 @@ def _close(out, lse, ref, ref_lse):
     (3, 4, 2, 65, 63, 64, True, (0, -1), 0.0, HF),       # window 0: self only
     (1, 16, 2, 200, 50, 64, False, (10, -1), 0.0, HF),   # dead rows past sk
     (2, 2, 2, 300, 300, 128, True, (127, -1), 0.0, HF),
+    (2, 8, 4, 300, 300, 256, True, (-1, -1), 0.0, BF),   # head_dim 256 (Gemma)
+    (1, 8, 4, 200, 200, 256, True, (63, -1), 0.0, HF),
+    (2, 4, 2, 100, 130, 256, False, (9, 4), 0.0, BF),
+    (1, 4, 4, 64, 64, 256, True, (-1, -1), 30.0, BF),
+    (1, 16, 2, 200, 50, 256, False, (10, -1), 0.0, BF),  # dead rows past sk
 ])
 def test_prefill_kernel(dev, b, hq, hkv, sq, sk, d, causal, window, softcap,
                         dtype):
@@ -62,6 +67,8 @@ def test_prefill_kernel(dev, b, hq, hkv, sq, sk, d, causal, window, softcap,
     (2, 8, 8, 65, 128, [65, 1], (1, 2), -1, 0.0, BF),
     (4, 32, 8, 1000, 128, [1000, 999, 64, 63], (0, 5), 100, 0.0, HF),
     (2, 4, 1, 300, 64, [300, 200], (2,), -1, 20.0, BF),
+    (2, 8, 4, 700, 256, [700, 1], (1, 3), 100, 0.0, BF),  # head_dim 256
+    (3, 8, 1, 300, 256, [300, 0, 129], (2,), -1, 0.0, HF),
 ])
 def test_decode_kernel(dev, b, hq, hkv, s, d, lens, splits, window, softcap,
                        dtype):
@@ -91,6 +98,10 @@ def test_decode_kernel(dev, b, hq, hkv, s, d, lens, splits, window, softcap,
     (8, 1, 8, 64, False, HF, 0, 20, 0.0),       # pages smaller than a tile
     (16, 2, 32, 128, True, BF, 1, 1, 0.0),
     (32, 8, 64, 128, True, BF, 1, -1, 15.0),
+    (8, 4, 64, 256, True, BF, 1, 50, 0.0),      # head_dim 256, group 2 (Gemma3)
+    (8, 4, 64, 256, False, BF, 1, 50, 0.0),
+    (8, 4, 64, 256, True, HF, 1, -1, 0.0),
+    (16, 2, 32, 256, False, HF, 0, -1, 0.0),    # group 8
 ])
 def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
                       softcap):
@@ -208,6 +219,70 @@ def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
         0 if causal else window[1], softcap)
     assert o.dtype == dtype and lse.shape == (b, hq, sq)
     _close(o, lse, ro, rl)
+
+
+# ---------------- image-block prefill (kernels/blockmask.py) ----------------
+
+
+def _run_ids(b, s, runs, dev):
+    """[b, s] int32 run ids: runs[i] lists (start, end) pairs (inclusive)
+    of row i; every other token is text (-1)."""
+    ids = torch.full((b, s), -1, dtype=torch.int32)
+    for i, row in enumerate(runs):
+        for gi, (a, z) in enumerate(row):
+            ids[i, a:z + 1] = gi
+    return ids.to(dev)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,runs,window,dtype", [
+    (2, 8, 4, 300, 256, [[(10, 80), (150, 280)], [(63, 64), (127, 200)]], -1, BF),
+    (2, 8, 4, 300, 256, [[(10, 80), (150, 280)], [(63, 64), (127, 200)]], 32, BF),
+    (1, 4, 2, 517, 128, [[(0, 3), (100, 355)]], 64, HF),  # run across 4 tiles
+    (2, 4, 4, 129, 64, [[(60, 70)], []], 16, BF),          # window cuts the run
+    (3, 8, 1, 200, 128, [[], [], [(0, 199)]], -1, BF),     # whole prompt one run
+    (1, 8, 4, 100, 256, [[(5, 9), (20, 27), (40, 41)]], 7, HF),
+])
+def test_image_block_kernel(dev, b, hq, hkv, s, d, runs, window, dtype):
+    from mfa_tpu_torch.kernels import _build, blockmask
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (_rn(gen, b, hq, s, d, dtype=dtype), _rn(gen, b, hkv, s, d, dtype=dtype),
+               _rn(gen, b, hkv, s, d, dtype=dtype))
+    ids = _run_ids(b, s, runs, dev)
+    _build.reset_launches()
+    o = blockmask.image_block_prefill(q, k, v, ids, window_left=window)
+    assert dict(_build.launches) == {"blockmask": 1}
+    ref = blockmask._image_block_plain(q.float(), k.float(), v.float(), ids,
+                                       d ** -0.5, window)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - ref).abs().max() < 2e-2
+
+
+def test_image_block_without_images_is_causal_prefill(dev):
+    from mfa_tpu_torch.kernels import blockmask, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, k, v = _rn(gen, 2, 8, 333, 256), _rn(gen, 2, 4, 333, 256), _rn(gen, 2, 4, 333, 256)
+    ids = torch.full((2, 333), -1, dtype=torch.int32, device=dev)
+    for wl in (-1, 100):
+        a = blockmask.image_block_prefill(q, k, v, ids, window_left=wl)
+        r = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1))
+        assert torch.equal(a, r)  # the same tile, the same tiles visited
+
+
+def test_image_block_visits_only_its_tiles(dev):
+    """KV tiles past every run end of a q tile are never read: NaN there
+    leaves the rows before them finite (the wrapper's kv_last bound)."""
+    from mfa_tpu_torch.kernels import blockmask
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = _rn(gen, 1, 4, 512, 128), _rn(gen, 1, 2, 512, 128), _rn(gen, 1, 2, 512, 128)
+    k[:, :, 384:] = float("nan")
+    v[:, :, 384:] = float("nan")
+    ids = _run_ids(1, 512, [[(100, 140)]], dev)
+    o = blockmask.image_block_prefill(q, k, v, ids)
+    assert torch.isfinite(o[:, :, :384].float()).all()
 
 
 # ---------------- backward kernels (kernels/backward.py) ----------------

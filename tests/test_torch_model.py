@@ -80,10 +80,14 @@ def test_llama3_8b_is_the_published_shape():
 
 
 def test_unported_family_knobs_raise():
-    for kw in (dict(n_experts=8), dict(qk_norm=True),
-               dict(layer_pattern=(True, False))):
+    for kw in (dict(n_experts=8), dict(attn_softcap=50.0),
+               dict(logit_softcap=30.0)):
         with pytest.raises(NotImplementedError):
             dataclasses.replace(TCFG, **kw)
+    # the Gemma3 knobs are ported; a layer pattern must tile the depth
+    dataclasses.replace(TCFG, qk_norm=True, layer_pattern=(True, False))
+    with pytest.raises(ValueError):
+        dataclasses.replace(TCFG, layer_pattern=(True, True, False))
 
 
 def test_init_params_is_seeded():

@@ -59,11 +59,18 @@ def test_forward_and_loss_match_jax(jparams):
 
 
 def test_unported_forward_inputs_raise(jparams):
+    """input_embeds and image_block_ids (Gemma3 vision) are ported: an
+    all-text run-id map over the embedded tokens is the causal forward, and
+    an id map of the wrong shape raises."""
     tp = _port(jparams)
-    toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tl.forward(tp, toks, TCFG, input_embeds=torch.zeros(1, 4, 64))
-    with pytest.raises(NotImplementedError):
+    toks = torch.from_numpy(_tokens(6, (1, 9))).long()
+    plain = tl.forward(tp, toks, TCFG)
+    ids = torch.full((1, 9), -1, dtype=torch.int32)
+    got = tl.forward(tp, toks, TCFG, input_embeds=tl._embed(tp, toks, TCFG),
+                     image_block_ids=ids)
+    np.testing.assert_allclose(got.detach().numpy(), plain.detach().numpy(),
+                               **TOL)
+    with pytest.raises(ValueError):
         tl.forward(tp, toks, TCFG, image_block_ids=torch.zeros(1, 4))
 
 
