@@ -21,7 +21,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    Gemma3-4B's head_dim 256, prefill (causal, window 1023 and none) and
    paged decode (int8 and bf16 pages, group 2, window 1023), and the
    image-block prefill (kernel 9) in four cases, one of them with no image
-   equal to kernel 1's causal output.
+   equal to kernel 1's causal output; the zero-shift engines (kernels 2, 3,
+   4: flagged + repair at the 8B wave, at 4096 tokens and at Gemma3-4B's
+   text wave, with 0 flags on benign inputs and flags, a repaired output
+   and an "unchecked" output off the limits on adversarial ones; the bound
+   kernel with and without risky bits; fp16 through kernel 1); and the int8
+   weight matmul (kernel 10) at the 8B projections for m = 16 and 3601
+   (limit: 2^-8 of the largest output; cuBLAS on the dequantized bf16
+   weight as the yardstick).
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -40,14 +47,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    the 27-layer SigLIP tower at 896 px, random bf16 weights from a seed,
    int8 paged KV) answering 6 image prompts (7 images; two runs start past
    the window) and 4 text prompts, 32 new tokens each: image prompts
-   prefill through the tower and kernel 9, text prompts through kernel 1
-   at d 256, every decode step through the paged kernel at d 256.
+   prefill through the tower and kernel 9, text prompts through kernels 2
+   + 3 at d 256, every decode step through the paged kernel at d 256; then
+   Llama-3-8B again with int8 weights (init_params(quantize="int8")) and
+   the traffic of the first engine: every projection through kernel 10.
+   The library surface also calls flash_attn_func with a softcap and in
+   fp16 (kernel 1) and at head_dim 64 (kernel 4); every bf16 prompt wave
+   runs kernels 2 + 3.
 4. The 8B model cut to 2 layers, on the card (kernels) and on the CPU
    (plain versions) with the same weights: prefill, decode, chunked prefill
    and prefix-hit suffix logits agree, and one SGD train step gives the
    same loss and gradients; then Gemma3-4B cut to 2 layers (one sliding,
    one global) with a 2-layer tower at 224 px: image-prompt prefill and
-   the next decode step's logits agree.
+   the next decode step's logits agree; then the 2-layer 8B with int8
+   weights: prefill and decode logits agree, argmax equal.
 5. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
 """
@@ -134,6 +147,13 @@ def _lse_err(lse, ref, what=""):
     return ok
 
 
+def _wave_launches(got, n):
+    """A bf16 prompt wave runs the default engine: n zero-shift launches,
+    each followed by its repair launch, and kernel 1 not at all."""
+    return got.get("flagged", 0) == n and got.get("repair", 0) == n \
+        and not got.get("prefill", 0)
+
+
 def kernel_phase(records):
     """Phase 2. Fills records[name] with errors and times; returns ok."""
     import torch
@@ -155,14 +175,16 @@ def kernel_phase(records):
     for b, hq, hkv, s in ((16, 32, 8, 256), (1, 32, 8, 4096)):
         q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
         scale = d ** -0.5
-        o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True)
+        o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                           bound_softmax=False)
         ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), scale,
                                         -1, 0, 0.0, True)
-        tag = f"prefill causal b={b} hq={hq} hkv={hkv} s={s} d={d} bf16"
+        tag = f"prefill (kernel 1) causal b={b} hq={hq} hkv={hkv} s={s} d={d} bf16"
         print(tag, flush=True)
         mx, good = _err(o, ro, what="O")
         ok &= good and _lse_err(lse, rl, "")
-        ms = _time_ms(lambda: prefill.prefill_attention(q, k, v, causal=True))
+        ms = _time_ms(lambda: prefill.prefill_attention(q, k, v, causal=True,
+                                                        bound_softmax=False))
         plain_ms = _time_ms(lambda: prefill._prefill_plain(
             q, k, v, scale, -1, 0, 0.0, False), iters=3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
@@ -292,6 +314,8 @@ def kernel_phase(records):
     ok &= paged_prefill_kernels(records, rn, gen)
     ok &= backward_kernels(records, rn)
     ok &= gemma3_kernels(records, rn, gen)
+    ok &= zero_shift_kernels(records, rn)
+    ok &= wmatmul_kernels(records, gen)
     return ok
 
 
@@ -312,16 +336,17 @@ def gemma3_kernels(records, rn, gen):
     io_bytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     for wl in (1023, -1):
         o, lse = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1),
-                                           return_lse=True)
+                                           return_lse=True, bound_softmax=False)
         ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), scale,
                                         wl, 0, 0.0, True)
-        print(f"prefill d256 causal window {wl}: b={b} hq={hq} hkv={hkv} s={s} bf16",
-              flush=True)
+        print(f"prefill (kernel 1) d256 causal window {wl}: b={b} hq={hq} hkv={hkv} "
+              f"s={s} bf16", flush=True)
         mx, good = _err(o, ro, what="O")
         ok &= good and _lse_err(lse, rl, "")
         records["prefill"]["max_abs_err"] = max(records["prefill"]["max_abs_err"], mx)
         ms = _time_ms(lambda: prefill.prefill_attention(q, k, v, causal=True,
-                                                        window_size=(wl, -1)))
+                                                        window_size=(wl, -1),
+                                                        bound_softmax=False))
         plain_ms = _time_ms(lambda: prefill._prefill_plain(q, k, v, scale, wl, 0, 0.0,
                                                            False), iters=3)
         if wl < 0:
@@ -410,7 +435,8 @@ def gemma3_kernels(records, rn, gen):
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
         if not (ids >= 0).any():
             same = torch.equal(o, prefill.prefill_attention(qq, kk, vv, causal=True,
-                                                            window_size=(wl, -1)))
+                                                            window_size=(wl, -1),
+                                                            bound_softmax=False))
             print(f"  equal to kernel 1's causal output: {same}", flush=True)
             ok &= same
             continue
@@ -431,6 +457,225 @@ def gemma3_kernels(records, rn, gen):
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                        library_ms=lib_ms)
         del mask
+    torch.cuda.empty_cache()
+    return ok
+
+
+def zero_shift_kernels(records, rn):
+    """Kernels 2, 3 and 4 (the zero-shift engines, csrc/bound.cu) against
+    the plain classic version (fp32 on the same bf16 inputs): the flagged +
+    repair pair at the 8B wave (b16 hq32 hkv8 s256 d128), at b1 s4096, and
+    at Gemma3-4B's text wave (b4 hq8 hkv4 s2048 d256, window 1023 and none):
+    0 flags on benign inputs, flags and a repaired output on std-1e3 inputs
+    and under the +-40 near-flush bias, where "unchecked" is off. The
+    repair launch is timed alone with no flag and with every tile flagged.
+    The bound kernel: "prepass" at d 128 on adversarial inputs, the d 64
+    default and "unchecked" on benign ones. fp16 with a strong key takes
+    kernel 1 and stays finite."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import prefill
+
+    ok = True
+    bf = torch.bfloat16
+    for tag, b, hq, hkv, s, d, wl, record in (
+            ("8B wave", 16, 32, 8, 256, 128, -1, True),
+            ("long prompt", 1, 32, 8, 4096, 128, -1, False),
+            ("Gemma3-4B text wave, window 1023", 4, 8, 4, 2048, 256, 1023, False),
+            ("Gemma3-4B text wave, global layer", 4, 8, 4, 2048, 256, -1, False)):
+        scale, nt = d ** -0.5, -(-s // 64)
+        q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+        kw = dict(causal=True, window_size=(wl, -1))
+        o, lse, flags = prefill.prefill_attention(q, k, v, return_lse=True,
+                                                  bound_softmax="flag_debug", **kw)
+        ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), scale, wl, 0,
+                                        0.0, True)
+        n_flags = int(flags.sum())  # read back here only, never on the main path
+        print(f"flagged + repair, {tag}: b={b} hq={hq} hkv={hkv} s={s} d={d} bf16, "
+              f"benign: {n_flags} of {flags.numel()} tiles flagged", flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "") and n_flags == 0
+        for n in ("flagged", "repair"):
+            records[n]["max_abs_err"] = max(records[n].get("max_abs_err", 0.0), mx)
+        out = torch.empty_like(q)
+        lse_o = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+        none = torch.zeros((b, hq, nt), dtype=torch.int32, device="cuda")
+        every = torch.ones_like(none)
+        ms = _time_ms(lambda: prefill._zs_launch("flagged", q, k, v, out, None, flags,
+                                                 scale, wl, 0))
+        rep0 = _time_ms(lambda: prefill._zs_launch("repair", q, k, v, out, None, none,
+                                                    scale, wl, 0))
+        rep1 = _time_ms(lambda: prefill._zs_launch("repair", q, k, v, out, None, every,
+                                                   scale, wl, 0))
+        k1 = _time_ms(lambda: prefill.prefill_attention(q, k, v, bound_softmax=False,
+                                                        **kw))
+        plain_ms = _time_ms(lambda: prefill._zero_shift_plain(q, k, v, scale, wl, 0),
+                            iters=3)
+        rplain = _time_ms(lambda: prefill._prefill_plain(q, k, v, scale, wl, 0, 0.0,
+                                                         False), iters=3)
+        if wl < 0:
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        else:
+            band = prefill._band(s, s, wl, 0, "cuda")[0]
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True))
+        io = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+        bound_ms, by = _bound(io + b * hq * nt * 4,
+                              4 * b * hq * _visible_pairs(s, s, 0, wl, 0) * d)
+        rb0, rby0 = _bound(b * hq * nt * 4, 0)
+        print(f"  flagged ms {ms:.4f} (kernel 1 {k1:.4f}), repair ms {rep0:.4f} with no "
+              f"flag (bound {rb0:.6f}, {rby0}) and {rep1:.4f} with every tile flagged; "
+              f"plain_ms {plain_ms:.4f} (repair's: classic {rplain:.4f}) library_ms(sdpa) "
+              f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({by})", flush=True)
+        if record:
+            records["flagged"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=by, library_ms=lib_ms)
+            records["repair"].update(ms=rep0, plain_ms=rplain, bound_ms=rb0,
+                                     bound_by=rby0, library_ms=None)
+        del q, k, v, o, lse, ro, rl, out, lse_o
+        torch.cuda.empty_cache()
+
+    # adversarial inputs at the 8B wave shape
+    b, hq, hkv, s, d = 16, 32, 8, 256, 128
+    scale = d ** -0.5
+    for tag in ("std 1e3", "near-flush bias +-40"):
+        q, k, v = rn(b, hq, s, d).float(), rn(b, hkv, s, d).float(), rn(b, hkv, s, d)
+        q, k = (q * 1e3, k * 1e3) if tag == "std 1e3" else (q + 40.0, k - 40.0)
+        q, k = q.to(bf), k.to(bf)
+        ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), scale, -1, 0,
+                                        0.0, True)
+        o, lse, flags = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                                  bound_softmax="flag_debug")
+        o1, lse1 = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                             bound_softmax=False)
+        raw = prefill.prefill_attention(q, k, v, causal=True, bound_softmax="unchecked")
+        n_flags = int(flags.sum())
+        print(f"flagged + repair, adversarial ({tag}): {n_flags} of {flags.numel()} "
+              f"tiles flagged", flush=True)
+        # Scores reach 1e6 here, where fp32 rounds them by ~0.1: rows whose
+        # two best keys are that close move with the summation order, so
+        # the limit is the repair's own function, kernel 1 bit for bit on
+        # every flagged tile, with the mean error against the plain version
+        same = n_flags == flags.numel() and torch.equal(o, o1) and torch.equal(lse, lse1)
+        err = (o.float() - ro).abs()
+        mx, mean = float(err.max()), float(err.mean())
+        good = bool(torch.isfinite(o.float()).all()) and mean < 2e-3 and same
+        fin = torch.isfinite(rl)
+        lse_rel = float(((lse - rl).abs() / rl.abs().clamp(min=1.0))[fin].max())
+        good &= lse_rel < 1e-3 and torch.equal(torch.isneginf(lse), torch.isneginf(rl))
+        print(f"  repaired O equal to kernel 1's O and LSE: {same}; against the plain "
+              f"version: max_abs_err {mx:.3e}, mean {mean:.3e} (< 2e-3), lse relative "
+              f"err {lse_rel:.3e} (< 1e-3) {'ok' if good else 'FAIL'}", flush=True)
+        d_raw = (raw.float() - ro).abs()
+        off = not bool(torch.isfinite(raw.float()).all()) or float(
+            d_raw.nan_to_num(1e9).max()) >= 2e-2
+        print(f"  unchecked: max_abs_err {float(d_raw.nan_to_num(1e9).max()):.3e}, "
+              f"outside the limits: {off}", flush=True)
+        ok &= good and off
+        del q, k, v, o, lse, o1, lse1, ro, rl, raw
+
+    # kernel 4, the bound engine
+    rec = records["bound"]
+    for tag, d, mode, adversarial in (("prepass, std 1e3", 128, "prepass", True),
+                                      ("prepass, benign", 128, "prepass", False),
+                                      ("default at d 64, benign", 64, None, False),
+                                      ("unchecked, benign", 128, "unchecked", False)):
+        scale = d ** -0.5
+        q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+        if adversarial:
+            q, k = (q.float() * 1e3).to(bf), (k.float() * 1e3).to(bf)
+        o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                           bound_softmax=mode)
+        ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), scale, -1, 0,
+                                        0.0, True)
+        bits = prefill._risky_bits(q, k, scale * prefill._LOG2E)
+        n_bits = int(bits.sum())
+        print(f"bound {tag}: b={b} hq={hq} hkv={hkv} s={s} d={d} bf16, {n_bits} of "
+              f"{bits.numel()} tiles risky", flush=True)
+        mx, good = _err(o, ro, what="O")
+        fin = torch.isfinite(rl)
+        lse_rel = float(((lse - rl).abs() / rl.abs().clamp(min=1.0))[fin].max())
+        good &= lse_rel < 1e-3 and (n_bits == bits.numel() if adversarial else n_bits == 0)
+        ok &= good
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        table = None if mode == "unchecked" else bits
+        out = torch.empty_like(q)
+        ms = _time_ms(lambda: prefill._zs_launch("bound", q, k, v, out, None, table,
+                                                 scale, -1, 0))
+        bits_ms = _time_ms(lambda: prefill._risky_bits(q, k, scale * prefill._LOG2E))
+        plain_ms = _time_ms(lambda: prefill._zero_shift_plain(q, k, v, scale, -1, 0),
+                            iters=3)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        bound_ms, by = _bound(2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+                              + (0 if table is None else bits.numel() * 4),
+                              4 * b * hq * s * (s + 1) // 2 * d)
+        print(f"  ms {ms:.4f} (+ risky bits by torch ops {bits_ms:.4f}) lse relative err "
+              f"{lse_rel:.3e} plain_ms {plain_ms:.4f} library_ms(sdpa) {lib_ms:.4f} "
+              f"bound_ms {bound_ms:.4f} ({by})", flush=True)
+        if tag == "prepass, benign":
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                       library_ms=lib_ms)
+
+    # fp16 with a strong key: the default takes kernel 1 and stays exact
+    q = (rn(1, 32, 256, 128).float() * 0.1 + 1.0).half()
+    k, v = rn(1, 8, 256, 128).half(), rn(1, 8, 256, 128).half()
+    k[:, :, 0] = 2.0  # every row's natural logit against key 0 is about 22
+    o = prefill.prefill_attention(q, k, v, causal=True)
+    ro = prefill._prefill_plain(q.float(), k.float(), v.float(), 128 ** -0.5, -1, 0,
+                                0.0, False)
+    print("fp16 with a strong key (natural logit ~22), default engine:", flush=True)
+    ok &= _err(o, ro, what="O")[1]
+    return ok
+
+
+def wmatmul_kernels(records, gen):
+    """Kernel 10 (csrc/wmatmul.cu) against its plain version in fp32 on the
+    same inputs: m = 16 (a decode step) at the 8B projections wq, wk, w_gate,
+    w_down and the lm_head, and m = 3601 (a prefill wave) at w_gate. Limit:
+    max |a - r| <= 2^-8 max |r| (the kernel rounds its fp32 accumulator
+    once). The library call is torch.matmul against the dequantized bf16
+    weight (cuBLAS), a yardstick only."""
+    import torch
+
+    from mfa_tpu_torch.kernels import wmatmul
+    from mfa_tpu_torch.models.wquant import dequantize_weight, quantize_weight
+
+    ok = True
+    rec = records["wmatmul"]
+    for name, m, K, N in (("wq", 16, 4096, 4096), ("wk", 16, 4096, 1024),
+                          ("w_gate", 16, 4096, 14336), ("w_down", 16, 14336, 4096),
+                          ("lm_head", 16, 4096, 128256), ("w_gate", 3601, 4096, 14336)):
+        x = torch.randn(m, K, generator=gen, device="cuda").to(torch.bfloat16)
+        w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5)
+        out = wmatmul.int8_matmul(x, w.qw, w.scale)
+        ref = wmatmul._int8_matmul_plain(x.float(), w.qw, w.scale, torch.float32)
+        d = (out.float() - ref).abs()
+        lim = 2 ** -8 * float(ref.abs().max())
+        mx = float(d.max())
+        good = bool(torch.isfinite(out.float()).all()) and mx <= lim
+        splits, per = wmatmul.split_k(m, K, N)
+        print(f"wmatmul {name}: m={m} K={K} N={N} bf16 x int8, {splits} K split(s): "
+              f"max_abs_err {mx:.3e} (<= {lim:.3e}) mean {float(d.mean()):.3e} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        ms = _time_ms(lambda: wmatmul.int8_matmul(x, w.qw, w.scale))
+        plain_ms = _time_ms(lambda: wmatmul._int8_matmul_plain(x, w.qw, w.scale,
+                                                               torch.bfloat16), iters=5)
+        wd = dequantize_weight(w, torch.bfloat16)
+        lib_ms = _time_ms(lambda: torch.matmul(x, wd))
+        bound_ms, by = _bound(K * N + 4 * N + 2 * m * K + 2 * m * N, 2 * m * K * N)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(torch.matmul, bf16 "
+              f"weight) {lib_ms:.4f} bound_ms {bound_ms:.4f} ({by}); int8 weight "
+              f"stream {K * N / ms / 1e6:.1f} GB/s, {2 * m * K * N / ms / 1e9:.1f} "
+              f"TFLOP/s", flush=True)
+        if name == "w_gate" and m == 16:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                       library_ms=lib_ms)
+        del x, w, wd, out, ref
     torch.cuda.empty_cache()
     return ok
 
@@ -741,7 +986,13 @@ def library_surface(counts):
 
     _build.reset_launches()
     q, k, v = rn(16, 256, 32, 128), rn(16, 256, 8, 128), rn(16, 256, 8, 128)
-    o1 = mfa_tpu_torch.flash_attn_func(q, k, v, causal=True)
+    o1 = mfa_tpu_torch.flash_attn_func(q, k, v, causal=True)  # kernels 2 + 3
+    # kernel 1: softcap and fp16 keep the classic engine; kernel 4: the
+    # default at head_dim 64
+    o1c = mfa_tpu_torch.flash_attn_func(q, k, v, causal=True, softcap=30.0)
+    o1h = mfa_tpu_torch.flash_attn_func(q.half(), k.half(), v.half(), causal=True)
+    o1d = mfa_tpu_torch.flash_attn_func(q[..., :64], k[..., :64], v[..., :64],
+                                        causal=True)
     qd = rn(16, 1, 32, 128)
     kc, vc = rn(16, 8192, 8, 128), rn(16, 8192, 8, 128)
     o2 = mfa_tpu_torch.flash_attn_with_kvcache(qd, kc, vc, cache_seqlens=8192)
@@ -782,14 +1033,15 @@ def library_surface(counts):
     got = dict(_build.launches)
     counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
     print(f"library surface launches {got}", flush=True)
-    outs = (o1, o2, o3, o4, o5, o6, o7) + grads
+    outs = (o1, o1c, o1h, o1d, o2, o3, o4, o5, o6, o7) + grads
     ok = all(bool(torch.isfinite(o.float()).all()) for o in outs)
     ok &= o1.shape == q.shape and o2.shape == qd.shape and o3.shape == qd.shape
     ok &= o4.shape == qv.shape and o5.shape == qp.shape
     ok &= all(g.shape == t.shape for g, t in zip(grads, leaves + [qt, kt, vt]))
     ok &= all(got.get(n, 0) >= 1 for n in (
-        "prefill", "decode", "combine", "paged", "varlen", "paged_prefill",
-        "bwd_fused", "bwd_dkv", "bwd_dq", "varlen_bwd_dkv", "varlen_bwd_dq"))
+        "prefill", "flagged", "repair", "bound", "decode", "combine", "paged",
+        "varlen", "paged_prefill", "bwd_fused", "bwd_dkv", "bwd_dq",
+        "varlen_bwd_dkv", "varlen_bwd_dq"))
     return ok
 
 
@@ -827,10 +1079,10 @@ def engine_phase(counts, ident, state):
     ok = all(len(r.generated) == gen_tokens for r in reqs)
     ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
     ok &= eng.sched.allocator.free_pages == free0
-    ok &= got.get("prefill", 0) == cfg.n_layers * stats.prefill_batches
+    ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches)
     ok &= got.get("paged", 0) == cfg.n_layers * stats.steps
     step_tokens = stats.decode_tokens - n_req  # first tokens come from prefill
-    print(f"engine launches {got}: prefill = {cfg.n_layers} layers x "
+    print(f"engine launches {got}: flagged = repair = {cfg.n_layers} layers x "
           f"{stats.prefill_batches} waves, paged = {cfg.n_layers} layers x "
           f"{stats.steps} decode steps", flush=True)
     print(f"engine: {n_req} requests finished with {gen_tokens} tokens: "
@@ -852,7 +1104,7 @@ def chunked_engine_phase(counts, ident, state):
     the chunked path; (b) a request with a 1024-token system prompt runs
     until its prefill completes, then 8 more with the same system prompt
     hit its 16 cached pages and prefill only their suffix; (c) 4 short
-    prompts take whole-prompt prefill (kernel 1)."""
+    prompts take whole-prompt prefill (kernels 2 + 3)."""
     import numpy as np
     import torch
 
@@ -897,11 +1149,11 @@ def chunked_engine_phase(counts, ident, state):
     ok &= stats.prefill_tokens <= prompt_tokens - 8 * 1024
     ok &= eng.sched.allocator.free_pages + retained == free0
     ok &= got.get("paged_prefill", 0) == cfg.n_layers * stats.chunk_batches
-    ok &= got.get("prefill", 0) == cfg.n_layers * stats.prefill_batches
+    ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches)
     ok &= got.get("paged", 0) == cfg.n_layers * stats.steps
     step_tokens = stats.decode_tokens - len(reqs)  # first tokens come from prefill
     print(f"chunked engine launches {got}: paged_prefill = {cfg.n_layers} "
-          f"layers x {stats.chunk_batches} chunk batches, prefill = "
+          f"layers x {stats.chunk_batches} chunk batches, flagged = repair = "
           f"{cfg.n_layers} x {stats.prefill_batches} waves, paged = "
           f"{cfg.n_layers} x {stats.steps} decode steps", flush=True)
     print(f"chunked engine: {len(reqs)} requests finished with {gen_tokens} "
@@ -927,8 +1179,8 @@ def train_phase(counts, ident, state):
     """Main path, part 4: three SGD train steps of the full Llama-3-8B
     (32 layers, the engines' random bf16 weights, their KV pools freed) on
     4 x 2049 tokens from numpy.random.RandomState(SEED) (benchmark/train.py's
-    batch and sequence), remat on. Each layer's attention runs kernel 1 in
-    the forward and again in the remat recompute, and the fused backward
+    batch and sequence), remat on. Each layer's attention runs kernels 2 + 3
+    in the forward and again in the remat recompute, and the fused backward
     kernel. SGD, not AdamW: AdamW's two moments would add 32-64 GB to the
     16 GB of weights and 16 GB of gradients on an 80 GB card."""
     import numpy as np
@@ -957,10 +1209,10 @@ def train_phase(counts, ident, state):
         got = dict(_build.launches)
         counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
         good = got.get("bwd_fused", 0) == cfg.n_layers \
-            and got.get("prefill", 0) == 2 * cfg.n_layers
+            and _wave_launches(got, 2 * cfg.n_layers)
         print(f"train step {step + 1}: loss {losses[-1]:.6f}, {times[-1] * 1e3:.1f} "
-              f"ms, launches {got} (bwd_fused = {cfg.n_layers} layers, prefill = "
-              f"2 x {cfg.n_layers}: forward + remat recompute) "
+              f"ms, launches {got} (bwd_fused = {cfg.n_layers} layers, flagged = "
+              f"repair = 2 x {cfg.n_layers}: forward + remat recompute) "
               f"{'ok' if good else 'FAIL'}", flush=True)
         ok &= good
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1020,7 +1272,7 @@ def engine_gemma3_phase(counts, ident):
     27-layer tower, random bf16 weights from SEED, int8 paged KV with
     64-token pages, 6 image prompts (7 random 896 x 896 images) and 4 text
     prompts of 300-1800 tokens, 32 new tokens each. Launches: kernel 9 34
-    per image wave, kernel 1 34 per text wave, the paged kernel 34 per
+    per image wave, kernels 2 + 3 34 each per text wave, the paged kernel 34 per
     decode step."""
     import numpy as np
     import torch
@@ -1066,11 +1318,11 @@ def engine_gemma3_phase(counts, ident):
     ok &= eng.sched.allocator.free_pages == free0
     ok &= stats.image_batches >= 1 and text_waves >= 1
     ok &= got.get("blockmask", 0) == L * stats.image_batches
-    ok &= got.get("prefill", 0) == L * text_waves
+    ok &= _wave_launches(got, L * text_waves)
     ok &= got.get("paged", 0) == L * stats.steps
     ok &= not got.get("paged_prefill", 0)
     print(f"gemma3 engine launches {got}: blockmask = {L} layers x "
-          f"{stats.image_batches} image waves, prefill = {L} x {text_waves} text "
+          f"{stats.image_batches} image waves, flagged = repair = {L} x {text_waves} text "
           f"waves, paged = {L} x {stats.steps} decode steps", flush=True)
     # the tower alone, warm, on one image and on the wave's seven
     one = torch.as_tensor(pixels[0][:1], device="cuda")
@@ -1239,6 +1491,113 @@ def cpu_vs_cuda_phase():
     return ok and good
 
 
+def engine_int8w_phase(counts, ident):
+    """Main path, part 6: Llama-3-8B at full width and depth with int8
+    weights (init_params(quantize="int8"): every projection and the lm_head
+    a QWeight, quantized layer by layer as it is built; the embedding per
+    row) and int8 paged KV, the traffic of part 2: 16 requests of 200-256
+    prompt tokens, 32 new tokens each. Every projection runs kernel 10 (7
+    per layer and the lm_head, per wave and per decode step), every wave
+    kernels 2 + 3, every decode step the paged kernel."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.models.wquant import params_nbytes
+    from mfa_tpu_torch.serve.engine import Engine
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device="cuda", quantize="int8")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    nbytes = params_nbytes(params)
+    print(f"engine int8 weights: Llama-3-8B width, {cfg.n_layers} layers, {nbytes / 1e9:.3f}"
+          f" GB of weights (bf16: 16.06 GB), built and quantized from seed {SEED} in "
+          f"{time.perf_counter() - t0:.1f} s, init peak memory {init_peak:.2f} GB",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    n_req, gen_tokens, page = 16, 32, 64
+    eng = Engine(params, cfg, num_pages=128, page_size=page, max_seqs=16,
+                 pages_per_seq=8, quant_dtype="int8", device="cuda")
+    free0 = eng.sched.allocator.free_pages
+    rng = np.random.RandomState(SEED)
+    reqs = [eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), gen_tokens)
+            for n in rng.randint(200, 257, n_req)]
+    _build.reset_launches()
+    stats = eng.run()
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.n_layers
+    passes = stats.prefill_batches + stats.steps
+    ok = all(len(r.generated) == gen_tokens for r in reqs)
+    ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+    ok &= eng.sched.allocator.free_pages == free0
+    ok &= _wave_launches(got, L * stats.prefill_batches)
+    ok &= got.get("paged", 0) == L * stats.steps
+    ok &= got.get("wmatmul", 0) == (7 * L + 1) * passes
+    step_tokens = stats.decode_tokens - n_req
+    print(f"engine int8 weights launches {got}: wmatmul = (7 x {L} projections + "
+          f"lm_head) x ({stats.prefill_batches} waves + {stats.steps} decode steps), "
+          f"flagged = repair = {L} x {stats.prefill_batches}, paged = {L} x "
+          f"{stats.steps}", flush=True)
+    print(f"engine int8 weights: {n_req} requests finished with {gen_tokens} tokens: "
+          f"{all(len(r.generated) == gen_tokens for r in reqs)}; free pages "
+          f"{eng.sched.allocator.free_pages} of {free0} returned", flush=True)
+    print(f"engine int8 weights: prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
+          f"tok/s ({stats.prefill_tokens} tokens in {stats.prefill_s:.3f} s), decode "
+          f"{step_tokens / stats.decode_s:.1f} tok/s ({step_tokens} tokens in "
+          f"{stats.steps} steps, {stats.decode_s:.3f} s), weights {nbytes / 1e9:.3f} GB, "
+          f"peak memory {peak_gb:.2f} GB [{ident}]", flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    return ok
+
+
+def cpu_vs_cuda_int8w_phase():
+    """Phase 4, int8 weights: the 8B model cut to 2 layers with
+    init_params(quantize="int8"), kernel 10 on the card against its plain
+    version on the CPU with the same weights: whole-prompt prefill and the
+    next decode step's logits within max 0.25 / mean 0.02 (as the bf16
+    model above), argmax equal."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    p_gpu = llama.init_params(cfg, seed=SEED + 4, device="cuda", quantize="int8")
+    p_cpu = dict(layers=[{k: v.to("cpu") for k, v in lp.items()} for lp in p_gpu["layers"]],
+                 **{k: p_gpu[k].to("cpu") for k in ("embed", "final_norm", "lm_head")})
+    rng = np.random.RandomState(SEED + 4)
+    prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in (37, 90)]
+    out = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        cache = llama.build_kv_caches(cfg, 16, 64, 2, 4, "int8", device=dev)
+        cache, lg1 = llama.prefill_batch(params, cfg, cache, [0, 1], [[1, 2], [3, 4, 5]],
+                                         prompts)
+        toks = out["toks"] if "toks" in out else lg1.argmax(-1).cpu()
+        out["toks"] = toks
+        cache, lg2 = llama.decode_step(params, cfg, cache, [0, 1], toks)
+        out[dev] = tuple(x.float().cpu() for x in (lg1, lg2))
+    ok = True
+    for i, name in enumerate(("prefill_batch", "decode_step")):
+        a, r = out["cuda"][i], out["cpu"][i]
+        d = (a - r).abs()
+        agree = bool(torch.equal(a.argmax(-1), r.argmax(-1)))
+        good = bool(torch.isfinite(a).all()) and float(d.max()) < 0.25 \
+            and float(d.mean()) < 0.02 and agree
+        print(f"int8 weights cuda vs cpu {name} logits [{tuple(a.shape)}]: max_abs "
+              f"{float(d.max()):.3e} (< 0.25) mean_abs {float(d.mean()):.3e} (< 0.02), "
+              f"|ref| max {float(r.abs().max()):.2f}, argmax agree {agree} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -1293,6 +1652,14 @@ def main() -> int:
                           "mfa_tpu/kernels/backward.py:1142"),
         "blockmask": ("mfa_tpu_torch/csrc/blockmask.cu",
                       "mfa_tpu/kernels/blockmask.py:54"),
+        "flagged": ("mfa_tpu_torch/csrc/bound.cu",
+                    "mfa_tpu/kernels/prefill.py:697"),
+        "repair": ("mfa_tpu_torch/csrc/bound.cu",
+                   "mfa_tpu/kernels/prefill.py:738"),
+        "bound": ("mfa_tpu_torch/csrc/bound.cu",
+                  "mfa_tpu/kernels/prefill.py:661"),
+        "wmatmul": ("mfa_tpu_torch/csrc/wmatmul.cu",
+                    "mfa_tpu/kernels/wmatmul.py:34"),
     }
     records = {n: {"name": n, "route": "cuda", "source": s, "replaces": r}
                for n, (s, r) in sources.items()}
@@ -1307,8 +1674,10 @@ def main() -> int:
                      ("train_8b", lambda: train_phase(counts, ident, state)),
                      ("engine_gemma3_4b_vision",
                       lambda: engine_gemma3_phase(counts, ident)),
+                     ("engine_8b_int8w", lambda: engine_int8w_phase(counts, ident)),
                      ("cuda_vs_cpu", cpu_vs_cuda_phase),
-                     ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase)):
+                     ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
+                     ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase)):
         t0 = time.perf_counter()
         try:
             phases[name] = bool(fn())

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("prefill.cu", "decode.cu", "paged.cu", "paged_prefill.cu",
-           "backward.cu", "blockmask.cu")
+           "backward.cu", "blockmask.cu", "bound.cu", "wmatmul.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

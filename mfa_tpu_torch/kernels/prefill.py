@@ -1,10 +1,34 @@
 """Flash-attention prefill forward (counterpart of mfa_tpu/kernels/prefill.py).
 
-Kernel 1 of the port: csrc/prefill.cu, one classic online-softmax forward
-that replaces the TPU's classic (_prefill_body), zero-shift flagged and
-repair kernels, which all compute this same function. A CUDA tensor runs
-the kernel (or raises); a CPU tensor runs `_prefill_plain`, the same
-function in fp32 PyTorch.
+The JAX package has three softmax engines behind `bound_softmax`, and the
+port has a hand-written kernel for each Pallas kernel:
+
+- classic (False): kernel 1, csrc/prefill.cu `mfa_prefill_fwd`, the online
+  softmax with a running row max (`_prefill_body`). Softcap always runs it.
+- zero shift + poison flag, then repair (None / True, the default):
+  csrc/bound.cu `mfa_flagged_fwd` (`_flagged_*`) fixes the softmax shift at
+  zero and writes one int32 flag per (batch, head, 64-row tile) from values
+  already in registers; `mfa_repair_fwd` (`_repair_kernel`) recomputes the
+  flagged tiles with the classic algorithm in place. It is launched after
+  every flagged launch: the flags never go to the host.
+- zero shift + risky bits ("prepass", the default at head_dim % 128 != 0;
+  "unchecked"): `mfa_bound_fwd` (`_bound_*`). `_risky_bits` computes, with
+  torch ops as JAX does in jnp, which 64-row tiles could leave the fp32
+  exp2 range under the zero shift (`_bound_risky`); those run the classic
+  tile. "unchecked" has no bits and no classic branch.
+
+The engine is chosen as in mfa_tpu (prefill.py:1093-1197), with one
+departure: fp16 inputs take kernel 1 under None / True, and an explicit
+zero-shift mode with fp16 raises. An unshifted p = exp2(s * c) is cast to
+V's dtype before P.V, and fp16 overflows above 65504 and loses precision
+below 6e-5 (ROADMAP Queue 3). `"flag_debug"` also returns the flags [b,
+hq, ceil(sq / 64)], `"flag_only"` skips the repair, `"flag_presence"` the
+flag.
+
+A CUDA tensor runs the kernels (or raises); a CPU tensor runs each
+engine's plain fp32 version, which repeats its block algorithm: the same
+exponent, p cast to V's dtype before P.V, and flags and risky bits per
+64-row tile.
 """
 
 from __future__ import annotations
@@ -15,22 +39,75 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import softmax_scale_default
+from mfa_tpu_torch.dispatch.config import cdiv, softmax_scale_default
 from mfa_tpu_torch.kernels import _build
 
 _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
              _F, _F, _F, _P]
+# q, k, v, o, lse, flags or bits, dtype, b, hq, hkv, sq, sk, d, wl, wr,
+# scale_log2e, stream (csrc/bound.cu)
+_ZS_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _P]
 # head_dims of the kernels on the shared forward tile (varlen, paged
 # prefill) and of the backward; mfa_prefill_fwd also takes 256 (Gemma)
 KERNEL_HEAD_DIMS = (64, 128)
 PREFILL_HEAD_DIMS = KERNEL_HEAD_DIMS + (256,)
+TILE_Q = 64  # q rows per block of every prefill kernel (flash_fwd.cuh FA_BM)
+
+# Copies of mfa_tpu/kernels/prefill.py's constants. A tile whose |q|max
+# |k|max * scale * log2(e) stays within _BOUND_SAFE_LOG2 keeps every
+# zero-shift exponent inside +-100 (Cauchy-Schwarz). A zero-shift row sum
+# at or below _L_MIN, or not finite, poisons its tile.
+_BOUND_SAFE_LOG2 = 100.0
+_L_MIN = 2.0 ** -89
+MODES = (True, False, "prepass", "unchecked", "flag_only", "flag_presence",
+         "flag_debug")
+
+
+def _bound_risky(maxq, maxk, scale_log2e):
+    """True where the zero-shift softmax cannot be proven exact for a tile
+    whose |q| / |k| row-norm maxima are maxq / maxk (mfa_tpu's
+    _bound_risky)."""
+    return maxq * maxk * abs(scale_log2e) > _BOUND_SAFE_LOG2
+
+
+def _risky_bits(q, k, scale_log2e):
+    """int32 [b, hq, ceil(sq / 64)]: 1 for the q tiles whose score range
+    the norm bound cannot keep inside fp32 exp2 range. The maximum |k| is
+    taken over the whole kv sequence of the tile's kv head, as in JAX."""
+    b, hq, sq, _ = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    nt = cdiv(sq, TILE_Q)
+    kf = k.float()
+    maxk = (torch.sqrt((kf * kf).sum(-1)).amax(-1) if sk
+            else kf.new_zeros((b, hkv)))
+    qf = q.float()
+    qn = torch.nn.functional.pad(torch.sqrt((qf * qf).sum(-1)),
+                                 (0, nt * TILE_Q - sq))
+    qn_blk = qn.reshape(b, hq, nt, TILE_Q).amax(-1)
+    return _bound_risky(qn_blk, maxk.repeat_interleave(hq // hkv, 1)[..., None],
+                        scale_log2e).to(torch.int32)
+
+
+def _band(sq, sk, window_left, window_right, device):
+    """[sq, sk] visibility and [sq] 'band structurally empty' per row."""
+    row = torch.arange(sq, device=device)[:, None]
+    col = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if window_right >= 0:
+        mask &= col <= row + window_right
+    if window_left >= 0:
+        mask &= col >= row - window_left
+    r = row[:, 0]
+    lo = (r - window_left).clamp(min=0) if window_left >= 0 else torch.zeros_like(r)
+    hi = (r + window_right + 1).clamp(max=sk) if window_right >= 0 else torch.full_like(r, sk)
+    return mask, hi <= lo
 
 
 def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
                    return_lse):
-    """fp32 reference of the kernel: same band, softcap and dead-row rules;
+    """fp32 reference of kernel 1: same band, softcap and dead-row rules;
     LSE is the natural log of the scaled (capped) logits."""
     _, hq, sq, _ = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -42,24 +119,79 @@ def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
         s = torch.tanh(s * (scale / softcap)) * softcap
     else:
         s = s * scale
-    row = torch.arange(sq, device=q.device)[:, None]
-    col = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if window_right >= 0:
-        mask &= col <= row + window_right
-    if window_left >= 0:
-        mask &= col >= row - window_left
+    mask, _ = _band(sq, sk, window_left, window_right, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     live = torch.isfinite(lse)[..., None]
-    p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros((), device=q.device))
+    # shifted by the row max, as the kernel's exp2((s - m) * c): exact for
+    # scores far from 0, where s - lse would keep lse's rounding
+    p = torch.where(live, torch.softmax(s, dim=-1), torch.zeros((), device=q.device))
     out = (p @ vf).to(q.dtype)
     return (out, lse) if return_lse else out
 
 
-def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
-                  return_lse):
-    _build.refuse_grad("prefill_attention", q, k, v)
+def _zero_shift_plain(q, k, v, scale, window_left, window_right):
+    """fp32 version of the zero-shift tile (kernels 2 and 4): p =
+    exp2(s * scale * log2 e) with no shift, cast to V's dtype before P.V.
+    O is normalized by the sum of p as cast (a convex combination of V's
+    rows), LSE = ln l and the poison check use the sum l of the uncast p,
+    as mfa_tpu (which normalizes by l too: in fp32 the two are the same).
+    Returns (O in q's dtype, LSE = ln l, poison flags per 64-row tile
+    [b, hq, ceil(sq / 64)] bool): a row is poisoned when its band is not
+    structurally empty and l lies outside (_L_MIN, inf), or one of its O
+    values is not finite."""
+    b, hq, sq, _ = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = q.float() @ kf.transpose(-1, -2)
+    mask, empty = _band(sq, sk, window_left, window_right, q.device)
+    p = torch.where(mask, torch.exp2(s * (scale * _LOG2E)),
+                    torch.zeros((), device=q.device))
+    l = p.sum(-1)
+    p = p.to(v.dtype).float()
+    n = p.sum(-1)
+    acc = p @ vf
+    bad = (l == 0) | torch.isnan(l)
+    l_safe = torch.where(bad, torch.ones_like(l), l)
+    o = acc * (1.0 / torch.where(bad, torch.ones_like(n), n))[..., None]
+    lse = torch.where(l == 0, torch.full_like(l, float("-inf")), torch.log(l_safe))
+    ok = ((l > _L_MIN) & (l < float("inf"))) | (empty & (l == 0))
+    ok &= torch.isfinite(o).all(-1)
+    nt = cdiv(sq, TILE_Q)
+    ok = torch.nn.functional.pad(ok, (0, nt * TILE_Q - sq), value=True)
+    flags = ~ok.reshape(b, hq, nt, TILE_Q).all(-1)
+    return o.to(q.dtype), lse, flags
+
+
+def _classic_rows(q, k, v, scale, wl, wr, out, lse, tiles):
+    """Overwrite the rows of the tiles set in `tiles` [b, hq, nt] with the
+    classic result (the plain repair, and the risky tiles of the bound
+    engine)."""
+    if not bool(tiles.any()):
+        return out, lse
+    co, cl = _prefill_plain(q, k, v, scale, wl, wr, 0.0, True)
+    rows = tiles.repeat_interleave(TILE_Q, -1)[..., :q.shape[2]]
+    return (torch.where(rows[..., None], co, out), torch.where(rows, cl, lse))
+
+
+def _engine_plain(engine, mode, q, k, v, scale, wl, wr):
+    """The zero-shift engines on CPU tensors -> (out, lse, flags or None)."""
+    out, lse, flags = _zero_shift_plain(q, k, v, scale, wl, wr)
+    if engine == "flagged":
+        if mode in (True, "flag_debug"):
+            out, lse = _classic_rows(q, k, v, scale, wl, wr, out, lse, flags)
+        return out, lse, flags.to(torch.int32)
+    if mode != "unchecked":
+        out, lse = _classic_rows(q, k, v, scale, wl, wr, out, lse,
+                                 _risky_bits(q, k, scale * _LOG2E) != 0)
+    return out, lse, None
+
+
+def _cuda_inputs(name, q, k, v):
+    """The checks every CUDA prefill engine shares -> dense (q, k, v)."""
+    _build.refuse_grad(name, q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise NotImplementedError(
             f"the prefill kernel takes bf16/fp16, got {q.dtype}")
@@ -68,10 +200,17 @@ def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
     if d not in PREFILL_HEAD_DIMS:
         raise NotImplementedError(f"the prefill kernel takes head_dim in "
                                   f"{PREFILL_HEAD_DIMS}, got {d}")
-    _build.same_device("prefill_attention", q, k, v)
-    _build.expect_shape("prefill_attention", "k", k, (batch, hkv, sk, d))
-    _build.expect_shape("prefill_attention", "v", v, k.shape)
-    q, k, v = _build.dense(q), _build.dense(k), _build.dense(v)
+    _build.same_device(name, q, k, v)
+    _build.expect_shape(name, "k", k, (batch, hkv, sk, d))
+    _build.expect_shape(name, "v", v, k.shape)
+    return _build.dense(q), _build.dense(k), _build.dense(v)
+
+
+def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
+                  return_lse):
+    q, k, v = _cuda_inputs("prefill_attention", q, k, v)
+    batch, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -84,6 +223,62 @@ def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
     _build.check("prefill", rc)
     _build.launches["prefill"] += 1
     return (out, lse) if return_lse else out
+
+
+def _zs_launch(kind, q, k, v, out, lse, table, scale, wl, wr):
+    """One launch of csrc/bound.cu (kind: flagged, repair or bound)."""
+    batch, hq, sq, d = q.shape
+    fn = _build.function("bound", f"mfa_{kind}_fwd", _ZS_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _build.ptr(lse), _build.ptr(table), _build.DTYPE_CODES[q.dtype],
+            batch, hq, k.shape[1], sq, k.shape[2], d, wl, wr, scale * _LOG2E,
+            _build.stream_of(q))
+    _build.check("bound", rc)
+    _build.launches[kind] += 1
+
+
+def _engine_cuda(engine, mode, q, k, v, scale, wl, wr, return_lse):
+    """The zero-shift engines on CUDA tensors -> (out, lse, flags or None).
+    The flags and risky bits stay on the device."""
+    q, k, v = _cuda_inputs("prefill_attention", q, k, v)
+    batch, hq, sq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((batch, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if engine == "flagged":
+        flags = None if mode == "flag_presence" else torch.empty(
+            (batch, hq, cdiv(sq, TILE_Q)), dtype=torch.int32, device=q.device)
+        _zs_launch("flagged", q, k, v, out, lse, flags, scale, wl, wr)
+        if mode in (True, "flag_debug"):
+            _zs_launch("repair", q, k, v, out, lse, flags, scale, wl, wr)
+        return out, lse, flags
+    bits = None if mode == "unchecked" else _risky_bits(q, k, scale * _LOG2E)
+    _zs_launch("bound", q, k, v, out, lse, bits, scale, wl, wr)
+    return out, lse, None
+
+
+def select_engine(bound_softmax, dtype, head_dim: int, softcap: float) -> tuple:
+    """-> (engine, mode): engine "classic" (kernel 1), "flagged" (kernels
+    2 + 3) or "bound" (kernel 4), as mfa_tpu's prefill_attention selects
+    it, plus the port's fp16 rule (module docstring)."""
+    mode = True if bound_softmax is None else bound_softmax
+    if mode is not True and mode is not False and mode not in MODES[2:]:
+        raise ValueError(f"bound_softmax must be one of {MODES} or None, got "
+                         f"{bound_softmax!r}")
+    if mode is False or softcap:
+        return "classic", False
+    if dtype == torch.float16:
+        if mode is True:
+            return "classic", False
+        raise NotImplementedError(
+            f"bound_softmax={mode!r} with fp16: the zero-shift engines cast "
+            f"the unshifted p = exp2(s * c) to V's dtype, and fp16's range "
+            f"(6e-5 to 65504) loses such p at either end; fp16 takes "
+            f"bound_softmax=False (the default does so)")
+    if mode in (True, "flag_only", "flag_presence", "flag_debug") \
+            and head_dim % 128 == 0:
+        return "flagged", mode
+    return "bound", "prepass" if mode is True else mode
 
 
 def prefill_attention(
@@ -99,6 +294,7 @@ def prefill_attention(
     sink_tokens: int = 0,
     alibi_slopes: Optional[torch.Tensor] = None,
     kv_position_offset: int = 0,
+    bound_softmax=None,
 ):
     """Flash-attention forward on the [batch, heads, seq, head_dim] layout.
 
@@ -106,11 +302,15 @@ def prefill_attention(
     reads kv head h // (hq // hkv)). Causal is top-left aligned (col > row
     masked) and equals window (-1, 0); window_size is (left, right) around
     each row, -1 = unbounded. logit_softcap > 0 applies
-    tanh(s * scale / cap) * cap to the logits.
+    tanh(s * scale / cap) * cap to the logits. bound_softmax selects the
+    softmax engine (module docstring): None / True, "prepass", "unchecked",
+    False, and the probes "flag_only", "flag_presence", "flag_debug".
 
     Returns O [b, hq, sq, d] in q's dtype and, with return_lse, the fp32
-    natural-log LSE [b, hq, sq] (-inf on rows that see no column).
-    ALiBi, attention sinks and kv_position_offset are not ported yet.
+    natural-log LSE [b, hq, sq] (-inf on rows that see no column); with
+    "flag_debug" on the flagged engine, also the int32 flags [b, hq,
+    ceil(sq / 64)]. ALiBi, attention sinks and kv_position_offset are not
+    ported yet.
     """
     if alibi_slopes is not None or sink_tokens or kv_position_offset:
         raise NotImplementedError(
@@ -124,10 +324,23 @@ def prefill_attention(
     window_left, window_right = (int(w) for w in window_size)
     if causal:
         window_right = 0
-    args = (q, k, v, scale, window_left, window_right, float(logit_softcap),
-            return_lse)
-    if q.device.type == "cpu":
-        return _prefill_plain(*args)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"prefill_attention: unsupported device {q.device}")
-    return _prefill_cuda(*args)
+    engine, mode = select_engine(bound_softmax, q.dtype, q.shape[-1],
+                                 float(logit_softcap))
+    if engine == "classic":
+        args = (q, k, v, scale, window_left, window_right, float(logit_softcap),
+                return_lse)
+        if q.device.type == "cpu":
+            return _prefill_plain(*args)
+        return _prefill_cuda(*args)
+    if q.device.type == "cpu":
+        out, lse, flags = _engine_plain(engine, mode, q, k, v, scale,
+                                        window_left, window_right)
+    else:
+        out, lse, flags = _engine_cuda(engine, mode, q, k, v, scale,
+                                       window_left, window_right, return_lse)
+    res = (out, lse) if return_lse else (out,)
+    if mode == "flag_debug" and engine == "flagged":
+        res += (flags,)
+    return res if len(res) > 1 else res[0]

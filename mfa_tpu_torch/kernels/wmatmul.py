@@ -1,0 +1,103 @@
+"""int8-weight matmul (counterpart of mfa_tpu/kernels/wmatmul.py).
+
+Kernel 10 of the port: csrc/wmatmul.cu `mfa_int8_matmul`, x [m, K] @
+(qw [K, N] int8 * scale [N]) with fp32 accumulation, the scale applied to
+the accumulator and the result rounded once. In JAX this kernel is a
+baseline beside XLA's fused convert (models/wquant.qmm); eager PyTorch
+fuses nothing, so here it carries every int8 projection. A CUDA tensor
+runs the kernel (or raises); a CPU tensor runs `_int8_matmul_plain`, the
+graph of mfa_tpu's qmm, `(x @ qw.to(x.dtype)) * scale.to(x.dtype)`: in fp32
+the two are the same function.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from mfa_tpu_torch.dispatch.config import cdiv
+from mfa_tpu_torch.kernels import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# x, qw, scale, out, partial, dtype, out_f32, M, K, N, splits,
+# k_steps_per_split, stream
+_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
+BLOCK_N, BLOCK_K = 128, 64  # csrc/wmatmul.cu's tile: block_m(m) x 128, K steps of 64
+# Split K until the grid has this many blocks (two per SM of an H100), at
+# most MAX_SPLITS ways: a decode-sized m gives only N / 128 output tiles.
+TARGET_BLOCKS = 2 * 132
+MAX_SPLITS = 16
+
+
+def block_m(m: int) -> int:
+    """Output rows per block: 16 for a decode-sized m, 64 below 256, else
+    128."""
+    return 16 if m <= 16 else 64 if m < 256 else 128
+
+
+def split_k(m: int, K: int, N: int) -> tuple:
+    """-> (splits, K steps of 64 per split) for an m x K x N product."""
+    tiles = cdiv(m, block_m(m)) * cdiv(N, BLOCK_N)
+    steps = cdiv(K, BLOCK_K)
+    if tiles >= TARGET_BLOCKS or steps <= 1:
+        return 1, steps
+    per = cdiv(steps, min(cdiv(TARGET_BLOCKS, tiles), MAX_SPLITS, steps))
+    return cdiv(steps, per), per
+
+
+def _int8_matmul_plain(x, qw, scale, out_dtype):
+    return ((x @ qw.to(x.dtype)) * scale.to(x.dtype)).to(out_dtype)
+
+
+def _int8_matmul_cuda(x, qw, scale, out_dtype):
+    _build.refuse_grad("int8_matmul", x)
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        raise NotImplementedError(f"the int8 matmul kernel takes bf16/fp16 x, "
+                                  f"got {x.dtype}")
+    if qw.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise NotImplementedError(f"the int8 matmul kernel takes int8 weights "
+                                  f"and fp32 scales, got {qw.dtype} and "
+                                  f"{scale.dtype}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise NotImplementedError(f"the int8 matmul kernel writes {x.dtype} or "
+                                  f"float32, not {out_dtype}")
+    m, K = x.shape
+    N = qw.shape[1]
+    if K % 16 or N % 16:
+        raise NotImplementedError(f"the int8 matmul kernel takes K and N that "
+                                  f"are multiples of 16, got K={K} N={N}")
+    _build.same_device("int8_matmul", x, qw, scale)
+    x, qw, scale = _build.dense(x), _build.dense(qw), _build.dense(scale)
+    out = torch.empty((m, N), dtype=out_dtype, device=x.device)
+    splits, per = split_k(m, K, N)
+    partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    fn = _build.function("wmatmul", "mfa_int8_matmul", _ARGTYPES)
+    rc = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            _build.ptr(partial), _build.DTYPE_CODES[x.dtype],
+            int(out_dtype == torch.float32), m, K, N, splits, per,
+            _build.stream_of(x))
+    _build.check("wmatmul", rc)
+    _build.launches["wmatmul"] += 1
+    return out
+
+
+def int8_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x [m, K] @ (qw [K, N] int8 * scale [N]) -> [m, N] in out_dtype
+    (default x.dtype). On the card: any m, K and N multiples of 16, x bf16
+    or fp16, out in x's dtype or fp32."""
+    if x.dim() != 2 or qw.dim() != 2:
+        raise ValueError(f"int8_matmul takes 2-D x and qw, got {tuple(x.shape)} "
+                         f"and {tuple(qw.shape)}")
+    if x.shape[1] != qw.shape[0] or tuple(scale.shape) != (qw.shape[1],):
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)}, qw {tuple(qw.shape)} "
+                         f"and scale {tuple(scale.shape)} do not agree")
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return _int8_matmul_plain(x, qw, scale, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    return _int8_matmul_cuda(x, qw, scale, out_dtype)

@@ -3,15 +3,18 @@
 Params are a plain dict of tensors: `layers` is a list of per-layer dicts
 (wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up, w_down; Gemma3 adds
 q_norm, k_norm, post_attn_norm, post_mlp_norm), plus embed, final_norm and
-lm_head. Projections are plain `@` (as the JAX package leaves them to
-XLA); attention runs through the port's kernels: prefill_batch ->
-kernels/prefill.py (kernel 1), or kernels/blockmask.py (the image-block
-kernel) for image prompts, prefill_chunk_batch -> kernels/paged_prefill.py (kernel 5),
-decode_step -> kernels/paged.py (kernel 3), over the int8 or bf16 paged
-cache; forward / loss_fn / train_step ->
-kernels/autodiff.flash_attention_grad (kernel 1 forward, the fused
-backward kernel), or the image-block kernel under image_block_ids
-(inference only).
+lm_head. Projections go through models/wquant.qmm: plain `@` for bf16
+weights (as the JAX package leaves them to XLA), the int8 matmul kernel
+(kernels/wmatmul.py) for QWeight weights (init_params(quantize="int8") or
+wquant.quantize_params); the embedding through qtake. Attention runs
+through the port's kernels: prefill_batch -> kernels/prefill.py (the
+default engine: the zero-shift kernel with its poison flag, then the
+repair kernel), or kernels/blockmask.py (the image-block kernel) for image
+prompts, prefill_chunk_batch -> kernels/paged_prefill.py, decode_step ->
+kernels/paged.py, over the int8 or bf16 paged cache; forward / loss_fn /
+train_step -> kernels/autodiff.flash_attention_grad (the default prefill
+engine forward, the fused backward kernel), or the image-block kernel
+under image_block_ids (inference only).
 
 Gemma3 (LlamaConfig.gemma3_4b): (1 + w) RMSNorms, per-head q/k norms, post
 norms on the attention and MLP outputs, gelu-tanh, sqrt(dim)-scaled
@@ -28,8 +31,9 @@ ONE append after the layer loop writes every layer's row. In PyTorch the
 XLA copy-insertion reason for it does not exist, but it defines the
 reference numerics.
 
-Not ported yet (raise NotImplementedError): MoE, logit softcaps, int8
-weights, meshes.
+Not ported yet (raise NotImplementedError): MoE, logit softcaps, meshes.
+int8 weights serve only: loss_fn and train_step raise on them, as JAX
+defines no gradient through QWeight.
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ from mfa_tpu_torch.kernels.paged import paged_attention
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.kernels.quant import quantize_rows
+from mfa_tpu_torch.models.wquant import (QWeight, qmm, qtake, quantize_params,
+                                         quantize_weight)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,10 +181,15 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
                 quantize: Optional[str] = None) -> Params:
     """Random weights in cfg.dtype from a seeded torch.Generator on the
     device (normal * fan_in^-0.5, embed * 0.02; fp32 norms at their
-    identity: one, or zero under norm_offset, which applies 1 + w). int8
-    weights (quantize="int8") are not ported yet."""
-    if quantize is not None:
-        raise NotImplementedError("int8 weights are not ported yet")
+    identity: one, or zero under norm_offset, which applies 1 + w).
+
+    quantize="int8": every matmul weight and the embedding become QWeight
+    (models/wquant.py), each layer and table quantized as soon as it is
+    built, so the bf16 model never exists whole (peak: the int8 tree and
+    one bf16 table). The same seed gives the weights quantize_params would
+    give for the bf16 init."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported weight quantization {quantize!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, hd = cfg.dim, cfg.head_dim
@@ -208,19 +219,32 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
             lp.update(q_norm=norm(hd), k_norm=norm(hd))
         if cfg.post_norms:
             lp.update(post_attn_norm=norm(), post_mlp_norm=norm())
-        layers.append(lp)
-    return dict(layers=layers, embed=dense((cfg.vocab_size, d), 0.02),
-                final_norm=norm(), lm_head=dense((d, cfg.vocab_size)))
+        layers.append(quantize_params(lp) if quantize else lp)
+    embed = dense((cfg.vocab_size, d), 0.02)
+    if quantize:
+        embed = quantize_weight(embed, axis=-1)
+    lm_head = dense((d, cfg.vocab_size))
+    if quantize:
+        lm_head = quantize_weight(lm_head, axis=-2)
+    return dict(layers=layers, embed=embed, final_norm=norm(), lm_head=lm_head)
 
 
 def params_from_numpy(tree, cfg: LlamaConfig, device) -> Params:
     """The JAX package's params pytree (numpy arrays; layers stacked
     [L, ...] as mfa_tpu's init_params builds them) -> this port's params,
-    so both packages compute the same function in the tests."""
+    so both packages compute the same function in the tests. A quantized
+    leaf (mfa_tpu's QWeight, read by its qw, scale and axis attributes)
+    becomes this port's QWeight."""
     dev = torch.device(device)
 
-    def t(a, name):
-        a = np.asarray(a)
+    def t(a, name, layer=None):
+        if hasattr(a, "qw") and hasattr(a, "scale"):
+            qw, sc = np.asarray(a.qw), np.asarray(a.scale, np.float32)
+            if layer is not None:
+                qw, sc = qw[layer], sc[layer]
+            return QWeight(qw=torch.tensor(qw, device=dev),
+                           scale=torch.tensor(sc, device=dev), axis=int(a.axis))
+        a = np.asarray(a if layer is None else a[layer])
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
         dtype = torch.float32 if name in _NORMS else cfg.dtype
@@ -232,7 +256,7 @@ def params_from_numpy(tree, cfg: LlamaConfig, device) -> Params:
     if extra:
         raise NotImplementedError(f"layer params {sorted(extra)} are not "
                                   f"ported yet")
-    layers = [{k: t(stacked[k][i], k) for k in keys}
+    layers = [{k: t(stacked[k], k, i) for k in keys}
               for i in range(cfg.n_layers)]
     return dict(layers=layers, embed=t(tree["embed"], "embed"),
                 final_norm=t(tree["final_norm"], "final_norm"),
@@ -249,9 +273,9 @@ def _rms_norm(x, w, cfg: LlamaConfig):
 
 def _qkv(h, lp, cfg: LlamaConfig, *lead):
     hd = cfg.head_dim
-    q = (h @ lp["wq"]).reshape(*lead, cfg.n_heads, hd)
-    k = (h @ lp["wk"]).reshape(*lead, cfg.n_kv_heads, hd)
-    v = (h @ lp["wv"]).reshape(*lead, cfg.n_kv_heads, hd)
+    q = qmm(h, lp["wq"]).reshape(*lead, cfg.n_heads, hd)
+    k = qmm(h, lp["wk"]).reshape(*lead, cfg.n_kv_heads, hd)
+    v = qmm(h, lp["wv"]).reshape(*lead, cfg.n_kv_heads, hd)
     if cfg.qk_norm:  # each head normalized before RoPE
         q = _rms_norm(q, lp["q_norm"], cfg)
         k = _rms_norm(k, lp["k_norm"], cfg)
@@ -267,8 +291,8 @@ def _act(x, hidden_act: str):
 
 def _mlp(x, lp, cfg: LlamaConfig):
     h = _rms_norm(x, lp["mlp_norm"], cfg)
-    gate = _act(h @ lp["w_gate"], cfg.hidden_act)
-    out = (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    gate = _act(qmm(h, lp["w_gate"]), cfg.hidden_act)
+    out = qmm(gate * qmm(h, lp["w_up"]), lp["w_down"])
     if cfg.post_norms:
         out = _rms_norm(out, lp["post_mlp_norm"], cfg)
     return x + out
@@ -277,21 +301,21 @@ def _mlp(x, lp, cfg: LlamaConfig):
 def _attn_residual(x, attn_flat, lp, cfg: LlamaConfig):
     """o-projection (+ post-attention norm) + residual. attn_flat: [...,
     n_heads*head_dim]."""
-    out = attn_flat.to(x.dtype) @ lp["wo"]
+    out = qmm(attn_flat.to(x.dtype), lp["wo"])
     if cfg.post_norms:
         out = _rms_norm(out, lp["post_attn_norm"], cfg)
     return x + out
 
 
 def _embed(params, tokens, cfg: LlamaConfig):
-    x = params["embed"][tokens]
+    x = qtake(params["embed"], tokens)
     if cfg.embed_scale:  # Gemma: sqrt(dim) rounded to the activation dtype
         x = x * float(torch.tensor(cfg.dim ** 0.5, dtype=x.dtype))
     return x
 
 
 def _unembed(params, x, cfg: LlamaConfig):
-    return (x @ params["lm_head"]).float()
+    return qmm(x, params["lm_head"]).float()
 
 
 def _scaled_inv_freq(scaling: tuple, inv_freq: np.ndarray, hd: int,
@@ -494,10 +518,21 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return _unembed(params, x, cfg)
 
 
+def _refuse_qweights(params: Params, what: str) -> None:
+    """int8 weights have no gradient (mfa_tpu/models/wquant.py): training
+    keeps bf16 params."""
+    leaves = [v for lp in params["layers"] for v in lp.values()] + [
+        params["embed"], params["lm_head"]]
+    if any(isinstance(w, QWeight) for w in leaves):
+        raise NotImplementedError(f"{what}: int8 (QWeight) params serve only; "
+                                  f"no gradient is defined through them")
+
+
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             remat: bool = False) -> torch.Tensor:
     """Mean next-token cross entropy of tokens [b, s] (tokens[:, :-1]
-    predict tokens[:, 1:])."""
+    predict tokens[:, 1:]). Raises on int8 (QWeight) params."""
+    _refuse_qweights(params, "loss_fn")
     logits = forward(params, tokens[:, :-1], cfg, remat=remat)
     return torch.nn.functional.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
@@ -514,7 +549,8 @@ def train_step(params: Params, tokens, cfg: LlamaConfig, lr: float = 1e-3,
     of an optax transformation, its state held by the optimizer object) by
     optimizer.step(). The weights become leaf tensors that require grad;
     on return each holds this step's gradient in .grad (cleared at the
-    start of the next step)."""
+    start of the next step). Raises on int8 (QWeight) params."""
+    _refuse_qweights(params, "train_step")
     leaves = param_tensors(params)
     for p in leaves:
         p.requires_grad_(True)

@@ -7,11 +7,15 @@ Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
 admits 16 requests of 200-256 prompt tokens into a fresh engine and
 traces one prefill wave and `--steps` decode steps with torch.profiler.
-Then an engine with chunked prefill (chunks of 512) takes 4 prompts of
+Every wave runs the default prefill engine (the zero-shift kernel and its
+repair). Then an engine with chunked prefill (chunks of 512) takes 4 prompts of
 4000 tokens and traces one chunk batch: 4 x 512 tokens at q_start 1536
 (after three untraced warm chunks). Last, with the same weights, one SGD
 train step of the model on 4 x 2049 tokens with remat (after one untraced
-warm step). Then, with those weights freed, Gemma3-4B at full width and
+warm step). Then, with those weights freed, the same model with int8
+weights (init_params(quantize="int8"): every projection and the lm_head
+on the int8 matmul kernel) traces the same wave and decode steps. Last,
+Gemma3-4B at full width and
 depth with its 27-layer SigLIP tower (random bf16 weights, int8 paged KV):
 one image wave of chip_smoke.py's 6 image prompts (7 images of 896 x
 896), after one untraced warm wave, and the tower alone on the same 7
@@ -36,6 +40,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 GROUPS = (("prefill kernel", ("prefill_fwd_kernel",)),
+          ("zero-shift prefill kernels", ("flagged_fwd_kernel", "repair_fwd_kernel",
+                                          "bound_fwd_kernel")),
+          ("int8 matmul kernel", ("wmatmul_kernel", "wmatmul_reduce_kernel")),
           ("image-block kernel", ("image_block_kernel",)),
           ("paged prefill kernel", ("paged_prefill_kernel",)),
           ("paged kernel", ("decode_kernel",)),
@@ -165,6 +172,61 @@ def gemma3_image_wave(acts, out_path) -> None:
           flush=True)
 
 
+def serve_phase(params, cfg, steps, acts, out_path, tag) -> None:
+    """16 requests of 200-256 prompt tokens: one traced prefill wave, then
+    `steps` traced decode steps (each untraced first for the plain wall)."""
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from mfa_tpu_torch.serve.engine import Engine
+
+    def engine(n_new):
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype="int8", device="cuda")
+        rng = np.random.RandomState(0)
+        for n in rng.randint(200, 257, 16):
+            eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), n_new)
+        return eng
+
+    engine(4).run()  # warm-up: cuBLAS handles, allocator, kernel libraries
+    untraced = engine(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    untraced._prefill_admitted(untraced.sched.admit())
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    del untraced
+    eng = engine(2 * steps + 4)
+    with open(out_path or os.devnull, "a") as out:
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            eng._flush_released()
+            eng._prefill_admitted(eng.sched.admit())
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        _report(f"{tag}prefill wave (16 prompts, {eng.stats.prefill_tokens} tokens, "
+                f"{cfg.n_layers} layers)", prof, wall, plain, 1, "wave", out)
+        eng.step()  # first decode step outside the trace
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        _report(f"{tag}decode step (batch 16, {cfg.n_layers} layers)", prof, wall,
+                plain, steps, "step", out)
+    eng.run()
+    del eng
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32)
@@ -195,53 +257,11 @@ def main() -> int:
                               n_layers=args.layers)
     params = llama.init_params(cfg, seed=0, device="cuda")
 
-    def engine(n_new):
-        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
-                     pages_per_seq=8, quant_dtype="int8", device="cuda")
-        rng = np.random.RandomState(0)
-        for n in rng.randint(200, 257, 16):
-            eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), n_new)
-        return eng
-
-    engine(4).run()  # warm-up: cuBLAS handles, allocator, kernel libraries
-    untraced = engine(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    untraced._prefill_admitted(untraced.sched.admit())
-    torch.cuda.synchronize()
-    plain = (time.perf_counter() - t0) * 1e3
-    del untraced
-    eng = engine(2 * args.steps + 4)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out or os.devnull, "w") as out:
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            eng._flush_released()
-            eng._prefill_admitted(eng.sched.admit())
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        _report(f"prefill wave (16 prompts, {eng.stats.prefill_tokens} tokens, "
-                f"{cfg.n_layers} layers)", prof, wall, plain, 1, "wave", out)
-        eng.step()  # first decode step outside the trace
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            eng.step()
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3 / args.steps
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.steps):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / args.steps
-        _report(f"decode step (batch 16, {cfg.n_layers} layers)", prof, wall,
-                plain, args.steps, "step", out)
-    eng.run()
-    del eng
+        open(args.out, "w").close()
+    serve_phase(params, cfg, args.steps, acts, args.out, "")
 
     def chunk_engine():
         """4 prompts of 4000 tokens, advanced by 3 chunks of 512 (the
@@ -297,6 +317,10 @@ def main() -> int:
         _report(f"train step (4 x 2048 tokens, remat, SGD, {cfg.n_layers} "
                 f"layers)", prof, wall, plain, 1, "step", out)
     del params, tokens
+    torch.cuda.empty_cache()
+    params = llama.init_params(cfg, seed=0, device="cuda", quantize="int8")
+    serve_phase(params, cfg, args.steps, acts, args.out, "int8 weights, ")
+    del params
     torch.cuda.empty_cache()
     gemma3_image_wave(acts, args.out)
     print(f"card: {smi}", flush=True)

@@ -23,7 +23,8 @@ def test_import_loads_neither_jax_nor_mfa_tpu():
         "mfa_tpu_torch.kernels.varlen, mfa_tpu_torch.kernels.paged_prefill, "
         "mfa_tpu_torch.kernels.backward, mfa_tpu_torch.kernels.autodiff, "
         "mfa_tpu_torch.models.llama, mfa_tpu_torch.ref.oracle, "
-        "mfa_tpu_torch.models.vision, mfa_tpu_torch.kernels.blockmask\n"
+        "mfa_tpu_torch.models.vision, mfa_tpu_torch.kernels.blockmask, "
+        "mfa_tpu_torch.models.wquant, mfa_tpu_torch.kernels.wmatmul\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'mfa_tpu' or m.startswith('mfa_tpu.'))\n"
         "print(bad)\n"
@@ -71,6 +72,7 @@ def test_import_builds_no_kernel():
     code = (
         "import mfa_tpu_torch, mfa_tpu_torch.serve.engine\n"
         "import mfa_tpu_torch.models.vision, mfa_tpu_torch.kernels.blockmask\n"
+        "import mfa_tpu_torch.models.wquant, mfa_tpu_torch.kernels.wmatmul\n"
         "from mfa_tpu_torch.kernels import _build\n"
         "assert not _build._libs and _build.build_seconds is None\n"
     )

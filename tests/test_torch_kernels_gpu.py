@@ -140,12 +140,14 @@ def test_launch_counts_and_misaligned_views(dev):
     flat = _rn(gen, 1 + 2 * 4 * 80 * 64)
     q = flat[1:].view(2, 4, 80, 64)  # starts 2 bytes past an aligned address
     k = _rn(gen, 2, 4, 80, 64)
-    _build.reset_launches()
-    o = prefill.prefill_attention(q, k, k, causal=True)
-    assert _build.launches["prefill"] == 1
     ro = prefill._prefill_plain(q.float(), k.float(), k.float(), 64 ** -0.5,
                                 -1, 0, 0.0, False)
-    assert (o.float() - ro).abs().max() < 2e-2
+    # bf16 at head_dim 64: the default is the bound engine; False is kernel 1
+    for mode, kernel in ((None, "bound"), (False, "prefill")):
+        _build.reset_launches()
+        o = prefill.prefill_attention(q, k, k, causal=True, bound_softmax=mode)
+        assert dict(_build.launches) == {kernel: 1}
+        assert (o.float() - ro).abs().max() < 2e-2
 
 
 @pytest.mark.parametrize("lens_q,lens_k,hq,hkv,d,causal,window,softcap,dtype", [
@@ -267,7 +269,8 @@ def test_image_block_without_images_is_causal_prefill(dev):
     ids = torch.full((2, 333), -1, dtype=torch.int32, device=dev)
     for wl in (-1, 100):
         a = blockmask.image_block_prefill(q, k, v, ids, window_left=wl)
-        r = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1))
+        r = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1),
+                                      bound_softmax=False)
         assert torch.equal(a, r)  # the same tile, the same tiles visited
 
 
@@ -397,9 +400,170 @@ def test_autograd_functions_on_the_card(dev):
                                                   .float()).sum()
         grads[where] = torch.autograd.grad(loss, leaves)
         if where == "cuda":
-            assert dict(_build.launches) == {"prefill": 1, "varlen": 1, "bwd_fused": 1,
-                                             "varlen_bwd_dkv": 1, "varlen_bwd_dq": 1}
+            assert dict(_build.launches) == {"flagged": 1, "repair": 1, "varlen": 1,
+                                             "bwd_fused": 1, "varlen_bwd_dkv": 1,
+                                             "varlen_bwd_dq": 1}
     _bwd_close(grads["cuda"][:3], [g.to(dev) for g in grads["cpu"][:3]], "func")
     _bwd_close(grads["cuda"][3:], [g.to(dev) for g in grads["cpu"][3:]], "varlen")
     with pytest.raises(RuntimeError, match="autodiff"):
         prefill.prefill_attention(q.requires_grad_(), k, v, causal=True)
+
+
+# ---------------- zero-shift prefill engines (csrc/bound.cu) ----------------
+
+
+def _zs_inputs(gen, b, hq, hkv, sq, sk, d, kind):
+    """bf16 q, k, v: benign N(0, 1); 'overflow' std 1e3; 'flush' N(0, 1)
+    with q + 40 and k - 40, every score near -18100 (tests/test_bound_repair.py)."""
+    q, k, v = (_rn(gen, b, hq, sq, d).float(), _rn(gen, b, hkv, sk, d).float(),
+               _rn(gen, b, hkv, sk, d))
+    if kind == "overflow":
+        q, k = q * 1e3, k * 1e3
+    elif kind == "flush":
+        q, k = q + 40.0, k - 40.0
+    return q.to(BF), k.to(BF), v
+
+
+def _zs_close(o, ref, lse=None, ref_lse=None, tol=2e-2):
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - ref.float()).abs().max() < tol
+    if lse is not None:
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+        fin = torch.isfinite(ref_lse)
+        rel = (lse[fin] - ref_lse[fin]).abs() / ref_lse[fin].abs().clamp(min=1.0)
+        assert rel.max() < 1e-3
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", [
+    (16, 32, 8, 256, 256, 128, True, (-1, -1)),  # the 8B wave (phase 2)
+    (4, 8, 4, 2048, 2048, 256, True, (1023, -1)),  # the Gemma3 text wave
+    (2, 8, 2, 100, 130, 128, False, (9, 4)),
+    (1, 16, 2, 200, 50, 256, False, (10, -1)),  # dead rows past sk: no flag
+    (2, 4, 4, 300, 300, 128, True, (127, -1)),
+])
+def test_flagged_repair_kernels(dev, b, hq, hkv, sq, sk, d, causal, window):
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = _zs_inputs(gen, b, hq, hkv, sq, sk, d, "benign")
+    _build.reset_launches()
+    o, lse, flags = prefill.prefill_attention(q, k, v, causal=causal, window_size=window,
+                                              return_lse=True, bound_softmax="flag_debug")
+    assert dict(_build.launches) == {"flagged": 1, "repair": 1}
+    assert flags.shape == (b, hq, (sq + 63) // 64) and int(flags.sum()) == 0
+    ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5,
+                                    window[0], 0 if causal else window[1], 0.0, True)
+    _zs_close(o, ro, lse, rl)
+    again = prefill.prefill_attention(q, k, v, causal=causal, window_size=window)
+    assert torch.equal(again, o)  # the default engine is the same launch pair
+
+
+@pytest.mark.parametrize("kind,d", [("overflow", 128), ("flush", 128), ("overflow", 256)])
+def test_flagged_repair_fixes_poisoned_tiles(dev, kind, d):
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = _zs_inputs(gen, 2, 4, 2, 256, 256, d, kind)
+    ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5, -1, 0,
+                                    0.0, True)
+    o, lse, flags = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                              bound_softmax="flag_debug")
+    assert int(flags.sum()) > 0
+    _zs_close(o, ro, lse, rl)
+    raw = prefill.prefill_attention(q, k, v, causal=True, bound_softmax="unchecked")
+    assert not bool(((raw.float() - ro).abs() < 2e-2).all())  # the repair did the work
+    _build.reset_launches()
+    only = prefill.prefill_attention(q, k, v, causal=True, bound_softmax="flag_only")
+    assert dict(_build.launches) == {"flagged": 1}
+    assert not bool(((only.float() - ro).abs() < 2e-2).all())
+
+
+@pytest.mark.parametrize("d,mode,kind", [
+    (128, "prepass", "overflow"), (64, None, "overflow"), (64, None, "benign"),
+    (256, "prepass", "flush"), (128, "unchecked", "benign"), (256, "unchecked", "benign"),
+])
+def test_bound_kernel(dev, d, mode, kind):
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = _zs_inputs(gen, 2, 8, 2, 300, 300, d, kind)
+    _build.reset_launches()
+    o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                       bound_softmax=mode)
+    assert dict(_build.launches) == {"bound": 1}
+    ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5, -1, 0,
+                                    0.0, True)
+    _zs_close(o, ro, lse, rl)
+    bits = prefill._risky_bits(q, k, d ** -0.5 * prefill._LOG2E)
+    assert bool(bits.all()) if kind != "benign" else not bool(bits.any())
+
+
+def test_fp16_takes_kernel_1(dev):
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (_rn(gen, 1, 2, 256, 128, dtype=HF) for _ in range(3))
+    k[:, :, 0] = 2.0  # a strong key: every row's logit against it is large
+    q = (q.float() * 0.1 + 1.0).to(HF)
+    _build.reset_launches()
+    o = prefill.prefill_attention(q, k, v, causal=True)
+    assert dict(_build.launches) == {"prefill": 1}
+    ro = prefill._prefill_plain(q.float(), k.float(), v.float(), 128 ** -0.5, -1, 0,
+                                0.0, False)
+    _zs_close(o, ro)
+    with pytest.raises(NotImplementedError, match="fp16"):
+        prefill.prefill_attention(q, k, v, causal=True, bound_softmax="unchecked")
+
+
+# ---------------- int8 weight matmul (csrc/wmatmul.cu) ----------------
+
+
+@pytest.mark.parametrize("m,K,N,dtype,out_f32", [
+    (16, 4096, 4096, BF, False),    # decode: wq, split K
+    (16, 4096, 1024, BF, False),    # wk: 8 output tiles, split K 16 ways
+    (16, 14336, 4096, BF, False),   # w_down
+    (16, 4096, 128256, BF, False),  # lm_head: no split
+    (3601, 4096, 14336, BF, False),  # a prefill wave at w_gate
+    (130, 384, 272, HF, False),     # ragged m, N % 128 != 0, fp16
+    (3, 80, 48, BF, True),          # K % 64 != 0, fp32 out
+])
+def test_int8_matmul_kernel(dev, m, K, N, dtype, out_f32):
+    from mfa_tpu_torch.kernels import _build, wmatmul
+    from mfa_tpu_torch.models.wquant import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = _rn(gen, m, K, dtype=dtype)
+    w = quantize_weight(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5)
+    out_dtype = torch.float32 if out_f32 else dtype
+    _build.reset_launches()
+    out = wmatmul.int8_matmul(x, w.qw, w.scale, out_dtype=out_dtype)
+    assert dict(_build.launches) == {"wmatmul": 1}
+    assert out.dtype == out_dtype and out.shape == (m, N)
+    ref = wmatmul._int8_matmul_plain(x.float(), w.qw, w.scale, torch.float32)
+    d = (out.float() - ref).abs()
+    # one rounding of the fp32 accumulator: <= 2^-8 of the largest output
+    assert torch.isfinite(out.float()).all()
+    assert float(d.max()) <= 2 ** -8 * float(ref.abs().max()) + 1e-6
+    with pytest.raises(NotImplementedError):
+        wmatmul.int8_matmul(x[:, :8], w.qw[:8], w.scale)  # K % 16 != 0
+
+
+def test_quantized_model_on_the_card(dev):
+    """A 2-layer int8-weight Llama: the card's logits against the CPU's
+    (plain versions) from the same weights; every projection is kernel 10."""
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(vocab=512, dim=256, layers=2, heads=4, kv_heads=2,
+                                 ffn=512, dtype=BF)
+    p = llama.init_params(cfg, seed=1, device="cuda", quantize="int8")
+    toks = torch.randint(0, 512, (2, 70), device=dev)
+    _build.reset_launches()
+    with torch.no_grad():
+        a = llama.forward(p, toks, cfg)
+    assert _build.launches["wmatmul"] == 7 * 2 + 1
+    cpu = dict(layers=[{k_: v_.to("cpu") for k_, v_ in lp.items()} for lp in p["layers"]],
+               **{k_: p[k_].to("cpu") for k_ in ("embed", "final_norm", "lm_head")})
+    r = llama.forward(cpu, toks.cpu(), cfg)
+    d = (a.cpu() - r).abs()
+    assert float(d.max()) < 0.25 and float(d.mean()) < 0.02
