@@ -21,7 +21,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    Gemma3-4B's head_dim 256, prefill (causal, window 1023 and none) and
    paged decode (int8 and bf16 pages, group 2, window 1023), and the
    image-block prefill (kernel 9) in four cases, one of them with no image
-   equal to kernel 1's causal output; the zero-shift engines (kernels 2, 3,
+   within the limits of kernel 1's causal output (kernel 9 runs the mma.sync
+   tile, kernels 1-4 the wgmma + TMA tile); the zero-shift engines (kernels 2, 3,
    4: flagged + repair at the 8B wave, at 4096 tokens and at Gemma3-4B's
    text wave, with 0 flags on benign inputs and flags, a repaired output
    and an "unchecked" output off the limits on adversarial ones; the bound
@@ -434,11 +435,13 @@ def gemma3_kernels(records, rn, gen):
         ok &= good
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
         if not (ids >= 0).any():
-            same = torch.equal(o, prefill.prefill_attention(qq, kk, vv, causal=True,
-                                                            window_size=(wl, -1),
-                                                            bound_softmax=False))
-            print(f"  equal to kernel 1's causal output: {same}", flush=True)
-            ok &= same
+            # kernel 9 runs the mma.sync tile, kernel 1 the wgmma tile: the
+            # same function in another summation order, so within the
+            # forward limits (bit-equal again once kernel 9 moves tiles)
+            k1 = prefill.prefill_attention(qq, kk, vv, causal=True, window_size=(wl, -1),
+                                           bound_softmax=False)
+            print("  against kernel 1's causal output:", flush=True)
+            ok &= _err(o, k1, what="O")[1]
             continue
         ms = _time_ms(lambda: blockmask.image_block_prefill(qq, kk, vv, ids,
                                                             window_left=wl))

@@ -26,6 +26,8 @@
 
 // Unsupported configuration (checked by the Python wrapper first).
 #define MFA_BAD_CONFIG 9999
+// cuTensorMapEncodeTiled was not found or refused a tensor map.
+#define MFA_TMA_ENCODE 9998
 
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
@@ -82,5 +84,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 extern "C" const char* mfa_error_string(int code) {
   if (code == MFA_BAD_CONFIG) return "unsupported kernel configuration";
+  if (code == MFA_TMA_ENCODE) return "TMA tensor map encoding failed";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

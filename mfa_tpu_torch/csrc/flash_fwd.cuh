@@ -1,6 +1,7 @@
-// The flash-attention forward tile shared by the prefill (prefill.cu),
-// varlen (prefill.cu), paged-prefill (paged_prefill.cu), image-block
-// (blockmask.cu) and zero-shift prefill (bound.cu) kernels.
+// The mma.sync flash-attention forward tile of the varlen (kernel 7,
+// prefill.cu), paged-prefill (kernel 8, paged_prefill.cu) and image-block
+// (kernel 9, blockmask.cu) kernels. The dense prefill kernels 1-4 run the
+// wgmma + TMA tile of flash_fwd_sm90.cuh; these three are next to move.
 //
 // One block of 4 warps owns 64 query rows (16 per warp); each thread holds
 // two of them (rows g and g + 8 of its warp's mma fragment). The caller
@@ -16,8 +17,8 @@
 // registers for the whole KV loop, V is stored transposed in shared memory
 // (conflict-free 32-bit operand reads), and the S accumulator is reused as
 // the A operand of P.V without a round trip through shared memory. No
-// cp.async/TMA pipelining yet: loads and math do not overlap (later work:
-// wgmma + TMA). At d = 256 the O accumulator alone takes 128 registers a
+// cp.async/TMA pipelining: loads and math do not overlap (flash_fwd_sm90.cuh
+// does both on wgmma + TMA). At d = 256 the O accumulator alone takes 128 registers a
 // thread, and Q's fragments would take 64 more: there each warp stages its
 // 16 Q rows in shared memory once and reads one 16-column A fragment per
 // product step instead (FlashSmem::Q_SMEM).
@@ -28,19 +29,6 @@
 // test alone. Every tile that such a policy reaches beyond the band lies
 // above the diagonal or left of the window, so the needs_mask test below
 // already masks it element by element.
-//
-// A softmax policy (the template argument after the visibility policy)
-// picks the engine. ClassicSoftmax, the default, is the online softmax
-// below. ZeroShiftSoftmax is the zero-shift engine of
-// mfa_tpu/kernels/prefill.py:_bound_body: the shift is fixed at 0, so p =
-// exp2(s * c) with no row max, no quad shuffles and no rescale (a masked
-// s = MASK gives exactly 0); m stays 0 and the epilogue's LSE is ln l. O
-// is normalized by the sum of p as rounded for P.V, LSE and the poison
-// check use the unrounded sum l, as JAX does (in fp32 the two agree). It
-// is exact while every exponent stays in fp32 range, and the tile then
-// returns whether one of this thread's rows is poisoned: its band is not
-// structurally empty and l lies outside (MFA_L_MIN, +inf), or one of its
-// O values is not finite (the callers OR it into a flag per block).
 //
 // Numerics (the repository guide's "Softmax-kernel numerics rules"): the
 // running max m is kept in the raw score domain and every exponent is
@@ -240,44 +228,17 @@ struct BandOnly {
   static constexpr bool ENABLED = false;
 };
 
-// Softmax policies (see the header).
-struct ClassicSoftmax {
-  static constexpr bool ZERO_SHIFT = false;
-};
-struct ZeroShiftSoftmax {
-  static constexpr bool ZERO_SHIFT = true;
-};
-
-// The sum of the two 16-bit values packed in x.
-template <typename T>
-__device__ __forceinline__ float sum2(uint32_t x);
-template <>
-__device__ __forceinline__ float sum2<__nv_bfloat16>(uint32_t x) {
-  return __uint_as_float(x << 16) + __uint_as_float(x & 0xffff0000u);
-}
-template <>
-__device__ __forceinline__ float sum2<__half>(uint32_t x) {
-  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&x));
-  return f.x + f.y;
-}
-
-// A zero-shift row sum at or below 2^-89 proves nothing about the row's
-// largest exponent (mfa_tpu/kernels/prefill.py:_L_MIN): its tile is repaired.
-#define MFA_L_MIN 0x1p-89f
-
 // Vis: the visibility policy. When Vis::ENABLED, Vis::extra(x, id) says
 // whether this thread's row x sees a column whose id (staged from
-// Vis::col_ids) is `id`, beyond the band. Soft: the softmax policy. Returns
-// whether one of this thread's rows is poisoned (ZeroShiftSoftmax only).
-template <typename T, int D, class Src, class Vis = BandOnly, class Soft = ClassicSoftmax>
-__device__ __forceinline__ bool flash_fwd_tile(const Src& src, const TileRows<T>& rows,
+// Vis::col_ids) is `id`, beyond the band.
+template <typename T, int D, class Src, class Vis = BandOnly>
+__device__ __forceinline__ void flash_fwd_tile(const Src& src, const TileRows<T>& rows,
                                                const TileBand& band, float scale_log2e,
                                                float softcap, float softcap_mul,
                                                unsigned char* smem, const Vis& vis = Vis{}) {
   using SM = FlashSmem<T, D>;
   constexpr int KS = SM::KS, VS = SM::VS;
   constexpr bool Q_SMEM = SM::Q_SMEM;
-  static_assert(!(Soft::ZERO_SHIFT && Src::QUANT), "zero shift reads dense K/V only");
   T* ks = reinterpret_cast<T*>(smem);
   T* vts = reinterpret_cast<T*>(smem + SM::v_off);
   float* ksc = reinterpret_cast<float*>(smem + SM::sc_off);
@@ -322,10 +283,8 @@ __device__ __forceinline__ bool flash_fwd_tile(const Src& src, const TileRows<T>
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  // running max, raw score domain (zero shift: fixed at 0)
-  float m0 = Soft::ZERO_SHIFT ? 0.f : MFA_MASK, m1 = Soft::ZERO_SHIFT ? 0.f : MFA_MASK;
+  float m0 = MFA_MASK, m1 = MFA_MASK;  // running max, raw score domain
   float l0 = 0.f, l1 = 0.f;            // this thread's partial row sums
-  float n0 = 0.f, n1 = 0.f;            // zero shift: sums of p as rounded for P.V
 
   for (int jt = band.first; jt <= band.last; ++jt) {
     const int kv0 = jt * FA_BN;
@@ -406,55 +365,40 @@ __device__ __forceinline__ bool flash_fwd_tile(const Src& src, const TileRows<T>
       }
     }
 
-    if constexpr (Soft::ZERO_SHIFT) {
-      // Zero shift: one exp2 pass, purely additive sums (O's normalizer n
-      // is summed below, from p as packed for P.V).
-      float ps0 = 0.f, ps1 = 0.f;
+    // Online softmax: rows are spread over the 4 threads of a quad.
+    float mx0 = MFA_MASK, mx1 = MFA_MASK;
 #pragma unroll
-      for (int nt = 0; nt < FA_BN / 8; ++nt) {
+    for (int nt = 0; nt < FA_BN / 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f((m0 - mn0) * scale_log2e);
+    const float alpha1 = exp2f((m1 - mn1) * scale_log2e);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = exp2f(s[nt][e] * scale_log2e);
-        ps0 += s[nt][0] + s[nt][1];
-        ps1 += s[nt][2] + s[nt][3];
-      }
-      l0 += ps0;
-      l1 += ps1;
-    } else {
-      // Online softmax: rows are spread over the 4 threads of a quad.
-      float mx0 = MFA_MASK, mx1 = MFA_MASK;
+    for (int nt = 0; nt < FA_BN / 8; ++nt) {
+      s[nt][0] = exp2f((s[nt][0] - mn0) * scale_log2e);
+      s[nt][1] = exp2f((s[nt][1] - mn0) * scale_log2e);
+      s[nt][2] = exp2f((s[nt][2] - mn1) * scale_log2e);
+      s[nt][3] = exp2f((s[nt][3] - mn1) * scale_log2e);
+      ps0 += s[nt][0] + s[nt][1];
+      ps1 += s[nt][2] + s[nt][3];
+    }
+    l0 = alpha0 * l0 + ps0;
+    l1 = alpha1 * l1 + ps1;
 #pragma unroll
-      for (int nt = 0; nt < FA_BN / 8; ++nt) {
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float alpha0 = exp2f((m0 - mn0) * scale_log2e);
-      const float alpha1 = exp2f((m1 - mn1) * scale_log2e);
-      m0 = mn0;
-      m1 = mn1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < FA_BN / 8; ++nt) {
-        s[nt][0] = exp2f((s[nt][0] - mn0) * scale_log2e);
-        s[nt][1] = exp2f((s[nt][1] - mn0) * scale_log2e);
-        s[nt][2] = exp2f((s[nt][2] - mn1) * scale_log2e);
-        s[nt][3] = exp2f((s[nt][3] - mn1) * scale_log2e);
-        ps0 += s[nt][0] + s[nt][1];
-        ps1 += s[nt][2] + s[nt][3];
-      }
-      l0 = alpha0 * l0 + ps0;
-      l1 = alpha1 * l1 + ps1;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][0] *= alpha0;
-        acc[dt][1] *= alpha0;
-        acc[dt][2] *= alpha1;
-        acc[dt][3] *= alpha1;
-      }
+    for (int dt = 0; dt < D / 8; ++dt) {
+      acc[dt][0] *= alpha0;
+      acc[dt][1] *= alpha0;
+      acc[dt][2] *= alpha1;
+      acc[dt][3] *= alpha1;
     }
     if constexpr (Src::QUANT) {  // V scales fold into the probabilities
 #pragma unroll
@@ -472,14 +416,6 @@ __device__ __forceinline__ bool flash_fwd_tile(const Src& src, const TileRows<T>
       a[1] = pack2<T>(s[2 * kc][2], s[2 * kc][3]);
       a[2] = pack2<T>(s[2 * kc + 1][0], s[2 * kc + 1][1]);
       a[3] = pack2<T>(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      if constexpr (Soft::ZERO_SHIFT) {
-        // O's normalizer: p as rounded to T, the weights P.V uses, so O
-        // stays a convex combination of V's rows (an unshifted p is not 1
-        // at the row max: dividing by the unrounded l would leave O up to
-        // 2^-8 off).
-        n0 += sum2<T>(a[0]) + sum2<T>(a[2]);
-        n1 += sum2<T>(a[1]) + sum2<T>(a[3]);
-      }
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
         const T* vr = vts + (dt * 8 + g) * VS + kc * 16 + t4 * 2;
@@ -491,46 +427,27 @@ __device__ __forceinline__ bool flash_fwd_tile(const Src& src, const TileRows<T>
     }
   }
 
-  // Epilogue: full row sums, dead-row guard, store O and LSE. A zero-shift
-  // row has m == 0: it is never "dead", and l == 0 stores O = 0, LSE = -inf.
+  // Epilogue: full row sums, dead-row guard, store O and LSE.
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  if constexpr (Soft::ZERO_SHIFT) {
-    n0 += __shfl_xor_sync(0xffffffffu, n0, 1);
-    n0 += __shfl_xor_sync(0xffffffffu, n0, 2);
-    n1 += __shfl_xor_sync(0xffffffffu, n1, 1);
-    n1 += __shfl_xor_sync(0xffffffffu, n1, 2);
-  }
-  const float ms[2] = {m0, m1}, ls[2] = {l0, l1}, ns[2] = {n0, n1};
-  bool poison = false;
+  const float ms[2] = {m0, m1}, ls[2] = {l0, l1};
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const float m = ms[x], l = ls[x];
-    const float norm = Soft::ZERO_SHIFT ? ns[x] : l;  // O's normalizer
     const bool dead = m <= MFA_MASK * 0.5f;
     const bool bad = dead || l == 0.f || isnan(l);
-    const float inv = dead ? 0.f : 1.f / (bad ? 1.f : norm);
+    const float inv = dead ? 0.f : 1.f / (bad ? 1.f : l);
     if (T* o = rows.o[x]) {
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
         const float o0 = acc[dt][2 * x] * inv, o1 = acc[dt][2 * x + 1] * inv;
-        if constexpr (Soft::ZERO_SHIFT) poison |= !(isfinite(o0) && isfinite(o1));
         *reinterpret_cast<uint32_t*>(o + dt * 8 + t4 * 2) = pack2<T>(o0, o1);
-      }
-      if constexpr (Soft::ZERO_SHIFT) {
-        // A row whose band [max(0, r - wl), min(sk, r + wr + 1)) is empty
-        // may keep l == 0 (prefill.py:626-646).
-        const int r = rows.pos[x];
-        const int lo = wl >= 0 ? max(0, r - wl) : 0;
-        const int hi = wr >= 0 ? min(sk, r + wr + 1) : sk;
-        poison |= !((l > MFA_L_MIN && l < INFINITY) || (hi <= lo && l == 0.f));
       }
     }
     if (rows.lse[x] != nullptr && t4 == 0)
       *rows.lse[x] = (dead || l == 0.f) ? -INFINITY
                                         : m * scale_log2e * MFA_LN2 + logf(bad ? 1.f : l);
   }
-  return poison;
 }

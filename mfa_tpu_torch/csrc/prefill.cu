@@ -1,53 +1,37 @@
 // Flash-attention prefill forward for Hopper (sm_90a): O and natural-log
-// LSE, on the batched layout (mfa_prefill_fwd) and on packed variable-length
-// sequences (mfa_varlen_fwd). Both launch the tile of flash_fwd.cuh.
+// LSE, on the batched layout (mfa_prefill_fwd, kernel 1) and on packed
+// variable-length sequences (mfa_varlen_fwd, kernel 7).
 //
-// mfa_prefill_fwd replaces the Pallas kernels of mfa_tpu/kernels/prefill.py:
-// _prefill_body (via _prefill_flat_kernel / _prefill_bht_kernel), the
-// zero-shift _flagged_* engine and its _repair_kernel. This kernel is the
-// classic online-softmax forward, exact by construction, so it computes
-// the function of all three without a poison flag or a repair pass.
-// Layout: q [b, hq, sq, D], k/v [b, hkv, sk, D], o like q, lse [b, hq, sq].
+// mfa_prefill_fwd replaces mfa_tpu/kernels/prefill.py:_prefill_body (via
+// _prefill_flat_kernel / _prefill_bht_kernel): the classic online-softmax
+// forward, on the warp-specialised wgmma + TMA tile of flash_fwd_sm90.cuh
+// (128 q rows a block, K/V through a TMA ring, both products on wgmma).
+// Bound: tensor-core operations past a few hundred keys (4 D flops per
+// visible (row, key) pair against 2 D bytes of K/V per 128 rows); at the
+// 8B wave's 256-token prompts the load of q/k/v/o. Softcap and fp16 run
+// only here; the default bf16 engines are bound.cu's.
+// Layout: q [b, hq, sq, D], k/v [b, hkv, sk, D], o like q, lse [b, hq, sq];
+// head_dim 64, 128 and 256 (Gemma), bf16 and fp16.
 //
 // mfa_varlen_fwd replaces mfa_tpu/kernels/varlen.py:_varlen_kernel
-// (varlen_attention's packed route). The TPU kernel tiles the packed token
-// axis and masks by segment id, with scalar-prefetched per-q-block KV
-// bounds, because a TPU grid is static with no early exit. Here, as in the
-// original CUDA library (prefill.cuh:19-33, :724-726), the grid is (q tile
-// of max_seqlen_q, q head, sequence): each block reads its sequence's
-// offsets from cu_seqlens, exits when its tile lies past that sequence's
-// length, and runs the same tile loop over the sequence's KV band.
-// Layout: q [total_q, hq, D], k/v [total_k, hkv, D], o like q, lse
-// [hq, total_q] (flash-attn's varlen softmax_lse layout).
-//
-// mfa_prefill_fwd takes head_dim 64, 128 and 256 (Gemma); mfa_varlen_fwd
-// 64 and 128.
+// (varlen_attention's packed route), still on the mma.sync tile of
+// flash_fwd.cuh. The TPU kernel tiles the packed token axis and masks by
+// segment id, with scalar-prefetched per-q-block KV bounds, because a TPU
+// grid is static with no early exit. Here, as in the original CUDA library
+// (prefill.cuh:19-33, :724-726), the grid is (q tile of max_seqlen_q, q
+// head, sequence): each block reads its sequence's offsets from cu_seqlens,
+// exits when its tile lies past that sequence's length, and runs the same
+// tile loop over the sequence's KV band. Layout: q [total_q, hq, D], k/v
+// [total_k, hkv, D], o like q, lse [hq, total_q] (flash-attn's varlen
+// softmax_lse layout); head_dim 64 and 128.
 //
 // Both: fp32 LSE, GQA by head index (kv head = h / (hq / hkv)); causal is
 // top-left aligned per sequence and expressed as window_right = 0; the
 // window (left, right) counts from each row's own position.
 #include "flash_fwd.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(FA_THREADS)
-    prefill_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       float* __restrict__ lse, int hq, int hkv, int sq, int sk,
-                       float scale_log2e, float softcap, float softcap_mul,
-                       int wl, int wr) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const size_t qo = (size_t)(b * hq + h) * sq;
-  const size_t ko = (size_t)(b * hkv + hk) * sk * D;
-  DenseKV<T> src{k + ko, v + ko, D, sk};
-  const TileRows<T> rows =
-      rows_of<T>(q + qo * D, o + qo * D, lse == nullptr ? nullptr : lse + qo, D, qb * FA_BM, sq);
-  flash_fwd_tile<T, D>(src, rows, band_of(qb * FA_BM, sk, wl, wr), scale_log2e, softcap,
-                       softcap_mul, smem_raw);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS)
@@ -80,20 +64,6 @@ int prepare(Kern kern, size_t smem) {
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
-           int hq, int hkv, int sq, int sk, int wl, int wr, float scale_log2e, float softcap,
-           float softcap_mul, cudaStream_t stream) {
-  const size_t smem = FlashSmem<T, D>::bytes(false);
-  auto kern = prefill_fwd_kernel<T, D>;
-  if (int err = prepare(kern, smem)) return err;
-  dim3 grid((sq + FA_BM - 1) / FA_BM, hq, batch);
-  kern<<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, hq, hkv, sq, sk, scale_log2e, softcap, softcap_mul, wl, wr);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
 int launch_varlen(const void* q, const void* k, const void* v, void* o, float* lse,
                   const int* cu_q, const int* cu_k, int batch, int hq, int hkv, int total_q,
                   int max_sq, int wl, int wr, float scale_log2e, float softcap,
@@ -119,9 +89,10 @@ extern "C" int mfa_prefill_fwd(const void* q, const void* k, const void* v, void
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch == 0 || sq == 0) return 0;
-#define MFA_PREFILL(T, D)                                                                 \
-  return launch<T, D>(q, k, v, o, lse, batch, hq, hkv, sq, sk, window_left, window_right, \
-                      scale_log2e, softcap, softcap_mul, s)
+  const fa90::Args a{hq, hkv, sq, sk, window_left, window_right, scale_log2e, softcap,
+                     softcap_mul};
+#define MFA_PREFILL(T, D) \
+  return fa90::launch<T, D, fa90::PREFILL>(q, k, v, o, lse, nullptr, batch, a, s)
   if (dtype == MFA_BF16 && d == 64) MFA_PREFILL(__nv_bfloat16, 64);
   if (dtype == MFA_BF16 && d == 128) MFA_PREFILL(__nv_bfloat16, 128);
   if (dtype == MFA_BF16 && d == 256) MFA_PREFILL(__nv_bfloat16, 256);

@@ -5,6 +5,7 @@ port has a hand-written kernel for each Pallas kernel:
 
 - classic (False): kernel 1, csrc/prefill.cu `mfa_prefill_fwd`, the online
   softmax with a running row max (`_prefill_body`). Softcap always runs it.
+  Kernels 1-4 share the wgmma + TMA tile of csrc/flash_fwd_sm90.cuh.
 - zero shift + poison flag, then repair (None / True, the default):
   csrc/bound.cu `mfa_flagged_fwd` (`_flagged_*`) fixes the softmax shift at
   zero and writes one int32 flag per (batch, head, 64-row tile) from values
@@ -53,7 +54,9 @@ _ZS_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _P]
 # prefill) and of the backward; mfa_prefill_fwd also takes 256 (Gemma)
 KERNEL_HEAD_DIMS = (64, 128)
 PREFILL_HEAD_DIMS = KERNEL_HEAD_DIMS + (256,)
-TILE_Q = 64  # q rows per block of every prefill kernel (flash_fwd.cuh FA_BM)
+# q rows per flag / risky bit: one consumer warpgroup of kernels 1-4's
+# 128-row blocks (csrc/flash_fwd_sm90.cuh WG_M)
+TILE_Q = 64
 
 # Copies of mfa_tpu/kernels/prefill.py's constants. A tile whose |q|max
 # |k|max * scale * log2(e) stays within _BOUND_SAFE_LOG2 keeps every

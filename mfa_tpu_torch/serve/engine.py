@@ -375,10 +375,12 @@ class Engine:
         self._flush_released()
         self._prefill_admitted(self.sched.admit())
         self._advance_chunked_prefill()
+        # mapping may preempt: the batch is taken after it, so a request it
+        # sent back to the queue (slot -1) never decodes
+        self._map_new_pages(1)
         active = self._decode_ready()
         if not active:
             return
-        self._map_new_pages(1)
         self._decode_active(active)
 
     def _finish(self, req: Request) -> None:

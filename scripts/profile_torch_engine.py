@@ -20,7 +20,8 @@ depth with its 27-layer SigLIP tower (random bf16 weights, int8 paged KV):
 one image wave of chip_smoke.py's 6 image prompts (7 images of 896 x
 896), after one untraced warm wave, and the tower alone on the same 7
 images; the tower's trace splits the wave's device time into the tower,
-the text projections, the glue and kernel 9. For each phase it prints the host wall time (with and without the
+the text projections, the glue and kernel 9; then one wave of its 4 text
+prompts. For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -32,6 +33,7 @@ from __future__ import annotations
 import argparse
 import collections
 import os
+import re
 import subprocess
 import sys
 import time
@@ -39,9 +41,12 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-GROUPS = (("prefill kernel", ("prefill_fwd_kernel",)),
-          ("zero-shift prefill kernels", ("flagged_fwd_kernel", "repair_fwd_kernel",
-                                          "bound_fwd_kernel")),
+# kernels 1-4 are instantiations of one template, fa90::fwd_kernel<T, D,
+# kind> (csrc/flash_fwd_sm90.cuh): kind 0 is kernel 1, 1-4 the zero-shift
+# engines (flagged, repair, bound, unchecked)
+_FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)>")
+GROUPS = (("prefill kernel", ()),
+          ("zero-shift prefill kernels", ()),
           ("int8 matmul kernel", ("wmatmul_kernel", "wmatmul_reduce_kernel")),
           ("image-block kernel", ("image_block_kernel",)),
           ("paged prefill kernel", ("paged_prefill_kernel",)),
@@ -53,6 +58,9 @@ GROUPS = (("prefill kernel", ("prefill_fwd_kernel",)),
 
 
 def _group(name: str) -> str:
+    m = _FA90.search(name)
+    if m:
+        return GROUPS[0][0] if m.group(1) == "0" else GROUPS[1][0]
     for g, keys in GROUPS:
         if any(k in name for k in keys):
             return g
@@ -100,10 +108,12 @@ def _report(tag, prof, wall_ms, plain_ms, n_units, unit, out):
     return {g: ms / n_units for g, ms in groups.items()}, dev_ms / n_units
 
 
-def gemma3_image_wave(acts, out_path) -> None:
+def gemma3_waves(acts, out_path) -> None:
     """Gemma3-4B image wave: device time of the wave by group, and of the
     tower alone on the same images (its matmuls and elementwise kernels
-    are subtracted from the wave's to leave the text stack's)."""
+    are subtracted from the wave's to leave the text stack's); then a text
+    wave of chip_smoke.py's 4 text prompts (300-1800 tokens: the zero-shift
+    kernels 2 + 3 at head_dim 256, window 1023 on 5 layers of 6)."""
     import numpy as np
     import torch
     from torch.profiler import profile
@@ -170,6 +180,24 @@ def gemma3_image_wave(acts, out_path) -> None:
           f"({proj / dev_wave:.1%}), text glue {glue:.3f} ms ({glue / dev_wave:.1%}), "
           f"kernel 9 {k9:.3f} ms ({k9 / dev_wave:.1%}) of {dev_wave:.3f} ms device",
           flush=True)
+
+    _, _, texts = _gemma3_prompts(np.random.RandomState(1), 0, 0, 4)
+
+    def text_engine():
+        eng = Engine(params, cfg, num_pages=256, page_size=64, max_seqs=8,
+                     pages_per_seq=40, quant_dtype="int8", device="cuda")
+        for p in texts:
+            eng.submit(p, 1)
+        return eng
+
+    wave(text_engine())  # warm-up
+    plain = wave(text_engine())
+    eng = text_engine()
+    with open(out_path or os.devnull, "a") as out:
+        with profile(activities=acts) as prof:
+            wall = wave(eng)
+        _report(f"gemma3 text wave ({len(texts)} prompts, {sum(map(len, texts))} "
+                f"tokens, {cfg.n_layers} layers)", prof, wall, plain, 1, "wave", out)
 
 
 def serve_phase(params, cfg, steps, acts, out_path, tag) -> None:
@@ -322,7 +350,7 @@ def main() -> int:
     serve_phase(params, cfg, args.steps, acts, args.out, "int8 weights, ")
     del params
     torch.cuda.empty_cache()
-    gemma3_image_wave(acts, args.out)
+    gemma3_waves(acts, args.out)
     print(f"card: {smi}", flush=True)
     return 0
 

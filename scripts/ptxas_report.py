@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Registers, shared memory and spills of every kernel the port compiles.
+"""Registers, spills and Hopper instructions of every kernel the port compiles.
 
     python3 scripts/ptxas_report.py [--match 256]
 
 Compiles each source of mfa_tpu_torch/kernels/_build.SOURCES with the
 port's own nvcc flags plus `-Xptxas -v` (all sources at once, into a
 temporary directory), and prints one line per kernel instantiation:
-registers a thread, spill stores and loads in bytes, the stack frame, and
-the demangled name. --match keeps only the names containing the string.
-Exits non-zero if a source does not compile. Needs nvcc (the CUDA
-toolkit), not a card.
+registers a thread, spill stores and loads in bytes, the stack frame,
+whether its SASS (`cuobjdump -sass`) holds HGMMA (wgmma) and UTMALDG (a TMA
+load), and the demangled name. --match keeps only the names containing the
+string. Exits non-zero if a source does not compile. Needs nvcc and
+cuobjdump (the CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -59,6 +60,18 @@ def parse(log: str):
     return [tuple(r) for r in rows]
 
 
+def sass_ops(lib: str, ops=("HGMMA", "UTMALDG")):
+    """{mangled kernel name: {op: present}} from `cuobjdump -sass lib`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True).stdout
+    found = {}
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        name, _, body = part.partition("\n")
+        found[name.strip()] = {op: op in body for op in ops}
+    return found
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--match", default="")
@@ -82,11 +95,16 @@ def main() -> int:
                 continue
             rows = parse(log)
             names = _demangle([r[0] for r in rows])
-            for (_, regs, st, ld, stack), name in zip(rows, names):
+            ops = sass_ops(os.path.join(tmp, src + ".so"))
+            for (mangled, regs, st, ld, stack), name in zip(rows, names):
                 if args.match and args.match not in name:
                     continue
+                has = ops.get(mangled, {})
+                tags = " ".join(f"{op} {'yes' if on else 'no'}"
+                                for op, on in has.items()) or "SASS not found"
                 print(f"{src}: {regs} registers, spill stores {st} B, spill "
-                      f"loads {ld} B, stack {stack} B: {name}", flush=True)
+                      f"loads {ld} B, stack {stack} B, {tags}: {name}",
+                      flush=True)
     return 1 if failed else 0
 
 

@@ -79,6 +79,38 @@ def test_engine_streams_and_preempts(params):
     assert rb.generated == b.generated  # preemption does not change output
 
 
+def test_preempted_request_leaves_the_decode_batch(params):
+    """At max_seqs=3 a request preempted while pages are mapped must not
+    decode in that step: its slot is -1 by then, which would index the
+    last slot, append a token to it and, on finishing, put -1 into the free
+    slots and the release list."""
+    _, tp = params
+    prompts = [(list(range(1, 6)), 8), (list(range(7, 10)), 6), ([11, 12], 4)]
+    eng = Engine(tp, TCFG, num_pages=6, page_size=4, max_seqs=3,
+                 pages_per_seq=4, device="cpu")
+    released = []
+    flush = eng._flush_released
+
+    def record_flush():
+        released.extend(eng._to_release)
+        flush()
+
+    eng._flush_released = record_flush
+    reqs = [eng.submit(p, n) for p, n in prompts]
+    eng.run()
+    assert eng.stats.preemptions >= 1
+    assert sorted(eng.sched._free_slots) == list(range(3))
+    assert -1 not in released and -1 not in eng._to_release
+    assert eng.sched.allocator.free_pages == 5
+    for req, (p, n) in zip(reqs, prompts):
+        solo = Engine(tp, TCFG, num_pages=16, page_size=4, max_seqs=3,
+                      pages_per_seq=4, device="cpu")
+        ref = solo.submit(p, n)
+        solo.run()
+        assert req.generated == ref.generated, (req.uid, req.generated,
+                                                ref.generated)
+
+
 def test_eos_and_stop_end_generation(params):
     _, tp = params
     kw = dict(num_pages=16, page_size=8, max_seqs=4, pages_per_seq=4,

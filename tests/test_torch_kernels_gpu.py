@@ -271,7 +271,11 @@ def test_image_block_without_images_is_causal_prefill(dev):
         a = blockmask.image_block_prefill(q, k, v, ids, window_left=wl)
         r = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1),
                                       bound_softmax=False)
-        assert torch.equal(a, r)  # the same tile, the same tiles visited
+        # kernel 9 runs the mma.sync tile and kernel 1 the wgmma tile (other
+        # tiles, another summation order): equal within the forward limits,
+        # and bit for bit again once kernel 9 moves to kernel 1's tile
+        d = (a.float() - r.float()).abs()
+        assert float(d.max()) < 2e-2 and float(d.mean()) < 2e-3
 
 
 def test_image_block_visits_only_its_tiles(dev):
@@ -496,6 +500,119 @@ def test_bound_kernel(dev, d, mode, kind):
     _zs_close(o, ro, lse, rl)
     bits = prefill._risky_bits(q, k, d ** -0.5 * prefill._LOG2E)
     assert bool(bits.all()) if kind != "benign" else not bool(bits.any())
+
+
+# the edges of the wgmma + TMA tile (csrc/flash_fwd_sm90.cuh): 128-row
+# blocks of two 64-row warpgroups, 128-key tiles (64 at d 256), TMA rows
+# past the end read as zeros
+_SM90_EDGES = [
+    # b, hq, hkv, sq, sk, d, causal, window, softcap, dtype
+    (2, 8, 8, 100, 130, 128, True, (-1, -1), 0.0, BF),    # group 1
+    (1, 8, 4, 333, 333, 128, True, (127, -1), 0.0, BF),   # group 2
+    (2, 8, 2, 333, 200, 64, False, (9, 4), 0.0, BF),      # group 4, sq != sk
+    (1, 16, 2, 130, 333, 256, False, (-1, -1), 0.0, BF),  # group 8
+    (1, 8, 4, 333, 333, 256, True, (127, -1), 0.0, BF),
+    (2, 4, 2, 100, 130, 256, False, (9, 4), 0.0, BF),
+    (1, 8, 8, 333, 333, 64, True, (-1, -1), 0.0, HF),
+    (2, 8, 2, 200, 333, 128, False, (9, 4), 0.0, HF),
+    (1, 8, 1, 257, 257, 256, True, (-1, -1), 0.0, HF),
+    (1, 8, 4, 333, 333, 128, True, (-1, -1), 50.0, BF),   # softcap
+    (1, 4, 2, 130, 100, 256, False, (127, -1), 30.0, HF),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,softcap,dtype", _SM90_EDGES)
+def test_sm90_tile_edges(dev, b, hq, hkv, sq, sk, d, causal, window, softcap, dtype):
+    """Kernel 1 (any head_dim, bf16/fp16, softcap) and, in bf16 without a
+    softcap, the flagged + repair pair (d 128/256) and the bound kernel
+    against the plain version; the repair of every tile equals kernel 1."""
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = (_rn(gen, b, hq, sq, d, dtype=dtype), _rn(gen, b, hkv, sk, d, dtype=dtype),
+               _rn(gen, b, hkv, sk, d, dtype=dtype))
+    wl, wr = window[0], 0 if causal else window[1]
+    ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5, wl, wr,
+                                    softcap, True)
+    _build.reset_launches()
+    o1, l1 = prefill.prefill_attention(q, k, v, causal=causal, window_size=window,
+                                       logit_softcap=softcap, return_lse=True,
+                                       bound_softmax=False)
+    assert dict(_build.launches) == {"prefill": 1}
+    _close(o1, l1, ro, rl)
+    if dtype != BF or softcap:
+        return
+    if d % 128 == 0:
+        o, lse, flags = prefill.prefill_attention(q, k, v, causal=causal, window_size=window,
+                                                  return_lse=True, bound_softmax="flag_debug")
+        assert flags.shape == (b, hq, (sq + 63) // 64) and int(flags.sum()) == 0
+        _zs_close(o, ro, lse, rl)
+        # every tile repaired: the repair's rows are kernel 1's, bit for bit
+        out, lse_r = o.clone(), lse.clone()
+        prefill._zs_launch("repair", q, k, v, out, lse_r, torch.ones_like(flags),
+                           d ** -0.5, wl, wr)
+        assert torch.equal(out, o1) and torch.equal(lse_r, l1)
+    for mode in ("prepass", "unchecked"):
+        o, lse = prefill.prefill_attention(q, k, v, causal=causal, window_size=window,
+                                           return_lse=True, bound_softmax=mode)
+        _zs_close(o, ro, lse, rl)
+
+
+def _split_block_inputs(gen, d):
+    """One 128-row block per head whose second 64-row tile has q rows scaled
+    by 1e3 (the zero-shift exponent overflows there) and whose first tile is
+    benign."""
+    b, hq, hkv, s = 2, 4, 2, 200
+    q, k, v = _rn(gen, b, hq, s, d).float(), _rn(gen, b, hkv, s, d), _rn(gen, b, hkv, s, d)
+    q[:, :, 64:128] *= 1e3
+    return q.to(BF), k, v
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_flags_per_warpgroup(dev, d):
+    """The block's two 64-row tiles differ: exactly the adversarial tile is
+    flagged and repaired, to kernel 1's bits; the benign tile keeps the
+    zero-shift output."""
+    from mfa_tpu_torch.kernels import prefill
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = _split_block_inputs(gen, d)
+    o, lse, flags = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                              bound_softmax="flag_debug")
+    want = torch.zeros_like(flags)
+    want[:, :, 1] = 1
+    assert torch.equal(flags, want)
+    o1, l1 = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                       bound_softmax=False)
+    zs = prefill.prefill_attention(q, k, v, causal=True, bound_softmax="flag_only")
+    assert torch.equal(o[:, :, 64:128], o1[:, :, 64:128])
+    assert torch.equal(lse[:, :, 64:128], l1[:, :, 64:128])
+    rest = torch.cat([o[:, :, :64], o[:, :, 128:]], 2)
+    assert torch.equal(rest, torch.cat([zs[:, :, :64], zs[:, :, 128:]], 2))
+    ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5, -1, 0,
+                                    0.0, True)
+    _zs_close(o, ro, lse, rl)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_risky_bit_per_warpgroup(dev, d):
+    """A risky bit on one 64-row tile of a block: that warpgroup runs the
+    classic softmax, its neighbour the zero-shift one, on the same ring."""
+    from mfa_tpu_torch.kernels import prefill
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q, k, v = _split_block_inputs(gen, d)
+    bits = prefill._risky_bits(q, k, d ** -0.5 * prefill._LOG2E)
+    want = torch.zeros_like(bits)
+    want[:, :, 1] = 1
+    assert torch.equal(bits, want)
+    o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                       bound_softmax="prepass")
+    ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5, -1, 0,
+                                    0.0, True)
+    _zs_close(o, ro, lse, rl)
+    raw = prefill.prefill_attention(q, k, v, causal=True, bound_softmax="unchecked")
+    assert not bool(((raw[:, :, 64:128].float() - ro[:, :, 64:128]).abs() < 2e-2).all())
 
 
 def test_fp16_takes_kernel_1(dev):
