@@ -14,22 +14,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    same function where one exists (a yardstick only: the port never calls
    it), and the least time the card could take (bytes over 3.35 TB/s vs
    operations over 989 TFLOP/s, counting the work these inputs need).
-   Kernels: prefill, split-KV decode + combine, paged decode, varlen and
-   paged prefill; the five backward launches (fused, the dK/dV + dQ split,
-   the varlen split) within max |a - r| <= 2e-2 max |r| and mean |a - r| <=
-   2e-2 mean |r| for each of dq, dk, dv, and fused against split; at
+   Kernels: prefill, split-KV decode + combine, paged decode, varlen (at d
+   128 and 256; on equal lengths bit for bit equal to kernel 1, O and LSE)
+   and paged prefill; the five backward launches (fused, the dK/dV + dQ
+   split, the varlen split) within max |a - r| <= 2e-2 max |r| and mean |a -
+   r| <= 2e-2 mean |r| for each of dq, dk, dv, and fused against split; at
    Gemma3-4B's head_dim 256, prefill (causal, window 1023 and none) and
    paged decode (int8 and bf16 pages, group 2, window 1023), and the
    image-block prefill (kernel 9) in four cases, one of them with no image
    within the limits of kernel 1's causal output (kernel 9 runs the mma.sync
-   tile, kernels 1-4 the wgmma + TMA tile); the zero-shift engines (kernels 2, 3,
-   4: flagged + repair at the 8B wave, at 4096 tokens and at Gemma3-4B's
-   text wave, with 0 flags on benign inputs and flags, a repaired output
-   and an "unchecked" output off the limits on adversarial ones; the bound
-   kernel with and without risky bits; fp16 through kernel 1); and the int8
-   weight matmul (kernel 10) at the 8B projections for m = 16 and 3601
-   (limit: 2^-8 of the largest output; cuBLAS on the dequantized bf16
-   weight as the yardstick).
+   tile, kernels 1-4 and 7 the wgmma + TMA tile); the zero-shift engines
+   (kernels 2, 3, 4: flagged + repair at the 8B wave, at 4096 tokens and at
+   Gemma3-4B's text wave, with 0 flags on benign inputs and flags, a
+   repaired output and an "unchecked" output off the limits on adversarial
+   ones; the bound kernel with and without risky bits; fp16 through kernel
+   1); and the int8 weight matmul (kernel 10) at the 8B projections for m =
+   16 and 3601 (limit: 2^-8 of the largest output; cuBLAS on the dequantized
+   bf16 weight as the yardstick).
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -203,7 +204,7 @@ def kernel_phase(records):
             records["prefill"]["max_abs_err"] = max(
                 records["prefill"]["max_abs_err"], mx)
 
-    # -- kernel 2: split-KV decode + combine (b=16, S=8192)
+    # -- kernel 5: split-KV decode + combine (b=16, S=8192)
     from mfa_tpu_torch.kernels import _build
 
     b, hq, hkv, S = 16, 32, 8, 8192
@@ -264,7 +265,7 @@ def kernel_phase(records):
                                       bound_ms=cb, bound_by=cby,
                                       library_ms=None)
 
-    # -- kernel 3: paged decode (page 64, pos_offset=1, LSE)
+    # -- kernel 6: paged decode (page 64, pos_offset=1, LSE)
     page = 64
     for quant, lengths in ((True, "serve"), (False, "serve"), (True, "long")):
         if lengths == "serve":
@@ -684,26 +685,33 @@ def wmatmul_kernels(records, gen):
 
 
 def varlen_kernels(records, rn):
-    """Kernel 4 (packed varlen) against its plain version; SDPA times the
-    equal-length case, where packed varlen is batched causal attention."""
+    """Kernel 7 (packed varlen) against its plain version; SDPA times the
+    equal-length cases, where packed varlen is batched causal attention,
+    and there kernel 7 must equal kernel 1 (the same tile over the same
+    tiles in the same order) bit for bit, O and LSE."""
     import torch
     import torch.nn.functional as F
 
-    from mfa_tpu_torch.kernels import varlen
+    from mfa_tpu_torch.kernels import prefill, varlen
 
-    dev, hq, hkv, d = "cuda", 32, 8, 128
-    scale = d ** -0.5
+    dev = "cuda"
     lens_a = [200, 1100, 512, 300, 700, 384, 450, 450]  # total 4096
-    cases = (("8 packed causal", lens_a, lens_a, True, (-1, -1)),
+    #        tag, lens_q, lens_k, causal, window, (hq, hkv, d)
+    cases = (("8 packed causal", lens_a, lens_a, True, (-1, -1), (32, 8, 128)),
              ("8 packed, lens_k != lens_q, band (128, 64)", lens_a,
-              [256, 1000, 600, 300, 640, 400, 500, 396], False, (128, 64)),
+              [256, 1000, 600, 300, 640, 400, 500, 396], False, (128, 64), (32, 8, 128)),
              ("one zero-length sequence, causal", [300, 0, 517, 64],
-              [300, 0, 517, 64], True, (-1, -1)),
+              [300, 0, 517, 64], True, (-1, -1), (32, 8, 128)),
              ("equal lengths 8 x 512, causal", [512] * 8, [512] * 8, True,
-              (-1, -1)))
+              (-1, -1), (32, 8, 128)),
+             ("d 256, equal lengths 4 x 2048, causal", [2048] * 4, [2048] * 4, True,
+              (-1, -1), (8, 4, 256)),
+             ("d 256, ragged, window (1023, -1), causal", [300, 1800, 77, 1000],
+              [300, 1800, 77, 1000], True, (1023, -1), (8, 4, 256)))
     ok = True
     rec = records["varlen"]
-    for tag, lq, lk, causal, window in cases:
+    for tag, lq, lk, causal, window, (hq, hkv, d) in cases:
+        scale = d ** -0.5
         q = rn(sum(lq), hq, d)
         k, v = rn(sum(lk), hkv, d), rn(sum(lk), hkv, d)
         cu_q = torch.tensor([0] + lq, device=dev).cumsum(0).int()
@@ -732,21 +740,33 @@ def varlen_kernels(records, rn):
                               4 * hq * pairs * d)
         lib = ""
         if len(set(lq)) == 1 and lq == lk:
-            qb = q.view(len(lq), lq[0], hq, d).transpose(1, 2)
-            kb = k.view(len(lk), lk[0], hkv, d).transpose(1, 2)
-            vb = v.view(len(lk), lk[0], hkv, d).transpose(1, 2)
+            n, s = len(lq), lq[0]
+
+            def batched(t):  # [n * s, h, d] -> [n, h, s, d]
+                return t.view(n, s, t.shape[1], d).transpose(1, 2).contiguous()
+
+            qb, kb, vb = batched(q), batched(k), batched(v)
+            o1, l1 = prefill.prefill_attention(qb, kb, vb, causal=True, return_lse=True,
+                                               bound_softmax=False)
+            same = torch.equal(batched(o), o1) and torch.equal(
+                lse.view(hq, n, s).transpose(0, 1), l1)
+            print(f"  equal to kernel 1 on [{n}, {hq}, {s}, {d}] bit for bit (O and "
+                  f"LSE): {same}", flush=True)
+            ok &= same
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 qb, kb, vb, is_causal=True, enable_gqa=True))
-            lib = f" library_ms(sdpa is_causal, batched {len(lq)} x {lq[0]}) {lib_ms:.4f}"
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                       library_ms=lib_ms)
+            lib = f" library_ms(sdpa is_causal, batched {n} x {s}) {lib_ms:.4f}"
+            if d == 128:
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           library_ms=lib_ms)
+            del qb, kb, vb, o1, l1
         print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
               f"({by}){lib}", flush=True)
     return ok
 
 
 def paged_prefill_kernels(records, rn, gen):
-    """Kernel 5 (paged prefill) against its plain version: the engine's
+    """Kernel 8 (paged prefill) against its plain version: the engine's
     chunk batch (int8 pages) and the varlen paged route's shape (bf16)."""
     import torch
 
@@ -813,8 +833,8 @@ def paged_prefill_kernels(records, rn, gen):
 def _bwd_close(got, ref, what):
     """Each of dq, dk, dv within max |a - r| <= 2e-2 max |r| and mean |a - r|
     <= 2e-2 mean |r|, and finite: only P and dS round to bf16 before their
-    products, and the fused kernel's dQ atomics change the summation order.
-    Returns (largest max abs error, ok)."""
+    products, and the fused kernel's dQ additions across blocks change the
+    summation order. Returns (largest max abs error, ok)."""
     import torch
 
     worst, ok = 0.0, True
@@ -1639,11 +1659,11 @@ def main() -> int:
                     "mfa_tpu/kernels/decode.py:148"),
         "paged": ("mfa_tpu_torch/csrc/paged.cu",
                   "mfa_tpu/kernels/paged.py:122"),
-        "varlen": ("mfa_tpu_torch/csrc/prefill.cu",
+        "varlen": ("mfa_tpu_torch/csrc/flash_fwd_sm90.cuh",
                    "mfa_tpu/kernels/varlen.py:53"),
         "paged_prefill": ("mfa_tpu_torch/csrc/paged_prefill.cu",
                           "mfa_tpu/kernels/paged_prefill.py:50"),
-        "bwd_fused": ("mfa_tpu_torch/csrc/backward.cu",
+        "bwd_fused": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
                       "mfa_tpu/kernels/backward.py:163"),
         "bwd_dkv": ("mfa_tpu_torch/csrc/backward.cu",
                     "mfa_tpu/kernels/backward.py:413"),

@@ -1,21 +1,25 @@
 // Flash-attention backward for Hopper (sm_90a): dQ, dK, dV from the
-// forward's saved LSE, through the tiles of flash_bwd.cuh. Five launches:
+// forward's saved LSE. Five launches:
 //
-//  * mfa_bwd_fused replaces mfa_tpu/kernels/backward.py:_fused_bwd_kernel.
-//    One block per (key tile, kv head, batch) computes dK and dV for its
-//    keys and adds dQ into a zeroed fp32 workspace [b, hq, sq, d] with
-//    atomics; the wrapper casts it to q's dtype. One pass computes all
-//    three gradients (5 products per tile), as the TPU kernel does. Its
-//    dQ varies in the last bits from run to run (atomic order).
-//  * mfa_bwd_dkv replaces _dkv_kernel / _dkv_tri_kernel (_dkv_body) and
-//    mfa_bwd_dq replaces _dq_kernel / _dq_tri_kernel (_dq_body): the
-//    deterministic two-launch split (4 + 3 products). The TPU's
+//  * mfa_bwd_fused (kernel 11) replaces
+//    mfa_tpu/kernels/backward.py:_fused_bwd_kernel, on the warp-specialised
+//    wgmma + TMA kernel of flash_bwd_sm90.cuh. One block per (kv head,
+//    batch, 128-key tile) computes dK and dV for its keys and adds dQ into
+//    a zeroed fp32 workspace [b, hq, sq, d] with bulk TMA reductions; the
+//    wrapper casts it to q's dtype. One pass computes all three gradients
+//    (5 products per tile), as the TPU kernel does. Its dQ varies in the
+//    last bits from run to run (the order of the blocks' additions).
+//  * mfa_bwd_dkv (kernel 12) replaces _dkv_kernel / _dkv_tri_kernel
+//    (_dkv_body) and mfa_bwd_dq (kernel 13) replaces _dq_kernel /
+//    _dq_tri_kernel (_dq_body), on the mma.sync tiles of flash_bwd.cuh:
+//    the deterministic two-launch split (4 + 3 products). The TPU's
 //    rectangular and triangular grids are two enumerations of one
 //    function; here a block computes its band's bounds and skips dead
 //    tiles, so each is one launch.
-//  * mfa_varlen_bwd_dkv / mfa_varlen_bwd_dq replace _vl_dkv_kernel /
-//    _vl_dq_kernel (varlen_attention_bwd): the split on packed sequences.
-//    The grid is (tile, head, sequence), as in mfa_varlen_fwd: a block
+//  * mfa_varlen_bwd_dkv / mfa_varlen_bwd_dq (kernel 14) replace
+//    _vl_dkv_kernel / _vl_dq_kernel (varlen_attention_bwd): the split on
+//    packed sequences, on the same mma.sync tiles.
+//    The grid is (tile, head, sequence): a block
 //    reads its sequence's offsets from cu_seqlens and leaves when its tile
 //    lies past that sequence; causal and the window act on positions local
 //    to the sequence, top-left aligned.
@@ -29,27 +33,27 @@
 //
 // Bound: tensor-core operations, 10 * hq * d flops per visible (row,
 // column) pair for the fused launch (8 for dK/dV, 6 for dQ); at training
-// shapes it is far from the 295 flops-per-byte line. mma.sync without
-// copy/compute overlap; wgmma + TMA is later work.
+// shapes it is far from the 295 flops-per-byte line. The split launches
+// run mma.sync without copy/compute overlap.
 #include "flash_bwd.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
-template <typename T, int D, bool FUSED>
+template <typename T, int D>
 __global__ void __launch_bounds__(BWD_THREADS)
     bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dO, const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dq_ws,
-                   T* __restrict__ dk, T* __restrict__ dv, int hq, int hkv, BwdGeom g) {
+                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                   int hq, int hkv, BwdGeom g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kv0 = blockIdx.x * BWD_BN, hk = blockIdx.y, b = blockIdx.z;
   const int group = hq / hkv;
   const size_t qb = (size_t)b * hq * g.sq * D;
   const size_t lb = (size_t)b * hq * g.sq;
   const size_t kb = ((size_t)b * hkv + hk) * g.sk * D;
-  bwd_dkv_block<T, D, FUSED>(q + qb, k + kb, v + kb, dO + qb, lse + lb, delta + lb,
-                             FUSED ? dq_ws + qb : nullptr, dk + kb, dv + kb, hk * group, group,
-                             kv0, g, smem_raw);
+  bwd_dkv_block<T, D>(q + qb, k + kb, v + kb, dO + qb, lse + lb, delta + lb, dk + kb, dv + kb,
+                      hk * group, group, kv0, g, smem_raw);
 }
 
 template <typename T, int D>
@@ -86,8 +90,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int group = hq / hkv;
   const size_t qb = (size_t)q_start * hq * D;
   const size_t kb = ((size_t)k_start * hkv + hk) * D;
-  bwd_dkv_block<T, D, false>(q + qb, k + kb, v + kb, dO + qb, lse + q_start, delta + q_start,
-                             nullptr, dk + kb, dv + kb, hk * group, group, kv0, gs, smem_raw);
+  bwd_dkv_block<T, D>(q + qb, k + kb, v + kb, dO + qb, lse + q_start, delta + q_start, dk + kb,
+                      dv + kb, hk * group, group, kv0, gs, smem_raw);
 }
 
 template <typename T, int D>
@@ -132,23 +136,23 @@ int prepare(Kern kern, size_t smem) {
                                    (int)smem);
 }
 
-template <typename T, int D, bool FUSED>
+template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-               const float* delta, float* dq_ws, void* dk, void* dv, int batch, int hq, int hkv,
-               int sq, int sk, int wl, int wr, float scale, float softcap, cudaStream_t stream) {
+               const float* delta, void* dk, void* dv, int batch, int hq, int hkv, int sq, int sk,
+               int wl, int wr, float scale, float softcap, cudaStream_t stream) {
   BwdGeom g = geom(sq, sk, wl, wr, scale, softcap);
   g.q_head = (long long)sq * D;
   g.q_row = D;
   g.l_head = sq;
   g.k_row = D;
   const size_t smem = BwdSmem<T, D>::bytes;
-  auto kern = bwd_dkv_kernel<T, D, FUSED>;
+  auto kern = bwd_dkv_kernel<T, D>;
   if (int err = prepare(kern, smem)) return err;
   dim3 grid((sk + BWD_BN - 1) / BWD_BN, hkv, batch);
   kern<<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), lse, delta, dq_ws, static_cast<T*>(dk), static_cast<T*>(dv),
-      hq, hkv, g);
+      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), hq, hkv,
+      g);
   return (int)cudaGetLastError();
 }
 
@@ -222,7 +226,8 @@ int launch_varlen_dq(const void* q, const void* k, const void* v, const void* dO
   if (dtype == MFA_F16 && d == 128) return CALL(__half, 128);         \
   return MFA_BAD_CONFIG
 
-// dq_ws: zeroed fp32 [b, hq, sq, d]; dk, dv: [b, hkv, sk, d] in the dtype.
+// dq_ws: zeroed fp32 [b, hq, sq, d] (the fused launch adds dQ into it);
+// dk, dv: [b, hkv, sk, d] in the dtype.
 // Every launch returns a cudaError_t code (0 = launched).
 extern "C" int mfa_bwd_fused(const void* q, const void* k, const void* v, const void* dO,
                              const float* lse, const float* delta, float* dq_ws, void* dk,
@@ -230,10 +235,18 @@ extern "C" int mfa_bwd_fused(const void* q, const void* k, const void* v, const 
                              int d, int window_left, int window_right, float scale,
                              float softcap, void* stream) {
   if (batch == 0 || sk == 0) return 0;
-#define MFA_CALL(T, D)                                                                    \
-  launch_dkv<T, D, true>(q, k, v, dO, lse, delta, dq_ws, dk, dv, batch, hq, hkv, sq, sk, \
-                         window_left, window_right, scale, softcap,                      \
-                         static_cast<cudaStream_t>(stream))
+  if (sq == 0) {  // no row sees a key: dK = dV = 0
+    const size_t bytes = (size_t)batch * hkv * sk * d * 2;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (int err = (int)cudaMemsetAsync(dk, 0, bytes, st)) return err;
+    return (int)cudaMemsetAsync(dv, 0, bytes, st);
+  }
+  const float c2 = softcap > 0.f ? fb90::LOG2E : scale * fb90::LOG2E;
+  const fb90::Args a{hq,    hkv, sq,      sk, window_left, window_right,
+                     scale, c2,  softcap, softcap > 0.f ? scale / softcap : 0.f};
+#define MFA_CALL(T, D)                                                       \
+  fb90::launch<T, D>(q, k, v, dO, lse, delta, dq_ws, dk, dv, batch, a, \
+                     static_cast<cudaStream_t>(stream))
   MFA_BWD_DISPATCH(MFA_CALL);
 #undef MFA_CALL
 }
@@ -243,10 +256,9 @@ extern "C" int mfa_bwd_dkv(const void* q, const void* k, const void* v, const vo
                            int batch, int hq, int hkv, int sq, int sk, int d, int window_left,
                            int window_right, float scale, float softcap, void* stream) {
   if (batch == 0 || sk == 0) return 0;
-#define MFA_CALL(T, D)                                                                      \
-  launch_dkv<T, D, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, batch, hq, hkv, sq, sk, \
-                          window_left, window_right, scale, softcap,                        \
-                          static_cast<cudaStream_t>(stream))
+#define MFA_CALL(T, D)                                                                   \
+  launch_dkv<T, D>(q, k, v, dO, lse, delta, dk, dv, batch, hq, hkv, sq, sk, window_left, \
+                   window_right, scale, softcap, static_cast<cudaStream_t>(stream))
   MFA_BWD_DISPATCH(MFA_CALL);
 #undef MFA_CALL
 }
@@ -293,4 +305,68 @@ extern "C" int mfa_varlen_bwd_dq(const void* q, const void* k, const void* v, co
                          static_cast<cudaStream_t>(stream))
   MFA_BWD_DISPATCH(MFA_CALL);
 #undef MFA_CALL
+}
+
+// The product of the fused kernel's dQ step alone, with both operands
+// MN-major in shared memory (wgmma_ss_t): d [64, n] fp32 = a^T b[:, n0 :
+// n0 + n] for bf16 a [64, 64] and b [64, 64] row-major (64 rows of the
+// contraction), n 32 or 64, n0 0 or 32 (n0 + n <= 64). One warpgroup.
+namespace {
+
+__global__ void __launch_bounds__(128)
+    wgmma_ss_t_check_kernel(const __nv_bfloat16* __restrict__ a,
+                            const __nv_bfloat16* __restrict__ b, float* __restrict__ d, int n,
+                            int n0) {
+  __shared__ __align__(16) unsigned char raw[2 * 8192 + 1024];
+  unsigned char* sm = raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+  const uint32_t sa = smem_u32(sm), sb = sa + 8192;
+  const int tid = threadIdx.x;
+  // 64 rows of 128 bytes each, 16-byte unit u of row r at unit u ^ (r % 8)
+  for (int i = tid; i < 64 * 8; i += 128) {
+    const int r = i / 8, u = i % 8;
+    const int off = r * 128 + ((u ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(sm + off) = *reinterpret_cast<const uint4*>(a + r * 64 + u * 8);
+    *reinterpret_cast<uint4*>(sm + 8192 + off) =
+        *reinterpret_cast<const uint4*>(b + r * 64 + u * 8);
+  }
+  fence_async_smem();
+  __syncthreads();
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3, wi = tid >> 5;
+  float acc[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+  wg_fence();
+  if (n == 64) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_t<__nv_bfloat16, 64, 1, 1>(acc, sw128_desc(sa + kk * 2048, 64 * 128),
+                                          sw128_desc(sb + n0 * 2 + kk * 2048, 64 * 128), 1);
+  } else {
+    float(&acc16)[16] = *reinterpret_cast<float(*)[16]>(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_t<__nv_bfloat16, 32, 1, 1>(acc16, sw128_desc(sa + kk * 2048, 64 * 128),
+                                          sw128_desc(sb + n0 * 2 + kk * 2048, 64 * 128), 1);
+  }
+  wg_commit();
+  wg_wait_all();
+  fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < n / 8) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        d[(wi * 16 + g + 8 * (e >> 1)) * n + 8 * j + 2 * t4 + (e & 1)] = acc[4 * j + e];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int mfa_wgmma_ss_t_check(const void* a, const void* b, float* d, int n, int n0,
+                                    void* stream) {
+  if (!((n == 32 && (n0 == 0 || n0 == 32)) || (n == 64 && n0 == 0))) return MFA_BAD_CONFIG;
+  wgmma_ss_t_check_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), d, n, n0);
+  return (int)cudaGetLastError();
 }

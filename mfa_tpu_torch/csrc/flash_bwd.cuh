@@ -1,5 +1,7 @@
-// The flash-attention backward tiles shared by the five launches of
-// backward.cu (fused, dK/dV, dQ, and the packed-varlen dK/dV and dQ).
+// The mma.sync flash-attention backward tiles of four launches of
+// backward.cu: the deterministic split (dK/dV, dQ) and the packed-varlen
+// split (kernels 12-14). The fused launch (kernel 11) runs the wgmma + TMA
+// kernel of flash_bwd_sm90.cuh.
 //
 // Every launch recomputes the probabilities from the forward's saved
 // natural-log LSE and runs the FlashAttention-2 recurrence on mma.sync
@@ -17,18 +19,14 @@
 //    block walks the GQA group's q heads and, for each, the q tiles of the
 //    band. Each warp computes S^T and dP^T for its own key rows, so the
 //    accumulators of P^T and dS^T are already the A operands of P^T dO and
-//    dS^T Q (no transpose through shared memory). FUSED also forms
-//    dQ = dS K for the q tile (dS^T staged once in shared memory) and adds it
-//    into an fp32 workspace with atomics: the TPU kernel's sequential grid
-//    kept full-length dK/dV accumulators in VMEM; Hopper blocks run in
-//    parallel, so the loop is inverted and dQ is the reduced operand.
+//    dS^T Q (no transpose through shared memory).
 //  * bwd_dq_block: one block owns 64 q rows of one q head (16 per warp),
 //    walks the band's kv tiles, and keeps dQ in registers until one store.
 //
-// Transposed operands (dO and Q as B of P^T dO and dS^T Q, K as B of dS K,
-// dS^T as A of dS K) come straight from row-major shared memory through
-// ldmatrix.trans. P and dS are rounded to the compute dtype before their
-// products, as the forward rounds P.
+// Transposed operands (dO and Q as B of P^T dO and dS^T Q, K as B of dS K)
+// come straight from row-major shared memory through ldmatrix.trans. P and
+// dS are rounded to the compute dtype before their products, as the
+// forward rounds P.
 //
 // Row sources: the caller resolves base pointers of one (batch or packed
 // sequence, head) and the element strides between heads and rows, so the
@@ -37,10 +35,10 @@
 // P = 0, hence zero gradients; key rows with no live q row in the band keep
 // dK = dV = 0 and are still stored.
 //
-// Bound: tensor-core operations (5 products of 2 * d flops per visible
-// (row, column) pair and q head in the fused launch, 4 in dK/dV and 3 in
-// dQ). No cp.async/TMA pipelining and no wgmma yet: loads and math do not
-// overlap (later work).
+// Bound: tensor-core operations (4 products of 2 * d flops per visible
+// (row, column) pair and q head in dK/dV, 3 in dQ). No cp.async/TMA
+// pipelining and no wgmma: loads and math do not overlap. Moving these
+// launches onto the fused kernel's wgmma + TMA design is later work.
 #pragma once
 
 #include "flash_fwd.cuh"
@@ -63,22 +61,20 @@ struct BwdGeom {
 };
 
 // Shared-memory plan of the dK/dV block: K, V [BN][D + 8], Q, dO [BM][D + 8],
-// the q tile's log2 LSE and delta [BM], dS^T [BN][BM + 8] (fused).
+// the q tile's log2 LSE and delta [BM].
 template <typename T, int D>
 struct BwdSmem {
   // q rows per step of the dK/dV loop: 32 at d = 128 keeps dK + dV (128
   // fp32 registers a thread) plus S^T and dP^T under the register limit.
   static constexpr int BM = D >= 128 ? 32 : 64;
-  static constexpr int RS = D + 8;   // row stride: 16-byte aligned, conflict-free
-  static constexpr int DS = BM + 8;  // dS^T row stride
+  static constexpr int RS = D + 8;  // row stride: 16-byte aligned, conflict-free
   static constexpr size_t k_off = 0;
   static constexpr size_t v_off = k_off + sizeof(T) * BWD_BN * RS;
   static constexpr size_t q_off = v_off + sizeof(T) * BWD_BN * RS;
   static constexpr size_t do_off = q_off + sizeof(T) * BM * RS;
   static constexpr size_t l_off = do_off + sizeof(T) * BM * RS;
   static constexpr size_t dl_off = l_off + sizeof(float) * BM;
-  static constexpr size_t ds_off = dl_off + sizeof(float) * BM;
-  static constexpr size_t bytes = ds_off + sizeof(T) * BWD_BN * DS;
+  static constexpr size_t bytes = dl_off + sizeof(float) * BM;
 };
 
 // Shared-memory plan of the dQ block: Q, dO [64][D + 8], K, V [BN][D + 8].
@@ -147,15 +143,6 @@ __device__ __forceinline__ void frag_b2_trans(uint32_t r[4], const T* tile, int 
   ldsm_x4_trans(r, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * rs + n0 + (lane >> 4) * 8);
 }
 
-// A fragment (rows m0 .. m0 + 15, columns k0 .. k0 + 15) of X^T for a
-// row-major shared tile X (k rows x m columns).
-template <typename T>
-__device__ __forceinline__ void frag_a_trans(uint32_t a[4], const T* tile, int rs, int m0,
-                                             int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_trans(a, tile + (k0 + (lane >> 4) * 8 + (lane & 7)) * rs + m0 + ((lane >> 3) & 1) * 8);
-}
-
 // The probability and dS of one (key row, q row) pair, in place:
 // s = raw score, dp = dO . v; l2 = log2-domain LSE (+inf on a dead row).
 __device__ __forceinline__ void bwd_pair(float& s, float& dp, bool visible, float l2,
@@ -171,26 +158,25 @@ __device__ __forceinline__ void bwd_pair(float& s, float& dp, bool visible, floa
   dp = p * (dp - delta) * g.scale * dcap;
 }
 
-// q, dO, lse, delta, dq_ws: (batch or sequence, head 0); k, v, dk, dv:
-// (batch or sequence, kv head), row 0. Heads h0 .. h0 + group - 1 read this
-// kv head; kv0 is the block's first key row.
-template <typename T, int D, bool FUSED>
+// q, dO, lse, delta: (batch or sequence, head 0); k, v, dk, dv: (batch or
+// sequence, kv head), row 0. Heads h0 .. h0 + group - 1 read this kv head;
+// kv0 is the block's first key row.
+template <typename T, int D>
 __device__ __forceinline__ void bwd_dkv_block(const T* __restrict__ q, const T* __restrict__ k,
                                               const T* __restrict__ v, const T* __restrict__ dO,
                                               const float* __restrict__ lse,
                                               const float* __restrict__ delta,
-                                              float* __restrict__ dq_ws, T* __restrict__ dk,
-                                              T* __restrict__ dv, int h0, int group, int kv0,
+                                              T* __restrict__ dk, T* __restrict__ dv, int h0,
+                                              int group, int kv0,
                                               const BwdGeom& g, unsigned char* smem) {
   using SM = BwdSmem<T, D>;
-  constexpr int BM = SM::BM, RS = SM::RS, DS = SM::DS;
+  constexpr int BM = SM::BM, RS = SM::RS;
   T* ks = reinterpret_cast<T*>(smem + SM::k_off);
   T* vs = reinterpret_cast<T*>(smem + SM::v_off);
   T* qs = reinterpret_cast<T*>(smem + SM::q_off);
   T* dos = reinterpret_cast<T*>(smem + SM::do_off);
   float* l2s = reinterpret_cast<float*>(smem + SM::l_off);
   float* dls = reinterpret_cast<float*>(smem + SM::dl_off);
-  T* dsts = reinterpret_cast<T*>(smem + SM::ds_off);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
@@ -283,47 +269,6 @@ __device__ __forceinline__ void bwd_dkv_block(const T* __restrict__ q, const T* 
           frag_b2_trans<T>(b, qs, RS, kc * 16, dt * 8);
           mma16816<T>(dka[dt], ad, b);
           mma16816<T>(dka[dt + 1], ad, b + 2);
-        }
-      }
-
-      if constexpr (FUSED) {
-        // dQ (BM x D) += dS (BM x BN) K (BN x D): dS^T through shared memory
-#pragma unroll
-        for (int nt = 0; nt < BM / 8; ++nt)
-#pragma unroll
-          for (int x = 0; x < 2; ++x)
-            *reinterpret_cast<uint32_t*>(dsts + (row0 + gq + 8 * x) * DS + nt * 8 + t4 * 2) =
-                pack2<T>(dp[nt][2 * x], dp[nt][2 * x + 1]);
-        __syncthreads();
-        constexpr int MT = BM / 16;            // 16-row tiles of dQ
-        constexpr int NT = (D / 8) / (4 / MT);  // 8-column tiles per warp
-        const int mt = warp % MT, n0 = (warp / MT) * NT;
-        float acc[NT][4];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < BWD_BN / 16; ++kk) {
-          uint32_t a[4];
-          frag_a_trans<T>(a, dsts, DS, mt * 16, kk * 16);
-#pragma unroll
-          for (int j = 0; j < NT; j += 2) {
-            uint32_t b[4];
-            frag_b2_trans<T>(b, ks, RS, kk * 16, (n0 + j) * 8);
-            mma16816<T>(acc[j], a, b);
-            mma16816<T>(acc[j + 1], a, b + 2);
-          }
-        }
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int r = mt * 16 + gq + 8 * x;
-          if (r < nq) {
-            float* dst = dq_ws + ho + (long long)(q0 + r) * g.q_row + n0 * 8 + t4 * 2;
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-              atomicAdd(dst + j * 8, acc[j][2 * x]);
-              atomicAdd(dst + j * 8 + 1, acc[j][2 * x + 1]);
-            }
-          }
         }
       }
     }

@@ -1,7 +1,7 @@
-// The mma.sync flash-attention forward tile of the varlen (kernel 7,
-// prefill.cu), paged-prefill (kernel 8, paged_prefill.cu) and image-block
-// (kernel 9, blockmask.cu) kernels. The dense prefill kernels 1-4 run the
-// wgmma + TMA tile of flash_fwd_sm90.cuh; these three are next to move.
+// The mma.sync flash-attention forward tile of the paged-prefill (kernel 8,
+// paged_prefill.cu) and image-block (kernel 9, blockmask.cu) kernels. The
+// dense prefill kernels 1-4 and packed varlen (kernel 7) run the wgmma +
+// TMA tile of flash_fwd_sm90.cuh; these two are still to move.
 //
 // One block of 4 warps owns 64 query rows (16 per warp); each thread holds
 // two of them (rows g and g + 8 of its warp's mma fragment). The caller

@@ -1,9 +1,14 @@
 // The dense flash-attention forward tile for Hopper (sm_90a), shared by
-// kernel 1 (the classic prefill, prefill.cu) and kernels 2-4 (the
-// zero-shift engines and the repair, bound.cu). Layout: q [b, hq, sq, D],
-// k/v [b, hkv, sk, D], o like q, LSE [b, hq, sq] fp32; GQA by head index
-// (kv head = h / (hq / hkv)); the band (wl, wr) around each row's own
-// position, -1 = unbounded (causal = (-1, 0)).
+// kernel 1 (the classic prefill, prefill.cu), kernels 2-4 (the zero-shift
+// engines and the repair, bound.cu) and kernel 7 (packed varlen,
+// prefill.cu). Layout: q [b, hq, sq, D], k/v [b, hkv, sk, D], o like q, LSE
+// [b, hq, sq] fp32; or packed (kernel 7): q [total_q, hq, D], k/v [total_k,
+// hkv, D], LSE [hq, total_q], each block reading its sequence's offsets from
+// cu_seqlens. GQA by head index (kv head = h / (hq / hkv)); the band (wl, wr)
+// around each row's own position, -1 = unbounded (causal = (-1, 0)).
+// Kernel 7 differs from kernel 1 only in the addressing (strided tensor
+// maps, the sequence's first rows as box coordinates, O's row stride), so
+// on equal lengths the two give the same bits.
 //
 // Bound: operations. Past a few hundred keys a row does 4 D flops per
 // visible key on 2 D bytes of K and V read once per 128 rows, so the
@@ -73,6 +78,11 @@ enum Kind { PREFILL, FLAGGED, REPAIR, BOUND, UNCHECKED };
 struct Args {
   int hq, hkv, sq, sk, wl, wr;
   float scale_log2e, softcap, softcap_mul;
+  // the packed layout (kernel 7): [batch + 1] sequence offsets and q's row
+  // count; sq and sk are then each block's own sequence's lengths
+  const int* cu_q = nullptr;
+  const int* cu_k = nullptr;
+  int total_q = 0;
 };
 
 // Shared memory: Q [D/64][BM][64], K and V slots [D/64][BN][64] each (every
@@ -143,11 +153,13 @@ __device__ __forceinline__ void consume_idle(const Block& blk) {
 }
 
 // One consumer warpgroup (w, thread wtid of 128) over its 64 rows at
-// pos_lo: the KV loop, then O and LSE of its rows < sq. ZS: the zero-shift
-// softmax; returns whether one of this thread's rows is poisoned.
+// pos_lo: the KV loop, then O and LSE of its rows < sq (O's rows o_stride
+// elements apart). ZS: the zero-shift softmax; returns whether one of this
+// thread's rows is poisoned.
 template <typename T, int D, bool ZS>
 __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const Args& a,
-                                        Span mine, int pos_lo, T* o_head, float* lse_head) {
+                                        Span mine, int pos_lo, T* o_head, size_t o_stride,
+                                        float* lse_head) {
   using P = Plan<D>;
   constexpr int BN = P::BN;
   const uint32_t bars = blk.base + P::bar_off;
@@ -311,7 +323,7 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
     const bool dead = m <= MFA_MASK * 0.5f;
     const bool bad = dead || l == 0.f || isnan(l);
     const float inv = dead ? 0.f : 1.f / (bad ? 1.f : norm);
-    T* orow = o_head + (size_t)r * D;
+    T* orow = o_head + (size_t)r * o_stride;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const float o0 = acc[4 * j + 2 * x] * inv, o1 = acc[4 * j + 2 * x + 1] * inv;
@@ -331,17 +343,31 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
   return poison;
 }
 
-// Grid (hq, batch, ceil(sq / BM)). table: kernel 2's flags (written; null
+// Grid (hq, batch, ceil(sq / BM)); on the packed layout (PACKED, kernel 1's
+// function only) ceil(max_sq / BM). table: kernel 2's flags (written; null
 // = none), kernel 3's flags (read), kernel 4's risky bits (read), or null.
-template <typename T, int D, int KIND>
+template <typename T, int D, int KIND, bool PACKED = false>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
-               float* __restrict__ lse, int* __restrict__ table, const Args a) {
+               float* __restrict__ lse, int* __restrict__ table, const Args args) {
+  static_assert(!PACKED || KIND == PREFILL, "the packed layout runs the classic softmax");
   using P = Plan<D>;
   const int h = blockIdx.x, b = blockIdx.y;
   const int qb = gridDim.z - 1 - blockIdx.z;  // longest causal tiles first
   const int q0 = qb * BM;
+  Args a = args;
+  int q_row0 = 0, k_row0 = 0;  // the sequence's first rows in the maps
+  if constexpr (PACKED) {
+    // Rows of a sequence are followed by the next sequence's, not by
+    // zeros: key columns >= sk are masked (needs_mask), q rows >= sq are
+    // computed and never stored.
+    q_row0 = a.cu_q[b];
+    a.sq = a.cu_q[b + 1] - q_row0;
+    if (q0 >= a.sq) return;  // tile past this sequence: the whole block leaves
+    k_row0 = a.cu_k[b];
+    a.sk = a.cu_k[b + 1] - k_row0;
+  }
   const int nt64 = (a.sq + WG_M - 1) / WG_M;
   const size_t tile0 = (size_t)(b * a.hq + h) * nt64 + 2 * qb;  // this block's first flag
   const bool two = q0 + WG_M < a.sq;  // the second warpgroup has rows
@@ -377,13 +403,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     // producer: one thread issues every load
     regs_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      const int bh_q = b * a.hq + h, bh_kv = b * a.hkv + h / (a.hq / a.hkv);
+      // map planes: (batch, head) matrices, or one head's packed rows
+      const int hk = h / (a.hq / a.hkv);
+      const int bh_q = PACKED ? h : b * a.hq + h, bh_kv = PACKED ? hk : b * a.hkv + hk;
       mbar_expect_tx(bar_q(bars), P::Q_BYTES);
 #pragma unroll
       for (int ch = 0; ch < D / 64; ++ch)
-        tma_load_3d(base + ch * (BM * 128), &tq, bar_q(bars), ch * 64, q0, bh_q);
+        tma_load_3d(base + ch * (BM * 128), &tq, bar_q(bars), ch * 64, q_row0 + q0, bh_q);
       for (int i = 0; i < blk.n_tiles; ++i) {
-        const int s = i % STAGES, kv0 = (blk.first + i) * P::BN;
+        const int s = i % STAGES, kv0 = k_row0 + (blk.first + i) * P::BN;
         mbar_wait(bar_empty(bars, s), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full(bars, s), 2 * P::KV_BYTES);
         const uint32_t k_s = base + P::k_off + s * P::KV_BYTES;
@@ -402,19 +430,24 @@ __global__ void __launch_bounds__(THREADS, 1)
     const bool live = w == 0 || two;
     const int pos_lo = q0 + w * WG_M;
     const Span mine = w == 0 ? s0 : s1;
-    const size_t head = (size_t)(b * a.hq + h) * a.sq;
+    // O [b, hq, sq, D] and LSE [b, hq, sq], or packed O [total_q, hq, D]
+    // and LSE [hq, total_q]
+    const size_t head = PACKED ? (size_t)q_row0 * a.hq + h : (size_t)(b * a.hq + h) * a.sq;
+    const size_t o_stride = PACKED ? (size_t)a.hq * D : (size_t)D;
     T* o_head = o + head * D;
-    float* lse_head = lse == nullptr ? nullptr : lse + head;
+    float* lse_head = lse == nullptr ? nullptr
+                      : PACKED       ? lse + (size_t)h * a.total_q + q_row0
+                                     : lse + head;
     bool poison = false;
     if constexpr (KIND == PREFILL) {
       if (live) {
-        consume<T, D, false>(blk, w, wtid, a, mine, pos_lo, o_head, lse_head);
+        consume<T, D, false>(blk, w, wtid, a, mine, pos_lo, o_head, o_stride, lse_head);
       } else {
         consume_idle<D>(blk);
       }
     } else if constexpr (KIND == REPAIR) {
       if (live && table[tile0 + w] != 0) {
-        consume<T, D, false>(blk, w, wtid, a, mine, pos_lo, o_head, lse_head);
+        consume<T, D, false>(blk, w, wtid, a, mine, pos_lo, o_head, o_stride, lse_head);
       } else {
         consume_idle<D>(blk);
       }
@@ -422,13 +455,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (!live) {
         consume_idle<D>(blk);
       } else if (table[tile0 + w] != 0) {  // risky: the classic softmax
-        consume<T, D, false>(blk, w, wtid, a, mine, pos_lo, o_head, lse_head);
+        consume<T, D, false>(blk, w, wtid, a, mine, pos_lo, o_head, o_stride, lse_head);
       } else {
-        consume<T, D, true>(blk, w, wtid, a, mine, pos_lo, o_head, lse_head);
+        consume<T, D, true>(blk, w, wtid, a, mine, pos_lo, o_head, o_stride, lse_head);
       }
     } else {  // FLAGGED, UNCHECKED
       if (live) {
-        poison = consume<T, D, true>(blk, w, wtid, a, mine, pos_lo, o_head, lse_head);
+        poison = consume<T, D, true>(blk, w, wtid, a, mine, pos_lo, o_head, o_stride, lse_head);
       } else {
         consume_idle<D>(blk);
       }
@@ -466,6 +499,37 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
     return err;
   const dim3 grid(a.hq, batch, (a.sq + BM - 1) / BM);
   kern<<<grid, THREADS, P::bytes, stream>>>(tq, tk, tv, static_cast<T*>(o), lse, table, a);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 1's function on packed rows: q [total_q, hq, D], k/v [total_k,
+// hkv, D], o like q, lse [hq, total_q] or null; cu_q/cu_k [batch + 1] on the
+// device (a.cu_q, a.cu_k, a.total_q set), max_sq bounds every sequence's q
+// length. The maps are strided over (D, total, heads): a tile's box starts
+// at its sequence's first row.
+template <typename T, int D>
+int launch_packed(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                  int total_k, int max_sq, const Args& a, cudaStream_t stream) {
+  using P = Plan<D>;
+  constexpr bool BF = kIsBf16<T>;
+  CUtensorMap tq, tk, tv;
+  const size_t row_q = (size_t)a.hq * D * 2, row_k = (size_t)a.hkv * D * 2;
+  if (int err = mfa_tensor_map_3d_strided(&tq, q, BF, D, a.total_q, a.hq, row_q, D * 2, BM))
+    return err;
+  // total_k == 0: no KV tile is ever loaded; the maps only need a valid base
+  const bool kv = total_k > 0;
+  if (int err = mfa_tensor_map_3d_strided(&tk, kv ? k : q, BF, D, kv ? total_k : a.total_q,
+                                          kv ? a.hkv : a.hq, kv ? row_k : row_q, D * 2, P::BN))
+    return err;
+  if (int err = mfa_tensor_map_3d_strided(&tv, kv ? v : q, BF, D, kv ? total_k : a.total_q,
+                                          kv ? a.hkv : a.hq, kv ? row_k : row_q, D * 2, P::BN))
+    return err;
+  auto kern = fwd_kernel<T, D, PREFILL, true>;
+  if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)P::bytes))
+    return err;
+  const dim3 grid(a.hq, batch, (max_sq + BM - 1) / BM);
+  kern<<<grid, THREADS, P::bytes, stream>>>(tq, tk, tv, static_cast<T*>(o), lse, nullptr, a);
   return (int)cudaGetLastError();
 }
 

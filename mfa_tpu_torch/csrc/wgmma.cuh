@@ -24,14 +24,28 @@
 //    (LBO = rows * 128 bytes).
 // (CUTLASS's make_gmma_desc builds the same fields.)
 //
+// Both operands may be MN-major in shared memory (wgmma_ss_t): an A operand
+// stored as K rows of 64 M values is read through A's transpose bit with
+// the same fields (a 16-deep step is 2048 bytes on, SBO 1024). A product
+// narrower than a 64-column chunk (N = 32) starts its descriptor inside the
+// chunk's rows, as a K-major 16-deep step does: the swizzle acts on the
+// address, not on the descriptor.
+//
 // Inline PTX takes its operand list as a string literal, so the
-// accumulator lists below are spelled out (32, 64 and 128 registers).
+// accumulator lists below are spelled out (16, 32, 64 and 128 registers).
 #pragma once
 
 #include <cuda.h>
 #include <type_traits>
 
 #include "common.cuh"
+
+#define MFA_ACC_STR_16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+#define MFA_ACC_OUT_16(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 
 #define MFA_ACC_STR_32 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -143,6 +157,29 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Add a box of shared memory into a 3-D tensor map's tile (fp32 adds done
+// in L2; rows past the map's bound are skipped), as one bulk async group
+// member. The source must be made visible to the async proxy first.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk groups have read their shared memory
+// (bulk_wait_read) or have completed (bulk_wait).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Register budget of a warpgroup (every warp of it executes this).
 template <int N>
 __device__ __forceinline__ void regs_dec() {
@@ -156,6 +193,12 @@ __device__ __forceinline__ void regs_inc() {
 // A barrier of `count` threads other than __syncthreads' (id 0).
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Make this thread's shared-memory stores visible to the async proxy (a
+// later wgmma reading them as an operand).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -- wgmma --------------------------------------------------------------------
@@ -246,8 +289,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+#define MFA_WGMMA_SS_T(NN, TY, R, IA, IB, IS, ITA, ITB)                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " IS ", 0;\n"                             \
+               "wgmma.mma_async.sync.aligned.m64n" NN "k16.f32." TY "." TY " " MFA_ACC_STR_##R \
+               ", " IA ", " IB ", p, 1, 1, " ITA ", " ITB ";\n}\n"                         \
+               : MFA_ACC_OUT_##R(d)                                                        \
+               : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N], both in shared memory; TA / TB = 1
+// reads that operand MN-major (its transpose bit), 0 K-major.
+template <typename T, int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma_ss_t: N in {32, 64}");
+  if constexpr (N == 32) {
+    if constexpr (kIsBf16<T>)
+      MFA_WGMMA_SS_T("32", "bf16", 16, "%16", "%17", "%18", "%19", "%20");
+    else
+      MFA_WGMMA_SS_T("32", "f16", 16, "%16", "%17", "%18", "%19", "%20");
+  } else {
+    if constexpr (kIsBf16<T>)
+      MFA_WGMMA_SS_T("64", "bf16", 32, "%32", "%33", "%34", "%35", "%36");
+    else
+      MFA_WGMMA_SS_T("64", "f16", 32, "%32", "%33", "%34", "%35", "%36");
+  }
+}
+
 #undef MFA_WGMMA_SS
 #undef MFA_WGMMA_RS
+#undef MFA_WGMMA_SS_T
 
 // -- host: tensor maps ---------------------------------------------------------
 
@@ -276,22 +346,41 @@ inline MfaEncodeTiled mfa_encode_tiled() {
   return fn;
 }
 
-// A 3-D map over n contiguous [rows, cols] matrices of 16-bit values
-// (cols * 2 bytes a row), read in boxes of 64 columns x box_rows rows with
-// the 128-byte swizzle. Rows past `rows` read as zeros. Returns 0 or
+// A 3-D map over n [rows, cols] matrices of `type`, rows row_bytes apart
+// and matrices plane_bytes apart (both multiples of 16), in boxes of
+// box_cols columns (128 bytes) x box_rows rows with the 128-byte swizzle.
+// Rows past `rows` read as zeros (and are not written). Returns 0 or
 // MFA_TMA_ENCODE.
-inline int mfa_tensor_map_3d(CUtensorMap* map, const void* base, bool bf16, int cols, int rows,
-                             int n, int box_rows) {
+inline int mfa_encode_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int cols,
+                         int rows, int n, size_t row_bytes, size_t plane_bytes, int box_cols,
+                         int box_rows) {
   MfaEncodeTiled encode = mfa_encode_tiled();
   if (encode == nullptr) return MFA_TMA_ENCODE;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)plane_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 3,
-      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : MFA_TMA_ENCODE;
+}
+
+// The same over 16-bit values, in boxes of 64 columns. The packed layout
+// [total, heads, cols] is n = heads matrices of `total` rows, heads * cols
+// * 2 bytes a row and cols * 2 bytes between heads.
+inline int mfa_tensor_map_3d_strided(CUtensorMap* map, const void* base, bool bf16, int cols,
+                                     int rows, int n, size_t row_bytes, size_t plane_bytes,
+                                     int box_rows) {
+  return mfa_encode_3d(map, base,
+                       bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                       cols, rows, n, row_bytes, plane_bytes, 64, box_rows);
+}
+
+// n contiguous [rows, cols] matrices (the batched layout [b * heads, rows,
+// cols]).
+inline int mfa_tensor_map_3d(CUtensorMap* map, const void* base, bool bf16, int cols, int rows,
+                             int n, int box_rows) {
+  return mfa_tensor_map_3d_strided(map, base, bf16, cols, rows, n, (size_t)cols * 2,
+                                   (size_t)rows * cols * 2, box_rows);
 }

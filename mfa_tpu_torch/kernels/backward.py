@@ -1,10 +1,11 @@
 """Flash-attention backward (counterpart of mfa_tpu/kernels/backward.py).
 
-Kernels 11-14 of the port, the five launches of csrc/backward.cu on the
-tiles of csrc/flash_bwd.cuh: `mfa_bwd_fused` (dQ, dK and dV in one pass,
-dQ through fp32 atomics), the deterministic split `mfa_bwd_dkv` +
-`mfa_bwd_dq`, and the packed-varlen split `mfa_varlen_bwd_dkv` +
-`mfa_varlen_bwd_dq`. Each recomputes P from the forward's natural-log LSE:
+Kernels 11-14 of the port, the five launches of csrc/backward.cu:
+`mfa_bwd_fused` (kernel 11: dQ, dK and dV in one pass, dQ summed across
+blocks in fp32) on the warp-specialised wgmma + TMA kernel of
+csrc/flash_bwd_sm90.cuh, and on the mma.sync tiles of csrc/flash_bwd.cuh
+the deterministic split `mfa_bwd_dkv` + `mfa_bwd_dq` (kernels 12, 13) and
+the packed-varlen split `mfa_varlen_bwd_dkv` + `mfa_varlen_bwd_dq` (14). Each recomputes P from the forward's natural-log LSE:
 
     delta = rowsum(dO * O)                      (fp32 PyTorch, as in JAX)
     P  = exp(S - LSE)   with S the scaled (softcapped) logits
@@ -200,8 +201,9 @@ def flash_attention_bwd(
     right) around each row, -1 = unbounded; logit_softcap as in the
     forward.
 
-    fused: None or True runs the one-pass kernel (mfa_bwd_fused: dQ through
-    fp32 atomics, so it varies in the last bits between runs); False runs
+    fused: None or True runs the one-pass kernel (mfa_bwd_fused: dQ summed
+    across blocks in fp32 in no fixed order, so it varies in the last bits
+    between runs); False runs
     the deterministic two-launch split (mfa_bwd_dkv, then mfa_bwd_dq), the
     A/B reference. The JAX auto rule is a VMEM budget for full-length dK/dV
     accumulators; the Hopper fused kernel holds one key tile's accumulators

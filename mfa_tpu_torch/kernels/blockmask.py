@@ -6,10 +6,11 @@ Gemma3 multimodal prompts attend with
 
 (transformers' token_type_ids or-mask): image tokens see their whole
 contiguous <image> run in both directions, text stays causal. The kernel,
-csrc/blockmask.cu, is the forward tile of kernel 1 with a same-run
-visibility policy, one block per (q tile of 64, q head, batch) visiting
-only the KV tiles [kv_first, kv_last] that some row of its tile can see (`kv_tile_bounds`, computed here with torch ops from
-`image_run_bounds`). A CUDA tensor runs the kernel (or raises); a CPU
+csrc/blockmask.cu, is the mma.sync forward tile of csrc/flash_fwd.cuh
+(kernel 1's before it moved to wgmma) with a same-run visibility policy,
+one block per (q tile of 64, q head, batch) visiting only the KV tiles
+[kv_first, kv_last] that some row of its tile can see (`kv_tile_bounds`,
+computed here with torch ops from `image_run_bounds`). A CUDA tensor runs the kernel (or raises); a CPU
 tensor runs `_image_block_plain`, the dense fp32 masked softmax of
 models/llama.py:_attention_dense_masked. No gradient: inference only, as
 in the JAX package.

@@ -1,6 +1,6 @@
 """Split-KV flash decoding (counterpart of mfa_tpu/kernels/decode.py).
 
-Kernel 2 of the port: csrc/decode.cu. Launch 1 runs one block per
+Kernel 5 of the port: csrc/decode.cu. Launch 1 runs one block per
 (batch, kv head, split) over a contiguous [b, hkv, S, d] cache and writes
 normalized fp32 partials with their LSE; launch 2 merges the splits
 (`combine_splits`, max subtracted first, empty splits skipped). A CPU

@@ -1,6 +1,6 @@
 """Paged decode attention (counterpart of mfa_tpu/kernels/paged.py).
 
-Kernel 3 of the port: csrc/paged.cu. One block per (sequence, kv head)
+Kernel 6 of the port: csrc/paged.cu. One block per (sequence, kv head)
 reads that sequence's pages in place through block_table (bf16/fp16
 pages, or int8 pages with fp32 per-row scales) and writes the final output
 and LSE. A CPU tensor runs `_paged_plain`, the same function in PyTorch.

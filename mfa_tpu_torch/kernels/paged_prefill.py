@@ -1,6 +1,6 @@
 """Paged prefill attention (counterpart of mfa_tpu/kernels/paged_prefill.py).
 
-Kernel 5 of the port: csrc/paged_prefill.cu. Query chunks attend to a
+Kernel 8 of the port: csrc/paged_prefill.cu. Query chunks attend to a
 paged KV cache read in place through the block table, with a runtime
 `q_start` per sequence: chunked prefill, prefix-cache suffixes and the
 paged route of `flash_attn_varlen_func`. One block per (q tile, kv head,

@@ -1,12 +1,14 @@
 """Packed variable-length attention (counterpart of mfa_tpu/kernels/varlen.py).
 
-Kernel 4 of the port: the `mfa_varlen_fwd` launch of csrc/prefill.cu,
-which shares the prefill kernel's tile. The grid is (q tile of
-max_seqlen_q, q head, sequence); each block reads its sequence's offsets
+Kernel 7 of the port: the `mfa_varlen_fwd` launch of csrc/prefill.cu, on
+kernel 1's warp-specialised wgmma + TMA tile (csrc/flash_fwd_sm90.cuh)
+with strided tensor maps over the packed rows. The grid is (q head,
+sequence, q tile of max_seqlen_q); each block reads its sequence's offsets
 from cu_seqlens and leaves when its tile lies past that sequence, as the
-original CUDA library did. The TPU kernel's segment-id masks, prefetched
-per-q-block KV bounds and zero-shift fast path exist because a TPU grid
-is static; the classic algorithm here computes the same function exactly.
+original CUDA library did; on equal lengths it gives kernel 1's bits.
+The TPU kernel's segment-id masks, prefetched per-q-block KV bounds and
+zero-shift fast path exist because a TPU grid is static; the classic
+algorithm here computes the same function exactly.
 A CPU tensor runs `_varlen_plain` (kernel 1's plain version per sequence).
 
 With block_table, k/v are a paged pool and the call goes to the paged
@@ -25,11 +27,11 @@ import torch
 from mfa_tpu_torch.dispatch.config import softmax_scale_default
 from mfa_tpu_torch.kernels import _build
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
-from mfa_tpu_torch.kernels.prefill import KERNEL_HEAD_DIMS, _prefill_plain
+from mfa_tpu_torch.kernels.prefill import PREFILL_HEAD_DIMS, _prefill_plain
 
 _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 7 + [_I] * 9 + [_F, _F, _F, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 10 + [_F, _F, _F, _P]
 
 
 def _varlen_plain(q, k, v, cu_q, cu_k, scale, window_left, window_right,
@@ -58,9 +60,9 @@ def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
             f"the varlen kernel takes bf16/fp16, got {q.dtype}")
     total_q, hq, d = q.shape
     hkv = k.shape[1]
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in PREFILL_HEAD_DIMS:
         raise NotImplementedError(f"the varlen kernel takes head_dim in "
-                                  f"{KERNEL_HEAD_DIMS}, got {d}")
+                                  f"{PREFILL_HEAD_DIMS}, got {d}")
     name = "varlen_attention"
     _build.same_device(name, q, k, v, cu_q, cu_k)
     _build.expect_shape(name, "v", v, k.shape)
@@ -73,7 +75,7 @@ def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _build.ptr(lse), cu_q.data_ptr(), cu_k.data_ptr(),
             _build.DTYPE_CODES[q.dtype], cu_q.shape[0] - 1, hq, hkv, total_q,
-            int(max_seqlen_q), d, window_left, window_right,
+            k.shape[0], int(max_seqlen_q), d, window_left, window_right,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
             scale / softcap if softcap else 0.0, _build.stream_of(q))
     _build.check("prefill", rc)

@@ -1,12 +1,12 @@
 """Generation engine, synchronous loop (counterpart of mfa_tpu/serve/engine.py).
 
 Step shape: release finished slots -> admit -> prefill admitted prompts
-(kernel 1, writes KV pages; image prompts, with vision=, in a wave of
+(kernels 2 + 3 in bf16, else 1, writes KV pages; image prompts, with vision=, in a wave of
 their own through the vision tower and the image-block kernel) ->
 advance every
-in-progress long prompt or prefix-cache suffix by one chunk (kernel 5,
+in-progress long prompt or prefix-cache suffix by one chunk (kernel 8,
 write-then-attend) -> map pages for the next position -> one batched
-decode step over the requests whose prefill is complete (kernel 3) ->
+decode step over the requests whose prefill is complete (kernel 6) ->
 greedy sample -> append / finish. Decode and chunk batches are padded to
 power-of-two buckets, the padding rows pointing at a free scratch slot, as
 in the JAX engine.

@@ -41,17 +41,17 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# kernels 1-4 are instantiations of one template, fa90::fwd_kernel<T, D,
-# kind> (csrc/flash_fwd_sm90.cuh): kind 0 is kernel 1, 1-4 the zero-shift
-# engines (flagged, repair, bound, unchecked)
-_FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)>")
+# kernels 1-4 and 7 are instantiations of one template, fa90::fwd_kernel<T,
+# D, kind, packed> (csrc/flash_fwd_sm90.cuh): kind 0 is kernel 1 (or 7,
+# packed), 1-4 the zero-shift engines (flagged, repair, bound, unchecked)
+_FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
 GROUPS = (("prefill kernel", ()),
           ("zero-shift prefill kernels", ()),
           ("int8 matmul kernel", ("wmatmul_kernel", "wmatmul_reduce_kernel")),
           ("image-block kernel", ("image_block_kernel",)),
           ("paged prefill kernel", ("paged_prefill_kernel",)),
           ("paged kernel", ("decode_kernel",)),
-          ("backward kernel", ("bwd_dkv_kernel", "bwd_dq_kernel")),
+          ("backward kernel", ("bwd_kernel", "bwd_dkv_kernel", "bwd_dq_kernel")),
           ("loss (softmax, nll)", ("SoftMax", "nll_loss")),
           ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")),
           ("elementwise / copy / reduce", ()))

@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time kernel 7 (packed varlen) and kernel 11 (the fused backward) against
+SDPA and their bound, on one GPU.
+
+    python3 scripts/time_varlen_backward.py [--root DIR] [--label NAME]
+
+Shapes, all causal bf16 from seed 0: kernel 7 on 8 x 512 packed rows
+(hq 32, hkv 8, d 128; SDPA is_causal on the same data batched as the
+yardstick) and on the ragged 4096-token pack of chip_smoke.py (lengths 200
+to 1100, no single PyTorch call); kernel 11 at the Llama-3-8B train shape
+(b 4, hq 32, hkv 8, s 2048, d 128; the yardstick is SDPA's backward alone,
+autograd.grad over one retained is_causal call). Each kernel's output is
+held against its plain version (forward: max 2e-2, mean 2e-3; backward:
+chip_smoke._bwd_close). Times are CUDA-event means (chip_smoke._time_ms);
+bounds as chip_smoke.py phase 2: the larger of the bytes read and written
+once over 3.35 TB/s and 4 d (forward) or 10 d (backward) flops per
+visible (row, key) pair and q head over 989 TFLOP/s. --root imports
+mfa_tpu_torch from another checkout (e.g. the parent commit unpacked with
+git archive), so two versions compare in one call. Prints one line per
+kernel and shape, and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LENS_RAGGED = [200, 1100, 512, 300, 700, 384, 450, 450]  # chip_smoke.py's pack
+
+
+def varlen_shapes(cs, varlen, label, gen):
+    import torch
+    import torch.nn.functional as F
+
+    hq, hkv, d = 32, 8, 128
+    ok = True
+    for tag, lens in (("packed 8 x 512", [512] * 8), ("ragged 4096", LENS_RAGGED)):
+        n = sum(lens)
+        q, k, v = (torch.randn(n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        cu = torch.tensor([0] + lens, device="cuda").cumsum(0).int()
+
+        def run():
+            return varlen.varlen_attention(q, k, v, cu, cu, max(lens), max(lens), causal=True)
+
+        ref = varlen._varlen_plain(q.float(), k.float(), v.float(), cu, cu, d ** -0.5, -1, 0,
+                                   0.0, False)
+        err = (run().float() - ref).abs()
+        good = bool(torch.isfinite(err).all()) and float(err.max()) < 2e-2 \
+            and float(err.mean()) < 2e-3
+        ok &= good
+        ms = cs._time_ms(run)
+        pairs = sum(cs._visible_pairs(s, s, 0, -1, 0) for s in lens)
+        bound_ms, by = cs._bound(2 * (2 * n * hq * d + 2 * n * hkv * d), 4 * hq * pairs * d)
+        lib = "sdpa n/a (ragged)"
+        if len(set(lens)) == 1:
+            qb, kb, vb = (t.view(len(lens), lens[0], t.shape[1], d).transpose(1, 2)
+                          for t in (q, k, v))
+            lib_ms = cs._time_ms(lambda: F.scaled_dot_product_attention(
+                qb, kb, vb, is_causal=True, enable_gqa=True))
+            lib = f"sdpa {lib_ms:.4f} ms, kernel / sdpa {ms / lib_ms:.2f}x"
+        print(f"{label} kernel 7 {tag}: ms {ms:.4f} bound_ms {bound_ms:.4f} ({by}) "
+              f"bound share {bound_ms / ms:.3f}; {lib}; max_abs_err {float(err.max()):.3e}"
+              f"{'' if good else ' FAIL'}", flush=True)
+        del q, k, v, ref, err
+        torch.cuda.empty_cache()
+    return ok
+
+
+def backward_shape(cs, backward, prefill, label, gen):
+    import torch
+    import torch.nn.functional as F
+
+    b, hq, hkv, s, d = 4, 32, 8, 2048, 128
+    scale = d ** -0.5
+    q, do = (torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True)
+    fused = backward.flash_attention_bwd(q, k, v, o, lse, do, causal=True, fused=True)
+    ref = backward._bwd_plain(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                              scale, -1, 0, 0.0)
+    _, ok = cs._bwd_close(fused, ref, f"{label} kernel 11")
+    del fused, ref
+    args = backward._dense_cuda_inputs(q, k, v, o, lse, do) + (scale, -1, 0, 0.0)
+    ms = cs._time_ms(lambda: backward._launch_fused(*args), iters=10)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    lib_ms = cs._time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+                         iters=10)
+    pairs = b * hq * cs._visible_pairs(s, s, 0, -1, 0)
+    qb, kb = b * hq * s * d * 2, b * hkv * s * d * 2
+    bound_ms, by = cs._bound(4 * qb + 4 * kb + b * hq * s * 4, 10 * pairs * d)
+    print(f"{label} kernel 11 train shape b{b} hq{hq} hkv{hkv} s{s} d{d}: ms {ms:.4f} "
+          f"bound_ms {bound_ms:.4f} ({by}) bound share {bound_ms / ms:.3f}; sdpa backward "
+          f"{lib_ms:.4f} ms, kernel / sdpa {ms / lib_ms:.2f}x", flush=True)
+    return ok
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs  # timing, bound and tolerance helpers of this checkout
+
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    from mfa_tpu_torch.kernels import backward, prefill, varlen
+
+    print(f"mfa_tpu_torch from {os.path.dirname(varlen.__file__)}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ok = varlen_shapes(cs, varlen, args.label, gen)
+    ok &= backward_shape(cs, backward, prefill, args.label, gen)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

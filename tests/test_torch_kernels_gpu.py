@@ -155,6 +155,10 @@ def test_launch_counts_and_misaligned_views(dev):
     ([100, 37, 300], [130, 64, 200], 8, 2, 128, False, (128, 64), 0.0, BF),
     ([30, 5], [10, 0], 4, 2, 64, True, (3, -1), 0.0, HF),   # dead rows
     ([65, 1, 64], [65, 1, 64], 4, 4, 64, True, (-1, -1), 30.0, BF),
+    ([100, 37, 300], [130, 64, 200], 8, 4, 256, False, (127, 32), 0.0, BF),  # d 256
+    ([64, 130, 77], [64, 130, 77], 8, 2, 128, True, (-1, -1), 0.0, HF),  # last 77 rows
+    ([50, 70], [0, 70], 4, 2, 128, True, (-1, -1), 0.0, BF),   # sq > 0, sk == 0
+    ([70, 50], [70, 0], 8, 8, 256, True, (-1, -1), 0.0, HF),   # the last one
 ])
 def test_varlen_kernel(dev, lens_q, lens_k, hq, hkv, d, causal, window, softcap,
                        dtype):
@@ -175,6 +179,28 @@ def test_varlen_kernel(dev, lens_q, lens_k, hq, hkv, d, causal, window, softcap,
                                   softcap, True)
     assert o.dtype == dtype and lse.shape == (hq, sum(lens_q))
     _close(o, lse, ro, rl)
+    assert torch.all(o[torch.isneginf(lse).t()] == 0)  # rows that see no key
+
+
+@pytest.mark.parametrize("n_seq,s,hq,hkv,d", [(8, 512, 32, 8, 128), (4, 2048, 8, 4, 256)])
+def test_varlen_equals_prefill_bit_for_bit(dev, n_seq, s, hq, hkv, d):
+    """Equal lengths: kernel 7 runs kernel 1's code over the same tiles in
+    the same order, so O and LSE agree bit for bit."""
+    from mfa_tpu_torch.kernels import prefill, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q = _rn(gen, n_seq * s, hq, d)
+    k, v = _rn(gen, n_seq * s, hkv, d), _rn(gen, n_seq * s, hkv, d)
+    cu = torch.arange(0, n_seq * s + 1, s, device=dev, dtype=torch.int32)
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, s, s, causal=True, return_lse=True)
+
+    def batched(t):  # [n * s, h, d] -> [n, h, s, d]
+        return t.view(n_seq, s, t.shape[1], d).transpose(1, 2).contiguous()
+
+    o1, l1 = prefill.prefill_attention(batched(q), batched(k), batched(v), causal=True,
+                                       return_lse=True, bound_softmax=False)
+    assert torch.equal(batched(o), o1)
+    assert torch.equal(lse.view(hq, n_seq, s).transpose(0, 1), l1)
 
 
 @pytest.mark.parametrize(
@@ -298,7 +324,8 @@ def test_image_block_visits_only_its_tiles(dev):
 def _bwd_close(got, ref, what):
     """Stated limits: max |a - r| <= 2e-2 max |r| and mean |a - r| <= 2e-2
     mean |r| (P and dS round to bf16/fp16 before their products, and the
-    fused kernel's dQ atomics change the summation order)."""
+    fused kernel's dQ additions across blocks change the summation
+    order)."""
     for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
         g, r = g.float(), r.float()
         assert torch.isfinite(g).all(), (what, name)
@@ -326,6 +353,11 @@ def _bwd_inputs(gen, b, hq, hkv, sq, sk, d, causal, window, softcap, dtype):
     (2, 4, 1, 100, 37, 64, False, (-1, -1), 0.0, HF),
     (1, 4, 2, 256, 256, 64, False, (64, 0), 0.0, BF),
     (1, 4, 2, 130, 130, 128, True, (-1, -1), 30.0, HF),
+    (1, 32, 8, 2048, 2048, 128, True, (-1, -1), 0.0, BF),  # the train shape at b1
+    (1, 32, 4, 512, 512, 128, True, (-1, -1), 0.0, BF),    # a group of 8
+    (1, 8, 2, 2049, 2049, 128, True, (-1, -1), 0.0, BF),   # ragged tails
+    (1, 8, 2, 200, 1000, 128, False, (32, 0), 0.0, BF),    # key tiles no row sees
+    (2, 16, 2, 333, 333, 64, False, (-1, -1), 0.0, HF),    # d 64, group 8
 ])
 def test_backward_kernels(dev, b, hq, hkv, sq, sk, d, causal, window, softcap, dtype):
     from mfa_tpu_torch.kernels import _build, backward
@@ -347,6 +379,30 @@ def test_backward_kernels(dev, b, hq, hkv, sq, sk, d, causal, window, softcap, d
     _bwd_close(fused, split, "fused vs split")
     again = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
     assert all(torch.equal(a, b_) for a, b_ in zip(split, again))  # deterministic
+    dead = torch.isneginf(lse)
+    assert torch.all(fused[0][dead] == 0) and torch.all(split[0][dead] == 0)
+    if (causal or window[1] == 0) and sk > sq:  # keys no row sees: zero gradients
+        assert torch.all(fused[1][:, :, sq + 1:] == 0) and torch.all(fused[2][:, :, sq + 1:] == 0)
+
+
+@pytest.mark.parametrize("n,n0", [(64, 0), (32, 0), (32, 32)])
+def test_wgmma_transposed_operands(dev, n, n0):
+    """The fused backward's dQ product alone: both operands MN-major in
+    shared memory (the transposed-A SS wgmma), against torch.matmul."""
+    import ctypes
+
+    from mfa_tpu_torch.kernels import _build
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    a, b = _rn(gen, 64, 64), _rn(gen, 64, 64)
+    d = torch.empty((64, n), dtype=torch.float32, device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("backward", "mfa_wgmma_ss_t_check", [P, P, P, I, I, P])
+    _build.check("backward", fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), n, n0,
+                                _build.stream_of(a)))
+    torch.cuda.synchronize()
+    ref = a.float().t() @ b.float()[:, n0:n0 + n]
+    assert (d - ref).abs().max() < 1e-3
 
 
 @pytest.mark.parametrize("lens_q,lens_k,hq,hkv,d,causal,window,softcap,dtype", [

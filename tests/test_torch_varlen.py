@@ -46,13 +46,15 @@ CASES = {
     "cross_lens_causal": ([7, 30, 12], [20, 16, 12], 4, 2, True, (-1, -1), 0.0),
     "zero_length": ([10, 0, 6], [10, 4, 0], 4, 1, True, (-1, -1), 0.0),
     "softcap": ([17, 9], [17, 9], 4, 2, True, (-1, -1), 5.0),
+    # head_dim 256 (Gemma3): the kernel takes it since it runs kernel 1's tile
+    "head_dim_256": ([20, 37, 5], [20, 37, 5], 4, 2, True, (-1, -1), 0.0, 256),
 }
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_varlen_matches_jax(name):
-    lens_q, lens_k, hq, hkv, causal, window, softcap = CASES[name]
-    q, k, v, cu_q, cu_k = _pack(len(name), lens_q, lens_k, hq, hkv)
+    lens_q, lens_k, hq, hkv, causal, window, softcap, *d = CASES[name]
+    q, k, v, cu_q, cu_k = _pack(len(name), lens_q, lens_k, hq, hkv, *d)
     jo, jl = jax_varlen(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                         jnp.asarray(cu_q), jnp.asarray(cu_k), max(lens_q),
                         max(lens_k), causal=causal, window_size=window,
