@@ -14,7 +14,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    same function where one exists (a yardstick only: the port never calls
    it), and the least time the card could take (bytes over 3.35 TB/s vs
    operations over 989 TFLOP/s, counting the work these inputs need).
-   Kernels: prefill, split-KV decode + combine, paged decode, varlen (at d
+   Kernels: prefill, split-KV decode + combine (b16 S8192 d128 at the
+   default split count and 2; then a long cache, b1 S32768, at d 64, 128 and
+   256, groups 1, 2, 4 and 8, window and softcap, lengths 0, 1 and off the
+   64-token tile, rows past a length NaN), paged decode, varlen (at d
    128 and 256; on equal lengths bit for bit equal to kernel 1, O and LSE)
    and paged prefill; the five backward launches (fused, the dK/dV + dQ
    split, the varlen split) within max |a - r| <= 2e-2 max |r| and mean |a -
@@ -28,9 +31,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    Gemma3-4B's text wave, with 0 flags on benign inputs and flags, a
    repaired output and an "unchecked" output off the limits on adversarial
    ones; the bound kernel with and without risky bits; fp16 through kernel
-   1); and the int8 weight matmul (kernel 10) at the 8B projections for m =
-   16 and 3601 (limit: 2^-8 of the largest output; cuBLAS on the dequantized
-   bf16 weight as the yardstick).
+   1); and the int8 weight matmul (kernel 10) at w_gate for m = 1, 17, 64,
+   255, 256 and 3601 in fp16 x and fp32 out, and at the 8B projections for
+   m = 16 and 3601 (limit: 2^-8 of the largest output; cuBLAS on the
+   dequantized bf16 weight as the yardstick).
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -210,11 +214,11 @@ def kernel_phase(records):
     b, hq, hkv, S = 16, 32, 8, 8192
     q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
     lens = torch.full((b,), S, dtype=torch.int32, device=dev)
-    heur = decode.num_splits_heuristic(b, hkv, S, decode.TILE)
+    heur = decode.default_splits(b, hkv, S)
     kv_bytes = 2 * b * hkv * S * d * 2
     bound_ms, by = _bound(kv_bytes + 2 * b * hq * d * 2 + b * hq * 4,
                           4 * b * hq * S * d)
-    for ns in (1, heur):
+    for ns in dict.fromkeys((heur, 2)):
         nsp, tps = decode.split_layout(S, ns)
         o, lse = decode.decode_attention(q, kc, vc, lens, num_splits=ns,
                                          return_lse=True)
@@ -312,12 +316,80 @@ def kernel_phase(records):
         if quant and lengths == "serve":
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=by, library_ms=None)
+    ok &= decode_kernels(records)
     ok &= varlen_kernels(records, rn)
     ok &= paged_prefill_kernels(records, rn, gen)
     ok &= backward_kernels(records, rn)
     ok &= gemma3_kernels(records, rn, gen)
     ok &= zero_shift_kernels(records, rn)
     ok &= wmatmul_kernels(records, gen)
+    return ok
+
+
+def decode_kernels(records):
+    """Kernel 5's launch 1 (csrc/decode_sm90.cuh) beyond the main shape: a
+    long cache (b1 S32768) at d 64, 128 and 256, groups 1, 2, 4 and 8, a
+    window and a softcap, lengths of 0, 1 and not a multiple of the 64-token
+    tile, at the default split count and at 3, each against the plain
+    version (max 2e-2, mean 2e-3; LSE within 1e-3 with the same -inf rows).
+    Rows past a length hold NaN: the kernel masks them. Times the long
+    cache at d 128 against SDPA on the same cache. Its inputs come from a
+    generator of its own, so the checks after it see the inputs they had
+    before it existed."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import decode
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    ok = True
+    for b, hq, hkv, S, d, lens, wl, cap in (
+            (1, 32, 8, 32768, 128, [32768], -1, 0.0),
+            (1, 32, 8, 32768, 64, [32701], -1, 0.0),
+            (1, 16, 2, 32768, 256, [32700], 4000, 0.0),
+            (4, 8, 8, 2000, 64, [2000, 0, 1, 1000], -1, 0.0),
+            (3, 16, 8, 3000, 256, [2999, 130, 0], 500, 30.0),
+            (2, 16, 4, 4100, 128, [4100, 4033], 1000, 0.0),
+            (2, 64, 8, 5000, 64, [4999, 77], -1, 25.0)):
+        q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
+        for i, n in enumerate(lens):
+            kc[i, :, n:] = float("nan")
+            vc[i, :, n:] = float("nan")
+        L = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for ns in dict.fromkeys((decode.default_splits(b, hkv, S), 3)):
+            nsp, tps = decode.split_layout(S, ns)
+            o, lse = decode.decode_attention(q, kc, vc, L, num_splits=ns, window_left=wl,
+                                             logit_softcap=cap, return_lse=True)
+            po, pl = decode._decode_partials_plain(
+                q.float(), kc.float().nan_to_num(), vc.float().nan_to_num(), L, d ** -0.5,
+                nsp, tps, wl, cap)
+            ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+            print(f"decode b={b} hq={hq} hkv={hkv} S={S} d={d} lens={lens[:4]} window={wl} "
+                  f"softcap={cap} num_splits={nsp} bf16", flush=True)
+            mx, good = _err(o, ro.reshape(b, hq, d), what="O")
+            ok &= good and _lse_err(lse, rl.reshape(b, hq), "")
+            records["decode"]["max_abs_err"] = max(records["decode"]["max_abs_err"], mx)
+            del po, pl, ro, rl
+        if S == 32768 and d == 128:
+            kc.nan_to_num_()
+            vc.nan_to_num_()
+            ms = _time_ms(lambda: decode.decode_attention(q, kc, vc, L))
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, enable_gqa=True))
+            nsp, tps = decode.split_layout(S, decode.default_splits(b, hkv, S))
+            plain_ms = _time_ms(lambda: decode._decode_partials_plain(
+                q, kc, vc, L, d ** -0.5, nsp, tps, -1, 0.0), iters=3)
+            bms, bby = _bound(2 * b * hkv * S * d * 2 + 2 * b * hq * d * 2 + b * hq * 4,
+                              4 * b * hq * S * d)
+            print(f"  whole call ({nsp} splits) ms {ms:.4f} plain_ms(launch 1) "
+                  f"{plain_ms:.4f} library_ms(sdpa) {lib_ms:.4f} bound_ms {bms:.4f} "
+                  f"({bby})", flush=True)
+        del q, kc, vc
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -637,11 +709,13 @@ def zero_shift_kernels(records, rn):
 
 def wmatmul_kernels(records, gen):
     """Kernel 10 (csrc/wmatmul.cu) against its plain version in fp32 on the
-    same inputs: m = 16 (a decode step) at the 8B projections wq, wk, w_gate,
-    w_down and the lm_head, and m = 3601 (a prefill wave) at w_gate. Limit:
-    max |a - r| <= 2^-8 max |r| (the kernel rounds its fp32 accumulator
-    once). The library call is torch.matmul against the dequantized bf16
-    weight (cuBLAS), a yardstick only."""
+    same inputs: at w_gate for m = 1, 17, 64, 255, 256 and 3601 (every row
+    count of a block) with fp16 x and with fp32 out; then, timed, m = 16 (a
+    decode step) at the 8B projections wq, wk, w_gate, w_down and the
+    lm_head (wq, wk and w_down split K over a cluster), and m = 3601 (a
+    prefill wave) at w_gate. Limit: max |a - r| <= 2^-8 max |r| (the kernel rounds its fp32
+    accumulator once). The library call is torch.matmul against the
+    dequantized bf16 weight (cuBLAS), a yardstick only."""
     import torch
 
     from mfa_tpu_torch.kernels import wmatmul
@@ -649,23 +723,38 @@ def wmatmul_kernels(records, gen):
 
     ok = True
     rec = records["wmatmul"]
-    for name, m, K, N in (("wq", 16, 4096, 4096), ("wk", 16, 4096, 1024),
-                          ("w_gate", 16, 4096, 14336), ("w_down", 16, 14336, 4096),
-                          ("lm_head", 16, 4096, 128256), ("w_gate", 3601, 4096, 14336)):
-        x = torch.randn(m, K, generator=gen, device="cuda").to(torch.bfloat16)
-        w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5)
-        out = wmatmul.int8_matmul(x, w.qw, w.scale)
+
+    def check(name, x, w, out_dtype):
+        m, K = x.shape
+        N = w.qw.shape[1]
+        out = wmatmul.int8_matmul(x, w.qw, w.scale, out_dtype=out_dtype)
         ref = wmatmul._int8_matmul_plain(x.float(), w.qw, w.scale, torch.float32)
         d = (out.float() - ref).abs()
         lim = 2 ** -8 * float(ref.abs().max())
         mx = float(d.max())
         good = bool(torch.isfinite(out.float()).all()) and mx <= lim
         splits, per = wmatmul.split_k(m, K, N)
-        print(f"wmatmul {name}: m={m} K={K} N={N} bf16 x int8, {splits} K split(s): "
-              f"max_abs_err {mx:.3e} (<= {lim:.3e}) mean {float(d.mean()):.3e} "
+        print(f"wmatmul {name}: m={m} K={K} N={N} {str(x.dtype)[6:]} x int8 -> "
+              f"{str(out_dtype)[6:]}, {wmatmul.block_m(m)} rows a block, {splits} K "
+              f"split(s): max_abs_err {mx:.3e} (<= {lim:.3e}) mean {float(d.mean()):.3e} "
               f"{'ok' if good else 'FAIL'}", flush=True)
-        ok &= good
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        return good
+
+    # every row count of a block (16 to 256), fp16 x and fp32 out
+    for m in (1, 17, 64, 255, 256, 3601):
+        K, N = 4096, 14336
+        w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5)
+        x = torch.randn(m, K, generator=gen, device="cuda")
+        ok &= check("w_gate", x.to(torch.float16), w, torch.float16)
+        ok &= check("w_gate", x.to(torch.bfloat16), w, torch.float32)
+        del w, x
+    for name, m, K, N in (("wq", 16, 4096, 4096), ("wk", 16, 4096, 1024),
+                          ("w_gate", 16, 4096, 14336), ("w_down", 16, 14336, 4096),
+                          ("lm_head", 16, 4096, 128256), ("w_gate", 3601, 4096, 14336)):
+        x = torch.randn(m, K, generator=gen, device="cuda").to(torch.bfloat16)
+        w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5)
+        ok &= check(name, x, w, torch.bfloat16)
         ms = _time_ms(lambda: wmatmul.int8_matmul(x, w.qw, w.scale))
         plain_ms = _time_ms(lambda: wmatmul._int8_matmul_plain(x, w.qw, w.scale,
                                                                torch.bfloat16), iters=5)
@@ -679,7 +768,7 @@ def wmatmul_kernels(records, gen):
         if name == "w_gate" and m == 16:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                        library_ms=lib_ms)
-        del x, w, wd, out, ref
+        del x, w, wd
     torch.cuda.empty_cache()
     return ok
 
@@ -1653,7 +1742,7 @@ def main() -> int:
     sources = {
         "prefill": ("mfa_tpu_torch/csrc/prefill.cu",
                     "mfa_tpu/kernels/prefill.py:178"),
-        "decode": ("mfa_tpu_torch/csrc/decode.cu",
+        "decode": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                    "mfa_tpu/kernels/decode.py:53"),
         "combine": ("mfa_tpu_torch/csrc/decode.cu",
                     "mfa_tpu/kernels/decode.py:148"),

@@ -1,14 +1,16 @@
 // Split-KV decode over a contiguous cache, plus the split combine.
 //
 // Replaces mfa_tpu/kernels/decode.py:_decode_kernel (decode_attention) and
-// its jnp combine_splits. Launch 1 (decode_kernel, decode_common.cuh) runs
-// one block per (batch, kv head, split) and writes each split's normalized
-// fp32 partial O and natural-log LSE; launch 2 (combine_kernel) merges the
-// splits with the max subtracted first and -inf (empty) splits weighted 0,
-// as the reference's combine kernel should (SURVEY.md §2.5 hazard note).
+// its jnp combine_splits. Launch 1 (kd90::splitkv_kernel, decode_sm90.cuh:
+// a TMA ring of K/V tiles, products on the tensor cores) runs one block per
+// (batch, kv head, split) and writes each split's normalized fp32 partial O
+// and natural-log LSE; launch 2 (combine_kernel) merges the splits with the
+// max subtracted first and -inf (empty) splits weighted 0, as the
+// reference's combine kernel should (SURVEY.md §2.5 hazard note).
 // Bound: bytes of K + V; splits exist to put enough blocks on the 132 SMs
-// when batch x kv heads is small (dispatch/config.py:num_splits_heuristic).
-#include "decode_common.cuh"
+// when batch x kv heads is small (dispatch/config.py:num_splits_heuristic,
+// one block of launch 1 an SM).
+#include "decode_sm90.cuh"
 
 namespace {
 
@@ -45,7 +47,8 @@ __global__ void combine_kernel(const float* __restrict__ o_part,
 }  // namespace
 
 // Launch 1: per-split partials. q [b, hq, d]; k/v [b, hkv, S, d];
-// o_part [b, hkv, splits, hq/hkv, d] fp32; lse_part [b, hkv, splits, hq/hkv].
+// o_part [b, hkv, splits, hq/hkv, d] fp32; lse_part [b, hkv, splits, hq/hkv];
+// every pointer 16-byte aligned.
 extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
                                    const int* lens, float* o_part, float* lse_part,
                                    int dtype, int batch, int hq, int hkv, int S, int d,
@@ -53,30 +56,19 @@ extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
                                    float scale_log2e, float softcap, float softcap_mul,
                                    void* stream) {
   if (batch == 0) return 0;
-  DecodeParams p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.lens = lens;
-  p.o_part = o_part;
-  p.lse_part = lse_part;
-  p.hq = hq;
-  p.hkv = hkv;
-  p.group = hq / hkv;
-  p.S = S;
-  p.tokens_per_split = tokens_per_split;
-  p.num_splits = num_splits;
-  p.pos_offset = 0;
-  p.window_left = window_left;
-  p.scale_log2e = scale_log2e;
-  p.softcap = softcap;
-  p.softcap_mul = softcap_mul;
+  const int group = hq / hkv;
+  if (group < 1 || group > 8) return MFA_BAD_CONFIG;
+  kd90::Args a = {q, lens, o_part, lse_part, hq, hkv, group, S, tokens_per_split,
+                  num_splits, window_left, scale_log2e, softcap, softcap_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == MFA_BF16)
-    return launch_decode_dg<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false, false>(
-        p, d, batch, s);
-  if (dtype == MFA_F16)
-    return launch_decode_dg<__half, __half, __half, false, false>(p, d, batch, s);
+#define MFA_DEC(T)                                                  \
+  if (d == 64) return kd90::launch<T, 64>(k, v, a, batch, s);       \
+  if (d == 128) return kd90::launch<T, 128>(k, v, a, batch, s);     \
+  if (d == 256) return kd90::launch<T, 256>(k, v, a, batch, s);     \
+  return MFA_BAD_CONFIG;
+  if (dtype == MFA_BF16) { MFA_DEC(__nv_bfloat16) }
+  if (dtype == MFA_F16) { MFA_DEC(__half) }
+#undef MFA_DEC
   return MFA_BAD_CONFIG;
 }
 

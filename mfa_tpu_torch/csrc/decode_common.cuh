@@ -1,7 +1,8 @@
-// Single-query (seqlen_q == 1) attention over a KV cache, shared by the
-// contiguous split-KV decode (decode.cu) and the paged decode (paged.cu).
+// Single-query (seqlen_q == 1) attention over a paged KV cache: the tile of
+// the paged decode (paged.cu). The contiguous split-KV decode runs its own
+// tile (decode_sm90.cuh).
 //
-// One block of 128 threads owns one (batch, kv head, split): all `group` q
+// One block of 128 threads owns one (batch, kv head): all `group` q
 // heads of the kv head ride together, so each K/V row is read from device
 // memory once per step (the GQA trick of mfa_tpu/kernels/decode.py). The
 // block walks its token range in tiles of 64 rows staged in shared memory:
@@ -10,33 +11,28 @@
 // Bound: device-memory bytes (K + V read once); the math is CUDA-core fp32,
 // about 4 FMAs per cache byte. No copy/compute overlap yet.
 //
-// Semantics follow mfa_tpu/kernels/paged.py:_paged_kernel_body and
-// decode.py:_decode_kernel: scores are scaled into the log2 domain before
-// the max; int8 K scales multiply score columns after the contraction and V
-// scales fold into the probabilities; the probabilities are rounded to the
-// value dtype (bf16 for int8 pages) before P.V, as the TPU kernels do; a
-// row with no visible column stores O = 0 and LSE = -inf. The LSE is the
-// natural log, m * ln2 + log(l).
+// Semantics follow mfa_tpu/kernels/paged.py:_paged_kernel_body: scores are
+// scaled into the log2 domain before the max; int8 K scales multiply score
+// columns after the contraction and V scales fold into the probabilities;
+// the probabilities are rounded to the value dtype (bf16 for int8 pages)
+// before P.V, as the TPU kernels do; a row with no visible column stores
+// O = 0 and LSE = -inf. The LSE is the natural log, m * ln2 + log(l).
 #pragma once
 
 #include "common.cuh"
 
 struct DecodeParams {
   const void* q;            // [b, hq, D]
-  const void* k;            // contiguous [b, hkv, S, D] | pages [hkv, P, page, D]
+  const void* k;            // pages [hkv, P, page, D]
   const void* v;
   const float* k_scale;     // int8 pages: [hkv, P, page] fp32, else null
   const float* v_scale;
   const int* lens;          // [b] stored lengths
-  const int* table;         // paged: [b, pps] physical page ids
-  void* out;                // FINAL: [b, hq, D] in the q dtype
-  float* lse_out;           // FINAL: [b, hq] or null
-  float* o_part;            // split mode: [b, hkv, splits, group, D] fp32
-  float* lse_part;          // split mode: [b, hkv, splits, group]
+  const int* table;         // [b, pps] physical page ids
+  void* out;                // [b, hq, D] in the q dtype
+  float* lse_out;           // [b, hq] or null
   int hq, hkv, group;
-  int S;                    // contiguous: rows per (b, kv head)
   int num_pages, page_size, pps;
-  int tokens_per_split, num_splits;
   int pos_offset, window_left;
   float scale_log2e, softcap, softcap_mul;
 };
@@ -63,19 +59,15 @@ struct DecodeSmem {
       red_off + (TSPLIT > 1 ? sizeof(float) * TSPLIT * GM * D : 0);
 };
 
-template <bool PAGED>
 __device__ __forceinline__ size_t kv_row(const DecodeParams& p, int b, int hk, int tok) {
-  if (PAGED) {
-    int page = p.table[(size_t)b * p.pps + tok / p.page_size];
-    page = min(max(page, 0), p.num_pages - 1);
-    return ((size_t)hk * p.num_pages + page) * p.page_size + tok % p.page_size;
-  }
-  return ((size_t)b * p.hkv + hk) * p.S + tok;
+  int page = p.table[(size_t)b * p.pps + tok / p.page_size];
+  page = min(max(page, 0), p.num_pages - 1);
+  return ((size_t)hk * p.num_pages + page) * p.page_size + tok % p.page_size;
 }
 
 // TQ: q/out dtype. TKV: cache dtype. TV: dtype the probabilities are
 // rounded to before P.V. GM: q rows per block rounded up to a power of two.
-template <typename TQ, typename TKV, typename TV, int D, int GM, bool PAGED, bool FINAL>
+template <typename TQ, typename TKV, typename TV, int D, int GM>
 __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(DecodeParams p) {
   using SM = DecodeSmem<TKV, D, GM>;
   constexpr int KSTR = SM::KSTR;
@@ -95,15 +87,15 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(DecodeParams p) {
   TKV* kt = reinterpret_cast<TKV*>(smem + SM::k_off);
   TKV* vt = reinterpret_cast<TKV*>(smem + SM::v_off);
 
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = p.group;
 
   const int length = p.lens[b];
   int start = 0;
   if (p.window_left >= 0) start = max(0, length + p.pos_offset - 1 - p.window_left);
-  const int lo = max(start, split * p.tokens_per_split);
-  const int hi = min(length, (split + 1) * p.tokens_per_split);
+  const int lo = start;
+  const int hi = min(length, p.pps * p.page_size);
 
   const TQ* qp = static_cast<const TQ*>(p.q) + ((size_t)b * p.hq + (size_t)hk * G) * D;
   for (int i = tid; i < GM * D; i += DEC_THREADS)
@@ -132,7 +124,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(DecodeParams p) {
       const int r = i / VPR, c = i % VPR;
       uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
       if (r < nt) {
-        const size_t off = kv_row<PAGED>(p, b, hk, t0 + r) * D + (size_t)c * VEC;
+        const size_t off = kv_row(p, b, hk, t0 + r) * D + (size_t)c * VEC;
         kv4 = *reinterpret_cast<const uint4*>(kbase + off);
         vv4 = *reinterpret_cast<const uint4*>(vbase + off);
       }
@@ -147,7 +139,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(DecodeParams p) {
       for (int i = tid; i < DEC_TILE; i += DEC_THREADS) {
         float a = 0.f, bb = 0.f;
         if (i < nt) {
-          const size_t row = kv_row<PAGED>(p, b, hk, t0 + i);
+          const size_t row = kv_row(p, b, hk, t0 + i);
           a = p.k_scale[row];
           bb = p.v_scale[row];
         }
@@ -252,27 +244,21 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(DecodeParams p) {
       const float ls = (empty || isnan(l)) ? 1.f : l;
       const float o = acc[g][j] / ls;
       const float lse = empty ? -INFINITY : m * MFA_LN2 + logf(ls);
-      if (FINAL) {
-        const size_t row = (size_t)b * p.hq + (size_t)hk * G + g;
-        static_cast<TQ*>(p.out)[row * D + d] = from_float<TQ>(o);
-        if (d == 0 && p.lse_out != nullptr) p.lse_out[row] = lse;
-      } else {
-        const size_t row = (((size_t)b * p.hkv + hk) * p.num_splits + split) * G + g;
-        p.o_part[row * D + d] = o;
-        if (d == 0) p.lse_part[row] = lse;
-      }
+      const size_t row = (size_t)b * p.hq + (size_t)hk * G + g;
+      static_cast<TQ*>(p.out)[row * D + d] = from_float<TQ>(o);
+      if (d == 0 && p.lse_out != nullptr) p.lse_out[row] = lse;
     }
   }
 }
 
-template <typename TQ, typename TKV, typename TV, int D, int GM, bool PAGED, bool FINAL>
+template <typename TQ, typename TKV, typename TV, int D, int GM>
 int launch_decode(const DecodeParams& p, int batch, cudaStream_t stream) {
   using SM = DecodeSmem<TKV, D, GM>;
-  auto kern = decode_kernel<TQ, TKV, TV, D, GM, PAGED, FINAL>;
+  auto kern = decode_kernel<TQ, TKV, TV, D, GM>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SM::bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(p.num_splits, p.hkv, batch);
+  dim3 grid(1, p.hkv, batch);
   kern<<<grid, DEC_THREADS, SM::bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -281,14 +267,14 @@ int launch_decode(const DecodeParams& p, int batch, cudaStream_t stream) {
 // to 1/2/4/8). At D = 256 each thread owns two features (DPT = 2) and the
 // K/V tiles take ~66 KB of shared memory for 16-bit pages (~33 KB for int8),
 // past the 48 KB default: launch_decode opts in.
-template <typename TQ, typename TKV, typename TV, bool PAGED, bool FINAL>
+template <typename TQ, typename TKV, typename TV>
 int launch_decode_dg(const DecodeParams& p, int d, int batch, cudaStream_t stream) {
   const int g = p.group;
 #define MFA_DEC_G(D)                                                                   \
-  if (g <= 1) return launch_decode<TQ, TKV, TV, D, 1, PAGED, FINAL>(p, batch, stream); \
-  if (g <= 2) return launch_decode<TQ, TKV, TV, D, 2, PAGED, FINAL>(p, batch, stream); \
-  if (g <= 4) return launch_decode<TQ, TKV, TV, D, 4, PAGED, FINAL>(p, batch, stream); \
-  if (g <= 8) return launch_decode<TQ, TKV, TV, D, 8, PAGED, FINAL>(p, batch, stream); \
+  if (g <= 1) return launch_decode<TQ, TKV, TV, D, 1>(p, batch, stream); \
+  if (g <= 2) return launch_decode<TQ, TKV, TV, D, 2>(p, batch, stream); \
+  if (g <= 4) return launch_decode<TQ, TKV, TV, D, 4>(p, batch, stream); \
+  if (g <= 8) return launch_decode<TQ, TKV, TV, D, 8>(p, batch, stream); \
   return MFA_BAD_CONFIG;
   if (d == 64) { MFA_DEC_G(64) }
   if (d == 128) { MFA_DEC_G(128) }

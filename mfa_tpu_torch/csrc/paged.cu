@@ -39,8 +39,6 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   p.num_pages = num_pages;
   p.page_size = page_size;
   p.pps = pps;
-  p.tokens_per_split = pps * page_size;
-  p.num_splits = 1;
   p.pos_offset = pos_offset;
   p.window_left = window_left;
   p.scale_log2e = scale_log2e;
@@ -48,11 +46,10 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   p.softcap_mul = softcap_mul;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == MFA_I8 && q_dtype == MFA_BF16)
-    return launch_decode_dg<__nv_bfloat16, int8_t, __nv_bfloat16, true, true>(p, d, batch, s);
+    return launch_decode_dg<__nv_bfloat16, int8_t, __nv_bfloat16>(p, d, batch, s);
   if (kv_dtype == MFA_BF16 && q_dtype == MFA_BF16)
-    return launch_decode_dg<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, true, true>(
-        p, d, batch, s);
+    return launch_decode_dg<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(p, d, batch, s);
   if (kv_dtype == MFA_F16 && q_dtype == MFA_F16)
-    return launch_decode_dg<__half, __half, __half, true, true>(p, d, batch, s);
+    return launch_decode_dg<__half, __half, __half>(p, d, batch, s);
   return MFA_BAD_CONFIG;
 }

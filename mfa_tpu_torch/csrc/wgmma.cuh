@@ -40,6 +40,11 @@
 
 #include "common.cuh"
 
+#define MFA_ACC_STR_8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+
+#define MFA_ACC_OUT_8(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+
 #define MFA_ACC_STR_16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 
@@ -147,6 +152,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Fetch a tensor map (a kernel parameter) into the TMA unit's cache ahead of
+// its first load.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // One box of a 3-D tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2) {
@@ -220,6 +231,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keep the compiler from moving accesses of wgmma's registers across the
 // asynchronous product.
@@ -227,6 +243,22 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Four 8 x 8 16-bit matrices from shared memory, transposed: lane l gives
+// the address of row l % 8 of matrix l / 8 and receives, of each, rows
+// 2 (l % 4) (low half) and 2 (l % 4) + 1 of column l / 4.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 template <typename T>
@@ -289,6 +321,41 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+#define MFA_WGMMA_RS_T(NN, TY, R, IA0, IA1, IA2, IA3, IB, IS, ITB)                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " IS ", 0;\n"                             \
+               "wgmma.mma_async.sync.aligned.m64n" NN "k16.f32." TY "." TY " " MFA_ACC_STR_##R \
+               ", {" IA0 ", " IA1 ", " IA2 ", " IA3 "}, " IB ", p, 1, 1, " ITB ";\n}\n"     \
+               : MFA_ACC_OUT_##R(d)                                                        \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB))
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N], A in registers (the fragment of the
+// header), B in shared memory read K-major (TB = 0) or MN-major (TB = 1).
+// The A registers are read while the product runs: keep them unchanged
+// until a wait retires it.
+template <typename T, int N, int TB>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma_rs_t: N in {16, 32, 64, 128, 256}");
+#define MFA_RS_T(NN, R, I0, I1, I2, I3, IB, IS, ITB)          \
+  if constexpr (kIsBf16<T>)                                   \
+    MFA_WGMMA_RS_T(NN, "bf16", R, I0, I1, I2, I3, IB, IS, ITB); \
+  else                                                        \
+    MFA_WGMMA_RS_T(NN, "f16", R, I0, I1, I2, I3, IB, IS, ITB);
+  if constexpr (N == 16) {
+    MFA_RS_T("16", 8, "%8", "%9", "%10", "%11", "%12", "%13", "%14")
+  } else if constexpr (N == 32) {
+    MFA_RS_T("32", 16, "%16", "%17", "%18", "%19", "%20", "%21", "%22")
+  } else if constexpr (N == 64) {
+    MFA_RS_T("64", 32, "%32", "%33", "%34", "%35", "%36", "%37", "%38")
+  } else if constexpr (N == 128) {
+    MFA_RS_T("128", 64, "%64", "%65", "%66", "%67", "%68", "%69", "%70")
+  } else {
+    MFA_RS_T("256", 128, "%128", "%129", "%130", "%131", "%132", "%133", "%134")
+  }
+#undef MFA_RS_T
+}
+
 #define MFA_WGMMA_SS_T(NN, TY, R, IA, IB, IS, ITA, ITB)                                   \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " IS ", 0;\n"                             \
                "wgmma.mma_async.sync.aligned.m64n" NN "k16.f32." TY "." TY " " MFA_ACC_STR_##R \
@@ -318,6 +385,33 @@ __device__ __forceinline__ void wgmma_ss_t(float (&d)[N / 2], uint64_t a, uint64
 #undef MFA_WGMMA_SS
 #undef MFA_WGMMA_RS
 #undef MFA_WGMMA_SS_T
+#undef MFA_WGMMA_RS_T
+
+// -- clusters ------------------------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives and waits; shared-memory
+// writes before it are visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// 16 bytes at shared address `addr` of the cluster's block `rank`.
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote));
+  return v;
+}
 
 // -- host: tensor maps ---------------------------------------------------------
 

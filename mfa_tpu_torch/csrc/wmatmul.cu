@@ -11,275 +11,343 @@
 //
 // Bound: at decode (m = 16) the weight stream, K * N bytes of int8 against
 // 2 m K N operations, far below the card's ~295 operations a byte; at a
-// prefill wave (m in the thousands) tensor-core operations. Design: one
-// block owns a BM x 128 output tile and walks K in steps of 64: BM = 16
-// when m <= 16 (4 warps of 16 x 32: a decode batch wastes no mma rows),
-// 64 below m = 256 (4 warps) and 128 above (8 warps, converting each W
-// tile once for twice the rows).
-// Each step stages the x tile [BM x 64] with 16-byte loads, row-major, and
-// the int8 W tile [64 k x 128 n] with 16-byte loads, converted to the
-// compute dtype (exact for |q| <= 127: int8 -> fp32 by a byte permute onto
-// 2^23, then a packed round) while it is written n-major (W^T [128 n][64
-// k]): mma.sync.m16n8k16's B operand wants two consecutive k values of one
-// column in a 32-bit register, as the flash tile's V^T. Each thread takes
-// two consecutive k rows of one 16-column chunk, so it stores k pairs as
-// 32-bit words and consecutive threads hit consecutive words. Both tiles
-// are double-buffered: while a step computes from one buffer, the threads
-// write the next step's tiles (loaded into registers a step earlier) into
-// the other, so one barrier a step separates them (no cp.async/TMA yet). A
-// warp computes a 32 x 64 (BM 64, 128) or 16 x 32 (BM 16) sub-tile, its
-// fragments read with ldmatrix. When the output tiles cannot fill the card
-// (decode: N / 128 blocks, 8 for a 4096 -> 1024 projection) the wrapper
-// splits K over gridDim.z: each split writes fp32 partial sums to a
-// workspace [splits, m, N] and a second launch adds them, applies the
-// scale and rounds.
+// prefill wave (m in the thousands) tensor-core operations. Design (the
+// warp-specialised shape of csrc/flash_fwd_sm90.cuh):
+//  - The product runs transposed, out^T[N, m] = W^T[N, K] x^T[K, m], so the
+//    weight's N is wgmma's 64-row side and m its n side (16 to 256): a
+//    decode batch of 16 wastes no rows. A block owns 128 weight columns
+//    (64 per consumer warpgroup) and BMX rows of x.
+//  - One producer thread TMA-loads, per 64-deep K step, the x tile [BMX][64]
+//    (K-major, 128-byte swizzle: wgmma's B operand as stored) and the int8
+//    W tile [64 k][128 n] (N contiguous, 128-byte swizzle) into a ring of
+//    STAGES slots with full/empty mbarriers. The maps clip the m, K and N
+//    tails with zeros.
+//  - wgmma cannot mix int8 and 16-bit operands, so W^T is the register
+//    operand A: each consumer warp reads its 16 columns of the int8 tile
+//    with ldmatrix.trans of 16-bit pairs (a register then holds two k
+//    rows of two adjacent columns: fragment rows g and g + 8 are columns 2g
+//    and 2g + 1, a permutation the epilogue undoes) and converts them
+//    exactly in registers (byte permutes and one packed subtraction per two
+//    values). Nothing is written back to shared memory, so no proxy fence
+//    or barrier joins the warps a step; the A registers of step i stay
+//    untouched until step i + 1's wait retires its product, so the
+//    conversion of one step overlaps the product of the previous one.
+//  - The per-column scale is a per-row multiply of the transposed
+//    accumulator, applied in the epilogue, which stages the fp32 tile in
+//    shared memory (the ring, now idle) and writes out[m, N] rows with
+//    coalesced vector stores.
+//  - Decode-sized m gives N / 128 output tiles, fewer than the card's 132
+//    SMs: K is split over gridDim.z, and the splits of a tile form one
+//    thread-block cluster. Each split stages its fp32 partial in its own
+//    shared memory; after a cluster barrier split r reduces output rows r,
+//    r + splits, ... over the splits' tiles in rank order (distributed
+//    shared memory), applies the scale and rounds. One launch, no fp32
+//    workspace, the same bits for every run.
+//  - BMX 16 and 32 (decode) run two blocks an SM with a ~100 KB ring
+//    each; BMX 64 to 256 one block with a ~200 KB ring. At BMX 128 and 256
+//    (prefill waves) setmaxnreg moves registers from the producer to the
+//    consumers.
 //
-// Any m; K and N multiples of 16 (the wrapper checks), so every 16-byte
-// vector of x and W lies wholly inside or outside the matrix.
-#include "flash_fwd.cuh"  // mma16816, pack2
+// Any m; K and N multiples of 16 (the wrapper checks: the maps' row strides
+// are multiples of 16 bytes, and a 4-column vector of the output lies
+// wholly inside or outside the matrix).
+#include "wgmma.cuh"
 
-namespace {
+namespace wm90 {
 
-constexpr int WM_BN = 128;   // output columns per block
-constexpr int WM_BK = 64;    // K per step
-constexpr int WM_S = WM_BK + 8;  // row stride (elements) of both tiles: conflict-free fragments
+constexpr int BN = 128;        // weight columns a block: 64 per consumer warpgroup
+constexpr int BK = 64;         // K a step
+constexpr int THREADS = 384;   // producer warpgroup + two consumers
+constexpr uint32_t W_BYTES = BK * BN;      // one int8 W tile
+constexpr int ST_STRIDE = BN * 4 + 16;     // bytes a row of the fp32 output staging tile
+constexpr int MAX_SPLITS = 8;              // portable cluster size
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
-// Threads of a block with BM output rows: 4 warps, or 2 per 32 rows.
-__host__ __device__ constexpr int wm_threads(int bm) { return bm == 16 ? 128 : 2 * bm; }
+// Shared memory: STAGES slots of [x tile | int8 W tile] (every tile
+// 1024-byte aligned), then the barriers (full[STAGES], empty[STAGES]). The
+// epilogue's staging tile [BMX][BN] fp32 (rows ST_STRIDE bytes apart) reuses
+// the ring.
+template <int BMX>
+struct Plan {
+  static constexpr int MIN_BLOCKS = BMX <= 32 ? 2 : 1;
+  static constexpr int STAGES = BMX == 256 ? 5 : BMX == 128 ? 8 : BMX == 64 ? 12 : BMX == 32 ? 8 : 10;
+  static constexpr uint32_t X_BYTES = BMX * 128;  // [BMX rows][64 k] 16-bit
+  static constexpr uint32_t STAGE_BYTES = X_BYTES + W_BYTES;
+  static constexpr uint32_t bar_off = STAGES * STAGE_BYTES;
+  static constexpr size_t bytes = bar_off + 16 * STAGES + 1024;  // + 1 KB to align the base
+  static_assert(BMX * ST_STRIDE <= bar_off, "the staging tile must fit in the ring");
+};
 
-// Dynamic shared memory of a block: two buffers of the x tile [BM][WM_S]
-// and the W^T tile [WM_BN][WM_S].
+__device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) { return bars + 8 * s; }
+template <int BMX>
+__device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
+  return bars + 8 * (Plan<BMX>::STAGES + s);
+}
+
+// Four signed bytes (k, n), (k, n + 1), (k + 1, n), (k + 1, n + 1) -> the
+// pair of column n (bytes 0 and 2) and of column n + 1 (bytes 1 and 3) as
+// two 16-bit values each, exactly. bf16: the low 7 bits under exponent 2^7
+// give 128 + low, the sign bit there 128 or 256, and their difference is
+// the byte. fp16: the byte, offset by 128, is the low mantissa of 1024.
 template <typename T>
-constexpr size_t wm_smem_bytes(int bm) {
-  return 2 * sizeof(T) * (size_t)(bm + WM_BN) * WM_S;
+__device__ __forceinline__ void cvt_pairs(uint32_t w, uint32_t& even, uint32_t& odd);
+template <>
+__device__ __forceinline__ void cvt_pairs<__nv_bfloat16>(uint32_t w, uint32_t& even,
+                                                        uint32_t& odd) {
+  const uint32_t low = w & 0x7F7F7F7Fu, sign = w & 0x80808080u;
+  const uint32_t a0 = __byte_perm(low, 0x43434343u, 0x6240), b0 = __byte_perm(sign, 0x43434343u, 0x6240);
+  const uint32_t a1 = __byte_perm(low, 0x43434343u, 0x7351), b1 = __byte_perm(sign, 0x43434343u, 0x7351);
+  const __nv_bfloat162 r0 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a0),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&b0));
+  const __nv_bfloat162 r1 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a1),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&b1));
+  even = *reinterpret_cast<const uint32_t*>(&r0);
+  odd = *reinterpret_cast<const uint32_t*>(&r1);
+}
+template <>
+__device__ __forceinline__ void cvt_pairs<__half>(uint32_t w, uint32_t& even, uint32_t& odd) {
+  const uint32_t u = w ^ 0x80808080u;
+  const uint32_t a = __byte_perm(u, 0x64646464u, 0x6240), b = __byte_perm(u, 0x64646464u, 0x7351);
+  const __half2 bias = __floats2half2_rn(1152.f, 1152.f);
+  const __half2 ra = __hsub2(*reinterpret_cast<const __half2*>(&a), bias);
+  const __half2 rb = __hsub2(*reinterpret_cast<const __half2*>(&b), bias);
+  even = *reinterpret_cast<const uint32_t*>(&ra);
+  odd = *reinterpret_cast<const uint32_t*>(&rb);
 }
 
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void put(__half* p, float v) { *p = __float2half_rn(v); }
-
-// Four 8x8 16-bit matrices from shared memory: lane l gives the address of
-// row l % 8 of matrix l / 8, and receives (row l / 4, columns 2 (l % 4) and
-// 2 (l % 4) + 1) of each, an mma fragment register.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
+// A fragments of one K step for a warp's 16 columns of the int8 tile at
+// `raw` ([64 k][128 n], 16-byte unit u of row k stored at u ^ (k & 7));
+// `unit` is the warp's 16-byte unit. Matrix j of an ldmatrix.x4.trans is k
+// rows 8 j..8 j + 7 of 32, each 16-bit column a pair of adjacent columns:
+// lane (g, t4) gets k 2 t4 and 2 t4 + 1 of columns 2g and 2g + 1, i.e. rows
+// g (column 2g) and g + 8 (column 2g + 1) of the A fragment.
+template <typename T>
+__device__ __forceinline__ void load_a(uint32_t (&af)[BK / 16][4], uint32_t raw, int unit,
+                                       int lane) {
+  const int lr = lane & 7, mi = lane >> 3;
+#pragma unroll
+  for (int h = 0; h < BK / 32; ++h) {
+    const int k = 32 * h + 8 * mi + lr;
+    uint32_t r[4];
+    ldsm_x4_t(r, raw + k * 128 + ((unit ^ (k & 7)) << 4));
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      cvt_pairs<T>(r[x], af[2 * h + (x >> 1)][2 * (x & 1)], af[2 * h + (x >> 1)][2 * (x & 1) + 1]);
+  }
 }
 
-// Signed byte e of w as a float: the byte, offset by 128, becomes the low
-// mantissa of 2^23.
-__device__ __forceinline__ float i8_at(uint32_t w, int e) {
-  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 + e)) -
-         8388736.f;
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack2<__nv_bfloat16>(v.x, v.y), pack2<__nv_bfloat16>(v.z, v.w));
+}
+__device__ __forceinline__ void store4(__half* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack2<__half>(v.x, v.y), pack2<__half>(v.z, v.w));
 }
 
-// partial == null: out = acc * scale; else partial[split] = acc (fp32).
-template <typename T, typename OutT, int BM>
-__global__ void __launch_bounds__(wm_threads(BM))
-    wmatmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ qw,
-                   const float* __restrict__ scale, OutT* __restrict__ out,
-                   float* __restrict__ partial, int M, int K, int N, int k_steps_per_split) {
-  constexpr int WM_THREADS = wm_threads(BM);
-  constexpr int MT = BM == 16 ? 1 : 2;   // 16-row mma tiles of a warp
-  constexpr int NT = BM == 16 ? 4 : 8;   // 8-column mma tiles of a warp
-  constexpr int XV = BM * (WM_BK / 8) / WM_THREADS;      // x vectors a thread a step
-  constexpr int WP = WM_BK / 2 * (WM_BN / 16) / WM_THREADS;  // W row pairs a thread a step
-  extern __shared__ __align__(16) unsigned char wm_smem_raw[];
-  T* const smem = reinterpret_cast<T*>(wm_smem_raw);
-  constexpr int BUF = (BM + WM_BN) * WM_S;  // elements: x tile (row-major), then W^T (n-major)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int n0 = blockIdx.x * WM_BN, m0 = blockIdx.y * BM, split = blockIdx.z;
-  const int wm = BM == 16 ? 0 : (warp >> 1) * 32;     // this warp's rows
-  const int wn = BM == 16 ? warp * 32 : (warp & 1) * 64;  // and columns
-  const int k_steps = (K + WM_BK - 1) / WM_BK;
-  const int kt0 = split * k_steps_per_split;
-  const int kt1 = min(k_steps, kt0 + k_steps_per_split);
+// Grid (ceil(M / BMX), ceil(N / BN), splits), the splits of a tile one
+// cluster; split z covers K steps [z * steps_per_split, (z + 1) *
+// steps_per_split).
+template <typename T, typename OutT, int BMX>
+__global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
+    wmatmul_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                   const float* __restrict__ scale, OutT* __restrict__ out, int M, int N, int K,
+                   int steps_per_split) {
+  using P = Plan<BMX>;
+  constexpr int STAGES = P::STAGES;
+  constexpr bool SETREG = BMX >= 128;  // the accumulator needs the registers
+  const int m0 = blockIdx.x * BMX, n0 = blockIdx.y * BN;
+  const int splits = gridDim.z;
+  const int split = splits > 1 ? (int)cluster_rank() : 0;
+  const int k_steps = (K + BK - 1) / BK;
+  const int kt0 = split * steps_per_split;
+  const int n_steps = max(0, min(k_steps, kt0 + steps_per_split) - kt0);
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+  extern __shared__ __align__(16) unsigned char wm_smem[];
+  unsigned char* smem = wm_smem + ((1024u - (smem_u32(wm_smem) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bars = base + P::bar_off;
 
-  // One step's vectors in registers: x rows (8 values each), W row pairs
-  // (2 x 16 int8 of rows 2 kp and 2 kp + 1 of a 16-column chunk); zeros
-  // past m, K or N.
-  uint4 xr[XV], wr[WP][2];
-  auto load = [&](int kt) {
-    const int k0 = kt * WM_BK;
-#pragma unroll
-    for (int j = 0; j < XV; ++j) {
-      const int i = tid + j * WM_THREADS, r = i >> 3, c = (i & 7) * 8;
-      xr[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && k0 + c < K)
-        xr[j] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full(bars, s), 1);
+      mbar_init(bar_empty<BMX>(bars, s), 2 * 128);  // every consumer thread releases
     }
-#pragma unroll
-    for (int j = 0; j < WP; ++j) {
-      const int i = tid + j * WM_THREADS, kp = i % (WM_BK / 2), c = (i / (WM_BK / 2)) * 16;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = k0 + 2 * kp + h;
-        wr[j][h] = make_uint4(0u, 0u, 0u, 0u);
-        if (k < K && n0 + c < N)
-          wr[j][h] = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)k * N + n0 + c));
-      }
-    }
-  };
-
-  // Write the vectors in registers into buffer b, W converted and transposed.
-  auto store = [&](int b) {
-    T* xs = smem + b * BUF;
-    T* wts = xs + BM * WM_S;
-#pragma unroll
-    for (int j = 0; j < XV; ++j) {
-      const int i = tid + j * WM_THREADS;
-      *reinterpret_cast<uint4*>(xs + (i >> 3) * WM_S + (i & 7) * 8) = xr[j];
-    }
-#pragma unroll
-    for (int j = 0; j < WP; ++j) {
-      const int i = tid + j * WM_THREADS, kp = i % (WM_BK / 2), c = (i / (WM_BK / 2)) * 16;
-      const uint32_t* a = reinterpret_cast<const uint32_t*>(&wr[j][0]);
-      const uint32_t* b2 = reinterpret_cast<const uint32_t*>(&wr[j][1]);
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        *reinterpret_cast<uint32_t*>(wts + (c + e) * WM_S + 2 * kp) =
-            pack2<T>(i8_at(a[e >> 2], e & 3), i8_at(b2[e >> 2], e & 3));
-    }
-  };
-
-  // Fragments by ldmatrix: A's four 8 x 8 pieces are (rows 0-7 | 8-15) x
-  // (k 0-7 | 8-15) of the x tile; B's are two n tiles x (k 0-7 | 8-15) of
-  // W^T, whose rows are n (so no transpose).
-  const int lr = lane & 7, lm = lane >> 3;
-  auto compute = [&](int b) {
-    const T* xs = smem + b * BUF;
-    const T* wts = xs + BM * WM_S;
-#pragma unroll
-    for (int kc = 0; kc < WM_BK / 16; ++kc) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(af[mt], xs + (wm + mt * 16 + (lm & 1) * 8 + lr) * WM_S + kc * 16 + (lm >> 1) * 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bf[4];
-        ldsm_x4(bf, wts + (wn + (nt + (lm >> 1)) * 8 + lr) * WM_S + kc * 16 + (lm & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma16816<T>(acc[mt][nt], af[mt], bf);
-          mma16816<T>(acc[mt][nt + 1], af[mt], bf + 2);
-        }
-      }
-    }
-  };
-
-  // Step kt computes from buffer (kt - kt0) & 1 while the threads fill the
-  // other with step kt + 1, read by no warp since the last barrier.
-  if (kt0 < kt1) {
-    load(kt0);
-    store(0);
+    mbar_fence_init();
   }
   __syncthreads();
-  if (kt0 + 1 < kt1) load(kt0 + 1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int cur = (kt - kt0) & 1;
-    compute(cur);
-    if (kt + 1 < kt1) {
-      store(cur ^ 1);
-      if (kt + 2 < kt1) load(kt + 2);
-    }
-    __syncthreads();
-  }
 
-  // Epilogue: accumulator element e of an mma tile is row g (+8 for e >= 2),
-  // column 2 t4 + (e & 1).
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = n0 + wn + nt * 8 + t4 * 2;
-      if (n >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + mt * 16 + g + 8 * h;
-        if (row >= M) continue;
-        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (partial != nullptr) {
-          *reinterpret_cast<float2*>(partial + ((size_t)split * M + row) * N + n) =
-              make_float2(v0, v1);
-        } else {
-          OutT* o = out + (size_t)row * N + n;
-          put(o, v0 * scale[n]);
-          put(o + 1, v1 * scale[n + 1]);
-        }
+  // warp-uniform by construction, as setmaxnreg's .sync.aligned form needs
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  if (wg == 0) {
+    if constexpr (SETREG) regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      prefetch_tensormap(&tx);
+      prefetch_tensormap(&tw);
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % STAGES, k0 = (kt0 + i) * BK;
+        mbar_wait(bar_empty<BMX>(bars, s), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar_full(bars, s), P::STAGE_BYTES);
+        const uint32_t xs = base + s * P::STAGE_BYTES;
+        tma_load_3d(xs, &tx, bar_full(bars, s), k0, m0, 0);
+        tma_load_3d(xs + P::X_BYTES, &tw, bar_full(bars, s), n0, k0, 0);
       }
     }
-  }
-}
+  } else {
+    if constexpr (SETREG) regs_inc<CONSUMER_REGS>();
+    const int w = wg - 1, wt = threadIdx.x & 127, lane = wt & 31, wi = wt >> 5;
+    const int unit = 4 * w + wi;  // this warp's 16 columns of the W tile
+    float acc[BMX / 2];
+#pragma unroll
+    for (int x = 0; x < BMX / 2; ++x) acc[x] = 0.f;
+    // step i converts into `af` while step i - 1's product (reading `prev`)
+    // may still run; its wait then retires step i - 1 and frees its slot
+    auto step = [&](int i, uint32_t (&af)[BK / 16][4], uint32_t (&prev)[BK / 16][4]) {
+      const int s = i % STAGES;
+      const uint32_t xs = base + s * P::STAGE_BYTES;
+      mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
+      load_a<T>(af, xs + P::X_BYTES, unit, lane);
+      fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_t<T, BMX, 0>(acc, af[kk], sw128_desc(xs + kk * 32, 0), 1);
+      wg_commit();
+      wg_wait<1>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) fence_regs(prev[kk]);
+      if (i > 0) mbar_arrive(bar_empty<BMX>(bars, (i - 1) % STAGES));
+    };
+    uint32_t fa[BK / 16][4], fb[BK / 16][4];
+    for (int i = 0; i < n_steps; i += 2) {
+      step(i, fa, fb);
+      if (i + 1 < n_steps) step(i + 1, fb, fa);
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      fence_regs(fa[kk]);
+      fence_regs(fb[kk]);
+    }
+    named_sync(1, 2 * 128);  // no product reads the ring any more
 
-// out = (sum over splits of partial) * scale, rounded once.
-template <typename OutT>
-__global__ void wmatmul_reduce_kernel(const float* __restrict__ partial,
-                                      const float* __restrict__ scale, OutT* __restrict__ out,
-                                      int M, int N, int splits) {
-  const size_t total = (size_t)M * N;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += partial[(size_t)s * total + i];
-    put(out + i, acc * scale[i % N]);
+    // Stage the fp32 tile: accumulator element 4j + 2h + e is x row 8 j +
+    // 2 t4 + e of weight column 64 w + 16 wi + 2g + h.
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t col = (64 * w + 16 * wi + 2 * g) * 4;
+#pragma unroll
+    for (int j = 0; j < BMX / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         base + (8 * j + 2 * t4 + e) * ST_STRIDE + col),
+                     "f"(acc[4 * j + e]), "f"(acc[4 * j + 2 + e])
+                     : "memory");
+    }
   }
-}
 
-template <typename T, typename OutT>
-int launch(const void* x, const int8_t* qw, const float* scale, void* out, float* partial,
-           int M, int K, int N, int splits, int k_steps_per_split, cudaStream_t stream) {
-  const int bm = M <= 16 ? 16 : M < 256 ? 64 : 128;  // kernels/wmatmul.py:block_m
-  dim3 grid((N + WM_BN - 1) / WM_BN, (M + bm - 1) / bm, splits);
-  auto kern = bm == 16   ? wmatmul_kernel<T, OutT, 16>
-              : bm == 64 ? wmatmul_kernel<T, OutT, 64>
-                         : wmatmul_kernel<T, OutT, 128>;
-  const size_t smem = wm_smem_bytes<T>(bm);
-  if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          (int)smem))
-    return err;
-  kern<<<grid, wm_threads(bm), smem, stream>>>(static_cast<const T*>(x), qw, scale,
-                                            static_cast<OutT*>(out),
-                                            splits > 1 ? partial : nullptr, M, K, N,
-                                            k_steps_per_split);
-  if (int err = (int)cudaGetLastError()) return err;
+  // Every split's tile is staged; split r then writes rows r, r + splits,
+  // ... of the output tile: the sum over the splits in rank order, times
+  // the scale, rounded once.
   if (splits > 1) {
-    const size_t total = (size_t)M * N;
-    const size_t want = (total + 255) / 256;
-    const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-    wmatmul_reduce_kernel<OutT><<<blocks, 256, 0, stream>>>(partial, scale,
-                                                           static_cast<OutT*>(out), M, N, splits);
+    cluster_sync();
+  } else {
+    __syncthreads();
   }
+  if (wg != 0) {
+    const int ct = threadIdx.x - 128;
+    const int rows = (min(BMX, M - m0) - split + splits - 1) / splits;
+    for (int it = ct; it < rows * (BN / 4); it += 2 * 128) {
+      const int r = split + (it / (BN / 4)) * splits, v = it % (BN / 4);
+      const int n = n0 + 4 * v;
+      if (n >= N) continue;
+      const uint32_t a = base + r * ST_STRIDE + v * 16;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int rk = 0; rk < splits; ++rk) {  // in rank order
+        float4 p;
+        if (splits > 1) {
+          p = ld_cluster_f4(a, rk);
+        } else {
+          asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=f"(p.x), "=f"(p.y), "=f"(p.z), "=f"(p.w)
+                       : "r"(a));
+        }
+        sum.x += p.x;
+        sum.y += p.y;
+        sum.z += p.z;
+        sum.w += p.w;
+      }
+      const float4 sc = *reinterpret_cast<const float4*>(scale + n);
+      store4(out + (size_t)(m0 + r) * N + n,
+             make_float4(sum.x * sc.x, sum.y * sc.y, sum.z * sc.z, sum.w * sc.w));
+    }
+  }
+  if (splits > 1) cluster_sync();  // no block leaves while another reads its tile
+}
+
+template <typename T, typename OutT, int BMX>
+int launch(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K, int N,
+           int splits, int steps_per_split, cudaStream_t stream) {
+  using P = Plan<BMX>;
+  CUtensorMap tx, tw;
+  if (int err = mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, M, 1, BMX)) return err;
+  if (int err = mfa_encode_3d(&tw, qw, CU_TENSOR_MAP_DATA_TYPE_UINT8, N, K, 1, (size_t)N,
+                              (size_t)K * N, BN, BK))
+    return err;
+  auto kern = wmatmul_kernel<T, OutT, BMX>;
+  if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)P::bytes))
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + BMX - 1) / BMX, (N + BN - 1) / BN, splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = P::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  if (int err = (int)cudaLaunchKernelEx(&cfg, kern, tx, tw, scale, static_cast<OutT*>(out), M,
+                                        N, K, steps_per_split))
+    return err;
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// x rows a block: kernels/wmatmul.py:block_m.
+template <typename T, typename OutT>
+int launch_m(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K, int N,
+             int splits, int steps_per_split, cudaStream_t s) {
+#define MFA_WMM_BM(B) return launch<T, OutT, B>(x, qw, scale, out, M, K, N, splits, steps_per_split, s)
+  if (M <= 16) MFA_WMM_BM(16);
+  if (M <= 32) MFA_WMM_BM(32);
+  if (M <= 64) MFA_WMM_BM(64);
+  if (M < 256) MFA_WMM_BM(128);
+  MFA_WMM_BM(256);
+#undef MFA_WMM_BM
+}
+
+}  // namespace wm90
 
 // x [M, K] (dtype: MFA_BF16 or MFA_F16), qw [K, N] int8, scale [N] fp32,
-// out [M, N] in x's dtype (out_f32 = 0) or fp32 (out_f32 = 1). splits > 1
-// needs partial: fp32 [splits, M, N]; split s covers K steps of 64
-// [s * k_steps_per_split, (s + 1) * k_steps_per_split). Returns a
-// cudaError_t code (0 = launched).
+// out [M, N] in x's dtype (out_f32 = 0) or fp32 (out_f32 = 1); every pointer
+// 16-byte aligned. Split s of `splits` (at most 8, one cluster) covers K
+// steps of 64 [s * k_steps_per_split, (s + 1) * k_steps_per_split). Returns
+// a cudaError_t code, MFA_TMA_ENCODE or MFA_BAD_CONFIG (0 = launched).
 extern "C" int mfa_int8_matmul(const void* x, const int8_t* qw, const float* scale, void* out,
-                               float* partial, int dtype, int out_f32, int M, int K, int N,
-                               int splits, int k_steps_per_split, void* stream) {
+                               int dtype, int out_f32, int M, int K, int N, int splits,
+                               int k_steps_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
-  if (K % 16 || N % 16 || splits < 1 || (splits > 1 && partial == nullptr))
-    return MFA_BAD_CONFIG;
+  if (K % 16 || N % 16 || splits < 1 || splits > wm90::MAX_SPLITS) return MFA_BAD_CONFIG;
+  if (K == 0)  // an empty contraction: zeros
+    return (int)cudaMemsetAsync(out, 0, (size_t)M * N * (out_f32 ? 4 : 2), s);
 #define MFA_WMM(T, OutT) \
-  return launch<T, OutT>(x, qw, scale, out, partial, M, K, N, splits, k_steps_per_split, s)
+  return wm90::launch_m<T, OutT>(x, qw, scale, out, M, K, N, splits, k_steps_per_split, s)
   if (dtype == MFA_BF16 && !out_f32) MFA_WMM(__nv_bfloat16, __nv_bfloat16);
   if (dtype == MFA_BF16 && out_f32) MFA_WMM(__nv_bfloat16, float);
   if (dtype == MFA_F16 && !out_f32) MFA_WMM(__half, __half);

@@ -33,19 +33,21 @@ def num_splits_heuristic(
     block_k: int,
     max_splits: int = 128,
     num_sms: int = H100_SMS,
+    blocks_per_sm: int = 2,
 ) -> int:
     """Split count for flash decoding (one block per batch x kv head x split).
 
-    The reference rule (api.cpp:269-302): with two resident blocks per SM,
-    a grid that already fills 80% of a wave needs no split; otherwise pick
-    the smallest split count whose wave efficiency
-    n_waves / ceil(n_waves) exceeds 0.9, else the most efficient one. Never
-    more splits than KV blocks, so every split has work.
+    The reference rule (api.cpp:269-302): with `blocks_per_sm` resident
+    blocks per SM (the kernel's own residency), a grid that already fills
+    80% of a wave needs no split; otherwise pick the smallest split count
+    whose wave efficiency n_waves / ceil(n_waves) exceeds 0.9, else the most
+    efficient one. Never more splits than KV blocks, so every split has
+    work.
     """
     n_blocks = cdiv(seqlen_k, block_k)
     if n_blocks <= 1:
         return 1
-    units = 2 * num_sms
+    units = blocks_per_sm * num_sms
     work = batch * num_kv_heads
     if work >= 0.8 * units:
         return 1

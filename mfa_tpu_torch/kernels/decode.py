@@ -1,6 +1,7 @@
 """Split-KV flash decoding (counterpart of mfa_tpu/kernels/decode.py).
 
-Kernel 5 of the port: csrc/decode.cu. Launch 1 runs one block per
+Kernel 5 of the port: csrc/decode.cu. Launch 1 (csrc/decode_sm90.cuh: a
+TMA ring of K/V tiles, the products on the tensor cores) runs one block per
 (batch, kv head, split) over a contiguous [b, hkv, S, d] cache and writes
 normalized fp32 partials with their LSE; launch 2 merges the splits
 (`combine_splits`, max subtracted first, empty splits skipped). A CPU
@@ -24,13 +25,22 @@ from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
 from mfa_tpu_torch.kernels import _build
 
 _LOG2E = math.log2(math.e)
-TILE = 64  # tokens per kernel tile (csrc/decode_common.cuh DEC_TILE)
+TILE = 64  # tokens per kernel tile (csrc/decode_sm90.cuh, csrc/decode_common.cuh)
+# Blocks of launch 1 an SM holds: its ring takes ~193 KB of shared memory
+BLOCKS_PER_SM = 1
 MAX_GROUP = 8  # q heads per kv head the kernels take
 KERNEL_HEAD_DIMS = (64, 128, 256)  # shared with the paged kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _F, _F, _F, _P]
 _COMBINE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+
+
+def default_splits(batch: int, num_kv_heads: int, max_s: int) -> int:
+    """The split count `num_splits=0` asks for: the heuristic at launch 1's
+    residency."""
+    return num_splits_heuristic(batch, num_kv_heads, max_s, TILE,
+                                blocks_per_sm=BLOCKS_PER_SM)
 
 
 def split_layout(max_s: int, num_splits: int):
@@ -178,7 +188,7 @@ def decode_attention(
     scale = float(softmax_scale if softmax_scale is not None
                   else softmax_scale_default(head_dim))
     if num_splits <= 0:
-        num_splits = num_splits_heuristic(batch, num_kv_heads, max_s, TILE)
+        num_splits = default_splits(batch, num_kv_heads, max_s)
     num_splits, tps = split_layout(max_s, num_splits)
     args = (q, k_cache, v_cache, cache_seqlens, scale, num_splits, tps,
             int(window_left), float(logit_softcap))

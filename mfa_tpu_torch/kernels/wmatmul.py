@@ -3,11 +3,16 @@
 Kernel 10 of the port: csrc/wmatmul.cu `mfa_int8_matmul`, x [m, K] @
 (qw [K, N] int8 * scale [N]) with fp32 accumulation, the scale applied to
 the accumulator and the result rounded once. In JAX this kernel is a
-baseline beside XLA's fused convert (models/wquant.qmm); eager PyTorch
-fuses nothing, so here it carries every int8 projection. A CUDA tensor
-runs the kernel (or raises); a CPU tensor runs `_int8_matmul_plain`, the
-graph of mfa_tpu's qmm, `(x @ qw.to(x.dtype)) * scale.to(x.dtype)`: in fp32
-the two are the same function.
+baseline beside XLA's fused convert; eager PyTorch fuses nothing, so here
+it carries every int8 projection. A CUDA tensor runs the kernel (or
+raises); a CPU tensor runs `_int8_matmul_plain`, the graph of mfa_tpu's
+qmm, `(x @ qw.to(x.dtype)) * scale.to(x.dtype)`: in fp32 the two are the
+same function.
+
+The kernel (wgmma + TMA) computes the product transposed: a block owns 128
+weight columns and `block_m(m)` rows of x. When those tiles cannot fill
+the card (decode-sized m) K is split over a thread-block cluster whose
+blocks reduce the splits in shared memory: one launch either way.
 """
 
 from __future__ import annotations
@@ -17,33 +22,37 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import cdiv
+from mfa_tpu_torch.dispatch.config import H100_SMS, cdiv
 from mfa_tpu_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, qw, scale, out, partial, dtype, out_f32, M, K, N, splits,
-# k_steps_per_split, stream
-_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
-BLOCK_N, BLOCK_K = 128, 64  # csrc/wmatmul.cu's tile: block_m(m) x 128, K steps of 64
-# Split K until the grid has this many blocks (two per SM of an H100), at
-# most MAX_SPLITS ways: a decode-sized m gives only N / 128 output tiles.
-TARGET_BLOCKS = 2 * 132
-MAX_SPLITS = 16
+# x, qw, scale, out, dtype, out_f32, M, K, N, splits, k_steps_per_split,
+# stream
+_ARGTYPES = [_P] * 4 + [_I] * 7 + [_P]
+BLOCK_N, BLOCK_K = 128, 64  # csrc/wmatmul.cu's tile: 128 weight columns, K steps of 64
+# K splits of one output tile form a cluster: at most the portable size
+MAX_SPLITS = 8
 
 
 def block_m(m: int) -> int:
-    """Output rows per block: 16 for a decode-sized m, 64 below 256, else
-    128."""
-    return 16 if m <= 16 else 64 if m < 256 else 128
+    """Rows of x a block (wgmma's n side): the smallest of 16, 32, 64 that
+    holds m, else 128 below 256 and 256 from there."""
+    for bm in (16, 32, 64):
+        if m <= bm:
+            return bm
+    return 128 if m < 256 else 256
 
 
 def split_k(m: int, K: int, N: int) -> tuple:
-    """-> (splits, K steps of 64 per split) for an m x K x N product."""
+    """-> (splits, K steps of 64 per split) for an m x K x N product: no
+    split once the output tiles cover the SMs (one block an SM); else as
+    many splits as keep every block resident, at most MAX_SPLITS."""
     tiles = cdiv(m, block_m(m)) * cdiv(N, BLOCK_N)
     steps = cdiv(K, BLOCK_K)
-    if tiles >= TARGET_BLOCKS or steps <= 1:
+    if tiles >= H100_SMS or steps <= 1:
         return 1, steps
-    per = cdiv(steps, min(cdiv(TARGET_BLOCKS, tiles), MAX_SPLITS, steps))
+    want = min(MAX_SPLITS, steps, max(1, H100_SMS // tiles))
+    per = cdiv(steps, want)
     return cdiv(steps, per), per
 
 
@@ -72,13 +81,10 @@ def _int8_matmul_cuda(x, qw, scale, out_dtype):
     x, qw, scale = _build.dense(x), _build.dense(qw), _build.dense(scale)
     out = torch.empty((m, N), dtype=out_dtype, device=x.device)
     splits, per = split_k(m, K, N)
-    partial = (torch.empty((splits, m, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
     fn = _build.function("wmatmul", "mfa_int8_matmul", _ARGTYPES)
     rc = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            _build.ptr(partial), _build.DTYPE_CODES[x.dtype],
-            int(out_dtype == torch.float32), m, K, N, splits, per,
-            _build.stream_of(x))
+            _build.DTYPE_CODES[x.dtype], int(out_dtype == torch.float32), m, K,
+            N, splits, per, _build.stream_of(x))
     _build.check("wmatmul", rc)
     _build.launches["wmatmul"] += 1
     return out

@@ -2,6 +2,7 @@
 """Where the time goes in the PyTorch/CUDA port's serving loop, on one GPU.
 
     python3 scripts/profile_torch_engine.py [--layers 32] [--steps 8] [--out FILE]
+        [--phases bf16,chunk,train,int8,gemma3]
 
 Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
@@ -43,11 +44,14 @@ sys.path.insert(0, ROOT)
 
 # kernels 1-4 and 7 are instantiations of one template, fa90::fwd_kernel<T,
 # D, kind, packed> (csrc/flash_fwd_sm90.cuh): kind 0 is kernel 1 (or 7,
-# packed), 1-4 the zero-shift engines (flagged, repair, bound, unchecked)
+# packed), 1-4 the zero-shift engines (flagged, repair, bound, unchecked).
+# Kernel 10 is wm90::wmatmul_kernel, kernel 5's launch 1
+# kd90::splitkv_kernel; "decode_kernel" is the paged kernel's alone.
 _FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
 GROUPS = (("prefill kernel", ()),
           ("zero-shift prefill kernels", ()),
-          ("int8 matmul kernel", ("wmatmul_kernel", "wmatmul_reduce_kernel")),
+          ("int8 matmul kernel", ("wmatmul_kernel",)),
+          ("split-KV decode kernel", ("splitkv_kernel",)),
           ("image-block kernel", ("image_block_kernel",)),
           ("paged prefill kernel", ("paged_prefill_kernel",)),
           ("paged kernel", ("decode_kernel",)),
@@ -261,20 +265,23 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default=None,
                     help="file for the full profiler tables")
+    ap.add_argument("--phases", default="bf16,chunk,train,int8,gemma3",
+                    help="comma-separated subset of bf16 (wave + decode), "
+                         "chunk, train, int8 (wave + decode on int8 "
+                         "weights), gemma3")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
 
     import dataclasses
 
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     if not torch.cuda.is_available():
         print("profile_torch_engine: needs a CUDA device", file=sys.stderr)
         return 1
     from mfa_tpu_torch.kernels import _build
     from mfa_tpu_torch.models import llama
-    from mfa_tpu_torch.serve.engine import Engine
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -283,13 +290,37 @@ def main() -> int:
     _build.build_all()
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                               n_layers=args.layers)
-    params = llama.init_params(cfg, seed=0, device="cuda")
-
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         open(args.out, "w").close()
-    serve_phase(params, cfg, args.steps, acts, args.out, "")
+    if phases & {"bf16", "chunk", "train"}:
+        bf16_phases(cfg, phases, args, acts)
+        torch.cuda.empty_cache()
+    if "int8" in phases:
+        params = llama.init_params(cfg, seed=0, device="cuda", quantize="int8")
+        serve_phase(params, cfg, args.steps, acts, args.out, "int8 weights, ")
+        del params
+        torch.cuda.empty_cache()
+    if "gemma3" in phases:
+        gemma3_waves(acts, args.out)
+    print(f"card: {smi}", flush=True)
+    return 0
+
+
+def bf16_phases(cfg, phases, args, acts) -> None:
+    """The bf16 8B model: a wave and decode steps, a chunk batch, a train
+    step (those of `phases`)."""
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import Engine
+
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    if "bf16" in phases:
+        serve_phase(params, cfg, args.steps, acts, args.out, "")
 
     def chunk_engine():
         """4 prompts of 4000 tokens, advanced by 3 chunks of 512 (the
@@ -307,23 +338,26 @@ def main() -> int:
         torch.cuda.synchronize()
         return e
 
-    eng = chunk_engine()
-    t0 = time.perf_counter()
-    eng._advance_chunked_prefill()
-    torch.cuda.synchronize()
-    plain = (time.perf_counter() - t0) * 1e3
-    del eng
-    eng = chunk_engine()
-    with open(args.out or os.devnull, "a") as out:
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            eng._advance_chunked_prefill()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        _report(f"chunk batch (4 x 512 tokens at q_start 1536, "
-                f"{cfg.n_layers} layers)", prof, wall, plain, 1, "batch", out)
-    del eng
-    torch.cuda.empty_cache()
+    if "chunk" in phases:
+        eng = chunk_engine()
+        t0 = time.perf_counter()
+        eng._advance_chunked_prefill()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        del eng
+        eng = chunk_engine()
+        with open(args.out or os.devnull, "a") as out:
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                eng._advance_chunked_prefill()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            _report(f"chunk batch (4 x 512 tokens at q_start 1536, "
+                    f"{cfg.n_layers} layers)", prof, wall, plain, 1, "batch", out)
+        del eng
+        torch.cuda.empty_cache()
+    if "train" not in phases:
+        return
 
     tokens = torch.as_tensor(
         np.random.RandomState(2).randint(0, cfg.vocab_size, (4, 2049)),
@@ -344,15 +378,6 @@ def main() -> int:
             wall = (time.perf_counter() - t0) * 1e3
         _report(f"train step (4 x 2048 tokens, remat, SGD, {cfg.n_layers} "
                 f"layers)", prof, wall, plain, 1, "step", out)
-    del params, tokens
-    torch.cuda.empty_cache()
-    params = llama.init_params(cfg, seed=0, device="cuda", quantize="int8")
-    serve_phase(params, cfg, args.steps, acts, args.out, "int8 weights, ")
-    del params
-    torch.cuda.empty_cache()
-    gemma3_waves(acts, args.out)
-    print(f"card: {smi}", flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -7,9 +7,10 @@ Compiles each source of mfa_tpu_torch/kernels/_build.SOURCES with the
 port's own nvcc flags plus `-Xptxas -v` (all sources at once, into a
 temporary directory), and prints one line per kernel instantiation:
 registers a thread, spill stores and loads in bytes, the stack frame,
-whether its SASS (`cuobjdump -sass`) holds HGMMA (wgmma) and UTMALDG (a TMA
-load), and the demangled name. --match keeps only the names containing the
-string. Exits non-zero if a source does not compile. Needs nvcc and
+whether its SASS (`cuobjdump -sass`) holds HGMMA (wgmma), HMMA (mma.sync)
+and UTMALDG (a TMA load), and the demangled name. --match keeps only the names containing the
+string. HMMA marks an mma.sync product (kernel 5's tile). Exits non-zero
+if a source does not compile. Needs nvcc and
 cuobjdump (the CUDA toolkit), not a card.
 """
 
@@ -60,7 +61,7 @@ def parse(log: str):
     return [tuple(r) for r in rows]
 
 
-def sass_ops(lib: str, ops=("HGMMA", "UTMALDG")):
+def sass_ops(lib: str, ops=("HGMMA", "HMMA", "UTMALDG")):
     """{mangled kernel name: {op: present}} from `cuobjdump -sass lib`."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", lib], capture_output=True,

@@ -13,7 +13,8 @@ import mfa_tpu_torch
 from mfa_tpu.kernels.decode import combine_splits as jax_combine
 from mfa_tpu.kernels.decode import decode_attention as jax_decode
 from mfa_tpu_torch.dispatch.config import num_splits_heuristic
-from mfa_tpu_torch.kernels.decode import (combine_splits, decode_attention,
+from mfa_tpu_torch.kernels.decode import (BLOCKS_PER_SM, combine_splits,
+                                          decode_attention, default_splits,
                                           split_layout)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -122,3 +123,31 @@ def test_split_heuristic_follows_waves():
     for s, ns in ((640, 3), (65, 8), (8192, 2)):
         n, tps = split_layout(s, ns)
         assert tps % 64 == 0 and (n - 1) * tps < s <= n * tps
+
+
+def test_split_heuristic_follows_the_kernels_residency():
+    # kernel 5 holds one block an SM: b16 x hkv8 = 128 blocks already fill
+    # 80% of the 132 SMs, where two blocks an SM (the default, the paged
+    # kernel's plan) split twice
+    assert BLOCKS_PER_SM == 1
+    assert num_splits_heuristic(16, 8, 8192, 64, blocks_per_sm=1) == 1
+    assert num_splits_heuristic(16, 8, 8192, 64) == 2
+    assert default_splits(16, 8, 8192) == 1
+    # b1 x hkv8 at 32768 tokens: 15 splits put 120 blocks on the 132 SMs
+    # (wave efficiency 0.91), twice as many at two blocks an SM
+    assert default_splits(1, 8, 32768) == 15
+    assert num_splits_heuristic(1, 8, 32768, 64, blocks_per_sm=2) == 30
+    # the count never exceeds the tiles, whatever the residency
+    for bps in (1, 2, 4):
+        assert num_splits_heuristic(1, 1, 100, 64, blocks_per_sm=bps) <= 2
+
+
+@pytest.mark.parametrize("s,lens", [(8192, [8192, 5000]), (700, [700, 1])])
+def test_default_splits_match_jax(s, lens):
+    # num_splits=0 takes the kernel's residency; the result stays the JAX
+    # function's within fp32 rounding
+    q, k, v = _inputs(6, 2, 8, 2, s, 64)
+    lens = np.array(lens, np.int32)
+    (jo, jl), (to, tl) = _both(q, k, v, lens, num_splits=0)
+    np.testing.assert_allclose(to, jo, **TOL)
+    np.testing.assert_allclose(tl, jl, **TOL)

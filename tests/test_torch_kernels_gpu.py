@@ -69,26 +69,64 @@ def test_prefill_kernel(dev, b, hq, hkv, sq, sk, d, causal, window, softcap,
     (2, 4, 1, 300, 64, [300, 200], (2,), -1, 20.0, BF),
     (2, 8, 4, 700, 256, [700, 1], (1, 3), 100, 0.0, BF),  # head_dim 256
     (3, 8, 1, 300, 256, [300, 0, 129], (2,), -1, 0.0, HF),
+    (2, 3, 3, 200, 128, [1, 130], (1, 2, 4), -1, 0.0, BF),          # group 1
+    (2, 6, 2, 333, 64, [333, 64], (1, 2, 3, 0), 50, 25.0, HF),      # group 3
+    (2, 20, 4, 500, 128, [499, 0], (1, 3, 8), -1, 0.0, BF),         # group 5
+    (1, 42, 6, 1000, 256, [1000], (0, 2, 5), 300, 30.0, BF),        # group 7
+    (2, 12, 2, 777, 128, [777, 130], (1, 0), 33, 0.0, HF),          # group 6
+    (4, 16, 2, 4100, 128, [4100, 65, 4033, 1], (1, 2, 4, 7, 0), 1000, 0.0, BF),
+    (1, 32, 8, 32768, 128, [32767], (0, 1), -1, 0.0, BF),           # the long cache
 ])
 def test_decode_kernel(dev, b, hq, hkv, s, d, lens, splits, window, softcap,
                        dtype):
-    from mfa_tpu_torch.kernels import decode
+    from mfa_tpu_torch.kernels import _build, decode
 
     gen = torch.Generator(device=dev).manual_seed(1)
     q, k, v = (_rn(gen, b, hq, d, dtype=dtype), _rn(gen, b, hkv, s, d, dtype=dtype),
                _rn(gen, b, hkv, s, d, dtype=dtype))
     L = torch.tensor(lens, dtype=torch.int32, device=dev)
     for ns in splits:
+        _build.reset_launches()
         o, lse = decode.decode_attention(q, k, v, L, num_splits=ns,
                                          window_left=window,
                                          logit_softcap=softcap, return_lse=True)
-        n, tps = decode.split_layout(s, ns if ns else decode.num_splits_heuristic(
-            b, hkv, s, decode.TILE))
+        assert dict(_build.launches) == {"decode": 1, "combine": 1}
+        n, tps = decode.split_layout(s, ns if ns else decode.default_splits(b, hkv, s))
         po, pl = decode._decode_partials_plain(q.float(), k.float(), v.float(), L,
                                                d ** -0.5, n, tps, window, softcap)
         ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
         _close(o, lse, ro.reshape(b, hq, d), rl.reshape(b, hq))
     assert torch.all(o[torch.tensor(lens, device=dev) == 0] == 0)
+
+
+@pytest.mark.parametrize("b,s,d", [(16, 4096, 128), (1, 8192, 64)])
+def test_decode_kernel_every_split_count(dev, b, s, d):
+    """Splits 1 up to the heuristic's count: each within the limits of its
+    plain version, and every count within fp32 rounding of one split (the
+    split ranges are whole tiles). Rows past the length hold NaN: the
+    kernel must mask them, not multiply them by 0."""
+    from mfa_tpu_torch.kernels import decode
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    hq, hkv = 32, 8
+    q, k, v = (_rn(gen, b, hq, d), _rn(gen, b, hkv, s, d), _rn(gen, b, hkv, s, d))
+    lens = [s - 1 - 37 * i for i in range(b)]
+    for i, n in enumerate(lens):
+        k[i, :, n:] = float("nan")
+        v[i, :, n:] = float("nan")
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    heur = decode.default_splits(b, hkv, s)
+    o1 = None
+    for ns in range(1, max(heur, 2) + 1):
+        o, lse = decode.decode_attention(q, k, v, L, num_splits=ns, return_lse=True)
+        n, tps = decode.split_layout(s, ns)
+        po, pl = decode._decode_partials_plain(q.float(), k.float().nan_to_num(),
+                                               v.float().nan_to_num(), L, d ** -0.5, n,
+                                               tps, -1, 0.0)
+        ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        _close(o, lse, ro.reshape(b, hq, d), rl.reshape(b, hq))
+        o1 = o.float() if o1 is None else o1
+        assert (o.float() - o1).abs().max() <= 1e-2
 
 
 @pytest.mark.parametrize("hq,hkv,page,d,quant,dtype,pos_offset,window,softcap", [
@@ -699,6 +737,13 @@ def test_fp16_takes_kernel_1(dev):
     (3601, 4096, 14336, BF, False),  # a prefill wave at w_gate
     (130, 384, 272, HF, False),     # ragged m, N % 128 != 0, fp16
     (3, 80, 48, BF, True),          # K % 64 != 0, fp32 out
+    (1, 4096, 4096, BF, False),     # one row: 4 K splits at 16 rows a block
+    (17, 4096, 4096, HF, True),     # 32 rows a block, fp16 x, fp32 out
+    (255, 14336, 4096, BF, False),  # 128 rows a block, K 14336, 2 splits
+    (256, 4096, 128, BF, True),     # 256 rows a block, one output tile: 8 splits
+    (3601, 4096, 14336, HF, True),  # the wave in fp16 x, fp32 out
+    (64, 256, 64, BF, False),       # N narrower than one tile
+    (40, 14336, 1024, HF, False),   # 64 rows a block, K 14336, 8 splits
 ])
 def test_int8_matmul_kernel(dev, m, K, N, dtype, out_f32):
     from mfa_tpu_torch.kernels import _build, wmatmul
@@ -711,6 +756,8 @@ def test_int8_matmul_kernel(dev, m, K, N, dtype, out_f32):
     _build.reset_launches()
     out = wmatmul.int8_matmul(x, w.qw, w.scale, out_dtype=out_dtype)
     assert dict(_build.launches) == {"wmatmul": 1}
+    # the split reduction runs in a fixed order: the same bits every call
+    assert torch.equal(out, wmatmul.int8_matmul(x, w.qw, w.scale, out_dtype=out_dtype))
     assert out.dtype == out_dtype and out.shape == (m, N)
     ref = wmatmul._int8_matmul_plain(x.float(), w.qw, w.scale, torch.float32)
     d = (out.float() - ref).abs()

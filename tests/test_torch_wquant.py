@@ -111,15 +111,24 @@ def test_int8_matmul_plain_matches_jax(m, K, N, dtype):
 
 
 def test_split_k_fills_the_card():
-    # decode-sized m: N / 128 tiles cannot fill 132 SMs, so K is split;
-    # a prefill wave's tiles already do
-    for K, N in ((4096, 1024), (4096, 4096), (14336, 4096), (4096, 14336)):
+    # decode-sized m: N / 128 tiles cannot fill 132 SMs, so K is split, over
+    # at most one cluster (8 blocks) a tile and no more blocks than the SMs
+    # (one block an SM); w_gate's 112 tiles need no split, nor do a prefill
+    # wave's
+    for K, N, want in ((4096, 1024, 8), (4096, 4096, 4), (14336, 4096, 4),
+                       (4096, 14336, 1)):
         splits, per = wmatmul.split_k(16, K, N)
         tiles = N // 128
-        assert splits > 1 and (splits - 1) * per < K // 64 <= splits * per
-        assert tiles * splits >= 128  # about one block per SM at least
+        assert splits == want and (splits - 1) * per < K // 64 <= splits * per
+        assert tiles * splits <= 132
     assert wmatmul.split_k(16, 4096, 128256) == (1, 64)
     assert wmatmul.split_k(3601, 4096, 14336) == (1, 64)
+    # rows a block follow m: wgmma's n side is 16, 32, 64, 128 or 256
+    assert [wmatmul.block_m(m) for m in (1, 16, 17, 33, 64, 65, 255, 256, 3601)] == \
+        [16, 16, 32, 64, 64, 128, 128, 256, 256]
+    # two output tiles of m 255 split twice, one tile of m 256 eight times
+    assert wmatmul.split_k(255, 14336, 4096) == (2, 112)
+    assert wmatmul.split_k(256, 4096, 128) == (8, 8)
 
 
 @pytest.fixture(scope="module")
