@@ -508,13 +508,14 @@ def gemma3_kernels(records, rn, gen):
         ok &= good
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
         if not (ids >= 0).any():
-            # kernel 9 runs the mma.sync tile, kernel 1 the wgmma tile: the
-            # same function in another summation order, so within the
-            # forward limits (bit-equal again once kernel 9 moves tiles)
+            # with no image kernel 9 runs kernel 1's code over the same
+            # tiles in the same order: the same bits
             k1 = prefill.prefill_attention(qq, kk, vv, causal=True, window_size=(wl, -1),
                                            bound_softmax=False)
-            print("  against kernel 1's causal output:", flush=True)
-            ok &= _err(o, k1, what="O")[1]
+            same = torch.equal(o, k1)
+            print(f"  equal to kernel 1's causal output bit for bit: {same} "
+                  f"{'ok' if same else 'FAIL'}", flush=True)
+            ok &= same
             continue
         ms = _time_ms(lambda: blockmask.image_block_prefill(qq, kk, vv, ids,
                                                             window_left=wl))
@@ -535,6 +536,21 @@ def gemma3_kernels(records, rn, gen):
         del mask
     torch.cuda.empty_cache()
     return ok
+
+
+def _causal_reference64(q, k, v, scale):
+    """Causal GQA attention and its natural-log LSE in float64
+    (scripts/probe_adversarial_prefill.py's reference)."""
+    import torch
+
+    group = q.shape[1] // k.shape[1]
+    kf = k.double().repeat_interleave(group, dim=1)
+    vf = v.double().repeat_interleave(group, dim=1)
+    sc = (q.double() @ kf.transpose(-1, -2)) * scale
+    n = q.shape[2]
+    mask = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+    sc = sc.masked_fill(~mask, float("-inf"))
+    return torch.softmax(sc, dim=-1) @ vf, torch.logsumexp(sc, dim=-1).float()
 
 
 def zero_shift_kernels(records, rn):
@@ -652,7 +668,12 @@ def zero_shift_kernels(records, rn):
         ok &= good and off
         del q, k, v, o, lse, o1, lse1, ro, rl, raw
 
-    # kernel 4, the bound engine
+    # kernel 4, the bound engine. On the std-1e3 inputs the logits reach ~1e5
+    # and fp32 dot products round by more than some rows' top-two gap, so an
+    # fp32 reference is less exact than the kernel: that case is held to an
+    # fp64 reference (scripts/probe_adversarial_prefill.py), within max 1e-1
+    # (over 8 draws there the kernels were 4.9e-3 to 6.9e-2 from it, the
+    # fp32 plain version up to 2.96e-1) and mean 2e-3.
     rec = records["bound"]
     for tag, d, mode, adversarial in (("prepass, std 1e3", 128, "prepass", True),
                                       ("prepass, benign", 128, "prepass", False),
@@ -664,18 +685,23 @@ def zero_shift_kernels(records, rn):
             q, k = (q.float() * 1e3).to(bf), (k.float() * 1e3).to(bf)
         o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
                                            bound_softmax=mode)
-        ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), scale, -1, 0,
-                                        0.0, True)
+        if adversarial:
+            ro, rl = _causal_reference64(q, k, v, scale)
+        else:
+            ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), scale, -1, 0,
+                                            0.0, True)
         bits = prefill._risky_bits(q, k, scale * prefill._LOG2E)
         n_bits = int(bits.sum())
         print(f"bound {tag}: b={b} hq={hq} hkv={hkv} s={s} d={d} bf16, {n_bits} of "
-              f"{bits.numel()} tiles risky", flush=True)
-        mx, good = _err(o, ro, what="O")
+              f"{bits.numel()} tiles risky{', against fp64' if adversarial else ''}",
+              flush=True)
+        mx, good = _err(o, ro, tol_max=1e-1 if adversarial else 2e-2, what="O")
         fin = torch.isfinite(rl)
         lse_rel = float(((lse - rl).abs() / rl.abs().clamp(min=1.0))[fin].max())
         good &= lse_rel < 1e-3 and (n_bits == bits.numel() if adversarial else n_bits == 0)
         ok &= good
-        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        if not adversarial:  # the record holds the kernel against its plain version
+            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
         table = None if mode == "unchecked" else bits
         out = torch.empty_like(q)
         ms = _time_ms(lambda: prefill._zs_launch("bound", q, k, v, out, None, table,
@@ -1762,7 +1788,7 @@ def main() -> int:
                            "mfa_tpu/kernels/backward.py:1060"),
         "varlen_bwd_dq": ("mfa_tpu_torch/csrc/backward.cu",
                           "mfa_tpu/kernels/backward.py:1142"),
-        "blockmask": ("mfa_tpu_torch/csrc/blockmask.cu",
+        "blockmask": ("mfa_tpu_torch/csrc/flash_fwd_sm90.cuh",
                       "mfa_tpu/kernels/blockmask.py:54"),
         "flagged": ("mfa_tpu_torch/csrc/bound.cu",
                     "mfa_tpu/kernels/prefill.py:697"),

@@ -1,14 +1,20 @@
 // The dense flash-attention forward tile for Hopper (sm_90a), shared by
 // kernel 1 (the classic prefill, prefill.cu), kernels 2-4 (the zero-shift
-// engines and the repair, bound.cu) and kernel 7 (packed varlen,
-// prefill.cu). Layout: q [b, hq, sq, D], k/v [b, hkv, sk, D], o like q, LSE
-// [b, hq, sq] fp32; or packed (kernel 7): q [total_q, hq, D], k/v [total_k,
-// hkv, D], LSE [hq, total_q], each block reading its sequence's offsets from
-// cu_seqlens. GQA by head index (kv head = h / (hq / hkv)); the band (wl, wr)
-// around each row's own position, -1 = unbounded (causal = (-1, 0)).
+// engines and the repair, bound.cu), kernel 7 (packed varlen, prefill.cu)
+// and kernel 9 (image-block prefill, blockmask.cu). Layout: q [b, hq, sq,
+// D], k/v [b, hkv, sk, D], o like q, LSE [b, hq, sq] fp32; or packed
+// (kernel 7): q [total_q, hq, D], k/v [total_k, hkv, D], LSE [hq, total_q],
+// each block reading its sequence's offsets from cu_seqlens. GQA by head
+// index (kv head = h / (hq / hkv)); the band (wl, wr) around each row's own
+// position, -1 = unbounded (causal = (-1, 0)).
 // Kernel 7 differs from kernel 1 only in the addressing (strided tensor
 // maps, the sequence's first rows as box coordinates, O's row stride), so
-// on equal lengths the two give the same bits.
+// on equal lengths the two give the same bits. Kernel 9 (kind IMAGE) is
+// kernel 1's classic code with one more visibility rule, a column that
+// carries the row's own image-run id: each warpgroup's span is widened by
+// the runs of its rows, which one warp finds in the ids at the block's
+// start (kernels/blockmask.py:kv_tile_bounds states the same spans), and
+// with every id at -1 it gives kernel 1's bits.
 //
 // Bound: operations. Past a few hundred keys a row does 4 D flops per
 // visible key on 2 D bytes of K and V read once per 128 rows, so the
@@ -73,7 +79,7 @@ constexpr int THREADS = 384;  // producer warpgroup + two consumers
 constexpr int STAGES = 2;    // K/V ring slots
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
-enum Kind { PREFILL, FLAGGED, REPAIR, BOUND, UNCHECKED };
+enum Kind { PREFILL, FLAGGED, REPAIR, BOUND, UNCHECKED, IMAGE };
 
 struct Args {
   int hq, hkv, sq, sk, wl, wr;
@@ -83,11 +89,14 @@ struct Args {
   const int* cu_q = nullptr;
   const int* cu_k = nullptr;
   int total_q = 0;
+  // kind IMAGE (kernel 9): image-run ids [batch, sq] (-1: text)
+  const int* ids = nullptr;
 };
 
 // Shared memory: Q [D/64][BM][64], K and V slots [D/64][BN][64] each (every
 // chunk 1024-byte aligned), the barriers (Q, full[STAGES], empty[STAGES]),
-// and one poison word per consumer warpgroup.
+// one poison word per consumer warpgroup, and (IMAGE) the warpgroups'
+// spans.
 template <int D>
 struct Plan {
   static constexpr int BN = D > 128 ? 64 : 128;
@@ -99,8 +108,9 @@ struct Plan {
   static constexpr uint32_t flag_off = bar_off + 8 * (1 + 2 * STAGES);
   // + 1 KB to align the base; at least 120 KB, so that two blocks never
   // share an SM (their setmaxnreg requests could not both be met)
-  static constexpr size_t bytes = flag_off + 8 + 1024 > 120 * 1024 ? flag_off + 8 + 1024
-                                                                   : 120 * 1024;
+  static constexpr uint32_t span_off = flag_off + 8;
+  static constexpr size_t bytes = span_off + 16 + 1024 > 120 * 1024 ? span_off + 16 + 1024
+                                                                    : 120 * 1024;
 };
 
 __device__ __forceinline__ uint32_t bar_q(uint32_t bars) { return bars; }
@@ -119,6 +129,31 @@ __device__ __forceinline__ Span span_of(int lo, int hi, int sk, int wl, int wr, 
   if (wr >= 0) s.last = min(s.last, (hi + wr) / bn);
   s.first = wl >= 0 ? max(0, (lo - wl) / bn) : 0;
   return s;
+}
+
+// The last (run_end) and first (run_start) index of the image run that
+// holds row r (r itself for text, id -1), read by one warp 32 ids a step: a
+// run is a maximal segment of equal ids >= 0
+// (kernels/blockmask.py:image_run_bounds).
+__device__ __forceinline__ int run_end(const int* ids, int s, int r) {
+  const int id = __ldg(ids + r), lane = threadIdx.x & 31;
+  if (id < 0) return r;
+  for (int j0 = r + 1; j0 < s; j0 += 32) {
+    const int j = j0 + lane;
+    const unsigned m = __ballot_sync(0xffffffffu, j >= s || __ldg(ids + j) != id);
+    if (m) return j0 + __ffs(m) - 2;
+  }
+  return s - 1;
+}
+__device__ __forceinline__ int run_start(const int* ids, int r) {
+  const int id = __ldg(ids + r), lane = threadIdx.x & 31;
+  if (id < 0) return r;
+  for (int j0 = r - 1; j0 >= 0; j0 -= 32) {
+    const int j = j0 - lane;
+    const unsigned m = __ballot_sync(0xffffffffu, j < 0 || __ldg(ids + j) != id);
+    if (m) return j0 - __ffs(m) + 2;
+  }
+  return 0;
 }
 
 // The sum of the two 16-bit values packed in x.
@@ -155,8 +190,9 @@ __device__ __forceinline__ void consume_idle(const Block& blk) {
 // One consumer warpgroup (w, thread wtid of 128) over its 64 rows at
 // pos_lo: the KV loop, then O and LSE of its rows < sq (O's rows o_stride
 // elements apart). ZS: the zero-shift softmax; returns whether one of this
-// thread's rows is poisoned.
-template <typename T, int D, bool ZS>
+// thread's rows is poisoned. IMG: a column is also visible when it carries
+// the row's image-run id (a.ids, this sequence's row).
+template <typename T, int D, bool ZS, bool IMG = false>
 __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const Args& a,
                                         Span mine, int pos_lo, T* o_head, size_t o_stride,
                                         float* lse_head) {
@@ -177,6 +213,12 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
   float m0 = ZS ? 0.f : MFA_MASK, m1 = ZS ? 0.f : MFA_MASK;
   float l0 = 0.f, l1 = 0.f;  // this thread's partial row sums
   float n0 = 0.f, n1 = 0.f;  // zero shift: sums of p as rounded for P.V
+  // image runs of this thread's rows (-1: text, or past sq)
+  int rid0 = -1, rid1 = -1;
+  if constexpr (IMG) {
+    if (r0 < a.sq) rid0 = __ldg(a.ids + r0);
+    if (r0 + 8 < a.sq) rid1 = __ldg(a.ids + r0 + 8);
+  }
 
   mbar_wait(bar_q(bars), 0);
   for (int i = 0; i < blk.n_tiles; ++i) {
@@ -197,6 +239,31 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
         wgmma_ss<T, BN>(sc, sw128_desc(qa, 0), sw128_desc(kb, 0), kk > 0);
       }
       wg_commit();
+      // Mask only tiles that cross the sequence tail or the band's edge
+      // (every tile an image run adds lies above the diagonal or left of
+      // the window, so it is one of them).
+      const bool needs_mask = (kv0 + BN > sk) || (wr >= 0 && kv0 + BN - 1 > pos_lo + wr) ||
+                              (wl >= 0 && kv0 < pos_hi - wl);
+      // IMG: bit 2 j + e of same0 / same1 says that column 8 j + 2 t4 + e
+      // of the tile carries row r0's / r0 + 8's run id; the ids load while
+      // the product runs
+      uint32_t same0 = 0, same1 = 0;
+      if constexpr (IMG) {
+        if (needs_mask && (rid0 >= 0 || rid1 >= 0)) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = kv0 + 8 * j + 2 * t4 + e;
+              const int id = col < sk ? __ldg(a.ids + col) : -1;
+              same0 |= (uint32_t)(id == rid0) << (2 * j + e);
+              same1 |= (uint32_t)(id == rid1) << (2 * j + e);
+            }
+          }
+          if (rid0 < 0) same0 = 0;
+          if (rid1 < 0) same1 = 0;
+        }
+      }
       wg_wait_all();
       fence_regs(sc);
 
@@ -204,9 +271,6 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
 #pragma unroll
         for (int x = 0; x < BN / 2; ++x) sc[x] = tanhf(sc[x] * a.softcap_mul) * a.softcap;
       }
-      // Mask only tiles that cross the sequence tail or the band's edge.
-      const bool needs_mask = (kv0 + BN > sk) || (wr >= 0 && kv0 + BN - 1 > pos_lo + wr) ||
-                              (wl >= 0 && kv0 < pos_hi - wl);
       if (needs_mask) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
@@ -217,6 +281,7 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
             bool ok = col < sk;
             if (wr >= 0) ok = ok && col <= row + wr;
             if (wl >= 0) ok = ok && col >= row - wl;
+            if constexpr (IMG) ok = ok || ((((e >> 1) ? same1 : same0) >> (2 * j + (e & 1))) & 1u);
             if (!ok) sc[4 * j + e] = MFA_MASK;
           }
         }
@@ -346,6 +411,10 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
 // Grid (hq, batch, ceil(sq / BM)); on the packed layout (PACKED, kernel 1's
 // function only) ceil(max_sq / BM). table: kernel 2's flags (written; null
 // = none), kernel 3's flags (read), kernel 4's risky bits (read), or null.
+// IMAGE: a warpgroup's rows [lo, hi] see the columns [min(lo - wl,
+// run_start(lo)), run_end(hi)] (a run is contiguous, so the tile's first
+// and last row bound every row's run); the block loads the union of the
+// two spans.
 template <typename T, int D, int KIND, bool PACKED = false>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -380,10 +449,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t bars = base + P::bar_off;
   int* wg_poison = reinterpret_cast<int*>(smem + P::flag_off);
 
-  const Span s0 = span_of(q0, q0 + WG_M - 1, a.sk, a.wl, a.wr, P::BN);
-  const Span s1 = span_of(q0 + WG_M, q0 + BM - 1, a.sk, a.wl, a.wr, P::BN);
-  const int last = two ? s1.last : s0.last;
-  const Block blk{base, s0.first, max(0, last - s0.first + 1)};
+  Span s0 = span_of(q0, q0 + WG_M - 1, a.sk, a.wl, a.wr, P::BN);
+  Span s1 = span_of(q0 + WG_M, q0 + BM - 1, a.sk, a.wl, a.wr, P::BN);
+  int* img_span = reinterpret_cast<int*>(smem + P::span_off);  // IMAGE: s0, s1
+  if constexpr (KIND == IMAGE) {
+    a.ids += (size_t)b * a.sq;
+    if (threadIdx.x >= 32 && threadIdx.x < 64) {  // warp 1, while thread 0 sets up
+      for (int w = 0; w < (two ? 2 : 1); ++w) {
+        const int lo = q0 + w * WG_M, hi = min(lo + WG_M - 1, a.sq - 1);
+        const int col_lo = a.wl >= 0 ? min(max(lo - a.wl, 0), run_start(a.ids, lo)) : 0;
+        const int col_hi = run_end(a.ids, a.sq, hi);
+        if (threadIdx.x == 32) {
+          img_span[2 * w] = col_lo / P::BN;
+          img_span[2 * w + 1] = col_hi / P::BN;
+        }
+      }
+    }
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q(bars), 1);
@@ -395,6 +477,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   if (threadIdx.x < 2) wg_poison[threadIdx.x] = 0;
   __syncthreads();
+  int first = s0.first, last = two ? s1.last : s0.last;
+  if constexpr (KIND == IMAGE) {
+    s0 = Span{img_span[0], img_span[1]};
+    first = s0.first;
+    last = s0.last;
+    if (two) {
+      s1 = Span{img_span[2], img_span[3]};
+      first = min(first, s1.first);
+      last = max(last, s1.last);
+    }
+  }
+  const Block blk{base, first, max(0, last - first + 1)};
 
   // warp-uniform by construction (a shuffle from lane 0), as setmaxnreg's
   // .sync.aligned form needs
@@ -439,7 +533,13 @@ __global__ void __launch_bounds__(THREADS, 1)
                       : PACKED       ? lse + (size_t)h * a.total_q + q_row0
                                      : lse + head;
     bool poison = false;
-    if constexpr (KIND == PREFILL) {
+    if constexpr (KIND == IMAGE) {
+      if (live) {
+        consume<T, D, false, true>(blk, w, wtid, a, mine, pos_lo, o_head, o_stride, lse_head);
+      } else {
+        consume_idle<D>(blk);
+      }
+    } else if constexpr (KIND == PREFILL) {
       if (live) {
         consume<T, D, false>(blk, w, wtid, a, mine, pos_lo, o_head, o_stride, lse_head);
       } else {

@@ -168,6 +168,27 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory into shared memory (both 16-byte
+// aligned, bytes a multiple of 16), completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Add a box of shared memory into a 3-D tensor map's tile (fp32 adds done
 // in L2; rows past the map's bound are skipped), as one bulk async group
 // member. The source must be made visible to the async proxy first.
@@ -440,6 +461,22 @@ inline MfaEncodeTiled mfa_encode_tiled() {
   return fn;
 }
 
+// A map of `rank` (at most 4) dimensions over `type`: dims[0] contiguous,
+// dimension i + 1 strides[i] bytes apart (multiples of 16), in boxes of
+// box[0..rank). Coordinates past a dimension read as zeros (and are not
+// written). Returns 0 or MFA_TMA_ENCODE.
+inline int mfa_encode(CUtensorMap* map, const void* base, CUtensorMapDataType type, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  MfaEncodeTiled encode = mfa_encode_tiled();
+  if (encode == nullptr) return MFA_TMA_ENCODE;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MFA_TMA_ENCODE;
+}
+
 // A 3-D map over n [rows, cols] matrices of `type`, rows row_bytes apart
 // and matrices plane_bytes apart (both multiples of 16), in boxes of
 // box_cols columns (128 bytes) x box_rows rows with the 128-byte swizzle.
@@ -448,16 +485,10 @@ inline MfaEncodeTiled mfa_encode_tiled() {
 inline int mfa_encode_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int cols,
                          int rows, int n, size_t row_bytes, size_t plane_bytes, int box_cols,
                          int box_rows) {
-  MfaEncodeTiled encode = mfa_encode_tiled();
-  if (encode == nullptr) return MFA_TMA_ENCODE;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
   const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)plane_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : MFA_TMA_ENCODE;
+  return mfa_encode(map, base, type, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The same over 16-bit values, in boxes of 64 columns. The packed layout

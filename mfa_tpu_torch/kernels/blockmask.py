@@ -6,12 +6,13 @@ Gemma3 multimodal prompts attend with
 
 (transformers' token_type_ids or-mask): image tokens see their whole
 contiguous <image> run in both directions, text stays causal. The kernel,
-csrc/blockmask.cu, is the mma.sync forward tile of csrc/flash_fwd.cuh
-(kernel 1's before it moved to wgmma) with a same-run visibility policy,
-one block per (q tile of 64, q head, batch) visiting only the KV tiles
-[kv_first, kv_last] that some row of its tile can see (`kv_tile_bounds`,
-computed here with torch ops from `image_run_bounds`). A CUDA tensor runs the kernel (or raises); a CPU
-tensor runs `_image_block_plain`, the dense fp32 masked softmax of
+csrc/blockmask.cu, is kernel 1's wgmma + TMA tile (csrc/flash_fwd_sm90.cuh,
+kind IMAGE) with one more visibility rule: each consumer warpgroup of 64
+q rows visits only the KV tiles that some row of its tile can see, which
+the kernel finds in the run ids itself (`kv_tile_bounds` at a q tile of 64
+and the kernel's KV tile states the same tiles with torch ops), and with no
+image it gives kernel 1's bits. A CUDA tensor runs the kernel (or raises); a
+CPU tensor runs `_image_block_plain`, the dense fp32 masked softmax of
 models/llama.py:_attention_dense_masked. No gradient: inference only, as
 in the JAX package.
 """
@@ -29,9 +30,9 @@ from mfa_tpu_torch.kernels import _build
 
 _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 KERNEL_HEAD_DIMS = (64, 128, 256)
-TILE = 64  # q rows and KV rows per kernel tile (csrc/flash_fwd.cuh FA_BM, FA_BN)
+TILE = 64  # q rows a consumer warpgroup (csrc/flash_fwd_sm90.cuh WG_M)
 
 
 def image_run_bounds(block_ids: torch.Tensor):
@@ -56,20 +57,25 @@ def image_run_bounds(block_ids: torch.Tensor):
     return run_start.int(), run_end.int()
 
 
-def kv_tile_bounds(block_ids: torch.Tensor, window_left: int, tile: int = TILE):
-    """(kv_first, kv_last) [b, ceil(s / tile)] int32: the KV tiles that
-    the rows of each q tile can see. Row r sees [min(max(r - wl, 0),
-    run_start(r)), max(r, run_end(r))] (run_end >= r); padded rows past s
-    are text with their own index, clipped into [0, s)."""
+def kv_tile_bounds(block_ids: torch.Tensor, window_left: int, tile: int = TILE,
+                   kv_tile: Optional[int] = None):
+    """(kv_first, kv_last) [b, ceil(s / tile)] int32: the KV tiles of
+    kv_tile keys (default: tile) that the rows of each q tile of `tile`
+    rows can see. Row r sees [min(max(r - wl, 0), run_start(r)), max(r,
+    run_end(r))] (run_end >= r); padded rows past s are text with their own
+    index, clipped into [0, s). At tile 64 and the kernel's KV tile (128
+    keys at head_dim <= 128, 64 at 256) these are the spans its warpgroups
+    find in the ids."""
     b, s = block_ids.shape
+    kv_tile = kv_tile or tile
     nt = cdiv(s, tile)
     ids = torch.nn.functional.pad(block_ids.int(), (0, nt * tile - s), value=-1)
     run_start, run_end = image_run_bounds(ids)
-    kv_last = run_end.clamp(max=s - 1).reshape(b, nt, tile).amax(dim=2) // tile
+    kv_last = run_end.clamp(max=s - 1).reshape(b, nt, tile).amax(dim=2) // kv_tile
     if window_left >= 0:
         idx = torch.arange(nt * tile, device=ids.device, dtype=torch.int32)[None]
         lo = torch.minimum((idx - window_left).clamp(min=0), run_start)
-        kv_first = lo.reshape(b, nt, tile).amin(dim=2) // tile
+        kv_first = lo.reshape(b, nt, tile).amin(dim=2) // kv_tile
     else:
         kv_first = torch.zeros_like(kv_last)
     return torch.minimum(kv_first, kv_last).int(), kv_last.int()
@@ -122,14 +128,12 @@ def _image_block_cuda(q, k, v, block_ids, scale, window_left):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q, k and v dtypes differ")
     q, k, v = _build.dense(q), _build.dense(k), _build.dense(v)
-    ids = block_ids.to(torch.int32).contiguous()
-    kv_first, kv_last = kv_tile_bounds(ids, window_left)
+    ids = _build.dense(block_ids.to(torch.int32))
     out = torch.empty_like(q)
     fn = _build.function("blockmask", "mfa_image_block_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ids.data_ptr(), kv_first.data_ptr(), kv_last.data_ptr(),
-            _build.DTYPE_CODES[q.dtype], batch, hq, hkv, s, d, window_left,
-            scale * _LOG2E, _build.stream_of(q))
+            ids.data_ptr(), _build.DTYPE_CODES[q.dtype], batch, hq, hkv, s, d,
+            window_left, scale * _LOG2E, _build.stream_of(q))
     _build.check("blockmask", rc)
     _build.launches["blockmask"] += 1
     return out

@@ -3,13 +3,17 @@
 Kernel 8 of the port: csrc/paged_prefill.cu. Query chunks attend to a
 paged KV cache read in place through the block table, with a runtime
 `q_start` per sequence: chunked prefill, prefix-cache suffixes and the
-paged route of `flash_attn_varlen_func`. One block per (q tile, kv head,
-sequence) holds all q heads of the kv head (the TPU's [group, bq] rows).
+paged route of `flash_attn_varlen_func`. One warp-specialised wgmma block
+per (q tile, kv head, sequence) holds 128 rows: 128 / group chunk
+positions of every q head of the kv head (the TPU's [group, bq] rows),
+with K and V brought by TMA one box per page through the block table.
 A CPU tensor runs `_paged_prefill_plain`, the same function in PyTorch.
 
 Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide,
 without the TPU's 128-lane padding. int8 pages carry fp32 per-row scales;
-fp8 and int4 pages, attention sinks and ALiBi are not ported yet.
+fp8 and int4 pages, attention sinks and ALiBi are not ported yet. The
+kernel takes pages of a multiple of 8 rows (a TMA box of fewer breaks the
+128-byte swizzle); others are refused on the card.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ _LN2 = math.log(2.0)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 11 + [_I] * 12 + [_F, _F, _F, _P]
 KERNEL_HEAD_DIMS = (64, 128)
-BLOCK_ROWS = 64  # q rows per block: group * (chunk rows per tile)
+GROUP_ROWS = 64  # q rows per consumer warpgroup: the group must divide it
+PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
 
 
 def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
@@ -97,10 +102,14 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
     batch, sq, num_heads, d = q.shape
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv
-    if d not in KERNEL_HEAD_DIMS or BLOCK_ROWS % group:
+    if d not in KERNEL_HEAD_DIMS or GROUP_ROWS % group:
         raise NotImplementedError(
             f"the paged prefill kernel takes head_dim in {KERNEL_HEAD_DIMS} "
-            f"and a q-per-kv-head group dividing {BLOCK_ROWS}")
+            f"and a q-per-kv-head group dividing {GROUP_ROWS}")
+    if page % PAGE_ROWS:
+        raise NotImplementedError(
+            f"the paged prefill kernel takes pages of a multiple of "
+            f"{PAGE_ROWS} rows, got {page}")
     if k_pages.dtype == torch.int8:
         if q.dtype not in (torch.bfloat16, torch.float16):
             raise NotImplementedError("int8 pages take bf16/fp16 q")
@@ -123,8 +132,8 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
     if k_scales is not None:
         _build.expect_shape(name, "k_scales", k_scales, k_pages.shape[:3])
         _build.expect_shape(name, "v_scales", v_scales, k_pages.shape[:3])
-        k_scales = k_scales.float().contiguous()
-        v_scales = v_scales.float().contiguous()
+        k_scales = _build.dense(k_scales.float())
+        v_scales = _build.dense(v_scales.float())
     qk, k_pages, v_pages = (_build.dense(t) for t in (qk, k_pages, v_pages))
     lens, q_start, q_lens, table = (t.to(torch.int32).contiguous()
                                     for t in (lens, q_start, q_lens, table))

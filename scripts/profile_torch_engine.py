@@ -42,17 +42,18 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# kernels 1-4 and 7 are instantiations of one template, fa90::fwd_kernel<T,
+# kernels 1-4, 7 and 9 are instantiations of one template, fa90::fwd_kernel<T,
 # D, kind, packed> (csrc/flash_fwd_sm90.cuh): kind 0 is kernel 1 (or 7,
-# packed), 1-4 the zero-shift engines (flagged, repair, bound, unchecked).
-# Kernel 10 is wm90::wmatmul_kernel, kernel 5's launch 1
-# kd90::splitkv_kernel; "decode_kernel" is the paged kernel's alone.
+# packed), 1-4 the zero-shift engines (flagged, repair, bound, unchecked), 5
+# the image-block kernel (9). Kernel 8 is pp90::paged_prefill_kernel, kernel
+# 10 wm90::wmatmul_kernel, kernel 5's launch 1 kd90::splitkv_kernel;
+# "decode_kernel" is the paged kernel's alone.
 _FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
 GROUPS = (("prefill kernel", ()),
           ("zero-shift prefill kernels", ()),
           ("int8 matmul kernel", ("wmatmul_kernel",)),
           ("split-KV decode kernel", ("splitkv_kernel",)),
-          ("image-block kernel", ("image_block_kernel",)),
+          ("image-block kernel", ()),
           ("paged prefill kernel", ("paged_prefill_kernel",)),
           ("paged kernel", ("decode_kernel",)),
           ("backward kernel", ("bwd_kernel", "bwd_dkv_kernel", "bwd_dq_kernel")),
@@ -64,7 +65,9 @@ GROUPS = (("prefill kernel", ()),
 def _group(name: str) -> str:
     m = _FA90.search(name)
     if m:
-        return GROUPS[0][0] if m.group(1) == "0" else GROUPS[1][0]
+        kind = m.group(1)
+        return GROUPS[0][0] if kind == "0" else "image-block kernel" if kind == "5" \
+            else GROUPS[1][0]
     for g, keys in GROUPS:
         if any(k in name for k in keys):
             return g

@@ -53,6 +53,31 @@ def test_kv_tile_bounds_cover_every_visible_column(wl):
             assert int(last[b, i]) == int(cols.max()) // tile
 
 
+@pytest.mark.parametrize("kv_tile", [64, 128])
+@pytest.mark.parametrize("wl", [-1, 0, 16, 100])
+def test_kv_tile_bounds_at_the_kernels_kv_tile(kv_tile, wl):
+    """The kernel's spans: q tiles of 64 rows (one consumer warpgroup), KV
+    tiles of its BN keys (128 at head_dim <= 128, 64 at 256). Each holds
+    exactly the KV tiles with a column its rows see, and equals the rule the
+    kernel applies (csrc/flash_fwd_sm90.cuh, kind IMAGE): the tile's first
+    row bounds every row's run start, its last row every run end."""
+    s, tile = 300, tb.TILE
+    ids = torch.from_numpy(_ids(2, s, [[(10, 80), (150, 280)], [(63, 64), (127, 200)]]))
+    first, last = tb.kv_tile_bounds(ids, wl, tile, kv_tile)
+    assert first.shape == (2, -(-s // tile))
+    vis = tb.block_mask(ids, wl)
+    run_start, run_end = tb.image_run_bounds(ids)
+    for b in range(2):
+        for i in range(first.shape[1]):
+            cols = torch.nonzero(vis[b, i * tile:(i + 1) * tile].any(0)).flatten()
+            assert int(first[b, i]) == int(cols.min()) // kv_tile
+            assert int(last[b, i]) == int(cols.max()) // kv_tile
+            lo, hi = i * tile, min(i * tile + tile - 1, s - 1)
+            col_lo = min(max(lo - wl, 0), int(run_start[b, lo])) if wl >= 0 else 0
+            assert (col_lo // kv_tile, int(run_end[b, hi]) // kv_tile) == (
+                int(first[b, i]), int(last[b, i]))
+
+
 @pytest.mark.parametrize("b,hq,hkv,s,d,runs,wl", [
     (2, 4, 2, 100, 64, [[], []], -1),                               # no image
     (2, 4, 2, 150, 64, [[(20, 60)], [(5, 9)]], -1),                 # one run

@@ -287,6 +287,80 @@ def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
     _close(o, lse, ro, rl)
 
 
+@pytest.mark.parametrize(
+    "hq,hkv,page,d,quant,dtype,q_start,sq,lens,q_lens,window", [
+        (8, 8, 64, 128, True, BF, [0, 100], 200, [200, 300], None, (-1, -1)),  # group 1
+        (32, 4, 16, 64, True, BF, [16, 0, 50], 150, [166, 90, 200], None,
+         (-1, -1)),                                                    # group 8, int8 pages of 16
+        (16, 4, 16, 128, True, HF, [0, 40], 129, [129, 169], None, (33, -1)),  # int8 pages of 16
+        (16, 4, 32, 128, False, BF, [0, 64, 10], 256, [256, 64, 10], [256, 0, 0],
+         (-1, -1)),                                                    # q_lens 0: dead blocks
+        (8, 2, 64, 64, False, HF, [5, 0], 300, [305, 77], [300, 77], (-1, -1)),
+    ])
+def test_paged_prefill_edges(dev, hq, hkv, page, d, quant, dtype, q_start, sq, lens,
+                             q_lens, window):
+    """NaN in every key and value row past lens of each sequence's last page,
+    in the pages its unmapped table entries clamp to, and (int8) in their
+    scales: the kernel never lets them reach O or the LSE. Rows past q_lens,
+    and whole blocks of them, come out O = 0, LSE = -inf. Held to the plain
+    version on the same pages with those rows zeroed (the plain version
+    multiplies them by p = 0, which keeps a NaN)."""
+    from mfa_tpu_torch.kernels import _build, paged_prefill
+    from mfa_tpu_torch.kernels.quant import quantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, pps = len(lens), 400 // page + 1
+    P = b * pps + 3  # pages 0 and P - 1 are never mapped
+    q = _rn(gen, b, sq, hq, d, dtype=dtype)
+    kf, vf = _rn(gen, hkv, P, page, d, dtype=dtype), _rn(gen, hkv, P, page, d, dtype=dtype)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
+    else:
+        kp, vp, ks, vs = kf, vf, None, None
+    table = (torch.randperm(P - 2, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    poisoned = torch.zeros(hkv, P, page, dtype=torch.bool, device=dev)
+    poisoned[:, 0] = poisoned[:, P - 1] = True
+    for i, n in enumerate(lens):
+        last = (n - 1) // page if n else -1
+        if n % page:
+            poisoned[:, int(table[i, last]), n % page:] = True
+        table[i, last + 1:: 2] = -1        # unmapped: clamps to page 0
+        table[i, last + 2:: 2] = 10 ** 6   # and to page P - 1
+    clean = [t if t is None else t.clone() for t in (kp, vp, ks, vs)]
+    for t in (ks, vs) if quant else (kp, vp):
+        t[poisoned] = float("nan")
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    ql = (L - qs).clamp(min=0) if q_lens is None else torch.tensor(
+        q_lens, dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    o, lse = paged_prefill.paged_prefill_attention(
+        q, kp, vp, L, qs, table, q_lens=ql, k_scales=ks, v_scales=vs, causal=True,
+        window_left=window[0], return_lse=True)
+    assert _build.launches["paged_prefill"] == 1
+    q_ref = q.to(BF).float() if quant else q.float()
+    ro, rl = paged_prefill._paged_prefill_plain(
+        q_ref, *clean[:2], *clean[2:], L, qs, ql, table, d ** -0.5, window[0], 0, 0.0)
+    _close(o, lse, ro, rl)
+    dead = torch.arange(sq, device=dev)[None] >= ql[:, None]  # [b, sq]
+    assert torch.equal(o.float()[dead], torch.zeros_like(o.float()[dead]))
+    assert torch.isneginf(lse.transpose(1, 2)[dead]).all()
+
+
+def test_paged_prefill_refuses_pages_under_8_rows(dev):
+    """A page of fewer than 8 rows cannot be one 128-byte-swizzled TMA box:
+    the kernel does not take it, and the wrapper says so."""
+    from mfa_tpu_torch.kernels import paged_prefill
+
+    q = torch.zeros(1, 4, 4, 64, dtype=BF, device=dev)
+    pages = torch.zeros(2, 3, 4, 64, dtype=BF, device=dev)
+    lens = torch.tensor([4], dtype=torch.int32, device=dev)
+    table = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        paged_prefill.paged_prefill_attention(q, pages, pages, lens, lens * 0, table)
+
+
 # ---------------- image-block prefill (kernels/blockmask.py) ----------------
 
 
@@ -307,6 +381,7 @@ def _run_ids(b, s, runs, dev):
     (2, 4, 4, 129, 64, [[(60, 70)], []], 16, BF),          # window cuts the run
     (3, 8, 1, 200, 128, [[], [], [(0, 199)]], -1, BF),     # whole prompt one run
     (1, 8, 4, 100, 256, [[(5, 9), (20, 27), (40, 41)]], 7, HF),
+    (2, 8, 4, 300, 128, [[(10, 80), (81, 200)], [(0, 299)]], 50, BF),  # adjacent runs
 ])
 def test_image_block_kernel(dev, b, hq, hkv, s, d, runs, window, dtype):
     from mfa_tpu_torch.kernels import _build, blockmask
@@ -325,21 +400,20 @@ def test_image_block_kernel(dev, b, hq, hkv, s, d, runs, window, dtype):
     assert (o.float() - ref).abs().max() < 2e-2
 
 
-def test_image_block_without_images_is_causal_prefill(dev):
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_image_block_without_images_is_causal_prefill(dev, d):
+    """With no image, kernel 9 runs kernel 1's code over the same tiles in
+    the same order: the same bits."""
     from mfa_tpu_torch.kernels import blockmask, prefill
 
     gen = torch.Generator(device=dev).manual_seed(10)
-    q, k, v = _rn(gen, 2, 8, 333, 256), _rn(gen, 2, 4, 333, 256), _rn(gen, 2, 4, 333, 256)
+    q, k, v = _rn(gen, 2, 8, 333, d), _rn(gen, 2, 4, 333, d), _rn(gen, 2, 4, 333, d)
     ids = torch.full((2, 333), -1, dtype=torch.int32, device=dev)
     for wl in (-1, 100):
         a = blockmask.image_block_prefill(q, k, v, ids, window_left=wl)
         r = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1),
                                       bound_softmax=False)
-        # kernel 9 runs the mma.sync tile and kernel 1 the wgmma tile (other
-        # tiles, another summation order): equal within the forward limits,
-        # and bit for bit again once kernel 9 moves to kernel 1's tile
-        d = (a.float() - r.float()).abs()
-        assert float(d.max()) < 2e-2 and float(d.mean()) < 2e-3
+        assert torch.equal(a, r), (d, wl)
 
 
 def test_image_block_visits_only_its_tiles(dev):
