@@ -23,10 +23,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    split, the varlen split) within max |a - r| <= 2e-2 max |r| and mean |a -
    r| <= 2e-2 mean |r| for each of dq, dk, dv, and fused against split; at
    Gemma3-4B's head_dim 256, prefill (causal, window 1023 and none) and
-   paged decode (int8 and bf16 pages, group 2, window 1023), and the
-   image-block prefill (kernel 9) in four cases, one of them with no image
-   within the limits of kernel 1's causal output (kernel 9 runs the mma.sync
-   tile, kernels 1-4 and 7 the wgmma + TMA tile); the zero-shift engines
+   paged decode (int8 and bf16 pages, group 2, window 1023: 40 blocks, so
+   the paged kernel splits each sequence and kernel 5's combine merges),
+   and the image-block prefill (kernel 9) in four cases, one of them with
+   no image within the limits of kernel 1's causal output (kernels 1-4, 7
+   and 9 run the wgmma + TMA tile); the zero-shift engines
    (kernels 2, 3, 4: flagged + repair at the 8B wave, at 4096 tokens and at
    Gemma3-4B's text wave, with 0 flags on benign inputs and flags, a
    repaired output and an "unchecked" output off the limits on adversarial
@@ -1772,7 +1773,7 @@ def main() -> int:
                    "mfa_tpu/kernels/decode.py:53"),
         "combine": ("mfa_tpu_torch/csrc/decode.cu",
                     "mfa_tpu/kernels/decode.py:148"),
-        "paged": ("mfa_tpu_torch/csrc/paged.cu",
+        "paged": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                   "mfa_tpu/kernels/paged.py:122"),
         "varlen": ("mfa_tpu_torch/csrc/flash_fwd_sm90.cuh",
                    "mfa_tpu/kernels/varlen.py:53"),
@@ -1780,7 +1781,7 @@ def main() -> int:
                           "mfa_tpu/kernels/paged_prefill.py:50"),
         "bwd_fused": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
                       "mfa_tpu/kernels/backward.py:163"),
-        "bwd_dkv": ("mfa_tpu_torch/csrc/backward.cu",
+        "bwd_dkv": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
                     "mfa_tpu/kernels/backward.py:413"),
         "bwd_dq": ("mfa_tpu_torch/csrc/backward.cu",
                    "mfa_tpu/kernels/backward.py:513"),

@@ -10,11 +10,12 @@
 //    (5 products per tile), as the TPU kernel does. Its dQ varies in the
 //    last bits from run to run (the order of the blocks' additions).
 //  * mfa_bwd_dkv (kernel 12) replaces _dkv_kernel / _dkv_tri_kernel
-//    (_dkv_body) and mfa_bwd_dq (kernel 13) replaces _dq_kernel /
-//    _dq_tri_kernel (_dq_body), on the mma.sync tiles of flash_bwd.cuh:
-//    the deterministic two-launch split (4 + 3 products). The TPU's
-//    rectangular and triangular grids are two enumerations of one
-//    function; here a block computes its band's bounds and skips dead
+//    (_dkv_body): kernel 11's wgmma + TMA kernel without its dQ step
+//    (fb90::bwd_kernel<T, D, false>), and mfa_bwd_dq (kernel 13) replaces
+//    _dq_kernel / _dq_tri_kernel (_dq_body) on the mma.sync tile of
+//    flash_bwd.cuh: the deterministic two-launch split (4 + 3 products).
+//    The TPU's rectangular and triangular grids are two enumerations of
+//    one function; here a block computes its band's bounds and skips dead
 //    tiles, so each is one launch.
 //  * mfa_varlen_bwd_dkv / mfa_varlen_bwd_dq (kernel 14) replace
 //    _vl_dkv_kernel / _vl_dq_kernel (varlen_attention_bwd): the split on
@@ -33,28 +34,12 @@
 //
 // Bound: tensor-core operations, 10 * hq * d flops per visible (row,
 // column) pair for the fused launch (8 for dK/dV, 6 for dQ); at training
-// shapes it is far from the 295 flops-per-byte line. The split launches
-// run mma.sync without copy/compute overlap.
+// shapes it is far from the 295 flops-per-byte line. The dQ launch and the
+// varlen split run mma.sync without copy/compute overlap.
 #include "flash_bwd.cuh"
 #include "flash_bwd_sm90.cuh"
 
 namespace {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dO, const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                   int hq, int hkv, BwdGeom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int kv0 = blockIdx.x * BWD_BN, hk = blockIdx.y, b = blockIdx.z;
-  const int group = hq / hkv;
-  const size_t qb = (size_t)b * hq * g.sq * D;
-  const size_t lb = (size_t)b * hq * g.sq;
-  const size_t kb = ((size_t)b * hkv + hk) * g.sk * D;
-  bwd_dkv_block<T, D>(q + qb, k + kb, v + kb, dO + qb, lse + lb, delta + lb, dk + kb, dv + kb,
-                      hk * group, group, kv0, g, smem_raw);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(BWD_THREADS)
@@ -137,26 +122,6 @@ int prepare(Kern kern, size_t smem) {
 }
 
 template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-               const float* delta, void* dk, void* dv, int batch, int hq, int hkv, int sq, int sk,
-               int wl, int wr, float scale, float softcap, cudaStream_t stream) {
-  BwdGeom g = geom(sq, sk, wl, wr, scale, softcap);
-  g.q_head = (long long)sq * D;
-  g.q_row = D;
-  g.l_head = sq;
-  g.k_row = D;
-  const size_t smem = BwdSmem<T, D>::bytes;
-  auto kern = bwd_dkv_kernel<T, D>;
-  if (int err = prepare(kern, smem)) return err;
-  dim3 grid((sk + BWD_BN - 1) / BWD_BN, hkv, batch);
-  kern<<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), hq, hkv,
-      g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO, const float* lse,
               const float* delta, void* dq, int batch, int hq, int hkv, int sq, int sk, int wl,
               int wr, float scale, float softcap, cudaStream_t stream) {
@@ -226,14 +191,14 @@ int launch_varlen_dq(const void* q, const void* k, const void* v, const void* dO
   if (dtype == MFA_F16 && d == 128) return CALL(__half, 128);         \
   return MFA_BAD_CONFIG
 
-// dq_ws: zeroed fp32 [b, hq, sq, d] (the fused launch adds dQ into it);
-// dk, dv: [b, hkv, sk, d] in the dtype.
-// Every launch returns a cudaError_t code (0 = launched).
-extern "C" int mfa_bwd_fused(const void* q, const void* k, const void* v, const void* dO,
-                             const float* lse, const float* delta, float* dq_ws, void* dk,
-                             void* dv, int dtype, int batch, int hq, int hkv, int sq, int sk,
-                             int d, int window_left, int window_right, float scale,
-                             float softcap, void* stream) {
+namespace {
+
+// Kernel 11 (dq_ws set: dQ added into it) or kernel 12 (dq_ws null: dK and
+// dV alone) on fb90::bwd_kernel.
+int launch_sm90(const void* q, const void* k, const void* v, const void* dO, const float* lse,
+                const float* delta, float* dq_ws, void* dk, void* dv, int dtype, int batch,
+                int hq, int hkv, int sq, int sk, int d, int window_left, int window_right,
+                float scale, float softcap, void* stream) {
   if (batch == 0 || sk == 0) return 0;
   if (sq == 0) {  // no row sees a key: dK = dV = 0
     const size_t bytes = (size_t)batch * hkv * sk * d * 2;
@@ -244,23 +209,36 @@ extern "C" int mfa_bwd_fused(const void* q, const void* k, const void* v, const 
   const float c2 = softcap > 0.f ? fb90::LOG2E : scale * fb90::LOG2E;
   const fb90::Args a{hq,    hkv, sq,      sk, window_left, window_right,
                      scale, c2,  softcap, softcap > 0.f ? scale / softcap : 0.f};
-#define MFA_CALL(T, D)                                                       \
-  fb90::launch<T, D>(q, k, v, dO, lse, delta, dq_ws, dk, dv, batch, a, \
-                     static_cast<cudaStream_t>(stream))
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MFA_CALL(T, D)                                                                        \
+  (dq_ws != nullptr                                                                           \
+       ? fb90::launch<T, D, true>(q, k, v, dO, lse, delta, dq_ws, dk, dv, batch, a, st)      \
+       : fb90::launch<T, D, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, batch, a, st))
   MFA_BWD_DISPATCH(MFA_CALL);
 #undef MFA_CALL
+}
+
+}  // namespace
+
+// dq_ws: zeroed fp32 [b, hq, sq, d] (the fused launch adds dQ into it);
+// dk, dv: [b, hkv, sk, d] in the dtype.
+// Every launch returns a cudaError_t code (0 = launched).
+extern "C" int mfa_bwd_fused(const void* q, const void* k, const void* v, const void* dO,
+                             const float* lse, const float* delta, float* dq_ws, void* dk,
+                             void* dv, int dtype, int batch, int hq, int hkv, int sq, int sk,
+                             int d, int window_left, int window_right, float scale,
+                             float softcap, void* stream) {
+  if (dq_ws == nullptr) return MFA_BAD_CONFIG;
+  return launch_sm90(q, k, v, dO, lse, delta, dq_ws, dk, dv, dtype, batch, hq, hkv, sq, sk, d,
+                     window_left, window_right, scale, softcap, stream);
 }
 
 extern "C" int mfa_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                            const float* lse, const float* delta, void* dk, void* dv, int dtype,
                            int batch, int hq, int hkv, int sq, int sk, int d, int window_left,
                            int window_right, float scale, float softcap, void* stream) {
-  if (batch == 0 || sk == 0) return 0;
-#define MFA_CALL(T, D)                                                                   \
-  launch_dkv<T, D>(q, k, v, dO, lse, delta, dk, dv, batch, hq, hkv, sq, sk, window_left, \
-                   window_right, scale, softcap, static_cast<cudaStream_t>(stream))
-  MFA_BWD_DISPATCH(MFA_CALL);
-#undef MFA_CALL
+  return launch_sm90(q, k, v, dO, lse, delta, nullptr, dk, dv, dtype, batch, hq, hkv, sq, sk, d,
+                     window_left, window_right, scale, softcap, stream);
 }
 
 extern "C" int mfa_bwd_dq(const void* q, const void* k, const void* v, const void* dO,

@@ -6,7 +6,8 @@
 // (batch, kv head, split) and writes each split's normalized fp32 partial O
 // and natural-log LSE; launch 2 (combine_kernel) merges the splits with the
 // max subtracted first and -inf (empty) splits weighted 0, as the
-// reference's combine kernel should (SURVEY.md §2.5 hazard note).
+// reference's combine kernel should (SURVEY.md §2.5 hazard note). Launch 2
+// also merges the paged decode's splits (paged.cu, kernel 6).
 // Bound: bytes of K + V; splits exist to put enough blocks on the 132 SMs
 // when batch x kv heads is small (dispatch/config.py:num_splits_heuristic,
 // one block of launch 1 an SM).
@@ -62,9 +63,9 @@ extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
                   num_splits, window_left, scale_log2e, softcap, softcap_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFA_DEC(T)                                                  \
-  if (d == 64) return kd90::launch<T, 64>(k, v, a, batch, s);       \
-  if (d == 128) return kd90::launch<T, 128>(k, v, a, batch, s);     \
-  if (d == 256) return kd90::launch<T, 256>(k, v, a, batch, s);     \
+  if (d == 64) return kd90::launch<T, 64, false, false>(k, v, a, batch, s);   \
+  if (d == 128) return kd90::launch<T, 128, false, false>(k, v, a, batch, s); \
+  if (d == 256) return kd90::launch<T, 256, false, false>(k, v, a, batch, s); \
   return MFA_BAD_CONFIG;
   if (dtype == MFA_BF16) { MFA_DEC(__nv_bfloat16) }
   if (dtype == MFA_F16) { MFA_DEC(__half) }

@@ -1,7 +1,8 @@
-// The mma.sync flash-attention backward tiles of four launches of
-// backward.cu: the deterministic split (dK/dV, dQ) and the packed-varlen
-// split (kernels 12-14). The fused launch (kernel 11) runs the wgmma + TMA
-// kernel of flash_bwd_sm90.cuh.
+// The mma.sync flash-attention backward tiles of three launches of
+// backward.cu: the deterministic split's dQ (kernel 13) and the
+// packed-varlen split (kernel 14). The fused launch (kernel 11) and the
+// split's dK/dV (kernel 12) run the wgmma + TMA kernel of
+// flash_bwd_sm90.cuh.
 //
 // Every launch recomputes the probabilities from the forward's saved
 // natural-log LSE and runs the FlashAttention-2 recurrence on mma.sync

@@ -1,7 +1,15 @@
-// The fused flash-attention backward for Hopper (sm_90a): dQ, dK and dV in
-// one pass (kernel 11, mfa_bwd_fused in backward.cu), on wgmma and TMA.
-// It replaces mfa_tpu/kernels/backward.py:_fused_bwd_kernel and computes
-// the function of kernels/backward.py:_bwd_plain:
+// The flash-attention backward for Hopper (sm_90a) on wgmma and TMA, in two
+// instantiations of one kernel:
+//  - DQ = true: dQ, dK and dV in one pass (kernel 11, mfa_bwd_fused in
+//    backward.cu), replacing mfa_tpu/kernels/backward.py:_fused_bwd_kernel.
+//  - DQ = false: dK and dV alone (kernel 12, mfa_bwd_dkv), replacing
+//    _dkv_kernel / _dkv_tri_kernel (_dkv_body): the first launch of the
+//    deterministic split. No dQ step: no dS^T buffers, no consumer barrier,
+//    no dQ product, tile or reduction; the shared memory this frees holds
+//    a third ring slot. A block owns its keys and sums dK and dV over the
+//    group's q heads and the band's q tiles in registers in a fixed order
+//    and stores them once, so its results are the same bits run to run.
+// Both compute the function of kernels/backward.py:_bwd_plain:
 //
 //   P  = exp2(S * c - LSE * log2e),  S = Q K^T (softcap: cap * tanh(S * scale / cap))
 //   dV = P^T dO     dS = P * (dO V^T - delta) * scale (* (1 - tanh^2))
@@ -28,7 +36,7 @@
 //    in registers are the register A operands of dV += P^T dO and dK +=
 //    dS^T Q, whose B operands are dO and Q as stored (MN-major, the
 //    transpose bit).
-//  - dQ = dS K needs all 128 keys: each consumer writes its dS^T to a
+//  - dQ = dS K (DQ only) needs all 128 keys: each consumer writes its dS^T to a
 //    swizzled shared buffer (two of them, by tile parity), a named barrier
 //    of the two consumers follows, and each computes half of dQ's D columns
 //    as a wgmma with both operands MN-major (A = the dS^T buffer, B = K).
@@ -55,7 +63,6 @@ constexpr int BN = 128;       // keys a block
 constexpr int WG_N = 64;      // keys a consumer warpgroup
 constexpr int BM = 64;        // q rows a ring slot
 constexpr int THREADS = 384;  // producer warpgroup + two consumers
-constexpr int STAGES = 2;     // Q/dO ring slots
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -67,15 +74,17 @@ struct Args {
 };
 
 // Shared memory (every tile 1024-byte aligned, 128-byte swizzled rows):
-// K, V [D/64][BN][64]; Q and dO slots [D/64][BM][64]; two dS^T buffers
-// [BN][BM]; the fp32 dQ tile [D/32][BM][32]; per slot the log2 LSE and
-// delta of its BM rows; the barriers (kv, full[STAGES], empty[STAGES]).
-template <int D>
+// K, V [D/64][BN][64]; STAGES Q and dO slots [D/64][BM][64] (2 with the dQ
+// step, 3 without); with the dQ step two dS^T buffers [BN][BM] and the
+// fp32 dQ tile [D/32][BM][32]; per slot the log2 LSE and delta of its BM
+// rows; the barriers (kv, full[STAGES], empty[STAGES]).
+template <int D, bool DQ>
 struct Plan {
+  static constexpr int STAGES = DQ ? 2 : 3;
   static constexpr uint32_t KV_BYTES = BN * D * 2;
   static constexpr uint32_t Q_BYTES = BM * D * 2;
-  static constexpr uint32_t DS_BYTES = BN * BM * 2;
-  static constexpr uint32_t DQ_BYTES = BM * D * 4;
+  static constexpr uint32_t DS_BYTES = DQ ? BN * BM * 2 : 0;
+  static constexpr uint32_t DQ_BYTES = DQ ? BM * D * 4 : 0;
   static constexpr uint32_t k_off = 0;
   static constexpr uint32_t v_off = KV_BYTES;
   static constexpr uint32_t q_off = 2 * KV_BYTES;
@@ -93,6 +102,7 @@ struct Plan {
 
 __device__ __forceinline__ uint32_t bar_kv(uint32_t bars) { return bars; }
 __device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) { return bars + 8 * (1 + s); }
+template <int STAGES>
 __device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
   return bars + 8 * (1 + STAGES + s);
 }
@@ -108,14 +118,15 @@ __device__ __forceinline__ bool sees(int k0, int q0, const Args& a) {
 
 // Grid (hkv, batch, ceil(sk / BN)): the key tile is the slowest axis, so
 // the causal blocks with the most q tiles (the first keys) launch first.
-template <typename T, int D>
+template <typename T, int D, bool DQ>
 __global__ void __launch_bounds__(THREADS, 1)
     bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                const Args a) {
-  using P = Plan<D>;
+  using P = Plan<D, DQ>;
+  constexpr int STAGES = P::STAGES;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int kv0 = blockIdx.z * BN;
   const int group = a.hq / a.hkv, h0 = hk * group;
@@ -138,7 +149,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_init(bar_kv(bars), 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_full(bars, s), 1 + 32);  // the TMA thread and warp 1's lanes
-      mbar_init(bar_empty(bars, s), 2 * 128);  // every consumer thread releases
+      mbar_init(bar_empty<STAGES>(bars, s), 2 * 128);  // every consumer thread releases
     }
     mbar_fence_init();
   }
@@ -159,7 +170,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, hi = i / per_head, q0 = (q_first + i % per_head) * BM;
         const int bh_q = b * a.hq + h0 + hi;
-        mbar_wait(bar_empty(bars, s), ((i / STAGES) & 1) ^ 1);
+        mbar_wait(bar_empty<STAGES>(bars, s), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full(bars, s), 2 * P::Q_BYTES);
         const uint32_t q_s = base + P::q_off + s * P::Q_BYTES;
         const uint32_t do_s = base + P::do_off + s * P::Q_BYTES;
@@ -174,7 +185,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, hi = i / per_head, q0 = (q_first + i % per_head) * BM;
         const size_t row0 = (size_t)(b * a.hq + h0 + hi) * a.sq;
-        mbar_wait(bar_empty(bars, s), ((i / STAGES) & 1) ^ 1);
+        mbar_wait(bar_empty<STAGES>(bars, s), ((i / STAGES) & 1) ^ 1);
         float* slot = rows + s * 2 * BM;
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
@@ -278,20 +289,24 @@ __global__ void __launch_bounds__(THREADS, 1)
             da[kc][x] = pack2<T>(dp[8 * kc + 2 * x], dp[8 * kc + 2 * x + 1]);
           }
         }
-        // dS^T into the swizzled [BN keys][BM rows] buffer: the pair da[kc][x]
-        // is key row 64 w + 16 wi + g + 8 (x & 1), 16-byte unit 2 kc + x / 2
+        if constexpr (DQ) {
+          // dS^T into the swizzled [BN keys][BM rows] buffer: the pair
+          // da[kc][x] is key row 64 w + 16 wi + g + 8 (x & 1), 16-byte unit
+          // 2 kc + x / 2
 #pragma unroll
-        for (int kc = 0; kc < BM / 16; ++kc) {
+          for (int kc = 0; kc < BM / 16; ++kc) {
 #pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            const int row = w * WG_N + wi * 16 + g + 8 * (x & 1);
-            const int unit = (2 * kc + (x >> 1)) ^ g;
-            asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(ds_s + row * 128 + unit * 16 + 4 * t4),
-                         "r"(da[kc][x])
-                         : "memory");
+            for (int x = 0; x < 4; ++x) {
+              const int row = w * WG_N + wi * 16 + g + 8 * (x & 1);
+              const int unit = (2 * kc + (x >> 1)) ^ g;
+              asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(ds_s + row * 128 + unit * 16 +
+                                                              4 * t4),
+                           "r"(da[kc][x])
+                           : "memory");
+            }
           }
+          fence_async_smem();
         }
-        fence_async_smem();
 
         // dV += P^T dO and dK += dS^T Q: 16 q rows a step (2048 bytes of a chunk)
         fence_regs(dva);
@@ -306,58 +321,67 @@ __global__ void __launch_bounds__(THREADS, 1)
         wg_commit();
       }
 
-      // the previous tile's dQ reductions have read the dQ tile
-      if (issuer) bulk_wait_read();
-      named_sync(1, 2 * 128);  // both halves of dS^T are in shared memory
+      if constexpr (DQ) {
+        // the previous tile's dQ reductions have read the dQ tile
+        if (issuer) bulk_wait_read();
+        named_sync(1, 2 * 128);  // both halves of dS^T are in shared memory
 
-      // dQ[:, dq_col0 : + D/2] = dS K over the live keys: A = dS^T read
-      // MN-major, B = K MN-major, 16 keys (2048 bytes) a step
-      const int kk_lo = live0 ? 0 : WG_N / 16, kk_hi = live1 ? BN / 16 : WG_N / 16;
-      float dq[DQ_N / 2];
+        // dQ[:, dq_col0 : + D/2] = dS K over the live keys: A = dS^T read
+        // MN-major, B = K MN-major, 16 keys (2048 bytes) a step
+        const int kk_lo = live0 ? 0 : WG_N / 16, kk_hi = live1 ? BN / 16 : WG_N / 16;
+        float dq[DQ_N / 2];
 #pragma unroll
-      for (int x = 0; x < DQ_N / 2; ++x) dq[x] = 0.f;
-      if (kk_lo < kk_hi) {
-        wg_fence();
+        for (int x = 0; x < DQ_N / 2; ++x) dq[x] = 0.f;
+        if (kk_lo < kk_hi) {
+          wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-          if (kk >= kk_lo && kk < kk_hi)
-            wgmma_ss_t<T, DQ_N, 1, 1>(dq, sw128_desc(ds_s + kk * 2048, BN * 128),
-                                      sw128_desc(k_dq + kk * 2048, BN * 128), 1);
+          for (int kk = 0; kk < BN / 16; ++kk) {
+            if (kk >= kk_lo && kk < kk_hi)
+              wgmma_ss_t<T, DQ_N, 1, 1>(dq, sw128_desc(ds_s + kk * 2048, BN * 128),
+                                        sw128_desc(k_dq + kk * 2048, BN * 128), 1);
+          }
+          wg_commit();
         }
-        wg_commit();
-      }
-      wg_wait_all();
-      fence_regs(dka);
-      fence_regs(dva);
-      fence_regs(dq);
-      mbar_arrive(bar_empty(bars, s));  // Q, dO, LSE and delta of the slot are read
+        wg_wait_all();
+        fence_regs(dka);
+        fence_regs(dva);
+        fence_regs(dq);
+        mbar_arrive(bar_empty<STAGES>(bars, s));  // Q, dO, LSE and delta of the slot are read
 
-      if (kk_lo < kk_hi) {
-        // this half of dQ into the fp32 tile: 32-column chunks of 128-byte
-        // rows, 16-byte unit u of row r at unit u ^ (r % 8) (conflict-free)
+        if (kk_lo < kk_hi) {
+          // this half of dQ into the fp32 tile: 32-column chunks of 128-byte
+          // rows, 16-byte unit u of row r at unit u ^ (r % 8) (conflict-free)
 #pragma unroll
-        for (int j = 0; j < DQ_N / 8; ++j) {
+          for (int j = 0; j < DQ_N / 8; ++j) {
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int r = wi * 16 + g + 8 * x, col = dq_col0 + 8 * j + 2 * t4;
-            const uint32_t at = dq_s + (col >> 5) * (BM * 128) + r * 128 +
-                                ((((col & 31) >> 2) ^ g) << 4) + (col & 3) * 4;
-            asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at),
-                         "f"(dq[4 * j + 2 * x]), "f"(dq[4 * j + 2 * x + 1])
-                         : "memory");
+            for (int x = 0; x < 2; ++x) {
+              const int r = wi * 16 + g + 8 * x, col = dq_col0 + 8 * j + 2 * t4;
+              const uint32_t at = dq_s + (col >> 5) * (BM * 128) + r * 128 +
+                                  ((((col & 31) >> 2) ^ g) << 4) + (col & 3) * 4;
+              asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at),
+                           "f"(dq[4 * j + 2 * x]), "f"(dq[4 * j + 2 * x + 1])
+                           : "memory");
+            }
+          }
+          fence_async_smem();
+          named_sync(2, 2 * 128);  // both halves of the dQ tile are written
+          if (issuer) {
+#pragma unroll
+            for (int ch = 0; ch < D / 32; ++ch)
+              tma_reduce_add_3d(&tdq, dq_s + ch * (BM * 128), ch * 32, q0, b * a.hq + h);
+            bulk_commit();
           }
         }
-        fence_async_smem();
-        named_sync(2, 2 * 128);  // both halves of the dQ tile are written
-        if (issuer) {
-#pragma unroll
-          for (int ch = 0; ch < D / 32; ++ch)
-            tma_reduce_add_3d(&tdq, dq_s + ch * (BM * 128), ch * 32, q0, b * a.hq + h);
-          bulk_commit();
-        }
+      } else {
+        wg_wait_all();
+        fence_regs(dka);
+        fence_regs(dva);
+        mbar_arrive(bar_empty<STAGES>(bars, s));  // Q, dO, LSE and delta of the slot are read
       }
     }
-    if (issuer) bulk_wait();
+    if constexpr (DQ) {
+      if (issuer) bulk_wait();
+    }
 
     // dK and dV of this warpgroup's keys < sk
 #pragma unroll
@@ -377,24 +401,26 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Encode the five tensor maps and launch (sq > 0, sk > 0). Returns a
-// cudaError_t code, MFA_TMA_ENCODE, or 0.
-template <typename T, int D>
+// Encode the tensor maps (the dQ workspace's only with DQ) and launch (sq >
+// 0, sk > 0). Returns a cudaError_t code, MFA_TMA_ENCODE, or 0.
+template <typename T, int D, bool DQ>
 int launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
            const float* delta, float* dq_ws, void* dk, void* dv, int batch, const Args& a,
            cudaStream_t stream) {
-  using P = Plan<D>;
+  using P = Plan<D, DQ>;
   constexpr bool BF = kIsBf16<T>;
-  CUtensorMap tq, tk, tv, tdo, tdq;
+  CUtensorMap tq, tk, tv, tdo, tdq = {};
   if (int err = mfa_tensor_map_3d(&tq, q, BF, D, a.sq, batch * a.hq, BM)) return err;
   if (int err = mfa_tensor_map_3d(&tdo, dO, BF, D, a.sq, batch * a.hq, BM)) return err;
   if (int err = mfa_tensor_map_3d(&tk, k, BF, D, a.sk, batch * a.hkv, BN)) return err;
   if (int err = mfa_tensor_map_3d(&tv, v, BF, D, a.sk, batch * a.hkv, BN)) return err;
   // the fp32 workspace [b * hq, sq, D] in boxes of 32 columns x BM rows
-  if (int err = mfa_encode_3d(&tdq, dq_ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, D, a.sq,
-                              batch * a.hq, (size_t)D * 4, (size_t)a.sq * D * 4, 32, BM))
-    return err;
-  auto kern = bwd_kernel<T, D>;
+  if (DQ) {
+    if (int err = mfa_encode_3d(&tdq, dq_ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, D, a.sq,
+                                batch * a.hq, (size_t)D * 4, (size_t)a.sq * D * 4, 32, BM))
+      return err;
+  }
+  auto kern = bwd_kernel<T, D, DQ>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)P::bytes))
     return err;

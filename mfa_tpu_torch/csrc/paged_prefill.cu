@@ -122,23 +122,6 @@ __device__ __forceinline__ Span span_of(int ta, int n, int q_len, int q_start, i
   return Span{lo / BN, (hi - 1) / BN};
 }
 
-// Four int8 values -> two packed bf16 pairs (bytes 0, 1 and 2, 3), exactly:
-// the low 7 bits under exponent 2^7 give 128 + low, the sign bit there 128
-// or 256, and their difference is the byte (csrc/wmatmul.cu's conversion).
-__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  const uint32_t low = w & 0x7F7F7F7Fu, sign = w & 0x80808080u;
-  const uint32_t a0 = __byte_perm(low, 0x43434343u, 0x4140);
-  const uint32_t b0 = __byte_perm(sign, 0x43434343u, 0x4140);
-  const uint32_t a1 = __byte_perm(low, 0x43434343u, 0x4342);
-  const uint32_t b1 = __byte_perm(sign, 0x43434343u, 0x4342);
-  const __nv_bfloat162 r0 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a0),
-                                    *reinterpret_cast<const __nv_bfloat162*>(&b0));
-  const __nv_bfloat162 r1 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a1),
-                                    *reinterpret_cast<const __nv_bfloat162*>(&b1));
-  lo = *reinterpret_cast<const uint32_t*>(&r0);
-  hi = *reinterpret_cast<const uint32_t*>(&r1);
-}
-
 // The 256 consumer threads (ctid) convert the int8 slot into a bf16
 // buffer: 16 values a unit, one 64-column chunk row as 4 units, rows in
 // the order of the 128-byte swizzle's atoms, every load issued before the

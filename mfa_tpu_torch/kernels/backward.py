@@ -1,11 +1,13 @@
 """Flash-attention backward (counterpart of mfa_tpu/kernels/backward.py).
 
-Kernels 11-14 of the port, the five launches of csrc/backward.cu:
+Kernels 11-14 of the port, the five launches of csrc/backward.cu. On the
+warp-specialised wgmma + TMA kernel of csrc/flash_bwd_sm90.cuh:
 `mfa_bwd_fused` (kernel 11: dQ, dK and dV in one pass, dQ summed across
-blocks in fp32) on the warp-specialised wgmma + TMA kernel of
-csrc/flash_bwd_sm90.cuh, and on the mma.sync tiles of csrc/flash_bwd.cuh
-the deterministic split `mfa_bwd_dkv` + `mfa_bwd_dq` (kernels 12, 13) and
-the packed-varlen split `mfa_varlen_bwd_dkv` + `mfa_varlen_bwd_dq` (14). Each recomputes P from the forward's natural-log LSE:
+blocks in fp32) and `mfa_bwd_dkv` (kernel 12: the same kernel without its
+dQ step, the first launch of the deterministic split). On the mma.sync
+tiles of csrc/flash_bwd.cuh: the split's `mfa_bwd_dq` (kernel 13) and the
+packed-varlen split `mfa_varlen_bwd_dkv` + `mfa_varlen_bwd_dq` (14). Each
+recomputes P from the forward's natural-log LSE:
 
     delta = rowsum(dO * O)                      (fp32 PyTorch, as in JAX)
     P  = exp(S - LSE)   with S the scaled (softcapped) logits

@@ -25,7 +25,7 @@ from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
 from mfa_tpu_torch.kernels import _build
 
 _LOG2E = math.log2(math.e)
-TILE = 64  # tokens per kernel tile (csrc/decode_sm90.cuh, csrc/decode_common.cuh)
+TILE = 64  # tokens per kernel tile (csrc/decode_sm90.cuh, also the paged kernel's)
 # Blocks of launch 1 an SM holds: its ring takes ~193 KB of shared memory
 BLOCKS_PER_SM = 1
 MAX_GROUP = 8  # q heads per kv head the kernels take
@@ -147,12 +147,21 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
     _build.launches["decode"] += 1
     out = torch.empty_like(q)
     lse = torch.empty((batch, num_heads), dtype=torch.float32, device=dev)
+    launch_combine(o_part, lse_part, out, lse)
+    return out, lse
+
+
+def launch_combine(o_part, lse_part, out, lse):
+    """Launch 2 (mfa_decode_combine): fp32 partials [b, hkv, splits, group,
+    d] and their LSE -> out [b, hq, d] in its dtype and lse [b, hq]. Also
+    the paged decode's merge (kernels/paged.py)."""
+    batch, hkv, num_splits, _, d = o_part.shape
     fn = _build.function("decode", "mfa_decode_combine", _COMBINE_ARGTYPES)
     rc = fn(o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), code, batch, num_heads, hkv, num_splits, d, stream)
+            lse.data_ptr(), _build.DTYPE_CODES[out.dtype], batch, out.shape[1],
+            hkv, num_splits, d, _build.stream_of(out))
     _build.check("decode", rc)
     _build.launches["combine"] += 1
-    return out, lse
 
 
 def decode_attention(
@@ -221,7 +230,8 @@ def paged_decode_attention(
     """Paged decode attention — see mfa_tpu_torch.kernels.paged.
 
     num_splits is accepted for signature parity with the contiguous route
-    and has no effect: the paged kernel has no split axis (as on the TPU).
+    and has no effect: the paged kernel takes its own split count from
+    the shapes (kernels/paged.py:split_plan).
     """
     from mfa_tpu_torch.kernels.paged import paged_attention
 

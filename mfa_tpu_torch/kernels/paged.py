@@ -1,9 +1,13 @@
 """Paged decode attention (counterpart of mfa_tpu/kernels/paged.py).
 
-Kernel 6 of the port: csrc/paged.cu. One block per (sequence, kv head)
-reads that sequence's pages in place through block_table (bf16/fp16
-pages, or int8 pages with fp32 per-row scales) and writes the final output
-and LSE. A CPU tensor runs `_paged_plain`, the same function in PyTorch.
+Kernel 6 of the port: csrc/paged.cu on kernel 5's tile
+(csrc/decode_sm90.cuh): one block per (sequence, kv head, split) reads that
+sequence's pages in place, one TMA box per page through block_table
+(bf16/fp16 pages, or int8 pages with fp32 per-row scales), and runs both
+products on the tensor cores. One split writes the final output and LSE;
+more write fp32 partials that kernel 5's combine launch merges. A CPU
+tensor runs `_paged_plain`, the same function in PyTorch;
+`_paged_split_plain` is the kernel's split route in PyTorch.
 
 Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide,
 without the TPU's 128-lane padding, fp8-as-int8 bits or int4 pair order.
@@ -18,26 +22,59 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import softmax_scale_default
-from mfa_tpu_torch.kernels import _build
-from mfa_tpu_torch.kernels.decode import KERNEL_HEAD_DIMS, MAX_GROUP
+from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
+                                           softmax_scale_default)
+from mfa_tpu_torch.kernels import _build, decode
+from mfa_tpu_torch.kernels.decode import KERNEL_HEAD_DIMS, MAX_GROUP, TILE
 
 _LOG2E = math.log2(math.e)
+# Blocks of the kernel an SM holds: its ring takes 150-190 KB of shared memory
+BLOCKS_PER_SM = 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             _I, _I, _I, _I, _I, _F, _F, _F, _P]
+_ARGTYPES = [_P] * 11 + [_I] * 13 + [_F, _F, _F, _P]
 
 
-def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
-                 scale, window_left, softcap, pos_offset):
-    """The kernel's function in plain PyTorch: K scales on score columns,
-    V scales folded into the probabilities, probabilities rounded to the
-    value dtype (bf16 for int8 pages) before P.V."""
+def split_plan(batch: int, num_kv_heads: int, pages_per_seq: int,
+               page_size: int):
+    """-> (num_splits, tokens_per_split) of the kernel's grid: the split
+    heuristic at the kernel's residency over the table's whole span
+    (pages_per_seq * page_size tokens; the lengths stay on the device), in
+    whole 64-token tiles."""
+    max_s = pages_per_seq * page_size
+    n = num_splits_heuristic(batch, num_kv_heads, max_s, TILE,
+                             blocks_per_sm=BLOCKS_PER_SM)
+    return decode.split_layout(max_s, n)
+
+
+def split_pages(split: int, tokens_per_split: int, page_size: int,
+                pages_per_seq: int):
+    """-> (first, end): the table entries a split can read, tokens
+    [split * tokens_per_split, (split + 1) * tokens_per_split)."""
+    first = split * tokens_per_split // page_size
+    end = min(pages_per_seq, cdiv((split + 1) * tokens_per_split, page_size))
+    return first, end
+
+
+def _visible_range(lens, window_left, pos_offset):
+    """Columns [lo, hi) each sequence's query sees."""
+    hi = lens.long()
+    lo = torch.zeros_like(hi)
+    if window_left >= 0:
+        lo = torch.clamp(hi + pos_offset - 1 - window_left, min=0)
+    return lo, hi
+
+
+def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
+                softcap, lo, hi):
+    """Normalized fp32 O [b, hq, d] and LSE [b, hq] over the columns [lo,
+    hi) of each sequence that table entries [first, first + table.shape[1])
+    hold: K scales on score columns, V scales folded into the
+    probabilities, probabilities rounded to the value dtype (bf16 for int8
+    pages) before P.V."""
     batch, num_heads, d = q.shape
     hkv, _, page, _ = k_pages.shape
     group = num_heads // hkv
     pps = table.shape[1]
-    out_dtype = q.dtype
     quantized = k_scales is not None
     idx = table.long().clamp(0, k_pages.shape[1] - 1)
     # [hkv, b, pps, page, d] -> [b, hkv, pps*page, d]
@@ -55,11 +92,8 @@ def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
         s = torch.tanh(s * (scale / softcap)) * softcap
     else:
         s = s * scale
-    col = torch.arange(pps * page, device=q.device)[None]
-    lens = lens.to(q.device).long()[:, None]
-    visible = col < lens
-    if window_left >= 0:
-        visible &= col >= torch.clamp(lens + pos_offset - 1 - window_left, min=0)
+    col = first * page + torch.arange(pps * page, device=q.device)[None]
+    visible = (col >= lo.to(q.device)[:, None]) & (col < hi.to(q.device)[:, None])
     s = s.masked_fill(~visible[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
@@ -69,10 +103,49 @@ def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
         p = p * v_scales[:, idx].permute(1, 0, 2, 3).reshape(batch, hkv, 1, -1)
     o = torch.einsum("bhgs,bhsd->bhgd", p.to(vdtype).float(), v.float())
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = (o / l_safe[..., None]).reshape(batch, num_heads, d).to(out_dtype)
+    out = (o / l_safe[..., None]).reshape(batch, num_heads, d)
     lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
                       m[..., 0] + torch.log(l_safe))
     return out, lse.reshape(batch, num_heads)
+
+
+def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
+                 scale, window_left, softcap, pos_offset):
+    """The kernel's function in plain PyTorch (`_paged_core` over every
+    visible column), out in q's dtype."""
+    lo, hi = _visible_range(lens, window_left, pos_offset)
+    out, lse = _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, 0,
+                           scale, softcap, lo, hi)
+    return out.to(q.dtype), lse
+
+
+def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
+                       scale, window_left, softcap, pos_offset,
+                       num_splits=None):
+    """The kernel's split route in plain PyTorch: a partial over each
+    split's table entries (`split_pages`) and tokens, merged by
+    decode.combine_splits. num_splits None: the launcher's `split_plan`."""
+    batch, num_heads, d = q.shape
+    hkv, _, page, _ = k_pages.shape
+    pps = table.shape[1]
+    if num_splits is None:
+        num_splits, tps = split_plan(batch, hkv, pps, page)
+    else:
+        num_splits, tps = decode.split_layout(pps * page, num_splits)
+    lo, hi = _visible_range(lens, window_left, pos_offset)
+    hi = torch.clamp(hi, max=pps * page)
+    parts, lses = [], []
+    for sp in range(num_splits):
+        first, end = split_pages(sp, tps, page, pps)
+        o, lse = _paged_core(q, k_pages, v_pages, k_scales, v_scales,
+                             table[:, first:end], first, scale, softcap,
+                             torch.clamp(lo, min=sp * tps),
+                             torch.clamp(hi, max=(sp + 1) * tps))
+        parts.append(o)
+        lses.append(lse)
+    out, lse = decode.combine_splits(torch.stack(parts, 1), torch.stack(lses, 1),
+                                     axis=1, return_lse=True)
+    return out.to(q.dtype), lse
 
 
 def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
@@ -86,6 +159,10 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
         raise NotImplementedError(
             f"the paged kernel takes head_dim in {KERNEL_HEAD_DIMS} and at "
             f"most {MAX_GROUP} q heads per kv head")
+    if page % 8:
+        raise NotImplementedError(
+            f"the paged kernel takes pages of a multiple of 8 rows (one "
+            f"swizzled TMA box), got {page}")
     if k_pages.dtype == torch.int8:
         if q.dtype not in (torch.bfloat16, torch.float16):
             raise NotImplementedError("int8 pages take bf16/fp16 q")
@@ -109,25 +186,34 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
     if k_scales is not None:
         _build.expect_shape(name, "k_scales", k_scales, k_pages.shape[:3])
         _build.expect_shape(name, "v_scales", v_scales, k_pages.shape[:3])
+        k_scales, v_scales = (_build.dense(t.float()) for t in (k_scales, v_scales))
     qk, k_pages, v_pages = (_build.dense(t) for t in (qk, k_pages, v_pages))
-    if k_scales is not None:
-        k_scales = k_scales.float().contiguous()
-        v_scales = v_scales.float().contiguous()
     lens = lens.to(torch.int32).contiguous()
     table = table.to(torch.int32).contiguous()
+    pps = table.shape[1]
+    num_splits, tps = split_plan(batch, hkv, pps, page)
     out = torch.empty_like(qk)
     lse = torch.empty((batch, num_heads), dtype=torch.float32, device=q.device)
+    o_part = lse_part = None
+    if num_splits > 1:
+        o_part = torch.empty((batch, hkv, num_splits, group, d),
+                             dtype=torch.float32, device=q.device)
+        lse_part = torch.empty((batch, hkv, num_splits, group),
+                               dtype=torch.float32, device=q.device)
     fn = _build.function("paged", "mfa_paged_decode", _ARGTYPES)
     rc = fn(qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _build.ptr(k_scales), _build.ptr(v_scales), lens.data_ptr(),
             table.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _build.ptr(o_part), _build.ptr(lse_part),
             _build.DTYPE_CODES[qk.dtype], _build.DTYPE_CODES[k_pages.dtype],
-            batch, num_heads, hkv, num_pages, page, table.shape[1], d,
+            batch, num_heads, hkv, num_pages, page, pps, d, num_splits, tps,
             pos_offset, window_left,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
             scale / softcap if softcap else 0.0, _build.stream_of(q))
     _build.check("paged", rc)
     _build.launches["paged"] += 1
+    if num_splits > 1:
+        decode.launch_combine(o_part, lse_part, out, lse)
     return out.to(q.dtype), lse
 
 

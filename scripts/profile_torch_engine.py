@@ -22,7 +22,7 @@ one image wave of chip_smoke.py's 6 image prompts (7 images of 896 x
 896), after one untraced warm wave, and the tower alone on the same 7
 images; the tower's trace splits the wave's device time into the tower,
 the text projections, the glue and kernel 9; then one wave of its 4 text
-prompts. For each phase it prints the host wall time (with and without the
+prompts and `--steps` decode steps of them. For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -46,23 +46,28 @@ sys.path.insert(0, ROOT)
 # D, kind, packed> (csrc/flash_fwd_sm90.cuh): kind 0 is kernel 1 (or 7,
 # packed), 1-4 the zero-shift engines (flagged, repair, bound, unchecked), 5
 # the image-block kernel (9). Kernel 8 is pp90::paged_prefill_kernel, kernel
-# 10 wm90::wmatmul_kernel, kernel 5's launch 1 kd90::splitkv_kernel;
-# "decode_kernel" is the paged kernel's alone.
+# 10 wm90::wmatmul_kernel. Kernel 5's launch 1 and kernel 6 are
+# kd90::splitkv_kernel<T, D, paged, int8>: paged true is kernel 6, whose
+# split route merges through combine_kernel (kernel 5's launch 2; the engine
+# reaches it only from the paged kernel).
 _FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
+_PAGED = re.compile(r"splitkv_kernel<[^,]+, [^,]+, (?:\(bool\))?(?:true|1)[,>]")
 GROUPS = (("prefill kernel", ()),
           ("zero-shift prefill kernels", ()),
           ("int8 matmul kernel", ("wmatmul_kernel",)),
           ("split-KV decode kernel", ("splitkv_kernel",)),
           ("image-block kernel", ()),
           ("paged prefill kernel", ("paged_prefill_kernel",)),
-          ("paged kernel", ("decode_kernel",)),
-          ("backward kernel", ("bwd_kernel", "bwd_dkv_kernel", "bwd_dq_kernel")),
+          ("paged kernel", ("combine_kernel",)),
+          ("backward kernel", ("bwd_kernel", "bwd_dq_kernel")),
           ("loss (softmax, nll)", ("SoftMax", "nll_loss")),
           ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")),
           ("elementwise / copy / reduce", ()))
 
 
 def _group(name: str) -> str:
+    if _PAGED.search(name):
+        return "paged kernel"
     m = _FA90.search(name)
     if m:
         kind = m.group(1)
@@ -115,12 +120,14 @@ def _report(tag, prof, wall_ms, plain_ms, n_units, unit, out):
     return {g: ms / n_units for g, ms in groups.items()}, dev_ms / n_units
 
 
-def gemma3_waves(acts, out_path) -> None:
+def gemma3_waves(acts, out_path, steps) -> None:
     """Gemma3-4B image wave: device time of the wave by group, and of the
     tower alone on the same images (its matmuls and elementwise kernels
     are subtracted from the wave's to leave the text stack's); then a text
     wave of chip_smoke.py's 4 text prompts (300-1800 tokens: the zero-shift
-    kernels 2 + 3 at head_dim 256, window 1023 on 5 layers of 6)."""
+    kernels 2 + 3 at head_dim 256, window 1023 on 5 layers of 6), and
+    `steps` decode steps of those 4 requests (the paged kernel at d 256 on
+    a grid of 16 blocks: its split route)."""
     import numpy as np
     import torch
     from torch.profiler import profile
@@ -190,21 +197,37 @@ def gemma3_waves(acts, out_path) -> None:
 
     _, _, texts = _gemma3_prompts(np.random.RandomState(1), 0, 0, 4)
 
-    def text_engine():
+    def text_engine(n_new=1):
         eng = Engine(params, cfg, num_pages=256, page_size=64, max_seqs=8,
                      pages_per_seq=40, quant_dtype="int8", device="cuda")
         for p in texts:
-            eng.submit(p, 1)
+            eng.submit(p, n_new)
         return eng
 
     wave(text_engine())  # warm-up
     plain = wave(text_engine())
-    eng = text_engine()
+    eng = text_engine(2 * steps + 4)
     with open(out_path or os.devnull, "a") as out:
         with profile(activities=acts) as prof:
             wall = wave(eng)
         _report(f"gemma3 text wave ({len(texts)} prompts, {sum(map(len, texts))} "
                 f"tokens, {cfg.n_layers} layers)", prof, wall, plain, 1, "wave", out)
+        eng.step()  # first decode step outside the trace
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        _report(f"gemma3 decode step (batch {len(texts)}, {cfg.n_layers} layers)", prof,
+                wall, plain, steps, "step", out)
+    eng.run()
 
 
 def serve_phase(params, cfg, steps, acts, out_path, tag) -> None:
@@ -306,7 +329,7 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
     if "gemma3" in phases:
-        gemma3_waves(acts, args.out)
+        gemma3_waves(acts, args.out, args.steps)
     print(f"card: {smi}", flush=True)
     return 0
 

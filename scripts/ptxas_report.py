@@ -9,9 +9,11 @@ temporary directory), and prints one line per kernel instantiation:
 registers a thread, spill stores and loads in bytes, the stack frame,
 whether its SASS (`cuobjdump -sass`) holds HGMMA (wgmma), HMMA (mma.sync)
 and UTMALDG (a TMA load), and the demangled name. --match keeps only the names containing the
-string. HMMA marks an mma.sync product (kernel 5's tile). Exits non-zero
-if a source does not compile. Needs nvcc and
-cuobjdump (the CUDA toolkit), not a card.
+string. HMMA marks an mma.sync product (the decode tile of kernels 5 and
+6). Exits non-zero if a source does not compile, if an instantiation
+spills, or if a kernel lacks the instructions its design rests on
+(REQUIRED: the decode tile HMMA and UTMALDG, the wgmma + TMA backward HGMMA
+and UTMALDG). Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -73,6 +75,11 @@ def sass_ops(lib: str, ops=("HGMMA", "HMMA", "UTMALDG")):
     return found
 
 
+# kernel name fragment -> SASS instructions every instantiation must hold
+REQUIRED = {"kd90::splitkv_kernel": ("HMMA", "UTMALDG"),
+            "fb90::bwd_kernel": ("HGMMA", "UTMALDG")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--match", default="")
@@ -106,6 +113,11 @@ def main() -> int:
                 print(f"{src}: {regs} registers, spill stores {st} B, spill "
                       f"loads {ld} B, stack {stack} B, {tags}: {name}",
                       flush=True)
+                missing = [op for frag, need in REQUIRED.items() if frag in name
+                           for op in need if not has.get(op)]
+                if st or ld or missing:
+                    print(f"  FAIL: spills {st} / {ld} B, missing {missing}", flush=True)
+                    failed = True
     return 1 if failed else 0
 
 

@@ -129,26 +129,39 @@ def test_decode_kernel_every_split_count(dev, b, s, d):
         assert (o.float() - o1).abs().max() <= 1e-2
 
 
-@pytest.mark.parametrize("hq,hkv,page,d,quant,dtype,pos_offset,window,softcap", [
-    (32, 8, 64, 128, True, BF, 1, -1, 0.0),
-    (32, 8, 64, 128, False, BF, 1, 50, 0.0),
-    (8, 8, 16, 64, True, HF, 0, -1, 0.0),       # fp16 q over int8 pages
-    (8, 1, 8, 64, False, HF, 0, 20, 0.0),       # pages smaller than a tile
-    (16, 2, 32, 128, True, BF, 1, 1, 0.0),
-    (32, 8, 64, 128, True, BF, 1, -1, 15.0),
-    (8, 4, 64, 256, True, BF, 1, 50, 0.0),      # head_dim 256, group 2 (Gemma3)
-    (8, 4, 64, 256, False, BF, 1, 50, 0.0),
-    (8, 4, 64, 256, True, HF, 1, -1, 0.0),
-    (16, 2, 32, 256, False, HF, 0, -1, 0.0),    # group 8
+_GEMMA3_LENS = [300 + (1700 * i) // 9 for i in range(10)]  # 300-2000
+
+
+@pytest.mark.parametrize("hq,hkv,page,d,quant,dtype,pos_offset,window,softcap,lens", [
+    (32, 8, 64, 128, True, BF, 1, -1, 0.0, None),
+    (32, 8, 64, 128, False, BF, 1, 50, 0.0, None),
+    (8, 8, 16, 64, True, HF, 0, -1, 0.0, None),       # fp16 q over int8 pages
+    (8, 1, 8, 64, False, HF, 0, 20, 0.0, None),       # pages smaller than a tile
+    (16, 2, 32, 128, True, BF, 1, 1, 0.0, None),
+    (32, 8, 64, 128, True, BF, 1, -1, 15.0, None),
+    (8, 4, 64, 256, True, BF, 1, 50, 0.0, None),      # head_dim 256, group 2 (Gemma3)
+    (8, 4, 64, 256, False, BF, 1, 50, 0.0, None),
+    (8, 4, 64, 256, True, HF, 1, -1, 0.0, None),
+    (16, 2, 32, 256, False, HF, 0, -1, 0.0, None),    # group 8
+    (32, 8, 128, 128, True, BF, 1, -1, 0.0, None),    # pages past a tile: 64-row boxes
+    (8, 4, 128, 64, False, BF, 1, 100, 0.0, None),
+    # more than one split: Gemma3-4B's decode (b10 hkv4: 40 blocks), b1
+    (8, 4, 64, 256, True, BF, 1, 1023, 0.0, _GEMMA3_LENS),
+    (8, 4, 64, 256, False, BF, 1, 1023, 0.0, _GEMMA3_LENS),
+    (32, 8, 64, 128, True, BF, 1, -1, 0.0, [8192]),
 ])
 def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
-                      softcap):
-    from mfa_tpu_torch.kernels import paged
+                      softcap, lens):
+    from mfa_tpu_torch.kernels import _build, paged
     from mfa_tpu_torch.kernels.quant import quantize_rows
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    lens = [300, 0, page, 383 // page * page - 1]
-    b, pps = len(lens), 400 // page + 1
+    if lens is None:
+        lens = [300, 0, page, 383 // page * page - 1]
+        pps = 400 // page + 1
+    else:
+        pps = max(lens) // page + 1
+    b = len(lens)
     P = b * pps + 3
     q = _rn(gen, b, hq, d, dtype=dtype)
     kf, vf = _rn(gen, hkv, P, page, d, dtype=dtype), _rn(gen, hkv, P, page, d, dtype=dtype)
@@ -159,16 +172,86 @@ def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
     table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
              ).reshape(b, pps).int()
     L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    splits, _ = paged.split_plan(b, hkv, pps, page)
+    if b * hkv < 100:  # the grid does not fill the card: the split route runs
+        assert splits > 1
+    _build.reset_launches()
     o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
                                    window_left=window, pos_offset=pos_offset,
                                    logit_softcap=softcap, return_lse=True)
+    # one launch at one split; the combine launch merges more
+    assert dict(_build.launches) == ({"paged": 1} if splits == 1
+                                     else {"paged": 1, "combine": 1})
     # int8 pages contract in bf16: the kernel rounds fp16 q to bf16 first
     q_ref = q.to(BF).float() if quant else q.float()
     ro, rl = paged._paged_plain(q_ref, kp, vp, ks, vs, L, table, d ** -0.5,
                                 window, softcap, pos_offset)
     assert o.dtype == dtype
     _close(o, lse, ro, rl)
-    assert torch.all(o[1] == 0)
+    assert (o.float() - ro.float()).abs().mean() < 2e-3
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(o[i] == 0) and torch.isneginf(lse[i]).all()
+
+
+@pytest.mark.parametrize("quant,page,d,window", [
+    (True, 64, 128, -1), (False, 64, 128, -1), (True, 16, 128, 50),
+    (False, 8, 64, -1), (True, 32, 256, -1), (False, 128, 256, 70),
+])
+def test_paged_kernel_ignores_rows_past_lens(dev, quant, page, d, window):
+    """Rows past each length hold NaN (16-bit pages), scales of rows past it
+    and of unmapped pages NaN (int8 pages), and table entries past each
+    length -1 or out of the pool: O and LSE stay finite and equal to the
+    plain version on the cleaned inputs, through every split count."""
+    from mfa_tpu_torch.kernels import paged
+    from mfa_tpu_torch.kernels.quant import quantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hq, hkv = 8, 2
+    lens = [1, 70, 0, 333, 129]
+    b, pps = len(lens), 400 // page + 1
+    P = b * pps + 2
+    q = _rn(gen, b, hq, d)
+    kf, vf = _rn(gen, hkv, P, page, d), _rn(gen, hkv, P, page, d)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
+    else:
+        kp, vp, ks, vs = kf, vf, None, None
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    used = torch.zeros(P, dtype=torch.bool, device=dev)
+    for i, n in enumerate(lens):
+        n_pages = -(-n // page)
+        used[table[i, :n_pages].long()] = True
+        if n % page:  # rows past the length in the last page
+            last = int(table[i, n_pages - 1])
+            for t in ([ks, vs] if quant else [kp, vp]):
+                t[:, last, n % page:] = float("nan")
+        table[i, n_pages:] = torch.where(
+            torch.arange(pps - n_pages, device=dev) % 2 == 0, -1, 10 ** 6).int()
+    for t in ([ks, vs] if quant else [kp, vp]):
+        t[:, ~used] = float("nan")
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
+                                   window_left=window, pos_offset=1, return_lse=True)
+    clean = [None if t is None else t.nan_to_num(0.0) for t in (kp, vp, ks, vs)]
+    ro, rl = paged._paged_plain(q.float(), *clean, L, table, d ** -0.5, window, 0.0, 1)
+    _close(o, lse, ro, rl)
+    assert torch.isfinite(lse[L > 0]).all()
+    assert paged.split_plan(b, hkv, pps, page)[0] > 1
+
+
+def test_paged_kernel_refuses_pages_off_8_rows(dev):
+    """A page that is not a multiple of 8 rows cannot keep the swizzle in
+    one TMA box: the kernel does not take it, and the wrapper says so."""
+    from mfa_tpu_torch.kernels import paged
+
+    q = torch.zeros(1, 4, 64, dtype=BF, device=dev)
+    pages = torch.zeros(2, 3, 12, 64, dtype=BF, device=dev)
+    lens = torch.tensor([10], dtype=torch.int32, device=dev)
+    table = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        paged.paged_attention(q, pages, pages, lens, table)
 
 
 def test_launch_counts_and_misaligned_views(dev):
@@ -485,6 +568,10 @@ def test_backward_kernels(dev, b, hq, hkv, sq, sk, d, causal, window, softcap, d
     fused = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=True, **kw)
     split = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
     assert dict(_build.launches) == {"bwd_fused": 1, "bwd_dkv": 1, "bwd_dq": 1}
+    args = backward._dense_cuda_inputs(q, k, v, o, lse, do) + (
+        d ** -0.5, window[0], 0 if causal else window[1], softcap)
+    dkv1, dkv2 = backward._launch_dkv(*args), backward._launch_dkv(*args)
+    assert all(torch.equal(a, b_) for a, b_ in zip(dkv1, dkv2))  # kernel 12 alone
     assert all(g.dtype == dtype for g in fused + split)
     _bwd_close(fused, ref, "fused")
     _bwd_close(split, ref, "split")

@@ -120,3 +120,71 @@ def test_paged_rejects_what_is_not_ported():
         paged_attention(*args, quant_dtype="int4")
     with pytest.raises(ValueError):
         paged_attention(*args, pos_offset=1, window_left=0)
+
+
+def _split_case(seed, quant=False):
+    """b3 hq8 hkv2 d64, pages of 32, 16 table entries (8 tiles of 64)."""
+    q, kp, vp, table, _ = _case(seed, pages=49, page=32, pps=16)
+    lens = np.array([500, 0, 200], np.int32)
+    if not quant:
+        return q, kp, vp, table, lens, None, None
+    kq, ks = (np.asarray(a) for a in jax_quantize(jnp.asarray(kp), "int8"))
+    vq, vs = (np.asarray(a) for a in jax_quantize(jnp.asarray(vp), "int8"))
+    return q, kq, vq, table, lens, ks, vs
+
+
+@pytest.mark.parametrize("num_splits,window_left,softcap,quant", [
+    (1, -1, 0.0, False), (2, 100, 0.0, False), (3, -1, 10.0, False),
+    (4, 300, 0.0, False), (4, -1, 0.0, False), (3, 200, 0.0, True),
+])
+def test_paged_split_route_matches_plain_and_jax(num_splits, window_left,
+                                                 softcap, quant):
+    """The kernel's split route on the CPU (partials over each split's
+    table entries, then the combine) against the one-pass plain version and
+    mfa_tpu's paged kernel in interpret mode, fp32 q, pos_offset=1. fp32
+    pages: 1e-4 (the same function). int8 pages round p to bf16 before P.V
+    after subtracting each split's own max, so outputs agree to 2^-8 (4e-3)
+    there; the LSE sums unrounded p and keeps 1e-4."""
+    from mfa_tpu_torch.kernels import paged
+
+    q, kp, vp, table, lens, ks, vs = _split_case(5, quant)
+    kw = dict(pos_offset=1, window_left=window_left, logit_softcap=softcap)
+    (jo, jl), (to, tl) = _run_both(q, kp, vp, table, lens, ks, vs, **kw)
+    t = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa: E731
+    so, sl = paged._paged_split_plain(t(q), t(kp), t(vp), t(ks), t(vs), t(lens),
+                                      t(table), 64 ** -0.5, window_left, softcap,
+                                      1, num_splits=num_splits)
+    n, _ = paged.decode.split_layout(16 * 32, num_splits)
+    assert n == num_splits
+    out_tol = dict(atol=4e-3, rtol=0) if quant else TOL
+    np.testing.assert_allclose(so.numpy(), to, **out_tol)
+    np.testing.assert_allclose(so.numpy(), jo, **out_tol)
+    _check_lse(sl.numpy(), tl)
+    _check_lse(sl.numpy(), jl)
+    assert np.all(so.numpy()[1] == 0.0)  # the empty sequence
+
+
+def test_paged_split_plan_is_the_launchers():
+    """Host arithmetic shared by the launcher and the split route: one split
+    where the grid fills the card (the 8B serve step, 128 blocks), more where
+    it does not (Gemma3-4B's decode, 40 blocks), split ranges of whole tiles
+    whose table entries cover the table, and num_splits=None taking that
+    plan."""
+    from mfa_tpu_torch.kernels import paged
+
+    assert paged.split_plan(16, 8, 8, 64) == (1, 512)
+    n, tps = paged.split_plan(10, 4, 40, 64)
+    assert n == 3 and tps % 64 == 0 and (n - 1) * tps < 40 * 64 <= n * tps
+    for page, pps in ((8, 51), (16, 25), (64, 40), (128, 20)):
+        n, tps = paged.split_plan(2, 2, pps, page)
+        spans = [paged.split_pages(s, tps, page, pps) for s in range(n)]
+        assert spans[0][0] == 0 and spans[-1][1] == pps
+        assert all(a[1] >= b[0] and a[0] <= b[0] for a, b in zip(spans, spans[1:]))
+    q, kp, vp, table, lens, _, _ = _split_case(6)
+    t = torch.from_numpy
+    args = (t(q), t(kp), t(vp), None, None, t(lens), t(table), 0.125, -1, 0.0, 1)
+    auto = paged._paged_split_plain(*args)
+    n, _ = paged.split_plan(3, 2, 16, 32)
+    assert n > 1
+    explicit = paged._paged_split_plain(*args, num_splits=n)
+    assert all(torch.equal(a, b) for a, b in zip(auto, explicit))
