@@ -1038,7 +1038,10 @@ def backward_kernels(records, rn):
                                                 enable_gqa=True)
             lib_ms = _time_ms(lambda: torch.autograd.grad(
                 ol, (ql, kl, vl), do, retain_graph=True), iters=5)
-            lib = f" library_ms(sdpa backward alone) {lib_ms:.4f}"
+            split_ms = ms["bwd_dkv"] + ms["bwd_dq"]
+            lib = (f" library_ms(sdpa backward alone) {lib_ms:.4f}; fused / sdpa "
+                   f"{ms['bwd_fused'] / lib_ms:.2f}x, split 12 + 13 / sdpa "
+                   f"{split_ms / lib_ms:.2f}x")
             del ql, kl, vl, ol
         print(f"  fused ms {ms['bwd_fused']:.4f} split ms {ms['bwd_dkv']:.4f} + "
               f"{ms['bwd_dq']:.4f} = {ms['bwd_dkv'] + ms['bwd_dq']:.4f} plain_ms "
@@ -1783,11 +1786,11 @@ def main() -> int:
                       "mfa_tpu/kernels/backward.py:163"),
         "bwd_dkv": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
                     "mfa_tpu/kernels/backward.py:413"),
-        "bwd_dq": ("mfa_tpu_torch/csrc/backward.cu",
+        "bwd_dq": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
                    "mfa_tpu/kernels/backward.py:513"),
-        "varlen_bwd_dkv": ("mfa_tpu_torch/csrc/backward.cu",
+        "varlen_bwd_dkv": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
                            "mfa_tpu/kernels/backward.py:1060"),
-        "varlen_bwd_dq": ("mfa_tpu_torch/csrc/backward.cu",
+        "varlen_bwd_dq": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
                           "mfa_tpu/kernels/backward.py:1142"),
         "blockmask": ("mfa_tpu_torch/csrc/flash_fwd_sm90.cuh",
                       "mfa_tpu/kernels/blockmask.py:54"),

@@ -1,188 +1,43 @@
 // Flash-attention backward for Hopper (sm_90a): dQ, dK, dV from the
-// forward's saved LSE. Five launches:
+// forward's saved LSE. Five launches, all on the warp-specialised wgmma +
+// TMA kernels of flash_bwd_sm90.cuh:
 //
 //  * mfa_bwd_fused (kernel 11) replaces
-//    mfa_tpu/kernels/backward.py:_fused_bwd_kernel, on the warp-specialised
-//    wgmma + TMA kernel of flash_bwd_sm90.cuh. One block per (kv head,
-//    batch, 128-key tile) computes dK and dV for its keys and adds dQ into
-//    a zeroed fp32 workspace [b, hq, sq, d] with bulk TMA reductions; the
-//    wrapper casts it to q's dtype. One pass computes all three gradients
-//    (5 products per tile), as the TPU kernel does. Its dQ varies in the
-//    last bits from run to run (the order of the blocks' additions).
+//    mfa_tpu/kernels/backward.py:_fused_bwd_kernel (fb90::bwd_kernel<T, D,
+//    true>). One block per (kv head, batch, 128-key tile) computes dK and
+//    dV for its keys and adds dQ into a zeroed fp32 workspace [b, hq, sq,
+//    d] with bulk TMA reductions; the wrapper casts it to q's dtype. One
+//    pass computes all three gradients (5 products per tile), as the TPU
+//    kernel does. Its dQ varies in the last bits from run to run (the
+//    order of the blocks' additions).
 //  * mfa_bwd_dkv (kernel 12) replaces _dkv_kernel / _dkv_tri_kernel
-//    (_dkv_body): kernel 11's wgmma + TMA kernel without its dQ step
-//    (fb90::bwd_kernel<T, D, false>), and mfa_bwd_dq (kernel 13) replaces
-//    _dq_kernel / _dq_tri_kernel (_dq_body) on the mma.sync tile of
-//    flash_bwd.cuh: the deterministic two-launch split (4 + 3 products).
-//    The TPU's rectangular and triangular grids are two enumerations of
-//    one function; here a block computes its band's bounds and skips dead
-//    tiles, so each is one launch.
+//    (_dkv_body): kernel 11's kernel without its dQ step (fb90::bwd_kernel<T,
+//    D, false>); mfa_bwd_dq (kernel 13) replaces _dq_kernel / _dq_tri_kernel
+//    (_dq_body): fb90::dq_kernel<T, D, false>, the forward's tile of 128 q
+//    rows walking the band's key tiles with dQ in registers. Together the
+//    deterministic two-launch split (4 + 3 products). The TPU's rectangular
+//    and triangular grids are two enumerations of one function; here a
+//    block computes its band's bounds and skips dead tiles, so each is one
+//    launch.
 //  * mfa_varlen_bwd_dkv / mfa_varlen_bwd_dq (kernel 14) replace
-//    _vl_dkv_kernel / _vl_dq_kernel (varlen_attention_bwd): the split on
-//    packed sequences, on the same mma.sync tiles.
-//    The grid is (tile, head, sequence): a block
-//    reads its sequence's offsets from cu_seqlens and leaves when its tile
-//    lies past that sequence; causal and the window act on positions local
-//    to the sequence, top-left aligned.
+//    _vl_dkv_kernel / _vl_dq_kernel (varlen_attention_bwd): the same two
+//    kernels on the packed layout (PACKED: strided tensor maps, each block
+//    reading its sequence's offsets from cu_seqlens and leaving when its
+//    tile lies past that sequence). Causal and the window act on positions
+//    local to the sequence, top-left aligned. On equal lengths they give
+//    the bits of kernels 12 + 13.
 //
 // Layouts: dense q, dO, dQ [b, hq, sq, D], k, v, dK, dV [b, hkv, sk, D],
 // LSE and delta [b, hq, sq]; packed q [total_q, hq, D], k [total_k, hkv, D],
 // LSE and delta [hq, total_q]. LSE is the natural log of the scaled
-// (capped) logits, -inf on rows that saw no column; it becomes log2 once,
-// when a tile is staged. GQA: q head h reads kv head h / (hq / hkv), and a
-// dK/dV block sums over the group's q heads.
+// (capped) logits, -inf on rows that saw no column; it becomes log2 once.
+// GQA: q head h reads kv head h / (hq / hkv), and a dK/dV block sums over
+// the group's q heads.
 //
 // Bound: tensor-core operations, 10 * hq * d flops per visible (row,
 // column) pair for the fused launch (8 for dK/dV, 6 for dQ); at training
-// shapes it is far from the 295 flops-per-byte line. The dQ launch and the
-// varlen split run mma.sync without copy/compute overlap.
-#include "flash_bwd.cuh"
+// shapes it is far from the 295 flops-per-byte line.
 #include "flash_bwd_sm90.cuh"
-
-namespace {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ dO, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq, int hq, int hkv,
-                  BwdGeom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int q0 = blockIdx.x * BWD_DQ_BM, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const size_t qb = ((size_t)b * hq + h) * g.sq * D;
-  const size_t lb = ((size_t)b * hq + h) * g.sq;
-  const size_t kb = ((size_t)b * hkv + hk) * g.sk * D;
-  bwd_dq_block<T, D>(q + qb, k + kb, v + kb, dO + qb, lse + lb, delta + lb, dq + qb, q0, g,
-                     smem_raw);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    varlen_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dO,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ cu_q,
-                          const int* __restrict__ cu_k, int hq, int hkv, BwdGeom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int kv0 = blockIdx.x * BWD_BN, hk = blockIdx.y, s = blockIdx.z;
-  const int k_start = cu_k[s], sk = cu_k[s + 1] - k_start;
-  if (kv0 >= sk) return;  // tile past this sequence: the whole block leaves
-  const int q_start = cu_q[s];
-  BwdGeom gs = g;
-  gs.sq = cu_q[s + 1] - q_start;
-  gs.sk = sk;
-  const int group = hq / hkv;
-  const size_t qb = (size_t)q_start * hq * D;
-  const size_t kb = ((size_t)k_start * hkv + hk) * D;
-  bwd_dkv_block<T, D>(q + qb, k + kb, v + kb, dO + qb, lse + q_start, delta + q_start, dk + kb,
-                      dv + kb, hk * group, group, kv0, gs, smem_raw);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    varlen_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dO,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         T* __restrict__ dq, const int* __restrict__ cu_q,
-                         const int* __restrict__ cu_k, int hq, int hkv, BwdGeom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int q0 = blockIdx.x * BWD_DQ_BM, h = blockIdx.y, s = blockIdx.z;
-  const int q_start = cu_q[s], sq = cu_q[s + 1] - q_start;
-  if (q0 >= sq) return;
-  const int k_start = cu_k[s];
-  BwdGeom gs = g;
-  gs.sq = sq;
-  gs.sk = cu_k[s + 1] - k_start;
-  const int hk = h / (hq / hkv);
-  const size_t qb = (size_t)q_start * hq * D + (size_t)h * D;
-  const size_t lb = (size_t)h * g.l_head + q_start;
-  const size_t kb = ((size_t)k_start * hkv + hk) * D;
-  bwd_dq_block<T, D>(q + qb, k + kb, v + kb, dO + qb, lse + lb, delta + lb, dq + qb, q0, gs,
-                     smem_raw);
-}
-
-BwdGeom geom(int sq, int sk, int wl, int wr, float scale, float softcap) {
-  BwdGeom g{};
-  g.sq = sq;
-  g.sk = sk;
-  g.wl = wl;
-  g.wr = wr;
-  g.scale = scale;
-  g.softcap = softcap;
-  g.softcap_mul = softcap > 0.f ? scale / softcap : 0.f;
-  g.c2 = softcap > 0.f ? BWD_LOG2E : scale * BWD_LOG2E;
-  return g;
-}
-
-template <typename Kern>
-int prepare(Kern kern, size_t smem) {
-  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-              const float* delta, void* dq, int batch, int hq, int hkv, int sq, int sk, int wl,
-              int wr, float scale, float softcap, cudaStream_t stream) {
-  BwdGeom g = geom(sq, sk, wl, wr, scale, softcap);
-  g.q_head = (long long)sq * D;
-  g.q_row = D;
-  g.l_head = sq;
-  g.k_row = D;
-  const size_t smem = BwdDqSmem<T, D>::bytes;
-  auto kern = bwd_dq_kernel<T, D>;
-  if (int err = prepare(kern, smem)) return err;
-  dim3 grid((sq + BWD_DQ_BM - 1) / BWD_DQ_BM, hq, batch);
-  kern<<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dq), hq, hkv, g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_varlen_dkv(const void* q, const void* k, const void* v, const void* dO,
-                      const float* lse, const float* delta, void* dk, void* dv,
-                      const int* cu_q, const int* cu_k, int batch, int hq, int hkv,
-                      int total_q, int max_sk, int wl, int wr, float scale, float softcap,
-                      cudaStream_t stream) {
-  BwdGeom g = geom(0, 0, wl, wr, scale, softcap);
-  g.q_head = D;
-  g.q_row = (long long)hq * D;
-  g.l_head = total_q;
-  g.k_row = (long long)hkv * D;
-  const size_t smem = BwdSmem<T, D>::bytes;
-  auto kern = varlen_bwd_dkv_kernel<T, D>;
-  if (int err = prepare(kern, smem)) return err;
-  dim3 grid((max_sk + BWD_BN - 1) / BWD_BN, hkv, batch);
-  kern<<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), cu_q,
-      cu_k, hq, hkv, g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_varlen_dq(const void* q, const void* k, const void* v, const void* dO,
-                     const float* lse, const float* delta, void* dq, const int* cu_q,
-                     const int* cu_k, int batch, int hq, int hkv, int total_q, int max_sq,
-                     int wl, int wr, float scale, float softcap, cudaStream_t stream) {
-  BwdGeom g = geom(0, 0, wl, wr, scale, softcap);
-  g.q_head = D;
-  g.q_row = (long long)hq * D;
-  g.l_head = total_q;
-  g.k_row = (long long)hkv * D;
-  const size_t smem = BwdDqSmem<T, D>::bytes;
-  auto kern = varlen_bwd_dq_kernel<T, D>;
-  if (int err = prepare(kern, smem)) return err;
-  dim3 grid((max_sq + BWD_DQ_BM - 1) / BWD_DQ_BM, hq, batch);
-  kern<<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dq), cu_q, cu_k, hq, hkv, g);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 #define MFA_BWD_DISPATCH(CALL)                                        \
   if (dtype == MFA_BF16 && d == 64) return CALL(__nv_bfloat16, 64);   \
@@ -192,6 +47,13 @@ int launch_varlen_dq(const void* q, const void* k, const void* v, const void* dO
   return MFA_BAD_CONFIG
 
 namespace {
+
+fb90::Args args_of(int hq, int hkv, int sq, int sk, int window_left, int window_right,
+                   float scale, float softcap) {
+  const float c2 = softcap > 0.f ? fb90::LOG2E : scale * fb90::LOG2E;
+  return fb90::Args{hq,    hkv, sq,      sk, window_left, window_right,
+                    scale, c2,  softcap, softcap > 0.f ? scale / softcap : 0.f};
+}
 
 // Kernel 11 (dq_ws set: dQ added into it) or kernel 12 (dq_ws null: dK and
 // dV alone) on fb90::bwd_kernel.
@@ -206,9 +68,7 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dO, con
     if (int err = (int)cudaMemsetAsync(dk, 0, bytes, st)) return err;
     return (int)cudaMemsetAsync(dv, 0, bytes, st);
   }
-  const float c2 = softcap > 0.f ? fb90::LOG2E : scale * fb90::LOG2E;
-  const fb90::Args a{hq,    hkv, sq,      sk, window_left, window_right,
-                     scale, c2,  softcap, softcap > 0.f ? scale / softcap : 0.f};
+  const fb90::Args a = args_of(hq, hkv, sq, sk, window_left, window_right, scale, softcap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MFA_CALL(T, D)                                                                        \
   (dq_ws != nullptr                                                                           \
@@ -241,46 +101,58 @@ extern "C" int mfa_bwd_dkv(const void* q, const void* k, const void* v, const vo
                      window_left, window_right, scale, softcap, stream);
 }
 
+// dq: [b, hq, sq, d] in the dtype, every row stored (0 where no key is seen).
 extern "C" int mfa_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                           const float* lse, const float* delta, void* dq, int dtype, int batch,
                           int hq, int hkv, int sq, int sk, int d, int window_left,
                           int window_right, float scale, float softcap, void* stream) {
   if (batch == 0 || sq == 0) return 0;
-#define MFA_CALL(T, D)                                                                   \
-  launch_dq<T, D>(q, k, v, dO, lse, delta, dq, batch, hq, hkv, sq, sk, window_left,     \
-                  window_right, scale, softcap, static_cast<cudaStream_t>(stream))
+  const fb90::Args a = args_of(hq, hkv, sq, sk, window_left, window_right, scale, softcap);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MFA_CALL(T, D) \
+  fb90::launch_dq<T, D, false>(q, k, v, dO, lse, delta, dq, batch, 0, 0, a, st)
   MFA_BWD_DISPATCH(MFA_CALL);
 #undef MFA_CALL
 }
 
 // cu_q/cu_k: [batch + 1] int32 on the device; max_sk bounds every sequence's
-// key length (the grid's tile axis). dk, dv: [total_k, hkv, d].
+// key length (the grid's tile axis). dk, dv: [total_k, hkv, d], every key
+// of every sequence stored.
 extern "C" int mfa_varlen_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                   const float* lse, const float* delta, void* dk, void* dv,
                                   const int* cu_q, const int* cu_k, int dtype, int batch,
-                                  int hq, int hkv, int total_q, int max_sk, int d,
+                                  int hq, int hkv, int total_q, int total_k, int max_sk, int d,
                                   int window_left, int window_right, float scale,
                                   float softcap, void* stream) {
   if (batch == 0 || max_sk == 0) return 0;
-#define MFA_CALL(T, D)                                                                   \
-  launch_varlen_dkv<T, D>(q, k, v, dO, lse, delta, dk, dv, cu_q, cu_k, batch, hq, hkv, \
-                          total_q, max_sk, window_left, window_right, scale, softcap,  \
-                          static_cast<cudaStream_t>(stream))
+  fb90::Args a = args_of(hq, hkv, 0, 0, window_left, window_right, scale, softcap);
+  a.cu_q = cu_q;
+  a.cu_k = cu_k;
+  a.total_q = total_q;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MFA_CALL(T, D)                                                                    \
+  fb90::launch_packed_dkv<T, D>(q, k, v, dO, lse, delta, dk, dv, batch, total_k, max_sk, a, \
+                                st)
   MFA_BWD_DISPATCH(MFA_CALL);
 #undef MFA_CALL
 }
 
-// dq: [total_q, hq, d].
+// dq: [total_q, hq, d], every row of every sequence stored; max_sq bounds
+// every sequence's q length.
 extern "C" int mfa_varlen_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                  const float* lse, const float* delta, void* dq,
                                  const int* cu_q, const int* cu_k, int dtype, int batch, int hq,
-                                 int hkv, int total_q, int max_sq, int d, int window_left,
-                                 int window_right, float scale, float softcap, void* stream) {
+                                 int hkv, int total_q, int total_k, int max_sq, int d,
+                                 int window_left, int window_right, float scale, float softcap,
+                                 void* stream) {
   if (batch == 0 || max_sq == 0 || total_q == 0) return 0;
-#define MFA_CALL(T, D)                                                                        \
-  launch_varlen_dq<T, D>(q, k, v, dO, lse, delta, dq, cu_q, cu_k, batch, hq, hkv, total_q, \
-                         max_sq, window_left, window_right, scale, softcap,                \
-                         static_cast<cudaStream_t>(stream))
+  fb90::Args a = args_of(hq, hkv, 0, 0, window_left, window_right, scale, softcap);
+  a.cu_q = cu_q;
+  a.cu_k = cu_k;
+  a.total_q = total_q;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MFA_CALL(T, D) \
+  fb90::launch_dq<T, D, true>(q, k, v, dO, lse, delta, dq, batch, total_k, max_sq, a, st)
   MFA_BWD_DISPATCH(MFA_CALL);
 #undef MFA_CALL
 }

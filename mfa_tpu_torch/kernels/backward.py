@@ -1,13 +1,15 @@
 """Flash-attention backward (counterpart of mfa_tpu/kernels/backward.py).
 
-Kernels 11-14 of the port, the five launches of csrc/backward.cu. On the
-warp-specialised wgmma + TMA kernel of csrc/flash_bwd_sm90.cuh:
+Kernels 11-14 of the port, the five launches of csrc/backward.cu, all on
+the warp-specialised wgmma + TMA kernels of csrc/flash_bwd_sm90.cuh:
 `mfa_bwd_fused` (kernel 11: dQ, dK and dV in one pass, dQ summed across
-blocks in fp32) and `mfa_bwd_dkv` (kernel 12: the same kernel without its
-dQ step, the first launch of the deterministic split). On the mma.sync
-tiles of csrc/flash_bwd.cuh: the split's `mfa_bwd_dq` (kernel 13) and the
-packed-varlen split `mfa_varlen_bwd_dkv` + `mfa_varlen_bwd_dq` (14). Each
-recomputes P from the forward's natural-log LSE:
+blocks in fp32); the deterministic split, `mfa_bwd_dkv` (kernel 12: the
+same kernel without its dQ step) then `mfa_bwd_dq` (kernel 13: a dQ
+kernel shaped like the forward's tile, 128 q rows a block walking the
+band's key tiles); and the same split on the packed layout,
+`mfa_varlen_bwd_dkv` + `mfa_varlen_bwd_dq` (kernel 14), which on equal
+lengths gives kernel 12 + 13's bits. Each recomputes P from the forward's
+natural-log LSE:
 
     delta = rowsum(dO * O)                      (fp32 PyTorch, as in JAX)
     P  = exp(S - LSE)   with S the scaled (softcapped) logits
@@ -37,8 +39,8 @@ _DENSE_TAIL = [_I] * 9 + [_F, _F, _P]  # dtype .. window_right, scale, cap, stre
 _FUSED_ARGTYPES = [_P] * 9 + _DENSE_TAIL
 _DKV_ARGTYPES = [_P] * 8 + _DENSE_TAIL
 _DQ_ARGTYPES = [_P] * 7 + _DENSE_TAIL
-_VL_DKV_ARGTYPES = [_P] * 10 + [_I] * 9 + [_F, _F, _P]
-_VL_DQ_ARGTYPES = [_P] * 9 + [_I] * 9 + [_F, _F, _P]
+_VL_DKV_ARGTYPES = [_P] * 10 + [_I] * 10 + [_F, _F, _P]
+_VL_DQ_ARGTYPES = [_P] * 9 + [_I] * 10 + [_F, _F, _P]
 
 
 def _band_mask(sq, sk, window_left, window_right, device):
@@ -255,14 +257,14 @@ def _varlen_cuda_inputs(q, k, v, out, lse, do, cu_q, cu_k):
 def _launch_varlen_dkv(q, k, v, do, lse, delta, cu_q, cu_k, max_sk, scale,
                        wl, wr, softcap):
     total_q, hq, d = q.shape
-    hkv = k.shape[1]
-    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    total_k, hkv = k.shape[:2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _build.function("backward", "mfa_varlen_bwd_dkv", _VL_DKV_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             cu_q.data_ptr(), cu_k.data_ptr(), _build.DTYPE_CODES[q.dtype],
-            cu_q.shape[0] - 1, hq, hkv, total_q, int(max_sk), d, wl, wr,
-            scale, softcap, _build.stream_of(q))
+            cu_q.shape[0] - 1, hq, hkv, total_q, total_k, int(max_sk), d, wl,
+            wr, scale, softcap, _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["varlen_bwd_dkv"] += 1
     return dk, dv
@@ -271,13 +273,13 @@ def _launch_varlen_dkv(q, k, v, do, lse, delta, cu_q, cu_k, max_sk, scale,
 def _launch_varlen_dq(q, k, v, do, lse, delta, cu_q, cu_k, max_sq, scale,
                       wl, wr, softcap):
     total_q, hq, d = q.shape
-    dq = torch.zeros_like(q)
+    dq = torch.empty_like(q)
     fn = _build.function("backward", "mfa_varlen_bwd_dq", _VL_DQ_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), cu_q.data_ptr(),
             cu_k.data_ptr(), _build.DTYPE_CODES[q.dtype], cu_q.shape[0] - 1,
-            hq, k.shape[1], total_q, int(max_sq), d, wl, wr, scale, softcap,
-            _build.stream_of(q))
+            hq, k.shape[1], total_q, k.shape[0], int(max_sq), d, wl, wr,
+            scale, softcap, _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["varlen_bwd_dq"] += 1
     return dq
@@ -305,7 +307,9 @@ def varlen_attention_bwd(
 
     q, do, out: [total_q, hq, d]; k, v: [total_k, hkv, d]; lse: [hq,
     total_q] (the varlen forward's return_lse layout); cu_seqlens_q/k:
-    [batch + 1]. Causal and the window act on positions local to each
+    [batch + 1], total_q == cu_seqlens_q[-1] and total_k ==
+    cu_seqlens_k[-1] (the kernels store the sequences' rows and no
+    other). Causal and the window act on positions local to each
     sequence, top-left aligned, as in the forward. max_seqlen_q/k bound
     the sequences' lengths (the kernels' grids); when None they are read
     from cu_seqlens. Runs the split (mfa_varlen_bwd_dkv, then

@@ -11,9 +11,12 @@ whether its SASS (`cuobjdump -sass`) holds HGMMA (wgmma), HMMA (mma.sync)
 and UTMALDG (a TMA load), and the demangled name. --match keeps only the names containing the
 string. HMMA marks an mma.sync product (the decode tile of kernels 5 and
 6). Exits non-zero if a source does not compile, if an instantiation
-spills, or if a kernel lacks the instructions its design rests on
-(REQUIRED: the decode tile HMMA and UTMALDG, the wgmma + TMA backward HGMMA
-and UTMALDG). Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
+spills, if a kernel lacks the instructions its design rests on (REQUIRED:
+the decode tile HMMA and UTMALDG, the wgmma + TMA backward kernels
+`fb90::bwd_kernel` and `fb90::dq_kernel` HGMMA and UTMALDG), or if a kernel
+of a source holds an instruction its design retired (FORBIDDEN: HMMA in
+backward.cu, whose kernels all run wgmma). Needs nvcc and cuobjdump (the
+CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -77,7 +80,10 @@ def sass_ops(lib: str, ops=("HGMMA", "HMMA", "UTMALDG")):
 
 # kernel name fragment -> SASS instructions every instantiation must hold
 REQUIRED = {"kd90::splitkv_kernel": ("HMMA", "UTMALDG"),
-            "fb90::bwd_kernel": ("HGMMA", "UTMALDG")}
+            "fb90::bwd_kernel": ("HGMMA", "UTMALDG"),
+            "fb90::dq_kernel": ("HGMMA", "UTMALDG")}
+# source -> SASS instructions none of its kernels may hold
+FORBIDDEN = {"backward.cu": ("HMMA",)}
 
 
 def main() -> int:
@@ -115,8 +121,10 @@ def main() -> int:
                       flush=True)
                 missing = [op for frag, need in REQUIRED.items() if frag in name
                            for op in need if not has.get(op)]
-                if st or ld or missing:
-                    print(f"  FAIL: spills {st} / {ld} B, missing {missing}", flush=True)
+                banned = [op for op in FORBIDDEN.get(src, ()) if has.get(op)]
+                if st or ld or missing or banned:
+                    print(f"  FAIL: spills {st} / {ld} B, missing {missing}, "
+                          f"forbidden {banned}", flush=True)
                     failed = True
     return 1 if failed else 0
 

@@ -609,6 +609,8 @@ def test_wgmma_transposed_operands(dev, n, n0):
     ([100, 37, 300], [130, 64, 200], 8, 2, 128, False, (128, 64), 0.0, BF),
     ([30, 5], [10, 0], 4, 2, 64, True, (3, -1), 0.0, HF),   # dead rows
     ([65, 1, 64], [65, 1, 64], 4, 4, 64, True, (-1, -1), 30.0, BF),
+    # sequences straddling 64-row boxes, a zero-length one, a group of 8
+    ([65, 1, 127, 0, 200], [65, 1, 127, 0, 200], 32, 4, 128, True, (48, 0), 0.0, BF),
 ])
 def test_varlen_backward_kernels(dev, lens_q, lens_k, hq, hkv, d, causal, window,
                                  softcap, dtype):
@@ -632,6 +634,78 @@ def test_varlen_backward_kernels(dev, lens_q, lens_k, hq, hkv, d, causal, window
     _bwd_close(got, ref, "varlen")
     again = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu_q, cu_k, **kw)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("n_seq,s,hq,hkv,d,window", [
+    (8, 512, 32, 8, 128, (-1, 0)),
+    (3, 300, 8, 2, 64, (-1, 0)),      # boxes straddle the sequences
+    (4, 200, 32, 4, 128, (48, 0)),
+])
+def test_varlen_backward_equals_dense_bit_for_bit(dev, n_seq, s, hq, hkv, d, window):
+    """Equal lengths: kernel 14 runs kernels 12 and 13's code over the same
+    tiles in the same order (only the addressing differs), so dQ, dK and
+    dV agree bit for bit with the split on the same data batched."""
+    from mfa_tpu_torch.kernels import backward, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, do = _rn(gen, n_seq * s, hq, d), _rn(gen, n_seq * s, hq, d)
+    k, v = _rn(gen, n_seq * s, hkv, d), _rn(gen, n_seq * s, hkv, d)
+    cu = torch.arange(0, n_seq * s + 1, s, device=dev, dtype=torch.int32)
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, s, s, window_size=window,
+                                     return_lse=True)
+    qp, kp, vp, dop, lsep, delta = backward._varlen_cuda_inputs(q, k, v, o, lse, do, cu, cu)
+    tail = (d ** -0.5, window[0], window[1], 0.0)
+    dk, dv = backward._launch_varlen_dkv(qp, kp, vp, dop, lsep, delta, cu, cu, s, *tail)
+    dq = backward._launch_varlen_dq(qp, kp, vp, dop, lsep, delta, cu, cu, s, *tail)
+
+    def batched(t):  # [n * s, h, d] -> [n, h, s, d]
+        return t.view(n_seq, s, t.shape[1], d).transpose(1, 2).contiguous()
+
+    def rows(t):  # [h, n * s] -> [n, h, s]
+        return t.view(t.shape[0], n_seq, s).transpose(0, 1).contiguous()
+
+    dense = (batched(q), batched(k), batched(v), batched(do), rows(lsep), rows(delta))
+    dk1, dv1 = backward._launch_dkv(*dense, *tail)
+    dq1 = backward._launch_dq(*dense, *tail)
+    assert torch.equal(batched(dq), dq1)
+    assert torch.equal(batched(dk), dk1) and torch.equal(batched(dv), dv1)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_split_dq_stores_every_row(dev, packed):
+    """The split's dQ launch into memory the caching allocator has just
+    freed after filling it with NaN: every row is stored, and rows that
+    see no key (a window past a short kv, a sequence with no key: whole
+    blocks with no live key tile) come out exactly 0."""
+    from mfa_tpu_torch.kernels import backward, prefill, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    wl, scale = 4, 64 ** -0.5
+    if packed:
+        lens_q, lens_k = [30, 5, 300], [10, 0, 8]
+        q, do = _rn(gen, sum(lens_q), 4, 64), _rn(gen, sum(lens_q), 4, 64)
+        k, v = _rn(gen, sum(lens_k), 2, 64), _rn(gen, sum(lens_k), 2, 64)
+        cu_q = torch.tensor([0] + lens_q, device=dev).cumsum(0).int()
+        cu_k = torch.tensor([0] + lens_k, device=dev).cumsum(0).int()
+        o, lse = varlen.varlen_attention(q, k, v, cu_q, cu_k, max(lens_q), max(lens_k),
+                                         window_size=(wl, 0), return_lse=True)
+        args = backward._varlen_cuda_inputs(q, k, v, o, lse, do, cu_q, cu_k)
+        torch.full_like(q, float("nan"))  # freed at once, NaN-filled
+        dq = backward._launch_varlen_dq(*args, cu_q, cu_k, max(lens_q), scale, wl, 0, 0.0)
+        ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                         do.float(), cu_q, cu_k, scale, wl, 0, 0.0)
+        dead = torch.isneginf(lse).t()  # [total_q, hq]
+    else:
+        q, k, v, o, lse, do = _bwd_inputs(gen, 2, 4, 2, 300, 8, 64, True, (wl, -1), 0.0, BF)
+        args = backward._dense_cuda_inputs(q, k, v, o, lse, do)
+        torch.full_like(q, float("nan"))
+        dq = backward._launch_dq(*args, scale, wl, 0, 0.0)
+        ref = backward._bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                  do.float(), scale, wl, 0, 0.0)
+        dead = torch.isneginf(lse)  # [b, hq, sq]
+    assert int(dead.sum()) > 0
+    assert torch.all(dq[dead] == 0)
+    _bwd_close((dq,), ref[:1], "split dq")
 
 
 def test_autograd_functions_on_the_card(dev):

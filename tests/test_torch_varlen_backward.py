@@ -68,6 +68,14 @@ def test_varlen_backward_window():
     _vl_case(12, [200, 56], [200, 56], 2, 2, 64, True, window=(32, -1))
 
 
+def test_varlen_backward_straddling_pack():
+    """Sequences that straddle the kernels' 64-row boxes, one of length 0,
+    GQA 8:1, causal with a window: the shapes the packed kernels must get
+    right."""
+    lens = [65, 1, 127, 0, 200]
+    _vl_case(16, lens, lens, 8, 1, 64, True, window=(48, -1))
+
+
 def test_varlen_backward_softcap():
     _vl_case(14, [128, 64], [128, 64], 2, 2, 64, True, softcap=30.0)
 
