@@ -43,10 +43,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    flash_attention_bwd(fused=False), flash_attn_varlen_func_grad); the
    serving engine at Llama-3-8B width (32 layers, random bf16 weights from
    a seed, int8 paged KV, page 64) answering 16 requests of 200-256 prompt
-   tokens and 32 new tokens each; then, with the same weights, an engine
+   tokens and 32 new tokens each (every engine's decode steps replay the
+   CUDA graph of their batch bucket, serve/graphs.py; the launch counts
+   include the replays), and once more with the graphs off for the eager
+   decode rate (same tokens); then, with the same weights, an engine
    with chunked prefill (chunks of 512) and the prefix cache answering 4
    long prompts, 9 prompts that share a 1024-token system prompt and 4
-   short ones; then, with the same weights and the engines freed, three
+   short ones; then the first engine's traffic with run(burst=8,
+   pipeline=False) and run(burst=8) (up to 8 decode steps a readback, two
+   bursts in flight): tokens identical to the stepwise engine's, every
+   page returned, nothing in flight; then, with the same weights and the
+   engines freed, three
    SGD train steps of the full 32-layer model on 4 x 2049 tokens with
    remat (every layer's backward through the fused backward kernel); then,
    with those weights freed, the engine at Gemma3-4B's full width and depth
@@ -1195,6 +1202,7 @@ def engine_phase(counts, ident, state):
 
     from mfa_tpu_torch.kernels import _build
     from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve import graphs
     from mfa_tpu_torch.serve.engine import Engine
 
     cfg = llama.LlamaConfig.llama3_8b()
@@ -1218,11 +1226,13 @@ def engine_phase(counts, ident, state):
     got = dict(_build.launches)
     counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state["step_tokens"] = [list(r.generated) for r in reqs]
     ok = all(len(r.generated) == gen_tokens for r in reqs)
     ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
     ok &= eng.sched.allocator.free_pages == free0
     ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches)
     ok &= got.get("paged", 0) == cfg.n_layers * stats.steps
+    ok &= stats.captures >= 1 and stats.readbacks == stats.steps
     step_tokens = stats.decode_tokens - n_req  # first tokens come from prefill
     print(f"engine launches {got}: flagged = repair = {cfg.n_layers} layers x "
           f"{stats.prefill_batches} waves, paged = {cfg.n_layers} layers x "
@@ -1232,10 +1242,87 @@ def engine_phase(counts, ident, state):
           f"{eng.sched.allocator.free_pages} of {free0} returned", flush=True)
     print(f"engine: prefill {stats.prefill_tokens / stats.prefill_s:.1f} tok/s "
           f"({stats.prefill_tokens} tokens in {stats.prefill_s:.3f} s), decode "
-          f"{step_tokens / stats.decode_s:.1f} tok/s ({step_tokens} tokens in "
-          f"{stats.steps} steps, {stats.decode_s:.3f} s), peak memory "
-          f"{peak_gb:.2f} GB [{ident}]", flush=True)
+          f"{_decode_rates(stats, step_tokens)}, peak memory {peak_gb:.2f} GB "
+          f"[{ident}]", flush=True)
     del eng
+    # the same traffic with every decode step issued eagerly (graphs off:
+    # a measurement switch, not an engine option)
+    graphs._ENABLED = False
+    try:
+        eager = Engine(params, cfg, num_pages=128, page_size=page, max_seqs=16,
+                       pages_per_seq=8, quant_dtype="int8", device="cuda")
+        rng = np.random.RandomState(SEED)
+        ereqs = [eager.submit(list(rng.randint(0, cfg.vocab_size, int(n))),
+                              gen_tokens) for n in rng.randint(200, 257, n_req)]
+        est = eager.run()
+    finally:
+        graphs._ENABLED = True
+    same = [r.generated for r in ereqs] == state["step_tokens"]
+    ok &= same and est.captures == 0
+    print(f"engine, decode steps eager (graphs off): decode "
+          f"{step_tokens / est.decode_s:.1f} tok/s ({est.steps} steps, "
+          f"{est.decode_s:.3f} s); tokens identical to the graphed run: {same} "
+          f"[{ident}]", flush=True)
+    del eager
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _decode_rates(stats, step_tokens) -> str:
+    """Decode tok/s over the decode seconds with and without the graphs'
+    capture seconds, and the readbacks."""
+    return (f"{step_tokens / stats.decode_s:.1f} tok/s ({step_tokens} tokens in "
+            f"{stats.steps} steps, {stats.decode_s:.3f} s; "
+            f"{step_tokens / (stats.decode_s - stats.capture_s):.1f} tok/s "
+            f"without the {stats.captures} graph captures' capture_s "
+            f"{stats.capture_s:.3f} s; {stats.readbacks} readbacks)")
+
+
+def burst_engine_phase(counts, ident, state):
+    """Main path, part 3b: part 2's engine and traffic (the weights in
+    `state`) with run(burst=8, pipeline=False), then run(burst=8): decode
+    in bursts of up to 8 graph replays with one token readback each, the
+    second with up to two bursts in flight. Both must give part 2's tokens,
+    return every page and leave nothing in flight."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.serve.engine import Engine
+
+    params, cfg = state["params"], state["cfg"]
+    n_req, gen_tokens, L = 16, 32, cfg.n_layers
+    ok = True
+    for pipeline in (False, True):
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype="int8", device="cuda")
+        free0 = eng.sched.allocator.free_pages
+        rng = np.random.RandomState(SEED)
+        reqs = [eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))),
+                           gen_tokens) for n in rng.randint(200, 257, n_req)]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        stats = eng.run(burst=8, pipeline=pipeline)
+        wall = time.perf_counter() - t0
+        got = dict(_build.launches)
+        counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+        same = [r.generated for r in reqs] == state["step_tokens"]
+        ok &= same
+        ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+        ok &= eng.sched.allocator.free_pages == free0
+        ok &= all(r.inflight == 0 for r in reqs) and not eng._pending_bursts
+        ok &= _wave_launches(got, L * stats.prefill_batches)
+        ok &= got.get("paged", 0) == L * stats.steps
+        ok &= stats.readbacks < stats.steps
+        step_tokens = stats.decode_tokens - n_req
+        print(f"burst engine (burst 8, pipeline={pipeline}) launches {got}: "
+              f"paged = {L} layers x {stats.steps} decode steps", flush=True)
+        print(f"burst engine (burst 8, pipeline={pipeline}): tokens identical to "
+              f"the stepwise engine: {same}; free pages "
+              f"{eng.sched.allocator.free_pages} of {free0} returned; decode "
+              f"{_decode_rates(stats, step_tokens)}; {wall:.3f} s wall "
+              f"[{ident}]", flush=True)
+        del eng
     torch.cuda.empty_cache()
     return ok
 
@@ -1307,9 +1394,8 @@ def chunked_engine_phase(counts, ident, state):
     print(f"chunked engine: prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
           f"tok/s ({stats.prefill_tokens} tokens in {stats.prefill_s:.3f} s, "
           f"{stats.chunk_batches} chunk batches + {stats.prefill_batches} "
-          f"whole waves), decode {step_tokens / stats.decode_s:.1f} tok/s "
-          f"({step_tokens} tokens in {stats.steps} steps, {stats.decode_s:.3f} "
-          f"s), {wall:.3f} s wall, peak memory {peak_gb:.2f} GB [{ident}]",
+          f"whole waves), decode {_decode_rates(stats, step_tokens)}, "
+          f"{wall:.3f} s wall, peak memory {peak_gb:.2f} GB [{ident}]",
           flush=True)
     del eng
     state.update(params=params, cfg=cfg)
@@ -1486,8 +1572,7 @@ def engine_gemma3_phase(counts, ident):
           f"image wave prefill {img_tok / stats.image_prefill_s:.1f} tok/s ({img_tok} "
           f"tokens in {stats.image_prefill_s:.3f} s, tower included), text wave "
           f"prefill {text_tok / text_s:.1f} tok/s ({text_tok} tokens in "
-          f"{text_s:.3f} s), decode {step_tokens / stats.decode_s:.1f} tok/s "
-          f"({step_tokens} tokens in {stats.steps} steps, {stats.decode_s:.3f} s), "
+          f"{text_s:.3f} s), decode {_decode_rates(stats, step_tokens)}, "
           f"peak memory {peak_gb:.2f} GB [{ident}]", flush=True)
     del eng, params, vparams, every
     torch.cuda.empty_cache()
@@ -1691,8 +1776,7 @@ def engine_int8w_phase(counts, ident):
           f"{eng.sched.allocator.free_pages} of {free0} returned", flush=True)
     print(f"engine int8 weights: prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
           f"tok/s ({stats.prefill_tokens} tokens in {stats.prefill_s:.3f} s), decode "
-          f"{step_tokens / stats.decode_s:.1f} tok/s ({step_tokens} tokens in "
-          f"{stats.steps} steps, {stats.decode_s:.3f} s), weights {nbytes / 1e9:.3f} GB, "
+          f"{_decode_rates(stats, step_tokens)}, weights {nbytes / 1e9:.3f} GB, "
           f"peak memory {peak_gb:.2f} GB [{ident}]", flush=True)
     del eng, params
     torch.cuda.empty_cache()
@@ -1813,6 +1897,8 @@ def main() -> int:
                      ("engine_8b", lambda: engine_phase(counts, ident, state)),
                      ("chunked_prefix_engine_8b",
                       lambda: chunked_engine_phase(counts, ident, state)),
+                     ("engine_8b_burst",
+                      lambda: burst_engine_phase(counts, ident, state)),
                      ("train_8b", lambda: train_phase(counts, ident, state)),
                      ("engine_gemma3_4b_vision",
                       lambda: engine_gemma3_phase(counts, ident)),

@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from mfa_tpu_torch.dispatch.config import host_to_device
 from mfa_tpu_torch.kernels.quant import storage_dtype
 
 
@@ -121,20 +122,20 @@ def scatter_span_rows(pages: torch.Tensor, page_ids: torch.Tensor,
 
 def map_pages(cache: StackedKVCache, seq_slots, page_indices, page_ids
               ) -> StackedKVCache:
-    """IN PLACE: map many pages into the block table in one scatter."""
+    """IN PLACE: map many pages into the block table in one scatter
+    (enqueued behind the decode bursts in flight: no host wait)."""
     dev = cache.block_tables.device
-    slots = torch.as_tensor(seq_slots, dtype=torch.long, device=dev)
-    idxs = torch.as_tensor(page_indices, dtype=torch.long, device=dev)
-    ids = torch.as_tensor(page_ids, dtype=torch.int32, device=dev)
+    slots = host_to_device(seq_slots, torch.long, dev)
+    idxs = host_to_device(page_indices, torch.long, dev)
+    ids = host_to_device(page_ids, torch.int32, dev)
     cache.block_tables[slots, idxs] = ids
     return cache
 
 
 def release_slots(cache: StackedKVCache, seq_slots) -> StackedKVCache:
     """IN PLACE: clear finished slots' table rows and lengths (pages are
-    freed on the host) in one scatter pair."""
-    idx = torch.as_tensor(seq_slots, dtype=torch.long,
-                          device=cache.block_tables.device)
+    freed on the host) in one scatter pair, enqueued without a host wait."""
+    idx = host_to_device(seq_slots, torch.long, cache.block_tables.device)
     cache.block_tables[idx] = 0
     cache.lengths[idx] = 0
     return cache

@@ -98,3 +98,15 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+def host_to_device(values, dtype, device) -> torch.Tensor:
+    """Host values (a list, numpy array or CPU tensor) as a `dtype` tensor
+    on `device`. On a CUDA device the copy is staged in pinned memory and
+    enqueued without waiting for the stream (a pageable copy would wait for
+    every kernel in flight, and is refused inside a graph capture); the
+    pinned block is not reused before the copy has run."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -39,7 +39,9 @@ def split_plan(batch: int, num_kv_heads: int, pages_per_seq: int,
     """-> (num_splits, tokens_per_split) of the kernel's grid: the split
     heuristic at the kernel's residency over the table's whole span
     (pages_per_seq * page_size tokens; the lengths stay on the device), in
-    whole 64-token tiles."""
+    whole 64-token tiles. It must never read the lengths: a decode graph
+    (serve/graphs.py) freezes the grid at capture and replays it at every
+    later length (tests/test_torch_graphs_gpu.py crosses the split point)."""
     max_s = pages_per_seq * page_size
     n = num_splits_heuristic(batch, num_kv_heads, max_s, TILE,
                              blocks_per_sm=BLOCKS_PER_SM)

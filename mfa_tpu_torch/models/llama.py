@@ -51,7 +51,7 @@ from mfa_tpu_torch.cache.paged_cache import (StackedKVCache,
                                              create_stacked_cache,
                                              pack_pages_payload,
                                              scatter_span_rows)
-from mfa_tpu_torch.dispatch.config import resolve_device
+from mfa_tpu_torch.dispatch.config import host_to_device, resolve_device
 from mfa_tpu_torch.kernels.autodiff import flash_attention_grad
 from mfa_tpu_torch.kernels.blockmask import (dense_masked_attention,
                                              image_block_prefill)
@@ -61,6 +61,7 @@ from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.kernels.quant import quantize_rows
 from mfa_tpu_torch.models.wquant import (QWeight, qmm, qtake, quantize_params,
                                          quantize_weight)
+from mfa_tpu_torch.serve.sampling import sample, token_logprobs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -899,15 +900,22 @@ def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     logits [n, vocab] fp32); the cache is updated IN PLACE. On return the
     consumed token's K/V is in the cache and lengths include it (engine
     invariant lengths == prompt + generated[:-1]).
+
+    With seq_slots and tokens already on the cache's device the step makes
+    no host-to-device copy and reads nothing back, so it can be captured
+    into a CUDA graph (serve/graphs.py) once an eager step has loaded the
+    kernels and the RoPE tables.
     """
     dev = cache.lengths.device
-    slots = torch.as_tensor(seq_slots, device=dev).long()
-    tokens = torch.as_tensor(tokens, device=dev).long()
+    slots, tokens = _device_ids(seq_slots, dev), _device_ids(tokens, dev)
     n = tokens.shape[0]
     hd = cfg.head_dim
     page = cache.page_size
     lens = cache.lengths[slots]  # [n] int32
-    write_pages = cache.block_tables[slots, (lens // page).long()]
+    # a row decoding past its table (a finished request's spare burst
+    # positions) writes into its own last page, whose slot is released next
+    write_pages = cache.block_tables[
+        slots, (lens // page).long().clamp(max=cache.pages_per_seq - 1)]
     offs = lens % page
     tables = cache.block_tables[slots]
     x = _embed(params, tokens, cfg)[:, None]  # [n, 1, d]
@@ -943,3 +951,40 @@ def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     logits = _unembed(params, x[:, 0], cfg)
     cache.lengths[slots] = lens + 1
     return cache, logits
+
+
+def _device_ids(ids, dev) -> torch.Tensor:
+    """Token or slot ids as int64 on `dev`: a tensor already there is used
+    as it is, host values are copied without a stream wait."""
+    if isinstance(ids, torch.Tensor) and ids.device == dev:
+        return ids.long()
+    return host_to_device(np.asarray(ids), torch.long, dev)
+
+
+def greedy_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
+                tokens):
+    """decode_step, its argmax and the argmax's logprob: one step of
+    decode_burst, and what a decode graph of the serving engine holds
+    (serve/graphs.py). Returns (logits [n, vocab] fp32, ids [n] int64,
+    logprobs [n] fp32); the cache is updated IN PLACE."""
+    _, logits = decode_step(params, cfg, cache, seq_slots, tokens)
+    ids = sample(logits)
+    return logits, ids, token_logprobs(logits, ids)
+
+
+def decode_burst(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
+                 tokens, n_steps: int):
+    """n_steps greedy decode steps, each step's argmax fed to the next on
+    the device (mfa_tpu's decode_burst, greedy only). Pages for all n_steps
+    positions must already be mapped. Returns (cache, tokens [n_steps, n]
+    int64, logprobs [n_steps, n] fp32) on the cache's device; the cache is
+    updated IN PLACE. A plain loop of greedy_step: the serving engine
+    replays the same step from CUDA graphs on the card."""
+    dev = cache.lengths.device
+    slots, toks = _device_ids(seq_slots, dev), _device_ids(tokens, dev)
+    out, lps = [], []
+    for _ in range(n_steps):
+        _, toks, lp = greedy_step(params, cfg, cache, slots, toks)
+        out.append(toks)
+        lps.append(lp)
+    return cache, torch.stack(out), torch.stack(lps)

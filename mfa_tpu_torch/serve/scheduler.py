@@ -37,6 +37,9 @@ class Request:
     # the cache keys this request holds references on
     cached_len: int = 0
     prefix_keys: List[int] = dataclasses.field(default_factory=list)
+    # decode tokens dispatched in bursts whose results the host has not
+    # read back yet (the engine's pipelined loop)
+    inflight: int = 0
 
     @property
     def done(self) -> bool:

@@ -7,7 +7,9 @@
 Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
 admits 16 requests of 200-256 prompt tokens into a fresh engine and
-traces one prefill wave and `--steps` decode steps with torch.profiler.
+traces one prefill wave and `--steps` decode steps with torch.profiler:
+issued eagerly, replayed from the decode graphs (serve/graphs.py) one
+step a readback, and in graphed bursts of 8.
 Every wave runs the default prefill engine (the zero-shift kernel and its
 repair). Then an engine with chunked prefill (chunks of 512) takes 4 prompts of
 4000 tokens and traces one chunk batch: 4 x 512 tokens at q_start 1536
@@ -22,7 +24,7 @@ one image wave of chip_smoke.py's 6 image prompts (7 images of 896 x
 896), after one untraced warm wave, and the tower alone on the same 7
 images; the tower's trace splits the wave's device time into the tower,
 the text projections, the glue and kernel 9; then one wave of its 4 text
-prompts and `--steps` decode steps of them. For each phase it prints the host wall time (with and without the
+prompts and `--steps` decode steps of them (eager, then graphed). For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -212,22 +214,136 @@ def gemma3_waves(acts, out_path, steps) -> None:
             wall = wave(eng)
         _report(f"gemma3 text wave ({len(texts)} prompts, {sum(map(len, texts))} "
                 f"tokens, {cfg.n_layers} layers)", prof, wall, plain, 1, "wave", out)
-        eng.step()  # first decode step outside the trace
+    del eng
+    decode_steps(lambda: text_engine(2 * steps + 4), steps, acts, out_path,
+                 f"gemma3 decode step (batch {len(texts)}, {cfg.n_layers} layers)")
+
+
+def decode_steps(make_engine, steps, acts, out_path, what) -> None:
+    """Decode steps of a fresh engine's requests, after its prefill and one
+    untraced step (where the graph of the bucket is captured): `steps`
+    steps issued eagerly (graphs off), `steps` replayed from the decode
+    graphs (serve/graphs.py) one step a readback, and `steps` in graphed
+    bursts of 8 (step_burst); each untraced, then traced. Prints the wall
+    and device time per step and the host ops that took the most time."""
+    import torch
+    from torch.profiler import profile
+
+    from mfa_tpu_torch.serve import graphs
+
+    for mode, burst in (("eager", 1), ("graphed", 1),
+                        ("graphed, bursts of 8", 8)):
+        graphs._ENABLED = mode != "eager"
+        try:
+            eng = make_engine()
+            eng.step()  # the prefill wave and the first decode step
+
+            def run():
+                torch.cuda.synchronize()
+                t0, s0 = time.perf_counter(), eng.stats.steps
+                for _ in range(max(1, steps // burst)):
+                    eng.step() if burst == 1 else eng.step_burst(burst)
+                torch.cuda.synchronize()
+                n = eng.stats.steps - s0
+                return (time.perf_counter() - t0) * 1e3 / n, n
+
+            plain, _ = run()
+            with open(out_path or os.devnull, "a") as out:
+                with profile(activities=acts) as prof:
+                    wall, n = run()
+                _report(f"{what}, {mode}", prof, wall, plain, n, "step", out)
+            host = sorted(((r.key, r.self_cpu_time_total / 1e3)
+                           for r in prof.key_averages()), key=lambda r: -r[1])
+            print("  host ops by self time per step: " + ", ".join(
+                f"{k} {ms / n:.3f} ms" for k, ms in host[:6]), flush=True)
+            if mode == "graphed":
+                replay_times(eng)
+        finally:
+            graphs._ENABLED = True
+
+
+def replay_times(eng, reps: int = 5) -> None:
+    """Untraced: host ms of one graph launch (replay() alone, the stream
+    idle before it), and device ms per replay of `reps` replays back to
+    back between two CUDA events (kernels plus the gaps between them).
+    The replays decode past the engine's requests: the engine is done."""
+    import torch
+
+    (b,) = eng.graphs.buckets.values()
+    host = []
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
+        b.graph.replay()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        b.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    print(f"  one replay: host {min(host):.3f} ms (min of {reps}, "
+          f"median {sorted(host)[reps // 2]:.3f}), device "
+          f"{start.elapsed_time(end) / reps:.3f} ms per replay back to back",
+          flush=True)
+
+
+def pipeline_phase(params, cfg, acts, out_path, pairs: int = 5) -> None:
+    """chip_smoke.py's 8B traffic (16 requests of 200-256 prompt tokens, 32
+    new tokens) through run(burst=8, pipeline=False) and run(burst=8) in
+    turns, each on a fresh engine whose graph is captured by a short warm
+    run first: the decode seconds (from the first burst's dispatch to the
+    last readback) of `pairs` pairs; then one traced run of each, whose
+    device busy share over that span shows whether the card idles between
+    bursts."""
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from mfa_tpu_torch.serve.engine import Engine
+
+    def run(pipeline, traced=False):
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype="int8", device="cuda")
+        rng = np.random.RandomState(0)
+        prompts = [list(rng.randint(0, cfg.vocab_size, int(n)))
+                   for n in rng.randint(200, 257, 16)]
+        for p in prompts:
+            eng.submit(p, 2)
+        eng.run()  # captures the bucket of 16
+        for p in prompts:
+            eng.submit(p, 32)
+        eng._prefill_admitted(eng.sched.admit())
         torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        _report(f"gemma3 decode step (batch {len(texts)}, {cfg.n_layers} layers)", prof,
-                wall, plain, steps, "step", out)
-    eng.run()
+        t0 = time.perf_counter()
+        if traced:
+            with profile(activities=acts) as prof:
+                eng.run(burst=8, pipeline=pipeline)
+        else:
+            prof = None
+            eng.run(burst=8, pipeline=pipeline)
+        ms = (time.perf_counter() - t0) * 1e3
+        return ms, eng.stats.steps - 1, eng.stats.readbacks - 1, prof
+
+    run(False), run(True)  # warm-up
+    walls = {False: [], True: []}
+    for i in range(pairs):
+        for pipeline in ((False, True) if i % 2 == 0 else (True, False)):
+            walls[pipeline].append(run(pipeline)[0])
+    for pipeline in (False, True):
+        w = sorted(walls[pipeline])
+        print(f"8B bf16 bursts of 8, pipeline={pipeline}: decode "
+              f"{w[len(w) // 2]:.3f} ms median of {pairs} runs "
+              f"({', '.join(f'{x:.3f}' for x in walls[pipeline])})", flush=True)
+    with open(out_path or os.devnull, "a") as out:
+        for pipeline in (False, True):
+            ms, steps, readbacks, prof = run(pipeline, traced=True)
+            _report(f"8B bf16 bursts of 8, pipeline={pipeline} ({steps} steps, "
+                    f"{readbacks} readbacks)", prof, ms / steps,
+                    sorted(walls[pipeline])[pairs // 2] / steps, steps,
+                    "step", out)
 
 
 def serve_phase(params, cfg, steps, acts, out_path, tag) -> None:
@@ -266,23 +382,9 @@ def serve_phase(params, cfg, steps, acts, out_path, tag) -> None:
             wall = (time.perf_counter() - t0) * 1e3
         _report(f"{tag}prefill wave (16 prompts, {eng.stats.prefill_tokens} tokens, "
                 f"{cfg.n_layers} layers)", prof, wall, plain, 1, "wave", out)
-        eng.step()  # first decode step outside the trace
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        _report(f"{tag}decode step (batch 16, {cfg.n_layers} layers)", prof, wall,
-                plain, steps, "step", out)
-    eng.run()
     del eng
+    decode_steps(lambda: engine(2 * steps + 4), steps, acts, out_path,
+                 f"{tag}decode step (batch 16, {cfg.n_layers} layers)")
 
 
 def main() -> int:
@@ -293,8 +395,9 @@ def main() -> int:
                     help="file for the full profiler tables")
     ap.add_argument("--phases", default="bf16,chunk,train,int8,gemma3",
                     help="comma-separated subset of bf16 (wave + decode), "
-                         "chunk, train, int8 (wave + decode on int8 "
-                         "weights), gemma3")
+                         "pipeline (bursts of 8 with and without the "
+                         "pipeline), chunk, train, int8 (wave + decode on "
+                         "int8 weights), gemma3")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -320,7 +423,7 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         open(args.out, "w").close()
-    if phases & {"bf16", "chunk", "train"}:
+    if phases & {"bf16", "pipeline", "chunk", "train"}:
         bf16_phases(cfg, phases, args, acts)
         torch.cuda.empty_cache()
     if "int8" in phases:
@@ -347,6 +450,8 @@ def bf16_phases(cfg, phases, args, acts) -> None:
     params = llama.init_params(cfg, seed=0, device="cuda")
     if "bf16" in phases:
         serve_phase(params, cfg, args.steps, acts, args.out, "")
+    if "pipeline" in phases:
+        pipeline_phase(params, cfg, acts, args.out)
 
     def chunk_engine():
         """4 prompts of 4000 tokens, advanced by 3 chunks of 512 (the

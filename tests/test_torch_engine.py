@@ -133,6 +133,6 @@ def test_unported_engine_options_raise(params):
     with pytest.raises(NotImplementedError):
         Engine(tp, TCFG, device="cpu", draft_params=tp)
     with pytest.raises(NotImplementedError):
-        Engine(tp, TCFG, device="cpu").run(burst=4)
+        Engine(tp, TCFG, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         SamplingParams(temperature=0.7)
