@@ -35,7 +35,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    1); and the int8 weight matmul (kernel 10) at w_gate for m = 1, 17, 64,
    255, 256 and 3601 in fp16 x and fp32 out, and at the 8B projections for
    m = 16 and 3601 (limit: 2^-8 of the largest output; cuBLAS on the
-   dequantized bf16 weight as the yardstick).
+   dequantized bf16 weight as the yardstick); kernels 6 and 8 on fp8 (e4m3)
+   and int4 pages (kernel 6 at the 8B serve step, lengths 8192, Gemma3's
+   d 256 step with 3 splits, a window with a softcap and d 64; kernel 8 at
+   the chunk batch), with NaN scales and, for fp8, the NaN code 0x7F in
+   the rows past each length.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -46,10 +50,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    tokens and 32 new tokens each (every engine's decode steps replay the
    CUDA graph of their batch bucket, serve/graphs.py; the launch counts
    include the replays), and once more with the graphs off for the eager
-   decode rate (same tokens); then, with the same weights, an engine
+   decode rate (same tokens); then the same weights and traffic on fp8
+   and then int4 KV pages (kernel 6 on those pages from the graphs; rates,
+   KV bytes per token and peak memory beside the int8 run's); then, with
+   the same weights, an engine
    with chunked prefill (chunks of 512) and the prefix cache answering 4
    long prompts, 9 prompts that share a 1024-token system prompt and 4
-   short ones; then the first engine's traffic with run(burst=8,
+   short ones, on int8, then int4, then fp8 KV; then the first engine's traffic with run(burst=8,
    pipeline=False) and run(burst=8) (up to 8 decode steps a readback, two
    bursts in flight): tokens identical to the stepwise engine's, every
    page returned, nothing in flight; then, with the same weights and the
@@ -70,7 +77,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    runs kernels 2 + 3.
 4. The 8B model cut to 2 layers, on the card (kernels) and on the CPU
    (plain versions) with the same weights: prefill, decode, chunked prefill
-   and prefix-hit suffix logits agree, and one SGD train step gives the
+   and prefix-hit suffix logits agree on int8, fp8 and int4 KV pages, and
+   one SGD train step gives the
    same loss and gradients; then Gemma3-4B cut to 2 layers (one sliding,
    one global) with a 2-layer tower at 224 px: image-prompt prefill and
    the next decode step's logits agree; then the 2-layer 8B with int8
@@ -331,6 +339,174 @@ def kernel_phase(records):
     ok &= gemma3_kernels(records, rn, gen)
     ok &= zero_shift_kernels(records, rn)
     ok &= wmatmul_kernels(records, gen)
+    ok &= kv_format_kernels(records)
+    return ok
+
+
+KV_FORMATS = ("fp8", "int4")  # the quantized KV formats beside int8
+
+
+def _kv_pages(kf, vf, quant):
+    """Float pages -> (k_pages, v_pages, k_scales, v_scales) in `quant`'s
+    format (int4 packed to feature pairs)."""
+    from mfa_tpu_torch.kernels.quant import pack_int4, quantize_rows
+
+    (kp, ks), (vp, vs) = quantize_rows(kf, quant), quantize_rows(vf, quant)
+    if quant == "int4":
+        kp, vp = pack_int4(kp), pack_int4(vp)
+    return kp, vp, ks, vs
+
+
+def _poison_stale(pages, scales, quant, stale):
+    """Rows `stale` ([hkv, P, page] bool) get NaN scales, and fp8 payloads
+    the e4m3 NaN code 0x7F: what a row past a length may hold."""
+    import torch
+
+    scales[stale] = float("nan")
+    if quant == "fp8":
+        pages.view(torch.uint8)[stale] = 0x7F
+
+
+def _row_bytes(quant, d: int) -> int:
+    """Bytes one K or V row of a page moves, its fp32 scale included."""
+    return {None: 2 * d, "int8": d + 4, "fp8": d + 4, "int4": d // 2 + 4}[quant]
+
+
+def kv_format_kernels(records):
+    """Kernel 6 (paged decode) and kernel 8 (paged prefill) on fp8 (e4m3)
+    and int4 pages, each against its plain version (max 2e-2, mean 2e-3;
+    LSE within 1e-3 with the same -inf rows). Kernel 6 at the 8B serve
+    step, lengths 8192, Gemma3-4B's decode step at d 256 (3 splits + the
+    combine), a window with a softcap, and d 64; kernel 8 at the engine's
+    chunk batch. Rows past each length in a sequence's last page hold NaN
+    scales, and fp8 rows there the NaN code 0x7F: neither may reach O (the
+    plain version runs on the rows before the poisoning). Times the serve
+    step, lengths 8192, Gemma3's step and the chunk batch, beside the
+    bound by bytes (int4 rows d / 2 + 4 bytes, fp8 d + 4). Its inputs come
+    from a generator of its own."""
+    import torch
+
+    from mfa_tpu_torch.kernels import paged, paged_prefill
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    ok, page = True, 64
+    cases = (  # tag, b, hq, hkv, d, lens, window, softcap, timed
+        ("8B serve step", 16, 32, 8, 128, [300 - 7 * i for i in range(16)], -1, 0.0,
+         True),
+        ("lens 8192", 16, 32, 8, 128, [8192] * 16, -1, 0.0, True),
+        ("Gemma3-4B decode d256, window 1023", 10, 8, 4, 256,
+         [300 + (1700 * i) // 9 for i in range(10)], 1023, 0.0, True),
+        ("window 100, softcap 30", 4, 32, 8, 128, [1000, 77, 400, 513], 100, 30.0,
+         False),
+        ("d 64", 8, 16, 2, 64, [700, 1, 64, 333, 0, 129, 1000, 5], -1, 0.0, False))
+    for tag, b, hq, hkv, d, lens_l, wl, cap, timed in cases:
+        pps = max(lens_l) // page + 1
+        P = b * pps + 1
+        q = rn(b, hq, d)
+        kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+        bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+              ).reshape(b, pps).to(torch.int32)
+        L = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        stale = torch.zeros(hkv, P, page, dtype=torch.bool, device="cuda")
+        for i, n in enumerate(lens_l):
+            if n % page:
+                stale[:, int(bt[i, n // page]), n % page:] = True
+        splits = paged.split_plan(b, hkv, pps, page)[0]
+        for quant in KV_FORMATS:
+            kp, vp, ks, vs = _kv_pages(kf, vf, quant)
+            clean = tuple(t.clone() for t in (kp, vp, ks, vs))
+            _poison_stale(kp, ks, quant, stale)
+            _poison_stale(vp, vs, quant, stale)
+
+            def run(kp=kp, vp=vp, ks=ks, vs=vs, quant=quant):
+                return paged.paged_attention(
+                    q, kp, vp, L, bt, k_scales=ks, v_scales=vs, window_left=wl,
+                    logit_softcap=cap, pos_offset=1, quant_dtype=quant, return_lse=True)
+
+            o, lse = run()
+            ro, rl = paged._paged_plain(q.float(), *clean, L, bt, d ** -0.5, wl, cap,
+                                        1, quant_dtype=quant)
+            print(f"paged {quant} pages, {tag}: b={b} hq={hq} hkv={hkv} d={d} "
+                  f"page={page} lens={min(lens_l)}..{max(lens_l)} window={wl} "
+                  f"softcap={cap} splits={splits}; rows past lens: NaN scales"
+                  f"{', 0x7F payload' if quant == 'fp8' else ''}", flush=True)
+            mx, good = _err(o, ro, what="O")
+            ok &= good and _lse_err(lse, rl, "")
+            rec = records[paged.launch_name("paged", quant)]
+            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+            if not timed:
+                continue
+            ms = _time_ms(run)
+            plain_ms = _time_ms(lambda: paged._paged_plain(
+                q, *clean, L, bt, d ** -0.5, wl, cap, 1, quant_dtype=quant), iters=3)
+            rows = sum(min(n, wl) if wl >= 0 else n for n in lens_l) * hkv
+            nbytes = 2 * rows * _row_bytes(quant, d) + b * pps * 4 \
+                + 2 * b * hq * d * 2 + b * hq * 4
+            bound_ms, by = _bound(nbytes, 4 * hq // hkv * rows * d)
+            print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a bound_ms "
+                  f"{bound_ms:.4f} ({by}) bound share {bound_ms / ms:.3f}", flush=True)
+            if tag == "8B serve step":
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           library_ms=None)
+        del q, kf, vf, kp, vp, o, ro
+    # -- kernel 8 at the engine's chunk batch: 4 x 512 at q_start 0, 1024,
+    # 2048, 3072, the last chunk 500 rows (its last page part stale)
+    hq, hkv, d, sq = 32, 8, 128, 512
+    q_start, q_lens = [0, 1024, 2048, 3072], [512, 512, 512, 500]
+    lens = [s_ + n for s_, n in zip(q_start, q_lens)]
+    b = len(lens)
+    pps = max(lens) // page + 1
+    P = b * pps + 1
+    q = rn(b, sq, hq, d)
+    kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+    table = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+             ).reshape(b, pps).to(torch.int32)
+    L, QS, QL = (torch.tensor(x, dtype=torch.int32, device="cuda")
+                 for x in (lens, q_start, q_lens))
+    stale = torch.zeros(hkv, P, page, dtype=torch.bool, device="cuda")
+    for i, n in enumerate(lens):
+        if n % page:
+            stale[:, int(table[i, n // page]), n % page:] = True
+    for quant in KV_FORMATS:
+        kp, vp, ks, vs = _kv_pages(kf, vf, quant)
+        clean = tuple(t.clone() for t in (kp, vp, ks, vs))
+        _poison_stale(kp, ks, quant, stale)
+        _poison_stale(vp, vs, quant, stale)
+
+        def run(lse=False, kp=kp, vp=vp, ks=ks, vs=vs, quant=quant):
+            return paged_prefill.paged_prefill_attention(
+                q, kp, vp, L, QS, table, q_lens=QL, k_scales=ks, v_scales=vs,
+                causal=True, quant_dtype=quant, return_lse=lse)
+
+        o, lse = run(True)
+        ro, rl = paged_prefill._paged_prefill_plain(
+            q.float(), *clean, L, QS, QL, table, d ** -0.5, -1, 0, 0.0, quant_dtype=quant)
+        print(f"paged_prefill {quant} pages, engine chunk batch: 4 x 512 rows at "
+              f"q_start {q_start}, q_lens {q_lens}, hq={hq} hkv={hkv} d={d} "
+              f"page={page}; rows past lens: NaN scales"
+              f"{', 0x7F payload' if quant == 'fp8' else ''}", flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "")
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: paged_prefill._paged_prefill_plain(
+            q, *clean, L, QS, QL, table, d ** -0.5, -1, 0, 0.0, quant_dtype=quant),
+            iters=3)
+        kv_rows = sum(lens) * hkv
+        nbytes = 2 * kv_rows * _row_bytes(quant, d) + b * pps * 4 + 2 * b * sq * hq * d * 2
+        pairs = sum(_visible_pairs(n, n_k, s_, -1, 0)
+                    for s_, n, n_k in zip(q_start, q_lens, lens))
+        bound_ms, by = _bound(nbytes, 4 * hq * pairs * d)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a bound_ms "
+              f"{bound_ms:.4f} ({by}) bound share {bound_ms / ms:.3f}", flush=True)
+        records[paged.launch_name("paged_prefill", quant)].update(
+            max_abs_err=mx, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            library_ms=None)
+    del q, kf, vf, kp, vp, o, ro
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -1268,6 +1444,86 @@ def engine_phase(counts, ident, state):
     return ok
 
 
+def _kv_bytes_per_token(cache) -> float:
+    """Bytes of the KV pool (pages and scales, every layer) per token it
+    holds."""
+    total = sum(t.numel() * t.element_size() for t in (
+        cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales) if t is not None)
+    return total / (cache.num_pages * cache.page_size)
+
+
+def kvq_engine_phase(counts, ident, state):
+    """Main path, part 2b: part 2's weights (in `state`) and traffic (16
+    requests of 200-256 prompt tokens, 32 new tokens, pages of 64) on int8
+    KV once more (warm: part 2's run paid the first captures and
+    allocations), then on fp8 (e4m3) and int4 KV pages: every prompt wave
+    writes quantized pages (kernels 2 + 3 for the attention), every decode
+    step runs kernel 6 on those pages from the decode graphs. Every request
+    finishes with finite logprobs, every page returns, the paged launches
+    (paged, paged_fp8, paged_int4) = layers x steps, graphs are captured.
+    Prints the rates, the KV pool's bytes per token and the peak memory
+    beside this int8 run's, and the share of tokens equal to part 2's (not
+    a check for fp8 and int4: another quantization may pick other greedy
+    tokens on random weights)."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build, paged
+    from mfa_tpu_torch.serve.engine import Engine
+
+    params, cfg = state["params"], state["cfg"]
+    n_req, gen_tokens, L = 16, 32, cfg.n_layers
+    ok, base = True, {}
+    for quant in ("int8",) + KV_FORMATS:
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype=quant, device="cuda")
+        free0 = eng.sched.allocator.free_pages
+        rng = np.random.RandomState(SEED)
+        reqs = [eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), gen_tokens)
+                for n in rng.randint(200, 257, n_req)]
+        _build.reset_launches()
+        stats = eng.run()
+        got = dict(_build.launches)
+        counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        name = paged.launch_name("paged", quant)
+        good = all(len(r.generated) == gen_tokens for r in reqs)
+        good &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+        good &= eng.sched.allocator.free_pages == free0
+        good &= _wave_launches(got, L * stats.prefill_batches)
+        good &= got.get(name, 0) == L * stats.steps
+        good &= sum(n for k_, n in got.items() if k_.startswith("paged")) == L * stats.steps
+        good &= stats.captures >= 1 and stats.readbacks == stats.steps
+        ok &= good
+        step_tokens = stats.decode_tokens - n_req
+        same = sum(a == b for r, ref in zip(reqs, state["step_tokens"])
+                   for a, b in zip(r.generated, ref))
+        kvb = _kv_bytes_per_token(eng.cache)
+        if quant == "int8":  # the same kernels as part 2: the same tokens
+            good &= same == n_req * gen_tokens
+            ok &= good
+            base = dict(prefill_tps=stats.prefill_tokens / stats.prefill_s,
+                        decode_tps=step_tokens / stats.decode_s, peak_gb=peak_gb,
+                        kv_bytes_per_token=kvb)
+        print(f"{quant} KV engine launches {got}: {name} = {L} layers x {stats.steps} "
+              f"decode steps, flagged = repair = {L} x {stats.prefill_batches} waves; "
+              f"{n_req} requests finished with {gen_tokens} tokens: "
+              f"{all(len(r.generated) == gen_tokens for r in reqs)}; free pages "
+              f"{eng.sched.allocator.free_pages} of {free0} returned; "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        print(f"{quant} KV engine: prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
+              f"tok/s (int8 KV {base['prefill_tps']:.1f}), decode "
+              f"{_decode_rates(stats, step_tokens)} (int8 KV "
+              f"{base['decode_tps']:.1f} tok/s), KV pool {kvb:.0f} bytes/token (int8 "
+              f"{base['kv_bytes_per_token']:.0f}), peak memory {peak_gb:.2f} GB (int8 "
+              f"{base['peak_gb']:.2f}); tokens equal to part 2's {same} of "
+              f"{n_req * gen_tokens} [{ident}]", flush=True)
+        del eng
+    torch.cuda.empty_cache()
+    return ok
+
+
 def _decode_rates(stats, step_tokens) -> str:
     """Decode tok/s over the decode seconds with and without the graphs'
     capture seconds, and the readbacks."""
@@ -1327,9 +1583,10 @@ def burst_engine_phase(counts, ident, state):
     return ok
 
 
-def chunked_engine_phase(counts, ident, state):
+def chunked_engine_phase(counts, ident, state, quant="int8"):
     """Main path, part 3: the same weights behind an engine with chunked
-    prefill (chunks of 512) and the prefix cache. (a) 4 long prompts take
+    prefill (chunks of 512) and the prefix cache, on `quant` KV pages
+    (int8, and once more each on int4 and fp8). (a) 4 long prompts take
     the chunked path; (b) a request with a 1024-token system prompt runs
     until its prefill completes, then 8 more with the same system prompt
     hit its 16 cached pages and prefill only their suffix; (c) 4 short
@@ -1337,14 +1594,15 @@ def chunked_engine_phase(counts, ident, state):
     import numpy as np
     import torch
 
-    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.kernels import _build, paged
     from mfa_tpu_torch.serve.engine import Engine
 
     params, cfg = state.pop("params"), state.pop("cfg")
     torch.cuda.reset_peak_memory_stats()
     gen_tokens, page = 32, 64
+    k6, k8 = paged.launch_name("paged", quant), paged.launch_name("paged_prefill", quant)
     eng = Engine(params, cfg, num_pages=512, page_size=page, max_seqs=16,
-                 pages_per_seq=64, quant_dtype="int8", prefill_chunk=512,
+                 pages_per_seq=64, quant_dtype=quant, prefill_chunk=512,
                  prefix_cache=True, device="cuda")
     free0 = eng.sched.allocator.free_pages
     rng = np.random.RandomState(SEED)
@@ -1377,21 +1635,21 @@ def chunked_engine_phase(counts, ident, state):
     ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
     ok &= stats.prefill_tokens <= prompt_tokens - 8 * 1024
     ok &= eng.sched.allocator.free_pages + retained == free0
-    ok &= got.get("paged_prefill", 0) == cfg.n_layers * stats.chunk_batches
+    ok &= got.get(k8, 0) == cfg.n_layers * stats.chunk_batches
     ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches)
-    ok &= got.get("paged", 0) == cfg.n_layers * stats.steps
+    ok &= got.get(k6, 0) == cfg.n_layers * stats.steps
     step_tokens = stats.decode_tokens - len(reqs)  # first tokens come from prefill
-    print(f"chunked engine launches {got}: paged_prefill = {cfg.n_layers} "
+    print(f"chunked engine ({quant} KV) launches {got}: {k8} = {cfg.n_layers} "
           f"layers x {stats.chunk_batches} chunk batches, flagged = repair = "
-          f"{cfg.n_layers} x {stats.prefill_batches} waves, paged = "
+          f"{cfg.n_layers} x {stats.prefill_batches} waves, {k6} = "
           f"{cfg.n_layers} x {stats.steps} decode steps", flush=True)
-    print(f"chunked engine: {len(reqs)} requests finished with {gen_tokens} "
+    print(f"chunked engine ({quant} KV): {len(reqs)} requests finished with {gen_tokens} "
           f"tokens: {all(len(r.generated) == gen_tokens for r in reqs)}; "
           f"system prompt done after {steps_to_first} steps; prefilled "
           f"{stats.prefill_tokens} of {prompt_tokens} prompt tokens (<= "
           f"{prompt_tokens - 8 * 1024}); free pages {eng.sched.allocator.free_pages}"
           f" + {retained} held by the prefix cache of {free0}", flush=True)
-    print(f"chunked engine: prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
+    print(f"chunked engine ({quant} KV): prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
           f"tok/s ({stats.prefill_tokens} tokens in {stats.prefill_s:.3f} s, "
           f"{stats.chunk_batches} chunk batches + {stats.prefill_batches} "
           f"whole waves), decode {_decode_rates(stats, step_tokens)}, "
@@ -1639,11 +1897,30 @@ def cpu_vs_cuda_gemma3_phase():
     return ok
 
 
+def _kv_stage_logits(llama, cfg, params, dev, quant, out, prompts, pages, long, hit):
+    """cpu_vs_cuda_phase's stages on `dev` over `quant` KV pages -> the
+    logits of a prompt wave, a decode step, the second of two 128-token
+    chunks and a prefix-hit suffix chunk (the decode step takes the tokens
+    of out["toks"], set by the first device's wave)."""
+    cache = llama.build_kv_caches(cfg, 16, 64, 2, 4, quant, device=dev)
+    cache, lg1 = llama.prefill_batch(params, cfg, cache, [0, 1], pages, prompts)
+    out.setdefault("toks", lg1.argmax(-1).cpu())
+    cache, lg2 = llama.decode_step(params, cfg, cache, [0, 1], out["toks"])
+    cc = llama.build_kv_caches(cfg, 16, 64, 2, 8, quant, device=dev)
+    for off in (0, 128):
+        cc, lg3 = llama.prefill_chunk_batch(params, cfg, cc, [0], [[6, 7, 8, 9]],
+                                            [long[off:off + 128]], [off], [256], 128)
+    cc, lg4 = llama.prefill_chunk_batch(params, cfg, cc, [1], [[6, 7, 10]],
+                                        [hit[128:]], [128], [188], 64)
+    return tuple(x.float().cpu() for x in (lg1, lg2, lg3, lg4))
+
+
 def cpu_vs_cuda_phase():
     """Phase 4: 2 layers at the 8B widths, kernels on the card vs plain
     versions on the CPU, same weights and prompts: whole-prompt prefill, a
     decode step, a 256-token prompt in 2 chunks of 128, and a prefix hit
-    (its first 2 pages shared) prefilling only a 60-token suffix chunk."""
+    (its first 2 pages shared) prefilling only a 60-token suffix chunk, on
+    int8, fp8 and int4 KV pages."""
     import numpy as np
     import torch
 
@@ -1659,39 +1936,50 @@ def cpu_vs_cuda_phase():
     pages = [[1, 2], [3, 4, 5]]
     long = list(rng.randint(0, cfg.vocab_size, 256))
     hit = long[:128] + list(rng.randint(0, cfg.vocab_size, 60))
-    out = {}
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        cache = llama.build_kv_caches(cfg, 16, 64, 2, 4, "int8", device=dev)
-        cache, lg1 = llama.prefill_batch(params, cfg, cache, [0, 1], pages, prompts)
-        toks = out["toks"] if "toks" in out else lg1.argmax(-1).cpu()
-        out["toks"] = toks
-        cache, lg2 = llama.decode_step(params, cfg, cache, [0, 1], toks)
-        cc = llama.build_kv_caches(cfg, 16, 64, 2, 8, "int8", device=dev)
-        for off in (0, 128):
-            cc, lg3 = llama.prefill_chunk_batch(params, cfg, cc, [0], [[6, 7, 8, 9]],
-                                                [long[off:off + 128]], [off], [256],
-                                                128)
-        cc, lg4 = llama.prefill_chunk_batch(params, cfg, cc, [1], [[6, 7, 10]],
-                                            [hit[128:]], [128], [188], 64)
-        out[dev] = tuple(x.float().cpu() for x in (lg1, lg2, lg3, lg4))
     ok = True
-    for i, name in enumerate(("prefill_batch", "decode_step",
-                              "prefill_chunk_batch 2 x 128",
-                              "prefix-hit suffix chunk")):
-        a, r = out["cuda"][i], out["cpu"][i]
-        d = (a - r).abs()
-        # bf16 activations rounded in other summation orders on the two
-        # devices, through 2 layers and the 4096 x 128256 lm_head; the
-        # logits have unit scale (random weights, std 1)
-        tol_max, tol_mean = 0.25, 0.02
-        good = bool(torch.isfinite(a).all()) and float(d.max()) < tol_max \
-            and float(d.mean()) < tol_mean
-        print(f"cuda vs cpu {name} logits [{tuple(a.shape)}]: max_abs "
-              f"{float(d.max()):.3e} (< {tol_max}) mean_abs {float(d.mean()):.3e} "
-              f"(< {tol_mean}), |ref| max {float(r.abs().max()):.2f}, argmax "
-              f"agree {bool(torch.equal(a.argmax(-1), r.argmax(-1)))} "
-              f"{'ok' if good else 'FAIL'}", flush=True)
-        ok &= good
+    store_rows = llama._store_rows
+    for quant in ("int8",) + KV_FORMATS:
+        out, written = {}, []
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            if quant == "int4":
+                # int4's step is 1/7 of a row's absmax: a K or V value on a
+                # rounding edge, a bf16 ulp apart on the two devices, lands
+                # a whole step apart, and independent runs differ by more
+                # than the limits (PERF.md §6). The CPU takes the
+                # payloads and scales the card's quantize gave, call for
+                # call, so both read the same pages and the check holds
+                # the kernels to their plain versions.
+                def store(qd, dtype, x, dev=dev):
+                    if dev == "cuda":
+                        written.append(store_rows(qd, dtype, x))
+                        return written[-1]
+                    pay, sc = written.pop(0)
+                    return pay.cpu(), sc.cpu()
+
+                llama._store_rows = store
+            try:
+                out[dev] = _kv_stage_logits(llama, cfg, params, dev, quant, out,
+                                            prompts, pages, long, hit)
+            finally:
+                llama._store_rows = store_rows
+        tag = f"{quant} KV" + (", the card's payloads" if quant == "int4" else "")
+        for i, name in enumerate(("prefill_batch", "decode_step",
+                                  "prefill_chunk_batch 2 x 128",
+                                  "prefix-hit suffix chunk")):
+            a, r = out["cuda"][i], out["cpu"][i]
+            d = (a - r).abs()
+            # bf16 activations rounded in other summation orders on the two
+            # devices, through 2 layers and the 4096 x 128256 lm_head; the
+            # logits have unit scale (random weights, std 1)
+            tol_max, tol_mean = 0.25, 0.02
+            good = bool(torch.isfinite(a).all()) and float(d.max()) < tol_max \
+                and float(d.mean()) < tol_mean
+            print(f"cuda vs cpu {name} ({tag}) logits [{tuple(a.shape)}]: max_abs "
+                  f"{float(d.max()):.3e} (< {tol_max}) mean_abs {float(d.mean()):.3e} "
+                  f"(< {tol_mean}), |ref| max {float(r.abs().max()):.2f}, argmax "
+                  f"agree {bool(torch.equal(a.argmax(-1), r.argmax(-1)))} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            ok &= good
     # one SGD train step on b 1 x 65 tokens, same weights on both devices
     toks = rng.randint(0, cfg.vocab_size, (1, 65))
     res = {}
@@ -1862,10 +2150,18 @@ def main() -> int:
                     "mfa_tpu/kernels/decode.py:148"),
         "paged": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                   "mfa_tpu/kernels/paged.py:122"),
+        "paged_fp8": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
+                      "mfa_tpu/kernels/paged.py:122"),
+        "paged_int4": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
+                       "mfa_tpu/kernels/paged.py:122"),
         "varlen": ("mfa_tpu_torch/csrc/flash_fwd_sm90.cuh",
                    "mfa_tpu/kernels/varlen.py:53"),
         "paged_prefill": ("mfa_tpu_torch/csrc/paged_prefill.cu",
                           "mfa_tpu/kernels/paged_prefill.py:50"),
+        "paged_prefill_fp8": ("mfa_tpu_torch/csrc/paged_prefill.cu",
+                              "mfa_tpu/kernels/paged_prefill.py:50"),
+        "paged_prefill_int4": ("mfa_tpu_torch/csrc/paged_prefill.cu",
+                               "mfa_tpu/kernels/paged_prefill.py:50"),
         "bwd_fused": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
                       "mfa_tpu/kernels/backward.py:163"),
         "bwd_dkv": ("mfa_tpu_torch/csrc/flash_bwd_sm90.cuh",
@@ -1895,8 +2191,13 @@ def main() -> int:
     for name, fn in (("kernels", lambda: kernel_phase(records)),
                      ("library_surface", lambda: library_surface(counts)),
                      ("engine_8b", lambda: engine_phase(counts, ident, state)),
+                     ("engine_8b_kvq", lambda: kvq_engine_phase(counts, ident, state)),
                      ("chunked_prefix_engine_8b",
                       lambda: chunked_engine_phase(counts, ident, state)),
+                     ("chunked_prefix_engine_8b_int4",
+                      lambda: chunked_engine_phase(counts, ident, state, "int4")),
+                     ("chunked_prefix_engine_8b_fp8",
+                      lambda: chunked_engine_phase(counts, ident, state, "fp8")),
                      ("engine_8b_burst",
                       lambda: burst_engine_phase(counts, ident, state)),
                      ("train_8b", lambda: train_phase(counts, ident, state)),

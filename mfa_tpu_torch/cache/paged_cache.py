@@ -8,8 +8,12 @@ return the same cache object, so the serving loop never copies a pool.
 
 Pages are [num_kv_heads, n_layers * num_pages, page_size, head_dim]:
 layer l's logical page p is physical page l * num_pages + p (the merged
-pool of the JAX package). Rows are head_dim wide; int8 pages carry fp32
-per-row scales [num_kv_heads, n_layers * num_pages, page_size].
+pool of the JAX package). Rows are head_dim wide (int8, fp8 as
+float8_e4m3fn) or head_dim / 2 bytes (int4, feature pairs:
+kernels/quant.py:pack_int4); quantized pages carry fp32 per-row scales
+[num_kv_heads, n_layers * num_pages, page_size]. Rows of every format are
+written whole (no nibble blend), so any set of positions takes one
+scatter.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import List, Optional, Sequence
 import torch
 
 from mfa_tpu_torch.dispatch.config import host_to_device
-from mfa_tpu_torch.kernels.quant import storage_dtype
+from mfa_tpu_torch.kernels.quant import (as_bytes, pack_int4, row_width,
+                                         storage_dtype)
 
 
 @dataclasses.dataclass
@@ -60,7 +65,8 @@ def create_stacked_cache(
     device="cuda",
 ) -> StackedKVCache:
     store = storage_dtype(quant_dtype) if quant_dtype else dtype
-    shape = (num_kv_heads, n_layers * num_pages, page_size, head_dim)
+    shape = (num_kv_heads, n_layers * num_pages, page_size,
+             row_width(quant_dtype, head_dim))
 
     def scales():
         return (torch.ones(shape[:3], dtype=torch.float32, device=device)
@@ -105,19 +111,36 @@ class PageAllocator:
                 self._free.append(int(p))
 
 
-def pack_pages_payload(kq: torch.Tensor, n_pages: int, page: int
-                       ) -> torch.Tensor:
+def stored_rows(quant_dtype: Optional[str], kq: torch.Tensor) -> torch.Tensor:
+    """quantize_rows payload rows [..., d] -> the rows as pages store them:
+    int4 packed to d / 2 bytes, fp8 as its uint8 bits (as_bytes)."""
+    return pack_int4(kq) if quant_dtype == "int4" else as_bytes(kq)
+
+
+def pack_pages_payload(quant_dtype: Optional[str], kq: torch.Tensor,
+                       n_pages: int, page: int) -> torch.Tensor:
     """Whole-page payload [hkv, n_pages * page, d] (or [hkv, n, s, d] with
     n * s == n_pages * page) -> the pages' stored shape [hkv, n_pages,
-    page, d]."""
-    return kq.reshape(kq.shape[0], n_pages, page, kq.shape[-1])
+    page, w] (w = d, or d / 2 bytes for int4; fp8 as uint8 bits)."""
+    rows = stored_rows(quant_dtype, kq)
+    return rows.reshape(rows.shape[0], n_pages, page, rows.shape[-1])
+
+
+def write_pages(pages: torch.Tensor, ids: torch.Tensor,
+                payload: torch.Tensor) -> None:
+    """IN PLACE: pages[:, ids] = payload (pack_pages_payload's output, or
+    16-bit rows), through byte views for fp8."""
+    as_bytes(pages)[:, ids] = as_bytes(payload).to(as_bytes(pages).dtype)
 
 
 def scatter_span_rows(pages: torch.Tensor, page_ids: torch.Tensor,
-                      offs: torch.Tensor, kq: torch.Tensor) -> None:
-    """IN PLACE: write per-token rows kq [hkv, n, d] at (page_ids[i], row
-    offs[i]) of pages [hkv, P, page, d]."""
-    pages[:, page_ids.long(), offs.long()] = kq.to(pages.dtype)
+                      offs: torch.Tensor, kq: torch.Tensor,
+                      quant_dtype: Optional[str] = None) -> None:
+    """IN PLACE: write per-token payload rows kq [hkv, n, d] at
+    (page_ids[i], row offs[i]) of pages [hkv, P, page, w]."""
+    rows = stored_rows(quant_dtype, kq)
+    as_bytes(pages)[:, page_ids.long(), offs.long()] = rows.to(
+        as_bytes(pages).dtype)
 
 
 def map_pages(cache: StackedKVCache, seq_slots, page_indices, page_ids

@@ -18,6 +18,14 @@
 #define MFA_F16 0
 #define MFA_BF16 1
 #define MFA_I8 2
+// quantized KV page formats (kernels/_build.py:KV_CODES): fp8 e4m3 bytes,
+// and int4 as bytes of two features (feature 2c low nibble, 2c + 1 high)
+#define MFA_E4M3 3
+#define MFA_I4 4
+
+// A paged kernel's page format: 16-bit pages of the q dtype, or one byte
+// a value (int8, e4m3) or half a byte (int4) with fp32 row scales.
+enum class KV { F16, I8, E4M3, I4 };
 
 // Large negative, safe in fp32 exp2: exp2(MASK - m) flushes to 0, never NaN
 // (the numerics rules of mfa_tpu: subtract first, guard dead rows).

@@ -63,9 +63,9 @@ extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
                   num_splits, window_left, scale_log2e, softcap, softcap_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFA_DEC(T)                                                  \
-  if (d == 64) return kd90::launch<T, 64, false, false>(k, v, a, batch, s);   \
-  if (d == 128) return kd90::launch<T, 128, false, false>(k, v, a, batch, s); \
-  if (d == 256) return kd90::launch<T, 256, false, false>(k, v, a, batch, s); \
+  if (d == 64) return kd90::launch<T, 64, false, KV::F16>(k, v, a, batch, s);   \
+  if (d == 128) return kd90::launch<T, 128, false, KV::F16>(k, v, a, batch, s); \
+  if (d == 256) return kd90::launch<T, 256, false, KV::F16>(k, v, a, batch, s); \
   return MFA_BAD_CONFIG;
   if (dtype == MFA_BF16) { MFA_DEC(__nv_bfloat16) }
   if (dtype == MFA_F16) { MFA_DEC(__half) }

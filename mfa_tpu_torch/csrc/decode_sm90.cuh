@@ -2,9 +2,10 @@
 //  - Kernel 5's launch 1 (decode.cu): a contiguous [b, hkv, S, D] cache;
 //    replaces mfa_tpu/kernels/decode.py:_decode_kernel.
 //  - Kernel 6 (paged.cu): a page pool [hkv, P, page, D] read in place
-//    through the block table, bf16/fp16 pages or int8 pages with fp32 row
-//    scales [hkv, P, page]; replaces mfa_tpu/kernels/paged.py:
-//    _paged_kernel_body for q_span == 1.
+//    through the block table, bf16/fp16 pages or quantized pages with fp32
+//    row scales [hkv, P, page]: int8, fp8 (e4m3) or int4 (rows of D / 2
+//    bytes, feature 2c in byte c's low nibble, 2c + 1 in its high one);
+//    replaces mfa_tpu/kernels/paged.py:_paged_kernel_body for q_span == 1.
 // One block owns one (batch, kv head, split): the group's <= 8 q rows
 // against rows [lo, hi) of one sequence. With one split and `out` set it
 // stores the final O in the q dtype and the natural-log LSE; otherwise each
@@ -21,8 +22,8 @@
 //    gcd(page, 64) rows, so a larger page is cut into 64-row boxes) of a
 //    map over (D, page, hkv * P), the pool page read from the block table
 //    (clamped into the pool, as the plain version clamps it) by the whole
-//    producer warp, 32 table entries a load; int8 pages bring their row
-//    scales beside them by bulk copies. No box is issued for rows outside
+//    producer warp, 32 table entries a load; quantized pages bring their
+//    row scales beside them by bulk copies. No box is issued for rows outside
 //    [lo, hi): table entries there may be garbage or -1.
 //  - Eight consumer warps in two teams (one team at D 256): team t takes
 //    tiles t, t + 2, ..., and warp w of a team the tile's tokens [16 w,
@@ -32,19 +33,24 @@
 //  - S = Q K^T and O += P V run on mma.sync m16n8k16 (the group's rows
 //    padded to 16); P stays in registers as the A fragment of P V.
 //    16-bit tiles come in the 128-byte swizzle, K's B fragments by ldmatrix
-//    and V's by ldmatrix.trans. There is no int8 x bf16 product, so int8
-//    rows are converted exactly to bf16 in registers: the TMA swizzles a
-//    row by its width (64 B at D 64, 128 B chunks above), K is read as
-//    16-byte units whose four-byte words become B fragments of a permuted
-//    contraction (Q's A fragments are permuted to match, so S is
-//    unchanged), and V as 4 tokens x 4 bytes a thread, transposed with
-//    byte permutes into four B fragments whose output columns are permuted
-//    (undone in the merge). K scales multiply the score columns; V scales
-//    fold into p after the row sum, before p is rounded for P V.
+//    and V's by ldmatrix.trans. There is no int8 x bf16 product, so
+//    quantized rows are converted exactly to bf16 in registers (wgmma.cuh:
+//    i8x4_to_bf16, e4m3x4_to_bf16, i4x8_to_bf16): the TMA swizzles a row
+//    by its byte width RB (D, or D / 2 for int4: 128 B chunks, 64 B, or
+//    unswizzled 32 B rows at int4 D 64), K is read as 8- to 32-byte runs
+//    whose four-byte words become B fragments of a permuted contraction
+//    (one step a word, two for int4's eight values; Q's A fragments are
+//    permuted to match, so S is unchanged), and V as 4 tokens x 4 bytes a
+//    thread, transposed with byte permutes into B fragments (four a word,
+//    eight for int4: a byte's two nibbles are two features) whose output
+//    columns are permuted (undone in the merge). K scales multiply the
+//    score columns; V scales fold into p after the row sum, before p is
+//    rounded for P V.
 //  - Only a warp's 16 tokens that cross lo or hi are masked: their scores
-//    become MASK, their p exactly 0, their 16-bit V fragments zero and
-//    their scaled p zero (a row or scale past the length may hold
-//    anything, and 0 * NaN would survive).
+//    become MASK, their p exactly 0, their 16-bit and fp8 V fragments zero
+//    and their scaled p zero (a row or scale past the length may hold
+//    anything, and 0 * NaN would survive; int8 and int4 codes are all
+//    finite, and the fp8 conversion makes its NaN codes finite too).
 //
 // Semantics of the plain versions (kernels/decode.py, kernels/paged.py),
 // kept exactly: scores scaled into the log2 domain before the max (softcap
@@ -68,7 +74,7 @@ struct Args {
   float scale_log2e, softcap, softcap_mul;
   // the paged source (zero for the contiguous cache): S = pps * page
   const int* table;      // [b, pps] pool pages
-  const float* k_scale;  // int8 pages: [hkv, P, page] fp32
+  const float* k_scale;  // quantized pages: [hkv, P, page] fp32
   const float* v_scale;
   void* out;             // one split: O [b, hq, D] in T (else null)
   float* lse_out;        // and its LSE [b, hq]
@@ -77,21 +83,23 @@ struct Args {
 
 // Shared memory: STAGES slots of [K tile | V tile (| K scales | V scales)],
 // then the barriers (full[STAGES], empty[STAGES]). A 16-bit tile is [D / 64
-// chunks][64 tokens][64] with the 128-byte swizzle, an int8 tile [D / CB
-// chunks][64 tokens][CB bytes] with the CB-byte swizzle. The final merge
+// chunks][64 tokens][64] with the 128-byte swizzle, a quantized tile [RB /
+// CB chunks][64 tokens][CB bytes] with the CB-byte swizzle (none at 32). The final merge
 // reuses the ring: per consumer warp m[8], l[8] and O[8][D] fp32. At D 256
 // one team of four consumer warps: a thread's O alone takes 128 registers,
 // and nine warps could hold no more than 168 a thread (three warps share a
 // quarter of the register file).
-template <int D, bool QUANT>
+template <int D, KV F>
 struct Plan {
+  static constexpr bool QUANT = F != KV::F16;
   static constexpr int TEAMS = D > 128 ? 1 : 2;  // tiles the consumer warps work on at once
   static constexpr int CWARPS = 4 * TEAMS;       // consumer warps, 16 tokens of a tile each
   static constexpr int THREADS = 32 * (1 + CWARPS);
-  static constexpr int CB = QUANT && D < 128 ? D : 128;  // bytes of a chunk row
-  static constexpr uint32_t CHUNK = TILE * CB;           // bytes of a chunk
-  static constexpr uint32_t KV_BYTES = TILE * D * (QUANT ? 1 : 2);  // one K or V tile
-  static constexpr uint32_t sc_off = 2 * KV_BYTES;                  // int8: K, V scales
+  static constexpr int RB = F == KV::I4 ? D / 2 : D;       // bytes of a quantized row
+  static constexpr int CB = QUANT && RB < 128 ? RB : 128;  // bytes of a chunk row
+  static constexpr uint32_t CHUNK = TILE * CB;             // bytes of a chunk
+  static constexpr uint32_t KV_BYTES = TILE * (QUANT ? RB : 2 * D);  // one K or V tile
+  static constexpr uint32_t sc_off = 2 * KV_BYTES;  // quantized: K, V scales
   static constexpr uint32_t STAGE_BYTES =  // a slot, 1024-byte aligned for the swizzle
       (sc_off + (QUANT ? 2 * TILE * 4 : 0) + 1023) / 1024 * 1024;
   static constexpr int FIT = (192 * 1024) / STAGE_BYTES;
@@ -144,14 +152,15 @@ __device__ __forceinline__ uint32_t swz(uint32_t tile, int row, int col) {
   return tile + (col >> 6) * (TILE * 128) + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
 }
 
-// Byte offset of 16-byte unit `unit` of row `row` inside an int8 chunk of
-// CB-byte rows, as the TMA's CB-byte swizzle stores it (address bits 4-6
-// XOR bits 7-9 for 128 B, bits 4-5 XOR bits 7-8 for 64 B; chunks are
-// 1024-byte aligned).
+// Byte offset of 16-byte unit `unit` of row `row` inside a quantized
+// chunk of CB-byte rows, as the TMA's CB-byte swizzle stores it (address
+// bits 4-6 XOR bits 7-9 for 128 B, bits 4-5 XOR bits 7-8 for 64 B; chunks
+// are 1024-byte aligned); 32-byte rows come unswizzled.
 template <int CB>
 __device__ __forceinline__ int swz8(int row, int unit) {
-  return CB == 128 ? row * 128 + ((unit ^ (row & 7)) << 4)
-                   : row * 64 + ((unit ^ ((row >> 1) & 3)) << 4);
+  return CB == 128  ? row * 128 + ((unit ^ (row & 7)) << 4)
+         : CB == 64 ? row * 64 + ((unit ^ ((row >> 1) & 3)) << 4)
+                    : row * 32 + (unit << 4);
 }
 
 // Four words of four bytes (rows r0..r3) -> four words, word i holding byte
@@ -165,35 +174,44 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&
   o[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// Output column of accumulator column n (0-7) of n-tile j in the int8 P V:
-// thread g of a warp reads bytes [c CB + (CB / 8) g, + CB / 8) of V's rows,
-// and n-tile j = 4 (c CB / 32 + w) + i is byte 4 w + i of them.
-template <int CB>
+// Output column of accumulator column n (0-7) of n-tile j in the quantized
+// P V: thread g of a warp reads bytes [c CB + (CB / 8) g, + CB / 8) of V's
+// rows in chunk c. One byte a value: n-tile j = 4 (c CB / 32 + w) + e is
+// byte 4 w + e of them. int4: n-tile j = c CB / 4 + 8 w + 2 e + h is the
+// low (h 0) or high (h 1) nibble of byte 4 w + e, features 2 byte + h.
+template <KV F, int CB>
 __device__ __forceinline__ int quant_col(int j, int n) {
-  const int cw = j >> 2, c = cw / (CB / 32), w = cw % (CB / 32);
-  return c * CB + (CB / 8) * n + 4 * w + (j & 3);
+  if constexpr (F == KV::I4) {
+    const int c = j / (CB / 4), r = j % (CB / 4);
+    return 2 * (c * CB + (CB / 8) * n + 4 * (r >> 3) + ((r >> 1) & 3)) + (r & 1);
+  } else {
+    const int cw = j >> 2, c = cw / (CB / 32), w = cw % (CB / 32);
+    return c * CB + (CB / 8) * n + 4 * w + (j & 3);
+  }
 }
 
 // Where the merge keeps column x of row r (r % 8 = the row's g) of a warp's
 // O, so that the lanes' stores of one accumulator spread over the banks
 // (rows are D floats apart: unswizzled, the 8 rows' stores share banks).
 // 16-bit: bits 3-5 XOR g (column pairs stay together for 8-byte stores);
-// int8: bits 0-4 XOR (g, and the t4 whose accumulator holds the column:
-// unswizzled, all 32 lanes hit one bank).
+// quantized: bits 0-4 XOR (g, and bits of the column that set the t4
+// whose accumulator holds it: unswizzled, all 32 int8 lanes hit one bank).
 template <int CB, bool QUANT>
 __device__ __forceinline__ int merge_col(int r, int x) {
   return QUANT ? x ^ (((r & 7) << 2) | ((x % CB) / (CB / 4))) : x ^ ((r & 7) << 3);
 }
 
 // Grid (splits, hkv, batch). PAGED: the source is a page pool through the
-// block table; QUANT: int8 pages with fp32 row scales (T is then bf16).
-template <typename T, int D, bool PAGED, bool QUANT>
-__global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
+// block table; F: the pages' format (quantized: fp32 row scales, T bf16).
+template <typename T, int D, bool PAGED, KV F>
+__global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     splitkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                    const Args a) {
-  using P = Plan<D, QUANT>;
+  using P = Plan<D, F>;
+  constexpr bool QUANT = P::QUANT;
   constexpr int STAGES = P::STAGES, TEAMS = P::TEAMS, CWARPS = P::CWARPS, CB = P::CB;
-  static_assert(PAGED || !QUANT, "int8 rows come only as pages");
+  constexpr int NCH = P::RB / CB, NW = CB / 16;  // quantized: chunks a row, words a thread reads in each
+  static_assert(PAGED || !QUANT, "quantized rows come only as pages");
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = a.group;
   const int length = a.lens[b];
@@ -238,7 +256,7 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
       // the next 32 entries when a box's page passes them.
       const int* tbl = a.table + (size_t)b * a.pps;
       const int R = a.box_rows, page = a.page_size, last_pi = (hi - 1) / page;
-      const uint32_t box_bytes = QUANT ? 2 * R * (D + 4) : 2 * R * D * 2;
+      const uint32_t box_bytes = QUANT ? 2 * R * (P::RB + 4) : 2 * R * D * 2;
       int ids = 0, id0 = -32;
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, t0 = (first + i) * TILE;
@@ -259,7 +277,7 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
             const int plane = hk * a.num_pages + pg;
             if constexpr (QUANT) {
 #pragma unroll
-              for (int c = 0; c < D / CB; ++c) {
+              for (int c = 0; c < NCH; ++c) {
                 const uint32_t at = c * P::CHUNK + jb * R * CB;
                 tma_load_3d(k_s + at, &tk, bar_full(bars, s), c * CB, row, plane);
                 tma_load_3d(v_s + at, &tv, bar_full(bars, s), c * CB, row, plane);
@@ -287,16 +305,23 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
   const int g = lane >> 2, t4 = lane & 3;
   // Q rows of the group as A fragments (row g; rows >= G and 8-15 zero).
   // 16-bit: step kk holds columns 16 kk + 2 t4 (+1) and 16 kk + 8 + 2 t4
-  // (+1). int8: step kk = c CB / 16 + w holds columns c CB + (CB / 4) t4 +
-  // 4 w + 0..1 and + 2..3, the four bytes of K this thread reads there.
+  // (+1). One byte a value: step kk = c NW + w holds columns c CB + (CB /
+  // 4) t4 + 4 w + 0..1 and + 2..3, the four bytes of K this thread reads
+  // there. int4: steps 2 (c NW + w) + h hold columns 2 (c CB + (CB / 4) t4
+  // + 4 w) + 4 h + 0..3, half of the word's eight nibbles each.
   uint32_t qa[D / 16][2];
   {
     const uint32_t* qr = reinterpret_cast<const uint32_t*>(
         static_cast<const T*>(a.q) + ((size_t)b * a.hq + (size_t)hk * G + min(g, G - 1)) * D);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int col = QUANT ? (kk / (CB / 16)) * CB + (CB / 4) * t4 + 4 * (kk % (CB / 16))
-                            : 16 * kk + 2 * t4;
+      int col = 16 * kk + 2 * t4;
+      if constexpr (F == KV::I4) {
+        const int W = kk >> 1;
+        col = 2 * ((W / NW) * CB + (CB / 4) * t4 + 4 * (W % NW)) + 4 * (kk & 1);
+      } else if constexpr (QUANT) {
+        col = (kk / NW) * CB + (CB / 4) * t4 + 4 * (kk % NW);
+      }
       qa[kk][0] = g < G ? qr[col / 2] : 0u;
       qa[kk][1] = g < G ? qr[col / 2 + (QUANT ? 1 : 4)] : 0u;
     }
@@ -320,33 +345,52 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
       // S = Q K^T over the warp's 16 tokens: two 8-token n-tiles
       float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       if constexpr (QUANT) {
-        // every load of the tile's K units first, then the conversions
-        uint4 kw[2][D / CB][CB / 64];
+        // every load of the tile's K words first (bytes [c CB + (CB / 4)
+        // t4, + CB / 4) of row g of each n-tile), then the conversions
+        uint32_t kw[2][NCH][NW];
 #pragma unroll
         for (int jn = 0; jn < 2; ++jn) {
 #pragma unroll
-          for (int c = 0; c < D / CB; ++c) {
+          for (int c = 0; c < NCH; ++c) {
+            const unsigned char* rp = slot + c * P::CHUNK;
+            const int row = row0 + 8 * jn + g;
+            if constexpr (CB == 32) {
+              const uint2 u = *reinterpret_cast<const uint2*>(rp + swz8<CB>(row, 0) + 8 * t4);
+              kw[jn][c][0] = u.x;
+              kw[jn][c][1] = u.y;
+            } else {
 #pragma unroll
-            for (int x = 0; x < CB / 64; ++x) {
-              kw[jn][c][x] = *reinterpret_cast<const uint4*>(
-                  slot + c * P::CHUNK + swz8<CB>(row0 + 8 * jn + g, (CB / 64) * t4 + x));
+              for (int x = 0; x < CB / 64; ++x) {
+                const uint4 u =
+                    *reinterpret_cast<const uint4*>(rp + swz8<CB>(row, (CB / 64) * t4 + x));
+                kw[jn][c][4 * x] = u.x;
+                kw[jn][c][4 * x + 1] = u.y;
+                kw[jn][c][4 * x + 2] = u.z;
+                kw[jn][c][4 * x + 3] = u.w;
+              }
             }
           }
         }
 #pragma unroll
         for (int jn = 0; jn < 2; ++jn) {
 #pragma unroll
-          for (int c = 0; c < D / CB; ++c) {
+          for (int c = 0; c < NCH; ++c) {
 #pragma unroll
-            for (int x = 0; x < CB / 64; ++x) {
-              const uint32_t wd[4] = {kw[jn][c][x].x, kw[jn][c][x].y, kw[jn][c][x].z,
-                                      kw[jn][c][x].w};
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int kk = c * (CB / 16) + 4 * x + e;
+            for (int w = 0; w < NW; ++w) {
+              const int W = c * NW + w;
+              if constexpr (F == KV::I4) {
+                uint32_t kb[4];
+                i4x8_to_bf16(kw[jn][c][w], kb);
+                mma16816<T>(sc[jn], qa[2 * W][0], qa[2 * W][1], kb);
+                mma16816<T>(sc[jn], qa[2 * W + 1][0], qa[2 * W + 1][1], kb + 2);
+              } else {
                 uint32_t kb[2];
-                i8x4_to_bf16(wd[e], kb[0], kb[1]);
-                mma16816<T>(sc[jn], qa[kk][0], qa[kk][1], kb);
+                if constexpr (F == KV::E4M3) {
+                  e4m3x4_to_bf16(kw[jn][c][w], kb[0], kb[1]);
+                } else {
+                  i8x4_to_bf16(kw[jn][c][w], kb[0], kb[1]);
+                }
+                mma16816<T>(sc[jn], qa[W][0], qa[W][1], kb);
               }
             }
           }
@@ -412,11 +456,21 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
       }
       // P rounded to V's dtype: the A fragment of P V (rows 8-15 zero)
       const uint32_t pa0 = pack2<T>(v[0], v[1]), pa2 = pack2<T>(v[2], v[3]);
+      // V fragments of tokens outside [lo, hi) are zeroed on an edge: b0
+      // holds tokens 2 t4, 2 t4 + 1, b1 tokens 2 t4 + 8, 2 t4 + 9
+      uint32_t keep0 = 0xffffffffu, keep1 = 0xffffffffu;
+      if (edge) {
+        const int t = tok0 + 2 * t4;
+        keep0 = (t >= lo && t < hi ? 0x0000ffffu : 0u) |
+                (t + 1 >= lo && t + 1 < hi ? 0xffff0000u : 0u);
+        keep1 = (t + 8 >= lo && t + 8 < hi ? 0x0000ffffu : 0u) |
+                (t + 9 >= lo && t + 9 < hi ? 0xffff0000u : 0u);
+      }
       if constexpr (QUANT) {
         // rows 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 of the warp's 16: the
         // k-slots of this thread's B fragments
 #pragma unroll
-        for (int c = 0; c < D / CB; ++c) {
+        for (int c = 0; c < NCH; ++c) {
           uint32_t rw[4][CB / 32];
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
@@ -428,11 +482,13 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
               rw[r][1] = u.y;
               rw[r][2] = u.z;
               rw[r][3] = u.w;
-            } else {
+            } else if constexpr (CB == 64) {
               const uint2 u =
                   *reinterpret_cast<const uint2*>(vr + swz8<CB>(row, g >> 1) + (g & 1) * 8);
               rw[r][0] = u.x;
               rw[r][1] = u.y;
+            } else {
+              rw[r][0] = *reinterpret_cast<const uint32_t*>(vr + swz8<CB>(row, 0) + 4 * g);
             }
           }
 #pragma unroll
@@ -442,22 +498,29 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
             transpose4x4(col4, tr);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              uint32_t vb[2];
-              i8x4_to_bf16(tr[e], vb[0], vb[1]);
-              mma16816<T>(acc[4 * (c * (CB / 32) + w) + e], pa0, pa2, vb);
+              if constexpr (F == KV::I4) {
+                uint32_t lo4[2], hi4[2];
+                i4x8_tokens_to_bf16(tr[e], lo4, hi4);
+                const int j = c * (CB / 4) + 8 * w + 2 * e;
+                mma16816<T>(acc[j], pa0, pa2, lo4);
+                mma16816<T>(acc[j + 1], pa0, pa2, hi4);
+              } else {
+                uint32_t vb[2];
+                if constexpr (F == KV::E4M3) {
+                  e4m3x4_to_bf16(tr[e], vb[0], vb[1]);
+                  if (edge) {  // the one format with NaN codes (converted finite)
+                    vb[0] &= keep0;
+                    vb[1] &= keep1;
+                  }
+                } else {
+                  i8x4_to_bf16(tr[e], vb[0], vb[1]);
+                }
+                mma16816<T>(acc[4 * (c * (CB / 32) + w) + e], pa0, pa2, vb);
+              }
             }
           }
         }
       } else {
-        // V fragments of tokens outside [lo, hi) are zeroed on an edge
-        uint32_t keep0 = 0xffffffffu, keep1 = 0xffffffffu;
-        if (edge) {
-          const int t = tok0 + 2 * t4;
-          keep0 = (t >= lo && t < hi ? 0x0000ffffu : 0u) |
-                  (t + 1 >= lo && t + 1 < hi ? 0xffff0000u : 0u);
-          keep1 = (t + 8 >= lo && t + 8 < hi ? 0x0000ffffu : 0u) |
-                  (t + 9 >= lo && t + 9 < hi ? 0xffff0000u : 0u);
-        }
 #pragma unroll
         for (int j2 = 0; j2 < D / 16; ++j2) {
           uint32_t vb[4];
@@ -486,8 +549,8 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     if constexpr (QUANT) {
-      orow[merge_col<CB, true>(g, quant_col<CB>(j, 2 * t4))] = acc[j][0];
-      orow[merge_col<CB, true>(g, quant_col<CB>(j, 2 * t4 + 1))] = acc[j][1];
+      orow[merge_col<CB, true>(g, quant_col<F, CB>(j, 2 * t4))] = acc[j][0];
+      orow[merge_col<CB, true>(g, quant_col<F, CB>(j, 2 * t4 + 1))] = acc[j][1];
     } else {
       *reinterpret_cast<float2*>(orow + merge_col<CB, false>(g, 8 * j + 2 * t4)) =
           make_float2(acc[j][0], acc[j][1]);
@@ -527,25 +590,25 @@ __global__ void __launch_bounds__(Plan<D, QUANT>::THREADS, 1)
 }
 
 // Encode the K and V maps and launch (a contiguous cache k, v [b, hkv, S,
-// D], or the page pools [hkv, P, page, D]). Returns a cudaError_t code,
-// MFA_TMA_ENCODE, or 0.
-template <typename T, int D, bool PAGED, bool QUANT>
+// D], or the page pools [hkv, P, page, D], quantized rows RB bytes).
+// Returns a cudaError_t code, MFA_TMA_ENCODE, or 0.
+template <typename T, int D, bool PAGED, KV F>
 int launch(const void* k, const void* v, const Args& a, int batch, cudaStream_t stream) {
-  using P = Plan<D, QUANT>;
-  constexpr bool BF = kIsBf16<T>;
+  using P = Plan<D, F>;
+  constexpr bool BF = kIsBf16<T>, QUANT = P::QUANT;
   CUtensorMap tk, tv;
   if constexpr (PAGED) {
-    const size_t elem = QUANT ? 1 : 2;
-    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)a.page_size,
+    const size_t row_bytes = QUANT ? P::RB : 2 * D;
+    const cuuint64_t dims[3] = {(cuuint64_t)(QUANT ? P::RB : D), (cuuint64_t)a.page_size,
                                 (cuuint64_t)a.hkv * a.num_pages};
-    const cuuint64_t strides[2] = {(cuuint64_t)(D * elem),
-                                   (cuuint64_t)a.page_size * D * elem};
+    const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)a.page_size * row_bytes};
     const cuuint32_t box[3] = {QUANT ? (cuuint32_t)P::CB : 64u, (cuuint32_t)a.box_rows, 1};
     const CUtensorMapDataType type =
         QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
               : (BF ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16);
-    const CUtensorMapSwizzle sw =
-        P::CB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+    const CUtensorMapSwizzle sw = P::CB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : P::CB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_NONE;
     if (int err = mfa_encode(&tk, k, type, 3, dims, strides, box, sw)) return err;
     if (int err = mfa_encode(&tv, v, type, 3, dims, strides, box, sw)) return err;
   } else {
@@ -555,7 +618,7 @@ int launch(const void* k, const void* v, const Args& a, int batch, cudaStream_t 
     if (int err = mfa_tensor_map_3d(&tk, kv ? k : a.q, BF, D, rows, planes, TILE)) return err;
     if (int err = mfa_tensor_map_3d(&tv, kv ? v : a.q, BF, D, rows, planes, TILE)) return err;
   }
-  auto kern = splitkv_kernel<T, D, PAGED, QUANT>;
+  auto kern = splitkv_kernel<T, D, PAGED, F>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)P::bytes))
     return err;

@@ -2,13 +2,15 @@
 //
 // Replaces mfa_tpu/kernels/paged.py:_paged_kernel_body (paged_attention,
 // also reached through decode.py:paged_decode_attention) for q_span == 1.
-// Pages are [hkv, num_pages, page_size, head_dim] in bf16/fp16, or int8 with
-// fp32 per-row scales [hkv, num_pages, page_size]. The tile is kernel 5's
+// Pages are [hkv, num_pages, page_size, head_dim] in bf16/fp16, or int8,
+// fp8 (e4m3) or int4 (head_dim / 2 bytes a row, feature pairs) with fp32
+// per-row scales [hkv, num_pages, page_size]. The tile is kernel 5's
 // (decode_sm90.cuh: a TMA ring of 64-token tiles, the products on mma.sync)
-// with one TMA box per page through the block table; int8 rows convert to
-// bf16 in registers. pos_offset > 0 is the deferred-append query position
-// (the query sits pos_offset past the stored length; reads stay bounded by
-// it). Bound: bytes of the visible pages (int8 halves them).
+// with one TMA box per page through the block table; quantized rows convert
+// exactly to bf16 in registers. pos_offset > 0 is the deferred-append query
+// position (the query sits pos_offset past the stored length; reads stay
+// bounded by it). Bound: bytes of the visible pages and their scales (int8
+// and fp8 rows d + 4 bytes, int4 rows d / 2 + 4, bf16 rows 2 d).
 //
 // The TPU kernel walks a sequence's pages in order; here a grid that does
 // not fill the 132 SMs splits each sequence's pages into whole 64-token
@@ -17,10 +19,12 @@
 // partials that decode.cu's mfa_decode_combine merges.
 //
 // The TPU-only layout tricks (128-lane page padding, fp8-as-int8 bits, int4
-// token-pair order) do not exist here: rows are head_dim wide.
+// token-pair order) do not exist here: rows are head_dim values wide, and
+// int4 pairs a row's features, so tokens keep their natural order.
 #include "decode_sm90.cuh"
 
-// q [b, hq, d] (int8 pages take bf16 q); with num_splits == 1: out [b, hq,
+// q [b, hq, d] (quantized pages take bf16 q); kv_dtype: MFA_BF16 / MFA_F16
+// or the format code MFA_I8, MFA_E4M3, MFA_I4; with num_splits == 1: out [b, hq,
 // d] in the q dtype and lse_out [b, hq] fp32, else o_part [b, hkv,
 // num_splits, hq / hkv, d] and lse_part [b, hkv, num_splits, hq / hkv]
 // fp32. page_size a multiple of 8; every pointer 16-byte aligned. Returns a
@@ -66,14 +70,16 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   a.box_rows = box_rows;
   a.pos_offset = pos_offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_PAGED(T, QUANT)                                                            \
-  if (d == 64) return kd90::launch<T, 64, true, QUANT>(k_pages, v_pages, a, batch, s);   \
-  if (d == 128) return kd90::launch<T, 128, true, QUANT>(k_pages, v_pages, a, batch, s); \
-  if (d == 256) return kd90::launch<T, 256, true, QUANT>(k_pages, v_pages, a, batch, s); \
+#define MFA_PAGED(T, F)                                                            \
+  if (d == 64) return kd90::launch<T, 64, true, F>(k_pages, v_pages, a, batch, s);   \
+  if (d == 128) return kd90::launch<T, 128, true, F>(k_pages, v_pages, a, batch, s); \
+  if (d == 256) return kd90::launch<T, 256, true, F>(k_pages, v_pages, a, batch, s); \
   return MFA_BAD_CONFIG
-  if (kv_dtype == MFA_I8 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, true); }
-  if (kv_dtype == MFA_BF16 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, false); }
-  if (kv_dtype == MFA_F16 && q_dtype == MFA_F16) { MFA_PAGED(__half, false); }
+  if (kv_dtype == MFA_I8 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::I8); }
+  if (kv_dtype == MFA_E4M3 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::E4M3); }
+  if (kv_dtype == MFA_I4 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::I4); }
+  if (kv_dtype == MFA_BF16 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::F16); }
+  if (kv_dtype == MFA_F16 && q_dtype == MFA_F16) { MFA_PAGED(__half, KV::F16); }
 #undef MFA_PAGED
   return MFA_BAD_CONFIG;
 }

@@ -32,10 +32,13 @@
 //    masked, V's rows are zeroed in shared memory before P V (p = 0 there,
 //    but 0 * NaN survives P V). Pages must hold a multiple of 8 rows: a box
 //    of fewer rows would break the 1024-byte swizzle atom.
-//  - 16-bit pages feed wgmma from the TMA slot as kernel 1 does. int8 pages
-//    come unswizzled into a staging slot, their fp32 row scales beside them
-//    by bulk copies; the 256 consumer threads convert the payload exactly
-//    to bf16 into one 128-byte-swizzled K/V buffer (every load of a
+//  - 16-bit pages feed wgmma from the TMA slot as kernel 1 does. Quantized
+//    pages (int8, fp8 e4m3, or int4 rows of D / 2 bytes: feature 2c in
+//    byte c's low nibble, 2c + 1 in its high one) come unswizzled into a
+//    staging slot, their fp32 row scales beside them by bulk copies; the
+//    256 consumer threads convert the payload exactly to bf16 (wgmma.cuh:
+//    i8x4_to_bf16, e4m3x4_to_bf16, i4x8_to_bf16) into one
+//    128-byte-swizzled K/V buffer (every load of a
 //    thread issued before its first conversion) and copy the scales beside
 //    it (zeros past lens), fence the writes to the async proxy and meet at
 //    a named barrier before wgmma reads them; the staging slot is released
@@ -65,7 +68,7 @@ using fa90::THREADS;
 using fa90::WG_M;
 constexpr int BN = 128;     // keys a tile
 constexpr int STAGES = 2;   // ring slots
-constexpr int BAR_CVT = 1;  // named barrier of the 256 consumer threads (int8)
+constexpr int BAR_CVT = 1;  // named barrier of the 256 consumer threads (quantized)
 
 struct Params {
   const int* lens;      // [b] visible KV length
@@ -81,17 +84,19 @@ struct Params {
 };
 
 // Shared memory: Q [D/64][BM][64]; STAGES ring slots, each K then V
-// [D/64][BN][64] as stored (16-bit pages), or int8 K [BN][D], V [BN][D],
-// K scales [BN], V scales [BN] (int8 pages); for int8 one converted buffer
-// of bf16 K, V (swizzled like a 16-bit slot) and the tile's scales; the
-// barriers (Q, full[STAGES], empty[STAGES]). Every swizzled chunk is
-// 1024-byte aligned.
-template <int D, bool QUANT>
+// [D/64][BN][64] as stored (16-bit pages), or quantized K [BN][RB], V
+// [BN][RB] (RB bytes a row), K scales [BN], V scales [BN]; for quantized
+// pages one converted buffer of bf16 K, V (swizzled like a 16-bit slot)
+// and the tile's scales; the barriers (Q, full[STAGES], empty[STAGES]).
+// Every swizzled chunk is 1024-byte aligned.
+template <int D, KV F>
 struct Plan {
+  static constexpr bool QUANT = F != KV::F16;
+  static constexpr int RB = F == KV::I4 ? D / 2 : D;  // bytes of a quantized row
   static constexpr uint32_t Q_BYTES = BM * D * 2;
   static constexpr uint32_t TILE16 = BN * D * 2;  // one 16-bit K or V tile
   static constexpr uint32_t SCALES = 2 * BN * 4;  // a tile's K and V scales
-  static constexpr uint32_t SLOT = QUANT ? 2 * BN * D + SCALES : 2 * TILE16;
+  static constexpr uint32_t SLOT = QUANT ? 2 * BN * RB + SCALES : 2 * TILE16;
   static constexpr uint32_t ring_off = Q_BYTES;
   static constexpr uint32_t cvt_off = ring_off + STAGES * SLOT;
   static constexpr uint32_t bar_off = cvt_off + (QUANT ? 2 * TILE16 + SCALES : 0);
@@ -122,41 +127,61 @@ __device__ __forceinline__ Span span_of(int ta, int n, int q_len, int q_start, i
   return Span{lo / BN, (hi - 1) / BN};
 }
 
-// The 256 consumer threads (ctid) convert the int8 slot into a bf16
-// buffer: 16 values a unit, one 64-column chunk row as 4 units, rows in
-// the order of the 128-byte swizzle's atoms, every load issued before the
-// first conversion; rows at or past sk become zeros, and so do their
-// scales.
-template <int D>
+// The 256 consumer threads (ctid) convert the quantized slot into a bf16
+// buffer: one 64-column chunk row is UC 16-byte units (4 of 16 values, or
+// 2 of 32 int4 values), rows in the order of the 128-byte swizzle's atoms,
+// every load issued before the first conversion; rows at or past sk become
+// zeros (the zero byte is 0 in every format), and so do their scales.
+template <int D, KV F>
 __device__ __forceinline__ void convert_tile(const unsigned char* slot, unsigned char* cvt,
                                              int kv0, int sk, int ctid) {
-  using PL = Plan<D, true>;
-  constexpr int UNITS = BN * D / 16;       // 16-byte int8 units of one tile
+  using PL = Plan<D, F>;
+  constexpr int RB = PL::RB;
+  constexpr int UC = F == KV::I4 ? 2 : 4;  // 16-byte units of a 64-column chunk row
+  constexpr int UNITS = BN * RB / 16;      // 16-byte units of one tile
   constexpr int PER = 2 * UNITS / 256;     // K's and V's units a thread
   uint4 raw[PER];
 #pragma unroll
   for (int x = 0; x < PER; ++x) {
-    const int u = ctid + 256 * x, r = u % UNITS, row = (r >> 2) % BN;
+    const int u = ctid + 256 * x, r = u % UNITS, row = (r / UC) % BN;
     raw[x] = kv0 + row < sk ? *reinterpret_cast<const uint4*>(
-                                  slot + (u / UNITS) * BN * D + row * D + (r / (BN * 4)) * 64 +
-                                  (r & 3) * 16)
+                                  slot + (u / UNITS) * BN * RB + row * RB +
+                                  (r / (BN * UC)) * (16 * UC) + (r % UC) * 16)
                             : make_uint4(0u, 0u, 0u, 0u);
   }
 #pragma unroll
   for (int x = 0; x < PER; ++x) {
     const int u = ctid + 256 * x, r = u % UNITS;  // u / UNITS: 0 K, 1 V
-    const int ch = r / (BN * 4), row = (r >> 2) % BN, qd = r & 3;
-    uint4 o0, o1;
-    i8x4_to_bf16(raw[x].x, o0.x, o0.y);
-    i8x4_to_bf16(raw[x].y, o0.z, o0.w);
-    i8x4_to_bf16(raw[x].z, o1.x, o1.y);
-    i8x4_to_bf16(raw[x].w, o1.z, o1.w);
+    const int ch = r / (BN * UC), row = (r / UC) % BN, qd = r % UC;
     unsigned char* dst = cvt + (u / UNITS) * PL::TILE16 + ch * (BN * 128) + row * 128;
-    *reinterpret_cast<uint4*>(dst + (((2 * qd) ^ (row & 7)) << 4)) = o0;
-    *reinterpret_cast<uint4*>(dst + (((2 * qd + 1) ^ (row & 7)) << 4)) = o1;
+    const uint32_t wd[4] = {raw[x].x, raw[x].y, raw[x].z, raw[x].w};
+    if constexpr (F == KV::I4) {  // a word: 8 values, one 16-byte unit of bf16
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t o[4];
+        i4x8_to_bf16(wd[e], o);
+        *reinterpret_cast<uint4*>(dst + (((4 * qd + e) ^ (row & 7)) << 4)) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    } else {
+      uint4 o0, o1;
+      if constexpr (F == KV::E4M3) {
+        e4m3x4_to_bf16(wd[0], o0.x, o0.y);
+        e4m3x4_to_bf16(wd[1], o0.z, o0.w);
+        e4m3x4_to_bf16(wd[2], o1.x, o1.y);
+        e4m3x4_to_bf16(wd[3], o1.z, o1.w);
+      } else {
+        i8x4_to_bf16(wd[0], o0.x, o0.y);
+        i8x4_to_bf16(wd[1], o0.z, o0.w);
+        i8x4_to_bf16(wd[2], o1.x, o1.y);
+        i8x4_to_bf16(wd[3], o1.z, o1.w);
+      }
+      *reinterpret_cast<uint4*>(dst + (((2 * qd) ^ (row & 7)) << 4)) = o0;
+      *reinterpret_cast<uint4*>(dst + (((2 * qd + 1) ^ (row & 7)) << 4)) = o1;
+    }
   }
   // one scale a thread: K's BN, then V's BN
-  const float* src = reinterpret_cast<const float*>(slot + 2 * BN * D);
+  const float* src = reinterpret_cast<const float*>(slot + 2 * BN * RB);
   reinterpret_cast<float*>(cvt + 2 * PL::TILE16)[ctid] =
       kv0 + (ctid % BN) < sk ? src[ctid] : 0.f;
 }
@@ -164,11 +189,12 @@ __device__ __forceinline__ void convert_tile(const unsigned char* slot, unsigned
 // One consumer warpgroup (w, thread wtid of 128) over its 64 packed rows:
 // the KV loop over the block's tiles [first, first + n_tiles), computing
 // those of `mine`, then O and LSE of its rows < sq.
-template <typename T, bool QUANT, int D>
+template <typename T, KV F, int D>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, int first,
                                         int n_tiles, Span mine, int w, int wtid, int b, int hk,
                                         int t0, int q_len, int q_start, int sk) {
-  using PL = Plan<D, QUANT>;
+  using PL = Plan<D, F>;
+  constexpr bool QUANT = PL::QUANT;
   const uint32_t base = smem_u32(smem);
   const uint32_t bars = base + PL::bar_off;
   const uint32_t q_wg = base + w * WG_M * 128;  // this warpgroup's rows of each Q chunk
@@ -199,7 +225,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
     if constexpr (QUANT) {
       kv = smem + PL::cvt_off;
       named_sync(BAR_CVT, 256);  // the buffer's readers of the last tile are done
-      convert_tile<D>(slot, kv, kv0, sk, w * 128 + wtid);
+      convert_tile<D, F>(slot, kv, kv0, sk, w * 128 + wtid);
       fence_async_smem();
       named_sync(BAR_CVT, 256);
       mbar_arrive(bar_empty(bars, s));  // the staging slot is free
@@ -234,7 +260,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
       wg_wait_all();
       fence_regs(sc);
 
-      const float* scl = reinterpret_cast<const float*>(kv + 2 * PL::TILE16);  // int8: K, V scales
+      const float* scl = reinterpret_cast<const float*>(kv + 2 * PL::TILE16);  // quantized: K, V scales
       if constexpr (QUANT) {  // K scales on the score columns
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
@@ -363,12 +389,14 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
 }
 
 // Grid (hkv, batch, ceil(sq / (BM / group))).
-template <typename T, bool QUANT, int D>
+template <typename T, KV F, int D>
 __global__ void __launch_bounds__(THREADS, 1)
     paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv, const Params p) {
-  using PL = Plan<D, QUANT>;
+  using PL = Plan<D, F>;
+  constexpr bool QUANT = PL::QUANT;
+  constexpr int RB = PL::RB;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;  // last (longest) q tiles first
   const int group = p.group, npos = BM / group;
@@ -430,8 +458,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         tma_load_4d(base + ch * (BM * 128), &tq, bar_q(bars), ch * 64, hk * group, t0, b);
       const int* tbl = p.table + (size_t)b * p.pps;
       const int R = p.box_rows, page = p.page_size;
-      // bytes of one box of K and V (int8: payload rows and their scales)
-      const uint32_t box_bytes = QUANT ? 2 * R * (D + 4) : 2 * R * D * 2;
+      // bytes of one box of K and V (quantized: payload rows and their scales)
+      const uint32_t box_bytes = QUANT ? 2 * R * (RB + 4) : 2 * R * D * 2;
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, kv0 = (first + i) * BN;
         const int nb = min(BN / R, (sk - kv0 + R - 1) / R);  // boxes below sk
@@ -443,11 +471,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int pg = min(max(tbl[key / page], 0), p.num_pages - 1);
           const int plane = hk * p.num_pages + pg;
           if constexpr (QUANT) {
-            tma_load_3d(slot + jb * R * D, &tk, bar_full(bars, s), 0, row, plane);
-            tma_load_3d(slot + BN * D + jb * R * D, &tv, bar_full(bars, s), 0, row, plane);
+            tma_load_3d(slot + jb * R * RB, &tk, bar_full(bars, s), 0, row, plane);
+            tma_load_3d(slot + BN * RB + jb * R * RB, &tv, bar_full(bars, s), 0, row, plane);
             const size_t srow = (size_t)plane * page + row;
-            bulk_load(slot + 2 * BN * D + jb * R * 4, p.k_scale + srow, R * 4, bar_full(bars, s));
-            bulk_load(slot + 2 * BN * D + (BN + jb * R) * 4, p.v_scale + srow, R * 4,
+            bulk_load(slot + 2 * BN * RB + jb * R * 4, p.k_scale + srow, R * 4, bar_full(bars, s));
+            bulk_load(slot + 2 * BN * RB + (BN + jb * R) * 4, p.v_scale + srow, R * 4,
                       bar_full(bars, s));
           } else {
 #pragma unroll
@@ -463,7 +491,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     regs_inc<fa90::CONSUMER_REGS>();
     const int w = wg - 1;
-    consume<T, QUANT, D>(p, smem, first, n_tiles, w == 0 ? s0 : s1, w, threadIdx.x & 127, b,
+    consume<T, F, D>(p, smem, first, n_tiles, w == 0 ? s0 : s1, w, threadIdx.x & 127, b,
                          hk, t0, q_len, q_start, sk);
   }
 }
@@ -471,12 +499,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 // Encode the maps and launch: q [b, sq, hq, D] as (D, hq, sq, b) in boxes
 // of (64, group, BM / group, 1); the pages [hkv, P, page, D] as (D, page,
 // hkv * P) in boxes of one page's box_rows rows (16-bit: 64-column chunks,
-// swizzled; int8: whole rows, unswizzled). Returns a cudaError_t code,
-// MFA_TMA_ENCODE, or 0.
-template <typename T, bool QUANT, int D>
+// swizzled; quantized: whole rows of RB bytes, unswizzled). Returns a
+// cudaError_t code, MFA_TMA_ENCODE, or 0.
+template <typename T, KV F, int D>
 int launch(const void* q, const void* k_pages, const void* v_pages, const Params& p, int batch,
            cudaStream_t stream) {
-  using PL = Plan<D, QUANT>;
+  using PL = Plan<D, F>;
+  constexpr bool QUANT = PL::QUANT;
   const CUtensorMapDataType qtype =
       kIsBf16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   CUtensorMap tq, tk, tv;
@@ -489,16 +518,16 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const Params
     if (int err = mfa_encode(&tq, q, qtype, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
       return err;
   }
-  const size_t elem = QUANT ? 1 : 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)p.page_size,
+  const size_t row_bytes = QUANT ? PL::RB : 2 * D;
+  const cuuint64_t dims[3] = {(cuuint64_t)(QUANT ? PL::RB : D), (cuuint64_t)p.page_size,
                               (cuuint64_t)p.hkv * p.num_pages};
-  const cuuint64_t strides[2] = {(cuuint64_t)(D * elem), (cuuint64_t)(p.page_size * D * elem)};
-  const cuuint32_t box[3] = {QUANT ? (cuuint32_t)D : 64u, (cuuint32_t)p.box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)(p.page_size * row_bytes)};
+  const cuuint32_t box[3] = {QUANT ? (cuuint32_t)PL::RB : 64u, (cuuint32_t)p.box_rows, 1};
   const CUtensorMapDataType kvtype = QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : qtype;
   const CUtensorMapSwizzle sw = QUANT ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
   if (int err = mfa_encode(&tk, k_pages, kvtype, 3, dims, strides, box, sw)) return err;
   if (int err = mfa_encode(&tv, v_pages, kvtype, 3, dims, strides, box, sw)) return err;
-  auto kern = paged_prefill_kernel<T, QUANT, D>;
+  auto kern = paged_prefill_kernel<T, F, D>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)PL::bytes))
     return err;
@@ -510,7 +539,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const Params
 
 }  // namespace pp90
 
-// q_dtype: the q/out dtype (int8 pages take bf16 q); kv_dtype: the pages'.
+// q_dtype: the q/out dtype (quantized pages take bf16 q); kv_dtype: the
+// 16-bit pages' dtype code, or the format code MFA_I8, MFA_E4M3, MFA_I4.
 // group = hq / hkv must divide 64 (a consumer warpgroup's 64 rows hold
 // 64 / group chunk positions of every q head of one kv head); page_size a
 // multiple of 8. Returns a cudaError_t code.
@@ -533,13 +563,15 @@ extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void*
                        num_pages, page_size, pps,  box_rows,  window_left, window_right,
                        scale_log2e, softcap, softcap_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_PP(T, QUANT)                                                      \
-  if (d == 64) return pp90::launch<T, QUANT, 64>(q, k_pages, v_pages, p, batch, s);   \
-  if (d == 128) return pp90::launch<T, QUANT, 128>(q, k_pages, v_pages, p, batch, s); \
+#define MFA_PP(T, F)                                                      \
+  if (d == 64) return pp90::launch<T, F, 64>(q, k_pages, v_pages, p, batch, s);   \
+  if (d == 128) return pp90::launch<T, F, 128>(q, k_pages, v_pages, p, batch, s); \
   return MFA_BAD_CONFIG
-  if (kv_dtype == MFA_I8 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, true); }
-  if (kv_dtype == MFA_BF16 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, false); }
-  if (kv_dtype == MFA_F16 && q_dtype == MFA_F16) { MFA_PP(__half, false); }
+  if (kv_dtype == MFA_I8 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::I8); }
+  if (kv_dtype == MFA_E4M3 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::E4M3); }
+  if (kv_dtype == MFA_I4 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::I4); }
+  if (kv_dtype == MFA_BF16 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::F16); }
+  if (kv_dtype == MFA_F16 && q_dtype == MFA_F16) { MFA_PP(__half, KV::F16); }
 #undef MFA_PP
   return MFA_BAD_CONFIG;
 }

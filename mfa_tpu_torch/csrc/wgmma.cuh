@@ -299,6 +299,58 @@ __device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t&
   hi = *reinterpret_cast<const uint32_t*>(&r1);
 }
 
+__device__ __forceinline__ uint32_t bf16x2_op(uint32_t a, uint32_t b, bool mul) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&b);
+  const __nv_bfloat162 r = mul ? __hmul2(x, y) : __hsub2(x, y);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Four e4m3 bytes -> two packed bf16 pairs (bytes 0, 1 and 2, 3), exactly.
+// A byte's sign goes to bit 15 of its 16-bit lane and its exponent and
+// mantissa bits to bits 4-10: a bf16 whose exponent field holds e4m3's
+// (bias 7 read as 127), so one multiply by 2^120 gives the value. An e4m3
+// subnormal is a bf16 subnormal there, which the bf16 product keeps (no
+// flush to zero for bf16). The NaN codes 0x7F / 0xFF come out finite (+-480)
+// and quantize_rows never writes them.
+__device__ __forceinline__ void e4m3x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t a = __byte_perm(w, 0u, 0x4140), b = __byte_perm(w, 0u, 0x4342);
+  const uint32_t fa = ((a << 8) & 0x80008000u) | ((a << 4) & 0x07F007F0u);
+  const uint32_t fb = ((b << 8) & 0x80008000u) | ((b << 4) & 0x07F007F0u);
+  lo = bf16x2_op(fa, 0x7B807B80u, true);  // x {2^120, 2^120}
+  hi = bf16x2_op(fb, 0x7B807B80u, true);
+}
+
+// Four bytes of 4-bit values under the magic exponent: byte b of x -> lane
+// b of {128 + x.b0, 128 + x.b1}, {128 + x.b2, 128 + x.b3}, less 136 (the
+// nibbles carry value + 8).
+__device__ __forceinline__ void u4x4_to_bf16(uint32_t x, uint32_t& lo, uint32_t& hi) {
+  lo = bf16x2_op(__byte_perm(x, 0x43434343u, 0x4140), 0x43084308u, false);
+  hi = bf16x2_op(__byte_perm(x, 0x43434343u, 0x4342), 0x43084308u, false);
+}
+
+// Four bytes of int4 feature pairs (byte j: feature 2j in the low nibble,
+// 2j + 1 in the high one, two's complement) -> o[j] = bf16 pair {feature
+// 2j, feature 2j + 1}, exactly: n ^ 8 = n + 8 in [0, 15] becomes the
+// mantissa of 128.0 (bf16 0x4300), and 136 comes off.
+__device__ __forceinline__ void i4x8_to_bf16(uint32_t w, uint32_t (&o)[4]) {
+  const uint32_t u = w ^ 0x88888888u;
+  const uint32_t lo = u & 0x0F0F0F0Fu, hi = (u >> 4) & 0x0F0F0F0Fu;
+  // [lo.b0, hi.b0, lo.b1, hi.b1] and [lo.b2, hi.b2, lo.b3, hi.b3]
+  u4x4_to_bf16(__byte_perm(lo, hi, 0x5140), o[0], o[1]);
+  u4x4_to_bf16(__byte_perm(lo, hi, 0x7362), o[2], o[3]);
+}
+
+// Four bytes of int4 feature pairs, byte r from token r -> the low nibbles'
+// feature as bf16 pairs {token 0, 1}, {token 2, 3} (lo) and the high
+// nibbles' (hi), exactly.
+__device__ __forceinline__ void i4x8_tokens_to_bf16(uint32_t w, uint32_t (&lo)[2],
+                                                    uint32_t (&hi)[2]) {
+  const uint32_t u = w ^ 0x88888888u;
+  u4x4_to_bf16(u & 0x0F0F0F0Fu, lo[0], lo[1]);
+  u4x4_to_bf16((u >> 4) & 0x0F0F0F0Fu, hi[0], hi[1]);
+}
+
 template <typename T>
 constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
 

@@ -110,3 +110,38 @@ def host_to_device(values, dtype, device) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+# KV length (pages_per_seq * page_size) from which kernel 6 reads int4 pages
+# faster than int8 pages on an H100 (scripts/time_kv_formats.py's lens
+# sweep, 512 to 32768 tokens at the 8B heads, batch 16): int4 never lost
+# there, so this is the smallest length swept (at 512 int4 took 0.986 of
+# int8's time; 0.93-0.95 from 2048 on). Below it int8 keeps its finer
+# steps.
+INT4_KV_CROSSOVER_TOKENS = 512
+
+
+def recommend_kv_quant(
+    expected_kv_len: int,
+    *,
+    memory_bound: bool = False,
+    quality_floor: bool = False,
+    outlier_tolerant: bool = False,
+) -> str:
+    """Pick the KV-cache storage format for a serving config
+    (mfa_tpu/dispatch/config.py:recommend_kv_quant's rule).
+
+    expected_kv_len: the cache capacity a sequence can reach
+    (pages_per_seq * page_size). `memory_bound=True` forces int4 (half of
+    int8's bytes: capacity over precision); `quality_floor=True` refuses
+    int4. `outlier_tolerant=True` (KV rows with outlier channels, which
+    crush a per-row int8 scale) takes fp8 at the 8-bit operating points:
+    e4m3 keeps its relative precision whatever the row's absmax. Otherwise
+    int4 from INT4_KV_CROSSOVER_TOKENS on, int8 below.
+    """
+    eight_bit = "fp8" if outlier_tolerant else "int8"
+    if quality_floor:
+        return eight_bit
+    if memory_bound or expected_kv_len >= INT4_KV_CROSSOVER_TOKENS:
+        return "int4"
+    return eight_bit

@@ -37,6 +37,16 @@ NVCC_FLAGS = (
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.int8: 2}
+# page-format codes of quantized KV pages (csrc/common.cuh). int4 pages are
+# int8 storage, so a launcher takes the code from the format the caller
+# names (kernels/quant.py:page_format), never from the pages' dtype.
+KV_CODES = {"int8": 2, "fp8": 3, "int4": 4}
+
+
+def kv_code(fmt, pages: torch.Tensor) -> int:
+    """The kv_dtype code of a paged kernel: the quantized format's, or the
+    16-bit pages' dtype code."""
+    return KV_CODES[fmt] if fmt else DTYPE_CODES[pages.dtype]
 
 launches: collections.Counter = collections.Counter()
 

@@ -3,15 +3,17 @@
 Kernel 6 of the port: csrc/paged.cu on kernel 5's tile
 (csrc/decode_sm90.cuh): one block per (sequence, kv head, split) reads that
 sequence's pages in place, one TMA box per page through block_table
-(bf16/fp16 pages, or int8 pages with fp32 per-row scales), and runs both
-products on the tensor cores. One split writes the final output and LSE;
+(bf16/fp16 pages, or int8, fp8 (e4m3) or int4 pages with fp32 per-row
+scales, converted exactly to bf16 in registers), and runs both products
+on the tensor cores. One split writes the final output and LSE;
 more write fp32 partials that kernel 5's combine launch merges. A CPU
 tensor runs `_paged_plain`, the same function in PyTorch;
 `_paged_split_plain` is the kernel's split route in PyTorch.
 
-Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide,
-without the TPU's 128-lane padding, fp8-as-int8 bits or int4 pair order.
-Only q_span == 1 is ported (speculative spans come later).
+Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide
+(int4: head_dim / 2 bytes of feature pairs, kernels/quant.py:pack_int4),
+without the TPU's 128-lane padding, fp8-as-int8 bits or int4 token-pair
+order. Only q_span == 1 is ported (speculative spans come later).
 """
 
 from __future__ import annotations
@@ -26,12 +28,19 @@ from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
                                            softmax_scale_default)
 from mfa_tpu_torch.kernels import _build, decode
 from mfa_tpu_torch.kernels.decode import KERNEL_HEAD_DIMS, MAX_GROUP, TILE
+from mfa_tpu_torch.kernels.quant import page_format, page_values
 
 _LOG2E = math.log2(math.e)
 # Blocks of the kernel an SM holds: its ring takes 150-190 KB of shared memory
 BLOCKS_PER_SM = 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 11 + [_I] * 13 + [_F, _F, _F, _P]
+
+
+def launch_name(kernel: str, quant_dtype) -> str:
+    """Launch-count name of a paged kernel: "paged" / "paged_prefill" for
+    16-bit and int8 pages, with "_fp8" or "_int4" for those formats."""
+    return f"{kernel}_{quant_dtype}" if quant_dtype in ("fp8", "int4") else kernel
 
 
 def split_plan(batch: int, num_kv_heads: int, pages_per_seq: int,
@@ -67,24 +76,27 @@ def _visible_range(lens, window_left, pos_offset):
 
 
 def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
-                softcap, lo, hi):
+                softcap, lo, hi, quant_dtype=None):
     """Normalized fp32 O [b, hq, d] and LSE [b, hq] over the columns [lo,
     hi) of each sequence that table entries [first, first + table.shape[1])
     hold: K scales on score columns, V scales folded into the
-    probabilities, probabilities rounded to the value dtype (bf16 for int8
-    pages) before P.V."""
+    probabilities, probabilities rounded to the value dtype (bf16 for
+    quantized pages) before P.V. int4 pages unpack, fp8 converts exactly."""
     batch, num_heads, d = q.shape
     hkv, _, page, _ = k_pages.shape
     group = num_heads // hkv
     pps = table.shape[1]
     quantized = k_scales is not None
     idx = table.long().clamp(0, k_pages.shape[1] - 1)
-    # [hkv, b, pps, page, d] -> [b, hkv, pps*page, d]
-    k = k_pages[:, idx].permute(1, 0, 2, 3, 4).reshape(batch, hkv, pps * page, d)
-    v = v_pages[:, idx].permute(1, 0, 2, 3, 4).reshape(batch, hkv, pps * page, d)
+
+    def gather(pages):  # [hkv, b, pps, page, w] -> [b, hkv, pps*page, d]
+        g = page_values(pages[:, idx], quant_dtype)
+        return g.permute(1, 0, 2, 3, 4).reshape(batch, hkv, pps * page, d)
+
+    k, v = gather(k_pages), gather(v_pages)
     vdtype = torch.bfloat16 if quantized else v_pages.dtype
     if quantized and q.dtype == torch.float16:
-        q = q.to(torch.bfloat16)  # int8 pages contract in bf16 (as on TPU)
+        q = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
     qg = q.reshape(batch, hkv, group, d).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float())
     if quantized:
@@ -112,18 +124,18 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
 
 
 def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
-                 scale, window_left, softcap, pos_offset):
+                 scale, window_left, softcap, pos_offset, quant_dtype=None):
     """The kernel's function in plain PyTorch (`_paged_core` over every
     visible column), out in q's dtype."""
     lo, hi = _visible_range(lens, window_left, pos_offset)
     out, lse = _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, 0,
-                           scale, softcap, lo, hi)
+                           scale, softcap, lo, hi, quant_dtype)
     return out.to(q.dtype), lse
 
 
 def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
                        scale, window_left, softcap, pos_offset,
-                       num_splits=None):
+                       num_splits=None, quant_dtype=None):
     """The kernel's split route in plain PyTorch: a partial over each
     split's table entries (`split_pages`) and tokens, merged by
     decode.combine_splits. num_splits None: the launcher's `split_plan`."""
@@ -142,7 +154,7 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
         o, lse = _paged_core(q, k_pages, v_pages, k_scales, v_scales,
                              table[:, first:end], first, scale, softcap,
                              torch.clamp(lo, min=sp * tps),
-                             torch.clamp(hi, max=(sp + 1) * tps))
+                             torch.clamp(hi, max=(sp + 1) * tps), quant_dtype)
         parts.append(o)
         lses.append(lse)
     out, lse = decode.combine_splits(torch.stack(parts, 1), torch.stack(lses, 1),
@@ -151,7 +163,7 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
 
 
 def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
-                window_left, softcap, pos_offset):
+                window_left, softcap, pos_offset, quant_dtype=None):
     _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales,
                        v_scales)
     batch, num_heads, d = q.shape
@@ -165,16 +177,16 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
         raise NotImplementedError(
             f"the paged kernel takes pages of a multiple of 8 rows (one "
             f"swizzled TMA box), got {page}")
-    if k_pages.dtype == torch.int8:
+    if quant_dtype is not None:
         if q.dtype not in (torch.bfloat16, torch.float16):
-            raise NotImplementedError("int8 pages take bf16/fp16 q")
-        qk = q.to(torch.bfloat16)  # int8 pages contract in bf16 (as on TPU)
+            raise NotImplementedError(f"{quant_dtype} pages take bf16/fp16 q")
+        qk = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
     elif k_pages.dtype == q.dtype and q.dtype in (torch.bfloat16, torch.float16):
         qk = q
     else:
         raise NotImplementedError(
-            f"the paged kernel takes bf16/fp16 pages of the q dtype or int8 "
-            f"pages, got {k_pages.dtype} pages with {q.dtype} q")
+            f"the paged kernel takes bf16/fp16 pages of the q dtype or "
+            f"quantized pages, got {k_pages.dtype} pages with {q.dtype} q")
     if v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages dtypes differ")
     tensors = [qk, k_pages, v_pages, lens, table]
@@ -207,13 +219,13 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
             _build.ptr(k_scales), _build.ptr(v_scales), lens.data_ptr(),
             table.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _build.ptr(o_part), _build.ptr(lse_part),
-            _build.DTYPE_CODES[qk.dtype], _build.DTYPE_CODES[k_pages.dtype],
+            _build.DTYPE_CODES[qk.dtype], _build.kv_code(quant_dtype, k_pages),
             batch, num_heads, hkv, num_pages, page, pps, d, num_splits, tps,
             pos_offset, window_left,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
             scale / softcap if softcap else 0.0, _build.stream_of(q))
     _build.check("paged", rc)
-    _build.launches["paged"] += 1
+    _build.launches[launch_name("paged", quant_dtype)] += 1
     if num_splits > 1:
         decode.launch_combine(o_part, lse_part, out, lse)
     return out.to(q.dtype), lse
@@ -240,8 +252,11 @@ def paged_attention(
     """Paged decode attention (seqlen_q == 1).
 
     q: [batch, num_heads, head_dim]. k_pages/v_pages: [num_kv_heads,
-    num_pages, page_size, head_dim], bf16/fp16/fp32, or int8 with
-    k_scales/v_scales [num_kv_heads, num_pages, page_size] fp32.
+    num_pages, page_size, head_dim], bf16/fp16/fp32, or quantized with
+    k_scales/v_scales [num_kv_heads, num_pages, page_size] fp32: int8,
+    fp8 (float8_e4m3fn) or int4 (quant_dtype="int4": int8 bytes
+    [..., head_dim / 2], kernels/quant.py:pack_int4). quant_dtype None
+    takes int8 or fp8 from the pages' dtype.
     cache_seqlens: [batch] stored lengths; block_table: [batch,
     pages_per_seq] physical page ids.
 
@@ -258,26 +273,20 @@ def paged_attention(
     if q.ndim != 3:
         raise NotImplementedError("multi-query spans (q_span > 1) are not "
                                   "ported yet")
-    if quant_dtype not in (None, "int8"):
-        raise NotImplementedError(f"{quant_dtype} pages are not ported yet")
     if sink_tokens or alibi_slopes is not None:
         raise NotImplementedError("sink_tokens and alibi_slopes are not "
                                   "ported yet")
     if pos_offset and 0 <= window_left < 1:
         raise ValueError(f"pos_offset={pos_offset} (deferred append) needs "
                          f"window_left >= 1, got {window_left}")
-    if (k_scales is None) != (k_pages.dtype != torch.int8):
-        raise ValueError("int8 pages need k_scales/v_scales, and only they")
-    if k_pages.shape[-1] != q.shape[-1]:
-        raise ValueError(f"page width {k_pages.shape[-1]} != head_dim "
-                         f"{q.shape[-1]}")
+    fmt = page_format(quant_dtype, k_pages, k_scales, q.shape[-1])
     if q.shape[1] % k_pages.shape[0]:
         raise ValueError("num_heads must be divisible by num_kv_heads")
     scale = float(softmax_scale if softmax_scale is not None
                   else softmax_scale_default(q.shape[-1]))
     args = (q, k_pages, v_pages, k_scales, v_scales, cache_seqlens,
             block_table, scale, int(window_left), float(logit_softcap),
-            int(pos_offset))
+            int(pos_offset), fmt)
     if q.device.type == "cpu":
         out, lse = _paged_plain(*args)
     elif q.device.type == "cuda":

@@ -9,9 +9,10 @@ positions of every q head of the kv head (the TPU's [group, bq] rows),
 with K and V brought by TMA one box per page through the block table.
 A CPU tensor runs `_paged_prefill_plain`, the same function in PyTorch.
 
-Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide,
-without the TPU's 128-lane padding. int8 pages carry fp32 per-row scales;
-fp8 and int4 pages, attention sinks and ALiBi are not ported yet. The
+Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide
+(int4: head_dim / 2 bytes of feature pairs, kernels/quant.py:pack_int4),
+without the TPU's 128-lane padding. int8, fp8 (e4m3) and int4 pages carry
+fp32 per-row scales; attention sinks and ALiBi are not ported yet. The
 kernel takes pages of a multiple of 8 rows (a TMA box of fewer breaks the
 128-byte swizzle); others are refused on the card.
 """
@@ -26,6 +27,8 @@ import torch
 
 from mfa_tpu_torch.dispatch.config import softmax_scale_default
 from mfa_tpu_torch.kernels import _build
+from mfa_tpu_torch.kernels.paged import launch_name
+from mfa_tpu_torch.kernels.quant import page_format, page_values
 
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
@@ -38,11 +41,12 @@ PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
 
 def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
                          q_start, q_lens, table, scale, window_left,
-                         window_right, softcap):
+                         window_right, softcap, quant_dtype=None):
     """The kernel's function in plain PyTorch: scores in the log2 domain,
     K scales on score columns, V scales folded into the probabilities,
-    probabilities rounded to the value dtype (bf16 for int8 pages) before
-    P.V. Rows r >= q_lens give O = 0 and LSE = -inf."""
+    probabilities rounded to the value dtype (bf16 for quantized pages)
+    before P.V (int4 pages unpacked, fp8 converted exactly). Rows r >=
+    q_lens give O = 0 and LSE = -inf."""
     batch, sq, num_heads, d = q.shape
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv
@@ -55,12 +59,12 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
     def gather(pages):  # [hkv, b, pps, page, ...] -> [b, hkv, pps*page, ...]
         g = pages[:, idx]
         return g.permute(1, 0, *range(2, g.ndim)).reshape(
-            batch, hkv, pps * page, *pages.shape[3:])
+            batch, hkv, pps * page, *g.shape[4:])
 
-    k, v = gather(k_pages), gather(v_pages)
+    k, v = (page_values(gather(p), quant_dtype) for p in (k_pages, v_pages))
     vdtype = torch.bfloat16 if quantized else v_pages.dtype
     if quantized and q.dtype == torch.float16:
-        q = q.to(torch.bfloat16)  # int8 pages contract in bf16 (as on TPU)
+        q = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
     qg = q.float().reshape(batch, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
     if quantized:
@@ -96,7 +100,7 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
 
 def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
                         q_start, q_lens, table, scale, window_left,
-                        window_right, softcap):
+                        window_right, softcap, quant_dtype=None):
     _build.refuse_grad("paged_prefill_attention", q, k_pages, v_pages,
                        k_scales, v_scales)
     batch, sq, num_heads, d = q.shape
@@ -110,16 +114,16 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
         raise NotImplementedError(
             f"the paged prefill kernel takes pages of a multiple of "
             f"{PAGE_ROWS} rows, got {page}")
-    if k_pages.dtype == torch.int8:
+    if quant_dtype is not None:
         if q.dtype not in (torch.bfloat16, torch.float16):
-            raise NotImplementedError("int8 pages take bf16/fp16 q")
-        qk = q.to(torch.bfloat16)  # int8 pages contract in bf16 (as on TPU)
+            raise NotImplementedError(f"{quant_dtype} pages take bf16/fp16 q")
+        qk = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
     elif k_pages.dtype == q.dtype and q.dtype in (torch.bfloat16, torch.float16):
         qk = q
     else:
         raise NotImplementedError(
             f"the paged prefill kernel takes bf16/fp16 pages of the q dtype "
-            f"or int8 pages, got {k_pages.dtype} pages with {q.dtype} q")
+            f"or quantized pages, got {k_pages.dtype} pages with {q.dtype} q")
     name = "paged_prefill_attention"
     tensors = [qk, k_pages, v_pages, lens, q_start, q_lens, table]
     if k_scales is not None:
@@ -145,12 +149,12 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
             _build.ptr(k_scales), _build.ptr(v_scales), lens.data_ptr(),
             q_start.data_ptr(), q_lens.data_ptr(), table.data_ptr(),
             out.data_ptr(), lse.data_ptr(), _build.DTYPE_CODES[qk.dtype],
-            _build.DTYPE_CODES[k_pages.dtype], batch, sq, num_heads, hkv,
+            _build.kv_code(quant_dtype, k_pages), batch, sq, num_heads, hkv,
             num_pages, page, table.shape[1], d, window_left, window_right,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
             scale / softcap if softcap else 0.0, _build.stream_of(q))
     _build.check("paged_prefill", rc)
-    _build.launches["paged_prefill"] += 1
+    _build.launches[launch_name("paged_prefill", quant_dtype)] += 1
     return out.to(q.dtype), lse
 
 
@@ -178,8 +182,10 @@ def paged_prefill_attention(
     """Chunk prefill against a paged KV cache.
 
     q: [batch, sq, num_heads, head_dim]. k_pages/v_pages: [num_kv_heads,
-    num_pages, page_size, head_dim], bf16/fp16/fp32, or int8 with
-    k_scales/v_scales [num_kv_heads, num_pages, page_size] fp32.
+    num_pages, page_size, head_dim], bf16/fp16/fp32, or quantized with
+    k_scales/v_scales [num_kv_heads, num_pages, page_size] fp32: int8,
+    fp8 (float8_e4m3fn) or int4 (quant_dtype="int4": int8 bytes [...,
+    head_dim / 2]); quant_dtype None takes int8 or fp8 from the dtype.
     lengths: [batch] visible KV length (the chunk included: its K/V must be
     written to the pages first); q_start: [batch] absolute position of q
     row 0; q_lens: [batch] real q rows (default lengths - q_start);
@@ -193,16 +199,10 @@ def paged_prefill_attention(
     column). Rows r >= q_lens[b] come out O = 0, LSE = -inf (unspecified
     in mfa_tpu).
     """
-    if quant_dtype not in (None, "int8"):
-        raise NotImplementedError(f"{quant_dtype} pages are not ported yet")
     if sink_tokens or alibi_slopes is not None:
         raise NotImplementedError("sink_tokens and alibi_slopes are not "
                                   "ported yet")
-    if (k_scales is None) != (k_pages.dtype != torch.int8):
-        raise ValueError("int8 pages need k_scales/v_scales, and only they")
-    if k_pages.shape[-1] != q.shape[-1]:
-        raise ValueError(f"page width {k_pages.shape[-1]} != head_dim "
-                         f"{q.shape[-1]}")
+    fmt = page_format(quant_dtype, k_pages, k_scales, q.shape[-1])
     if q.shape[2] % k_pages.shape[0]:
         raise ValueError("num_heads must be divisible by num_kv_heads")
     if causal:
@@ -216,7 +216,7 @@ def paged_prefill_attention(
     q_lens = torch.as_tensor(q_lens, device=q.device)
     args = (q, k_pages, v_pages, k_scales, v_scales, lengths, q_start,
             q_lens, block_table, scale, int(window_left), int(window_right),
-            float(logit_softcap))
+            float(logit_softcap), fmt)
     if q.device.type == "cpu":
         out, lse = _paged_prefill_plain(*args)
     elif q.device.type == "cuda":

@@ -1,47 +1,135 @@
-"""KV-cache quantization, int8 per-row (counterpart of mfa_tpu/kernels/quant.py).
+"""KV-cache quantization: int8, fp8 (e4m3) and int4 per-row (counterpart of
+mfa_tpu/kernels/quant.py).
 
-One fp32 scale per (kv head, token row). The paged kernel applies K scales
-to score columns after QK^T and folds V scales into the probabilities, so
+One fp32 scale per (kv head, token row). The paged kernels apply K scales
+to score columns after QK^T and fold V scales into the probabilities, so
 dequantization is O(tokens). Plain PyTorch: these run once per appended
-row, far from the cost of the cache read. fp8 and int4 KV come in a later
-slice and raise for now.
+row, far from the cost of the cache read.
+
+Storage: int8 payloads as int8, fp8 as the native torch.float8_e4m3fn,
+int4 as int8 bytes of two features each (pack_int4: byte c of a row holds
+feature 2c in its low nibble and feature 2c + 1 in its high nibble, as
+two's-complement 4-bit values). The JAX package pairs tokens in a byte
+instead (a TPU lane trick); feature pairs keep tokens in natural order, so
+an append is a plain row write and a byte is one bf16x2 operand of Q K^T.
+quantize_rows returns int4 values unpacked; the cache packs them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+KV_QUANT_DTYPES = ("int8", "fp8", "int4")
+FP8 = torch.float8_e4m3fn
 
 
 def quant_max(quant_dtype: str) -> float:
     if quant_dtype == "int8":
         return 127.0
-    if quant_dtype in ("fp8", "int4"):
-        raise NotImplementedError(f"{quant_dtype} KV is not ported yet")
+    if quant_dtype == "int4":
+        return 7.0
+    if quant_dtype == "fp8":
+        return float(torch.finfo(FP8).max)  # 448 for e4m3fn
     raise ValueError(f"unsupported quant dtype {quant_dtype!r}")
 
 
 def storage_dtype(quant_dtype: str) -> torch.dtype:
     quant_max(quant_dtype)
-    return torch.int8
+    return FP8 if quant_dtype == "fp8" else torch.int8
+
+
+def row_width(quant_dtype: Optional[str], head_dim: int) -> int:
+    """Stored elements of a page row: head_dim, or head_dim / 2 bytes for
+    int4."""
+    if quant_dtype == "int4":
+        if head_dim % 2:
+            raise ValueError(f"int4 KV needs an even head_dim, got {head_dim}")
+        return head_dim // 2
+    return head_dim
 
 
 def quantize_rows(x: torch.Tensor, quant_dtype: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., head_dim] float -> (int8 payload [..., head_dim], fp32 scales
-    [...]). Symmetric: payload = round(x / scale), scale = absmax / 127.
-    torch.round rounds half to even, as jnp.round does, so payloads match
-    the JAX package byte for byte."""
+    """[..., head_dim] float -> (payload [..., head_dim], fp32 scales
+    [...]). Symmetric, scale = absmax / quant_max (1 for an all-zero row).
+    int8/int4: payload = round(x / scale) clipped (torch.round rounds half
+    to even, as jnp.round does), int8 storage, int4 values UNPACKED in [-7,
+    7]; fp8: x / scale clipped to +-448, cast to e4m3 (round to nearest
+    even). Payloads match the JAX package byte for byte."""
     qmax = quant_max(quant_dtype)
     xf = x.float()
     absmax = xf.abs().amax(dim=-1)
     scale = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / qmax)
-    payload = torch.clamp(torch.round(xf / scale[..., None]), -qmax, qmax)
+    scaled = xf / scale[..., None]
+    if quant_dtype == "fp8":
+        return torch.clamp(scaled, -qmax, qmax).to(FP8), scale
+    payload = torch.clamp(torch.round(scaled), -qmax, qmax)
     return payload.to(torch.int8), scale
+
+
+def pack_int4(vals: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7], [..., d] -> int8 bytes [..., d / 2]: byte c
+    = feature 2c (low nibble) | feature 2c + 1 (high nibble)."""
+    v = vals.to(torch.int16)
+    lo = v[..., 0::2] & 0x0F
+    hi = (v[..., 1::2] & 0x0F) << 4
+    b = lo | hi  # 0..255
+    return torch.where(b > 127, b - 256, b).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4: int8 [..., d / 2] -> int8 values [..., d],
+    sign-extended."""
+    b = packed.to(torch.int16) & 0xFF
+    lo = ((b & 0x0F) ^ 8) - 8
+    hi = ((b >> 4) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(
+        *packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
+
+
+def page_values(pages: torch.Tensor, quant_dtype: Optional[str]
+                ) -> torch.Tensor:
+    """Stored pages -> their payload values (int4 unpacked to head_dim
+    wide), in a dtype whose .float() is exact."""
+    return unpack_int4(pages) if quant_dtype == "int4" else pages
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """fp8 tensors are written through a uint8 view (index_put_ and cat
+    need not exist for float8 on every device); others as they are."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
 
 
 def dequantize_rows(payload: torch.Tensor, scales: torch.Tensor,
                     dtype=torch.float32) -> torch.Tensor:
-    """Inverse of quantize_rows (test/oracle path)."""
+    """Inverse of quantize_rows (test/oracle path; int4 payloads unpacked)."""
     return (payload.float() * scales[..., None]).to(dtype)
+
+
+def page_format(quant_dtype: Optional[str], k_pages: torch.Tensor,
+                k_scales: Optional[torch.Tensor], head_dim: int
+                ) -> Optional[str]:
+    """The format of a paged kernel's pages, checked: None (16/32-bit
+    pages), "int8", "fp8" or "int4". quant_dtype None takes it from the
+    pages (int8 with scales, float8_e4m3fn); int4 pages are int8 storage,
+    so they must be named: never read from the dtype alone."""
+    fmt = quant_dtype
+    if fmt is None and k_scales is not None:
+        fmt = "fp8" if k_pages.dtype == FP8 else "int8"
+    if fmt is not None and fmt not in KV_QUANT_DTYPES:
+        raise ValueError(f"unsupported quant dtype {quant_dtype!r}")
+    if (fmt is None) != (k_scales is None) or (
+            fmt is None and k_pages.dtype in (torch.int8, FP8)):
+        raise ValueError("quantized pages need k_scales/v_scales, and only "
+                         "they")
+    if fmt is not None and k_pages.dtype != storage_dtype(fmt):
+        raise ValueError(f"{fmt} pages are stored as {storage_dtype(fmt)}, "
+                         f"got {k_pages.dtype}")
+    width = row_width(fmt, head_dim)
+    if k_pages.shape[-1] != width:
+        raise ValueError(f"page width {k_pages.shape[-1]} != {width} "
+                         f"({fmt or 'unquantized'} pages of head_dim "
+                         f"{head_dim})")
+    return fmt

@@ -50,7 +50,7 @@ import torch.utils.checkpoint
 from mfa_tpu_torch.cache.paged_cache import (StackedKVCache,
                                              create_stacked_cache,
                                              pack_pages_payload,
-                                             scatter_span_rows)
+                                             scatter_span_rows, write_pages)
 from mfa_tpu_torch.dispatch.config import host_to_device, resolve_device
 from mfa_tpu_torch.kernels.autodiff import flash_attention_grad
 from mfa_tpu_torch.kernels.blockmask import (dense_masked_attention,
@@ -58,7 +58,7 @@ from mfa_tpu_torch.kernels.blockmask import (dense_masked_attention,
 from mfa_tpu_torch.kernels.paged import paged_attention
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
-from mfa_tpu_torch.kernels.quant import quantize_rows
+from mfa_tpu_torch.kernels.quant import as_bytes, quantize_rows
 from mfa_tpu_torch.models.wquant import (QWeight, qmm, qtake, quantize_params,
                                          quantize_weight)
 from mfa_tpu_torch.serve.sampling import sample, token_logprobs
@@ -586,7 +586,8 @@ def build_kv_caches(cfg: LlamaConfig, num_pages: int, page_size: int,
 
 
 def _store_rows(quant_dtype: Optional[str], store_dtype, x):
-    """-> (payload in cache storage dtype, per-row scales or None)."""
+    """-> (payload, per-row scales or None): the cache's storage dtype, or
+    quantize_rows' payload (int4 values unpacked; the writes pack them)."""
     if quant_dtype is None:
         return x.to(store_dtype), None
     return quantize_rows(x, quant_dtype)
@@ -612,7 +613,7 @@ def _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg: LlamaConfig):
     vr = vq.reshape(hkv, n, span, d).permute(1, 2, 0, 3)
     quantized = ks_new is not None
     qg = q.reshape(n, span, hkv, group, d)
-    if quantized:  # int8 -> bf16 is exact; q rounds to bf16 as in the kernel
+    if quantized:  # int8/int4/fp8 -> bf16 is exact; q rounds to bf16 as in the kernel
         qg, kr_c = qg.to(torch.bfloat16), kr.to(torch.bfloat16)
     else:
         kr_c = kr
@@ -641,7 +642,8 @@ def _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg: LlamaConfig):
 def _append_all_layers(cache: StackedKVCache, kq_all, ks_all, vq_all, vs_all,
                        page_ids, offs) -> None:
     """IN PLACE: ONE scatter appending every layer's deferred K/V rows.
-    kq_all/vq_all: [L, hkv, R, d]; ks/vs: [L, hkv, R] or None;
+    kq_all/vq_all: [L, hkv, R, d] payload rows (fp8 as uint8 bits, int4
+    unpacked); ks/vs: [L, hkv, R] or None;
     page_ids/offs: [R] LOGICAL page + row offset (layer l adds
     l * num_pages)."""
     L, hkv, R, d = kq_all.shape
@@ -651,9 +653,11 @@ def _append_all_layers(cache: StackedKVCache, kq_all, ks_all, vq_all, vs_all,
             ).reshape(-1)
     loffs = offs.long().repeat(L)
     scatter_span_rows(cache.k_pages, lids, loffs,
-                      kq_all.transpose(0, 1).reshape(hkv, L * R, d))
+                      kq_all.transpose(0, 1).reshape(hkv, L * R, d),
+                      cache.quant_dtype)
     scatter_span_rows(cache.v_pages, lids, loffs,
-                      vq_all.transpose(0, 1).reshape(hkv, L * R, d))
+                      vq_all.transpose(0, 1).reshape(hkv, L * R, d),
+                      cache.quant_dtype)
     if ks_all is not None:
         cache.k_scales[:, lids, loffs] = ks_all.transpose(0, 1).reshape(hkv, L * R)
         cache.v_scales[:, lids, loffs] = vs_all.transpose(0, 1).reshape(hkv, L * R)
@@ -738,8 +742,8 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         # for all layers by one scatter after the loop, as in JAX
         kq, ks_new = _store_rows(cache.quant_dtype, store, k.permute(2, 0, 1, 3))
         vq, vs_new = _store_rows(cache.quant_dtype, store, v.permute(2, 0, 1, 3))
-        kq = pack_pages_payload(kq, n * npg, page)
-        vq = pack_pages_payload(vq, n * npg, page)
+        kq = pack_pages_payload(cache.quant_dtype, kq, n * npg, page)
+        vq = pack_pages_payload(cache.quant_dtype, vq, n * npg, page)
         if image_block_ids is not None:
             attn = _attention_blockmask(q, k, v, cfg, wl, image_block_ids)
         else:
@@ -763,8 +767,8 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         a = torch.stack([y[i] for y in ys], dim=1)
         return a.reshape(a.shape[0], -1, *a.shape[3:])
 
-    cache.k_pages[:, lids] = flat(0)
-    cache.v_pages[:, lids] = flat(2)
+    write_pages(cache.k_pages, lids, flat(0))
+    write_pages(cache.v_pages, lids, flat(2))
     if cache.k_scales is not None:
         cache.k_scales[:, lids] = flat(1)
         cache.v_scales[:, lids] = flat(3)
@@ -854,8 +858,10 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
                                  k.permute(2, 0, 1, 3).reshape(hkv, -1, hd))
         vq, vs_new = _store_rows(cache.quant_dtype, store,
                                  v.permute(2, 0, 1, 3).reshape(hkv, -1, hd))
-        cache.k_pages[:, ids_l] = pack_pages_payload(kq, n * chunk_pages, page)
-        cache.v_pages[:, ids_l] = pack_pages_payload(vq, n * chunk_pages, page)
+        write_pages(cache.k_pages, ids_l, pack_pages_payload(
+            cache.quant_dtype, kq, n * chunk_pages, page))
+        write_pages(cache.v_pages, ids_l, pack_pages_payload(
+            cache.quant_dtype, vq, n * chunk_pages, page))
         if ks_new is not None:
             cache.k_scales[:, ids_l] = ks_new.reshape(hkv, n * chunk_pages, page)
             cache.v_scales[:, ids_l] = vs_new.reshape(hkv, n * chunk_pages, page)
@@ -941,7 +947,8 @@ def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
                                vq, vs_new, cfg)[:, 0]
         x = _attn_residual(x, attn.reshape(n, 1, cfg.n_heads * hd), lp, cfg)
         x = _mlp(x, lp, cfg)
-        ys.append((kq, ks_new, vq, vs_new))
+        # stacked as bytes: torch.stack need not exist for float8 on the card
+        ys.append((as_bytes(kq), ks_new, as_bytes(vq), vs_new))
     kq_all, vq_all = (torch.stack([y[i] for y in ys]) for i in (0, 2))
     ks_all = vs_all = None
     if cache.k_scales is not None:

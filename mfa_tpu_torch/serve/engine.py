@@ -7,7 +7,11 @@ advance every
 in-progress long prompt or prefix-cache suffix by one chunk (kernel 8,
 write-then-attend) -> map pages for the next position(s) -> batched
 decode over the requests whose prefill is complete (kernel 6; kernel 10
-on int8 weights) -> greedy sample -> append / finish. Decode and chunk
+on int8 weights) -> greedy sample -> append / finish. The KV pages are
+bf16, or int8, fp8 (e4m3) or int4 with fp32 row scales (quant_dtype;
+"auto" picks by the cache capacity a sequence can reach,
+dispatch/config.py:recommend_kv_quant), and kernels 6 and 8 read every
+format in place. Decode and chunk
 batches are padded to power-of-two buckets, the padding rows pointing at
 a free scratch slot, as in the JAX engine.
 
@@ -33,7 +37,8 @@ import numpy as np
 import torch
 
 from mfa_tpu_torch.cache.paged_cache import map_pages, release_slots
-from mfa_tpu_torch.dispatch.config import host_to_device, resolve_device
+from mfa_tpu_torch.dispatch.config import (host_to_device,
+                                           recommend_kv_quant, resolve_device)
 from mfa_tpu_torch.models import llama
 from mfa_tpu_torch.serve.graphs import DecodeGraphs
 from mfa_tpu_torch.serve.sampling import SamplingParams, sample, token_logprobs
@@ -106,7 +111,11 @@ class Engine:
         Gemma3 image prompts: their prefill merges the projected image
         features over the placeholder rows under the image-block mask
         (the image-block kernel); decode is unchanged (the images live in
-        the prompt)."""
+        the prompt).
+
+        quant_dtype: None (pages in the model dtype), "int8", "fp8",
+        "int4" or "auto" (recommend_kv_quant(pages_per_seq * page_size),
+        as the JAX engine resolves it)."""
         if mesh is not None or draft_params is not None:
             raise NotImplementedError(
                 "meshes and speculative decoding are not ported yet")
@@ -115,6 +124,8 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.page_size = page_size
+        if quant_dtype == "auto":
+            quant_dtype = recommend_kv_quant(pages_per_seq * page_size)
         self.quant_dtype = quant_dtype
         self.params = params
         self.cache = llama.build_kv_caches(

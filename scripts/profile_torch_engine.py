@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch/CUDA port's serving loop, on one GPU.
 
     python3 scripts/profile_torch_engine.py [--layers 32] [--steps 8] [--out FILE]
-        [--phases bf16,chunk,train,int8,gemma3]
+        [--phases bf16,chunk,train,int8,gemma3] (also: pipeline, fp8kv, int4kv)
 
 Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
@@ -24,7 +24,9 @@ one image wave of chip_smoke.py's 6 image prompts (7 images of 896 x
 896), after one untraced warm wave, and the tower alone on the same 7
 images; the tower's trace splits the wave's device time into the tower,
 the text projections, the glue and kernel 9; then one wave of its 4 text
-prompts and `--steps` decode steps of them (eager, then graphed). For each phase it prints the host wall time (with and without the
+prompts and `--steps` decode steps of them (eager, then graphed).
+--phases fp8kv / int4kv trace the bf16 model's wave and decode steps on
+fp8 (e4m3) or int4 KV pages (kernel 6 on those pages). For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -49,7 +51,7 @@ sys.path.insert(0, ROOT)
 # packed), 1-4 the zero-shift engines (flagged, repair, bound, unchecked), 5
 # the image-block kernel (9). Kernel 8 is pp90::paged_prefill_kernel, kernel
 # 10 wm90::wmatmul_kernel. Kernel 5's launch 1 and kernel 6 are
-# kd90::splitkv_kernel<T, D, paged, int8>: paged true is kernel 6, whose
+# kd90::splitkv_kernel<T, D, paged, KV format>: paged true is kernel 6, whose
 # split route merges through combine_kernel (kernel 5's launch 2; the engine
 # reaches it only from the paged kernel).
 _FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
@@ -346,9 +348,10 @@ def pipeline_phase(params, cfg, acts, out_path, pairs: int = 5) -> None:
                     "step", out)
 
 
-def serve_phase(params, cfg, steps, acts, out_path, tag) -> None:
-    """16 requests of 200-256 prompt tokens: one traced prefill wave, then
-    `steps` traced decode steps (each untraced first for the plain wall)."""
+def serve_phase(params, cfg, steps, acts, out_path, tag, kv="int8") -> None:
+    """16 requests of 200-256 prompt tokens on `kv` KV pages: one traced
+    prefill wave, then `steps` traced decode steps (each untraced first for
+    the plain wall)."""
     import numpy as np
     import torch
     from torch.profiler import profile
@@ -357,7 +360,7 @@ def serve_phase(params, cfg, steps, acts, out_path, tag) -> None:
 
     def engine(n_new):
         eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
-                     pages_per_seq=8, quant_dtype="int8", device="cuda")
+                     pages_per_seq=8, quant_dtype=kv, device="cuda")
         rng = np.random.RandomState(0)
         for n in rng.randint(200, 257, 16):
             eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), n_new)
@@ -397,7 +400,8 @@ def main() -> int:
                     help="comma-separated subset of bf16 (wave + decode), "
                          "pipeline (bursts of 8 with and without the "
                          "pipeline), chunk, train, int8 (wave + decode on "
-                         "int8 weights), gemma3")
+                         "int8 weights), gemma3, fp8kv, int4kv (wave + decode "
+                         "on fp8 / int4 KV pages)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -423,7 +427,7 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         open(args.out, "w").close()
-    if phases & {"bf16", "pipeline", "chunk", "train"}:
+    if phases & {"bf16", "pipeline", "chunk", "train", "fp8kv", "int4kv"}:
         bf16_phases(cfg, phases, args, acts)
         torch.cuda.empty_cache()
     if "int8" in phases:
@@ -450,6 +454,9 @@ def bf16_phases(cfg, phases, args, acts) -> None:
     params = llama.init_params(cfg, seed=0, device="cuda")
     if "bf16" in phases:
         serve_phase(params, cfg, args.steps, acts, args.out, "")
+    for kv in ("fp8", "int4"):
+        if f"{kv}kv" in phases:
+            serve_phase(params, cfg, args.steps, acts, args.out, f"{kv} KV, ", kv)
     if "pipeline" in phases:
         pipeline_phase(params, cfg, acts, args.out)
 

@@ -38,12 +38,14 @@ def _clone(cache):
 
 
 def _assert_same_state(a, b):
+    from mfa_tpu_torch.kernels.quant import as_bytes
+
     for f in ("k_pages", "v_pages", "k_scales", "v_scales", "block_tables",
               "lengths"):
         x, y = getattr(a, f), getattr(b, f)
         assert (x is None) == (y is None), f
-        if x is not None:
-            assert torch.equal(x, y), f
+        if x is not None:  # fp8 pages compare as their bytes
+            assert torch.equal(as_bytes(x), as_bytes(y)), f
 
 
 def _prefilled(cfg, params, quant, lens):
@@ -102,13 +104,16 @@ def test_capture_leaves_the_cache_unchanged(model, weights, quant):
 
 
 @pytest.mark.parametrize("weights,quant", [("bf16", "int8"), ("bf16", None),
-                                           ("int8", "int8")])
+                                           ("int8", "int8"), ("bf16", "int4"),
+                                           ("bf16", "fp8")])
 def test_replay_matches_eager(model, weights, quant):
     """Four replays crossing a page boundary (row 0) and the paged
     kernel's split point (row 1) against eager steps on a clone: tokens,
-    logits and the cache's bytes equal bit for bit; the launch counts of
-    the replays are four times the eager step's."""
+    logits and the cache's bytes equal bit for bit (int4 and fp8 pages
+    too); the launch counts of the replays are four times the eager
+    step's."""
     from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.kernels.paged import launch_name
     from mfa_tpu_torch.models import llama
 
     cfg, ps = model
@@ -132,7 +137,8 @@ def test_replay_matches_eager(model, weights, quant):
         tok = toks[0]
         diffs.append(float((g.buckets[2].logits - logits).abs().max()))
         assert torch.equal(tok, ref_tok), step
-        assert replayed == eager and eager["paged"] == cfg.n_layers
+        assert replayed == eager
+        assert eager[launch_name("paged", quant)] == cfg.n_layers
         if weights == "int8":
             assert eager["wmatmul"] == 7 * cfg.n_layers + 1
         _assert_same_state(cache, ref)

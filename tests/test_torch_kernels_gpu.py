@@ -24,6 +24,31 @@ def _rn(gen, *shape, dtype=BF):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
+def _pages(kf, vf, quant):
+    """Float pages -> (k_pages, v_pages, k_scales, v_scales) in the format
+    `quant` names (None: the float pages; int4 packed to feature pairs)."""
+    from mfa_tpu_torch.kernels.quant import pack_int4, quantize_rows
+
+    if quant is None:
+        return kf, vf, None, None
+    (kp, ks), (vp, vs) = quantize_rows(kf, quant), quantize_rows(vf, quant)
+    if quant == "int4":
+        kp, vp = pack_int4(kp), pack_int4(vp)
+    return kp, vp, ks, vs
+
+
+def _poison(pages, scales, quant, where):
+    """Rows `where` ([hkv, P, page] bool) hold what a stale or unmapped row
+    may hold: NaN in 16-bit pages, NaN scales in quantized ones, and the
+    e4m3 NaN code 0x7F in fp8 payloads."""
+    if quant is None:
+        pages[where] = float("nan")
+        return
+    scales[where] = float("nan")
+    if quant == "fp8":
+        pages.view(torch.uint8)[where] = 0x7F
+
+
 def _close(out, lse, ref, ref_lse):
     assert torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max() < 2e-2
@@ -133,27 +158,41 @@ _GEMMA3_LENS = [300 + (1700 * i) // 9 for i in range(10)]  # 300-2000
 
 
 @pytest.mark.parametrize("hq,hkv,page,d,quant,dtype,pos_offset,window,softcap,lens", [
-    (32, 8, 64, 128, True, BF, 1, -1, 0.0, None),
-    (32, 8, 64, 128, False, BF, 1, 50, 0.0, None),
-    (8, 8, 16, 64, True, HF, 0, -1, 0.0, None),       # fp16 q over int8 pages
-    (8, 1, 8, 64, False, HF, 0, 20, 0.0, None),       # pages smaller than a tile
-    (16, 2, 32, 128, True, BF, 1, 1, 0.0, None),
-    (32, 8, 64, 128, True, BF, 1, -1, 15.0, None),
-    (8, 4, 64, 256, True, BF, 1, 50, 0.0, None),      # head_dim 256, group 2 (Gemma3)
-    (8, 4, 64, 256, False, BF, 1, 50, 0.0, None),
-    (8, 4, 64, 256, True, HF, 1, -1, 0.0, None),
-    (16, 2, 32, 256, False, HF, 0, -1, 0.0, None),    # group 8
-    (32, 8, 128, 128, True, BF, 1, -1, 0.0, None),    # pages past a tile: 64-row boxes
-    (8, 4, 128, 64, False, BF, 1, 100, 0.0, None),
+    (32, 8, 64, 128, "int8", BF, 1, -1, 0.0, None),
+    (32, 8, 64, 128, None, BF, 1, 50, 0.0, None),
+    (8, 8, 16, 64, "int8", HF, 0, -1, 0.0, None),       # fp16 q over int8 pages
+    (8, 1, 8, 64, None, HF, 0, 20, 0.0, None),       # pages smaller than a tile
+    (16, 2, 32, 128, "int8", BF, 1, 1, 0.0, None),
+    (32, 8, 64, 128, "int8", BF, 1, -1, 15.0, None),
+    (8, 4, 64, 256, "int8", BF, 1, 50, 0.0, None),      # head_dim 256, group 2 (Gemma3)
+    (8, 4, 64, 256, None, BF, 1, 50, 0.0, None),
+    (8, 4, 64, 256, "int8", HF, 1, -1, 0.0, None),
+    (16, 2, 32, 256, None, HF, 0, -1, 0.0, None),    # group 8
+    (32, 8, 128, 128, "int8", BF, 1, -1, 0.0, None),    # pages past a tile: 64-row boxes
+    (8, 4, 128, 64, None, BF, 1, 100, 0.0, None),
     # more than one split: Gemma3-4B's decode (b10 hkv4: 40 blocks), b1
-    (8, 4, 64, 256, True, BF, 1, 1023, 0.0, _GEMMA3_LENS),
-    (8, 4, 64, 256, False, BF, 1, 1023, 0.0, _GEMMA3_LENS),
-    (32, 8, 64, 128, True, BF, 1, -1, 0.0, [8192]),
+    (8, 4, 64, 256, "int8", BF, 1, 1023, 0.0, _GEMMA3_LENS),
+    (8, 4, 64, 256, None, BF, 1, 1023, 0.0, _GEMMA3_LENS),
+    (32, 8, 64, 128, "int8", BF, 1, -1, 0.0, [8192]),
+    # fp8 (e4m3) and int4 pages: int4 rows of d / 2 bytes (32 B at d 64:
+    # unswizzled; 64 B at d 128; 128 B at d 256)
+    (32, 8, 64, 128, "fp8", BF, 1, -1, 0.0, None),
+    (32, 8, 64, 128, "int4", BF, 1, -1, 0.0, None),
+    (8, 8, 16, 64, "fp8", HF, 0, 20, 0.0, None),
+    (8, 8, 16, 64, "int4", HF, 0, -1, 0.0, None),
+    (16, 2, 32, 128, "fp8", BF, 1, 1, 15.0, None),
+    (16, 2, 32, 128, "int4", BF, 1, 40, 15.0, None),
+    (8, 4, 128, 64, "int4", BF, 1, 100, 0.0, None),
+    (8, 4, 64, 256, "fp8", BF, 1, 50, 0.0, None),
+    (8, 4, 64, 256, "int4", HF, 1, -1, 0.0, None),
+    (8, 4, 64, 256, "fp8", BF, 1, 1023, 0.0, _GEMMA3_LENS),
+    (8, 4, 64, 256, "int4", BF, 1, 1023, 0.0, _GEMMA3_LENS),
+    (32, 8, 64, 128, "fp8", BF, 1, -1, 0.0, [8192]),
+    (32, 8, 64, 128, "int4", BF, 1, -1, 0.0, [8192]),
 ])
 def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
                       softcap, lens):
     from mfa_tpu_torch.kernels import _build, paged
-    from mfa_tpu_torch.kernels.quant import quantize_rows
 
     gen = torch.Generator(device=dev).manual_seed(2)
     if lens is None:
@@ -165,10 +204,7 @@ def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
     P = b * pps + 3
     q = _rn(gen, b, hq, d, dtype=dtype)
     kf, vf = _rn(gen, hkv, P, page, d, dtype=dtype), _rn(gen, hkv, P, page, d, dtype=dtype)
-    if quant:
-        (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
-    else:
-        kp, vp, ks, vs = kf, vf, None, None
+    kp, vp, ks, vs = _pages(kf, vf, quant)
     table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
              ).reshape(b, pps).int()
     L = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -178,14 +214,16 @@ def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
     _build.reset_launches()
     o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
                                    window_left=window, pos_offset=pos_offset,
-                                   logit_softcap=softcap, return_lse=True)
+                                   logit_softcap=softcap, quant_dtype=quant,
+                                   return_lse=True)
     # one launch at one split; the combine launch merges more
-    assert dict(_build.launches) == ({"paged": 1} if splits == 1
-                                     else {"paged": 1, "combine": 1})
-    # int8 pages contract in bf16: the kernel rounds fp16 q to bf16 first
+    name = paged.launch_name("paged", quant)
+    assert dict(_build.launches) == ({name: 1} if splits == 1
+                                     else {name: 1, "combine": 1})
+    # quantized pages contract in bf16: the kernel rounds fp16 q to bf16 first
     q_ref = q.to(BF).float() if quant else q.float()
     ro, rl = paged._paged_plain(q_ref, kp, vp, ks, vs, L, table, d ** -0.5,
-                                window, softcap, pos_offset)
+                                window, softcap, pos_offset, quant_dtype=quant)
     assert o.dtype == dtype
     _close(o, lse, ro, rl)
     assert (o.float() - ro.float()).abs().mean() < 2e-3
@@ -195,16 +233,18 @@ def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
 
 
 @pytest.mark.parametrize("quant,page,d,window", [
-    (True, 64, 128, -1), (False, 64, 128, -1), (True, 16, 128, 50),
-    (False, 8, 64, -1), (True, 32, 256, -1), (False, 128, 256, 70),
+    ("int8", 64, 128, -1), (None, 64, 128, -1), ("int8", 16, 128, 50),
+    (None, 8, 64, -1), ("int8", 32, 256, -1), (None, 128, 256, 70),
+    ("fp8", 64, 128, -1), ("fp8", 32, 256, 70), ("fp8", 8, 64, -1),
+    ("int4", 16, 128, 50), ("int4", 32, 256, -1), ("int4", 8, 64, -1),
 ])
 def test_paged_kernel_ignores_rows_past_lens(dev, quant, page, d, window):
     """Rows past each length hold NaN (16-bit pages), scales of rows past it
-    and of unmapped pages NaN (int8 pages), and table entries past each
-    length -1 or out of the pool: O and LSE stay finite and equal to the
-    plain version on the cleaned inputs, through every split count."""
+    and of unmapped pages NaN (quantized pages; fp8 payloads there the NaN
+    code 0x7F too), and table entries past each length -1 or out of the
+    pool: O and LSE stay finite and equal to the plain version on the
+    inputs before the poisoning, through every split count."""
     from mfa_tpu_torch.kernels import paged
-    from mfa_tpu_torch.kernels.quant import quantize_rows
 
     gen = torch.Generator(device=dev).manual_seed(7)
     hq, hkv = 8, 2
@@ -213,29 +253,28 @@ def test_paged_kernel_ignores_rows_past_lens(dev, quant, page, d, window):
     P = b * pps + 2
     q = _rn(gen, b, hq, d)
     kf, vf = _rn(gen, hkv, P, page, d), _rn(gen, hkv, P, page, d)
-    if quant:
-        (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
-    else:
-        kp, vp, ks, vs = kf, vf, None, None
+    kp, vp, ks, vs = _pages(kf, vf, quant)
+    clean = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
     table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
              ).reshape(b, pps).int()
+    poisoned = torch.zeros(hkv, P, page, dtype=torch.bool, device=dev)
     used = torch.zeros(P, dtype=torch.bool, device=dev)
     for i, n in enumerate(lens):
         n_pages = -(-n // page)
         used[table[i, :n_pages].long()] = True
         if n % page:  # rows past the length in the last page
-            last = int(table[i, n_pages - 1])
-            for t in ([ks, vs] if quant else [kp, vp]):
-                t[:, last, n % page:] = float("nan")
+            poisoned[:, int(table[i, n_pages - 1]), n % page:] = True
         table[i, n_pages:] = torch.where(
             torch.arange(pps - n_pages, device=dev) % 2 == 0, -1, 10 ** 6).int()
-    for t in ([ks, vs] if quant else [kp, vp]):
-        t[:, ~used] = float("nan")
+    poisoned[:, ~used] = True
+    _poison(kp, ks, quant, poisoned)
+    _poison(vp, vs, quant, poisoned)
     L = torch.tensor(lens, dtype=torch.int32, device=dev)
     o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
-                                   window_left=window, pos_offset=1, return_lse=True)
-    clean = [None if t is None else t.nan_to_num(0.0) for t in (kp, vp, ks, vs)]
-    ro, rl = paged._paged_plain(q.float(), *clean, L, table, d ** -0.5, window, 0.0, 1)
+                                   window_left=window, pos_offset=1,
+                                   quant_dtype=quant, return_lse=True)
+    ro, rl = paged._paged_plain(q.float(), *clean, L, table, d ** -0.5, window, 0.0, 1,
+                                quant_dtype=quant)
     _close(o, lse, ro, rl)
     assert torch.isfinite(lse[L > 0]).all()
     assert paged.split_plan(b, hkv, pps, page)[0] > 1
@@ -334,21 +373,30 @@ def test_varlen_equals_prefill_bit_for_bit(dev, n_seq, s, hq, hkv, d):
          0.0),
         (16, 2, 32, 128, True, HF, [96, 0], 64, [160, 64], None, True, (-1, -1),
          20.0),
+        (32, 8, 64, 128, "fp8", BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        (32, 8, 64, 128, "int4", BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        (8, 2, 16, 128, "fp8", HF, [16, 0], 100, [116, 70], [100, 40], False,
+         (10, 6), 20.0),
+        (4, 4, 64, 64, "int4", BF, [64, 0], 130, [194, 100], None, True, (40, -1),
+         0.0),
+        (16, 2, 32, 64, "fp8", BF, [96, 0], 64, [160, 64], None, True, (-1, -1),
+         0.0),
+        (16, 2, 32, 128, "int4", HF, [96, 0], 64, [160, 64], None, True, (-1, -1),
+         20.0),
     ])
 def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
                               lens, q_lens, causal, window, softcap):
-    from mfa_tpu_torch.kernels import _build, paged_prefill
-    from mfa_tpu_torch.kernels.quant import quantize_rows
+    from mfa_tpu_torch.kernels import _build, paged, paged_prefill
 
+    quant = "int8" if quant is True else quant or None
     gen = torch.Generator(device=dev).manual_seed(5)
     b, pps = len(lens), 400 // page + 1
     P = b * pps + 3
     q = _rn(gen, b, sq, hq, d, dtype=dtype)
     kf, vf = _rn(gen, hkv, P, page, d, dtype=dtype), _rn(gen, hkv, P, page, d, dtype=dtype)
-    if quant:
-        (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
-    else:
-        kp, vp, ks, vs = kf, vf, None, None
+    kp, vp, ks, vs = _pages(kf, vf, quant)
     table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
              ).reshape(b, pps).int()
     L = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -359,13 +407,13 @@ def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
     o, lse = paged_prefill.paged_prefill_attention(
         q, kp, vp, L, qs, table, q_lens=ql, k_scales=ks, v_scales=vs,
         causal=causal, window_left=window[0], window_right=window[1],
-        logit_softcap=softcap, return_lse=True)
-    assert _build.launches["paged_prefill"] == 1
-    # int8 pages contract in bf16: the kernel rounds fp16 q to bf16 first
+        logit_softcap=softcap, quant_dtype=quant, return_lse=True)
+    assert _build.launches[paged.launch_name("paged_prefill", quant)] == 1
+    # quantized pages contract in bf16: the kernel rounds fp16 q to bf16 first
     q_ref = q.to(BF).float() if quant else q.float()
     ro, rl = paged_prefill._paged_prefill_plain(
         q_ref, kp, vp, ks, vs, L, qs, ql, table, d ** -0.5, window[0],
-        0 if causal else window[1], softcap)
+        0 if causal else window[1], softcap, quant_dtype=quant)
     assert o.dtype == dtype and lse.shape == (b, hq, sq)
     _close(o, lse, ro, rl)
 
@@ -379,27 +427,31 @@ def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
         (16, 4, 32, 128, False, BF, [0, 64, 10], 256, [256, 64, 10], [256, 0, 0],
          (-1, -1)),                                                    # q_lens 0: dead blocks
         (8, 2, 64, 64, False, HF, [5, 0], 300, [305, 77], [300, 77], (-1, -1)),
+        (8, 8, 64, 128, "fp8", BF, [0, 100], 200, [200, 300], None, (-1, -1)),
+        (32, 4, 16, 64, "int4", BF, [16, 0, 50], 150, [166, 90, 200], None,
+         (-1, -1)),
+        (16, 4, 16, 128, "int4", HF, [0, 40], 129, [129, 169], None, (33, -1)),
+        (16, 4, 32, 64, "fp8", BF, [0, 64, 10], 256, [256, 64, 10], [256, 0, 0],
+         (-1, -1)),
     ])
 def test_paged_prefill_edges(dev, hq, hkv, page, d, quant, dtype, q_start, sq, lens,
                              q_lens, window):
     """NaN in every key and value row past lens of each sequence's last page,
-    in the pages its unmapped table entries clamp to, and (int8) in their
-    scales: the kernel never lets them reach O or the LSE. Rows past q_lens,
-    and whole blocks of them, come out O = 0, LSE = -inf. Held to the plain
-    version on the same pages with those rows zeroed (the plain version
-    multiplies them by p = 0, which keeps a NaN)."""
-    from mfa_tpu_torch.kernels import _build, paged_prefill
-    from mfa_tpu_torch.kernels.quant import quantize_rows
+    in the pages its unmapped table entries clamp to, and (quantized pages)
+    in their scales, with the NaN code 0x7F in fp8 payloads: the kernel
+    never lets them reach O or the LSE. Rows past q_lens, and whole blocks
+    of them, come out O = 0, LSE = -inf. Held to the plain version on the
+    pages before the poisoning (the plain version multiplies those rows by
+    p = 0, which keeps a NaN)."""
+    from mfa_tpu_torch.kernels import _build, paged, paged_prefill
 
+    quant = "int8" if quant is True else quant or None
     gen = torch.Generator(device=dev).manual_seed(6)
     b, pps = len(lens), 400 // page + 1
     P = b * pps + 3  # pages 0 and P - 1 are never mapped
     q = _rn(gen, b, sq, hq, d, dtype=dtype)
     kf, vf = _rn(gen, hkv, P, page, d, dtype=dtype), _rn(gen, hkv, P, page, d, dtype=dtype)
-    if quant:
-        (kp, ks), (vp, vs) = quantize_rows(kf, "int8"), quantize_rows(vf, "int8")
-    else:
-        kp, vp, ks, vs = kf, vf, None, None
+    kp, vp, ks, vs = _pages(kf, vf, quant)
     table = (torch.randperm(P - 2, generator=gen, device=dev)[: b * pps] + 1
              ).reshape(b, pps).int()
     poisoned = torch.zeros(hkv, P, page, dtype=torch.bool, device=dev)
@@ -411,8 +463,8 @@ def test_paged_prefill_edges(dev, hq, hkv, page, d, quant, dtype, q_start, sq, l
         table[i, last + 1:: 2] = -1        # unmapped: clamps to page 0
         table[i, last + 2:: 2] = 10 ** 6   # and to page P - 1
     clean = [t if t is None else t.clone() for t in (kp, vp, ks, vs)]
-    for t in (ks, vs) if quant else (kp, vp):
-        t[poisoned] = float("nan")
+    _poison(kp, ks, quant, poisoned)
+    _poison(vp, vs, quant, poisoned)
     L = torch.tensor(lens, dtype=torch.int32, device=dev)
     qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
     ql = (L - qs).clamp(min=0) if q_lens is None else torch.tensor(
@@ -420,11 +472,12 @@ def test_paged_prefill_edges(dev, hq, hkv, page, d, quant, dtype, q_start, sq, l
     _build.reset_launches()
     o, lse = paged_prefill.paged_prefill_attention(
         q, kp, vp, L, qs, table, q_lens=ql, k_scales=ks, v_scales=vs, causal=True,
-        window_left=window[0], return_lse=True)
-    assert _build.launches["paged_prefill"] == 1
+        window_left=window[0], quant_dtype=quant, return_lse=True)
+    assert _build.launches[paged.launch_name("paged_prefill", quant)] == 1
     q_ref = q.to(BF).float() if quant else q.float()
     ro, rl = paged_prefill._paged_prefill_plain(
-        q_ref, *clean[:2], *clean[2:], L, qs, ql, table, d ** -0.5, window[0], 0, 0.0)
+        q_ref, *clean[:2], *clean[2:], L, qs, ql, table, d ** -0.5, window[0], 0, 0.0,
+        quant_dtype=quant)
     _close(o, lse, ro, rl)
     dead = torch.arange(sq, device=dev)[None] >= ql[:, None]  # [b, sq]
     assert torch.equal(o.float()[dead], torch.zeros_like(o.float()[dead]))

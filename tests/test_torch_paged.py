@@ -117,7 +117,7 @@ def test_paged_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         paged_attention(args[0][:, None], *args[1:])  # q_span > 1
     with pytest.raises(NotImplementedError):
-        paged_attention(*args, quant_dtype="int4")
+        paged_attention(*args, sink_tokens=4)
     with pytest.raises(ValueError):
         paged_attention(*args, pos_offset=1, window_left=0)
 

@@ -102,8 +102,8 @@ def test_paged_prefill_rejects_what_is_not_ported():
     q, kp, vp, table = _case(0)
     args = [torch.from_numpy(a) for a in (q, kp, vp)] + [
         torch.tensor([32, 32]), torch.tensor([0, 0]), torch.from_numpy(table)]
-    with pytest.raises(NotImplementedError):
-        paged_prefill_attention(*args, quant_dtype="fp8")
+    with pytest.raises(ValueError):
+        paged_prefill_attention(*args, quant_dtype="int2")
     with pytest.raises(NotImplementedError):
         paged_prefill_attention(*args, window_left=8, sink_tokens=4)
     with pytest.raises(ValueError):
