@@ -39,7 +39,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    and int4 pages (kernel 6 at the 8B serve step, lengths 8192, Gemma3's
    d 256 step with 3 splits, a window with a softcap and d 64; kernel 8 at
    the chunk batch), with NaN scales and, for fp8, the NaN code 0x7F in
-   the rows past each length.
+   the rows past each length; kernel 6 on multi-query spans (q [b,
+   q_span, hq, d], launch name paged_span: 8 cases of q_span x group up
+   to 32 rows over bf16, int8, fp8 and int4 pages at d 64, 128 and 256,
+   rows past each length poisoned, each span row against a q_span 1 call
+   at its own length) and with 16 q heads a kv head, timed at the 8B
+   verify shape beside q_span 1.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -72,6 +77,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    + 3 at d 256, every decode step through the paged kernel at d 256; then
    Llama-3-8B again with int8 weights (init_params(quantize="int8")) and
    the traffic of the first engine: every projection through kernel 10.
+   Before the train steps, the first engine's weights and traffic twice
+   more: with sampling (engine top-k 50 and a per-request mix of greedy,
+   temperature / top-p, temperature / min-p and penalized greedy rows;
+   the greedy rows equal the first engine's, one seed gives one stream,
+   another seed changes a sampled row), and speculatively (spec_tokens 4,
+   a draft of Llama-3.2-1B's widths built here with random weights, then
+   the 8B as its own draft, then sampled; verify_step against sequential
+   decode steps at 2 layers).
    The library surface also calls flash_attn_func with a softcap and in
    fp16 (kernel 1) and at head_dim 64 (kernel 4); every bf16 prompt wave
    runs kernels 2 + 3.
@@ -79,7 +92,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    (plain versions) with the same weights: prefill, decode, chunked prefill
    and prefix-hit suffix logits agree on int8, fp8 and int4 KV pages, and
    one SGD train step gives the
-   same loss and gradients; then Gemma3-4B cut to 2 layers (one sliding,
+   same loss and gradients, and a sampled engine step gives the same
+   logits; then Gemma3-4B cut to 2 layers (one sliding,
    one global) with a 2-layer tower at 224 px: image-prompt prefill and
    the next decode step's logits agree; then the 2-layer 8B with int8
    weights: prefill and decode logits agree, argmax equal.
@@ -265,7 +279,7 @@ def kernel_phase(records):
                                    nsp, tps, -1, scale_log2e, 0.0, 0.0, stream))
         ms2 = _time_ms(lambda: fn2(o_part.data_ptr(), lse_part.data_ptr(),
                                    out.data_ptr(), lse_o.data_ptr(), 1, b, hq,
-                                   hkv, nsp, d, stream))
+                                   hkv, nsp, d, 1, stream))
         plain_ms = _time_ms(lambda: decode._decode_partials_plain(
             q, kc, vc, lens, d ** -0.5, nsp, tps, -1, 0.0), iters=3)
         plain_comb = _time_ms(lambda: decode.combine_splits(o_part, lse_part))
@@ -340,6 +354,7 @@ def kernel_phase(records):
     ok &= zero_shift_kernels(records, rn)
     ok &= wmatmul_kernels(records, gen)
     ok &= kv_format_kernels(records)
+    ok &= span_kernels(records)
     return ok
 
 
@@ -510,6 +525,154 @@ def kv_format_kernels(records):
     return ok
 
 
+SPAN_CASES = (  # q_span, group, d, pages, pos_offset, window, softcap
+    (2, 4, 128, "int8", 2, -1, 0.0),
+    (4, 4, 128, None, 0, -1, 0.0),
+    (3, 4, 64, "fp8", 3, 50, 0.0),
+    (8, 2, 256, "int4", 0, -1, 30.0),
+    (4, 8, 128, "fp8", 4, -1, 0.0),     # 32 rows: two row blocks
+    (8, 4, 256, "int8", 8, 100, 0.0),   # 32 rows at d 256
+    (8, 2, 64, "int4", 8, -1, 0.0),
+    (4, 8, 256, None, 0, 300, 20.0))
+
+
+def span_kernels(records):
+    """Kernel 6 on multi-query spans (q [b, q_span, hq, d], launch name
+    "paged_span"; speculative verification) against its plain version (max
+    2e-2, mean 2e-3; LSE within 1e-3 with the same -inf rows): SPAN_CASES
+    over bf16, int8, fp8 and int4 pages at d 64, 128 and 256, pos_offset 0
+    and q_span, windows and softcaps, rows past each length holding NaN
+    (bf16) or NaN scales and, for fp8, the 0x7F code. With pos_offset 0,
+    each span row si also against a q_span = 1 call at lens - (q_span - 1 -
+    si) (same limits). Times the 8B verify shape (b16, span 4, hq32 hkv8
+    d128, int8 pages of 64, lens 195-300, pos_offset 4) beside q_span = 1
+    at the same lens, and groups of 16 (hq32 hkv2) at q_span = 1. Its
+    inputs come from a generator of its own."""
+    import torch
+
+    from mfa_tpu_torch.kernels import paged
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def setup(b_lens, hkv, d, quant, page=64):
+        pps = max(b_lens) // page + 1
+        P = len(b_lens) * pps + 1
+        kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+        if quant is None:
+            kp, vp, ks, vs = kf, vf, None, None
+        else:
+            kp, vp, ks, vs = _kv_pages(kf, vf, quant)
+        bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: len(b_lens) * pps]
+              + 1).reshape(len(b_lens), pps).to(torch.int32)
+        L = torch.tensor(b_lens, dtype=torch.int32, device="cuda")
+        return [kp, vp, ks, vs], bt, L, pps
+
+    ok, rec, page, hkv = True, records["paged_span"], 64, 2
+    lens_l = [300, 8, page, 383 // page * page - 1, 195]
+    for span, group, d, quant, pos_offset, wl, cap in SPAN_CASES:
+        hq = hkv * group
+        pages, bt, L, _ = setup(lens_l, hkv, d, quant)
+        clean = [None if t is None else t.clone() for t in pages]
+        stale = torch.zeros(pages[0].shape[:3], dtype=torch.bool, device="cuda")
+        for i, n in enumerate(lens_l):
+            if n % page:
+                stale[:, int(bt[i, n // page]), n % page:] = True
+        if quant is None:
+            pages[0][stale] = float("nan")
+            pages[1][stale] = float("nan")
+        else:
+            _poison_stale(pages[0], pages[2], quant, stale)
+            _poison_stale(pages[1], pages[3], quant, stale)
+        q = rn(len(lens_l), span, hq, d)
+        kw = dict(window_left=wl, pos_offset=pos_offset, logit_softcap=cap,
+                  quant_dtype=quant)
+        o, lse = paged.paged_attention(q, pages[0], pages[1], L, bt, k_scales=pages[2],
+                                       v_scales=pages[3], return_lse=True, **kw)
+        ro, rl = paged._paged_plain(q.float(), *clean, L, bt, d ** -0.5, wl, cap,
+                                    pos_offset, quant_dtype=quant)
+        print(f"paged_span q_span={span} group={group} ({span * group} rows) d={d} "
+              f"{quant or 'bf16'} pages hkv={hkv} lens={lens_l} pos_offset={pos_offset} "
+              f"window={wl} softcap={cap}; rows past lens poisoned", flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "")
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        if pos_offset == 0:
+            worst, same = 0.0, True
+            for si in range(span):
+                eff = (L - (span - 1 - si)).clamp(min=0)
+                o1, l1 = paged.paged_attention(q[:, si], pages[0], pages[1], eff, bt,
+                                               k_scales=pages[2], v_scales=pages[3],
+                                               return_lse=True, **kw)
+                dd = (o[:, si].float() - o1.float()).abs()
+                worst = max(worst, float(dd.max()))
+                same &= float(dd.mean()) < 2e-3 and float(dd.max()) < 2e-2
+                fin = torch.isfinite(l1)
+                same &= torch.equal(torch.isneginf(lse[:, si]), torch.isneginf(l1))
+                same &= float((lse[:, si][fin] - l1[fin]).abs().max()) < 1e-3
+            print(f"  rows against q_span 1 calls at lens - (q_span - 1 - si): "
+                  f"max_abs {worst:.3e} {'ok' if same else 'FAIL'}", flush=True)
+            ok &= same
+        del pages, clean, q, o, ro
+    # -- the 8B verify shape, and q_span 1 at its lens
+    lens_v = [300 - 7 * i for i in range(16)]
+    b, hq, hkv, d = 16, 32, 8, 128
+    pages, bt, L, pps = setup(lens_v, hkv, d, "int8")
+    rows = sum(lens_v) * hkv
+    for span, tag in ((4, "8B verify shape, span 4, pos_offset 4"),
+                      (1, "q_span 1 at the same lens, pos_offset 1")):
+        q = rn(b, span, hq, d) if span > 1 else rn(b, hq, d)
+        po = span if span > 1 else 1
+
+        def run(q=q, po=po):
+            return paged.paged_attention(q, pages[0], pages[1], L, bt, k_scales=pages[2],
+                                         v_scales=pages[3], pos_offset=po,
+                                         return_lse=True)
+
+        o, lse = run()
+        ro, rl = paged._paged_plain(q.float(), *pages, L, bt, d ** -0.5, -1, 0.0, po)
+        print(f"paged int8 pages, {tag}: b={b} hq={hq} hkv={hkv} d={d} page={page} "
+              f"lens={min(lens_v)}..{max(lens_v)}", flush=True)
+        mx, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "")
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: paged._paged_plain(
+            q, *pages, L, bt, d ** -0.5, -1, 0.0, po), iters=3)
+        nbytes = 2 * rows * _row_bytes("int8", d) + b * pps * 4 \
+            + 2 * b * span * hq * d * 2 + b * span * hq * 4
+        bound_ms, by = _bound(nbytes, 4 * span * hq // hkv * rows * d)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a bound_ms "
+              f"{bound_ms:.6f} ({by}) bound share {bound_ms / ms:.3f}", flush=True)
+        if span > 1:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                       library_ms=None)
+    # -- groups of 16 at q_span 1 (hq32 hkv2): the 16-row blocks
+    hkv = 2
+    pages, bt, L, pps = setup(lens_v, hkv, d, "int8")
+    q = rn(b, hq, d)
+    o, lse = paged.paged_attention(q, pages[0], pages[1], L, bt, k_scales=pages[2],
+                                   v_scales=pages[3], pos_offset=1, return_lse=True)
+    ro, rl = paged._paged_plain(q.float(), *pages, L, bt, d ** -0.5, -1, 0.0, 1)
+    print(f"paged int8 pages, group 16 at q_span 1: b={b} hq={hq} hkv={hkv} d={d} "
+          f"lens={min(lens_v)}..{max(lens_v)}", flush=True)
+    mx, good = _err(o, ro, what="O")
+    ok &= good and _lse_err(lse, rl, "")
+    records["paged"]["max_abs_err"] = max(records["paged"].get("max_abs_err", 0.0), mx)
+    ms = _time_ms(lambda: paged.paged_attention(
+        q, pages[0], pages[1], L, bt, k_scales=pages[2], v_scales=pages[3],
+        pos_offset=1, return_lse=True))
+    rows = sum(lens_v) * hkv
+    bound_ms, by = _bound(2 * rows * _row_bytes("int8", d) + b * pps * 4
+                          + 2 * b * hq * d * 2 + b * hq * 4, 4 * hq // hkv * rows * d)
+    print(f"  ms {ms:.4f} library_ms n/a bound_ms {bound_ms:.6f} ({by}) bound share "
+          f"{bound_ms / ms:.3f}", flush=True)
+    del pages, q, o, ro
+    torch.cuda.empty_cache()
+    return ok
+
+
 def decode_kernels(records):
     """Kernel 5's launch 1 (csrc/decode_sm90.cuh) beyond the main shape: a
     long cache (b1 S32768) at d 64, 128 and 256, groups 1, 2, 4 and 8, a
@@ -649,7 +812,7 @@ def gemma3_kernels(records, rn, gen):
               f"pos_offset=1", flush=True)
         mx, good = _err(o, ro, what="O")
         ok &= good and _lse_err(lse, rl, "")
-        records["paged"]["max_abs_err"] = max(records["paged"]["max_abs_err"], mx)
+        records["paged"]["max_abs_err"] = max(records["paged"].get("max_abs_err", 0.0), mx)
         ms = _time_ms(run)
         plain_ms = _time_ms(lambda: paged._paged_plain(
             qd, kp, vp, ks, vs, L, bt, scale, 1023, 0.0, 1), iters=3)
@@ -1410,6 +1573,7 @@ def engine_phase(counts, ident, state):
     ok &= got.get("paged", 0) == cfg.n_layers * stats.steps
     ok &= stats.captures >= 1 and stats.readbacks == stats.steps
     step_tokens = stats.decode_tokens - n_req  # first tokens come from prefill
+    state["decode_tps"] = step_tokens / stats.decode_s
     print(f"engine launches {got}: flagged = repair = {cfg.n_layers} layers x "
           f"{stats.prefill_batches} waves, paged = {cfg.n_layers} layers x "
           f"{stats.steps} decode steps", flush=True)
@@ -1571,6 +1735,7 @@ def burst_engine_phase(counts, ident, state):
         ok &= got.get("paged", 0) == L * stats.steps
         ok &= stats.readbacks < stats.steps
         step_tokens = stats.decode_tokens - n_req
+        state[f"burst_tps_{pipeline}"] = step_tokens / stats.decode_s
         print(f"burst engine (burst 8, pipeline={pipeline}) launches {got}: "
               f"paged = {L} layers x {stats.steps} decode steps", flush=True)
         print(f"burst engine (burst 8, pipeline={pipeline}): tokens identical to "
@@ -1580,6 +1745,235 @@ def burst_engine_phase(counts, ident, state):
               f"[{ident}]", flush=True)
         del eng
     torch.cuda.empty_cache()
+    return ok
+
+
+SAMPLING_MIX = (None, dict(temperature=0.8, top_p=0.9),
+                dict(temperature=1.0, min_p=0.05), dict(repetition_penalty=1.3))
+
+
+def _traffic(cfg, n_req=16):
+    """Part 2's prompts: 16 of 200-256 tokens from the seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    return [list(rng.randint(0, cfg.vocab_size, int(n)))
+            for n in rng.randint(200, 257, n_req)]
+
+
+def sampling_engine_phase(counts, ident, state):
+    """Main path, part 3c: part 2's weights and traffic (16 requests of
+    200-256 prompt tokens, 32 new tokens, int8 KV, pages of 64) with
+    sampling: the engine's top-k 50 and a per-request mix, rows 0-3 greedy,
+    4-7 temperature 0.8 / top-p 0.9, 8-11 temperature 1.0 / min-p 0.05,
+    12-15 greedy with repetition penalty 1.3 (presence rows on the device).
+    Graphed, with run() (seed SEED), run(burst=8) (seed SEED), run() again
+    (seed SEED) and run(burst=8) with seed SEED + 1. Every request finishes
+    with finite logprobs and its pages back, graphs are captured, the plain
+    greedy rows equal part 2's tokens in every run (rows of one bucket do
+    not mix in any product), the second run() equals the first in every
+    row, and the other seed changes at least one sampled row."""
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.serve.engine import Engine
+    from mfa_tpu_torch.serve.sampling import SamplingParams
+
+    params, cfg = state["params"], state["cfg"]
+    n_req, gen_tokens, L = 16, 32, cfg.n_layers
+    prompts = _traffic(cfg, n_req)
+
+    def run(seed, burst):
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype="int8", device="cuda",
+                     sampling=SamplingParams(top_k=50), seed=seed)
+        free0 = eng.sched.allocator.free_pages
+        reqs = [eng.submit(p, gen_tokens, sampling=(
+            SamplingParams(**SAMPLING_MIX[i // 4]) if SAMPLING_MIX[i // 4] else None))
+            for i, p in enumerate(prompts)]
+        _build.reset_launches()
+        stats = eng.run(burst=burst)
+        got = dict(_build.launches)
+        counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+        good = all(len(r.generated) == gen_tokens for r in reqs)
+        good &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+        good &= eng.sched.allocator.free_pages == free0
+        good &= _wave_launches(got, L * stats.prefill_batches)
+        good &= got.get("paged", 0) == L * stats.steps
+        good &= stats.captures >= 1
+        greedy_same = [r.generated for r in reqs[:4]] == state["step_tokens"][:4]
+        good &= greedy_same
+        step_tokens = stats.decode_tokens - n_req
+        rate = step_tokens / stats.decode_s
+        print(f"sampling engine (seed {seed}, burst {burst}) launches {got}: paged = "
+              f"{L} layers x {stats.steps} decode steps; {n_req} requests finished "
+              f"with {gen_tokens} tokens, finite logprobs, free pages "
+              f"{eng.sched.allocator.free_pages} of {free0}; greedy rows equal to "
+              f"part 2's: {greedy_same}; {stats.captures} graphs captured; "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ref = state["decode_tps"] if burst == 1 else state.get("burst_tps_True", 0.0)
+        print(f"sampling engine (seed {seed}, burst {burst}): decode "
+              f"{_decode_rates(stats, step_tokens)}; greedy engine of part "
+              f"{'2' if burst == 1 else '3b (burst 8, pipelined)'} {ref:.1f} tok/s "
+              f"({rate / ref:.3f}x) [{ident}]", flush=True)
+        del eng
+        return [r.generated for r in reqs], good
+
+    a, ok = run(SEED, 1)
+    b, good = run(SEED, 8)
+    ok &= good
+    a2, good = run(SEED, 1)
+    ok &= good and a2 == a
+    c, good = run(SEED + 1, 8)
+    ok &= good
+    sampled = list(range(4, 12))
+    differs = any(b[i] != c[i] for i in sampled)
+    ok &= differs
+    print(f"sampling engine: the same seed again token-identical in every row: "
+          f"{a2 == a}; run() and run(burst=8) with one seed identical (one draw a "
+          f"step either way): {a == b}; seed {SEED + 1} changes a sampled row: "
+          f"{differs}", flush=True)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def llama32_1b_draft_config(cfg):
+    """Llama-3.2-1B's widths from its public config.json
+    (meta-llama/Llama-3.2-1B): dim 2048, 16 layers, 32 q / 8 kv heads of 64,
+    ffn 8192, vocab 128256, rope theta 500000 with llama3 scaling (factor 32,
+    low / high frequency factors 1 / 4, original context 8192). Built here;
+    no preset is added to the package."""
+    return dataclasses.replace(cfg, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+                               ffn_dim=8192, rope_theta=500000.0,
+                               rope_scaling=("llama3", 32.0, 1.0, 4.0, 8192))
+
+
+def speculative_engine_phase(counts, ident, state):
+    """Main path, part 3d: speculative decoding with part 2's target (the
+    8B weights in `state`) and traffic, int8 KV, spec_tokens 4. The draft
+    has Llama-3.2-1B's widths (llama32_1b_draft_config) and random bf16
+    weights from the seed; its lm_head is its own (the port ties no
+    embedding, and neither does mfa_tpu). Greedy run: every request
+    finishes with 32 tokens, the pages come back and both caches' tables
+    and lengths are clear, spec_proposed > 0, paged_span launches = 32
+    target layers x verify iterations (and the draft's paged launches 16 x
+    4 x iterations), the speculative graphs are captured; prints the
+    acceptance and the share of tokens equal to part 2's (no gate: bf16
+    verify and bf16 decode may pick other tokens at near-ties). Then the
+    8B model as its own draft (its acceptance printed), a sampled run
+    (temperature 0.8, top-p 0.9, host-stepped: finishes, finite
+    logprobs), and verify_vs_decode: at 2 layers of 8B width, on int8 and
+    bf16 KV, verify_step over 4 tokens against 4 decode_steps from the
+    same cache state (logits max 0.25 / mean 0.02)."""
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import Engine
+    from mfa_tpu_torch.serve.sampling import SamplingParams
+
+    params, cfg = state["params"], state["cfg"]
+    n_req, gen_tokens, L, k = 16, 32, cfg.n_layers, 4
+    dcfg = llama32_1b_draft_config(cfg)
+    t0 = time.perf_counter()
+    dparams = llama.init_params(dcfg, seed=SEED + 5, device="cuda")
+    torch.cuda.synchronize()
+    print(f"speculative engine: draft of Llama-3.2-1B's widths (dim {dcfg.dim}, "
+          f"{dcfg.n_layers} layers, {dcfg.n_heads}/{dcfg.n_kv_heads} heads of "
+          f"{dcfg.head_dim}, ffn {dcfg.ffn_dim}, vocab {dcfg.vocab_size}, llama3 rope "
+          f"scaling), random bf16 weights from seed {SEED + 5}, its own lm_head "
+          f"(untied) ({time.perf_counter() - t0:.1f} s to build)", flush=True)
+    prompts = _traffic(cfg, n_req)
+    ok = True
+
+    def run(draft, draft_cfg, tag, sampling=None, check=True):
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype="int8", device="cuda",
+                     draft_params=draft, draft_cfg=draft_cfg, spec_tokens=k,
+                     sampling=sampling, seed=SEED)
+        free0 = eng.sched.allocator.free_pages
+        reqs = [eng.submit(p, gen_tokens) for p in prompts]
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        stats = eng.run()
+        wall = time.perf_counter() - t1
+        eng._flush_released()
+        got = dict(_build.launches)
+        counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+        good = all(len(r.generated) == gen_tokens for r in reqs)
+        good &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+        good &= eng.sched.allocator.free_pages == free0
+        for c in (eng.cache, eng.draft_cache):
+            good &= not bool(c.lengths.any()) and not bool(c.block_tables.any())
+        good &= stats.spec_proposed > 0
+        if check:  # greedy: every step a graphed run of iterations
+            good &= got.get("paged_span", 0) == L * stats.steps
+            good &= got.get("paged", 0) == draft_cfg.n_layers * k * stats.steps
+            good &= stats.captures >= 1
+        same = sum(a == b for r, ref in zip(reqs, state["step_tokens"])
+                   for a, b in zip(r.generated, ref))
+        step_tokens = stats.decode_tokens - n_req
+        print(f"speculative engine, {tag}: launches {got}; {stats.steps} verify "
+              f"iterations (paged_span = {L} x iterations), {stats.readbacks} "
+              f"readbacks, {stats.captures} graphs captured; {n_req} requests "
+              f"finished with {gen_tokens} tokens, finite logprobs, free pages "
+              f"{eng.sched.allocator.free_pages} of {free0}, both caches clear; "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        print(f"speculative engine, {tag}: acceptance {stats.spec_acceptance:.4f} "
+              f"({stats.spec_accepted} of {stats.spec_proposed} proposed), "
+              f"{step_tokens / max(stats.steps, 1):.2f} tokens a row-iteration "
+              f"set ({step_tokens} decode tokens), decode "
+              f"{step_tokens / stats.decode_s:.1f} tok/s ({stats.decode_s:.3f} s, "
+              f"capture_s {stats.capture_s:.3f}; run {wall:.3f} s); tokens equal "
+              f"to part 2's {same} of {n_req * gen_tokens} (not a check) "
+              f"[{ident}]", flush=True)
+        del eng
+        return good
+
+    ok &= run(dparams, dcfg, "greedy, Llama-3.2-1B-shaped draft")
+    ok &= run(params, cfg, "greedy, self-draft (the 8B as its own draft)")
+    ok &= run(dparams, dcfg, "sampled (temperature 0.8, top-p 0.9), host-stepped",
+              SamplingParams(temperature=0.8, top_p=0.9), check=False)
+    del dparams
+    torch.cuda.empty_cache()
+    ok &= _verify_vs_decode(params, cfg)
+    return ok
+
+
+def _verify_vs_decode(params, cfg):
+    """verify_step over 4 tokens against 4 decode_steps from the same cache
+    state, the target cut to 2 layers, int8 and bf16 KV."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.models import llama
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = dict(params, layers=params["layers"][:2])
+    rng = np.random.RandomState(SEED + 7)
+    prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in (200, 91, 256)]
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (3, 4)), device="cuda")
+    pages = [[1, 2, 3, 4, 5], [6, 7, 8], [9, 10, 11, 12, 13]]
+    ok = True
+    for quant in ("int8", None):
+        caches = []
+        for _ in range(2):
+            c = llama.build_kv_caches(cfg2, 16, 64, 3, 5, quant, device="cuda")
+            c, _ = llama.prefill_batch(p2, cfg2, c, [0, 1, 2], pages, prompts)
+            caches.append(c)
+        _, v_logits = llama.verify_step(p2, cfg2, caches[0], [0, 1, 2], toks)
+        seq = [llama.decode_step(p2, cfg2, caches[1], [0, 1, 2], toks[:, i])[1]
+               for i in range(4)]
+        d = (v_logits - torch.stack(seq, 1)).abs()
+        good = bool(torch.isfinite(v_logits).all()) and float(d.max()) < 0.25 \
+            and float(d.mean()) < 0.02
+        good &= torch.equal(caches[0].lengths, caches[1].lengths)
+        print(f"verify_vs_decode ({quant or 'bf16'} KV, 2 layers at 8B width, 3 rows "
+              f"x 4 tokens): logits max_abs {float(d.max()):.3e} (< 0.25) mean_abs "
+              f"{float(d.mean()):.3e} (< 0.02), argmax agree "
+              f"{float((v_logits.argmax(-1) == torch.stack(seq, 1).argmax(-1)).float().mean()):.3f} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
     return ok
 
 
@@ -1980,6 +2374,7 @@ def cpu_vs_cuda_phase():
                   f"agree {bool(torch.equal(a.argmax(-1), r.argmax(-1)))} "
                   f"{'ok' if good else 'FAIL'}", flush=True)
             ok &= good
+    ok &= _sampled_step_logits(llama, cfg, p_gpu, p_cpu, prompts, pages)
     # one SGD train step on b 1 x 65 tokens, same weights on both devices
     toks = rng.randint(0, cfg.vocab_size, (1, 65))
     res = {}
@@ -2004,6 +2399,45 @@ def cpu_vs_cuda_phase():
           f"cosine {worst_cos:.5f} (>= 0.99), the largest norm ratio - 1 "
           f"{worst_ratio:.4f} (<= 0.05) {'ok' if good else 'FAIL'}", flush=True)
     return ok and good
+
+
+def _sampled_step_logits(llama, cfg, p_gpu, p_cpu, prompts, pages):
+    """cuda_vs_cpu's sampled row: the mixed batch's first decode step (one
+    greedy row and one at temperature 0.8 / top-p 0.9 with a repetition
+    penalty, the engine's top-k 50, presence rows of the prompts) on int8
+    KV, card against CPU: the step's logits within the limits of the other
+    rows. Tokens are not compared: the noise differs between devices."""
+    import torch
+
+    from mfa_tpu_torch.serve.sampling import SamplingParams
+
+    out = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        cache = llama.build_kv_caches(cfg, 16, 64, 2, 4, "int8", device=dev)
+        cache, lg = llama.prefill_batch(params, cfg, cache, [0, 1], pages, prompts)
+        pres = torch.zeros(2, cfg.vocab_size, dtype=torch.bool, device=dev)
+        for i, p in enumerate(prompts):
+            pres[i, torch.as_tensor(p, device=dev)] = True
+        vecs = torch.tensor([[0.0, 0.8], [1.0, 0.9], [0.0, 0.0], [1.0, 1.3]],
+                            device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        first = out.setdefault("toks", lg.argmax(-1).cpu())
+        _, ids, lps, logits = llama.decode_burst(
+            params, cfg, cache, [0, 1], first, 1, SamplingParams(top_k=50), gen,
+            pres, vecs, return_logits=True)
+        out[dev] = (logits[0].float().cpu(), ids.cpu(), lps.cpu())
+    a, r = out["cuda"][0], out["cpu"][0]
+    d = (a - r).abs()
+    good = bool(torch.isfinite(a).all()) and float(d.max()) < 0.25 \
+        and float(d.mean()) < 0.02
+    good &= bool(torch.isfinite(out["cuda"][2]).all())
+    good &= bool(((out["cuda"][1] >= 0) & (out["cuda"][1] < cfg.vocab_size)).all())
+    print(f"cuda vs cpu sampled engine step (int8 KV; rows greedy and temperature "
+          f"0.8 / top-p 0.9 / penalty 1.3, top-k 50) logits [{tuple(a.shape)}]: "
+          f"max_abs {float(d.max()):.3e} (< 0.25) mean_abs {float(d.mean()):.3e} "
+          f"(< 0.02); greedy row's token equal {bool(out['cuda'][1][0, 0] == out['cpu'][1][0, 0])} "
+          f"(not a check) {'ok' if good else 'FAIL'}", flush=True)
+    return good
 
 
 def engine_int8w_phase(counts, ident):
@@ -2154,6 +2588,8 @@ def main() -> int:
                       "mfa_tpu/kernels/paged.py:122"),
         "paged_int4": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                        "mfa_tpu/kernels/paged.py:122"),
+        "paged_span": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
+                       "mfa_tpu/kernels/paged.py:122"),
         "varlen": ("mfa_tpu_torch/csrc/flash_fwd_sm90.cuh",
                    "mfa_tpu/kernels/varlen.py:53"),
         "paged_prefill": ("mfa_tpu_torch/csrc/paged_prefill.cu",
@@ -2200,6 +2636,10 @@ def main() -> int:
                       lambda: chunked_engine_phase(counts, ident, state, "fp8")),
                      ("engine_8b_burst",
                       lambda: burst_engine_phase(counts, ident, state)),
+                     ("engine_8b_sampling",
+                      lambda: sampling_engine_phase(counts, ident, state)),
+                     ("engine_8b_speculative",
+                      lambda: speculative_engine_phase(counts, ident, state)),
                      ("train_8b", lambda: train_phase(counts, ident, state)),
                      ("engine_gemma3_4b_vision",
                       lambda: engine_gemma3_phase(counts, ident)),

@@ -15,29 +15,33 @@
 
 namespace {
 
-// One block per (batch, kv head, q row of the group); threads over D.
+// One block per (batch, kv head, q row): rows are [span, group] flattened
+// (span 1 but for kernel 6's multi-query spans); threads over D.
 template <typename TQ>
 __global__ void combine_kernel(const float* __restrict__ o_part,
                                const float* __restrict__ lse_part, TQ* __restrict__ out,
-                               float* __restrict__ lse_out, int hkv, int group, int splits,
-                               int d) {
-  const int row = blockIdx.x;  // over batch * hkv * group
-  const int g = row % group, bk = row / group;
+                               float* __restrict__ lse_out, int hkv, int group, int span,
+                               int splits, int d) {
+  const int rows = span * group;
+  const int row = blockIdx.x;  // over batch * hkv * rows
+  const int r = row % rows, bk = row / rows;
   const int b = bk / hkv, hk = bk % hkv;
-  const float* lp = lse_part + (size_t)bk * splits * group + g;
+  const float* lp = lse_part + (size_t)bk * splits * rows + r;
   float m = -INFINITY;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, lp[(size_t)s * group]);
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, lp[(size_t)s * rows]);
   const bool all_empty = m == -INFINITY;
   if (all_empty) m = 0.f;
   float denom = 0.f;
-  for (int s = 0; s < splits; ++s) denom += expf(lp[(size_t)s * group] - m);
+  for (int s = 0; s < splits; ++s) denom += expf(lp[(size_t)s * rows] - m);
   const float dsafe = denom == 0.f ? 1.f : denom;
-  const size_t orow = (size_t)b * hkv * group + (size_t)hk * group + g;
+  // out [b, span, hkv * group, d]
+  const size_t orow = ((size_t)b * span + r / group) * hkv * group + (size_t)hk * group +
+                      r % group;
   for (int x = threadIdx.x; x < d; x += blockDim.x) {
     float acc = 0.f;
     for (int s = 0; s < splits; ++s) {
-      const float w = expf(lp[(size_t)s * group] - m);
-      acc += w * o_part[(((size_t)bk * splits + s) * group + g) * d + x];
+      const float w = expf(lp[(size_t)s * rows] - m);
+      acc += w * o_part[(((size_t)bk * splits + s) * rows + r) * d + x];
     }
     out[orow * d + x] = from_float<TQ>(acc / dsafe);
   }
@@ -73,22 +77,23 @@ extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
   return MFA_BAD_CONFIG;
 }
 
-// Launch 2: merge the splits into out [b, hq, d] (q dtype) and, when
-// lse_out is not null, the fp32 LSE [b, hq].
+// Launch 2: merge the splits of o_part [b, hkv, splits, q_span * hq / hkv,
+// d] into out [b, q_span, hq, d] (q dtype) and, when lse_out is not null,
+// the fp32 LSE [b, q_span, hq] (q_span 1 but for kernel 6's spans).
 extern "C" int mfa_decode_combine(const float* o_part, const float* lse_part, void* out,
                                   float* lse_out, int dtype, int batch, int hq, int hkv,
-                                  int num_splits, int d, void* stream) {
+                                  int num_splits, int d, int q_span, void* stream) {
   if (batch == 0) return 0;
   const int group = hq / hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(batch * hkv * group);
+  dim3 grid(batch * hkv * group * q_span);
   if (dtype == MFA_BF16)
     combine_kernel<__nv_bfloat16><<<grid, 128, 0, s>>>(
-        o_part, lse_part, static_cast<__nv_bfloat16*>(out), lse_out, hkv, group,
+        o_part, lse_part, static_cast<__nv_bfloat16*>(out), lse_out, hkv, group, q_span,
         num_splits, d);
   else if (dtype == MFA_F16)
     combine_kernel<__half><<<grid, 128, 0, s>>>(o_part, lse_part, static_cast<__half*>(out),
-                                                 lse_out, hkv, group, num_splits, d);
+                                                 lse_out, hkv, group, q_span, num_splits, d);
   else
     return MFA_BAD_CONFIG;
   return (int)cudaGetLastError();

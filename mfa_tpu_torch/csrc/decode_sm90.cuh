@@ -5,11 +5,18 @@
 //    through the block table, bf16/fp16 pages or quantized pages with fp32
 //    row scales [hkv, P, page]: int8, fp8 (e4m3) or int4 (rows of D / 2
 //    bytes, feature 2c in byte c's low nibble, 2c + 1 in its high one);
-//    replaces mfa_tpu/kernels/paged.py:_paged_kernel_body for q_span == 1.
-// One block owns one (batch, kv head, split): the group's <= 8 q rows
-// against rows [lo, hi) of one sequence. With one split and `out` set it
-// stores the final O in the q dtype and the natural-log LSE; otherwise each
-// split's normalized fp32 O and LSE for the combine (decode.cu, launch 2).
+//    replaces mfa_tpu/kernels/paged.py:_paged_kernel_body, with its
+//    multi-query spans (q [b, q_span, hq, D]: the rows of a kv head are
+//    [q_span, group] flattened, row r at span position r / group).
+// One block owns one (batch, kv head, split) and, with M16, one block of 16
+// of its rows: without M16 the group's <= 8 q rows (q_span 1) sit in rows
+// 0-7 of the m16 tile and rows 8-15 are zero registers; with M16 all 16
+// rows hold queries and a fourth grid axis (folded into x) takes the next
+// 16, so q_span x group may be anything. Each row sees its own columns
+// [lo, hi) of one sequence: span row si sits at position len + pos_offset -
+// q_span + si. With one split and `out` set the block stores the final O in
+// the q dtype and the natural-log LSE; otherwise each split's normalized
+// fp32 O and LSE for the combine (decode.cu, launch 2).
 //
 // Bound: device-memory bytes, K and V read once (a decode row does 4 D
 // operations per 4 D cache bytes, far below the ~295 operations a byte
@@ -46,11 +53,14 @@
 //    columns are permuted (undone in the merge). K scales multiply the
 //    score columns; V scales fold into p after the row sum, before p is
 //    rounded for P V.
-//  - Only a warp's 16 tokens that cross lo or hi are masked: their scores
-//    become MASK, their p exactly 0, their 16-bit and fp8 V fragments zero
-//    and their scaled p zero (a row or scale past the length may hold
-//    anything, and 0 * NaN would survive; int8 and int4 codes are all
-//    finite, and the fp8 conversion makes its NaN codes finite too).
+//  - The block reads the union of its rows' ranges, [lo of its oldest row,
+//    hi of its newest). Only a warp's 16 tokens that cross some row's lo or
+//    hi are masked: a score outside its own row's range becomes MASK, its p
+//    exactly 0 and its scaled p zero; 16-bit and fp8 V fragments outside
+//    the union are zeroed (a row or scale past the length may hold
+//    anything, and 0 * NaN would survive; a column inside the union is a
+//    stored row, finite, and p = 0 is enough there; int8 and int4 codes
+//    are all finite, and the fp8 conversion makes its NaN codes finite).
 //
 // Semantics of the plain versions (kernels/decode.py, kernels/paged.py),
 // kept exactly: scores scaled into the log2 domain before the max (softcap
@@ -79,13 +89,15 @@ struct Args {
   void* out;             // one split: O [b, hq, D] in T (else null)
   float* lse_out;        // and its LSE [b, hq]
   int num_pages, page_size, pps, box_rows, pos_offset;
+  int q_span;  // M16: span positions of q [b, q_span, hq, D] (else 1)
 };
 
 // Shared memory: STAGES slots of [K tile | V tile (| K scales | V scales)],
 // then the barriers (full[STAGES], empty[STAGES]). A 16-bit tile is [D / 64
 // chunks][64 tokens][64] with the 128-byte swizzle, a quantized tile [RB /
 // CB chunks][64 tokens][CB bytes] with the CB-byte swizzle (none at 32). The final merge
-// reuses the ring: per consumer warp m[8], l[8] and O[8][D] fp32. At D 256
+// reuses the ring: per consumer warp m[ROWS], l[ROWS] and O[ROWS][D] fp32
+// (ROWS 8, or 16 with M16: 64 KB at D 128 and D 256). At D 256
 // one team of four consumer warps: a thread's O alone takes 128 registers,
 // and nine warps could hold no more than 168 a thread (three warps share a
 // quarter of the register file).
@@ -106,8 +118,10 @@ struct Plan {
   static constexpr int STAGES = FIT < 16 ? FIT : 16;
   static constexpr uint32_t bar_off = STAGES * STAGE_BYTES;
   static constexpr size_t bytes = bar_off + 16 * STAGES + 1024;  // + 1 KB to align the base
-  static constexpr uint32_t ml_off = CWARPS * 8 * D * 4;         // after the O rows
-  static_assert(ml_off + CWARPS * 16 * 4 <= bar_off, "the merge must fit in the ring");
+  // the merge of ROWS rows a warp: O rows, then (m, l)
+  template <int ROWS>
+  static constexpr uint32_t ml_off = CWARPS * ROWS * D * 4;
+  static_assert(ml_off<16> + CWARPS * 2 * 16 * 4 <= bar_off, "the merge must fit in the ring");
 };
 
 __device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) { return bars + 8 * s; }
@@ -137,6 +151,42 @@ __device__ __forceinline__ void mma16816<__half>(float (&c)[4], uint32_t a0, uin
       "{%0,%1,%2,%3}, {%4,%6,%5,%6}, {%7,%8}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a2), "r"(0u), "r"(b[0]), "r"(b[1]));
+}
+
+// All 16 rows of A: a0 / a1 rows g / g + 8 at k 0-7, a2 / a3 at k 8-15.
+template <typename T>
+__device__ __forceinline__ void mma16816_full(float (&c)[4], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, const uint32_t* b);
+template <>
+__device__ __forceinline__ void mma16816_full<__nv_bfloat16>(float (&c)[4], uint32_t a0,
+                                                             uint32_t a1, uint32_t a2,
+                                                             uint32_t a3, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b[0]), "r"(b[1]));
+}
+template <>
+__device__ __forceinline__ void mma16816_full<__half>(float (&c)[4], uint32_t a0, uint32_t a1,
+                                                      uint32_t a2, uint32_t a3,
+                                                      const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b[0]), "r"(b[1]));
+}
+
+// The block's A operand a: M16 {row g lo, row g + 8 lo, row g hi, row g + 8
+// hi}; else {row g lo, row g hi} with rows 8-15 zero.
+template <typename T, bool M16>
+__device__ __forceinline__ void mma_rows(float (&c)[4], const uint32_t* a, const uint32_t* b) {
+  if constexpr (M16) {
+    mma16816_full<T>(c, a[0], a[1], a[2], a[3], b);
+  } else {
+    mma16816<T>(c, a[0], a[1], b);
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -201,9 +251,11 @@ __device__ __forceinline__ int merge_col(int r, int x) {
   return QUANT ? x ^ (((r & 7) << 2) | ((x % CB) / (CB / 4))) : x ^ ((r & 7) << 3);
 }
 
-// Grid (splits, hkv, batch). PAGED: the source is a page pool through the
-// block table; F: the pages' format (quantized: fp32 row scales, T bf16).
-template <typename T, int D, bool PAGED, KV F>
+// Grid (splits x row blocks, hkv, batch). PAGED: the source is a page pool
+// through the block table; F: the pages' format (quantized: fp32 row scales,
+// T bf16); M16: 16 query rows a block, each with its own columns (spans,
+// groups above 8).
+template <typename T, int D, bool PAGED, KV F, bool M16>
 __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     splitkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                    const Args a) {
@@ -211,13 +263,32 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   constexpr bool QUANT = P::QUANT;
   constexpr int STAGES = P::STAGES, TEAMS = P::TEAMS, CWARPS = P::CWARPS, CB = P::CB;
   constexpr int NCH = P::RB / CB, NW = CB / 16;  // quantized: chunks a row, words a thread reads in each
+  constexpr int ROWS = M16 ? 16 : 8;  // rows of the merge a warp
+  constexpr int NR = M16 ? 2 : 1;     // rows a thread owns: g (and g + 8)
   static_assert(PAGED || !QUANT, "quantized rows come only as pages");
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  static_assert(PAGED || !M16, "query spans come only with pages");
+  const int split = M16 ? blockIdx.x % a.num_splits : blockIdx.x;
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int G = a.group;
+  const int span = M16 ? a.q_span : 1;
+  const int R = span * G;                  // rows of the (batch, kv head)
+  const int r0 = M16 ? 16 * (blockIdx.x / a.num_splits) : 0;  // the block's first row
+  const int nrows = M16 ? min(16, R - r0) : G;
   const int length = a.lens[b];
-  const int start = a.window_left >= 0 ? max(0, length + a.pos_offset - 1 - a.window_left) : 0;
-  const int lo = max(start, split * a.tokens_per_split);
-  const int hi = min(min(length, a.S), (split + 1) * a.tokens_per_split);
+  // Columns [row_lo(si), row_hi(si)) of span row si inside this split
+  const int s_lo = split * a.tokens_per_split;
+  const int s_hi = min(a.S, (split + 1) * a.tokens_per_split);
+  auto row_lo = [&](int si) {
+    const int pos = length + a.pos_offset - span + si;
+    return max(s_lo, a.window_left >= 0 ? max(0, pos - a.window_left) : 0);
+  };
+  auto row_hi = [&](int si) {
+    return min(s_hi, min(length, length + a.pos_offset - span + si + 1));
+  };
+  const int si_first = r0 / G, si_last = (r0 + nrows - 1) / G;
+  const int lo = row_lo(si_first), hi = row_hi(si_last);  // the union of the rows' ranges
+  // the columns every row of the block sees: a warp's tokens inside need no mask
+  const int lo_all = M16 ? row_lo(si_last) : lo, hi_all = M16 ? row_hi(si_first) : hi;
   const int first = lo / TILE;
   const int n_tiles = lo < hi ? (hi + TILE - 1) / TILE - first : 0;
 
@@ -303,16 +374,37 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
 
   const int cw = warp - 1, team = cw >> 2, quarter = cw & 3;
   const int g = lane >> 2, t4 = lane & 3;
-  // Q rows of the group as A fragments (row g; rows >= G and 8-15 zero).
-  // 16-bit: step kk holds columns 16 kk + 2 t4 (+1) and 16 kk + 8 + 2 t4
-  // (+1). One byte a value: step kk = c NW + w holds columns c CB + (CB /
-  // 4) t4 + 4 w + 0..1 and + 2..3, the four bytes of K this thread reads
-  // there. int4: steps 2 (c NW + w) + h hold columns 2 (c CB + (CB / 4) t4
-  // + 4 w) + 4 h + 0..3, half of the word's eight nibbles each.
-  uint32_t qa[D / 16][2];
-  {
+  // This thread's rows g (and g + 8): [lo, hi) of each. A padding row (past
+  // the group, or past q_span x group) takes the last row's range.
+  int rlo[NR], rhi[NR];
+  if constexpr (M16) {
+#pragma unroll
+    for (int h = 0; h < NR; ++h) {
+      const int si = min(r0 + g + 8 * h, r0 + nrows - 1) / G;
+      rlo[h] = row_lo(si);
+      rhi[h] = row_hi(si);
+    }
+  } else {
+    rlo[0] = lo;
+    rhi[0] = hi;
+  }
+  // Q rows as A fragments (qa[kk][h] the low k half of row g + 8 h,
+  // qa[kk][NR + h] the high one; padding rows zero). 16-bit: step kk holds
+  // columns 16 kk + 2 t4 (+1) and 16 kk + 8 + 2 t4 (+1). One byte a value:
+  // step kk = c NW + w holds columns c CB + (CB / 4) t4 + 4 w + 0..1 and +
+  // 2..3, the four bytes of K this thread reads there. int4: steps 2 (c NW
+  // + w) + h hold columns 2 (c CB + (CB / 4) t4 + 4 w) + 4 h + 0..3, half of
+  // the word's eight nibbles each.
+  uint32_t qa[D / 16][2 * NR];
+#pragma unroll
+  for (int h = 0; h < NR; ++h) {
+    const int r = M16 ? r0 + g + 8 * h : g;
+    const bool live = M16 ? r < R : g < G;
+    const int rc = M16 ? min(r, R - 1) : min(g, G - 1);
+    const int si = M16 ? rc / G : 0, gi = M16 ? rc % G : rc;
     const uint32_t* qr = reinterpret_cast<const uint32_t*>(
-        static_cast<const T*>(a.q) + ((size_t)b * a.hq + (size_t)hk * G + min(g, G - 1)) * D);
+        static_cast<const T*>(a.q) +
+        (((size_t)b * span + si) * a.hq + (size_t)hk * G + gi) * D);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       int col = 16 * kk + 2 * t4;
@@ -322,14 +414,20 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
       } else if constexpr (QUANT) {
         col = (kk / NW) * CB + (CB / 4) * t4 + 4 * (kk % NW);
       }
-      qa[kk][0] = g < G ? qr[col / 2] : 0u;
-      qa[kk][1] = g < G ? qr[col / 2 + (QUANT ? 1 : 4)] : 0u;
+      qa[kk][h] = live ? qr[col / 2] : 0u;
+      qa[kk][NR + h] = live ? qr[col / 2 + (QUANT ? 1 : 4)] : 0u;
     }
   }
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m = MFA_MASK, l = 0.f;  // row g's running max (log2 domain) and this thread's sum
+  // rows g (+ 8)'s running max (log2 domain) and this thread's sums
+  float m[NR], l[NR];
+#pragma unroll
+  for (int h = 0; h < NR; ++h) {
+    m[h] = MFA_MASK;
+    l[h] = 0.f;
+  }
   const int lr = lane & 7, mi = lane >> 3;
 
   for (int i = team; i < n_tiles; i += TEAMS) {
@@ -337,7 +435,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
     const int tok0 = (first + i) * TILE + 16 * quarter;  // this warp's first token
     if (tok0 < hi && tok0 + 16 > lo) {
-      const bool edge = tok0 < lo || tok0 + 16 > hi;
+      const bool edge = tok0 < lo_all || tok0 + 16 > hi_all;
       const uint32_t k_s = base + s * P::STAGE_BYTES, v_s = k_s + P::KV_BYTES;
       const unsigned char* slot = smem + s * P::STAGE_BYTES;
       const int row0 = 16 * quarter;  // this warp's rows of the tile
@@ -346,14 +444,19 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
       float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       if constexpr (QUANT) {
         // every load of the tile's K words first (bytes [c CB + (CB / 4)
-        // t4, + CB / 4) of row g of each n-tile), then the conversions
-        uint32_t kw[2][NCH][NW];
+        // t4, + CB / 4) of row g of each n-tile), then the conversions;
+        // with M16 (Q's fragments take twice the registers) one n-tile at a
+        // time
+        constexpr int JN = M16 ? 1 : 2;
 #pragma unroll
-        for (int jn = 0; jn < 2; ++jn) {
+        for (int jb = 0; jb < 2; jb += JN) {
+        uint32_t kw[JN][NCH][NW];
+#pragma unroll
+        for (int jn = 0; jn < JN; ++jn) {
 #pragma unroll
           for (int c = 0; c < NCH; ++c) {
             const unsigned char* rp = slot + c * P::CHUNK;
-            const int row = row0 + 8 * jn + g;
+            const int row = row0 + 8 * (jb + jn) + g;
             if constexpr (CB == 32) {
               const uint2 u = *reinterpret_cast<const uint2*>(rp + swz8<CB>(row, 0) + 8 * t4);
               kw[jn][c][0] = u.x;
@@ -372,7 +475,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
           }
         }
 #pragma unroll
-        for (int jn = 0; jn < 2; ++jn) {
+        for (int jn = 0; jn < JN; ++jn) {
 #pragma unroll
           for (int c = 0; c < NCH; ++c) {
 #pragma unroll
@@ -381,8 +484,8 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
               if constexpr (F == KV::I4) {
                 uint32_t kb[4];
                 i4x8_to_bf16(kw[jn][c][w], kb);
-                mma16816<T>(sc[jn], qa[2 * W][0], qa[2 * W][1], kb);
-                mma16816<T>(sc[jn], qa[2 * W + 1][0], qa[2 * W + 1][1], kb + 2);
+                mma_rows<T, M16>(sc[jb + jn], qa[2 * W], kb);
+                mma_rows<T, M16>(sc[jb + jn], qa[2 * W + 1], kb + 2);
               } else {
                 uint32_t kb[2];
                 if constexpr (F == KV::E4M3) {
@@ -390,21 +493,23 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
                 } else {
                   i8x4_to_bf16(kw[jn][c][w], kb[0], kb[1]);
                 }
-                mma16816<T>(sc[jn], qa[W][0], qa[W][1], kb);
+                mma_rows<T, M16>(sc[jb + jn], qa[W], kb);
               }
             }
           }
+        }
         }
       } else {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           uint32_t kb[4];
           ldsm_x4(kb, swz(k_s, row0 + (mi >> 1) * 8 + lr, 16 * kk + (mi & 1) * 8));
-          mma16816<T>(sc[0], qa[kk][0], qa[kk][1], kb);
-          mma16816<T>(sc[1], qa[kk][0], qa[kk][1], kb + 2);
+          mma_rows<T, M16>(sc[0], qa[kk], kb);
+          mma_rows<T, M16>(sc[1], qa[kk], kb + 2);
         }
       }
-      // row g's scores (c0, c1 of each n-tile): token tok0 + 8 j + 2 t4 + e
+      // row g + 8 h's scores (c 2 h, 2 h + 1 of each n-tile): token tok0 + 8
+      // j + 2 t4 + e
       const float* scl = reinterpret_cast<const float*>(slot + P::sc_off);
       float ks[4] = {1.f, 1.f, 1.f, 1.f}, vs[4] = {1.f, 1.f, 1.f, 1.f};
       if constexpr (QUANT) {
@@ -418,45 +523,53 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
           vs[2 * jn + 1] = v2.y;
         }
       }
-      float v[4];
-      float mx = MFA_MASK;
+      float v[NR][4];
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        float y = sc[x >> 1][x & 1];
-        if constexpr (QUANT) y *= ks[x];
-        if (a.softcap > 0.f) y = tanhf(y * a.softcap_mul) * a.softcap;
-        y *= a.scale_log2e;
-        if (edge) {
-          const int tok = tok0 + 8 * (x >> 1) + 2 * t4 + (x & 1);
-          if (tok < lo || tok >= hi) y = MFA_MASK;
+      for (int h = 0; h < NR; ++h) {
+        float mx = MFA_MASK;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float y = sc[x >> 1][2 * h + (x & 1)];
+          if constexpr (QUANT) y *= ks[x];
+          if (a.softcap > 0.f) y = tanhf(y * a.softcap_mul) * a.softcap;
+          y *= a.scale_log2e;
+          if (edge) {
+            const int tok = tok0 + 8 * (x >> 1) + 2 * t4 + (x & 1);
+            if (tok < rlo[h] || tok >= rhi[h]) y = MFA_MASK;
+          }
+          v[h][x] = y;
+          mx = fmaxf(mx, y);
         }
-        v[x] = y;
-        mx = fmaxf(mx, y);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m, mx);
-      const float alpha = exp2f(m - m_new);
-      float ps = 0.f;
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        const float alpha = exp2f(m[h] - m_new);
+        float ps = 0.f;
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        v[x] = (edge && v[x] == MFA_MASK) ? 0.f : exp2f(v[x] - m_new);
-        ps += v[x];
-      }
-      m = m_new;
-      l = alpha * l + ps;
+        for (int x = 0; x < 4; ++x) {
+          v[h][x] = (edge && v[h][x] == MFA_MASK) ? 0.f : exp2f(v[h][x] - m_new);
+          ps += v[h][x];
+        }
+        m[h] = m_new;
+        l[h] = alpha * l[h] + ps;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[j][0] *= alpha;
-        acc[j][1] *= alpha;
-      }
-      if constexpr (QUANT) {  // V scales fold into p; a masked p stays exactly 0
+        for (int j = 0; j < D / 8; ++j) {
+          acc[j][2 * h] *= alpha;
+          acc[j][2 * h + 1] *= alpha;
+        }
+        if constexpr (QUANT) {  // V scales fold into p; a masked p stays exactly 0
 #pragma unroll
-        for (int x = 0; x < 4; ++x) v[x] = v[x] == 0.f ? 0.f : v[x] * vs[x];
+          for (int x = 0; x < 4; ++x) v[h][x] = v[h][x] == 0.f ? 0.f : v[h][x] * vs[x];
+        }
       }
-      // P rounded to V's dtype: the A fragment of P V (rows 8-15 zero)
-      const uint32_t pa0 = pack2<T>(v[0], v[1]), pa2 = pack2<T>(v[2], v[3]);
-      // V fragments of tokens outside [lo, hi) are zeroed on an edge: b0
+      // P rounded to V's dtype: the A fragments of P V, ordered as qa's
+      uint32_t pa[2 * NR];
+#pragma unroll
+      for (int h = 0; h < NR; ++h) {
+        pa[h] = pack2<T>(v[h][0], v[h][1]);
+        pa[NR + h] = pack2<T>(v[h][2], v[h][3]);
+      }
+      // V fragments of tokens outside the union [lo, hi) are zeroed on an edge: b0
       // holds tokens 2 t4, 2 t4 + 1, b1 tokens 2 t4 + 8, 2 t4 + 9
       uint32_t keep0 = 0xffffffffu, keep1 = 0xffffffffu;
       if (edge) {
@@ -502,8 +615,8 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
                 uint32_t lo4[2], hi4[2];
                 i4x8_tokens_to_bf16(tr[e], lo4, hi4);
                 const int j = c * (CB / 4) + 8 * w + 2 * e;
-                mma16816<T>(acc[j], pa0, pa2, lo4);
-                mma16816<T>(acc[j + 1], pa0, pa2, hi4);
+                mma_rows<T, M16>(acc[j], pa, lo4);
+                mma_rows<T, M16>(acc[j + 1], pa, hi4);
               } else {
                 uint32_t vb[2];
                 if constexpr (F == KV::E4M3) {
@@ -515,7 +628,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
                 } else {
                   i8x4_to_bf16(tr[e], vb[0], vb[1]);
                 }
-                mma16816<T>(acc[4 * (c * (CB / 32) + w) + e], pa0, pa2, vb);
+                mma_rows<T, M16>(acc[4 * (c * (CB / 32) + w) + e], pa, vb);
               }
             }
           }
@@ -529,8 +642,8 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
           vb[2] &= keep0;
           vb[1] &= keep1;
           vb[3] &= keep1;
-          mma16816<T>(acc[2 * j2], pa0, pa2, vb);
-          mma16816<T>(acc[2 * j2 + 1], pa0, pa2, vb + 2);
+          mma_rows<T, M16>(acc[2 * j2], pa, vb);
+          mma_rows<T, M16>(acc[2 * j2 + 1], pa, vb + 2);
         }
       }
     }
@@ -538,53 +651,61 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     if (lane == 0) mbar_arrive(bar_empty<STAGES>(bars, s));
   }
 
-  // Merge the consumer warps' (m, l, O) of rows g < G: O = sum_w 2^(m_w - M)
-  // O_w / sum_w 2^(m_w - M) l_w with M the largest m_w.
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  named_sync(1, 32 * CWARPS);  // no warp reads the ring any more
-  float* mo = reinterpret_cast<float*>(smem);               // [CWARPS][8][D]
-  float* ml = reinterpret_cast<float*>(smem + P::ml_off);   // [CWARPS][2][8]
-  float* orow = mo + (cw * 8 + g) * D;
+  // Merge the consumer warps' (m, l, O) of the block's rows: O = sum_w
+  // 2^(m_w - M) O_w / sum_w 2^(m_w - M) l_w with M the largest m_w.
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if constexpr (QUANT) {
-      orow[merge_col<CB, true>(g, quant_col<F, CB>(j, 2 * t4))] = acc[j][0];
-      orow[merge_col<CB, true>(g, quant_col<F, CB>(j, 2 * t4 + 1))] = acc[j][1];
-    } else {
-      *reinterpret_cast<float2*>(orow + merge_col<CB, false>(g, 8 * j + 2 * t4)) =
-          make_float2(acc[j][0], acc[j][1]);
-    }
+  for (int h = 0; h < NR; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  if (t4 == 0) {
-    ml[cw * 16 + g] = m;
-    ml[cw * 16 + 8 + g] = l;
+  named_sync(1, 32 * CWARPS);  // no warp reads the ring any more
+  float* mo = reinterpret_cast<float*>(smem);  // [CWARPS][ROWS][D]
+  float* ml = reinterpret_cast<float*>(smem + P::template ml_off<ROWS>);  // [CWARPS][2][ROWS]
+#pragma unroll
+  for (int h = 0; h < NR; ++h) {
+    float* orow = mo + (cw * ROWS + g + 8 * h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if constexpr (QUANT) {
+        orow[merge_col<CB, true>(g, quant_col<F, CB>(j, 2 * t4))] = acc[j][2 * h];
+        orow[merge_col<CB, true>(g, quant_col<F, CB>(j, 2 * t4 + 1))] = acc[j][2 * h + 1];
+      } else {
+        *reinterpret_cast<float2*>(orow + merge_col<CB, false>(g, 8 * j + 2 * t4)) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      }
+    }
+    if (t4 == 0) {
+      ml[cw * 2 * ROWS + g + 8 * h] = m[h];
+      ml[cw * 2 * ROWS + ROWS + g + 8 * h] = l[h];
+    }
   }
   named_sync(1, 32 * CWARPS);
   const bool final_out = a.out != nullptr;  // one split: O in T and the LSE
-  const size_t row0 = final_out ? (size_t)b * a.hq + (size_t)hk * G
-                                : (((size_t)b * a.hkv + hk) * a.num_splits + split) * G;
-  for (int idx = threadIdx.x - 32; idx < G * D; idx += 32 * CWARPS) {
+  for (int idx = threadIdx.x - 32; idx < nrows * D; idx += 32 * CWARPS) {
     const int r = idx / D, x = idx % D, xs = merge_col<CB, QUANT>(r, x);
     float mm = MFA_MASK;
 #pragma unroll
-    for (int w = 0; w < CWARPS; ++w) mm = fmaxf(mm, ml[w * 16 + r]);
+    for (int w = 0; w < CWARPS; ++w) mm = fmaxf(mm, ml[w * 2 * ROWS + r]);
     float ls = 0.f, o = 0.f;
 #pragma unroll
     for (int w = 0; w < CWARPS; ++w) {
-      const float wt = exp2f(ml[w * 16 + r] - mm);
-      ls += wt * ml[w * 16 + 8 + r];
-      o += wt * mo[(w * 8 + r) * D + xs];
+      const float wt = exp2f(ml[w * 2 * ROWS + r] - mm);
+      ls += wt * ml[w * 2 * ROWS + ROWS + r];
+      o += wt * mo[(w * ROWS + r) * D + xs];
     }
     const bool empty = ls == 0.f;
     const float lsafe = (empty || isnan(ls)) ? 1.f : ls;
     const float lse = empty ? -INFINITY : mm * MFA_LN2 + logf(lsafe);
+    // row r0 + r of the (batch, kv head): span position si, group row gi
+    const int rr = r0 + r, si = M16 ? rr / G : 0, gi = M16 ? rr % G : rr;
     if (final_out) {
-      static_cast<T*>(a.out)[(row0 + r) * D + x] = from_float<T>(o / lsafe);
-      if (x == 0 && a.lse_out != nullptr) a.lse_out[row0 + r] = lse;
+      const size_t orow = ((size_t)b * span + si) * a.hq + (size_t)hk * G + gi;
+      static_cast<T*>(a.out)[orow * D + x] = from_float<T>(o / lsafe);
+      if (x == 0 && a.lse_out != nullptr) a.lse_out[orow] = lse;
     } else {
-      a.o_part[(row0 + r) * D + x] = o / lsafe;
-      if (x == 0) a.lse_part[row0 + r] = lse;
+      const size_t prow = (((size_t)b * a.hkv + hk) * a.num_splits + split) * R + rr;
+      a.o_part[prow * D + x] = o / lsafe;
+      if (x == 0) a.lse_part[prow] = lse;
     }
   }
 }
@@ -592,7 +713,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
 // Encode the K and V maps and launch (a contiguous cache k, v [b, hkv, S,
 // D], or the page pools [hkv, P, page, D], quantized rows RB bytes).
 // Returns a cudaError_t code, MFA_TMA_ENCODE, or 0.
-template <typename T, int D, bool PAGED, KV F>
+template <typename T, int D, bool PAGED, KV F, bool M16 = false>
 int launch(const void* k, const void* v, const Args& a, int batch, cudaStream_t stream) {
   using P = Plan<D, F>;
   constexpr bool BF = kIsBf16<T>, QUANT = P::QUANT;
@@ -618,11 +739,12 @@ int launch(const void* k, const void* v, const Args& a, int batch, cudaStream_t 
     if (int err = mfa_tensor_map_3d(&tk, kv ? k : a.q, BF, D, rows, planes, TILE)) return err;
     if (int err = mfa_tensor_map_3d(&tv, kv ? v : a.q, BF, D, rows, planes, TILE)) return err;
   }
-  auto kern = splitkv_kernel<T, D, PAGED, F>;
+  auto kern = splitkv_kernel<T, D, PAGED, F, M16>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)P::bytes))
     return err;
-  const dim3 grid(a.num_splits, a.hkv, batch);
+  const int row_blocks = M16 ? (a.q_span * a.group + 15) / 16 : 1;
+  const dim3 grid(a.num_splits * row_blocks, a.hkv, batch);
   kern<<<grid, P::THREADS, P::bytes, stream>>>(tk, tv, a);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Paged decode attention over a KV page pool, read in place (kernel 6).
 //
 // Replaces mfa_tpu/kernels/paged.py:_paged_kernel_body (paged_attention,
-// also reached through decode.py:paged_decode_attention) for q_span == 1.
+// also reached through decode.py:paged_decode_attention), multi-query spans
+// included (q [b, q_span, hq, d], speculative verification).
 // Pages are [hkv, num_pages, page_size, head_dim] in bf16/fp16, or int8,
 // fp8 (e4m3) or int4 (head_dim / 2 bytes a row, feature pairs) with fp32
 // per-row scales [hkv, num_pages, page_size]. The tile is kernel 5's
@@ -9,8 +10,12 @@
 // with one TMA box per page through the block table; quantized rows convert
 // exactly to bf16 in registers. pos_offset > 0 is the deferred-append query
 // position (the query sits pos_offset past the stored length; reads stay
-// bounded by it). Bound: bytes of the visible pages and their scales (int8
-// and fp8 rows d + 4 bytes, int4 rows d / 2 + 4, bf16 rows 2 d).
+// bounded by it); span row si sits at stored length + pos_offset - q_span
+// + si and sees the columns before it. q_span > 1 or more than 8 q heads a
+// kv head take the template's M16 blocks (16 query rows each, a fourth grid
+// axis of row blocks; each row block reads the pages again). Bound: bytes of
+// the visible pages and their scales (int8 and fp8 rows d + 4 bytes, int4
+// rows d / 2 + 4, bf16 rows 2 d).
 //
 // The TPU kernel walks a sequence's pages in order; here a grid that does
 // not fill the 132 SMs splits each sequence's pages into whole 64-token
@@ -23,25 +28,27 @@
 // int4 pairs a row's features, so tokens keep their natural order.
 #include "decode_sm90.cuh"
 
-// q [b, hq, d] (quantized pages take bf16 q); kv_dtype: MFA_BF16 / MFA_F16
-// or the format code MFA_I8, MFA_E4M3, MFA_I4; with num_splits == 1: out [b, hq,
-// d] in the q dtype and lse_out [b, hq] fp32, else o_part [b, hkv,
-// num_splits, hq / hkv, d] and lse_part [b, hkv, num_splits, hq / hkv]
-// fp32. page_size a multiple of 8; every pointer 16-byte aligned. Returns a
-// cudaError_t code.
+// q [b, q_span, hq, d] (quantized pages take bf16 q); kv_dtype: MFA_BF16 /
+// MFA_F16 or the format code MFA_I8, MFA_E4M3, MFA_I4; with num_splits == 1:
+// out [b, q_span, hq, d] in the q dtype and lse_out [b, q_span, hq] fp32,
+// else o_part [b, hkv, num_splits, q_span * hq / hkv, d] and lse_part [b,
+// hkv, num_splits, q_span * hq / hkv] fp32 (rows [q_span, group]
+// flattened). page_size a multiple of 8; every pointer 16-byte aligned.
+// Returns a cudaError_t code.
 extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                 const float* k_scale, const float* v_scale, const int* lens,
                                 const int* table, void* out, float* lse_out, float* o_part,
                                 float* lse_part, int q_dtype, int kv_dtype, int batch, int hq,
                                 int hkv, int num_pages, int page_size, int pps, int d,
-                                int num_splits, int tokens_per_split, int pos_offset,
+                                int q_span, int num_splits, int tokens_per_split, int pos_offset,
                                 int window_left, float scale_log2e, float softcap,
                                 float softcap_mul, void* stream) {
   if (batch == 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
-  if (group < 1 || group > 8 || num_pages < 1 || page_size <= 0 || page_size % 8 != 0 ||
+  if (group < 1 || q_span < 1 || num_pages < 1 || page_size <= 0 || page_size % 8 != 0 ||
       num_splits < 1 || tokens_per_split % kd90::TILE != 0)
     return MFA_BAD_CONFIG;
+  const bool m16 = q_span > 1 || group > 8;  // 16 query rows a block
   int box_rows = kd90::TILE;  // gcd(page_size, 64): a power of two >= 8
   while (page_size % box_rows != 0) box_rows >>= 1;
   kd90::Args a = {};
@@ -69,17 +76,24 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   a.pps = pps;
   a.box_rows = box_rows;
   a.pos_offset = pos_offset;
+  a.q_span = q_span;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_PAGED(T, F)                                                            \
-  if (d == 64) return kd90::launch<T, 64, true, F>(k_pages, v_pages, a, batch, s);   \
-  if (d == 128) return kd90::launch<T, 128, true, F>(k_pages, v_pages, a, batch, s); \
-  if (d == 256) return kd90::launch<T, 256, true, F>(k_pages, v_pages, a, batch, s); \
+#define MFA_PAGED_D(T, F, M)                                                          \
+  if (d == 64) return kd90::launch<T, 64, true, F, M>(k_pages, v_pages, a, batch, s);   \
+  if (d == 128) return kd90::launch<T, 128, true, F, M>(k_pages, v_pages, a, batch, s); \
+  if (d == 256) return kd90::launch<T, 256, true, F, M>(k_pages, v_pages, a, batch, s); \
   return MFA_BAD_CONFIG
+#define MFA_PAGED(T, F)          \
+  if (m16) {                     \
+    MFA_PAGED_D(T, F, true);     \
+  }                              \
+  MFA_PAGED_D(T, F, false)
   if (kv_dtype == MFA_I8 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::I8); }
   if (kv_dtype == MFA_E4M3 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::E4M3); }
   if (kv_dtype == MFA_I4 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::I4); }
   if (kv_dtype == MFA_BF16 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::F16); }
   if (kv_dtype == MFA_F16 && q_dtype == MFA_F16) { MFA_PAGED(__half, KV::F16); }
 #undef MFA_PAGED
+#undef MFA_PAGED_D
   return MFA_BAD_CONFIG;
 }

@@ -28,12 +28,12 @@ _LOG2E = math.log2(math.e)
 TILE = 64  # tokens per kernel tile (csrc/decode_sm90.cuh, also the paged kernel's)
 # Blocks of launch 1 an SM holds: its ring takes ~193 KB of shared memory
 BLOCKS_PER_SM = 1
-MAX_GROUP = 8  # q heads per kv head the kernels take
+MAX_GROUP = 8  # q heads per kv head kernel 5 takes (kernel 6: any)
 KERNEL_HEAD_DIMS = (64, 128, 256)  # shared with the paged kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _F, _F, _F, _P]
-_COMBINE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_COMBINE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 def default_splits(batch: int, num_kv_heads: int, max_s: int) -> int:
@@ -152,14 +152,17 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
 
 
 def launch_combine(o_part, lse_part, out, lse):
-    """Launch 2 (mfa_decode_combine): fp32 partials [b, hkv, splits, group,
+    """Launch 2 (mfa_decode_combine): fp32 partials [b, hkv, splits, rows,
     d] and their LSE -> out [b, hq, d] in its dtype and lse [b, hq]. Also
-    the paged decode's merge (kernels/paged.py)."""
+    the paged decode's merge (kernels/paged.py), whose multi-query spans
+    give rows = q_span * group, out [b, q_span, hq, d] and lse [b, q_span,
+    hq]."""
     batch, hkv, num_splits, _, d = o_part.shape
+    q_span = out.shape[1] if out.ndim == 4 else 1
     fn = _build.function("decode", "mfa_decode_combine", _COMBINE_ARGTYPES)
     rc = fn(o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _build.DTYPE_CODES[out.dtype], batch, out.shape[1],
-            hkv, num_splits, d, _build.stream_of(out))
+            lse.data_ptr(), _build.DTYPE_CODES[out.dtype], batch, out.shape[-2],
+            hkv, num_splits, d, q_span, _build.stream_of(out))
     _build.check("decode", rc)
     _build.launches["combine"] += 1
 

@@ -13,7 +13,14 @@ tensor runs `_paged_plain`, the same function in PyTorch;
 Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide
 (int4: head_dim / 2 bytes of feature pairs, kernels/quant.py:pack_int4),
 without the TPU's 128-lane padding, fp8-as-int8 bits or int4 token-pair
-order. Only q_span == 1 is ported (speculative spans come later).
+order.
+
+Multi-query spans (q [b, q_span, hq, d], speculative verification): the
+rows of a kv head are [q_span, group] flattened, and span row si sits at
+position cache_seqlens + pos_offset - q_span + si, seeing the columns
+before it (and its window). On the card they, and groups of more than 8 q
+heads a kv head, run the kernel's 16-row blocks (`launch_name`
+"paged_span" for spans).
 """
 
 from __future__ import annotations
@@ -27,19 +34,22 @@ import torch
 from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
                                            softmax_scale_default)
 from mfa_tpu_torch.kernels import _build, decode
-from mfa_tpu_torch.kernels.decode import KERNEL_HEAD_DIMS, MAX_GROUP, TILE
+from mfa_tpu_torch.kernels.decode import KERNEL_HEAD_DIMS, TILE
 from mfa_tpu_torch.kernels.quant import page_format, page_values
 
 _LOG2E = math.log2(math.e)
 # Blocks of the kernel an SM holds: its ring takes 150-190 KB of shared memory
 BLOCKS_PER_SM = 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 11 + [_I] * 13 + [_F, _F, _F, _P]
+_ARGTYPES = [_P] * 11 + [_I] * 14 + [_F, _F, _F, _P]
 
 
-def launch_name(kernel: str, quant_dtype) -> str:
+def launch_name(kernel: str, quant_dtype, q_span: int = 1) -> str:
     """Launch-count name of a paged kernel: "paged" / "paged_prefill" for
-    16-bit and int8 pages, with "_fp8" or "_int4" for those formats."""
+    16-bit and int8 pages, with "_fp8" or "_int4" for those formats;
+    "paged_span" for kernel 6 on multi-query spans, whatever the format."""
+    if q_span > 1:
+        return "paged_span"
     return f"{kernel}_{quant_dtype}" if quant_dtype in ("fp8", "int4") else kernel
 
 
@@ -66,23 +76,27 @@ def split_pages(split: int, tokens_per_split: int, page_size: int,
     return first, end
 
 
-def _visible_range(lens, window_left, pos_offset):
-    """Columns [lo, hi) each sequence's query sees."""
-    hi = lens.long()
+def _visible_range(lens, window_left, pos_offset, q_span=1):
+    """Columns [lo, hi) [b, q_span] each query row sees: span row si sits at
+    lens + pos_offset - q_span + si and reads no further than lens."""
+    pos = (lens.long() + pos_offset - q_span)[:, None] + torch.arange(
+        q_span, device=lens.device)[None]
+    hi = torch.minimum(lens.long()[:, None], pos + 1)
     lo = torch.zeros_like(hi)
     if window_left >= 0:
-        lo = torch.clamp(hi + pos_offset - 1 - window_left, min=0)
+        lo = torch.clamp(pos - window_left, min=0)
     return lo, hi
 
 
 def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
                 softcap, lo, hi, quant_dtype=None):
-    """Normalized fp32 O [b, hq, d] and LSE [b, hq] over the columns [lo,
-    hi) of each sequence that table entries [first, first + table.shape[1])
-    hold: K scales on score columns, V scales folded into the
-    probabilities, probabilities rounded to the value dtype (bf16 for
-    quantized pages) before P.V. int4 pages unpack, fp8 converts exactly."""
-    batch, num_heads, d = q.shape
+    """Normalized fp32 O [b, q_span, hq, d] and LSE [b, q_span, hq] of q [b,
+    q_span, hq, d] over the columns [lo, hi) ([b, q_span]) of each query
+    row that table entries [first, first + table.shape[1]) hold: K scales on
+    score columns, V scales folded into the probabilities, probabilities
+    rounded to the value dtype (bf16 for quantized pages) before P.V. int4
+    pages unpack, fp8 converts exactly."""
+    batch, span, num_heads, d = q.shape
     hkv, _, page, _ = k_pages.shape
     group = num_heads // hkv
     pps = table.shape[1]
@@ -97,39 +111,52 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
     vdtype = torch.bfloat16 if quantized else v_pages.dtype
     if quantized and q.dtype == torch.float16:
         q = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
-    qg = q.reshape(batch, hkv, group, d).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float())
+    qg = q.reshape(batch, span, hkv, group, d).float()
+    s = torch.einsum("bihgd,bhsd->bhigs", qg, k.float())
     if quantized:
-        ks = k_scales[:, idx].permute(1, 0, 2, 3).reshape(batch, hkv, 1, -1)
+        ks = k_scales[:, idx].permute(1, 0, 2, 3).reshape(batch, hkv, 1, 1, -1)
         s = s * ks
     if softcap:
         s = torch.tanh(s * (scale / softcap)) * softcap
     else:
         s = s * scale
-    col = first * page + torch.arange(pps * page, device=q.device)[None]
-    visible = (col >= lo.to(q.device)[:, None]) & (col < hi.to(q.device)[:, None])
-    s = s.masked_fill(~visible[:, None, None, :], float("-inf"))
+    col = first * page + torch.arange(pps * page, device=q.device)[None, None]
+    visible = ((col >= lo.to(q.device)[..., None])
+               & (col < hi.to(q.device)[..., None]))  # [b, span, cols]
+    s = s.masked_fill(~visible[:, None, :, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
     l = p.sum(dim=-1)
     if quantized:
-        p = p * v_scales[:, idx].permute(1, 0, 2, 3).reshape(batch, hkv, 1, -1)
-    o = torch.einsum("bhgs,bhsd->bhgd", p.to(vdtype).float(), v.float())
+        p = p * v_scales[:, idx].permute(1, 0, 2, 3).reshape(batch, hkv, 1, 1, -1)
+    o = torch.einsum("bhigs,bhsd->bhigd", p.to(vdtype).float(), v.float())
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = (o / l_safe[..., None]).reshape(batch, num_heads, d)
+    out = (o / l_safe[..., None]).permute(0, 2, 1, 3, 4).reshape(
+        batch, span, num_heads, d)
     lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
                       m[..., 0] + torch.log(l_safe))
-    return out, lse.reshape(batch, num_heads)
+    return out, lse.permute(0, 2, 1, 3).reshape(batch, span, num_heads)
+
+
+def _spans(q):
+    """q [b, hq, d] or [b, q_span, hq, d] -> (the 4-D view, q_span, squeeze):
+    the 3-D form is a span of 1 whose results drop the span axis."""
+    if q.ndim == 3:
+        return q[:, None], 1, True
+    return q, q.shape[1], False
 
 
 def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
                  scale, window_left, softcap, pos_offset, quant_dtype=None):
     """The kernel's function in plain PyTorch (`_paged_core` over every
-    visible column), out in q's dtype."""
-    lo, hi = _visible_range(lens, window_left, pos_offset)
-    out, lse = _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, 0,
+    visible column), out in q's dtype; q [b, hq, d] or [b, q_span, hq, d]."""
+    q4, span, squeeze = _spans(q)
+    lo, hi = _visible_range(lens, window_left, pos_offset, span)
+    out, lse = _paged_core(q4, k_pages, v_pages, k_scales, v_scales, table, 0,
                            scale, softcap, lo, hi, quant_dtype)
+    if squeeze:
+        out, lse = out[:, 0], lse[:, 0]
     return out.to(q.dtype), lse
 
 
@@ -139,19 +166,20 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
     """The kernel's split route in plain PyTorch: a partial over each
     split's table entries (`split_pages`) and tokens, merged by
     decode.combine_splits. num_splits None: the launcher's `split_plan`."""
-    batch, num_heads, d = q.shape
+    q4, span, squeeze = _spans(q)
+    batch = q4.shape[0]
     hkv, _, page, _ = k_pages.shape
     pps = table.shape[1]
     if num_splits is None:
         num_splits, tps = split_plan(batch, hkv, pps, page)
     else:
         num_splits, tps = decode.split_layout(pps * page, num_splits)
-    lo, hi = _visible_range(lens, window_left, pos_offset)
+    lo, hi = _visible_range(lens, window_left, pos_offset, span)
     hi = torch.clamp(hi, max=pps * page)
     parts, lses = [], []
     for sp in range(num_splits):
         first, end = split_pages(sp, tps, page, pps)
-        o, lse = _paged_core(q, k_pages, v_pages, k_scales, v_scales,
+        o, lse = _paged_core(q4, k_pages, v_pages, k_scales, v_scales,
                              table[:, first:end], first, scale, softcap,
                              torch.clamp(lo, min=sp * tps),
                              torch.clamp(hi, max=(sp + 1) * tps), quant_dtype)
@@ -159,6 +187,8 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
         lses.append(lse)
     out, lse = decode.combine_splits(torch.stack(parts, 1), torch.stack(lses, 1),
                                      axis=1, return_lse=True)
+    if squeeze:
+        out, lse = out[:, 0], lse[:, 0]
     return out.to(q.dtype), lse
 
 
@@ -166,13 +196,13 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
                 window_left, softcap, pos_offset, quant_dtype=None):
     _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales,
                        v_scales)
-    batch, num_heads, d = q.shape
+    q4, span, squeeze = _spans(q)
+    batch, _, num_heads, d = q4.shape
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv
-    if d not in KERNEL_HEAD_DIMS or group > MAX_GROUP:
+    if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
-            f"the paged kernel takes head_dim in {KERNEL_HEAD_DIMS} and at "
-            f"most {MAX_GROUP} q heads per kv head")
+            f"the paged kernel takes head_dim in {KERNEL_HEAD_DIMS}")
     if page % 8:
         raise NotImplementedError(
             f"the paged kernel takes pages of a multiple of 8 rows (one "
@@ -180,9 +210,9 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
     if quant_dtype is not None:
         if q.dtype not in (torch.bfloat16, torch.float16):
             raise NotImplementedError(f"{quant_dtype} pages take bf16/fp16 q")
-        qk = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
+        qk = q4.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
     elif k_pages.dtype == q.dtype and q.dtype in (torch.bfloat16, torch.float16):
-        qk = q
+        qk = q4
     else:
         raise NotImplementedError(
             f"the paged kernel takes bf16/fp16 pages of the q dtype or "
@@ -207,12 +237,13 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
     pps = table.shape[1]
     num_splits, tps = split_plan(batch, hkv, pps, page)
     out = torch.empty_like(qk)
-    lse = torch.empty((batch, num_heads), dtype=torch.float32, device=q.device)
+    lse = torch.empty((batch, span, num_heads), dtype=torch.float32,
+                      device=q.device)
     o_part = lse_part = None
     if num_splits > 1:
-        o_part = torch.empty((batch, hkv, num_splits, group, d),
+        o_part = torch.empty((batch, hkv, num_splits, span * group, d),
                              dtype=torch.float32, device=q.device)
-        lse_part = torch.empty((batch, hkv, num_splits, group),
+        lse_part = torch.empty((batch, hkv, num_splits, span * group),
                                dtype=torch.float32, device=q.device)
     fn = _build.function("paged", "mfa_paged_decode", _ARGTYPES)
     rc = fn(qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -220,14 +251,16 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
             table.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _build.ptr(o_part), _build.ptr(lse_part),
             _build.DTYPE_CODES[qk.dtype], _build.kv_code(quant_dtype, k_pages),
-            batch, num_heads, hkv, num_pages, page, pps, d, num_splits, tps,
-            pos_offset, window_left,
+            batch, num_heads, hkv, num_pages, page, pps, d, span, num_splits,
+            tps, pos_offset, window_left,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
             scale / softcap if softcap else 0.0, _build.stream_of(q))
     _build.check("paged", rc)
-    _build.launches[launch_name("paged", quant_dtype)] += 1
+    _build.launches[launch_name("paged", quant_dtype, span)] += 1
     if num_splits > 1:
         decode.launch_combine(o_part, lse_part, out, lse)
+    if squeeze:
+        out, lse = out[:, 0], lse[:, 0]
     return out.to(q.dtype), lse
 
 
@@ -249,9 +282,12 @@ def paged_attention(
     alibi_slopes: Optional[torch.Tensor] = None,
     pos_offset: int = 0,
 ):
-    """Paged decode attention (seqlen_q == 1).
+    """Paged decode attention (seqlen_q == 1, or a speculative span).
 
-    q: [batch, num_heads, head_dim]. k_pages/v_pages: [num_kv_heads,
+    q: [batch, num_heads, head_dim], or [batch, q_span, num_heads,
+    head_dim]: span row si sits at position cache_seqlens + pos_offset -
+    q_span + si and sees the columns before it (pos_offset 0: the lengths
+    include the span). k_pages/v_pages: [num_kv_heads,
     num_pages, page_size, head_dim], bf16/fp16/fp32, or quantized with
     k_scales/v_scales [num_kv_heads, num_pages, page_size] fp32: int8,
     fp8 (float8_e4m3fn) or int4 (quant_dtype="int4": int8 bytes
@@ -260,27 +296,26 @@ def paged_attention(
     cache_seqlens: [batch] stored lengths; block_table: [batch,
     pages_per_seq] physical page ids.
 
-    pos_offset (deferred append): the query sits at absolute position
-    cache_seqlens + pos_offset - 1 while reads stay bounded by
-    cache_seqlens — the caller merges the query's own K/V row by LSE
-    (models/llama.py:_merge_deferred). Needs window_left >= 1 when
-    windowed, as on the TPU.
+    pos_offset (deferred append): reads stay bounded by cache_seqlens
+    while the queries sit pos_offset further on — the caller merges the
+    span's own K/V rows by LSE (models/llama.py:_merge_deferred). Needs
+    window_left >= q_span when windowed, as on the TPU.
 
-    Returns [batch, num_heads, head_dim] in q's dtype (and, with
-    return_lse, the fp32 natural-log LSE [batch, num_heads]; -inf for an
-    empty row).
+    Returns q's shape in q's dtype (and, with return_lse, the fp32
+    natural-log LSE [batch, (q_span,) num_heads]; -inf for an empty row).
     """
-    if q.ndim != 3:
-        raise NotImplementedError("multi-query spans (q_span > 1) are not "
-                                  "ported yet")
+    if q.ndim not in (3, 4):
+        raise ValueError(f"q must be [b, hq, d] or [b, q_span, hq, d], got "
+                         f"{tuple(q.shape)}")
     if sink_tokens or alibi_slopes is not None:
         raise NotImplementedError("sink_tokens and alibi_slopes are not "
                                   "ported yet")
-    if pos_offset and 0 <= window_left < 1:
+    q_span = 1 if q.ndim == 3 else q.shape[1]
+    if pos_offset and 0 <= window_left < q_span:
         raise ValueError(f"pos_offset={pos_offset} (deferred append) needs "
-                         f"window_left >= 1, got {window_left}")
+                         f"window_left >= q_span ({q_span}), got {window_left}")
     fmt = page_format(quant_dtype, k_pages, k_scales, q.shape[-1])
-    if q.shape[1] % k_pages.shape[0]:
+    if q.shape[-2] % k_pages.shape[0]:
         raise ValueError("num_heads must be divisible by num_kv_heads")
     scale = float(softmax_scale if softmax_scale is not None
                   else softmax_scale_default(q.shape[-1]))

@@ -10,7 +10,7 @@ wquant.quantize_params); the embedding through qtake. Attention runs
 through the port's kernels: prefill_batch -> kernels/prefill.py (the
 default engine: the zero-shift kernel with its poison flag, then the
 repair kernel), or kernels/blockmask.py (the image-block kernel) for image
-prompts, prefill_chunk_batch -> kernels/paged_prefill.py, decode_step ->
+prompts, prefill_chunk_batch -> kernels/paged_prefill.py, decode_step and verify_step ->
 kernels/paged.py, over the int8 or bf16 paged cache; forward / loss_fn /
 train_step -> kernels/autodiff.flash_attention_grad (the default prefill
 engine forward, the fused backward kernel), or the image-block kernel
@@ -29,7 +29,12 @@ token's own K/V row is merged by exact LSE (_merge_deferred: the quantized
 row contracts in bf16 and its scale applies after the contraction), and
 ONE append after the layer loop writes every layer's row. In PyTorch the
 XLA copy-insertion reason for it does not exist, but it defines the
-reference numerics.
+reference numerics. verify_step is the same step over a span of tokens
+(speculative verification: kernel 6 on [n, span] queries with
+pos_offset=span, the span's own rows merged under an intra-span causal
+mask); rollback resets lengths; decode_burst samples (serve/sampling.py)
+with noise from an explicit generator; speculative_burst runs greedy
+draft / verify / accept iterations on the device.
 
 Not ported yet (raise NotImplementedError): MoE, logit softcaps, meshes.
 int8 weights serve only: loss_fn and train_step raise on them, as JAX
@@ -61,7 +66,9 @@ from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.kernels.quant import as_bytes, quantize_rows
 from mfa_tpu_torch.models.wquant import (QWeight, qmm, qtake, quantize_params,
                                          quantize_weight)
-from mfa_tpu_torch.serve.sampling import sample, token_logprobs
+from mfa_tpu_torch.serve.sampling import (SamplingParams, gumbel_from_uniform,
+                                          sample, sample_dynamic,
+                                          token_logprobs, uniform_noise)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -601,10 +608,12 @@ def _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg: LlamaConfig):
     payload contracts in bf16 when quantized, the per-row scale applies
     AFTER the contraction, fp32 softmax algebra.
 
-    o_c: [n, 1, heads, d] normalized cache output; lse_c: [n, 1, heads]
-    natural-log LSE (-inf for an empty cache row); q: [n, 1, heads, d];
-    kq/vq: [hkv, n, d] payload rows; ks/vs: [hkv, n] fp32 or None.
-    Returns [n, 1, heads, d] in o_c's dtype.
+    o_c: [n, span, heads, d] normalized cache output; lse_c: [n, span,
+    heads] natural-log LSE (-inf for an empty cache row); q: [n, span,
+    heads, d]; kq/vq: [hkv, n * span, d] payload rows (row n_i * span +
+    si); ks/vs: [hkv, n * span] fp32 or None. Span row i sees the span's
+    rows j <= i (intra-span causal mask). Returns [n, span, heads, d] in
+    o_c's dtype.
     """
     n, span, heads, d = q.shape
     hkv = cfg.n_kv_heads
@@ -624,6 +633,9 @@ def _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg: LlamaConfig):
     else:
         vd = vr.float()
     s = s * cfg.attn_scale
+    if span > 1:
+        tri = torch.ones(span, span, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~tri, float("-inf"))
     m_loc = s.amax(dim=-1)  # [n, hkv, group, span]
     p = torch.exp(s - m_loc[..., None])
     l_loc = p.sum(dim=-1)
@@ -900,7 +912,8 @@ def prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache,
 
 def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
                 tokens):
-    """One decode step for the active batch (DEFERRED-APPEND design).
+    """One decode step for the active batch (DEFERRED-APPEND design): the
+    verify_step of a span of one token.
 
     seq_slots: [n] cache rows; tokens: [n] current tokens. Returns (cache,
     logits [n, vocab] fp32); the cache is updated IN PLACE. On return the
@@ -912,42 +925,62 @@ def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     into a CUDA graph (serve/graphs.py) once an eager step has loaded the
     kernels and the RoPE tables.
     """
+    tokens = _device_ids(tokens, cache.lengths.device)
+    cache, logits = verify_step(params, cfg, cache, seq_slots, tokens[:, None])
+    return cache, logits[:, 0]
+
+
+def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
+                tokens):
+    """Score `span` tokens per sequence in ONE forward (speculative
+    verification), DEFERRED-APPEND as decode_step.
+
+    tokens: [n, span], appended to each sequence in order. Returns (cache,
+    logits [n, span, vocab] fp32): logits[:, i] is the next-token
+    distribution after tokens[:, :i + 1]. Kernel 6 reads the STORED cache
+    once with q [n, span, hq, d] and pos_offset=span; the span's own rows
+    merge by exact LSE under the intra-span causal mask, and one scatter
+    after the layer loop appends every layer's span rows; lengths += span.
+    Pages for the span's positions must be mapped; a row past its table (a
+    finished request's spare burst positions) writes into its own last
+    page, whose slot is released next. Every index stays on the device, so
+    the step can be captured (serve/graphs.py). Rolling rejected tokens
+    back is a lengths reset (rollback)."""
     dev = cache.lengths.device
     slots, tokens = _device_ids(seq_slots, dev), _device_ids(tokens, dev)
-    n = tokens.shape[0]
-    hd = cfg.head_dim
+    n, span = tokens.shape
+    hd, hkv = cfg.head_dim, cfg.n_kv_heads
     page = cache.page_size
     lens = cache.lengths[slots]  # [n] int32
-    # a row decoding past its table (a finished request's spare burst
-    # positions) writes into its own last page, whose slot is released next
+    pos = lens.long()[:, None] + torch.arange(span, device=dev)[None]  # [n, span]
     write_pages = cache.block_tables[
-        slots, (lens // page).long().clamp(max=cache.pages_per_seq - 1)]
-    offs = lens % page
+        slots[:, None], (pos // page).clamp(max=cache.pages_per_seq - 1)
+    ].reshape(-1)  # [n * span]
+    offs = (pos % page).reshape(-1)
     tables = cache.block_tables[slots]
-    x = _embed(params, tokens, cfg)[:, None]  # [n, 1, d]
-    positions = lens[:, None]
+    x = _embed(params, tokens, cfg)  # [n, span, d]
     store = cache.k_pages.dtype
-    plan = _layer_ropes(cfg, positions)
+    plan = _layer_ropes(cfg, pos)
     ys = []
     for li, lp in enumerate(params["layers"]):
         wl, rope = plan[li]
         h = _rms_norm(x, lp["attn_norm"], cfg)
-        q, k, v = _qkv(h, lp, cfg, n, 1)
+        q, k, v = _qkv(h, lp, cfg, n, span)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
-        kq, ks_new = _store_rows(cache.quant_dtype, store, k[:, 0].transpose(0, 1))
-        vq, vs_new = _store_rows(cache.quant_dtype, store, v[:, 0].transpose(0, 1))
+        kq, ks_new = _store_rows(cache.quant_dtype, store,
+                                 k.permute(2, 0, 1, 3).reshape(hkv, n * span, hd))
+        vq, vs_new = _store_rows(cache.quant_dtype, store,
+                                 v.permute(2, 0, 1, 3).reshape(hkv, n * span, hd))
         o_c, lse_c = paged_attention(
-            q[:, 0].to(cfg.dtype), cache.k_pages, cache.v_pages, lens,
+            q.to(cfg.dtype), cache.k_pages, cache.v_pages, lens,
             tables + li * cache.num_pages, k_scales=cache.k_scales,
             v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
             window_left=wl, quant_dtype=cache.quant_dtype,
-            pos_offset=1, return_lse=True,
-        )  # [n, heads, hd], [n, heads]
-        attn = _merge_deferred(o_c[:, None], lse_c[:, None], q, kq, ks_new,
-                               vq, vs_new, cfg)[:, 0]
-        x = _attn_residual(x, attn.reshape(n, 1, cfg.n_heads * hd), lp, cfg)
+            pos_offset=span, return_lse=True,
+        )  # [n, span, heads, hd], [n, span, heads]
+        attn = _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg)
+        x = _attn_residual(x, attn.reshape(n, span, cfg.n_heads * hd), lp, cfg)
         x = _mlp(x, lp, cfg)
-        # stacked as bytes: torch.stack need not exist for float8 on the card
         ys.append((as_bytes(kq), ks_new, as_bytes(vq), vs_new))
     kq_all, vq_all = (torch.stack([y[i] for y in ys]) for i in (0, 2))
     ks_all = vs_all = None
@@ -955,9 +988,18 @@ def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         ks_all, vs_all = (torch.stack([y[i] for y in ys]) for i in (1, 3))
     _append_all_layers(cache, kq_all, ks_all, vq_all, vs_all, write_pages, offs)
     x = _rms_norm(x, params["final_norm"], cfg)
-    logits = _unembed(params, x[:, 0], cfg)
-    cache.lengths[slots] = lens + 1
+    logits = _unembed(params, x, cfg)  # [n, span, vocab]
+    cache.lengths[slots] = lens + span
     return cache, logits
+
+
+def rollback(cache: StackedKVCache, seq_slots, new_lengths) -> StackedKVCache:
+    """Reset sequence lengths IN PLACE after a speculative rejection (page
+    rows past a length are dead; later appends overwrite them)."""
+    dev = cache.lengths.device
+    slots = _device_ids(seq_slots, dev)
+    cache.lengths[slots] = _device_ids(new_lengths, dev).to(cache.lengths.dtype)
+    return cache
 
 
 def _device_ids(ids, dev) -> torch.Tensor:
@@ -969,29 +1011,126 @@ def _device_ids(ids, dev) -> torch.Tensor:
 
 
 def greedy_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
-                tokens):
-    """decode_step, its argmax and the argmax's logprob: one step of
+                tokens, sampling: Optional[SamplingParams] = None, noise=None,
+                presence=None, sampling_vecs=None):
+    """decode_step, its draw and the draw's logprob: one step of
     decode_burst, and what a decode graph of the serving engine holds
     (serve/graphs.py). Returns (logits [n, vocab] fp32, ids [n] int64,
-    logprobs [n] fp32); the cache is updated IN PLACE."""
+    logprobs [n] fp32 under the unfiltered model); the cache is updated IN
+    PLACE.
+
+    With no sampling arguments the draw is the argmax. sampling: the
+    engine's SamplingParams (static); sampling_vecs: [4, n] fp32 per-row
+    (temperature, top_p, min_p, repetition_penalty), run through
+    sample_dynamic with sampling.top_k; presence: [n, vocab] bool context
+    rows for the repetition penalty, marked IN PLACE with the draw; noise:
+    [n, vocab] fp32 uniforms (serve/sampling.py:uniform_noise), which
+    stochastic params and sampling_vecs need."""
     _, logits = decode_step(params, cfg, cache, seq_slots, tokens)
-    ids = sample(logits)
+    gumbel = None if noise is None else gumbel_from_uniform(noise)
+    if sampling_vecs is not None:
+        top_k = sampling.top_k if sampling is not None else 0
+        ids = sample_dynamic(logits, gumbel, *sampling_vecs, top_k=top_k,
+                             presence=presence)
+    else:
+        ids = sample(logits, sampling, presence, gumbel)
+    if presence is not None:  # a scalar scatter: legal inside a capture
+        presence.scatter_(1, ids[:, None], True)
     return logits, ids, token_logprobs(logits, ids)
 
 
+def needs_noise(sampling: Optional[SamplingParams], sampling_vecs) -> bool:
+    """Whether a decode step with these arguments draws random noise."""
+    return sampling_vecs is not None or (sampling is not None
+                                         and not sampling.greedy)
+
+
 def decode_burst(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
-                 tokens, n_steps: int):
-    """n_steps greedy decode steps, each step's argmax fed to the next on
-    the device (mfa_tpu's decode_burst, greedy only). Pages for all n_steps
-    positions must already be mapped. Returns (cache, tokens [n_steps, n]
-    int64, logprobs [n_steps, n] fp32) on the cache's device; the cache is
-    updated IN PLACE. A plain loop of greedy_step: the serving engine
-    replays the same step from CUDA graphs on the card."""
+                 tokens, n_steps: int, sampling: Optional[SamplingParams] = None,
+                 generator: Optional[torch.Generator] = None, presence=None,
+                 sampling_vecs=None, return_logits: bool = False):
+    """n_steps decode steps, each step's draw fed to the next on the device
+    (mfa_tpu's decode_burst). Pages for all n_steps positions must already
+    be mapped. Returns (cache, tokens [n_steps, n] int64, logprobs [n_steps,
+    n] fp32), and with return_logits the logits [n_steps, n, vocab] too, on
+    the cache's device; the cache is updated IN PLACE.
+
+    sampling / sampling_vecs / presence as greedy_step (presence is marked
+    in place, so after the burst it holds the burst-final rows, which a
+    pipelined caller chains into the next burst). Stochastic sampling draws
+    one uniform_noise((n, vocab)) from `generator` before each step. A
+    plain loop of greedy_step: the serving engine replays the same step
+    from CUDA graphs on the card."""
     dev = cache.lengths.device
     slots, toks = _device_ids(seq_slots, dev), _device_ids(tokens, dev)
-    out, lps = [], []
+    noisy = needs_noise(sampling, sampling_vecs)
+    if sampling_vecs is not None and not isinstance(sampling_vecs, torch.Tensor):
+        sampling_vecs = host_to_device(np.asarray(sampling_vecs, np.float32),
+                                       torch.float32, dev)
+    out, lps, logits_all = [], [], []
     for _ in range(n_steps):
-        _, toks, lp = greedy_step(params, cfg, cache, slots, toks)
+        noise = (uniform_noise((toks.shape[0], cfg.vocab_size), generator, dev)
+                 if noisy else None)
+        logits, toks, lp = greedy_step(params, cfg, cache, slots, toks,
+                                       sampling, noise, presence, sampling_vecs)
         out.append(toks)
         lps.append(lp)
-    return cache, torch.stack(out), torch.stack(lps)
+        if return_logits:
+            logits_all.append(logits)
+    res = (cache, torch.stack(out), torch.stack(lps))
+    return res + (torch.stack(logits_all),) if return_logits else res
+
+
+def speculative_iteration(params, draft_params, cfg: LlamaConfig,
+                          draft_cfg: LlamaConfig, cache: StackedKVCache,
+                          draft_cache: StackedKVCache, slots, tokens, k: int):
+    """One GREEDY speculative iteration on the device: the draft proposes k
+    tokens (k greedy decode steps on its cache), the target scores [t, d_1
+    .. d_{k-1}] in one verify_step, the longest prefix where the draft
+    equals the target's argmax is accepted, and both caches' lengths are
+    set to base + n_emit. slots, tokens: [n] int64 on the device (tokens:
+    the last emitted token, its KV not stored). Returns (t_out [n, k]
+    emitted tokens, lps [n, k] their target logprobs, n_emit [n] valid
+    counts (entries past it are junk), m [n] accepted draft tokens,
+    next [n] the last emitted token). Both caches need k positions mapped
+    past each row's length. Capturable: serve/graphs.py replays it."""
+    base = cache.lengths[slots]  # == total_len - 1
+    d_toks, toks = [], tokens
+    for _ in range(k):
+        _, toks, _ = greedy_step(draft_params, draft_cfg, draft_cache, slots, toks)
+        d_toks.append(toks)
+    d = torch.stack(d_toks, 1)  # [n, k] proposals d_1..d_k
+    feed = torch.cat([tokens[:, None], d[:, :-1]], dim=1)
+    _, logits = verify_step(params, cfg, cache, slots, feed)  # [n, k, vocab]
+    a = torch.argmax(logits, dim=-1)  # [n, k]
+    m = torch.cumprod((d == a).long(), dim=1).sum(dim=1)
+    n_emit = torch.where(m < k, m + 1, torch.full_like(m, k))
+    pos = torch.arange(k, device=m.device)[None]
+    # the accepted draft prefix, then the target's token at index m
+    t_out = torch.where(pos < m[:, None], d, a)
+    lps = token_logprobs(logits, t_out)
+    new_lens = (base.long() + n_emit).to(cache.lengths.dtype)
+    cache.lengths[slots] = new_lens
+    draft_cache.lengths[slots] = new_lens
+    nxt = torch.gather(t_out, 1, (n_emit - 1)[:, None])[:, 0]
+    return t_out, lps, n_emit, m, nxt
+
+
+def speculative_burst(params, draft_params, cfg: LlamaConfig,
+                      draft_cfg: LlamaConfig, cache: StackedKVCache,
+                      draft_cache: StackedKVCache, seq_slots, tokens, k: int,
+                      n_iters: int):
+    """n_iters greedy speculative iterations (speculative_iteration), each
+    fed the last emitted token of the one before, with no host work in
+    between (mfa_tpu's speculative_burst). Both caches need n_iters * k
+    positions mapped past each row's length. Returns (t_out [n_iters, n, k],
+    lps [n_iters, n, k], n_emit [n_iters, n], m [n_iters, n]) on the
+    device; output is the target's greedy decode, token for token."""
+    dev = cache.lengths.device
+    slots, toks = _device_ids(seq_slots, dev), _device_ids(tokens, dev)
+    outs = []
+    for _ in range(n_iters):
+        *res, toks = speculative_iteration(params, draft_params, cfg, draft_cfg,
+                                           cache, draft_cache, slots, toks, k)
+        outs.append(res)
+    return tuple(torch.stack(x) for x in zip(*outs))

@@ -7,7 +7,7 @@ advance every
 in-progress long prompt or prefix-cache suffix by one chunk (kernel 8,
 write-then-attend) -> map pages for the next position(s) -> batched
 decode over the requests whose prefill is complete (kernel 6; kernel 10
-on int8 weights) -> greedy sample -> append / finish. The KV pages are
+on int8 weights) -> sample -> append / finish. The KV pages are
 bf16, or int8, fp8 (e4m3) or int4 with fp32 row scales (quant_dtype;
 "auto" picks by the cache capacity a sequence can reach,
 dispatch/config.py:recommend_kv_quant), and kernels 6 and 8 read every
@@ -22,8 +22,20 @@ loop). On the card every decode step replays the CUDA graph of its batch
 bucket (serve/graphs.py). run(max_retries=k) recovers from a failed step
 (recover()) up to k times.
 
-Not ported yet (raise NotImplementedError): speculative decoding and
-meshes.
+Sampling (serve/sampling.py): the engine's SamplingParams (temperature,
+top-k, top-p, min-p, repetition penalty) and per-request overrides
+(submit(sampling=): per-row vectors in one sampler, top-k engine-wide),
+with randomness from one seeded torch.Generator on the engine's device;
+the repetition penalty reads device presence rows per slot, marked as
+prompts admit and tokens sample. Speculative decoding (draft_params=,
+draft_cfg=, spec_tokens=): a draft model with its own cache over the same
+pages proposes spec_tokens tokens, the target scores them in one
+verify_step (kernel 6 on a span of queries), and rejected ones roll back
+by a lengths reset; greedy engines run n_iters draft / verify / accept
+iterations on the device per readback (graphed on the card), sampled ones
+step on the host with the rejection rule (speculative_accept).
+
+Not ported yet (raises NotImplementedError): meshes.
 """
 
 from __future__ import annotations
@@ -40,8 +52,11 @@ from mfa_tpu_torch.cache.paged_cache import map_pages, release_slots
 from mfa_tpu_torch.dispatch.config import (host_to_device,
                                            recommend_kv_quant, resolve_device)
 from mfa_tpu_torch.models import llama
-from mfa_tpu_torch.serve.graphs import DecodeGraphs
-from mfa_tpu_torch.serve.sampling import SamplingParams, sample, token_logprobs
+from mfa_tpu_torch.serve.graphs import DecodeGraphs, SpeculativeGraphs
+from mfa_tpu_torch.serve.sampling import (SamplingParams, gumbel_from_uniform,
+                                          sample, sample_dynamic,
+                                          speculative_accept, token_logprobs,
+                                          uniform_noise)
 from mfa_tpu_torch.serve.scheduler import Request, Scheduler
 
 
@@ -69,6 +84,14 @@ class EngineStats:
     # decode graphs captured, and the host seconds their captures took
     captures: int = 0
     capture_s: float = 0.0
+    # speculative decoding: draft tokens proposed and accepted
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+
+    @property
+    def spec_acceptance(self) -> float:
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
 
 
 def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256)) -> int:
@@ -96,7 +119,10 @@ class Engine:
         prefill_chunk: Optional[int] = None,
         prefix_cache: bool = False,
         draft_params=None,
+        draft_cfg: Optional[llama.LlamaConfig] = None,
+        spec_tokens: int = 4,
         vision=None,
+        seed: int = 0,
     ):
         """params must live on `device` (init_params / params_from_numpy
         with the same device). The cache is created there.
@@ -115,10 +141,16 @@ class Engine:
 
         quant_dtype: None (pages in the model dtype), "int8", "fp8",
         "int4" or "auto" (recommend_kv_quant(pages_per_seq * page_size),
-        as the JAX engine resolves it)."""
-        if mesh is not None or draft_params is not None:
-            raise NotImplementedError(
-                "meshes and speculative decoding are not ported yet")
+        as the JAX engine resolves it).
+
+        sampling: the engine's SamplingParams (default greedy); seed: of
+        the engine's torch.Generator, on `device`. draft_params /
+        draft_cfg (on `device`): speculative decoding with spec_tokens
+        proposals an iteration; the draft shares the target's vocabulary,
+        pages and tables, and refuses the repetition penalty, per-request
+        sampling and image prompts, as mfa_tpu's does."""
+        if mesh is not None:
+            raise NotImplementedError("meshes are not ported yet")
         if prefill_chunk is not None and prefill_chunk % page_size != 0:
             raise ValueError("prefill_chunk must be a multiple of page_size")
         self.device = resolve_device(device)
@@ -134,8 +166,32 @@ class Engine:
         self.sched = Scheduler(max_seqs, pages_per_seq, page_size, num_pages,
                                prefix_cache=prefix_cache)
         self.sampling = sampling or SamplingParams()
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the repetition penalty's context mask, one row per slot: marked as
+        # prompts admit and tokens sample, gathered per batch, cleared per
+        # admission wave (mfa_tpu's _pres_dev)
+        self._pres_dev = (self._new_presence(max_seqs, cfg.vocab_size)
+                          if self.sampling.needs_presence else None)
         self.stats = EngineStats()
-        self.graphs = DecodeGraphs(params, cfg, self.device, self.stats)
+        self.graphs = DecodeGraphs(params, cfg, self.device, self.stats,
+                                   self.sampling)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_tokens = spec_tokens
+        self.draft_cache = None
+        self.spec_graphs = None
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params requires draft_cfg")
+            if self.sampling.needs_presence:
+                raise ValueError(
+                    "speculative decoding does not support the repetition "
+                    "penalty (verification is context-free)")
+            self.draft_cache = llama.build_kv_caches(
+                draft_cfg, num_pages, page_size, max_seqs, pages_per_seq,
+                quant_dtype, device=self.device)
+            self.spec_graphs = SpeculativeGraphs(
+                params, draft_params, cfg, draft_cfg, self.device, self.stats)
         # dispatched decode bursts whose tokens are not read back yet
         self._pending_bursts: Deque[dict] = collections.deque()
         # Finished slots awaiting their device-metadata clear: one batched
@@ -148,11 +204,19 @@ class Engine:
         self._prefilling: Dict[int, tuple] = {}  # uid -> (req, pos, tokens)
         self.vision = vision
 
+    def _new_presence(self, rows: int, vocab: int) -> torch.Tensor:
+        return torch.zeros((rows, vocab), dtype=torch.bool, device=self.device)
+
     def submit(self, prompt: List[int], max_new_tokens: int,
                eos_token: Optional[int] = None,
-               stop: Optional[List[List[int]]] = None, images=None) -> Request:
+               stop: Optional[List[List[int]]] = None,
+               sampling: Optional[SamplingParams] = None,
+               images=None) -> Request:
         """stop: token-id sequences that end generation when the output ends
         with one of them (the matched tokens stay in the output).
+        sampling: a per-request SamplingParams (temperature, top_p, min_p,
+        repetition_penalty; top_k stays the engine's); a batch mixing
+        requests runs one sampler with per-row vectors.
         images: [n_images, 3, H, W] pixels matching the prompt's <image>
         placeholder runs (needs the engine's vision= tuple); image prompts
         prefill whole (never chunked) and never share prefix pages."""
@@ -161,6 +225,10 @@ class Engine:
                 raise ValueError(
                     "images= requires an Engine vision= tuple "
                     "(vision_params, vision_cfg, image_token_id)")
+            if self.draft_params is not None:
+                raise ValueError(
+                    "speculative decoding does not support image prompts "
+                    "(the draft model has no vision tower)")
             image_tok, vcfg = self.vision[2], self.vision[1]
             n_img = images.shape[0]
             placeholders = sum(1 for t in prompt if t == image_tok)
@@ -169,8 +237,17 @@ class Engine:
                     f"{n_img} images need {n_img * vcfg.mm_tokens_per_image} "
                     f"<image> tokens (id {image_tok}), the prompt has "
                     f"{placeholders}")
+        if sampling is not None:
+            if self.draft_params is not None:
+                raise ValueError("per-request sampling is incompatible "
+                                 "with speculative decoding")
+            if sampling.needs_presence and self._pres_dev is None:
+                # rows of requests without a penalty stay zero and their
+                # penalty is 1, so a mask made late is sound
+                self._pres_dev = self._new_presence(self.sched.max_seqs,
+                                                    self.cfg.vocab_size)
         req = Request(self._next_uid, list(prompt), max_new_tokens,
-                      eos_token, stop=stop, images=images)
+                      eos_token, stop=stop, sampling=sampling, images=images)
         self._next_uid += 1
         self.sched.submit(req)
         self._stream_pos[req.uid] = 0
@@ -196,12 +273,62 @@ class Engine:
             self._all_reqs.pop(uid, None)
         return out
 
-    def _sample(self, logits):
+    def _sample(self, logits, presence=None, vecs=None):
         """-> host (ids [n], logprobs [n]); logprobs under the unfiltered
-        model distribution."""
-        ids = sample(logits)
+        model distribution. presence: [n, vocab] rows; vecs: per-row
+        parameter vectors (_sampling_vecs)."""
+        gumbel = None
+        if llama.needs_noise(self.sampling, vecs):
+            gumbel = gumbel_from_uniform(uniform_noise(
+                tuple(logits.shape), self.generator, logits.device))
+        if vecs is not None:
+            ids = sample_dynamic(logits, gumbel, *vecs,
+                                 top_k=self.sampling.top_k, presence=presence)
+        else:
+            ids = sample(logits, self.sampling, presence, gumbel)
         lps = token_logprobs(logits, ids)
         return ids.cpu().numpy(), lps.cpu().numpy()
+
+    def _sampling_vecs(self, reqs, rows: int) -> Optional[torch.Tensor]:
+        """Per-row (temperature, top_p, min_p, repetition_penalty) [4, rows]
+        fp32 on the device when any request overrides the engine's
+        sampling, else None. Padding rows take the engine's."""
+        if not any(r.sampling is not None for r in reqs):
+            return None
+        d = self.sampling
+        vecs = np.zeros((4, rows), np.float32)
+        vecs[:] = np.array([d.temperature, d.top_p, d.min_p,
+                            d.repetition_penalty], np.float32)[:, None]
+        for i, r in enumerate(reqs):
+            s = r.sampling or d
+            vecs[:, i] = (s.temperature, s.top_p, s.min_p,
+                          s.repetition_penalty)
+        return host_to_device(vecs, torch.float32, self.device)
+
+    def _pres_rows(self, slots) -> Optional[torch.Tensor]:
+        """The presence rows of a batch's slots (a fresh [n, vocab] tensor),
+        or None when the sampler needs none."""
+        if self._pres_dev is None:
+            return None
+        return self._pres_dev[self._upload(np.asarray(slots))]
+
+    def _pres_mark(self, slots, tokens) -> None:
+        """Mark token ids present for their slots (one device scatter)."""
+        if self._pres_dev is None or len(slots) == 0:
+            return
+        self._pres_dev[self._upload(np.asarray(slots)),
+                       self._upload(np.asarray(tokens))] = True
+
+    def _pres_mark_context(self, reqs) -> None:
+        """Mark each request's context (prompt + generated so far)."""
+        if self._pres_dev is None:
+            return
+        slots, toks = [], []
+        for r in reqs:
+            ctx = r.prompt + r.generated
+            slots.extend([r.slot] * len(ctx))
+            toks.extend(ctx)
+        self._pres_mark(slots, toks)
 
     def _prefill_admitted(self, reqs: List[Request]) -> None:
         """Prefill all newly admitted prompts in one batched pass, the image
@@ -212,6 +339,13 @@ class Engine:
         (preempted) requests re-prefill their prompt plus all but the last
         generated token, with their images; the last one replays through
         the decode step."""
+        if not reqs:
+            return
+        if self._pres_dev is not None:
+            # a reused slot may carry a finished request's bits: rows are
+            # cleared per admission wave, not when a request finishes
+            self._pres_dev[self._upload(np.asarray([r.slot for r in reqs]))] = False
+        self._pres_mark_context(reqs)  # prompts count for the penalty
         toks_of = {r.uid: r.prompt + r.generated[:-1] for r in reqs}
         for r in reqs:
             toks = toks_of[r.uid]
@@ -233,7 +367,17 @@ class Engine:
                 self.params, self.cfg, self.cache, [r.slot for r in group],
                 [r.pages for r in group], token_lists, vision=vision,
                 pixel_lists=[r.images for r in group] if vision else None)
-            firsts, first_lps = self._sample(logits)
+            if self.draft_cache is not None:
+                self.draft_cache, _ = llama.prefill_batch(
+                    self.draft_params, self.draft_cfg, self.draft_cache,
+                    [r.slot for r in group], [r.pages for r in group],
+                    token_lists)
+            firsts, first_lps = self._sample(
+                logits, self._pres_rows([r.slot for r in group]),
+                self._sampling_vecs(group, len(group)))
+            self._pres_mark(
+                [r.slot for r in group if not r.generated],
+                [int(f) for r, f in zip(group, firsts) if not r.generated])
             secs = time.perf_counter() - t0
             self.stats.prefill_batches += 1
             self.stats.prefill_s += secs
@@ -286,8 +430,16 @@ class Engine:
             m_slots = [m_slots[i] for i in keep]
             m_idx = [m_idx[i] for i in keep]
             m_ids = [m_ids[i] for i in keep]
-        if m_slots:
-            self.cache = map_pages(self.cache, m_slots, m_idx, m_ids)
+        self._map(m_slots, m_idx, m_ids)
+
+    def _map(self, m_slots, m_idx, m_ids) -> None:
+        """Map pages into both caches' tables (the draft's too)."""
+        if not m_slots:
+            return
+        self.cache = map_pages(self.cache, m_slots, m_idx, m_ids)
+        if self.draft_cache is not None:
+            self.draft_cache = map_pages(self.draft_cache, m_slots, m_idx,
+                                         m_ids)
 
     def _scratch_slot(self) -> Optional[int]:
         """A free slot for padding rows, or None when every slot is busy."""
@@ -334,10 +486,18 @@ class Engine:
         self.cache, logits = llama.prefill_chunk_batch(
             self.params, self.cfg, self.cache, slots, pages_l, chunk_toks,
             offs, totals, chunk)
+        if self.draft_cache is not None:
+            self.draft_cache, _ = llama.prefill_chunk_batch(
+                self.draft_params, self.draft_cfg, self.draft_cache, slots,
+                pages_l, chunk_toks, offs, totals, chunk)
         # logits carry the padded bucket rows; sample only the real items
-        ids, lps = self._sample(logits[: len(items)])
+        reqs = [it[0] for it in items]
+        ids, lps = self._sample(logits[: len(items)],
+                                self._pres_rows([r.slot for r in reqs]),
+                                self._sampling_vecs(reqs, len(items)))
         self.stats.chunk_batches += 1
         self.stats.prefill_s += time.perf_counter() - t0
+        mark_slots, mark_toks = [], []
         for i, (req, pos, tokens) in enumerate(items):
             pos += min(chunk, len(tokens) - pos)
             if pos < len(tokens):
@@ -350,9 +510,12 @@ class Engine:
             if not req.generated:
                 req.generated.append(int(ids[i]))
                 req.logprobs.append(float(lps[i]))
+                mark_slots.append(req.slot)
+                mark_toks.append(int(ids[i]))
                 self.stats.decode_tokens += 1
             if req.done:
                 self._finish(req)
+        self._pres_mark(mark_slots, mark_toks)
 
     def _decode_ready(self) -> List[Request]:
         """Active requests whose prefill is complete."""
@@ -393,31 +556,41 @@ class Engine:
             return min(rem, n)
         return min(n, 1 << (rem - 1).bit_length())
 
-    def _dispatch(self, active, n_eff: int, slots, scratch, tokens) -> dict:
+    def _to_host(self, *tensors):
+        """Start copies of device tensors to pinned host memory without
+        waiting. -> (host tensors, an event to wait on, or None on the
+        CPU)."""
+        if self.device.type != "cuda":
+            return tensors, None
+        out = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            out.append(h)
+        event = torch.cuda.Event()
+        event.record()
+        return tuple(out), event
+
+    def _dispatch(self, active, n_eff: int, slots, scratch, tokens,
+                  presence=None) -> dict:
         """Enqueue an n_eff-step decode burst of `active` (slots from
-        _pad_batch; tokens on the host or, chained, on the device) and the
-        copy of its tokens and logprobs to pinned host memory, without
+        _pad_batch; tokens on the host or, chained, on the device; presence:
+        the rows' presence [nb, vocab], marked in place by the burst) and
+        the copy of its tokens and logprobs to pinned host memory, without
         waiting for either. -> the burst record for _process_burst_result."""
         t0 = time.perf_counter()
         if not isinstance(tokens, torch.Tensor):
             tokens = self._upload(tokens)
-        toks, lps = self.graphs.burst(self.cache, self._upload(slots), tokens,
-                                      n_eff)
-        event = None
-        if self.device.type == "cuda":
-            toks_h = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-            lps_h = torch.empty(lps.shape, dtype=lps.dtype, pin_memory=True)
-            toks_h.copy_(toks, non_blocking=True)
-            lps_h.copy_(lps, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            toks_h, lps_h = toks, lps
+        toks, lps = self.graphs.burst(
+            self.cache, self._upload(slots), tokens, n_eff, presence,
+            self._sampling_vecs(active, len(slots)), self.generator)
+        (toks_h, lps_h), event = self._to_host(toks, lps)
         for r in active:
             r.inflight += n_eff
         self.stats.decode_s += time.perf_counter() - t0
         return dict(active=list(active), n_eff=n_eff, toks=toks, toks_h=toks_h,
-                    lps_h=lps_h, event=event, slots=slots, scratch=scratch)
+                    lps_h=lps_h, event=event, slots=slots, scratch=scratch,
+                    pres=presence)
 
     def _process_burst_result(self, d) -> None:
         """Wait for one burst's readback and append its tokens. Rows that
@@ -429,6 +602,7 @@ class Engine:
         toks_np, lps_np = d["toks_h"].numpy(), d["lps_h"].numpy()
         self.stats.readbacks += 1
         self.stats.steps += d["n_eff"]
+        mark_slots, mark_toks = [], []
         for i, req in enumerate(d["active"]):
             req.inflight = max(0, req.inflight - d["n_eff"])
             was_done = req.done  # finished in an earlier processed burst
@@ -437,9 +611,12 @@ class Engine:
                     break
                 req.generated.append(int(t))
                 req.logprobs.append(float(lp))
+                mark_slots.append(req.slot)
+                mark_toks.append(int(t))
                 self.stats.decode_tokens += 1
             if req.done and not was_done:
                 self._finish(req)
+        self._pres_mark(mark_slots, mark_toks)
         # roll back the scratch slot's junk appends only while it is still
         # free: an admission may have claimed it since (its prefill SETS the
         # row and length, behind the junk appends on the stream)
@@ -451,8 +628,8 @@ class Engine:
         """One batched decode step + bookkeeping for `active` requests
         (pages for the next position must already be mapped)."""
         slots, tokens, scratch = self._pad_batch(active)
-        self._process_burst_result(
-            self._dispatch(active, 1, slots, scratch, tokens))
+        self._process_burst_result(self._dispatch(
+            active, 1, slots, scratch, tokens, self._pres_rows(slots)))
 
     def step(self) -> None:
         """One engine iteration: admit, prefill, one chunk of every
@@ -486,8 +663,8 @@ class Engine:
         self._map_new_pages(n_eff)
         active = self._decode_ready()
         slots, tokens, scratch = self._pad_batch(active)
-        self._process_burst_result(
-            self._dispatch(active, n_eff, slots, scratch, tokens))
+        self._process_burst_result(self._dispatch(
+            active, n_eff, slots, scratch, tokens, self._pres_rows(slots)))
 
     # ---- pipelined burst serving -------------------------------------
     #
@@ -534,19 +711,22 @@ class Engine:
         except MemoryError:
             # pages granted above stay mapped: their requests own them and
             # will decode into them
-            if m_slots:
-                self.cache = map_pages(self.cache, m_slots, m_idx, m_ids)
+            self._map(m_slots, m_idx, m_ids)
             return None
-        if m_slots:
-            self.cache = map_pages(self.cache, m_slots, m_idx, m_ids)
+        self._map(m_slots, m_idx, m_ids)
 
         slots, tokens_host, scratch = self._pad_batch(active)
+        pres = None
         if (prev is not None and len(prev["active"]) == len(active)
                 and all(a is b for a, b in zip(prev["active"], active))
                 and np.array_equal(prev["slots"], slots)):
-            # the rows of the burst in flight: chain its last tokens
+            # the rows of the burst in flight: chain its last tokens (and
+            # its burst-final presence rows)
             tokens = prev["toks"][-1]
+            pres = prev["pres"]
         elif any(r.inflight for r in active):
+            if self._pres_dev is not None:
+                return None  # presence cannot chain across a row change
             # the row set changed while a burst is in flight (a request
             # finished or was admitted): in-flight rows take their last
             # token through a slot-indexed map on the device, the others
@@ -561,7 +741,8 @@ class Engine:
                 tokens[self._upload(rows)] = self._upload(tokens_host[rows])
         else:
             tokens = tokens_host
-        return self._dispatch(active, n_eff, slots, scratch, tokens)
+            pres = self._pres_rows(slots)
+        return self._dispatch(active, n_eff, slots, scratch, tokens, pres)
 
     def _drain_pipeline(self) -> None:
         """Read back every in-flight burst (the pipeline barrier): the
@@ -587,6 +768,8 @@ class Engine:
         if pending:
             self._process_burst_result(pending.popleft())
         elif self._decode_ready():
+            # nothing could be dispatched with the pipeline empty (page
+            # pressure, or presence rows across a row change)
             self.step_burst(n)
 
     def _run_pipelined(self, burst: int) -> None:
@@ -598,6 +781,106 @@ class Engine:
                 return
             self.step_pipelined(burst)
 
+    # ---- speculative decoding -----------------------------------------
+
+    def step_speculative(self) -> None:
+        """One speculative step (mfa_tpu's step_speculative): admit +
+        prefill both models, then the draft proposes k tokens, the target
+        verifies the span in one verify_step, the accepted tokens are
+        emitted and the rest rolled back by a lengths reset. Greedy
+        engines run n_iters such iterations on the device per readback
+        (SpeculativeGraphs; output equal to plain greedy decoding of the
+        target); sampled engines run one, stepped on the host, with the
+        rejection rule. k and n_iters are powers of two capped by every
+        row's table headroom: a span write past the table would land in
+        the row's own live last page."""
+        self._flush_released()
+        self._prefill_admitted(self.sched.admit())
+        self._advance_chunked_prefill()
+        active = self._decode_ready()
+        if not active:
+            return
+        capacity = self.sched.pages_per_seq * self.page_size
+        headroom = min(capacity - (r.total_len - 1) for r in active)
+        k = min(self.spec_tokens, headroom)
+        if k < 2:  # no room to speculate: one plain step
+            self._map_new_pages(1)
+            active = self._decode_ready()
+            if active:
+                self._decode_active(active)
+            return
+        k = 1 << (k.bit_length() - 1) if k < self.spec_tokens else k
+        n_iters = 1
+        if self.sampling.greedy:
+            # every iteration may accept all k: n_iters fits the headroom
+            n_iters = max(1, min(4, headroom // k))
+            n_iters = 1 << (n_iters.bit_length() - 1)
+        self._map_new_pages(n_iters * k)
+        active = self._decode_ready()  # the mapping may preempt
+        if not active:
+            return
+        slots, tokens, scratch = self._pad_batch(active)
+        slots_d, toks_d = self._upload(slots), self._upload(tokens)
+        t0 = time.perf_counter()
+        if self.sampling.greedy:
+            outs = self.spec_graphs.burst(self.cache, self.draft_cache, slots_d,
+                                          toks_d, k, n_iters)
+            hosts, event = self._to_host(*outs)
+            if event is not None:
+                event.synchronize()
+            t_np, lp_np, ne_np, m_np = (h.numpy() for h in hosts)
+        else:
+            t_np, lp_np, ne_np, m_np = self._sampled_iteration(
+                slots_d, toks_d, len(active), k)
+        self.stats.readbacks += 1
+        self.stats.steps += n_iters
+        self.stats.decode_s += time.perf_counter() - t0
+        for i, req in enumerate(active):
+            for it in range(n_iters):
+                if req.done:
+                    break  # iterations past eos (the slot is released)
+                self.stats.spec_proposed += k
+                self.stats.spec_accepted += int(m_np[it, i])
+                for j in range(int(ne_np[it, i])):
+                    if req.done:
+                        break
+                    req.generated.append(int(t_np[it, i, j]))
+                    req.logprobs.append(float(lp_np[it, i, j]))
+                    self.stats.decode_tokens += 1
+            if req.done:
+                # the device lengths ran past eos; releasing the slot
+                # makes those rows dead
+                self._finish(req)
+        if scratch is not None:
+            self._to_release.append(scratch)
+
+    def _sampled_iteration(self, slots_d, toks_d, n_act: int, k: int):
+        """One sampled speculative iteration, stepped on the host: the draft
+        samples k tokens keeping its logits, the target verifies [t, d_1 ..
+        d_{k-1}], speculative_accept applies the rejection rule, and both
+        caches roll back to base + n_emit. -> host arrays shaped as
+        SpeculativeGraphs.burst's with n_iters 1."""
+        _, d_toks, _, d_logits = llama.decode_burst(
+            self.draft_params, self.draft_cfg, self.draft_cache, slots_d,
+            toks_d, k, self.sampling, self.generator, return_logits=True)
+        feed = torch.cat([toks_d[None], d_toks[:-1]], dim=0).T  # [nb, k]
+        _, logits = llama.verify_step(self.params, self.cfg, self.cache,
+                                      slots_d, feed)  # [nb, k, vocab]
+        t_dev, m_dev = speculative_accept(d_logits.transpose(0, 1), logits,
+                                          d_toks.T, self.sampling,
+                                          self.generator)
+        lp_dev = token_logprobs(logits, t_dev)
+        n_emit = torch.where(m_dev < k, m_dev + 1, torch.full_like(m_dev, k))
+        # rows past the active ones are the scratch slot's: length 0
+        new_lens = self.cache.lengths[slots_d].long() - k + n_emit
+        new_lens[n_act:] = 0
+        llama.rollback(self.cache, slots_d, new_lens)
+        llama.rollback(self.draft_cache, slots_d, new_lens)
+        hosts, event = self._to_host(t_dev, lp_dev, n_emit, m_dev)
+        if event is not None:
+            event.synchronize()
+        return tuple(h.numpy()[None] for h in hosts)
+
     def _finish(self, req: Request) -> None:
         slot = req.slot
         self.sched.finish(req)
@@ -605,12 +888,16 @@ class Engine:
 
     def _flush_released(self) -> None:
         """Batched device-metadata clear of finished slots: one scatter pair
-        however many requests finished since the last flush."""
+        (a pair a cache) however many requests finished since the last
+        flush."""
         if not self._to_release:
             return
         slots = self._to_release
         self._to_release = []
         self.cache = release_slots(self.cache, slots)
+        if self.draft_cache is not None:
+            self.draft_cache = release_slots(self.draft_cache, slots)
+
 
     def recover(self) -> int:
         """Reset device state after a failed step and requeue the requests
@@ -630,12 +917,19 @@ class Engine:
             # admission may alias them (no request holds a reference now)
             self.sched.prefix.evict(10**9, self.sched.allocator)
         self.graphs.reset()
+        if self._pres_dev is not None:
+            self._pres_dev.zero_()
         c0 = self.cache
         shape = (c0.num_pages, c0.page_size, c0.lengths.shape[0],
                  c0.pages_per_seq, c0.quant_dtype)
         self.cache = c0 = None  # free the old pools before the new ones
         self.cache = llama.build_kv_caches(self.cfg, *shape,
                                            device=self.device)
+        if self.draft_cache is not None:
+            self.spec_graphs.reset()
+            self.draft_cache = None
+            self.draft_cache = llama.build_kv_caches(self.draft_cfg, *shape,
+                                                     device=self.device)
         for req in reversed(active):
             self.sched.waiting.appendleft(req)
         self.stats.recoveries += 1
@@ -643,17 +937,19 @@ class Engine:
 
     def run(self, max_retries: int = 0, burst: int = 1,
             pipeline: bool = True) -> EngineStats:
-        """Drain all work (mfa_tpu's run). With burst > 1, up to `burst`
-        decode steps run on the device between token readbacks
-        (step_burst), and with pipeline (the default) up to PIPELINE_DEPTH
-        bursts stay in flight (_run_pipelined). A failing step triggers
-        recover() and the work restarts, up to max_retries times; then the
-        failure raises."""
+        """Drain all work (mfa_tpu's run). With a draft model every step is
+        step_speculative. Else with burst > 1, up to `burst` decode steps
+        run on the device between token readbacks (step_burst), and with
+        pipeline (the default) up to PIPELINE_DEPTH bursts stay in flight
+        (_run_pipelined). A failing step triggers recover() and the work
+        restarts, up to max_retries times; then the failure raises."""
         t0 = time.perf_counter()
         retries = 0
         while self.sched.has_work:
             try:
-                if burst > 1 and pipeline:
+                if self.draft_cache is not None:
+                    self.step_speculative()
+                elif burst > 1 and pipeline:
                     self._run_pipelined(burst)
                 elif burst > 1:
                     self.step_burst(burst)

@@ -25,6 +25,9 @@ class Request:
     eos_token: Optional[int] = None
     # finish when the generation ends with any of these token-id lists
     stop: Optional[List[List[int]]] = None
+    # per-request sampling override (serve.sampling.SamplingParams; top_k
+    # stays engine-wide); None: the engine's
+    sampling: Optional[object] = None
     # multimodal: [n_images, 3, H, W] pixels whose projected features fill
     # the prompt's <image> placeholder runs (Gemma3; the engine's vision=)
     images: Optional[object] = None

@@ -2,7 +2,8 @@
 """Where the time goes in the PyTorch/CUDA port's serving loop, on one GPU.
 
     python3 scripts/profile_torch_engine.py [--layers 32] [--steps 8] [--out FILE]
-        [--phases bf16,chunk,train,int8,gemma3] (also: pipeline, fp8kv, int4kv)
+        [--phases bf16,chunk,train,int8,gemma3] (also: pipeline, fp8kv, int4kv,
+        sampling, spec)
 
 Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
@@ -26,7 +27,17 @@ images; the tower's trace splits the wave's device time into the tower,
 the text projections, the glue and kernel 9; then one wave of its 4 text
 prompts and `--steps` decode steps of them (eager, then graphed).
 --phases fp8kv / int4kv trace the bf16 model's wave and decode steps on
-fp8 (e4m3) or int4 KV pages (kernel 6 on those pages). For each phase it prints the host wall time (with and without the
+fp8 (e4m3) or int4 KV pages (kernel 6 on those pages). --phases sampling
+traces the bf16 model's decode steps with chip_smoke.py's sampled mix
+(engine top-k 50; 4 greedy rows, 4 at temperature 0.8 / top-p 0.9, 4 at
+temperature 1.0 / min-p 0.05, 4 greedy with repetition penalty 1.3) and
+times the sampler alone on [16, vocab] logits. --phases spec times the
+pieces of a greedy speculative iteration at the 8B target with
+chip_smoke.py's Llama-3.2-1B-shaped draft (batch 16, int8 KV, k 4), each
+a CUDA graph replayed back to back: one draft decode step, one verify of
+4 tokens, the acceptance, the whole iteration and, beside them, one
+target decode step; from these, the acceptance rate at which an
+iteration emits tokens as fast as graphed decode. For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -390,6 +401,170 @@ def serve_phase(params, cfg, steps, acts, out_path, tag, kv="int8") -> None:
                  f"{tag}decode step (batch 16, {cfg.n_layers} layers)")
 
 
+def sampling_phase(params, cfg, steps, acts, out_path) -> None:
+    """Decode steps of chip_smoke.py's sampled mix (eager, graphed, graphed
+    bursts: decode_steps), then the sampler alone: sample_dynamic with the
+    engine's top-k, presence rows and its noise, plus the logprobs, on
+    [16, vocab] fp32 logits, device ms per call (chip_smoke._time_ms)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from mfa_tpu_torch.serve.engine import Engine
+    from mfa_tpu_torch.serve.sampling import (SamplingParams, gumbel_from_uniform,
+                                              sample, sample_dynamic,
+                                              token_logprobs, uniform_noise)
+
+    mix = [SamplingParams(**m) if m else None for m in cs.SAMPLING_MIX]
+
+    def engine():
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype="int8", device="cuda",
+                     sampling=SamplingParams(top_k=50), seed=0)
+        rng = np.random.RandomState(0)
+        for i, n in enumerate(rng.randint(200, 257, 16)):
+            eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), 2 * steps + 4,
+                       sampling=mix[i // 4])
+        return eng
+
+    engine().run()  # warm-up
+    decode_steps(engine, steps, acts, out_path,
+                 "sampled mix decode step (batch 16, top-k 50, 4 x 4 rows)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(16, cfg.vocab_size, generator=gen, device="cuda") * 3
+    pres = torch.rand(16, cfg.vocab_size, generator=gen, device="cuda") < 0.002
+    vecs = torch.tensor([[0.0] * 4 + [0.8] * 4 + [1.0] * 4 + [0.0] * 4,
+                         [1.0] * 4 + [0.9] * 4 + [1.0] * 8,
+                         [0.0] * 8 + [0.05] * 4 + [0.0] * 4,
+                         [1.0] * 12 + [1.3] * 4], device="cuda")
+
+    def sampler():
+        g = gumbel_from_uniform(uniform_noise(tuple(logits.shape), gen, "cuda"))
+        ids = sample_dynamic(logits, g, *vecs, top_k=50, presence=pres)
+        return token_logprobs(logits, ids)
+
+    def greedy():
+        return token_logprobs(logits, sample(logits))
+
+    ms, ms_g = cs._time_ms(sampler), cs._time_ms(greedy)
+    print(f"sampler alone on [16, {cfg.vocab_size}] fp32 logits: mixed rows with "
+          f"top-k 50, presence and noise {ms:.4f} ms of device time a call; greedy "
+          f"argmax + logprob {ms_g:.4f} ms; the sampler adds {ms - ms_g:.4f} ms a "
+          f"step", flush=True)
+
+
+def _replay_ms(graph, reps: int = 5) -> float:
+    """Device ms per replay of `reps` replays back to back (CUDA events)."""
+    import torch
+
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def spec_phase(params, cfg, k: int = 4) -> None:
+    """The pieces of a greedy speculative iteration, each captured into a
+    CUDA graph and replayed back to back: one draft decode step, one
+    verify_step of k tokens, the acceptance (argmax, prefix, emitted
+    tokens, logprobs, both caches' lengths), the whole iteration
+    (SpeculativeGraphs), and one target decode step (DecodeGraphs). The
+    draft step and verify graphs put the lengths they advance back, so
+    their replays read the same cache. Break-even: with each draft token accepted with
+    probability p, an iteration emits 1 + p + ... + p^(k-1) tokens a row;
+    it matches graphed decode when that equals iteration / decode step,
+    at acceptance rate (p + ... + p^k) / k."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import EngineStats
+    from mfa_tpu_torch.serve.graphs import (DecodeGraphs, SpeculativeGraphs,
+                                            _Captures)
+    from mfa_tpu_torch.serve.sampling import token_logprobs
+
+    dcfg = cs.llama32_1b_draft_config(cfg)
+    dparams = llama.init_params(dcfg, seed=5, device="cuda")
+    n, pps, page = 16, 8, 64
+    rng = np.random.RandomState(0)
+    prompts = [list(rng.randint(0, cfg.vocab_size, int(m)))
+               for m in rng.randint(200, 257, n)]
+    pages = [list(range(1 + i * pps, 1 + (i + 1) * pps)) for i in range(n)]
+    caches = []
+    for p, c in ((params, cfg), (dparams, dcfg)):
+        cache = llama.build_kv_caches(c, n * pps + 1, page, n, pps, "int8",
+                                      device="cuda")
+        cache, logits = llama.prefill_batch(p, c, cache, list(range(n)), pages,
+                                            prompts)
+        caches.append(cache)
+    cache, dcache = caches
+    slots = torch.arange(n, device="cuda")
+    toks = logits.argmax(-1)
+    stats = EngineStats()
+    cap = _Captures(torch.device("cuda"), stats)
+    feed = torch.stack([toks] * k, 1)
+    d_static = feed.clone()
+
+    def draft_step():
+        llama.greedy_step(dparams, dcfg, dcache, slots, toks)
+        dcache.lengths[slots] -= 1
+
+    def verify():
+        _, lg = llama.verify_step(params, cfg, cache, slots, feed)
+        cache.lengths[slots] -= k
+        return lg
+
+    g_draft, _, _ = cap.capture(draft_step)
+    g_verify, v_logits, _ = cap.capture(verify)
+
+    def accept():
+        base = cache.lengths[slots]
+        a = torch.argmax(v_logits, dim=-1)
+        m = torch.cumprod((d_static == a).long(), dim=1).sum(dim=1)
+        n_emit = torch.where(m < k, m + 1, torch.full_like(m, k))
+        pos = torch.arange(k, device="cuda")[None]
+        t_out = torch.where(pos < m[:, None], d_static, a)
+        token_logprobs(v_logits, t_out)
+        new_lens = (base.long() + n_emit).to(base.dtype)
+        cache.lengths[slots] = new_lens
+        dcache.lengths[slots] = new_lens
+        torch.gather(t_out, 1, (n_emit - 1)[:, None])
+
+    g_accept, _, _ = cap.capture(accept)
+    ms_draft, ms_verify, ms_accept = (_replay_ms(g) for g in (g_draft, g_verify,
+                                                               g_accept))
+    sg = SpeculativeGraphs(params, dparams, cfg, dcfg, torch.device("cuda"), stats)
+    sg.burst(cache, dcache, slots, toks, k, 1)
+    ms_iter = _replay_ms(sg.buckets[(n, k)].graph)
+    dg = DecodeGraphs(params, cfg, torch.device("cuda"), stats)
+    dg.burst(cache, slots, toks, 1)
+    ms_dec = _replay_ms(dg.buckets[n].graph)
+    ratio = ms_iter / ms_dec
+    p_star = None
+    for p in np.linspace(0.0, 1.0, 100001):
+        if sum(p ** i for i in range(k)) >= ratio:
+            p_star = p
+            break
+    acc = (sum(p_star ** i for i in range(1, k + 1)) / k
+           if p_star is not None else None)
+    print(f"speculative iteration pieces (batch {n}, k {k}, int8 KV, lens 200-256; "
+          f"8B target, Llama-3.2-1B-shaped draft), device ms a replay: draft step "
+          f"{ms_draft:.3f} (x{k} = {k * ms_draft:.3f}), verify of {k} tokens "
+          f"{ms_verify:.3f}, acceptance {ms_accept:.3f}; whole iteration "
+          f"{ms_iter:.3f}; target decode step {ms_dec:.3f} (verify / decode "
+          f"{ms_verify / ms_dec:.3f})", flush=True)
+    print(f"break-even: an iteration must emit {ratio:.3f} tokens a row; "
+          + (f"per-token acceptance p = {p_star:.4f}, acceptance rate "
+             f"(spec_accepted / spec_proposed) {acc:.4f}" if p_star is not None
+             else f"more than k = {k}: no acceptance rate breaks even"), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32)
@@ -401,7 +576,9 @@ def main() -> int:
                          "pipeline (bursts of 8 with and without the "
                          "pipeline), chunk, train, int8 (wave + decode on "
                          "int8 weights), gemma3, fp8kv, int4kv (wave + decode "
-                         "on fp8 / int4 KV pages)")
+                         "on fp8 / int4 KV pages), sampling (the sampled "
+                         "mix's decode steps, the sampler alone), spec (a "
+                         "speculative iteration's pieces)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -427,7 +604,8 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         open(args.out, "w").close()
-    if phases & {"bf16", "pipeline", "chunk", "train", "fp8kv", "int4kv"}:
+    if phases & {"bf16", "pipeline", "chunk", "train", "fp8kv", "int4kv",
+                  "sampling", "spec"}:
         bf16_phases(cfg, phases, args, acts)
         torch.cuda.empty_cache()
     if "int8" in phases:
@@ -459,6 +637,10 @@ def bf16_phases(cfg, phases, args, acts) -> None:
             serve_phase(params, cfg, args.steps, acts, args.out, f"{kv} KV, ", kv)
     if "pipeline" in phases:
         pipeline_phase(params, cfg, acts, args.out)
+    if "sampling" in phases:
+        sampling_phase(params, cfg, args.steps, acts, args.out)
+    if "spec" in phases:
+        spec_phase(params, cfg)
 
     def chunk_engine():
         """4 prompts of 4000 tokens, advanced by 3 chunks of 512 (the

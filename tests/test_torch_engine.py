@@ -130,9 +130,10 @@ def test_eos_and_stop_end_generation(params):
 
 def test_unported_engine_options_raise(params):
     _, tp = params
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # a draft needs its config
         Engine(tp, TCFG, device="cpu", draft_params=tp)
     with pytest.raises(NotImplementedError):
         Engine(tp, TCFG, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        SamplingParams(temperature=0.7)
+    spec = Engine(tp, TCFG, device="cpu", draft_params=tp, draft_cfg=TCFG)
+    with pytest.raises(ValueError):  # per-request sampling with a draft
+        spec.submit([1, 2], 4, sampling=SamplingParams(temperature=0.7))

@@ -197,3 +197,78 @@ def test_recover_drops_and_recaptures(model):
     assert eng.stats.captures == 2 and eng.stats.recoveries == 1
     assert all(len(r.generated) == 12 for r in reqs)
     assert eng.sched.allocator.free_pages == 63
+
+
+def test_sampled_replay_matches_eager(model):
+    """A sampling engine's graph (per-row vectors, presence rows, the
+    engine's top-k) against eager steps from the same generator state:
+    tokens, logprobs, presence rows and the cache bit-equal over a 4-step
+    burst; each replay draws its noise eagerly, so the generators end in
+    the same state."""
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import EngineStats
+    from mfa_tpu_torch.serve.graphs import DecodeGraphs
+    from mfa_tpu_torch.serve.sampling import SamplingParams
+
+    cfg, ps = model
+    params = ps["bf16"]
+    cache, slots, tokens = _prefilled(cfg, params, "int8", _split_lens())
+    ref = _clone(cache)
+    sp = SamplingParams(top_k=50)
+    vecs = torch.tensor([[0.8, 0.0], [0.9, 1.0], [0.0, 0.0], [1.0, 1.3]],
+                        device="cuda")
+    pres = torch.zeros(2, cfg.vocab_size, dtype=torch.bool, device="cuda")
+    pres[1, tokens[1]] = True
+    pres_ref = pres.clone()
+    g = DecodeGraphs(params, cfg, torch.device("cuda"), EngineStats(), sp)
+    gen_g = torch.Generator(device="cuda").manual_seed(5)
+    gen_e = torch.Generator(device="cuda").manual_seed(5)
+    toks, lps = g.burst(cache, slots, tokens, 4, pres, vecs, gen_g)
+    _, etoks, elps = llama.decode_burst(params, cfg, ref, slots, tokens, 4, sp,
+                                        gen_e, pres_ref, vecs)
+    torch.cuda.synchronize()
+    assert g.stats.captures == 1 and list(g.buckets) == [(2, True, True)]
+    assert torch.equal(toks, etoks) and torch.equal(lps, elps)
+    assert torch.equal(pres, pres_ref)
+    assert torch.equal(gen_g.get_state(), gen_e.get_state())
+    _assert_same_state(cache, ref)
+
+
+def test_speculative_replay_matches_eager(model):
+    """A greedy speculative iteration (k 4: draft steps, verify, accept,
+    both caches' lengths) replayed from its graph twice against eager
+    iterations on clones: every output and both caches bit-equal, and the
+    replays' launch counts those of the eager iterations (paged_span one
+    per target layer)."""
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import EngineStats
+    from mfa_tpu_torch.serve.graphs import SpeculativeGraphs
+
+    cfg, ps = model
+    params = ps["bf16"]
+    draft_cfg = dataclasses.replace(cfg, n_layers=1)
+    draft = dict(params, layers=params["layers"][:1])
+    cache, slots, tokens = _prefilled(cfg, params, "int8", _split_lens())
+    dcache, _, _ = _prefilled(draft_cfg, draft, "int8", _split_lens())
+    ref, dref = _clone(cache), _clone(dcache)
+    g = SpeculativeGraphs(params, draft, cfg, draft_cfg, torch.device("cuda"),
+                          EngineStats())
+    g.burst(cache, dcache, slots, tokens, 4, 1)  # eager iteration + capture
+    *_, nxt = llama.speculative_iteration(params, draft, cfg, draft_cfg, ref,
+                                          dref, slots, tokens, 4)
+    tok = g.buckets[(2, 4)].tokens.clone()
+    assert torch.equal(tok, nxt)
+    _build.reset_launches()
+    want = llama.speculative_burst(params, draft, cfg, draft_cfg, ref, dref,
+                                   slots, nxt, 4, 2)
+    eager = collections.Counter(_build.launches)
+    _build.reset_launches()
+    got = g.burst(cache, dcache, slots, tok, 4, 2)
+    torch.cuda.synchronize()
+    assert collections.Counter(_build.launches) == eager
+    assert eager["paged_span"] == 2 * cfg.n_layers
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _assert_same_state(cache, ref)
+    _assert_same_state(dcache, dref)

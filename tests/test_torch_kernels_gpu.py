@@ -189,6 +189,11 @@ _GEMMA3_LENS = [300 + (1700 * i) // 9 for i in range(10)]  # 300-2000
     (8, 4, 64, 256, "int4", BF, 1, 1023, 0.0, _GEMMA3_LENS),
     (32, 8, 64, 128, "fp8", BF, 1, -1, 0.0, [8192]),
     (32, 8, 64, 128, "int4", BF, 1, -1, 0.0, [8192]),
+    # more than 8 q heads a kv head: the 16-row blocks (group 16, 32)
+    (32, 2, 64, 128, "int8", BF, 1, -1, 0.0, None),
+    (32, 2, 64, 128, None, BF, 1, 50, 0.0, None),
+    (32, 2, 16, 64, "fp8", HF, 0, -1, 15.0, None),
+    (32, 1, 64, 256, "int4", BF, 1, -1, 0.0, _GEMMA3_LENS),
 ])
 def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
                       softcap, lens):
@@ -278,6 +283,68 @@ def test_paged_kernel_ignores_rows_past_lens(dev, quant, page, d, window):
     _close(o, lse, ro, rl)
     assert torch.isfinite(lse[L > 0]).all()
     assert paged.split_plan(b, hkv, pps, page)[0] > 1
+
+
+@pytest.mark.parametrize("span,group,d,quant,pos_offset,window,softcap,lens", [
+    (2, 4, 128, "int8", 2, -1, 0.0, None),
+    (4, 4, 128, None, 4, 50, 0.0, None),
+    (3, 4, 64, "fp8", 0, -1, 0.0, None),
+    (8, 2, 128, "int4", 8, 20, 0.0, None),
+    (4, 8, 128, "int8", 4, -1, 30.0, None),    # 32 rows: two row blocks
+    (8, 4, 256, None, 0, 100, 0.0, None),      # 32 rows at d 256
+    (8, 4, 256, "int8", 8, -1, 0.0, None),
+    (4, 2, 64, "int4", 4, -1, 0.0, None),
+    (4, 4, 128, "int8", 4, -1, 0.0, _GEMMA3_LENS),  # split route + combine
+    (3, 8, 256, "fp8", 0, 1023, 0.0, _GEMMA3_LENS),
+])
+def test_paged_kernel_multiquery(dev, span, group, d, quant, pos_offset, window,
+                                 softcap, lens):
+    """Kernel 6 on q [b, q_span, hq, d] (launch name "paged_span") against
+    its plain version, rows and scales past each length poisoned (NaN,
+    0x7F fp8 codes), and with pos_offset 0 each span row against a q_span =
+    1 call at lens - (q_span - 1 - si)."""
+    from mfa_tpu_torch.kernels import _build, paged
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    hkv, page = 2, 64
+    hq = hkv * group
+    if lens is None:
+        lens = [300, span, page, 383 // page * page - 1, 195]
+    b, pps = len(lens), max(lens) // page + 1
+    P = b * pps + 1
+    q = _rn(gen, b, span, hq, d)
+    kf, vf = _rn(gen, hkv, P, page, d), _rn(gen, hkv, P, page, d)
+    kp, vp, ks, vs = _pages(kf, vf, quant)
+    clean = [None if t is None else t.clone() for t in (kp, vp, ks, vs)]
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    stale = torch.zeros(hkv, P, page, dtype=torch.bool, device=dev)
+    for i, n in enumerate(lens):
+        if n % page:
+            stale[:, int(table[i, n // page]), n % page:] = True
+    _poison(kp, ks, quant, stale)
+    _poison(vp, vs, quant, stale)
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(window_left=window, pos_offset=pos_offset, logit_softcap=softcap,
+              quant_dtype=quant)
+    splits = paged.split_plan(b, hkv, pps, page)[0]
+    _build.reset_launches()
+    o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks,
+                                   v_scales=vs, return_lse=True, **kw)
+    assert dict(_build.launches) == ({"paged_span": 1} if splits == 1
+                                     else {"paged_span": 1, "combine": 1})
+    assert o.shape == q.shape and lse.shape == (b, span, hq)
+    ro, rl = paged._paged_plain(q.float(), *clean, L, table, d ** -0.5, window,
+                                softcap, pos_offset, quant_dtype=quant)
+    _close(o, lse, ro, rl)
+    assert (o.float() - ro.float()).abs().mean() < 2e-3
+    if pos_offset == 0:
+        for si in range(span):
+            eff = (L - (span - 1 - si)).clamp(min=0)
+            o1, l1 = paged.paged_attention(q[:, si], kp, vp, eff, table,
+                                           k_scales=ks, v_scales=vs,
+                                           return_lse=True, **kw)
+            _close(o[:, si], lse[:, si], o1, l1)
 
 
 def test_paged_kernel_refuses_pages_off_8_rows(dev):

@@ -114,8 +114,9 @@ def test_flash_attn_with_kvcache_paged_matches_jax():
 def test_paged_rejects_what_is_not_ported():
     q, kp, vp, table, lens = _case(4)
     args = [torch.from_numpy(a) for a in (q, kp, vp, lens, table)]
-    with pytest.raises(NotImplementedError):
-        paged_attention(args[0][:, None], *args[1:])  # q_span > 1
+    span_q = torch.stack([args[0]] * 4, 1)  # q_span 4
+    with pytest.raises(ValueError):  # a window shorter than the span
+        paged_attention(span_q, *args[1:], pos_offset=4, window_left=3)
     with pytest.raises(NotImplementedError):
         paged_attention(*args, sink_tokens=4)
     with pytest.raises(ValueError):
