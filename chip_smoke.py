@@ -19,9 +19,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    256, groups 1, 2, 4 and 8, window and softcap, lengths 0, 1 and off the
    64-token tile, rows past a length NaN), paged decode, varlen (at d
    128 and 256; on equal lengths bit for bit equal to kernel 1, O and LSE)
-   and paged prefill; the five backward launches (fused, the dK/dV + dQ
-   split, the varlen split) within max |a - r| <= 2e-2 max |r| and mean |a -
-   r| <= 2e-2 mean |r| for each of dq, dk, dv, and fused against split; at
+   and paged prefill (also Gemma3-4B's chunk batch at head_dim 256 on
+   int8 pages, causal and window 1023, and on bf16, fp8 and int4 pages,
+   rows past each length poisoned); the five backward launches (fused,
+   the dK/dV + dQ split, the varlen split) within max |a - r| <= 2e-2 max
+   |r| and mean |a - r| <= 2e-2 mean |r| for each of dq, dk, dv, and fused
+   against split, also at Gemma3-4B's train shape (b4 hq8 hkv4 s2048
+   d256, causal and window (1023, 0); the split the same bits twice,
+   kernel 14 on 4 x 2048 bit-equal to 12 + 13, SDPA's backward with a band
+   mask beside them); at
    Gemma3-4B's head_dim 256, prefill (causal, window 1023 and none) and
    paged decode (int8 and bf16 pages, group 2, window 1023: 40 blocks, so
    the paged kernel splits each sequence and kernel 5's combine merges),
@@ -75,6 +81,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    the window) and 4 text prompts, 32 new tokens each: image prompts
    prefill through the tower and kernel 9, text prompts through kernels 2
    + 3 at d 256, every decode step through the paged kernel at d 256; then
+   the same Gemma3-4B weights (the tower freed) behind the chunked +
+   prefix engine with the 8B's chunked traffic on int8, then int4 and fp8
+   KV (kernel 8 at d 256, 34 launches a chunk batch), then three SGD
+   train steps of its 34 layers on 4 x 2049 tokens (kernel 11 at d 256,
+   34 launches a step); then
    Llama-3-8B again with int8 weights (init_params(quantize="int8")) and
    the traffic of the first engine: every projection through kernel 10.
    Before the train steps, the first engine's weights and traffic twice
@@ -95,7 +106,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    same loss and gradients, and a sampled engine step gives the same
    logits; then Gemma3-4B cut to 2 layers (one sliding,
    one global) with a 2-layer tower at 224 px: image-prompt prefill and
-   the next decode step's logits agree; then the 2-layer 8B with int8
+   the next decode step's logits agree, and so do a chunked 1200-token
+   text prompt's and a prefix hit's (int8 KV); then the 2-layer 8B with int8
    weights: prefill and decode logits agree, argmax equal.
 5. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
@@ -1229,7 +1241,8 @@ def varlen_kernels(records, rn):
 
 def paged_prefill_kernels(records, rn, gen):
     """Kernel 8 (paged prefill) against its plain version: the engine's
-    chunk batch (int8 pages) and the varlen paged route's shape (bf16)."""
+    chunk batch (int8 pages) and the varlen paged route's shape (bf16);
+    then Gemma3-4B's chunk batch at head_dim 256 (_paged_prefill_gemma3)."""
     import torch
 
     from mfa_tpu_torch.kernels import paged_prefill
@@ -1289,6 +1302,87 @@ def paged_prefill_kernels(records, rn, gen):
         if quant:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=by, library_ms=None)
+    return ok and _paged_prefill_gemma3(records, rn, gen)
+
+
+def _paged_prefill_gemma3(records, rn, gen):
+    """Kernel 8 at Gemma3-4B's chunk batch: 4 x 512 rows at q_start 1536
+    (the last chunk 500 rows), hq8 hkv4 d256, pages of 64, on int8 pages
+    causal and with the sliding layers' window 1023, and on bf16, fp8 and
+    int4 pages; rows past each length in a sequence's last page hold NaN
+    (16-bit pages) or NaN scales (and fp8 the NaN code 0x7F), and rows past
+    q_lens must come out O = 0, LSE = -inf. Held to the plain version on
+    the pages before the poisoning (max 2e-2, mean 2e-3, LSE within 1e-3
+    with the same -inf rows) and timed beside the bound (4 hq d flops per
+    visible pair)."""
+    import torch
+
+    from mfa_tpu_torch.kernels import paged, paged_prefill
+
+    hq, hkv, d, sq, page = 8, 4, 256, 512, 64
+    q_start, q_lens = [1536] * 4, [512, 512, 512, 500]
+    lens = [s_ + n for s_, n in zip(q_start, q_lens)]
+    b, pps = len(lens), max(lens) // page + 1
+    P = b * pps + 1
+    q = rn(b, sq, hq, d)
+    kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+    table = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+             ).reshape(b, pps).to(torch.int32)
+    L, QS, QL = (torch.tensor(x, dtype=torch.int32, device="cuda")
+                 for x in (lens, q_start, q_lens))
+    stale = torch.zeros(hkv, P, page, dtype=torch.bool, device="cuda")
+    for i, n in enumerate(lens):
+        if n % page:
+            stale[:, int(table[i, n // page]), n % page:] = True
+    dead = torch.arange(sq, device="cuda")[None] >= QL[:, None]  # [b, sq]
+    ok = True
+    for quant, wl in (("int8", -1), ("int8", 1023), (None, -1), ("fp8", -1),
+                      ("int4", -1)):
+        if quant is None:
+            kp, vp, ks, vs = kf.clone(), vf.clone(), None, None
+            clean = (kf, vf, None, None)
+            kp[stale], vp[stale] = float("nan"), float("nan")
+        else:
+            kp, vp, ks, vs = _kv_pages(kf, vf, quant)
+            clean = tuple(t.clone() for t in (kp, vp, ks, vs))
+            _poison_stale(kp, ks, quant, stale)
+            _poison_stale(vp, vs, quant, stale)
+
+        def run(lse=False, kp=kp, vp=vp, ks=ks, vs=vs, quant=quant, wl=wl):
+            return paged_prefill.paged_prefill_attention(
+                q, kp, vp, L, QS, table, q_lens=QL, k_scales=ks, v_scales=vs,
+                causal=True, window_left=wl, quant_dtype=quant, return_lse=lse)
+
+        o, lse = run(True)
+        ro, rl = paged_prefill._paged_prefill_plain(
+            q.float(), *clean, L, QS, QL, table, d ** -0.5, wl, 0, 0.0,
+            quant_dtype=quant)
+        fmt = quant or "bf16"
+        print(f"paged_prefill {fmt} pages, Gemma3-4B chunk batch: 4 x 512 rows at "
+              f"q_start {q_start}, q_lens {q_lens}, hq={hq} hkv={hkv} d={d} page={page}"
+              f"{f', window {wl}' if wl >= 0 else ''}; rows past lens: NaN "
+              f"{'values' if quant is None else 'scales'}"
+              f"{', 0x7F payload' if quant == 'fp8' else ''}", flush=True)
+        mx, good = _err(o, ro, what="O")
+        good = good and _lse_err(lse, rl, "")
+        zero = bool((o[dead] == 0).all()) and bool(torch.isneginf(lse.transpose(1, 2)[dead]).all())
+        print(f"  rows past q_lens: O = 0 and LSE = -inf {zero}", flush=True)
+        ok &= good and zero
+        rec = records[paged.launch_name("paged_prefill", quant)]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: paged_prefill._paged_prefill_plain(
+            q, *clean, L, QS, QL, table, d ** -0.5, wl, 0, 0.0, quant_dtype=quant),
+            iters=3)
+        kv_rows = sum(lens) * hkv
+        nbytes = 2 * kv_rows * _row_bytes(quant, d) + b * pps * 4 + 2 * b * sq * hq * d * 2
+        pairs = sum(_visible_pairs(n, n_k, s_, wl, 0)
+                    for s_, n, n_k in zip(q_start, q_lens, lens))
+        bound_ms, by = _bound(nbytes, 4 * hq * pairs * d)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a bound_ms "
+              f"{bound_ms:.4f} ({by}) bound share {bound_ms / ms:.3f}", flush=True)
+    del q, kf, vf, kp, vp, o, ro
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -1318,10 +1412,15 @@ def _bwd_close(got, ref, what):
 def backward_kernels(records, rn):
     """Kernels 11-14: the five backward launches against their plain
     version (fp32 on the same bf16 inputs, dO ~ N(0, 1)), fused against
-    split, and each launch timed alone. The bound counts 10 * hq * d flops
+    split, and each launch timed alone; at head_dim 128 and at Gemma3-4B's
+    train shape (b4 hq8 hkv4 s2048 d256, causal and with the sliding
+    layers' window (1023, 0)), where the split runs twice to the same bits
+    and kernel 14 on 4 x 2048 equal lengths gives kernels 12 + 13's bits.
+    The bound counts 10 * hq * d flops
     per visible pair for the whole backward (5 products), 8 for the dK/dV
     launch, 6 for the dQ launch; bytes read q, k, v, O (or delta), dO, LSE
-    once and write the launch's gradients once."""
+    once and write the launch's gradients once. SDPA's backward alone (a
+    boolean band mask for a window) is the library time."""
     import torch
     import torch.nn.functional as F
 
@@ -1334,7 +1433,11 @@ def backward_kernels(records, rn):
              ("d 64, causal", 2, 32, 8, 1024, 1024, 64, (-1, 0), False),
              ("sq 128 < sk 512, causal", 1, 32, 8, 128, 512, 128, (-1, 0), False),
              ("sq 300, sk 8, window (4, -1) causal: dead rows", 1, 32, 8, 300, 8,
-              128, (4, 0), False))
+              128, (4, 0), False),
+             ("Gemma3-4B train shape, causal", 4, 8, 4, 2048, 2048, 256, (-1, 0),
+              False),
+             ("Gemma3-4B train shape, window (1023, 0)", 4, 8, 4, 2048, 2048, 256,
+              (1023, 0), False))
     for tag, b, hq, hkv, sq, sk, d, (wl, wr), record in dense:
         scale = d ** -0.5
         q, k, v = rn(b, hq, sq, d), rn(b, hkv, sk, d), rn(b, hkv, sk, d)
@@ -1376,12 +1479,17 @@ def backward_kernels(records, rn):
                   "bwd_dq": _bound(2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)}
         lib = ""
         lib_ms = None
-        if (wl, wr) == (-1, 0) and sq == sk:
+        if wr == 0 and sq == sk:
             # SDPA's backward alone: autograd.grad over the retained graph of
-            # one SDPA call (is_causal, enable_gqa) at the same shape
+            # one SDPA call (is_causal, or a band mask; enable_gqa) at the
+            # same shape
             ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-            ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                                enable_gqa=True)
+            if wl < 0:
+                ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                    enable_gqa=True)
+            else:
+                ol = F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=_band_mask(sq, wl, dev), enable_gqa=True)
             lib_ms = _time_ms(lambda: torch.autograd.grad(
                 ol, (ql, kl, vl), do, retain_graph=True), iters=5)
             split_ms = ms["bwd_dkv"] + ms["bwd_dq"]
@@ -1389,6 +1497,11 @@ def backward_kernels(records, rn):
                    f"{ms['bwd_fused'] / lib_ms:.2f}x, split 12 + 13 / sdpa "
                    f"{split_ms / lib_ms:.2f}x")
             del ql, kl, vl, ol
+        if d == 256:  # the split's two launches give the same bits twice
+            same = all(torch.equal(a_, b_) for a_, b_ in zip(split, backward.flash_attention_bwd(
+                q, k, v, o, lse, do, fused=False, **kw)))
+            print(f"  split twice: the same bits {same}", flush=True)
+            ok &= same
         print(f"  fused ms {ms['bwd_fused']:.4f} split ms {ms['bwd_dkv']:.4f} + "
               f"{ms['bwd_dq']:.4f} = {ms['bwd_dkv'] + ms['bwd_dq']:.4f} plain_ms "
               f"{plain_ms:.4f} bound_ms {bounds['bwd_fused'][0]:.4f} "
@@ -1457,7 +1570,72 @@ def backward_kernels(records, rn):
             records["varlen_bwd_dq"].update(ms=ms_q, plain_ms=plain_ms,
                                             bound_ms=b_q[0], bound_by=b_q[1],
                                             library_ms=None)
-    return ok
+    return ok and _varlen_bwd_gemma3(records, rn)
+
+
+def _band_mask(s, wl, dev):
+    """[s, s] bool: row r sees columns r - wl .. r (SDPA's mask for a
+    causal window)."""
+    import torch
+
+    r = torch.arange(s, device=dev)
+    return (r[None] <= r[:, None]) & (r[None] >= r[:, None] - wl)
+
+
+def _varlen_bwd_gemma3(records, rn):
+    """Kernel 14 at Gemma3-4B's heads on 4 x 2048 equal lengths with the
+    sliding window (1023, 0): within _bwd_close of the plain version, and
+    bit for bit kernels 12 + 13 on the same data batched; timed beside its
+    bound."""
+    import torch
+
+    from mfa_tpu_torch.kernels import backward, varlen
+
+    n, s, hq, hkv, d, wl = 4, 2048, 8, 4, 256, 1023
+    scale = d ** -0.5
+    q, do = rn(n * s, hq, d), rn(n * s, hq, d)
+    k, v = rn(n * s, hkv, d), rn(n * s, hkv, d)
+    cu = torch.arange(0, n * s + 1, s, device="cuda", dtype=torch.int32)
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, s, s, window_size=(wl, 0),
+                                     return_lse=True)
+    got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu, cu,
+                                        window_size=(wl, 0))
+    ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), cu, cu, scale, wl, 0, 0.0)
+    print(f"varlen backward Gemma3-4B heads: {n} x {s} equal lengths, window ({wl}, 0), "
+          f"hq={hq} hkv={hkv} d={d} bf16", flush=True)
+    e_q, g1 = _bwd_close(got[:1] + (None, None), ref, "varlen dq")
+    e_kv, g2 = _bwd_close((None,) + got[1:], ref, "varlen dkv")
+
+    def batched(t):  # [n * s, h, d] -> [n, h, s, d]
+        return t.view(n, s, t.shape[1], d).transpose(1, 2).contiguous()
+
+    args = backward._varlen_cuda_inputs(q, k, v, o, lse, do, cu, cu)
+    rows = tuple(t.view(t.shape[0], n, s).transpose(0, 1).contiguous() for t in args[4:])
+    dense = tuple(batched(t) for t in args[:4]) + rows + (scale, wl, 0, 0.0)
+    dk1, dv1 = backward._launch_dkv(*dense)
+    dq1 = backward._launch_dq(*dense)
+    same = torch.equal(batched(got[0]), dq1) and torch.equal(batched(got[1]), dk1) \
+        and torch.equal(batched(got[2]), dv1)
+    print(f"  kernel 14 bit for bit kernels 12 + 13 on the batched data: {same}",
+          flush=True)
+    for name, e in (("varlen_bwd_dq", e_q), ("varlen_bwd_dkv", e_kv)):
+        records[name]["max_abs_err"] = max(records[name].get("max_abs_err", 0.0), e)
+    tail = (cu, cu, s, scale, wl, 0, 0.0)
+    ms_kv = _time_ms(lambda: backward._launch_varlen_dkv(*args, *tail), iters=5)
+    ms_q = _time_ms(lambda: backward._launch_varlen_dq(*args, *tail), iters=5)
+    plain_ms = _time_ms(lambda: backward._varlen_bwd_plain(
+        q, k, v, o, lse, do, cu, cu, scale, wl, 0, 0.0), iters=2)
+    pairs = n * hq * _visible_pairs(s, s, 0, wl, 0)
+    qb, kb, row_b = n * s * hq * d * 2, n * s * hkv * d * 2, n * s * hq * 4
+    b_kv = _bound(2 * qb + 2 * kb + 2 * row_b + 2 * kb, 8 * pairs * d)
+    b_q = _bound(2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)
+    print(f"  dkv ms {ms_kv:.4f} (bound {b_kv[0]:.4f}, {b_kv[1]}) + dq ms {ms_q:.4f} "
+          f"(bound {b_q[0]:.4f}, {b_q[1]}) plain_ms {plain_ms:.4f} library_ms n/a",
+          flush=True)
+    del q, k, v, do, o, got, ref, args, dense
+    torch.cuda.empty_cache()
+    return g1 and g2 and same
 
 
 def library_surface(counts):
@@ -1977,14 +2155,16 @@ def _verify_vs_decode(params, cfg):
     return ok
 
 
-def chunked_engine_phase(counts, ident, state, quant="int8"):
+def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
     """Main path, part 3: the same weights behind an engine with chunked
     prefill (chunks of 512) and the prefix cache, on `quant` KV pages
     (int8, and once more each on int4 and fp8). (a) 4 long prompts take
     the chunked path; (b) a request with a 1024-token system prompt runs
     until its prefill completes, then 8 more with the same system prompt
     hit its 16 cached pages and prefill only their suffix; (c) 4 short
-    prompts take whole-prompt prefill (kernels 2 + 3)."""
+    prompts take whole-prompt prefill (kernels 2 + 3). The 8B's, and with
+    model "Gemma3-4B" the same traffic on Gemma3-4B's text stack (kernel 8
+    at head_dim 256 on its sliding and global layers)."""
     import numpy as np
     import torch
 
@@ -2033,17 +2213,18 @@ def chunked_engine_phase(counts, ident, state, quant="int8"):
     ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches)
     ok &= got.get(k6, 0) == cfg.n_layers * stats.steps
     step_tokens = stats.decode_tokens - len(reqs)  # first tokens come from prefill
-    print(f"chunked engine ({quant} KV) launches {got}: {k8} = {cfg.n_layers} "
+    tag = f"chunked engine {model} ({quant} KV)"
+    print(f"{tag} launches {got}: {k8} = {cfg.n_layers} "
           f"layers x {stats.chunk_batches} chunk batches, flagged = repair = "
           f"{cfg.n_layers} x {stats.prefill_batches} waves, {k6} = "
           f"{cfg.n_layers} x {stats.steps} decode steps", flush=True)
-    print(f"chunked engine ({quant} KV): {len(reqs)} requests finished with {gen_tokens} "
+    print(f"{tag}: {len(reqs)} requests finished with {gen_tokens} "
           f"tokens: {all(len(r.generated) == gen_tokens for r in reqs)}; "
           f"system prompt done after {steps_to_first} steps; prefilled "
           f"{stats.prefill_tokens} of {prompt_tokens} prompt tokens (<= "
           f"{prompt_tokens - 8 * 1024}); free pages {eng.sched.allocator.free_pages}"
           f" + {retained} held by the prefix cache of {free0}", flush=True)
-    print(f"chunked engine ({quant} KV): prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
+    print(f"{tag}: prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
           f"tok/s ({stats.prefill_tokens} tokens in {stats.prefill_s:.3f} s, "
           f"{stats.chunk_batches} chunk batches + {stats.prefill_batches} "
           f"whole waves), decode {_decode_rates(stats, step_tokens)}, "
@@ -2055,14 +2236,17 @@ def chunked_engine_phase(counts, ident, state, quant="int8"):
     return ok
 
 
-def train_phase(counts, ident, state):
+def train_phase(counts, ident, state, model="Llama-3-8B"):
     """Main path, part 4: three SGD train steps of the full Llama-3-8B
     (32 layers, the engines' random bf16 weights, their KV pools freed) on
     4 x 2049 tokens from numpy.random.RandomState(SEED) (benchmark/train.py's
     batch and sequence), remat on. Each layer's attention runs kernels 2 + 3
     in the forward and again in the remat recompute, and the fused backward
     kernel. SGD, not AdamW: AdamW's two moments would add 32-64 GB to the
-    16 GB of weights and 16 GB of gradients on an 80 GB card."""
+    16 GB of weights and 16 GB of gradients on an 80 GB card. With model
+    "Gemma3-4B", the same on the full Gemma3-4B text stack (34 layers,
+    head_dim 256; its sliding layers' backward cuts the band at 1024
+    columns): the fused kernel at d 256, 34 launches a step."""
     import numpy as np
     import torch
 
@@ -2102,20 +2286,20 @@ def train_phase(counts, ident, state):
     ok &= all(changed.values())
     n_mat = sum(p.numel() for p in llama.param_tensors(params) if p.dim() == 2) \
         - params["embed"].numel()
-    pairs = b * s * (s + 1) // 2
-    model_flops = 6 * n_mat * b * s + 12 * cfg.n_layers * cfg.n_heads * \
-        cfg.head_dim * pairs
+    # each layer's own visible pairs: a sliding layer sees at most its window
+    pairs = sum(b * _visible_pairs(s, s, 0, wl, 0) for wl, _ in llama._layer_plan(cfg))
+    model_flops = 6 * n_mat * b * s + 12 * cfg.n_heads * cfg.head_dim * pairs
     step_s = sum(times[1:]) / 2
-    print(f"train: Llama-3-8B, {cfg.n_layers} layers, b {b} x {s} tokens, remat, "
+    print(f"train: {model}, {cfg.n_layers} layers, b {b} x {s} tokens, remat, "
           f"SGD lr {lr}: losses {losses} (falling: {losses[2] < losses[0]}), "
           f"weights changed {changed}", flush=True)
     print(f"train: step {step_s * 1e3:.1f} ms (mean of steps 2-3; step 1 "
           f"{times[0] * 1e3:.1f} ms), {b * s / step_s:.1f} train tokens/s, peak "
           f"memory {peak_gb:.2f} GB; model-FLOPs share {model_flops / step_s / PEAK_BF16_FLOPS:.4f} "
-          f"= (6 N T + 12 L hq d P) / step time / 989 TFLOP/s with N = {n_mat} "
+          f"= (6 N T + 12 hq d P) / step time / 989 TFLOP/s with N = {n_mat} "
           f"weights in matmuls (layers + lm_head, not the embedding table), T = "
-          f"{b * s} tokens, P = {pairs} causal pairs, remat recompute not "
-          f"counted [{ident}]", flush=True)
+          f"{b * s} tokens, P = {pairs} visible pairs summed over the "
+          f"{cfg.n_layers} layers, remat recompute not counted [{ident}]", flush=True)
     for p in llama.param_tensors(params):
         p.grad = None
     del params, before
@@ -2146,14 +2330,15 @@ def _gemma3_prompts(rng, n_img_short=4, n_img_long=2, n_text=4):
     return prompts, n_images, texts
 
 
-def engine_gemma3_phase(counts, ident):
+def engine_gemma3_phase(counts, ident, state):
     """Main path, part 5: Gemma3-4B multimodal serving at full width and
     depth (the 8B weights are freed by then): 34 text layers and the
     27-layer tower, random bf16 weights from SEED, int8 paged KV with
     64-token pages, 6 image prompts (7 random 896 x 896 images) and 4 text
     prompts of 300-1800 tokens, 32 new tokens each. Launches: kernel 9 34
     per image wave, kernels 2 + 3 34 each per text wave, the paged kernel 34 per
-    decode step."""
+    decode step. The text weights stay in `state` for the Gemma3 chunked
+    engines and train steps."""
     import numpy as np
     import torch
 
@@ -2226,7 +2411,8 @@ def engine_gemma3_phase(counts, ident):
           f"prefill {text_tok / text_s:.1f} tok/s ({text_tok} tokens in "
           f"{text_s:.3f} s), decode {_decode_rates(stats, step_tokens)}, "
           f"peak memory {peak_gb:.2f} GB [{ident}]", flush=True)
-    del eng, params, vparams, every
+    del eng, vparams, every
+    state.update(params=params, cfg=cfg)
     torch.cuda.empty_cache()
     return ok
 
@@ -2236,7 +2422,10 @@ def cpu_vs_cuda_gemma3_phase():
     Gemma3-4B widths and a 2-layer tower at 224 px (16 x 16 patches, 256
     soft tokens), kernels on the card vs plain versions on the CPU, same
     weights: a wave of two image prompts (one run after 1100 text tokens,
-    past the window) and the next decode step."""
+    past the window) and the next decode step; then chunked prefill on
+    int8 KV (kernel 8 at d 256): a 1200-token text prompt in chunks of 512,
+    its last chunk past the sliding window, and a prefix hit on its first
+    16 pages prefilling a 100-token suffix."""
     import numpy as np
     import torch
 
@@ -2262,6 +2451,10 @@ def cpu_vs_cuda_gemma3_phase():
     needs = [-(-len(p) // 64) + 1 for p in prompts]
     pages = [list(range(1 + sum(needs[:i]), 1 + sum(needs[:i + 1])))
              for i in range(len(needs))]
+    long = [int(t) for t in rng.randint(0, IMAGE_TOKEN, 1200)]
+    hit = long[:1024] + [int(t) for t in rng.randint(0, IMAGE_TOKEN, 100)]
+    pages0 = list(range(1, 20))
+    pages1 = pages0[:16] + [20, 21]  # the hit shares the first 16 pages
     out = {}
     for dev, params, vparams in (("cuda", p_gpu, v_gpu),
                                  ("cpu", to_cpu(p_gpu), to_cpu(v_gpu))):
@@ -2273,9 +2466,17 @@ def cpu_vs_cuda_gemma3_phase():
         toks = out["toks"] if "toks" in out else lg1.argmax(-1).cpu()
         out["toks"] = toks
         cache, lg2 = llama.decode_step(params, cfg, cache, [0, 1], toks)
-        out[dev] = tuple(x.float().cpu() for x in (lg1, lg2))
+        cc = llama.build_kv_caches(cfg, 22, 64, 2, 19, "int8", device=dev)
+        for off in (0, 512, 1024):
+            cc, lg3 = llama.prefill_chunk_batch(params, cfg, cc, [0], [pages0],
+                                                [long[off:off + 512]], [off], [1200], 512)
+        cc, lg4 = llama.prefill_chunk_batch(params, cfg, cc, [1], [pages1], [hit[1024:]],
+                                            [1024], [1124], 512)
+        out[dev] = tuple(x.float().cpu() for x in (lg1, lg2, lg3, lg4))
     ok = True
-    for i, name in enumerate(("image prefill_batch", "decode_step")):
+    for i, name in enumerate(("image prefill_batch", "decode_step",
+                              "prefill_chunk_batch, 3rd chunk of 1200 (int8 KV)",
+                              "prefix-hit suffix chunk (int8 KV)")):
         a, r = out["cuda"][i], out["cpu"][i]
         d = (a - r).abs()
         tol_max, tol_mean = 0.25, 0.02  # as for the 8B model above
@@ -2642,7 +2843,18 @@ def main() -> int:
                       lambda: speculative_engine_phase(counts, ident, state)),
                      ("train_8b", lambda: train_phase(counts, ident, state)),
                      ("engine_gemma3_4b_vision",
-                      lambda: engine_gemma3_phase(counts, ident)),
+                      lambda: engine_gemma3_phase(counts, ident, state)),
+                     ("chunked_prefix_engine_gemma3_4b",
+                      lambda: chunked_engine_phase(counts, ident, state, "int8",
+                                                   "Gemma3-4B")),
+                     ("chunked_prefix_engine_gemma3_4b_int4",
+                      lambda: chunked_engine_phase(counts, ident, state, "int4",
+                                                   "Gemma3-4B")),
+                     ("chunked_prefix_engine_gemma3_4b_fp8",
+                      lambda: chunked_engine_phase(counts, ident, state, "fp8",
+                                                   "Gemma3-4B")),
+                     ("train_gemma3_4b",
+                      lambda: train_phase(counts, ident, state, "Gemma3-4B")),
                      ("engine_8b_int8w", lambda: engine_int8w_phase(counts, ident)),
                      ("cuda_vs_cpu", cpu_vs_cuda_phase),
                      ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),

@@ -4,7 +4,8 @@
 //
 //  * mfa_bwd_fused (kernel 11) replaces
 //    mfa_tpu/kernels/backward.py:_fused_bwd_kernel (fb90::bwd_kernel<T, D,
-//    true>). One block per (kv head, batch, 128-key tile) computes dK and
+//    true>). One block per (kv head, batch, 128-key tile; 64 keys at head
+//    dim 256, flash_bwd_sm90.cuh's Plan::SPLIT) computes dK and
 //    dV for its keys and adds dQ into a zeroed fp32 workspace [b, hq, sq,
 //    d] with bulk TMA reductions; the wrapper casts it to q's dtype. One
 //    pass computes all three gradients (5 products per tile), as the TPU
@@ -42,8 +43,10 @@
 #define MFA_BWD_DISPATCH(CALL)                                        \
   if (dtype == MFA_BF16 && d == 64) return CALL(__nv_bfloat16, 64);   \
   if (dtype == MFA_BF16 && d == 128) return CALL(__nv_bfloat16, 128); \
+  if (dtype == MFA_BF16 && d == 256) return CALL(__nv_bfloat16, 256); \
   if (dtype == MFA_F16 && d == 64) return CALL(__half, 64);           \
   if (dtype == MFA_F16 && d == 128) return CALL(__half, 128);         \
+  if (dtype == MFA_F16 && d == 256) return CALL(__half, 256);         \
   return MFA_BAD_CONFIG
 
 namespace {

@@ -70,6 +70,24 @@
 //    element by element; P = 0 is set explicitly there. Rows past sq read
 //    as zeros (the tensor map's bound) or, packed, as the next sequence's
 //    rows, with LSE +inf, so they add nothing.
+//  - D 256 (Plan::SPLIT): 64 keys' dK and dV at 256 columns would be 256
+//    fp32 registers a thread, and K, V and three Q/dO slots 320 KB. So a
+//    block owns 64 keys, K and V take 64 KB, the ring 2 slots (128 KB),
+//    and both consumers compute the same S^T and dP^T over all 256
+//    columns, each then owning 128 columns of dK and dV (128 registers).
+//    The duplicated S^T and dP^T cost 1.5x the minimal products; the
+//    alternative, one consumer forming P^T and the other dP^T and trading
+//    them through shared memory, serialises the two behind two barriers a
+//    tile. The sums stay in a fixed order (deterministic dK and dV). With
+//    the dQ step each consumer stores half of the (identical) dS^T, takes
+//    dQ's columns [128 w, + 128) over the 64 keys once both consumers'
+//    dK/dV products have retired (one barrier; with dQ's product issued
+//    beside them their register operands and dQ's 64 accumulators spilled),
+//    and writes them as fp32 into the tile's own Q or dO slot (64 rows x
+//    256 fp32 = both slots' 64 KB; a separate tile would not fit beside two
+//    slots); the slot is released when the reductions have read it,
+//    checked during the next tile's S^T and dP^T products, so that the
+//    wait for their read overlaps those products.
 // dq_kernel is the forward's block shape with the backward's products:
 //  - 384 threads own 128 q rows of one q head: Q and dO of those rows are
 //    loaded once by TMA and stay in shared memory; the band's key tiles of
@@ -89,7 +107,10 @@
 //    train shape (PERF.md §6).
 //  - BN = 64 keys a tile (S, dP and dQ are 32 + 32 + D / 2 fp32 registers
 //    a thread). 128 keys do not fit 240 registers at D 128 and spill at D
-//    64; Q and dO as register A operands of S and dP spill at D 128.
+//    64; Q and dO as register A operands of S and dP spill at D 128. At D
+//    256, Q and dO of 128 rows take 128 KB and a ring of 64-key tiles
+//    would take 128 KB more: the tiles hold 32 keys (S and dP are m64n32
+//    wgmmas, dQ two 16-key steps).
 //  - The forward's band walk (fa90::span_of per warpgroup, the block
 //    loads the union) and its needs_mask rule; blocks launch longest
 //    causal tiles first. dQ stays in registers and is stored once, rows <
@@ -102,8 +123,7 @@
 
 namespace fb90 {
 
-constexpr int BN = 128;       // keys a block
-constexpr int WG_N = 64;      // keys a consumer warpgroup
+constexpr int WG_N = 64;      // keys of a consumer warpgroup's S^T rows
 constexpr int BM = 64;        // q rows a ring slot
 constexpr int THREADS = 384;  // producer warpgroup + two consumers
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
@@ -121,18 +141,27 @@ struct Args {
   int total_q = 0;
 };
 
+// The block's shape (SPLIT at D 256, below): BN keys a block; each
+// consumer computes S^T and dP^T for WG_N of them and owns COLS columns of
+// their dK and dV.
 // Shared memory (every tile 1024-byte aligned, 128-byte swizzled rows):
 // K, V [D/64][BN][64]; STAGES Q and dO slots [D/64][BM][64] (2 with the dQ
-// step, 3 without); with the dQ step two dS^T buffers [BN][BM] and the
-// fp32 dQ tile [D/32][BM][32]; per slot the log2 LSE and delta of its BM
-// rows; the barriers (kv, full[STAGES], empty[STAGES]).
+// step or at D 256, 3 otherwise); with the dQ step two dS^T buffers
+// [BN][BM] and, below D 256, the fp32 dQ tile [D/32][BM][32]; per slot the
+// log2 LSE and delta of its BM rows; the barriers (kv, full[STAGES],
+// empty[STAGES]).
 template <int D, bool DQ>
 struct Plan {
-  static constexpr int STAGES = DQ ? 2 : 3;
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int BN = SPLIT ? 64 : 128;
+  static constexpr int COLS = SPLIT ? D / 2 : D;
+  static constexpr int STAGES = DQ || SPLIT ? 2 : 3;
   static constexpr uint32_t KV_BYTES = BN * D * 2;
   static constexpr uint32_t Q_BYTES = BM * D * 2;
   static constexpr uint32_t DS_BYTES = DQ ? BN * BM * 2 : 0;
-  static constexpr uint32_t DQ_BYTES = DQ ? BM * D * 4 : 0;
+  // SPLIT: the dQ tile takes its Q and dO slot once the tile's products
+  // have read it (Q_BYTES * 2 == BM * D * 4)
+  static constexpr uint32_t DQ_BYTES = DQ && !SPLIT ? BM * D * 4 : 0;
   static constexpr uint32_t k_off = 0;
   static constexpr uint32_t v_off = KV_BYTES;
   static constexpr uint32_t q_off = 2 * KV_BYTES;
@@ -176,7 +205,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                const Args args) {
   static_assert(!(DQ && PACKED), "the packed layout runs the split's dK/dV launch");
   using P = Plan<D, DQ>;
-  constexpr int STAGES = P::STAGES;
+  constexpr int STAGES = P::STAGES, BN = P::BN, COLS = P::COLS;
+  constexpr bool SPLIT = P::SPLIT;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int kv0 = blockIdx.z * BN;
   Args a = args;
@@ -267,26 +297,32 @@ __global__ void __launch_bounds__(THREADS, 1)
     regs_inc<CONSUMER_REGS>();
     const int w = wg - 1, wtid = threadIdx.x & 127;
     const int lane = wtid & 31, g = lane >> 2, t4 = lane & 3, wi = wtid >> 5;
-    const int key_lo = kv0 + w * WG_N;     // this warpgroup's first key
+    // the keys of this warpgroup's S^T rows (SPLIT: the block's 64, shared
+    // by both) and the dK/dV columns it owns: [col0, col0 + COLS)
+    const int key_off = SPLIT ? 0 : w * WG_N;
+    const int key_lo = kv0 + key_off;
     const int r0 = key_lo + wi * 16 + g;   // this thread's keys: r0 and r0 + 8
-    const uint32_t k_w = base + P::k_off + w * (WG_N * 128);  // its rows of each K chunk
-    const uint32_t v_w = base + P::v_off + w * (WG_N * 128);
+    const int col0 = SPLIT ? w * COLS : 0;
+    const uint32_t k_w = base + P::k_off + key_off * 128;  // its rows of each K chunk
+    const uint32_t v_w = base + P::v_off + key_off * 128;
     // its half of dQ's columns: B = K from column dq_col0 on
     constexpr int DQ_N = D / 2;
     const int dq_col0 = w * DQ_N;
     const uint32_t k_dq = base + P::k_off + (dq_col0 / 64) * (BN * 128) + (dq_col0 % 64) * 2;
     const uint32_t dq_s = base + P::dq_off;
     const bool issuer = wg == 1 && wtid == 0;  // issues the dQ reductions
+    int pending = -1;  // SPLIT dQ: the slot whose reductions may still read it
 
-    float dka[D / 2], dva[D / 2];
+    float dka[COLS / 2], dva[COLS / 2];
 #pragma unroll
-    for (int x = 0; x < D / 2; ++x) dka[x] = dva[x] = 0.f;
+    for (int x = 0; x < COLS / 2; ++x) dka[x] = dva[x] = 0.f;
 
     mbar_wait(bar_kv(bars), 0);
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % STAGES, hi = i / per_head, q0 = (q_first + i % per_head) * BM;
       const int h = h0 + hi;
-      const bool live0 = sees(kv0, q0, a), live1 = sees(kv0 + WG_N, q0, a);
+      const bool live0 = sees(kv0, q0, a);
+      const bool live1 = SPLIT ? live0 : sees(kv0 + WG_N, q0, a);
       const uint32_t q_s = base + P::q_off + s * P::Q_BYTES;
       const uint32_t do_s = base + P::do_off + s * P::Q_BYTES;
       const uint32_t ds_s = base + P::ds_off + (i & 1) * P::DS_BYTES;
@@ -309,6 +345,14 @@ __global__ void __launch_bounds__(THREADS, 1)
           wgmma_ss<T, BM>(dp, sw128_desc(v_w + ko, 0), sw128_desc(do_s + qo, 0), kk > 0);
         }
         wg_commit();
+        if constexpr (DQ && SPLIT) {
+          // the last tile's dQ reductions have read its slot: release it
+          if (pending >= 0) {
+            bulk_wait_read();
+            mbar_arrive(bar_empty<STAGES>(bars, pending));
+            pending = -1;
+          }
+        }
         wg_wait_all();
         fence_regs(st);
         fence_regs(dp);
@@ -355,15 +399,16 @@ __global__ void __launch_bounds__(THREADS, 1)
             da[kc][x] = pack2<T>(dp[8 * kc + 2 * x], dp[8 * kc + 2 * x + 1]);
           }
         }
-        if constexpr (DQ) {
+        // SPLIT: both consumers hold the same dS^T; each stores its half
+        if (DQ && (!SPLIT || (wi >> 1) == w)) {
           // dS^T into the swizzled [BN keys][BM rows] buffer: the pair
-          // da[kc][x] is key row 64 w + 16 wi + g + 8 (x & 1), 16-byte unit
-          // 2 kc + x / 2
+          // da[kc][x] is key row key_off + 16 wi + g + 8 (x & 1), 16-byte
+          // unit 2 kc + x / 2
 #pragma unroll
           for (int kc = 0; kc < BM / 16; ++kc) {
 #pragma unroll
             for (int x = 0; x < 4; ++x) {
-              const int row = w * WG_N + wi * 16 + g + 8 * (x & 1);
+              const int row = key_off + wi * 16 + g + 8 * (x & 1);
               const int unit = (2 * kc + (x >> 1)) ^ g;
               asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(ds_s + row * 128 + unit * 16 +
                                                               4 * t4),
@@ -374,20 +419,78 @@ __global__ void __launch_bounds__(THREADS, 1)
           fence_async_smem();
         }
 
-        // dV += P^T dO and dK += dS^T Q: 16 q rows a step (2048 bytes of a chunk)
+        // dV += P^T dO and dK += dS^T Q over columns [col0, col0 + COLS):
+        // 16 q rows a step (2048 bytes of a chunk)
+        const uint32_t cb = (col0 / 64) * (BM * 128);
         fence_regs(dva);
         fence_regs(dka);
         wg_fence();
 #pragma unroll
         for (int kc = 0; kc < BM / 16; ++kc)
-          wgmma_rs<T, D>(dva, pa[kc], sw128_desc(do_s + kc * 2048, BM * 128), 1);
+          wgmma_rs<T, COLS>(dva, pa[kc], sw128_desc(do_s + cb + kc * 2048, BM * 128), 1);
 #pragma unroll
         for (int kc = 0; kc < BM / 16; ++kc)
-          wgmma_rs<T, D>(dka, da[kc], sw128_desc(q_s + kc * 2048, BM * 128), 1);
+          wgmma_rs<T, COLS>(dka, da[kc], sw128_desc(q_s + cb + kc * 2048, BM * 128), 1);
         wg_commit();
+      } else if constexpr (DQ && SPLIT) {
+        if (pending >= 0) {
+          bulk_wait_read();
+          mbar_arrive(bar_empty<STAGES>(bars, pending));
+          pending = -1;
+        }
       }
 
-      if constexpr (DQ) {
+      if constexpr (DQ && SPLIT) {
+        // Both consumers own the same 64 keys: each takes dQ's columns
+        // [dq_col0, + D/2) = dS K over them (64 accumulators beside dK
+        // and dV's 128, once the dK/dV products' register operands are
+        // free) and writes them as fp32 into the tile's own Q (w 0) or dO
+        // (w 1) slot: one barrier after both consumers' dK/dV products
+        // have retired proves both halves of dS^T written and the slot
+        // read.
+        wg_wait_all();
+        fence_regs(dka);
+        fence_regs(dva);
+        named_sync(1, 2 * 128);
+        if (live0) {
+          const uint32_t half = w == 0 ? q_s : do_s;
+          float dq[DQ_N / 2];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk)
+            wgmma_ss_t<T, DQ_N, 1, 1>(dq, sw128_desc(ds_s + kk * 2048, BN * 128),
+                                      sw128_desc(k_dq + kk * 2048, BN * 128), kk > 0);
+          wg_commit();
+          wg_wait_all();
+          fence_regs(dq);
+          // 32-column chunks of 128-byte rows, 16-byte unit u of row r at
+          // unit u ^ (r % 8); chunk c of this half at c * BM * 128
+#pragma unroll
+          for (int j = 0; j < DQ_N / 8; ++j) {
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int r = wi * 16 + g + 8 * x, col = 8 * j + 2 * t4;
+              const uint32_t at = half + (col >> 5) * (BM * 128) + r * 128 +
+                                  ((((col & 31) >> 2) ^ g) << 4) + (col & 3) * 4;
+              asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at),
+                           "f"(dq[4 * j + 2 * x]), "f"(dq[4 * j + 2 * x + 1])
+                           : "memory");
+            }
+          }
+          fence_async_smem();
+        }
+        named_sync(2, 2 * 128);  // both halves of the dQ tile are written
+        if (issuer && live0) {
+#pragma unroll
+          for (int ch = 0; ch < D / 32; ++ch)
+            tma_reduce_add_3d(&tdq, (ch < D / 64 ? q_s : do_s) + (ch % (D / 64)) * (BM * 128),
+                              ch * 32, q0, b * a.hq + h);
+          bulk_commit();
+          pending = s;  // released once the reductions have read the slot
+        } else {
+          mbar_arrive(bar_empty<STAGES>(bars, s));
+        }
+      } else if constexpr (DQ) {
         // the previous tile's dQ reductions have read the dQ tile
         if (issuer) bulk_wait_read();
         named_sync(1, 2 * 128);  // both halves of dS^T are in shared memory
@@ -449,7 +552,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (issuer) bulk_wait();
     }
 
-    // dK and dV of this warpgroup's keys < sk
+    // dK and dV of this warpgroup's keys < sk, columns [col0, col0 + COLS)
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int key = r0 + 8 * x;
@@ -457,9 +560,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const size_t o = (PACKED ? (size_t)(k_row0 + key) * a.hkv + hk
                                  : (size_t)(b * a.hkv + hk) * a.sk + key) *
                              D +
-                         2 * t4;
+                         col0 + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < COLS / 8; ++j) {
           *reinterpret_cast<uint32_t*>(dk + o + 8 * j) =
               pack2<T>(dka[4 * j + 2 * x], dka[4 * j + 2 * x + 1]);
           *reinterpret_cast<uint32_t*>(dv + o + 8 * j) =
@@ -481,8 +584,8 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
   CUtensorMap tq, tk, tv, tdo, tdq = {};
   if (int err = mfa_tensor_map_3d(&tq, q, BF, D, a.sq, batch * a.hq, BM)) return err;
   if (int err = mfa_tensor_map_3d(&tdo, dO, BF, D, a.sq, batch * a.hq, BM)) return err;
-  if (int err = mfa_tensor_map_3d(&tk, k, BF, D, a.sk, batch * a.hkv, BN)) return err;
-  if (int err = mfa_tensor_map_3d(&tv, v, BF, D, a.sk, batch * a.hkv, BN)) return err;
+  if (int err = mfa_tensor_map_3d(&tk, k, BF, D, a.sk, batch * a.hkv, P::BN)) return err;
+  if (int err = mfa_tensor_map_3d(&tv, v, BF, D, a.sk, batch * a.hkv, P::BN)) return err;
   // the fp32 workspace [b * hq, sq, D] in boxes of 32 columns x BM rows
   if (DQ) {
     if (int err = mfa_encode_3d(&tdq, dq_ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, D, a.sq,
@@ -493,7 +596,7 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)P::bytes))
     return err;
-  const dim3 grid(a.hkv, batch, (a.sk + BN - 1) / BN);
+  const dim3 grid(a.hkv, batch, (a.sk + P::BN - 1) / P::BN);
   kern<<<grid, THREADS, P::bytes, stream>>>(tq, tk, tv, tdo, tdq, lse, delta,
                                             static_cast<T*>(dk), static_cast<T*>(dv), a);
   return (int)cudaGetLastError();
@@ -532,13 +635,13 @@ int launch_packed_dkv(const void* q, const void* k, const void* v, const void* d
                       int total_k, int max_sk, const Args& a, cudaStream_t stream) {
   using P = Plan<D, false>;
   CUtensorMap tq, tk, tv, tdo, tdq = {};
-  if (int err = packed_maps<T, D>(&tq, &tdo, &tk, &tv, q, dO, k, v, total_k, BM, BN, a))
+  if (int err = packed_maps<T, D>(&tq, &tdo, &tk, &tv, q, dO, k, v, total_k, BM, P::BN, a))
     return err;
   auto kern = bwd_kernel<T, D, false, true>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)P::bytes))
     return err;
-  const dim3 grid(a.hkv, batch, (max_sk + BN - 1) / BN);
+  const dim3 grid(a.hkv, batch, (max_sk + P::BN - 1) / P::BN);
   kern<<<grid, THREADS, P::bytes, stream>>>(tq, tk, tv, tdo, tdq, lse, delta,
                                             static_cast<T*>(dk), static_cast<T*>(dv), a);
   return (int)cudaGetLastError();
@@ -553,7 +656,7 @@ constexpr int DQ_BM = 128;  // q rows a dQ block: two consumer warpgroups of BM
 // barriers (Q, full[STAGES], empty[STAGES]).
 template <int D>
 struct DqPlan {
-  static constexpr int BN = 64;  // keys a ring slot
+  static constexpr int BN = D > 128 ? 32 : 64;  // keys a ring slot
   static constexpr int STAGES = 2;
   static constexpr uint32_t Q_BYTES = DQ_BM * D * 2;
   static constexpr uint32_t KV_BYTES = BN * D * 2;

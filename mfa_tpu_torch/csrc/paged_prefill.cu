@@ -23,8 +23,9 @@
 //  - Q is one TMA box a 64-column chunk of a 4-D map over q [b, sq, hq, D]
 //    (64 columns x group heads x 128 / group positions): it lands as the
 //    128 packed rows in the 128-byte swizzle wgmma reads.
-//  - K and V come by TMA into a ring of 128-key tiles through the block
-//    table, one box per page (or per gcd(page, 128) rows of a larger one)
+//  - K and V come by TMA into a ring of BN-key tiles (128; 64 at D 256,
+//    Plan) through the block table, one box per page (or per gcd(page,
+//    BN) rows of a larger one)
 //    of a map over the pages [hkv, P, page, D] as (D, page, hkv * P). Page
 //    ids are clamped into the pool, as the plain version clamps them; no
 //    box is issued for rows at or past lens. Rows past lens inside a loaded
@@ -66,7 +67,6 @@ using fa90::BM;
 using fa90::Span;
 using fa90::THREADS;
 using fa90::WG_M;
-constexpr int BN = 128;     // keys a tile
 constexpr int STAGES = 2;   // ring slots
 constexpr int BAR_CVT = 1;  // named barrier of the 256 consumer threads (quantized)
 
@@ -88,15 +88,22 @@ struct Params {
 // [BN][RB] (RB bytes a row), K scales [BN], V scales [BN]; for quantized
 // pages one converted buffer of bf16 K, V (swizzled like a 16-bit slot)
 // and the tile's scales; the barriers (Q, full[STAGES], empty[STAGES]).
-// Every swizzled chunk is 1024-byte aligned.
+// Every swizzled chunk is 1024-byte aligned. BN = 128 keys a tile, 64 at
+// D 256 (kernel 1's rule, flash_fwd_sm90.cuh): 128 keys there would take
+// 64 KB of Q and two slots of 128 KB (bf16), or staging plus a 128 KB
+// converted buffer (quantized), past the 227 KB of a block; at 64 the O
+// accumulator is 128 fp32 registers a thread, as in kernel 1.
 template <int D, KV F>
 struct Plan {
   static constexpr bool QUANT = F != KV::F16;
+  static constexpr int BN = D > 128 ? 64 : 128;       // keys a tile
   static constexpr int RB = F == KV::I4 ? D / 2 : D;  // bytes of a quantized row
   static constexpr uint32_t Q_BYTES = BM * D * 2;
   static constexpr uint32_t TILE16 = BN * D * 2;  // one 16-bit K or V tile
   static constexpr uint32_t SCALES = 2 * BN * 4;  // a tile's K and V scales
-  static constexpr uint32_t SLOT = QUANT ? 2 * BN * RB + SCALES : 2 * TILE16;
+  // a slot rounded up to the swizzle's 1024-byte alignment
+  static constexpr uint32_t SLOT =
+      ((QUANT ? 2 * BN * RB + SCALES : 2 * TILE16) + 1023) / 1024 * 1024;
   static constexpr uint32_t ring_off = Q_BYTES;
   static constexpr uint32_t cvt_off = ring_off + STAGES * SLOT;
   static constexpr uint32_t bar_off = cvt_off + (QUANT ? 2 * TILE16 + SCALES : 0);
@@ -104,7 +111,6 @@ struct Plan {
   // at least 120 KB, so that two blocks never share an SM (their setmaxnreg
   // requests could not both be met)
   static constexpr size_t bytes = used > 120 * 1024 ? used : 120 * 1024;
-  static_assert(SLOT % 1024 == 0, "ring slots keep the swizzle's 1024-byte alignment");
 };
 
 __device__ __forceinline__ uint32_t bar_q(uint32_t bars) { return bars; }
@@ -113,10 +119,10 @@ __device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
   return bars + 8 * (1 + STAGES + s);
 }
 
-// KV tiles [first, last] that the live rows among chunk positions
-// [ta, ta + n) see (first > last: none).
+// KV tiles of bn keys [first, last] that the live rows among chunk
+// positions [ta, ta + n) see (first > last: none).
 __device__ __forceinline__ Span span_of(int ta, int n, int q_len, int q_start, int sk, int wl,
-                                        int wr) {
+                                        int wr, int bn) {
   const Span none{0, -1};
   if (ta >= q_len) return none;
   const int tb = min(ta + n, q_len) - 1;  // last live position
@@ -124,7 +130,7 @@ __device__ __forceinline__ Span span_of(int ta, int n, int q_len, int q_start, i
   if (wr >= 0) hi = min(hi, q_start + tb + wr + 1);
   const int lo = wl >= 0 ? max(0, q_start + ta - wl) : 0;
   if (hi <= lo) return none;
-  return Span{lo / BN, (hi - 1) / BN};
+  return Span{lo / bn, (hi - 1) / bn};
 }
 
 // The 256 consumer threads (ctid) convert the quantized slot into a bf16
@@ -136,7 +142,7 @@ template <int D, KV F>
 __device__ __forceinline__ void convert_tile(const unsigned char* slot, unsigned char* cvt,
                                              int kv0, int sk, int ctid) {
   using PL = Plan<D, F>;
-  constexpr int RB = PL::RB;
+  constexpr int RB = PL::RB, BN = PL::BN;
   constexpr int UC = F == KV::I4 ? 2 : 4;  // 16-byte units of a 64-column chunk row
   constexpr int UNITS = BN * RB / 16;      // 16-byte units of one tile
   constexpr int PER = 2 * UNITS / 256;     // K's and V's units a thread
@@ -182,8 +188,9 @@ __device__ __forceinline__ void convert_tile(const unsigned char* slot, unsigned
   }
   // one scale a thread: K's BN, then V's BN
   const float* src = reinterpret_cast<const float*>(slot + 2 * BN * RB);
-  reinterpret_cast<float*>(cvt + 2 * PL::TILE16)[ctid] =
-      kv0 + (ctid % BN) < sk ? src[ctid] : 0.f;
+  if (ctid < 2 * BN)
+    reinterpret_cast<float*>(cvt + 2 * PL::TILE16)[ctid] =
+        kv0 + (ctid % BN) < sk ? src[ctid] : 0.f;
 }
 
 // One consumer warpgroup (w, thread wtid of 128) over its 64 packed rows:
@@ -195,6 +202,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
                                         int t0, int q_len, int q_start, int sk) {
   using PL = Plan<D, F>;
   constexpr bool QUANT = PL::QUANT;
+  constexpr int BN = PL::BN;
   const uint32_t base = smem_u32(smem);
   const uint32_t bars = base + PL::bar_off;
   const uint32_t q_wg = base + w * WG_M * 128;  // this warpgroup's rows of each Q chunk
@@ -396,7 +404,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const __grid_constant__ CUtensorMap tv, const Params p) {
   using PL = Plan<D, F>;
   constexpr bool QUANT = PL::QUANT;
-  constexpr int RB = PL::RB;
+  constexpr int RB = PL::RB, BN = PL::BN;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;  // last (longest) q tiles first
   const int group = p.group, npos = BM / group;
@@ -420,8 +428,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int q_start = p.q_start[b];
   const int sk = min(p.lens[b], p.pps * p.page_size);
   const int wpos = WG_M / group;
-  const Span s0 = span_of(t0, wpos, q_len, q_start, sk, p.wl, p.wr);
-  const Span s1 = span_of(t0 + wpos, wpos, q_len, q_start, sk, p.wl, p.wr);
+  const Span s0 = span_of(t0, wpos, q_len, q_start, sk, p.wl, p.wr, BN);
+  const Span s1 = span_of(t0 + wpos, wpos, q_len, q_start, sk, p.wl, p.wr, BN);
   int first = s0.first, last = s0.last;
   if (s0.first > s0.last) {
     first = s1.first;
@@ -502,10 +510,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 // swizzled; quantized: whole rows of RB bytes, unswizzled). Returns a
 // cudaError_t code, MFA_TMA_ENCODE, or 0.
 template <typename T, KV F, int D>
-int launch(const void* q, const void* k_pages, const void* v_pages, const Params& p, int batch,
+int launch(const void* q, const void* k_pages, const void* v_pages, Params p, int batch,
            cudaStream_t stream) {
   using PL = Plan<D, F>;
   constexpr bool QUANT = PL::QUANT;
+  p.box_rows = PL::BN;  // gcd(page_size, BN): a power of two >= 8
+  while (p.page_size % p.box_rows != 0) p.box_rows >>= 1;
   const CUtensorMapDataType qtype =
       kIsBf16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   CUtensorMap tq, tk, tv;
@@ -556,16 +566,15 @@ extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void*
   const int group = hkv > 0 ? hq / hkv : 0;
   if (group <= 0 || fa90::WG_M % group != 0 || page_size <= 0 || page_size % 8 != 0)
     return MFA_BAD_CONFIG;
-  int box_rows = pp90::BN;  // gcd(page_size, BN): a power of two >= 8
-  while (page_size % box_rows != 0) box_rows >>= 1;
   const pp90::Params p{lens,      q_start, q_lens, table,     k_scale,    v_scale,
                        out,       lse,     sq,     hq,        hkv,        group,
-                       num_pages, page_size, pps,  box_rows,  window_left, window_right,
+                       num_pages, page_size, pps,  0,         window_left, window_right,
                        scale_log2e, softcap, softcap_mul};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFA_PP(T, F)                                                      \
   if (d == 64) return pp90::launch<T, F, 64>(q, k_pages, v_pages, p, batch, s);   \
   if (d == 128) return pp90::launch<T, F, 128>(q, k_pages, v_pages, p, batch, s); \
+  if (d == 256) return pp90::launch<T, F, 256>(q, k_pages, v_pages, p, batch, s); \
   return MFA_BAD_CONFIG
   if (kv_dtype == MFA_I8 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::I8); }
   if (kv_dtype == MFA_E4M3 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::E4M3); }

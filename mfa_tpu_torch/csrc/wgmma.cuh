@@ -373,8 +373,13 @@ constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N in {64, 128}");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N in {32, 64, 128}");
+  if constexpr (N == 32) {
+    if constexpr (kIsBf16<T>)
+      MFA_WGMMA_SS("32", "bf16", 16, "%16", "%17", "%18");
+    else
+      MFA_WGMMA_SS("32", "f16", 16, "%16", "%17", "%18");
+  } else if constexpr (N == 64) {
     if constexpr (kIsBf16<T>)
       MFA_WGMMA_SS("64", "bf16", 32, "%32", "%33", "%34");
     else
@@ -458,17 +463,22 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a
 template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_t(float (&d)[N / 2], uint64_t a, uint64_t b,
                                            int scale_d) {
-  static_assert(N == 32 || N == 64, "wgmma_ss_t: N in {32, 64}");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss_t: N in {32, 64, 128}");
   if constexpr (N == 32) {
     if constexpr (kIsBf16<T>)
       MFA_WGMMA_SS_T("32", "bf16", 16, "%16", "%17", "%18", "%19", "%20");
     else
       MFA_WGMMA_SS_T("32", "f16", 16, "%16", "%17", "%18", "%19", "%20");
-  } else {
+  } else if constexpr (N == 64) {
     if constexpr (kIsBf16<T>)
       MFA_WGMMA_SS_T("64", "bf16", 32, "%32", "%33", "%34", "%35", "%36");
     else
       MFA_WGMMA_SS_T("64", "f16", 32, "%32", "%33", "%34", "%35", "%36");
+  } else {
+    if constexpr (kIsBf16<T>)
+      MFA_WGMMA_SS_T("128", "bf16", 64, "%64", "%65", "%66", "%67", "%68");
+    else
+      MFA_WGMMA_SS_T("128", "f16", 64, "%64", "%65", "%66", "%67", "%68");
   }
 }
 

@@ -18,7 +18,7 @@ natural-log LSE:
 
 Rows whose LSE is -inf saw no column in the forward: P = 0 and their
 gradients are zero. dK/dV are summed over the GQA group. A CUDA tensor
-runs the kernels (bf16/fp16, head_dim 64 or 128) or raises; a CPU tensor
+runs the kernels (bf16/fp16, head_dim 64, 128 or 256) or raises; a CPU tensor
 runs `_bwd_plain` / `_varlen_bwd_plain`, the same function in fp32
 PyTorch (the counterpart of autodiff._bwd_jnp_reference).
 """
@@ -32,7 +32,10 @@ import torch
 
 from mfa_tpu_torch.dispatch.config import softmax_scale_default
 from mfa_tpu_torch.kernels import _build
-from mfa_tpu_torch.kernels.prefill import KERNEL_HEAD_DIMS
+
+# head dims of csrc/backward.cu's instantiations (256: Gemma3's; the
+# kernels' block shape changes there, flash_bwd_sm90.cuh:Plan::SPLIT)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DENSE_TAIL = [_I] * 9 + [_F, _F, _P]  # dtype .. window_right, scale, cap, stream

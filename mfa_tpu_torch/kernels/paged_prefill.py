@@ -34,7 +34,7 @@ _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 11 + [_I] * 12 + [_F, _F, _F, _P]
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)  # 256: 64-key tiles (csrc/paged_prefill.cu:Plan)
 GROUP_ROWS = 64  # q rows per consumer warpgroup: the group must divide it
 PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
 

@@ -13,7 +13,8 @@ string. HMMA marks an mma.sync product (the decode tile of kernels 5 and
 6). Exits non-zero if a source does not compile, if an instantiation
 spills, if a kernel lacks the instructions its design rests on (REQUIRED:
 the decode tile HMMA and UTMALDG, the wgmma + TMA backward kernels
-`fb90::bwd_kernel` and `fb90::dq_kernel` HGMMA and UTMALDG), or if a kernel
+`fb90::bwd_kernel` and `fb90::dq_kernel` and the paged prefill kernel
+`pp90::paged_prefill_kernel` HGMMA and UTMALDG), or if a kernel
 of a source holds an instruction its design retired (FORBIDDEN: HMMA in
 backward.cu, whose kernels all run wgmma). Needs nvcc and cuobjdump (the
 CUDA toolkit), not a card.
@@ -81,7 +82,8 @@ def sass_ops(lib: str, ops=("HGMMA", "HMMA", "UTMALDG")):
 # kernel name fragment -> SASS instructions every instantiation must hold
 REQUIRED = {"kd90::splitkv_kernel": ("HMMA", "UTMALDG"),
             "fb90::bwd_kernel": ("HGMMA", "UTMALDG"),
-            "fb90::dq_kernel": ("HGMMA", "UTMALDG")}
+            "fb90::dq_kernel": ("HGMMA", "UTMALDG"),
+            "pp90::paged_prefill_kernel": ("HGMMA", "UTMALDG")}
 # source -> SASS instructions none of its kernels may hold
 FORBIDDEN = {"backward.cu": ("HMMA",)}
 

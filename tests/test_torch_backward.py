@@ -77,6 +77,32 @@ def test_backward_softcap(fused):
     _case(7, 1, 128, 128, 4, 2, 64, True, softcap=30.0, fused=fused)
 
 
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("causal,window", [(True, (-1, -1)), (True, (40, -1)),
+                                           (False, (32, 16))])
+def test_backward_head_dim_256(fused, causal, window):
+    """Gemma3's head_dim: the kernels' d 256 block shape has its own tuple
+    (backward.KERNEL_HEAD_DIMS); the function is the same, GQA 4:2."""
+    _case(8, 1, 128, 128, 4, 2, 256, causal, window=window, fused=fused)
+
+
+def test_kernel_head_dims_refuse_others_without_running():
+    """The CUDA route checks head_dim before it looks at a device or a
+    kernel: 96 is refused (a meta tensor typed like a card's), 256 passes
+    the check; kernel 7's tuple stays without 256."""
+    from mfa_tpu_torch.kernels import backward, prefill
+
+    assert backward.KERNEL_HEAD_DIMS == (64, 128, 256)
+    assert 256 not in prefill.KERNEL_HEAD_DIMS
+    for d in (96, 256):
+        t = torch.empty(1, 2, 8, d, dtype=torch.bfloat16, device="meta")
+        if d == 256:
+            backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
+        else:
+            with pytest.raises(NotImplementedError, match="head_dim"):
+                backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
+
+
 def test_grad_through_autograd_function_multi_tile():
     """torch.autograd through flash_attention_grad == jax.grad through
     mfa_tpu's custom VJP, over more than one key tile."""

@@ -6,9 +6,12 @@ dual rotary), the JAX weights perturbed with numpy noise and carried over:
 forward, prefill and decode logits within 1e-3 and greedy tokens
 identical; the Engine with vision= gives the JAX Engine's greedy tokens
 for a mix of image and text requests; image requests never take or give
-prefix-cache pages; LlamaConfig.gemma3_4b() is what mfa_tpu's
-config_from_hf derives from the published google/gemma-3-4b-it text
-config."""
+prefix-cache pages; two SGD train steps update every weight as mfa_tpu's
+train_step does (atol = rtol = 1e-4); a text-only Engine with chunked
+prefill and the prefix cache gives the JAX Engine's greedy tokens, its
+second wave hitting the first's cached pages; LlamaConfig.gemma3_4b() is
+what mfa_tpu's config_from_hf derives from the published
+google/gemma-3-4b-it text config."""
 
 import dataclasses
 
@@ -153,6 +156,57 @@ def test_image_requests_skip_the_prefix_cache(weights):
     eng.run()
     assert img2.generated == img1.generated != text_only.generated
     assert eng.stats.image_batches == 2
+
+
+def test_sgd_train_steps_match_jax(weights):
+    """Two SGD steps on 30-token rows (past the 16-token window, so the
+    sliding layers' backward cuts the band): the loss and every updated
+    weight as mfa_tpu's train_step gives them."""
+    jp = weights[0]
+    tp = tl.params_from_numpy(jax.tree.map(np.asarray, jp), TCFG, "cpu")
+    toks = np.random.RandomState(10).randint(0, 128, (2, 31)).astype(np.int32)
+    for _ in range(2):
+        jp, jloss = jl.train_step(jp, jnp.asarray(toks), JCFG, lr=0.1)
+        tp, tloss = tl.train_step(tp, toks, TCFG, lr=0.1, remat=True)
+        np.testing.assert_allclose(float(tloss), float(jloss), atol=1e-4, rtol=1e-4)
+    for i, lp in enumerate(tp["layers"]):
+        for name, t in lp.items():
+            np.testing.assert_allclose(t.detach().numpy(), np.asarray(jp["layers"][name][i]),
+                                       err_msg=f"layer {i} {name}", atol=1e-4, rtol=1e-4)
+    for name in ("embed", "final_norm", "lm_head"):
+        np.testing.assert_allclose(tp[name].detach().numpy(), np.asarray(jp[name]),
+                                   err_msg=name, atol=1e-4, rtol=1e-4)
+
+
+def test_chunked_prefix_engine_matches_jax(weights):
+    """Text only, chunks of 8 and the prefix cache: a first wave of a
+    25-token prompt (4 chunks) and one sharing its first 16 tokens, then a
+    second wave of two more that share them and hit its 2 cached pages,
+    prefilling only their suffix."""
+    jp, tp = weights[:2]
+    rng = np.random.RandomState(11)
+    shared = [int(t) for t in rng.randint(0, 90, 16)]
+    waves = [[([int(t) for t in rng.randint(0, 90, 25)], 4), (shared + [3, 4], 3)],
+             [(shared + [5] * 9, 4), (shared + [6], 5)]]
+    kw = dict(KW, prefill_chunk=8, prefix_cache=True)
+    jeng = JaxEngine(jp, JCFG, **kw)
+    eng = Engine(tp, TCFG, device="cpu", **kw)
+    free0 = eng.sched.allocator.free_pages
+    jr, tr = [], []
+    for wave in waves:
+        jr += [jeng.submit(p, n) for p, n in wave]
+        jeng.run()
+        tr += [eng.submit(p, n) for p, n in wave]
+        eng.run()
+    for t, j in zip(tr, jr):
+        assert len(t.generated) == t.max_new_tokens
+        assert t.generated == j.generated, (t.uid, t.generated, j.generated)
+        np.testing.assert_allclose(t.logprobs, j.logprobs, atol=1e-3)
+    # the second wave's two hits skip the 2 cached pages (16 tokens) each
+    prompt_tokens = sum(len(p) for wave in waves for p, _ in wave)
+    assert eng.stats.prefill_tokens == prompt_tokens - 32
+    assert eng.stats.chunk_batches >= 4
+    assert eng.sched.allocator.free_pages + len(eng.sched.prefix.pages) == free0
 
 
 def test_gemma3_4b_is_the_published_config():

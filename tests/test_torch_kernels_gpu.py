@@ -452,6 +452,19 @@ def test_varlen_equals_prefill_bit_for_bit(dev, n_seq, s, hq, hkv, d):
          0.0),
         (16, 2, 32, 128, "int4", HF, [96, 0], 64, [160, 64], None, True, (-1, -1),
          20.0),
+        # head_dim 256 (64-key tiles): every page format, Gemma3's group 2
+        (8, 4, 64, 256, True, BF, [0, 128, 320], 192, [192, 320, 370], None, True,
+         (63, -1), 0.0),
+        (8, 4, 64, 256, False, BF, [0, 128, 320], 192, [192, 320, 370], None, True,
+         (100, -1), 0.0),
+        (8, 2, 16, 256, False, HF, [16, 0], 100, [116, 70], [100, 40], False,
+         (10, 6), 20.0),
+        (8, 4, 128, 256, "fp8", BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        (8, 4, 32, 256, "int4", BF, [96, 0], 64, [160, 64], None, True, (40, -1),
+         20.0),
+        (16, 2, 64, 256, True, HF, [64, 0], 130, [194, 100], None, True, (-1, -1),
+         0.0),
     ])
 def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
                               lens, q_lens, causal, window, softcap):
@@ -500,6 +513,13 @@ def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
         (16, 4, 16, 128, "int4", HF, [0, 40], 129, [129, 169], None, (33, -1)),
         (16, 4, 32, 64, "fp8", BF, [0, 64, 10], 256, [256, 64, 10], [256, 0, 0],
          (-1, -1)),
+        # head_dim 256
+        (8, 4, 64, 256, True, BF, [0, 100], 200, [200, 300], None, (1023, -1)),
+        (8, 4, 16, 256, "int4", HF, [0, 40], 129, [129, 169], None, (33, -1)),
+        (16, 4, 32, 256, False, BF, [0, 64, 10], 256, [256, 64, 10], [256, 0, 0],
+         (-1, -1)),
+        (8, 2, 64, 256, "fp8", BF, [5, 0], 300, [305, 77], [300, 77], (-1, -1)),
+        (8, 8, 128, 256, False, HF, [5, 0], 300, [305, 77], [300, 77], (40, -1)),
     ])
 def test_paged_prefill_edges(dev, hq, hkv, page, d, quant, dtype, q_start, sq, lens,
                              q_lens, window):
@@ -673,6 +693,15 @@ def _bwd_inputs(gen, b, hq, hkv, sq, sk, d, causal, window, softcap, dtype):
     (1, 8, 2, 2049, 2049, 128, True, (-1, -1), 0.0, BF),   # ragged tails
     (1, 8, 2, 200, 1000, 128, False, (32, 0), 0.0, BF),    # key tiles no row sees
     (2, 16, 2, 333, 333, 64, False, (-1, -1), 0.0, HF),    # d 64, group 8
+    # head_dim 256 (64-key dK/dV blocks, 32-key dQ tiles): Gemma3's train
+    # shape at b1, sliding and global; a ragged tail; softcap 50 in fp16
+    (1, 8, 4, 2048, 2048, 256, True, (1023, -1), 0.0, BF),
+    (1, 8, 4, 2048, 2048, 256, True, (-1, -1), 0.0, BF),
+    (1, 8, 4, 2049, 2049, 256, True, (-1, -1), 0.0, BF),
+    (1, 4, 2, 130, 130, 256, True, (-1, -1), 50.0, HF),
+    (1, 8, 2, 200, 1000, 256, False, (32, 0), 0.0, BF),    # key tiles no row sees
+    (2, 4, 1, 100, 37, 256, False, (-1, -1), 0.0, HF),
+    (1, 4, 4, 300, 8, 256, True, (4, -1), 0.0, BF),        # dead rows
 ])
 def test_backward_kernels(dev, b, hq, hkv, sq, sk, d, causal, window, softcap, dtype):
     from mfa_tpu_torch.kernels import _build, backward
@@ -731,6 +760,10 @@ def test_wgmma_transposed_operands(dev, n, n0):
     ([65, 1, 64], [65, 1, 64], 4, 4, 64, True, (-1, -1), 30.0, BF),
     # sequences straddling 64-row boxes, a zero-length one, a group of 8
     ([65, 1, 127, 0, 200], [65, 1, 127, 0, 200], 32, 4, 128, True, (48, 0), 0.0, BF),
+    # head_dim 256
+    ([200, 1100, 0, 513], [200, 1100, 0, 513], 8, 4, 256, True, (-1, -1), 0.0, BF),
+    ([65, 1, 127, 0, 200], [65, 1, 127, 0, 200], 8, 4, 256, True, (48, 0), 0.0, HF),
+    ([100, 37, 300], [130, 64, 200], 4, 2, 256, False, (128, 64), 30.0, BF),
 ])
 def test_varlen_backward_kernels(dev, lens_q, lens_k, hq, hkv, d, causal, window,
                                  softcap, dtype):
@@ -760,6 +793,8 @@ def test_varlen_backward_kernels(dev, lens_q, lens_k, hq, hkv, d, causal, window
     (8, 512, 32, 8, 128, (-1, 0)),
     (3, 300, 8, 2, 64, (-1, 0)),      # boxes straddle the sequences
     (4, 200, 32, 4, 128, (48, 0)),
+    (4, 2048, 8, 4, 256, (1023, 0)),  # Gemma3's sliding layers
+    (3, 300, 8, 2, 256, (-1, 0)),
 ])
 def test_varlen_backward_equals_dense_bit_for_bit(dev, n_seq, s, hq, hkv, d, window):
     """Equal lengths: kernel 14 runs kernels 12 and 13's code over the same

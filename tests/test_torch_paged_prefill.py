@@ -3,7 +3,9 @@ paged prefill kernel in Pallas interpret mode: chunks at offset 0 and mid
 sequence, fp32, bf16 and int8 pages, a sliding window, a non-causal band,
 q_lens shorter than the chunk, GQA 4:1 and the LSE [b, heads, sq], over a
 shuffled non-contiguous block table. head_dim 128, so the pages need no
-lane padding on the JAX side. Inputs from numpy with a seed; fp32 and
+lane padding on the JAX side; and at Gemma3's head_dim 256 (the kernel's
+64-key tile, its own head-dim tuple) on bf16 and int8 pages with a
+window. Inputs from numpy with a seed; fp32 and
 int8 pages (identical payloads and scales on both sides) atol = rtol =
 1e-4; bf16 pages 1e-2 (one bf16 rounding of the output on either side).
 Only real rows (r < q_lens) are compared with JAX, whose other rows are
@@ -23,12 +25,12 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 B, SQ, HQ, HKV, D, PAGE, PPS = 2, 32, 8, 2, 128, 16, 6
 
 
-def _case(seed):
+def _case(seed, d=D):
     rng = np.random.RandomState(seed)
     num_pages = B * PPS + 3
-    q = rng.standard_normal((B, SQ, HQ, D)).astype(np.float32)
-    kp = rng.standard_normal((HKV, num_pages, PAGE, D)).astype(np.float32)
-    vp = rng.standard_normal((HKV, num_pages, PAGE, D)).astype(np.float32)
+    q = rng.standard_normal((B, SQ, HQ, d)).astype(np.float32)
+    kp = rng.standard_normal((HKV, num_pages, PAGE, d)).astype(np.float32)
+    vp = rng.standard_normal((HKV, num_pages, PAGE, d)).astype(np.float32)
     table = (rng.permutation(num_pages - 1)[: B * PPS] + 1).reshape(B, PPS)
     return q, kp, vp, table.astype(np.int32)
 
@@ -45,10 +47,41 @@ CASES = {
 }
 
 
+# Gemma3's head_dim: its sliding layers' window on bf16 and int8 pages
+CASES_256 = {
+    "int8_window": ([32, 64], [64, 96], None, True, 20, -1, "int8"),
+    "bf16_window": ([32, 0], [64, 32], None, True, 24, -1, "bf16"),
+}
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_paged_prefill_matches_jax(name):
-    q_start, lens, q_lens, causal, wl, wr, pages = CASES[name]
-    q, kp, vp, table = _case(len(name))
+    _check(CASES[name], len(name), D)
+
+
+@pytest.mark.parametrize("name", list(CASES_256))
+def test_paged_prefill_head_dim_256(name):
+    _check(CASES_256[name], len(name), 256)
+
+
+def test_paged_prefill_refuses_head_dim_96_without_running():
+    """The card's route checks head_dim before any launch: 96 is refused
+    on meta tensors (nothing is built or run); kernel 8's tuple has 256."""
+    from mfa_tpu_torch.kernels import paged_prefill
+
+    assert paged_prefill.KERNEL_HEAD_DIMS == (64, 128, 256)
+    q = torch.empty(1, 8, 4, 96, dtype=torch.bfloat16, device="meta")
+    pages = torch.empty(2, 3, 16, 96, dtype=torch.bfloat16, device="meta")
+    ints = torch.empty(1, dtype=torch.int32, device="meta")
+    table = torch.empty(1, 1, dtype=torch.int32, device="meta")
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        paged_prefill._paged_prefill_cuda(q, pages, pages, None, None, ints,
+                                          ints, ints, table, 0.1, -1, 0, 0.0)
+
+
+def _check(spec, seed, d):
+    q_start, lens, q_lens, causal, wl, wr, pages = spec
+    q, kp, vp, table = _case(seed, d)
     jkw, tkw = {}, {}
     tol = TOL
     if pages == "int8":

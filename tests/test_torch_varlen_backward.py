@@ -76,6 +76,14 @@ def test_varlen_backward_straddling_pack():
     _vl_case(16, lens, lens, 8, 1, 64, True, window=(48, -1))
 
 
+@pytest.mark.parametrize("causal,window", [(True, (-1, -1)), (True, (24, -1)),
+                                           (False, (16, 8))])
+def test_varlen_backward_head_dim_256(causal, window):
+    """Gemma3's head_dim on the packed layout, GQA 4:2, a sequence of
+    length 0 and one straddling 64-row boxes."""
+    _vl_case(17, [70, 0, 58], [70, 0, 58], 4, 2, 256, causal, window=window)
+
+
 def test_varlen_backward_softcap():
     _vl_case(14, [128, 64], [128, 64], 2, 2, 64, True, softcap=30.0)
 
