@@ -50,7 +50,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    to 32 rows over bf16, int8, fp8 and int4 pages at d 64, 128 and 256,
    rows past each length poisoned, each span row against a q_span 1 call
    at its own length) and with 16 q heads a kv head, timed at the 8B
-   verify shape beside q_span 1.
+   verify shape beside q_span 1; the dense families' shapes
+   (family_kernels): kernel 8 at Qwen2-7B's chunk batch (7 q heads a kv
+   head, a group that does not divide the kernel's 64 rows) beside group 8
+   on the same positions, groups 5 and 6 on bf16, fp8 and int4 pages,
+   Gemma2-9B's batch (d 256, softcap 50, window 4095 and none); kernel 6 at
+   both models' decode steps; kernel 1 at the Gemma2-9B wave (softcap) and
+   kernels 2 + 3 at Qwen2-7B's.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -88,6 +94,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    34 launches a step); then
    Llama-3-8B again with int8 weights (init_params(quantize="int8")) and
    the traffic of the first engine: every projection through kernel 10.
+   Then a full-width 2-layer Qwen2-7B (q/k/v biases drawn) written as a
+   Hugging Face checkpoint (safetensors shards, index, config.json) and
+   loaded back with from_safetensors in bf16 (bit-equal) and int8 (equal
+   to quantize_weight), both loads served with the in-memory weights'
+   tokens; then Qwen2-7B (28 layers) and Gemma2-9B (42 layers: softcaps,
+   alternating 4096 windows; its waves on kernel 1) at full depth behind
+   the chunked + prefix engine with the chunked cell's traffic on int8 KV.
    Before the train steps, the first engine's weights and traffic twice
    more: with sampling (engine top-k 50 and a per-request mix of greedy,
    temperature / top-p, temperature / min-p and penalized greedy rows;
@@ -108,7 +121,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    one global) with a 2-layer tower at 224 px: image-prompt prefill and
    the next decode step's logits agree, and so do a chunked 1200-token
    text prompt's and a prefix hit's (int8 KV); then the 2-layer 8B with int8
-   weights: prefill and decode logits agree, argmax equal.
+   weights: prefill and decode logits agree, argmax equal; then Qwen2-7B
+   and Gemma2-9B at full width cut to 2 layers (int8 KV): prefill, decode,
+   chunked and prefix-hit logits agree.
 5. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
 """
@@ -195,9 +210,14 @@ def _lse_err(lse, ref, what=""):
     return ok
 
 
-def _wave_launches(got, n):
+def _wave_launches(got, n, softcap=False):
     """A bf16 prompt wave runs the default engine: n zero-shift launches,
-    each followed by its repair launch, and kernel 1 not at all."""
+    each followed by its repair launch, and kernel 1 not at all; with an
+    attention softcap (Gemma2) the classic engine: n kernel 1 launches and
+    no zero-shift one."""
+    if softcap:
+        return got.get("prefill", 0) == n and not got.get("flagged", 0) \
+            and not got.get("repair", 0)
     return got.get("flagged", 0) == n and got.get("repair", 0) == n \
         and not got.get("prefill", 0)
 
@@ -367,6 +387,7 @@ def kernel_phase(records):
     ok &= wmatmul_kernels(records, gen)
     ok &= kv_format_kernels(records)
     ok &= span_kernels(records)
+    ok &= family_kernels(records, rn, gen)
     return ok
 
 
@@ -1242,7 +1263,7 @@ def varlen_kernels(records, rn):
 def paged_prefill_kernels(records, rn, gen):
     """Kernel 8 (paged prefill) against its plain version: the engine's
     chunk batch (int8 pages) and the varlen paged route's shape (bf16);
-    then Gemma3-4B's chunk batch at head_dim 256 (_paged_prefill_gemma3)."""
+    then Gemma3-4B's chunk batch at head_dim 256 (_paged_prefill_batch)."""
     import torch
 
     from mfa_tpu_torch.kernels import paged_prefill
@@ -1302,14 +1323,19 @@ def paged_prefill_kernels(records, rn, gen):
         if quant:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=by, library_ms=None)
-    return ok and _paged_prefill_gemma3(records, rn, gen)
+    # Gemma3-4B's chunk batch: hq8 hkv4 d256, int8 pages causal and with the
+    # sliding layers' window 1023, and bf16, fp8 and int4 pages
+    return ok and _paged_prefill_batch(
+        records, rn, gen, "Gemma3-4B chunk batch", 8, 4, 256,
+        (("int8", -1, 0.0), ("int8", 1023, 0.0), (None, -1, 0.0), ("fp8", -1, 0.0),
+         ("int4", -1, 0.0)))
 
 
-def _paged_prefill_gemma3(records, rn, gen):
-    """Kernel 8 at Gemma3-4B's chunk batch: 4 x 512 rows at q_start 1536
-    (the last chunk 500 rows), hq8 hkv4 d256, pages of 64, on int8 pages
-    causal and with the sliding layers' window 1023, and on bf16, fp8 and
-    int4 pages; rows past each length in a sequence's last page hold NaN
+def _paged_prefill_batch(records, rn, gen, tag, hq, hkv, d, cases,
+                         q_start=(1536,) * 4, q_lens=(512, 512, 512, 500)):
+    """Kernel 8 at a chunk batch (default: 4 x 512 rows at q_start 1536, the
+    last chunk 500 rows), pages of 64, for each case (format, window,
+    softcap); rows past each length in a sequence's last page hold NaN
     (16-bit pages) or NaN scales (and fp8 the NaN code 0x7F), and rows past
     q_lens must come out O = 0, LSE = -inf. Held to the plain version on
     the pages before the poisoning (max 2e-2, mean 2e-3, LSE within 1e-3
@@ -1319,8 +1345,8 @@ def _paged_prefill_gemma3(records, rn, gen):
 
     from mfa_tpu_torch.kernels import paged, paged_prefill
 
-    hq, hkv, d, sq, page = 8, 4, 256, 512, 64
-    q_start, q_lens = [1536] * 4, [512, 512, 512, 500]
+    page, sq = 64, max(q_lens)
+    q_start, q_lens = list(q_start), list(q_lens)
     lens = [s_ + n for s_, n in zip(q_start, q_lens)]
     b, pps = len(lens), max(lens) // page + 1
     P = b * pps + 1
@@ -1336,8 +1362,7 @@ def _paged_prefill_gemma3(records, rn, gen):
             stale[:, int(table[i, n // page]), n % page:] = True
     dead = torch.arange(sq, device="cuda")[None] >= QL[:, None]  # [b, sq]
     ok = True
-    for quant, wl in (("int8", -1), ("int8", 1023), (None, -1), ("fp8", -1),
-                      ("int4", -1)):
+    for quant, wl, cap in cases:
         if quant is None:
             kp, vp, ks, vs = kf.clone(), vf.clone(), None, None
             clean = (kf, vf, None, None)
@@ -1348,19 +1373,22 @@ def _paged_prefill_gemma3(records, rn, gen):
             _poison_stale(kp, ks, quant, stale)
             _poison_stale(vp, vs, quant, stale)
 
-        def run(lse=False, kp=kp, vp=vp, ks=ks, vs=vs, quant=quant, wl=wl):
+        def run(lse=False, kp=kp, vp=vp, ks=ks, vs=vs, quant=quant, wl=wl, cap=cap):
             return paged_prefill.paged_prefill_attention(
                 q, kp, vp, L, QS, table, q_lens=QL, k_scales=ks, v_scales=vs,
-                causal=True, window_left=wl, quant_dtype=quant, return_lse=lse)
+                causal=True, window_left=wl, logit_softcap=cap, quant_dtype=quant,
+                return_lse=lse)
 
         o, lse = run(True)
         ro, rl = paged_prefill._paged_prefill_plain(
-            q.float(), *clean, L, QS, QL, table, d ** -0.5, wl, 0, 0.0,
+            q.float(), *clean, L, QS, QL, table, d ** -0.5, wl, 0, cap,
             quant_dtype=quant)
         fmt = quant or "bf16"
-        print(f"paged_prefill {fmt} pages, Gemma3-4B chunk batch: 4 x 512 rows at "
-              f"q_start {q_start}, q_lens {q_lens}, hq={hq} hkv={hkv} d={d} page={page}"
-              f"{f', window {wl}' if wl >= 0 else ''}; rows past lens: NaN "
+        print(f"paged_prefill {fmt} pages, {tag}: {b} x {sq} rows at "
+              f"q_start {q_start}, q_lens {q_lens}, hq={hq} hkv={hkv} (group "
+              f"{hq // hkv}) d={d} page={page}"
+              f"{f', window {wl}' if wl >= 0 else ''}"
+              f"{f', softcap {cap}' if cap else ''}; rows past lens: NaN "
               f"{'values' if quant is None else 'scales'}"
               f"{', 0x7F payload' if quant == 'fp8' else ''}", flush=True)
         mx, good = _err(o, ro, what="O")
@@ -1372,7 +1400,7 @@ def _paged_prefill_gemma3(records, rn, gen):
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
         ms = _time_ms(run)
         plain_ms = _time_ms(lambda: paged_prefill._paged_prefill_plain(
-            q, *clean, L, QS, QL, table, d ** -0.5, wl, 0, 0.0, quant_dtype=quant),
+            q, *clean, L, QS, QL, table, d ** -0.5, wl, 0, cap, quant_dtype=quant),
             iters=3)
         kv_rows = sum(lens) * hkv
         nbytes = 2 * kv_rows * _row_bytes(quant, d) + b * pps * 4 + 2 * b * sq * hq * d * 2
@@ -1382,6 +1410,106 @@ def _paged_prefill_gemma3(records, rn, gen):
         print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a bound_ms "
               f"{bound_ms:.4f} ({by}) bound share {bound_ms / ms:.3f}", flush=True)
     del q, kf, vf, kp, vp, o, ro
+    torch.cuda.empty_cache()
+    return ok
+
+
+def family_kernels(records, rn, gen):
+    """The dense families' shapes. Kernel 8 at Qwen2-7B's chunk batch (4 x
+    512 at q_start 1536, hq 28 / hkv 4: 7 q heads a kv head, which leaves a
+    dead tail row in each 64-row warpgroup; d 128, int8 pages of 64), timed
+    beside group 8 (hq 32 / hkv 4) on the same positions; groups 5 and 6 at
+    2 x 256 on bf16, fp8 and int4 pages; Gemma2-9B's (hq 16 / hkv 8, d 256,
+    softcap 50, window 4095 and none, int8 pages). Kernel 6 at Gemma2-9B's
+    decode step (16 rows of 2500-4100 tokens, softcap 50, window 4095 and
+    none) and Qwen2-7B's (group 7); kernel 1 at the Gemma2-9B wave (4 x 256,
+    softcap 50: the classic engine, which softcap selects); kernels 2 + 3 at
+    Qwen2-7B's wave (4 x 256, group 7). Every output within max 2e-2 / mean
+    2e-3 of its plain version, LSE within 1e-3 with the same -inf rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import _build, paged, prefill
+
+    ok = _paged_prefill_batch(records, rn, gen, "Qwen2-7B chunk batch", 28, 4, 128,
+                              (("int8", -1, 0.0),))
+    ok &= _paged_prefill_batch(records, rn, gen, "group 8 at Qwen2-7B's positions",
+                               32, 4, 128, (("int8", -1, 0.0),))
+    for hq, hkv in ((20, 4), (12, 2)):
+        ok &= _paged_prefill_batch(records, rn, gen, f"group {hq // hkv}", hq, hkv, 128,
+                                   ((None, -1, 0.0), ("fp8", -1, 0.0), ("int4", 100, 0.0)),
+                                   q_start=(512, 64), q_lens=(256, 200))
+    ok &= _paged_prefill_batch(records, rn, gen, "Gemma2-9B chunk batch", 16, 8, 256,
+                               (("int8", -1, 50.0), ("int8", 4095, 50.0)))
+    # kernel 6 at the decode steps of Gemma2-9B and Qwen2-7B (int8 pages of 64)
+    page = 64
+    lens_l = [2500 + 100 * i for i in range(16)]
+    b, pps = len(lens_l), max(lens_l) // page + 1
+    L = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    for model, hq, hkv, d, cases in (("Gemma2-9B", 16, 8, 256, ((4095, 50.0), (-1, 50.0))),
+                                     ("Qwen2-7B", 28, 4, 128, ((-1, 0.0),))):
+        P = b * pps + 1
+        q = rn(b, hq, d)
+        kp, vp, ks, vs = _kv_pages(rn(hkv, P, page, d), rn(hkv, P, page, d), "int8")
+        bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+              ).reshape(b, pps).to(torch.int32)
+        for wl, cap in cases:
+            def run(lse=False, q=q, kp=kp, vp=vp, ks=ks, vs=vs, bt=bt, wl=wl, cap=cap):
+                return paged.paged_attention(q, kp, vp, L, bt, k_scales=ks, v_scales=vs,
+                                             window_left=wl, logit_softcap=cap,
+                                             pos_offset=1, return_lse=lse)
+
+            o, lse = run(True)
+            ro, rl = paged._paged_plain(q.float(), kp, vp, ks, vs, L, bt, d ** -0.5,
+                                        wl, cap, 1)
+            print(f"paged int8 pages, {model} decode step: b={b} hq={hq} hkv={hkv} "
+                  f"d={d} lens {min(lens_l)}..{max(lens_l)}"
+                  f"{f', window {wl}' if wl >= 0 else ''}"
+                  f"{f', softcap {cap}' if cap else ''}", flush=True)
+            mx, good = _err(o, ro, what="O")
+            ok &= good and _lse_err(lse, rl, "")
+            records["paged"]["max_abs_err"] = max(records["paged"]["max_abs_err"], mx)
+            ms = _time_ms(run)
+            plain_ms = _time_ms(lambda: paged._paged_plain(
+                q, kp, vp, ks, vs, L, bt, d ** -0.5, wl, cap, 1), iters=3)
+            rows = sum(min(n - 1, wl + 1) if wl >= 0 else n - 1 for n in lens_l) * hkv
+            nbytes = 2 * rows * _row_bytes("int8", d) + b * pps * 4 + 2 * b * hq * d * 2
+            bound_ms, by = _bound(nbytes, 4 * hq // hkv * rows * d)
+            print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms n/a bound_ms "
+                  f"{bound_ms:.4f} ({by})", flush=True)
+    # kernel 1 at the Gemma2-9B wave, kernels 2 + 3 at the Qwen2-7B wave
+    b, s = 4, 256
+    for model, hq, hkv, d, cases in (("Gemma2-9B", 16, 8, 256, ((4095, 50.0), (-1, 50.0))),
+                                     ("Qwen2-7B", 28, 4, 128, ((-1, 0.0),))):
+        q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+        for wl, cap in cases:
+            _build.reset_launches()
+            o, lse = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1),
+                                               logit_softcap=cap, return_lse=True)
+            got = dict(_build.launches)
+            ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5,
+                                            wl, 0, cap, True)
+            names = ("prefill",) if cap else ("flagged", "repair")
+            print(f"prefill wave, {model}: b={b} hq={hq} hkv={hkv} s={s} d={d}"
+                  f"{f', window {wl}' if wl >= 0 else ''}"
+                  f"{f', softcap {cap}' if cap else ''}: launches {got}", flush=True)
+            mx, good = _err(o, ro, what="O")
+            ok &= good and _lse_err(lse, rl, "") and _wave_launches(got, 1, bool(cap))
+            for n in names:
+                records[n]["max_abs_err"] = max(records[n]["max_abs_err"], mx)
+            ms = _time_ms(lambda: prefill.prefill_attention(
+                q, k, v, causal=True, window_size=(wl, -1), logit_softcap=cap))
+            plain_ms = _time_ms(lambda: prefill._prefill_plain(
+                q, k, v, d ** -0.5, wl, 0, cap, False), iters=3)
+            bound_ms, by = _bound(2 * (2 * b * hq * s * d + 2 * b * hkv * s * d),
+                                  4 * b * hq * _visible_pairs(s, s, 0, wl, 0) * d)
+            lib = "n/a"  # SDPA takes no softcap: a library time for the uncapped wave
+            if not cap:
+                lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
+                lib = f"{lib_ms:.4f} (sdpa)"
+            print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} bound_ms "
+                  f"{bound_ms:.4f} ({by})", flush=True)
     torch.cuda.empty_cache()
     return ok
 
@@ -2164,7 +2292,8 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
     hit its 16 cached pages and prefill only their suffix; (c) 4 short
     prompts take whole-prompt prefill (kernels 2 + 3). The 8B's, and with
     model "Gemma3-4B" the same traffic on Gemma3-4B's text stack (kernel 8
-    at head_dim 256 on its sliding and global layers)."""
+    at head_dim 256 on its sliding and global layers), or on Qwen2-7B
+    (group 7) and Gemma2-9B (softcap: its waves take kernel 1)."""
     import numpy as np
     import torch
 
@@ -2210,12 +2339,13 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
     ok &= stats.prefill_tokens <= prompt_tokens - 8 * 1024
     ok &= eng.sched.allocator.free_pages + retained == free0
     ok &= got.get(k8, 0) == cfg.n_layers * stats.chunk_batches
-    ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches)
+    ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches, bool(cfg.attn_softcap))
     ok &= got.get(k6, 0) == cfg.n_layers * stats.steps
     step_tokens = stats.decode_tokens - len(reqs)  # first tokens come from prefill
     tag = f"chunked engine {model} ({quant} KV)"
+    wave = "prefill" if cfg.attn_softcap else "flagged = repair"
     print(f"{tag} launches {got}: {k8} = {cfg.n_layers} "
-          f"layers x {stats.chunk_batches} chunk batches, flagged = repair = "
+          f"layers x {stats.chunk_batches} chunk batches, {wave} = "
           f"{cfg.n_layers} x {stats.prefill_batches} waves, {k6} = "
           f"{cfg.n_layers} x {stats.steps} decode steps", flush=True)
     print(f"{tag}: {len(reqs)} requests finished with {gen_tokens} "
@@ -2233,6 +2363,191 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
     del eng
     state.update(params=params, cfg=cfg)
     torch.cuda.empty_cache()
+    return ok
+
+
+def _family_params(cfg, seed, device="cuda"):
+    """Random bf16 weights from a seed (llama.init_params), with Qwen2's
+    q/k/v biases drawn too (init_params leaves them zero, as mfa_tpu's
+    does), so that a dropped bias would show."""
+    import torch
+
+    from mfa_tpu_torch.models import llama
+
+    params = llama.init_params(cfg, seed=seed, device=device)
+    if cfg.qkv_bias:
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        for lp in params["layers"]:
+            for k in ("bq", "bk", "bv"):
+                lp[k].normal_(0.0, 0.5, generator=gen)
+    return params
+
+
+FAMILY_CONFIGS = ("Qwen2-7B", "Gemma2-9B")
+
+
+def _family_config(model):
+    from mfa_tpu_torch.models import llama
+
+    return {"Qwen2-7B": llama.LlamaConfig.qwen2_7b,
+            "Gemma2-9B": llama.LlamaConfig.gemma2_9b}[model]()
+
+
+def family_engine_phase(counts, ident, state, model):
+    """Main path, the dense families: Qwen2-7B (28 layers, q/k/v bias, 7 q
+    heads a kv head) or Gemma2-9B (42 layers, head_dim 256, softcaps 50 and
+    30, a 4096 window on the even layers) at full width and depth, random
+    bf16 weights from a seed, behind chunked_engine_phase's chunked +
+    prefix engine and traffic on int8 KV. Earlier phases' weights are freed
+    first (15.2 and 18.5 GB of weights)."""
+    import torch
+
+    state.clear()
+    torch.cuda.empty_cache()
+    cfg = _family_config(model)
+    state.update(params=_family_params(cfg, SEED + 5), cfg=cfg)
+    try:
+        return chunked_engine_phase(counts, ident, state, "int8", model)
+    finally:
+        state.clear()
+        torch.cuda.empty_cache()
+
+
+def _hf_checkpoint(path, params, cfg, model_type="qwen2"):
+    """Write params as a Hugging Face checkpoint directory: one safetensors
+    shard a layer plus one for the embedding, final norm and lm_head (HF
+    names, [out, in] projections, each tensor in its own dtype), the
+    model.safetensors.index.json weight map and config.json. Returns the
+    bytes of tensor payload written."""
+    import json
+    import os
+
+    from mfa_tpu_torch.models.safetensors_io import write_safetensors
+
+    n = cfg.n_layers + 1
+    shards = [{"model.embed_tokens.weight": params["embed"],
+               "model.norm.weight": params["final_norm"],
+               "lm_head.weight": params["lm_head"].t()}]
+    names = dict(wq="self_attn.q_proj.weight", wk="self_attn.k_proj.weight",
+                 wv="self_attn.v_proj.weight", wo="self_attn.o_proj.weight",
+                 w_gate="mlp.gate_proj.weight", w_up="mlp.up_proj.weight",
+                 w_down="mlp.down_proj.weight", bq="self_attn.q_proj.bias",
+                 bk="self_attn.k_proj.bias", bv="self_attn.v_proj.bias",
+                 attn_norm="input_layernorm.weight",
+                 mlp_norm="post_attention_layernorm.weight")
+    for i, lp in enumerate(params["layers"]):
+        shards.append({f"model.layers.{i}.{names[k]}": (v.t() if v.dim() == 2 else v)
+                       for k, v in lp.items()})
+    weight_map, nbytes = {}, 0
+    for j, shard in enumerate(shards):
+        fname = f"model-{j + 1:05d}-of-{n:05d}.safetensors"
+        write_safetensors(os.path.join(path, fname), shard)
+        weight_map.update({k: fname for k in shard})
+        nbytes += sum(t.numel() * t.element_size() for t in shard.values())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(model_type=model_type, architectures=["Qwen2ForCausalLM"],
+                       vocab_size=cfg.vocab_size, hidden_size=cfg.dim,
+                       intermediate_size=cfg.ffn_dim, num_hidden_layers=cfg.n_layers,
+                       num_attention_heads=cfg.n_heads,
+                       num_key_value_heads=cfg.n_kv_heads, rms_norm_eps=cfg.norm_eps,
+                       rope_theta=cfg.rope_theta, hidden_act="silu",
+                       max_position_embeddings=131072, sliding_window=131072,
+                       use_sliding_window=False, tie_word_embeddings=False,
+                       torch_dtype="bfloat16"), f)
+    return nbytes
+
+
+def checkpoint_phase(counts, ident):
+    """Main path, checkpoints: a full-width 2-layer Qwen2-7B (seeded random
+    bf16 weights, random q/k/v biases) written as a Hugging Face checkpoint
+    (3 safetensors shards, the index and config.json, in a temporary
+    directory), loaded back with from_safetensors in bf16 (bit-equal to
+    what was written, and the config equal) and with quantize="int8" (each
+    projection equal to quantize_weight of it, the rest bit-equal), then
+    both loads served: greedy tokens equal to an engine on the in-memory
+    weights (int8: the in-memory weights quantized the same way, every
+    projection through kernel 10). Prints the load rate."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import convert, llama, wquant
+    from mfa_tpu_torch.serve.engine import Engine
+
+    cfg = dc.replace(_family_config("Qwen2-7B"), n_layers=2)
+    params = _family_params(cfg, SEED + 6)
+    tmp = tempfile.mkdtemp(prefix="qwen2_7b_ckpt_")
+    ok = True
+    try:
+        t0 = time.perf_counter()
+        nbytes = _hf_checkpoint(tmp, params, cfg)
+        write_s = time.perf_counter() - t0
+        loads = {}
+        for quant in (None, "int8"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loads[quant] = convert.from_safetensors(tmp, quantize=quant, device="cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            print(f"checkpoint Qwen2-7B (2 layers, full width): from_safetensors"
+                  f"(quantize={quant!r}) read {nbytes / 1e9:.3f} GB in {dt:.3f} s: "
+                  f"{nbytes / 1e9 / dt:.3f} GB/s to the card (written in "
+                  f"{write_s:.3f} s) [{ident}]", flush=True)
+
+        def leaves(tree):
+            from mfa_tpu_torch.utils.checkpoint import _flatten
+            return _flatten(tree)
+
+        (got, gcfg), (gotq, _) = loads[None], loads["int8"]
+        same = gcfg == cfg and [p for p, _ in leaves(got)] == [p for p, _ in leaves(params)]
+        same &= all(a.dtype == b.dtype and torch.equal(a, b)
+                    for (_, a), (_, b) in zip(leaves(got), leaves(params)))
+        proj = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+        refq = dict(params, layers=[{k: wquant.quantize_weight(v) if k in proj else v
+                                     for k, v in lp.items()} for lp in params["layers"]])
+        sameq = [p for p, _ in leaves(gotq)] == [p for p, _ in leaves(refq)]
+        sameq &= all(a.dtype == b.dtype and torch.equal(a, b)
+                     for (_, a), (_, b) in zip(leaves(gotq), leaves(refq)))
+        print(f"checkpoint: bf16 load bit-equal to the written weights and config "
+              f"{same}; int8 load equal to quantize_weight of each projection {sameq}",
+              flush=True)
+        ok &= same and sameq
+        rng = np.random.RandomState(SEED + 6)
+        prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+                   for n in (100, 180, 250, 300)]
+        tokens = {}
+        for tag, p in (("in memory", params), ("bf16 load", got),
+                       ("int8 in memory", refq), ("int8 load", gotq)):
+            eng = Engine(p, cfg, num_pages=64, page_size=64, max_seqs=4,
+                         pages_per_seq=8, quant_dtype="int8", device="cuda")
+            _build.reset_launches()
+            reqs = [eng.submit(pr, 16) for pr in prompts]
+            eng.run()
+            got_l = dict(_build.launches)
+            counts.update({k_: counts.get(k_, 0) + n for k_, n in got_l.items()})
+            tokens[tag] = [r.generated for r in reqs]
+            print(f"checkpoint engine ({tag}): 4 requests x 16 tokens, launches "
+                  f"{got_l}", flush=True)
+            if tag.startswith("int8"):
+                ok &= got_l.get("wmatmul", 0) > 0
+            del eng
+        eq = tokens["bf16 load"] == tokens["in memory"]
+        eqq = tokens["int8 load"] == tokens["int8 in memory"]
+        ok &= eq and eqq and all(len(t) == 16 for t in tokens["in memory"])
+        print(f"checkpoint: greedy tokens of the bf16 load equal the in-memory "
+              f"engine's {eq}; of the int8 load equal the in-memory int8 engine's "
+              f"{eqq}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del params
+        loads = None
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -2602,6 +2917,51 @@ def cpu_vs_cuda_phase():
     return ok and good
 
 
+def cpu_vs_cuda_families_phase():
+    """Phase 4 for the dense families: Qwen2-7B and Gemma2-9B at full width
+    cut to 2 layers (Gemma2: one sliding layer, one global), seeded random
+    weights (Qwen2's biases drawn), kernels on the card vs plain versions on
+    the CPU over int8 KV pages: a prompt wave, a decode step, a 256-token
+    prompt in 2 chunks of 128 and a prefix-hit suffix chunk
+    (_kv_stage_logits), logits within max 0.25 / mean 0.02."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.models import llama
+
+    ok = True
+    for model in FAMILY_CONFIGS:
+        cfg = dataclasses.replace(_family_config(model), n_layers=2)
+        p_gpu = _family_params(cfg, SEED + 7)
+        p_cpu = dict(layers=[{k: v.cpu() for k, v in lp.items()}
+                             for lp in p_gpu["layers"]],
+                     **{k: p_gpu[k].cpu() for k in ("embed", "final_norm", "lm_head")})
+        rng = np.random.RandomState(SEED + 7)
+        prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in (37, 90)]
+        long = list(rng.randint(0, cfg.vocab_size, 256))
+        hit = long[:128] + list(rng.randint(0, cfg.vocab_size, 60))
+        out = {}
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            out[dev] = _kv_stage_logits(llama, cfg, params, dev, "int8", out, prompts,
+                                        [[1, 2], [3, 4, 5]], long, hit)
+        for i, name in enumerate(("prefill_batch", "decode_step",
+                                  "prefill_chunk_batch 2 x 128",
+                                  "prefix-hit suffix chunk")):
+            a, r = out["cuda"][i], out["cpu"][i]
+            d = (a - r).abs()
+            good = bool(torch.isfinite(a).all()) and float(d.max()) < 0.25 \
+                and float(d.mean()) < 0.02
+            print(f"cuda vs cpu {model} (2 layers) {name} (int8 KV) logits "
+                  f"[{tuple(a.shape)}]: max_abs {float(d.max()):.3e} (< 0.25) mean_abs "
+                  f"{float(d.mean()):.3e} (< 0.02), |ref| max {float(r.abs().max()):.2f}, "
+                  f"argmax agree {bool(torch.equal(a.argmax(-1), r.argmax(-1)))} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            ok &= good
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+    return ok
+
+
 def _sampled_step_logits(llama, cfg, p_gpu, p_cpu, prompts, pages):
     """cuda_vs_cpu's sampled row: the mixed batch's first decode step (one
     greedy row and one at temperature 0.8 / top-p 0.9 with a repetition
@@ -2856,9 +3216,15 @@ def main() -> int:
                      ("train_gemma3_4b",
                       lambda: train_phase(counts, ident, state, "Gemma3-4B")),
                      ("engine_8b_int8w", lambda: engine_int8w_phase(counts, ident)),
+                     ("checkpoint_qwen2_7b", lambda: checkpoint_phase(counts, ident)),
+                     ("chunked_prefix_engine_qwen2_7b",
+                      lambda: family_engine_phase(counts, ident, state, "Qwen2-7B")),
+                     ("chunked_prefix_engine_gemma2_9b",
+                      lambda: family_engine_phase(counts, ident, state, "Gemma2-9B")),
                      ("cuda_vs_cpu", cpu_vs_cuda_phase),
                      ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
-                     ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase)):
+                     ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase),
+                     ("cuda_vs_cpu_families", cpu_vs_cuda_families_phase)):
         t0 = time.perf_counter()
         try:
             phases[name] = bool(fn())

@@ -13,16 +13,23 @@
 // Bound: tensor-core operations at chunk sizes (4 D flops per visible
 // (row, column) pair of every q head, against each row's pages read once).
 // The design is the warp-specialised block of flash_fwd_sm90.cuh:
-//  - A block of 384 threads owns 128 packed rows of one (sequence, kv
-//    head): row i is chunk position t0 + i / group of q head
-//    hk * group + i % group, so every K/V tile it stages serves all q heads
-//    of the kv head (the TPU kernel's [group, bq] rows, position-major).
+//  - A block of 384 threads owns 2 wpos chunk positions of one (sequence,
+//    kv head), wpos = 64 / group (rounded down; any group of 1 to 64).
 //    Warpgroup 0 is the producer (one TMA thread; setmaxnreg hands its
-//    registers to the consumers), the two consumer warpgroups own 64 rows
-//    each, so the group must divide 64.
+//    registers to the consumers); consumer warpgroup w owns positions
+//    [t0 + w wpos, + wpos) as packed rows: its row r is position
+//    t0 + w wpos + r / group of q head hk * group + r % group, so every K/V
+//    tile it stages serves all q heads of the kv head (the TPU kernel's
+//    [group, bq] rows, position-major). Rows r >= wpos * group (64 % group
+//    of them: 1 at group 7, 4 at groups 5 and 6) are a dead tail: wgmma
+//    rows are independent, so whatever their shared memory holds reaches
+//    only their own accumulators; they are never stored, and the masking
+//    decisions (all_live, needs_mask) look at the live positions only.
 //  - Q is one TMA box a 64-column chunk of a 4-D map over q [b, sq, hq, D]
-//    (64 columns x group heads x 128 / group positions): it lands as the
-//    128 packed rows in the 128-byte swizzle wgmma reads.
+//    (64 columns x group heads x 2 wpos positions) when the group divides
+//    64, else one box a warpgroup (x wpos positions, at the warpgroup's
+//    64-row offset): it lands as the packed rows in the 128-byte swizzle
+//    wgmma reads.
 //  - K and V come by TMA into a ring of BN-key tiles (128; 64 at D 256,
 //    Plan) through the block table, one box per page (or per gcd(page,
 //    BN) rows of a larger one)
@@ -81,6 +88,8 @@ struct Params {
   float* lse;  // [b, hq, sq]
   int sq, hq, hkv, group, num_pages, page_size, pps, box_rows, wl, wr;
   float scale_log2e, softcap, softcap_mul;
+  int wpos;     // chunk positions a consumer warpgroup: WG_M / group
+  int q_boxes;  // Q boxes a 64-column chunk: 1 if group divides WG_M, else 2
 };
 
 // Shared memory: Q [D/64][BM][64]; STAGES ring slots, each K then V
@@ -195,7 +204,7 @@ __device__ __forceinline__ void convert_tile(const unsigned char* slot, unsigned
 
 // One consumer warpgroup (w, thread wtid of 128) over its 64 packed rows:
 // the KV loop over the block's tiles [first, first + n_tiles), computing
-// those of `mine`, then O and LSE of its rows < sq.
+// those of `mine`, then O and LSE of its live rows < sq.
 template <typename T, KV F, int D>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, int first,
                                         int n_tiles, Span mine, int w, int wtid, int b, int hk,
@@ -207,14 +216,20 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   const uint32_t bars = base + PL::bar_off;
   const uint32_t q_wg = base + w * WG_M * 128;  // this warpgroup's rows of each Q chunk
   const int lane = wtid & 31, g = lane >> 2, t4 = lane & 3;
-  const int group = p.group;
-  const int i0 = w * WG_M + (wtid >> 5) * 16 + g;  // this thread's packed rows: i0, i0 + 8
-  const int tr0 = t0 + i0 / group, tr1 = t0 + (i0 + 8) / group;  // their chunk positions
+  const int group = p.group, wpos = p.wpos, rows = wpos * group;  // rows >= `rows`: dead tail
+  const int tw = t0 + w * wpos;                   // the warpgroup's first chunk position
+  const int r0 = (wtid >> 5) * 16 + g;            // this thread's packed rows: r0, r0 + 8
+  // their chunk positions; a tail row's lies past every chunk, so it is
+  // never live and never stored (a separate tail flag, kept to the
+  // epilogue, spilled 8 bytes in the d 256 int8 and fp8 instantiations at
+  // their 168-register budget: scripts/ptxas_report.py)
+  constexpr int NOWHERE = 1 << 29;
+  const int tr0 = r0 < rows ? tw + r0 / group : NOWHERE;
+  const int tr1 = r0 + 8 < rows ? tw + (r0 + 8) / group : NOWHERE;
   const bool live0 = tr0 < q_len, live1 = tr1 < q_len;
   const int pos0 = q_start + tr0, pos1 = q_start + tr1;
-  const int wpos = WG_M / group;  // positions a warpgroup
-  const int pos_lo = q_start + t0 + w * wpos, pos_hi = pos_lo + wpos - 1;
-  const bool all_live = t0 + (w + 1) * wpos <= q_len;
+  const int pos_lo = q_start + tw, pos_hi = pos_lo + wpos - 1;
+  const bool all_live = tw + wpos <= q_len;
   const int wl = p.wl, wr = p.wr;
   const float c = p.scale_log2e;
 
@@ -378,8 +393,8 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   T* out = static_cast<T*>(p.out);
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
-    const int t = trs[x], h = hk * group + (i0 + 8 * x) % group;
-    if (t >= p.sq) continue;
+    const int t = trs[x], h = hk * group + (r0 + 8 * x) % group;
+    if (t >= p.sq) continue;  // past the chunk, or a tail row
     const float m = ms[x], l = ls[x];
     const bool dead = m <= MFA_MASK * 0.5f || l == 0.f;
     const float inv = dead ? 0.f : 1.f / (isnan(l) ? 1.f : l);
@@ -396,7 +411,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   }
 }
 
-// Grid (hkv, batch, ceil(sq / (BM / group))).
+// Grid (hkv, batch, ceil(sq / (2 wpos))).
 template <typename T, KV F, int D>
 __global__ void __launch_bounds__(THREADS, 1)
     paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,
@@ -407,27 +422,30 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int RB = PL::RB, BN = PL::BN;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;  // last (longest) q tiles first
-  const int group = p.group, npos = BM / group;
-  const int t0 = qt * npos;  // the block's first chunk position
+  const int group = p.group, wpos = p.wpos, rows = wpos * group;
+  const int t0 = qt * 2 * wpos;  // the block's first chunk position
   const int q_len = min(max(p.q_lens[b], 0), p.sq);
   if (t0 >= q_len) {
     // no live row: O = 0 and LSE = -inf for the rows < sq, nothing loaded
+    // (packed row i: warpgroup i / WG_M, its row i % WG_M)
     T* out = static_cast<T*>(p.out);
     for (int u = threadIdx.x; u < BM * (D / 8); u += THREADS) {
-      const int i = u / (D / 8), t = t0 + i / group, h = hk * group + i % group;
+      const int i = u / (D / 8), r = i % WG_M;
+      const int t = t0 + (i / WG_M) * wpos + r / group, h = hk * group + r % group;
       T* orow = out + (((size_t)b * p.sq + t) * p.hq + h) * D;
-      if (t < p.sq)
+      if (r < rows && t < p.sq)
         *reinterpret_cast<uint4*>(orow + (u % (D / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
     }
     for (int i = threadIdx.x; i < BM; i += THREADS) {
-      const int t = t0 + i / group, h = hk * group + i % group;
-      if (t < p.sq && p.lse != nullptr) p.lse[((size_t)b * p.hq + h) * p.sq + t] = -INFINITY;
+      const int r = i % WG_M;
+      const int t = t0 + (i / WG_M) * wpos + r / group, h = hk * group + r % group;
+      if (r < rows && t < p.sq && p.lse != nullptr)
+        p.lse[((size_t)b * p.hq + h) * p.sq + t] = -INFINITY;
     }
     return;
   }
   const int q_start = p.q_start[b];
   const int sk = min(p.lens[b], p.pps * p.page_size);
-  const int wpos = WG_M / group;
   const Span s0 = span_of(t0, wpos, q_len, q_start, sk, p.wl, p.wr, BN);
   const Span s1 = span_of(t0 + wpos, wpos, q_len, q_start, sk, p.wl, p.wr, BN);
   int first = s0.first, last = s0.last;
@@ -460,10 +478,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (wg == 0) {
     regs_dec<fa90::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q(bars), PL::Q_BYTES);
+      // Q: per 64-column chunk, q_boxes boxes of (2 / q_boxes) wpos
+      // positions, box qb at the packed row qb * WG_M
+      const int qpos = 2 * wpos / p.q_boxes;
+      mbar_expect_tx(bar_q(bars), (D / 64) * 2 * rows * 128);
 #pragma unroll
       for (int ch = 0; ch < D / 64; ++ch)
-        tma_load_4d(base + ch * (BM * 128), &tq, bar_q(bars), ch * 64, hk * group, t0, b);
+        for (int qb = 0; qb < p.q_boxes; ++qb)
+          tma_load_4d(base + ch * (BM * 128) + qb * (WG_M * 128), &tq, bar_q(bars), ch * 64,
+                      hk * group, t0 + qb * qpos, b);
       const int* tbl = p.table + (size_t)b * p.pps;
       const int R = p.box_rows, page = p.page_size;
       // bytes of one box of K and V (quantized: payload rows and their scales)
@@ -505,7 +528,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // Encode the maps and launch: q [b, sq, hq, D] as (D, hq, sq, b) in boxes
-// of (64, group, BM / group, 1); the pages [hkv, P, page, D] as (D, page,
+// of (64, group, 2 wpos / q_boxes, 1); the pages [hkv, P, page, D] as (D, page,
 // hkv * P) in boxes of one page's box_rows rows (16-bit: 64-column chunks,
 // swizzled; quantized: whole rows of RB bytes, unswizzled). Returns a
 // cudaError_t code, MFA_TMA_ENCODE, or 0.
@@ -524,7 +547,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
                                 (cuuint64_t)batch};
     const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)p.hq * D * 2,
                                    (cuuint64_t)p.sq * p.hq * D * 2};
-    const cuuint32_t box[4] = {64, (cuuint32_t)p.group, (cuuint32_t)(BM / p.group), 1};
+    const cuuint32_t box[4] = {64, (cuuint32_t)p.group, (cuuint32_t)(2 * p.wpos / p.q_boxes),
+                               1};
     if (int err = mfa_encode(&tq, q, qtype, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
       return err;
   }
@@ -541,7 +565,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)PL::bytes))
     return err;
-  const int npos = BM / p.group;
+  const int npos = 2 * p.wpos;
   const dim3 grid(p.hkv, batch, (p.sq + npos - 1) / npos);
   kern<<<grid, THREADS, PL::bytes, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
@@ -551,9 +575,9 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
 
 // q_dtype: the q/out dtype (quantized pages take bf16 q); kv_dtype: the
 // 16-bit pages' dtype code, or the format code MFA_I8, MFA_E4M3, MFA_I4.
-// group = hq / hkv must divide 64 (a consumer warpgroup's 64 rows hold
-// 64 / group chunk positions of every q head of one kv head); page_size a
-// multiple of 8. Returns a cudaError_t code.
+// group = hq / hkv from 1 to 64 (a consumer warpgroup's 64 rows hold
+// 64 / group chunk positions, rounded down, of every q head of one kv
+// head); page_size a multiple of 8. Returns a cudaError_t code.
 extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
                                  const float* k_scale, const float* v_scale, const int* lens,
                                  const int* q_start, const int* q_lens, const int* table,
@@ -564,12 +588,13 @@ extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void*
                                  void* stream) {
   if (batch == 0 || sq == 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
-  if (group <= 0 || fa90::WG_M % group != 0 || page_size <= 0 || page_size % 8 != 0)
+  if (group <= 0 || group > fa90::WG_M || page_size <= 0 || page_size % 8 != 0)
     return MFA_BAD_CONFIG;
   const pp90::Params p{lens,      q_start, q_lens, table,     k_scale,    v_scale,
                        out,       lse,     sq,     hq,        hkv,        group,
                        num_pages, page_size, pps,  0,         window_left, window_right,
-                       scale_log2e, softcap, softcap_mul};
+                       scale_log2e, softcap, softcap_mul, fa90::WG_M / group,
+                       fa90::WG_M % group ? 2 : 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFA_PP(T, F)                                                      \
   if (d == 64) return pp90::launch<T, F, 64>(q, k_pages, v_pages, p, batch, s);   \

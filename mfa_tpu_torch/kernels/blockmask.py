@@ -94,14 +94,16 @@ def block_mask(block_ids: torch.Tensor, window_left: int) -> torch.Tensor:
     return band[None] | same
 
 
-def dense_masked_attention(q, k, v, visible, scale):
+def dense_masked_attention(q, k, v, visible, scale, softcap: float = 0.0):
     """Dense fp32 softmax attention on [b, h, s, d] under a [b, s, s]
-    boolean visibility (masked logits -1e30, as the JAX reference); output
-    in q's dtype."""
+    boolean visibility (masked logits -1e30, as the JAX reference; softcap
+    > 0: tanh(s / cap) * cap on the scaled logits); output in q's dtype."""
     group = q.shape[1] // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     sc = (q.float() @ kf.transpose(-1, -2)) * scale
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
     sc = torch.where(visible[:, None], sc, torch.full((), -1e30, device=q.device))
     return (torch.softmax(sc, dim=-1) @ vf).to(q.dtype)
 

@@ -4,9 +4,12 @@ Kernel 8 of the port: csrc/paged_prefill.cu. Query chunks attend to a
 paged KV cache read in place through the block table, with a runtime
 `q_start` per sequence: chunked prefill, prefix-cache suffixes and the
 paged route of `flash_attn_varlen_func`. One warp-specialised wgmma block
-per (q tile, kv head, sequence) holds 128 rows: 128 / group chunk
-positions of every q head of the kv head (the TPU's [group, bq] rows),
-with K and V brought by TMA one box per page through the block table.
+per (q tile, kv head, sequence) holds two consumer warpgroups of 64 rows:
+64 / group chunk positions each (rounded down) of every q head of the kv
+head (the TPU's [group, bq] rows), with K and V brought by TMA one box per
+page through the block table. Any group of 1 to 64 q heads a kv head: one
+that does not divide 64 (Qwen2-7B's 7) leaves 64 % group dead tail rows a
+warpgroup, which are never stored.
 A CPU tensor runs `_paged_prefill_plain`, the same function in PyTorch.
 
 Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide
@@ -35,7 +38,7 @@ _LN2 = math.log(2.0)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 11 + [_I] * 12 + [_F, _F, _F, _P]
 KERNEL_HEAD_DIMS = (64, 128, 256)  # 256: 64-key tiles (csrc/paged_prefill.cu:Plan)
-GROUP_ROWS = 64  # q rows per consumer warpgroup: the group must divide it
+GROUP_ROWS = 64  # q rows per consumer warpgroup: the most q heads a kv head
 PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
 
 
@@ -106,10 +109,10 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
     batch, sq, num_heads, d = q.shape
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv
-    if d not in KERNEL_HEAD_DIMS or GROUP_ROWS % group:
+    if d not in KERNEL_HEAD_DIMS or not 1 <= group <= GROUP_ROWS:
         raise NotImplementedError(
             f"the paged prefill kernel takes head_dim in {KERNEL_HEAD_DIMS} "
-            f"and a q-per-kv-head group dividing {GROUP_ROWS}")
+            f"and a q-per-kv-head group of 1 to {GROUP_ROWS}")
     if page % PAGE_ROWS:
         raise NotImplementedError(
             f"the paged prefill kernel takes pages of a multiple of "

@@ -2,11 +2,12 @@
 
 Params are a plain dict of tensors: `layers` is a list of per-layer dicts
 (wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up, w_down; Gemma3 adds
-q_norm, k_norm, post_attn_norm, post_mlp_norm), plus embed, final_norm and
-lm_head. Projections go through models/wquant.qmm: plain `@` for bf16
-weights (as the JAX package leaves them to XLA), the int8 matmul kernel
-(kernels/wmatmul.py) for QWeight weights (init_params(quantize="int8") or
-wquant.quantize_params); the embedding through qtake. Attention runs
+q_norm, k_norm, post_attn_norm, post_mlp_norm; Qwen2 bq, bk, bv), plus
+embed, final_norm and lm_head. Projections go through models/wquant.qmm:
+plain `@` for bf16 weights (as the JAX package leaves them to XLA), the
+int8 matmul kernel (kernels/wmatmul.py) for QWeight weights
+(init_params(quantize="int8") or wquant.quantize_params); the embedding
+through qtake. Attention runs
 through the port's kernels: prefill_batch -> kernels/prefill.py (the
 default engine: the zero-shift kernel with its poison flag, then the
 repair kernel), or kernels/blockmask.py (the image-block kernel) for image
@@ -36,9 +37,19 @@ mask); rollback resets lengths; decode_burst samples (serve/sampling.py)
 with noise from an explicit generator; speculative_burst runs greedy
 draft / verify / accept iterations on the device.
 
-Not ported yet (raise NotImplementedError): MoE, logit softcaps, meshes.
-int8 weights serve only: loss_fn and train_step raise on them, as JAX
-defines no gradient through QWeight.
+The dense families of mfa_tpu's presets (LlamaConfig.mistral_7b,
+qwen2_7b, gemma_7b, qwen3_8b, gemma2_9b): q/k/v bias (Qwen2: bq, bk, bv
+added before the head reshape, kept in full precision by
+wquant.quantize_params), the Gemma2 attention softcap (tanh(s * scale /
+cap) * cap on the scaled scores, passed to every attention kernel as
+logit_softcap; prefill then runs kernel 1, the classic engine), the final
+logit softcap (_unembed, fp32) and alternating sliding / global layers
+(alt_window). Checkpoints load through models/convert.py.
+
+Not ported yet (raise NotImplementedError): MoE (the config's MoE fields
+are carried so that config_from_hf refuses such checkpoints), attention
+sinks, meshes. int8 weights serve only: loss_fn and train_step raise on
+them, as JAX defines no gradient through QWeight.
 """
 
 from __future__ import annotations
@@ -102,15 +113,28 @@ class LlamaConfig:
     # RoPE); Gemma3-4B gives all 34 since its period 6 does not divide 34
     layer_pattern: Optional[tuple] = None
     rope_theta_local: Optional[float] = None  # RoPE theta of sliding layers
-    # family knobs of the JAX config that the port does not serve yet
+    # the dense families' knobs (mfa_tpu's LlamaConfig)
+    qkv_bias: bool = False                   # Qwen2: bias on q/k/v proj
+    attn_softcap: Optional[float] = None     # Gemma2: tanh cap on attention logits
+    logit_softcap: Optional[float] = None    # Gemma2: tanh cap on final logits
+    alt_window: bool = False                 # even layers sliding, odd global
+    # knobs of the JAX config that the port does not serve yet: attention
+    # sinks (the kernels' sink_tokens) and MoE, whose fields config_from_hf
+    # fills so that a MoE checkpoint is refused here
+    attn_sinks: int = 0
     n_experts: int = 0
-    attn_softcap: Optional[float] = None
-    logit_softcap: Optional[float] = None
+    n_active_experts: int = 2
+    moe_ffn_dim: Optional[int] = None
+    norm_topk: bool = True
+    shared_expert_dim: Optional[int] = None
+    shared_expert_gate: bool = False
+    moe_layer_pattern: Optional[tuple] = None
 
     def __post_init__(self):
-        if self.n_experts or self.attn_softcap or self.logit_softcap:
-            raise NotImplementedError(
-                "MoE and logit softcaps are not ported yet")
+        if self.n_experts:
+            raise NotImplementedError("MoE is not ported yet")
+        if self.attn_sinks:
+            raise NotImplementedError("attention sinks are not ported yet")
         if self.hidden_act not in ("silu", "gelu_tanh"):
             raise ValueError(f"hidden_act {self.hidden_act!r}")
         if self.layer_pattern is not None and (
@@ -134,13 +158,71 @@ class LlamaConfig:
     @property
     def sliding_pattern(self) -> Optional[tuple]:
         """Repeating per-layer sliding flags, or None (uniform layers)."""
-        return None if self.layer_pattern is None else tuple(self.layer_pattern)
+        if self.layer_pattern is not None:
+            return tuple(self.layer_pattern)
+        if self.alt_window:
+            return (True, False)
+        return None
 
     @staticmethod
     def llama3_8b() -> "LlamaConfig":
         """meta-llama/Meta-Llama-3-8B config.json: 32 layers, dim 4096,
         32 q / 8 kv heads, ffn 14336, vocab 128256, rope_theta 5e5."""
         return LlamaConfig(vocab_size=128256)
+
+    @staticmethod
+    def mistral_7b() -> "LlamaConfig":
+        """Mistral-7B (mistralai/Mistral-7B-v0.1 config.json): 32 layers,
+        dim 4096, 32 q / 8 kv heads, ffn 14336, vocab 32000, rope_theta
+        1e4, a 4096-token sliding window on every layer."""
+        return LlamaConfig(
+            vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+            ffn_dim=14336, rope_theta=10000.0, sliding_window=4096)
+
+    @staticmethod
+    def qwen2_7b() -> "LlamaConfig":
+        """Qwen2-7B (Qwen/Qwen2-7B config.json): 28 layers, dim 3584, 28 q
+        / 4 kv heads (a group of 7), ffn 18944, vocab 152064, rope_theta
+        1e6, rms_norm_eps 1e-6, bias on the q/k/v projections."""
+        return LlamaConfig(
+            vocab_size=152064, dim=3584, n_layers=28, n_heads=28, n_kv_heads=4,
+            ffn_dim=18944, rope_theta=1000000.0, norm_eps=1e-6, qkv_bias=True)
+
+    @staticmethod
+    def gemma_7b() -> "LlamaConfig":
+        """Gemma-7B (google/gemma-7b config.json): 28 layers, dim 3072, 16
+        q / 16 kv heads of head_dim 256, ffn 24576, vocab 256000, gelu-tanh,
+        (1 + w) RMSNorms, sqrt(dim)-scaled embeddings, tied lm_head."""
+        return LlamaConfig(
+            vocab_size=256000, dim=3072, n_layers=28, n_heads=16, n_kv_heads=16,
+            ffn_dim=24576, rope_theta=10000.0, norm_eps=1e-6,
+            head_dim_override=256, hidden_act="gelu_tanh", norm_offset=True,
+            embed_scale=True)
+
+    @staticmethod
+    def qwen3_8b() -> "LlamaConfig":
+        """Qwen3-8B (Qwen/Qwen3-8B config.json): 36 layers, dim 4096, 32 q
+        / 8 kv heads of head_dim 128, ffn 12288, vocab 151936, rope_theta
+        1e6, per-head q/k RMSNorms, no qkv bias."""
+        return LlamaConfig(
+            vocab_size=151936, dim=4096, n_layers=36, n_heads=32, n_kv_heads=8,
+            ffn_dim=12288, rope_theta=1000000.0, norm_eps=1e-6,
+            head_dim_override=128, qk_norm=True)
+
+    @staticmethod
+    def gemma2_9b() -> "LlamaConfig":
+        """Gemma2-9B (google/gemma-2-9b config.json): 42 layers, dim 3584,
+        16 q / 8 kv heads of head_dim 256, ffn 14336, vocab 256000, a
+        4096-token window on the even layers and full attention on the odd
+        ones, attention softcap 50, final logit softcap 30,
+        query_pre_attn_scalar 256, post norms, gelu-tanh."""
+        return LlamaConfig(
+            vocab_size=256000, dim=3584, n_layers=42, n_heads=16, n_kv_heads=8,
+            ffn_dim=14336, rope_theta=10000.0, norm_eps=1e-6,
+            head_dim_override=256, hidden_act="gelu_tanh", norm_offset=True,
+            embed_scale=True, sliding_window=4096, attn_softcap=50.0,
+            logit_softcap=30.0, query_scale=256.0 ** -0.5, post_norms=True,
+            alt_window=True)
 
     @staticmethod
     def gemma3_4b() -> "LlamaConfig":
@@ -176,12 +258,14 @@ _NORMS = ("attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm",
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm", "w_gate",
                "w_up", "w_down")
 _GEMMA_KEYS = ("q_norm", "k_norm", "post_attn_norm", "post_mlp_norm")
+_BIAS_KEYS = ("bq", "bk", "bv")
 
 
 def _layer_keys(cfg: LlamaConfig) -> tuple:
     """The per-layer weight names of this config, in a fixed order."""
     extra = (("q_norm", "k_norm") if cfg.qk_norm else ()) + (
-        ("post_attn_norm", "post_mlp_norm") if cfg.post_norms else ())
+        ("post_attn_norm", "post_mlp_norm") if cfg.post_norms else ()) + (
+        _BIAS_KEYS if cfg.qkv_bias else ())
     return _LAYER_KEYS + extra
 
 
@@ -227,6 +311,11 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
             lp.update(q_norm=norm(hd), k_norm=norm(hd))
         if cfg.post_norms:
             lp.update(post_attn_norm=norm(), post_mlp_norm=norm())
+        if cfg.qkv_bias:  # zeros, as mfa_tpu's init_params
+            lp.update({k: torch.zeros((w,), dtype=cfg.dtype, device=dev)
+                       for k, w in zip(_BIAS_KEYS, (cfg.n_heads * hd,
+                                                    cfg.n_kv_heads * hd,
+                                                    cfg.n_kv_heads * hd))})
         layers.append(quantize_params(lp) if quantize else lp)
     embed = dense((cfg.vocab_size, d), 0.02)
     if quantize:
@@ -281,9 +370,12 @@ def _rms_norm(x, w, cfg: LlamaConfig):
 
 def _qkv(h, lp, cfg: LlamaConfig, *lead):
     hd = cfg.head_dim
-    q = qmm(h, lp["wq"]).reshape(*lead, cfg.n_heads, hd)
-    k = qmm(h, lp["wk"]).reshape(*lead, cfg.n_kv_heads, hd)
-    v = qmm(h, lp["wv"]).reshape(*lead, cfg.n_kv_heads, hd)
+    q, k, v = qmm(h, lp["wq"]), qmm(h, lp["wk"]), qmm(h, lp["wv"])
+    if cfg.qkv_bias:  # Qwen2: bias before the head reshape
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(*lead, cfg.n_heads, hd)
+    k = k.reshape(*lead, cfg.n_kv_heads, hd)
+    v = v.reshape(*lead, cfg.n_kv_heads, hd)
     if cfg.qk_norm:  # each head normalized before RoPE
         q = _rms_norm(q, lp["q_norm"], cfg)
         k = _rms_norm(k, lp["k_norm"], cfg)
@@ -323,7 +415,16 @@ def _embed(params, tokens, cfg: LlamaConfig):
 
 
 def _unembed(params, x, cfg: LlamaConfig):
-    return qmm(x, params["lm_head"]).float()
+    logits = qmm(x, params["lm_head"]).float()
+    if cfg.logit_softcap:  # Gemma2: tanh cap on the fp32 logits
+        cap = float(cfg.logit_softcap)
+        logits = torch.tanh(logits / cap) * cap
+    return logits
+
+
+def _softcap(cfg: LlamaConfig) -> float:
+    """The attention softcap every attention kernel takes (0 = none)."""
+    return float(cfg.attn_softcap or 0.0)
 
 
 def _scaled_inv_freq(scaling: tuple, inv_freq: np.ndarray, hd: int,
@@ -444,8 +545,8 @@ def _layer_ropes(cfg: LlamaConfig, positions):
 def param_tensors(params: Params) -> list:
     """Every weight tensor of the params, in a fixed order (what an
     optimizer is built over)."""
-    return ([lp[k] for lp in params["layers"] for k in _LAYER_KEYS + _GEMMA_KEYS
-             if k in lp]
+    return ([lp[k] for lp in params["layers"]
+             for k in _LAYER_KEYS + _GEMMA_KEYS + _BIAS_KEYS if k in lp]
             + [params[k] for k in ("embed", "final_norm", "lm_head")])
 
 
@@ -454,8 +555,10 @@ def _attention_blockmask(q, k, v, cfg: LlamaConfig, window_left: int,
     """Attention on [b, s, h, d] under the Gemma3 multimodal mask, (causal
     AND window) OR same-image-run, through the image-block kernel
     (kernels/blockmask.py). block_ids [b, s] int32: contiguous image-run
-    id per token, -1 = text. The config has no attention softcap (it
-    raises on one), which the image-block mask does not take either."""
+    id per token, -1 = text. The image-block kernel takes no softcap (as
+    in JAX)."""
+    if cfg.attn_softcap:
+        raise NotImplementedError("softcap with the image-block mask")
     return image_block_prefill(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), block_ids,
         softmax_scale=cfg.attn_scale, window_left=window_left).transpose(1, 2)
@@ -475,7 +578,8 @@ def _attention_dense_masked(q, k, v, cfg: LlamaConfig, window_left: int,
         band &= col >= row - window_left
     return dense_masked_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        band[None] | extra_mask.to(q.device), cfg.attn_scale).transpose(1, 2)
+        band[None] | extra_mask.to(q.device), cfg.attn_scale,
+        softcap=_softcap(cfg)).transpose(1, 2)
 
 
 def _train_layer(x, lp, wl, rope, cfg: LlamaConfig, image_block_ids=None):
@@ -492,7 +596,8 @@ def _train_layer(x, lp, wl, rope, cfg: LlamaConfig, image_block_ids=None):
     else:
         attn = flash_attention_grad(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-            softmax_scale=cfg.attn_scale, window_size=(wl, -1)).transpose(1, 2)
+            softmax_scale=cfg.attn_scale, window_size=(wl, -1),
+            logit_softcap=_softcap(cfg)).transpose(1, 2)
     x = _attn_residual(x, attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp,
                        cfg)
     return _mlp(x, lp, cfg)
@@ -606,7 +711,8 @@ def _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg: LlamaConfig):
 
     Numerics mirror the kernel's treatment had the row been stored: the
     payload contracts in bf16 when quantized, the per-row scale applies
-    AFTER the contraction, fp32 softmax algebra.
+    AFTER the contraction, the softcap on the scaled logit, fp32 softmax
+    algebra.
 
     o_c: [n, span, heads, d] normalized cache output; lse_c: [n, span,
     heads] natural-log LSE (-inf for an empty cache row); q: [n, span,
@@ -632,7 +738,11 @@ def _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg: LlamaConfig):
         vd = vr.float() * vs_new.reshape(hkv, n, span).permute(1, 2, 0)[..., None]
     else:
         vd = vr.float()
-    s = s * cfg.attn_scale
+    cap = _softcap(cfg)
+    if cap:
+        s = torch.tanh(s * (cfg.attn_scale / cap)) * cap
+    else:
+        s = s * cfg.attn_scale
     if span > 1:
         tri = torch.ones(span, span, dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~tri, float("-inf"))
@@ -762,7 +872,7 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             attn = prefill_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=True, softmax_scale=cfg.attn_scale,
-                window_size=(wl, -1)).transpose(1, 2)
+                window_size=(wl, -1), logit_softcap=_softcap(cfg)).transpose(1, 2)
         x = _attn_residual(x, attn.reshape(n, s, cfg.n_heads * hd), lp, cfg)
         x = _mlp(x, lp, cfg)
         if ks_new is not None:
@@ -881,7 +991,8 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             q.to(cfg.dtype), cache.k_pages, cache.v_pages, kv_len, offsets,
             table_rows + li * P, k_scales=cache.k_scales,
             v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
-            causal=True, window_left=wl, quant_dtype=cache.quant_dtype)
+            causal=True, window_left=wl, logit_softcap=_softcap(cfg),
+            quant_dtype=cache.quant_dtype)
         x = _attn_residual(x, attn.reshape(n, chunk, cfg.n_heads * hd), lp, cfg)
         x = _mlp(x, lp, cfg)
     x = _rms_norm(x, params["final_norm"], cfg)
@@ -975,8 +1086,8 @@ def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             q.to(cfg.dtype), cache.k_pages, cache.v_pages, lens,
             tables + li * cache.num_pages, k_scales=cache.k_scales,
             v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
-            window_left=wl, quant_dtype=cache.quant_dtype,
-            pos_offset=span, return_lse=True,
+            window_left=wl, logit_softcap=_softcap(cfg),
+            quant_dtype=cache.quant_dtype, pos_offset=span, return_lse=True,
         )  # [n, span, heads, hd], [n, span, heads]
         attn = _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg)
         x = _attn_residual(x, attn.reshape(n, span, cfg.n_heads * hd), lp, cfg)

@@ -170,9 +170,9 @@ def varlen_cases(cs, label, gen, d, hq, hkv, cases):
     return ok
 
 
-def paged_prefill_cases(cs, label, gen, d, hq, hkv, q_start, cases):
+def paged_prefill_cases(cs, label, gen, d, hq, hkv, q_start, cases, softcap=0.0):
     """Kernel 8 on a chunk batch of 4 x 512 rows; cases (format, window,
-    page size)."""
+    page size); softcap > 0: Gemma2's tanh cap on the scores."""
     import torch
 
     from mfa_tpu_torch.kernels import paged_prefill
@@ -203,17 +203,19 @@ def paged_prefill_cases(cs, label, gen, d, hq, hkv, q_start, cases):
         def run(lse=False):
             return paged_prefill.paged_prefill_attention(
                 q, kp, vp, L, QS, table, q_lens=QL, k_scales=ks, v_scales=vs,
-                causal=True, window_left=wl, quant_dtype=quant, return_lse=lse)
+                causal=True, window_left=wl, logit_softcap=softcap, quant_dtype=quant,
+                return_lse=lse)
 
         tag = (f"chunk batch 4 x {sq} at q_start {q_start}, hq{hq} hkv{hkv} d{d}, "
-               f"{fmt} pages of {page}" + (f", window {wl}" if wl >= 0 else ""))
+               f"{fmt} pages of {page}" + (f", window {wl}" if wl >= 0 else "")
+               + (f", softcap {softcap}" if softcap else ""))
         try:
             o, lse = run(True)
         except NotImplementedError:
             print(f"{label} kernel 8 {tag}: not taken", flush=True)
             continue
         ro, rl = paged_prefill._paged_prefill_plain(
-            q.float(), kp, vp, ks, vs, L, QS, QL, table, d ** -0.5, wl, 0, 0.0,
+            q.float(), kp, vp, ks, vs, L, QS, QL, table, d ** -0.5, wl, 0, softcap,
             quant_dtype=quant)
         err = (o.float() - ro.float()).abs()
         fin = torch.isfinite(rl)
@@ -224,7 +226,7 @@ def paged_prefill_cases(cs, label, gen, d, hq, hkv, q_start, cases):
         ok &= good
         ms = cs._time_ms(run)
         plain_ms = cs._time_ms(lambda: paged_prefill._paged_prefill_plain(
-            q, kp, vp, ks, vs, L, QS, QL, table, d ** -0.5, wl, 0, 0.0,
+            q, kp, vp, ks, vs, L, QS, QL, table, d ** -0.5, wl, 0, softcap,
             quant_dtype=quant), iters=3)
         kv_rows = sum(-(-n // page) * page for n in lens) * hkv
         nbytes = 2 * kv_rows * kp.shape[-1] * kp.element_size() \

@@ -1,5 +1,6 @@
 """The port stands alone: importing mfa_tpu_torch loads neither JAX nor any
-mfa_tpu module, the package never calls PyTorch's fused attention, and
+mfa_tpu module (nor transformers, safetensors or ml_dtypes, which the
+card's machine lacks: checkpoints load through the port's own reader), the package never calls PyTorch's fused attention, and
 entry points that create state on the default device ("cuda") raise when
 no GPU is present instead of running on the CPU."""
 
@@ -24,9 +25,11 @@ def test_import_loads_neither_jax_nor_mfa_tpu():
         "mfa_tpu_torch.kernels.backward, mfa_tpu_torch.kernels.autodiff, "
         "mfa_tpu_torch.models.llama, mfa_tpu_torch.ref.oracle, "
         "mfa_tpu_torch.models.vision, mfa_tpu_torch.kernels.blockmask, "
-        "mfa_tpu_torch.models.wquant, mfa_tpu_torch.kernels.wmatmul\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'mfa_tpu' or m.startswith('mfa_tpu.'))\n"
+        "mfa_tpu_torch.models.wquant, mfa_tpu_torch.kernels.wmatmul, "
+        "mfa_tpu_torch.models.safetensors_io, mfa_tpu_torch.models.convert, "
+        "mfa_tpu_torch.utils.checkpoint\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'mfa_tpu', 'transformers', 'safetensors', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -71,6 +71,9 @@ def _close(out, lse, ref, ref_lse):
     (2, 4, 2, 100, 130, 256, False, (9, 4), 0.0, BF),
     (1, 4, 4, 64, 64, 256, True, (-1, -1), 30.0, BF),
     (1, 16, 2, 200, 50, 256, False, (10, -1), 0.0, BF),  # dead rows past sk
+    # Gemma2-9B's heads: 16 q / 8 kv of 256, softcap 50, window 4095 and none
+    (1, 16, 8, 300, 300, 256, True, (4095, -1), 50.0, BF),
+    (2, 16, 8, 200, 200, 256, True, (-1, -1), 50.0, BF),
 ])
 def test_prefill_kernel(dev, b, hq, hkv, sq, sk, d, causal, window, softcap,
                         dtype):
@@ -194,6 +197,11 @@ _GEMMA3_LENS = [300 + (1700 * i) // 9 for i in range(10)]  # 300-2000
     (32, 2, 64, 128, None, BF, 1, 50, 0.0, None),
     (32, 2, 16, 64, "fp8", HF, 0, -1, 15.0, None),
     (32, 1, 64, 256, "int4", BF, 1, -1, 0.0, _GEMMA3_LENS),
+    # Gemma2-9B (group 2, d 256, softcap 50, window 4095 and none) and
+    # Qwen2-7B (group 7)
+    (16, 8, 64, 256, "int8", BF, 1, 4095, 50.0, None),
+    (16, 8, 64, 256, None, BF, 1, -1, 50.0, None),
+    (28, 4, 64, 128, "int8", BF, 1, -1, 0.0, None),
 ])
 def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
                       softcap, lens):
@@ -465,6 +473,40 @@ def test_varlen_equals_prefill_bit_for_bit(dev, n_seq, s, hq, hkv, d):
          20.0),
         (16, 2, 64, 256, True, HF, [64, 0], 130, [194, 100], None, True, (-1, -1),
          0.0),
+        # q-per-kv groups that do not divide 64 (dead tail rows in each
+        # warpgroup): Qwen2-7B's 7 on every page format, 5 and 6, at d 64,
+        # 128 and 256; 3 and 40 (one position a warpgroup)
+        (28, 4, 64, 128, True, BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        (28, 4, 64, 128, False, BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        (28, 4, 64, 128, "fp8", BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (100, -1), 0.0),
+        (28, 4, 64, 128, "int4", BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        (20, 4, 32, 128, True, HF, [96, 0], 64, [160, 64], None, True, (-1, -1),
+         20.0),
+        (12, 2, 16, 128, "fp8", BF, [16, 0], 100, [116, 70], [100, 40], False,
+         (10, 6), 0.0),
+        (14, 2, 64, 256, True, BF, [0, 128, 320], 192, [192, 320, 370], None, True,
+         (63, -1), 0.0),
+        (10, 2, 64, 256, False, HF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        (12, 2, 64, 256, "int4", BF, [64, 0], 130, [194, 100], None, True, (40, -1),
+         0.0),
+        (28, 4, 32, 256, "fp8", BF, [96, 0], 64, [160, 64], None, True, (-1, -1),
+         20.0),
+        (7, 1, 64, 64, "int4", BF, [64, 0], 130, [194, 100], None, True, (40, -1),
+         0.0),
+        (6, 2, 16, 64, False, HF, [16, 0], 100, [116, 70], [100, 40], False,
+         (10, 6), 0.0),
+        (40, 1, 64, 128, False, BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 0.0),
+        # Gemma2-9B's heads: softcap 50, window 4095 and none
+        (16, 8, 64, 256, True, BF, [0, 128, 320], 192, [192, 320, 370], None, True,
+         (4095, -1), 50.0),
+        (16, 8, 64, 256, False, BF, [0, 128, 320], 192, [192, 320, 370], None,
+         True, (-1, -1), 50.0),
     ])
 def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
                               lens, q_lens, causal, window, softcap):
@@ -520,6 +562,12 @@ def test_paged_prefill_kernel(dev, hq, hkv, page, d, quant, dtype, q_start, sq,
          (-1, -1)),
         (8, 2, 64, 256, "fp8", BF, [5, 0], 300, [305, 77], [300, 77], (-1, -1)),
         (8, 8, 128, 256, False, HF, [5, 0], 300, [305, 77], [300, 77], (40, -1)),
+        # groups 7, 5 and 6: the dead tail rows are never stored
+        (28, 4, 64, 128, True, BF, [0, 100], 200, [200, 300], None, (-1, -1)),
+        (20, 4, 16, 256, "fp8", HF, [0, 40], 129, [129, 169], None, (33, -1)),
+        (12, 2, 32, 128, "int4", BF, [0, 64, 10], 256, [256, 64, 10], [256, 0, 0],
+         (-1, -1)),
+        (14, 2, 64, 64, False, BF, [5, 0], 300, [305, 77], [300, 77], (40, -1)),
     ])
 def test_paged_prefill_edges(dev, hq, hkv, page, d, quant, dtype, q_start, sq, lens,
                              q_lens, window):
