@@ -56,7 +56,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    on the same positions, groups 5 and 6 on bf16, fp8 and int4 pages,
    Gemma2-9B's batch (d 256, softcap 50, window 4095 and none); kernel 6 at
    both models' decode steps; kernel 1 at the Gemma2-9B wave (softcap) and
-   kernels 2 + 3 at Qwen2-7B's.
+   kernels 2 + 3 at Qwen2-7B's; kernel 10's expert-bank launch
+   (moe_kernels, launch name wmatmul_bank): the dense form at Mixtral-8x7B's
+   decode step (m 16, 8 experts, gate/up over shared rows, down over each
+   expert's), the grouped form at a wave's 7202 expert-sorted rows (one
+   empty expert, one of a single row) and at a 4 x 512 chunk batch, and K /
+   N tails, within 2^-8 of the largest output, beside torch.matmul on the
+   bf16-dequantized bank.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -101,6 +107,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    tokens; then Qwen2-7B (28 layers) and Gemma2-9B (42 layers: softcaps,
    alternating 4096 windows; its waves on kernel 1) at full depth behind
    the chunked + prefix engine with the chunked cell's traffic on int8 KV.
+   Then, those weights freed, Mixtral-8x7B at full width and depth (32
+   layers, 8 experts, top 2) with int8 weights and expert banks (46.7 GB)
+   and int8 KV: the first engine's traffic with run(burst=8) and again
+   stepwise with the graphs off (the same tokens; every decode step 96
+   expert launches, the dense MoE form; each wave the grouped form), then
+   the chunked + prefix traffic; weight bytes against bf16's, peak memory,
+   rows an expert takes in a wave.
    Before the train steps, the first engine's weights and traffic twice
    more: with sampling (engine top-k 50 and a per-request mix of greedy,
    temperature / top-p, temperature / min-p and penalized greedy rows;
@@ -123,7 +136,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    text prompt's and a prefix hit's (int8 KV); then the 2-layer 8B with int8
    weights: prefill and decode logits agree, argmax equal; then Qwen2-7B
    and Gemma2-9B at full width cut to 2 layers (int8 KV): prefill, decode,
-   chunked and prefix-hit logits agree.
+   chunked and prefix-hit logits agree; then Mixtral-8x7B at full width cut
+   to 2 layers with int8 banks: the share of tokens routed to the same top-2
+   experts on both devices, and the logits of the tokens routed alike in
+   every layer (forward, prefill, decode); then 4 layers of Mixtral's width
+   with bf16 banks behind the engine on the card, graphed tokens equal to
+   graphs-off tokens.
 5. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
 """
@@ -385,6 +403,7 @@ def kernel_phase(records):
     ok &= gemma3_kernels(records, rn, gen)
     ok &= zero_shift_kernels(records, rn)
     ok &= wmatmul_kernels(records, gen)
+    ok &= moe_kernels(records, gen)
     ok &= kv_format_kernels(records)
     ok &= span_kernels(records)
     ok &= family_kernels(records, rn, gen)
@@ -1175,6 +1194,114 @@ def wmatmul_kernels(records, gen):
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                        library_ms=lib_ms)
         del x, w, wd
+    torch.cuda.empty_cache()
+    return ok
+
+
+def moe_kernels(records, gen):
+    """Kernel 10's expert-bank launch (csrc/wmatmul.cu mfa_int8_bank_matmul,
+    launch name wmatmul_bank) against its plain version in fp32 on the same
+    inputs, limit 2^-8 of the largest output (kernel 10's): the dense form
+    at Mixtral-8x7B's decode step (m 16, 8 experts: gate / up 4096 -> 14336
+    over shared rows, down 14336 -> 4096 over each expert's rows), the
+    grouped form at a wave's 3601 tokens x top 2 = 7202 expert-sorted rows
+    with a skewed routing (one empty expert, one of a single row) and at a
+    4 x 512 chunk batch (4096 rows), and K / N tails; each timed beside its
+    bound and the library: torch.matmul on the bf16-dequantized bank
+    (batched: torch.bmm's kernel) for the dense form, one torch.matmul an
+    expert over host-known bounds for the grouped form."""
+    import torch
+
+    from mfa_tpu_torch.kernels import wmatmul
+    from mfa_tpu_torch.models.wquant import dequantize_weight, quantize_weight
+
+    ok = True
+    rec = records["wmatmul_bank"]
+
+    def bank(E, K, N):
+        return quantize_weight(torch.randn(E, K, N, generator=gen, device="cuda")
+                               * K ** -0.5)
+
+    def check(name, x, w, offs=None, max_rows=None, timed=True):
+        E, K, N = w.qw.shape
+        out = wmatmul.int8_bank_matmul(x, w.qw, w.scale, offs=offs, max_rows=max_rows)
+        ref = wmatmul._bank_plain(x.float(), w.qw, w.scale, offs, torch.float32)
+        d = (out.float() - ref).abs()
+        lim = 2 ** -8 * float(ref.abs().max())
+        mx = float(d.max())
+        good = bool(torch.isfinite(out.float()).all()) and mx <= lim
+        rows = x.shape[-2] if offs is None else x.shape[0]
+        print(f"wmatmul_bank {name}: {'dense' if offs is None else 'grouped'} E={E} "
+              f"rows={rows} K={K} N={N}: max_abs_err {mx:.3e} (<= {lim:.3e}) mean "
+              f"{float(d.mean()):.3e} {'ok' if good else 'FAIL'}", flush=True)
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), mx)
+        if not timed:
+            return good, None
+        ms = _time_ms(lambda: wmatmul.int8_bank_matmul(x, w.qw, w.scale, offs=offs,
+                                                       max_rows=max_rows))
+        plain_ms = _time_ms(lambda: wmatmul._bank_plain(x, w.qw, w.scale, offs,
+                                                        torch.bfloat16), iters=3)
+        wd = dequantize_weight(w, torch.bfloat16)
+        if offs is None:
+            lib_ms = _time_ms(lambda: torch.matmul(x, wd))
+            flops = 2 * E * x.shape[-2] * K * N
+            nbytes = E * K * N + 4 * E * N + x.numel() * 2 + E * x.shape[-2] * N * 2
+        else:
+            b = offs.tolist()
+            lib_ms = _time_ms(lambda: [torch.matmul(x[b[e]:b[e + 1]], wd[e])
+                                       for e in range(E)])
+            flops = 2 * rows * K * N
+            nbytes = E * K * N + 4 * E * N + rows * (K + N) * 2 + 4 * (E + 1)
+        bound_ms, by = _bound(nbytes, flops)
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms (torch.matmul, bf16 "
+              f"bank) {lib_ms:.4f} bound_ms {bound_ms:.4f} ({by}), share of bound "
+              f"{bound_ms / ms:.3f}; int8 bank stream {E * K * N / ms / 1e6:.1f} GB/s, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        del wd
+        return good, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                          library_ms=lib_ms)
+
+    def offsets(sizes):
+        return torch.tensor([0, *torch.tensor(sizes).cumsum(0).tolist()],
+                            dtype=torch.int32, device="cuda")
+
+    bf = torch.bfloat16
+    # Mixtral decode step: gate / up (shared x), then down (each expert's x)
+    w = bank(8, 4096, 14336)
+    x = torch.randn(16, 4096, generator=gen, device="cuda").to(bf)
+    good, times = check("decode gate/up", x, w)
+    ok &= good
+    rec.update(times)
+    # the wave: 7202 rows, expert 2 empty, expert 5 one row
+    sizes = (1500, 1100, 0, 1303, 1, 1298, 1000, 1000)
+    xs = torch.randn(sum(sizes), 4096, generator=gen, device="cuda").to(bf)
+    good, _ = check("wave gate/up", xs, w, offsets(sizes), max(sizes))
+    ok &= good
+    # a chunk batch: 4 x 512 tokens, 4096 rows
+    sizes = (700, 430, 512, 388, 505, 611, 450, 500)
+    xs = torch.randn(sum(sizes), 4096, generator=gen, device="cuda").to(bf)
+    good, _ = check("chunk batch gate/up", xs, w, offsets(sizes), max(sizes))
+    ok &= good
+    del w, xs
+    w = bank(8, 14336, 4096)
+    xe = torch.randn(8, 16, 14336, generator=gen, device="cuda").to(bf)
+    good, _ = check("decode down", xe, w)
+    ok &= good
+    sizes = (1500, 1100, 0, 1303, 1, 1298, 1000, 1000)
+    xs = torch.randn(sum(sizes), 14336, generator=gen, device="cuda").to(bf)
+    good, _ = check("wave down", xs, w, offsets(sizes), max(sizes))
+    ok &= good
+    del w, xe, xs
+    # tails: K and N off the 64 / 128 tiles, fp16 rows, a tile straddling groups
+    w = bank(4, 1040, 400)
+    x = torch.randn(4, 37, 1040, generator=gen, device="cuda").to(torch.float16)
+    good, _ = check("tails", x, w, timed=False)
+    ok &= good
+    sizes = (40, 1, 0, 55)
+    xs = torch.randn(sum(sizes), 1040, generator=gen, device="cuda").to(torch.float16)
+    good, _ = check("tails", xs, w, offsets(sizes), max(sizes), timed=False)
+    ok &= good
+    del w, x, xs
     torch.cuda.empty_cache()
     return ok
 
@@ -2341,6 +2468,10 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
     ok &= got.get(k8, 0) == cfg.n_layers * stats.chunk_batches
     ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches, bool(cfg.attn_softcap))
     ok &= got.get(k6, 0) == cfg.n_layers * stats.steps
+    passes = stats.chunk_batches + stats.prefill_batches + stats.steps
+    if cfg.n_experts:  # every MoE layer: three expert launches a pass
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        ok &= got.get("wmatmul_bank", 0) == 3 * n_moe * passes
     step_tokens = stats.decode_tokens - len(reqs)  # first tokens come from prefill
     tag = f"chunked engine {model} ({quant} KV)"
     wave = "prefill" if cfg.attn_softcap else "flagged = repair"
@@ -3066,6 +3197,281 @@ def engine_int8w_phase(counts, ident):
     return ok
 
 
+def _bf16_nbytes(params) -> int:
+    """Bytes the weights would hold in bf16 (fp32 norms and router as they
+    are): a QWeight counts 2 bytes an entry."""
+    from mfa_tpu_torch.models.wquant import QWeight
+
+    if isinstance(params, dict):
+        return sum(_bf16_nbytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(_bf16_nbytes(v) for v in params)
+    if isinstance(params, QWeight):
+        return params.qw.numel() * 2
+    return params.numel() * params.element_size()
+
+
+class _RouteTally:
+    """Wraps llama._moe_route while installed: sums, on the device, the rows
+    routed to each expert per call of more than _MOE_DENSE_MAX_T rows
+    (prefill waves and chunk batches; never inside a graph capture), and
+    with keep=True keeps every call's expert ids."""
+
+    def __init__(self, llama, keep=False):
+        self.llama, self.keep = llama, keep
+        self.counts, self.ids = [], []
+
+    def __enter__(self):
+        import torch
+
+        orig = self.orig = self.llama._moe_route
+        llama = self.llama
+
+        def counting(t, w_router, k, norm_topk):
+            w_top, idx = orig(t, w_router, k, norm_topk)
+            if self.keep:
+                self.ids.append(idx.sort(dim=-1).values.cpu())
+            elif (t.shape[0] > llama._MOE_DENSE_MAX_T
+                  and not torch.cuda.is_current_stream_capturing()):
+                flat = idx.reshape(-1)
+                self.counts.append(torch.zeros(w_router.shape[1], dtype=torch.long,
+                                               device=t.device).scatter_add_(
+                    0, flat, torch.ones_like(flat)))
+            return w_top, idx
+
+        llama._moe_route = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.llama._moe_route = self.orig
+
+
+def engine_mixtral_phase(counts, ident, state):
+    """Main path, Mixtral-8x7B at full width and depth (32 layers, 8 experts,
+    top 2, ffn 14336) with int8 weights and expert banks
+    (init_params(quantize="int8"): each bank quantized one expert slice at a
+    time) and int8 KV pages of 64; the earlier phases' weights freed first.
+    (a) the 8B engine's traffic, 16 requests of 200-256 prompt tokens and
+    32 new tokens, decode graphed in bursts of 8 (run(burst=8)), then the
+    same traffic stepwise with the graphs off: the same tokens. Each decode
+    step is 32 layers x 3 expert launches (the dense form), each wave the
+    grouped form. (b) the chunked + prefix engine and its traffic
+    (chunked_engine_phase): 17 requests, prompts up to 4000 tokens, chunks
+    of 512, 8 hits on a 1024-token system prompt."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.models.wquant import params_nbytes
+    from mfa_tpu_torch.serve import graphs
+    from mfa_tpu_torch.serve.engine import Engine
+
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.LlamaConfig.mixtral_8x7b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED + 6, device="cuda", quantize="int8")
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    nbytes, bf16_bytes = params_nbytes(params), _bf16_nbytes(params)
+    banks = sum(params_nbytes([lp[k] for k in ("we_gate", "we_up", "we_down")])
+                for lp in params["layers"])
+    ok = nbytes <= 0.52 * bf16_bytes
+    print(f"engine Mixtral-8x7B: {cfg.n_layers} layers, {cfg.n_experts} experts top "
+          f"{cfg.n_active_experts}, int8 weights {nbytes / 1e9:.3f} GB ({banks / 1e9:.3f} "
+          f"GB of expert banks) against {bf16_bytes / 1e9:.3f} GB in bf16 (ratio "
+          f"{nbytes / bf16_bytes:.4f} <= 0.52), built and quantized from seed {SEED + 6} "
+          f"in {init_s:.1f} s, init peak memory {init_peak:.2f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    n_req, gen_tokens, L = 16, 32, cfg.n_layers
+    kw = dict(num_pages=128, page_size=64, max_seqs=16, pages_per_seq=8,
+              quant_dtype="int8", device="cuda")
+
+    def traffic(eng):
+        rng = np.random.RandomState(SEED)
+        return [eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), gen_tokens)
+                for n in rng.randint(200, 257, n_req)]
+
+    eng = Engine(params, cfg, **kw)
+    free0 = eng.sched.allocator.free_pages
+    reqs = traffic(eng)
+    _build.reset_launches()
+    with _RouteTally(llama) as tally:
+        t0 = time.perf_counter()
+        stats = eng.run(burst=8)
+        wall = time.perf_counter() - t0
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphed = [list(r.generated) for r in reqs]
+    passes = stats.prefill_batches + stats.steps
+    ok &= all(len(r.generated) == gen_tokens for r in reqs)
+    ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+    ok &= eng.sched.allocator.free_pages == free0 and stats.captures >= 1
+    ok &= _wave_launches(got, L * stats.prefill_batches)
+    ok &= got.get("paged", 0) == L * stats.steps
+    ok &= got.get("wmatmul_bank", 0) == 3 * L * passes
+    ok &= got.get("wmatmul", 0) == (4 * L + 1) * passes
+    ok &= peak_gb < 80
+    per = torch.stack(tally.counts).float() if tally.counts else torch.zeros(1, 8)
+    step_tokens = stats.decode_tokens - n_req
+    print(f"engine Mixtral-8x7B launches {got}: wmatmul_bank = 3 x {L} layers x "
+          f"({stats.prefill_batches} waves + {stats.steps} decode steps) = "
+          f"{3 * L} a decode step, wmatmul = (4 x {L} + lm_head) x the same, "
+          f"paged = {L} x {stats.steps}", flush=True)
+    print(f"engine Mixtral-8x7B: rows an expert takes in a wave's layer ({len(tally.counts)}"
+          f" layer passes of {int(per[0].sum()) if tally.counts else 0} rows, top "
+          f"{cfg.n_active_experts} of the padded wave): mean {float(per.mean()):.1f}, max "
+          f"{float(per.max()):.0f}, min {float(per.min()):.0f}", flush=True)
+    print(f"engine Mixtral-8x7B (run(burst=8)): {n_req} requests finished with "
+          f"{gen_tokens} tokens: {all(len(r.generated) == gen_tokens for r in reqs)}; "
+          f"free pages {eng.sched.allocator.free_pages} of {free0} returned; prefill "
+          f"{stats.prefill_tokens / stats.prefill_s:.1f} tok/s ({stats.prefill_tokens} "
+          f"tokens in {stats.prefill_s:.3f} s), decode {_decode_rates(stats, step_tokens)}"
+          f", {wall:.3f} s wall, weights {nbytes / 1e9:.3f} GB, peak memory "
+          f"{peak_gb:.2f} GB [{ident}]", flush=True)
+    del eng
+    graphs._ENABLED = False  # a measurement switch: every decode step eager
+    try:
+        eager = Engine(params, cfg, **kw)
+        ereqs = traffic(eager)
+        est = eager.run()
+    finally:
+        graphs._ENABLED = True
+    same = [r.generated for r in ereqs] == graphed
+    ok &= same and est.captures == 0
+    print(f"engine Mixtral-8x7B, decode steps eager (graphs off): decode "
+          f"{step_tokens / est.decode_s:.1f} tok/s ({est.steps} steps, {est.decode_s:.3f}"
+          f" s); tokens identical to the graphed run: {same} [{ident}]", flush=True)
+    del eager
+    torch.cuda.empty_cache()
+    state.update(params=params, cfg=cfg)
+    try:
+        ok &= chunked_engine_phase(counts, ident, state, "int8", "Mixtral-8x7B")
+    finally:
+        state.clear()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
+def cpu_vs_cuda_moe_phase():
+    """Phase 4, MoE: (a) Mixtral-8x7B at full width cut to 2 layers, int8
+    weights and banks, on the card (kernels), on the CPU (plain versions)
+    and on the CPU in fp32 activations (the same int8 weights, the
+    embedding dequantized: the reference both bf16 runs are held to): a
+    forward of 2 x 100 tokens (the grouped form), a prefill wave of 37 and
+    90 tokens and the next decode step (the dense form). Reported: the share
+    of (layer, row) pairs whose top-2 expert set agrees on the card and the
+    CPU (at least 0.9); over the rows routed alike in every layer by all
+    three runs, the card-vs-CPU logits error (max < 0.25 everywhere, mean <
+    0.02 over the forward's rows, the 2-layer limits), the spread of the
+    forward's per-row means, and each bf16 run's mean distance from the fp32
+    reference: the card's at most 1.25x the CPU's. (b) 4 layers at
+    Mixtral's width with bf16 banks (11.3 GB) behind the engine on the
+    card: the bf16 dense form (graphed decode) and grouped form (one
+    torch.matmul an expert, the waves); greedy tokens equal to the same
+    engine's with the graphs off."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.models.wquant import dequantize_weight
+    from mfa_tpu_torch.serve import graphs
+    from mfa_tpu_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(llama.LlamaConfig.mixtral_8x7b(), n_layers=2)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p_gpu = llama.init_params(cfg, seed=SEED + 7, device="cuda", quantize="int8")
+    p_cpu = dict(layers=[{k: v.to("cpu") for k, v in lp.items()} for lp in p_gpu["layers"]],
+                 **{k: p_gpu[k].to("cpu") for k in ("embed", "final_norm", "lm_head")})
+    p_ref = dict(p_cpu, embed=dequantize_weight(p_cpu["embed"], torch.float32))
+    rng = np.random.RandomState(SEED + 7)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 100)))
+    prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in (37, 90)]
+    out, ids = {}, {}
+    for run, dev, params, c in (("cuda", "cuda", p_gpu, cfg), ("cpu", "cpu", p_cpu, cfg),
+                                ("fp32", "cpu", p_ref, cfg32)):
+        with _RouteTally(llama, keep=True) as tally, torch.no_grad():
+            fw = llama.forward(params, toks.to(dev), c)
+            cache = llama.build_kv_caches(c, 16, 64, 2, 4, "int8", device=dev)
+            cache, lg1 = llama.prefill_batch(params, c, cache, [0, 1],
+                                             [[1, 2], [3, 4, 5]], prompts)
+            nxt = out["next"] if "next" in out else lg1.argmax(-1).cpu()
+            out["next"] = nxt
+            cache, lg2 = llama.decode_step(params, c, cache, [0, 1], nxt)
+        out[run] = [x.float().cpu() for x in (fw.reshape(-1, fw.shape[-1]), lg1, lg2)]
+        ids[run] = tally.ids
+    # calls in order: forward's 2 layers (200 rows), prefill's 2 (2 x 128
+    # padded rows), decode's 2 (2 rows)
+    agree = [torch.all(a == b, dim=-1) for a, b in zip(ids["cuda"], ids["cpu"])]
+    alike = [a & torch.all(b == r, dim=-1)
+             for a, b, r in zip(agree, ids["cuda"], ids["fp32"])]
+    share = float(torch.cat(agree).float().mean())
+    ok = share >= 0.9
+    last = torch.tensor([36, 89])
+    rows_ok = [alike[0] & alike[1],
+               (alike[2] & alike[3]).reshape(2, -1)[torch.arange(2), last],
+               alike[4] & alike[5]]
+    print(f"moe cuda vs cpu: top-2 expert sets agree on {share:.4f} of "
+          f"{sum(a.numel() for a in agree)} (layer, row) pairs (>= 0.9)", flush=True)
+    for i, name in enumerate(("forward", "prefill_batch", "decode_step")):
+        a, r, ref, keep = out["cuda"][i], out["cpu"][i], out["fp32"][i], rows_ok[i]
+        good = bool(torch.isfinite(a).all()) and bool(keep.any())
+        msg = "no row routed alike in every layer by all three runs"
+        if keep.any():
+            d = (a[keep] - r[keep]).abs()
+            row_mean = d.mean(dim=-1)
+            to_ref = float((a[keep] - ref[keep]).abs().mean())
+            cpu_to_ref = float((r[keep] - ref[keep]).abs().mean())
+            good &= float(d.max()) < 0.25 and to_ref <= 1.25 * cpu_to_ref
+            if name == "forward":
+                good &= float(d.mean()) < 0.02
+            msg = (f"max_abs {float(d.max()):.3e} (< 0.25) mean_abs {float(d.mean()):.3e}"
+                   f"{' (< 0.02)' if name == 'forward' else ''}, per-row mean "
+                   f"{float(row_mean.min()):.3e}-{float(row_mean.max()):.3e} (median "
+                   f"{float(row_mean.median()):.3e}); mean distance from the fp32 "
+                   f"reference: card {to_ref:.3e}, cpu bf16 {cpu_to_ref:.3e} (card <= "
+                   f"1.25x cpu), |ref| max {float(ref[keep].abs().max()):.2f}")
+        print(f"moe cuda vs cpu {name} logits [{tuple(a.shape)}], {int(keep.sum())} of "
+              f"{keep.numel()} rows routed alike: {msg} {'ok' if good else 'FAIL'}",
+              flush=True)
+        ok &= good
+    del p_gpu, p_cpu, p_ref
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(llama.LlamaConfig.mixtral_8x7b(), n_layers=4)
+    params = llama.init_params(cfg, seed=SEED + 8, device="cuda")
+    kw = dict(num_pages=64, page_size=64, max_seqs=8, pages_per_seq=8,
+              quant_dtype="int8", device="cuda")
+    runs = []
+    for enabled in (True, False):
+        graphs._ENABLED = enabled
+        try:
+            eng = Engine(params, cfg, **kw)
+            rng = np.random.RandomState(SEED + 8)
+            reqs = [eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), 8)
+                    for n in rng.randint(20, 200, 8)]
+            stats = eng.run()
+        finally:
+            graphs._ENABLED = True
+        runs.append(([r.generated for r in reqs], stats.captures))
+        del eng
+    same = runs[0][0] == runs[1][0]
+    ok &= same and runs[0][1] >= 1 and runs[1][1] == 0
+    print(f"moe bf16 banks, 4 layers at Mixtral width: greedy tokens graphed "
+          f"({runs[0][1]} captures) equal graphs off: {same}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return ok
+
+
 def cpu_vs_cuda_int8w_phase():
     """Phase 4, int8 weights: the 8B model cut to 2 layers with
     init_params(quantize="int8"), kernel 10 on the card against its plain
@@ -3179,6 +3585,8 @@ def main() -> int:
                   "mfa_tpu/kernels/prefill.py:661"),
         "wmatmul": ("mfa_tpu_torch/csrc/wmatmul.cu",
                     "mfa_tpu/kernels/wmatmul.py:34"),
+        "wmatmul_bank": ("mfa_tpu_torch/csrc/wmatmul.cu",
+                         "mfa_tpu/kernels/wmatmul.py:34"),
     }
     records = {n: {"name": n, "route": "cuda", "source": s, "replaces": r}
                for n, (s, r) in sources.items()}
@@ -3221,10 +3629,13 @@ def main() -> int:
                       lambda: family_engine_phase(counts, ident, state, "Qwen2-7B")),
                      ("chunked_prefix_engine_gemma2_9b",
                       lambda: family_engine_phase(counts, ident, state, "Gemma2-9B")),
+                     ("engine_mixtral_8x7b",
+                      lambda: engine_mixtral_phase(counts, ident, state)),
                      ("cuda_vs_cpu", cpu_vs_cuda_phase),
                      ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
                      ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase),
-                     ("cuda_vs_cpu_families", cpu_vs_cuda_families_phase)):
+                     ("cuda_vs_cpu_families", cpu_vs_cuda_families_phase),
+                     ("cuda_vs_cpu_moe", cpu_vs_cuda_moe_phase)):
         t0 = time.perf_counter()
         try:
             phases[name] = bool(fn())

@@ -51,6 +51,20 @@
 // Any m; K and N multiples of 16 (the wrapper checks: the maps' row strides
 // are multiples of 16 bytes, and a 4-column vector of the output lies
 // wholly inside or outside the matrix).
+//
+// The expert-bank launch (mfa_int8_bank_matmul: the int8 MoE banks of
+// mfa_tpu/models/llama.py:_moe_dense_int8 and ragged_qmm, which are XLA
+// einsums and lax.ragged_dot there, no Pallas kernel) is the same body with
+// the expert on gridDim.z beside the K splits. W is a 3-D map (N, K, E), so
+// TMA clips the K and N tails of every expert's matrix. Dense form: out[e] =
+// x_e @ W_e for every e, x one [M, K] for all experts (gate, up) or one an
+// expert, [E, M, K] (down), out [E, M, N]. Grouped form: expert e owns the
+// rows offs[e]:offs[e + 1] of expert-sorted x [R, K] (offs on the device);
+// its row tiles start at offs[e] in the 2-D x map, which clips only at R, so
+// a tile may read the next expert's rows: the store skips rows past the
+// group, and a block whose first row is past it leaves at once. The grid
+// holds the most row tiles one expert can need (a token picks an expert at
+// most once), so the launch reads nothing on the host and can be captured.
 #include "wgmma.cuh"
 
 namespace wm90 {
@@ -145,20 +159,47 @@ __device__ __forceinline__ void store4(__half* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = make_uint2(pack2<__half>(v.x, v.y), pack2<__half>(v.z, v.w));
 }
 
-// Grid (ceil(M / BMX), ceil(N / BN), splits), the splits of a tile one
-// cluster; split z covers K steps [z * steps_per_split, (z + 1) *
-// steps_per_split).
-template <typename T, typename OutT, int BMX>
+// An expert-bank launch: `experts` matrices of W, gridDim.z = experts x
+// splits. offs: the grouped form's group bounds [experts + 1], or nullptr
+// for the dense form, where x_per_expert says whether x holds one matrix an
+// expert (its map's third coordinate) or one for all.
+struct Bank {
+  const int* offs;
+  int experts;
+  int x_per_expert;
+};
+
+// Grid (row tiles, ceil(N / BN), experts x splits), the splits of a tile
+// one cluster; split z covers K steps [z * steps_per_split, (z + 1) *
+// steps_per_split). Without BANK: one expert, x rows [0, M).
+template <typename T, typename OutT, int BMX, bool BANK>
 __global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
     wmatmul_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                    const float* __restrict__ scale, OutT* __restrict__ out, int M, int N, int K,
-                   int steps_per_split) {
+                   int steps_per_split, Bank bank) {
   using P = Plan<BMX>;
   constexpr int STAGES = P::STAGES;
   constexpr bool SETREG = BMX >= 128;  // the accumulator needs the registers
   const int m0 = blockIdx.x * BMX, n0 = blockIdx.y * BN;
-  const int splits = gridDim.z;
+  const int splits = BANK ? gridDim.z / bank.experts : gridDim.z;
   const int split = splits > 1 ? (int)cluster_rank() : 0;
+  const int ex = BANK ? blockIdx.z / splits : 0;  // the expert
+  // rows of this block's matrix or group; its first row in the x map
+  // (x_row0, plane x_plane) and in out viewed as [*, N] (out_row0)
+  int rows_m = M, x_row0 = m0, x_plane = 0;
+  size_t out_row0 = m0;
+  if constexpr (BANK) {
+    if (bank.offs != nullptr) {
+      const int g0 = __ldg(bank.offs + ex);
+      rows_m = __ldg(bank.offs + ex + 1) - g0;
+      if (m0 >= rows_m) return;  // the whole block (and cluster), before any barrier
+      x_row0 = g0 + m0;
+      out_row0 = (size_t)g0 + m0;
+    } else {
+      x_plane = bank.x_per_expert ? ex : 0;
+      out_row0 = (size_t)ex * M + m0;
+    }
+  }
   const int k_steps = (K + BK - 1) / BK;
   const int kt0 = split * steps_per_split;
   const int n_steps = max(0, min(k_steps, kt0 + steps_per_split) - kt0);
@@ -189,8 +230,8 @@ __global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
         mbar_wait(bar_empty<BMX>(bars, s), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full(bars, s), P::STAGE_BYTES);
         const uint32_t xs = base + s * P::STAGE_BYTES;
-        tma_load_3d(xs, &tx, bar_full(bars, s), k0, m0, 0);
-        tma_load_3d(xs + P::X_BYTES, &tw, bar_full(bars, s), n0, k0, 0);
+        tma_load_3d(xs, &tx, bar_full(bars, s), k0, x_row0, x_plane);
+        tma_load_3d(xs + P::X_BYTES, &tw, bar_full(bars, s), n0, k0, ex);
       }
     }
   } else {
@@ -258,7 +299,7 @@ __global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
   }
   if (wg != 0) {
     const int ct = threadIdx.x - 128;
-    const int rows = (min(BMX, M - m0) - split + splits - 1) / splits;
+    const int rows = (min(BMX, rows_m - m0) - split + splits - 1) / splits;
     for (int it = ct; it < rows * (BN / 4); it += 2 * 128) {
       const int r = split + (it / (BN / 4)) * splits, v = it % (BN / 4);
       const int n = n0 + 4 * v;
@@ -279,29 +320,30 @@ __global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
         sum.z += p.z;
         sum.w += p.w;
       }
-      const float4 sc = *reinterpret_cast<const float4*>(scale + n);
-      store4(out + (size_t)(m0 + r) * N + n,
+      const float4 sc = *reinterpret_cast<const float4*>(scale + (size_t)ex * N + n);
+      store4(out + (out_row0 + r) * N + n,
              make_float4(sum.x * sc.x, sum.y * sc.y, sum.z * sc.z, sum.w * sc.w));
     }
   }
   if (splits > 1) cluster_sync();  // no block leaves while another reads its tile
 }
 
-template <typename T, typename OutT, int BMX>
-int launch(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K, int N,
-           int splits, int steps_per_split, cudaStream_t stream) {
+// tx: the x tensor map; the grid is (m_tiles, ceil(N / BN), experts x
+// splits).
+template <typename T, typename OutT, int BMX, bool BANK>
+int launch(const CUtensorMap& tx, const int8_t* qw, const float* scale, void* out, int M, int K,
+           int N, int splits, int steps_per_split, Bank bank, int m_tiles, cudaStream_t stream) {
   using P = Plan<BMX>;
-  CUtensorMap tx, tw;
-  if (int err = mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, M, 1, BMX)) return err;
-  if (int err = mfa_encode_3d(&tw, qw, CU_TENSOR_MAP_DATA_TYPE_UINT8, N, K, 1, (size_t)N,
-                              (size_t)K * N, BN, BK))
+  CUtensorMap tw;
+  if (int err = mfa_encode_3d(&tw, qw, CU_TENSOR_MAP_DATA_TYPE_UINT8, N, K, bank.experts,
+                              (size_t)N, (size_t)K * N, BN, BK))
     return err;
-  auto kern = wmatmul_kernel<T, OutT, BMX>;
+  auto kern = wmatmul_kernel<T, OutT, BMX, BANK>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)P::bytes))
     return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + BMX - 1) / BMX, (N + BN - 1) / BN, splits);
+  cfg.gridDim = dim3(m_tiles, (N + BN - 1) / BN, bank.experts * splits);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = P::bytes;
   cfg.stream = stream;
@@ -313,22 +355,62 @@ int launch(const void* x, const int8_t* qw, const float* scale, void* out, int M
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
   if (int err = (int)cudaLaunchKernelEx(&cfg, kern, tx, tw, scale, static_cast<OutT*>(out), M,
-                                        N, K, steps_per_split))
+                                        N, K, steps_per_split, bank))
     return err;
   return (int)cudaGetLastError();
+}
+
+// The 2-D launch: one x [M, K], one W.
+template <typename T, typename OutT, int BMX>
+int launch_2d(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K, int N,
+              int splits, int steps_per_split, cudaStream_t stream) {
+  CUtensorMap tx;
+  if (int err = mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, M, 1, BMX)) return err;
+  return launch<T, OutT, BMX, false>(tx, qw, scale, out, M, K, N, splits, steps_per_split,
+                                     Bank{nullptr, 1, 0}, (M + BMX - 1) / BMX, stream);
 }
 
 // x rows a block: kernels/wmatmul.py:block_m.
 template <typename T, typename OutT>
 int launch_m(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K, int N,
              int splits, int steps_per_split, cudaStream_t s) {
-#define MFA_WMM_BM(B) return launch<T, OutT, B>(x, qw, scale, out, M, K, N, splits, steps_per_split, s)
+#define MFA_WMM_BM(B) return launch_2d<T, OutT, B>(x, qw, scale, out, M, K, N, splits, steps_per_split, s)
   if (M <= 16) MFA_WMM_BM(16);
   if (M <= 32) MFA_WMM_BM(32);
   if (M <= 64) MFA_WMM_BM(64);
   if (M < 256) MFA_WMM_BM(128);
   MFA_WMM_BM(256);
 #undef MFA_WMM_BM
+}
+
+// The bank launch at BMX rows a block. Dense: x [M, K] (x_per_expert 0) or
+// [experts, M, K]; grouped: x [M, K] with M the rows of every group.
+template <typename T, int BMX>
+int launch_bank(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K,
+                int N, Bank bank, int m_tiles, int splits, int steps_per_split,
+                cudaStream_t stream) {
+  CUtensorMap tx;
+  const int planes = bank.offs == nullptr && bank.x_per_expert ? bank.experts : 1;
+  if (int err = mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, M, planes, BMX)) return err;
+  return launch<T, T, BMX, true>(tx, qw, scale, out, M, K, N, splits, steps_per_split, bank,
+                                 m_tiles, stream);
+}
+
+template <typename T>
+int launch_bank_m(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K,
+                  int N, Bank bank, int bm, int m_tiles, int splits, int steps_per_split,
+                  cudaStream_t s) {
+#define MFA_WMB_BM(B)                                                                     \
+  if (bm == B)                                                                            \
+    return launch_bank<T, B>(x, qw, scale, out, M, K, N, bank, m_tiles, splits, steps_per_split, \
+                             s);
+  MFA_WMB_BM(16)
+  MFA_WMB_BM(32)
+  MFA_WMB_BM(64)
+  MFA_WMB_BM(128)
+  MFA_WMB_BM(256)
+#undef MFA_WMB_BM
+  return MFA_BAD_CONFIG;
 }
 
 }  // namespace wm90
@@ -353,5 +435,32 @@ extern "C" int mfa_int8_matmul(const void* x, const int8_t* qw, const float* sca
   if (dtype == MFA_F16 && !out_f32) MFA_WMM(__half, __half);
   if (dtype == MFA_F16 && out_f32) MFA_WMM(__half, float);
 #undef MFA_WMM
+  return MFA_BAD_CONFIG;
+}
+
+// The expert-bank launch. qw [experts, K, N] int8, scale [experts, N] fp32,
+// x and out in `dtype` (MFA_BF16 or MFA_F16), every pointer 16-byte aligned.
+// offs == nullptr (dense): x [M, K] (x_per_expert 0) or [experts, M, K],
+// out [experts, M, N]. Else (grouped): offs [experts + 1] int32 on the
+// device, nondecreasing from 0 to M, expert e owning rows offs[e]:offs[e +
+// 1] of x [M, K] and out [M, N], no group above m_tiles * bm rows. bm: x rows
+// a block (16, 32, 64, 128 or 256); m_tiles: row tiles an expert (dense:
+// ceil(M / bm)). Splits as mfa_int8_matmul. Returns a cudaError_t code,
+// MFA_TMA_ENCODE or MFA_BAD_CONFIG (0 = launched).
+extern "C" int mfa_int8_bank_matmul(const void* x, const int8_t* qw, const float* scale,
+                                    void* out, const int* offs, int dtype, int M, int K, int N,
+                                    int experts, int x_per_expert, int bm, int m_tiles,
+                                    int splits, int k_steps_per_split, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M == 0 || N == 0 || experts == 0 || m_tiles == 0) return 0;
+  if (K % 16 || N % 16 || splits < 1 || splits > wm90::MAX_SPLITS || K == 0)
+    return MFA_BAD_CONFIG;
+  const wm90::Bank bank{offs, experts, x_per_expert};
+  if (dtype == MFA_BF16)
+    return wm90::launch_bank_m<__nv_bfloat16>(x, qw, scale, out, M, K, N, bank, bm, m_tiles,
+                                              splits, k_steps_per_split, s);
+  if (dtype == MFA_F16)
+    return wm90::launch_bank_m<__half>(x, qw, scale, out, M, K, N, bank, bm, m_tiles, splits,
+                                       k_steps_per_split, s);
   return MFA_BAD_CONFIG;
 }

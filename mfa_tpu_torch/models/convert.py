@@ -1,16 +1,15 @@
 """HuggingFace checkpoint -> this port's params (counterpart of mfa_tpu/models/convert.py).
 
-`from_hf` maps a transformers causal LM of the dense Llama family (Llama,
-Mistral, Qwen2, Qwen3, Gemma, Gemma2, Gemma3's text stack), its state
-dict, or a `LazyStateDict` (models/safetensors_io.py) onto the port's
-params and LlamaConfig, so real checkpoints serve through the engine;
-`from_safetensors` loads an on-disk HF snapshot tensor by tensor, and
-`gemma3_multimodal_from_hf` adds the SigLIP tower and the projector
+`from_hf` maps a transformers causal LM of the Llama family (Llama,
+Mistral, Qwen2, Qwen3, Gemma, Gemma2, Gemma3's text stack, and the MoE
+families Mixtral, Qwen3-MoE, Qwen2-MoE and Qwen-MoE with dense layers mixed
+in), its state dict, or a `LazyStateDict` (models/safetensors_io.py) onto
+the port's params and LlamaConfig, so real checkpoints serve through the
+engine; `from_safetensors` loads an on-disk HF snapshot tensor by tensor,
+and `gemma3_multimodal_from_hf` adds the SigLIP tower and the projector
 (models/vision.py). transformers is never imported: a model is read
 through its `state_dict()` and `config`, and configs are duck-typed
-(`types.SimpleNamespace` of a config.json works). MoE checkpoints are
-refused: config_from_hf fills the MoE fields, and the port's LlamaConfig
-raises on them.
+(`types.SimpleNamespace` of a config.json works).
 
 Weight layout notes (as in the JAX package):
 - HF Linear weights are [out, in]; the port uses [in, out] -> transpose
@@ -38,7 +37,7 @@ from mfa_tpu_torch.dispatch.config import resolve_device
 from mfa_tpu_torch.models.llama import LlamaConfig, Params
 from mfa_tpu_torch.models.safetensors_io import read_safetensors
 from mfa_tpu_torch.models.vision import SiglipVisionConfig
-from mfa_tpu_torch.models.wquant import quantize_weight
+from mfa_tpu_torch.models.wquant import quantize_weight, stack_bank
 
 
 def _tensor(x) -> torch.Tensor:
@@ -222,10 +221,12 @@ def from_hf(model_or_state_dict, hf_config=None, dtype=torch.bfloat16,
     asks for the CPU).
 
     quantize="int8": each projection is quantized per output channel
-    (wquant.quantize_weight) AS IT IS READ, so with a LazyStateDict peak
-    memory is one bf16 tensor plus the int8 tree. Norms, biases, the
-    embedding and lm_head stay in full precision (as mfa_tpu's from_hf
-    leaves them)."""
+    (wquant.quantize_weight) AS IT IS READ, and each expert bank expert by
+    expert, so with a LazyStateDict peak memory is one bf16 tensor plus the
+    int8 tree. Norms, biases, the embedding and lm_head stay in full
+    precision (as mfa_tpu's from_hf leaves them), and so do the MoE router
+    (fp32) and Qwen2-MoE's [d, 1] shared-expert gate: mfa_tpu quantizes the
+    latter and then fails on it in _moe (QWeight has no astype)."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported weight quantization {quantize!r}")
     sd, hf_config = _source(model_or_state_dict, hf_config)
@@ -235,9 +236,13 @@ def from_hf(model_or_state_dict, hf_config=None, dtype=torch.bfloat16,
     def full(name, dt=dtype):
         return _tensor(sd[name]).to(device=dev, dtype=dt)
 
-    def w(name):  # [out, in] -> [in, out]
+    def w(name, q=True):  # [out, in] -> [in, out]
         t = full(name).t().contiguous()
-        return quantize_weight(t, axis=-2) if quantize else t
+        return quantize_weight(t, axis=-2) if quantize and q else t
+
+    def bank(names):  # experts' [out, in] -> [E, in, out], quantized as read
+        return stack_bank((w(n, q=False) for n in names), len(names),
+                          bool(quantize))
 
     layers = []
     for i in range(cfg.n_layers):
@@ -247,11 +252,40 @@ def from_hf(model_or_state_dict, hf_config=None, dtype=torch.bfloat16,
             wk=w(p + "self_attn.k_proj.weight"),
             wv=w(p + "self_attn.v_proj.weight"),
             wo=w(p + "self_attn.o_proj.weight"),
-            w_gate=w(p + "mlp.gate_proj.weight"),
-            w_up=w(p + "mlp.up_proj.weight"),
-            w_down=w(p + "mlp.down_proj.weight"),
             attn_norm=full(p + "input_layernorm.weight", torch.float32),
         )
+        if not cfg.is_moe_layer(i):
+            lp.update(w_gate=w(p + "mlp.gate_proj.weight"),
+                      w_up=w(p + "mlp.up_proj.weight"),
+                      w_down=w(p + "mlp.down_proj.weight"))
+        elif p + "block_sparse_moe.gate.weight" in sd:
+            # Mixtral: block_sparse_moe.gate + experts.N.{w1, w3, w2}
+            ep = p + "block_sparse_moe.experts."
+            lp.update(
+                w_router=full(p + "block_sparse_moe.gate.weight",
+                              torch.float32).t().contiguous(),
+                **{key: bank([f"{ep}{e}.{hf}.weight"
+                              for e in range(cfg.n_experts)])
+                   for key, hf in (("we_gate", "w1"), ("we_up", "w3"),
+                                   ("we_down", "w2"))})
+        else:
+            # Qwen-MoE: mlp.gate + mlp.experts.N.{gate, up, down}_proj
+            ep = p + "mlp.experts."
+            lp.update(
+                w_router=full(p + "mlp.gate.weight", torch.float32).t().contiguous(),
+                **{key: bank([f"{ep}{e}.{hf}_proj.weight"
+                              for e in range(cfg.n_experts)])
+                   for key, hf in (("we_gate", "gate"), ("we_up", "up"),
+                                   ("we_down", "down"))})
+        if cfg.is_moe_layer(i) and cfg.shared_expert_dim:
+            # Qwen2-MoE: the shared expert and its sigmoid gate ([d, 1])
+            sp = p + "mlp.shared_expert."
+            lp.update(ws_gate=w(sp + "gate_proj.weight"),
+                      ws_up=w(sp + "up_proj.weight"),
+                      ws_down=w(sp + "down_proj.weight"))
+            if cfg.shared_expert_gate:
+                lp["w_shared_gate"] = w(p + "mlp.shared_expert_gate.weight",
+                                        q=False)
         if cfg.qk_norm:
             lp.update(q_norm=full(p + "self_attn.q_norm.weight", torch.float32),
                       k_norm=full(p + "self_attn.k_norm.weight", torch.float32))

@@ -46,10 +46,20 @@ logit_softcap; prefill then runs kernel 1, the classic engine), the final
 logit softcap (_unembed, fp32) and alternating sliding / global layers
 (alt_window). Checkpoints load through models/convert.py.
 
-Not ported yet (raise NotImplementedError): MoE (the config's MoE fields
-are carried so that config_from_hf refuses such checkpoints), attention
-sinks, meshes. int8 weights serve only: loss_fn and train_step raise on
-them, as JAX defines no gradient through QWeight.
+Mixture of experts (LlamaConfig.mixtral_8x7b; Qwen3-MoE's moe_ffn_dim
+and full-softmax weights; Qwen2-MoE's gated shared expert; dense layers
+mixed in by moe_layer_pattern): a MoE layer holds w_router [d, E] fp32 and
+the banks we_gate / we_up [E, d, f] and we_down [E, f, d] in place of
+w_gate / w_up / w_down. _moe routes in true fp32 (_moe_route), then runs
+the dense form (every expert over every row, wquant.bank_dense: decode,
+burst and verify steps, which replay from CUDA graphs, and any call of at
+most _MOE_DENSE_MAX_T rows) or the grouped form (rows sorted by expert,
+wquant.bank_grouped), and sums each token's experts in slot order without
+atomics. int8 banks run kernel 10's expert launch in both forms.
+
+Not ported yet (raise NotImplementedError): attention sinks, meshes
+(expert parallelism among them). int8 weights serve only: loss_fn and
+train_step raise on them, as JAX defines no gradient through QWeight.
 """
 
 from __future__ import annotations
@@ -75,8 +85,9 @@ from mfa_tpu_torch.kernels.paged import paged_attention
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.kernels.quant import as_bytes, quantize_rows
-from mfa_tpu_torch.models.wquant import (QWeight, qmm, qtake, quantize_params,
-                                         quantize_weight)
+from mfa_tpu_torch.models.wquant import (QWeight, bank_dense, bank_grouped, qmm,
+                                         qtake, quantize_params, quantize_weight,
+                                         stack_bank)
 from mfa_tpu_torch.serve.sampling import (SamplingParams, gumbel_from_uniform,
                                           sample, sample_dynamic,
                                           token_logprobs, uniform_noise)
@@ -118,10 +129,15 @@ class LlamaConfig:
     attn_softcap: Optional[float] = None     # Gemma2: tanh cap on attention logits
     logit_softcap: Optional[float] = None    # Gemma2: tanh cap on final logits
     alt_window: bool = False                 # even layers sliding, odd global
-    # knobs of the JAX config that the port does not serve yet: attention
-    # sinks (the kernels' sink_tokens) and MoE, whose fields config_from_hf
-    # fills so that a MoE checkpoint is refused here
+    # attention sinks (the kernels' sink_tokens): not served yet
     attn_sinks: int = 0
+    # mixture of experts (mfa_tpu's LlamaConfig): n_experts > 0 replaces
+    # the MLP by top-k routed experts; moe_ffn_dim: expert width when it is
+    # not ffn_dim (Qwen3-MoE); norm_topk: weights a softmax over the chosen
+    # experts (Mixtral) or the full softmax's (Qwen3-MoE); a shared expert
+    # of shared_expert_dim on every token, sigmoid-gated with
+    # shared_expert_gate (Qwen2-MoE); moe_layer_pattern: per-layer flags,
+    # True = expert layer, False = dense MLP (Qwen-MoE's interleave)
     n_experts: int = 0
     n_active_experts: int = 2
     moe_ffn_dim: Optional[int] = None
@@ -131,8 +147,6 @@ class LlamaConfig:
     moe_layer_pattern: Optional[tuple] = None
 
     def __post_init__(self):
-        if self.n_experts:
-            raise NotImplementedError("MoE is not ported yet")
         if self.attn_sinks:
             raise NotImplementedError("attention sinks are not ported yet")
         if self.hidden_act not in ("silu", "gelu_tanh"):
@@ -154,6 +168,18 @@ class LlamaConfig:
     @property
     def window_left(self) -> int:
         return -1 if self.sliding_window is None else self.sliding_window - 1
+
+    @property
+    def moe_hetero(self) -> bool:
+        """True when MoE and dense MLP layers interleave."""
+        p = self.moe_layer_pattern
+        return p is not None and (True in p) and (False in p)
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer i holds routed experts."""
+        if self.moe_layer_pattern is None:
+            return bool(self.n_experts)
+        return bool(self.moe_layer_pattern[i])
 
     @property
     def sliding_pattern(self) -> Optional[tuple]:
@@ -198,6 +224,15 @@ class LlamaConfig:
             ffn_dim=24576, rope_theta=10000.0, norm_eps=1e-6,
             head_dim_override=256, hidden_act="gelu_tanh", norm_offset=True,
             embed_scale=True)
+
+    @staticmethod
+    def mixtral_8x7b() -> "LlamaConfig":
+        """Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json): 32
+        layers, dim 4096, 32 q / 8 kv heads, ffn 14336 in each of 8
+        experts, top 2, vocab 32000, rope_theta 1e6, no sliding window."""
+        return LlamaConfig(
+            vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+            ffn_dim=14336, rope_theta=1000000.0, n_experts=8, n_active_experts=2)
 
     @staticmethod
     def qwen3_8b() -> "LlamaConfig":
@@ -259,14 +294,22 @@ _LAYER_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm", "w_gate",
                "w_up", "w_down")
 _GEMMA_KEYS = ("q_norm", "k_norm", "post_attn_norm", "post_mlp_norm")
 _BIAS_KEYS = ("bq", "bk", "bv")
+_MOE_KEYS = ("w_router", "we_gate", "we_up", "we_down")
+_SHARED_KEYS = ("ws_gate", "ws_up", "ws_down", "w_shared_gate")
 
 
-def _layer_keys(cfg: LlamaConfig) -> tuple:
-    """The per-layer weight names of this config, in a fixed order."""
+def _layer_keys(cfg: LlamaConfig, moe: bool = False) -> tuple:
+    """The per-layer weight names of this config, in a fixed order; moe: of
+    a layer with routed experts (its banks replace w_gate, w_up, w_down)."""
     extra = (("q_norm", "k_norm") if cfg.qk_norm else ()) + (
         ("post_attn_norm", "post_mlp_norm") if cfg.post_norms else ()) + (
         _BIAS_KEYS if cfg.qkv_bias else ())
-    return _LAYER_KEYS + extra
+    if not moe:
+        return _LAYER_KEYS + extra
+    shared = ()
+    if cfg.shared_expert_dim:
+        shared = _SHARED_KEYS if cfg.shared_expert_gate else _SHARED_KEYS[:3]
+    return _LAYER_KEYS[:6] + _MOE_KEYS + shared + extra
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
@@ -275,11 +318,17 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
     device (normal * fan_in^-0.5, embed * 0.02; fp32 norms at their
     identity: one, or zero under norm_offset, which applies 1 + w).
 
-    quantize="int8": every matmul weight and the embedding become QWeight
-    (models/wquant.py), each layer and table quantized as soon as it is
-    built, so the bf16 model never exists whole (peak: the int8 tree and
-    one bf16 table). The same seed gives the weights quantize_params would
-    give for the bf16 init."""
+    quantize="int8": every matmul weight, expert bank and the embedding
+    become QWeight (models/wquant.py), each layer and table quantized as
+    soon as it is built and each expert bank one expert slice at a time, so
+    the bf16 model never exists whole (peak: the int8 tree and one bf16
+    table). The same seed gives the weights quantize_params(...,
+    include_experts=True) would give for the bf16 init.
+
+    MoE layers (cfg.is_moe_layer) hold w_router [d, E] fp32 * d^-0.5 and
+    banks [E, d, f] / [E, f, d] in place of the dense MLP, plus the shared
+    expert (and its [d, 1] gate) where the config has one, as mfa_tpu's
+    init_params builds them."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported weight quantization {quantize!r}")
     dev = resolve_device(device)
@@ -290,12 +339,16 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
         w = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
         return w.mul_(scale if scale is not None else shape[-2] ** -0.5)
 
+    def bank(shape):  # drawn (and quantized) one expert slice at a time
+        return stack_bank((dense(shape) for _ in range(cfg.n_experts)),
+                          cfg.n_experts, bool(quantize))
+
     def norm(width=d):
         fill = torch.zeros if cfg.norm_offset else torch.ones
         return fill((width,), dtype=torch.float32, device=dev)
 
     layers = []
-    for _ in range(cfg.n_layers):
+    for li in range(cfg.n_layers):
         lp = dict(
             wq=dense((d, cfg.n_heads * hd)),
             wk=dense((d, cfg.n_kv_heads * hd)),
@@ -303,10 +356,22 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
             wo=dense((cfg.n_heads * hd, d)),
             attn_norm=norm(),
             mlp_norm=norm(),
-            w_gate=dense((d, cfg.ffn_dim)),
-            w_up=dense((d, cfg.ffn_dim)),
-            w_down=dense((cfg.ffn_dim, d)),
         )
+        if cfg.is_moe_layer(li):
+            fe = cfg.moe_ffn_dim or cfg.ffn_dim
+            lp.update(
+                w_router=torch.randn((d, cfg.n_experts), generator=gen, device=dev,
+                                     dtype=torch.float32).mul_(d ** -0.5),
+                we_gate=bank((d, fe)), we_up=bank((d, fe)), we_down=bank((fe, d)))
+            if cfg.shared_expert_dim:
+                fs = cfg.shared_expert_dim
+                lp.update(ws_gate=dense((d, fs)), ws_up=dense((d, fs)),
+                          ws_down=dense((fs, d)))
+                if cfg.shared_expert_gate:
+                    lp.update(w_shared_gate=dense((d, 1)))
+        else:
+            lp.update(w_gate=dense((d, cfg.ffn_dim)), w_up=dense((d, cfg.ffn_dim)),
+                      w_down=dense((cfg.ffn_dim, d)))
         if cfg.qk_norm:
             lp.update(q_norm=norm(hd), k_norm=norm(hd))
         if cfg.post_norms:
@@ -328,10 +393,11 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
 
 def params_from_numpy(tree, cfg: LlamaConfig, device) -> Params:
     """The JAX package's params pytree (numpy arrays; layers stacked
-    [L, ...] as mfa_tpu's init_params builds them) -> this port's params,
-    so both packages compute the same function in the tests. A quantized
-    leaf (mfa_tpu's QWeight, read by its qw, scale and axis attributes)
-    becomes this port's QWeight."""
+    [L, ...] as mfa_tpu's init_params builds them, or with MoE and dense
+    layers interleaved its {"moe": ..., "dense": ...} stacks, each in layer
+    order) -> this port's params, so both packages compute the same
+    function in the tests. A quantized leaf (mfa_tpu's QWeight, read by its
+    qw, scale and axis attributes) becomes this port's QWeight."""
     dev = torch.device(device)
 
     def t(a, name, layer=None):
@@ -344,17 +410,24 @@ def params_from_numpy(tree, cfg: LlamaConfig, device) -> Params:
         a = np.asarray(a if layer is None else a[layer])
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
-        dtype = torch.float32 if name in _NORMS else cfg.dtype
+        dtype = torch.float32 if name in _NORMS + ("w_router",) else cfg.dtype
         return torch.tensor(a, dtype=dtype, device=dev)
 
-    stacked = tree["layers"]
-    keys = _layer_keys(cfg)
-    extra = set(stacked) - set(keys)
-    if extra:
-        raise NotImplementedError(f"layer params {sorted(extra)} are not "
-                                  f"ported yet")
-    layers = [{k: t(stacked[k], k, i) for k in keys}
-              for i in range(cfg.n_layers)]
+    stacks = tree["layers"]
+    layers, seen = [], {True: 0, False: 0}
+    for li in range(cfg.n_layers):
+        moe = cfg.is_moe_layer(li)
+        # the hetero layout's stacks map back to layer order by the pattern
+        stacked = (stacks["moe" if moe else "dense"] if cfg.moe_hetero
+                   else stacks)
+        pos = seen[moe] if cfg.moe_hetero else li
+        seen[moe] += 1
+        keys = _layer_keys(cfg, moe)
+        extra = set(stacked) - set(keys)
+        if extra:
+            raise NotImplementedError(f"layer params {sorted(extra)} are not "
+                                      f"ported yet")
+        layers.append({k: t(stacked[k], k, pos) for k in keys})
     return dict(layers=layers, embed=t(tree["embed"], "embed"),
                 final_norm=t(tree["final_norm"], "final_norm"),
                 lm_head=t(tree["lm_head"], "lm_head"))
@@ -389,7 +462,97 @@ def _act(x, hidden_act: str):
     return torch.nn.functional.silu(x)
 
 
-def _mlp(x, lp, cfg: LlamaConfig):
+def _moe_route(t, w_router, k: int, norm_topk: bool):
+    """fp32 router and top-k (mfa_tpu's _moe_route) -> (w_top [T, k] fp32,
+    idx [T, k] expert ids). norm_topk: a softmax over the chosen experts'
+    logits (Mixtral); else their full-softmax weights (Qwen3-MoE). The
+    product runs in true fp32: with TF32 a near-tie flips and sends a token
+    to another expert, so a CUDA call refuses it."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("MoE routing needs true fp32 matmuls: "
+                           "torch.backends.cuda.matmul.allow_tf32 is True")
+    logits = t.float() @ w_router.float()  # [T, E]
+    w_top, idx = torch.topk(logits, k, dim=-1)
+    if norm_topk:
+        w_top = torch.softmax(w_top, dim=-1)
+    else:
+        w_top = torch.softmax(logits, dim=-1).gather(1, idx)
+    return w_top, idx
+
+
+# Below this many rows the dense form (every expert over every row) costs
+# less than streaming the bank for the grouped form (mfa_tpu's cut-over).
+_MOE_DENSE_MAX_T = 64
+
+
+def _moe_dense(t, lp, w_top, idx, cfg: LlamaConfig):
+    """Every expert over all T rows, then a router-weighted combine
+    (mfa_tpu's _moe_dense_int8): three bank launches, no host read, no
+    data-dependent shape, so a graphed step can hold it."""
+    g = _act(bank_dense(t, lp["we_gate"]), cfg.hidden_act)
+    o = bank_dense(g * bank_dense(t, lp["we_up"]), lp["we_down"])  # [E, T, d]
+    # router weights as a [T, E] scatter (the top-k ids of a row are distinct)
+    mw = torch.zeros((t.shape[0], cfg.n_experts), dtype=torch.float32,
+                     device=t.device).scatter(1, idx, w_top)
+    return torch.einsum("etd,te->td", o, mw.to(o.dtype))
+
+
+def _moe_grouped(t, lp, w_top, idx, cfg: LlamaConfig):
+    """The token-expert pairs sorted by expert (stable: ties keep token
+    order) through one grouped bank launch a projection (mfa_tpu's ragged
+    _moe), then each token's k outputs summed in slot order through the
+    inverse permutation: a gather, no atomics, the same bits every run."""
+    T, k = idx.shape
+    flat_e = idx.reshape(-1)  # [T * k]
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    gathered = t[order // k]  # [T * k, d] expert-sorted
+    offs = torch.searchsorted(sorted_e, torch.arange(
+        cfg.n_experts + 1, device=t.device, dtype=sorted_e.dtype)).to(torch.int32)
+    gate = _act(bank_grouped(gathered, lp["we_gate"], offs, T), cfg.hidden_act)
+    down = bank_grouped(gate * bank_grouped(gathered, lp["we_up"], offs, T),
+                        lp["we_down"], offs, T)  # [T * k, d]
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * k, device=t.device))
+    per = down.index_select(0, inv).reshape(T, k, -1)
+    w = w_top.to(down.dtype)
+    out = per[:, 0] * w[:, :1]
+    for j in range(1, k):
+        out = out + per[:, j] * w[:, j:j + 1]
+    return out
+
+
+def _moe(x, lp, cfg: LlamaConfig, dense: bool = False):
+    """Top-k routed expert MLP, token-dropless (mfa_tpu's _moe without a
+    mesh): the dense form when `dense` (graphed steps) or at most
+    _MOE_DENSE_MAX_T rows, else the grouped form; then the shared expert
+    (sigmoid-gated on the normed rows with w_shared_gate) and the post
+    norm, and the residual."""
+    h = _rms_norm(x, lp["mlp_norm"], cfg)
+    lead = h.shape[:-1]
+    t = h.reshape(-1, h.shape[-1])  # [T, d]
+    w_top, idx = _moe_route(t, lp["w_router"], cfg.n_active_experts,
+                            cfg.norm_topk)
+    form = (_moe_dense if dense or t.shape[0] <= _MOE_DENSE_MAX_T
+            else _moe_grouped)
+    out = form(t, lp, w_top, idx, cfg)
+    if "ws_gate" in lp:
+        sg = _act(qmm(t, lp["ws_gate"]), cfg.hidden_act)
+        sh = qmm(sg * qmm(t, lp["ws_up"]), lp["ws_down"])
+        if "w_shared_gate" in lp:
+            sh = sh * torch.sigmoid(
+                t.float() @ lp["w_shared_gate"].float()).to(sh.dtype)
+        out = out + sh.to(out.dtype)
+    out = out.reshape(*lead, -1)
+    if cfg.post_norms:
+        out = _rms_norm(out, lp["post_mlp_norm"], cfg)
+    return x + out.to(x.dtype)
+
+
+def _mlp(x, lp, cfg: LlamaConfig, dense_moe: bool = False):
+    """The layer's MLP: routed experts where the layer holds a bank (the
+    dense form under dense_moe), else the gated dense MLP."""
+    if "we_gate" in lp:
+        return _moe(x, lp, cfg, dense=dense_moe)
     h = _rms_norm(x, lp["mlp_norm"], cfg)
     gate = _act(qmm(h, lp["w_gate"]), cfg.hidden_act)
     out = qmm(gate * qmm(h, lp["w_up"]), lp["w_down"])
@@ -546,7 +709,8 @@ def param_tensors(params: Params) -> list:
     """Every weight tensor of the params, in a fixed order (what an
     optimizer is built over)."""
     return ([lp[k] for lp in params["layers"]
-             for k in _LAYER_KEYS + _GEMMA_KEYS + _BIAS_KEYS if k in lp]
+             for k in _LAYER_KEYS + _GEMMA_KEYS + _BIAS_KEYS + _MOE_KEYS
+             + _SHARED_KEYS if k in lp]
             + [params[k] for k in ("embed", "final_norm", "lm_head")])
 
 
@@ -1091,7 +1255,8 @@ def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         )  # [n, span, heads, hd], [n, span, heads]
         attn = _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg)
         x = _attn_residual(x, attn.reshape(n, span, cfg.n_heads * hd), lp, cfg)
-        x = _mlp(x, lp, cfg)
+        # graphed steps: the dense MoE form, whatever n * span (no host read)
+        x = _mlp(x, lp, cfg, dense_moe=True)
         ys.append((as_bytes(kq), ks_new, as_bytes(vq), vs_new))
     kq_all, vq_all = (torch.stack([y[i] for y in ys]) for i in (0, 2))
     ks_all = vs_all = None

@@ -11,7 +11,14 @@ embedding rows and dequantizes only them, in bf16 whatever the model
 dtype, as JAX does. Gradients are not defined through QWeight: serving
 only.
 
-Not ported yet: `ragged_qmm` (MoE) and `adapt_shardings` (meshes).
+MoE expert banks are 3-D: a QWeight [E, K, N] with scale [E, N],
+quantized one expert slice at a time. `bank_dense` (every expert over the
+same rows or rows of its own) and `bank_grouped` (expert e over its rows
+of expert-sorted x) take a QWeight bank to kernel 10's expert launch
+(kernels/wmatmul.int8_bank_matmul) and a bf16 bank to torch.matmul;
+`ragged_qmm` is mfa_tpu's entry point over group sizes.
+
+Not ported yet: `adapt_shardings` (meshes).
 """
 
 from __future__ import annotations
@@ -21,14 +28,18 @@ from typing import Any
 
 import torch
 
-from mfa_tpu_torch.kernels.wmatmul import int8_matmul
+from mfa_tpu_torch.kernels.wmatmul import int8_bank_matmul, int8_matmul
 
 __all__ = [
     "QWeight",
     "quantize_weight",
+    "stack_bank",
     "dequantize_weight",
     "qmm",
     "qtake",
+    "bank_dense",
+    "bank_grouped",
+    "ragged_qmm",
     "quantize_params",
     "params_nbytes",
 ]
@@ -68,8 +79,11 @@ def quantize_weight(w: torch.Tensor, axis: int = -2) -> QWeight:
     """Symmetric absmax int8 quantization along `axis`: scale = absmax / 127
     (1 where absmax is 0), round half to even, clip to +-127. A large 2-D
     tensor quantizes in slices along its other axis, which caps the fp32
-    transient (a 128k-vocab table is 2.1 GB in fp32)."""
+    transient (a 128k-vocab table is 2.1 GB in fp32); an expert bank [E, K,
+    N] (axis -2) one expert at a time (Mixtral's is 1.9 GB in fp32)."""
     axis = axis if axis < 0 else axis - w.ndim
+    if w.ndim == 3 and axis == -2:
+        return stack_bank((w[e] for e in range(w.shape[0])), w.shape[0], True)
     chunk_elems = 64 * 1024 * 1024
     if w.ndim == 2 and w.numel() > chunk_elems:
         split = 0 if axis == -1 else 1  # slice a dim that is not reduced
@@ -81,6 +95,28 @@ def quantize_weight(w: torch.Tensor, axis: int = -2) -> QWeight:
                        scale=torch.cat([p[1] for p in pieces]), axis=axis)
     qw, scale = _quantize_body(w, axis)
     return QWeight(qw=qw, scale=scale, axis=axis)
+
+
+def stack_bank(slices, n: int, quantize: bool) -> Any:
+    """An expert bank [n, K, N] from n expert slices [K, N] taken one at a
+    time from the iterable: a QWeight quantized slice by slice (scale [n,
+    N]) under quantize, else a tensor. Only one slice exists beside the
+    bank, so a bank drawn or read slice by slice never exists in 16 bits
+    (let alone fp32) as a whole."""
+    out = scale = None
+    for e, w in enumerate(slices):
+        if quantize:
+            q = quantize_weight(w, axis=-2)
+            w = q.qw
+        if out is None:
+            out = torch.empty((n, *w.shape), dtype=w.dtype, device=w.device)
+            if quantize:
+                scale = torch.empty((n, w.shape[1]), dtype=torch.float32,
+                                    device=w.device)
+        out[e] = w
+        if quantize:
+            scale[e] = q.scale
+    return QWeight(qw=out, scale=scale, axis=-2) if quantize else out
 
 
 def dequantize_weight(w: QWeight, dtype=torch.bfloat16) -> torch.Tensor:
@@ -111,17 +147,53 @@ def qtake(w: Any, idx: torch.Tensor) -> torch.Tensor:
             * w.scale[idx][..., None].to(torch.bfloat16))
 
 
-# Matmul weights quantized per output channel (mfa_tpu's _MATMUL_KEYS; the
-# MoE keys wait for MoE); norms stay as they are.
+def bank_dense(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """out[e] = x_e @ w[e] for every expert of a bank w [E, K, N] (QWeight
+    or tensor): x [T, K] (the same rows for every expert) or [E, T, K] ->
+    [E, T, N]. A QWeight bank is one launch of kernel 10's expert launch on
+    the card, mfa_tpu's _moe_dense_int8 einsums on the CPU."""
+    if isinstance(w, QWeight):
+        return int8_bank_matmul(x, w.qw, w.scale)
+    return torch.matmul(x, w)
+
+
+def bank_grouped(x: torch.Tensor, w: Any, offs: torch.Tensor,
+                 max_rows: int) -> torch.Tensor:
+    """Expert e of a bank w [E, K, N] over rows offs[e]:offs[e + 1] of
+    expert-sorted x [R, K] -> [R, N]. offs: [E + 1] int32 on x's device;
+    max_rows: the most rows one expert can own. A QWeight bank is one
+    launch of kernel 10's expert launch (no host read); a bf16 bank one
+    torch.matmul an expert after one host read of offs (eager only)."""
+    if isinstance(w, QWeight):
+        return int8_bank_matmul(x, w.qw, w.scale, offs=offs, max_rows=max_rows)
+    bounds = offs.tolist()
+    return torch.cat([x[bounds[e]:bounds[e + 1]] @ w[e]
+                      for e in range(w.shape[0])])
+
+
+def ragged_qmm(x: torch.Tensor, w: Any, group_sizes: torch.Tensor) -> torch.Tensor:
+    """mfa_tpu's ragged_qmm: x [R, K] sorted by expert, group_sizes [E] rows
+    an expert -> [R, N] through bank_grouped."""
+    offs = torch.cat([group_sizes.new_zeros(1), torch.cumsum(group_sizes, 0)])
+    return bank_grouped(x, w, offs.to(torch.int32), x.shape[0])
+
+
+# Matmul weights quantized per output channel (mfa_tpu's _MATMUL_KEYS) and
+# the expert banks; w_router (fp32, routing decides on near-ties) and the
+# Qwen2-MoE w_shared_gate ([d, 1]) stay in full precision, as do norms and
+# biases.
 _MATMUL_KEYS = frozenset((
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
     "ws_gate", "ws_up", "ws_down", "lm_head",
 ))
+_EXPERT_KEYS = frozenset(("we_gate", "we_up", "we_down"))
 
 
-def quantize_params(params: dict, include_embed: bool = True) -> dict:
+def quantize_params(params: dict, include_embed: bool = True,
+                    include_experts: bool = False) -> dict:
     """A new params tree with the big projections (and, with include_embed,
-    the embedding table per row) as QWeight; other leaves and leaves that
+    the embedding table per row; with include_experts, the MoE banks per
+    expert and output channel) as QWeight; other leaves and leaves that
     are already QWeight pass through. Walks dicts and the list of layers."""
 
     def walk(node, key=None):
@@ -131,7 +203,7 @@ def quantize_params(params: dict, include_embed: bool = True) -> dict:
             return [walk(v) for v in node]
         if isinstance(node, QWeight) or not isinstance(node, torch.Tensor):
             return node
-        if key in _MATMUL_KEYS:
+        if key in _MATMUL_KEYS or (include_experts and key in _EXPERT_KEYS):
             return quantize_weight(node, axis=-2)
         if key == "embed" and include_embed:
             return quantize_weight(node, axis=-1)

@@ -66,9 +66,12 @@ sys.path.insert(0, ROOT)
 # split route merges through combine_kernel (kernel 5's launch 2; the engine
 # reaches it only from the paged kernel).
 _FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
+# kernel 10's expert-bank launch: wmatmul_kernel<T, OutT, BMX, BANK = true>
+_BANK = re.compile(r"wmatmul_kernel<[^>]*, (?:\(bool\))?(?:true|1)>")
 _PAGED = re.compile(r"splitkv_kernel<[^,]+, [^,]+, (?:\(bool\))?(?:true|1)[,>]")
 GROUPS = (("prefill kernel", ()),
           ("zero-shift prefill kernels", ()),
+          ("int8 expert-bank launch", ()),
           ("int8 matmul kernel", ("wmatmul_kernel",)),
           ("split-KV decode kernel", ("splitkv_kernel",)),
           ("image-block kernel", ()),
@@ -83,6 +86,8 @@ GROUPS = (("prefill kernel", ()),
 def _group(name: str) -> str:
     if _PAGED.search(name):
         return "paged kernel"
+    if _BANK.search(name):
+        return "int8 expert-bank launch"
     m = _FA90.search(name)
     if m:
         kind = m.group(1)

@@ -3,13 +3,15 @@ transformers, for every family of tests/test_hf_convert.py: a tiny
 randomly initialized transformers causal LM per family (seeded, no
 network; biases randomized so that a dropped bias shows), then
 
-- dense families: the port's config_from_hf equals mfa_tpu's on every
+- every family, dense and MoE (Mixtral, Qwen3-MoE, Qwen3-MoE with a dense
+  layer, Qwen2-MoE): the port's config_from_hf equals mfa_tpu's on every
   field of the port's LlamaConfig; from_hf gives exactly
   params_from_numpy of mfa_tpu's from_hf (fp32); the port's forward
   matches transformers' logits within 2e-3 (test_hf_convert's tolerance);
   the port's Engine gives transformers' greedy generation and mfa_tpu's
   Engine's, token for token;
-- MoE families: config_from_hf and from_hf raise NotImplementedError;
+- an int8 Qwen2-MoE load keeps the router and the [d, 1] shared-expert
+  gate in full precision (mfa_tpu quantizes the gate and then fails on it);
 - Gemma3 multimodal: gemma3_multimodal_from_hf equals mfa_tpu's, tower
   and projector included.
 
@@ -115,8 +117,8 @@ def _model(family):
     return model
 
 
-@pytest.fixture(scope="module", params=DENSE)
-def dense(request):
+@pytest.fixture(scope="module", params=DENSE + MOE)
+def converted(request):
     model = _model(request.param)
     sd = model.state_dict()
     jparams, jcfg = jconvert.from_hf({k: v.float().numpy() for k, v in sd.items()},
@@ -125,8 +127,8 @@ def dense(request):
     return request.param, model, jparams, jcfg, params, cfg
 
 
-def test_config_and_params_equal_mfa_tpu(dense):
-    family, model, jparams, jcfg, params, cfg = dense
+def test_config_and_params_equal_mfa_tpu(converted):
+    family, model, jparams, jcfg, params, cfg = converted
     for f in dataclasses.fields(cfg):
         a, b = getattr(cfg, f.name), getattr(jcfg, f.name)
         if f.name == "dtype":
@@ -152,8 +154,8 @@ def test_config_and_params_equal_mfa_tpu(dense):
         assert torch.equal(tied["lm_head"], params["lm_head"])
 
 
-def test_forward_matches_transformers(dense):
-    family, model, _, _, params, cfg = dense
+def test_forward_matches_transformers(converted):
+    family, model, _, _, params, cfg = converted
     tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 21))
     with torch.no_grad():
         want = model(torch.tensor(tokens)).logits.float()
@@ -162,8 +164,8 @@ def test_forward_matches_transformers(dense):
     assert diff < 2e-3, f"{family} logits diverge from transformers: {diff}"
 
 
-def test_engine_matches_transformers_and_mfa_tpu(dense):
-    family, model, jparams, jcfg, params, cfg = dense
+def test_engine_matches_transformers_and_mfa_tpu(converted):
+    family, model, jparams, jcfg, params, cfg = converted
     prompt = [1, 2, 3, 4, 5]
     with torch.no_grad():
         hf = model.generate(torch.tensor([prompt]), max_new_tokens=6, do_sample=False,
@@ -178,14 +180,32 @@ def test_engine_matches_transformers_and_mfa_tpu(dense):
                                                     jreq.generated)
 
 
-@pytest.mark.parametrize("family", MOE)
-def test_moe_families_raise(family):
-    model = _model(family)
-    with pytest.raises(NotImplementedError):
-        convert.config_from_hf(model.config)
-    with pytest.raises(NotImplementedError):
-        convert.from_hf(model, device="cpu")
-    assert jconvert.config_from_hf(model.config).n_experts == 4  # JAX serves them
+def test_int8_qwen2_moe_keeps_router_and_shared_gate():
+    """from_hf(quantize="int8") of a Qwen2-MoE checkpoint: projections and
+    banks int8, the router fp32 and the [d, 1] shared-expert gate in the
+    model dtype, so the model runs; mfa_tpu quantizes the gate and its _moe
+    then calls .astype on a QWeight."""
+    from mfa_tpu.models import llama as jl
+    from mfa_tpu_torch.models.wquant import QWeight
+
+    model = _model("qwen2_moe")
+    params, cfg = convert.from_hf(model, dtype=torch.float32, quantize="int8",
+                                  device="cpu")
+    lp = params["layers"][0]
+    assert isinstance(lp["we_gate"], QWeight) and lp["we_gate"].qw.ndim == 3
+    assert isinstance(lp["ws_down"], QWeight)
+    assert lp["w_router"].dtype == torch.float32
+    assert lp["w_shared_gate"].dtype == torch.float32
+    assert lp["w_shared_gate"].shape == (cfg.dim, 1)
+    tokens = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 21))
+    with torch.no_grad():
+        want = model(torch.tensor(tokens)).logits.float()
+        got = llama.forward(params, torch.tensor(tokens), cfg)
+    assert torch.isfinite(got).all() and float((got - want).abs().max()) < 0.1
+    sd = {k: v.float().numpy() for k, v in model.state_dict().items()}
+    jparams, jcfg = jconvert.from_hf(sd, model.config, dtype=jnp.float32, quantize="int8")
+    with pytest.raises(AttributeError, match="astype"):
+        jl.forward(jparams, jnp.asarray(tokens), jcfg)
 
 
 def test_gemma3_multimodal_equals_mfa_tpu():

@@ -1,8 +1,8 @@
 """The dense family knobs of the port's LlamaConfig against mfa_tpu:
 
-- every preset (mistral_7b, qwen2_7b, gemma_7b, qwen3_8b, gemma2_9b) equals
-  mfa_tpu's field by field (llama3_8b too, but for its vocab, a difference
-  kept on purpose; Mixtral's MoE stays refused), and Qwen2-7B and
+- every preset (mistral_7b, qwen2_7b, gemma_7b, qwen3_8b, gemma2_9b,
+  mixtral_8x7b) equals mfa_tpu's field by field (llama3_8b too, but for its
+  vocab, a difference kept on purpose), and Qwen2-7B and
   Gemma2-9B are what config_from_hf derives from their published
   config.json numbers;
 - a tiny Qwen2 (q/k/v bias, 7 q heads a kv head) and a tiny Gemma2
@@ -53,7 +53,8 @@ FAMILIES = {
                    sliding_window=16, attn_softcap=2.0, logit_softcap=1.5,
                    query_scale=16.0 ** -0.5, post_norms=True, alt_window=True),
 }
-PRESETS = ("mistral_7b", "qwen2_7b", "gemma_7b", "qwen3_8b", "gemma2_9b", "llama3_8b")
+PRESETS = ("mistral_7b", "qwen2_7b", "gemma_7b", "qwen3_8b", "gemma2_9b", "llama3_8b",
+           "mixtral_8x7b")
 
 
 def _same_fields(got, want, skip=()):
@@ -74,9 +75,7 @@ def test_presets_equal_mfa_tpu(name):
     _same_fields(got, want, skip=("vocab_size",) if name == "llama3_8b" else ())
     if name == "llama3_8b":
         assert (got.vocab_size, want.vocab_size) == (128256, 32000)
-    with pytest.raises(NotImplementedError):  # MoE stays refused
-        tl.LlamaConfig(**{f.name: getattr(jl.LlamaConfig.mixtral_8x7b(), f.name)
-                          for f in dataclasses.fields(tl.LlamaConfig) if f.name != "dtype"})
+    assert got.moe_hetero == want.moe_hetero
 
 
 def test_qwen2_and_gemma2_presets_are_the_published_configs():

@@ -147,6 +147,40 @@ def test_replay_matches_eager(model, weights, quant):
     assert cache.lengths[:2].tolist() == [PAGE + 4, _split_lens()[1] + 5]
 
 
+def test_moe_replay_matches_eager():
+    """Two layers of Mixtral-8x7B's widths with int8 weights and banks:
+    replayed decode steps (the dense MoE form: three expert launches a
+    layer, no atomics) equal the eager steps bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.mixtral_8x7b(), n_layers=2)
+    params = llama.init_params(cfg, seed=0, device="cuda", quantize="int8")
+    cache, slots, tokens = _prefilled(cfg, params, "int8", _split_lens())
+    ref = _clone(cache)
+    g = _graphs(cfg, params)
+    g.burst(cache, slots, tokens, 1)  # eager first step + capture
+    _, logits = llama.decode_step(params, cfg, ref, slots, tokens)
+    tok, ref_tok = g.buckets[2].tokens.clone(), logits.argmax(-1)
+    for step in range(3):
+        _build.reset_launches()
+        _, logits = llama.decode_step(params, cfg, ref, slots, ref_tok)
+        eager = collections.Counter(_build.launches)
+        _build.reset_launches()
+        toks, _ = g.burst(cache, slots, tok, 1)
+        replayed = collections.Counter(_build.launches)
+        torch.cuda.synchronize()
+        ref_tok, tok = logits.argmax(-1), toks[0]
+        assert torch.equal(g.buckets[2].logits, logits), step
+        assert torch.equal(tok, ref_tok) and replayed == eager
+        assert eager["wmatmul_bank"] == 3 * cfg.n_layers
+        _assert_same_state(cache, ref)
+    del params, cache, ref, g
+    torch.cuda.empty_cache()
+
+
 def test_burst_counts_and_chains(model):
     """One 5-step burst from the graph: its tokens equal five eager steps
     chained on the host, and the counts are five times one step's."""

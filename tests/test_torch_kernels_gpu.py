@@ -1206,6 +1206,119 @@ def test_int8_matmul_kernel(dev, m, K, N, dtype, out_f32):
         wmatmul.int8_matmul(x[:, :8], w.qw[:8], w.scale)  # K % 16 != 0
 
 
+def _bank_close(out, ref):
+    """One rounding of the fp32 accumulator: <= 2^-8 of the largest output."""
+    assert torch.isfinite(out.float()).all()
+    d = (out.float() - ref).abs()
+    assert float(d.max()) <= 2 ** -8 * float(ref.abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("E,T,K,N,per_expert,dtype", [
+    (8, 16, 4096, 14336, False, BF),   # Mixtral decode: gate / up, shared x
+    (8, 16, 14336, 4096, True, BF),    # down: x of each expert
+    (8, 1, 4096, 14336, False, BF),    # one row
+    (4, 70, 80, 48, True, HF),         # K % 64 != 0, N under one tile, 128 rows a block
+    (2, 33, 4096, 272, False, BF),     # few tiles: K split over a cluster
+    (3, 300, 1040, 400, True, HF),     # 256 rows a block, K and N tails
+])
+def test_int8_bank_dense(dev, E, T, K, N, per_expert, dtype):
+    from mfa_tpu_torch.kernels import _build, wmatmul
+    from mfa_tpu_torch.models.wquant import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = _rn(gen, *((E,) if per_expert else ()), T, K, dtype=dtype)
+    w = quantize_weight(torch.randn(E, K, N, generator=gen, device=dev) * K ** -0.5)
+    _build.reset_launches()
+    out = wmatmul.int8_bank_matmul(x, w.qw, w.scale)
+    assert dict(_build.launches) == {"wmatmul_bank": 1}
+    assert out.shape == (E, T, N) and out.dtype == dtype
+    assert torch.equal(out, wmatmul.int8_bank_matmul(x, w.qw, w.scale))
+    _bank_close(out, wmatmul._bank_plain(x.float(), w.qw, w.scale, None, torch.float32))
+    # expert e alone through the 2-D launch: the same function
+    e = E - 1
+    one = wmatmul.int8_matmul(x[e] if per_expert else x, w.qw[e], w.scale[e])
+    _bank_close(one, out[e].float())
+
+
+@pytest.mark.parametrize("sizes,K,N,dtype", [
+    ((3, 0, 1, 20), 256, 128, BF),           # an empty and a one-row group, tiles straddle
+    ((17, 15, 16, 16, 1, 0, 33, 30), 4096, 14336, BF),  # 16 rows a block: decode-sized groups
+    ((900, 1, 0, 1200, 2001, 1500, 800, 800), 4096, 14336, BF),  # the wave: 7202 rows
+    ((512, 260, 3, 257, 1, 0, 0, 7), 14336, 4096, BF),  # down at a chunk batch's skew
+    ((40, 41, 0, 39), 1040, 400, HF),        # K and N tails, fp16
+    ((5, 6), 4096, 272, BF),                 # few tiles: K split over a cluster
+])
+def test_int8_bank_grouped(dev, sizes, K, N, dtype):
+    from mfa_tpu_torch.kernels import _build, wmatmul
+    from mfa_tpu_torch.models.wquant import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    E, R = len(sizes), sum(sizes)
+    x = _rn(gen, R, K, dtype=dtype)
+    w = quantize_weight(torch.randn(E, K, N, generator=gen, device=dev) * K ** -0.5)
+    offs = torch.tensor([0, *torch.tensor(sizes).cumsum(0).tolist()], dtype=torch.int32,
+                        device=dev)
+    _build.reset_launches()
+    out = wmatmul.int8_bank_matmul(x, w.qw, w.scale, offs=offs, max_rows=max(sizes))
+    assert dict(_build.launches) == {"wmatmul_bank": 1}
+    assert out.shape == (R, N) and out.dtype == dtype
+    assert torch.equal(out, wmatmul.int8_bank_matmul(x, w.qw, w.scale, offs=offs,
+                                                     max_rows=max(sizes)))
+    ref = wmatmul._bank_plain(x.float(), w.qw, w.scale, offs, torch.float32)
+    _bank_close(out, ref)
+    # every group against its own 2-D launch: rows of the next expert that a
+    # straddling tile read never reach the output
+    lo = 0
+    for e, n in enumerate(sizes):
+        if n:
+            _bank_close(out[lo:lo + n], wmatmul.int8_matmul(x[lo:lo + n], w.qw[e],
+                                                            w.scale[e]).float())
+        lo += n
+    with pytest.raises(NotImplementedError):
+        wmatmul.int8_bank_matmul(x, w.qw, w.scale, offs=offs.long())
+
+
+def test_moe_route_refuses_tf32(dev):
+    from mfa_tpu_torch.models import llama
+
+    t = torch.randn(4, 64, device=dev)
+    w = torch.randn(64, 8, device=dev)
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="fp32"):
+            llama._moe_route(t, w, 2, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    w_top, idx = llama._moe_route(t, w, 2, True)
+    want = torch.topk(t.double() @ w.double(), 2).indices
+    assert torch.equal(idx, want)
+
+
+def test_int8_moe_forms_on_the_card(dev):
+    """The dense form (20 rows) and the grouped form (140 rows) of a
+    Mixtral-shaped int8 layer at narrow widths on the card against the CPU
+    (plain versions), from the same rows and the same routing: three expert
+    launches a form."""
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(vocab=512, dim=256, layers=1, heads=4, kv_heads=2,
+                                 ffn=512, dtype=BF, n_experts=8, n_active_experts=2)
+    lp = llama.init_params(cfg, seed=1, device="cuda", quantize="int8")["layers"][0]
+    cpu = {k_: v_.to("cpu") for k_, v_ in lp.items()}
+    for rows, form in ((20, llama._moe_dense), (140, llama._moe_grouped)):
+        t = torch.randn(rows, cfg.dim, generator=torch.Generator().manual_seed(rows)).to(BF)
+        w_top, idx = llama._moe_route(t, cpu["w_router"], 2, True)
+        want = form(t, cpu, w_top, idx, cfg)
+        _build.reset_launches()
+        got = form(t.to(dev), lp, w_top.to(dev), idx.to(dev), cfg)
+        assert dict(_build.launches) == {"wmatmul_bank": 3}
+        d = (got.cpu().float() - want.float()).abs()
+        assert torch.isfinite(got).all()
+        assert float(d.max()) <= 2e-2 * float(want.float().abs().max())
+
+
 def test_quantized_model_on_the_card(dev):
     """A 2-layer int8-weight Llama: the card's logits against the CPU's
     (plain versions) from the same weights; every projection is kernel 10."""

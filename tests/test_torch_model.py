@@ -80,11 +80,11 @@ def test_llama3_8b_is_the_published_shape():
 
 
 def test_unported_family_knobs_raise():
-    # MoE and attention sinks stay refused; the softcaps are ported
-    # (tests/test_torch_families.py)
-    for kw in (dict(n_experts=8), dict(attn_sinks=4)):
-        with pytest.raises(NotImplementedError):
-            dataclasses.replace(TCFG, **kw)
+    # attention sinks stay refused; the softcaps (tests/test_torch_families.py)
+    # and MoE (tests/test_torch_moe.py) are ported
+    with pytest.raises(NotImplementedError):
+        dataclasses.replace(TCFG, attn_sinks=4)
+    assert dataclasses.replace(TCFG, n_experts=8).n_experts == 8
     # the Gemma3 knobs are ported; a layer pattern must tile the depth
     dataclasses.replace(TCFG, qk_norm=True, layer_pattern=(True, False))
     with pytest.raises(ValueError):
