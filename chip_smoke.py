@@ -62,7 +62,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    expert's), the grouped form at a wave's 7202 expert-sorted rows (one
    empty expert, one of a single row) and at a 4 x 512 chunk batch, and K /
    N tails, within 2^-8 of the largest output, beside torch.matmul on the
-   bf16-dequantized bank.
+   bf16-dequantized bank. Then (sinks_kernels) the band options at the 8B's
+   heads and at d 256: kernels 1-4 with 4 attention sinks and window (4095,
+   0) at b1 s8192, kernel 1 with ALiBi (slopes 2^(-8 (h + 1) / 32)) at b16
+   s256 and b1 s4096 and with kv_position_offset 1024, kernel 7 with sinks
+   and ALiBi on the ragged pack, kernels 5 and 6 with sinks (window 4095)
+   and ALiBi at lens 8192 (int8, int4 and bf16 pages, a span of 4),
+   kernel 8 with sinks at the chunk batch past position 4096, kernels
+   11-14 with ALiBi, 11 with sinks and 11-13 with the offset; SDPA with the
+   equivalent bool mask or float bias as the library time.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -113,7 +121,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    stepwise with the graphs off (the same tokens; every decode step 96
    expert launches, the dense MoE form; each wave the grouped form), then
    the chunked + prefix traffic; weight bytes against bf16's, peak memory,
-   rows an expert takes in a wave.
+   rows an expert takes in a wave. Then, those weights freed, Mistral-7B
+   at full width and depth with 4 attention sinks (window 4096, bf16
+   weights and KV): 8 prompts of 4200-6000 tokens, 64 new tokens each, with
+   run(burst=8), with the graphs off (the same tokens) and with
+   attn_sinks=0 (other tokens on at least one request); one 5000-token
+   prompt chunked against whole; the chunked + prefix traffic with its
+   long prompts past the window; then three SGD train steps of the same
+   model on 1 x 8193 tokens (kernel 11 with sinks, 32 launches a step).
    Before the train steps, the first engine's weights and traffic twice
    more: with sampling (engine top-k 50 and a per-request mix of greedy,
    temperature / top-p, temperature / min-p and penalized greedy rows;
@@ -141,7 +156,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    experts on both devices, and the logits of the tokens routed alike in
    every layer (forward, prefill, decode); then 4 layers of Mixtral's width
    with bf16 banks behind the engine on the card, graphed tokens equal to
-   graphs-off tokens.
+   graphs-off tokens; then Mistral-7B at full width cut to 2 layers with a
+   window of 64 and 4 sinks: prefill, decode, chunked and prefix-hit
+   logits agree (int8 KV).
 5. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
 """
@@ -194,15 +211,19 @@ def _bound(nbytes: float, flops: float):
 
 
 def _visible_pairs(sq: int, sk: int, q_start: int = 0, wl: int = -1,
-                   wr: int = -1) -> int:
+                   wr: int = -1, sinks: int = 0) -> int:
     """(row, column) pairs a band lets through: row r (position q_start + r)
-    sees columns c < sk with pos - wl <= c <= pos + wr (-1 = unbounded)."""
+    sees columns c < sk with pos - wl <= c <= pos + wr (-1 = unbounded),
+    and with a left window the columns c < sinks up to its band's end."""
     import numpy as np
 
     pos = q_start + np.arange(sq)
     hi = np.full(sq, sk - 1) if wr < 0 else np.minimum(sk - 1, pos + wr)
     lo = np.zeros(sq, np.int64) if wl < 0 else np.maximum(0, pos - wl)
-    return int(np.maximum(0, hi - lo + 1).sum())
+    n = np.maximum(0, hi - lo + 1)
+    if wl >= 0 and sinks > 0:  # sink columns below the band
+        n += np.maximum(0, np.minimum(np.minimum(sinks, lo), hi + 1))
+    return int(n.sum())
 
 
 def _err(out, ref, tol_max=2e-2, tol_mean=2e-3, what=""):
@@ -326,7 +347,8 @@ def kernel_phase(records):
         ms1 = _time_ms(lambda: fn1(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                                    lens.data_ptr(), o_part.data_ptr(),
                                    lse_part.data_ptr(), 1, b, hq, hkv, S, d,
-                                   nsp, tps, -1, scale_log2e, 0.0, 0.0, stream))
+                                   nsp, tps, -1, scale_log2e, 0.0, 0.0, 0, None,
+                                   stream))
         ms2 = _time_ms(lambda: fn2(o_part.data_ptr(), lse_part.data_ptr(),
                                    out.data_ptr(), lse_o.data_ptr(), 1, b, hq,
                                    hkv, nsp, d, 1, stream))
@@ -1950,15 +1972,52 @@ def library_surface(counts):
                                             return_lse=True)
         grads += backward.flash_attention_bwd(qt, kt, vt, ot, lse, ot,
                                               causal=True, fused=False)
+    # the band options on every entry point: ALiBi (flash_attn_func, the
+    # kvcache and varlen entry points and the gradient functions), sinks
+    # (varlen packed and paged, kvcache contiguous and paged) and the
+    # offset (prefill_attention and its backward)
+    slopes = _alibi_slopes(32)
+    band = [mfa_tpu_torch.flash_attn_func(q, k, v, causal=True, alibi_slopes=slopes),
+            mfa_tpu_torch.flash_attn_with_kvcache(qd, kc, vc, cache_seqlens=8192,
+                                                  window_size=(4095, -1),
+                                                  sink_tokens=4, alibi_slopes=slopes),
+            mfa_tpu_torch.flash_attn_with_kvcache(qd, kp, vp, cache_seqlens=200,
+                                                  block_table=table,
+                                                  window_size=(63, -1), sink_tokens=4,
+                                                  alibi_slopes=slopes),
+            mfa_tpu_torch.flash_attn_varlen_func(qv, kv, vv, cu, cu, max(lens),
+                                                 max(lens), causal=True,
+                                                 window_size=(255, -1), sink_tokens=4,
+                                                 alibi_slopes=slopes),
+            mfa_tpu_torch.flash_attn_varlen_func(qp, kp, vp, cu_p, cu_p, max(plens),
+                                                 max(plens), causal=True,
+                                                 block_table=table[:4],
+                                                 window_size=(63, -1), sink_tokens=4,
+                                                 alibi_slopes=slopes)]
+    leaves_a = [t.detach().requires_grad_() for t in (q, k, v, qv, kv, vv)]
+    oa = autodiff.flash_attn_func_grad(*leaves_a[:3], causal=True, alibi_slopes=slopes)
+    ova = autodiff.flash_attn_varlen_func_grad(*leaves_a[3:], cu, cu, max(lens),
+                                               max(lens), causal=True,
+                                               alibi_slopes=slopes)
+    grads += torch.autograd.grad((oa.float() * o1.float()).sum()
+                                 + (ova.float() * o4.float()).sum(), leaves_a)
+    with torch.no_grad():
+        oo, lso = prefill.prefill_attention(qt, kt, vt, causal=True,
+                                            kv_position_offset=64, return_lse=True)
+        grads += backward.flash_attention_bwd(qt, kt, vt, oo, lso, oo, causal=True,
+                                              kv_position_offset=64)
+    band += [oa, ova, oo]
     torch.cuda.synchronize()
     got = dict(_build.launches)
     counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
-    print(f"library surface launches {got}", flush=True)
-    outs = (o1, o1c, o1h, o1d, o2, o3, o4, o5, o6, o7) + grads
+    print(f"library surface launches {got} (with ALiBi, sinks and the offset)",
+          flush=True)
+    outs = (o1, o1c, o1h, o1d, o2, o3, o4, o5, o6, o7) + grads + tuple(band)
     ok = all(bool(torch.isfinite(o.float()).all()) for o in outs)
     ok &= o1.shape == q.shape and o2.shape == qd.shape and o3.shape == qd.shape
     ok &= o4.shape == qv.shape and o5.shape == qp.shape
-    ok &= all(g.shape == t.shape for g, t in zip(grads, leaves + [qt, kt, vt]))
+    ok &= all(g.shape == t.shape for g, t in zip(
+        grads, leaves + [qt, kt, vt] + leaves_a + [qt, kt, vt]))
     ok &= all(got.get(n, 0) >= 1 for n in (
         "prefill", "flagged", "repair", "bound", "decode", "combine", "paged",
         "varlen", "paged_prefill", "bwd_fused", "bwd_dkv", "bwd_dq",
@@ -2410,7 +2469,8 @@ def _verify_vs_decode(params, cfg):
     return ok
 
 
-def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
+def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
+                         long_prompts=(2500, 4001), pages=(512, 64)):
     """Main path, part 3: the same weights behind an engine with chunked
     prefill (chunks of 512) and the prefix cache, on `quant` KV pages
     (int8, and once more each on int4 and fp8). (a) 4 long prompts take
@@ -2420,7 +2480,9 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
     prompts take whole-prompt prefill (kernels 2 + 3). The 8B's, and with
     model "Gemma3-4B" the same traffic on Gemma3-4B's text stack (kernel 8
     at head_dim 256 on its sliding and global layers), or on Qwen2-7B
-    (group 7) and Gemma2-9B (softcap: its waves take kernel 1)."""
+    (group 7) and Gemma2-9B (softcap: its waves take kernel 1). The long
+    prompts draw their lengths from range(*long_prompts); pages is (pool
+    size, pages a sequence) in pages of 64."""
     import numpy as np
     import torch
 
@@ -2431,8 +2493,8 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
     torch.cuda.reset_peak_memory_stats()
     gen_tokens, page = 32, 64
     k6, k8 = paged.launch_name("paged", quant), paged.launch_name("paged_prefill", quant)
-    eng = Engine(params, cfg, num_pages=512, page_size=page, max_seqs=16,
-                 pages_per_seq=64, quant_dtype=quant, prefill_chunk=512,
+    eng = Engine(params, cfg, num_pages=pages[0], page_size=page, max_seqs=16,
+                 pages_per_seq=pages[1], quant_dtype=quant, prefill_chunk=512,
                  prefix_cache=True, device="cuda")
     free0 = eng.sched.allocator.free_pages
     rng = np.random.RandomState(SEED)
@@ -2441,7 +2503,7 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B"):
         return [int(t) for t in rng.randint(0, cfg.vocab_size, int(n))]
 
     system = toks(1024)
-    longs = [toks(n) for n in rng.randint(2500, 4001, 4)]
+    longs = [toks(n) for n in rng.randint(*long_prompts, 4)]
     first = system + toks(64)
     hits = [system + toks(n) for n in rng.randint(64, 193, 8)]
     shorts = [toks(n) for n in rng.randint(100, 257, 4)]
@@ -2682,11 +2744,11 @@ def checkpoint_phase(counts, ident):
     return ok
 
 
-def train_phase(counts, ident, state, model="Llama-3-8B"):
+def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
     """Main path, part 4: three SGD train steps of the full Llama-3-8B
     (32 layers, the engines' random bf16 weights, their KV pools freed) on
-    4 x 2049 tokens from numpy.random.RandomState(SEED) (benchmark/train.py's
-    batch and sequence), remat on. Each layer's attention runs kernels 2 + 3
+    b x (s + 1) tokens from numpy.random.RandomState(SEED) (shape = (b, s):
+    the 8B's 4 x 2048 is benchmark/train.py's batch and sequence), remat on. Each layer's attention runs kernels 2 + 3
     in the forward and again in the remat recompute, and the fused backward
     kernel. SGD, not AdamW: AdamW's two moments would add 32-64 GB to the
     16 GB of weights and 16 GB of gradients on an 80 GB card. With model
@@ -2700,7 +2762,7 @@ def train_phase(counts, ident, state, model="Llama-3-8B"):
     from mfa_tpu_torch.models import llama
 
     params, cfg = state.pop("params"), state.pop("cfg")
-    lr, b, s = 1.0, 4, 2048
+    lr, (b, s) = 1.0, shape
     rng = np.random.RandomState(SEED)
     tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s + 1)),
                              device="cuda")
@@ -2733,7 +2795,8 @@ def train_phase(counts, ident, state, model="Llama-3-8B"):
     n_mat = sum(p.numel() for p in llama.param_tensors(params) if p.dim() == 2) \
         - params["embed"].numel()
     # each layer's own visible pairs: a sliding layer sees at most its window
-    pairs = sum(b * _visible_pairs(s, s, 0, wl, 0) for wl, _ in llama._layer_plan(cfg))
+    pairs = sum(b * _visible_pairs(s, s, 0, wl, 0, cfg.attn_sinks)
+                for wl, _ in llama._layer_plan(cfg))
     model_flops = 6 * n_mat * b * s + 12 * cfg.n_heads * cfg.head_dim * pairs
     step_s = sum(times[1:]) / 2
     print(f"train: {model}, {cfg.n_layers} layers, b {b} x {s} tokens, remat, "
@@ -3513,6 +3576,468 @@ def cpu_vs_cuda_int8w_phase():
     return ok
 
 
+# ---- attention sinks, ALiBi and kv_position_offset ----
+
+
+def _alibi_slopes(h, dev="cuda"):
+    """The ALiBi paper's slopes 2^(-8 (i + 1) / h), one per q head."""
+    import torch
+
+    return 2.0 ** (-8.0 * torch.arange(1, h + 1, device=dev, dtype=torch.float32) / h)
+
+
+def _sdpa_mask(sq, sk, wl, wr, sinks=0, off=0, slopes=None):
+    """SDPA's attn_mask for the port's band (prefill._band: row r at
+    position r + off, -1 = unbounded): bool [sq, sk], or with ALiBi slopes
+    the float bias [1, hq, sq, sk] of prefill.alibi_bias, -inf where
+    masked, bf16. Only the library time uses it."""
+    import torch
+
+    from mfa_tpu_torch.kernels import prefill
+
+    vis = prefill._band(sq, sk, wl, wr, "cuda", sinks, off)[0]
+    if slopes is None:
+        return vis
+    bias = prefill.alibi_bias(slopes, torch.arange(sq, device="cuda") + off,
+                              torch.arange(sk, device="cuda"))
+    return bias.masked_fill(~vis, float("-inf")).to(torch.bfloat16)[None]
+
+
+def _report(tag, ms, plain_ms, lib_ms, nbytes, flops):
+    bound_ms, by = _bound(nbytes, flops)
+    lib = (f"library_ms {lib_ms:.4f} (kernel / library {ms / lib_ms:.2f}x)"
+           if lib_ms else "library_ms none")
+    print(f"  {tag}: ms {ms:.4f} bound_ms {bound_ms:.4f} ({by}, share "
+          f"{bound_ms / ms:.3f}) plain_ms {plain_ms:.4f} {lib}", flush=True)
+
+
+def sinks_kernels():
+    """Phase 2 for the band options: every extended kernel against its plain
+    version (the limits of kernel_phase) at the 8B's heads (hq 32, hkv 8,
+    d 128, bf16) and at d 256 where the kernel has it, with its time, its
+    bound (the visible pairs counted with the sink columns) and SDPA with
+    the equivalent bool mask or float ALiBi bias as the library time."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import (_build, backward, decode, paged,
+                                       paged_prefill, prefill, varlen)
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    ok = True
+    # -- kernels 1-4: sinks, ALiBi, kv_position_offset
+    #        tag, b, hq, hkv, sq, sk, d, (wl, wr), sinks, off, alibi, engines
+    dense = (("sinks 4, window (4095, 0), b1 s8192", 1, 32, 8, 8192, 8192, 128,
+              (4095, 0), 4, 0, False, (None, "prepass", False)),
+             ("sinks 4, window (1023, 0), Gemma3-4B heads b4 s2048 d256", 4, 8, 4,
+              2048, 2048, 256, (1023, 0), 4, 0, False, (None, False)),
+             ("ALiBi, causal, b16 s256", 16, 32, 8, 256, 256, 128, (-1, 0), 0, 0,
+              True, (None,)),
+             ("ALiBi, causal, b1 s4096", 1, 32, 8, 4096, 4096, 128, (-1, 0), 0, 0,
+              True, (None,)),
+             ("ALiBi, causal, d 256 b4 s2048", 4, 8, 4, 2048, 2048, 256, (-1, 0), 0,
+              0, True, (None,)),
+             ("kv_position_offset 1024, causal, b1 sq4096 sk5120", 1, 32, 8, 4096,
+              5120, 128, (-1, 0), 0, 1024, False, (None, False)))
+    names = {None: "default", "prepass": "bound", False: "kernel 1"}
+    for tag, b, hq, hkv, sq, sk, d, (wl, wr), sinks, off, alibi, engines in dense:
+        q, k, v = rn(b, hq, sq, d), rn(b, hkv, sk, d), rn(b, hkv, sk, d)
+        slopes = _alibi_slopes(hq) if alibi else None
+        kw = dict(window_size=(wl, wr), sink_tokens=sinks, kv_position_offset=off,
+                  alibi_slopes=slopes)
+        pairs = b * _visible_pairs(sq, sk, off, wl, wr, sinks)
+        nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+        flops = 4 * hq * d * pairs
+        ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5,
+                                        wl, wr, 0.0, True, sinks, off, slopes)
+        plain_ms = _time_ms(lambda: prefill._prefill_plain(
+            q.float(), k.float(), v.float(), d ** -0.5, wl, wr, 0.0, False, sinks, off,
+            slopes), iters=2)
+        mask = _sdpa_mask(sq, sk, wl, wr, sinks, off, slopes)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        print(f"kernels 1-4 {tag} (hq{hq} hkv{hkv} d{d} bf16; {pairs} visible pairs)",
+              flush=True)
+        for eng in engines:
+            _build.reset_launches()
+            o, lse = prefill.prefill_attention(q, k, v, return_lse=True,
+                                               bound_softmax=eng, **kw)
+            launched = dict(_build.launches)
+            _, good = _err(o, ro, what=f"{names[eng]} {sorted(launched)} O")
+            ok &= good and _lse_err(lse, rl, names[eng])
+            ms = _time_ms(lambda: prefill.prefill_attention(q, k, v, bound_softmax=eng,
+                                                            **kw))
+            _report(f"{names[eng]} {sorted(launched)}", ms, plain_ms, lib_ms, nbytes,
+                    flops)
+        del q, k, v, ro, rl, mask
+        torch.cuda.empty_cache()
+
+    # -- kernel 7: sinks and ALiBi on the ragged pack
+    lens = [200, 1100, 512, 300, 700, 384, 450, 450]
+    n = sum(lens)
+    q, k, v = rn(n, 32, 128), rn(n, 8, 128), rn(n, 8, 128)
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).int()
+    slopes = _alibi_slopes(32)
+    kw = dict(causal=True, window_size=(255, -1), sink_tokens=4, alibi_slopes=slopes)
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, max(lens), max(lens),
+                                     return_lse=True, **kw)
+    ro, rl = varlen._varlen_plain(q.float(), k.float(), v.float(), cu, cu, 128 ** -0.5,
+                                  255, 0, 0.0, True, 4, slopes)
+    print("kernel 7 ragged pack (8 seqs of 200-1100, 4096 tokens), causal, window "
+          "(255, 0), sinks 4, ALiBi", flush=True)
+    _, good = _err(o, ro, what="O")
+    ok &= good and _lse_err(lse, rl, "")
+    pairs = sum(_visible_pairs(s, s, 0, 255, 0, 4) for s in lens)
+    _report("varlen", _time_ms(lambda: varlen.varlen_attention(
+        q, k, v, cu, cu, max(lens), max(lens), **kw)),
+        _time_ms(lambda: varlen._varlen_plain(q.float(), k.float(), v.float(), cu, cu,
+                                              128 ** -0.5, 255, 0, 0.0, False, 4,
+                                              slopes), iters=2),
+        None, 2 * (2 * n * 32 * 128 + 2 * n * 8 * 128), 4 * 32 * 128 * pairs)
+
+    # -- kernel 5: sinks (window 4095) and ALiBi at lens 8192
+    b, hq, hkv, S, d = 16, 32, 8, 8192, 128
+    q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
+    L = torch.full((b,), S, dtype=torch.int32, device=dev)
+    for tag, wl, sinks, alibi in (("sinks 4, window 4095", 4095, 4, False),
+                                  ("ALiBi, no window", -1, 0, True)):
+        slopes = _alibi_slopes(hq) if alibi else None
+        kw = dict(window_left=wl, sink_tokens=sinks, alibi_slopes=slopes)
+        o, lse = decode.decode_attention(q, kc, vc, L, return_lse=True, **kw)
+        ns, tps = decode.split_layout(S, decode.default_splits(b, hkv, S))
+        po, pl = decode._decode_partials_plain(q.float(), kc.float(), vc.float(), L,
+                                               d ** -0.5, ns, tps, wl, 0.0, sinks, slopes)
+        ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        print(f"kernel 5 b{b} hq{hq} hkv{hkv} S{S} d{d}, {tag}, {ns} split(s)", flush=True)
+        _, good = _err(o, ro.reshape(b, hq, d), what="O")
+        ok &= good and _lse_err(lse, rl.reshape(b, hq), "")
+        cols = S if wl < 0 else wl + 1 + sinks
+        mask = _sdpa_mask(1, S, wl, -1, sinks, S - 1, slopes)
+        _report("decode + combine", _time_ms(lambda: decode.decode_attention(
+            q, kc, vc, L, **kw)), _time_ms(lambda: decode._decode_partials_plain(
+                q, kc, vc, L, d ** -0.5, ns, tps, wl, 0.0, sinks, slopes), iters=3),
+            _time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)),
+            2 * b * hkv * cols * d * 2 + 2 * b * hq * d * 2, 4 * b * hq * cols * d)
+    del q, kc, vc, po, pl, ro
+    torch.cuda.empty_cache()
+
+    # -- kernel 6: sinks and ALiBi at lens 8192, int8 / int4 / bf16 pages, spans
+    page, pps = 64, 8192 // 64 + 1
+    P = b * pps + 1
+    kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    for tag, quant, span, wl, sinks, alibi in (
+            ("int8 pages, sinks 4, window 4095", "int8", 1, 4095, 4, False),
+            ("int8 pages, ALiBi", "int8", 1, -1, 0, True),
+            ("int4 pages, sinks 4, window 4095, ALiBi", "int4", 1, 4095, 4, True),
+            ("bf16 pages, sinks 4, window 4095", None, 1, 4095, 4, False),
+            ("int8 pages, span 4, sinks 4, window 4095, ALiBi, pos_offset 4", "int8",
+             4, 4095, 4, True)):
+        kp, vp, ks, vs = _kv_pages(kf, vf, quant) if quant else (kf, vf, None, None)
+        slopes = _alibi_slopes(hq) if alibi else None
+        q = rn(b, span, hq, d) if span > 1 else rn(b, hq, d)
+        po_ = span if span > 1 else 1
+        kw = dict(window_left=wl, sink_tokens=sinks, alibi_slopes=slopes,
+                  quant_dtype=quant, pos_offset=po_)
+        _build.reset_launches()
+        o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
+                                       return_lse=True, **kw)
+        launched = dict(_build.launches)
+        ro, rl = paged._paged_plain(q.float(), kp, vp, ks, vs, L, table, d ** -0.5, wl,
+                                    0.0, po_, quant, sinks, slopes)
+        print(f"kernel 6 b{b} hq{hq} hkv{hkv} lens {S} d{d}, {tag} {launched}",
+              flush=True)
+        _, good = _err(o, ro, what="O")
+        ok &= good and _lse_err(lse, rl, "")
+        cols = S if wl < 0 else min(S, wl + 1 + sinks)
+        _report(f"paged {tag}", _time_ms(lambda: paged.paged_attention(
+            q, kp, vp, L, table, k_scales=ks, v_scales=vs, **kw)),
+            _time_ms(lambda: paged._paged_plain(q, kp, vp, ks, vs, L, table, d ** -0.5,
+                                                wl, 0.0, po_, quant, sinks, slopes),
+                     iters=2),
+            None, 2 * b * hkv * cols * _row_bytes(quant, d) + 2 * q.numel() * 2,
+            4 * b * span * hq * cols * d)
+    del kf, vf, kp, vp
+    torch.cuda.empty_cache()
+
+    # -- kernel 8: sinks at the engine chunk batch past 4096
+    qs = [4096, 4608, 5120, 5632]
+    sq = 512
+    pps8 = (max(qs) + sq) // page + 1
+    P8 = 4 * pps8 + 1
+    kf, vf = rn(hkv, P8, page, d), rn(hkv, P8, page, d)
+    kp, vp, ks, vs = _kv_pages(kf, vf, "int8")
+    table = (torch.randperm(P8 - 1, generator=gen, device=dev)[: 4 * pps8] + 1
+             ).reshape(4, pps8).int()
+    q = rn(4, sq, hq, d)
+    Lc = torch.tensor([s + sq for s in qs], dtype=torch.int32, device=dev)
+    Qs = torch.tensor(qs, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window_left=4095, sink_tokens=4, quant_dtype="int8")
+    o, lse = paged_prefill.paged_prefill_attention(q, kp, vp, Lc, Qs, table, k_scales=ks,
+                                                   v_scales=vs, return_lse=True, **kw)
+    ro, rl = paged_prefill._paged_prefill_plain(q.float(), kp, vp, ks, vs, Lc, Qs, Lc - Qs,
+                                                table, d ** -0.5, 4095, 0, 0.0, "int8", 4)
+    print("kernel 8 chunk batch 4 x 512 at q_start 4096-5632, int8 pages of 64, "
+          "window 4095, sinks 4", flush=True)
+    _, good = _err(o, ro, what="O")
+    ok &= good and _lse_err(lse, rl, "")
+    pairs = sum(_visible_pairs(sq, s + sq, s, 4095, 0, 4) for s in qs)
+    cols = sum(min(s + sq, 4096 + sq + 4) for s in qs)
+    _report("paged_prefill", _time_ms(lambda: paged_prefill.paged_prefill_attention(
+        q, kp, vp, Lc, Qs, table, k_scales=ks, v_scales=vs, **kw)),
+        _time_ms(lambda: paged_prefill._paged_prefill_plain(
+            q.float(), kp, vp, ks, vs, Lc, Qs, Lc - Qs, table, d ** -0.5, 4095, 0, 0.0,
+            "int8", 4), iters=2),
+        None, 2 * cols * hkv * (d + 4) + 2 * q.numel() * 2, 4 * hq * d * pairs)
+    del kf, vf, kp, vp, q
+    torch.cuda.empty_cache()
+
+    # -- kernels 11-14: ALiBi in every launch, sinks in 11, the offset in 11-13
+    def bwd_plain(q, k, v, o, lse, do, wl, wr, sinks, off, slopes):
+        """backward._bwd_plain one kv head and its q heads at a time (fp32
+        products of 4 heads, not 32: s 8192 fits beside the rest)."""
+        g = q.shape[1] // k.shape[1]
+        parts = [backward._bwd_plain(
+            q[:, h * g:(h + 1) * g].float(), k[:, h:h + 1].float(),
+            v[:, h:h + 1].float(), o[:, h * g:(h + 1) * g].float(),
+            lse[:, h * g:(h + 1) * g], do[:, h * g:(h + 1) * g].float(),
+            q.shape[-1] ** -0.5, wl, wr, 0.0, sinks, off,
+            None if slopes is None else slopes[h * g:(h + 1) * g])
+            for h in range(k.shape[1])]
+        return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+
+    #        tag, b, hq, hkv, sq, sk, d, (wl, wr), sinks, off, alibi
+    bwd = (("kernel 11, sinks 4, window (4095, 0), b1 s8192 (the Mistral-7B train "
+            "step's shape)", 1, 32, 8, 8192, 8192, 128, (4095, 0), 4, 0, False),
+           ("kernel 11, sinks 4, window (2047, 0), b1 s4096", 1, 32, 8, 4096, 4096,
+            128, (2047, 0), 4, 0, False),
+           ("kernel 11, sinks 4, window (1023, 0), d 256 b2 s2048", 2, 8, 4, 2048,
+            2048, 256, (1023, 0), 4, 0, False),
+           ("kernels 11-13, ALiBi, causal, b4 s2048", 4, 32, 8, 2048, 2048, 128,
+            (-1, 0), 0, 0, True),
+           ("kernels 11-13, kv_position_offset 1024, causal, sq2048 sk3072", 1, 32, 8,
+            2048, 3072, 128, (-1, 0), 0, 1024, False))
+    for tag, b, hq, hkv, sq, sk, d, (wl, wr), sinks, off, alibi in bwd:
+        q, k, v, do = rn(b, hq, sq, d), rn(b, hkv, sk, d), rn(b, hkv, sk, d), rn(b, hq, sq, d)
+        slopes = _alibi_slopes(hq) if alibi else None
+        kw = dict(window_size=(wl, wr), sink_tokens=sinks, kv_position_offset=off,
+                  alibi_slopes=slopes)
+        o, lse = prefill.prefill_attention(q, k, v, return_lse=True, **kw)
+        ref = bwd_plain(q, k, v, o, lse, do, wl, wr, sinks, off, slopes)
+        pairs = b * _visible_pairs(sq, sk, off, wl, wr, sinks)
+        io = 2 * (4 * b * hq * sq * d + 2 * b * hkv * sk * d) + 2 * b * hq * sq * 4
+        print(f"backward {tag} (hq{hq} hkv{hkv} d{d}; {pairs} visible pairs)", flush=True)
+        splits = (True,) if sinks else (True, False)
+        for fused in splits:
+            _build.reset_launches()
+            got = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=fused, **kw)
+            launched = dict(_build.launches)
+            _, good = _bwd_close(got, ref, f"{sorted(launched)}")
+            ok &= good
+        del got, ref
+        plain_ms = _time_ms(lambda: bwd_plain(q, k, v, o, lse, do, wl, wr, sinks, off,
+                                              slopes), iters=2)
+        mask = _sdpa_mask(sq, sk, wl, wr, sinks, off, slopes)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, enable_gqa=True)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                      retain_graph=True))
+        args = backward._dense_cuda_inputs(q, k, v, o, lse, do) + (d ** -0.5, wl, wr, 0.0)
+        sl2 = prefill.cuda_slopes(slopes, prefill._LOG2E, hq, dev)
+        _report("bwd_fused", _time_ms(lambda: backward._launch_fused(*args, sinks, off,
+                                                                     sl2)),
+                plain_ms, lib_ms, io, 10 * hq * d * pairs)
+        if sinks:  # the same launch and band without the sink columns: their cost
+            _report("bwd_fused, sinks 0", _time_ms(lambda: backward._launch_fused(
+                *args, 0, off, sl2)), plain_ms, None, io,
+                10 * hq * d * b * _visible_pairs(sq, sk, off, wl, wr))
+        else:
+            _report("bwd_dkv", _time_ms(lambda: backward._launch_dkv(*args, off, sl2)),
+                    plain_ms, None, io, 8 * hq * d * pairs)
+            _report("bwd_dq", _time_ms(lambda: backward._launch_dq(*args, off, sl2)),
+                    plain_ms, None, io, 6 * hq * d * pairs)
+        del q, k, v, do, o, qg, kg, vg, out, mask, args
+        torch.cuda.empty_cache()
+    # kernel 14 with ALiBi on the ragged pack
+    q, k, v, do = rn(n, 32, 128), rn(n, 8, 128), rn(n, 8, 128), rn(n, 32, 128)
+    slopes = _alibi_slopes(32)
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, max(lens), max(lens), causal=True,
+                                     alibi_slopes=slopes, return_lse=True)
+    got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu, cu, causal=True,
+                                        alibi_slopes=slopes)
+    ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), cu, cu, 128 ** -0.5, -1, 0, 0.0, slopes)
+    print("backward kernel 14, ALiBi, causal, the ragged pack", flush=True)
+    _, good = _bwd_close(got, ref, "varlen_bwd_dkv + varlen_bwd_dq")
+    ok &= good
+    pairs = sum(s * (s + 1) // 2 for s in lens)
+    _report("varlen_bwd (both launches)", _time_ms(lambda: backward.varlen_attention_bwd(
+        q, k, v, o, lse, do, cu, cu, causal=True, alibi_slopes=slopes,
+        max_seqlen_q=max(lens), max_seqlen_k=max(lens))),
+        _time_ms(lambda: backward._varlen_bwd_plain(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(), cu, cu,
+            128 ** -0.5, -1, 0, 0.0, slopes), iters=2),
+        None, 2 * (4 * n * 32 * 128 + 2 * n * 8 * 128), 14 * 32 * 128 * pairs)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def engine_mistral_sinks_phase(counts, ident, state):
+    """Main path, Mistral-7B (mistralai/Mistral-7B-v0.1 config.json: 32
+    layers, dim 4096, 32 / 8 heads of 128, ffn 14336, sliding window 4096)
+    with 4 StreamingLLM attention sinks (arXiv 2309.17453) at full width and
+    depth, random bf16 weights from a seed, bf16 KV pages of 64. 8 requests
+    with prompts of 4200-6000 tokens (past the window, where the sinks act)
+    and 64 new tokens: run(burst=8) graphed, then graphs off (the same
+    tokens), then the same engine with attn_sinks=0 (other tokens on at
+    least one request: the sinks act). One 5000-token prompt's last-token
+    logits, chunked (512) against whole, within a relative L2 of 0.05
+    (bf16 through 32 layers; a chunk runs kernel 8 where the whole prompt
+    runs kernels 2 + 3). Then chunked_engine_phase on int8 KV with prompts
+    past the window; the weights stay in `state` for the train phase."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve import graphs
+    from mfa_tpu_torch.serve.engine import Engine
+
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LlamaConfig.mistral_7b(), attn_sinks=4)
+    params = llama.init_params(cfg, seed=SEED + 7, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    n_req, gen_tokens, L = 8, 64, cfg.n_layers
+    kw = dict(num_pages=8 * 128 + 8, page_size=64, max_seqs=8, pages_per_seq=128,
+              device="cuda")
+    rng = np.random.RandomState(SEED)
+    prompts = [list(rng.randint(0, cfg.vocab_size, int(n)))
+               for n in rng.randint(4200, 6001, n_req)]
+
+    def run(c, burst):
+        eng = Engine(params, c, **kw)
+        reqs = [eng.submit(p, gen_tokens) for p in prompts]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        stats = eng.run(burst=burst)
+        wall = time.perf_counter() - t0
+        good = eng.sched.allocator.free_pages == kw["num_pages"] - 1
+        return [list(r.generated) for r in reqs], reqs, stats, wall, good
+
+    graphed, reqs, stats, wall, ok = run(cfg, 8)
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ok &= all(len(g) == gen_tokens for g in graphed) and stats.captures >= 1
+    ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+    ok &= _wave_launches(got, L * stats.prefill_batches)
+    ok &= got.get("paged", 0) == L * stats.steps
+    step_tokens = stats.decode_tokens - n_req
+    print(f"engine Mistral-7B sinks launches {got}: flagged = repair = {L} x "
+          f"{stats.prefill_batches} waves, paged = {L} x {stats.steps} decode steps",
+          flush=True)
+    print(f"engine Mistral-7B sinks (attn_sinks 4, window 4096, bf16 KV, run(burst=8)):"
+          f" {n_req} requests of {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"prompt tokens finished with {gen_tokens} tokens; prefill "
+          f"{stats.prefill_tokens / stats.prefill_s:.1f} tok/s ({stats.prefill_tokens} "
+          f"tokens in {stats.prefill_s:.3f} s), decode {_decode_rates(stats, step_tokens)}"
+          f", {wall:.3f} s wall, peak memory {peak_gb:.2f} GB [{ident}]", flush=True)
+    graphs._ENABLED = False  # a measurement switch: every decode step eager
+    try:
+        eager, _, est, _, good = run(cfg, 1)
+    finally:
+        graphs._ENABLED = True
+    same = eager == graphed
+    ok &= same and good and est.captures == 0
+    print(f"engine Mistral-7B sinks, graphs off: decode {step_tokens / est.decode_s:.1f}"
+          f" tok/s ({est.steps} steps, {est.decode_s:.3f} s); tokens identical to the "
+          f"graphed run: {same} [{ident}]", flush=True)
+    nosink, _, _, _, good = run(dataclasses.replace(cfg, attn_sinks=0), 8)
+    differ = sum(a != b for a, b in zip(nosink, graphed))
+    ok &= good and differ >= 1
+    print(f"engine Mistral-7B with attn_sinks=0 (the same weights and prompts): "
+          f"{differ} of {n_req} requests generate other tokens (>= 1: the sinks act)",
+          flush=True)
+    # one prompt past the window, chunked against whole
+    prompt = prompts[0][:5000]
+    pages = list(range(1, 80))
+    whole = llama.build_kv_caches(cfg, 96, 64, 1, 128, device="cuda")
+    _, ref = llama.prefill_batch(params, cfg, whole, [0], [pages], [prompt])
+    cc = llama.build_kv_caches(cfg, 96, 64, 1, 128, device="cuda")
+    for pos in range(0, len(prompt), 512):
+        cc, logits = llama.prefill_chunk(params, cfg, cc, 0, pages, prompt[pos:pos + 512],
+                                         pos, len(prompt))
+    a, r = logits.float().reshape(-1), ref[0].float().reshape(-1)
+    rel = float((a - r).norm() / r.norm())
+    good = bool(torch.isfinite(a).all()) and rel < 0.05
+    ok &= good
+    print(f"engine Mistral-7B sinks: a {len(prompt)}-token prompt's last-token logits, "
+          f"chunks of 512 (kernel 8) against whole (kernels 2 + 3): relative L2 "
+          f"{rel:.4e} (< 0.05), max_abs {float((a - r).abs().max()):.3e}, argmax agree "
+          f"{int(a.argmax()) == int(r.argmax())} {'ok' if good else 'FAIL'}", flush=True)
+    del whole, cc, logits, ref
+    torch.cuda.empty_cache()
+    state.update(params=params, cfg=cfg)
+    # long prompts past the 4096 window, where the sinks act
+    ok &= chunked_engine_phase(counts, ident, state, "int8", "Mistral-7B-sinks",
+                               (4200, 6001), (1024, 128))
+    return ok
+
+
+def cpu_vs_cuda_sinks_phase():
+    """Phase 4 for the sinks: Mistral-7B at full width cut to 2 layers with a
+    window of 64 and 4 sinks, seeded random weights, kernels on the card vs
+    plain versions on the CPU over int8 KV pages: a wave of 150- and
+    210-token prompts, a decode step, a 256-token prompt in 2 chunks of 128
+    and a prefix-hit suffix chunk (_kv_stage_logits: every row past the
+    window sees the sinks), logits within max 0.25 / mean 0.02."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.mistral_7b(), n_layers=2,
+                              sliding_window=64, attn_sinks=4)
+    p_gpu = llama.init_params(cfg, seed=SEED + 8, device="cuda")
+    p_cpu = dict(layers=[{k: v.cpu() for k, v in lp.items()} for lp in p_gpu["layers"]],
+                 **{k: p_gpu[k].cpu() for k in ("embed", "final_norm", "lm_head")})
+    rng = np.random.RandomState(SEED + 8)
+    prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in (150, 210)]
+    pages = [[1, 2, 3], [4, 5, 11, 12]]
+    long = list(rng.randint(0, cfg.vocab_size, 256))
+    hit = long[:128] + list(rng.randint(0, cfg.vocab_size, 60))
+    out = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        out[dev] = _kv_stage_logits(llama, cfg, params, dev, "int8", out, prompts, pages,
+                                    long, hit)
+    ok = True
+    for i, name in enumerate(("prefill_batch", "decode_step",
+                              "prefill_chunk_batch 2 x 128", "prefix-hit suffix chunk")):
+        a, r = out["cuda"][i], out["cpu"][i]
+        d = (a - r).abs()
+        good = bool(torch.isfinite(a).all()) and float(d.max()) < 0.25 \
+            and float(d.mean()) < 0.02
+        print(f"cuda vs cpu Mistral-7B sinks (2 layers, window 64, 4 sinks) {name} "
+              f"logits [{tuple(a.shape)}]: max_abs {float(d.max()):.3e} (< 0.25) "
+              f"mean_abs {float(d.mean()):.3e} (< 0.02), argmax agree "
+              f"{bool(torch.equal(a.argmax(-1), r.argmax(-1)))} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -3594,6 +4119,7 @@ def main() -> int:
     counts = {}
     state = {}
     for name, fn in (("kernels", lambda: kernel_phase(records)),
+                     ("sinks_kernels", sinks_kernels),
                      ("library_surface", lambda: library_surface(counts)),
                      ("engine_8b", lambda: engine_phase(counts, ident, state)),
                      ("engine_8b_kvq", lambda: kvq_engine_phase(counts, ident, state)),
@@ -3631,11 +4157,17 @@ def main() -> int:
                       lambda: family_engine_phase(counts, ident, state, "Gemma2-9B")),
                      ("engine_mixtral_8x7b",
                       lambda: engine_mixtral_phase(counts, ident, state)),
+                     ("engine_mistral_7b_sinks",
+                      lambda: engine_mistral_sinks_phase(counts, ident, state)),
+                     ("train_mistral_7b_sinks",
+                      lambda: train_phase(counts, ident, state, "Mistral-7B-sinks",
+                                          (1, 8192))),
                      ("cuda_vs_cpu", cpu_vs_cuda_phase),
                      ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
                      ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase),
                      ("cuda_vs_cpu_families", cpu_vs_cuda_families_phase),
-                     ("cuda_vs_cpu_moe", cpu_vs_cuda_moe_phase)):
+                     ("cuda_vs_cpu_moe", cpu_vs_cuda_moe_phase),
+                     ("cuda_vs_cpu_sinks", cpu_vs_cuda_sinks_phase)):
         t0 = time.perf_counter()
         try:
             phases[name] = bool(fn())

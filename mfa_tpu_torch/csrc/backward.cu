@@ -33,7 +33,10 @@
 // LSE and delta [hq, total_q]. LSE is the natural log of the scaled
 // (capped) logits, -inf on rows that saw no column; it becomes log2 once.
 // GQA: q head h reads kv head h / (hq / hkv), and a dK/dV block sums over
-// the group's q heads.
+// the group's q heads. slopes: ALiBi [hq] in the log2 domain (slope *
+// log2 e) or null, on every launch; kv_off (row r at position r + kv_off):
+// the dense launches; sinks: the fused launch only (mfa_tpu's split refuses
+// them).
 //
 // Bound: tensor-core operations, 10 * hq * d flops per visible (row,
 // column) pair for the fused launch (8 for dK/dV, 6 for dQ); at training
@@ -52,10 +55,14 @@
 namespace {
 
 fb90::Args args_of(int hq, int hkv, int sq, int sk, int window_left, int window_right,
-                   float scale, float softcap) {
+                   float scale, float softcap, int sinks, int kv_off, const float* slopes) {
   const float c2 = softcap > 0.f ? fb90::LOG2E : scale * fb90::LOG2E;
-  return fb90::Args{hq,    hkv, sq,      sk, window_left, window_right,
-                    scale, c2,  softcap, softcap > 0.f ? scale / softcap : 0.f};
+  fb90::Args a{hq,    hkv, sq,      sk, window_left, window_right,
+               scale, c2,  softcap, softcap > 0.f ? scale / softcap : 0.f};
+  a.sinks = sinks;
+  a.kv_off = kv_off;
+  a.slopes = slopes;
+  return a;
 }
 
 // Kernel 11 (dq_ws set: dQ added into it) or kernel 12 (dq_ws null: dK and
@@ -63,7 +70,8 @@ fb90::Args args_of(int hq, int hkv, int sq, int sk, int window_left, int window_
 int launch_sm90(const void* q, const void* k, const void* v, const void* dO, const float* lse,
                 const float* delta, float* dq_ws, void* dk, void* dv, int dtype, int batch,
                 int hq, int hkv, int sq, int sk, int d, int window_left, int window_right,
-                float scale, float softcap, void* stream) {
+                float scale, float softcap, int sinks, int kv_off, const float* slopes,
+                void* stream) {
   if (batch == 0 || sk == 0) return 0;
   if (sq == 0) {  // no row sees a key: dK = dV = 0
     const size_t bytes = (size_t)batch * hkv * sk * d * 2;
@@ -71,7 +79,8 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dO, con
     if (int err = (int)cudaMemsetAsync(dk, 0, bytes, st)) return err;
     return (int)cudaMemsetAsync(dv, 0, bytes, st);
   }
-  const fb90::Args a = args_of(hq, hkv, sq, sk, window_left, window_right, scale, softcap);
+  const fb90::Args a = args_of(hq, hkv, sq, sk, window_left, window_right, scale, softcap,
+                               sinks, kv_off, slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MFA_CALL(T, D)                                                                        \
   (dq_ws != nullptr                                                                           \
@@ -90,27 +99,31 @@ extern "C" int mfa_bwd_fused(const void* q, const void* k, const void* v, const 
                              const float* lse, const float* delta, float* dq_ws, void* dk,
                              void* dv, int dtype, int batch, int hq, int hkv, int sq, int sk,
                              int d, int window_left, int window_right, float scale,
-                             float softcap, void* stream) {
+                             float softcap, int sinks, int kv_off, const float* slopes,
+                             void* stream) {
   if (dq_ws == nullptr) return MFA_BAD_CONFIG;
   return launch_sm90(q, k, v, dO, lse, delta, dq_ws, dk, dv, dtype, batch, hq, hkv, sq, sk, d,
-                     window_left, window_right, scale, softcap, stream);
+                     window_left, window_right, scale, softcap, sinks, kv_off, slopes, stream);
 }
 
 extern "C" int mfa_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                            const float* lse, const float* delta, void* dk, void* dv, int dtype,
                            int batch, int hq, int hkv, int sq, int sk, int d, int window_left,
-                           int window_right, float scale, float softcap, void* stream) {
+                           int window_right, float scale, float softcap, int kv_off,
+                           const float* slopes, void* stream) {
   return launch_sm90(q, k, v, dO, lse, delta, nullptr, dk, dv, dtype, batch, hq, hkv, sq, sk, d,
-                     window_left, window_right, scale, softcap, stream);
+                     window_left, window_right, scale, softcap, 0, kv_off, slopes, stream);
 }
 
 // dq: [b, hq, sq, d] in the dtype, every row stored (0 where no key is seen).
 extern "C" int mfa_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                           const float* lse, const float* delta, void* dq, int dtype, int batch,
                           int hq, int hkv, int sq, int sk, int d, int window_left,
-                          int window_right, float scale, float softcap, void* stream) {
+                          int window_right, float scale, float softcap, int kv_off,
+                          const float* slopes, void* stream) {
   if (batch == 0 || sq == 0) return 0;
-  const fb90::Args a = args_of(hq, hkv, sq, sk, window_left, window_right, scale, softcap);
+  const fb90::Args a = args_of(hq, hkv, sq, sk, window_left, window_right, scale, softcap, 0,
+                               kv_off, slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MFA_CALL(T, D) \
   fb90::launch_dq<T, D, false>(q, k, v, dO, lse, delta, dq, batch, 0, 0, a, st)
@@ -126,9 +139,9 @@ extern "C" int mfa_varlen_bwd_dkv(const void* q, const void* k, const void* v, c
                                   const int* cu_q, const int* cu_k, int dtype, int batch,
                                   int hq, int hkv, int total_q, int total_k, int max_sk, int d,
                                   int window_left, int window_right, float scale,
-                                  float softcap, void* stream) {
+                                  float softcap, const float* slopes, void* stream) {
   if (batch == 0 || max_sk == 0) return 0;
-  fb90::Args a = args_of(hq, hkv, 0, 0, window_left, window_right, scale, softcap);
+  fb90::Args a = args_of(hq, hkv, 0, 0, window_left, window_right, scale, softcap, 0, 0, slopes);
   a.cu_q = cu_q;
   a.cu_k = cu_k;
   a.total_q = total_q;
@@ -147,9 +160,9 @@ extern "C" int mfa_varlen_bwd_dq(const void* q, const void* k, const void* v, co
                                  const int* cu_q, const int* cu_k, int dtype, int batch, int hq,
                                  int hkv, int total_q, int total_k, int max_sq, int d,
                                  int window_left, int window_right, float scale, float softcap,
-                                 void* stream) {
+                                 const float* slopes, void* stream) {
   if (batch == 0 || max_sq == 0 || total_q == 0) return 0;
-  fb90::Args a = args_of(hq, hkv, 0, 0, window_left, window_right, scale, softcap);
+  fb90::Args a = args_of(hq, hkv, 0, 0, window_left, window_right, scale, softcap, 0, 0, slopes);
   a.cu_q = cu_q;
   a.cu_k = cu_k;
   a.total_q = total_q;

@@ -65,11 +65,13 @@ int launch_kind(int d, const void* q, const void* k, const void* v, void* o, flo
   cudaStream_t s = static_cast<cudaStream_t>(stream);                          \
   if (batch == 0 || sq == 0) return 0;                                         \
   if (dtype != MFA_BF16) return MFA_BAD_CONFIG;                                \
-  const fa90::Args a{hq, hkv, sq, sk, window_left, window_right, scale_log2e, 0.f, 0.f};
+  fa90::Args a{hq, hkv, sq, sk, window_left, window_right, scale_log2e, 0.f, 0.f}; \
+  a.sinks = sinks;                                                             \
+  a.kv_off = kv_off;
 #define MFA_ZS_ARGS                                                                       \
   const void *q, const void *k, const void *v, void *o, float *lse, int *table, int dtype, \
       int batch, int hq, int hkv, int sq, int sk, int d, int window_left, int window_right, \
-      float scale_log2e, void *stream
+      float scale_log2e, int sinks, int kv_off, void *stream
 
 extern "C" int mfa_flagged_fwd(MFA_ZS_ARGS) {
   MFA_ZS_PREAMBLE

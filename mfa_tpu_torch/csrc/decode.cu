@@ -59,12 +59,14 @@ extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
                                    int dtype, int batch, int hq, int hkv, int S, int d,
                                    int num_splits, int tokens_per_split, int window_left,
                                    float scale_log2e, float softcap, float softcap_mul,
-                                   void* stream) {
+                                   int sinks, const float* slopes, void* stream) {
   if (batch == 0) return 0;
   const int group = hq / hkv;
   if (group < 1 || group > 8) return MFA_BAD_CONFIG;
   kd90::Args a = {q, lens, o_part, lse_part, hq, hkv, group, S, tokens_per_split,
                   num_splits, window_left, scale_log2e, softcap, softcap_mul};
+  a.sinks = sinks;
+  a.slopes = slopes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFA_DEC(T)                                                  \
   if (d == 64) return kd90::launch<T, 64, false, KV::F16>(k, v, a, batch, s);   \

@@ -14,7 +14,15 @@
 // rows hold queries and a fourth grid axis (folded into x) takes the next
 // 16, so q_span x group may be anything. Each row sees its own columns
 // [lo, hi) of one sequence: span row si sits at position len + pos_offset -
-// q_span + si. With one split and `out` set the block stores the final O in
+// q_span + si. With a left window the columns < sinks stay visible too
+// (StreamingLLM sinks, decode.py:91-117, paged.py:310-331): a block then
+// reads its split's sink columns [s_lo, min(sinks, hi)) as tiles of their
+// own ahead of the band [lo, hi), no tile twice where the two meet, so each
+// sink column is read by exactly the split that holds it (the split count
+// still comes from the shapes alone). ALiBi subtracts slope * |position -
+// column| from each row's log2-domain scores, the slope of the row's q
+// head pre-multiplied by log2 e (decode.py:108-111, paged.py:363-370).
+// With one split and `out` set the block stores the final O in
 // the q dtype and the natural-log LSE; otherwise each split's normalized
 // fp32 O and LSE for the combine (decode.cu, launch 2).
 //
@@ -90,6 +98,8 @@ struct Args {
   float* lse_out;        // and its LSE [b, hq]
   int num_pages, page_size, pps, box_rows, pos_offset;
   int q_span;  // M16: span positions of q [b, q_span, hq, D] (else 1)
+  int sinks;   // with a left window: columns < sinks stay visible (else 0)
+  const float* slopes;  // ALiBi [hq] in the log2 domain, or null
 };
 
 // Shared memory: STAGES slots of [K tile | V tile (| K scales | V scales)],
@@ -289,8 +299,13 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   const int lo = row_lo(si_first), hi = row_hi(si_last);  // the union of the rows' ranges
   // the columns every row of the block sees: a warp's tokens inside need no mask
   const int lo_all = M16 ? row_lo(si_last) : lo, hi_all = M16 ? row_hi(si_first) : hi;
-  const int first = lo / TILE;
-  const int n_tiles = lo < hi ? (hi + TILE - 1) / TILE - first : 0;
+  // the split's sink columns [sa_lo, sa_hi) (empty: sa_hi == sa_lo), read
+  // as tiles [sa_lo / TILE, + nsink) ahead of the band's tiles from bfirst
+  const int sa_lo = s_lo, sa_hi = max(s_lo, min(a.sinks, hi));
+  const int nsink = sa_hi > sa_lo ? (sa_hi + TILE - 1) / TILE - sa_lo / TILE : 0;
+  const int bfirst = max(lo / TILE, sa_lo / TILE + nsink);
+  const int n_tiles = nsink + (lo < hi ? max(0, (hi + TILE - 1) / TILE - bfirst) : 0);
+  auto tile_of = [&](int i) { return i < nsink ? sa_lo / TILE + i : bfirst + (i - nsink); };
 
   extern __shared__ __align__(16) unsigned char kd_smem[];
   unsigned char* smem = kd_smem + ((1024u - (smem_u32(kd_smem) & 1023u)) & 1023u);
@@ -314,7 +329,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
           mbar_wait(bar_empty<STAGES>(bars, s), ((i / STAGES) & 1) ^ 1);
           mbar_expect_tx(bar_full(bars, s), 2 * P::KV_BYTES);
           const uint32_t k_s = base + s * P::STAGE_BYTES, v_s = k_s + P::KV_BYTES;
-          const int row = (first + i) * TILE, plane = b * a.hkv + hk;
+          const int row = tile_of(i) * TILE, plane = b * a.hkv + hk;
 #pragma unroll
           for (int ch = 0; ch < D / 64; ++ch) {
             tma_load_3d(k_s + ch * (TILE * 128), &tk, bar_full(bars, s), ch * 64, row, plane);
@@ -330,8 +345,18 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
       const uint32_t box_bytes = QUANT ? 2 * R * (P::RB + 4) : 2 * R * D * 2;
       int ids = 0, id0 = -32;
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES, t0 = (first + i) * TILE;
-        const int jb0 = max(0, lo - t0) / R, jb1 = (min(TILE, hi - t0) + R - 1) / R;
+        const int s = i % STAGES, t0 = tile_of(i) * TILE;
+        // the hull of the tile's tokens in [sa_lo, sa_hi) and [lo, hi)
+        int tlo = TILE, thi = 0;
+        if (sa_lo < sa_hi && sa_lo < t0 + TILE && sa_hi > t0) {
+          tlo = max(sa_lo - t0, 0);
+          thi = min(sa_hi - t0, TILE);
+        }
+        if (lo < hi && lo < t0 + TILE && hi > t0) {
+          tlo = min(tlo, max(lo - t0, 0));
+          thi = max(thi, min(hi - t0, TILE));
+        }
+        const int jb0 = tlo / R, jb1 = (thi + R - 1) / R;
         const uint32_t k_s = base + s * P::STAGE_BYTES, v_s = k_s + P::KV_BYTES;
         if (lane == 0) {
           mbar_wait(bar_empty<STAGES>(bars, s), ((i / STAGES) & 1) ^ 1);
@@ -374,20 +399,21 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
 
   const int cw = warp - 1, team = cw >> 2, quarter = cw & 3;
   const int g = lane >> 2, t4 = lane & 3;
-  // This thread's rows g (and g + 8): [lo, hi) of each. A padding row (past
-  // the group, or past q_span x group) takes the last row's range.
-  int rlo[NR], rhi[NR];
-  if constexpr (M16) {
+  // This thread's rows g (and g + 8): [lo, hi) of each, their positions
+  // and ALiBi slopes. A padding row (past the group, or past q_span x
+  // group) takes the last row's range.
+  int rlo[NR], rhi[NR], rpos[NR];
+  float rsl[NR];
 #pragma unroll
-    for (int h = 0; h < NR; ++h) {
-      const int si = min(r0 + g + 8 * h, r0 + nrows - 1) / G;
-      rlo[h] = row_lo(si);
-      rhi[h] = row_hi(si);
-    }
-  } else {
-    rlo[0] = lo;
-    rhi[0] = hi;
+  for (int h = 0; h < NR; ++h) {
+    const int rc = M16 ? min(r0 + g + 8 * h, r0 + nrows - 1) : min(g, G - 1);
+    const int si = M16 ? rc / G : 0;
+    rlo[h] = M16 ? row_lo(si) : lo;
+    rhi[h] = M16 ? row_hi(si) : hi;
+    rpos[h] = length + a.pos_offset - span + si;
+    rsl[h] = a.slopes != nullptr ? a.slopes[hk * G + rc % G] : 0.f;
   }
+  const bool alibi = a.slopes != nullptr;
   // Q rows as A fragments (qa[kk][h] the low k half of row g + 8 h,
   // qa[kk][NR + h] the high one; padding rows zero). 16-bit: step kk holds
   // columns 16 kk + 2 t4 (+1) and 16 kk + 8 + 2 t4 (+1). One byte a value:
@@ -433,8 +459,8 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   for (int i = team; i < n_tiles; i += TEAMS) {
     const int s = i % STAGES;
     mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
-    const int tok0 = (first + i) * TILE + 16 * quarter;  // this warp's first token
-    if (tok0 < hi && tok0 + 16 > lo) {
+    const int tok0 = tile_of(i) * TILE + 16 * quarter;  // this warp's first token
+    if ((tok0 < hi && tok0 + 16 > lo) || (tok0 < sa_hi && tok0 + 16 > sa_lo)) {
       const bool edge = tok0 < lo_all || tok0 + 16 > hi_all;
       const uint32_t k_s = base + s * P::STAGE_BYTES, v_s = k_s + P::KV_BYTES;
       const unsigned char* slot = smem + s * P::STAGE_BYTES;
@@ -533,9 +559,10 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
           if constexpr (QUANT) y *= ks[x];
           if (a.softcap > 0.f) y = tanhf(y * a.softcap_mul) * a.softcap;
           y *= a.scale_log2e;
+          const int tok = tok0 + 8 * (x >> 1) + 2 * t4 + (x & 1);
+          if (alibi) y -= rsl[h] * fabsf((float)(rpos[h] - tok));
           if (edge) {
-            const int tok = tok0 + 8 * (x >> 1) + 2 * t4 + (x & 1);
-            if (tok < rlo[h] || tok >= rhi[h]) y = MFA_MASK;
+            if ((tok < rlo[h] && tok >= a.sinks) || tok >= rhi[h]) y = MFA_MASK;
           }
           v[h][x] = y;
           mx = fmaxf(mx, y);
@@ -569,15 +596,15 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
         pa[h] = pack2<T>(v[h][0], v[h][1]);
         pa[NR + h] = pack2<T>(v[h][2], v[h][3]);
       }
-      // V fragments of tokens outside the union [lo, hi) are zeroed on an edge: b0
-      // holds tokens 2 t4, 2 t4 + 1, b1 tokens 2 t4 + 8, 2 t4 + 9
+      // V fragments of tokens outside the union [lo, hi) + [sa_lo, sa_hi) are
+      // zeroed on an edge: b0 holds tokens 2 t4, 2 t4 + 1, b1 tokens 2 t4 +
+      // 8, 2 t4 + 9
       uint32_t keep0 = 0xffffffffu, keep1 = 0xffffffffu;
       if (edge) {
         const int t = tok0 + 2 * t4;
-        keep0 = (t >= lo && t < hi ? 0x0000ffffu : 0u) |
-                (t + 1 >= lo && t + 1 < hi ? 0xffff0000u : 0u);
-        keep1 = (t + 8 >= lo && t + 8 < hi ? 0x0000ffffu : 0u) |
-                (t + 9 >= lo && t + 9 < hi ? 0xffff0000u : 0u);
+        auto in_u = [&](int u) { return (u >= lo && u < hi) || (u >= sa_lo && u < sa_hi); };
+        keep0 = (in_u(t) ? 0x0000ffffu : 0u) | (in_u(t + 1) ? 0xffff0000u : 0u);
+        keep1 = (in_u(t + 8) ? 0x0000ffffu : 0u) | (in_u(t + 9) ? 0xffff0000u : 0u);
       }
       if constexpr (QUANT) {
         // rows 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 of the warp's 16: the

@@ -30,7 +30,14 @@
 //   dK = dS^T Q     dQ = dS K
 //
 // with delta = rowsum(dO * O) from the caller in fp32, P = 0 on rows whose
-// LSE is -inf, and dK, dV summed over the GQA group. Layout: q, dO [b, hq,
+// LSE is -inf, and dK, dV summed over the GQA group. The forward's band
+// options carry over: row r sits at position r + kv_off (dense kernels);
+// with a left window the keys < sinks stay visible to every row, and a
+// block of such keys walks every q tile from its first on (the fused kernel
+// only: the split refuses sinks, as mfa_tpu does); ALiBi (slopes in the
+// log2 domain, one per q head) subtracts slope * |position - key| from the
+// exponent of P, and dS is P (dP - delta) scale as without it (the bias
+// is a constant of the scores; its slopes get no gradient). Layout: q, dO [b, hq,
 // sq, D], k, v, dK, dV [b, hkv, sk, D], LSE and delta [b, hq, sq] fp32, or
 // packed q, dO [total_q, hq, D], k, v [total_k, hkv, D], LSE and delta
 // [hq, total_q]; the fused kernel adds dQ into a zeroed fp32 workspace
@@ -139,6 +146,9 @@ struct Args {
   const int* cu_q = nullptr;
   const int* cu_k = nullptr;
   int total_q = 0;
+  int sinks = 0;   // with a left window: keys < sinks stay visible
+  int kv_off = 0;  // row r sits at position r + kv_off
+  const float* slopes = nullptr;  // ALiBi [hq], log2 domain (slope * log2 e), or null
 };
 
 // The block's shape (SPLIT at D 256, below): BN keys a block; each
@@ -188,9 +198,46 @@ __device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
 __device__ __forceinline__ bool sees(int k0, int q0, const Args& a) {
   const int k_hi = min(k0 + WG_N, a.sk) - 1, r_hi = min(q0 + BM, a.sq) - 1;
   if (k0 > k_hi || q0 > r_hi) return false;
-  if (a.wr >= 0 && k0 > r_hi + a.wr) return false;
-  if (a.wl >= 0 && k_hi < q0 - a.wl) return false;
+  if (a.wr >= 0 && k0 > r_hi + a.kv_off + a.wr) return false;
+  if (a.wl >= 0 && k_hi < q0 + a.kv_off - a.wl && k0 >= a.sinks) return false;
   return true;
+}
+
+// P^T and dS^T in place of S^T and dP^T (the dK/dV kernel): the thread's
+// keys r0, r0 + 8 are rows of the accumulators, and column c is q row q0 +
+// c at position p_q0 + c, with its log2 LSE and delta in l2s, dls. ALIBI is
+// the runtime slope, fixed per call so that the loop does not test it.
+template <bool ALIBI>
+__device__ __forceinline__ void pt_tile(float (&st)[BM / 2], float (&dp)[BM / 2], const Args& a,
+                                        const float* l2s, const float* dls, int p_q0, int r0,
+                                        int t4, bool needs_mask, float sl) {
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(l2s + 8 * j + 2 * t4);
+    const float2 dl = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = p_q0 + 8 * j + 2 * t4 + (e & 1);  // the row's position
+      const int key = r0 + 8 * (e >> 1);
+      bool ok = true;
+      if (needs_mask) {
+        ok = key < a.sk;
+        if (a.wr >= 0) ok = ok && key <= col + a.wr;
+        if (a.wl >= 0) ok = ok && (key >= col - a.wl || key < a.sinks);
+      }
+      float x = st[4 * j + e], dcap = 1.f;
+      if (a.softcap > 0.f) {
+        const float t = tanhf(x * a.softcap_mul);
+        x = t * a.softcap;
+        dcap = 1.f - t * t;
+      }
+      float ex = x * a.c2 - ((e & 1) ? l2.y : l2.x);
+      if constexpr (ALIBI) ex -= sl * fabsf((float)(col - key));
+      const float p = ok ? exp2f(ex) : 0.f;
+      st[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * a.scale * dcap;
+    }
+  }
 }
 
 // Grid (hkv, batch, ceil(sk / BN)), packed (hkv, sequence, ceil(max_sk /
@@ -220,13 +267,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     q_row0 = a.cu_q[b];
     a.sq = a.cu_q[b + 1] - q_row0;
   }
-  const int group = a.hq / a.hkv, h0 = hk * group;
+  const int group = a.hq / a.hkv, h0 = hk * group, off = a.kv_off;
   // q tiles that see a key of this block (the transpose of the forward's
-  // band: row r sees key c when r - wl <= c <= r + wr)
+  // band: row r sees key c when r + off - wl <= c <= r + off + wr, or c <
+  // sinks: a block holding sink keys walks every q tile from q_first on)
   const int kv_hi = min(kv0 + BN, a.sk) - 1;
   int q_first = 0, q_last = (a.sq + BM - 1) / BM - 1;
-  if (a.wr >= 0) q_first = max(0, kv0 - a.wr) / BM;
-  if (a.wl >= 0) q_last = min(q_last, (kv_hi + a.wl) / BM);
+  if (a.wr >= 0) q_first = max(0, kv0 - off - a.wr) / BM;
+  if (a.wl >= 0 && kv0 >= a.sinks) {
+    const int r_last = kv_hi + a.wl - off;  // the last row that sees kv_hi
+    q_last = r_last < 0 ? -1 : min(q_last, r_last / BM);
+  }
   const int per_head = max(0, q_last - q_first + 1);
   const int n_tiles = group * per_head;
 
@@ -321,6 +372,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % STAGES, hi = i / per_head, q0 = (q_first + i % per_head) * BM;
       const int h = h0 + hi;
+      const float sl = a.slopes != nullptr ? a.slopes[h] : 0.f;  // ALiBi, log2 domain
       const bool live0 = sees(kv0, q0, a);
       const bool live1 = SPLIT ? live0 : sees(kv0 + WG_N, q0, a);
       const uint32_t q_s = base + P::q_off + s * P::Q_BYTES;
@@ -361,33 +413,12 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float* l2s = rows + s * 2 * BM;
         const float* dls = l2s + BM;
         const bool needs_mask = (key_lo + WG_N > a.sk) ||
-                                (a.wr >= 0 && key_lo + WG_N - 1 > q0 + a.wr) ||
-                                (a.wl >= 0 && key_lo < q0 + BM - 1 - a.wl);
-#pragma unroll
-        for (int j = 0; j < BM / 8; ++j) {
-          const float2 l2 = *reinterpret_cast<const float2*>(l2s + 8 * j + 2 * t4);
-          const float2 dl = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * t4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = q0 + 8 * j + 2 * t4 + (e & 1);
-            const int key = r0 + 8 * (e >> 1);
-            bool ok = true;
-            if (needs_mask) {
-              ok = key < a.sk;
-              if (a.wr >= 0) ok = ok && key <= col + a.wr;
-              if (a.wl >= 0) ok = ok && key >= col - a.wl;
-            }
-            float x = st[4 * j + e], dcap = 1.f;
-            if (a.softcap > 0.f) {
-              const float t = tanhf(x * a.softcap_mul);
-              x = t * a.softcap;
-              dcap = 1.f - t * t;
-            }
-            const float p = ok ? exp2f(x * a.c2 - ((e & 1) ? l2.y : l2.x)) : 0.f;
-            st[4 * j + e] = p;
-            dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * a.scale * dcap;
-          }
-        }
+                                (a.wr >= 0 && key_lo + WG_N - 1 > q0 + off + a.wr) ||
+                                (a.wl >= 0 && key_lo < q0 + off + BM - 1 - a.wl);
+        if (sl != 0.f)
+          pt_tile<true>(st, dp, a, l2s, dls, q0 + off, r0, t4, needs_mask, sl);
+        else
+          pt_tile<false>(st, dp, a, l2s, dls, q0 + off, r0, t4, needs_mask, 0.f);
 
         // P^T and dS^T rounded to T: 16 columns are one register A fragment
         uint32_t pa[BM / 16][4], da[BM / 16][4];
@@ -672,24 +703,25 @@ struct DqPlan {
 };
 
 // dS = P (dP - delta) scale (* (1 - tanh^2)) in place of dP, P = exp2(S c2
-// - LSE2) or 0 where masked; the thread's rows r0, r0 + 8 and columns kv0 +
-// 8 j + 2 t4 + {0, 1} of the accumulators. CAP and MASK are the runtime
-// softcap and needs_mask, fixed per call so that the loop tests neither.
-template <int KN, bool CAP, bool MASK>
+// - LSE2 (- sl |position - key|)) or 0 where masked; the thread's rows r0,
+// r0 + 8 (positions p0, p0 + 8) and columns kv0 + 8 j + 2 t4 + {0, 1} of the
+// accumulators. CAP, MASK and ALIBI are the runtime softcap, needs_mask and
+// slope, fixed per call so that the loop tests none of them.
+template <int KN, bool CAP, bool MASK, bool ALIBI = false>
 __device__ __forceinline__ void ds_tile(float (&sc)[KN / 2], float (&dp)[KN / 2], const Args& a,
-                                        int kv0, int r0, int t4, const float (&l2)[2],
-                                        const float (&dl)[2]) {
+                                        int kv0, int p0, int t4, const float (&l2)[2],
+                                        const float (&dl)[2], float sl = 0.f) {
 #pragma unroll
   for (int j = 0; j < KN / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       bool ok = true;
+      const int col = kv0 + 8 * j + 2 * t4 + (e & 1);
+      const int row = p0 + 8 * (e >> 1);
       if constexpr (MASK) {
-        const int col = kv0 + 8 * j + 2 * t4 + (e & 1);
-        const int row = r0 + 8 * (e >> 1);
         ok = col < a.sk;
         if (a.wr >= 0) ok = ok && col <= row + a.wr;
-        if (a.wl >= 0) ok = ok && col >= row - a.wl;
+        if (a.wl >= 0) ok = ok && (col >= row - a.wl || col < a.sinks);
       }
       float x = sc[4 * j + e], dcap = 1.f;
       if constexpr (CAP) {
@@ -697,7 +729,9 @@ __device__ __forceinline__ void ds_tile(float (&sc)[KN / 2], float (&dp)[KN / 2]
         x = t * a.softcap;
         dcap = 1.f - t * t;
       }
-      const float p = ok ? exp2f(x * a.c2 - l2[e >> 1]) : 0.f;
+      float ex = x * a.c2 - l2[e >> 1];
+      if constexpr (ALIBI) ex -= sl * fabsf((float)(row - col));
+      const float p = ok ? exp2f(ex) : 0.f;
       dp[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]) * a.scale * dcap;
     }
   }
@@ -728,10 +762,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     k_row0 = a.cu_k[b];
     a.sk = a.cu_k[b + 1] - k_row0;
   }
-  const int hk = h / (a.hq / a.hkv);
+  const int hk = h / (a.hq / a.hkv), off = a.kv_off;
   const bool two = q0 + BM < a.sq;  // the second warpgroup has rows
-  const fa90::Span s0 = fa90::span_of(q0, q0 + BM - 1, a.sk, a.wl, a.wr, KN);
-  const fa90::Span s1 = two ? fa90::span_of(q0 + BM, q0 + DQ_BM - 1, a.sk, a.wl, a.wr, KN)
+  const int p_q0 = q0 + off;  // the block's first position
+  const fa90::Span s0 = fa90::span_of(p_q0, p_q0 + BM - 1, a.sk, a.wl, a.wr, KN);
+  const fa90::Span s1 = two ? fa90::span_of(p_q0 + BM, p_q0 + DQ_BM - 1, a.sk, a.wl, a.wr, KN)
                             : fa90::Span{1, 0};
   const int first = s0.first, n_tiles = max(0, (two ? s1.last : s0.last) - first + 1);
 
@@ -784,6 +819,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int lane = wtid & 31, g = lane >> 2, t4 = lane & 3;
     const int pos_lo = q0 + w * BM, pos_hi = pos_lo + BM - 1;
     const int r0 = pos_lo + (wtid >> 5) * 16 + g;  // this thread's rows: r0 and r0 + 8
+    const float sl = a.slopes != nullptr ? a.slopes[h] : 0.f;  // ALiBi, log2 domain
     const fa90::Span mine = w == 0 ? s0 : s1;
     const uint32_t q_wg = base + P::q_off + w * (BM * 128);  // its rows of each chunk
     const uint32_t do_wg = base + P::do_off + w * (BM * 128);
@@ -831,23 +867,29 @@ __global__ void __launch_bounds__(THREADS, 1)
         wg_commit();
         // mask only tiles that cross the key tail or the band's edge
         const bool needs_mask = (kv0 + KN > a.sk) ||
-                                (a.wr >= 0 && kv0 + KN - 1 > pos_lo + a.wr) ||
-                                (a.wl >= 0 && kv0 < pos_hi - a.wl);
+                                (a.wr >= 0 && kv0 + KN - 1 > pos_lo + off + a.wr) ||
+                                (a.wl >= 0 && kv0 < pos_hi + off - a.wl);
         wg_wait_all();
         fence_regs(sc);
         fence_regs(dp);
 
         // dS in place of dP; column c of the accumulators is key kv0 + c
+        const int p0 = r0 + off;
         if (a.softcap > 0.f) {
           if (needs_mask)
-            ds_tile<KN, true, true>(sc, dp, a, kv0, r0, t4, l2, dl);
+            ds_tile<KN, true, true>(sc, dp, a, kv0, p0, t4, l2, dl);
           else
-            ds_tile<KN, true, false>(sc, dp, a, kv0, r0, t4, l2, dl);
+            ds_tile<KN, true, false>(sc, dp, a, kv0, p0, t4, l2, dl);
+        } else if (sl != 0.f) {  // ALiBi (never with softcap)
+          if (needs_mask)
+            ds_tile<KN, false, true, true>(sc, dp, a, kv0, p0, t4, l2, dl, sl);
+          else
+            ds_tile<KN, false, false, true>(sc, dp, a, kv0, p0, t4, l2, dl, sl);
         } else {
           if (needs_mask)
-            ds_tile<KN, false, true>(sc, dp, a, kv0, r0, t4, l2, dl);
+            ds_tile<KN, false, true>(sc, dp, a, kv0, p0, t4, l2, dl);
           else
-            ds_tile<KN, false, false>(sc, dp, a, kv0, r0, t4, l2, dl);
+            ds_tile<KN, false, false>(sc, dp, a, kv0, p0, t4, l2, dl);
         }
 
         // dS rounded to T: 16 keys are one register A fragment of dQ += dS K

@@ -6,7 +6,15 @@
 // (kernel 7): q [total_q, hq, D], k/v [total_k, hkv, D], LSE [hq, total_q],
 // each block reading its sequence's offsets from cu_seqlens. GQA by head
 // index (kv head = h / (hq / hkv)); the band (wl, wr) around each row's own
-// position, -1 = unbounded (causal = (-1, 0)).
+// position, -1 = unbounded (causal = (-1, 0)). Row r sits at position r +
+// kv_off (kernel 1 and the zero-shift engines: mfa_tpu's
+// kv_position_offset, the ring's geometry). With a left window the first
+// `sinks` columns stay visible to every row (StreamingLLM sinks,
+// prefill.py:_band_mask): a span is then the sink tiles [0, nsink) followed
+// by the band's tiles, no tile twice, and the block loads that list.
+// ALiBi (kernels 1 and 7, the classic softmax only) subtracts slope_h *
+// |position - column| from the raw scores, the slope pre-divided by the
+// softmax scale (prefill.py:1303-1312).
 // Kernel 7 differs from kernel 1 only in the addressing (strided tensor
 // maps, the sequence's first rows as box coordinates, O's row stride), so
 // on equal lengths the two give the same bits. Kernel 9 (kind IMAGE) is
@@ -84,6 +92,10 @@ enum Kind { PREFILL, FLAGGED, REPAIR, BOUND, UNCHECKED, IMAGE };
 struct Args {
   int hq, hkv, sq, sk, wl, wr;
   float scale_log2e, softcap, softcap_mul;
+  int sinks = 0;   // columns < sinks stay visible through the left window
+  int kv_off = 0;  // row r sits at position r + kv_off
+  const float* slopes = nullptr;  // ALiBi [hq], raw score domain (or null)
+  float alibi = 0.f;              // the block's head's slope (set by the kernel)
   // the packed layout (kernel 7): [batch + 1] sequence offsets and q's row
   // count; sq and sk are then each block's own sequence's lengths
   const int* cu_q = nullptr;
@@ -119,16 +131,28 @@ __device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
   return bars + 8 * (1 + STAGES + s);
 }
 
-// KV tiles [first, last] that rows [lo, hi] can see.
+// KV tiles that rows at positions [lo, hi] can see: the sink tiles [0,
+// nsink) (sinks > 0 with a left window: every column < sinks stays
+// visible), then the band [first, last], which starts past the sink tiles.
 struct Span {
   int first, last;
+  int nsink = 0;
 };
-__device__ __forceinline__ Span span_of(int lo, int hi, int sk, int wl, int wr, int bn) {
+__device__ __forceinline__ Span span_of(int lo, int hi, int sk, int wl, int wr, int bn,
+                                        int sinks = 0) {
   Span s;
   s.last = (sk + bn - 1) / bn - 1;
   if (wr >= 0) s.last = min(s.last, (hi + wr) / bn);
   s.first = wl >= 0 ? max(0, (lo - wl) / bn) : 0;
+  if (wl >= 0 && sinks > 0) s.nsink = max(0, min(min((sinks + bn - 1) / bn, s.first), s.last + 1));
   return s;
+}
+// Tile i of a list of nsink sink tiles followed by the band from `first`.
+__device__ __forceinline__ int tile_at(int i, int nsink, int first) {
+  return i < nsink ? i : first + (i - nsink);
+}
+__device__ __forceinline__ bool in_span(int jt, const Span& s) {
+  return jt < s.nsink || (jt >= s.first && jt <= s.last);
 }
 
 // The last (run_end) and first (run_start) index of the image run that
@@ -172,8 +196,9 @@ __device__ __forceinline__ float sum2<__half>(uint32_t x) {
 // The block's view of its rows and the ring.
 struct Block {
   uint32_t base;   // shared-memory base (1024-aligned)
-  int first;       // first KV tile of the block
+  int first;       // first KV tile of the block's band
   int n_tiles;     // KV tiles the ring carries
+  int nsink;       // sink tiles [0, nsink) ahead of the band
 };
 
 // A warpgroup that computes nothing: it waits for each slot and releases it.
@@ -187,10 +212,10 @@ __device__ __forceinline__ void consume_idle(const Block& blk) {
   }
 }
 
-// One consumer warpgroup (w, thread wtid of 128) over its 64 rows at
-// pos_lo: the KV loop, then O and LSE of its rows < sq (O's rows o_stride
-// elements apart). ZS: the zero-shift softmax; returns whether one of this
-// thread's rows is poisoned. IMG: a column is also visible when it carries
+// One consumer warpgroup (w, thread wtid of 128) over its 64 rows from
+// row pos_lo (position pos_lo + kv_off): the KV loop, then O and LSE of
+// its rows < sq (O's rows o_stride elements apart). ZS: the zero-shift
+// softmax; returns whether one of this thread's rows is poisoned. IMG: a column is also visible when it carries
 // the row's image-run id (a.ids, this sequence's row).
 template <typename T, int D, bool ZS, bool IMG = false>
 __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const Args& a,
@@ -202,8 +227,9 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
   const uint32_t q_wg = blk.base + w * WG_M * 128;  // this warpgroup's rows of each Q chunk
   const int lane = wtid & 31, g = lane >> 2, t4 = lane & 3;
   const int r0 = pos_lo + (wtid >> 5) * 16 + g;  // this thread's rows: r0 and r0 + 8
-  const int pos_hi = pos_lo + WG_M - 1;
-  const int sk = a.sk, wl = a.wl, wr = a.wr;
+  const int off = a.kv_off, p0 = r0 + off;       // and their positions: p0, p0 + 8
+  const int pw_lo = pos_lo + off, pw_hi = pw_lo + WG_M - 1;
+  const int sk = a.sk, wl = a.wl, wr = a.wr, sinks = a.sinks;
   const float c = a.scale_log2e;
 
   float acc[D / 2];
@@ -222,9 +248,9 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
 
   mbar_wait(bar_q(bars), 0);
   for (int i = 0; i < blk.n_tiles; ++i) {
-    const int jt = blk.first + i, s = i % STAGES;
+    const int jt = tile_at(i, blk.nsink, blk.first), s = i % STAGES;
     mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
-    if (jt >= mine.first && jt <= mine.last) {
+    if (in_span(jt, mine)) {
       const int kv0 = jt * BN;
       const uint32_t k_s = blk.base + P::k_off + s * P::KV_BYTES;
       const uint32_t v_s = blk.base + P::v_off + s * P::KV_BYTES;
@@ -240,10 +266,10 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
       }
       wg_commit();
       // Mask only tiles that cross the sequence tail or the band's edge
-      // (every tile an image run adds lies above the diagonal or left of
-      // the window, so it is one of them).
-      const bool needs_mask = (kv0 + BN > sk) || (wr >= 0 && kv0 + BN - 1 > pos_lo + wr) ||
-                              (wl >= 0 && kv0 < pos_hi - wl);
+      // (every tile an image run or the sinks add lies above the diagonal
+      // or left of the window, so it is one of them).
+      const bool needs_mask = (kv0 + BN > sk) || (wr >= 0 && kv0 + BN - 1 > pw_lo + wr) ||
+                              (wl >= 0 && kv0 < pw_hi - wl);
       // IMG: bit 2 j + e of same0 / same1 says that column 8 j + 2 t4 + e
       // of the tile carries row r0's / r0 + 8's run id; the ids load while
       // the product runs
@@ -271,16 +297,28 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
 #pragma unroll
         for (int x = 0; x < BN / 2; ++x) sc[x] = tanhf(sc[x] * a.softcap_mul) * a.softcap;
       }
+      if constexpr (!ZS) {
+        if (a.alibi != 0.f) {  // raw domain: - slope / scale * |position - column|
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = kv0 + 8 * j + 2 * t4 + (e & 1);
+              sc[4 * j + e] -= a.alibi * fabsf((float)(p0 + 8 * (e >> 1) - col));
+            }
+          }
+        }
+      }
       if (needs_mask) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = kv0 + 8 * j + 2 * t4 + (e & 1);
-            const int row = r0 + 8 * (e >> 1);
+            const int row = p0 + 8 * (e >> 1);
             bool ok = col < sk;
             if (wr >= 0) ok = ok && col <= row + wr;
-            if (wl >= 0) ok = ok && col >= row - wl;
+            if (wl >= 0) ok = ok && (col >= row - wl || col < sinks);
             if constexpr (IMG) ok = ok || ((((e >> 1) ? same1 : same0) >> (2 * j + (e & 1))) & 1u);
             if (!ok) sc[4 * j + e] = MFA_MASK;
           }
@@ -396,11 +434,14 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
       *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) = pack2<T>(o0, o1);
     }
     if constexpr (ZS) {
-      // A row whose band [max(0, r - wl), min(sk, r + wr + 1)) is empty
-      // may keep l == 0 (prefill.py:626-646).
-      const int band_lo = wl >= 0 ? max(0, r - wl) : 0;
-      const int band_hi = wr >= 0 ? min(sk, r + wr + 1) : sk;
-      poison |= !((l > MFA_L_MIN && l < INFINITY) || (band_hi <= band_lo && l == 0.f));
+      // A row whose band [max(0, p - wl), min(sk, p + wr + 1)) at position
+      // p is empty may keep l == 0, unless sink columns lie below its end
+      // (prefill.py:626-646).
+      const int p = r + off;
+      const int band_lo = wl >= 0 ? max(0, p - wl) : 0;
+      const int band_hi = wr >= 0 ? min(sk, p + wr + 1) : sk;
+      const bool empty = band_hi <= band_lo && (sinks <= 0 || band_hi <= 0);
+      poison |= !((l > MFA_L_MIN && l < INFINITY) || (empty && l == 0.f));
     }
     if (lse_head != nullptr && t4 == 0)
       lse_head[r] = (dead || l == 0.f) ? -INFINITY : m * c * MFA_LN2 + logf(bad ? 1.f : l);
@@ -449,8 +490,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t bars = base + P::bar_off;
   int* wg_poison = reinterpret_cast<int*>(smem + P::flag_off);
 
-  Span s0 = span_of(q0, q0 + WG_M - 1, a.sk, a.wl, a.wr, P::BN);
-  Span s1 = span_of(q0 + WG_M, q0 + BM - 1, a.sk, a.wl, a.wr, P::BN);
+  if (a.slopes != nullptr) a.alibi = a.slopes[h];
+  const int p_q0 = q0 + a.kv_off;  // the block's first position
+  Span s0 = span_of(p_q0, p_q0 + WG_M - 1, a.sk, a.wl, a.wr, P::BN, a.sinks);
+  Span s1 = span_of(p_q0 + WG_M, p_q0 + BM - 1, a.sk, a.wl, a.wr, P::BN, a.sinks);
   int* img_span = reinterpret_cast<int*>(smem + P::span_off);  // IMAGE: s0, s1
   if constexpr (KIND == IMAGE) {
     a.ids += (size_t)b * a.sq;
@@ -478,6 +521,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x < 2) wg_poison[threadIdx.x] = 0;
   __syncthreads();
   int first = s0.first, last = two ? s1.last : s0.last;
+  // sink tiles ahead of the band; the band starts past them
+  const int nsink = max(s0.nsink, two ? s1.nsink : 0);
+  first = max(first, nsink);
   if constexpr (KIND == IMAGE) {
     s0 = Span{img_span[0], img_span[1]};
     first = s0.first;
@@ -488,7 +534,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       last = max(last, s1.last);
     }
   }
-  const Block blk{base, first, max(0, last - first + 1)};
+  const Block blk{base, first, nsink + max(0, last - first + 1), nsink};
 
   // warp-uniform by construction (a shuffle from lane 0), as setmaxnreg's
   // .sync.aligned form needs
@@ -505,7 +551,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int ch = 0; ch < D / 64; ++ch)
         tma_load_3d(base + ch * (BM * 128), &tq, bar_q(bars), ch * 64, q_row0 + q0, bh_q);
       for (int i = 0; i < blk.n_tiles; ++i) {
-        const int s = i % STAGES, kv0 = k_row0 + (blk.first + i) * P::BN;
+        const int s = i % STAGES, kv0 = k_row0 + tile_at(i, blk.nsink, blk.first) * P::BN;
         mbar_wait(bar_empty(bars, s), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full(bars, s), 2 * P::KV_BYTES);
         const uint32_t k_s = base + P::k_off + s * P::KV_BYTES;

@@ -42,7 +42,8 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
                                 int hkv, int num_pages, int page_size, int pps, int d,
                                 int q_span, int num_splits, int tokens_per_split, int pos_offset,
                                 int window_left, float scale_log2e, float softcap,
-                                float softcap_mul, void* stream) {
+                                float softcap_mul, int sinks, const float* slopes,
+                                void* stream) {
   if (batch == 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
   if (group < 1 || q_span < 1 || num_pages < 1 || page_size <= 0 || page_size % 8 != 0 ||
@@ -77,6 +78,8 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   a.box_rows = box_rows;
   a.pos_offset = pos_offset;
   a.q_span = q_span;
+  a.sinks = sinks;
+  a.slopes = slopes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFA_PAGED_D(T, F, M)                                                          \
   if (d == 64) return kd90::launch<T, 64, true, F, M>(k_pages, v_pages, a, batch, s);   \

@@ -8,7 +8,12 @@
 //     c <  lens[b]                      (cache bound, chunk included)
 //     c <= q_start[b] + r + wr          (band end; causal is wr == 0)
 //     c >= q_start[b] + r - wl          (sliding window)
+//         or c < sinks                  (StreamingLLM sinks, with a window)
 // (wl/wr = -1: unbounded). Rows r >= q_lens[b] store O = 0, LSE = -inf.
+// ALiBi subtracts slope_h / scale * |q_start[b] + r - c| from the raw score
+// of q head h (the chunk's absolute positions, paged_prefill.py:456-462).
+// A warpgroup's tiles are the sink tiles [0, nsink) then its band's, no
+// tile twice (fa90::Span), and the block loads their union.
 //
 // Bound: tensor-core operations at chunk sizes (4 D flops per visible
 // (row, column) pair of every q head, against each row's pages read once).
@@ -90,6 +95,8 @@ struct Params {
   float scale_log2e, softcap, softcap_mul;
   int wpos;     // chunk positions a consumer warpgroup: WG_M / group
   int q_boxes;  // Q boxes a 64-column chunk: 1 if group divides WG_M, else 2
+  int sinks;             // with a left window: columns < sinks stay visible (else 0)
+  const float* slopes;   // ALiBi [hq] in the raw score domain (slope / scale), or null
 };
 
 // Shared memory: Q [D/64][BM][64]; STAGES ring slots, each K then V
@@ -128,18 +135,21 @@ __device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
   return bars + 8 * (1 + STAGES + s);
 }
 
-// KV tiles of bn keys [first, last] that the live rows among chunk
-// positions [ta, ta + n) see (first > last: none).
+// KV tiles of bn keys that the live rows among chunk positions [ta, ta +
+// n) see: the sink tiles [0, nsink) and the band [first, last] (first >
+// last: no band).
 __device__ __forceinline__ Span span_of(int ta, int n, int q_len, int q_start, int sk, int wl,
-                                        int wr, int bn) {
-  const Span none{0, -1};
+                                        int wr, int bn, int sinks) {
+  const Span none{1, 0};
   if (ta >= q_len) return none;
   const int tb = min(ta + n, q_len) - 1;  // last live position
   int hi = sk;                            // columns [lo, hi)
   if (wr >= 0) hi = min(hi, q_start + tb + wr + 1);
   const int lo = wl >= 0 ? max(0, q_start + ta - wl) : 0;
-  if (hi <= lo) return none;
-  return Span{lo / bn, (hi - 1) / bn};
+  const int sh = wl >= 0 ? min(sinks, hi) : 0;  // sink columns [0, sh)
+  Span s = hi <= lo ? none : Span{lo / bn, (hi - 1) / bn};
+  if (sh > 0) s.nsink = hi <= lo ? (sh + bn - 1) / bn : min((sh + bn - 1) / bn, s.first);
+  return s;
 }
 
 // The 256 consumer threads (ctid) convert the quantized slot into a bf16
@@ -203,12 +213,13 @@ __device__ __forceinline__ void convert_tile(const unsigned char* slot, unsigned
 }
 
 // One consumer warpgroup (w, thread wtid of 128) over its 64 packed rows:
-// the KV loop over the block's tiles [first, first + n_tiles), computing
-// those of `mine`, then O and LSE of its live rows < sq.
+// the KV loop over the block's tiles (nsink sink tiles, then the band from
+// `first`: n_tiles in all), computing those of `mine`, then O and LSE of
+// its live rows < sq.
 template <typename T, KV F, int D>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, int first,
-                                        int n_tiles, Span mine, int w, int wtid, int b, int hk,
-                                        int t0, int q_len, int q_start, int sk) {
+                                        int n_tiles, int nsink, Span mine, int w, int wtid,
+                                        int b, int hk, int t0, int q_len, int q_start, int sk) {
   using PL = Plan<D, F>;
   constexpr bool QUANT = PL::QUANT;
   constexpr int BN = PL::BN;
@@ -230,7 +241,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   const int pos0 = q_start + tr0, pos1 = q_start + tr1;
   const int pos_lo = q_start + tw, pos_hi = pos_lo + wpos - 1;
   const bool all_live = tw + wpos <= q_len;
-  const int wl = p.wl, wr = p.wr;
+  const int wl = p.wl, wr = p.wr, sinks = p.sinks;
   const float c = p.scale_log2e;
 
   float acc[D / 2];
@@ -241,7 +252,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
 
   mbar_wait(bar_q(bars), 0);
   for (int i = 0; i < n_tiles; ++i) {
-    const int jt = first + i, s = i % STAGES, kv0 = jt * BN;
+    const int jt = fa90::tile_at(i, nsink, first), s = i % STAGES, kv0 = jt * BN;
     mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
     unsigned char* slot = smem + PL::ring_off + s * PL::SLOT;
     unsigned char* kv = slot;  // 16-bit K then V, swizzled
@@ -253,7 +264,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
       named_sync(BAR_CVT, 256);
       mbar_arrive(bar_empty(bars, s));  // the staging slot is free
     }
-    if (jt >= mine.first && jt <= mine.last) {
+    if (fa90::in_span(jt, mine)) {
       const uint32_t k_s = smem_u32(kv), v_s = k_s + PL::TILE16;
       if constexpr (!QUANT) {
         if (kv0 + BN > sk) {
@@ -298,6 +309,20 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
 #pragma unroll
         for (int x = 0; x < BN / 2; ++x) sc[x] = tanhf(sc[x] * p.softcap_mul) * p.softcap;
       }
+      if (p.slopes != nullptr) {  // raw domain: - slope / scale * |position - column|
+        // the slopes of the thread's rows' q heads, loaded here so that they
+        // hold no register through the loop without ALiBi
+        const float sl0 = p.slopes[hk * group + r0 % group];
+        const float sl1 = p.slopes[hk * group + (r0 + 8) % group];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = kv0 + 8 * j + 2 * t4 + (e & 1);
+            sc[4 * j + e] -= ((e >> 1) ? sl1 : sl0) * fabsf((float)(((e >> 1) ? pos1 : pos0) - col));
+          }
+        }
+      }
       // Mask only tiles that cross lens, a band edge or a dead row.
       const bool needs_mask = !all_live || (kv0 + BN > sk) ||
                               (wr >= 0 && kv0 + BN - 1 > pos_lo + wr) ||
@@ -311,7 +336,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
             const int pos = (e >> 1) ? pos1 : pos0;
             bool ok = ((e >> 1) ? live1 : live0) && col < sk;
             if (wr >= 0) ok = ok && col <= pos + wr;
-            if (wl >= 0) ok = ok && col >= pos - wl;
+            if (wl >= 0) ok = ok && (col >= pos - wl || col < sinks);
             if (!ok) sc[4 * j + e] = MFA_MASK;
           }
         }
@@ -446,8 +471,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   const int q_start = p.q_start[b];
   const int sk = min(p.lens[b], p.pps * p.page_size);
-  const Span s0 = span_of(t0, wpos, q_len, q_start, sk, p.wl, p.wr, BN);
-  const Span s1 = span_of(t0 + wpos, wpos, q_len, q_start, sk, p.wl, p.wr, BN);
+  const Span s0 = span_of(t0, wpos, q_len, q_start, sk, p.wl, p.wr, BN, p.sinks);
+  const Span s1 = span_of(t0 + wpos, wpos, q_len, q_start, sk, p.wl, p.wr, BN, p.sinks);
   int first = s0.first, last = s0.last;
   if (s0.first > s0.last) {
     first = s1.first;
@@ -456,7 +481,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     first = min(first, s1.first);
     last = max(last, s1.last);
   }
-  const int n_tiles = max(0, last - first + 1);
+  // the sink tiles ahead of the band; the band starts past them
+  const int nsink = max(s0.nsink, s1.nsink);
+  first = max(first, nsink);
+  const int n_tiles = nsink + max(0, last - first + 1);
 
   extern __shared__ __align__(16) unsigned char pp90_smem[];
   unsigned char* smem = pp90_smem + ((1024u - (smem_u32(pp90_smem) & 1023u)) & 1023u);
@@ -492,7 +520,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // bytes of one box of K and V (quantized: payload rows and their scales)
       const uint32_t box_bytes = QUANT ? 2 * R * (RB + 4) : 2 * R * D * 2;
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES, kv0 = (first + i) * BN;
+        const int s = i % STAGES, kv0 = fa90::tile_at(i, nsink, first) * BN;
         const int nb = min(BN / R, (sk - kv0 + R - 1) / R);  // boxes below sk
         mbar_wait(bar_empty(bars, s), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full(bars, s), nb * box_bytes);
@@ -522,8 +550,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     regs_inc<fa90::CONSUMER_REGS>();
     const int w = wg - 1;
-    consume<T, F, D>(p, smem, first, n_tiles, w == 0 ? s0 : s1, w, threadIdx.x & 127, b,
-                         hk, t0, q_len, q_start, sk);
+    consume<T, F, D>(p, smem, first, n_tiles, nsink, w == 0 ? s0 : s1, w, threadIdx.x & 127,
+                     b, hk, t0, q_len, q_start, sk);
   }
 }
 
@@ -585,7 +613,7 @@ extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void*
                                  int sq, int hq, int hkv, int num_pages, int page_size,
                                  int pps, int d, int window_left, int window_right,
                                  float scale_log2e, float softcap, float softcap_mul,
-                                 void* stream) {
+                                 int sinks, const float* slopes, void* stream) {
   if (batch == 0 || sq == 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
   if (group <= 0 || group > fa90::WG_M || page_size <= 0 || page_size % 8 != 0)
@@ -594,7 +622,7 @@ extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void*
                        out,       lse,     sq,     hq,        hkv,        group,
                        num_pages, page_size, pps,  0,         window_left, window_right,
                        scale_log2e, softcap, softcap_mul, fa90::WG_M / group,
-                       fa90::WG_M % group ? 2 : 1};
+                       fa90::WG_M % group ? 2 : 1, sinks,  slopes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFA_PP(T, F)                                                      \
   if (d == 64) return pp90::launch<T, F, 64>(q, k_pages, v_pages, p, batch, s);   \

@@ -29,7 +29,10 @@
 //
 // Both: fp32 LSE, GQA by head index (kv head = h / (hq / hkv)); causal is
 // top-left aligned per sequence and expressed as window_right = 0; the
-// window (left, right) counts from each row's own position.
+// window (left, right) counts from each row's own position. sinks: with a
+// left window, columns < sinks stay visible; slopes: ALiBi [hq] in the raw
+// score domain (slope / scale), or null; kv_off (kernel 1 only): row r sits
+// at position r + kv_off.
 #include "flash_fwd_sm90.cuh"
 
 // lse may be null (no LSE output). Returns a cudaError_t code (0 = launched).
@@ -37,11 +40,13 @@ extern "C" int mfa_prefill_fwd(const void* q, const void* k, const void* v, void
                                float* lse, int dtype, int batch, int hq, int hkv, int sq,
                                int sk, int d, int window_left, int window_right,
                                float scale_log2e, float softcap, float softcap_mul,
-                               void* stream) {
+                               int sinks, int kv_off, const float* slopes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch == 0 || sq == 0) return 0;
-  const fa90::Args a{hq, hkv, sq, sk, window_left, window_right, scale_log2e, softcap,
-                     softcap_mul};
+  fa90::Args a{hq, hkv, sq, sk, window_left, window_right, scale_log2e, softcap, softcap_mul};
+  a.sinks = sinks;
+  a.kv_off = kv_off;
+  a.slopes = slopes;
 #define MFA_PREFILL(T, D) \
   return fa90::launch<T, D, fa90::PREFILL>(q, k, v, o, lse, nullptr, batch, a, s)
   if (dtype == MFA_BF16 && d == 64) MFA_PREFILL(__nv_bfloat16, 64);
@@ -60,10 +65,13 @@ extern "C" int mfa_varlen_fwd(const void* q, const void* k, const void* v, void*
                               float* lse, const int* cu_q, const int* cu_k, int dtype,
                               int batch, int hq, int hkv, int total_q, int total_k, int max_sq,
                               int d, int window_left, int window_right, float scale_log2e,
-                              float softcap, float softcap_mul, void* stream) {
+                              float softcap, float softcap_mul, int sinks,
+                              const float* slopes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch == 0 || total_q == 0 || max_sq == 0) return 0;
   fa90::Args a{hq, hkv, 0, 0, window_left, window_right, scale_log2e, softcap, softcap_mul};
+  a.sinks = sinks;
+  a.slopes = slopes;
   a.cu_q = cu_q;
   a.cu_k = cu_k;
   a.total_q = total_q;

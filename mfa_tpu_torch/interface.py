@@ -44,8 +44,9 @@ def flash_attn_func(
     q: (batch, seqlen_q, nheads, headdim); k/v: (batch, seqlen_k, nheads_k,
     headdim) with nheads % nheads_k == 0. causal: top-left aligned.
     window_size: (left, right), -1 = unbounded. softcap > 0: tanh cap on the
-    logits. ALiBi is not ported yet. Returns (batch, seqlen_q, nheads,
-    headdim).
+    logits. alibi_slopes: [nheads] fp32, - slope * |i - j| on the logits
+    (top-left positions, as in mfa_tpu; not with softcap). Returns
+    (batch, seqlen_q, nheads, headdim).
     """
     validate_attention_inputs(q, k, v, api_name="flash_attn_func")
     out = prefill_attention(
@@ -80,8 +81,9 @@ def flash_attn_varlen_func(
     pool (num_pages, page_size, nheads_k, headdim) -> the paged prefill
     kernel. cu_seqlens_*: (batch+1,) int32 cumulative lengths. causal is
     top-left aligned per sequence; window_size: (left, right) on
-    sequence-local positions. ALiBi and sinks are not ported yet. Returns
-    (total_q, nheads, headdim).
+    sequence-local positions; sink_tokens keeps each sequence's first
+    tokens visible through a left window; alibi_slopes [nheads] on
+    sequence-local positions. Returns (total_q, nheads, headdim).
     """
     return varlen_attention(
         q, k, v, cu_seqlens_q, cu_seqlens_k, int(max_seqlen_q),
@@ -113,12 +115,10 @@ def flash_attn_with_kvcache(
     (num_pages, page_size, nheads_k, headdim) with block_table (batch,
     max_pages_per_seq) -> the paged kernel. cache_seqlens: int or (batch,)
     valid lengths (None = full). window_size: only `left` applies (the
-    query is the last token). Sinks and ALiBi are not ported yet. Returns
-    (batch, 1, nheads, headdim).
+    query is the last token); sink_tokens: with a left window, the first
+    sink_tokens cache tokens stay visible. alibi_slopes [nheads]: - slope *
+    |length - 1 - j|. Returns (batch, 1, nheads, headdim).
     """
-    if sink_tokens or alibi_slopes is not None:
-        raise NotImplementedError("sink_tokens and alibi_slopes are not "
-                                  "ported yet")
     if q.shape[1] != 1:
         raise ValueError(
             "flash_attn_with_kvcache currently only supports seqlen_q=1 for "
@@ -140,10 +140,12 @@ def flash_attn_with_kvcache(
             q3, k_cache.permute(2, 0, 1, 3), v_cache.permute(2, 0, 1, 3),
             cache_seqlens, block_table.to(device=q.device, dtype=torch.int32),
             softmax_scale=softmax_scale, num_splits=num_splits,
-            window_left=int(window_size[0]), logit_softcap=float(softcap))
+            window_left=int(window_size[0]), logit_softcap=float(softcap),
+            sink_tokens=int(sink_tokens), alibi_slopes=alibi_slopes)
     else:
         out = decode_attention(
             q3, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
             cache_seqlens, softmax_scale=softmax_scale, num_splits=num_splits,
-            window_left=int(window_size[0]), logit_softcap=float(softcap))
+            window_left=int(window_size[0]), logit_softcap=float(softcap),
+            sink_tokens=int(sink_tokens), alibi_slopes=alibi_slopes)
     return out[:, None]

@@ -6,8 +6,9 @@ kernels/backward.py (the fused kernel, or the varlen split). They save q,
 k, v, O and LSE, as the JAX custom VJP does, and never the score matrix.
 On CPU tensors both directions run the plain versions.
 
-Non-tensor arguments (causal, scale, window, softcap, the cu_seqlens
-tables) get no gradient. ALiBi and attention sinks are not ported yet.
+Non-tensor arguments (causal, scale, window, softcap, sinks, the
+cu_seqlens tables) get no gradient; ALiBi slopes get zeros, as in JAX
+(a bias of positions only).
 """
 
 from __future__ import annotations
@@ -22,25 +23,32 @@ from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.kernels.varlen import varlen_attention
 
 
+def _zero_slopes(slopes):
+    return None if slopes is None else torch.zeros_like(slopes)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, softmax_scale, window_size,
-                logit_softcap):
+    def forward(ctx, q, k, v, alibi_slopes, causal, softmax_scale,
+                window_size, logit_softcap, sink_tokens):
         out, lse = prefill_attention(
             q, k, v, causal=causal, softmax_scale=softmax_scale,
             window_size=window_size, logit_softcap=logit_softcap,
+            sink_tokens=sink_tokens, alibi_slopes=alibi_slopes,
             return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.slopes = alibi_slopes
         ctx.opts = dict(causal=causal, softmax_scale=softmax_scale,
-                        window_size=window_size, logit_softcap=logit_softcap)
+                        window_size=window_size, logit_softcap=logit_softcap,
+                        sink_tokens=sink_tokens)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+                                         alibi_slopes=ctx.slopes, **ctx.opts)
+        return (dq, dk, dv, _zero_slopes(ctx.slopes)) + (None,) * 5
 
 
 def flash_attention_grad(
@@ -55,24 +63,27 @@ def flash_attention_grad(
     alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Differentiable attention on the [batch, heads, seq, head_dim] layout
-    (the arguments of kernels/prefill.prefill_attention). Forward: kernel 1
-    with return_lse; backward: flash_attention_bwd (fused kernel)."""
-    if alibi_slopes is not None or sink_tokens:
-        raise NotImplementedError("alibi_slopes and sink_tokens are not "
-                                  "ported yet")
-    return _FlashAttention.apply(q, k, v, bool(causal), softmax_scale,
-                                 tuple(window_size), float(logit_softcap))
+    (the arguments of kernels/prefill.prefill_attention). Forward: the
+    prefill engines with return_lse; backward: flash_attention_bwd (fused
+    kernel). sink_tokens (with a left window) and alibi_slopes [heads] as
+    in the forward; the slopes' gradient is zero."""
+    return _FlashAttention.apply(q, k, v, alibi_slopes, bool(causal),
+                                 softmax_scale, tuple(window_size),
+                                 float(logit_softcap), int(sink_tokens))
 
 
 class _VarlenAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, cu_q, cu_k, max_seqlen_q, max_seqlen_k, causal,
-                softmax_scale, window_size, logit_softcap):
+    def forward(ctx, q, k, v, alibi_slopes, cu_q, cu_k, max_seqlen_q,
+                max_seqlen_k, causal, softmax_scale, window_size,
+                logit_softcap):
         out, lse = varlen_attention(
             q, k, v, cu_q, cu_k, max_seqlen_q, max_seqlen_k, causal=causal,
             softmax_scale=softmax_scale, window_size=window_size,
-            logit_softcap=logit_softcap, return_lse=True)
+            logit_softcap=logit_softcap, alibi_slopes=alibi_slopes,
+            return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, cu_q, cu_k)
+        ctx.slopes = alibi_slopes
         ctx.opts = dict(causal=causal, softmax_scale=softmax_scale,
                         window_size=window_size, logit_softcap=logit_softcap,
                         max_seqlen_q=max_seqlen_q, max_seqlen_k=max_seqlen_k)
@@ -82,8 +93,9 @@ class _VarlenAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse, cu_q, cu_k = ctx.saved_tensors
         dq, dk, dv = varlen_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                          cu_q, cu_k, **ctx.opts)
-        return (dq, dk, dv) + (None,) * 8
+                                          cu_q, cu_k, alibi_slopes=ctx.slopes,
+                                          **ctx.opts)
+        return (dq, dk, dv, _zero_slopes(ctx.slopes)) + (None,) * 8
 
 
 def flash_attn_varlen_func_grad(
@@ -103,13 +115,13 @@ def flash_attn_varlen_func_grad(
     """Differentiable flash_attn_varlen_func on the packed layout: q
     [total_q, heads, head_dim], k/v [total_k, kv_heads, head_dim],
     cu_seqlens [batch + 1]. Forward: the packed varlen kernel with its LSE;
-    backward: varlen_attention_bwd (the varlen split). The paged
+    backward: varlen_attention_bwd (the varlen split). alibi_slopes
+    [heads] on each sequence's positions, zero gradient. The paged
     (block_table) route is inference-only, as in JAX."""
-    if alibi_slopes is not None:
-        raise NotImplementedError("alibi_slopes is not ported yet")
     cu_q = torch.as_tensor(cu_seqlens_q, device=q.device).to(torch.int32)
     cu_k = torch.as_tensor(cu_seqlens_k, device=q.device).to(torch.int32)
-    return _VarlenAttention.apply(q, k, v, cu_q, cu_k, int(max_seqlen_q),
+    return _VarlenAttention.apply(q, k, v, alibi_slopes, cu_q, cu_k,
+                                  int(max_seqlen_q),
                                   int(max_seqlen_k), bool(causal),
                                   softmax_scale, tuple(window_size),
                                   float(logit_softcap))

@@ -17,7 +17,11 @@ natural-log LSE:
     dK = dS^T Q    dQ = dS K
 
 Rows whose LSE is -inf saw no column in the forward: P = 0 and their
-gradients are zero. dK/dV are summed over the GQA group. A CUDA tensor
+gradients are zero. dK/dV are summed over the GQA group. The forward's
+band options carry over: `kv_position_offset` (kernels 11-13), attention
+sinks (kernel 11 only: the split refuses them, as mfa_tpu does) and ALiBi
+(every launch; P's exponent gets - slope * |position - key|, and the
+slopes' own gradient is zero). A CUDA tensor
 runs the kernels (bf16/fp16, head_dim 64, 128 or 256) or raises; a CPU tensor
 runs `_bwd_plain` / `_varlen_bwd_plain`, the same function in fp32
 PyTorch (the counterpart of autodiff._bwd_jnp_reference).
@@ -32,35 +36,28 @@ import torch
 
 from mfa_tpu_torch.dispatch.config import softmax_scale_default
 from mfa_tpu_torch.kernels import _build
+from mfa_tpu_torch.kernels.prefill import (_LOG2E, _band, alibi_bias,
+                                           check_band_options, cuda_slopes)
 
 # head dims of csrc/backward.cu's instantiations (256: Gemma3's; the
 # kernels' block shape changes there, flash_bwd_sm90.cuh:Plan::SPLIT)
 KERNEL_HEAD_DIMS = (64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_DENSE_TAIL = [_I] * 9 + [_F, _F, _P]  # dtype .. window_right, scale, cap, stream
-_FUSED_ARGTYPES = [_P] * 9 + _DENSE_TAIL
-_DKV_ARGTYPES = [_P] * 8 + _DENSE_TAIL
-_DQ_ARGTYPES = [_P] * 7 + _DENSE_TAIL
-_VL_DKV_ARGTYPES = [_P] * 10 + [_I] * 10 + [_F, _F, _P]
-_VL_DQ_ARGTYPES = [_P] * 9 + [_I] * 10 + [_F, _F, _P]
-
-
-def _band_mask(sq, sk, window_left, window_right, device):
-    row = torch.arange(sq, device=device)[:, None]
-    col = torch.arange(sk, device=device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
-    if window_right >= 0:
-        mask &= col <= row + window_right
-    if window_left >= 0:
-        mask &= col >= row - window_left
-    return mask
+# dtype .. window_right, scale, cap, then (fused) sinks, kv_off, slopes, stream
+_DENSE_TAIL = [_I] * 9 + [_F, _F]
+_FUSED_ARGTYPES = [_P] * 9 + _DENSE_TAIL + [_I, _I, _P, _P]
+_DKV_ARGTYPES = [_P] * 8 + _DENSE_TAIL + [_I, _P, _P]
+_DQ_ARGTYPES = [_P] * 7 + _DENSE_TAIL + [_I, _P, _P]
+_VL_DKV_ARGTYPES = [_P] * 10 + [_I] * 10 + [_F, _F, _P, _P]
+_VL_DQ_ARGTYPES = [_P] * 9 + [_I] * 10 + [_F, _F, _P, _P]
 
 
 def _bwd_plain(q, k, v, out, lse, do, scale, window_left, window_right,
-               softcap):
+               softcap, sinks=0, kv_off=0, alibi=None):
     """fp32 reference of the kernels on [b, h, s, d]: P from the saved
-    LSE, zero on dead rows; returns (dq, dk, dv) in the inputs' dtypes."""
+    LSE, zero on dead rows, under the forward's band (sinks, kv_off) and
+    ALiBi bias; returns (dq, dk, dv) in the inputs' dtypes."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -74,8 +71,12 @@ def _bwd_plain(q, k, v, out, lse, do, scale, window_left, window_right,
         s, dcap = t * softcap, 1.0 - t * t
     else:
         s = s * scale
-    live = torch.isfinite(lse)[..., None] & _band_mask(
-        sq, sk, window_left, window_right, q.device)
+    if alibi is not None:
+        s = s + alibi_bias(alibi.to(q.device),
+                           torch.arange(sq, device=q.device) + kv_off,
+                           torch.arange(sk, device=q.device))
+    live = torch.isfinite(lse)[..., None] & _band(
+        sq, sk, window_left, window_right, q.device, sinks, kv_off)[0]
     lse_f = torch.where(torch.isfinite(lse), lse, torch.zeros((), device=q.device))
     p = torch.where(live, torch.exp(s - lse_f[..., None]),
                     torch.zeros((), device=q.device))
@@ -92,7 +93,7 @@ def _bwd_plain(q, k, v, out, lse, do, scale, window_left, window_right,
 
 
 def _varlen_bwd_plain(q, k, v, out, lse, do, cu_q, cu_k, scale, window_left,
-                      window_right, softcap):
+                      window_right, softcap, alibi=None):
     """fp32 reference of the varlen kernels: `_bwd_plain` on each packed
     sequence (LSE [hq, total_q])."""
     cq, ck = cu_q.tolist(), cu_k.tolist()
@@ -105,7 +106,7 @@ def _varlen_bwd_plain(q, k, v, out, lse, do, cu_q, cu_k, scale, window_left,
 
         g = _bwd_plain(bh(q, qs), bh(k, ks), bh(v, ks), bh(out, qs),
                        lse[:, qs][None], bh(do, qs), scale, window_left,
-                       window_right, softcap)
+                       window_right, softcap, alibi=alibi)
         dq[qs], dk[ks], dv[ks] = (x[0].transpose(0, 1) for x in g)
     return dq, dk, dv
 
@@ -122,9 +123,10 @@ def _check_kernel_inputs(name, q, k, v, out, do, *others):
         raise ValueError(f"{name}: q, k, v, out and do must share one dtype")
 
 
-def _launch_fused(q, k, v, do, lse, delta, scale, wl, wr, softcap):
-    """mfa_bwd_fused on dense [b, h, s, d] inputs (all _build.dense) ->
-    (dq fp32 workspace, dk, dv)."""
+def _launch_fused(q, k, v, do, lse, delta, scale, wl, wr, softcap, sinks=0,
+                  kv_off=0, slopes=None):
+    """mfa_bwd_fused on dense [b, h, s, d] inputs (all _build.dense; slopes
+    [hq] log2-domain ALiBi or None) -> (dq fp32 workspace, dk, dv)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dq_ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -133,13 +135,15 @@ def _launch_fused(q, k, v, do, lse, delta, scale, wl, wr, softcap):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq_ws.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d,
-            wl, wr, scale, softcap, _build.stream_of(q))
+            wl, wr, scale, softcap, sinks, kv_off, _build.ptr(slopes),
+            _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["bwd_fused"] += 1
     return dq_ws, dk, dv
 
 
-def _launch_dkv(q, k, v, do, lse, delta, scale, wl, wr, softcap):
+def _launch_dkv(q, k, v, do, lse, delta, scale, wl, wr, softcap, kv_off=0,
+                slopes=None):
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -147,13 +151,14 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, wl, wr, softcap):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d, wl, wr, scale,
-            softcap, _build.stream_of(q))
+            softcap, kv_off, _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["bwd_dkv"] += 1
     return dk, dv
 
 
-def _launch_dq(q, k, v, do, lse, delta, scale, wl, wr, softcap):
+def _launch_dq(q, k, v, do, lse, delta, scale, wl, wr, softcap, kv_off=0,
+               slopes=None):
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
@@ -161,7 +166,7 @@ def _launch_dq(q, k, v, do, lse, delta, scale, wl, wr, softcap):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d, wl, wr, scale,
-            softcap, _build.stream_of(q))
+            softcap, kv_off, _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["bwd_dq"] += 1
     return dq
@@ -215,12 +220,10 @@ def flash_attention_bwd(
     A/B reference. The JAX auto rule is a VMEM budget for full-length dK/dV
     accumulators; the Hopper fused kernel holds one key tile's accumulators
     per block, so that budget has no counterpart and None means fused.
-    ALiBi, attention sinks and kv_position_offset are not ported yet.
+    sink_tokens, alibi_slopes and kv_position_offset as in the forward
+    (prefill_attention); sinks need the fused kernel (fused=False raises,
+    as in mfa_tpu).
     """
-    if alibi_slopes is not None or sink_tokens or kv_position_offset:
-        raise NotImplementedError(
-            "alibi_slopes, sink_tokens and kv_position_offset are not "
-            "ported yet")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"num_heads ({q.shape[1]}) must be divisible by "
                          f"num_kv_heads ({k.shape[1]})")
@@ -229,18 +232,27 @@ def flash_attention_bwd(
     wl, wr = (int(w) for w in window_size)
     if causal:
         wr = 0
+    sinks, kv_off = check_band_options(wl, sink_tokens, kv_position_offset)
     softcap = float(logit_softcap)
+    if alibi_slopes is not None and softcap:
+        raise ValueError("alibi_slopes and logit_softcap are exclusive")
+    if sinks and fused is False:
+        raise NotImplementedError(
+            "attention-sink backward requires the fused single-pass kernel "
+            "(fused=False was forced)")
     if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, out, lse, do, scale, wl, wr, softcap)
+        return _bwd_plain(q, k, v, out, lse, do, scale, wl, wr, softcap,
+                          sinks, kv_off, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     q, k, v, do, lse, delta = _dense_cuda_inputs(q, k, v, out, lse, do)
+    slopes = cuda_slopes(alibi_slopes, _LOG2E, q.shape[1], q.device)
     args = (q, k, v, do, lse, delta, scale, wl, wr, softcap)
     if fused is None or fused:
-        dq_ws, dk, dv = _launch_fused(*args)
+        dq_ws, dk, dv = _launch_fused(*args, sinks, kv_off, slopes)
         return dq_ws.to(q.dtype), dk, dv
-    dk, dv = _launch_dkv(*args)
-    return _launch_dq(*args), dk, dv
+    dk, dv = _launch_dkv(*args, kv_off, slopes)
+    return _launch_dq(*args, kv_off, slopes), dk, dv
 
 
 def _varlen_cuda_inputs(q, k, v, out, lse, do, cu_q, cu_k):
@@ -258,7 +270,7 @@ def _varlen_cuda_inputs(q, k, v, out, lse, do, cu_q, cu_k):
 
 
 def _launch_varlen_dkv(q, k, v, do, lse, delta, cu_q, cu_k, max_sk, scale,
-                       wl, wr, softcap):
+                       wl, wr, softcap, slopes=None):
     total_q, hq, d = q.shape
     total_k, hkv = k.shape[:2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -267,14 +279,14 @@ def _launch_varlen_dkv(q, k, v, do, lse, delta, cu_q, cu_k, max_sk, scale,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             cu_q.data_ptr(), cu_k.data_ptr(), _build.DTYPE_CODES[q.dtype],
             cu_q.shape[0] - 1, hq, hkv, total_q, total_k, int(max_sk), d, wl,
-            wr, scale, softcap, _build.stream_of(q))
+            wr, scale, softcap, _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["varlen_bwd_dkv"] += 1
     return dk, dv
 
 
 def _launch_varlen_dq(q, k, v, do, lse, delta, cu_q, cu_k, max_sq, scale,
-                      wl, wr, softcap):
+                      wl, wr, softcap, slopes=None):
     total_q, hq, d = q.shape
     dq = torch.empty_like(q)
     fn = _build.function("backward", "mfa_varlen_bwd_dq", _VL_DQ_ARGTYPES)
@@ -282,7 +294,7 @@ def _launch_varlen_dq(q, k, v, do, lse, delta, cu_q, cu_k, max_sq, scale,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), cu_q.data_ptr(),
             cu_k.data_ptr(), _build.DTYPE_CODES[q.dtype], cu_q.shape[0] - 1,
             hq, k.shape[1], total_q, k.shape[0], int(max_sq), d, wl, wr,
-            scale, softcap, _build.stream_of(q))
+            scale, softcap, _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["varlen_bwd_dq"] += 1
     return dq
@@ -316,11 +328,9 @@ def varlen_attention_bwd(
     sequence, top-left aligned, as in the forward. max_seqlen_q/k bound
     the sequences' lengths (the kernels' grids); when None they are read
     from cu_seqlens. Runs the split (mfa_varlen_bwd_dkv, then
-    mfa_varlen_bwd_dq), as the JAX varlen backward does. ALiBi is not
-    ported yet.
+    mfa_varlen_bwd_dq), as the JAX varlen backward does. alibi_slopes
+    [num_heads]: the forward's bias on each sequence's own positions.
     """
-    if alibi_slopes is not None:
-        raise NotImplementedError("alibi_slopes is not ported yet")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"num_heads ({q.shape[1]}) must be divisible by "
                          f"num_kv_heads ({k.shape[1]})")
@@ -330,11 +340,13 @@ def varlen_attention_bwd(
     if causal:
         wr = 0
     softcap = float(logit_softcap)
+    if alibi_slopes is not None and softcap:
+        raise ValueError("alibi_slopes and logit_softcap are exclusive")
     cu_q = torch.as_tensor(cu_seqlens_q, device=q.device).to(torch.int32)
     cu_k = torch.as_tensor(cu_seqlens_k, device=q.device).to(torch.int32)
     if q.device.type == "cpu":
         return _varlen_bwd_plain(q, k, v, out, lse, do, cu_q, cu_k, scale, wl,
-                                 wr, softcap)
+                                 wr, softcap, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"varlen_attention_bwd: unsupported device {q.device}")
     if max_seqlen_q is None:
@@ -344,8 +356,9 @@ def varlen_attention_bwd(
     cu_q, cu_k = cu_q.contiguous(), cu_k.contiguous()
     q, k, v, do, lse, delta = _varlen_cuda_inputs(q, k, v, out, lse, do, cu_q,
                                                   cu_k)
+    slopes = cuda_slopes(alibi_slopes, _LOG2E, q.shape[1], q.device)
     dk, dv = _launch_varlen_dkv(q, k, v, do, lse, delta, cu_q, cu_k,
-                                max_seqlen_k, scale, wl, wr, softcap)
+                                max_seqlen_k, scale, wl, wr, softcap, slopes)
     dq = _launch_varlen_dq(q, k, v, do, lse, delta, cu_q, cu_k, max_seqlen_q,
-                           scale, wl, wr, softcap)
+                           scale, wl, wr, softcap, slopes)
     return dq, dk, dv

@@ -9,7 +9,9 @@ tensor runs the same two steps in plain PyTorch.
 
 Split ranges are whole 64-token tiles: split s covers tokens
 [s * tps, (s + 1) * tps) with tps = ceil(ceil(S / 64) / splits) * 64, so a
-result never depends on the split count beyond fp32 rounding.
+result never depends on the split count beyond fp32 rounding. With a left
+window the first `sink_tokens` columns stay visible (each in the one split
+that holds it); ALiBi subtracts slope * |length - 1 - column|.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
                                            softmax_scale_default)
 from mfa_tpu_torch.kernels import _build
+from mfa_tpu_torch.kernels.prefill import check_band_options, cuda_slopes
 
 _LOG2E = math.log2(math.e)
 TILE = 64  # tokens per kernel tile (csrc/decode_sm90.cuh, also the paged kernel's)
@@ -32,7 +35,7 @@ MAX_GROUP = 8  # q heads per kv head kernel 5 takes (kernel 6: any)
 KERNEL_HEAD_DIMS = (64, 128, 256)  # shared with the paged kernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _F, _F, _F, _P]
+                      _I, _I, _F, _F, _F, _I, _P, _P]
 _COMBINE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
@@ -75,7 +78,7 @@ def combine_splits(o_parts: torch.Tensor, lse: torch.Tensor, axis: int = 2,
 
 
 def _decode_partials_plain(q, k_cache, v_cache, lens, scale, num_splits, tps,
-                           window_left, softcap):
+                           window_left, softcap, sinks=0, alibi=None):
     """Per-split partials [b, hkv, splits, group, d] and LSE, as launch 1
     computes them (probabilities rounded to the cache dtype before P.V)."""
     batch, num_heads, d = q.shape
@@ -89,9 +92,14 @@ def _decode_partials_plain(q, k_cache, v_cache, lens, scale, num_splits, tps,
         s = s * scale
     col = torch.arange(max_s, device=q.device)
     lens = lens.to(q.device).long()[:, None]
+    if alibi is not None:  # the decode row sits at length - 1
+        dist = ((lens - 1) - col[None]).abs().float()  # [b, S]
+        s = s - alibi.float().to(q.device).reshape(1, hkv, group, 1) \
+            * dist[:, None, None, :]
     visible = col[None] < lens
     if window_left >= 0:
-        visible &= col[None] >= torch.clamp(lens - 1 - window_left, min=0)
+        visible &= (col[None] >= torch.clamp(lens - 1 - window_left, min=0)) \
+            | (col[None] < sinks)
     parts, lses = [], []
     for sp in range(num_splits):
         vis = visible & (col[None] >= sp * tps) & (col[None] < (sp + 1) * tps)
@@ -110,7 +118,7 @@ def _decode_partials_plain(q, k_cache, v_cache, lens, scale, num_splits, tps,
 
 
 def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
-                 window_left, softcap):
+                 window_left, softcap, sinks=0, alibi=None):
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     batch, num_heads, d = q.shape
     hkv, max_s = k_cache.shape[1], k_cache.shape[2]
@@ -131,6 +139,7 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
     q, k_cache, v_cache = (_build.dense(t) for t in (q, k_cache, v_cache))
     lens = lens.to(torch.int32).contiguous()
     dev = q.device
+    slopes = cuda_slopes(alibi, _LOG2E, num_heads, dev)
     o_part = torch.empty((batch, hkv, num_splits, group, d),
                          dtype=torch.float32, device=dev)
     lse_part = torch.empty((batch, hkv, num_splits, group),
@@ -142,7 +151,8 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
             lens.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(), code,
             batch, num_heads, hkv, max_s, d, num_splits, tps, window_left,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
-            scale / softcap if softcap else 0.0, stream)
+            scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
+            stream)
     _build.check("decode", rc)
     _build.launches["decode"] += 1
     out = torch.empty_like(q)
@@ -186,13 +196,15 @@ def decode_attention(
     q: [batch, num_heads, head_dim]; k_cache/v_cache: [batch, num_kv_heads,
     max_seqlen, head_dim]; cache_seqlens: [batch] valid lengths.
     num_splits: 0 = the Hopper heuristic. window_left: attend to the last
-    window_left + 1 tokens (-1 = all). Returns [batch, num_heads, head_dim]
-    in q's dtype (and, with return_lse, the fp32 natural-log LSE
-    [batch, num_heads]). Sinks and ALiBi are not ported yet.
+    window_left + 1 tokens (-1 = all); sink_tokens: with a window, the
+    first sink_tokens tokens stay visible too. alibi_slopes [num_heads]:
+    - slope_h * |length - 1 - column| (not with logit_softcap). Returns
+    [batch, num_heads, head_dim] in q's dtype (and, with return_lse, the
+    fp32 natural-log LSE [batch, num_heads]).
     """
-    if sink_tokens or alibi_slopes is not None:
-        raise NotImplementedError("sink_tokens and alibi_slopes are not "
-                                  "ported yet")
+    sinks, _ = check_band_options(int(window_left), sink_tokens)
+    if alibi_slopes is not None and logit_softcap:
+        raise ValueError("alibi_slopes and logit_softcap are exclusive")
     batch, num_heads, head_dim = q.shape
     num_kv_heads, max_s = k_cache.shape[1], k_cache.shape[2]
     if num_heads % num_kv_heads:
@@ -203,7 +215,7 @@ def decode_attention(
         num_splits = default_splits(batch, num_kv_heads, max_s)
     num_splits, tps = split_layout(max_s, num_splits)
     args = (q, k_cache, v_cache, cache_seqlens, scale, num_splits, tps,
-            int(window_left), float(logit_softcap))
+            int(window_left), float(logit_softcap), sinks, alibi_slopes)
     if q.device.type == "cpu":
         o_parts, lse = _decode_partials_plain(*args)
         out, lse_g = combine_splits(o_parts, lse, axis=2, return_lse=True)

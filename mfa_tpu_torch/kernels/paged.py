@@ -21,6 +21,10 @@ position cache_seqlens + pos_offset - q_span + si, seeing the columns
 before it (and its window). On the card they, and groups of more than 8 q
 heads a kv head, run the kernel's 16-row blocks (`launch_name`
 "paged_span" for spans).
+
+With a left window the first `sink_tokens` columns stay visible to every
+row (each read by the split that holds it); ALiBi subtracts slope_h *
+|position - column| at each row's position, on every page format.
 """
 
 from __future__ import annotations
@@ -35,13 +39,14 @@ from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
                                            softmax_scale_default)
 from mfa_tpu_torch.kernels import _build, decode
 from mfa_tpu_torch.kernels.decode import KERNEL_HEAD_DIMS, TILE
+from mfa_tpu_torch.kernels.prefill import check_band_options, cuda_slopes
 from mfa_tpu_torch.kernels.quant import page_format, page_values
 
 _LOG2E = math.log2(math.e)
 # Blocks of the kernel an SM holds: its ring takes 150-190 KB of shared memory
 BLOCKS_PER_SM = 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 11 + [_I] * 14 + [_F, _F, _F, _P]
+_ARGTYPES = [_P] * 11 + [_I] * 14 + [_F, _F, _F, _I, _P, _P]
 
 
 def launch_name(kernel: str, quant_dtype, q_span: int = 1) -> str:
@@ -77,25 +82,29 @@ def split_pages(split: int, tokens_per_split: int, page_size: int,
 
 
 def _visible_range(lens, window_left, pos_offset, q_span=1):
-    """Columns [lo, hi) [b, q_span] each query row sees: span row si sits at
-    lens + pos_offset - q_span + si and reads no further than lens."""
+    """Columns [lo, hi) [b, q_span] each query row sees (sinks aside) and
+    the rows' positions: span row si sits at lens + pos_offset - q_span + si
+    and reads no further than lens."""
     pos = (lens.long() + pos_offset - q_span)[:, None] + torch.arange(
         q_span, device=lens.device)[None]
     hi = torch.minimum(lens.long()[:, None], pos + 1)
     lo = torch.zeros_like(hi)
     if window_left >= 0:
         lo = torch.clamp(pos - window_left, min=0)
-    return lo, hi
+    return lo, hi, pos
 
 
 def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
-                softcap, lo, hi, quant_dtype=None):
+                softcap, lo, hi, quant_dtype=None, sinks=0, alibi=None,
+                pos=None, col_lo=0):
     """Normalized fp32 O [b, q_span, hq, d] and LSE [b, q_span, hq] of q [b,
     q_span, hq, d] over the columns [lo, hi) ([b, q_span]) of each query
-    row that table entries [first, first + table.shape[1]) hold: K scales on
-    score columns, V scales folded into the probabilities, probabilities
-    rounded to the value dtype (bf16 for quantized pages) before P.V. int4
-    pages unpack, fp8 converts exactly."""
+    row, and those below `sinks` and hi, that table entries [first, first +
+    table.shape[1]) hold from column col_lo on: K scales on score columns,
+    ALiBi (slopes [hq]) at the rows' positions pos [b, q_span], V scales
+    folded into the probabilities, probabilities rounded to the value dtype
+    (bf16 for quantized pages) before P.V. int4 pages unpack, fp8 converts
+    exactly."""
     batch, span, num_heads, d = q.shape
     hkv, _, page, _ = k_pages.shape
     group = num_heads // hkv
@@ -121,8 +130,12 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
     else:
         s = s * scale
     col = first * page + torch.arange(pps * page, device=q.device)[None, None]
-    visible = ((col >= lo.to(q.device)[..., None])
-               & (col < hi.to(q.device)[..., None]))  # [b, span, cols]
+    if alibi is not None:
+        dist = (pos.to(q.device)[..., None] - col).abs().float()  # [b, span, cols]
+        s = s - alibi.float().to(q.device).reshape(1, hkv, 1, group, 1) \
+            * dist[:, None, :, None, :]
+    visible = (((col >= lo.to(q.device)[..., None]) | (col < sinks))
+               & (col < hi.to(q.device)[..., None]) & (col >= col_lo))
     s = s.masked_fill(~visible[:, None, :, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
@@ -148,13 +161,15 @@ def _spans(q):
 
 
 def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
-                 scale, window_left, softcap, pos_offset, quant_dtype=None):
+                 scale, window_left, softcap, pos_offset, quant_dtype=None,
+                 sinks=0, alibi=None):
     """The kernel's function in plain PyTorch (`_paged_core` over every
     visible column), out in q's dtype; q [b, hq, d] or [b, q_span, hq, d]."""
     q4, span, squeeze = _spans(q)
-    lo, hi = _visible_range(lens, window_left, pos_offset, span)
+    lo, hi, pos = _visible_range(lens, window_left, pos_offset, span)
     out, lse = _paged_core(q4, k_pages, v_pages, k_scales, v_scales, table, 0,
-                           scale, softcap, lo, hi, quant_dtype)
+                           scale, softcap, lo, hi, quant_dtype, sinks, alibi,
+                           pos)
     if squeeze:
         out, lse = out[:, 0], lse[:, 0]
     return out.to(q.dtype), lse
@@ -162,7 +177,7 @@ def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
 
 def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
                        scale, window_left, softcap, pos_offset,
-                       num_splits=None, quant_dtype=None):
+                       num_splits=None, quant_dtype=None, sinks=0, alibi=None):
     """The kernel's split route in plain PyTorch: a partial over each
     split's table entries (`split_pages`) and tokens, merged by
     decode.combine_splits. num_splits None: the launcher's `split_plan`."""
@@ -174,7 +189,7 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
         num_splits, tps = split_plan(batch, hkv, pps, page)
     else:
         num_splits, tps = decode.split_layout(pps * page, num_splits)
-    lo, hi = _visible_range(lens, window_left, pos_offset, span)
+    lo, hi, pos = _visible_range(lens, window_left, pos_offset, span)
     hi = torch.clamp(hi, max=pps * page)
     parts, lses = [], []
     for sp in range(num_splits):
@@ -182,7 +197,8 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
         o, lse = _paged_core(q4, k_pages, v_pages, k_scales, v_scales,
                              table[:, first:end], first, scale, softcap,
                              torch.clamp(lo, min=sp * tps),
-                             torch.clamp(hi, max=(sp + 1) * tps), quant_dtype)
+                             torch.clamp(hi, max=(sp + 1) * tps), quant_dtype,
+                             sinks, alibi, pos, sp * tps)
         parts.append(o)
         lses.append(lse)
     out, lse = decode.combine_splits(torch.stack(parts, 1), torch.stack(lses, 1),
@@ -193,7 +209,8 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
 
 
 def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
-                window_left, softcap, pos_offset, quant_dtype=None):
+                window_left, softcap, pos_offset, quant_dtype=None, sinks=0,
+                alibi=None):
     _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales,
                        v_scales)
     q4, span, squeeze = _spans(q)
@@ -236,6 +253,7 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
     table = table.to(torch.int32).contiguous()
     pps = table.shape[1]
     num_splits, tps = split_plan(batch, hkv, pps, page)
+    slopes = cuda_slopes(alibi, _LOG2E, num_heads, q.device)
     out = torch.empty_like(qk)
     lse = torch.empty((batch, span, num_heads), dtype=torch.float32,
                       device=q.device)
@@ -254,7 +272,8 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
             batch, num_heads, hkv, num_pages, page, pps, d, span, num_splits,
             tps, pos_offset, window_left,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
-            scale / softcap if softcap else 0.0, _build.stream_of(q))
+            scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
+            _build.stream_of(q))
     _build.check("paged", rc)
     _build.launches[launch_name("paged", quant_dtype, span)] += 1
     if num_splits > 1:
@@ -301,15 +320,19 @@ def paged_attention(
     span's own K/V rows by LSE (models/llama.py:_merge_deferred). Needs
     window_left >= q_span when windowed, as on the TPU.
 
+    sink_tokens: with a left window, the first sink_tokens columns stay
+    visible to every row. alibi_slopes [num_heads]: - slope_h * |position
+    - column| at each row's position (not with logit_softcap).
+
     Returns q's shape in q's dtype (and, with return_lse, the fp32
     natural-log LSE [batch, (q_span,) num_heads]; -inf for an empty row).
     """
     if q.ndim not in (3, 4):
         raise ValueError(f"q must be [b, hq, d] or [b, q_span, hq, d], got "
                          f"{tuple(q.shape)}")
-    if sink_tokens or alibi_slopes is not None:
-        raise NotImplementedError("sink_tokens and alibi_slopes are not "
-                                  "ported yet")
+    sinks, _ = check_band_options(int(window_left), sink_tokens)
+    if alibi_slopes is not None and logit_softcap:
+        raise ValueError("alibi_slopes and logit_softcap are exclusive")
     q_span = 1 if q.ndim == 3 else q.shape[1]
     if pos_offset and 0 <= window_left < q_span:
         raise ValueError(f"pos_offset={pos_offset} (deferred append) needs "
@@ -321,7 +344,7 @@ def paged_attention(
                   else softmax_scale_default(q.shape[-1]))
     args = (q, k_pages, v_pages, k_scales, v_scales, cache_seqlens,
             block_table, scale, int(window_left), float(logit_softcap),
-            int(pos_offset), fmt)
+            int(pos_offset), fmt, sinks, alibi_slopes)
     if q.device.type == "cpu":
         out, lse = _paged_plain(*args)
     elif q.device.type == "cuda":

@@ -15,7 +15,9 @@ A CPU tensor runs `_paged_prefill_plain`, the same function in PyTorch.
 Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide
 (int4: head_dim / 2 bytes of feature pairs, kernels/quant.py:pack_int4),
 without the TPU's 128-lane padding. int8, fp8 (e4m3) and int4 pages carry
-fp32 per-row scales; attention sinks and ALiBi are not ported yet. The
+fp32 per-row scales. With a left window the first `sink_tokens` columns
+stay visible (the kernel lists their tiles ahead of the band); ALiBi uses
+the chunk's absolute positions. The
 kernel takes pages of a multiple of 8 rows (a TMA box of fewer breaks the
 128-byte swizzle); others are refused on the card.
 """
@@ -31,12 +33,13 @@ import torch
 from mfa_tpu_torch.dispatch.config import softmax_scale_default
 from mfa_tpu_torch.kernels import _build
 from mfa_tpu_torch.kernels.paged import launch_name
+from mfa_tpu_torch.kernels.prefill import check_band_options, cuda_slopes
 from mfa_tpu_torch.kernels.quant import page_format, page_values
 
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 11 + [_I] * 12 + [_F, _F, _F, _P]
+_ARGTYPES = [_P] * 11 + [_I] * 12 + [_F, _F, _F, _I, _P, _P]
 KERNEL_HEAD_DIMS = (64, 128, 256)  # 256: 64-key tiles (csrc/paged_prefill.cu:Plan)
 GROUP_ROWS = 64  # q rows per consumer warpgroup: the most q heads a kv head
 PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
@@ -44,9 +47,11 @@ PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
 
 def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
                          q_start, q_lens, table, scale, window_left,
-                         window_right, softcap, quant_dtype=None):
+                         window_right, softcap, quant_dtype=None, sinks=0,
+                         alibi=None):
     """The kernel's function in plain PyTorch: scores in the log2 domain,
-    K scales on score columns, V scales folded into the probabilities,
+    K scales on score columns, ALiBi at the chunk's absolute positions
+    (slopes [hq]), V scales folded into the probabilities,
     probabilities rounded to the value dtype (bf16 for quantized pages)
     before P.V (int4 pages unpacked, fp8 converted exactly). Rows r >=
     q_lens give O = 0 and LSE = -inf."""
@@ -79,12 +84,16 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
     row = torch.arange(sq, device=dev)
     pos = q_start.to(dev).long()[:, None] + row  # [b, sq]
     col = torch.arange(pps * page, device=dev)
+    if alibi is not None:  # [b, sq, cols] distances, log2 domain
+        dist = (pos[..., None] - col).abs().float()
+        s = s - (alibi.float().to(dev) * _LOG2E).reshape(1, hkv, group, 1, 1) \
+            * dist[:, None, None]
     vis = (col < lens.to(dev).long()[:, None, None]) \
         & (row < q_lens.to(dev).long()[:, None])[..., None]
     if window_right >= 0:
         vis &= col <= pos[..., None] + window_right
     if window_left >= 0:
-        vis &= col >= pos[..., None] - window_left
+        vis &= (col >= pos[..., None] - window_left) | (col < sinks)
     s = s.masked_fill(~vis[:, None, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
@@ -103,7 +112,8 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
 
 def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
                         q_start, q_lens, table, scale, window_left,
-                        window_right, softcap, quant_dtype=None):
+                        window_right, softcap, quant_dtype=None, sinks=0,
+                        alibi=None):
     _build.refuse_grad("paged_prefill_attention", q, k_pages, v_pages,
                        k_scales, v_scales)
     batch, sq, num_heads, d = q.shape
@@ -144,6 +154,7 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
     qk, k_pages, v_pages = (_build.dense(t) for t in (qk, k_pages, v_pages))
     lens, q_start, q_lens, table = (t.to(torch.int32).contiguous()
                                     for t in (lens, q_start, q_lens, table))
+    slopes = cuda_slopes(alibi, 1.0 / scale, num_heads, q.device)
     out = torch.empty_like(qk)
     lse = torch.empty((batch, num_heads, sq), dtype=torch.float32,
                       device=q.device)
@@ -155,7 +166,8 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
             _build.kv_code(quant_dtype, k_pages), batch, sq, num_heads, hkv,
             num_pages, page, table.shape[1], d, window_left, window_right,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
-            scale / softcap if softcap else 0.0, _build.stream_of(q))
+            scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
+            _build.stream_of(q))
     _build.check("paged_prefill", rc)
     _build.launches[launch_name("paged_prefill", quant_dtype)] += 1
     return out.to(q.dtype), lse
@@ -196,15 +208,17 @@ def paged_prefill_attention(
 
     Row r of sequence b (position p = q_start[b] + r) sees columns c <
     lengths[b] with p - window_left <= c <= p + window_right (-1 =
-    unbounded); causal is the window_right == 0 band. Returns [batch, sq,
+    unbounded), or c < sink_tokens with a left window; causal is the
+    window_right == 0 band. alibi_slopes [num_heads]: - slope_h * |p - c|
+    (not with logit_softcap). Returns [batch, sq,
     num_heads, head_dim] in q's dtype and, with return_lse, the fp32
     natural-log LSE [batch, num_heads, sq] (-inf on rows that see no
     column). Rows r >= q_lens[b] come out O = 0, LSE = -inf (unspecified
     in mfa_tpu).
     """
-    if sink_tokens or alibi_slopes is not None:
-        raise NotImplementedError("sink_tokens and alibi_slopes are not "
-                                  "ported yet")
+    sinks, _ = check_band_options(int(window_left), sink_tokens)
+    if alibi_slopes is not None and logit_softcap:
+        raise ValueError("alibi_slopes and logit_softcap are exclusive")
     fmt = page_format(quant_dtype, k_pages, k_scales, q.shape[-1])
     if q.shape[2] % k_pages.shape[0]:
         raise ValueError("num_heads must be divisible by num_kv_heads")
@@ -219,7 +233,7 @@ def paged_prefill_attention(
     q_lens = torch.as_tensor(q_lens, device=q.device)
     args = (q, k_pages, v_pages, k_scales, v_scales, lengths, q_start,
             q_lens, block_table, scale, int(window_left), int(window_right),
-            float(logit_softcap), fmt)
+            float(logit_softcap), fmt, sinks, alibi_slopes)
     if q.device.type == "cpu":
         out, lse = _paged_prefill_plain(*args)
     elif q.device.type == "cuda":

@@ -26,6 +26,13 @@ below 6e-5 (ROADMAP Queue 3). `"flag_debug"` also returns the flags [b,
 hq, ceil(sq / 64)], `"flag_only"` skips the repair, `"flag_presence"` the
 flag.
 
+Attention sinks (`sink_tokens`: with a left window the first columns stay
+visible to every row) and `kv_position_offset` (row r sits at position r
++ offset) reach every engine; ALiBi (`alibi_slopes` [hq]: the logit gets
+- slope_h * |position - column|) runs kernel 1 only, as in mfa_tpu, whose
+zero-shift engines cannot bound its unbounded shift. The tile lists the
+sink tiles ahead of the band (csrc/flash_fwd_sm90.cuh:span_of).
+
 A CUDA tensor runs the kernels (or raises); a CPU tensor runs each
 engine's plain fp32 version, which repeats its block algorithm: the same
 exponent, p cast to V's dtype before P.V, and flags and risky bits per
@@ -46,10 +53,10 @@ from mfa_tpu_torch.kernels import _build
 _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             _F, _F, _F, _P]
+             _F, _F, _F, _I, _I, _P, _P]
 # q, k, v, o, lse, flags or bits, dtype, b, hq, hkv, sq, sk, d, wl, wr,
-# scale_log2e, stream (csrc/bound.cu)
-_ZS_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _P]
+# scale_log2e, sinks, kv_off, stream (csrc/bound.cu)
+_ZS_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P]
 # head_dims of the kernels on the shared forward tile (varlen, paged
 # prefill) and of the backward; mfa_prefill_fwd also takes 256 (Gemma)
 KERNEL_HEAD_DIMS = (64, 128)
@@ -93,25 +100,38 @@ def _risky_bits(q, k, scale_log2e):
                         scale_log2e).to(torch.int32)
 
 
-def _band(sq, sk, window_left, window_right, device):
-    """[sq, sk] visibility and [sq] 'band structurally empty' per row."""
-    row = torch.arange(sq, device=device)[:, None]
+def _band(sq, sk, window_left, window_right, device, sinks=0, kv_off=0):
+    """[sq, sk] visibility and [sq] 'band structurally empty' per row; row r
+    sits at position r + kv_off, and with a left window the columns <
+    sinks stay visible (mfa_tpu's _band_mask)."""
+    row = torch.arange(sq, device=device)[:, None] + kv_off
     col = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if window_right >= 0:
         mask &= col <= row + window_right
     if window_left >= 0:
-        mask &= col >= row - window_left
+        mask &= (col >= row - window_left) | (col < sinks)
     r = row[:, 0]
     lo = (r - window_left).clamp(min=0) if window_left >= 0 else torch.zeros_like(r)
     hi = (r + window_right + 1).clamp(max=sk) if window_right >= 0 else torch.full_like(r, sk)
-    return mask, hi <= lo
+    empty = hi <= lo
+    if window_left >= 0 and sinks > 0:  # sink columns below the band's end
+        empty &= hi <= 0
+    return mask, empty
+
+
+def alibi_bias(slopes, rows, cols):
+    """[hq, rows, cols] ALiBi bias -slope_h * |row - col| in fp32 (rows and
+    cols: position vectors)."""
+    dist = (rows[:, None] - cols[None, :]).abs().float()
+    return -slopes.float().reshape(-1, 1, 1) * dist
 
 
 def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
-                   return_lse):
-    """fp32 reference of kernel 1: same band, softcap and dead-row rules;
-    LSE is the natural log of the scaled (capped) logits."""
+                   return_lse, sinks=0, kv_off=0, alibi=None):
+    """fp32 reference of kernel 1: same band, sinks, offset, softcap, ALiBi
+    and dead-row rules; LSE is the natural log of the scaled (capped,
+    biased) logits."""
     _, hq, sq, _ = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -122,7 +142,11 @@ def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
         s = torch.tanh(s * (scale / softcap)) * softcap
     else:
         s = s * scale
-    mask, _ = _band(sq, sk, window_left, window_right, q.device)
+    if alibi is not None:
+        s = s + alibi_bias(alibi.to(q.device),
+                           torch.arange(sq, device=q.device) + kv_off,
+                           torch.arange(sk, device=q.device))
+    mask, _ = _band(sq, sk, window_left, window_right, q.device, sinks, kv_off)
     s = s.masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     live = torch.isfinite(lse)[..., None]
@@ -133,7 +157,8 @@ def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
     return (out, lse) if return_lse else out
 
 
-def _zero_shift_plain(q, k, v, scale, window_left, window_right):
+def _zero_shift_plain(q, k, v, scale, window_left, window_right, sinks=0,
+                      kv_off=0):
     """fp32 version of the zero-shift tile (kernels 2 and 4): p =
     exp2(s * scale * log2 e) with no shift, cast to V's dtype before P.V.
     O is normalized by the sum of p as cast (a convex combination of V's
@@ -149,7 +174,8 @@ def _zero_shift_plain(q, k, v, scale, window_left, window_right):
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = q.float() @ kf.transpose(-1, -2)
-    mask, empty = _band(sq, sk, window_left, window_right, q.device)
+    mask, empty = _band(sq, sk, window_left, window_right, q.device, sinks,
+                        kv_off)
     p = torch.where(mask, torch.exp2(s * (scale * _LOG2E)),
                     torch.zeros((), device=q.device))
     l = p.sum(-1)
@@ -168,28 +194,47 @@ def _zero_shift_plain(q, k, v, scale, window_left, window_right):
     return o.to(q.dtype), lse, flags
 
 
-def _classic_rows(q, k, v, scale, wl, wr, out, lse, tiles):
+def _classic_rows(q, k, v, scale, wl, wr, out, lse, tiles, sinks, kv_off):
     """Overwrite the rows of the tiles set in `tiles` [b, hq, nt] with the
     classic result (the plain repair, and the risky tiles of the bound
     engine)."""
     if not bool(tiles.any()):
         return out, lse
-    co, cl = _prefill_plain(q, k, v, scale, wl, wr, 0.0, True)
+    co, cl = _prefill_plain(q, k, v, scale, wl, wr, 0.0, True, sinks, kv_off)
     rows = tiles.repeat_interleave(TILE_Q, -1)[..., :q.shape[2]]
     return (torch.where(rows[..., None], co, out), torch.where(rows, cl, lse))
 
 
-def _engine_plain(engine, mode, q, k, v, scale, wl, wr):
+def _engine_plain(engine, mode, q, k, v, scale, wl, wr, sinks=0, kv_off=0):
     """The zero-shift engines on CPU tensors -> (out, lse, flags or None)."""
-    out, lse, flags = _zero_shift_plain(q, k, v, scale, wl, wr)
+    out, lse, flags = _zero_shift_plain(q, k, v, scale, wl, wr, sinks, kv_off)
     if engine == "flagged":
         if mode in (True, "flag_debug"):
-            out, lse = _classic_rows(q, k, v, scale, wl, wr, out, lse, flags)
+            out, lse = _classic_rows(q, k, v, scale, wl, wr, out, lse, flags,
+                                     sinks, kv_off)
         return out, lse, flags.to(torch.int32)
     if mode != "unchecked":
         out, lse = _classic_rows(q, k, v, scale, wl, wr, out, lse,
-                                 _risky_bits(q, k, scale * _LOG2E) != 0)
+                                 _risky_bits(q, k, scale * _LOG2E) != 0,
+                                 sinks, kv_off)
     return out, lse, None
+
+
+def check_band_options(window_left: int, sink_tokens: int,
+                       kv_position_offset: int = 0) -> tuple:
+    """-> (sinks, kv_off) after mfa_tpu's rules: sinks are a no-op without a
+    left window, the offset must be >= 0, and the two do not combine."""
+    sinks = int(sink_tokens) if window_left >= 0 else 0
+    kv_off = int(kv_position_offset)
+    if sinks < 0:
+        raise ValueError("sink_tokens must be >= 0")
+    if kv_off < 0:
+        raise ValueError("kv_position_offset must be >= 0 (q leads kv)")
+    if kv_off and sinks:
+        raise NotImplementedError(
+            "kv_position_offset with attention sinks is not supported "
+            "(the ring path handles sink blocks on the owning shard)")
+    return sinks, kv_off
 
 
 def _cuda_inputs(name, q, k, v):
@@ -209,9 +254,22 @@ def _cuda_inputs(name, q, k, v):
     return _build.dense(q), _build.dense(k), _build.dense(v)
 
 
+def cuda_slopes(alibi, scale, num_heads, device):
+    """ALiBi slopes for the kernels: fp32 [num_heads] times `scale` (1 /
+    softmax scale: the raw score domain; log2 e: the log2 domain), or None."""
+    if alibi is None:
+        return None
+    if alibi.numel() != num_heads:
+        raise ValueError(f"alibi_slopes must hold one slope per q head "
+                         f"({num_heads}), got shape {tuple(alibi.shape)}")
+    return (alibi.to(device=device, dtype=torch.float32).reshape(num_heads)
+            * scale).contiguous()
+
+
 def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
-                  return_lse):
+                  return_lse, sinks=0, kv_off=0, alibi=None):
     q, k, v = _cuda_inputs("prefill_attention", q, k, v)
+    slopes = cuda_slopes(alibi, 1.0 / scale, q.shape[1], q.device)
     batch, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -222,25 +280,28 @@ def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _build.ptr(lse), _build.DTYPE_CODES[q.dtype], batch, hq, hkv, sq,
             sk, d, window_left, window_right, scale_log2e, float(softcap),
-            scale / softcap if softcap else 0.0, _build.stream_of(q))
+            scale / softcap if softcap else 0.0, sinks, kv_off,
+            _build.ptr(slopes), _build.stream_of(q))
     _build.check("prefill", rc)
     _build.launches["prefill"] += 1
     return (out, lse) if return_lse else out
 
 
-def _zs_launch(kind, q, k, v, out, lse, table, scale, wl, wr):
+def _zs_launch(kind, q, k, v, out, lse, table, scale, wl, wr, sinks=0,
+               kv_off=0):
     """One launch of csrc/bound.cu (kind: flagged, repair or bound)."""
     batch, hq, sq, d = q.shape
     fn = _build.function("bound", f"mfa_{kind}_fwd", _ZS_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _build.ptr(lse), _build.ptr(table), _build.DTYPE_CODES[q.dtype],
             batch, hq, k.shape[1], sq, k.shape[2], d, wl, wr, scale * _LOG2E,
-            _build.stream_of(q))
+            sinks, kv_off, _build.stream_of(q))
     _build.check("bound", rc)
     _build.launches[kind] += 1
 
 
-def _engine_cuda(engine, mode, q, k, v, scale, wl, wr, return_lse):
+def _engine_cuda(engine, mode, q, k, v, scale, wl, wr, return_lse, sinks=0,
+                 kv_off=0):
     """The zero-shift engines on CUDA tensors -> (out, lse, flags or None).
     The flags and risky bits stay on the device."""
     q, k, v = _cuda_inputs("prefill_attention", q, k, v)
@@ -251,24 +312,28 @@ def _engine_cuda(engine, mode, q, k, v, scale, wl, wr, return_lse):
     if engine == "flagged":
         flags = None if mode == "flag_presence" else torch.empty(
             (batch, hq, cdiv(sq, TILE_Q)), dtype=torch.int32, device=q.device)
-        _zs_launch("flagged", q, k, v, out, lse, flags, scale, wl, wr)
+        _zs_launch("flagged", q, k, v, out, lse, flags, scale, wl, wr, sinks,
+                   kv_off)
         if mode in (True, "flag_debug"):
-            _zs_launch("repair", q, k, v, out, lse, flags, scale, wl, wr)
+            _zs_launch("repair", q, k, v, out, lse, flags, scale, wl, wr,
+                       sinks, kv_off)
         return out, lse, flags
     bits = None if mode == "unchecked" else _risky_bits(q, k, scale * _LOG2E)
-    _zs_launch("bound", q, k, v, out, lse, bits, scale, wl, wr)
+    _zs_launch("bound", q, k, v, out, lse, bits, scale, wl, wr, sinks, kv_off)
     return out, lse, None
 
 
-def select_engine(bound_softmax, dtype, head_dim: int, softcap: float) -> tuple:
+def select_engine(bound_softmax, dtype, head_dim: int, softcap: float,
+                  alibi: bool = False) -> tuple:
     """-> (engine, mode): engine "classic" (kernel 1), "flagged" (kernels
     2 + 3) or "bound" (kernel 4), as mfa_tpu's prefill_attention selects
-    it, plus the port's fp16 rule (module docstring)."""
+    it (softcap and ALiBi keep the classic engine), plus the port's fp16
+    rule (module docstring)."""
     mode = True if bound_softmax is None else bound_softmax
     if mode is not True and mode is not False and mode not in MODES[2:]:
         raise ValueError(f"bound_softmax must be one of {MODES} or None, got "
                          f"{bound_softmax!r}")
-    if mode is False or softcap:
+    if mode is False or softcap or alibi:
         return "classic", False
     if dtype == torch.float16:
         if mode is True:
@@ -308,17 +373,18 @@ def prefill_attention(
     tanh(s * scale / cap) * cap to the logits. bound_softmax selects the
     softmax engine (module docstring): None / True, "prepass", "unchecked",
     False, and the probes "flag_only", "flag_presence", "flag_debug".
+    sink_tokens: with a left window, the first sink_tokens columns stay
+    visible to every row (a no-op without one). alibi_slopes [hq] fp32:
+    the logit gets - slope_h * |position - column| (top-left positions;
+    kernel 1 only; not with logit_softcap). kv_position_offset >= 0: row
+    r sits at position r + offset against the columns (masks and ALiBi);
+    not with sinks.
 
     Returns O [b, hq, sq, d] in q's dtype and, with return_lse, the fp32
     natural-log LSE [b, hq, sq] (-inf on rows that see no column); with
     "flag_debug" on the flagged engine, also the int32 flags [b, hq,
-    ceil(sq / 64)]. ALiBi, attention sinks and kv_position_offset are not
-    ported yet.
+    ceil(sq / 64)].
     """
-    if alibi_slopes is not None or sink_tokens or kv_position_offset:
-        raise NotImplementedError(
-            "alibi_slopes, sink_tokens and kv_position_offset are not "
-            "ported yet")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"num_heads ({q.shape[1]}) must be divisible by "
                          f"num_kv_heads ({k.shape[1]})")
@@ -327,22 +393,28 @@ def prefill_attention(
     window_left, window_right = (int(w) for w in window_size)
     if causal:
         window_right = 0
+    sinks, kv_off = check_band_options(window_left, sink_tokens,
+                                       kv_position_offset)
+    if alibi_slopes is not None and logit_softcap:
+        raise ValueError("alibi_slopes and logit_softcap are exclusive")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"prefill_attention: unsupported device {q.device}")
     engine, mode = select_engine(bound_softmax, q.dtype, q.shape[-1],
-                                 float(logit_softcap))
+                                 float(logit_softcap), alibi_slopes is not None)
     if engine == "classic":
         args = (q, k, v, scale, window_left, window_right, float(logit_softcap),
-                return_lse)
+                return_lse, sinks, kv_off, alibi_slopes)
         if q.device.type == "cpu":
             return _prefill_plain(*args)
         return _prefill_cuda(*args)
     if q.device.type == "cpu":
         out, lse, flags = _engine_plain(engine, mode, q, k, v, scale,
-                                        window_left, window_right)
+                                        window_left, window_right, sinks,
+                                        kv_off)
     else:
         out, lse, flags = _engine_cuda(engine, mode, q, k, v, scale,
-                                       window_left, window_right, return_lse)
+                                       window_left, window_right, return_lse,
+                                       sinks, kv_off)
     res = (out, lse) if return_lse else (out,)
     if mode == "flag_debug" and engine == "flagged":
         res += (flags,)

@@ -9,6 +9,7 @@ original CUDA library did; on equal lengths it gives kernel 1's bits.
 The TPU kernel's segment-id masks, prefetched per-q-block KV bounds and
 zero-shift fast path exist because a TPU grid is static; the classic
 algorithm here computes the same function exactly.
+Sinks and ALiBi act on positions local to each sequence, as in mfa_tpu.
 A CPU tensor runs `_varlen_plain` (kernel 1's plain version per sequence).
 
 With block_table, k/v are a paged pool and the call goes to the paged
@@ -27,15 +28,16 @@ import torch
 from mfa_tpu_torch.dispatch.config import softmax_scale_default
 from mfa_tpu_torch.kernels import _build
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
-from mfa_tpu_torch.kernels.prefill import PREFILL_HEAD_DIMS, _prefill_plain
+from mfa_tpu_torch.kernels.prefill import (PREFILL_HEAD_DIMS, _prefill_plain,
+                                            check_band_options, cuda_slopes)
 
 _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 7 + [_I] * 10 + [_F, _F, _F, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 10 + [_F, _F, _F, _I, _P, _P]
 
 
 def _varlen_plain(q, k, v, cu_q, cu_k, scale, window_left, window_right,
-                  softcap, return_lse):
+                  softcap, return_lse, sinks=0, alibi=None):
     """fp32 reference of the kernel: kernel 1's plain version on each
     sequence, LSE in flash-attn's varlen layout [num_heads, total_q]."""
     cq, ck = cu_q.tolist(), cu_k.tolist()
@@ -45,7 +47,7 @@ def _varlen_plain(q, k, v, cu_q, cu_k, scale, window_left, window_right,
         kb = k[ck[b]:ck[b + 1]].transpose(0, 1)[None]
         vb = v[ck[b]:ck[b + 1]].transpose(0, 1)[None]
         o, lse = _prefill_plain(qb, kb, vb, scale, window_left, window_right,
-                                softcap, True)
+                                softcap, True, sinks, 0, alibi)
         outs.append(o[0].transpose(0, 1))
         lses.append(lse[0])
     out = torch.cat(outs)
@@ -53,7 +55,7 @@ def _varlen_plain(q, k, v, cu_q, cu_k, scale, window_left, window_right,
 
 
 def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
-                 window_right, softcap, return_lse):
+                 window_right, softcap, return_lse, sinks=0, alibi=None):
     _build.refuse_grad("varlen_attention", q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise NotImplementedError(
@@ -68,6 +70,7 @@ def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
     _build.expect_shape(name, "v", v, k.shape)
     _build.expect_shape(name, "cu_seqlens_k", cu_k, cu_q.shape)
     q, k, v = _build.dense(q), _build.dense(k), _build.dense(v)
+    slopes = cuda_slopes(alibi, 1.0 / scale, hq, q.device)
     out = torch.empty_like(q)
     lse = (torch.empty((hq, total_q), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -77,14 +80,16 @@ def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
             _build.DTYPE_CODES[q.dtype], cu_q.shape[0] - 1, hq, hkv, total_q,
             k.shape[0], int(max_seqlen_q), d, window_left, window_right,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
-            scale / softcap if softcap else 0.0, _build.stream_of(q))
+            scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
+            _build.stream_of(q))
     _build.check("prefill", rc)
     _build.launches["varlen"] += 1
     return (out, lse) if return_lse else out
 
 
 def _paged_route(q, k_pool, v_pool, cu_q, cu_k, max_seqlen_q, block_table,
-                 scale, window_left, window_right, softcap, return_lse):
+                 scale, window_left, window_right, softcap, return_lse,
+                 sinks=0, alibi=None):
     """Unpack q per sequence and run the paged prefill kernel on a pool of
     only the batch's pages (mfa_tpu/kernels/varlen.py:289-339)."""
     total_q, hq, d = q.shape
@@ -108,7 +113,8 @@ def _paged_route(q, k_pool, v_pool, cu_q, cu_k, max_seqlen_q, block_table,
         q_pad, pool, pool_v, lens_k, torch.zeros_like(lens_k), dense_table,
         q_lens=lens_q, causal=False, softmax_scale=scale,
         window_left=window_left, window_right=window_right,
-        logit_softcap=softcap, return_lse=return_lse)
+        logit_softcap=softcap, sink_tokens=sinks, alibi_slopes=alibi,
+        return_lse=return_lse)
     if return_lse:
         out4, lse4 = out4  # [b, hq, max_sq] -> [hq, total_q]
         return out4[seg, pos], lse4[seg, :, pos].transpose(0, 1)
@@ -142,13 +148,12 @@ def varlen_attention(
     Causal is top-left aligned per sequence (row r sees columns <= r, for
     lens_k != lens_q too); window_size (left, right) counts from each
     row's own position, -1 = unbounded. A row that sees no column gives
-    O = 0 (LSE -inf). Returns [total_q, num_heads, head_dim] and, with
+    O = 0 (LSE -inf). sink_tokens: with a left window, each sequence's
+    first sink_tokens columns stay visible; alibi_slopes [num_heads]:
+    - slope_h * |row - column| on the sequence's own positions (not with
+    logit_softcap). Returns [total_q, num_heads, head_dim] and, with
     return_lse, the fp32 natural-log LSE [num_heads, total_q].
-    ALiBi and attention sinks are not ported yet.
     """
-    if alibi_slopes is not None or sink_tokens:
-        raise NotImplementedError("alibi_slopes and sink_tokens are not "
-                                  "ported yet")
     if q.shape[1] % k.shape[-2]:
         raise ValueError(f"num_heads ({q.shape[1]}) must be divisible by "
                          f"num_kv_heads ({k.shape[-2]})")
@@ -157,17 +162,22 @@ def varlen_attention(
     window_left, window_right = (int(w) for w in window_size)
     if causal:
         window_right = 0
+    sinks, _ = check_band_options(window_left, sink_tokens)
+    if alibi_slopes is not None and logit_softcap:
+        raise ValueError("alibi_slopes and logit_softcap are exclusive")
     cu_q = torch.as_tensor(cu_seqlens_q, device=q.device).to(torch.int32)
     cu_k = torch.as_tensor(cu_seqlens_k, device=q.device).to(torch.int32)
     if block_table is not None:
         return _paged_route(q, k, v, cu_q, cu_k, max_seqlen_q, block_table,
                             scale, window_left, window_right,
-                            float(logit_softcap), return_lse)
+                            float(logit_softcap), return_lse, sinks,
+                            alibi_slopes)
     if q.device.type == "cpu":
         return _varlen_plain(q, k, v, cu_q, cu_k, scale, window_left,
-                             window_right, float(logit_softcap), return_lse)
+                             window_right, float(logit_softcap), return_lse,
+                             sinks, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"varlen_attention: unsupported device {q.device}")
     return _varlen_cuda(q, k, v, cu_q.contiguous(), cu_k.contiguous(),
                         max_seqlen_q, scale, window_left, window_right,
-                        float(logit_softcap), return_lse)
+                        float(logit_softcap), return_lse, sinks, alibi_slopes)

@@ -57,8 +57,12 @@ most _MOE_DENSE_MAX_T rows) or the grouped form (rows sorted by expert,
 wquant.bank_grouped), and sums each token's experts in slot order without
 atomics. int8 banks run kernel 10's expert launch in both forms.
 
-Not ported yet (raise NotImplementedError): attention sinks, meshes
-(expert parallelism among them). int8 weights serve only: loss_fn and
+Attention sinks (`attn_sinks`, StreamingLLM) reach every attention call
+with a left window: prefill waves, chunks, decode and verify steps and the
+train attention; the image-block kernel takes none and raises on them.
+
+Not ported yet (raise NotImplementedError): meshes (expert parallelism
+among them). int8 weights serve only: loss_fn and
 train_step raise on them, as JAX defines no gradient through QWeight.
 """
 
@@ -129,7 +133,8 @@ class LlamaConfig:
     attn_softcap: Optional[float] = None     # Gemma2: tanh cap on attention logits
     logit_softcap: Optional[float] = None    # Gemma2: tanh cap on final logits
     alt_window: bool = False                 # even layers sliding, odd global
-    # attention sinks (the kernels' sink_tokens): not served yet
+    # attention sinks (the kernels' sink_tokens): with a sliding window the
+    # first attn_sinks tokens stay visible to every query (StreamingLLM)
     attn_sinks: int = 0
     # mixture of experts (mfa_tpu's LlamaConfig): n_experts > 0 replaces
     # the MLP by top-k routed experts; moe_ffn_dim: expert width when it is
@@ -147,8 +152,6 @@ class LlamaConfig:
     moe_layer_pattern: Optional[tuple] = None
 
     def __post_init__(self):
-        if self.attn_sinks:
-            raise NotImplementedError("attention sinks are not ported yet")
         if self.hidden_act not in ("silu", "gelu_tanh"):
             raise ValueError(f"hidden_act {self.hidden_act!r}")
         if self.layer_pattern is not None and (
@@ -720,9 +723,9 @@ def _attention_blockmask(q, k, v, cfg: LlamaConfig, window_left: int,
     AND window) OR same-image-run, through the image-block kernel
     (kernels/blockmask.py). block_ids [b, s] int32: contiguous image-run
     id per token, -1 = text. The image-block kernel takes no softcap (as
-    in JAX)."""
-    if cfg.attn_softcap:
-        raise NotImplementedError("softcap with the image-block mask")
+    in JAX) and no sinks."""
+    if cfg.attn_softcap or cfg.attn_sinks:
+        raise NotImplementedError("softcap or sinks with the image-block mask")
     return image_block_prefill(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), block_ids,
         softmax_scale=cfg.attn_scale, window_left=window_left).transpose(1, 2)
@@ -730,16 +733,16 @@ def _attention_blockmask(q, k, v, cfg: LlamaConfig, window_left: int,
 
 def _attention_dense_masked(q, k, v, cfg: LlamaConfig, window_left: int,
                             extra_mask):
-    """Dense fp32 attention on [b, s, h, d] with mask = (causal AND window)
-    OR extra_mask [b, s, s]: the reference of the multimodal mask algebra
-    that the image-block kernel tiles (mfa_tpu's
-    _attention_dense_masked)."""
+    """Dense fp32 attention on [b, s, h, d] with mask = (causal AND (window
+    OR sinks)) OR extra_mask [b, s, s]: the reference of the multimodal
+    mask algebra that the image-block kernel tiles (mfa_tpu's
+    _attention_dense_masked, with the model's sinks)."""
     s = q.shape[1]
     row = torch.arange(s, device=q.device)[:, None]
     col = torch.arange(s, device=q.device)[None, :]
     band = col <= row
     if window_left >= 0:
-        band &= col >= row - window_left
+        band &= (col >= row - window_left) | (col < cfg.attn_sinks)
     return dense_masked_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         band[None] | extra_mask.to(q.device), cfg.attn_scale,
@@ -761,7 +764,8 @@ def _train_layer(x, lp, wl, rope, cfg: LlamaConfig, image_block_ids=None):
         attn = flash_attention_grad(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
             softmax_scale=cfg.attn_scale, window_size=(wl, -1),
-            logit_softcap=_softcap(cfg)).transpose(1, 2)
+            logit_softcap=_softcap(cfg),
+            sink_tokens=cfg.attn_sinks).transpose(1, 2)
     x = _attn_residual(x, attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp,
                        cfg)
     return _mlp(x, lp, cfg)
@@ -1036,7 +1040,8 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             attn = prefill_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=True, softmax_scale=cfg.attn_scale,
-                window_size=(wl, -1), logit_softcap=_softcap(cfg)).transpose(1, 2)
+                window_size=(wl, -1), logit_softcap=_softcap(cfg),
+                sink_tokens=cfg.attn_sinks).transpose(1, 2)
         x = _attn_residual(x, attn.reshape(n, s, cfg.n_heads * hd), lp, cfg)
         x = _mlp(x, lp, cfg)
         if ks_new is not None:
@@ -1156,7 +1161,7 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             table_rows + li * P, k_scales=cache.k_scales,
             v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
             causal=True, window_left=wl, logit_softcap=_softcap(cfg),
-            quant_dtype=cache.quant_dtype)
+            quant_dtype=cache.quant_dtype, sink_tokens=cfg.attn_sinks)
         x = _attn_residual(x, attn.reshape(n, chunk, cfg.n_heads * hd), lp, cfg)
         x = _mlp(x, lp, cfg)
     x = _rms_norm(x, params["final_norm"], cfg)
@@ -1251,7 +1256,8 @@ def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             tables + li * cache.num_pages, k_scales=cache.k_scales,
             v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
             window_left=wl, logit_softcap=_softcap(cfg),
-            quant_dtype=cache.quant_dtype, pos_offset=span, return_lse=True,
+            quant_dtype=cache.quant_dtype, sink_tokens=cfg.attn_sinks,
+            pos_offset=span, return_lse=True,
         )  # [n, span, heads, hd], [n, span, heads]
         attn = _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg)
         x = _attn_residual(x, attn.reshape(n, span, cfg.n_heads * hd), lp, cfg)

@@ -27,6 +27,7 @@ the card's name and power limit. Exits non-zero if an output is off.
 from __future__ import annotations
 
 import argparse
+import inspect
 import math
 import os
 import subprocess
@@ -130,10 +131,13 @@ def _decode_case(cs, decode, b, S, d, ns, gen, label, sweep=False):
         lse_part = torch.empty((b, hkv, nsp, hq // hkv), device="cuda")
         fn = _build.function("decode", "mfa_decode_partials", decode._PARTIALS_ARGTYPES)
         stream = _build.stream_of(q)
+        # sinks and ALiBi slopes (0, null) where the checkout's decode takes them
+        takes_band = "sink_tokens" in inspect.signature(decode.decode_attention).parameters
+        extra = (0, None) if takes_band else ()
         ms = cs._time_ms(lambda: fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                                     lens.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
                                     1, b, hq, hkv, S, d, nsp, tps, -1,
-                                    scale * math.log2(math.e), 0.0, 0.0, stream))
+                                    scale * math.log2(math.e), 0.0, 0.0, *extra, stream))
         plain_ms = cs._time_ms(lambda: decode._decode_partials_plain(
             q, kc, vc, lens, scale, nsp, tps, -1, 0.0), iters=3)
         what, plain = "launch 1", f"; plain {plain_ms:.4f} ms"

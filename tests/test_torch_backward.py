@@ -51,6 +51,74 @@ def test_backward_matches_jax(fused, causal, hq, hkv):
 
 
 @pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("offset,window", [(64, (-1, 0)), (40, (48, 0))])
+def test_backward_kv_position_offset_matches_jax(fused, offset, window):
+    """kv_position_offset (the ring's pairs) in the fused kernel and the
+    split, against mfa_tpu's backward with the same offset."""
+    rng = np.random.RandomState(7)
+    q, do = (rng.standard_normal((1, 4, 96, 64)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, 160, 64)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(window_size=window, kv_position_offset=offset)
+    out, lse = jprefill(*(jnp.asarray(a) for a in (q, k, v)), return_lse=True,
+                        **kw)
+    out, lse = np.array(out), np.array(lse)
+    want = jbwd(*(jnp.asarray(a) for a in (q, k, v, out, lse, do)),
+                fused=fused, **kw)
+    got = tbwd(*(torch.from_numpy(a) for a in (q, k, v, out, lse, do)),
+               fused=fused, **kw)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_backward_alibi_matches_jax(fused):
+    """ALiBi recomputed in P, in the fused kernel and the split."""
+    rng = np.random.RandomState(8)
+    q, k, v, do = (rng.standard_normal((1, 4, 100, 64)).astype(np.float32)
+                   for _ in range(4))
+    k, v = k[:, :2], v[:, :2]
+    slopes = np.array([0.5, 0.25, 0.125, 0.0625], np.float32)
+    out, lse = jprefill(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
+                        alibi_slopes=jnp.asarray(slopes), return_lse=True)
+    out, lse = np.array(out), np.array(lse)
+    want = jbwd(*(jnp.asarray(a) for a in (q, k, v, out, lse, do)), causal=True,
+                alibi_slopes=jnp.asarray(slopes), fused=fused)
+    got = tbwd(*(torch.from_numpy(a) for a in (q, k, v, out, lse, do)),
+               causal=True, alibi_slopes=torch.from_numpy(slopes), fused=fused)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_backward_alibi_with_offset_is_the_forward_gradient(fused):
+    """ALiBi with kv_position_offset: the kernels' gradients against
+    autograd of the plain forward (the same bias at row + offset);
+    mfa_tpu's backward drops the offset from the bias (ROADMAP Queue 3),
+    so it is not the reference here."""
+    from mfa_tpu_torch.kernels.prefill import _prefill_plain
+
+    rng = np.random.RandomState(9)
+    q, do = (rng.standard_normal((1, 2, 64, 64)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, 128, 64)).astype(np.float32)
+            for _ in range(2))
+    slopes = torch.tensor([0.5, 0.25])
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, lse = _prefill_plain(qt, kt, vt, 64 ** -0.5, -1, 0, 0.0, True, 0, 64,
+                              slopes)
+    want = torch.autograd.grad((out * torch.from_numpy(do)).sum(), (qt, kt, vt))
+    got = tbwd(qt.detach(), kt.detach(), vt.detach(), out.detach(),
+               lse.detach(), torch.from_numpy(do), causal=True,
+               kv_position_offset=64, alibi_slopes=slopes, fused=fused)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("fused", [True, False])
 def test_backward_arbitrary_lengths(fused):
     _case(1, 2, 100, 37, 2, 2, 64, True, fused=fused)
 
@@ -143,21 +211,31 @@ def test_flash_attn_func_grad_matches_jax():
 
 
 def test_unported_options_raise():
-    q = torch.zeros(1, 2, 8, 64)
-    slopes = torch.ones(2)
-    with pytest.raises(NotImplementedError):
-        tad.flash_attention_grad(q, q, q, True, alibi_slopes=slopes)
-    with pytest.raises(NotImplementedError):
-        tad.flash_attn_func_grad(q, q, q, alibi_slopes=slopes)
-    with pytest.raises(NotImplementedError):
+    # sinks, ALiBi and kv_position_offset are ported; what still raises,
+    # in both packages: sinks with fused=False or with the offset, ALiBi
+    # with a softcap
+    qn, lsen = np.zeros((1, 2, 8, 64), np.float32), np.zeros((1, 2, 8), np.float32)
+    for fn, t in ((tbwd, torch.from_numpy), (jbwd, jnp.asarray)):
+        q, lse, slopes = t(qn), t(lsen), t(np.ones(2, np.float32))
+        for kw, err in ((dict(sink_tokens=4, fused=False), NotImplementedError),
+                        (dict(sink_tokens=4, kv_position_offset=3),
+                         NotImplementedError),
+                        (dict(alibi_slopes=slopes, logit_softcap=5.0),
+                         ValueError)):
+            with pytest.raises(err):
+                fn(q, q, q, q, lse, q, window_size=(2, 0), **kw)
+    q, slopes = torch.zeros(1, 2, 8, 64), torch.ones(2)
+    with pytest.raises(ValueError):
+        tad.flash_attention_grad(q, q, q, True, logit_softcap=5.0,
+                                 alibi_slopes=slopes)
+    with pytest.raises(ValueError):
         tad.flash_attn_varlen_func_grad(q[0, 0, :, None], q[0, 0, :, None],
                                         q[0, 0, :, None], [0, 8], [0, 8], 8,
-                                        8, alibi_slopes=slopes)
-    lse = torch.zeros(1, 2, 8)
-    for kw in (dict(alibi_slopes=slopes), dict(sink_tokens=4),
-               dict(kv_position_offset=3)):
-        with pytest.raises(NotImplementedError):
-            tbwd(q, q, q, q, lse, q, **kw)
+                                        8, logit_softcap=5.0,
+                                        alibi_slopes=slopes)
+    qb = q.transpose(1, 2)  # [b, s, h, d]
+    out = tad.flash_attn_func_grad(qb, qb, qb, alibi_slopes=slopes)
+    assert out.shape == qb.shape
 
 
 def test_grad_guard_fires_only_when_a_graph_would_be_recorded():

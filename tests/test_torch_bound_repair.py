@@ -106,6 +106,18 @@ def test_repair_window_adversarial():
     assert _max_err(out, _jax(q, k, v, causal=True, window_size=(127, 0))) < ADV
 
 
+def test_repair_window_sinks_adversarial():
+    # the JAX test's window case with its sinks: the sink tiles are scanned
+    # and repaired with the band; the classic engine on the same input
+    q, k, v = _qkv(4, 1, 2, 2, 384, 384, 128, std=300.0)
+    kw = dict(causal=True, window_size=(127, 0), sink_tokens=4)
+    out = _port(q, k, v, **kw)
+    ref = _port(q, k, v, bound_softmax=False, **kw)
+    assert _max_err(out, ref) < ADV
+    assert _max_err(out, _jax(q, k, v, **kw)) < ADV
+    assert _max_err(out, _port(q, k, v, causal=True, window_size=(127, 0))) > 1e-2
+
+
 def test_repair_ragged_tail():
     q, k, v = _qkv(5, 1, 2, 2, 200, 173, 128, std=1e3)
     out = _port(q, k, v, causal=True)

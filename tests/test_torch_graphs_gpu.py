@@ -181,6 +181,42 @@ def test_moe_replay_matches_eager():
     torch.cuda.empty_cache()
 
 
+def test_sinks_replay_matches_eager():
+    """Two layers of Mistral-7B's widths with 4 attention sinks and a
+    window of 128 (rows past it: the sink pages are read apart from the
+    band, across the paged kernel's split point): replayed decode steps
+    equal the eager steps bit for bit, int8 KV."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.mistral_7b(), n_layers=2,
+                              sliding_window=128, attn_sinks=4)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    cache, slots, tokens = _prefilled(cfg, params, "int8", _split_lens())
+    ref = _clone(cache)
+    g = _graphs(cfg, params)
+    g.burst(cache, slots, tokens, 1)  # eager first step + capture
+    _, logits = llama.decode_step(params, cfg, ref, slots, tokens)
+    tok, ref_tok = g.buckets[2].tokens.clone(), logits.argmax(-1)
+    for step in range(4):
+        _build.reset_launches()
+        _, logits = llama.decode_step(params, cfg, ref, slots, ref_tok)
+        eager = collections.Counter(_build.launches)
+        _build.reset_launches()
+        toks, _ = g.burst(cache, slots, tok, 1)
+        replayed = collections.Counter(_build.launches)
+        torch.cuda.synchronize()
+        ref_tok, tok = logits.argmax(-1), toks[0]
+        assert torch.equal(g.buckets[2].logits, logits), step
+        assert torch.equal(tok, ref_tok) and replayed == eager
+        assert eager["paged"] == cfg.n_layers
+        _assert_same_state(cache, ref)
+    del params, cache, ref, g
+    torch.cuda.empty_cache()
+
+
 def test_burst_counts_and_chains(model):
     """One 5-step burst from the graph: its tokens equal five eager steps
     chained on the host, and the counts are five times one step's."""

@@ -1338,3 +1338,241 @@ def test_quantized_model_on_the_card(dev):
     r = llama.forward(cpu, toks.cpu(), cfg)
     d = (a.cpu() - r).abs()
     assert float(d.max()) < 0.25 and float(d.mean()) < 0.02
+
+
+# ------ attention sinks, ALiBi and kv_position_offset in every kernel ------
+
+
+def _alibi(h, dev):
+    """The ALiBi paper's slopes 2^(-8 (i + 1) / h)."""
+    return 2.0 ** (-8.0 * torch.arange(1, h + 1, device=dev, dtype=torch.float32) / h)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,sinks,offset,alibi,engine,dtype", [
+    # sinks: every engine (None = flagged + repair at d 128 / 256, the bound
+    # prepass at d 64), at the sink tiles' meeting with the band and past it
+    (1, 8, 2, 400, 400, 128, (63, 0), 10, 0, False, None, BF),
+    (1, 8, 2, 400, 400, 128, (63, 0), 10, 0, False, False, BF),
+    (1, 4, 2, 260, 260, 128, (100, 0), 140, 0, False, None, BF),
+    (1, 4, 4, 256, 256, 64, (0, -1), 128, 0, False, None, BF),   # the gap filled
+    (1, 4, 4, 256, 256, 64, (0, -1), 128, 0, False, "unchecked", BF),
+    (2, 8, 4, 700, 700, 256, (255, 0), 4, 0, False, None, BF),
+    (1, 8, 2, 1200, 1200, 128, (300, 0), 200, 0, False, "prepass", BF),
+    (1, 8, 2, 300, 300, 64, (31, 0), 4, 0, False, None, HF),     # fp16: kernel 1
+    (1, 16, 2, 200, 50, 128, (10, 0), 4, 0, False, None, BF),    # dead rows past sk
+    # ALiBi: kernel 1 (the engine falls back to it)
+    (2, 8, 2, 300, 300, 128, (-1, 0), 0, 0, True, None, BF),
+    (2, 8, 2, 300, 300, 128, (-1, -1), 0, 0, True, None, BF),
+    (1, 8, 4, 200, 330, 256, (63, 0), 4, 0, True, None, BF),     # with sinks
+    (1, 4, 2, 129, 129, 64, (-1, 0), 0, 0, True, None, HF),
+    # kv_position_offset (the ring's pairs), every engine
+    (1, 8, 2, 256, 640, 128, (-1, 0), 0, 384, False, None, BF),
+    (1, 8, 2, 256, 640, 128, (127, 0), 0, 384, False, False, BF),
+    (1, 4, 2, 200, 200, 64, (-1, 0), 0, 1024, False, None, BF),  # every column seen
+    (1, 8, 4, 300, 700, 256, (-1, 0), 0, 200, True, None, BF),   # with ALiBi
+])
+def test_prefill_sinks_alibi_offset(dev, b, hq, hkv, sq, sk, d, window, sinks, offset,
+                                    alibi, engine, dtype):
+    from mfa_tpu_torch.kernels import prefill
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    q, k, v = (_rn(gen, b, hq, sq, d, dtype=dtype), _rn(gen, b, hkv, sk, d, dtype=dtype),
+               _rn(gen, b, hkv, sk, d, dtype=dtype))
+    slopes = _alibi(hq, dev) if alibi else None
+    o, lse = prefill.prefill_attention(q, k, v, window_size=window, sink_tokens=sinks,
+                                       kv_position_offset=offset, alibi_slopes=slopes,
+                                       bound_softmax=engine, return_lse=True)
+    ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5, window[0],
+                                    window[1], 0.0, True, sinks, offset, slopes)
+    _close(o, lse, ro, rl)
+    assert (o.float() - ro.float()).abs().mean() < 2e-3
+
+
+def test_flagged_repair_with_sinks_on_poisoned_tiles(dev):
+    """std-1e3 scores poison the zero-shift sums of the sink tiles too: the
+    flags cover them and the repair equals kernel 1 bit for bit."""
+    from mfa_tpu_torch.kernels import prefill
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = _zs_inputs(gen, 1, 4, 2, 512, 512, 128, "overflow")
+    kw = dict(window_size=(127, 0), sink_tokens=4)
+    o, flags = prefill.prefill_attention(q, k, v, bound_softmax="flag_debug", **kw)
+    assert int(flags.sum()) > 0
+    assert torch.equal(o, prefill.prefill_attention(q, k, v, bound_softmax=False, **kw))
+
+
+@pytest.mark.parametrize("lens_q,hq,hkv,d,window,sinks,alibi,dtype", [
+    ([200, 1100, 0, 513], 8, 2, 128, (63, 0), 4, False, BF),
+    ([200, 1100, 0, 513], 8, 2, 128, (-1, 0), 0, True, BF),
+    ([65, 1, 127, 0, 300], 8, 4, 256, (31, 0), 40, True, HF),
+    ([100, 37, 300], 4, 2, 64, (-1, -1), 0, True, BF),
+])
+def test_varlen_sinks_alibi(dev, lens_q, hq, hkv, d, window, sinks, alibi, dtype):
+    from mfa_tpu_torch.kernels import varlen
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    n = sum(lens_q)
+    q, k, v = (_rn(gen, n, h, d, dtype=dtype) for h in (hq, hkv, hkv))
+    cu = torch.tensor([0] + lens_q, device=dev).cumsum(0).int()
+    slopes = _alibi(hq, dev) if alibi else None
+    kw = dict(window_size=window, sink_tokens=sinks, alibi_slopes=slopes)
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, max(lens_q), max(lens_q),
+                                     return_lse=True, **kw)
+    ro, rl = varlen._varlen_plain(q.float(), k.float(), v.float(), cu, cu, d ** -0.5,
+                                  window[0], window[1], 0.0, True, sinks, slopes)
+    _close(o, lse, ro, rl)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,lens,splits,window,sinks,alibi", [
+    (3, 8, 2, 700, 64, [700, 0, 257], (1, 2, 3, 0), 100, 4, False),
+    (4, 32, 8, 8192, 128, [8192, 4099, 4097, 100], (1, 3, 0), 4095, 4, False),
+    (2, 32, 8, 8192, 128, [8192, 300], (1, 2, 0), -1, 0, True),
+    (2, 8, 4, 1000, 256, [1000, 64], (1, 3), 200, 70, True),
+    (2, 8, 8, 300, 128, [300, 65], (1, 5), 10, 64, False),   # sinks meet the band
+])
+def test_decode_sinks_alibi(dev, b, hq, hkv, s, d, lens, splits, window, sinks, alibi):
+    from mfa_tpu_torch.kernels import decode
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    q, k, v = _rn(gen, b, hq, d), _rn(gen, b, hkv, s, d), _rn(gen, b, hkv, s, d)
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    slopes = _alibi(hq, dev) if alibi else None
+    for ns in splits:
+        o, lse = decode.decode_attention(q, k, v, L, num_splits=ns, window_left=window,
+                                         sink_tokens=sinks, alibi_slopes=slopes,
+                                         return_lse=True)
+        n, tps = decode.split_layout(s, ns if ns else decode.default_splits(b, hkv, s))
+        po, pl = decode._decode_partials_plain(q.float(), k.float(), v.float(), L,
+                                               d ** -0.5, n, tps, window, 0.0,
+                                               sinks, slopes)
+        ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        _close(o, lse, ro.reshape(b, hq, d), rl.reshape(b, hq))
+
+
+@pytest.mark.parametrize("span,hq,hkv,page,d,quant,pos_offset,window,sinks,alibi,lens", [
+    (1, 32, 8, 64, 128, "int8", 1, 4095, 4, False, [8192, 4200, 4097, 300]),
+    (1, 32, 8, 64, 128, "int4", 1, 4095, 4, False, [8192, 4200, 4097, 300]),
+    (1, 32, 8, 64, 128, None, 1, 4095, 4, True, [8192, 4200, 4097, 300]),
+    (1, 32, 8, 64, 128, "fp8", 1, 100, 70, True, [2000, 65, 100, 3]),
+    (1, 8, 4, 64, 256, "int8", 1, 1023, 4, True, _GEMMA3_LENS),   # split route
+    (1, 8, 2, 16, 64, None, 0, 20, 24, False, [300, 0, 40]),      # sinks past pages
+    (4, 32, 8, 64, 128, "int8", 4, 4095, 4, True, [8192, 4200, 4097, 300]),  # span
+    (4, 32, 8, 64, 128, "int4", 4, 100, 4, False, [2000, 650, 4097, 30]),
+    (1, 32, 2, 64, 128, "int8", 1, 300, 4, True, [5000, 700]),    # group 16
+    (3, 16, 2, 32, 256, None, 0, 50, 8, True, _GEMMA3_LENS),     # span, split route
+])
+def test_paged_sinks_alibi(dev, span, hq, hkv, page, d, quant, pos_offset, window, sinks,
+                           alibi, lens):
+    from mfa_tpu_torch.kernels import paged
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+    b, pps = len(lens), max(lens) // page + 2
+    P = b * pps + 1
+    q = _rn(gen, b, span, hq, d) if span > 1 else _rn(gen, b, hq, d)
+    kf, vf = _rn(gen, hkv, P, page, d), _rn(gen, hkv, P, page, d)
+    kp, vp, ks, vs = _pages(kf, vf, quant)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    slopes = _alibi(hq, dev) if alibi else None
+    kw = dict(window_left=window, pos_offset=pos_offset, quant_dtype=quant)
+    o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
+                                   sink_tokens=sinks, alibi_slopes=slopes,
+                                   return_lse=True, **kw)
+    ro, rl = paged._paged_plain(q.float(), kp, vp, ks, vs, L, table, d ** -0.5, window,
+                                0.0, pos_offset, quant, sinks, slopes)
+    _close(o, lse, ro, rl)
+    assert (o.float() - ro.float()).abs().mean() < 2e-3
+    so, sl = paged._paged_split_plain(q.float(), kp, vp, ks, vs, L, table, d ** -0.5,
+                                      window, 0.0, pos_offset, quant_dtype=quant,
+                                      sinks=sinks, alibi=slopes)
+    _close(o, lse, so, sl)
+
+
+@pytest.mark.parametrize("hq,hkv,page,d,quant,q_start,sq,lens,window,sinks,alibi", [
+    (32, 8, 64, 128, "int8", [4608, 5120, 0, 4096], 512, [5120, 5632, 512, 4500],
+     4095, 4, False),
+    (32, 8, 64, 128, None, [4608, 5120, 0, 4096], 512, [5120, 5632, 512, 4500],
+     4095, 4, True),
+    (32, 8, 64, 128, "int4", [512, 1024], 256, [768, 1280], 100, 70, False),
+    (28, 4, 16, 128, "fp8", [512, 1024], 256, [768, 1200], 300, 4, True),  # group 7
+    (8, 4, 64, 256, "int8", [1536, 64], 512, [2048, 576], 1023, 4, True),
+    (8, 2, 32, 64, None, [96, 0], 64, [160, 64], 20, 40, False),
+])
+def test_paged_prefill_sinks_alibi(dev, hq, hkv, page, d, quant, q_start, sq, lens,
+                                   window, sinks, alibi):
+    from mfa_tpu_torch.kernels import paged_prefill
+
+    gen = torch.Generator(device=dev).manual_seed(35)
+    b, pps = len(lens), max(lens) // page + 1
+    P = b * pps + 3
+    q = _rn(gen, b, sq, hq, d)
+    kf, vf = _rn(gen, hkv, P, page, d), _rn(gen, hkv, P, page, d)
+    kp, vp, ks, vs = _pages(kf, vf, quant)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    ql = (L - qs).clamp(min=0)
+    slopes = _alibi(hq, dev) if alibi else None
+    o, lse = paged_prefill.paged_prefill_attention(
+        q, kp, vp, L, qs, table, q_lens=ql, k_scales=ks, v_scales=vs, causal=True,
+        window_left=window, sink_tokens=sinks, alibi_slopes=slopes, quant_dtype=quant,
+        return_lse=True)
+    ro, rl = paged_prefill._paged_prefill_plain(
+        q.float(), kp, vp, ks, vs, L, qs, ql, table, d ** -0.5, window, 0, 0.0,
+        quant, sinks, slopes)
+    _close(o, lse, ro, rl)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,sinks,offset,alibi,dtype", [
+    (1, 8, 2, 1100, 1100, 128, (255, 0), 4, 0, False, BF),    # kernel 11 with sinks
+    (1, 8, 2, 600, 600, 128, (100, 0), 140, 0, False, BF),
+    (1, 8, 4, 700, 700, 256, (127, 0), 4, 0, False, BF),
+    (1, 8, 2, 300, 300, 64, (31, 0), 70, 0, False, HF),
+    (1, 8, 2, 512, 512, 128, (-1, 0), 0, 0, True, BF),       # ALiBi, every launch
+    (1, 8, 4, 300, 300, 256, (63, 0), 0, 0, True, BF),
+    (1, 8, 2, 256, 640, 128, (-1, 0), 0, 384, False, BF),    # the offset, 11-13
+    (1, 8, 2, 256, 640, 128, (127, 0), 0, 384, True, BF),
+    (1, 8, 4, 200, 500, 256, (-1, 0), 0, 300, False, HF),
+])
+def test_backward_sinks_alibi_offset(dev, b, hq, hkv, sq, sk, d, window, sinks, offset,
+                                     alibi, dtype):
+    from mfa_tpu_torch.kernels import backward, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(36)
+    q, k, v, do = (_rn(gen, b, h, s, d, dtype=dtype)
+                   for h, s in ((hq, sq), (hkv, sk), (hkv, sk), (hq, sq)))
+    slopes = _alibi(hq, dev) if alibi else None
+    kw = dict(window_size=window, sink_tokens=sinks, kv_position_offset=offset,
+              alibi_slopes=slopes)
+    o, lse = prefill.prefill_attention(q, k, v, return_lse=True, **kw)
+    ref = backward._bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                              do.float(), d ** -0.5, window[0], window[1], 0.0, sinks,
+                              offset, slopes)
+    fused = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=True, **kw)
+    _bwd_close(fused, ref, "fused")
+    if sinks:
+        with pytest.raises(NotImplementedError):
+            backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+    else:
+        _bwd_close(backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw),
+                   ref, "split")
+
+
+def test_varlen_backward_alibi(dev):
+    from mfa_tpu_torch.kernels import backward, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    lens = [200, 1100, 0, 513]
+    n = sum(lens)
+    q, k, v, do = (_rn(gen, n, h, 128) for h in (8, 2, 2, 8))
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).int()
+    slopes = _alibi(8, dev)
+    kw = dict(causal=True, alibi_slopes=slopes)
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, max(lens), max(lens),
+                                     return_lse=True, **kw)
+    got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu, cu, **kw)
+    ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), cu, cu, 128 ** -0.5, -1, 0, 0.0, slopes)
+    _bwd_close(got, ref, "varlen alibi")

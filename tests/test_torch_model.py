@@ -80,11 +80,15 @@ def test_llama3_8b_is_the_published_shape():
 
 
 def test_unported_family_knobs_raise():
-    # attention sinks stay refused; the softcaps (tests/test_torch_families.py)
-    # and MoE (tests/test_torch_moe.py) are ported
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(TCFG, attn_sinks=4)
+    # attention sinks (tests/test_torch_sinks.py), the softcaps
+    # (tests/test_torch_families.py) and MoE (tests/test_torch_moe.py) are
+    # ported; the image-block kernel takes no sinks
+    assert dataclasses.replace(TCFG, attn_sinks=4).attn_sinks == 4
     assert dataclasses.replace(TCFG, n_experts=8).n_experts == 8
+    x = torch.zeros(1, 4, TCFG.n_heads, TCFG.head_dim)
+    with pytest.raises(NotImplementedError):
+        tl._attention_blockmask(x, x, x, dataclasses.replace(TCFG, attn_sinks=4),
+                                3, torch.zeros(1, 4, dtype=torch.int32))
     # the Gemma3 knobs are ported; a layer pattern must tile the depth
     dataclasses.replace(TCFG, qk_norm=True, layer_pattern=(True, False))
     with pytest.raises(ValueError):

@@ -117,8 +117,11 @@ def test_paged_rejects_what_is_not_ported():
     span_q = torch.stack([args[0]] * 4, 1)  # q_span 4
     with pytest.raises(ValueError):  # a window shorter than the span
         paged_attention(span_q, *args[1:], pos_offset=4, window_left=3)
-    with pytest.raises(NotImplementedError):
-        paged_attention(*args, sink_tokens=4)
+    for fn, t in ((paged_attention, torch.from_numpy),
+                  (jax_paged, jnp.asarray)):  # raises in both packages
+        with pytest.raises(ValueError):
+            fn(*(t(a) for a in (q, kp, vp, lens, table)), logit_softcap=5.0,
+               alibi_slopes=t(np.ones(q.shape[1], np.float32)))
     with pytest.raises(ValueError):
         paged_attention(*args, pos_offset=1, window_left=0)
 

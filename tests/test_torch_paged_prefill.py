@@ -137,8 +137,12 @@ def test_paged_prefill_rejects_what_is_not_ported():
         torch.tensor([32, 32]), torch.tensor([0, 0]), torch.from_numpy(table)]
     with pytest.raises(ValueError):
         paged_prefill_attention(*args, quant_dtype="int2")
-    with pytest.raises(NotImplementedError):
-        paged_prefill_attention(*args, window_left=8, sink_tokens=4)
+    jargs = [jnp.asarray(np.asarray(a)) for a in args]
+    for fn, xs, ones in ((paged_prefill_attention, args, torch.ones(HQ)),
+                         (jax_paged_prefill, jargs, jnp.ones(HQ))):
+        with pytest.raises(ValueError):  # raises in both packages
+            fn(*xs, window_left=8, sink_tokens=4, logit_softcap=5.0,
+               alibi_slopes=ones)
     with pytest.raises(ValueError):
         paged_prefill_attention(*args, k_scales=torch.ones(kp.shape[:3]),
                                 v_scales=torch.ones(kp.shape[:3]))

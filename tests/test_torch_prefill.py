@@ -54,6 +54,35 @@ def test_prefill_matches_jax(b, hq, hkv, sq, sk, d, causal, window, softcap):
     np.testing.assert_allclose(tl.numpy()[fin], jl[fin], **TOL)
 
 
+@pytest.mark.parametrize("engine", [None, False])
+@pytest.mark.parametrize(
+    "sq,sk,offset,window,alibi",
+    [
+        (64, 160, 96, (-1, 0), False),   # a ring pair: q chunk leads kv by 96
+        (80, 200, 40, (16, 0), False),   # sliding window across the offset
+        (48, 48, 64, (-1, 0), False),    # every column visible
+        (40, 120, 30, (-1, 0), True),    # ALiBi at the shifted positions
+    ],
+)
+def test_prefill_kv_position_offset_matches_jax(engine, sq, sk, offset, window,
+                                                alibi):
+    q, k, v = _inputs(3, 1, 4, 2, sq, sk, 64)
+    kw = dict(window_size=window, kv_position_offset=offset, return_lse=True,
+              bound_softmax=engine)
+    slopes = np.array([0.5, 0.25, 0.125, 0.0625], np.float32) if alibi else None
+    jo, jl = jax_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         alibi_slopes=None if slopes is None else jnp.asarray(slopes),
+                         **kw)
+    to, tl = prefill_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        alibi_slopes=None if slopes is None else torch.from_numpy(slopes), **kw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    jl = np.asarray(jl)
+    np.testing.assert_array_equal(np.isneginf(tl.numpy()), np.isneginf(jl))
+    fin = np.isfinite(jl)
+    np.testing.assert_allclose(tl.numpy()[fin], jl[fin], **TOL)
+
+
 def test_dead_rows_store_zero_and_neg_inf_lse():
     # left window entirely past a shorter kv sequence: rows 40.. see nothing
     q, k, v = _inputs(1, 1, 2, 2, 64, 20, 32)
@@ -81,8 +110,19 @@ def test_flash_attn_func_validates_inputs():
                torch.zeros(1, 4, 2, 16))
     with pytest.raises(ValueError):
         mfa_tpu_torch.flash_attn_func(q, k, v)  # 3 q heads over 2 kv heads
-    with pytest.raises(NotImplementedError):
-        mfa_tpu_torch.flash_attn_func(k, k, v, alibi_slopes=torch.ones(2))
+    # what still raises in both packages: ALiBi with a softcap, and sinks
+    # with kv_position_offset
+    for fn, t in ((mfa_tpu_torch.flash_attn_func, torch.from_numpy),
+                  (jax_flash_attn_func, jnp.asarray)):
+        kk = t(np.zeros((1, 4, 2, 16), np.float32))
+        with pytest.raises(ValueError):
+            fn(kk, kk, kk, softcap=5.0, alibi_slopes=t(np.ones(2, np.float32)))
+    kb = np.zeros((1, 2, 4, 16), np.float32)
+    for fn, t in ((prefill_attention, torch.from_numpy),
+                  (jax_prefill, jnp.asarray)):
+        with pytest.raises(NotImplementedError):
+            fn(t(kb), t(kb), t(kb), window_size=(2, 0), sink_tokens=1,
+               kv_position_offset=2)
 
 
 @pytest.mark.parametrize("causal,window", [(False, (-1, -1)), (True, (-1, -1)),

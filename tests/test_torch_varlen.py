@@ -147,18 +147,19 @@ def test_public_functions_take_the_jax_keywords(fn):
 
 
 def test_unported_options_raise():
+    # sinks and ALiBi are ported; what still raises in both packages is
+    # ALiBi with a softcap
     q, k, v, cu_q, cu_k = _pack(8, [4], [4], 2, 2)
-    args = [torch.from_numpy(a) for a in (q, k, v, cu_q, cu_k)] + [4, 4]
-    with pytest.raises(NotImplementedError):
-        mfa_tpu_torch.flash_attn_varlen_func(*args, sink_tokens=2,
-                                             window_size=(2, -1))
-    with pytest.raises(NotImplementedError):
-        mfa_tpu_torch.flash_attn_varlen_func(*args,
-                                             alibi_slopes=torch.ones(2))
-    qd = torch.zeros((1, 1, 2, 64))
-    kc = torch.zeros((1, 8, 2, 64))
-    with pytest.raises(NotImplementedError):
-        mfa_tpu_torch.flash_attn_with_kvcache(qd, kc, kc, sink_tokens=4)
-    with pytest.raises(NotImplementedError):
-        mfa_tpu_torch.flash_attn_with_kvcache(qd, kc, kc,
-                                              alibi_slopes=torch.ones(2))
+    qd, kc = np.zeros((1, 1, 2, 64), np.float32), np.zeros((1, 8, 2, 64), np.float32)
+    for api, t in ((mfa_tpu_torch, torch.from_numpy), (jax_interface, jnp.asarray)):
+        args = [t(a) for a in (q, k, v, cu_q, cu_k)] + [4, 4]
+        ones = t(np.ones(2, np.float32))
+        with pytest.raises(ValueError):
+            api.flash_attn_varlen_func(*args, softcap=5.0, alibi_slopes=ones)
+        with pytest.raises(ValueError):
+            api.flash_attn_with_kvcache(t(qd), t(kc), t(kc), softcap=5.0,
+                                        alibi_slopes=ones)
+    out = mfa_tpu_torch.flash_attn_varlen_func(
+        *[torch.from_numpy(a) for a in (q, k, v, cu_q, cu_k)], 4, 4,
+        sink_tokens=2, window_size=(2, -1), alibi_slopes=torch.ones(2))
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
