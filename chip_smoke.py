@@ -249,14 +249,19 @@ def _lse_err(lse, ref, what=""):
     return ok
 
 
-def _wave_launches(got, n, softcap=False):
+def _wave_launches(got, n, softcap=False, head_dim=128):
     """A bf16 prompt wave runs the default engine: n zero-shift launches,
     each followed by its repair launch, and kernel 1 not at all; with an
     attention softcap (Gemma2) the classic engine: n kernel 1 launches and
-    no zero-shift one."""
+    no zero-shift one; at a head_dim that is not a multiple of 128
+    (H2O-Danube's 80) the bound prepass: n kernel 4 launches, as mfa_tpu
+    selects it."""
     if softcap:
         return got.get("prefill", 0) == n and not got.get("flagged", 0) \
             and not got.get("repair", 0)
+    if head_dim % 128:
+        return got.get("bound", 0) == n and not got.get("flagged", 0) \
+            and not got.get("prefill", 0)
     return got.get("flagged", 0) == n and got.get("repair", 0) == n \
         and not got.get("prefill", 0)
 
@@ -310,6 +315,7 @@ def kernel_phase(records):
                 records["prefill"]["max_abs_err"], mx)
 
     # -- kernel 5: split-KV decode + combine (b=16, S=8192)
+    from mfa_tpu_torch.dispatch.config import head_dim_plan
     from mfa_tpu_torch.kernels import _build
 
     b, hq, hkv, S = 16, 32, 8, 8192
@@ -347,8 +353,8 @@ def kernel_phase(records):
         ms1 = _time_ms(lambda: fn1(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                                    lens.data_ptr(), o_part.data_ptr(),
                                    lse_part.data_ptr(), 1, b, hq, hkv, S, d,
-                                   nsp, tps, -1, scale_log2e, 0.0, 0.0, 0, None,
-                                   stream))
+                                   head_dim_plan(d).kernel_dim, nsp, tps, -1,
+                                   scale_log2e, 0.0, 0.0, 0, None, stream))
         ms2 = _time_ms(lambda: fn2(o_part.data_ptr(), lse_part.data_ptr(),
                                    out.data_ptr(), lse_o.data_ptr(), 1, b, hq,
                                    hkv, nsp, d, 1, stream))
@@ -2528,7 +2534,8 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
     ok &= stats.prefill_tokens <= prompt_tokens - 8 * 1024
     ok &= eng.sched.allocator.free_pages + retained == free0
     ok &= got.get(k8, 0) == cfg.n_layers * stats.chunk_batches
-    ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches, bool(cfg.attn_softcap))
+    ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches, bool(cfg.attn_softcap),
+                         cfg.head_dim)
     ok &= got.get(k6, 0) == cfg.n_layers * stats.steps
     passes = stats.chunk_batches + stats.prefill_batches + stats.steps
     if cfg.n_experts:  # every MoE layer: three expert launches a pass
@@ -2536,7 +2543,8 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
         ok &= got.get("wmatmul_bank", 0) == 3 * n_moe * passes
     step_tokens = stats.decode_tokens - len(reqs)  # first tokens come from prefill
     tag = f"chunked engine {model} ({quant} KV)"
-    wave = "prefill" if cfg.attn_softcap else "flagged = repair"
+    wave = ("prefill" if cfg.attn_softcap else "bound" if cfg.head_dim % 128
+            else "flagged = repair")
     print(f"{tag} launches {got}: {k8} = {cfg.n_layers} "
           f"layers x {stats.chunk_batches} chunk batches, {wave} = "
           f"{cfg.n_layers} x {stats.prefill_batches} waves, {k6} = "
@@ -2781,10 +2789,11 @@ def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
         got = dict(_build.launches)
         counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
         good = got.get("bwd_fused", 0) == cfg.n_layers \
-            and _wave_launches(got, 2 * cfg.n_layers)
+            and _wave_launches(got, 2 * cfg.n_layers, head_dim=cfg.head_dim)
+        fwd = "bound" if cfg.head_dim % 128 else "flagged = repair"
         print(f"train step {step + 1}: loss {losses[-1]:.6f}, {times[-1] * 1e3:.1f} "
-              f"ms, launches {got} (bwd_fused = {cfg.n_layers} layers, flagged = "
-              f"repair = 2 x {cfg.n_layers}: forward + remat recompute) "
+              f"ms, launches {got} (bwd_fused = {cfg.n_layers} layers, {fwd} = "
+              f"2 x {cfg.n_layers}: forward + remat recompute) "
               f"{'ok' if good else 'FAIL'}", flush=True)
         ok &= good
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3019,6 +3028,34 @@ def _kv_stage_logits(llama, cfg, params, dev, quant, out, prompts, pages, long, 
     return tuple(x.float().cpu() for x in (lg1, lg2, lg3, lg4))
 
 
+def _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages, long, hit):
+    """_kv_stage_logits on the card, then on the CPU -> {"cuda": ..., "cpu":
+    ...}. int4's step is 1/7 of a row's absmax: a K or V value on a
+    rounding edge, a bf16 ulp apart on the two devices, lands a whole step
+    apart, and independent runs differ by more than the limits (PERF.md
+    §6). So on int4 KV the CPU takes the payloads and scales the card's
+    quantize gave, call for call: both read the same pages and the check
+    holds the kernels to their plain versions."""
+    store_rows = llama._store_rows
+    out, written = {}, []
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        if quant == "int4":
+            def store(qd, dtype, x, dev=dev):
+                if dev == "cuda":
+                    written.append(store_rows(qd, dtype, x))
+                    return written[-1]
+                pay, sc = written.pop(0)
+                return pay.cpu(), sc.cpu()
+
+            llama._store_rows = store
+        try:
+            out[dev] = _kv_stage_logits(llama, cfg, params, dev, quant, out, prompts,
+                                        pages, long, hit)
+        finally:
+            llama._store_rows = store_rows
+    return out
+
+
 def cpu_vs_cuda_phase():
     """Phase 4: 2 layers at the 8B widths, kernels on the card vs plain
     versions on the CPU, same weights and prompts: whole-prompt prefill, a
@@ -3041,31 +3078,9 @@ def cpu_vs_cuda_phase():
     long = list(rng.randint(0, cfg.vocab_size, 256))
     hit = long[:128] + list(rng.randint(0, cfg.vocab_size, 60))
     ok = True
-    store_rows = llama._store_rows
     for quant in ("int8",) + KV_FORMATS:
-        out, written = {}, []
-        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-            if quant == "int4":
-                # int4's step is 1/7 of a row's absmax: a K or V value on a
-                # rounding edge, a bf16 ulp apart on the two devices, lands
-                # a whole step apart, and independent runs differ by more
-                # than the limits (PERF.md §6). The CPU takes the
-                # payloads and scales the card's quantize gave, call for
-                # call, so both read the same pages and the check holds
-                # the kernels to their plain versions.
-                def store(qd, dtype, x, dev=dev):
-                    if dev == "cuda":
-                        written.append(store_rows(qd, dtype, x))
-                        return written[-1]
-                    pay, sc = written.pop(0)
-                    return pay.cpu(), sc.cpu()
-
-                llama._store_rows = store
-            try:
-                out[dev] = _kv_stage_logits(llama, cfg, params, dev, quant, out,
-                                            prompts, pages, long, hit)
-            finally:
-                llama._store_rows = store_rows
+        out = _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages,
+                                  long, hit)
         tag = f"{quant} KV" + (", the card's payloads" if quant == "int4" else "")
         for i, name in enumerate(("prefill_batch", "decode_step",
                                   "prefill_chunk_batch 2 x 128",
@@ -4038,6 +4053,471 @@ def cpu_vs_cuda_sinks_phase():
     return ok
 
 
+HEAD_DIMS = (32, 80, 96, 100, 160, 192, 224)
+
+
+def _stored_kv_pages(kf, vf, quant):
+    """Float pages [hkv, P, page, d] -> (k, v, k_scales, v_scales) as the
+    engine's cache stores them: rows at the head-dim plan's stored width
+    (cache/paged_cache.py:stored_rows: int4 rows of d 80 widened to 48
+    bytes), fp8 as float8_e4m3fn."""
+    from mfa_tpu_torch.cache.paged_cache import stored_rows
+    from mfa_tpu_torch.kernels.quant import FP8, quantize_rows
+
+    if quant is None:
+        return stored_rows(None, kf), stored_rows(None, vf), None, None
+    (kq, ks), (vq, vs) = quantize_rows(kf, quant), quantize_rows(vf, quant)
+    kp, vp = stored_rows(quant, kq), stored_rows(quant, vq)
+    if quant == "fp8":
+        kp, vp = kp.view(FP8), vp.view(FP8)
+    return kp, vp, ks, vs
+
+
+def head_dim_kernels():
+    """Phase 2 for every head_dim up to 256: kernels 1, 4-9 and 11-14 at d
+    32, 80, 96, 100, 160, 192 and 224 (run at the next instantiated D of 64,
+    128, 256 on rows of the stored width; d 100's 200-byte rows through a
+    zero-padded copy) against their plain versions within kernel_phase's
+    limits, kernels 6 and 8 on every page format at d 80 and 96 (int4 at d
+    80: rows widened to 48 bytes). Each row prints ms, bound (the true d's
+    bytes and operations), share and plain ms, beside the same shape at the
+    instantiated D (what a native d instantiation could at best approach)
+    and SDPA's time where one SDPA call computes the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.dispatch.config import head_dim_plan
+    from mfa_tpu_torch.kernels import (_build, backward, blockmask, decode, paged,
+                                       paged_prefill, prefill, varlen)
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    ok = True
+    b, hq, hkv, s = 2, 32, 8, 1024
+    lens = [512, 512, 512, 512]
+    n = sum(lens)
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).int()
+    ids = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    ids[:, 100:356] = 0  # one 256-token image run a row
+    S, page = 4096, 64
+    pps = S // page + 1
+    P = 16 * pps + 1
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: 16 * pps] + 1
+             ).reshape(16, pps).int()
+    L = torch.full((16,), S, dtype=torch.int32, device=dev)
+    qs8 = [1536, 1536, 1536, 1536]
+    pps8 = (max(qs8) + 512) // page + 1
+    P8 = 4 * pps8 + 1
+    table8 = (torch.randperm(P8 - 1, generator=gen, device=dev)[: 4 * pps8] + 1
+              ).reshape(4, pps8).int()
+    L8 = torch.tensor([q + 512 for q in qs8], dtype=torch.int32, device=dev)
+    Q8 = torch.tensor(qs8, dtype=torch.int32, device=dev)
+    fwd_pairs = b * _visible_pairs(s, s, 0, -1, 0)
+    vl_pairs = sum(_visible_pairs(x, x, 0, -1, 0) for x in lens)
+    pp_pairs = sum(_visible_pairs(512, q + 512, q, -1, 0) for q in qs8)
+    for d in HEAD_DIMS:
+        plan = head_dim_plan(d)
+        D = plan.kernel_dim
+        print(f"head_dim {d}: kernel D {D}, stored {plan.stored} "
+              f"({'zero-padded copy' if plan.padded else 'rows as they are'}; "
+              f"int4 pages {head_dim_plan(d, 'int4').stored // 2} B a row)", flush=True)
+
+        def timed(tag, fn, fn_D, plain, lib, nbytes, flops):
+            ms, ms_D = _time_ms(fn), _time_ms(fn_D)
+            plain_ms = _time_ms(plain, iters=1)
+            lib_ms = _time_ms(lib) if lib else None
+            _report(f"{tag} d{d}", ms, plain_ms, lib_ms, nbytes, flops)
+            print(f"    same shape at D {D}: {ms_D:.4f} ms (d {d} / D {D}: "
+                  f"{ms / ms_D:.3f})", flush=True)
+
+        # kernels 1 and 4: causal b2 hq32 hkv8 s1024
+        q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+        qD, kD, vD = rn(b, hq, s, D), rn(b, hkv, s, D), rn(b, hkv, s, D)
+        ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5, -1, 0,
+                                        0.0, True)
+        fb = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+        for mode, name in ((False, "prefill"), (None, "bound")):
+            _build.reset_launches()
+            o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                               bound_softmax=mode)
+            good = dict(_build.launches) == {name: 1}
+            _, g2 = _err(o, ro, what=f"kernel {1 if mode is False else 4} ({name}) d{d} O")
+            ok &= good and g2 and _lse_err(lse, rl, name)
+            timed(f"kernel {1 if mode is False else 4} ({name}), causal b{b} hq{hq} "
+                  f"hkv{hkv} s{s}",
+                  lambda: prefill.prefill_attention(q, k, v, causal=True,
+                                                    bound_softmax=mode),
+                  lambda: prefill.prefill_attention(  # kernel 4 at D too
+                      qD, kD, vD, causal=True,
+                      bound_softmax="prepass" if mode is None else mode),
+                  lambda: prefill._prefill_plain(q.float(), k.float(), v.float(),
+                                                 d ** -0.5, -1, 0, 0.0, False),
+                  lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                         enable_gqa=True),
+                  fb, 4 * hq * d * fwd_pairs)
+        # kernel 9: the same shape with one image run a row, window 255
+        _build.reset_launches()
+        o = blockmask.image_block_prefill(q, k, v, ids, window_left=255)
+        ref = blockmask._image_block_plain(q.float(), k.float(), v.float(), ids,
+                                           d ** -0.5, 255)
+        _, good = _err(o, ref, what=f"kernel 9 d{d} O")
+        ok &= good and dict(_build.launches) == {"blockmask": 1}
+        mask = blockmask.block_mask(ids, 255)[:, None]
+        timed(f"kernel 9 (blockmask), b{b} s{s} one 256-token run, window 255",
+              lambda: blockmask.image_block_prefill(q, k, v, ids, window_left=255),
+              lambda: blockmask.image_block_prefill(qD, kD, vD, ids, window_left=255),
+              lambda: blockmask._image_block_plain(q.float(), k.float(), v.float(), ids,
+                                                   d ** -0.5, 255),
+              lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     enable_gqa=True),
+              fb, 4 * hq * d * int(mask.sum()))
+        del q, k, v, qD, kD, vD, ro, rl, o, ref, mask
+        # kernel 7: 4 x 512 packed, causal
+        q, k, v = rn(n, hq, d), rn(n, hkv, d), rn(n, hkv, d)
+        qD, kD, vD = rn(n, hq, D), rn(n, hkv, D), rn(n, hkv, D)
+        _build.reset_launches()
+        o, lse = varlen.varlen_attention(q, k, v, cu, cu, 512, 512, causal=True,
+                                         return_lse=True)
+        ro, rl = varlen._varlen_plain(q.float(), k.float(), v.float(), cu, cu, d ** -0.5,
+                                      -1, 0, 0.0, True)
+        _, good = _err(o, ro, what=f"kernel 7 d{d} O")
+        ok &= good and _lse_err(lse, rl, "varlen") and dict(_build.launches) == {"varlen": 1}
+        qb, kb, vb = (x.reshape(4, 512, -1, d).transpose(1, 2) for x in (q, k, v))
+        timed("kernel 7 (varlen), 4 x 512 packed, causal",
+              lambda: varlen.varlen_attention(q, k, v, cu, cu, 512, 512, causal=True),
+              lambda: varlen.varlen_attention(qD, kD, vD, cu, cu, 512, 512, causal=True),
+              lambda: varlen._varlen_plain(q.float(), k.float(), v.float(), cu, cu,
+                                           d ** -0.5, -1, 0, 0.0, False),
+              lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
+                                                     enable_gqa=True),
+              2 * (2 * n * hq * d + 2 * n * hkv * d), 4 * hq * d * vl_pairs)
+        # kernel 14: the same pack's backward, both launches
+        do = rn(n, hq, d)
+        got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu, cu, causal=True)
+        ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                         do.float(), cu, cu, d ** -0.5, -1, 0, 0.0)
+        _, good = _bwd_close(got, ref, f"kernel 14 d{d} (varlen_bwd_dkv + _dq)")
+        ok &= good
+        oD, lD = varlen.varlen_attention(qD, kD, vD, cu, cu, 512, 512, causal=True,
+                                         return_lse=True)
+        doD = rn(n, hq, D)
+        timed("kernel 14 (varlen_bwd_dkv + varlen_bwd_dq), 4 x 512 packed, causal",
+              lambda: backward.varlen_attention_bwd(q, k, v, o, lse, do, cu, cu,
+                                                    causal=True, max_seqlen_q=512,
+                                                    max_seqlen_k=512),
+              lambda: backward.varlen_attention_bwd(qD, kD, vD, oD, lD, doD, cu, cu,
+                                                    causal=True, max_seqlen_q=512,
+                                                    max_seqlen_k=512),
+              lambda: backward._varlen_bwd_plain(q.float(), k.float(), v.float(),
+                                                 o.float(), lse, do.float(), cu, cu,
+                                                 d ** -0.5, -1, 0, 0.0),
+              None, 2 * (4 * n * hq * d + 4 * n * hkv * d), 14 * hq * d * vl_pairs)
+        del q, k, v, qD, kD, vD, o, lse, ro, rl, do, got, ref, oD, lD, doD
+        # kernels 11-13: causal b1 hq32 hkv8 s2048
+        q, k, v, do = rn(1, hq, 2048, d), rn(1, hkv, 2048, d), rn(1, hkv, 2048, d), \
+            rn(1, hq, 2048, d)
+        qD, kD, vD, doD = rn(1, hq, 2048, D), rn(1, hkv, 2048, D), rn(1, hkv, 2048, D), \
+            rn(1, hq, 2048, D)
+        o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True)
+        oD, lD = prefill.prefill_attention(qD, kD, vD, causal=True, return_lse=True)
+        ref = backward._bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                  do.float(), d ** -0.5, -1, 0, 0.0)
+        pairs = _visible_pairs(2048, 2048, 0, -1, 0)
+        io = 2 * (4 * hq * 2048 * d + 4 * hkv * 2048 * d)
+        for fused, names in ((True, ("bwd_fused",)), (False, ("bwd_dkv", "bwd_dq"))):
+            _build.reset_launches()
+            got = backward.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                               fused=fused)
+            _, good = _bwd_close(got, ref, f"kernels 11-13 d{d} {sorted(_build.launches)}")
+            ok &= good and sorted(_build.launches) == sorted(names)
+        args = backward._dense_cuda_inputs(q, k, v, o, lse, do) + (d ** -0.5, -1, 0, 0.0)
+        argsD = backward._dense_cuda_inputs(qD, kD, vD, oD, lD, doD) + (D ** -0.5, -1, 0,
+                                                                       0.0)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+
+        def plain():
+            return backward._bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                       do.float(), d ** -0.5, -1, 0, 0.0)
+
+        for tag, launch, flops, lib in (
+                ("kernel 11 (bwd_fused)", backward._launch_fused, 10, True),
+                ("kernel 12 (bwd_dkv)", backward._launch_dkv, 8, False),
+                ("kernel 13 (bwd_dq)", backward._launch_dq, 6, False)):
+            timed(f"{tag}, causal b1 hq{hq} hkv{hkv} s2048", lambda: launch(*args),
+                  lambda: launch(*argsD), plain,
+                  (lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                               retain_graph=True)) if lib else None,
+                  io + (2 * hq * 2048 * 4 if lib else 0), flops * hq * d * pairs)
+        del q, k, v, do, qD, kD, vD, doD, o, lse, oD, lD, ref, got, args, argsD, qg, kg
+        del vg, out
+        # kernel 5: b16 hq32 hkv8 S4096
+        q, kc, vc = rn(16, hq, d), rn(16, hkv, S, d), rn(16, hkv, S, d)
+        qD, kcD, vcD = rn(16, hq, D), rn(16, hkv, S, D), rn(16, hkv, S, D)
+        ns, tps = decode.split_layout(S, decode.default_splits(16, hkv, S, hq // hkv))
+        _build.reset_launches()
+        o, lse = decode.decode_attention(q, kc, vc, L, return_lse=True)
+        po, pl = decode._decode_partials_plain(q.float(), kc.float(), vc.float(), L,
+                                               d ** -0.5, ns, tps, -1, 0.0)
+        ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        _, good = _err(o, ro.reshape(16, hq, d), what=f"kernel 5 d{d} O")
+        ok &= good and _lse_err(lse, rl.reshape(16, hq), "decode")
+        ok &= dict(_build.launches) == {"decode": 1, "combine": 1}
+        timed(f"kernel 5 (decode + combine), b16 hq{hq} hkv{hkv} S{S}",
+              lambda: decode.decode_attention(q, kc, vc, L),
+              lambda: decode.decode_attention(qD, kcD, vcD, L),
+              lambda: decode._decode_partials_plain(q, kc, vc, L, d ** -0.5, ns, tps, -1,
+                                                    0.0),
+              lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                                     enable_gqa=True),
+              2 * 16 * hkv * S * d * 2 + 2 * 16 * hq * d * 2, 4 * 16 * hq * S * d)
+        del q, kc, vc, qD, kcD, vcD, po, pl, ro, rl, o
+        # kernels 6 and 8: bf16 pages at every d; every format at d 80 and 96
+        kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+        kfD, vfD = rn(hkv, P, page, D), rn(hkv, P, page, D)
+        kf8, vf8 = rn(hkv, P8, page, d), rn(hkv, P8, page, d)
+        kf8D, vf8D = rn(hkv, P8, page, D), rn(hkv, P8, page, D)
+        q6, q6D = rn(16, hq, d), rn(16, hq, D)
+        q8, q8D = rn(4, 512, hq, d), rn(4, 512, hq, D)
+        for quant in ((None, "int8", "fp8", "int4") if d in (80, 96) else (None,)):
+            kp, vp, ks, vs = _stored_kv_pages(kf, vf, quant)
+            kpD, vpD, ksD, vsD = _stored_kv_pages(kfD, vfD, quant)
+            # the bound's bytes a K or V row: the true d's (int4: two
+            # features a byte) and its scale, not the stored width's
+            rb = 2 * d if quant is None else (d // 2 if quant == "int4" else d) + 4
+            stored_b = kp.shape[-1] * kp.element_size()
+            kw = dict(k_scales=ks, v_scales=vs, quant_dtype=quant, pos_offset=1)
+            kwD = dict(k_scales=ksD, v_scales=vsD, quant_dtype=quant, pos_offset=1)
+            name6 = paged.launch_name("paged", quant)
+            _build.reset_launches()
+            o, lse = paged.paged_attention(q6, kp, vp, L, table, return_lse=True, **kw)
+            ro, rl = paged._paged_plain(q6.float(), kp, vp, ks, vs, L, table, d ** -0.5,
+                                        -1, 0.0, 1, quant)
+            _, good = _err(o, ro, what=f"kernel 6 d{d} {quant or 'bf16'} pages O")
+            ok &= good and _lse_err(lse, rl, name6) and _build.launches[name6] == 1
+            timed(f"kernel 6 ({name6}), {quant or 'bf16'} pages ({stored_b} B rows "
+                  f"stored), b16 hq{hq} hkv{hkv} lens {S}",
+                  lambda: paged.paged_attention(q6, kp, vp, L, table, **kw),
+                  lambda: paged.paged_attention(q6D, kpD, vpD, L, table, **kwD),
+                  lambda: paged._paged_plain(q6, kp, vp, ks, vs, L, table, d ** -0.5, -1,
+                                             0.0, 1, quant),
+                  None, 2 * 16 * hkv * S * rb + 2 * q6.numel() * 2, 4 * 16 * hq * S * d)
+            del kp, vp, kpD, vpD, o, ro
+            kp, vp, ks, vs = _stored_kv_pages(kf8, vf8, quant)
+            kpD, vpD, ksD, vsD = _stored_kv_pages(kf8D, vf8D, quant)
+            kw = dict(k_scales=ks, v_scales=vs, quant_dtype=quant, causal=True)
+            kwD = dict(k_scales=ksD, v_scales=vsD, quant_dtype=quant, causal=True)
+            name8 = paged.launch_name("paged_prefill", quant)
+            _build.reset_launches()
+            o, lse = paged_prefill.paged_prefill_attention(q8, kp, vp, L8, Q8, table8,
+                                                           return_lse=True, **kw)
+            ro, rl = paged_prefill._paged_prefill_plain(
+                q8.float(), kp, vp, ks, vs, L8, Q8, L8 - Q8, table8, d ** -0.5, -1, 0,
+                0.0, quant)
+            _, good = _err(o, ro, what=f"kernel 8 d{d} {quant or 'bf16'} pages O")
+            ok &= good and _lse_err(lse, rl, name8) and _build.launches[name8] == 1
+            timed(f"kernel 8 ({name8}), {quant or 'bf16'} pages, chunk batch 4 x 512 at "
+                  f"q_start 1536",
+                  lambda: paged_prefill.paged_prefill_attention(q8, kp, vp, L8, Q8, table8,
+                                                                **kw),
+                  lambda: paged_prefill.paged_prefill_attention(q8D, kpD, vpD, L8, Q8,
+                                                                table8, **kwD),
+                  lambda: paged_prefill._paged_prefill_plain(
+                      q8, kp, vp, ks, vs, L8, Q8, L8 - Q8, table8, d ** -0.5, -1, 0, 0.0,
+                      quant),
+                  None, 2 * int(L8.sum()) * hkv * rb + 2 * q8.numel() * 2,
+                  4 * hq * d * pp_pairs)
+            del kp, vp, kpD, vpD, o, ro
+        del kf, vf, kfD, vfD, kf8, vf8, kf8D, vf8D
+        torch.cuda.empty_cache()
+    return ok
+
+
+def decode_groups():
+    """Phase 2 for kernel 5 with any q-per-kv group: groups 16 and 32 (b16
+    hq32 hkv2 and hkv1, S8192, d128, bf16; before this, refused above 8),
+    the 16-row blocks, against the plain version, the bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import _build, decode
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    ok = True
+    b, hq, S, d = 16, 32, 8192, 128
+    L = torch.full((b,), S, dtype=torch.int32, device=dev)
+    for hkv in (2, 1):
+        g = hq // hkv
+        q = torch.randn(b, hq, d, generator=gen, device=dev).to(bf)
+        kc, vc = (torch.randn(b, hkv, S, d, generator=gen, device=dev).to(bf)
+                  for _ in range(2))
+        ns, tps = decode.split_layout(S, decode.default_splits(b, hkv, S, g))
+        _build.reset_launches()
+        o, lse = decode.decode_attention(q, kc, vc, L, return_lse=True)
+        launched = dict(_build.launches)
+        po, pl = decode._decode_partials_plain(q.float(), kc.float(), vc.float(), L,
+                                               d ** -0.5, ns, tps, -1, 0.0)
+        ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        print(f"kernel 5 group {g}: b{b} hq{hq} hkv{hkv} S{S} d{d}, "
+              f"{decode.row_blocks(g)} row blocks, {ns} split(s) {launched}", flush=True)
+        _, good = _err(o, ro.reshape(b, hq, d), what="O")
+        ok &= good and _lse_err(lse, rl.reshape(b, hq), "")
+        ok &= launched == {"decode": 1, "combine": 1}
+        _report(f"decode + combine, group {g}", _time_ms(lambda: decode.decode_attention(
+            q, kc, vc, L)), _time_ms(lambda: decode._decode_partials_plain(
+                q, kc, vc, L, d ** -0.5, ns, tps, -1, 0.0), iters=1),
+            _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                                            enable_gqa=True)),
+            2 * b * hkv * S * d * 2 + 2 * b * hq * d * 2, 4 * b * hq * S * d)
+        del q, kc, vc, po, pl, ro, o
+        torch.cuda.empty_cache()
+    return ok
+
+
+def engine_danube_phase(counts, ident, state):
+    """Main path, H2O-Danube-1.8B (h2oai/h2o-danube-1.8b-base config.json:
+    24 layers, dim 2560, 32 / 8 heads of 80, ffn 6912, window 4096) at full
+    width and depth, random bf16 weights from a seed, int8 KV pages of 64:
+    head_dim 80 runs every attention kernel at D 128 on 160-byte bf16 and
+    80-byte int8 rows. The 8B engine's traffic (16 prompts of 200-256
+    tokens, 32 new) graphed, then graphs off (the same tokens); KV bytes
+    per token of bf16, int8 and int4 pools (int4 rows widened to 48 bytes)
+    against 128-wide rows; then chunked_engine_phase on int8 and int4 KV.
+    The weights stay in `state` for the train phase."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve import graphs
+    from mfa_tpu_torch.serve.engine import Engine
+
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.LlamaConfig.h2o_danube_1_8b()
+    params = llama.init_params(cfg, seed=SEED + 9, device="cuda")
+    n_mat = sum(p.numel() for p in llama.param_tensors(params) if p.dim() == 2) \
+        - params["embed"].numel()
+    torch.cuda.reset_peak_memory_stats()
+    n_req, gen_tokens, L = 16, 32, cfg.n_layers
+    kw = dict(num_pages=128, page_size=64, max_seqs=16, pages_per_seq=8,
+              quant_dtype="int8", device="cuda")
+    rng = np.random.RandomState(SEED)
+    prompts = [list(rng.randint(0, cfg.vocab_size, int(n)))
+               for n in rng.randint(200, 257, n_req)]
+
+    def run():
+        eng = Engine(params, cfg, **kw)
+        reqs = [eng.submit(p, gen_tokens) for p in prompts]
+        _build.reset_launches()
+        stats = eng.run()
+        good = eng.sched.allocator.free_pages == kw["num_pages"] - 1
+        return [list(r.generated) for r in reqs], reqs, stats, good, eng
+
+    graphed, reqs, stats, ok, eng = run()
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ok &= all(len(g) == gen_tokens for g in graphed) and stats.captures >= 1
+    ok &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+    ok &= _wave_launches(got, L * stats.prefill_batches, head_dim=cfg.head_dim)
+    ok &= got.get("paged", 0) == L * stats.steps
+    step_tokens = stats.decode_tokens - n_req
+    print(f"engine H2O-Danube-1.8B launches {got}: bound = {L} x "
+          f"{stats.prefill_batches} waves (head_dim 80: the bound prepass, as "
+          f"mfa_tpu selects it), paged = {L} x {stats.steps} decode steps", flush=True)
+    print(f"engine H2O-Danube-1.8B (head_dim 80, int8 KV, {n_mat} matmul weights): "
+          f"{n_req} requests of {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"prompt tokens finished with {gen_tokens} tokens; prefill "
+          f"{stats.prefill_tokens / stats.prefill_s:.1f} tok/s ({stats.prefill_tokens} "
+          f"tokens in {stats.prefill_s:.3f} s), decode {_decode_rates(stats, step_tokens)}"
+          f", peak memory {peak_gb:.2f} GB [{ident}]", flush=True)
+    kvb = {"int8": _kv_bytes_per_token(eng.cache)}
+    del eng
+    graphs._ENABLED = False  # a measurement switch: every decode step eager
+    try:
+        eager, _, est, good, eng = run()
+    finally:
+        graphs._ENABLED = True
+    del eng
+    same = eager == graphed
+    ok &= same and good and est.captures == 0
+    print(f"engine H2O-Danube-1.8B, graphs off: decode {step_tokens / est.decode_s:.1f}"
+          f" tok/s ({est.steps} steps, {est.decode_s:.3f} s); tokens identical to the "
+          f"graphed run: {same} [{ident}]", flush=True)
+    for quant in (None, "int4"):
+        c = llama.build_kv_caches(cfg, 8, 64, 1, 1, quant, device="cuda")
+        kvb[quant or "bf16"] = _kv_bytes_per_token(c)
+        del c
+    want = {"bf16": 61440, "int8": 32256, "int4": 19968}
+    wide = {"bf16": 2 * L * cfg.n_kv_heads * 128 * 2,
+            "int8": 2 * L * cfg.n_kv_heads * (128 + 4)}
+    good = all(kvb[f] == want[f] for f in want)
+    ok &= good
+    print(f"engine H2O-Danube-1.8B KV bytes per token: "
+          + ", ".join(f"{f} {kvb[f]:.0f}" for f in ("bf16", "int8", "int4"))
+          + f" (stored widths 80 / 80 / 48 B a row; expected {want}) against "
+          f"128-wide rows {wide} {'ok' if good else 'FAIL'}", flush=True)
+    torch.cuda.empty_cache()
+    for quant in ("int8", "int4"):
+        state.update(params=params, cfg=cfg)
+        ok &= chunked_engine_phase(counts, ident, state, quant, "H2O-Danube-1.8B")
+    state.update(params=params, cfg=cfg)
+    return ok
+
+
+def cpu_vs_cuda_danube_phase():
+    """Phase 4 for head_dim 80: H2O-Danube-1.8B at full width cut to 2 layers
+    with a window of 64, seeded random weights, kernels on the card vs plain
+    versions on the CPU over int8 and int4 KV pages (int4 rows widened to
+    48 bytes; the CPU reads the card's int4 payloads, _device_pair_logits):
+    a prompt wave, a decode step, a 256-token prompt in 2 chunks of 128 and
+    a prefix-hit suffix chunk (_kv_stage_logits), logits within max 0.25 /
+    mean 0.02."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.h2o_danube_1_8b(), n_layers=2,
+                              sliding_window=64)
+    p_gpu = llama.init_params(cfg, seed=SEED + 10, device="cuda")
+    p_cpu = dict(layers=[{k: v.cpu() for k, v in lp.items()} for lp in p_gpu["layers"]],
+                 **{k: p_gpu[k].cpu() for k in ("embed", "final_norm", "lm_head")})
+    rng = np.random.RandomState(SEED + 10)
+    prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in (150, 210)]
+    pages = [[1, 2, 3], [4, 5, 11, 12]]
+    long = list(rng.randint(0, cfg.vocab_size, 256))
+    hit = long[:128] + list(rng.randint(0, cfg.vocab_size, 60))
+    ok = True
+    for quant in ("int8", "int4"):
+        out = _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages,
+                                  long, hit)
+        tag = f"{quant} KV" + (", the card's payloads" if quant == "int4" else "")
+        for i, name in enumerate(("prefill_batch", "decode_step",
+                                  "prefill_chunk_batch 2 x 128",
+                                  "prefix-hit suffix chunk")):
+            a, r = out["cuda"][i], out["cpu"][i]
+            d = (a - r).abs()
+            good = bool(torch.isfinite(a).all()) and float(d.max()) < 0.25 \
+                and float(d.mean()) < 0.02
+            print(f"cuda vs cpu H2O-Danube-1.8B (2 layers, head_dim 80, window 64) "
+                  f"{name} ({tag}) logits [{tuple(a.shape)}]: max_abs "
+                  f"{float(d.max()):.3e} (< 0.25) mean_abs {float(d.mean()):.3e} "
+                  f"(< 0.02), argmax agree {bool(torch.equal(a.argmax(-1), r.argmax(-1)))}"
+                  f" {'ok' if good else 'FAIL'}", flush=True)
+            ok &= good
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -4120,6 +4600,8 @@ def main() -> int:
     state = {}
     for name, fn in (("kernels", lambda: kernel_phase(records)),
                      ("sinks_kernels", sinks_kernels),
+                     ("head_dim_kernels", head_dim_kernels),
+                     ("decode_groups", decode_groups),
                      ("library_surface", lambda: library_surface(counts)),
                      ("engine_8b", lambda: engine_phase(counts, ident, state)),
                      ("engine_8b_kvq", lambda: kvq_engine_phase(counts, ident, state)),
@@ -4162,12 +4644,17 @@ def main() -> int:
                      ("train_mistral_7b_sinks",
                       lambda: train_phase(counts, ident, state, "Mistral-7B-sinks",
                                           (1, 8192))),
+                     ("engine_danube_1_8b",
+                      lambda: engine_danube_phase(counts, ident, state)),
+                     ("train_danube_1_8b",
+                      lambda: train_phase(counts, ident, state, "H2O-Danube-1.8B")),
                      ("cuda_vs_cpu", cpu_vs_cuda_phase),
                      ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
                      ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase),
                      ("cuda_vs_cpu_families", cpu_vs_cuda_families_phase),
                      ("cuda_vs_cpu_moe", cpu_vs_cuda_moe_phase),
-                     ("cuda_vs_cpu_sinks", cpu_vs_cuda_sinks_phase)):
+                     ("cuda_vs_cpu_sinks", cpu_vs_cuda_sinks_phase),
+                     ("cuda_vs_cpu_danube", cpu_vs_cuda_danube_phase)):
         t0 = time.perf_counter()
         try:
             phases[name] = bool(fn())

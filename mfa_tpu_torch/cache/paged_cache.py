@@ -6,14 +6,18 @@ Unlike the JAX package, whose arrays are immutable, the functions here
 update the cache's tensors IN PLACE (index_put_ / slice assignment) and
 return the same cache object, so the serving loop never copies a pool.
 
-Pages are [num_kv_heads, n_layers * num_pages, page_size, head_dim]:
-layer l's logical page p is physical page l * num_pages + p (the merged
-pool of the JAX package). Rows are head_dim wide (int8, fp8 as
-float8_e4m3fn) or head_dim / 2 bytes (int4, feature pairs:
-kernels/quant.py:pack_int4); quantized pages carry fp32 per-row scales
-[num_kv_heads, n_layers * num_pages, page_size]. Rows of every format are
-written whole (no nibble blend), so any set of positions takes one
-scatter.
+Pages are [num_kv_heads, n_layers * num_pages, page_size, w]: layer l's
+logical page p is physical page l * num_pages + p (the merged pool of the
+JAX package). A row holds the head-dim plan's stored width
+(dispatch/config.py:head_dim_plan: head_dim, widened with zero features
+only where the row's bytes would not be a multiple of 16, which a TMA map
+needs): w features (16-bit, int8, fp8 as float8_e4m3fn) or w / 2 bytes
+(int4, feature pairs: kernels/quant.py:pack_int4). The JAX package pads
+every row to 128 lanes instead (its TPU DMA's rule), so at head_dim 80 its
+rows are 128 wide where these are 80 (int4: 48 bytes). Quantized pages
+carry fp32 per-row scales [num_kv_heads, n_layers * num_pages, page_size],
+taken over the true features. Rows of every format are written whole (no
+nibble blend), so any set of positions takes one scatter.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import host_to_device
+from mfa_tpu_torch.dispatch.config import (head_dim_plan, host_to_device,
+                                           pad_features)
 from mfa_tpu_torch.kernels.quant import (as_bytes, pack_int4, row_width,
                                          storage_dtype)
 
@@ -113,15 +118,19 @@ class PageAllocator:
 
 def stored_rows(quant_dtype: Optional[str], kq: torch.Tensor) -> torch.Tensor:
     """quantize_rows payload rows [..., d] -> the rows as pages store them:
-    int4 packed to d / 2 bytes, fp8 as its uint8 bits (as_bytes)."""
-    return pack_int4(kq) if quant_dtype == "int4" else as_bytes(kq)
+    zero-padded to the plan's stored width w, int4 packed to w / 2 bytes,
+    fp8 as its uint8 bits (as_bytes). A zero byte is 0 in every format."""
+    rows = as_bytes(kq)
+    rows = pad_features(rows, head_dim_plan(kq.shape[-1], quant_dtype).stored)
+    return pack_int4(rows) if quant_dtype == "int4" else rows
 
 
 def pack_pages_payload(quant_dtype: Optional[str], kq: torch.Tensor,
                        n_pages: int, page: int) -> torch.Tensor:
     """Whole-page payload [hkv, n_pages * page, d] (or [hkv, n, s, d] with
     n * s == n_pages * page) -> the pages' stored shape [hkv, n_pages,
-    page, w] (w = d, or d / 2 bytes for int4; fp8 as uint8 bits)."""
+    page, w] (w = row_width: the stored features, or half of them in bytes
+    for int4; fp8 as uint8 bits)."""
     rows = stored_rows(quant_dtype, kq)
     return rows.reshape(rows.shape[0], n_pages, page, rows.shape[-1])
 

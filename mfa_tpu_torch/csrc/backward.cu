@@ -28,10 +28,12 @@
 //    local to the sequence, top-left aligned. On equal lengths they give
 //    the bits of kernels 12 + 13.
 //
-// Layouts: dense q, dO, dQ [b, hq, sq, D], k, v, dK, dV [b, hkv, sk, D],
-// LSE and delta [b, hq, sq]; packed q [total_q, hq, D], k [total_k, hkv, D],
-// LSE and delta [hq, total_q]. LSE is the natural log of the scaled
-// (capped) logits, -inf on rows that saw no column; it becomes log2 once.
+// Layouts: dense q, dO, dQ [b, hq, sq, d], k, v, dK, dV [b, hkv, sk, d],
+// LSE and delta [b, hq, sq]; packed q [total_q, hq, d], k [total_k, hkv, d],
+// LSE and delta [hq, total_q]; d any multiple of 8 up to 256, run at the
+// instantiated D kd of 64, 128 or 256 at least d. LSE is the natural log of
+// the scaled (capped) logits, -inf on rows that saw no column; it becomes
+// log2 once.
 // GQA: q head h reads kv head h / (hq / hkv), and a dK/dV block sums over
 // the group's q heads. slopes: ALiBi [hq] in the log2 domain (slope *
 // log2 e) or null, on every launch; kv_off (row r at position r + kv_off):
@@ -43,18 +45,21 @@
 // shapes it is far from the 295 flops-per-byte line.
 #include "flash_bwd_sm90.cuh"
 
-#define MFA_BWD_DISPATCH(CALL)                                        \
-  if (dtype == MFA_BF16 && d == 64) return CALL(__nv_bfloat16, 64);   \
-  if (dtype == MFA_BF16 && d == 128) return CALL(__nv_bfloat16, 128); \
-  if (dtype == MFA_BF16 && d == 256) return CALL(__nv_bfloat16, 256); \
-  if (dtype == MFA_F16 && d == 64) return CALL(__half, 64);           \
-  if (dtype == MFA_F16 && d == 128) return CALL(__half, 128);         \
-  if (dtype == MFA_F16 && d == 256) return CALL(__half, 256);         \
+// d: the rows' width (a multiple of 8 up to 256), run at the instantiated
+// D kd (Args::dw = d)
+#define MFA_BWD_DISPATCH(CALL)                                         \
+  if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;                     \
+  if (dtype == MFA_BF16 && kd == 64) return CALL(__nv_bfloat16, 64);   \
+  if (dtype == MFA_BF16 && kd == 128) return CALL(__nv_bfloat16, 128); \
+  if (dtype == MFA_BF16 && kd == 256) return CALL(__nv_bfloat16, 256); \
+  if (dtype == MFA_F16 && kd == 64) return CALL(__half, 64);           \
+  if (dtype == MFA_F16 && kd == 128) return CALL(__half, 128);         \
+  if (dtype == MFA_F16 && kd == 256) return CALL(__half, 256);         \
   return MFA_BAD_CONFIG
 
 namespace {
 
-fb90::Args args_of(int hq, int hkv, int sq, int sk, int window_left, int window_right,
+fb90::Args args_of(int hq, int hkv, int sq, int sk, int d, int window_left, int window_right,
                    float scale, float softcap, int sinks, int kv_off, const float* slopes) {
   const float c2 = softcap > 0.f ? fb90::LOG2E : scale * fb90::LOG2E;
   fb90::Args a{hq,    hkv, sq,      sk, window_left, window_right,
@@ -62,6 +67,7 @@ fb90::Args args_of(int hq, int hkv, int sq, int sk, int window_left, int window_
   a.sinks = sinks;
   a.kv_off = kv_off;
   a.slopes = slopes;
+  a.dw = d;
   return a;
 }
 
@@ -69,9 +75,9 @@ fb90::Args args_of(int hq, int hkv, int sq, int sk, int window_left, int window_
 // dV alone) on fb90::bwd_kernel.
 int launch_sm90(const void* q, const void* k, const void* v, const void* dO, const float* lse,
                 const float* delta, float* dq_ws, void* dk, void* dv, int dtype, int batch,
-                int hq, int hkv, int sq, int sk, int d, int window_left, int window_right,
-                float scale, float softcap, int sinks, int kv_off, const float* slopes,
-                void* stream) {
+                int hq, int hkv, int sq, int sk, int d, int kd, int window_left,
+                int window_right, float scale, float softcap, int sinks, int kv_off,
+                const float* slopes, void* stream) {
   if (batch == 0 || sk == 0) return 0;
   if (sq == 0) {  // no row sees a key: dK = dV = 0
     const size_t bytes = (size_t)batch * hkv * sk * d * 2;
@@ -79,7 +85,7 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dO, con
     if (int err = (int)cudaMemsetAsync(dk, 0, bytes, st)) return err;
     return (int)cudaMemsetAsync(dv, 0, bytes, st);
   }
-  const fb90::Args a = args_of(hq, hkv, sq, sk, window_left, window_right, scale, softcap,
+  const fb90::Args a = args_of(hq, hkv, sq, sk, d, window_left, window_right, scale, softcap,
                                sinks, kv_off, slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MFA_CALL(T, D)                                                                        \
@@ -98,32 +104,33 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dO, con
 extern "C" int mfa_bwd_fused(const void* q, const void* k, const void* v, const void* dO,
                              const float* lse, const float* delta, float* dq_ws, void* dk,
                              void* dv, int dtype, int batch, int hq, int hkv, int sq, int sk,
-                             int d, int window_left, int window_right, float scale,
+                             int d, int kd, int window_left, int window_right, float scale,
                              float softcap, int sinks, int kv_off, const float* slopes,
                              void* stream) {
   if (dq_ws == nullptr) return MFA_BAD_CONFIG;
   return launch_sm90(q, k, v, dO, lse, delta, dq_ws, dk, dv, dtype, batch, hq, hkv, sq, sk, d,
-                     window_left, window_right, scale, softcap, sinks, kv_off, slopes, stream);
+                     kd, window_left, window_right, scale, softcap, sinks, kv_off, slopes,
+                     stream);
 }
 
 extern "C" int mfa_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                            const float* lse, const float* delta, void* dk, void* dv, int dtype,
-                           int batch, int hq, int hkv, int sq, int sk, int d, int window_left,
-                           int window_right, float scale, float softcap, int kv_off,
-                           const float* slopes, void* stream) {
+                           int batch, int hq, int hkv, int sq, int sk, int d, int kd,
+                           int window_left, int window_right, float scale, float softcap,
+                           int kv_off, const float* slopes, void* stream) {
   return launch_sm90(q, k, v, dO, lse, delta, nullptr, dk, dv, dtype, batch, hq, hkv, sq, sk, d,
-                     window_left, window_right, scale, softcap, 0, kv_off, slopes, stream);
+                     kd, window_left, window_right, scale, softcap, 0, kv_off, slopes, stream);
 }
 
 // dq: [b, hq, sq, d] in the dtype, every row stored (0 where no key is seen).
 extern "C" int mfa_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                           const float* lse, const float* delta, void* dq, int dtype, int batch,
-                          int hq, int hkv, int sq, int sk, int d, int window_left,
-                          int window_right, float scale, float softcap, int kv_off,
-                          const float* slopes, void* stream) {
+                          int hq, int hkv, int sq, int sk, int d, int kd,
+                          int window_left, int window_right, float scale, float softcap,
+                          int kv_off, const float* slopes, void* stream) {
   if (batch == 0 || sq == 0) return 0;
-  const fb90::Args a = args_of(hq, hkv, sq, sk, window_left, window_right, scale, softcap, 0,
-                               kv_off, slopes);
+  const fb90::Args a = args_of(hq, hkv, sq, sk, d, window_left, window_right, scale, softcap,
+                               0, kv_off, slopes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MFA_CALL(T, D) \
   fb90::launch_dq<T, D, false>(q, k, v, dO, lse, delta, dq, batch, 0, 0, a, st)
@@ -138,10 +145,11 @@ extern "C" int mfa_varlen_bwd_dkv(const void* q, const void* k, const void* v, c
                                   const float* lse, const float* delta, void* dk, void* dv,
                                   const int* cu_q, const int* cu_k, int dtype, int batch,
                                   int hq, int hkv, int total_q, int total_k, int max_sk, int d,
-                                  int window_left, int window_right, float scale,
+                                  int kd, int window_left, int window_right, float scale,
                                   float softcap, const float* slopes, void* stream) {
   if (batch == 0 || max_sk == 0) return 0;
-  fb90::Args a = args_of(hq, hkv, 0, 0, window_left, window_right, scale, softcap, 0, 0, slopes);
+  fb90::Args a =
+      args_of(hq, hkv, 0, 0, d, window_left, window_right, scale, softcap, 0, 0, slopes);
   a.cu_q = cu_q;
   a.cu_k = cu_k;
   a.total_q = total_q;
@@ -159,10 +167,11 @@ extern "C" int mfa_varlen_bwd_dq(const void* q, const void* k, const void* v, co
                                  const float* lse, const float* delta, void* dq,
                                  const int* cu_q, const int* cu_k, int dtype, int batch, int hq,
                                  int hkv, int total_q, int total_k, int max_sq, int d,
-                                 int window_left, int window_right, float scale, float softcap,
-                                 const float* slopes, void* stream) {
+                                 int kd, int window_left, int window_right, float scale,
+                                 float softcap, const float* slopes, void* stream) {
   if (batch == 0 || max_sq == 0 || total_q == 0) return 0;
-  fb90::Args a = args_of(hq, hkv, 0, 0, window_left, window_right, scale, softcap, 0, 0, slopes);
+  fb90::Args a =
+      args_of(hq, hkv, 0, 0, d, window_left, window_right, scale, softcap, 0, 0, slopes);
   a.cu_q = cu_q;
   a.cu_k = cu_k;
   a.total_q = total_q;

@@ -34,19 +34,22 @@
 // launched).
 extern "C" int mfa_image_block_fwd(const void* q, const void* k, const void* v, void* o,
                                    const int* ids, int dtype, int batch, int hq, int hkv, int s,
-                                   int d, int window_left, float scale_log2e, void* stream) {
+                                   int d, int kd, int window_left, float scale_log2e,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch == 0 || s == 0) return 0;
   fa90::Args a{hq, hkv, s, s, window_left, 0, scale_log2e, 0.f, 0.f};
   a.ids = ids;
+  a.dw = d;
+  if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
 #define MFA_IMAGE_BLOCK(T, D) \
   return fa90::launch<T, D, fa90::IMAGE>(q, k, v, o, nullptr, nullptr, batch, a, st)
-  if (dtype == MFA_BF16 && d == 64) MFA_IMAGE_BLOCK(__nv_bfloat16, 64);
-  if (dtype == MFA_BF16 && d == 128) MFA_IMAGE_BLOCK(__nv_bfloat16, 128);
-  if (dtype == MFA_BF16 && d == 256) MFA_IMAGE_BLOCK(__nv_bfloat16, 256);
-  if (dtype == MFA_F16 && d == 64) MFA_IMAGE_BLOCK(__half, 64);
-  if (dtype == MFA_F16 && d == 128) MFA_IMAGE_BLOCK(__half, 128);
-  if (dtype == MFA_F16 && d == 256) MFA_IMAGE_BLOCK(__half, 256);
+  if (dtype == MFA_BF16 && kd == 64) MFA_IMAGE_BLOCK(__nv_bfloat16, 64);
+  if (dtype == MFA_BF16 && kd == 128) MFA_IMAGE_BLOCK(__nv_bfloat16, 128);
+  if (dtype == MFA_BF16 && kd == 256) MFA_IMAGE_BLOCK(__nv_bfloat16, 256);
+  if (dtype == MFA_F16 && kd == 64) MFA_IMAGE_BLOCK(__half, 64);
+  if (dtype == MFA_F16 && kd == 128) MFA_IMAGE_BLOCK(__half, 128);
+  if (dtype == MFA_F16 && kd == 256) MFA_IMAGE_BLOCK(__half, 256);
 #undef MFA_IMAGE_BLOCK
   return MFA_BAD_CONFIG;
 }

@@ -41,14 +41,20 @@ namespace {
 
 using BF = __nv_bfloat16;
 
+// d: the rows' width (a.dw), run at the instantiated D kd; the flagged
+// engine and its repair have no D 64 and run kd 64 at D 128 (mfa_tpu
+// selects them at head_dim % 128 == 0).
 template <int KIND>
-int launch_kind(int d, const void* q, const void* k, const void* v, void* o, float* lse,
-                int* table, int batch, const fa90::Args& a, cudaStream_t s) {
+int launch_kind(int d, int kd, const void* q, const void* k, const void* v, void* o,
+                float* lse, int* table, int batch, fa90::Args a, cudaStream_t s) {
+  a.dw = d;
+  if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
   if constexpr (KIND == fa90::BOUND || KIND == fa90::UNCHECKED) {
-    if (d == 64) return fa90::launch<BF, 64, KIND>(q, k, v, o, lse, table, batch, a, s);
+    if (kd == 64) return fa90::launch<BF, 64, KIND>(q, k, v, o, lse, table, batch, a, s);
   }
-  if (d == 128) return fa90::launch<BF, 128, KIND>(q, k, v, o, lse, table, batch, a, s);
-  if (d == 256) return fa90::launch<BF, 256, KIND>(q, k, v, o, lse, table, batch, a, s);
+  if (kd == 64 || kd == 128)
+    return fa90::launch<BF, 128, KIND>(q, k, v, o, lse, table, batch, a, s);
+  if (kd == 256) return fa90::launch<BF, 256, KIND>(q, k, v, o, lse, table, batch, a, s);
   return MFA_BAD_CONFIG;
 }
 
@@ -70,22 +76,22 @@ int launch_kind(int d, const void* q, const void* k, const void* v, void* o, flo
   a.kv_off = kv_off;
 #define MFA_ZS_ARGS                                                                       \
   const void *q, const void *k, const void *v, void *o, float *lse, int *table, int dtype, \
-      int batch, int hq, int hkv, int sq, int sk, int d, int window_left, int window_right, \
-      float scale_log2e, int sinks, int kv_off, void *stream
+      int batch, int hq, int hkv, int sq, int sk, int d, int kd, int window_left,       \
+      int window_right, float scale_log2e, int sinks, int kv_off, void *stream
 
 extern "C" int mfa_flagged_fwd(MFA_ZS_ARGS) {
   MFA_ZS_PREAMBLE
-  return launch_kind<fa90::FLAGGED>(d, q, k, v, o, lse, table, batch, a, s);
+  return launch_kind<fa90::FLAGGED>(d, kd, q, k, v, o, lse, table, batch, a, s);
 }
 
 extern "C" int mfa_repair_fwd(MFA_ZS_ARGS) {
   MFA_ZS_PREAMBLE
-  return launch_kind<fa90::REPAIR>(d, q, k, v, o, lse, table, batch, a, s);
+  return launch_kind<fa90::REPAIR>(d, kd, q, k, v, o, lse, table, batch, a, s);
 }
 
 extern "C" int mfa_bound_fwd(MFA_ZS_ARGS) {
   MFA_ZS_PREAMBLE
   return table != nullptr
-             ? launch_kind<fa90::BOUND>(d, q, k, v, o, lse, table, batch, a, s)
-             : launch_kind<fa90::UNCHECKED>(d, q, k, v, o, lse, table, batch, a, s);
+             ? launch_kind<fa90::BOUND>(d, kd, q, k, v, o, lse, table, batch, a, s)
+             : launch_kind<fa90::UNCHECKED>(d, kd, q, k, v, o, lse, table, batch, a, s);
 }

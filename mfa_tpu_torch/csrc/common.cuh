@@ -37,6 +37,16 @@ enum class KV { F16, I8, E4M3, I4 };
 // cuTensorMapEncodeTiled was not found or refused a tensor map.
 #define MFA_TMA_ENCODE 9998
 
+// Every attention launch takes rows of dw features (the stored width) and
+// the instantiated head dim kd (64, 128 or 256) to run them at, both from
+// dispatch/config.py:head_dim_plan (stored, kernel_dim); a launch only
+// checks that the rows fit. A row's bytes must also be a multiple of 16,
+// TMA's global stride rule: cuTensorMapEncodeTiled refuses any other map
+// (MFA_TMA_ENCODE).
+inline bool mfa_dims_fit(int dw, int kd) {
+  return (kd == 64 || kd == 128 || kd == 256) && dw > 0 && dw <= kd;
+}
+
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
 template <>

@@ -53,29 +53,41 @@ __global__ void combine_kernel(const float* __restrict__ o_part,
 
 // Launch 1: per-split partials. q [b, hq, d]; k/v [b, hkv, S, d];
 // o_part [b, hkv, splits, hq/hkv, d] fp32; lse_part [b, hkv, splits, hq/hkv];
-// every pointer 16-byte aligned.
+// every pointer 16-byte aligned. d: any multiple of 8 up to 256 (run at
+// the instantiated D kd); any group hq / hkv: up to 8 q rows sit in one
+// m16 tile, more take the 16-row blocks kernel 6 uses (M16, a span of 1).
 extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
                                    const int* lens, float* o_part, float* lse_part,
-                                   int dtype, int batch, int hq, int hkv, int S, int d,
+                                   int dtype, int batch, int hq, int hkv, int S, int d, int kd,
                                    int num_splits, int tokens_per_split, int window_left,
                                    float scale_log2e, float softcap, float softcap_mul,
                                    int sinks, const float* slopes, void* stream) {
   if (batch == 0) return 0;
-  const int group = hq / hkv;
-  if (group < 1 || group > 8) return MFA_BAD_CONFIG;
+  const int group = hkv > 0 ? hq / hkv : 0;
+  if (group < 1) return MFA_BAD_CONFIG;
+  const bool m16 = group > 8;  // 16 query rows a block
   kd90::Args a = {q, lens, o_part, lse_part, hq, hkv, group, S, tokens_per_split,
                   num_splits, window_left, scale_log2e, softcap, softcap_mul};
+  a.q_span = 1;
   a.sinks = sinks;
   a.slopes = slopes;
+  a.dw = d;
+  if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_DEC(T)                                                  \
-  if (d == 64) return kd90::launch<T, 64, false, KV::F16>(k, v, a, batch, s);   \
-  if (d == 128) return kd90::launch<T, 128, false, KV::F16>(k, v, a, batch, s); \
-  if (d == 256) return kd90::launch<T, 256, false, KV::F16>(k, v, a, batch, s); \
+#define MFA_DEC_D(T, M)                                                               \
+  if (kd == 64) return kd90::launch<T, 64, false, KV::F16, M>(k, v, a, batch, s);   \
+  if (kd == 128) return kd90::launch<T, 128, false, KV::F16, M>(k, v, a, batch, s); \
+  if (kd == 256) return kd90::launch<T, 256, false, KV::F16, M>(k, v, a, batch, s); \
   return MFA_BAD_CONFIG;
+#define MFA_DEC(T)      \
+  if (m16) {            \
+    MFA_DEC_D(T, true)  \
+  }                     \
+  MFA_DEC_D(T, false)
   if (dtype == MFA_BF16) { MFA_DEC(__nv_bfloat16) }
   if (dtype == MFA_F16) { MFA_DEC(__half) }
 #undef MFA_DEC
+#undef MFA_DEC_D
   return MFA_BAD_CONFIG;
 }
 

@@ -12,7 +12,13 @@
 // of its rows: without M16 the group's <= 8 q rows (q_span 1) sit in rows
 // 0-7 of the m16 tile and rows 8-15 are zero registers; with M16 all 16
 // rows hold queries and a fourth grid axis (folded into x) takes the next
-// 16, so q_span x group may be anything. Each row sees its own columns
+// 16, so q_span x group may be anything (kernel 5 takes any group this
+// way, its contiguous cache a span of 1).
+// Rows are dw features wide (Args::dw <= D; 16 bytes a multiple of a
+// stored row's bytes): q, O and the partials at dw, the K/V maps encoded at
+// the stored row width, so TMA fills each box's columns past it with zeros
+// (inert in Q K^T; a zero byte is 0 in every page format) and q's columns
+// past dw are zero registers. Each row sees its own columns
 // [lo, hi) of one sequence: span row si sits at position len + pos_offset -
 // q_span + si. With a left window the columns < sinks stay visible too
 // (StreamingLLM sinks, decode.py:91-117, paged.py:310-331): a block then
@@ -84,9 +90,9 @@ namespace kd90 {
 constexpr int TILE = 64;  // tokens a tile (kernels/decode.py:TILE)
 
 struct Args {
-  const void* q;       // [b, hq, D]
+  const void* q;       // [b, hq, dw]
   const int* lens;     // [b] stored lengths
-  float* o_part;       // [b, hkv, splits, group, D] fp32
+  float* o_part;       // [b, hkv, splits, group, dw] fp32
   float* lse_part;     // [b, hkv, splits, group]
   int hq, hkv, group, S, tokens_per_split, num_splits, window_left;
   float scale_log2e, softcap, softcap_mul;
@@ -94,12 +100,13 @@ struct Args {
   const int* table;      // [b, pps] pool pages
   const float* k_scale;  // quantized pages: [hkv, P, page] fp32
   const float* v_scale;
-  void* out;             // one split: O [b, hq, D] in T (else null)
+  void* out;             // one split: O [b, hq, dw] in T (else null)
   float* lse_out;        // and its LSE [b, hq]
   int num_pages, page_size, pps, box_rows, pos_offset;
   int q_span;  // M16: span positions of q [b, q_span, hq, D] (else 1)
   int sinks;   // with a left window: columns < sinks stay visible (else 0)
   const float* slopes;  // ALiBi [hq] in the log2 domain, or null
+  int dw;      // features of a q, O and stored K/V row (<= D)
 };
 
 // Shared memory: STAGES slots of [K tile | V tile (| K scales | V scales)],
@@ -276,7 +283,6 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   constexpr int ROWS = M16 ? 16 : 8;  // rows of the merge a warp
   constexpr int NR = M16 ? 2 : 1;     // rows a thread owns: g (and g + 8)
   static_assert(PAGED || !QUANT, "quantized rows come only as pages");
-  static_assert(PAGED || !M16, "query spans come only with pages");
   const int split = M16 ? blockIdx.x % a.num_splits : blockIdx.x;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int G = a.group;
@@ -430,7 +436,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     const int si = M16 ? rc / G : 0, gi = M16 ? rc % G : rc;
     const uint32_t* qr = reinterpret_cast<const uint32_t*>(
         static_cast<const T*>(a.q) +
-        (((size_t)b * span + si) * a.hq + (size_t)hk * G + gi) * D);
+        (((size_t)b * span + si) * a.hq + (size_t)hk * G + gi) * a.dw);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       int col = 16 * kk + 2 * t4;
@@ -440,8 +446,10 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
       } else if constexpr (QUANT) {
         col = (kk / NW) * CB + (CB / 4) * t4 + 4 * (kk % NW);
       }
-      qa[kk][h] = live ? qr[col / 2] : 0u;
-      qa[kk][NR + h] = live ? qr[col / 2 + (QUANT ? 1 : 4)] : 0u;
+      // columns past dw are zeros (a quantized step's four columns lie on
+      // one side of dw, a multiple of 16)
+      qa[kk][h] = live && col < a.dw ? qr[col / 2] : 0u;
+      qa[kk][NR + h] = live && col + (QUANT ? 0 : 8) < a.dw ? qr[col / 2 + (QUANT ? 1 : 4)] : 0u;
     }
   }
   float acc[D / 8][4];
@@ -708,8 +716,12 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   }
   named_sync(1, 32 * CWARPS);
   const bool final_out = a.out != nullptr;  // one split: O in T and the LSE
+  const int dw = a.dw;
   for (int idx = threadIdx.x - 32; idx < nrows * D; idx += 32 * CWARPS) {
+    // D, not dw, in the index arithmetic: a division by a run-time dw here
+    // cost up to 7% of an 8B decode step's kernel 6 (scripts/time_paged_span.py)
     const int r = idx / D, x = idx % D, xs = merge_col<CB, QUANT>(r, x);
+    if (x >= dw) continue;  // O's columns past dw are not stored
     float mm = MFA_MASK;
 #pragma unroll
     for (int w = 0; w < CWARPS; ++w) mm = fmaxf(mm, ml[w * 2 * ROWS + r]);
@@ -727,27 +739,30 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     const int rr = r0 + r, si = M16 ? rr / G : 0, gi = M16 ? rr % G : rr;
     if (final_out) {
       const size_t orow = ((size_t)b * span + si) * a.hq + (size_t)hk * G + gi;
-      static_cast<T*>(a.out)[orow * D + x] = from_float<T>(o / lsafe);
+      static_cast<T*>(a.out)[orow * dw + x] = from_float<T>(o / lsafe);
       if (x == 0 && a.lse_out != nullptr) a.lse_out[orow] = lse;
     } else {
       const size_t prow = (((size_t)b * a.hkv + hk) * a.num_splits + split) * R + rr;
-      a.o_part[prow * D + x] = o / lsafe;
+      a.o_part[prow * dw + x] = o / lsafe;
       if (x == 0) a.lse_part[prow] = lse;
     }
   }
 }
 
 // Encode the K and V maps and launch (a contiguous cache k, v [b, hkv, S,
-// D], or the page pools [hkv, P, page, D], quantized rows RB bytes).
-// Returns a cudaError_t code, MFA_TMA_ENCODE, or 0.
+// dw], or the page pools [hkv, P, page, w] with w = dw, or dw / 2 bytes
+// for int4), in boxes of the template's D. Returns a cudaError_t code,
+// MFA_TMA_ENCODE, or 0.
 template <typename T, int D, bool PAGED, KV F, bool M16 = false>
 int launch(const void* k, const void* v, const Args& a, int batch, cudaStream_t stream) {
   using P = Plan<D, F>;
   constexpr bool BF = kIsBf16<T>, QUANT = P::QUANT;
+  if (a.dw <= 0 || a.dw > D) return MFA_BAD_CONFIG;
   CUtensorMap tk, tv;
   if constexpr (PAGED) {
-    const size_t row_bytes = QUANT ? P::RB : 2 * D;
-    const cuuint64_t dims[3] = {(cuuint64_t)(QUANT ? P::RB : D), (cuuint64_t)a.page_size,
+    const int w = F == KV::I4 ? a.dw / 2 : a.dw;  // elements of a stored row
+    const size_t row_bytes = QUANT ? w : 2 * w;
+    const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)a.page_size,
                                 (cuuint64_t)a.hkv * a.num_pages};
     const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)a.page_size * row_bytes};
     const cuuint32_t box[3] = {QUANT ? (cuuint32_t)P::CB : 64u, (cuuint32_t)a.box_rows, 1};
@@ -763,8 +778,8 @@ int launch(const void* k, const void* v, const Args& a, int batch, cudaStream_t 
     // S == 0: no tile is ever loaded; the maps only need a valid base
     const bool kv = a.S > 0;
     const int rows = kv ? a.S : 1, planes = kv ? batch * a.hkv : 1;
-    if (int err = mfa_tensor_map_3d(&tk, kv ? k : a.q, BF, D, rows, planes, TILE)) return err;
-    if (int err = mfa_tensor_map_3d(&tv, kv ? v : a.q, BF, D, rows, planes, TILE)) return err;
+    if (int err = mfa_tensor_map_3d(&tk, kv ? k : a.q, BF, a.dw, rows, planes, TILE)) return err;
+    if (int err = mfa_tensor_map_3d(&tv, kv ? v : a.q, BF, a.dw, rows, planes, TILE)) return err;
   }
   auto kern = splitkv_kernel<T, D, PAGED, F, M16>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

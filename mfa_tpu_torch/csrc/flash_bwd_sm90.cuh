@@ -41,7 +41,10 @@
 // sq, D], k, v, dK, dV [b, hkv, sk, D], LSE and delta [b, hq, sq] fp32, or
 // packed q, dO [total_q, hq, D], k, v [total_k, hkv, D], LSE and delta
 // [hq, total_q]; the fused kernel adds dQ into a zeroed fp32 workspace
-// [b, hq, sq, D], the split's dQ launch stores it in the dtype.
+// [b, hq, sq, D], the split's dQ launch stores it in the dtype. Every row
+// is dw features wide (Args::dw, a multiple of 8 up to D): the maps are
+// encoded at dw, TMA fills the columns past it with zeros (inert in every
+// product), and dQ, dK and dV are stored, and dQ reduced, at dw only.
 //
 // Bound: tensor-core operations, 5 products of 2 D flops per visible (row,
 // key) pair and q head (4 in dK/dV, 3 in dQ). bwd_kernel follows
@@ -149,6 +152,7 @@ struct Args {
   int sinks = 0;   // with a left window: keys < sinks stay visible
   int kv_off = 0;  // row r sits at position r + kv_off
   const float* slopes = nullptr;  // ALiBi [hq], log2 domain (slope * log2 e), or null
+  int dw = 0;      // features of every row (a multiple of 8, <= D)
 };
 
 // The block's shape (SPLIT at D 256, below): BN keys a block; each
@@ -514,8 +518,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (issuer && live0) {
 #pragma unroll
           for (int ch = 0; ch < D / 32; ++ch)
-            tma_reduce_add_3d(&tdq, (ch < D / 64 ? q_s : do_s) + (ch % (D / 64)) * (BM * 128),
-                              ch * 32, q0, b * a.hq + h);
+            if (ch * 32 < a.dw)  // the workspace is dw wide
+              tma_reduce_add_3d(&tdq,
+                                (ch < D / 64 ? q_s : do_s) + (ch % (D / 64)) * (BM * 128),
+                                ch * 32, q0, b * a.hq + h);
           bulk_commit();
           pending = s;  // released once the reductions have read the slot
         } else {
@@ -568,7 +574,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           if (issuer) {
 #pragma unroll
             for (int ch = 0; ch < D / 32; ++ch)
-              tma_reduce_add_3d(&tdq, dq_s + ch * (BM * 128), ch * 32, q0, b * a.hq + h);
+              if (ch * 32 < a.dw)  // the workspace is dw wide
+                tma_reduce_add_3d(&tdq, dq_s + ch * (BM * 128), ch * 32, q0, b * a.hq + h);
             bulk_commit();
           }
         }
@@ -584,20 +591,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
     // dK and dV of this warpgroup's keys < sk, columns [col0, col0 + COLS)
+    // below dw
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int key = r0 + 8 * x;
       if (key < a.sk) {
         const size_t o = (PACKED ? (size_t)(k_row0 + key) * a.hkv + hk
                                  : (size_t)(b * a.hkv + hk) * a.sk + key) *
-                             D +
+                             a.dw +
                          col0 + 2 * t4;
 #pragma unroll
         for (int j = 0; j < COLS / 8; ++j) {
-          *reinterpret_cast<uint32_t*>(dk + o + 8 * j) =
-              pack2<T>(dka[4 * j + 2 * x], dka[4 * j + 2 * x + 1]);
-          *reinterpret_cast<uint32_t*>(dv + o + 8 * j) =
-              pack2<T>(dva[4 * j + 2 * x], dva[4 * j + 2 * x + 1]);
+          if (col0 + 8 * j + 2 * t4 < a.dw) {
+            *reinterpret_cast<uint32_t*>(dk + o + 8 * j) =
+                pack2<T>(dka[4 * j + 2 * x], dka[4 * j + 2 * x + 1]);
+            *reinterpret_cast<uint32_t*>(dv + o + 8 * j) =
+                pack2<T>(dva[4 * j + 2 * x], dva[4 * j + 2 * x + 1]);
+          }
         }
       }
     }
@@ -612,15 +622,17 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const fl
            cudaStream_t stream) {
   using P = Plan<D, DQ>;
   constexpr bool BF = kIsBf16<T>;
+  const int dw = a.dw;
+  if (dw <= 0 || dw > D || dw % 8 != 0) return MFA_BAD_CONFIG;
   CUtensorMap tq, tk, tv, tdo, tdq = {};
-  if (int err = mfa_tensor_map_3d(&tq, q, BF, D, a.sq, batch * a.hq, BM)) return err;
-  if (int err = mfa_tensor_map_3d(&tdo, dO, BF, D, a.sq, batch * a.hq, BM)) return err;
-  if (int err = mfa_tensor_map_3d(&tk, k, BF, D, a.sk, batch * a.hkv, P::BN)) return err;
-  if (int err = mfa_tensor_map_3d(&tv, v, BF, D, a.sk, batch * a.hkv, P::BN)) return err;
-  // the fp32 workspace [b * hq, sq, D] in boxes of 32 columns x BM rows
+  if (int err = mfa_tensor_map_3d(&tq, q, BF, dw, a.sq, batch * a.hq, BM)) return err;
+  if (int err = mfa_tensor_map_3d(&tdo, dO, BF, dw, a.sq, batch * a.hq, BM)) return err;
+  if (int err = mfa_tensor_map_3d(&tk, k, BF, dw, a.sk, batch * a.hkv, P::BN)) return err;
+  if (int err = mfa_tensor_map_3d(&tv, v, BF, dw, a.sk, batch * a.hkv, P::BN)) return err;
+  // the fp32 workspace [b * hq, sq, dw] in boxes of 32 columns x BM rows
   if (DQ) {
-    if (int err = mfa_encode_3d(&tdq, dq_ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, D, a.sq,
-                                batch * a.hq, (size_t)D * 4, (size_t)a.sq * D * 4, 32, BM))
+    if (int err = mfa_encode_3d(&tdq, dq_ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dw, a.sq,
+                                batch * a.hq, (size_t)dw * 4, (size_t)a.sq * dw * 4, 32, BM))
       return err;
   }
   auto kern = bwd_kernel<T, D, DQ>;
@@ -641,19 +653,21 @@ int packed_maps(CUtensorMap* tq, CUtensorMap* tdo, CUtensorMap* tk, CUtensorMap*
                 const void* q, const void* dO, const void* k, const void* v, int total_k,
                 int q_box, int k_box, const Args& a) {
   constexpr bool BF = kIsBf16<T>;
-  const size_t row_q = (size_t)a.hq * D * 2, row_k = (size_t)a.hkv * D * 2;
+  const int dw = a.dw;
+  if (dw <= 0 || dw > D || dw % 8 != 0) return MFA_BAD_CONFIG;
+  const size_t row_q = (size_t)a.hq * dw * 2, row_k = (size_t)a.hkv * dw * 2;
   const bool qs = a.total_q > 0, ks = total_k > 0;
-  if (int err = mfa_tensor_map_3d_strided(tq, qs ? q : k, BF, D, qs ? a.total_q : total_k,
-                                          qs ? a.hq : a.hkv, qs ? row_q : row_k, D * 2, q_box))
+  if (int err = mfa_tensor_map_3d_strided(tq, qs ? q : k, BF, dw, qs ? a.total_q : total_k,
+                                          qs ? a.hq : a.hkv, qs ? row_q : row_k, dw * 2, q_box))
     return err;
-  if (int err = mfa_tensor_map_3d_strided(tdo, qs ? dO : v, BF, D, qs ? a.total_q : total_k,
-                                          qs ? a.hq : a.hkv, qs ? row_q : row_k, D * 2, q_box))
+  if (int err = mfa_tensor_map_3d_strided(tdo, qs ? dO : v, BF, dw, qs ? a.total_q : total_k,
+                                          qs ? a.hq : a.hkv, qs ? row_q : row_k, dw * 2, q_box))
     return err;
-  if (int err = mfa_tensor_map_3d_strided(tk, ks ? k : q, BF, D, ks ? total_k : a.total_q,
-                                          ks ? a.hkv : a.hq, ks ? row_k : row_q, D * 2, k_box))
+  if (int err = mfa_tensor_map_3d_strided(tk, ks ? k : q, BF, dw, ks ? total_k : a.total_q,
+                                          ks ? a.hkv : a.hq, ks ? row_k : row_q, dw * 2, k_box))
     return err;
-  return mfa_tensor_map_3d_strided(tv, ks ? v : dO, BF, D, ks ? total_k : a.total_q,
-                                   ks ? a.hkv : a.hq, ks ? row_k : row_q, D * 2, k_box);
+  return mfa_tensor_map_3d_strided(tv, ks ? v : dO, BF, dw, ks ? total_k : a.total_q,
+                                   ks ? a.hkv : a.hq, ks ? row_k : row_q, dw * 2, k_box);
 }
 
 // Kernel 14's dK/dV launch: bwd_kernel<T, D, false, true> on q, dO
@@ -913,9 +927,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_arrive(bar_empty<STAGES>(bars, s));  // K and V of the slot are read
     }
 
-    // dQ of rows < sq: [b, hq, sq, D], or packed [total_q, hq, D]
-    const size_t stride = PACKED ? (size_t)a.hq * D : (size_t)D;
-    T* dq_head = dq + (PACKED ? (size_t)q_row0 * a.hq + h : (size_t)(b * a.hq + h) * a.sq) * D;
+    // dQ of rows < sq, columns < dw: [b, hq, sq, dw], or packed [total_q,
+    // hq, dw]
+    const int dw = a.dw;
+    const size_t stride = PACKED ? (size_t)a.hq * dw : (size_t)dw;
+    T* dq_head = dq + (PACKED ? (size_t)q_row0 * a.hq + h : (size_t)(b * a.hq + h) * a.sq) * dw;
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int r = r0 + 8 * x;
@@ -923,8 +939,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         T* row = dq_head + (size_t)r * stride + 2 * t4;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(row + 8 * j) =
-              pack2<T>(acc[4 * j + 2 * x], acc[4 * j + 2 * x + 1]);
+          if (8 * j + 2 * t4 < dw)
+            *reinterpret_cast<uint32_t*>(row + 8 * j) =
+                pack2<T>(acc[4 * j + 2 * x], acc[4 * j + 2 * x + 1]);
       }
     }
   }
@@ -947,12 +964,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO, const
   } else {
     // sk == 0: no key tile is ever loaded; the maps only need a valid base
     const bool kv = a.sk > 0;
-    if (int err = mfa_tensor_map_3d(&tq, q, BF, D, a.sq, batch * a.hq, DQ_BM)) return err;
-    if (int err = mfa_tensor_map_3d(&tdo, dO, BF, D, a.sq, batch * a.hq, DQ_BM)) return err;
-    if (int err = mfa_tensor_map_3d(&tk, kv ? k : q, BF, D, kv ? a.sk : a.sq,
+    const int dw = a.dw;
+    if (dw <= 0 || dw > D || dw % 8 != 0) return MFA_BAD_CONFIG;
+    if (int err = mfa_tensor_map_3d(&tq, q, BF, dw, a.sq, batch * a.hq, DQ_BM)) return err;
+    if (int err = mfa_tensor_map_3d(&tdo, dO, BF, dw, a.sq, batch * a.hq, DQ_BM)) return err;
+    if (int err = mfa_tensor_map_3d(&tk, kv ? k : q, BF, dw, kv ? a.sk : a.sq,
                                     batch * (kv ? a.hkv : a.hq), P::BN))
       return err;
-    if (int err = mfa_tensor_map_3d(&tv, kv ? v : dO, BF, D, kv ? a.sk : a.sq,
+    if (int err = mfa_tensor_map_3d(&tv, kv ? v : dO, BF, dw, kv ? a.sk : a.sq,
                                     batch * (kv ? a.hkv : a.hq), P::BN))
       return err;
   }

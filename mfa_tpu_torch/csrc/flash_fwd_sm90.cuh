@@ -2,8 +2,8 @@
 // kernel 1 (the classic prefill, prefill.cu), kernels 2-4 (the zero-shift
 // engines and the repair, bound.cu), kernel 7 (packed varlen, prefill.cu)
 // and kernel 9 (image-block prefill, blockmask.cu). Layout: q [b, hq, sq,
-// D], k/v [b, hkv, sk, D], o like q, LSE [b, hq, sq] fp32; or packed
-// (kernel 7): q [total_q, hq, D], k/v [total_k, hkv, D], LSE [hq, total_q],
+// dw], k/v [b, hkv, sk, dw], o like q, LSE [b, hq, sq] fp32; or packed
+// (kernel 7): q [total_q, hq, dw], k/v [total_k, hkv, dw], LSE [hq, total_q],
 // each block reading its sequence's offsets from cu_seqlens. GQA by head
 // index (kv head = h / (hq / hkv)); the band (wl, wr) around each row's own
 // position, -1 = unbounded (causal = (-1, 0)). Row r sits at position r +
@@ -15,6 +15,12 @@
 // ALiBi (kernels 1 and 7, the classic softmax only) subtracts slope_h *
 // |position - column| from the raw scores, the slope pre-divided by the
 // softmax scale (prefill.py:1303-1312).
+// Rows are dw features wide (Args::dw, any multiple of 8 up to D): the
+// tensor maps are encoded at dw, so TMA fills each box's columns past dw
+// with zeros (a whole 64-column chunk past dw at D 256 and dw <= 192), and
+// zero features add nothing to Q K^T or P V; O is stored at dw, its
+// columns past dw never written. The softmax scale is the caller's (that
+// of the true head dim), whatever D is.
 // Kernel 7 differs from kernel 1 only in the addressing (strided tensor
 // maps, the sequence's first rows as box coordinates, O's row stride), so
 // on equal lengths the two give the same bits. Kernel 9 (kind IMAGE) is
@@ -92,6 +98,7 @@ enum Kind { PREFILL, FLAGGED, REPAIR, BOUND, UNCHECKED, IMAGE };
 struct Args {
   int hq, hkv, sq, sk, wl, wr;
   float scale_log2e, softcap, softcap_mul;
+  int dw = 0;      // features of a q, k, v and o row (a multiple of 8, <= D)
   int sinks = 0;   // columns < sinks stay visible through the left window
   int kv_off = 0;  // row r sits at position r + kv_off
   const float* slopes = nullptr;  // ALiBi [hq], raw score domain (or null)
@@ -431,7 +438,8 @@ __device__ __forceinline__ bool consume(const Block& blk, int w, int wtid, const
     for (int j = 0; j < D / 8; ++j) {
       const float o0 = acc[4 * j + 2 * x] * inv, o1 = acc[4 * j + 2 * x + 1] * inv;
       if constexpr (ZS) poison |= !(isfinite(o0) && isfinite(o1));
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) = pack2<T>(o0, o1);
+      if (8 * j + 2 * t4 < a.dw)  // columns past dw are not O's
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) = pack2<T>(o0, o1);
     }
     if constexpr (ZS) {
       // A row whose band [max(0, p - wl), min(sk, p + wr + 1)) at position
@@ -570,11 +578,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const bool live = w == 0 || two;
     const int pos_lo = q0 + w * WG_M;
     const Span mine = w == 0 ? s0 : s1;
-    // O [b, hq, sq, D] and LSE [b, hq, sq], or packed O [total_q, hq, D]
+    // O [b, hq, sq, dw] and LSE [b, hq, sq], or packed O [total_q, hq, dw]
     // and LSE [hq, total_q]
     const size_t head = PACKED ? (size_t)q_row0 * a.hq + h : (size_t)(b * a.hq + h) * a.sq;
-    const size_t o_stride = PACKED ? (size_t)a.hq * D : (size_t)D;
-    T* o_head = o + head * D;
+    const size_t o_stride = PACKED ? (size_t)a.hq * a.dw : (size_t)a.dw;
+    T* o_head = o + head * a.dw;
     float* lse_head = lse == nullptr ? nullptr
                       : PACKED       ? lse + (size_t)h * a.total_q + q_row0
                                      : lse + head;
@@ -632,11 +640,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   CUtensorMap tq, tk, tv;
   // sk == 0: no KV tile is ever loaded; the maps only need a valid base
   const bool kv = a.sk > 0;
-  if (int err = mfa_tensor_map_3d(&tq, q, BF, D, a.sq, batch * a.hq, BM)) return err;
-  if (int err = mfa_tensor_map_3d(&tk, kv ? k : q, BF, D, kv ? a.sk : a.sq,
+  if (a.dw <= 0 || a.dw > D || a.dw % 8 != 0) return MFA_BAD_CONFIG;
+  if (int err = mfa_tensor_map_3d(&tq, q, BF, a.dw, a.sq, batch * a.hq, BM)) return err;
+  if (int err = mfa_tensor_map_3d(&tk, kv ? k : q, BF, a.dw, kv ? a.sk : a.sq,
                                   batch * (kv ? a.hkv : a.hq), P::BN))
     return err;
-  if (int err = mfa_tensor_map_3d(&tv, kv ? v : q, BF, D, kv ? a.sk : a.sq,
+  if (int err = mfa_tensor_map_3d(&tv, kv ? v : q, BF, a.dw, kv ? a.sk : a.sq,
                                   batch * (kv ? a.hkv : a.hq), P::BN))
     return err;
   auto kern = fwd_kernel<T, D, KIND>;
@@ -659,16 +668,18 @@ int launch_packed(const void* q, const void* k, const void* v, void* o, float* l
   using P = Plan<D>;
   constexpr bool BF = kIsBf16<T>;
   CUtensorMap tq, tk, tv;
-  const size_t row_q = (size_t)a.hq * D * 2, row_k = (size_t)a.hkv * D * 2;
-  if (int err = mfa_tensor_map_3d_strided(&tq, q, BF, D, a.total_q, a.hq, row_q, D * 2, BM))
+  const int dw = a.dw;
+  if (dw <= 0 || dw > D || dw % 8 != 0) return MFA_BAD_CONFIG;
+  const size_t row_q = (size_t)a.hq * dw * 2, row_k = (size_t)a.hkv * dw * 2;
+  if (int err = mfa_tensor_map_3d_strided(&tq, q, BF, dw, a.total_q, a.hq, row_q, dw * 2, BM))
     return err;
   // total_k == 0: no KV tile is ever loaded; the maps only need a valid base
   const bool kv = total_k > 0;
-  if (int err = mfa_tensor_map_3d_strided(&tk, kv ? k : q, BF, D, kv ? total_k : a.total_q,
-                                          kv ? a.hkv : a.hq, kv ? row_k : row_q, D * 2, P::BN))
+  if (int err = mfa_tensor_map_3d_strided(&tk, kv ? k : q, BF, dw, kv ? total_k : a.total_q,
+                                          kv ? a.hkv : a.hq, kv ? row_k : row_q, dw * 2, P::BN))
     return err;
-  if (int err = mfa_tensor_map_3d_strided(&tv, kv ? v : q, BF, D, kv ? total_k : a.total_q,
-                                          kv ? a.hkv : a.hq, kv ? row_k : row_q, D * 2, P::BN))
+  if (int err = mfa_tensor_map_3d_strided(&tv, kv ? v : q, BF, dw, kv ? total_k : a.total_q,
+                                          kv ? a.hkv : a.hq, kv ? row_k : row_q, dw * 2, P::BN))
     return err;
   auto kern = fwd_kernel<T, D, PREFILL, true>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

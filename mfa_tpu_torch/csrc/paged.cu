@@ -24,8 +24,10 @@
 // partials that decode.cu's mfa_decode_combine merges.
 //
 // The TPU-only layout tricks (128-lane page padding, fp8-as-int8 bits, int4
-// token-pair order) do not exist here: rows are head_dim values wide, and
-// int4 pairs a row's features, so tokens keep their natural order.
+// token-pair order) do not exist here: rows are d values wide, d the
+// head-dim plan's stored width (dispatch/config.py:head_dim_plan: head_dim,
+// widened only to make a row's bytes a multiple of 16), and int4 pairs a
+// row's features, so tokens keep their natural order.
 #include "decode_sm90.cuh"
 
 // q [b, q_span, hq, d] (quantized pages take bf16 q); kv_dtype: MFA_BF16 /
@@ -33,13 +35,16 @@
 // out [b, q_span, hq, d] in the q dtype and lse_out [b, q_span, hq] fp32,
 // else o_part [b, hkv, num_splits, q_span * hq / hkv, d] and lse_part [b,
 // hkv, num_splits, q_span * hq / hkv] fp32 (rows [q_span, group]
-// flattened). page_size a multiple of 8; every pointer 16-byte aligned.
+// flattened). d: features of q's and a stored page row (int4: 2 a byte), a
+// multiple of 8 (16-bit), 16 (int8, fp8) or 32 (int4) up to 256, run at
+// the instantiated D kd. page_size a multiple of 8; every pointer
+// 16-byte aligned.
 // Returns a cudaError_t code.
 extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                 const float* k_scale, const float* v_scale, const int* lens,
                                 const int* table, void* out, float* lse_out, float* o_part,
                                 float* lse_part, int q_dtype, int kv_dtype, int batch, int hq,
-                                int hkv, int num_pages, int page_size, int pps, int d,
+                                int hkv, int num_pages, int page_size, int pps, int d, int kd,
                                 int q_span, int num_splits, int tokens_per_split, int pos_offset,
                                 int window_left, float scale_log2e, float softcap,
                                 float softcap_mul, int sinks, const float* slopes,
@@ -80,11 +85,13 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   a.q_span = q_span;
   a.sinks = sinks;
   a.slopes = slopes;
+  a.dw = d;
+  if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_PAGED_D(T, F, M)                                                          \
-  if (d == 64) return kd90::launch<T, 64, true, F, M>(k_pages, v_pages, a, batch, s);   \
-  if (d == 128) return kd90::launch<T, 128, true, F, M>(k_pages, v_pages, a, batch, s); \
-  if (d == 256) return kd90::launch<T, 256, true, F, M>(k_pages, v_pages, a, batch, s); \
+#define MFA_PAGED_D(T, F, M)                                                           \
+  if (kd == 64) return kd90::launch<T, 64, true, F, M>(k_pages, v_pages, a, batch, s);   \
+  if (kd == 128) return kd90::launch<T, 128, true, F, M>(k_pages, v_pages, a, batch, s); \
+  if (kd == 256) return kd90::launch<T, 256, true, F, M>(k_pages, v_pages, a, batch, s); \
   return MFA_BAD_CONFIG
 #define MFA_PAGED(T, F)          \
   if (m16) {                     \

@@ -69,6 +69,12 @@
 //    dead row. A block with no live row stores its zeros and leaves; blocks
 //    launch last q tiles first.
 //
+// Rows are dw features wide (Params::dw <= D): q and O at dw, the page maps
+// encoded at the stored row width (dw, or dw / 2 bytes for int4), so TMA
+// fills each box's columns past it with zeros, inert in Q K^T and P V (a
+// zero byte converts to 0 in every page format); O's columns past dw are
+// never stored.
+//
 // Numerics: kernel 1's classic online softmax (flash_fwd_sm90.cuh); a row
 // that sees no column keeps m == MASK and stores O = 0, LSE = -inf.
 #include "flash_fwd_sm90.cuh"
@@ -89,7 +95,7 @@ struct Params {
   const int* table;     // [b, pps]
   const float* k_scale;  // [hkv, P, page] or null
   const float* v_scale;
-  void* out;   // [b, sq, hq, D]
+  void* out;   // [b, sq, hq, dw]
   float* lse;  // [b, hq, sq]
   int sq, hq, hkv, group, num_pages, page_size, pps, box_rows, wl, wr;
   float scale_log2e, softcap, softcap_mul;
@@ -97,6 +103,7 @@ struct Params {
   int q_boxes;  // Q boxes a 64-column chunk: 1 if group divides WG_M, else 2
   int sinks;             // with a left window: columns < sinks stay visible (else 0)
   const float* slopes;   // ALiBi [hq] in the raw score domain (slope / scale), or null
+  int dw;                // features of a q, O and stored K/V row (<= D)
 };
 
 // Shared memory: Q [D/64][BM][64]; STAGES ring slots, each K then V
@@ -423,12 +430,13 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
     const float m = ms[x], l = ls[x];
     const bool dead = m <= MFA_MASK * 0.5f || l == 0.f;
     const float inv = dead ? 0.f : 1.f / (isnan(l) ? 1.f : l);
-    T* orow = out + (((size_t)b * p.sq + t) * p.hq + h) * D;
+    T* orow = out + (((size_t)b * p.sq + t) * p.hq + h) * p.dw;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const float o0 = dead ? 0.f : acc[4 * j + 2 * x] * inv;
       const float o1 = dead ? 0.f : acc[4 * j + 2 * x + 1] * inv;
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) = pack2<T>(o0, o1);
+      if (8 * j + 2 * t4 < p.dw)  // columns past dw are not O's
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) = pack2<T>(o0, o1);
     }
     if (p.lse != nullptr && t4 == 0)
       p.lse[((size_t)b * p.hq + h) * p.sq + t] =
@@ -454,12 +462,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     // no live row: O = 0 and LSE = -inf for the rows < sq, nothing loaded
     // (packed row i: warpgroup i / WG_M, its row i % WG_M)
     T* out = static_cast<T*>(p.out);
-    for (int u = threadIdx.x; u < BM * (D / 8); u += THREADS) {
-      const int i = u / (D / 8), r = i % WG_M;
+    const int units = p.dw / 8;  // 16-byte units of an O row
+    for (int u = threadIdx.x; u < BM * units; u += THREADS) {
+      const int i = u / units, r = i % WG_M;
       const int t = t0 + (i / WG_M) * wpos + r / group, h = hk * group + r % group;
-      T* orow = out + (((size_t)b * p.sq + t) * p.hq + h) * D;
+      T* orow = out + (((size_t)b * p.sq + t) * p.hq + h) * p.dw;
       if (r < rows && t < p.sq)
-        *reinterpret_cast<uint4*>(orow + (u % (D / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(orow + (u % units) * 8) = make_uint4(0u, 0u, 0u, 0u);
     }
     for (int i = threadIdx.x; i < BM; i += THREADS) {
       const int r = i % WG_M;
@@ -555,33 +564,36 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Encode the maps and launch: q [b, sq, hq, D] as (D, hq, sq, b) in boxes
-// of (64, group, 2 wpos / q_boxes, 1); the pages [hkv, P, page, D] as (D, page,
-// hkv * P) in boxes of one page's box_rows rows (16-bit: 64-column chunks,
-// swizzled; quantized: whole rows of RB bytes, unswizzled). Returns a
-// cudaError_t code, MFA_TMA_ENCODE, or 0.
+// Encode the maps and launch: q [b, sq, hq, dw] as (dw, hq, sq, b) in boxes
+// of (64, group, 2 wpos / q_boxes, 1); the pages [hkv, P, page, w] (w = dw,
+// or dw / 2 bytes for int4) as (w, page, hkv * P) in boxes of one page's
+// box_rows rows (16-bit: 64-column chunks, swizzled; quantized: rows of RB
+// bytes, unswizzled), the template's D wide. Returns a cudaError_t code,
+// MFA_TMA_ENCODE, or 0.
 template <typename T, KV F, int D>
 int launch(const void* q, const void* k_pages, const void* v_pages, Params p, int batch,
            cudaStream_t stream) {
   using PL = Plan<D, F>;
   constexpr bool QUANT = PL::QUANT;
+  if (p.dw <= 0 || p.dw > D) return MFA_BAD_CONFIG;
   p.box_rows = PL::BN;  // gcd(page_size, BN): a power of two >= 8
   while (p.page_size % p.box_rows != 0) p.box_rows >>= 1;
   const CUtensorMapDataType qtype =
       kIsBf16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   CUtensorMap tq, tk, tv;
   {
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)p.hq, (cuuint64_t)p.sq,
+    const cuuint64_t dims[4] = {(cuuint64_t)p.dw, (cuuint64_t)p.hq, (cuuint64_t)p.sq,
                                 (cuuint64_t)batch};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)p.hq * D * 2,
-                                   (cuuint64_t)p.sq * p.hq * D * 2};
+    const cuuint64_t strides[3] = {(cuuint64_t)p.dw * 2, (cuuint64_t)p.hq * p.dw * 2,
+                                   (cuuint64_t)p.sq * p.hq * p.dw * 2};
     const cuuint32_t box[4] = {64, (cuuint32_t)p.group, (cuuint32_t)(2 * p.wpos / p.q_boxes),
                                1};
     if (int err = mfa_encode(&tq, q, qtype, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
       return err;
   }
-  const size_t row_bytes = QUANT ? PL::RB : 2 * D;
-  const cuuint64_t dims[3] = {(cuuint64_t)(QUANT ? PL::RB : D), (cuuint64_t)p.page_size,
+  const int w = F == KV::I4 ? p.dw / 2 : p.dw;  // elements of a stored row
+  const size_t row_bytes = QUANT ? w : 2 * w;
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)p.page_size,
                               (cuuint64_t)p.hkv * p.num_pages};
   const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)(p.page_size * row_bytes)};
   const cuuint32_t box[3] = {QUANT ? (cuuint32_t)PL::RB : 64u, (cuuint32_t)p.box_rows, 1};
@@ -605,13 +617,16 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
 // 16-bit pages' dtype code, or the format code MFA_I8, MFA_E4M3, MFA_I4.
 // group = hq / hkv from 1 to 64 (a consumer warpgroup's 64 rows hold
 // 64 / group chunk positions, rounded down, of every q head of one kv
-// head); page_size a multiple of 8. Returns a cudaError_t code.
+// head); page_size a multiple of 8. d: features of q's and a stored page
+// row (int4: 2 a byte), a multiple of 8 (16-bit), 16 (int8, fp8) or 32
+// (int4) up to 256, run at the instantiated D kd. Returns a cudaError_t
+// code.
 extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
                                  const float* k_scale, const float* v_scale, const int* lens,
                                  const int* q_start, const int* q_lens, const int* table,
                                  void* out, float* lse, int q_dtype, int kv_dtype, int batch,
                                  int sq, int hq, int hkv, int num_pages, int page_size,
-                                 int pps, int d, int window_left, int window_right,
+                                 int pps, int d, int kd, int window_left, int window_right,
                                  float scale_log2e, float softcap, float softcap_mul,
                                  int sinks, const float* slopes, void* stream) {
   if (batch == 0 || sq == 0) return 0;
@@ -622,12 +637,13 @@ extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void*
                        out,       lse,     sq,     hq,        hkv,        group,
                        num_pages, page_size, pps,  0,         window_left, window_right,
                        scale_log2e, softcap, softcap_mul, fa90::WG_M / group,
-                       fa90::WG_M % group ? 2 : 1, sinks,  slopes};
+                       fa90::WG_M % group ? 2 : 1, sinks,  slopes,      d};
+  if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFA_PP(T, F)                                                      \
-  if (d == 64) return pp90::launch<T, F, 64>(q, k_pages, v_pages, p, batch, s);   \
-  if (d == 128) return pp90::launch<T, F, 128>(q, k_pages, v_pages, p, batch, s); \
-  if (d == 256) return pp90::launch<T, F, 256>(q, k_pages, v_pages, p, batch, s); \
+#define MFA_PP(T, F)                                                       \
+  if (kd == 64) return pp90::launch<T, F, 64>(q, k_pages, v_pages, p, batch, s);   \
+  if (kd == 128) return pp90::launch<T, F, 128>(q, k_pages, v_pages, p, batch, s); \
+  if (kd == 256) return pp90::launch<T, F, 256>(q, k_pages, v_pages, p, batch, s); \
   return MFA_BAD_CONFIG
   if (kv_dtype == MFA_I8 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::I8); }
   if (kv_dtype == MFA_E4M3 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::E4M3); }

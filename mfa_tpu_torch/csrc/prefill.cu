@@ -10,8 +10,10 @@
 // visible (row, key) pair against 2 D bytes of K/V per 128 rows); at the
 // 8B wave's 256-token prompts the load of q/k/v/o. Softcap and fp16 run
 // only here; the default bf16 engines are bound.cu's.
-// Layout: q [b, hq, sq, D], k/v [b, hkv, sk, D], o like q, lse [b, hq, sq];
-// head_dim 64, 128 and 256 (Gemma), bf16 and fp16.
+// Layout: q [b, hq, sq, d], k/v [b, hkv, sk, d], o like q, lse [b, hq, sq];
+// any row width d that is a multiple of 8 up to 256, run at the
+// instantiated D kd of 64, 128 or 256 at least d (the maps' zero-filled
+// columns past d are inert), bf16 and fp16.
 //
 // mfa_varlen_fwd replaces mfa_tpu/kernels/varlen.py:_varlen_kernel
 // (varlen_attention's packed route), on the same wgmma + TMA tile: the
@@ -23,8 +25,8 @@
 // offsets from cu_seqlens, exits when its tile lies past that sequence's
 // length, and runs kernel 1's tile over the sequence's KV band, its TMA
 // boxes starting at the sequence's first rows. Layout: q [total_q, hq, D],
-// k/v [total_k, hkv, D], o like q, lse [hq, total_q] (flash-attn's varlen
-// softmax_lse layout); head_dim 64, 128 and 256, bf16 and fp16. Bound: as
+// k/v [total_k, hkv, d], o like q, lse [hq, total_q] (flash-attn's varlen
+// softmax_lse layout); d as kernel 1's, bf16 and fp16. Bound: as
 // kernel 1.
 //
 // Both: fp32 LSE, GQA by head index (kv head = h / (hq / hkv)); causal is
@@ -38,7 +40,7 @@
 // lse may be null (no LSE output). Returns a cudaError_t code (0 = launched).
 extern "C" int mfa_prefill_fwd(const void* q, const void* k, const void* v, void* o,
                                float* lse, int dtype, int batch, int hq, int hkv, int sq,
-                               int sk, int d, int window_left, int window_right,
+                               int sk, int d, int kd, int window_left, int window_right,
                                float scale_log2e, float softcap, float softcap_mul,
                                int sinks, int kv_off, const float* slopes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -47,14 +49,16 @@ extern "C" int mfa_prefill_fwd(const void* q, const void* k, const void* v, void
   a.sinks = sinks;
   a.kv_off = kv_off;
   a.slopes = slopes;
+  a.dw = d;
+  if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
 #define MFA_PREFILL(T, D) \
   return fa90::launch<T, D, fa90::PREFILL>(q, k, v, o, lse, nullptr, batch, a, s)
-  if (dtype == MFA_BF16 && d == 64) MFA_PREFILL(__nv_bfloat16, 64);
-  if (dtype == MFA_BF16 && d == 128) MFA_PREFILL(__nv_bfloat16, 128);
-  if (dtype == MFA_BF16 && d == 256) MFA_PREFILL(__nv_bfloat16, 256);
-  if (dtype == MFA_F16 && d == 64) MFA_PREFILL(__half, 64);
-  if (dtype == MFA_F16 && d == 128) MFA_PREFILL(__half, 128);
-  if (dtype == MFA_F16 && d == 256) MFA_PREFILL(__half, 256);
+  if (dtype == MFA_BF16 && kd == 64) MFA_PREFILL(__nv_bfloat16, 64);
+  if (dtype == MFA_BF16 && kd == 128) MFA_PREFILL(__nv_bfloat16, 128);
+  if (dtype == MFA_BF16 && kd == 256) MFA_PREFILL(__nv_bfloat16, 256);
+  if (dtype == MFA_F16 && kd == 64) MFA_PREFILL(__half, 64);
+  if (dtype == MFA_F16 && kd == 128) MFA_PREFILL(__half, 128);
+  if (dtype == MFA_F16 && kd == 256) MFA_PREFILL(__half, 256);
 #undef MFA_PREFILL
   return MFA_BAD_CONFIG;
 }
@@ -64,7 +68,8 @@ extern "C" int mfa_prefill_fwd(const void* q, const void* k, const void* v, void
 extern "C" int mfa_varlen_fwd(const void* q, const void* k, const void* v, void* o,
                               float* lse, const int* cu_q, const int* cu_k, int dtype,
                               int batch, int hq, int hkv, int total_q, int total_k, int max_sq,
-                              int d, int window_left, int window_right, float scale_log2e,
+                              int d, int kd, int window_left, int window_right,
+                              float scale_log2e,
                               float softcap, float softcap_mul, int sinks,
                               const float* slopes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -75,14 +80,16 @@ extern "C" int mfa_varlen_fwd(const void* q, const void* k, const void* v, void*
   a.cu_q = cu_q;
   a.cu_k = cu_k;
   a.total_q = total_q;
+  a.dw = d;
+  if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
 #define MFA_VARLEN(T, D) \
   return fa90::launch_packed<T, D>(q, k, v, o, lse, batch, total_k, max_sq, a, s)
-  if (dtype == MFA_BF16 && d == 64) MFA_VARLEN(__nv_bfloat16, 64);
-  if (dtype == MFA_BF16 && d == 128) MFA_VARLEN(__nv_bfloat16, 128);
-  if (dtype == MFA_BF16 && d == 256) MFA_VARLEN(__nv_bfloat16, 256);
-  if (dtype == MFA_F16 && d == 64) MFA_VARLEN(__half, 64);
-  if (dtype == MFA_F16 && d == 128) MFA_VARLEN(__half, 128);
-  if (dtype == MFA_F16 && d == 256) MFA_VARLEN(__half, 256);
+  if (dtype == MFA_BF16 && kd == 64) MFA_VARLEN(__nv_bfloat16, 64);
+  if (dtype == MFA_BF16 && kd == 128) MFA_VARLEN(__nv_bfloat16, 128);
+  if (dtype == MFA_BF16 && kd == 256) MFA_VARLEN(__nv_bfloat16, 256);
+  if (dtype == MFA_F16 && kd == 64) MFA_VARLEN(__half, 64);
+  if (dtype == MFA_F16 && kd == 128) MFA_VARLEN(__half, 128);
+  if (dtype == MFA_F16 && kd == 256) MFA_VARLEN(__half, 256);
 #undef MFA_VARLEN
   return MFA_BAD_CONFIG;
 }

@@ -8,11 +8,22 @@ csrc/mfa/api.cpp:269-302) for the H100's 132 SMs.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 MAX_HEAD_DIM = 256
+# head dims the attention kernels are instantiated at (csrc/*.cu); any other
+# d <= 256 runs the next one up, its rows read at their stored width
+KERNEL_HEAD_DIMS = (64, 128, 256)
+# bytes a TMA tensor map's rows must be a multiple of (cuTensorMapEncodeTiled's
+# global stride rule)
+TMA_ROW_BYTES = 16
+# storage bits a feature of each row format: 16-bit rows (None) and the
+# quantized KV page formats (kernels/quant.py)
+_FEATURE_BITS = {None: 16, "int8": 8, "fp8": 8, "int4": 4}
 
 # H100 SXM: streaming multiprocessors per card.
 H100_SMS = 132
@@ -24,6 +35,56 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadDimPlan:
+    """How a kernel takes rows of `head_dim` features (`head_dim_plan`)."""
+
+    head_dim: int     # the true d: the softmax scale's d and the caller's width
+    kernel_dim: int   # D, the instantiated head dim the kernel runs at
+    stored: int       # features of a row as the kernel's tensor maps read it
+
+    @property
+    def padded(self) -> bool:
+        """True when a row must be stored wider than d (a padded copy, or
+        pages created at the stored width)."""
+        return self.stored != self.head_dim
+
+
+def head_dim_plan(head_dim: int, fmt: Optional[str] = None) -> HeadDimPlan:
+    """The head-dim plan shared by every attention wrapper and the CPU tests.
+
+    fmt: None for 16-bit rows, or a KV page format ("int8", "fp8", "int4").
+    The kernel's D is the smallest of KERNEL_HEAD_DIMS at least d. A row is
+    stored at its true width when its bytes are a multiple of
+    TMA_ROW_BYTES, else at the smallest wider width whose bytes are (d 80:
+    160 B bf16 and 80 B int8 rows kept, 40 B int4 rows stored 48 B wide;
+    d 100 bf16: 208 B). The extra features are zeros, inert in Q K^T and
+    P V; TMA fills a box's columns past the stored width with zeros up to
+    D. The softmax scale stays d ** -0.5 of the true d: never the stored
+    width's or D's.
+    """
+    d = int(head_dim)
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be in [1, {MAX_HEAD_DIM}], got {d}")
+    if fmt not in _FEATURE_BITS:
+        raise ValueError(f"unsupported row format {fmt!r}")
+    stored = round_up(d, TMA_ROW_BYTES * 8 // _FEATURE_BITS[fmt])
+    kernel_dim = next(k for k in KERNEL_HEAD_DIMS if k >= stored)
+    return HeadDimPlan(d, kernel_dim, stored)
+
+
+def pad_features(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with its last dim zero-padded to `width` (x itself if it has it)."""
+    extra = width - x.shape[-1]
+    return x if extra == 0 else torch.nn.functional.pad(x, (0, extra))
+
+
+def unpad_features(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """A kernel's output at a stored width -> its first head_dim features
+    (contiguous; x itself when it has no others)."""
+    return x if x.shape[-1] == head_dim else x[..., :head_dim].contiguous()
 
 
 def num_splits_heuristic(

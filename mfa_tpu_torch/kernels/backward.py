@@ -22,9 +22,13 @@ band options carry over: `kv_position_offset` (kernels 11-13), attention
 sinks (kernel 11 only: the split refuses them, as mfa_tpu does) and ALiBi
 (every launch; P's exponent gets - slope * |position - key|, and the
 slopes' own gradient is zero). A CUDA tensor
-runs the kernels (bf16/fp16, head_dim 64, 128 or 256) or raises; a CPU tensor
-runs `_bwd_plain` / `_varlen_bwd_plain`, the same function in fp32
-PyTorch (the counterpart of autodiff._bwd_jnp_reference).
+runs the kernels (bf16/fp16, any head_dim up to 256: the head-dim plan's D
+of 64, 128 or 256, dispatch/config.py:head_dim_plan; q, k, v and dO are
+copied zero-padded only where a row's bytes are not a multiple of 16, and
+dQ, dK and dV come back at the caller's head_dim; zero features change
+neither delta = rowsum(dO * O) nor P) or raises; a CPU tensor runs
+`_bwd_plain` / `_varlen_bwd_plain`, the same function in fp32 PyTorch
+(the counterpart of autodiff._bwd_jnp_reference).
 """
 
 from __future__ import annotations
@@ -34,23 +38,22 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import softmax_scale_default
+from mfa_tpu_torch.dispatch.config import (head_dim_plan, pad_features,
+                                           softmax_scale_default,
+                                           unpad_features)
 from mfa_tpu_torch.kernels import _build
 from mfa_tpu_torch.kernels.prefill import (_LOG2E, _band, alibi_bias,
                                            check_band_options, cuda_slopes)
 
-# head dims of csrc/backward.cu's instantiations (256: Gemma3's; the
-# kernels' block shape changes there, flash_bwd_sm90.cuh:Plan::SPLIT)
-KERNEL_HEAD_DIMS = (64, 128, 256)
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# dtype .. window_right, scale, cap, then (fused) sinks, kv_off, slopes, stream
-_DENSE_TAIL = [_I] * 9 + [_F, _F]
+# dtype, b, hq, hkv, sq, sk, d, D, window_left, window_right, scale, cap,
+# then (fused) sinks, kv_off, slopes, stream
+_DENSE_TAIL = [_I] * 10 + [_F, _F]
 _FUSED_ARGTYPES = [_P] * 9 + _DENSE_TAIL + [_I, _I, _P, _P]
 _DKV_ARGTYPES = [_P] * 8 + _DENSE_TAIL + [_I, _P, _P]
 _DQ_ARGTYPES = [_P] * 7 + _DENSE_TAIL + [_I, _P, _P]
-_VL_DKV_ARGTYPES = [_P] * 10 + [_I] * 10 + [_F, _F, _P, _P]
-_VL_DQ_ARGTYPES = [_P] * 9 + [_I] * 10 + [_F, _F, _P, _P]
+_VL_DKV_ARGTYPES = [_P] * 10 + [_I] * 11 + [_F, _F, _P, _P]
+_VL_DQ_ARGTYPES = [_P] * 9 + [_I] * 11 + [_F, _F, _P, _P]
 
 
 def _bwd_plain(q, k, v, out, lse, do, scale, window_left, window_right,
@@ -112,21 +115,29 @@ def _varlen_bwd_plain(q, k, v, out, lse, do, cu_q, cu_k, scale, window_left,
 
 
 def _check_kernel_inputs(name, q, k, v, out, do, *others):
+    """What the card's route checks before it touches a device or a kernel
+    -> the head-dim plan (ValueError above 256)."""
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise NotImplementedError(f"{name}: the kernels take bf16/fp16, got "
                                   f"{q.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"{name}: the kernels take head_dim in "
-                                  f"{KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    plan = head_dim_plan(q.shape[-1])
     _build.same_device(name, q, k, v, out, do, *others)
     if any(t.dtype != q.dtype for t in (k, v, out, do)):
         raise ValueError(f"{name}: q, k, v, out and do must share one dtype")
+    return plan
+
+
+def _stored(plan, *tensors):
+    """Dense kernel inputs at the plan's stored width."""
+    return tuple(_build.dense(pad_features(t, plan.stored)) for t in tensors)
 
 
 def _launch_fused(q, k, v, do, lse, delta, scale, wl, wr, softcap, sinks=0,
                   kv_off=0, slopes=None):
-    """mfa_bwd_fused on dense [b, h, s, d] inputs (all _build.dense; slopes
-    [hq] log2-domain ALiBi or None) -> (dq fp32 workspace, dk, dv)."""
+    """mfa_bwd_fused on dense [b, h, s, d] inputs at a stored width d (all
+    _build.dense; slopes [hq] log2-domain ALiBi or None) -> (dq fp32
+    workspace, dk, dv). Every launch below runs d at head_dim_plan(d)'s
+    kernel D: a stored width is its own plan's."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dq_ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -135,8 +146,8 @@ def _launch_fused(q, k, v, do, lse, delta, scale, wl, wr, softcap, sinks=0,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq_ws.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d,
-            wl, wr, scale, softcap, sinks, kv_off, _build.ptr(slopes),
-            _build.stream_of(q))
+            head_dim_plan(d).kernel_dim, wl, wr, scale, softcap, sinks, kv_off,
+            _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["bwd_fused"] += 1
     return dq_ws, dk, dv
@@ -150,8 +161,9 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, wl, wr, softcap, kv_off=0,
     fn = _build.function("backward", "mfa_bwd_dkv", _DKV_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d, wl, wr, scale,
-            softcap, kv_off, _build.ptr(slopes), _build.stream_of(q))
+            _build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d,
+            head_dim_plan(d).kernel_dim, wl, wr, scale, softcap, kv_off,
+            _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["bwd_dkv"] += 1
     return dk, dv
@@ -165,17 +177,19 @@ def _launch_dq(q, k, v, do, lse, delta, scale, wl, wr, softcap, kv_off=0,
     fn = _build.function("backward", "mfa_bwd_dq", _DQ_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d, wl, wr, scale,
-            softcap, kv_off, _build.ptr(slopes), _build.stream_of(q))
+            _build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d,
+            head_dim_plan(d).kernel_dim, wl, wr, scale, softcap, kv_off,
+            _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["bwd_dq"] += 1
     return dq
 
 
 def _dense_cuda_inputs(q, k, v, out, lse, do):
-    """Checked, dense kernel inputs and delta = rowsum(dO * O) in fp32."""
+    """Checked, dense kernel inputs at the head-dim plan's stored width, and
+    delta = rowsum(dO * O) in fp32."""
     name = "flash_attention_bwd"
-    _check_kernel_inputs(name, q, k, v, out, do, lse)
+    plan = _check_kernel_inputs(name, q, k, v, out, do, lse)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     _build.expect_shape(name, "k", k, (b, hkv, sk, d))
@@ -183,8 +197,8 @@ def _dense_cuda_inputs(q, k, v, out, lse, do):
     _build.expect_shape(name, "out", out, q.shape)
     _build.expect_shape(name, "do", do, q.shape)
     _build.expect_shape(name, "lse", lse, (b, hq, sq))
-    q, k, v, do = (_build.dense(t) for t in (q, k, v, do))
     delta = (do.float() * out.float()).sum(-1).contiguous()
+    q, k, v, do = _stored(plan, q, k, v, do)
     return q, k, v, do, _build.dense(lse.float()), delta
 
 
@@ -245,27 +259,30 @@ def flash_attention_bwd(
                           sinks, kv_off, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    d = q.shape[-1]
     q, k, v, do, lse, delta = _dense_cuda_inputs(q, k, v, out, lse, do)
     slopes = cuda_slopes(alibi_slopes, _LOG2E, q.shape[1], q.device)
     args = (q, k, v, do, lse, delta, scale, wl, wr, softcap)
     if fused is None or fused:
         dq_ws, dk, dv = _launch_fused(*args, sinks, kv_off, slopes)
-        return dq_ws.to(q.dtype), dk, dv
-    dk, dv = _launch_dkv(*args, kv_off, slopes)
-    return _launch_dq(*args, kv_off, slopes), dk, dv
+        dq = dq_ws.to(q.dtype)
+    else:
+        dk, dv = _launch_dkv(*args, kv_off, slopes)
+        dq = _launch_dq(*args, kv_off, slopes)
+    return tuple(unpad_features(g, d) for g in (dq, dk, dv))
 
 
 def _varlen_cuda_inputs(q, k, v, out, lse, do, cu_q, cu_k):
     name = "varlen_attention_bwd"
-    _check_kernel_inputs(name, q, k, v, out, do, lse, cu_q, cu_k)
+    plan = _check_kernel_inputs(name, q, k, v, out, do, lse, cu_q, cu_k)
     total_q, hq, d = q.shape
     _build.expect_shape(name, "v", v, k.shape)
     _build.expect_shape(name, "out", out, q.shape)
     _build.expect_shape(name, "do", do, q.shape)
     _build.expect_shape(name, "lse", lse, (hq, total_q))
     _build.expect_shape(name, "cu_seqlens_k", cu_k, cu_q.shape)
-    q, k, v, do = (_build.dense(t) for t in (q, k, v, do))
     delta = (do.float() * out.float()).sum(-1).t().contiguous()  # [hq, total_q]
+    q, k, v, do = _stored(plan, q, k, v, do)
     return q, k, v, do, _build.dense(lse.float()), delta
 
 
@@ -278,8 +295,9 @@ def _launch_varlen_dkv(q, k, v, do, lse, delta, cu_q, cu_k, max_sk, scale,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             cu_q.data_ptr(), cu_k.data_ptr(), _build.DTYPE_CODES[q.dtype],
-            cu_q.shape[0] - 1, hq, hkv, total_q, total_k, int(max_sk), d, wl,
-            wr, scale, softcap, _build.ptr(slopes), _build.stream_of(q))
+            cu_q.shape[0] - 1, hq, hkv, total_q, total_k, int(max_sk), d,
+            head_dim_plan(d).kernel_dim, wl, wr, scale, softcap,
+            _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["varlen_bwd_dkv"] += 1
     return dk, dv
@@ -293,8 +311,9 @@ def _launch_varlen_dq(q, k, v, do, lse, delta, cu_q, cu_k, max_sq, scale,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), cu_q.data_ptr(),
             cu_k.data_ptr(), _build.DTYPE_CODES[q.dtype], cu_q.shape[0] - 1,
-            hq, k.shape[1], total_q, k.shape[0], int(max_sq), d, wl, wr,
-            scale, softcap, _build.ptr(slopes), _build.stream_of(q))
+            hq, k.shape[1], total_q, k.shape[0], int(max_sq), d,
+            head_dim_plan(d).kernel_dim, wl, wr, scale, softcap,
+            _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
     _build.launches["varlen_bwd_dq"] += 1
     return dq
@@ -354,6 +373,7 @@ def varlen_attention_bwd(
     if max_seqlen_k is None:
         max_seqlen_k = int((cu_k[1:] - cu_k[:-1]).max()) if cu_k.numel() > 1 else 0
     cu_q, cu_k = cu_q.contiguous(), cu_k.contiguous()
+    d = q.shape[-1]
     q, k, v, do, lse, delta = _varlen_cuda_inputs(q, k, v, out, lse, do, cu_q,
                                                   cu_k)
     slopes = cuda_slopes(alibi_slopes, _LOG2E, q.shape[1], q.device)
@@ -361,4 +381,4 @@ def varlen_attention_bwd(
                                 max_seqlen_k, scale, wl, wr, softcap, slopes)
     dq = _launch_varlen_dq(q, k, v, do, lse, delta, cu_q, cu_k, max_seqlen_q,
                            scale, wl, wr, softcap, slopes)
-    return dq, dk, dv
+    return tuple(unpad_features(g, d) for g in (dq, dk, dv))

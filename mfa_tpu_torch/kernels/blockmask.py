@@ -14,7 +14,8 @@ and the kernel's KV tile states the same tiles with torch ops), and with no
 image it gives kernel 1's bits. A CUDA tensor runs the kernel (or raises); a
 CPU tensor runs `_image_block_plain`, the dense fp32 masked softmax of
 models/llama.py:_attention_dense_masked. No gradient: inference only, as
-in the JAX package.
+in the JAX package. Any head_dim up to 256, as kernel 1 takes it
+(dispatch/config.py:head_dim_plan).
 """
 
 from __future__ import annotations
@@ -25,13 +26,14 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import cdiv, softmax_scale_default
+from mfa_tpu_torch.dispatch.config import (cdiv, head_dim_plan, pad_features,
+                                           softmax_scale_default,
+                                           unpad_features)
 from mfa_tpu_torch.kernels import _build
 
 _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
-KERNEL_HEAD_DIMS = (64, 128, 256)
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 TILE = 64  # q rows a consumer warpgroup (csrc/flash_fwd_sm90.cuh WG_M)
 
 
@@ -120,25 +122,24 @@ def _image_block_cuda(q, k, v, block_ids, scale, window_left):
             f"the image-block kernel takes bf16/fp16, got {q.dtype}")
     batch, hq, s, d = q.shape
     hkv = k.shape[1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"the image-block kernel takes head_dim in "
-                                  f"{KERNEL_HEAD_DIMS}, got {d}")
+    plan = head_dim_plan(d)
     name = "image_block_prefill"
     _build.same_device(name, q, k, v, block_ids)
     _build.expect_shape(name, "k", k, (batch, hkv, s, d))
     _build.expect_shape(name, "v", v, k.shape)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q, k and v dtypes differ")
-    q, k, v = _build.dense(q), _build.dense(k), _build.dense(v)
+    q, k, v = (_build.dense(pad_features(t, plan.stored)) for t in (q, k, v))
     ids = _build.dense(block_ids.to(torch.int32))
     out = torch.empty_like(q)
     fn = _build.function("blockmask", "mfa_image_block_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            ids.data_ptr(), _build.DTYPE_CODES[q.dtype], batch, hq, hkv, s, d,
-            window_left, scale * _LOG2E, _build.stream_of(q))
+            ids.data_ptr(), _build.DTYPE_CODES[q.dtype], batch, hq, hkv, s,
+            plan.stored, plan.kernel_dim, window_left, scale * _LOG2E,
+            _build.stream_of(q))
     _build.check("blockmask", rc)
     _build.launches["blockmask"] += 1
-    return out
+    return unpad_features(out, d)
 
 
 def image_block_prefill(

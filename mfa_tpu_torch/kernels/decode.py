@@ -12,6 +12,12 @@ Split ranges are whole 64-token tiles: split s covers tokens
 result never depends on the split count beyond fp32 rounding. With a left
 window the first `sink_tokens` columns stay visible (each in the one split
 that holds it); ALiBi subtracts slope * |length - 1 - column|.
+
+Any head_dim up to 256 (dispatch/config.py:head_dim_plan: the kernel's D,
+a zero-padded copy only where a row's bytes are not a multiple of 16) and
+any number of q heads a kv head: up to 8 q rows share one m16 tile, more
+run in blocks of 16 rows (the paged kernel's), each block reading its kv
+head's tiles again.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
-                                           softmax_scale_default)
+from mfa_tpu_torch.dispatch.config import (cdiv, head_dim_plan,
+                                           num_splits_heuristic, pad_features,
+                                           softmax_scale_default,
+                                           unpad_features)
 from mfa_tpu_torch.kernels import _build
 from mfa_tpu_torch.kernels.prefill import check_band_options, cuda_slopes
 
@@ -31,19 +39,28 @@ _LOG2E = math.log2(math.e)
 TILE = 64  # tokens per kernel tile (csrc/decode_sm90.cuh, also the paged kernel's)
 # Blocks of launch 1 an SM holds: its ring takes ~193 KB of shared memory
 BLOCKS_PER_SM = 1
-MAX_GROUP = 8  # q heads per kv head kernel 5 takes (kernel 6: any)
-KERNEL_HEAD_DIMS = (64, 128, 256)  # shared with the paged kernel
+# q rows of one kv head in a block: the m16 tile's 8 (its other 8 rows
+# zero), or 16 a block when the group is larger (csrc/decode_sm90.cuh M16)
+TILE_ROWS, M16_ROWS = 8, 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _F, _F, _F, _I, _P, _P]
+                      _I, _I, _I, _F, _F, _F, _I, _P, _P]
 _COMBINE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
-def default_splits(batch: int, num_kv_heads: int, max_s: int) -> int:
+def row_blocks(group: int) -> int:
+    """Blocks of q rows launch 1 runs for each (batch, kv head, split): 1
+    up to TILE_ROWS q heads a kv head, else one per M16_ROWS of them."""
+    return 1 if group <= TILE_ROWS else cdiv(group, M16_ROWS)
+
+
+def default_splits(batch: int, num_kv_heads: int, max_s: int,
+                   group: int = 1) -> int:
     """The split count `num_splits=0` asks for: the heuristic at launch 1's
-    residency."""
-    return num_splits_heuristic(batch, num_kv_heads, max_s, TILE,
-                                blocks_per_sm=BLOCKS_PER_SM)
+    residency, the 16-row blocks of groups above TILE_ROWS counted as
+    work."""
+    return num_splits_heuristic(batch * row_blocks(group), num_kv_heads,
+                                max_s, TILE, blocks_per_sm=BLOCKS_PER_SM)
 
 
 def split_layout(max_s: int, num_splits: int):
@@ -127,16 +144,15 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
             k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise NotImplementedError(
             "the decode kernel takes bf16/fp16 q and cache of one dtype")
-    if d not in KERNEL_HEAD_DIMS or group > MAX_GROUP:
-        raise NotImplementedError(
-            f"the decode kernel takes head_dim in {KERNEL_HEAD_DIMS} and at "
-            f"most {MAX_GROUP} q heads per kv head")
+    plan = head_dim_plan(d)
     _build.same_device("decode_attention", q, k_cache, v_cache, lens)
     _build.expect_shape("decode_attention", "k_cache", k_cache,
                         (batch, hkv, max_s, d))
     _build.expect_shape("decode_attention", "v_cache", v_cache, k_cache.shape)
     _build.expect_shape("decode_attention", "cache_seqlens", lens, (batch,))
-    q, k_cache, v_cache = (_build.dense(t) for t in (q, k_cache, v_cache))
+    q, k_cache, v_cache = (_build.dense(pad_features(t, plan.stored))
+                           for t in (q, k_cache, v_cache))
+    d = plan.stored
     lens = lens.to(torch.int32).contiguous()
     dev = q.device
     slopes = cuda_slopes(alibi, _LOG2E, num_heads, dev)
@@ -149,7 +165,8 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
     fn = _build.function("decode", "mfa_decode_partials", _PARTIALS_ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(), code,
-            batch, num_heads, hkv, max_s, d, num_splits, tps, window_left,
+            batch, num_heads, hkv, max_s, d, plan.kernel_dim, num_splits, tps,
+            window_left,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
             scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
             stream)
@@ -158,7 +175,7 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
     out = torch.empty_like(q)
     lse = torch.empty((batch, num_heads), dtype=torch.float32, device=dev)
     launch_combine(o_part, lse_part, out, lse)
-    return out, lse
+    return unpad_features(out, plan.head_dim), lse
 
 
 def launch_combine(o_part, lse_part, out, lse):
@@ -212,7 +229,8 @@ def decode_attention(
     scale = float(softmax_scale if softmax_scale is not None
                   else softmax_scale_default(head_dim))
     if num_splits <= 0:
-        num_splits = default_splits(batch, num_kv_heads, max_s)
+        num_splits = default_splits(batch, num_kv_heads, max_s,
+                                    num_heads // num_kv_heads)
     num_splits, tps = split_layout(max_s, num_splits)
     args = (q, k_cache, v_cache, cache_seqlens, scale, num_splits, tps,
             int(window_left), float(logit_softcap), sinks, alibi_slopes)

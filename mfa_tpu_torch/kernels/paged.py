@@ -10,10 +10,16 @@ more write fp32 partials that kernel 5's combine launch merges. A CPU
 tensor runs `_paged_plain`, the same function in PyTorch;
 `_paged_split_plain` is the kernel's split route in PyTorch.
 
-Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide
-(int4: head_dim / 2 bytes of feature pairs, kernels/quant.py:pack_int4),
-without the TPU's 128-lane padding, fp8-as-int8 bits or int4 token-pair
-order.
+Pages are [num_kv_heads, num_pages, page_size, w]: rows of w features
+(int4: w / 2 bytes of feature pairs, kernels/quant.py:pack_int4), w the
+head-dim plan's stored width (dispatch/config.py:head_dim_plan: head_dim,
+widened with zero features only where a row's bytes would not be a
+multiple of 16) as the cache creates them, or head_dim itself; without
+the TPU's 128-lane padding, fp8-as-int8 bits or int4 token-pair order. q
+is zero-padded to the pages' width (the extra features are inert), the
+output sliced back, and the softmax scale is the true head_dim's. On the
+card, pages not at the stored width are copied to it first (costly: the
+cache never makes such pages).
 
 Multi-query spans (q [b, q_span, hq, d], speculative verification): the
 rows of a kv head are [q_span, group] flattened, and span row si sits at
@@ -35,18 +41,21 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import (cdiv, num_splits_heuristic,
-                                           softmax_scale_default)
+from mfa_tpu_torch.dispatch.config import (cdiv, head_dim_plan,
+                                           num_splits_heuristic, pad_features,
+                                           softmax_scale_default,
+                                           unpad_features)
 from mfa_tpu_torch.kernels import _build, decode
-from mfa_tpu_torch.kernels.decode import KERNEL_HEAD_DIMS, TILE
+from mfa_tpu_torch.kernels.decode import TILE
 from mfa_tpu_torch.kernels.prefill import check_band_options, cuda_slopes
-from mfa_tpu_torch.kernels.quant import page_format, page_values
+from mfa_tpu_torch.kernels.quant import (page_features, page_format,
+                                         page_values, row_width)
 
 _LOG2E = math.log2(math.e)
 # Blocks of the kernel an SM holds: its ring takes 150-190 KB of shared memory
 BLOCKS_PER_SM = 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 11 + [_I] * 14 + [_F, _F, _F, _I, _P, _P]
+_ARGTYPES = [_P] * 11 + [_I] * 15 + [_F, _F, _F, _I, _P, _P]
 
 
 def launch_name(kernel: str, quant_dtype, q_span: int = 1) -> str:
@@ -104,13 +113,15 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
     ALiBi (slopes [hq]) at the rows' positions pos [b, q_span], V scales
     folded into the probabilities, probabilities rounded to the value dtype
     (bf16 for quantized pages) before P.V. int4 pages unpack, fp8 converts
-    exactly."""
-    batch, span, num_heads, d = q.shape
+    exactly. q is zero-padded to the pages' features, O sliced back."""
+    batch, span, num_heads, d_true = q.shape
     hkv, _, page, _ = k_pages.shape
     group = num_heads // hkv
     pps = table.shape[1]
     quantized = k_scales is not None
     idx = table.long().clamp(0, k_pages.shape[1] - 1)
+    d = page_features(quant_dtype, k_pages)
+    q = pad_features(q, d)
 
     def gather(pages):  # [hkv, b, pps, page, w] -> [b, hkv, pps*page, d]
         g = page_values(pages[:, idx], quant_dtype)
@@ -146,7 +157,7 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
     o = torch.einsum("bhigs,bhsd->bhigd", p.to(vdtype).float(), v.float())
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
     out = (o / l_safe[..., None]).permute(0, 2, 1, 3, 4).reshape(
-        batch, span, num_heads, d)
+        batch, span, num_heads, d)[..., :d_true]
     lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
                       m[..., 0] + torch.log(l_safe))
     return out, lse.permute(0, 2, 1, 3).reshape(batch, span, num_heads)
@@ -214,12 +225,10 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
     _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales,
                        v_scales)
     q4, span, squeeze = _spans(q)
-    batch, _, num_heads, d = q4.shape
+    batch, _, num_heads, d_true = q4.shape
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv
-    if d not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the paged kernel takes head_dim in {KERNEL_HEAD_DIMS}")
+    plan = head_dim_plan(d_true, quant_dtype)
     if page % 8:
         raise NotImplementedError(
             f"the paged kernel takes pages of a multiple of 8 rows (one "
@@ -236,6 +245,10 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
             f"quantized pages, got {k_pages.dtype} pages with {q.dtype} q")
     if v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages dtypes differ")
+    k_pages, v_pages = (stored_pages(p, quant_dtype, d_true)
+                        for p in (k_pages, v_pages))
+    d = plan.stored
+    qk = pad_features(qk, d)
     tensors = [qk, k_pages, v_pages, lens, table]
     if k_scales is not None:
         tensors += [k_scales, v_scales]
@@ -269,8 +282,8 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
             table.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _build.ptr(o_part), _build.ptr(lse_part),
             _build.DTYPE_CODES[qk.dtype], _build.kv_code(quant_dtype, k_pages),
-            batch, num_heads, hkv, num_pages, page, pps, d, span, num_splits,
-            tps, pos_offset, window_left,
+            batch, num_heads, hkv, num_pages, page, pps, d, plan.kernel_dim,
+            span, num_splits, tps, pos_offset, window_left,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
             scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
             _build.stream_of(q))
@@ -278,9 +291,21 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
     _build.launches[launch_name("paged", quant_dtype, span)] += 1
     if num_splits > 1:
         decode.launch_combine(o_part, lse_part, out, lse)
+    out = unpad_features(out, d_true)
     if squeeze:
         out, lse = out[:, 0], lse[:, 0]
     return out.to(q.dtype), lse
+
+
+def stored_pages(pages: torch.Tensor, quant_dtype, head_dim: int) -> torch.Tensor:
+    """Pages at the head-dim plan's stored width: the pages themselves, or
+    (unpadded rows whose bytes are not a multiple of 16) a zero-padded copy
+    of the whole pool, which a TMA map can read."""
+    width = row_width(quant_dtype, head_dim)
+    if pages.shape[-1] == width:
+        return pages
+    return pad_features(pages.view(torch.uint8) if pages.dtype.itemsize == 1
+                        else pages, width).view(pages.dtype)
 
 
 def paged_attention(

@@ -12,9 +12,12 @@ that does not divide 64 (Qwen2-7B's 7) leaves 64 % group dead tail rows a
 warpgroup, which are never stored.
 A CPU tensor runs `_paged_prefill_plain`, the same function in PyTorch.
 
-Pages are [num_kv_heads, num_pages, page_size, head_dim]: head_dim wide
-(int4: head_dim / 2 bytes of feature pairs, kernels/quant.py:pack_int4),
-without the TPU's 128-lane padding. int8, fp8 (e4m3) and int4 pages carry
+Pages are [num_kv_heads, num_pages, page_size, w]: rows of w features
+(int4: w / 2 bytes of feature pairs, kernels/quant.py:pack_int4), w the
+head-dim plan's stored width as the cache creates them, or head_dim
+itself (kernels/paged.py), without the TPU's 128-lane padding. Any
+head_dim up to 256: q is zero-padded to the pages' width and the output
+sliced back; the softmax scale is the true head_dim's. int8, fp8 (e4m3) and int4 pages carry
 fp32 per-row scales. With a left window the first `sink_tokens` columns
 stay visible (the kernel lists their tiles ahead of the band); ALiBi uses
 the chunk's absolute positions. The
@@ -30,17 +33,19 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import softmax_scale_default
+from mfa_tpu_torch.dispatch.config import (head_dim_plan, pad_features,
+                                           softmax_scale_default,
+                                           unpad_features)
 from mfa_tpu_torch.kernels import _build
-from mfa_tpu_torch.kernels.paged import launch_name
+from mfa_tpu_torch.kernels.paged import launch_name, stored_pages
 from mfa_tpu_torch.kernels.prefill import check_band_options, cuda_slopes
-from mfa_tpu_torch.kernels.quant import page_format, page_values
+from mfa_tpu_torch.kernels.quant import (page_features, page_format,
+                                         page_values)
 
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 11 + [_I] * 12 + [_F, _F, _F, _I, _P, _P]
-KERNEL_HEAD_DIMS = (64, 128, 256)  # 256: 64-key tiles (csrc/paged_prefill.cu:Plan)
+_ARGTYPES = [_P] * 11 + [_I] * 13 + [_F, _F, _F, _I, _P, _P]
 GROUP_ROWS = 64  # q rows per consumer warpgroup: the most q heads a kv head
 PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
 
@@ -54,7 +59,10 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
     (slopes [hq]), V scales folded into the probabilities,
     probabilities rounded to the value dtype (bf16 for quantized pages)
     before P.V (int4 pages unpacked, fp8 converted exactly). Rows r >=
-    q_lens give O = 0 and LSE = -inf."""
+    q_lens give O = 0 and LSE = -inf. q is zero-padded to the pages'
+    features, O sliced back."""
+    d_true = q.shape[-1]
+    q = pad_features(q, page_features(quant_dtype, k_pages))
     batch, sq, num_heads, d = q.shape
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv
@@ -104,10 +112,29 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
     o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vdtype).float(), v.float())
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
     out = (o / l_safe[..., None]).permute(0, 3, 1, 2, 4).reshape(
-        batch, sq, num_heads, d).to(out_dtype)
+        batch, sq, num_heads, d)[..., :d_true].to(out_dtype)
     lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
                       (m[..., 0] + torch.log2(l_safe)) * _LN2)
     return out, lse.reshape(batch, num_heads, sq)
+
+
+def cuda_plan(q, k_pages, quant_dtype=None):
+    """What the card's route checks before it touches a device or a
+    kernel -> the head-dim plan: any head_dim up to 256 (ValueError
+    above), a q-per-kv-head group of 1 to GROUP_ROWS and pages of a
+    multiple of PAGE_ROWS rows (NotImplementedError otherwise)."""
+    num_heads, d = q.shape[2], q.shape[3]
+    hkv, page = k_pages.shape[0], k_pages.shape[2]
+    plan = head_dim_plan(d, quant_dtype)
+    if not 1 <= num_heads // hkv <= GROUP_ROWS:
+        raise NotImplementedError(
+            f"the paged prefill kernel takes a q-per-kv-head group of 1 to "
+            f"{GROUP_ROWS}, got {num_heads // hkv}")
+    if page % PAGE_ROWS:
+        raise NotImplementedError(
+            f"the paged prefill kernel takes pages of a multiple of "
+            f"{PAGE_ROWS} rows, got {page}")
+    return plan
 
 
 def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
@@ -116,17 +143,9 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
                         alibi=None):
     _build.refuse_grad("paged_prefill_attention", q, k_pages, v_pages,
                        k_scales, v_scales)
-    batch, sq, num_heads, d = q.shape
+    plan = cuda_plan(q, k_pages, quant_dtype)
+    batch, sq, num_heads, _ = q.shape
     hkv, num_pages, page, _ = k_pages.shape
-    group = num_heads // hkv
-    if d not in KERNEL_HEAD_DIMS or not 1 <= group <= GROUP_ROWS:
-        raise NotImplementedError(
-            f"the paged prefill kernel takes head_dim in {KERNEL_HEAD_DIMS} "
-            f"and a q-per-kv-head group of 1 to {GROUP_ROWS}")
-    if page % PAGE_ROWS:
-        raise NotImplementedError(
-            f"the paged prefill kernel takes pages of a multiple of "
-            f"{PAGE_ROWS} rows, got {page}")
     if quant_dtype is not None:
         if q.dtype not in (torch.bfloat16, torch.float16):
             raise NotImplementedError(f"{quant_dtype} pages take bf16/fp16 q")
@@ -137,6 +156,12 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
         raise NotImplementedError(
             f"the paged prefill kernel takes bf16/fp16 pages of the q dtype "
             f"or quantized pages, got {k_pages.dtype} pages with {q.dtype} q")
+    if v_pages.dtype != k_pages.dtype:
+        raise ValueError("k_pages and v_pages dtypes differ")
+    k_pages, v_pages = (stored_pages(p, quant_dtype, plan.head_dim)
+                        for p in (k_pages, v_pages))
+    d = plan.stored
+    qk = pad_features(qk, d)
     name = "paged_prefill_attention"
     tensors = [qk, k_pages, v_pages, lens, q_start, q_lens, table]
     if k_scales is not None:
@@ -164,13 +189,14 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
             q_start.data_ptr(), q_lens.data_ptr(), table.data_ptr(),
             out.data_ptr(), lse.data_ptr(), _build.DTYPE_CODES[qk.dtype],
             _build.kv_code(quant_dtype, k_pages), batch, sq, num_heads, hkv,
-            num_pages, page, table.shape[1], d, window_left, window_right,
+            num_pages, page, table.shape[1], d, plan.kernel_dim, window_left,
+            window_right,
             _LOG2E if softcap else scale * _LOG2E, float(softcap),
             scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
             _build.stream_of(q))
     _build.check("paged_prefill", rc)
     _build.launches[launch_name("paged_prefill", quant_dtype)] += 1
-    return out.to(q.dtype), lse
+    return unpad_features(out, plan.head_dim).to(q.dtype), lse
 
 
 def paged_prefill_attention(

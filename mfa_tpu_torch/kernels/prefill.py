@@ -33,6 +33,12 @@ visible to every row) and `kv_position_offset` (row r sits at position r
 zero-shift engines cannot bound its unbounded shift. The tile lists the
 sink tiles ahead of the band (csrc/flash_fwd_sm90.cuh:span_of).
 
+Any head_dim up to 256: the kernels run at the head-dim plan's D (64,
+128 or 256; dispatch/config.py:head_dim_plan) on rows of the plan's stored
+width, d itself unless its bytes are not a multiple of 16 (then a
+zero-padded copy, its output sliced back). The engine choice and the
+softmax scale see the true d.
+
 A CUDA tensor runs the kernels (or raises); a CPU tensor runs each
 engine's plain fp32 version, which repeats its block algorithm: the same
 exponent, p cast to V's dtype before P.V, and flags and risky bits per
@@ -47,20 +53,18 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import cdiv, softmax_scale_default
+from mfa_tpu_torch.dispatch.config import (cdiv, head_dim_plan, pad_features,
+                                           softmax_scale_default,
+                                           unpad_features)
 from mfa_tpu_torch.kernels import _build
 
 _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
              _F, _F, _F, _I, _I, _P, _P]
-# q, k, v, o, lse, flags or bits, dtype, b, hq, hkv, sq, sk, d, wl, wr,
+# q, k, v, o, lse, flags or bits, dtype, b, hq, hkv, sq, sk, d, D, wl, wr,
 # scale_log2e, sinks, kv_off, stream (csrc/bound.cu)
-_ZS_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P]
-# head_dims of the kernels on the shared forward tile (varlen, paged
-# prefill) and of the backward; mfa_prefill_fwd also takes 256 (Gemma)
-KERNEL_HEAD_DIMS = (64, 128)
-PREFILL_HEAD_DIMS = KERNEL_HEAD_DIMS + (256,)
+_ZS_ARGTYPES = [_P] * 6 + [_I] * 10 + [_F, _I, _I, _P]
 # q rows per flag / risky bit: one consumer warpgroup of kernels 1-4's
 # 128-row blocks (csrc/flash_fwd_sm90.cuh WG_M)
 TILE_Q = 64
@@ -238,20 +242,20 @@ def check_band_options(window_left: int, sink_tokens: int,
 
 
 def _cuda_inputs(name, q, k, v):
-    """The checks every CUDA prefill engine shares -> dense (q, k, v)."""
+    """The checks every CUDA prefill engine shares -> dense (q, k, v) at
+    the head-dim plan's stored width, and the plan."""
     _build.refuse_grad(name, q, k, v)
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise NotImplementedError(
             f"the prefill kernel takes bf16/fp16, got {q.dtype}")
     batch, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d not in PREFILL_HEAD_DIMS:
-        raise NotImplementedError(f"the prefill kernel takes head_dim in "
-                                  f"{PREFILL_HEAD_DIMS}, got {d}")
+    plan = head_dim_plan(d)
     _build.same_device(name, q, k, v)
     _build.expect_shape(name, "k", k, (batch, hkv, sk, d))
     _build.expect_shape(name, "v", v, k.shape)
-    return _build.dense(q), _build.dense(k), _build.dense(v)
+    return (*(_build.dense(pad_features(t, plan.stored)) for t in (q, k, v)),
+            plan)
 
 
 def cuda_slopes(alibi, scale, num_heads, device):
@@ -268,7 +272,7 @@ def cuda_slopes(alibi, scale, num_heads, device):
 
 def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
                   return_lse, sinks=0, kv_off=0, alibi=None):
-    q, k, v = _cuda_inputs("prefill_attention", q, k, v)
+    q, k, v, plan = _cuda_inputs("prefill_attention", q, k, v)
     slopes = cuda_slopes(alibi, 1.0 / scale, q.shape[1], q.device)
     batch, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -279,22 +283,26 @@ def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
     fn = _build.function("prefill", "mfa_prefill_fwd", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _build.ptr(lse), _build.DTYPE_CODES[q.dtype], batch, hq, hkv, sq,
-            sk, d, window_left, window_right, scale_log2e, float(softcap),
-            scale / softcap if softcap else 0.0, sinks, kv_off,
+            sk, d, plan.kernel_dim, window_left, window_right, scale_log2e,
+            float(softcap), scale / softcap if softcap else 0.0, sinks, kv_off,
             _build.ptr(slopes), _build.stream_of(q))
     _build.check("prefill", rc)
     _build.launches["prefill"] += 1
+    out = unpad_features(out, plan.head_dim)
     return (out, lse) if return_lse else out
 
 
 def _zs_launch(kind, q, k, v, out, lse, table, scale, wl, wr, sinks=0,
                kv_off=0):
-    """One launch of csrc/bound.cu (kind: flagged, repair or bound)."""
+    """One launch of csrc/bound.cu (kind: flagged, repair or bound) on q,
+    k, v at a stored width d, run at head_dim_plan(d)'s kernel D (a stored
+    width is its own plan's)."""
     batch, hq, sq, d = q.shape
     fn = _build.function("bound", f"mfa_{kind}_fwd", _ZS_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _build.ptr(lse), _build.ptr(table), _build.DTYPE_CODES[q.dtype],
-            batch, hq, k.shape[1], sq, k.shape[2], d, wl, wr, scale * _LOG2E,
+            batch, hq, k.shape[1], sq, k.shape[2], d,
+            head_dim_plan(d).kernel_dim, wl, wr, scale * _LOG2E,
             sinks, kv_off, _build.stream_of(q))
     _build.check("bound", rc)
     _build.launches[kind] += 1
@@ -304,7 +312,7 @@ def _engine_cuda(engine, mode, q, k, v, scale, wl, wr, return_lse, sinks=0,
                  kv_off=0):
     """The zero-shift engines on CUDA tensors -> (out, lse, flags or None).
     The flags and risky bits stay on the device."""
-    q, k, v = _cuda_inputs("prefill_attention", q, k, v)
+    q, k, v, plan = _cuda_inputs("prefill_attention", q, k, v)
     batch, hq, sq, _ = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq, sq), dtype=torch.float32, device=q.device)
@@ -317,10 +325,11 @@ def _engine_cuda(engine, mode, q, k, v, scale, wl, wr, return_lse, sinks=0,
         if mode in (True, "flag_debug"):
             _zs_launch("repair", q, k, v, out, lse, flags, scale, wl, wr,
                        sinks, kv_off)
-        return out, lse, flags
+        return unpad_features(out, plan.head_dim), lse, flags
+    # zero features leave the row norms, so the risky bits, unchanged
     bits = None if mode == "unchecked" else _risky_bits(q, k, scale * _LOG2E)
     _zs_launch("bound", q, k, v, out, lse, bits, scale, wl, wr, sinks, kv_off)
-    return out, lse, None
+    return unpad_features(out, plan.head_dim), lse, None
 
 
 def select_engine(bound_softmax, dtype, head_dim: int, softcap: float,
@@ -328,7 +337,8 @@ def select_engine(bound_softmax, dtype, head_dim: int, softcap: float,
     """-> (engine, mode): engine "classic" (kernel 1), "flagged" (kernels
     2 + 3) or "bound" (kernel 4), as mfa_tpu's prefill_attention selects
     it (softcap and ALiBi keep the classic engine), plus the port's fp16
-    rule (module docstring)."""
+    rule (module docstring). head_dim is the true d, never the padded
+    width a kernel runs at: d 80 takes the bound engine, as in mfa_tpu."""
     mode = True if bound_softmax is None else bound_softmax
     if mode is not True and mode is not False and mode not in MODES[2:]:
         raise ValueError(f"bound_softmax must be one of {MODES} or None, got "

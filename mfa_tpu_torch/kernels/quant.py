@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from mfa_tpu_torch.dispatch.config import head_dim_plan
+
 KV_QUANT_DTYPES = ("int8", "fp8", "int4")
 FP8 = torch.float8_e4m3fn
 
@@ -41,13 +43,17 @@ def storage_dtype(quant_dtype: str) -> torch.dtype:
 
 
 def row_width(quant_dtype: Optional[str], head_dim: int) -> int:
-    """Stored elements of a page row: head_dim, or head_dim / 2 bytes for
-    int4."""
-    if quant_dtype == "int4":
-        if head_dim % 2:
-            raise ValueError(f"int4 KV needs an even head_dim, got {head_dim}")
-        return head_dim // 2
-    return head_dim
+    """Stored elements of a page row at the head-dim plan's stored width
+    (dispatch/config.py:head_dim_plan): its features, or half of them in
+    bytes for int4 (d 80: 80 features, int4 48 bytes). The JAX package
+    pads rows to 128 lanes instead, for the TPU's DMA."""
+    stored = head_dim_plan(head_dim, quant_dtype).stored
+    return stored // 2 if quant_dtype == "int4" else stored
+
+
+def page_features(quant_dtype: Optional[str], pages: torch.Tensor) -> int:
+    """Features a stored page row holds (int4: two a byte)."""
+    return 2 * pages.shape[-1] if quant_dtype == "int4" else pages.shape[-1]
 
 
 def quantize_rows(x: torch.Tensor, quant_dtype: str
@@ -127,9 +133,12 @@ def page_format(quant_dtype: Optional[str], k_pages: torch.Tensor,
     if fmt is not None and k_pages.dtype != storage_dtype(fmt):
         raise ValueError(f"{fmt} pages are stored as {storage_dtype(fmt)}, "
                          f"got {k_pages.dtype}")
-    width = row_width(fmt, head_dim)
-    if k_pages.shape[-1] != width:
-        raise ValueError(f"page width {k_pages.shape[-1]} != {width} "
-                         f"({fmt or 'unquantized'} pages of head_dim "
-                         f"{head_dim})")
+    # the stored width, or unpadded rows (int4: an even head_dim's halves)
+    widths = {row_width(fmt, head_dim)}
+    if fmt != "int4" or head_dim % 2 == 0:
+        widths.add(head_dim // 2 if fmt == "int4" else head_dim)
+    if k_pages.shape[-1] not in widths:
+        raise ValueError(f"page width {k_pages.shape[-1]} not in "
+                         f"{sorted(widths)} ({fmt or 'unquantized'} pages of "
+                         f"head_dim {head_dim}: stored or unpadded)")
     return fmt

@@ -10,6 +10,8 @@ The TPU kernel's segment-id masks, prefetched per-q-block KV bounds and
 zero-shift fast path exist because a TPU grid is static; the classic
 algorithm here computes the same function exactly.
 Sinks and ALiBi act on positions local to each sequence, as in mfa_tpu.
+Any head_dim up to 256, as kernel 1 takes it (dispatch/config.py:
+head_dim_plan).
 A CPU tensor runs `_varlen_plain` (kernel 1's plain version per sequence).
 
 With block_table, k/v are a paged pool and the call goes to the paged
@@ -25,15 +27,17 @@ from typing import Optional
 
 import torch
 
-from mfa_tpu_torch.dispatch.config import softmax_scale_default
+from mfa_tpu_torch.dispatch.config import (head_dim_plan, pad_features,
+                                           softmax_scale_default,
+                                           unpad_features)
 from mfa_tpu_torch.kernels import _build
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
-from mfa_tpu_torch.kernels.prefill import (PREFILL_HEAD_DIMS, _prefill_plain,
-                                            check_band_options, cuda_slopes)
+from mfa_tpu_torch.kernels.prefill import (_prefill_plain, check_band_options,
+                                            cuda_slopes)
 
 _LOG2E = math.log2(math.e)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 7 + [_I] * 10 + [_F, _F, _F, _I, _P, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 11 + [_F, _F, _F, _I, _P, _P]
 
 
 def _varlen_plain(q, k, v, cu_q, cu_k, scale, window_left, window_right,
@@ -62,14 +66,12 @@ def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
             f"the varlen kernel takes bf16/fp16, got {q.dtype}")
     total_q, hq, d = q.shape
     hkv = k.shape[1]
-    if d not in PREFILL_HEAD_DIMS:
-        raise NotImplementedError(f"the varlen kernel takes head_dim in "
-                                  f"{PREFILL_HEAD_DIMS}, got {d}")
+    plan = head_dim_plan(d)
     name = "varlen_attention"
     _build.same_device(name, q, k, v, cu_q, cu_k)
     _build.expect_shape(name, "v", v, k.shape)
     _build.expect_shape(name, "cu_seqlens_k", cu_k, cu_q.shape)
-    q, k, v = _build.dense(q), _build.dense(k), _build.dense(v)
+    q, k, v = (_build.dense(pad_features(t, plan.stored)) for t in (q, k, v))
     slopes = cuda_slopes(alibi, 1.0 / scale, hq, q.device)
     out = torch.empty_like(q)
     lse = (torch.empty((hq, total_q), dtype=torch.float32, device=q.device)
@@ -78,12 +80,14 @@ def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _build.ptr(lse), cu_q.data_ptr(), cu_k.data_ptr(),
             _build.DTYPE_CODES[q.dtype], cu_q.shape[0] - 1, hq, hkv, total_q,
-            k.shape[0], int(max_seqlen_q), d, window_left, window_right,
-            _LOG2E if softcap else scale * _LOG2E, float(softcap),
+            k.shape[0], int(max_seqlen_q), plan.stored, plan.kernel_dim,
+            window_left, window_right, _LOG2E if softcap else scale * _LOG2E,
+            float(softcap),
             scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
             _build.stream_of(q))
     _build.check("prefill", rc)
     _build.launches["varlen"] += 1
+    out = unpad_features(out, d)
     return (out, lse) if return_lse else out
 
 

@@ -209,6 +209,18 @@ class LlamaConfig:
             ffn_dim=14336, rope_theta=10000.0, sliding_window=4096)
 
     @staticmethod
+    def h2o_danube_1_8b() -> "LlamaConfig":
+        """H2O-Danube-1.8B (h2oai/h2o-danube-1.8b-base config.json, a
+        Mistral-architecture model; arXiv 2401.16818, Table 1): 24 layers,
+        dim 2560, 32 q / 8 kv heads of 80, ffn 6912, vocab 32000,
+        rope_theta 1e4, rms_norm_eps 1e-5, a 4096-token sliding window,
+        untied lm_head."""
+        return LlamaConfig(
+            vocab_size=32000, dim=2560, n_layers=24, n_heads=32, n_kv_heads=8,
+            ffn_dim=6912, rope_theta=10000.0, norm_eps=1e-5,
+            sliding_window=4096)
+
+    @staticmethod
     def qwen2_7b() -> "LlamaConfig":
         """Qwen2-7B (Qwen/Qwen2-7B config.json): 28 layers, dim 3584, 28 q
         / 4 kv heads (a group of 7), ffn 18944, vocab 152064, rope_theta

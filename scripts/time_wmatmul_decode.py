@@ -134,9 +134,12 @@ def _decode_case(cs, decode, b, S, d, ns, gen, label, sweep=False):
         # sinks and ALiBi slopes (0, null) where the checkout's decode takes them
         takes_band = "sink_tokens" in inspect.signature(decode.decode_attention).parameters
         extra = (0, None) if takes_band else ()
+        # the kernel D after d where the checkout's launch takes one (one
+        # argument more; d is an instantiated head dim here, so D = d)
+        kd = (d,) if len(decode._PARTIALS_ARGTYPES) > 21 else ()
         ms = cs._time_ms(lambda: fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                                     lens.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
-                                    1, b, hq, hkv, S, d, nsp, tps, -1,
+                                    1, b, hq, hkv, S, d, *kd, nsp, tps, -1,
                                     scale * math.log2(math.e), 0.0, 0.0, *extra, stream))
         plain_ms = cs._time_ms(lambda: decode._decode_partials_plain(
             q, kc, vc, lens, scale, nsp, tps, -1, 0.0), iters=3)

@@ -154,21 +154,23 @@ def test_backward_head_dim_256(fused, causal, window):
     _case(8, 1, 128, 128, 4, 2, 256, causal, window=window, fused=fused)
 
 
-def test_kernel_head_dims_refuse_others_without_running():
-    """The CUDA route checks head_dim before it looks at a device or a
-    kernel: 96 is refused (a meta tensor typed like a card's), 256 passes
-    the check; kernel 7's tuple stays without 256."""
-    from mfa_tpu_torch.kernels import backward, prefill
+def test_kernel_head_dims_checked_without_running():
+    """The CUDA route checks its inputs before it looks at a device or a
+    kernel (meta tensors typed like a card's): head_dim 96 now passes (the
+    kernels run it at D 128 on rows of 96), 256 passes, 257 raises
+    ValueError as mfa_tpu does; fp32 is still refused."""
+    from mfa_tpu_torch.kernels import backward
 
-    assert backward.KERNEL_HEAD_DIMS == (64, 128, 256)
-    assert 256 not in prefill.KERNEL_HEAD_DIMS
-    for d in (96, 256):
+    for d, kernel_dim in ((96, 128), (256, 256)):
         t = torch.empty(1, 2, 8, d, dtype=torch.bfloat16, device="meta")
-        if d == 256:
-            backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
-        else:
-            with pytest.raises(NotImplementedError, match="head_dim"):
-                backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
+        plan = backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
+        assert (plan.kernel_dim, plan.stored) == (kernel_dim, d)
+    t = torch.empty(1, 2, 8, 257, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="head_dim"):
+        backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
+    t = torch.empty(1, 2, 8, 96, dtype=torch.float32, device="meta")
+    with pytest.raises(NotImplementedError, match="bf16/fp16"):
+        backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
 
 
 def test_grad_through_autograd_function_multi_tile():

@@ -217,6 +217,46 @@ def test_sinks_replay_matches_eager():
     torch.cuda.empty_cache()
 
 
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_head_dim_80_replay_matches_eager(quant):
+    """Two layers of H2O-Danube-1.8B's widths (head_dim 80, 4 q heads a kv
+    head, window 4096): replayed decode steps equal the eager steps bit for
+    bit, on int8 KV (80-byte rows) and int4 KV (rows widened to 48 bytes,
+    q padded to 96 features inside the graph), across a page boundary and
+    the paged kernel's split point."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.kernels.quant import row_width
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.h2o_danube_1_8b(), n_layers=2)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    cache, slots, tokens = _prefilled(cfg, params, quant, _split_lens())
+    assert cache.k_pages.shape[-1] == row_width(quant, 80)
+    ref = _clone(cache)
+    g = _graphs(cfg, params)
+    g.burst(cache, slots, tokens, 1)  # eager first step + capture
+    _, logits = llama.decode_step(params, cfg, ref, slots, tokens)
+    tok, ref_tok = g.buckets[2].tokens.clone(), logits.argmax(-1)
+    name = "paged_int4" if quant == "int4" else "paged"
+    for step in range(4):
+        _build.reset_launches()
+        _, logits = llama.decode_step(params, cfg, ref, slots, ref_tok)
+        eager = collections.Counter(_build.launches)
+        _build.reset_launches()
+        toks, _ = g.burst(cache, slots, tok, 1)
+        replayed = collections.Counter(_build.launches)
+        torch.cuda.synchronize()
+        ref_tok, tok = logits.argmax(-1), toks[0]
+        assert torch.equal(g.buckets[2].logits, logits), step
+        assert torch.equal(tok, ref_tok) and replayed == eager
+        assert eager[name] == cfg.n_layers
+        _assert_same_state(cache, ref)
+    del params, cache, ref, g
+    torch.cuda.empty_cache()
+
+
 def test_burst_counts_and_chains(model):
     """One 5-step burst from the graph: its tokens equal five eager steps
     chained on the host, and the counts are five times one step's."""

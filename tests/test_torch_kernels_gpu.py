@@ -1576,3 +1576,232 @@ def test_varlen_backward_alibi(dev):
     ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
                                      do.float(), cu, cu, 128 ** -0.5, -1, 0, 0.0, slopes)
     _bwd_close(got, ref, "varlen alibi")
+
+
+# -- every head_dim up to 256: the kernels at the next instantiated D ---------
+
+NEW_DIMS = (32, 80, 96, 100, 160, 192, 224)
+
+
+def _stored_pages(kf, vf, quant):
+    """Float pages [hkv, P, page, d] -> (k, v, k_scales, v_scales) as the
+    cache stores them: rows at the head-dim plan's stored width
+    (cache/paged_cache.py:stored_rows; int4 feature pairs)."""
+    from mfa_tpu_torch.cache.paged_cache import stored_rows
+    from mfa_tpu_torch.kernels.quant import FP8, quantize_rows
+
+    if quant is None:
+        return stored_rows(None, kf), stored_rows(None, vf), None, None
+    (kq, ks), (vq, vs) = quantize_rows(kf, quant), quantize_rows(vf, quant)
+    kp, vp = stored_rows(quant, kq), stored_rows(quant, vq)
+    if quant == "fp8":
+        kp, vp = kp.view(FP8), vp.view(FP8)
+    return kp, vp, ks, vs
+
+
+@pytest.mark.parametrize("d", NEW_DIMS)
+@pytest.mark.parametrize("mode", [None, False, "flag_only"])
+def test_head_dim_prefill_kernels(dev, d, mode):
+    """Kernels 1 (False) and 4 (the default at d % 128 != 0: the bound
+    prepass; "flag_only" asks for the flagged engine, which mfa_tpu gives
+    only at d % 128 == 0, and gets kernel 4 as there) at every d, causal
+    GQA 4:1 and a window with sinks; the output keeps the caller's d and
+    the engine is chosen from the true d, never the padded one."""
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = _rn(gen, 2, 8, 300, d), _rn(gen, 2, 2, 300, d), _rn(gen, 2, 2, 300, d)
+    engine = {None: "bound", False: "prefill", "flag_only": "bound"}[mode]
+    for wl, sinks in ((-1, 0), (100, 4)):
+        _build.reset_launches()
+        o, lse = prefill.prefill_attention(q, k, v, causal=True, window_size=(wl, -1),
+                                           sink_tokens=sinks, return_lse=True,
+                                           bound_softmax=mode)
+        assert dict(_build.launches) == {engine: 1} and o.shape == q.shape
+        ro, rl = prefill._prefill_plain(q.float(), k.float(), v.float(), d ** -0.5, wl,
+                                        0, 0.0, True, sinks)
+        _close(o, lse, ro, rl)
+
+
+@pytest.mark.parametrize("d", NEW_DIMS)
+def test_head_dim_varlen_and_image_block(dev, d):
+    from mfa_tpu_torch.kernels import _build, blockmask, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(d + 1)
+    lens = [200, 1, 0, 333]
+    q = _rn(gen, sum(lens), 8, d)
+    k, v = _rn(gen, sum(lens), 2, d), _rn(gen, sum(lens), 2, d)
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).int()
+    _build.reset_launches()
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, max(lens), max(lens), causal=True,
+                                     window_size=(77, -1), return_lse=True)
+    assert _build.launches["varlen"] == 1 and o.shape == q.shape
+    ro, rl = varlen._varlen_plain(q.float(), k.float(), v.float(), cu, cu, d ** -0.5, 77,
+                                  0, 0.0, True)
+    _close(o, lse, ro, rl)
+    qb, kb, vb = _rn(gen, 2, 8, 300, d), _rn(gen, 2, 4, 300, d), _rn(gen, 2, 4, 300, d)
+    ids = _run_ids(2, 300, [[(10, 80), (150, 280)], [(63, 64)]], dev)
+    o = blockmask.image_block_prefill(qb, kb, vb, ids, window_left=32)
+    ref = blockmask._image_block_plain(qb.float(), kb.float(), vb.float(), ids,
+                                       d ** -0.5, 32)
+    assert o.shape == qb.shape and (o.float() - ref).abs().max() < 2e-2
+
+
+@pytest.mark.parametrize("d", NEW_DIMS)
+def test_head_dim_decode_kernel(dev, d):
+    """Kernel 5 at every d, group 4 and group 16 (its 16-row blocks), one
+    split and three."""
+    from mfa_tpu_torch.kernels import _build, decode
+
+    gen = torch.Generator(device=dev).manual_seed(d + 2)
+    for hq, hkv in ((8, 2), (32, 2)):
+        q, k, v = _rn(gen, 3, hq, d), _rn(gen, 3, hkv, 700, d), _rn(gen, 3, hkv, 700, d)
+        L = torch.tensor([700, 0, 257], dtype=torch.int32, device=dev)
+        for ns in (1, 3):
+            _build.reset_launches()
+            o, lse = decode.decode_attention(q, k, v, L, num_splits=ns, window_left=300,
+                                             sink_tokens=3, return_lse=True)
+            assert dict(_build.launches) == {"decode": 1, "combine": 1}
+            n, tps = decode.split_layout(700, ns)
+            po, pl = decode._decode_partials_plain(q.float(), k.float(), v.float(), L,
+                                                   d ** -0.5, n, tps, 300, 0.0, 3)
+            ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+            _close(o, lse, ro.reshape(3, hq, d), rl.reshape(3, hq))
+
+
+@pytest.mark.parametrize("group,hkv", [(16, 2), (32, 1), (12, 2), (64, 1)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_kernel_any_group(dev, group, hkv, d):
+    """Kernel 5 with more than 8 q heads a kv head (before: refused): the
+    16-row blocks at the decode_groups shape's groups 16 and 32, a group
+    that is not a multiple of 16, and 64; the heuristic's split count and
+    4 splits."""
+    from mfa_tpu_torch.kernels import _build, decode
+
+    gen = torch.Generator(device=dev).manual_seed(group + d)
+    b, s = 4, 2100
+    hq = group * hkv
+    q, k, v = _rn(gen, b, hq, d), _rn(gen, b, hkv, s, d), _rn(gen, b, hkv, s, d)
+    L = torch.tensor([2100, 1, 1000, 0], dtype=torch.int32, device=dev)
+    for ns in (0, 4):
+        _build.reset_launches()
+        o, lse = decode.decode_attention(q, k, v, L, num_splits=ns, return_lse=True)
+        assert dict(_build.launches) == {"decode": 1, "combine": 1}
+        n, tps = decode.split_layout(s, ns or decode.default_splits(b, hkv, s, group))
+        po, pl = decode._decode_partials_plain(q.float(), k.float(), v.float(), L,
+                                               d ** -0.5, n, tps, -1, 0.0)
+        ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        _close(o, lse, ro.reshape(b, hq, d), rl.reshape(b, hq))
+    assert torch.all(o[3] == 0)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "fp8", "int4"])
+@pytest.mark.parametrize("d", NEW_DIMS)
+def test_head_dim_paged_kernels(dev, d, quant):
+    """Kernels 6 and 8 at every d on every page format, pages as the cache
+    stores them (int4 rows widened where d / 2 bytes are not a multiple
+    of 16: 48 bytes at d 80), NaN in the rows past each length; kernel 6
+    at group 4 and at group 16 (16-row blocks) with the split route."""
+    from mfa_tpu_torch.kernels import _build, paged, paged_prefill
+    from mfa_tpu_torch.kernels.quant import row_width
+
+    gen = torch.Generator(device=dev).manual_seed(d + 3)
+    page, pps, hkv = 32, 13, 2
+    lens = [300, 0, 33, 400]
+    b = len(lens)
+    P = b * pps + 3
+    kf, vf = _rn(gen, hkv, P, page, d), _rn(gen, hkv, P, page, d)
+    kp, vp, ks, vs = _stored_pages(kf, vf, quant)
+    assert kp.shape[-1] == row_width(quant, d)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for hq in (8, 32):
+        q = _rn(gen, b, hq, d)
+        _build.reset_launches()
+        o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
+                                       window_left=200, pos_offset=1, quant_dtype=quant,
+                                       return_lse=True)
+        assert _build.launches[paged.launch_name("paged", quant)] == 1
+        assert o.shape == q.shape
+        ro, rl = paged._paged_plain(q.float(), kp, vp, ks, vs, L, table, d ** -0.5, 200,
+                                    0.0, 1, quant_dtype=quant)
+        _close(o, lse, ro, rl)
+    q_start, sq = [0, 0, 1, 300], 100
+    qp = _rn(gen, b, sq, 8, d)
+    Lc = torch.tensor([100, 50, 33, 400], dtype=torch.int32, device=dev)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    o, lse = paged_prefill.paged_prefill_attention(
+        qp, kp, vp, Lc, qs, table, k_scales=ks, v_scales=vs, causal=True,
+        window_left=90, quant_dtype=quant, return_lse=True)
+    assert _build.launches[paged.launch_name("paged_prefill", quant)] == 1
+    assert o.shape == qp.shape
+    ro, rl = paged_prefill._paged_prefill_plain(
+        qp.float(), kp, vp, ks, vs, Lc, qs, (Lc - qs).clamp(min=0), table, d ** -0.5,
+        90, 0, 0.0, quant_dtype=quant)
+    _close(o, lse, ro, rl)
+
+
+def test_unpadded_pages_are_copied_to_the_stored_width(dev):
+    """bf16 pages of d 100 (200-byte rows: no TMA map reads them) and int4
+    pages of d 80 (40-byte rows): the wrappers copy them to the stored
+    width, and the result equals the stored pages'."""
+    from mfa_tpu_torch.kernels import paged, paged_prefill
+    from mfa_tpu_torch.kernels.quant import pack_int4, quantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(50)
+    L = torch.tensor([200, 70], dtype=torch.int32, device=dev)
+    table = torch.arange(1, 17, device=dev).reshape(2, 8).int()
+    for d, quant in ((100, None), (80, "int4")):
+        kf, vf = _rn(gen, 2, 17, 32, d), _rn(gen, 2, 17, 32, d)
+        stored = _stored_pages(kf, vf, quant)
+        if quant is None:
+            raw = (kf, vf, None, None)
+        else:
+            (kq, ks), (vq, vs) = quantize_rows(kf, quant), quantize_rows(vf, quant)
+            raw = (pack_int4(kq), pack_int4(vq), ks, vs)
+        assert raw[0].shape[-1] != stored[0].shape[-1]
+        q, qp = _rn(gen, 2, 8, d), _rn(gen, 2, 64, 8, d)
+        qs = torch.zeros(2, dtype=torch.int32, device=dev)
+        outs = []
+        for kp, vp, ks, vs in (raw, stored):
+            outs.append((
+                paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
+                                      quant_dtype=quant),
+                paged_prefill.paged_prefill_attention(
+                    qp, kp, vp, L.clamp(max=64), qs, table, k_scales=ks, v_scales=vs,
+                    quant_dtype=quant)))
+        assert all(torch.equal(a, b_) for a, b_ in zip(*outs))
+
+
+@pytest.mark.parametrize("d", NEW_DIMS)
+def test_head_dim_backward_kernels(dev, d):
+    """Kernels 11-13 (fused and split) and 14 at every d: gradients of the
+    caller's shape, within _bwd_close's limits of the plain backward."""
+    from mfa_tpu_torch.kernels import _build, backward, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(d + 4)
+    q, k, v, o, lse, do = _bwd_inputs(gen, 1, 8, 2, 333, 333, d, True, (100, -1), 0.0,
+                                      BF)
+    kw = dict(causal=True, window_size=(100, -1))
+    ref = backward._bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                              do.float(), d ** -0.5, 100, 0, 0.0)
+    _build.reset_launches()
+    fused = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=True, **kw)
+    split = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+    assert dict(_build.launches) == {"bwd_fused": 1, "bwd_dkv": 1, "bwd_dq": 1}
+    assert [g.shape for g in fused + split] == [q.shape, k.shape, v.shape] * 2
+    _bwd_close(fused, ref, "fused")
+    _bwd_close(split, ref, "split")
+    lens = [200, 1, 0, 333]
+    n = sum(lens)
+    q, k, v, do = (_rn(gen, n, h, d) for h in (8, 2, 2, 8))
+    cu = torch.tensor([0] + lens, device=dev).cumsum(0).int()
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, max(lens), max(lens), causal=True,
+                                     return_lse=True)
+    got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu, cu, causal=True)
+    ref = backward._varlen_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), cu, cu, d ** -0.5, -1, 0, 0.0)
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    _bwd_close(got, ref, "varlen")

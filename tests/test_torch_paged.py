@@ -124,6 +124,22 @@ def test_paged_rejects_what_is_not_ported():
                alibi_slopes=t(np.ones(q.shape[1], np.float32)))
     with pytest.raises(ValueError):
         paged_attention(*args, pos_offset=1, window_left=0)
+    # the card's route, on meta tensors (nothing built or run): pages off 8
+    # rows and fp32 stay refused at any head_dim
+    from mfa_tpu_torch.kernels import paged
+
+    def meta(d, page, dtype):
+        q = torch.empty(2, 8, d, dtype=dtype, device="meta")
+        pages = torch.empty(2, 5, page, d, dtype=dtype, device="meta")
+        ints = torch.empty(2, dtype=torch.int32, device="meta")
+        table = torch.empty(2, 2, dtype=torch.int32, device="meta")
+        return q, pages, pages, None, None, ints, table, 0.1, -1, 0.0, 0
+
+    for d in (80, 128):
+        with pytest.raises(NotImplementedError, match="multiple of 8"):
+            paged._paged_cuda(*meta(d, 12, torch.bfloat16))
+        with pytest.raises(NotImplementedError, match="pages"):
+            paged._paged_cuda(*meta(d, 16, torch.float32))
 
 
 def _split_case(seed, quant=False):

@@ -64,19 +64,27 @@ def test_paged_prefill_head_dim_256(name):
     _check(CASES_256[name], len(name), 256)
 
 
-def test_paged_prefill_refuses_head_dim_96_without_running():
-    """The card's route checks head_dim before any launch: 96 is refused
-    on meta tensors (nothing is built or run); kernel 8's tuple has 256."""
+def test_paged_prefill_head_dim_plan_without_running():
+    """The card's route checks its inputs before any launch, on meta
+    tensors (nothing is built or run): head_dim 96 now passes (kernel 8
+    runs it at D 128 on rows of 96), 257 raises ValueError as mfa_tpu does,
+    and what stays unported still raises: more than 64 q heads a kv head,
+    pages off 8 rows."""
     from mfa_tpu_torch.kernels import paged_prefill
 
-    assert paged_prefill.KERNEL_HEAD_DIMS == (64, 128, 256)
-    q = torch.empty(1, 8, 4, 96, dtype=torch.bfloat16, device="meta")
-    pages = torch.empty(2, 3, 16, 96, dtype=torch.bfloat16, device="meta")
-    ints = torch.empty(1, dtype=torch.int32, device="meta")
-    table = torch.empty(1, 1, dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        paged_prefill._paged_prefill_cuda(q, pages, pages, None, None, ints,
-                                          ints, ints, table, 0.1, -1, 0, 0.0)
+    def meta(d, hq=8, hkv=2, page=16):
+        q = torch.empty(1, 8, hq, d, dtype=torch.bfloat16, device="meta")
+        pages = torch.empty(hkv, 3, page, d, dtype=torch.bfloat16, device="meta")
+        return q, pages
+
+    plan = paged_prefill.cuda_plan(*meta(96))
+    assert (plan.kernel_dim, plan.stored, plan.padded) == (128, 96, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_prefill.cuda_plan(*meta(257))
+    with pytest.raises(NotImplementedError, match="group"):
+        paged_prefill.cuda_plan(*meta(96, hq=65, hkv=1))
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        paged_prefill.cuda_plan(*meta(96, page=12))
 
 
 def _check(spec, seed, d):
@@ -146,3 +154,23 @@ def test_paged_prefill_rejects_what_is_not_ported():
     with pytest.raises(ValueError):
         paged_prefill_attention(*args, k_scales=torch.ones(kp.shape[:3]),
                                 v_scales=torch.ones(kp.shape[:3]))
+    # the card's route, on meta tensors (nothing built or run): more than 64
+    # q heads a kv head, pages off 8 rows and fp32 stay refused at any
+    # head_dim
+    from mfa_tpu_torch.kernels import paged_prefill
+
+    def meta(d, hq=8, page=16, dtype=torch.bfloat16):
+        q = torch.empty(1, 8, hq, d, dtype=dtype, device="meta")
+        pages = torch.empty(1, 3, page, d, dtype=dtype, device="meta")
+        ints = torch.empty(1, dtype=torch.int32, device="meta")
+        table = torch.empty(1, 1, dtype=torch.int32, device="meta")
+        return (q, pages, pages, None, None, ints, ints, ints, table, 0.1, -1,
+                0, 0.0)
+
+    for d in (80, 128):
+        with pytest.raises(NotImplementedError, match="group"):
+            paged_prefill._paged_prefill_cuda(*meta(d, hq=65))
+        with pytest.raises(NotImplementedError, match="multiple of 8"):
+            paged_prefill._paged_prefill_cuda(*meta(d, page=12))
+        with pytest.raises(NotImplementedError, match="pages"):
+            paged_prefill._paged_prefill_cuda(*meta(d, dtype=torch.float32))
