@@ -137,6 +137,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    a draft of Llama-3.2-1B's widths built here with random weights, then
    the 8B as its own draft, then sampled; verify_step against sequential
    decode steps at 2 layers).
+   Then, still before them, the first engine behind the HTTP front end
+   (serve/server.py make_server, bursts of 8, pipelined; server_8b): a
+   lone request plain and streamed equal to a direct engine's tokens, the
+   first engine's 16 prompts from 16 concurrent clients twice (8 streamed,
+   4 with logprobs; TTFT p50 / p95 on the client clock and tok/s through
+   HTTP, cold while the batch buckets' graphs are captured and warm after
+   them), a stop sequence, bad bodies (400), and one failing step with 4
+   requests in flight (500 bodies and SSE error events, one recover(),
+   the bookkeeping emptied, the next request equal to the direct
+   engine's); then the scheduler's host time at that serve's shapes on
+   the native allocator and on the Python one.
    The library surface also calls flash_attn_func with a softcap and in
    fp16 (kernel 1) and at head_dim 64 (kernel 4); every bf16 prompt wave
    runs kernels 2 + 3.
@@ -159,7 +170,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    graphs-off tokens; then Mistral-7B at full width cut to 2 layers with a
    window of 64 and 4 sinks: prefill, decode, chunked and prefix-hit
    logits agree (int8 KV).
-5. A JSON line of per-kernel numbers, the card's name and power limit, and
+5. The instruments (utils/timing.py, utils/profiling.py, utils/native.py):
+   the peak table's entries for this card, scan_timeit of the paged
+   decode kernel at the 8B serve step within 2x of its CUDA-event time, a
+   profiler trace holding an annotation and the kernel's symbol, and the
+   g++ runtime's build seconds.
+6. A JSON line of per-kernel numbers, the card's name and power limit, and
    last the {"ok": true, "device": ...} line.
 """
 
@@ -172,8 +188,6 @@ import subprocess
 import sys
 import time
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 SEED = 0
 IMAGE_TOKEN = 262144  # Gemma3's <image> soft-token id (image_token_index)
 
@@ -206,6 +220,11 @@ def _time_ms(fn, iters: int = 20) -> float:
 
 
 def _bound(nbytes: float, flops: float):
+    """The least ms the card could take: bytes over the H100 SXM's memory
+    rate against operations over its dense bf16 rate (utils/timing.py's
+    table), whichever is larger."""
+    from mfa_tpu_torch.utils.timing import PEAK_BF16_FLOPS, PEAK_BYTES
+
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
@@ -2335,6 +2354,317 @@ def sampling_engine_phase(counts, ident, state):
     return ok
 
 
+def _post_json(base, body, timeout=600):
+    """POST a completion -> (HTTP status, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/completions",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _post_sse(base, body, timeout=600):
+    """POST a streamed completion -> dict(tokens, lps, events, errors,
+    ttft_s: client seconds from the send to the first event, done: the
+    stream ended with data: [DONE])."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/completions",
+                                 data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    out = dict(tokens=[], lps=[], events=0, errors=[], ttft_s=None, done=False)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if out["ttft_s"] is None:
+                out["ttft_s"] = time.perf_counter() - t0
+            payload = line[len("data: "):]
+            if payload == "[DONE]":
+                out["done"] = True
+                break
+            evt = json.loads(payload)
+            if "error" in evt:
+                out["errors"].append(evt["error"]["message"])
+                continue
+            out["tokens"] += evt["choices"][0]["token_ids"]
+            out["lps"] += evt["choices"][0]["logprobs"]["token_logprobs"]
+            out["events"] += 1
+    return out
+
+
+def _run_clients(fns):
+    """Run the callables on threads released together -> their results in
+    order, and the wall seconds from the release to the last one's end."""
+    import threading
+
+    results = [None] * len(fns)
+    gate = threading.Barrier(len(fns) + 1)
+
+    def run(i):
+        gate.wait()
+        try:
+            results[i] = fns[i]()
+        except Exception as e:  # reported as this client's result
+            results[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a client thread did not finish within 600 s")
+    return results, wall
+
+
+def _ends_at(gen, seq):
+    """The prefix of gen up to the first occurrence of seq."""
+    for i in range(len(seq), len(gen) + 1):
+        if gen[i - len(seq):i] == seq:
+            return gen[:i]
+    return gen
+
+
+def server_phase(counts, ident, state):
+    """Main path, part 3e: the HTTP front end (serve/server.py, make_server
+    with its defaults burst=8, pipeline=True) over part 2's engine: the 8B
+    weights in `state`, int8 KV pages of 64, max_seqs 16. serve_forever
+    runs on a thread, the engine on the server's loop thread, clients on
+    threads of their own (urllib; no client touches the card, so no CUDA
+    call from another thread meets a graph capture). (a) One request alone
+    (part 2's first prompt, 32 new tokens), plain and then streamed: both
+    equal a direct engine's greedy tokens for that prompt alone. (b) Part
+    2's 16 prompts from 16 clients at once, 8 streamed, 4 of the plain ones
+    with logprobs: each 32 tokens, finish_reason "length", one logprob <= 0
+    a token; how many equal part 2's tokens is printed (concurrent arrival
+    changes waves and batch buckets, so bf16 near-ties may differ). The 16
+    are sent twice: cold (the burst captures the batch buckets' graphs on
+    its way) and warm (the graphs are there). (c) A
+    stop sequence ends its request with "stop"; malformed bodies get 400.
+    (d) step_pipelined raises once mid-decode with 4 requests in flight:
+    the plain clients get the 500 body, the streamed ones the SSE error
+    event, the engine recovers once (Engine.recover, its first run on the
+    card), abandons them and returns every page; then the lone request
+    again equals the direct engine's tokens. TTFT p50 / p95 on the client
+    clock and end-to-end tok/s of the 16, cold and warm, part 2's decode
+    rates beside them. The engine runs on the native allocator; last, the
+    scheduler's host bookkeeping at these shapes on it and on the Python
+    PageAllocator (_scheduler_host_us), beside part 2's decode step."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.cache.paged_cache import PageAllocator
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.serve.engine import Engine
+    from mfa_tpu_torch.serve.server import make_server
+    from mfa_tpu_torch.utils import native
+
+    params, cfg = state["params"], state["cfg"]
+    n_req, gen_tokens, L = 16, 32, cfg.n_layers
+    kw = dict(num_pages=128, page_size=64, max_seqs=16, pages_per_seq=8,
+              quant_dtype="int8", device="cuda")
+    traffic = [[int(t) for t in p] for p in _traffic(cfg)]
+    lone = traffic[0]
+    # the direct engine's tokens for the lone prompt, before the server runs
+    direct = Engine(params, cfg, **kw)
+    r0 = direct.submit(lone, gen_tokens)
+    direct.run(burst=8)
+    want = list(r0.generated)
+    del direct, r0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    eng = Engine(params, cfg, **kw)
+    free0 = eng.sched.allocator.free_pages
+    httpd = make_server(eng, port=0)
+    loop = httpd.loop
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    ok = type(eng.sched.allocator) is native.NativeAllocator
+    _build.reset_launches()
+    try:
+        # (a) one request alone, plain then streamed
+        code, body = _post_json(base, {"prompt": lone, "max_tokens": gen_tokens})
+        lone_plain = body["choices"][0]["token_ids"] if code == 200 else None
+        sse = _post_sse(base, {"prompt": lone, "max_tokens": gen_tokens})
+        lone_ok = lone_plain == want and sse["tokens"] == want and sse["done"]
+        ok &= lone_ok
+        print(f"server: lone request plain {'equals' if lone_plain == want else 'DIFFERS from'}"
+              f" the direct engine's {gen_tokens} tokens, streamed "
+              f"{'equals' if sse['tokens'] == want else 'DIFFERS'} ({sse['events']} "
+              f"events, TTFT {sse['ttft_s'] * 1e3:.1f} ms)", flush=True)
+
+        # (b) 16 clients at once, twice: the first burst captures the batch
+        # buckets' graphs on its way (cold), the second finds them (warm)
+        def client(i):
+            body = {"prompt": traffic[i], "max_tokens": gen_tokens}
+            if i % 2 == 0:
+                return _post_sse(base, body)
+            if i < 8:
+                body["logprobs"] = 1
+            return _post_json(base, body)
+
+        bursts = {}
+        for label in ("cold", "warm"):
+            s0 = dataclasses.replace(eng.stats)
+            results, wall = _run_clients([lambda i=i: client(i)
+                                          for i in range(n_req)])
+            s1 = eng.stats
+            agree, ttfts, good = 0, [], True
+            for i, res in enumerate(results):
+                if isinstance(res, Exception):
+                    print(f"server: client {i} raised {res!r}", flush=True)
+                    good = False
+                    continue
+                if i % 2 == 0:
+                    toks, lps = res["tokens"], res["lps"]
+                    good &= res["done"] and not res["errors"] and res["events"] >= 1
+                    ttfts.append(res["ttft_s"])
+                else:
+                    code, body = res
+                    if code != 200:
+                        print(f"server: client {i} got {code}: {body}", flush=True)
+                        good = False
+                        continue
+                    ch = body["choices"][0]
+                    toks = ch["token_ids"]
+                    good &= ch["finish_reason"] == "length"
+                    good &= body["usage"]["completion_tokens"] == gen_tokens
+                    lps = ch["logprobs"]["token_logprobs"] if i < 8 else None
+                    good &= (i < 8) == ("logprobs" in ch)
+                good &= len(toks) == gen_tokens
+                if lps is not None:
+                    good &= len(lps) == len(toks) and all(
+                        math.isfinite(x) and x <= 0.0 for x in lps)
+                agree += toks == state["step_tokens"][i]
+            ok &= good and len(ttfts) == n_req // 2
+            if len(ttfts) == n_req // 2:
+                bursts[label] = (
+                    *(float(np.percentile(ttfts, q)) * 1e3 for q in (50, 95)),
+                    n_req * gen_tokens / wall,
+                    n_req * gen_tokens / (wall - (s1.capture_s - s0.capture_s)))
+            print(f"server: {label} burst of {n_req} concurrent clients (8 "
+                  f"streamed, 4 with logprobs): all well-formed with {gen_tokens} "
+                  f"tokens: {good}; {agree} of {n_req} equal the engine phase's "
+                  f"tokens; TTFTs (ms) {sorted(round(t * 1e3, 1) for t in ttfts)}; "
+                  f"{n_req * gen_tokens} tokens in {wall:.3f} s; the engine "
+                  f"meanwhile: {s1.prefill_batches - s0.prefill_batches} waves in "
+                  f"{s1.prefill_s - s0.prefill_s:.3f} s, {s1.steps - s0.steps} decode "
+                  f"steps in {s1.readbacks - s0.readbacks} readbacks, "
+                  f"{s1.decode_s - s0.decode_s:.3f} s, {s1.captures - s0.captures} "
+                  f"graph captures ({s1.capture_s - s0.capture_s:.3f} s)", flush=True)
+
+        # (c) a stop sequence and malformed bodies
+        stop = want[4:6]
+        code, body = _post_json(base, {"prompt": lone, "max_tokens": gen_tokens,
+                                       "stop": stop})
+        stop_ok = code == 200 and body["choices"][0]["finish_reason"] == "stop" \
+            and body["choices"][0]["token_ids"] == _ends_at(want, stop)
+        bad = [_post_json(base, b)[0] for b in (
+            {"prompt": [], "max_tokens": 4},
+            {"prompt": lone, "max_tokens": 4, "temperature": "hot"})]
+        ok &= stop_ok and bad == [400, 400]
+        print(f"server: stop sequence ends with 'stop' at the direct tokens' "
+              f"match: {stop_ok}; malformed bodies answered {bad}", flush=True)
+
+        # (d) one injected engine failure mid-decode, 4 requests in flight
+        orig, seen = eng.step_pipelined, []
+
+        def flaky(n):
+            if len(seen) < 3:
+                if len(loop._streams) < 4:
+                    time.sleep(0.02)  # the four clients arrive
+                else:
+                    seen.append(n)  # two real steps with all four in flight
+                if len(seen) == 3:
+                    raise RuntimeError("injected engine failure")
+            return orig(n)
+
+        eng.step_pipelined = flaky
+        try:
+            failing = [traffic[i] for i in range(1, 5)]
+            res, _ = _run_clients(
+                [lambda p=p: _post_sse(base, {"prompt": p, "max_tokens": 64})
+                 for p in failing[:2]] +
+                [lambda p=p: _post_json(base, {"prompt": p, "max_tokens": 64})
+                 for p in failing[2:]])
+        finally:
+            eng.step_pipelined = orig
+        msg = "engine failure: injected engine failure"
+        fail_ok = all(not isinstance(x, Exception) for x in res)
+        fail_ok = fail_ok and all(x["errors"] == [msg] and x["done"] for x in res[:2])
+        fail_ok = fail_ok and all(x[0] == 500 and x[1]["error"]["message"] == msg
+                                  for x in res[2:])
+        rec_ok = eng.stats.recoveries == 1 and not eng._all_reqs \
+            and not eng._stream_pos and not eng.sched.active \
+            and eng.sched.allocator.free_pages == free0
+        code, body = _post_json(base, {"prompt": lone, "max_tokens": gen_tokens})
+        after = code == 200 and body["choices"][0]["token_ids"] == want
+        ok &= fail_ok and rec_ok and after
+        print(f"server: injected failure reported to its 4 clients (2 SSE error "
+              f"events, 2 x 500): {fail_ok}; recoveries {eng.stats.recoveries}, "
+              f"bookkeeping empty and {eng.sched.allocator.free_pages} of {free0} "
+              f"pages free: {rec_ok}; the lone request afterwards equals the "
+              f"direct engine's tokens: {after}", flush=True)
+    finally:
+        httpd.shutdown()
+        loop.close()
+        httpd.server_close()
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    stats = eng.stats
+    ok &= not loop._thread.is_alive()
+    ok &= _wave_launches(got, L * stats.prefill_batches)
+    ok &= got.get("paged", 0) >= L * stats.steps > 0
+    print(f"server launches {got}: flagged = repair = {L} layers x "
+          f"{stats.prefill_batches} waves, paged >= {L} x {stats.steps} decode "
+          f"steps (bursts dropped by the recovery count launches, not steps)",
+          flush=True)
+    for label, (p50, p95, tps, tps_nocap) in bursts.items():
+        print(f"server ({label}): TTFT p50 {p50:.1f} ms p95 {p95:.1f} ms (client "
+              f"clock, send to first SSE event, 8 streamed of the 16); {n_req} x "
+              f"{gen_tokens} tokens through HTTP: {tps:.1f} tok/s end to end, "
+              f"{tps_nocap:.1f} tok/s without the burst's graph captures; the "
+              f"engine phase's decode {state.get('decode_tps', math.nan):.1f} tok/s "
+              f"stepwise, {state.get('burst_tps_True', math.nan):.1f} tok/s in "
+              f"pipelined bursts of 8 [{ident}]", flush=True)
+    del eng, httpd, loop
+    torch.cuda.empty_cache()
+
+    # the scheduler's host bookkeeping at this serve's shapes, on the native
+    # allocator and on the Python one
+    lens = [len(p) for p in traffic]
+    host = {}
+    for cls in (native.NativeAllocator, PageAllocator) * 2:
+        host.setdefault(cls.__name__, []).append(
+            _scheduler_host_us(cls, lens, gen_tokens))
+    per = {k: [min(x[i] for x in v) for i in range(3)] for k, v in host.items()}
+    step_us = n_req / state["decode_tps"] * 1e6
+    print(f"server: the scheduler's host bookkeeping ({n_req} prompts of "
+          f"{min(lens)}-{max(lens)} tokens, pages of 64, {gen_tokens} decode steps; "
+          f"best of 2 runs of 20 rounds): "
+          + "; ".join(f"{k} admit {a:.2f} us, a decode step's page mapping "
+                      f"{d:.2f} us, finish {f:.2f} us" for k, (a, d, f) in per.items())
+          + f"; the engine phase's decode step {step_us:.1f} us, the native "
+          f"mapping {per['NativeAllocator'][1] / step_us * 100:.4f}% of it "
+          f"[{ident}]", flush=True)
+    return ok
+
+
 def llama32_1b_draft_config(cfg):
     """Llama-3.2-1B's widths from its public config.json
     (meta-llama/Llama-3.2-1B): dim 2048, 16 layers, 32 q / 8 kv heads of 64,
@@ -2768,6 +3098,7 @@ def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
 
     from mfa_tpu_torch.kernels import _build
     from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.utils import timing
 
     params, cfg = state.pop("params"), state.pop("cfg")
     lr, (b, s) = 1.0, shape
@@ -2813,7 +3144,7 @@ def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
           f"weights changed {changed}", flush=True)
     print(f"train: step {step_s * 1e3:.1f} ms (mean of steps 2-3; step 1 "
           f"{times[0] * 1e3:.1f} ms), {b * s / step_s:.1f} train tokens/s, peak "
-          f"memory {peak_gb:.2f} GB; model-FLOPs share {model_flops / step_s / PEAK_BF16_FLOPS:.4f} "
+          f"memory {peak_gb:.2f} GB; model-FLOPs share {model_flops / step_s / timing.PEAK_BF16_FLOPS:.4f} "
           f"= (6 N T + 12 hq d P) / step time / 989 TFLOP/s with N = {n_mat} "
           f"weights in matmuls (layers + lm_head, not the embedding table), T = "
           f"{b * s} tokens, P = {pairs} visible pairs summed over the "
@@ -4518,6 +4849,119 @@ def cpu_vs_cuda_danube_phase():
     return ok
 
 
+def instruments_phase(ident):
+    """The port's instruments on the card (not the main path): the peak
+    table's entries for this card (utils/timing.py); scan_timeit of kernel
+    6 at the 8B serve step (int8 pages of 64, b16 hq32 hkv8, lens about
+    300, pos_offset 1), chained through timing.chain, beside _time_ms of
+    the same call (fails only when it is <= 0 or more than 2x off: a broken
+    harness); profiling.trace around one eager call of kernel 6 inside
+    annotate("paged_decode"), the Chrome trace holding the annotation and,
+    where the trace has device events, the kernel's symbol (splitkv_kernel);
+    and the native runtime's build seconds."""
+    import os
+
+    import torch
+
+    from mfa_tpu_torch.kernels import paged
+    from mfa_tpu_torch.kernels.quant import quantize_rows
+    from mfa_tpu_torch.utils import native, profiling, timing
+
+    ok = True
+    bw, peak = timing.device_bw(), timing.device_peak_flops()
+    ok &= bw == timing.PEAK_BYTES and peak == timing.PEAK_BF16_FLOPS
+    print(f"instruments: device_bw {bw:.3e} B/s, device_peak_flops {peak:.3e} "
+          f"FLOP/s for {torch.cuda.get_device_name()} [{ident}]", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, hq, hkv, d, page = 16, 32, 8, 128, 64
+    lens_l = [300 - 7 * i for i in range(b)]
+    pps = max(lens_l) // page + 1
+    P = b * pps + 1
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q = rn(b, hq, d)
+    kp, ks = quantize_rows(rn(hkv, P, page, d), "int8")
+    vp, vs = quantize_rows(rn(hkv, P, page, d), "int8")
+    bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+          ).reshape(b, pps).to(torch.int32)
+    L = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+
+    def call(qc):
+        return paged.paged_attention(qc, kp, vp, L, bt, k_scales=ks,
+                                     v_scales=vs, pos_offset=1)
+
+    scan_ms = timing.scan_timeit(lambda qc: timing.chain(qc, call(qc)), q) * 1e3
+    ms = _time_ms(lambda: call(q))
+    ratio = scan_ms / ms
+    ok &= scan_ms > 0 and 0.5 <= ratio <= 2.0
+    print(f"instruments: scan_timeit of kernel 6 at the 8B serve step, chained "
+          f"(a CUDA graph of N and 2N steps): {scan_ms:.4f} ms an iteration; "
+          f"_time_ms of the same call {ms:.4f} ms; ratio {ratio:.3f} "
+          f"(limit 0.5-2) [{ident}]", flush=True)
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out", "traces")
+    call(q)
+    torch.cuda.synchronize()
+    with profiling.trace(out_dir) as prof:
+        with profiling.annotate("paged_decode"):
+            call(q)
+    with open(prof.trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    annotated = any(e.get("name") == "paged_decode" for e in events)
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    symbol = any("splitkv_kernel" in k for k in kernels)
+    ok &= annotated and (symbol or not kernels)
+    print(f"instruments: trace {os.path.relpath(prof.trace_path)}: annotation "
+          f"'paged_decode' {'present' if annotated else 'MISSING'}; "
+          + (f"{len(kernels)} device kernel events, splitkv_kernel "
+             f"{'present' if symbol else 'MISSING'}" if kernels else
+             "NO device events (CUPTI recorded no kernel)"), flush=True)
+
+    secs = native.build_seconds
+    ok &= secs is not None
+    print(f"instruments: native runtime (g++) built in "
+          f"{'n/a' if secs is None else f'{secs:.2f} s'} (the scheduler's host "
+          f"time on it: server_8b)", flush=True)
+    return ok
+
+
+def _scheduler_host_us(allocator_cls, lens, gen_tokens, rounds=20):
+    """Host microseconds of the scheduler bookkeeping of part 2's serve
+    (max_seqs 16, pages of 64, 8 pages a sequence, 128 pages) with its
+    allocator replaced by `allocator_cls`: (admitting the prompts of `lens`
+    at once, one decode step's ensure_decode_pages over every request,
+    finishing them all), each the mean over `rounds` lifecycles of
+    `gen_tokens` steps. Admission goes through native.admit either way."""
+    from mfa_tpu_torch.serve.scheduler import Request, Scheduler
+
+    admit_s = step_s = finish_s = 0.0
+    for _ in range(rounds):
+        s = Scheduler(max_seqs=16, pages_per_seq=8, page_size=64, num_pages=128)
+        s.allocator = allocator_cls(128)
+        for i, n in enumerate(lens):
+            s.submit(Request(i, [0] * n, gen_tokens))
+        t0 = time.perf_counter()
+        reqs = s.admit()
+        admit_s += time.perf_counter() - t0
+        for _ in range(gen_tokens):
+            t0 = time.perf_counter()
+            for r in reqs:
+                s.ensure_decode_pages(r, 1)
+            step_s += time.perf_counter() - t0
+            for r in reqs:
+                r.generated.append(1)
+        t0 = time.perf_counter()
+        for r in reqs:
+            s.finish(r)
+        finish_s += time.perf_counter() - t0
+    return (admit_s / rounds * 1e6, step_s / (rounds * gen_tokens) * 1e6,
+            finish_s / rounds * 1e6)
+
+
 def main() -> int:
     try:
         import torch
@@ -4598,63 +5042,66 @@ def main() -> int:
     phases = {}
     counts = {}
     state = {}
-    for name, fn in (("kernels", lambda: kernel_phase(records)),
-                     ("sinks_kernels", sinks_kernels),
-                     ("head_dim_kernels", head_dim_kernels),
-                     ("decode_groups", decode_groups),
-                     ("library_surface", lambda: library_surface(counts)),
-                     ("engine_8b", lambda: engine_phase(counts, ident, state)),
-                     ("engine_8b_kvq", lambda: kvq_engine_phase(counts, ident, state)),
-                     ("chunked_prefix_engine_8b",
-                      lambda: chunked_engine_phase(counts, ident, state)),
-                     ("chunked_prefix_engine_8b_int4",
-                      lambda: chunked_engine_phase(counts, ident, state, "int4")),
-                     ("chunked_prefix_engine_8b_fp8",
-                      lambda: chunked_engine_phase(counts, ident, state, "fp8")),
-                     ("engine_8b_burst",
-                      lambda: burst_engine_phase(counts, ident, state)),
-                     ("engine_8b_sampling",
-                      lambda: sampling_engine_phase(counts, ident, state)),
-                     ("engine_8b_speculative",
-                      lambda: speculative_engine_phase(counts, ident, state)),
-                     ("train_8b", lambda: train_phase(counts, ident, state)),
-                     ("engine_gemma3_4b_vision",
-                      lambda: engine_gemma3_phase(counts, ident, state)),
-                     ("chunked_prefix_engine_gemma3_4b",
-                      lambda: chunked_engine_phase(counts, ident, state, "int8",
-                                                   "Gemma3-4B")),
-                     ("chunked_prefix_engine_gemma3_4b_int4",
-                      lambda: chunked_engine_phase(counts, ident, state, "int4",
-                                                   "Gemma3-4B")),
-                     ("chunked_prefix_engine_gemma3_4b_fp8",
-                      lambda: chunked_engine_phase(counts, ident, state, "fp8",
-                                                   "Gemma3-4B")),
-                     ("train_gemma3_4b",
-                      lambda: train_phase(counts, ident, state, "Gemma3-4B")),
-                     ("engine_8b_int8w", lambda: engine_int8w_phase(counts, ident)),
-                     ("checkpoint_qwen2_7b", lambda: checkpoint_phase(counts, ident)),
-                     ("chunked_prefix_engine_qwen2_7b",
-                      lambda: family_engine_phase(counts, ident, state, "Qwen2-7B")),
-                     ("chunked_prefix_engine_gemma2_9b",
-                      lambda: family_engine_phase(counts, ident, state, "Gemma2-9B")),
-                     ("engine_mixtral_8x7b",
-                      lambda: engine_mixtral_phase(counts, ident, state)),
-                     ("engine_mistral_7b_sinks",
-                      lambda: engine_mistral_sinks_phase(counts, ident, state)),
-                     ("train_mistral_7b_sinks",
-                      lambda: train_phase(counts, ident, state, "Mistral-7B-sinks",
-                                          (1, 8192))),
-                     ("engine_danube_1_8b",
-                      lambda: engine_danube_phase(counts, ident, state)),
-                     ("train_danube_1_8b",
-                      lambda: train_phase(counts, ident, state, "H2O-Danube-1.8B")),
-                     ("cuda_vs_cpu", cpu_vs_cuda_phase),
-                     ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
-                     ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase),
-                     ("cuda_vs_cpu_families", cpu_vs_cuda_families_phase),
-                     ("cuda_vs_cpu_moe", cpu_vs_cuda_moe_phase),
-                     ("cuda_vs_cpu_sinks", cpu_vs_cuda_sinks_phase),
-                     ("cuda_vs_cpu_danube", cpu_vs_cuda_danube_phase)):
+    phase_fns = (("kernels", lambda: kernel_phase(records)),
+                 ("sinks_kernels", sinks_kernels),
+                 ("head_dim_kernels", head_dim_kernels),
+                 ("decode_groups", decode_groups),
+                 ("library_surface", lambda: library_surface(counts)),
+                 ("engine_8b", lambda: engine_phase(counts, ident, state)),
+                 ("engine_8b_kvq", lambda: kvq_engine_phase(counts, ident, state)),
+                 ("chunked_prefix_engine_8b",
+                  lambda: chunked_engine_phase(counts, ident, state)),
+                 ("chunked_prefix_engine_8b_int4",
+                  lambda: chunked_engine_phase(counts, ident, state, "int4")),
+                 ("chunked_prefix_engine_8b_fp8",
+                  lambda: chunked_engine_phase(counts, ident, state, "fp8")),
+                 ("engine_8b_burst",
+                  lambda: burst_engine_phase(counts, ident, state)),
+                 ("engine_8b_sampling",
+                  lambda: sampling_engine_phase(counts, ident, state)),
+                 ("engine_8b_speculative",
+                  lambda: speculative_engine_phase(counts, ident, state)),
+                 ("server_8b", lambda: server_phase(counts, ident, state)),
+                 ("train_8b", lambda: train_phase(counts, ident, state)),
+                 ("engine_gemma3_4b_vision",
+                  lambda: engine_gemma3_phase(counts, ident, state)),
+                 ("chunked_prefix_engine_gemma3_4b",
+                  lambda: chunked_engine_phase(counts, ident, state, "int8",
+                                               "Gemma3-4B")),
+                 ("chunked_prefix_engine_gemma3_4b_int4",
+                  lambda: chunked_engine_phase(counts, ident, state, "int4",
+                                               "Gemma3-4B")),
+                 ("chunked_prefix_engine_gemma3_4b_fp8",
+                  lambda: chunked_engine_phase(counts, ident, state, "fp8",
+                                               "Gemma3-4B")),
+                 ("train_gemma3_4b",
+                  lambda: train_phase(counts, ident, state, "Gemma3-4B")),
+                 ("engine_8b_int8w", lambda: engine_int8w_phase(counts, ident)),
+                 ("checkpoint_qwen2_7b", lambda: checkpoint_phase(counts, ident)),
+                 ("chunked_prefix_engine_qwen2_7b",
+                  lambda: family_engine_phase(counts, ident, state, "Qwen2-7B")),
+                 ("chunked_prefix_engine_gemma2_9b",
+                  lambda: family_engine_phase(counts, ident, state, "Gemma2-9B")),
+                 ("engine_mixtral_8x7b",
+                  lambda: engine_mixtral_phase(counts, ident, state)),
+                 ("engine_mistral_7b_sinks",
+                  lambda: engine_mistral_sinks_phase(counts, ident, state)),
+                 ("train_mistral_7b_sinks",
+                  lambda: train_phase(counts, ident, state, "Mistral-7B-sinks",
+                                      (1, 8192))),
+                 ("engine_danube_1_8b",
+                  lambda: engine_danube_phase(counts, ident, state)),
+                 ("train_danube_1_8b",
+                  lambda: train_phase(counts, ident, state, "H2O-Danube-1.8B")),
+                 ("cuda_vs_cpu", cpu_vs_cuda_phase),
+                 ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
+                 ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase),
+                 ("cuda_vs_cpu_families", cpu_vs_cuda_families_phase),
+                 ("cuda_vs_cpu_moe", cpu_vs_cuda_moe_phase),
+                 ("cuda_vs_cpu_sinks", cpu_vs_cuda_sinks_phase),
+                 ("cuda_vs_cpu_danube", cpu_vs_cuda_danube_phase),
+                 ("instruments", lambda: instruments_phase(ident)))
+    for name, fn in phase_fns:
         t0 = time.perf_counter()
         try:
             phases[name] = bool(fn())

@@ -93,6 +93,10 @@ class EngineStats:
         return (self.spec_accepted / self.spec_proposed
                 if self.spec_proposed else 0.0)
 
+    @property
+    def decode_tokens_per_s(self) -> float:
+        return self.decode_tokens / self.wall_s if self.wall_s else 0.0
+
 
 def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256)) -> int:
     for b in buckets:
@@ -253,6 +257,14 @@ class Engine:
         self._stream_pos[req.uid] = 0
         self._all_reqs[req.uid] = req
         return req
+
+    def abandon(self, uids) -> None:
+        """Drop the streaming bookkeeping of requests whose clients are gone
+        (the server's failure path): requests that never reach `done`
+        would otherwise stay in _all_reqs and _stream_pos for good."""
+        for uid in list(uids):
+            self._stream_pos.pop(uid, None)
+            self._all_reqs.pop(uid, None)
 
     def poll(self):
         """Tokens generated since the last poll(): {uid: [tokens...]}.

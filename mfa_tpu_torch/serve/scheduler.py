@@ -4,8 +4,11 @@ FIFO admission with page-budget control (a request is admitted only when
 a sequence slot AND pages for its prompt plus one decode page are free),
 per-step page mapping, preemption of the youngest request under page
 pressure, slot/page recycling, and the optional prefix cache (shared prompt
-pages). Host-side and deterministic. `admit_counts` is this package's own
-copy of the Python admission rule of mfa_tpu/utils/native.py.
+pages). Host-side and deterministic. Page allocation and FIFO admission
+run in the native runtime (utils/native.py: csrc/runtime.cpp through
+ctypes), with the page ids and order of mfa_tpu's Python allocator. Unlike
+mfa_tpu, a runtime that cannot be built raises: nothing falls back to
+Python.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import dataclasses
 from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
-from mfa_tpu_torch.cache.paged_cache import PageAllocator
+from mfa_tpu_torch.utils import native
 
 
 @dataclasses.dataclass
@@ -61,22 +64,6 @@ class Request:
     @property
     def total_len(self) -> int:
         return len(self.prompt) + len(self.generated)
-
-
-def admit_counts(prompt_lens: Sequence[int], free_slots: int,
-                 free_pages: int, page_size: int):
-    """-> (n_admitted, pages_needed list): admit in FIFO order while a slot
-    is free and the pages of the prompt plus one decode page fit."""
-    admitted, budget = 0, free_pages
-    needed = []
-    for ln in prompt_lens:
-        np_pages = max(1, -(-int(ln) // page_size))
-        if admitted >= free_slots or budget < np_pages + 1:
-            break
-        needed.append(np_pages)
-        budget -= np_pages
-        admitted += 1
-    return admitted, needed
 
 
 class PrefixCache:
@@ -171,7 +158,7 @@ class Scheduler:
         self.max_seqs = max_seqs
         self.pages_per_seq = pages_per_seq
         self.page_size = page_size
-        self.allocator = PageAllocator(num_pages)
+        self.allocator = native.NativeAllocator(num_pages)
         self.waiting: Deque[Request] = deque()
         self.active: Dict[int, Request] = {}  # slot -> request
         self._free_slots = list(range(max_seqs - 1, -1, -1))
@@ -192,7 +179,7 @@ class Scheduler:
             return self._admit_prefix()
         # total_len covers resumed requests (prompt + tokens generated
         # before a preemption's re-prefill)
-        _, pages_needed = admit_counts(
+        _, pages_needed = native.admit(
             [r.total_len for r in self.waiting], len(self._free_slots),
             self.allocator.free_pages, self.page_size)
         admitted = []

@@ -27,7 +27,9 @@ def test_import_loads_neither_jax_nor_mfa_tpu():
         "mfa_tpu_torch.models.vision, mfa_tpu_torch.kernels.blockmask, "
         "mfa_tpu_torch.models.wquant, mfa_tpu_torch.kernels.wmatmul, "
         "mfa_tpu_torch.models.safetensors_io, mfa_tpu_torch.models.convert, "
-        "mfa_tpu_torch.utils.checkpoint\n"
+        "mfa_tpu_torch.utils.checkpoint, mfa_tpu_torch.serve.server, "
+        "mfa_tpu_torch.utils.timing, mfa_tpu_torch.utils.profiling, "
+        "mfa_tpu_torch.utils.native\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', "
         "'mfa_tpu', 'transformers', 'safetensors', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -39,15 +41,32 @@ def test_import_loads_neither_jax_nor_mfa_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def _imports_jax_or_mfa_tpu(line: str) -> bool:
+    """An import statement, at any indentation (a lazy import inside a
+    function included), that names jax or mfa_tpu."""
+    stripped = line.strip()
+    if not stripped.startswith(("import ", "from ")):
+        return False
+    words = stripped.replace(",", " ").split()
+    return ("jax" in words or "mfa_tpu" in words
+            or any(w.startswith(("jax.", "mfa_tpu.")) for w in words))
+
+
 def test_package_sources_never_name_jax_or_mfa_tpu():
     for path in PKG.rglob("*.py"):
         for line in path.read_text().splitlines():
-            stripped = line.strip()
-            if stripped.startswith(("import ", "from ")):
-                words = stripped.replace(",", " ").split()
-                assert "jax" not in words and "mfa_tpu" not in words, (path, line)
-                assert not any(w.startswith(("jax.", "mfa_tpu.")) for w in words), (
-                    path, line)
+            assert not _imports_jax_or_mfa_tpu(line), (path, line)
+
+
+@pytest.mark.parametrize("line, bad", [
+    ("            from mfa_tpu.serve.sampling import SamplingParams", True),
+    ("    import jax.numpy as jnp", True),
+    ("from mfa_tpu import interface", True),
+    ("from mfa_tpu_torch.serve.sampling import SamplingParams", False),
+    ("# from mfa_tpu.serve.sampling import SamplingParams", False),
+])
+def test_source_scan_reaches_lazy_imports(line, bad):
+    assert _imports_jax_or_mfa_tpu(line) == bad
 
 
 def test_no_fused_attention_in_the_package():
@@ -76,8 +95,12 @@ def test_import_builds_no_kernel():
         "import mfa_tpu_torch, mfa_tpu_torch.serve.engine\n"
         "import mfa_tpu_torch.models.vision, mfa_tpu_torch.kernels.blockmask\n"
         "import mfa_tpu_torch.models.wquant, mfa_tpu_torch.kernels.wmatmul\n"
+        "import mfa_tpu_torch.serve.server, mfa_tpu_torch.utils.timing\n"
+        "import mfa_tpu_torch.utils.profiling\n"
         "from mfa_tpu_torch.kernels import _build\n"
+        "from mfa_tpu_torch.utils import native\n"
         "assert not _build._libs and _build.build_seconds is None\n"
+        "assert native._LIB is None and native.build_seconds is None\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
