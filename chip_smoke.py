@@ -151,6 +151,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    The library surface also calls flash_attn_func with a softcap and in
    fp16 (kernel 1) and at head_dim 64 (kernel 4); every bf16 prompt wave
    runs kernels 2 + 3.
+   Right after the first engine, the sharding layer (mfa_tpu_torch/shard/):
+   tp_engine_8b runs the first engine's weights and traffic behind
+   Engine(mesh=) at {"model": 1} over NCCL in this process, graphed
+   (tokens identical to the first engine's), then at {"model": 2} on two
+   spawned ranks that share the card over gloo (NCCL refuses two ranks on
+   one GPU; graphs off), on bf16 and on int8 weights: the ranks' tokens
+   identical, the first decode step's logits within relative L2 0.05 of
+   the unsharded model's. cp_ring_8b: ring attention prefill (causal and
+   window 4095) and its gradient at 8B heads, s 8192, over 4 ranks against
+   kernels 1 and 11 unsharded; context_parallel_decode (b16, S 32768) and
+   context_parallel_paged_decode (int8 pools) over 2, against kernels 5
+   and 6 on the whole cache; sequence_parallel_loss_fn on 2 layers at 8B
+   width against loss_fn. ep_mixtral: Mixtral-8x7B's MoE layer (int8
+   banks) expert-parallel over 2 ranks, both forms, at 16 and 4096 rows
+   against the unsharded routed output. pipeline_8b: a GPipe SGD step of
+   4 layers at 8B width over pipe 2, 4 microbatches of 1 x 2048, against
+   the unsharded step. The ranks build nothing (the kernels are built
+   first) and report their launch counts; their rates are the card's
+   shared by ranks over gloo, not multi-GPU rates.
 4. The 8B model cut to 2 layers, on the card (kernels) and on the CPU
    (plain versions) with the same weights: prefill, decode, chunked prefill
    and prefix-hit suffix logits agree on int8, fp8 and int4 KV pages, and
@@ -4962,6 +4981,576 @@ def _scheduler_host_us(allocator_cls, lens, gen_tokens, rounds=20):
             finish_s / rounds * 1e6)
 
 
+# ---- the sharding layer (shard/, serve/multihost.py): SPMD ranks ----------
+#
+# Every rank of these phases is a process of one card: NCCL runs only at
+# world size 1 there (it refuses two ranks on one GPU), so the parent runs
+# the model-1 engine over NCCL, and 2-4 spawned ranks time-share the card
+# over gloo (shard/launch.py), staging their collectives through host
+# memory. Their rates are not multi-GPU rates. The rank functions below run
+# in the spawned ranks (which import this file as a module) and return
+# numbers and launch counts; the parent checks and prints them.
+
+SHARD_RANKS = 4
+
+
+def _shard_ranks(shard):
+    """The phases' gloo ranks, spawned once (the kernels are built)."""
+    from mfa_tpu_torch.shard.launch import Ranks
+
+    if "ranks" not in shard:
+        shard["ranks"] = Ranks(SHARD_RANKS, device="cuda", backend="gloo",
+                               timeout_s=900)
+    return shard["ranks"]
+
+
+def _rates(shard, n):
+    """What the phases' rates are: n ranks sharing this card over gloo, or
+    shard["label"] where a caller gave the phases ranks of their own."""
+    return shard.get("label", "{n} ranks time-sharing one card over gloo, "
+                     "not a multi-GPU rate").format(n=n)
+
+
+def _close_ranks(shard):
+    ranks = shard.pop("ranks", None)
+    if ranks is not None:
+        ranks.close()
+
+
+def _diff(got, ref):
+    """(max |a - r|, mean |a - r|, max |r|, mean |r|, relative L2, finite)."""
+    import torch
+
+    a, r = got.float(), ref.float()
+    d = (a - r).abs()
+    return (float(d.max()), float(d.mean()), float(r.abs().max()),
+            float(r.abs().mean()), float((a - r).norm() / r.norm().clamp_min(1e-30)),
+            bool(torch.isfinite(a).all()))
+
+
+def _tp_prompts(cfg):
+    """engine_phase's traffic: 16 prompts of 200-256 tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    return [list(rng.randint(0, cfg.vocab_size, int(n)))
+            for n in rng.randint(200, 257, 16)]
+
+
+def _forced_logits(llama, cfg, params, prompts, mesh, tokens):
+    """Teacher-forced logits [32, 16, vocab] (fp32, int8 KV): the prefill's
+    last position, then 31 decode steps, step j fed tokens[i][j] in row
+    i, so a rank and the unsharded model score the same sequences."""
+    import torch
+
+    cache = llama.build_kv_caches(cfg, 128, 64, 16, 8, "int8", device="cuda",
+                                  mesh=mesh)
+    n = len(prompts)
+    pages = [list(range(1 + 5 * i, 6 + 5 * i)) for i in range(n)]
+    cache, logits = llama.prefill_batch(params, cfg, cache, list(range(n)),
+                                        pages, prompts, mesh=mesh)
+    out = [logits.float()]
+    for j in range(len(tokens[0]) - 1):
+        step = torch.tensor([t[j] for t in tokens], device="cuda")
+        cache, logits = llama.decode_step(params, cfg, cache, list(range(n)),
+                                          step, mesh=mesh)
+        out.append(logits.float())
+    return torch.stack(out)
+
+
+def _tp_engine_rank(quantize, forced):
+    """A rank of the {"model": 2} engine: its shard of Llama-3-8B (seeded
+    like engine_phase's weights), int8 KV, engine_phase's traffic; then
+    _forced_logits on `forced` (the unsharded engine's tokens)."""
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import Engine
+    from mfa_tpu_torch.shard.mesh import axis_index, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh({"model": 2})
+    if mesh.get_coordinate() is None:
+        return None
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, seed=SEED, device="cuda", quantize=quantize,
+                               mesh=mesh)
+    prompts = _tp_prompts(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                 pages_per_seq=8, quant_dtype="int8", device="cuda", mesh=mesh)
+    reqs = [eng.submit(p, 32) for p in prompts]
+    _build.reset_launches()
+    stats = eng.run()
+    launches = dict(_build.launches)
+    logits = _forced_logits(llama, cfg, params, prompts, mesh, forced)
+    first = axis_index(mesh, "model") == 0
+    out = dict(tokens=[list(r.generated) for r in reqs], launches=launches,
+               prefill_tps=stats.prefill_tokens / stats.prefill_s,
+               decode_tps=(stats.decode_tokens - len(reqs)) / stats.decode_s,
+               captures=stats.captures, steps=stats.steps,
+               waves=stats.prefill_batches,
+               kv_heads=int(eng.cache.k_pages.shape[0]),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               logits=logits.half().cpu().numpy() if first else None)
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _unsharded_reference(llama, cfg, params, prompts):
+    """The unsharded engine's tokens on engine_phase's traffic (int8 KV,
+    graphs on) and _forced_logits on them, on the card, in this process."""
+    from mfa_tpu_torch.serve.engine import Engine
+
+    eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                 pages_per_seq=8, quant_dtype="int8", device="cuda")
+    reqs = [eng.submit(p, 32) for p in prompts]
+    eng.run()
+    tokens = [list(r.generated) for r in reqs]
+    del eng
+    return tokens, _forced_logits(llama, cfg, params, prompts, None, tokens).cpu()
+
+
+def _first_divergence(tokens, want):
+    """Per row, the index of the first token that differs (its length when
+    none does)."""
+    return [next((j for j, (a, b) in enumerate(zip(t, w)) if a != b), len(t))
+            for t, w in zip(tokens, want)]
+
+
+def tp_engine_phase(counts, ident, state, shard):
+    """tp_engine_8b: Llama-3-8B at full width and depth behind
+    Engine(mesh=) with int8 KV and engine_phase's traffic. (a) {"model":
+    1} over NCCL in this process, graphs on: tokens identical to the
+    unsharded engine's. (b) {"model": 2}, two ranks time-sharing the card
+    over gloo (graphs off: gloo cannot be captured): the ranks' tokens
+    identical, and at each of 32 steps teacher-forced on the unsharded
+    engine's tokens (the prefill's last position and 31 decode steps) the
+    logits within relative L2 0.05 of the unsharded model's. (c) (b) on
+    int8 weights (kernel 10 on the ranks' N / 2 and K / 2 slices), held to
+    the unsharded int8 model and engine."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import Engine
+    from mfa_tpu_torch.shard.mesh import make_mesh
+
+    params, cfg, want = state["params"], state["cfg"], state["step_tokens"]
+    prompts = _tp_prompts(cfg)
+    mesh = make_mesh({"model": 1})
+    eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                 pages_per_seq=8, quant_dtype="int8", device="cuda", mesh=mesh)
+    reqs = [eng.submit(p, 32) for p in prompts]
+    _build.reset_launches()
+    stats = eng.run()
+    got = dict(_build.launches)
+    counts.update({k: counts.get(k, 0) + n for k, n in got.items()})
+    same = [list(r.generated) for r in reqs] == want
+    ok = same and stats.captures >= 1 and dist.get_backend() == "nccl"
+    ok &= got.get("paged", 0) == cfg.n_layers * stats.steps
+    print(f"tp_engine_8b model 1 over {dist.get_backend()} (this process), graphs "
+          f"on: {stats.captures} captures, tokens identical to the unsharded "
+          f"engine: {same}; prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
+          f"tok/s, decode {(stats.decode_tokens - 16) / stats.decode_s:.1f} tok/s "
+          f"[{ident}]", flush=True)
+    del eng
+    dist.destroy_process_group()
+    # the unsharded references: bf16 weights (engine_phase's tokens), and
+    # int8 weights from the same seed (its own engine's tokens)
+    refs = {None: (want, _forced_logits(llama, cfg, params, prompts, None,
+                                        want).cpu())}
+    p8 = llama.init_params(cfg, seed=SEED, device="cuda", quantize="int8")
+    refs["int8"] = _unsharded_reference(llama, cfg, p8, prompts)
+    del p8
+    torch.cuda.empty_cache()
+    ranks = _shard_ranks(shard)
+    for quantize in (None, "int8"):
+        ref_tokens, ref = refs[quantize]
+        t0 = time.perf_counter()
+        outs = [o for o in ranks.run(_tp_engine_rank, quantize, ref_tokens)
+                if o is not None]
+        wall = time.perf_counter() - t0
+        for o in outs:
+            counts.update({k: counts.get(k, 0) + n
+                           for k, n in o["launches"].items()})
+        agree = len(outs) == 2 and outs[0]["tokens"] == outs[1]["tokens"]
+        o = outs[0]
+        good = agree and all(len(t) == 32 for t in o["tokens"])
+        good &= o["captures"] == 0 and o["kv_heads"] == cfg.n_kv_heads // 2
+        good &= o["launches"].get("paged", 0) == cfg.n_layers * o["steps"]
+        if quantize:
+            good &= o["launches"].get("wmatmul", 0) > 0
+        share = np.mean([a == b for t, w in zip(o["tokens"], ref_tokens)
+                         for a, b in zip(t, w)])
+        div = _first_divergence(o["tokens"], ref_tokens)
+        lg = torch.from_numpy(o["logits"]).float()
+        rl2 = [_diff(lg[j], ref[j])[4] for j in range(lg.shape[0])]
+        fin = bool(torch.isfinite(lg).all())
+        argmax = float((lg.argmax(-1) == ref.argmax(-1)).float().mean())
+        mx = float((lg - ref).abs().max())
+        good &= fin and lg.shape == ref.shape and max(rl2) <= 0.05
+        kind = "int8 weights" if quantize else "bf16 weights"
+        print(f"tp_engine_8b model 2 ({kind}): ranks' tokens identical {agree}; "
+              f"teacher-forced on the unsharded {kind} engine's tokens, the "
+              f"logits of each of {len(rl2)} steps vs the unsharded model's: "
+              f"relative L2 first {rl2[0]:.4f}, largest {max(rl2):.4f} (at step "
+              f"{int(np.argmax(rl2))}, <= 0.05), max_abs {mx:.3e}, argmax equal "
+              f"{argmax:.4f}; free-running, {share:.4f} of tokens equal to the "
+              f"unsharded {kind} engine's, a row's first differing token at "
+              f"{sorted(div)} (32: none); {o['captures']} captures, "
+              f"{o['kv_heads']} kv heads a rank, launches a rank "
+              f"{o['launches']}; {_rates(shard, 2)}: prefill "
+              f"{o['prefill_tps']:.1f} tok/s, decode "
+              f"{o['decode_tps']:.1f} tok/s, peak {o['peak_gb']:.2f} GB a rank, "
+              f"{wall:.1f} s [{ident}] {'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    return ok
+
+
+def _seeded(shape, gen, dtype, scale=1.0):
+    import torch
+
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _cp_rank():
+    """ctx ranks: ring prefill (causal, window (4095, 0)) and ring grad at s
+    8192 over ctx 4; context_parallel_decode (b16, S 32768),
+    context_parallel_paged_decode (int8 pages) and sequence_parallel_loss_fn
+    (2 layers at 8B width) over ctx 2. Each rank also computes the
+    unsharded reference of its part (not counted as launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.kernels.backward import flash_attention_bwd
+    from mfa_tpu_torch.kernels.decode import decode_attention
+    from mfa_tpu_torch.kernels.paged import paged_attention
+    from mfa_tpu_torch.kernels.prefill import prefill_attention
+    from mfa_tpu_torch.kernels.quant import quantize_rows
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.shard import attention as sa
+    from mfa_tpu_torch.shard import ring
+    from mfa_tpu_torch.shard.mesh import axis_index, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    res, launches = {}, {}
+
+    def count():
+        for k, n in _build.launches.items():
+            launches[k] = launches.get(k, 0) + n
+
+    mesh4 = make_mesh({"ctx": 4})
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, hq, hkv, s, d = 1, 32, 8, 8192, 128
+    q, do = (_seeded((b, hq, s, d), gen, bf) for _ in range(2))
+    k, v = (_seeded((b, hkv, s, d), gen, bf) for _ in range(2))
+    me, chunk = axis_index(mesh4, "ctx"), s // 4
+    sl = slice(me * chunk, (me + 1) * chunk)
+    qc, kc, vc = (x[:, :, sl].contiguous() for x in (q, k, v))
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_c = ring.ring_attention_prefill(mesh4, causal=True)(qc, kc, vc)
+    torch.cuda.synchronize()
+    res["ring_ms"] = (time.perf_counter() - t0) * 1e3
+    out_w = ring.ring_attention_prefill(mesh4, causal=True, window_left=4095)(
+        qc, kc, vc)
+    g_in = [x.clone().requires_grad_() for x in (qc, kc, vc)]
+    ring.ring_attention_grad(mesh4, causal=True)(*g_in).backward(
+        do[:, :, sl].contiguous())
+    torch.cuda.synchronize()
+    count()
+    res["fwd_causal"] = _diff(out_c, prefill_attention(
+        q, k, v, causal=True, bound_softmax=False)[:, :, sl])
+    res["fwd_window"] = _diff(out_w, prefill_attention(
+        q, k, v, causal=True, window_size=(4095, 0), bound_softmax=False)[:, :, sl])
+    o_ref, lse_ref = prefill_attention(q, k, v, causal=True, return_lse=True)
+    refs = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=True)
+    res["grads"] = [_diff(g.grad, r[:, :, sl]) for g, r in zip(g_in, refs)]
+    del q, k, v, do, qc, kc, vc, g_in, refs, o_ref, out_c, out_w
+    torch.cuda.empty_cache()
+
+    mesh2 = make_mesh({"ctx": 2})
+    if mesh2.get_coordinate() is None:
+        return res, launches
+    me2 = axis_index(mesh2, "ctx")
+    # context_parallel_decode: b16, S 32768, against kernel 5 unsharded
+    B, S = 16, 32768
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    qd = _seeded((B, hq, d), gen, bf)
+    kd, vd = (_seeded((B, hkv, S, d), gen, bf) for _ in range(2))
+    lens = torch.as_tensor(np.random.RandomState(SEED).randint(1, S + 1, B),
+                           dtype=torch.int32, device="cuda")
+    lens[0], lens[1] = 100, S  # all on rank 0; the whole cache
+    half = slice(me2 * S // 2, (me2 + 1) * S // 2)
+    kh, vh = kd[:, :, half].contiguous(), vd[:, :, half].contiguous()
+    _build.reset_launches()
+    out = sa.context_parallel_decode(mesh2)(qd, kh, vh, lens)
+    torch.cuda.synchronize()
+    count()
+    res["cp_decode"] = _diff(out, decode_attention(qd, kd, vd, lens))
+    del kd, vd, kh, vh
+    torch.cuda.empty_cache()
+    # context_parallel_paged_decode on int8 pages: each rank a pool of its
+    # own, against kernel 6 on the two pools merged
+    page, pps = 64, 64
+    pool = B * pps + 1
+    rng = np.random.RandomState(SEED + 2)
+    l0 = rng.randint(0, pps + 1, B) * page  # rank 0: whole pages
+    l1 = rng.randint(0, pps * page + 1, B)
+    lens_r = [torch.as_tensor(x, dtype=torch.int32, device="cuda") for x in (l0, l1)]
+    tables_r = [torch.as_tensor(1 + np.arange(B * pps).reshape(B, pps),
+                                dtype=torch.int32, device="cuda")] * 2
+    pools = []
+    for r in range(2):
+        kp, vp = (_seeded((hkv, pool, page, d), gen, torch.float32) for _ in range(2))
+        pools.append(quantize_rows(kp, "int8") + quantize_rows(vp, "int8"))
+    kq, ks, vq, vs = pools[me2]
+    _build.reset_launches()
+    out = sa.context_parallel_paged_decode(mesh2, quantized=True)(
+        qd, kq, vq, lens_r[me2], tables_r[me2], ks, vs)
+    torch.cuda.synchronize()
+    count()
+    merged = [torch.cat([pools[0][i], pools[1][i]], dim=1) for i in range(4)]
+    table = np.zeros((B, 2 * pps), np.int32)
+    for i in range(B):
+        n0 = l0[i] // page
+        table[i, :n0] = 1 + i * pps + np.arange(n0)
+        table[i, n0:n0 + pps] = pool + 1 + i * pps + np.arange(pps)
+    ref = paged_attention(qd, merged[0], merged[2], torch.as_tensor(
+        l0 + l1, dtype=torch.int32, device="cuda"), torch.as_tensor(
+        table, device="cuda"), k_scales=merged[1], v_scales=merged[3])
+    res["cp_paged"] = _diff(out, ref)
+    del pools, merged, kq, vq
+    torch.cuda.empty_cache()
+    # sequence_parallel_loss_fn: 2 layers at 8B width, 1 x 4097 tokens
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    params = llama.init_params(cfg, seed=SEED, device="cuda")
+    tokens = torch.as_tensor(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (1, 4097)), device="cuda")
+    with torch.no_grad():
+        want = float(llama.loss_fn(params, tokens, cfg))
+    for p in llama.param_tensors(params):
+        p.requires_grad_(True)
+    _build.reset_launches()
+    loss = ring.sequence_parallel_loss_fn(params, tokens, cfg, mesh2)
+    loss.backward()
+    torch.cuda.synchronize()
+    count()
+    res["sp_loss"] = (float(loss.detach()), want, all(
+        bool(torch.isfinite(p.grad).all()) for p in llama.param_tensors(params)))
+    del params, loss
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def cp_ring_phase(counts, ident, shard):
+    """cp_ring_8b: at 8B heads (hq 32, hkv 8, d 128, bf16) ring prefill and
+    ring grad over ctx 4 against kernels 1 and 11 unsharded, then the
+    context-parallel decodes and sequence-parallel training over ctx 2."""
+    outs = _shard_ranks(shard).run(_cp_rank)
+    ok = True
+    for rank, (res, launches) in enumerate(outs):
+        counts.update({k: counts.get(k, 0) + n for k, n in launches.items()})
+        for name in ("fwd_causal", "fwd_window") + (
+                ("cp_decode", "cp_paged") if "cp_decode" in res else ()):
+            mx, mean, _, _, _, fin = res[name]
+            good = fin and mx < 2e-2 and mean < 2e-3
+            print(f"cp_ring_8b rank {rank} {name}: max_abs_err {mx:.3e} (< 2e-2) "
+                  f"mean {mean:.3e} (< 2e-3) [{ident}] {'ok' if good else 'FAIL'}",
+                  flush=True)
+            ok &= good
+        for name, (mx, mean, rmax, rmean, _, fin) in zip(("dq", "dk", "dv"),
+                                                         res["grads"]):
+            good = fin and mx <= 2e-2 * rmax and mean <= 2e-2 * rmean
+            print(f"cp_ring_8b rank {rank} ring grad {name}: max_abs_err {mx:.3e} "
+                  f"(<= {2e-2 * rmax:.3e}) mean {mean:.3e} (<= {2e-2 * rmean:.3e}) "
+                  f"[{ident}] {'ok' if good else 'FAIL'}", flush=True)
+            ok &= good
+        if "sp_loss" in res:
+            got, want, fin = res["sp_loss"]
+            good = fin and abs(got - want) <= 1e-2 * abs(want)
+            print(f"cp_ring_8b rank {rank} sequence_parallel_loss_fn (2 layers, "
+                  f"1 x 4097, ctx 2): loss {got:.5f} vs loss_fn {want:.5f} "
+                  f"(relative <= 1e-2), grads finite {fin} [{ident}] "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            ok &= good
+        print(f"cp_ring_8b rank {rank}: causal ring prefill {res['ring_ms']:.1f} ms "
+              f"(host clock, {_rates(shard, 4)}); launches {launches} "
+              f"[{ident}]", flush=True)
+    return ok
+
+
+def _ep_rank():
+    """expert ranks: Mixtral-8x7B's MoE layer at full width (int8 banks, 8
+    experts) over expert 2 at 16 and 4096 rows, both forms against the
+    unsharded routed output on the rank."""
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.models.wquant import adapt, stack_bank
+    from mfa_tpu_torch.shard import expert
+    from mfa_tpu_torch.shard.mesh import axis_index, make_mesh, sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh({"expert": 2})
+    if mesh.get_coordinate() is None:
+        return None
+    cfg = llama.LlamaConfig.mixtral_8x7b()
+    d, f, E = cfg.dim, cfg.ffn_dim, cfg.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    full = {n: stack_bank((_seeded(s, gen, torch.bfloat16, s[0] ** -0.5)
+                           for _ in range(E)), E, True)
+            for n, s in (("we_gate", (d, f)), ("we_up", (d, f)),
+                         ("we_down", (f, d)))}
+    w_router = _seeded((d, E), gen, torch.float32, d ** -0.5)
+    spec = sharding(mesh, "expert")
+    local = [llama._shard_leaf(full[n], adapt(spec, full[n]), n)
+             for n in ("we_gate", "we_up", "we_down")]
+    me = axis_index(mesh, "expert")
+    res, launches = {}, {}
+    for T in (16, 4096):
+        t = _seeded((T, d), gen, torch.bfloat16)
+        w_top, idx = llama._moe_route(t, w_router, cfg.n_active_experts,
+                                      cfg.norm_topk)
+        form = llama._moe_dense if T <= llama._MOE_DENSE_MAX_T else llama._moe_grouped
+        ref = form(t, full, w_top, idx, cfg)
+        _build.reset_launches()
+        out = expert.expert_parallel_moe(mesh, cfg)(t, w_router, *local)
+        rows = slice(me * T // 2, (me + 1) * T // 2)
+        out_a2a = expert.expert_parallel_moe_a2a(mesh, cfg, capacity_factor=2.0)(
+            t[rows].contiguous(), w_router, *local)
+        torch.cuda.synchronize()
+        for k, n in _build.launches.items():
+            launches[k] = launches.get(k, 0) + n
+        res[T] = (_diff(out, ref), _diff(out_a2a, ref[rows]))
+    return res, launches
+
+
+def ep_phase(counts, ident, shard):
+    """ep_mixtral: expert_parallel_moe and expert_parallel_moe_a2a at
+    Mixtral-8x7B's width over expert 2 against the unsharded _moe's routed
+    output (relative L2 <= 1e-2: bf16 outputs, kernel 10's expert launch
+    over other row groupings)."""
+    ok = True
+    outs = [o for o in _shard_ranks(shard).run(_ep_rank) if o is not None]
+    ok &= len(outs) == 2
+    for rank, (res, launches) in enumerate(outs):
+        counts.update({k: counts.get(k, 0) + n for k, n in launches.items()})
+        for T, pair in res.items():
+            for name, (mx, _, rmax, _, rl2, fin) in zip(("psum", "a2a"), pair):
+                good = fin and rl2 <= 1e-2
+                print(f"ep_mixtral rank {rank} T {T} {name} form: relative L2 "
+                      f"{rl2:.2e} (<= 1e-2), max_abs_err {mx:.3e} of |ref| max "
+                      f"{rmax:.3f} [{ident}] {'ok' if good else 'FAIL'}", flush=True)
+                ok &= good
+        ok &= launches.get("wmatmul_bank", 0) > 0
+        print(f"ep_mixtral rank {rank} launches {launches} [{ident}]", flush=True)
+    return ok
+
+
+def _pp_rank():
+    """pipe ranks: pipeline_train_step at 8B width, 4 layers, pipe 2, 4
+    microbatches of 1 x 2048, on the rank's stage tree (init_params(mesh=):
+    its 2 layers), against the unsharded loss_fn's loss and gradients,
+    computed on the rank first from the whole tree of the same seed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.shard.mesh import axis_index, make_mesh
+    from mfa_tpu_torch.shard.pipeline import pipeline_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh({"pipe": 2})
+    if mesh.get_coordinate() is None:
+        return None
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=4)
+    tokens = torch.as_tensor(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (4, 2049)), device="cuda")
+    mine = llama.stage_layers(cfg, mesh)
+
+    def gb(tree):
+        return sum(w.numel() * w.element_size()
+                   for w in llama.param_tensors(tree)) / 1e9
+
+    full = llama.init_params(cfg, seed=SEED, device="cuda")
+    whole_gb = gb(full)
+    for p in llama.param_tensors(full):
+        p.requires_grad_(True)
+    loss = llama.loss_fn(full, tokens, cfg)
+    loss.backward()
+    want = float(loss.detach())
+    ref = [p.grad.float().cpu() for p in llama.param_tensors(
+        dict(full, layers=[full["layers"][i] for i in mine]))]
+    del full, loss
+    torch.cuda.empty_cache()
+    params = llama.init_params(cfg, seed=SEED, device="cuda", mesh=mesh)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.get_group("pipe"))  # both stages start the clock
+    t0 = time.perf_counter()
+    _, got = pipeline_train_step(params, tokens, cfg, mesh, n_micro=4, lr=1e-3)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.launches)
+    leaves = llama.param_tensors(params)
+    worst_cos, worst_ratio = 1.0, 0.0
+    for p, r in zip(leaves, ref):
+        a = p.grad.float().cpu()
+        na, nr = float(a.norm()), float(r.norm())
+        if na == 0.0 and nr == 0.0:
+            continue
+        worst_cos = min(worst_cos, float((a * r).sum()) / max(na * nr, 1e-30))
+        worst_ratio = max(worst_ratio, abs(na / max(nr, 1e-30) - 1.0))
+    return dict(loss=float(got), want=want, cos=worst_cos, ratio=worst_ratio,
+                n=len(ref), n_got=len(leaves), held=len(params["layers"]),
+                stage_gb=gb(params), whole_gb=whole_gb, ms=ms,
+                stage=axis_index(mesh, "pipe"), launches=launches)
+
+
+def pipeline_phase(counts, ident, shard):
+    """pipeline_8b: one GPipe SGD step (pipe 2), each rank on its stage's
+    2 layers only, against the unsharded train step, within the train
+    tolerance of cuda_vs_cpu (loss |diff| <= 5e-2, gradient cosine >=
+    0.99, norm ratio within 0.05)."""
+    try:
+        outs = [o for o in _shard_ranks(shard).run(_pp_rank) if o is not None]
+    finally:
+        _close_ranks(shard)
+    ok = len(outs) == 2
+    for o in outs:
+        counts.update({k: counts.get(k, 0) + n for k, n in o["launches"].items()})
+        good = abs(o["loss"] - o["want"]) <= 5e-2 and o["cos"] >= 0.99 \
+            and o["ratio"] <= 0.05 and o["launches"].get("bwd_fused", 0) == 2 * 4
+        good &= o["held"] == 2 and o["n_got"] == o["n"]
+        print(f"pipeline_8b stage {o['stage']}: holds {o['held']} of 4 layers "
+              f"({o['stage_gb']:.2f} GB of weights, the whole tree "
+              f"{o['whole_gb']:.2f} GB); loss {o['loss']:.5f} vs unsharded "
+              f"{o['want']:.5f} (|diff| <= 5e-2); over its {o['n']} weight "
+              f"tensors the least gradient cosine {o['cos']:.5f} (>= 0.99), the "
+              f"largest norm ratio - 1 {o['ratio']:.4f} (<= 0.05); step "
+              f"{o['ms']:.1f} ms (host clock, {_rates(shard, 2)}); launches "
+              f"{o['launches']} [{ident}] "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -5042,12 +5631,18 @@ def main() -> int:
     phases = {}
     counts = {}
     state = {}
+    shard = {}  # the sharding phases' spawned ranks
     phase_fns = (("kernels", lambda: kernel_phase(records)),
                  ("sinks_kernels", sinks_kernels),
                  ("head_dim_kernels", head_dim_kernels),
                  ("decode_groups", decode_groups),
                  ("library_surface", lambda: library_surface(counts)),
                  ("engine_8b", lambda: engine_phase(counts, ident, state)),
+                 ("tp_engine_8b",
+                  lambda: tp_engine_phase(counts, ident, state, shard)),
+                 ("cp_ring_8b", lambda: cp_ring_phase(counts, ident, shard)),
+                 ("ep_mixtral", lambda: ep_phase(counts, ident, shard)),
+                 ("pipeline_8b", lambda: pipeline_phase(counts, ident, shard)),
                  ("engine_8b_kvq", lambda: kvq_engine_phase(counts, ident, state)),
                  ("chunked_prefix_engine_8b",
                   lambda: chunked_engine_phase(counts, ident, state)),
@@ -5101,18 +5696,21 @@ def main() -> int:
                  ("cuda_vs_cpu_sinks", cpu_vs_cuda_sinks_phase),
                  ("cuda_vs_cpu_danube", cpu_vs_cuda_danube_phase),
                  ("instruments", lambda: instruments_phase(ident)))
-    for name, fn in phase_fns:
-        t0 = time.perf_counter()
-        try:
-            phases[name] = bool(fn())
-        except Exception as e:  # report the phase, then fail the run
-            import traceback
+    try:
+        for name, fn in phase_fns:
+            t0 = time.perf_counter()
+            try:
+                phases[name] = bool(fn())
+            except Exception as e:  # report the phase, then fail the run
+                import traceback
 
-            traceback.print_exc()
-            print(f"phase {name} raised {type(e).__name__}: {e}", flush=True)
-            phases[name] = False
-        print(f"phase {name}: {'ok' if phases[name] else 'FAIL'} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                traceback.print_exc()
+                print(f"phase {name} raised {type(e).__name__}: {e}", flush=True)
+                phases[name] = False
+            print(f"phase {name}: {'ok' if phases[name] else 'FAIL'} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    finally:
+        _close_ranks(shard)
     for n in sources:
         records[n]["launches"] = int(counts.get(n, 0))
         if records[n]["launches"] == 0:

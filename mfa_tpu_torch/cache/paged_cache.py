@@ -171,3 +171,21 @@ def release_slots(cache: StackedKVCache, seq_slots) -> StackedKVCache:
     cache.block_tables[idx] = 0
     cache.lengths[idx] = 0
     return cache
+
+
+def shard_cache(cache: StackedKVCache, mesh, axis: str) -> StackedKVCache:
+    """This rank's kv heads of a full cache, TP by kv head on `axis`
+    (mfa_tpu's cache_shardings; raises ValueError when the axis does not
+    divide the kv heads). Block tables and lengths are copied: every rank
+    holds them whole."""
+    from mfa_tpu_torch.shard.mesh import sharding, shard_tensor
+
+    heads = sharding(mesh, axis)
+
+    def cut(t):
+        return None if t is None else shard_tensor(t, heads, "kv heads")
+
+    return dataclasses.replace(
+        cache, k_pages=cut(cache.k_pages), v_pages=cut(cache.v_pages),
+        k_scales=cut(cache.k_scales), v_scales=cut(cache.v_scales),
+        block_tables=cache.block_tables.clone(), lengths=cache.lengths.clone())

@@ -112,13 +112,17 @@ def _check_operands(name, x, qw, scale):
 
 def _bank_plain(x, qw, scale, offs, out_dtype):
     """mfa_tpu's graph per expert, (x_e @ qw_e.to(x.dtype)) * scale_e: dense
-    by broadcasting, grouped over the host's copy of offs."""
+    by broadcasting, grouped over the host's copy of offs (rows past
+    offs[E], which no expert owns, come out zero)."""
     if offs is None:
         return ((x @ qw.to(x.dtype)) * scale[:, None, :].to(x.dtype)).to(out_dtype)
     bounds = offs.tolist()
-    return torch.cat([_int8_matmul_plain(x[bounds[e]:bounds[e + 1]], qw[e],
-                                         scale[e], out_dtype)
-                      for e in range(qw.shape[0])])
+    parts = [_int8_matmul_plain(x[bounds[e]:bounds[e + 1]], qw[e], scale[e],
+                                out_dtype) for e in range(qw.shape[0])]
+    if bounds[-1] < x.shape[0]:
+        parts.append(x.new_zeros((x.shape[0] - bounds[-1], qw.shape[-1]),
+                                 dtype=out_dtype))
+    return torch.cat(parts)
 
 
 def _bank_cuda(x, qw, scale, offs, max_rows, out_dtype):

@@ -61,9 +61,26 @@ Attention sinks (`attn_sinks`, StreamingLLM) reach every attention call
 with a left window: prefill waves, chunks, decode and verify steps and the
 train attention; the image-block kernel takes none and raises on them.
 
-Not ported yet (raise NotImplementedError): meshes (expert parallelism
-among them). int8 weights serve only: loss_fn and
-train_step raise on them, as JAX defines no gradient through QWeight.
+Meshes (shard/mesh.py: a DeviceMesh with mfa_tpu's axis names; SPMD, so
+every rank calls these functions on its own shard with the same global
+cfg). shard_params / init_params(mesh=) / params_from_numpy(mesh=) give a
+rank its block of the weights (param_shardings: the columns of wq, wk, wv,
+w_gate, w_up, ws_gate, ws_up and the q/k/v biases, the rows of wo, w_down
+and ws_down on "model", the banks' E on "expert" and their ffn dim on
+"model"; the rest replicated; under a "pipe" axis only its stage's layers,
+stage_layers), build_kv_caches(mesh=) its kv heads. Every
+function below that takes mesh= in mfa_tpu takes it here; the head counts
+come from the weights' shapes, so attention runs on the rank's whole kv
+heads (with their q-head groups) with no communication, and the one
+all-reduce a projection pair that GSPMD inserts for mfa_tpu is explicit:
+after wo, after w_down (and after the MoE combine), in the model dtype.
+With an "expert" axis the routed experts run expert-parallel
+(shard/expert.py). forward / loss_fn / train_step also take a "data" axis:
+loss_fn gives each rank its rows of the global batch, sums the loss over
+the axis and, like train_step, every rank gets the full gradients.
+
+int8 weights serve only: loss_fn and train_step raise on them, as JAX
+defines no gradient through QWeight.
 """
 
 from __future__ import annotations
@@ -89,12 +106,17 @@ from mfa_tpu_torch.kernels.paged import paged_attention
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.kernels.quant import as_bytes, quantize_rows
-from mfa_tpu_torch.models.wquant import (QWeight, bank_dense, bank_grouped, qmm,
-                                         qtake, quantize_params, quantize_weight,
+from mfa_tpu_torch.models.wquant import (QWeight, adapt_shardings, bank_dense,
+                                         bank_grouped, qmm, qtake,
+                                         quantize_params, quantize_weight,
                                          stack_bank)
 from mfa_tpu_torch.serve.sampling import (SamplingParams, gumbel_from_uniform,
                                           sample, sample_dynamic,
                                           token_logprobs, uniform_noise)
+from mfa_tpu_torch.shard.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS,
+                                      PIPE_AXIS, axis_index, axis_size,
+                                      copy_to, local_slice, reduce_from,
+                                      shard_tensor, sharding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,7 +350,7 @@ def _layer_keys(cfg: LlamaConfig, moe: bool = False) -> tuple:
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
-                quantize: Optional[str] = None) -> Params:
+                quantize: Optional[str] = None, mesh=None) -> Params:
     """Random weights in cfg.dtype from a seeded torch.Generator on the
     device (normal * fan_in^-0.5, embed * 0.02; fp32 norms at their
     identity: one, or zero under norm_offset, which applies 1 + w).
@@ -343,7 +365,11 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
     MoE layers (cfg.is_moe_layer) hold w_router [d, E] fp32 * d^-0.5 and
     banks [E, d, f] / [E, f, d] in place of the dense MLP, plus the shared
     expert (and its [d, 1] gate) where the config has one, as mfa_tpu's
-    init_params builds them."""
+    init_params builds them.
+
+    mesh: the rank's shard (shard_params) of the same weights, each layer
+    cut as soon as it is drawn (and another stage's layer dropped), so a
+    rank holds one whole layer at most."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported weight quantization {quantize!r}")
     dev = resolve_device(device)
@@ -362,6 +388,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
         fill = torch.zeros if cfg.norm_offset else torch.ones
         return fill((width,), dtype=torch.float32, device=dev)
 
+    keep = stage_layers(cfg, mesh)
     layers = []
     for li in range(cfg.n_layers):
         lp = dict(
@@ -396,7 +423,10 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
                        for k, w in zip(_BIAS_KEYS, (cfg.n_heads * hd,
                                                     cfg.n_kv_heads * hd,
                                                     cfg.n_kv_heads * hd))})
-        layers.append(quantize_params(lp) if quantize else lp)
+        if li not in keep:  # drawn all the same, so the seed gives one model
+            continue
+        lp = quantize_params(lp) if quantize else lp
+        layers.append(_shard_layer(lp, cfg, li, mesh) if mesh is not None else lp)
     embed = dense((cfg.vocab_size, d), 0.02)
     if quantize:
         embed = quantize_weight(embed, axis=-1)
@@ -406,14 +436,16 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda",
     return dict(layers=layers, embed=embed, final_norm=norm(), lm_head=lm_head)
 
 
-def params_from_numpy(tree, cfg: LlamaConfig, device) -> Params:
+def params_from_numpy(tree, cfg: LlamaConfig, device, mesh=None) -> Params:
     """The JAX package's params pytree (numpy arrays; layers stacked
     [L, ...] as mfa_tpu's init_params builds them, or with MoE and dense
     layers interleaved its {"moe": ..., "dense": ...} stacks, each in layer
     order) -> this port's params, so both packages compute the same
     function in the tests. A quantized leaf (mfa_tpu's QWeight, read by its
-    qw, scale and axis attributes) becomes this port's QWeight."""
+    qw, scale and axis attributes) becomes this port's QWeight. mesh: the
+    rank's shard (shard_params)."""
     dev = torch.device(device)
+    keep = stage_layers(cfg, mesh)
 
     def t(a, name, layer=None):
         if hasattr(a, "qw") and hasattr(a, "scale"):
@@ -437,15 +469,105 @@ def params_from_numpy(tree, cfg: LlamaConfig, device) -> Params:
                    else stacks)
         pos = seen[moe] if cfg.moe_hetero else li
         seen[moe] += 1
+        if li not in keep:
+            continue
         keys = _layer_keys(cfg, moe)
         extra = set(stacked) - set(keys)
         if extra:
             raise NotImplementedError(f"layer params {sorted(extra)} are not "
                                       f"ported yet")
-        layers.append({k: t(stacked[k], k, pos) for k in keys})
+        lp = {k: t(stacked[k], k, pos) for k in keys}
+        layers.append(_shard_layer(lp, cfg, li, mesh) if mesh is not None else lp)
     return dict(layers=layers, embed=t(tree["embed"], "embed"),
                 final_norm=t(tree["final_norm"], "final_norm"),
                 lm_head=t(tree["lm_head"], "lm_head"))
+
+
+# Placement of a layer's weights on a mesh (mfa_tpu's param_shardings,
+# without the stacked layer dim): columns or rows on "model", banks on
+# "expert" and their ffn dim on "model".
+_COLUMNS = ("wq", "wk", "wv", "w_gate", "w_up", "ws_gate", "ws_up")
+_ROWS = ("wo", "w_down", "ws_down")
+
+
+def _check_heads(cfg: LlamaConfig, mesh) -> None:
+    tp = axis_size(mesh, MODEL_AXIS)
+    if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+        raise ValueError(f"the model axis ({tp} ranks) must divide n_heads "
+                         f"{cfg.n_heads} and n_kv_heads {cfg.n_kv_heads}: a "
+                         "rank holds whole kv heads and their q-head groups")
+
+
+def param_shardings(cfg: LlamaConfig, mesh) -> dict:
+    """The Sharding (shard/mesh.py) of every param: {"layers": [per-layer
+    {name: Sharding}], "embed", "final_norm", "lm_head"} (mfa_tpu's
+    param_shardings). Under an "expert" axis the banks [E, d, f] / [E, f,
+    d] shard on E, and with "model" on f too; embed, lm_head, norms, the
+    router and w_shared_gate are replicated."""
+    tp = MODEL_AXIS if axis_size(mesh, MODEL_AXIS) > 1 else None
+    ep = EXPERT_AXIS if axis_size(mesh, EXPERT_AXIS) > 1 else None
+    rep_ = sharding(mesh)
+    named = {**{k: sharding(mesh, None, tp) for k in _COLUMNS},
+             **{k: sharding(mesh, tp, None) for k in _ROWS},
+             **{k: sharding(mesh, tp) for k in _BIAS_KEYS},
+             "we_gate": sharding(mesh, ep, None, tp),
+             "we_up": sharding(mesh, ep, None, tp),
+             "we_down": sharding(mesh, ep, tp, None)}
+    layers = [{k: named.get(k, rep_) for k in _layer_keys(cfg, cfg.is_moe_layer(i))}
+              for i in range(cfg.n_layers)]
+    return dict(layers=layers, embed=rep_, final_norm=rep_, lm_head=rep_)
+
+
+def stage_layers(cfg: LlamaConfig, mesh) -> range:
+    """The layers a rank holds: under a "pipe" axis of S ranks, rank p's
+    contiguous block [p L / S, (p + 1) L / S) (shard/pipeline.py runs
+    it); else all of them."""
+    n_stages = axis_size(mesh, PIPE_AXIS)
+    if n_stages == 1:
+        return range(cfg.n_layers)
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"n_layers {cfg.n_layers} must divide into "
+                         f"{n_stages} stages")
+    if cfg.layer_pattern is not None or cfg.moe_hetero:
+        raise ValueError("pipeline stages need a uniform layer stack")
+    per = cfg.n_layers // n_stages
+    lo = axis_index(mesh, PIPE_AXIS) * per
+    return range(lo, lo + per)
+
+
+def _shard_leaf(w, sh, name):
+    """w's block under sh, a Sharding adapted to w (wquant.adapt: a
+    QWeight's scale drops the reduced axis)."""
+    if isinstance(w, QWeight):
+        return QWeight(qw=shard_tensor(w.qw, sh.qw, name),
+                       scale=shard_tensor(w.scale, sh.scale, name), axis=w.axis)
+    return shard_tensor(w, sh, name)
+
+
+def _shard_layer(lp: dict, cfg: LlamaConfig, li: int, mesh) -> dict:
+    _check_heads(cfg, mesh)
+    specs = adapt_shardings(param_shardings(cfg, mesh)["layers"][li], lp)
+    return {k: _shard_leaf(w, specs[k], k) for k, w in lp.items()}
+
+
+def shard_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
+    """This rank's block of a full params tree (bf16 or QWeight leaves) under
+    param_shardings(cfg, mesh), and only its stage's layers under "pipe"
+    (stage_layers): what every mesh path of this module, the Engine and
+    shard/pipeline.py take. The model axis must divide n_heads and
+    n_kv_heads."""
+    return dict(params, layers=[_shard_layer(params["layers"][li], cfg, li, mesh)
+                                for li in stage_layers(cfg, mesh)])
+
+
+def _check_stack(params: Params, cfg: LlamaConfig) -> None:
+    """The functions below run the whole stack: a pipeline stage's tree
+    (stage_layers) runs only in shard/pipeline.py."""
+    if len(params["layers"]) != cfg.n_layers:
+        raise ValueError(f"params hold {len(params['layers'])} of "
+                         f"{cfg.n_layers} layers (a pipeline stage's): run "
+                         "them through shard/pipeline.py")
+
 
 
 def _rms_norm(x, w, cfg: LlamaConfig):
@@ -456,17 +578,20 @@ def _rms_norm(x, w, cfg: LlamaConfig):
     return (xf * torch.rsqrt(var + cfg.norm_eps) * w).to(x.dtype)
 
 
-def _qkv(h, lp, cfg: LlamaConfig, *lead):
+def _qkv(h, lp, cfg: LlamaConfig, *lead, mesh=None):
+    """q [*lead, heads, hd], k, v [*lead, kv heads, hd]: the heads of the
+    weights given (a rank's heads under a "model" axis)."""
     hd = cfg.head_dim
+    h = copy_to(h, mesh, MODEL_AXIS)
     q, k, v = qmm(h, lp["wq"]), qmm(h, lp["wk"]), qmm(h, lp["wv"])
     if cfg.qkv_bias:  # Qwen2: bias before the head reshape
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(*lead, cfg.n_heads, hd)
-    k = k.reshape(*lead, cfg.n_kv_heads, hd)
-    v = v.reshape(*lead, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:  # each head normalized before RoPE
-        q = _rms_norm(q, lp["q_norm"], cfg)
-        k = _rms_norm(k, lp["k_norm"], cfg)
+    q = q.reshape(*lead, -1, hd)
+    k = k.reshape(*lead, -1, hd)
+    v = v.reshape(*lead, -1, hd)
+    if cfg.qk_norm:  # each head normalized before RoPE (a rank's heads only)
+        q = _rms_norm(q, copy_to(lp["q_norm"], mesh, MODEL_AXIS), cfg)
+        k = _rms_norm(k, copy_to(lp["k_norm"], mesh, MODEL_AXIS), cfg)
     return q, k, v
 
 
@@ -526,60 +651,86 @@ def _moe_grouped(t, lp, w_top, idx, cfg: LlamaConfig):
     gate = _act(bank_grouped(gathered, lp["we_gate"], offs, T), cfg.hidden_act)
     down = bank_grouped(gate * bank_grouped(gathered, lp["we_up"], offs, T),
                         lp["we_down"], offs, T)  # [T * k, d]
+    return _slot_sum(down, w_top, order)
+
+
+def _slot_sum(per_assignment, w_top, order):
+    """Each token's k expert outputs, weighted, summed in slot order.
+    per_assignment: [T * k, d] in `order` (a permutation of the flat
+    token-major assignments); the inverse permutation is a gather, so no
+    atomics and the same bits every run."""
+    T, k = w_top.shape
     inv = torch.empty_like(order).scatter_(
-        0, order, torch.arange(T * k, device=t.device))
-    per = down.index_select(0, inv).reshape(T, k, -1)
-    w = w_top.to(down.dtype)
+        0, order, torch.arange(order.numel(), device=order.device))
+    per = per_assignment.index_select(0, inv).reshape(T, k, -1)
+    w = w_top.to(per.dtype)
     out = per[:, 0] * w[:, :1]
     for j in range(1, k):
         out = out + per[:, j] * w[:, j:j + 1]
     return out
 
 
-def _moe(x, lp, cfg: LlamaConfig, dense: bool = False):
-    """Top-k routed expert MLP, token-dropless (mfa_tpu's _moe without a
-    mesh): the dense form when `dense` (graphed steps) or at most
-    _MOE_DENSE_MAX_T rows, else the grouped form; then the shared expert
-    (sigmoid-gated on the normed rows with w_shared_gate) and the post
-    norm, and the residual."""
+def _moe(x, lp, cfg: LlamaConfig, dense: bool = False, mesh=None):
+    """Top-k routed expert MLP, token-dropless (mfa_tpu's _moe): the dense
+    form when `dense` (graphed steps) or at most _MOE_DENSE_MAX_T rows,
+    else the grouped form; then the shared expert (sigmoid-gated on the
+    normed rows with w_shared_gate) and the post norm, and the residual.
+    With an "expert" axis the routed part runs expert-parallel
+    (shard/expert.py, reduced over "expert" and "model" there); under
+    "model" alone the banks' ffn dim is the rank's, and the routed and
+    shared partial sums take one all-reduce."""
+    from mfa_tpu_torch.shard.expert import (expert_parallel_moe,
+                                            use_expert_parallel)
+
     h = _rms_norm(x, lp["mlp_norm"], cfg)
     lead = h.shape[:-1]
-    t = h.reshape(-1, h.shape[-1])  # [T, d]
-    w_top, idx = _moe_route(t, lp["w_router"], cfg.n_active_experts,
-                            cfg.norm_topk)
-    form = (_moe_dense if dense or t.shape[0] <= _MOE_DENSE_MAX_T
-            else _moe_grouped)
-    out = form(t, lp, w_top, idx, cfg)
+    t = copy_to(h.reshape(-1, h.shape[-1]), mesh, MODEL_AXIS)  # [T, d]
+    ep = use_expert_parallel(mesh)
+    if ep:
+        out = expert_parallel_moe(mesh, cfg, dense)(
+            t, lp["w_router"], lp["we_gate"], lp["we_up"], lp["we_down"])
+    else:
+        w_top, idx = _moe_route(t, lp["w_router"], cfg.n_active_experts,
+                                cfg.norm_topk)
+        form = (_moe_dense if dense or t.shape[0] <= _MOE_DENSE_MAX_T
+                else _moe_grouped)
+        out = form(t, lp, w_top, idx, cfg)
     if "ws_gate" in lp:
         sg = _act(qmm(t, lp["ws_gate"]), cfg.hidden_act)
         sh = qmm(sg * qmm(t, lp["ws_up"]), lp["ws_down"])
         if "w_shared_gate" in lp:
             sh = sh * torch.sigmoid(
                 t.float() @ lp["w_shared_gate"].float()).to(sh.dtype)
+        if ep:  # the routed part is reduced already
+            sh = reduce_from(sh, mesh, MODEL_AXIS)
         out = out + sh.to(out.dtype)
+    if not ep:
+        out = reduce_from(out, mesh, MODEL_AXIS)
     out = out.reshape(*lead, -1)
     if cfg.post_norms:
         out = _rms_norm(out, lp["post_mlp_norm"], cfg)
     return x + out.to(x.dtype)
 
 
-def _mlp(x, lp, cfg: LlamaConfig, dense_moe: bool = False):
+def _mlp(x, lp, cfg: LlamaConfig, dense_moe: bool = False, mesh=None):
     """The layer's MLP: routed experts where the layer holds a bank (the
-    dense form under dense_moe), else the gated dense MLP."""
+    dense form under dense_moe), else the gated dense MLP (its w_down
+    partial sums all-reduced over "model")."""
     if "we_gate" in lp:
-        return _moe(x, lp, cfg, dense=dense_moe)
-    h = _rms_norm(x, lp["mlp_norm"], cfg)
+        return _moe(x, lp, cfg, dense=dense_moe, mesh=mesh)
+    h = copy_to(_rms_norm(x, lp["mlp_norm"], cfg), mesh, MODEL_AXIS)
     gate = _act(qmm(h, lp["w_gate"]), cfg.hidden_act)
-    out = qmm(gate * qmm(h, lp["w_up"]), lp["w_down"])
+    out = reduce_from(qmm(gate * qmm(h, lp["w_up"]), lp["w_down"]), mesh,
+                      MODEL_AXIS)
     if cfg.post_norms:
         out = _rms_norm(out, lp["post_mlp_norm"], cfg)
     return x + out
 
 
-def _attn_residual(x, attn_flat, lp, cfg: LlamaConfig):
-    """o-projection (+ post-attention norm) + residual. attn_flat: [...,
-    n_heads*head_dim]."""
-    out = qmm(attn_flat.to(x.dtype), lp["wo"])
+def _attn_residual(x, attn_flat, lp, cfg: LlamaConfig, mesh=None):
+    """o-projection (its partial sums all-reduced over "model") + post-
+    attention norm + residual. attn_flat: [..., heads * head_dim]."""
+    out = reduce_from(qmm(attn_flat.to(x.dtype), lp["wo"]), mesh, MODEL_AXIS)
     if cfg.post_norms:
         out = _rms_norm(out, lp["post_attn_norm"], cfg)
     return x + out
@@ -761,14 +912,15 @@ def _attention_dense_masked(q, k, v, cfg: LlamaConfig, window_left: int,
         softcap=_softcap(cfg)).transpose(1, 2)
 
 
-def _train_layer(x, lp, wl, rope, cfg: LlamaConfig, image_block_ids=None):
+def _train_layer(x, lp, wl, rope, cfg: LlamaConfig, image_block_ids=None,
+                 mesh=None):
     """One decoder layer on the full sequence x [b, s, dim]: causal flash
     attention with this layer's window through the differentiable kernels
-    (_attention_sharded of the JAX package without a mesh), or the
+    on the rank's heads (_attention_sharded of the JAX package), or the
     image-block kernel under image_block_ids (no gradient), then the MLP."""
     b, s, _ = x.shape
     h = _rms_norm(x, lp["attn_norm"], cfg)
-    q, k, v = _qkv(h, lp, cfg, b, s)
+    q, k, v = _qkv(h, lp, cfg, b, s, mesh=mesh)
     q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
     if image_block_ids is not None:
         attn = _attention_blockmask(q, k, v, cfg, wl, image_block_ids)
@@ -778,14 +930,13 @@ def _train_layer(x, lp, wl, rope, cfg: LlamaConfig, image_block_ids=None):
             softmax_scale=cfg.attn_scale, window_size=(wl, -1),
             logit_softcap=_softcap(cfg),
             sink_tokens=cfg.attn_sinks).transpose(1, 2)
-    x = _attn_residual(x, attn.reshape(b, s, cfg.n_heads * cfg.head_dim), lp,
-                       cfg)
-    return _mlp(x, lp, cfg)
+    x = _attn_residual(x, attn.reshape(b, s, -1), lp, cfg, mesh)
+    return _mlp(x, lp, cfg, mesh=mesh)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             remat: bool = False, input_embeds=None,
-            image_block_ids=None) -> torch.Tensor:
+            image_block_ids=None, mesh=None) -> torch.Tensor:
     """Full-sequence causal forward: tokens [b, s] -> logits [b, s, vocab]
     fp32. remat=True checkpoints each layer (torch.utils.checkpoint,
     non-reentrant): the backward recomputes the layer, so its attention
@@ -796,17 +947,21 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     [b, s] int32 image-run id per token (-1 = text); it ORs same-run
     visibility into the causal/window mask and routes attention through
     the image-block kernel, which has no backward: inference only, as in
-    JAX (on the card the kernel refuses inputs that require grad)."""
+    JAX (on the card the kernel refuses inputs that require grad).
+
+    mesh: the rank's params shard (module docstring); logits of the rows
+    given, the same on every rank of "model"."""
+    _check_stack(params, cfg)
     s = tokens.shape[1]
     x = input_embeds if input_embeds is not None else _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)[None]
     for lp, (wl, rope) in zip(params["layers"], _layer_ropes(cfg, positions)):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _train_layer, x, lp, wl, rope, cfg, image_block_ids,
+                _train_layer, x, lp, wl, rope, cfg, image_block_ids, mesh,
                 use_reentrant=False)
         else:
-            x = _train_layer(x, lp, wl, rope, cfg, image_block_ids)
+            x = _train_layer(x, lp, wl, rope, cfg, image_block_ids, mesh)
     x = _rms_norm(x, params["final_norm"], cfg)
     return _unembed(params, x, cfg)
 
@@ -821,18 +976,40 @@ def _refuse_qweights(params: Params, what: str) -> None:
                                   f"no gradient is defined through them")
 
 
+def _tree_copy_to(tree, mesh, axis):
+    """Every tensor of the params tree through copy_to: the same values,
+    whose gradients autograd sums over the axis."""
+    if isinstance(tree, dict):
+        return {k: _tree_copy_to(v, mesh, axis) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_copy_to(v, mesh, axis) for v in tree]
+    return copy_to(tree, mesh, axis) if isinstance(tree, torch.Tensor) else tree
+
+
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, mesh=None) -> torch.Tensor:
     """Mean next-token cross entropy of tokens [b, s] (tokens[:, :-1]
-    predict tokens[:, 1:]). Raises on int8 (QWeight) params."""
+    predict tokens[:, 1:]). Raises on int8 (QWeight) params.
+
+    mesh: the rank's params shard; tokens are the global batch on every
+    rank, and a "data" axis gives each rank its rows (b must divide). The
+    loss is the global mean on every rank, and its backward gives every
+    rank the full gradients of its shard."""
     _refuse_qweights(params, "loss_fn")
-    logits = forward(params, tokens[:, :-1], cfg, remat=remat)
-    return torch.nn.functional.cross_entropy(
-        logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+    n_all = tokens.shape[0] * (tokens.shape[1] - 1)
+    if axis_size(mesh, DATA_AXIS) > 1:
+        start, rows = local_slice(tokens.shape[0], mesh, DATA_AXIS, "batch")
+        tokens = tokens[start:start + rows]
+        params = _tree_copy_to(params, mesh, DATA_AXIS)
+    logits = forward(params, tokens[:, :-1], cfg, remat=remat, mesh=mesh)
+    nll = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1),
+        reduction="sum")
+    return reduce_from(nll, mesh, DATA_AXIS) / n_all
 
 
 def train_step(params: Params, tokens, cfg: LlamaConfig, lr: float = 1e-3,
-               remat: bool = False, optimizer=None):
+               remat: bool = False, optimizer=None, mesh=None):
     """One training step -> (params, loss).
 
     Unlike the pure JAX version this updates the weight tensors IN PLACE
@@ -842,14 +1019,15 @@ def train_step(params: Params, tokens, cfg: LlamaConfig, lr: float = 1e-3,
     of an optax transformation, its state held by the optimizer object) by
     optimizer.step(). The weights become leaf tensors that require grad;
     on return each holds this step's gradient in .grad (cleared at the
-    start of the next step). Raises on int8 (QWeight) params."""
+    start of the next step). Raises on int8 (QWeight) params. mesh: as
+    loss_fn; each rank updates its own shard."""
     _refuse_qweights(params, "train_step")
     leaves = param_tensors(params)
     for p in leaves:
         p.requires_grad_(True)
         p.grad = None
     tokens = torch.as_tensor(tokens, device=leaves[0].device).long()
-    loss = loss_fn(params, tokens, cfg, remat=remat)
+    loss = loss_fn(params, tokens, cfg, remat=remat, mesh=mesh)
     loss.backward()
     with torch.no_grad():
         if optimizer is None:
@@ -866,12 +1044,15 @@ def train_step(params: Params, tokens, cfg: LlamaConfig, lr: float = 1e-3,
 def build_kv_caches(cfg: LlamaConfig, num_pages: int, page_size: int,
                     max_seqs: int, pages_per_seq: int,
                     quant_dtype: Optional[str] = None,
-                    device="cuda") -> StackedKVCache:
+                    device="cuda", mesh=None) -> StackedKVCache:
     """One StackedKVCache covering every layer (shared block table and
-    lengths; merged page pool)."""
+    lengths; merged page pool); with a "model" axis, the rank's kv heads
+    (the axis must divide n_kv_heads)."""
+    _check_heads(cfg, mesh)
     return create_stacked_cache(
         n_layers=cfg.n_layers, num_pages=num_pages, page_size=page_size,
-        num_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        num_kv_heads=cfg.n_kv_heads // axis_size(mesh, MODEL_AXIS),
+        head_dim=cfg.head_dim,
         max_seqs=max_seqs, pages_per_seq=pages_per_seq, dtype=cfg.dtype,
         quant_dtype=quant_dtype, device=resolve_device(device),
     )
@@ -902,7 +1083,7 @@ def _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg: LlamaConfig):
     o_c's dtype.
     """
     n, span, heads, d = q.shape
-    hkv = cfg.n_kv_heads
+    hkv = kq.shape[0]
     group = heads // hkv
     kr = kq.reshape(hkv, n, span, d).permute(1, 2, 0, 3)  # [n, span, hkv, d]
     vr = vq.reshape(hkv, n, span, d).permute(1, 2, 0, 3)
@@ -966,7 +1147,8 @@ def _append_all_layers(cache: StackedKVCache, kq_all, ks_all, vq_all, vs_all,
 
 
 def prefill_batch(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
-                  pages_list, token_lists, vision=None, pixel_lists=None):
+                  pages_list, token_lists, vision=None, pixel_lists=None,
+                  mesh=None):
     """Prefill n prompts in one batched pass; writes their K/V pages and
     table rows IN PLACE. Prompts are padded to a shared power-of-two page
     count (as in the JAX package); padded rows write into the null page 0
@@ -981,7 +1163,8 @@ def prefill_batch(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     request order. Their projected features replace the <image>
     placeholder rows (models/vision.py) and every layer attends through
     the image-block kernel; padded rows carry run id -1.
-    Decode afterwards is plain causal.
+    Decode afterwards is plain causal. mesh: the rank's params and cache
+    shards (every rank passes the same prompts).
     """
     page = cache.page_size
     pps = cache.pages_per_seq
@@ -1021,14 +1204,14 @@ def prefill_batch(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         block_ids = vis.image_block_ids_from_tokens(tokens, image_tok)
     return _prefill(params, cfg, cache, dev_t(np.asarray(seq_slots, np.int64)),
                     dev_t(table_rows), dev_t(page_ids), tokens,
-                    dev_t(np.asarray(lens, np.int32)), embeds, block_ids)
+                    dev_t(np.asarray(lens, np.int32)), embeds, block_ids, mesh)
 
 
 def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
              table_rows, page_ids, tokens, true_lens, input_embeds=None,
-             image_block_ids=None):
+             image_block_ids=None, mesh=None):
     n, s = tokens.shape
-    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    hd, hkv = cfg.head_dim, cache.k_pages.shape[0]
     page = cache.page_size
     npg = page_ids.shape[1]
     x = (input_embeds if input_embeds is not None
@@ -1038,7 +1221,7 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     ys = []
     for lp, (wl, rope) in zip(params["layers"], _layer_ropes(cfg, positions)):
         h = _rms_norm(x, lp["attn_norm"], cfg)
-        q, k, v = _qkv(h, lp, cfg, n, s)
+        q, k, v = _qkv(h, lp, cfg, n, s, mesh=mesh)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
         # page payload [n, s, hkv, d] -> [hkv, n*npg, page, d]; appended
         # for all layers by one scatter after the loop, as in JAX
@@ -1054,8 +1237,8 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
                 causal=True, softmax_scale=cfg.attn_scale,
                 window_size=(wl, -1), logit_softcap=_softcap(cfg),
                 sink_tokens=cfg.attn_sinks).transpose(1, 2)
-        x = _attn_residual(x, attn.reshape(n, s, cfg.n_heads * hd), lp, cfg)
-        x = _mlp(x, lp, cfg)
+        x = _attn_residual(x, attn.reshape(n, s, -1), lp, cfg, mesh)
+        x = _mlp(x, lp, cfg, mesh=mesh)
         if ks_new is not None:
             ks_new = ks_new.reshape(hkv, n * npg, page)
             vs_new = vs_new.reshape(hkv, n * npg, page)
@@ -1085,7 +1268,7 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
 
 def prefill_chunk_batch(params, cfg: LlamaConfig, cache: StackedKVCache,
                         reqs_slots, reqs_pages, chunk_tokens, offsets, totals,
-                        chunk: int):
+                        chunk: int, mesh=None):
     """Advance n prompts by one chunk each, in one batched pass (chunked
     prefill and prefix-cache suffixes). chunk_tokens[i]: THIS chunk's
     tokens (len <= chunk); offsets[i]: absolute, page-aligned position of
@@ -1122,11 +1305,12 @@ def prefill_chunk_batch(params, cfg: LlamaConfig, cache: StackedKVCache,
     return _prefill_chunk(params, cfg, cache,
                           dev_t(np.asarray(reqs_slots, np.int64)),
                           dev_t(table_rows), dev_t(toks), dev_t(offs),
-                          dev_t(finals), dev_t(final_lens))
+                          dev_t(finals), dev_t(final_lens), mesh)
 
 
 def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
-                   table_rows, tokens, offsets, final_mask, final_lens):
+                   table_rows, tokens, offsets, final_mask, final_lens,
+                   mesh=None):
     """One chunk for each of n prompts (mfa_tpu's _prefill_chunk_jit).
 
     WRITE-THEN-ATTEND, as in the JAX package: each layer first writes the
@@ -1136,7 +1320,7 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     so the chunk attends to its own rows after quantization. Padded chunk
     rows past the table width write into the null page 0."""
     n, chunk = tokens.shape
-    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    hd, hkv = cfg.head_dim, cache.k_pages.shape[0]
     page = cache.page_size
     pps = cache.pages_per_seq
     chunk_pages = chunk // page
@@ -1154,7 +1338,7 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     for li, lp in enumerate(params["layers"]):
         wl, rope = plan[li]
         h = _rms_norm(x, lp["attn_norm"], cfg)
-        q, k, v = _qkv(h, lp, cfg, n, chunk)
+        q, k, v = _qkv(h, lp, cfg, n, chunk, mesh=mesh)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
         ids_l = page_ids + li * P
         kq, ks_new = _store_rows(cache.quant_dtype, store,
@@ -1174,8 +1358,8 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             v_scales=cache.v_scales, softmax_scale=cfg.attn_scale,
             causal=True, window_left=wl, logit_softcap=_softcap(cfg),
             quant_dtype=cache.quant_dtype, sink_tokens=cfg.attn_sinks)
-        x = _attn_residual(x, attn.reshape(n, chunk, cfg.n_heads * hd), lp, cfg)
-        x = _mlp(x, lp, cfg)
+        x = _attn_residual(x, attn.reshape(n, chunk, -1), lp, cfg, mesh)
+        x = _mlp(x, lp, cfg, mesh=mesh)
     x = _rms_norm(x, params["final_norm"], cfg)
     last_idx = torch.clamp(final_lens - 1 - offsets, 0, chunk - 1)
     logits = _unembed(params, x[torch.arange(n, device=dev), last_idx], cfg)
@@ -1188,7 +1372,7 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
 
 def prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache,
                   seq_slot: int, pages, tokens_1d, offset: int,
-                  total_len: int):
+                  total_len: int, mesh=None):
     """Single-request convenience over prefill_chunk_batch: prefill this
     chunk (tokens_1d, starting at absolute page-aligned `offset`) into slot
     seq_slot. Returns (cache, logits [vocab] on the final chunk, else
@@ -1198,12 +1382,12 @@ def prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache,
     chunk = -(-n_tok // cache.page_size) * cache.page_size
     cache, logits = prefill_chunk_batch(
         params, cfg, cache, [seq_slot], [list(pages)], [tokens_1d], [offset],
-        [total_len], chunk)
+        [total_len], chunk, mesh)
     return cache, (logits[0] if offset + n_tok >= total_len else None)
 
 
 def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
-                tokens):
+                tokens, mesh=None):
     """One decode step for the active batch (DEFERRED-APPEND design): the
     verify_step of a span of one token.
 
@@ -1218,12 +1402,13 @@ def decode_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     kernels and the RoPE tables.
     """
     tokens = _device_ids(tokens, cache.lengths.device)
-    cache, logits = verify_step(params, cfg, cache, seq_slots, tokens[:, None])
+    cache, logits = verify_step(params, cfg, cache, seq_slots, tokens[:, None],
+                                mesh)
     return cache, logits[:, 0]
 
 
 def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
-                tokens):
+                tokens, mesh=None):
     """Score `span` tokens per sequence in ONE forward (speculative
     verification), DEFERRED-APPEND as decode_step.
 
@@ -1237,11 +1422,13 @@ def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     finished request's spare burst positions) writes into its own last
     page, whose slot is released next. Every index stays on the device, so
     the step can be captured (serve/graphs.py). Rolling rejected tokens
-    back is a lengths reset (rollback)."""
+    back is a lengths reset (rollback). mesh: the rank's params and cache
+    shards; kernel 6 reads the rank's kv heads, and the projections'
+    all-reduces (NCCL, or none on a one-rank gloo axis) are capturable."""
     dev = cache.lengths.device
     slots, tokens = _device_ids(seq_slots, dev), _device_ids(tokens, dev)
     n, span = tokens.shape
-    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    hd, hkv = cfg.head_dim, cache.k_pages.shape[0]
     page = cache.page_size
     lens = cache.lengths[slots]  # [n] int32
     pos = lens.long()[:, None] + torch.arange(span, device=dev)[None]  # [n, span]
@@ -1257,7 +1444,7 @@ def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     for li, lp in enumerate(params["layers"]):
         wl, rope = plan[li]
         h = _rms_norm(x, lp["attn_norm"], cfg)
-        q, k, v = _qkv(h, lp, cfg, n, span)
+        q, k, v = _qkv(h, lp, cfg, n, span, mesh=mesh)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
         kq, ks_new = _store_rows(cache.quant_dtype, store,
                                  k.permute(2, 0, 1, 3).reshape(hkv, n * span, hd))
@@ -1272,9 +1459,9 @@ def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
             pos_offset=span, return_lse=True,
         )  # [n, span, heads, hd], [n, span, heads]
         attn = _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg)
-        x = _attn_residual(x, attn.reshape(n, span, cfg.n_heads * hd), lp, cfg)
+        x = _attn_residual(x, attn.reshape(n, span, -1), lp, cfg, mesh)
         # graphed steps: the dense MoE form, whatever n * span (no host read)
-        x = _mlp(x, lp, cfg, dense_moe=True)
+        x = _mlp(x, lp, cfg, dense_moe=True, mesh=mesh)
         ys.append((as_bytes(kq), ks_new, as_bytes(vq), vs_new))
     kq_all, vq_all = (torch.stack([y[i] for y in ys]) for i in (0, 2))
     ks_all = vs_all = None
@@ -1306,7 +1493,7 @@ def _device_ids(ids, dev) -> torch.Tensor:
 
 def greedy_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
                 tokens, sampling: Optional[SamplingParams] = None, noise=None,
-                presence=None, sampling_vecs=None):
+                presence=None, sampling_vecs=None, mesh=None):
     """decode_step, its draw and the draw's logprob: one step of
     decode_burst, and what a decode graph of the serving engine holds
     (serve/graphs.py). Returns (logits [n, vocab] fp32, ids [n] int64,
@@ -1320,7 +1507,7 @@ def greedy_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     rows for the repetition penalty, marked IN PLACE with the draw; noise:
     [n, vocab] fp32 uniforms (serve/sampling.py:uniform_noise), which
     stochastic params and sampling_vecs need."""
-    _, logits = decode_step(params, cfg, cache, seq_slots, tokens)
+    _, logits = decode_step(params, cfg, cache, seq_slots, tokens, mesh)
     gumbel = None if noise is None else gumbel_from_uniform(noise)
     if sampling_vecs is not None:
         top_k = sampling.top_k if sampling is not None else 0
@@ -1342,7 +1529,7 @@ def needs_noise(sampling: Optional[SamplingParams], sampling_vecs) -> bool:
 def decode_burst(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
                  tokens, n_steps: int, sampling: Optional[SamplingParams] = None,
                  generator: Optional[torch.Generator] = None, presence=None,
-                 sampling_vecs=None, return_logits: bool = False):
+                 sampling_vecs=None, return_logits: bool = False, mesh=None):
     """n_steps decode steps, each step's draw fed to the next on the device
     (mfa_tpu's decode_burst). Pages for all n_steps positions must already
     be mapped. Returns (cache, tokens [n_steps, n] int64, logprobs [n_steps,
@@ -1366,7 +1553,8 @@ def decode_burst(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         noise = (uniform_noise((toks.shape[0], cfg.vocab_size), generator, dev)
                  if noisy else None)
         logits, toks, lp = greedy_step(params, cfg, cache, slots, toks,
-                                       sampling, noise, presence, sampling_vecs)
+                                       sampling, noise, presence, sampling_vecs,
+                                       mesh)
         out.append(toks)
         lps.append(lp)
         if return_logits:
@@ -1377,7 +1565,8 @@ def decode_burst(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
 
 def speculative_iteration(params, draft_params, cfg: LlamaConfig,
                           draft_cfg: LlamaConfig, cache: StackedKVCache,
-                          draft_cache: StackedKVCache, slots, tokens, k: int):
+                          draft_cache: StackedKVCache, slots, tokens, k: int,
+                          mesh=None):
     """One GREEDY speculative iteration on the device: the draft proposes k
     tokens (k greedy decode steps on its cache), the target scores [t, d_1
     .. d_{k-1}] in one verify_step, the longest prefix where the draft
@@ -1391,11 +1580,12 @@ def speculative_iteration(params, draft_params, cfg: LlamaConfig,
     base = cache.lengths[slots]  # == total_len - 1
     d_toks, toks = [], tokens
     for _ in range(k):
-        _, toks, _ = greedy_step(draft_params, draft_cfg, draft_cache, slots, toks)
+        _, toks, _ = greedy_step(draft_params, draft_cfg, draft_cache, slots,
+                                 toks, mesh=mesh)
         d_toks.append(toks)
     d = torch.stack(d_toks, 1)  # [n, k] proposals d_1..d_k
     feed = torch.cat([tokens[:, None], d[:, :-1]], dim=1)
-    _, logits = verify_step(params, cfg, cache, slots, feed)  # [n, k, vocab]
+    _, logits = verify_step(params, cfg, cache, slots, feed, mesh)  # [n, k, vocab]
     a = torch.argmax(logits, dim=-1)  # [n, k]
     m = torch.cumprod((d == a).long(), dim=1).sum(dim=1)
     n_emit = torch.where(m < k, m + 1, torch.full_like(m, k))
@@ -1413,7 +1603,7 @@ def speculative_iteration(params, draft_params, cfg: LlamaConfig,
 def speculative_burst(params, draft_params, cfg: LlamaConfig,
                       draft_cfg: LlamaConfig, cache: StackedKVCache,
                       draft_cache: StackedKVCache, seq_slots, tokens, k: int,
-                      n_iters: int):
+                      n_iters: int, mesh=None):
     """n_iters greedy speculative iterations (speculative_iteration), each
     fed the last emitted token of the one before, with no host work in
     between (mfa_tpu's speculative_burst). Both caches need n_iters * k
@@ -1425,6 +1615,7 @@ def speculative_burst(params, draft_params, cfg: LlamaConfig,
     outs = []
     for _ in range(n_iters):
         *res, toks = speculative_iteration(params, draft_params, cfg, draft_cfg,
-                                           cache, draft_cache, slots, toks, k)
+                                           cache, draft_cache, slots, toks, k,
+                                           mesh)
         outs.append(res)
     return tuple(torch.stack(x) for x in zip(*outs))

@@ -18,7 +18,12 @@ of expert-sorted x) take a QWeight bank to kernel 10's expert launch
 (kernels/wmatmul.int8_bank_matmul) and a bf16 bank to torch.matmul;
 `ragged_qmm` is mfa_tpu's entry point over group sizes.
 
-Not ported yet: `adapt_shardings` (meshes).
+Meshes: `adapt_shardings` rewrites a per-param Sharding tree
+(llama.param_shardings) for a quantized params tree: a QWeight's qw takes
+the param's spec, its scale the spec with the reduced axis dropped
+(`adapt`). llama.shard_params then slices each tensor, so kernel 10 runs
+on the rank's columns (N / tp for wq, w_gate, w_up) or rows (K / tp for
+wo, w_down) with their own scales.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Any
 import torch
 
 from mfa_tpu_torch.kernels.wmatmul import int8_bank_matmul, int8_matmul
+from mfa_tpu_torch.shard.mesh import Sharding
 
 __all__ = [
     "QWeight",
@@ -41,6 +47,8 @@ __all__ = [
     "bank_grouped",
     "ragged_qmm",
     "quantize_params",
+    "adapt",
+    "adapt_shardings",
     "params_nbytes",
 ]
 
@@ -161,14 +169,18 @@ def bank_grouped(x: torch.Tensor, w: Any, offs: torch.Tensor,
                  max_rows: int) -> torch.Tensor:
     """Expert e of a bank w [E, K, N] over rows offs[e]:offs[e + 1] of
     expert-sorted x [R, K] -> [R, N]. offs: [E + 1] int32 on x's device;
-    max_rows: the most rows one expert can own. A QWeight bank is one
-    launch of kernel 10's expert launch (no host read); a bf16 bank one
-    torch.matmul an expert after one host read of offs (eager only)."""
+    max_rows: the most rows one expert can own. Rows past offs[E] (the
+    other ranks' assignments under expert parallelism) are unspecified. A
+    QWeight bank is one launch of kernel 10's expert launch (no host
+    read); a bf16 bank one torch.matmul an expert after one host read of
+    offs (eager only), those rows zero."""
     if isinstance(w, QWeight):
         return int8_bank_matmul(x, w.qw, w.scale, offs=offs, max_rows=max_rows)
     bounds = offs.tolist()
-    return torch.cat([x[bounds[e]:bounds[e + 1]] @ w[e]
-                      for e in range(w.shape[0])])
+    parts = [x[bounds[e]:bounds[e + 1]] @ w[e] for e in range(w.shape[0])]
+    if bounds[-1] < x.shape[0]:
+        parts.append(x.new_zeros((x.shape[0] - bounds[-1], w.shape[-1])))
+    return torch.cat(parts)
 
 
 def ragged_qmm(x: torch.Tensor, w: Any, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -210,6 +222,28 @@ def quantize_params(params: dict, include_embed: bool = True,
         return node
 
     return walk(dict(params))
+
+
+def adapt(sh: Sharding, w: Any) -> Any:
+    """A param's Sharding for its value: the Sharding itself for a tensor;
+    for a QWeight, QWeight(qw=sh, scale=sh without the reduced axis)."""
+    if not isinstance(w, QWeight):
+        return sh
+    spec = list(sh.spec) + [None] * (w.qw.ndim - len(sh.spec))
+    ax = w.axis + w.qw.ndim
+    return QWeight(qw=sh, scale=Sharding(sh.mesh, tuple(spec[:ax] + spec[ax + 1:])),
+                   axis=w.axis)
+
+
+def adapt_shardings(shardings: Any, params: Any) -> Any:
+    """A per-param Sharding tree (llama.param_shardings: dicts and the list
+    of layers) rewritten for a possibly quantized params tree of the same
+    structure (adapt at every leaf)."""
+    if isinstance(shardings, dict):
+        return {k: adapt_shardings(shardings[k], params[k]) for k in params}
+    if isinstance(shardings, list):
+        return [adapt_shardings(s, p) for s, p in zip(shardings, params)]
+    return adapt(shardings, params)
 
 
 def params_nbytes(params: Any) -> int:

@@ -35,7 +35,16 @@ by a lengths reset; greedy engines run n_iters draft / verify / accept
 iterations on the device per readback (graphed on the card), sampled ones
 step on the host with the rejection rule (speculative_accept).
 
-Not ported yet (raises NotImplementedError): meshes.
+Meshes (mesh=, shard/mesh.py): SPMD tensor parallelism. Every rank builds
+an Engine over its own params shard (llama.shard_params /
+init_params(mesh=)) and a cache of its own kv heads, and gets the same
+submits: the scheduler, block tables and page ids are replicated and
+deterministic, so every rank steps the same batches. The projections'
+partial sums are all-reduced over "model", so the logits, and greedy and
+seeded sampled tokens, are equal on every rank; each readback checks that
+(a RuntimeError if not). Decode graphs are captured only when the mesh
+can be captured (NCCL, or one rank an axis); under gloo with more ranks
+the steps run eagerly and stats.captures stays 0.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from mfa_tpu_torch.cache.paged_cache import map_pages, release_slots
 from mfa_tpu_torch.dispatch.config import (host_to_device,
@@ -58,6 +68,7 @@ from mfa_tpu_torch.serve.sampling import (SamplingParams, gumbel_from_uniform,
                                           speculative_accept, token_logprobs,
                                           uniform_noise)
 from mfa_tpu_torch.serve.scheduler import Request, Scheduler
+from mfa_tpu_torch.shard.mesh import MODEL_AXIS, assert_replicated, axis_size
 
 
 @dataclasses.dataclass
@@ -152,9 +163,30 @@ class Engine:
         draft_cfg (on `device`): speculative decoding with spec_tokens
         proposals an iteration; the draft shares the target's vocabulary,
         pages and tables, and refuses the repetition penalty, per-request
-        sampling and image prompts, as mfa_tpu's does."""
+        sampling and image prompts, as mfa_tpu's does.
+
+        mesh: a DeviceMesh with a "model" axis (and "expert" for MoE banks)
+        for tensor-parallel serving (module docstring); params (and
+        draft_params) are then this rank's shard, the cache holds this
+        rank's kv heads, and every rank makes the same calls. A "data" axis
+        replicates."""
         if mesh is not None:
-            raise NotImplementedError("meshes are not ported yet")
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh (shard/mesh.py:"
+                                f"make_mesh), got {type(mesh).__name__}")
+            for p, c in ((params, cfg), (draft_params, draft_cfg)):
+                if p is None:
+                    continue
+                llama._check_stack(p, c)
+                llama._check_heads(c, mesh)
+                want = c.n_kv_heads // axis_size(mesh, MODEL_AXIS) * c.head_dim
+                if p["layers"][0]["wk"].shape[-1] != want:
+                    raise ValueError(
+                        "Engine(mesh=) takes this rank's params shard "
+                        "(llama.shard_params or init_params(mesh=)): wk has "
+                        f"{p['layers'][0]['wk'].shape[-1]} columns, the "
+                        f"rank's kv heads {want}")
+        self.mesh = mesh
         if prefill_chunk is not None and prefill_chunk % page_size != 0:
             raise ValueError("prefill_chunk must be a multiple of page_size")
         self.device = resolve_device(device)
@@ -166,7 +198,7 @@ class Engine:
         self.params = params
         self.cache = llama.build_kv_caches(
             cfg, num_pages, page_size, max_seqs, pages_per_seq, quant_dtype,
-            device=self.device)
+            device=self.device, mesh=mesh)
         self.sched = Scheduler(max_seqs, pages_per_seq, page_size, num_pages,
                                prefix_cache=prefix_cache)
         self.sampling = sampling or SamplingParams()
@@ -178,7 +210,7 @@ class Engine:
                           if self.sampling.needs_presence else None)
         self.stats = EngineStats()
         self.graphs = DecodeGraphs(params, cfg, self.device, self.stats,
-                                   self.sampling)
+                                   self.sampling, mesh)
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
         self.spec_tokens = spec_tokens
@@ -193,9 +225,10 @@ class Engine:
                     "penalty (verification is context-free)")
             self.draft_cache = llama.build_kv_caches(
                 draft_cfg, num_pages, page_size, max_seqs, pages_per_seq,
-                quant_dtype, device=self.device)
+                quant_dtype, device=self.device, mesh=mesh)
             self.spec_graphs = SpeculativeGraphs(
-                params, draft_params, cfg, draft_cfg, self.device, self.stats)
+                params, draft_params, cfg, draft_cfg, self.device, self.stats,
+                mesh)
         # dispatched decode bursts whose tokens are not read back yet
         self._pending_bursts: Deque[dict] = collections.deque()
         # Finished slots awaiting their device-metadata clear: one batched
@@ -285,6 +318,15 @@ class Engine:
             self._all_reqs.pop(uid, None)
         return out
 
+    def _check_replicated(self, tokens_np) -> None:
+        """Under a "model" axis every rank must read back the same tokens
+        (SPMD: the same logits after the all-reduce, the same generator)."""
+        if axis_size(self.mesh, MODEL_AXIS) > 1:
+            t = torch.as_tensor(tokens_np)
+            if self.device.type == "cuda":
+                t = t.to(self.device)
+            assert_replicated(t, self.mesh, MODEL_AXIS, "sampled tokens")
+
     def _sample(self, logits, presence=None, vecs=None):
         """-> host (ids [n], logprobs [n]); logprobs under the unfiltered
         model distribution. presence: [n, vocab] rows; vecs: per-row
@@ -299,7 +341,9 @@ class Engine:
         else:
             ids = sample(logits, self.sampling, presence, gumbel)
         lps = token_logprobs(logits, ids)
-        return ids.cpu().numpy(), lps.cpu().numpy()
+        ids = ids.cpu().numpy()
+        self._check_replicated(ids)
+        return ids, lps.cpu().numpy()
 
     def _sampling_vecs(self, reqs, rows: int) -> Optional[torch.Tensor]:
         """Per-row (temperature, top_p, min_p, repetition_penalty) [4, rows]
@@ -378,12 +422,13 @@ class Engine:
             self.cache, logits = llama.prefill_batch(
                 self.params, self.cfg, self.cache, [r.slot for r in group],
                 [r.pages for r in group], token_lists, vision=vision,
-                pixel_lists=[r.images for r in group] if vision else None)
+                pixel_lists=[r.images for r in group] if vision else None,
+                mesh=self.mesh)
             if self.draft_cache is not None:
                 self.draft_cache, _ = llama.prefill_batch(
                     self.draft_params, self.draft_cfg, self.draft_cache,
                     [r.slot for r in group], [r.pages for r in group],
-                    token_lists)
+                    token_lists, mesh=self.mesh)
             firsts, first_lps = self._sample(
                 logits, self._pres_rows([r.slot for r in group]),
                 self._sampling_vecs(group, len(group)))
@@ -497,11 +542,11 @@ class Engine:
             totals.append(chunk + page)  # never "final"
         self.cache, logits = llama.prefill_chunk_batch(
             self.params, self.cfg, self.cache, slots, pages_l, chunk_toks,
-            offs, totals, chunk)
+            offs, totals, chunk, self.mesh)
         if self.draft_cache is not None:
             self.draft_cache, _ = llama.prefill_chunk_batch(
                 self.draft_params, self.draft_cfg, self.draft_cache, slots,
-                pages_l, chunk_toks, offs, totals, chunk)
+                pages_l, chunk_toks, offs, totals, chunk, self.mesh)
         # logits carry the padded bucket rows; sample only the real items
         reqs = [it[0] for it in items]
         ids, lps = self._sample(logits[: len(items)],
@@ -612,6 +657,7 @@ class Engine:
         if d["event"] is not None:
             d["event"].synchronize()
         toks_np, lps_np = d["toks_h"].numpy(), d["lps_h"].numpy()
+        self._check_replicated(toks_np)
         self.stats.readbacks += 1
         self.stats.steps += d["n_eff"]
         mark_slots, mark_toks = [], []
@@ -844,6 +890,7 @@ class Engine:
         else:
             t_np, lp_np, ne_np, m_np = self._sampled_iteration(
                 slots_d, toks_d, len(active), k)
+        self._check_replicated(t_np)
         self.stats.readbacks += 1
         self.stats.steps += n_iters
         self.stats.decode_s += time.perf_counter() - t0
@@ -874,10 +921,11 @@ class Engine:
         SpeculativeGraphs.burst's with n_iters 1."""
         _, d_toks, _, d_logits = llama.decode_burst(
             self.draft_params, self.draft_cfg, self.draft_cache, slots_d,
-            toks_d, k, self.sampling, self.generator, return_logits=True)
+            toks_d, k, self.sampling, self.generator, return_logits=True,
+            mesh=self.mesh)
         feed = torch.cat([toks_d[None], d_toks[:-1]], dim=0).T  # [nb, k]
         _, logits = llama.verify_step(self.params, self.cfg, self.cache,
-                                      slots_d, feed)  # [nb, k, vocab]
+                                      slots_d, feed, self.mesh)  # [nb, k, vocab]
         t_dev, m_dev = speculative_accept(d_logits.transpose(0, 1), logits,
                                           d_toks.T, self.sampling,
                                           self.generator)
@@ -936,12 +984,12 @@ class Engine:
                  c0.pages_per_seq, c0.quant_dtype)
         self.cache = c0 = None  # free the old pools before the new ones
         self.cache = llama.build_kv_caches(self.cfg, *shape,
-                                           device=self.device)
+                                           device=self.device, mesh=self.mesh)
         if self.draft_cache is not None:
             self.spec_graphs.reset()
             self.draft_cache = None
-            self.draft_cache = llama.build_kv_caches(self.draft_cfg, *shape,
-                                                     device=self.device)
+            self.draft_cache = llama.build_kv_caches(
+                self.draft_cfg, *shape, device=self.device, mesh=self.mesh)
         for req in reversed(active):
             self.sched.waiting.appendleft(req)
         self.stats.recoveries += 1

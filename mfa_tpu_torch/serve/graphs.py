@@ -56,7 +56,11 @@ replays it:
 
 On the card a capture or replay that fails raises; nothing falls back to
 eager decode. On the CPU there is nothing to capture, and the same calls
-run `llama.decode_burst`, the plain loop.
+run `llama.decode_burst`, the plain loop. Under a mesh (Engine(mesh=)) a
+step's all-reduces are in the graph, so graphs are captured only when the
+mesh can be captured (shard/mesh.py:capturable: NCCL, or an axis of one
+rank, which runs no collective under gloo); under gloo with more ranks
+the steps run eagerly (and stats.captures stays 0).
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ import torch
 from mfa_tpu_torch.kernels import _build
 from mfa_tpu_torch.models import llama
 from mfa_tpu_torch.serve.sampling import SamplingParams, uniform_noise
+from mfa_tpu_torch.shard.mesh import capturable
 
 # Private switch for measurements only (chip_smoke.py and
 # scripts/profile_torch_engine.py time the eager step with it off); not an
@@ -99,9 +104,10 @@ class _Captures:
     """What the engine's graphs share: the capture stream, one memory pool,
     the stats, and the eager-step-then-capture of a step function."""
 
-    def __init__(self, device: torch.device, stats):
+    def __init__(self, device: torch.device, stats, mesh=None):
         self.device = device
         self.stats = stats
+        self.mesh = mesh
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None
 
@@ -110,7 +116,7 @@ class _Captures:
 
     @property
     def enabled(self) -> bool:
-        return self.device.type == "cuda" and _ENABLED
+        return self.device.type == "cuda" and _ENABLED and capturable(self.mesh)
 
     def capture(self, step):
         """Run step() eagerly on the capture stream (it writes its results
@@ -147,11 +153,12 @@ class DecodeGraphs(_Captures):
     """The decode graphs of one engine: one per batch bucket (and sampling
     kind), captured on first use against one cache. `stats` (an
     EngineStats) gets the capture count and seconds. sampling: the
-    engine's SamplingParams (None: greedy)."""
+    engine's SamplingParams (None: greedy); mesh: the params' and cache's
+    (module docstring)."""
 
     def __init__(self, params, cfg: llama.LlamaConfig, device: torch.device,
-                 stats, sampling: Optional[SamplingParams] = None):
-        super().__init__(device, stats)
+                 stats, sampling: Optional[SamplingParams] = None, mesh=None):
+        super().__init__(device, stats, mesh)
         self.params = params
         self.cfg = cfg
         self.sampling = sampling
@@ -178,7 +185,7 @@ class DecodeGraphs(_Captures):
         if not self.enabled:
             _, toks, lps = llama.decode_burst(
                 self.params, self.cfg, cache, slots, tokens, n, self.sampling,
-                generator, presence, sampling_vecs)
+                generator, presence, sampling_vecs, mesh=self.mesh)
             return toks, lps
         if self._cache is not None and cache is not self._cache:
             raise RuntimeError("the decode graphs were captured on another "
@@ -228,7 +235,7 @@ class DecodeGraphs(_Captures):
         def step():
             logits, ids, lp = llama.greedy_step(
                 self.params, self.cfg, cache, b.slots, b.tokens, self.sampling,
-                b.noise, b.presence, b.vecs)
+                b.noise, b.presence, b.vecs, self.mesh)
             b.tokens.copy_(ids)
             b.lps.copy_(lp)
             return logits
@@ -257,8 +264,9 @@ class SpeculativeGraphs(_Captures):
     (llama.speculative_iteration) on the target's and the draft's caches."""
 
     def __init__(self, params, draft_params, cfg: llama.LlamaConfig,
-                 draft_cfg: llama.LlamaConfig, device: torch.device, stats):
-        super().__init__(device, stats)
+                 draft_cfg: llama.LlamaConfig, device: torch.device, stats,
+                 mesh=None):
+        super().__init__(device, stats, mesh)
         self.params, self.draft_params = params, draft_params
         self.cfg, self.draft_cfg = cfg, draft_cfg
         self.reset()
@@ -279,7 +287,7 @@ class SpeculativeGraphs(_Captures):
         if not self.enabled:
             return llama.speculative_burst(
                 self.params, self.draft_params, self.cfg, self.draft_cfg,
-                cache, draft_cache, slots, tokens, k, n_iters)
+                cache, draft_cache, slots, tokens, k, n_iters, self.mesh)
         if self._caches is not None and (cache, draft_cache) != self._caches:
             raise RuntimeError("the speculative graphs were captured on other "
                                "caches: reset() them first")
@@ -310,7 +318,7 @@ class SpeculativeGraphs(_Captures):
         def step():
             *res, nxt = llama.speculative_iteration(
                 self.params, self.draft_params, self.cfg, self.draft_cfg, cache,
-                draft_cache, b.slots, b.tokens, k)
+                draft_cache, b.slots, b.tokens, k, self.mesh)
             b.tokens.copy_(nxt)
             if out:
                 for dst, src in zip(out, res):

@@ -132,7 +132,7 @@ def test_unported_engine_options_raise(params):
     _, tp = params
     with pytest.raises(ValueError):  # a draft needs its config
         Engine(tp, TCFG, device="cpu", draft_params=tp)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # a mesh is a DeviceMesh
         Engine(tp, TCFG, device="cpu", mesh=object())
     spec = Engine(tp, TCFG, device="cpu", draft_params=tp, draft_cfg=TCFG)
     with pytest.raises(ValueError):  # per-request sampling with a draft

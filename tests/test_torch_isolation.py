@@ -29,7 +29,10 @@ def test_import_loads_neither_jax_nor_mfa_tpu():
         "mfa_tpu_torch.models.safetensors_io, mfa_tpu_torch.models.convert, "
         "mfa_tpu_torch.utils.checkpoint, mfa_tpu_torch.serve.server, "
         "mfa_tpu_torch.utils.timing, mfa_tpu_torch.utils.profiling, "
-        "mfa_tpu_torch.utils.native\n"
+        "mfa_tpu_torch.utils.native, mfa_tpu_torch.shard.mesh, "
+        "mfa_tpu_torch.shard.attention, mfa_tpu_torch.shard.ring, "
+        "mfa_tpu_torch.shard.expert, mfa_tpu_torch.shard.pipeline, "
+        "mfa_tpu_torch.shard.launch, mfa_tpu_torch.serve.multihost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', "
         "'mfa_tpu', 'transformers', 'safetensors', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -96,7 +99,11 @@ def test_import_builds_no_kernel():
         "import mfa_tpu_torch.models.vision, mfa_tpu_torch.kernels.blockmask\n"
         "import mfa_tpu_torch.models.wquant, mfa_tpu_torch.kernels.wmatmul\n"
         "import mfa_tpu_torch.serve.server, mfa_tpu_torch.utils.timing\n"
-        "import mfa_tpu_torch.utils.profiling\n"
+        "import mfa_tpu_torch.utils.profiling, mfa_tpu_torch.shard.ring\n"
+        "import mfa_tpu_torch.shard.expert, mfa_tpu_torch.shard.pipeline\n"
+        "import mfa_tpu_torch.shard.launch, mfa_tpu_torch.serve.multihost\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "from mfa_tpu_torch.kernels import _build\n"
         "from mfa_tpu_torch.utils import native\n"
         "assert not _build._libs and _build.build_seconds is None\n"
@@ -106,3 +113,44 @@ def test_import_builds_no_kernel():
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sharding_layer_sources_never_name_jax_or_mfa_tpu():
+    """The sharding layer and the rank-side test functions (which the
+    spawned ranks import) name neither jax nor mfa_tpu."""
+    paths = sorted((PKG / "shard").glob("*.py")) + [
+        PKG / "serve" / "multihost.py", ROOT / "tests" / "torch_rank_fns.py"]
+    assert len(paths) == 9
+    for path in paths:
+        for line in path.read_text().splitlines():
+            assert not _imports_jax_or_mfa_tpu(line), (path, line)
+
+
+def test_launcher_reraises_a_failing_rank():
+    """A rank that raises while the others wait in a collective ends the
+    group: the launcher re-raises the rank's exception and does not hang
+    (its own timeout is far below the group's)."""
+    import time
+
+    from mfa_tpu_torch.shard.launch import RankError, Ranks
+    from tests import torch_rank_fns as R
+
+    t0 = time.monotonic()
+    with pytest.raises(RankError, match="rank 1 raised(.|\\n)*rank failure on purpose"):
+        with Ranks(2, device="cpu", threads=1, timeout_s=60) as ranks:
+            ranks.run(R.fail_on_rank, 1)
+    assert time.monotonic() - t0 < 45
+
+
+def test_launcher_refuses_more_nccl_ranks_than_cards(monkeypatch):
+    """On CUDA the launcher takes NCCL, which needs a card a rank: with
+    fewer cards it raises before spawning rather than falling back to
+    gloo; gloo is the caller's explicit choice."""
+    import torch
+
+    from mfa_tpu_torch.shard.launch import Ranks
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="NCCL needs a card a rank: 2 ranks, 1 cards"):
+        Ranks(2, device="cuda")
