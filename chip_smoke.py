@@ -70,7 +70,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    and ALiBi at lens 8192 (int8, int4 and bf16 pages, a span of 4),
    kernel 8 with sinks at the chunk batch past position 4096, kernels
    11-14 with ALiBi, 11 with sinks and 11-13 with the offset; SDPA with the
-   equivalent bool mask or float bias as the library time.
+   equivalent bool mask or float bias as the library time. Then
+   (fp32_kernels) every forward kernel on fp32 inputs against its plain
+   fp32 version, TF32 off: kernels 1, 2 + 3 and 3 alone at the 8B wave and
+   a 4096-token prompt (0 flags on benign inputs; on std-1e3 and shifted
+   ones the plain version's flags, > 0, and every flagged tile equal to
+   kernel 1 bit for bit), kernel 4 at d 64 and BASELINE's first config,
+   kernel 5 and the combine at b16 S8192, kernel 6 with fp32 q on fp32,
+   int8, fp8 and int4 pages, kernel 7 packed and ragged, kernel 8 at the
+   chunk batch on every page format, kernel 9 at Gemma3-4B's image wave;
+   within atol = rtol = 1e-4 (quantized pages: the bf16-q limits), timed
+   against bounds of 4-byte rows at 3.35 TB/s and operations at 165
+   TFLOP/s (TF32's 495 over three passes) and SDPA in fp32.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -150,7 +161,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    the native allocator and on the Python one.
    The library surface also calls flash_attn_func with a softcap and in
    fp16 (kernel 1) and at head_dim 64 (kernel 4); every bf16 prompt wave
-   runs kernels 2 + 3.
+   runs kernels 2 + 3. minimal_fp32 runs BASELINE's first config (fp32,
+   non-causal, b2 s128 h8 d64: kernel 4) and tests/test_minimal.py's two
+   cases against mfa_tpu_torch/ref/oracle.py within 2e-5, then every
+   entry point on fp32 tensors (kernels 1-9 in fp32, no bf16 launch).
+   engine_8b_fp32 (after the Danube phases, every earlier weight freed):
+   Llama-3-8B in fp32 (32.1 GB of weights, projections in true fp32) with
+   the first engine's traffic on fp32 and on int8 KV pages, graphed and
+   with the graphs off (the same tokens), then the chunked + prefix
+   traffic on int8 KV (kernel 8 with fp32 q); fp32 launches of kernels 2,
+   3, 6, 8 and the combine.
    Right after the first engine, the sharding layer (mfa_tpu_torch/shard/):
    tp_engine_8b runs the first engine's weights and traffic behind
    Engine(mesh=) at {"model": 1} over NCCL in this process, graphed
@@ -188,7 +208,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    with bf16 banks behind the engine on the card, graphed tokens equal to
    graphs-off tokens; then Mistral-7B at full width cut to 2 layers with a
    window of 64 and 4 sinks: prefill, decode, chunked and prefix-hit
-   logits agree (int8 KV).
+   logits agree (int8 KV); then (cuda_vs_cpu_fp32) 2 layers of the fp32 8B
+   at full width on fp32 KV: a prompt wave, four decode steps
+   teacher-forced on the card's tokens, two chunks and a prefix-hit suffix,
+   every logit row within relative L2 1e-4 of the CPU's.
 5. The instruments (utils/timing.py, utils/profiling.py, utils/native.py):
    the peak table's entries for this card, scan_timeit of the paged
    decode kernel at the 8B serve step within 2x of its CUDA-event time, a
@@ -287,21 +310,21 @@ def _lse_err(lse, ref, what=""):
     return ok
 
 
-def _wave_launches(got, n, softcap=False, head_dim=128):
+def _wave_launches(got, n, softcap=False, head_dim=128, suffix=""):
     """A bf16 prompt wave runs the default engine: n zero-shift launches,
     each followed by its repair launch, and kernel 1 not at all; with an
     attention softcap (Gemma2) the classic engine: n kernel 1 launches and
     no zero-shift one; at a head_dim that is not a multiple of 128
     (H2O-Danube's 80) the bound prepass: n kernel 4 launches, as mfa_tpu
-    selects it."""
+    selects it. suffix "_fp32": the same launches of the fp32 tile."""
+    def n_of(name):
+        return got.get(name + suffix, 0)
+
     if softcap:
-        return got.get("prefill", 0) == n and not got.get("flagged", 0) \
-            and not got.get("repair", 0)
+        return n_of("prefill") == n and not n_of("flagged") and not n_of("repair")
     if head_dim % 128:
-        return got.get("bound", 0) == n and not got.get("flagged", 0) \
-            and not got.get("prefill", 0)
-    return got.get("flagged", 0) == n and got.get("repair", 0) == n \
-        and not got.get("prefill", 0)
+        return n_of("bound") == n and not n_of("flagged") and not n_of("prefill")
+    return n_of("flagged") == n and n_of("repair") == n and not n_of("prefill")
 
 
 def kernel_phase(records):
@@ -2832,7 +2855,8 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
     the chunked path; (b) a request with a 1024-token system prompt runs
     until its prefill completes, then 8 more with the same system prompt
     hit its 16 cached pages and prefill only their suffix; (c) 4 short
-    prompts take whole-prompt prefill (kernels 2 + 3). The 8B's, and with
+    prompts take whole-prompt prefill (kernels 2 + 3; in fp32 weights their
+    fp32 launches, and kernels 6 and 8 with fp32 q). The 8B's, and with
     model "Gemma3-4B" the same traffic on Gemma3-4B's text stack (kernel 8
     at head_dim 256 on its sliding and global layers), or on Qwen2-7B
     (group 7) and Gemma2-9B (softcap: its waves take kernel 1). The long
@@ -2847,7 +2871,9 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
     params, cfg = state.pop("params"), state.pop("cfg")
     torch.cuda.reset_peak_memory_stats()
     gen_tokens, page = 32, 64
-    k6, k8 = paged.launch_name("paged", quant), paged.launch_name("paged_prefill", quant)
+    k6 = paged.launch_name("paged", quant, 1, cfg.dtype)
+    k8 = paged.launch_name("paged_prefill", quant, 1, cfg.dtype)
+    sfx = "_fp32" if cfg.dtype == torch.float32 else ""
     eng = Engine(params, cfg, num_pages=pages[0], page_size=page, max_seqs=16,
                  pages_per_seq=pages[1], quant_dtype=quant, prefill_chunk=512,
                  prefix_cache=True, device="cuda")
@@ -2884,7 +2910,7 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
     ok &= eng.sched.allocator.free_pages + retained == free0
     ok &= got.get(k8, 0) == cfg.n_layers * stats.chunk_batches
     ok &= _wave_launches(got, cfg.n_layers * stats.prefill_batches, bool(cfg.attn_softcap),
-                         cfg.head_dim)
+                         cfg.head_dim, sfx)
     ok &= got.get(k6, 0) == cfg.n_layers * stats.steps
     passes = stats.chunk_batches + stats.prefill_batches + stats.steps
     if cfg.n_experts:  # every MoE layer: three expert launches a pass
@@ -5551,6 +5577,631 @@ def pipeline_phase(counts, ident, shard):
     return ok
 
 
+# fp32: the fp32 tile (csrc/flash_fwd_f32.cuh, decode_f32.cuh, paged_prefill.cu)
+
+FP32_KERNELS = ("prefill", "flagged", "repair", "bound", "decode", "combine", "paged",
+                "varlen", "paged_prefill", "blockmask")
+# fp32-accurate products on the card: TF32's dense 495 TFLOP/s over the three
+# passes of a split product (3xTF32), the rate an fp32 bound is held to
+PEAK_F32_FLOPS = 495e12 / 3
+
+
+def _bound32(nbytes: float, flops: float):
+    """The least ms for fp32 work: bytes over 3.35 TB/s against operations
+    over 165 TFLOP/s, whichever is larger."""
+    from mfa_tpu_torch.utils.timing import PEAK_BYTES
+
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _err32(out, ref, what, lse=None, ref_lse=None, tol=1e-4):
+    """fp32 outputs against their plain version: |o - r| <= tol + tol |r|
+    everywhere, the LSE likewise with the same -inf rows -> (max abs
+    error, ok)."""
+    import torch
+
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    ok = bool(torch.isfinite(o).all()) and bool((d <= tol + tol * r.abs()).all())
+    msg = f"  {what}: max_abs_err {float(d.max()):.3e} (atol = rtol = {tol})"
+    if lse is not None:
+        same = torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+        fin = torch.isfinite(ref_lse)
+        dl = (lse[fin] - ref_lse[fin]).abs()
+        ok &= same and bool((dl <= tol + tol * ref_lse[fin].abs()).all())
+        msg += (f", lse max_abs_err {float(dl.max()) if dl.numel() else 0.0:.3e}, "
+                f"-inf rows match {same}")
+    print(f"{msg} {'ok' if ok else 'FAIL'}", flush=True)
+    return float(d.max()), ok
+
+
+def _record32(records, name, tag, mx, ms, plain_ms, lib_ms, nbytes, flops):
+    """Print a timing line; the first shape timed for a kernel is its row
+    of the kernels line (the error is the largest over its shapes)."""
+    bound_ms, by = _bound32(nbytes, flops)
+    lib = (f"library_ms {lib_ms:.4f} (kernel / library {ms / lib_ms:.2f}x)"
+           if lib_ms else "library_ms none")
+    print(f"  {tag}: ms {ms:.4f} bound_ms {bound_ms:.6f} ({by}, share "
+          f"{bound_ms / ms:.3f}) plain_ms {plain_ms:.4f} {lib}", flush=True)
+    rec = records[f"{name}_fp32"]
+    rec["max_abs_err"] = max(rec.get("max_abs_err") or 0.0, mx)
+    if "ms" not in rec:
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                   library_ms=lib_ms)
+
+
+def _poison_rows_past(kp, vp, ks, vs, quant, table, lens, page):
+    """NaN (fp32 pages), NaN scales and the fp8 NaN code in every row of a
+    sequence's pages at or past its length: rows no kernel may read."""
+    import torch
+
+    where = torch.zeros(kp.shape[:3], dtype=torch.bool, device=kp.device)
+    for i, n in enumerate(lens):
+        for j, pg in enumerate(table[i].tolist()):
+            lo = max(0, n - j * page)
+            if lo < page:
+                where[:, pg, lo:] = True
+    for pages, scales in ((kp, ks), (vp, vs)):
+        if quant is None:
+            pages[where] = float("nan")
+        else:
+            _poison_stale(pages, scales, quant, where)
+
+
+def _pages32(kf, vf, quant):
+    """fp32 pages (copies) or their quantized format (_kv_pages)."""
+    return _kv_pages(kf, vf, quant) if quant else (kf.clone(), vf.clone(), None, None)
+
+
+def _row_bytes32(quant, d: int) -> int:
+    """Bytes one K or V row of a page moves: 4 d in fp32, else _row_bytes."""
+    return _row_bytes(quant, d) if quant else 4 * d
+
+
+def fp32_kernels(records):
+    """Phase 2 in fp32: every forward kernel and kind on fp32 inputs against
+    its plain fp32 version on the card, at the 8B shapes of PERF.md §6 (d
+    128, 32 q / 8 kv heads): kernel 1, 2 + 3 and 3 alone at the 8B wave
+    and at one 4096-token prompt (benign: 0 flags; std-1e3 and shifted
+    inputs: flags equal to the plain version's, > 0, and every flagged tile
+    equal to kernel 1 bit for bit), kernel 4 at d 64 (the 8B wave's heads
+    and BASELINE's first config) with and without risky bits (q and k x 4:
+    every tile risky), kernel 5 and
+    the combine at b16 S8192, kernel 6 at the 8B serve step on fp32, int8,
+    fp8 and int4 pages (fp32 q) and at lens 8192, kernel 7 on 8 x 512 and a
+    ragged pack, kernel 8 at the engine chunk batch on every page format,
+    kernel 9 at Gemma3-4B's image wave. Limits: atol = rtol = 1e-4 on fp32
+    inputs and pages (the LSE too, the same -inf rows); on quantized pages
+    the bf16-q case's (max 2e-2, mean 2e-3). Bounds: 4-byte rows (the page
+    bytes for quantized pages) at 3.35 TB/s against the operations at 165
+    TFLOP/s; library: SDPA on the fp32 tensors (kernels 1, 2, 4, 5, 7; 9
+    with a bool mask), none for 3, 6 and 8."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import (_build, blockmask, decode, paged,
+                                       paged_prefill, prefill, varlen)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    prec = torch.get_float32_matmul_precision()
+    ok = tf32 is False and prec == "highest"
+    print(f"fp32 kernels: torch.backends.cuda.matmul.allow_tf32 {tf32}, float32 "
+          f"matmul precision {prec!r} (the plain versions' products in full fp32)",
+          flush=True)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    hq, hkv, d = 32, 8, 128
+    scale = d ** -0.5
+    # -- kernels 1, 2, 3: the 8B wave and one 4096-token prompt
+    for b, s in ((16, 256), (1, 4096)):
+        q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+        flops = 4 * b * hq * s * (s + 1) / 2 * d
+        nbytes = 4 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+        tag = f"b{b} hq{hq} hkv{hkv} s{s} d{d} causal fp32"
+        ro, rl = prefill._prefill_plain(q, k, v, scale, -1, 0, 0.0, True)
+        plain_ms = _time_ms(lambda: prefill._prefill_plain(
+            q, k, v, scale, -1, 0, 0.0, False), iters=3)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                           bound_softmax=False)
+        print(f"prefill_fp32 (kernel 1) {tag}", flush=True)
+        mx, good = _err32(o, ro, "O", lse, rl)
+        ok &= good
+        _record32(records, "prefill", "kernel 1", mx, _time_ms(
+            lambda: prefill.prefill_attention(q, k, v, causal=True, bound_softmax=False)),
+            plain_ms, lib_ms, nbytes, flops)
+        o2, lse2, flags = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                                    bound_softmax="flag_debug")
+        zo, zl, zf = prefill._engine_plain("flagged", "flag_debug", q, k, v, scale, -1, 0)
+        print(f"flagged_fp32 + repair_fp32 (kernels 2 + 3) {tag}, benign: "
+              f"{int(flags.sum())} flags (plain {int(zf.sum())})", flush=True)
+        mx, good = _err32(o2, zo, "O", lse2, zl)
+        ok &= good and int(flags.sum()) == 0 and torch.equal(flags, zf.int())
+        _record32(records, "flagged", "kernel 2 alone (flag_only)", mx, _time_ms(
+            lambda: prefill.prefill_attention(q, k, v, causal=True,
+                                              bound_softmax="flag_only")),
+            plain_ms, lib_ms, nbytes, flops)
+        out, lse3 = torch.empty_like(q), torch.empty_like(lse)
+        none_ms = _time_ms(lambda: prefill._zs_launch(
+            "repair", q, k, v, out, lse3, torch.zeros_like(flags), scale, -1, 0))
+        every = torch.ones_like(flags)
+        ms = _time_ms(lambda: prefill._zs_launch("repair", q, k, v, out, lse3, every,
+                                                 scale, -1, 0))
+        torch.cuda.synchronize()
+        print(f"  kernel 3 with no tile flagged: ms {none_ms:.4f}", flush=True)
+        mx, good = _err32(out, ro, "kernel 3 over every tile", lse3, rl)
+        same = torch.equal(out, o) and torch.equal(lse3, lse)
+        print(f"  kernel 3 over every tile equals kernel 1 bit for bit: {same}", flush=True)
+        ok &= good and same
+        _record32(records, "repair", "kernel 3, every tile flagged", mx, ms, plain_ms,
+                  None, nbytes, flops)
+        del q, k, v, ro, rl, o, o2, zo, out
+        torch.cuda.empty_cache()
+    for kind in ("overflow", "flush"):
+        q, k, v = rn(16, hq, 256, d), rn(16, hkv, 256, d), rn(16, hkv, 256, d)
+        q, k = (q * 1e3, k * 1e3) if kind == "overflow" else (q + 40.0, k - 40.0)
+        o, flags = prefill.prefill_attention(q, k, v, causal=True,
+                                             bound_softmax="flag_debug")
+        k1 = prefill.prefill_attention(q, k, v, causal=True, bound_softmax=False)
+        _, _, zf = prefill._engine_plain("flagged", "flag_debug", q, k, v, scale, -1, 0)
+        rows = flags.bool().repeat_interleave(64, -1)[..., :256]
+        good = int(flags.sum()) > 0 and torch.equal(flags, zf.int()) \
+            and torch.equal(o[rows], k1[rows])
+        print(f"kernels 2 + 3 fp32 on {kind} inputs (8B wave): {int(flags.sum())} of "
+              f"{flags.numel()} tiles flagged (plain {int(zf.sum())}), flagged tiles "
+              f"equal kernel 1 bit for bit {'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    # -- kernel 4 at d 64: the 8B wave's heads, and BASELINE's first config
+    # ("risky": q and k x 4, every tile's norm bound past the zero shift's
+    # range, so every tile runs the classic softmax: scores of std ~16 stay
+    # well inside fp32's exactness, unlike std-1e3 scores, whose fp32
+    # rounding alone moves p by percents in any summation order)
+    for b, h, kvh, s, causal, kind in ((16, 32, 8, 256, True, "benign"),
+                                       (2, 8, 8, 128, False, "benign"),
+                                       (16, 32, 8, 256, True, "risky")):
+        q, k, v = rn(b, h, s, 64), rn(b, kvh, s, 64), rn(b, kvh, s, 64)
+        if kind == "risky":
+            q, k = q * 4.0, k * 4.0
+            bits = prefill._risky_bits(q, k, 64 ** -0.5 * prefill._LOG2E)
+            print(f"  risky bits: {int(bits.sum())} of {bits.numel()} tiles", flush=True)
+            ok &= bool(bits.all())
+        wr = 0 if causal else -1
+        tag = f"bound_fp32 (kernel 4) b{b} hq{h} hkv{kvh} s{s} d64 {kind}"
+        for mode in (None, "unchecked") if kind == "benign" else (None,):
+            o, lse = prefill.prefill_attention(q, k, v, causal=causal, return_lse=True,
+                                               bound_softmax=mode)
+            zo, zl, _ = prefill._engine_plain("bound", mode or "prepass", q, k, v,
+                                              64 ** -0.5, -1, wr)
+            print(f"{tag} {mode or 'prepass'}", flush=True)
+            mx, good = _err32(o, zo, "O", lse, zl)
+            ok &= good
+        if kind == "benign" and b == 16:
+            pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
+            _record32(records, "bound", "kernel 4 alone (unchecked); prepass "
+                      f"{_time_ms(lambda: prefill.prefill_attention(q, k, v, causal=causal)):.4f}",
+                      mx, _time_ms(lambda: prefill.prefill_attention(
+                          q, k, v, causal=causal, bound_softmax="unchecked")),
+                      _time_ms(lambda: prefill._engine_plain(
+                          "bound", "prepass", q, k, v, 64 ** -0.5, -1, wr), iters=3),
+                      _time_ms(lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=causal, enable_gqa=True)),
+                      4 * (2 * b * h * s * 64 + 2 * b * kvh * s * 64), 4 * pairs * 64)
+    # -- kernel 5 + the combine: b16 S8192, then a window with sinks and ALiBi
+    b, S = 16, 8192
+    q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
+    L = torch.full((b,), S, dtype=torch.int32, device=dev)
+    ns, tps = decode.split_layout(S, decode.default_splits(b, hkv, S, hq // hkv))
+    for wl, sinks, alibi in ((-1, 0, False), (4095, 4, True)):
+        slopes = _alibi_slopes(hq) if alibi else None
+        po, pl = decode._decode_partials_plain(q, kc, vc, L, scale, ns, tps, wl, 0.0,
+                                               sinks, slopes)
+        ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        _build.reset_launches()
+        o, lse = decode.decode_attention(q, kc, vc, L, window_left=wl, sink_tokens=sinks,
+                                         alibi_slopes=slopes, return_lse=True)
+        print(f"decode_fp32 + combine_fp32 (kernel 5) b{b} hq{hq} hkv{hkv} S{S} d{d}, "
+              f"{ns} splits, window {wl}, sinks {sinks}, ALiBi {alibi}: "
+              f"{dict(_build.launches)}", flush=True)
+        mx, good = _err32(o, ro.reshape(b, hq, d), "O", lse, rl.reshape(b, hq))
+        ok &= good and dict(_build.launches) == {"decode_fp32": 1, "combine_fp32": 1}
+        if wl < 0:
+            o_part = torch.empty((b, hkv, ns, hq // hkv, d), device=dev)
+            lse_part = torch.empty((b, hkv, ns, hq // hkv), device=dev)
+            out, lse_o = torch.empty_like(q), torch.empty((b, hq), device=dev)
+            fn1 = _build.function("decode", "mfa_decode_partials",
+                                  decode._PARTIALS_ARGTYPES)
+            fn2 = _build.function("decode", "mfa_decode_combine", decode._COMBINE_ARGTYPES)
+            stream, code = _build.stream_of(q), _build.DTYPE_CODES[torch.float32]
+            ms1 = _time_ms(lambda: fn1(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                       L.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
+                                       code, b, hq, hkv, S, d, d, ns, tps, -1,
+                                       scale * math.log2(math.e), 0.0, 0.0, 0, None,
+                                       stream))
+            ms2 = _time_ms(lambda: fn2(o_part.data_ptr(), lse_part.data_ptr(),
+                                       out.data_ptr(), lse_o.data_ptr(), code, b, hq,
+                                       hkv, ns, d, 1, stream))
+            _record32(records, "decode", f"launch 1 ({ns} splits)", mx, ms1, _time_ms(
+                lambda: decode._decode_partials_plain(q, kc, vc, L, scale, ns, tps, -1,
+                                                      0.0), iters=3),
+                _time_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kc, vc, enable_gqa=True)),
+                2 * b * hkv * S * d * 4 + 2 * b * hq * d * 4, 4 * b * hq * S * d)
+            _record32(records, "combine", "combine launch", mx, ms2, _time_ms(
+                lambda: decode.combine_splits(o_part, lse_part)), None,
+                b * hkv * ns * (hq // hkv) * (d + 1) * 4 + b * hq * (d + 1) * 4,
+                3 * b * hq * ns * d)
+    del q, kc, vc
+    torch.cuda.empty_cache()
+    # -- kernel 6: the 8B serve step (fp32 q) on every page format, and lens 8192
+    page = 64
+    for quant, lens in ((None, [300 - 7 * i for i in range(16)]), ("int8", None),
+                        ("fp8", None), ("int4", None), (None, [8192] * 16),
+                        ("int8", [8192] * 16)):
+        lens = lens or [300 - 7 * i for i in range(16)]
+        b, pps = len(lens), max(lens) // page + 1
+        P = b * pps + 1
+        q = rn(b, hq, d)
+        kp, vp, ks, vs = _pages32(rn(hkv, P, page, d), rn(hkv, P, page, d), quant)
+        bt = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+              ).reshape(b, pps).int()
+        L = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ro, rl = paged._paged_plain(q, kp, vp, ks, vs, L, bt, scale, -1, 0.0, 1, quant)
+        plain_ms = _time_ms(lambda: paged._paged_plain(q, kp, vp, ks, vs, L, bt, scale,
+                                                       -1, 0.0, 1, quant), iters=3)
+        _poison_rows_past(kp, vp, ks, vs, quant, bt, lens, page)
+        _build.reset_launches()
+        o, lse = paged.paged_attention(q, kp, vp, L, bt, k_scales=ks, v_scales=vs,
+                                       pos_offset=1, quant_dtype=quant, return_lse=True)
+        got = dict(_build.launches)
+        print(f"paged_fp32 (kernel 6) fp32 q on {quant or 'fp32'} pages b{b} hq{hq} "
+              f"hkv{hkv} page {page} lens {min(lens)}..{max(lens)} pos_offset 1: {got}",
+              flush=True)
+        if quant is None:
+            mx, good = _err32(o, ro, "O", lse, rl)
+        else:
+            mx, good = _err(o, ro, what="O")
+            good &= _lse_err(lse, rl, "")
+        ok &= good and got.get("paged_fp32", 0) == 1
+        rows = sum(lens) * hkv
+        _record32(records, "paged", f"{quant or 'fp32'} pages, lens {max(lens)}", mx,
+                  _time_ms(lambda: paged.paged_attention(
+                      q, kp, vp, L, bt, k_scales=ks, v_scales=vs, pos_offset=1,
+                      quant_dtype=quant, return_lse=True)), plain_ms, None,
+                  2 * rows * _row_bytes32(quant, d) + b * pps * 4
+                  + 2 * b * hq * d * 4 + b * hq * 4, 4 * (hq // hkv) * rows * d)
+        del kp, vp, ks, vs
+    torch.cuda.empty_cache()
+    # -- kernel 7: 8 x 512 packed, causal, and a ragged pack with a window
+    for lens in ([512] * 8, [200, 1100, 512, 300, 700, 384, 450, 450]):
+        n = sum(lens)
+        q, k, v = rn(n, hq, d), rn(n, hkv, d), rn(n, hkv, d)
+        cu = torch.tensor([0] + lens, device=dev).cumsum(0).int()
+        wl = -1 if len(set(lens)) == 1 else 255
+        ro, rl = varlen._varlen_plain(q, k, v, cu, cu, scale, wl, 0, 0.0, True)
+        o, lse = varlen.varlen_attention(q, k, v, cu, cu, max(lens), max(lens),
+                                         causal=True, window_size=(wl, -1),
+                                         return_lse=True)
+        print(f"varlen_fp32 (kernel 7) lens {lens} hq{hq} hkv{hkv} d{d} causal, "
+              f"window {wl}", flush=True)
+        mx, good = _err32(o, ro, "O", lse, rl)
+        ok &= good
+        if wl < 0:
+            qb, kb, vb = (t.view(8, 512, -1, d).transpose(1, 2) for t in (q, k, v))
+            _record32(records, "varlen", "8 x 512", mx, _time_ms(
+                lambda: varlen.varlen_attention(q, k, v, cu, cu, 512, 512, causal=True)),
+                _time_ms(lambda: varlen._varlen_plain(q, k, v, cu, cu, scale, -1, 0, 0.0,
+                                                      False), iters=3),
+                _time_ms(lambda: F.scaled_dot_product_attention(
+                    qb, kb, vb, is_causal=True, enable_gqa=True)),
+                4 * (2 * n * hq * d + 2 * n * hkv * d), 4 * hq * 8 * 512 * 513 / 2 * d)
+    # -- kernel 8: the engine chunk batch, 4 x 512 at q_start 0-3072, pages of 64
+    q_start, sq = [0, 1024, 2048, 3072], 512
+    lens = [s0 + sq for s0 in q_start]
+    b, pps = 4, max(lens) // page + 1
+    P = b * pps + 3
+    q = rn(b, sq, hq, d)
+    kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+    bt = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+          ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    ql = L - qs
+    pairs = sum(_visible_pairs(sq, n, s0, -1, 0) for s0, n in zip(q_start, lens))
+    for quant in ("int8", None, "fp8", "int4"):
+        kp, vp, ks, vs = _pages32(kf, vf, quant)
+        ro, rl = paged_prefill._paged_prefill_plain(q, kp, vp, ks, vs, L, qs, ql, bt,
+                                                    scale, -1, 0, 0.0, quant)
+        plain_ms = _time_ms(lambda: paged_prefill._paged_prefill_plain(
+            q, kp, vp, ks, vs, L, qs, ql, bt, scale, -1, 0, 0.0, quant), iters=3)
+        _poison_rows_past(kp, vp, ks, vs, quant, bt, lens, page)
+        _build.reset_launches()
+        o, lse = paged_prefill.paged_prefill_attention(
+            q, kp, vp, L, qs, bt, q_lens=ql, k_scales=ks, v_scales=vs, quant_dtype=quant,
+            return_lse=True)
+        got = dict(_build.launches)
+        print(f"paged_prefill_fp32 (kernel 8) fp32 q on {quant or 'fp32'} pages: chunk "
+              f"batch 4 x 512 at q_start {q_start}, hq{hq} hkv{hkv} d{d}: {got}",
+              flush=True)
+        if quant is None:
+            mx, good = _err32(o, ro, "O", lse, rl)
+        else:
+            mx, good = _err(o, ro, what="O")
+            good &= _lse_err(lse, rl, "")
+        ok &= good and got == {"paged_prefill_fp32": 1}
+        _record32(records, "paged_prefill", f"{quant or 'fp32'} pages", mx, _time_ms(
+            lambda: paged_prefill.paged_prefill_attention(
+                q, kp, vp, L, qs, bt, q_lens=ql, k_scales=ks, v_scales=vs,
+                quant_dtype=quant)), plain_ms, None,
+            2 * sum(lens) * hkv * _row_bytes32(quant, d) + 2 * b * sq * hq * d * 4,
+            4 * hq * pairs * d)
+        del kp, vp, ks, vs
+    del q, kf, vf
+    torch.cuda.empty_cache()
+    # -- kernel 9: Gemma3-4B's image wave (b4 hq8 hkv4 s2048 d256, a 256-token
+    # run at 700, window 1023)
+    b, h9, kv9, s, d9 = 4, 8, 4, 2048, 256
+    q, k, v = rn(b, h9, s, d9), rn(b, kv9, s, d9), rn(b, kv9, s, d9)
+    ids = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    ids[:, 700:956] = 0
+    vis = blockmask.block_mask(ids, 1023)
+    ref = blockmask._image_block_plain(q, k, v, ids, d9 ** -0.5, 1023)
+    o = blockmask.image_block_prefill(q, k, v, ids, window_left=1023)
+    print(f"blockmask_fp32 (kernel 9) Gemma3-4B image wave b{b} hq{h9} hkv{kv9} s{s} "
+          f"d{d9}, run 700-955, window 1023", flush=True)
+    mx, good = _err32(o, ref, "O")
+    ok &= good
+    _record32(records, "blockmask", "image wave", mx, _time_ms(
+        lambda: blockmask.image_block_prefill(q, k, v, ids, window_left=1023)),
+        _time_ms(lambda: blockmask._image_block_plain(q, k, v, ids, d9 ** -0.5, 1023),
+                 iters=3),
+        _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=vis[:, None], enable_gqa=True)),
+        4 * (2 * b * h9 * s * d9 + 2 * b * kv9 * s * d9) + 4 * b * s,
+        4 * h9 * float(vis.sum()) * d9)
+    del q, k, v, vis, ref
+    torch.cuda.empty_cache()
+    return ok
+
+
+def minimal_fp32_phase(counts):
+    """Main path in fp32, the library surface: BASELINE's first config
+    (flash_attn_func, non-causal MHA, b2 s128 h8 d64 fp32: kernel 4) and
+    tests/test_minimal.py's two cases (a one-head dense prefill; a paged
+    decode through flash_attn_with_kvcache: kernel 6 on fp32 pages) against
+    mfa_tpu_torch/ref/oracle.py within 2e-5, as tests/test_minimal.py:34,49
+    hold them; then every fp32 kernel through its entry point at the 8B
+    heads: flash_attn_func causal (kernels 2 + 3) and with a softcap
+    (kernel 1), flash_attn_varlen_func packed (7) and paged (8),
+    flash_attn_with_kvcache contiguous (5 + the combine) and paged (6),
+    image_block_prefill (9). Only fp32 launch names may appear."""
+    import torch
+
+    import mfa_tpu_torch
+    from mfa_tpu_torch.kernels import _build, blockmask
+    from mfa_tpu_torch.ref import oracle
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    _build.reset_launches()
+    ok = True
+    q, k, v = rn(2, 128, 8, 64), rn(2, 128, 8, 64), rn(2, 128, 8, 64)
+    q1, k1, v1 = rn(1, 128, 1, 64), rn(1, 128, 1, 64), rn(1, 128, 1, 64)
+    qd = rn(1, 1, 2, 64)
+    kp, vp = rn(5, 64, 2, 64), rn(5, 64, 2, 64)
+    table = torch.tensor([[3, 1, 4, 2]], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([200], dtype=torch.int32, device="cuda")
+    for name, out, ref in (
+            ("BASELINE configs[0]: non-causal MHA b2 s128 h8 d64",
+             mfa_tpu_torch.flash_attn_func(q, k, v), oracle.attention_ref(q, k, v)),
+            ("test_minimal_dense: b1 s128 h1 d64", mfa_tpu_torch.flash_attn_func(
+                q1, k1, v1), oracle.attention_ref(q1, k1, v1)),
+            ("test_minimal_paged_decode: hq2 hkv2 d64, pages of 64, len 200",
+             mfa_tpu_torch.flash_attn_with_kvcache(qd, kp, vp, cache_seqlens=lens,
+                                                   block_table=table),
+             oracle.paged_decode_ref(qd, kp, vp, lens, table))):
+        diff = float((out - ref).abs().max())
+        good = out.dtype == torch.float32 and out.shape == ref.shape \
+            and bool(torch.isfinite(out).all()) and diff < 2e-5
+        print(f"minimal fp32, {name}: max |out - oracle| {diff:.3e} (< 2e-5) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    minimal = dict(_build.launches)
+    q, k, v = rn(16, 256, 32, 128), rn(16, 256, 8, 128), rn(16, 256, 8, 128)
+    outs = [mfa_tpu_torch.flash_attn_func(q, k, v, causal=True),
+            mfa_tpu_torch.flash_attn_func(q, k, v, causal=True, softcap=30.0)]
+    lens_v = [200, 1100, 512, 300, 700, 384, 450, 450]
+    cu = torch.tensor([0] + lens_v, device="cuda").cumsum(0).int()
+    qv, kv, vv = rn(4096, 32, 128), rn(4096, 8, 128), rn(4096, 8, 128)
+    outs.append(mfa_tpu_torch.flash_attn_varlen_func(qv, kv, vv, cu, cu, 1100, 1100,
+                                                     causal=True))
+    kpool, vpool = rn(256, 64, 8, 128), rn(256, 64, 8, 128)
+    ptab = torch.arange(1, 65, device="cuda", dtype=torch.int32).reshape(16, 4)
+    plens = [100, 256, 37, 180]
+    cu_p = torch.tensor([0] + plens, device="cuda").cumsum(0).int()
+    outs.append(mfa_tpu_torch.flash_attn_varlen_func(
+        rn(sum(plens), 32, 128), kpool, vpool, cu_p, cu_p, 256, 256, causal=True,
+        block_table=ptab[:4]))
+    qd = rn(16, 1, 32, 128)
+    kc, vc = rn(16, 2048, 8, 128), rn(16, 2048, 8, 128)
+    outs.append(mfa_tpu_torch.flash_attn_with_kvcache(qd, kc, vc, cache_seqlens=2048))
+    outs.append(mfa_tpu_torch.flash_attn_with_kvcache(qd, kpool, vpool, cache_seqlens=200,
+                                                      block_table=ptab))
+    ids = torch.full((2, 600), -1, dtype=torch.int32, device="cuda")
+    ids[:, 100:356] = 0
+    outs.append(blockmask.image_block_prefill(rn(2, 8, 600, 256), rn(2, 4, 600, 256),
+                                              rn(2, 4, 600, 256), ids, window_left=127))
+    torch.cuda.synchronize()
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    print(f"minimal fp32 launches {minimal}; library surface fp32 launches {got}",
+          flush=True)
+    ok &= all(o.dtype == torch.float32 and bool(torch.isfinite(o).all()) for o in outs)
+    ok &= all(got.get(f"{n}_fp32", 0) >= 1 for n in FP32_KERNELS)
+    ok &= not any(n in got for n in FP32_KERNELS)  # no bf16 launch, no plain route
+    return ok
+
+
+def engine_fp32_phase(counts, ident, state):
+    """Main path: Llama-3-8B in fp32 (dataclasses.replace(llama3_8b(),
+    dtype=float32): 8.03e9 weights x 4 B = 32.1 GB from the seed; the
+    projections torch.matmul in true fp32, TF32 off). The earlier phases'
+    weights are freed first. The 8B traffic (16 prompts of 200-256 tokens,
+    32 new) on fp32 KV pages and then on int8 KV pages, each graphed and
+    with the graphs off (the same tokens): every wave runs kernels 2 + 3
+    in fp32, every decode step kernel 6 in fp32 (fp32 q on int8 pages).
+    Then the chunked + prefix traffic on int8 KV (kernel 8 with fp32 q;
+    the split route's combine at its long contexts)."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama, wquant
+    from mfa_tpu_torch.serve import graphs
+    from mfa_tpu_torch.serve.engine import Engine
+
+    for key in ("params", "cfg"):
+        state.pop(key, None)
+    torch.cuda.empty_cache()
+    ok = torch.backends.cuda.matmul.allow_tf32 is False
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), dtype=torch.float32)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = wquant.params_nbytes(params)
+    ok &= 32.0e9 < nbytes < 32.2e9
+    print(f"engine fp32: Llama-3-8B width, {cfg.n_layers} layers, fp32 weights "
+          f"{nbytes / 1e9:.3f} GB from seed {SEED} ({time.perf_counter() - t0:.1f} s "
+          f"to build)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    n_req, gen_tokens, page = 16, 32, 64
+    tokens = {}
+    for quant in (None, "int8"):
+        for graphed in (True, False):
+            graphs._ENABLED = graphed
+            try:
+                eng = Engine(params, cfg, num_pages=128, page_size=page, max_seqs=16,
+                             pages_per_seq=8, quant_dtype=quant, device="cuda")
+                free0 = eng.sched.allocator.free_pages
+                rng = np.random.RandomState(SEED)
+                reqs = [eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))),
+                                   gen_tokens) for n in rng.randint(200, 257, n_req)]
+                _build.reset_launches()
+                stats = eng.run()
+            finally:
+                graphs._ENABLED = True
+            got = dict(_build.launches)
+            counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+            tokens[(quant, graphed)] = [list(r.generated) for r in reqs]
+            good = all(len(r.generated) == gen_tokens for r in reqs)
+            good &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+            good &= eng.sched.allocator.free_pages == free0
+            good &= _wave_launches(got, cfg.n_layers * stats.prefill_batches,
+                                   suffix="_fp32")
+            good &= got.get("paged_fp32", 0) == cfg.n_layers * stats.steps
+            good &= not any(n in got for n in FP32_KERNELS)
+            good &= (stats.captures >= 1) == graphed
+            step_tokens = stats.decode_tokens - n_req
+            print(f"engine fp32 ({quant or 'fp32'} KV, graphs {'on' if graphed else 'off'})"
+                  f" launches {got}: prefill {stats.prefill_tokens / stats.prefill_s:.1f} "
+                  f"tok/s ({stats.prefill_tokens} tokens in {stats.prefill_s:.3f} s), "
+                  f"decode {_decode_rates(stats, step_tokens)}, KV "
+                  f"{_kv_bytes_per_token(eng.cache):.0f} bytes a token "
+                  f"{'ok' if good else 'FAIL'} [{ident}]", flush=True)
+            ok &= good
+            del eng
+            torch.cuda.empty_cache()
+    same = {q_: tokens[(q_, True)] == tokens[(q_, False)] for q_ in (None, "int8")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"engine fp32: graphed tokens equal graphs-off tokens: fp32 KV "
+          f"{same[None]}, int8 KV {same['int8']}; peak memory {peak_gb:.2f} GB (< 80)",
+          flush=True)
+    ok &= all(same.values()) and peak_gb < 80
+    state.update(params=params, cfg=cfg)
+    ok &= chunked_engine_phase(counts, ident, state, "int8", "8B fp32")
+    state.pop("params", None)
+    state.pop("cfg", None)
+    del params
+    torch.cuda.empty_cache()
+    print(f"engine fp32: fp32 launches so far {({f'{n}_fp32': counts.get(f'{n}_fp32', 0) for n in FP32_KERNELS})}",
+          flush=True)
+    ok &= all(counts.get(f"{n}_fp32", 0) > 0 for n in
+              ("flagged", "repair", "paged", "paged_prefill", "combine"))
+    return ok
+
+
+def _rel_l2(a, r) -> float:
+    return float((a.double() - r.double()).norm() / r.double().norm())
+
+
+def cpu_vs_cuda_fp32_phase():
+    """Phase 4 in fp32: 2 layers of the fp32 8B at full width on the card
+    (kernels 2 + 3, 6 and 8 in fp32) and on the CPU (plain versions), the
+    same weights, on fp32 KV pages: a prompt wave, four decode steps
+    teacher-forced on the card's tokens, a 256-token prompt in two 128-token
+    chunks and a prefix-hit suffix chunk. Every logit row within relative L2
+    1e-4 of the CPU's (fp32 end to end: the two devices differ only in the
+    order of their sums)."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype=torch.float32)
+    p_gpu = llama.init_params(cfg, seed=SEED + 7, device="cuda")
+    p_cpu = dict(layers=[{k: v.cpu() for k, v in lp.items()} for lp in p_gpu["layers"]],
+                 **{k: p_gpu[k].cpu() for k in ("embed", "final_norm", "lm_head")})
+    rng = np.random.RandomState(SEED + 7)
+    prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in (37, 90)]
+    pages = [[1, 2], [3, 4, 5]]
+    long = list(rng.randint(0, cfg.vocab_size, 256))
+    hit = long[:128] + list(rng.randint(0, cfg.vocab_size, 60))
+    out = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        cache = llama.build_kv_caches(cfg, 16, 64, 2, 4, None, device=dev)
+        cache, lg = llama.prefill_batch(params, cfg, cache, [0, 1], pages, prompts)
+        res = [lg]
+        forced = out.setdefault("toks", [lg.argmax(-1).cpu()])
+        for i in range(4):
+            cache, lg = llama.decode_step(params, cfg, cache, [0, 1], forced[i])
+            res.append(lg)
+            if dev == "cuda":
+                forced.append(lg.argmax(-1).cpu())
+        cc = llama.build_kv_caches(cfg, 16, 64, 2, 8, None, device=dev)
+        for off in (0, 128):
+            cc, lg = llama.prefill_chunk_batch(params, cfg, cc, [0], [[6, 7, 8, 9]],
+                                               [long[off:off + 128]], [off], [256], 128)
+            res.append(lg)
+        cc, lg = llama.prefill_chunk_batch(params, cfg, cc, [1], [[6, 7, 10]],
+                                           [hit[128:]], [128], [188], 64)
+        res.append(lg)
+        out[dev] = [x.float().cpu() for x in res]
+    names = (["prefill_batch"] + [f"decode_step {i + 1}" for i in range(4)]
+             + ["chunk 1 of 2", "chunk 2 of 2", "prefix-hit suffix chunk"])
+    ok, worst = True, 0.0
+    for name, a, r in zip(names, out["cuda"], out["cpu"]):
+        rel = max(_rel_l2(a[i], r[i]) for i in range(a.shape[0]))
+        worst = max(worst, rel)
+        good = bool(torch.isfinite(a).all()) and rel < 1e-4
+        print(f"cuda vs cpu fp32 {name} logits [{tuple(a.shape)}]: largest row "
+              f"relative L2 {rel:.3e} (< 1e-4), argmax agree "
+              f"{bool(torch.equal(a.argmax(-1), r.argmax(-1)))} {'ok' if good else 'FAIL'}",
+              flush=True)
+        ok &= good
+    print(f"cuda vs cpu fp32: largest relative L2 over every stage {worst:.3e}",
+          flush=True)
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -5625,6 +6276,27 @@ def main() -> int:
                     "mfa_tpu/kernels/wmatmul.py:34"),
         "wmatmul_bank": ("mfa_tpu_torch/csrc/wmatmul.cu",
                          "mfa_tpu/kernels/wmatmul.py:34"),
+        # fp32 inputs: the fp32 tile
+        "prefill_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
+                         "mfa_tpu/kernels/prefill.py:178"),
+        "flagged_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
+                         "mfa_tpu/kernels/prefill.py:697"),
+        "repair_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
+                        "mfa_tpu/kernels/prefill.py:738"),
+        "bound_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
+                       "mfa_tpu/kernels/prefill.py:661"),
+        "decode_fp32": ("mfa_tpu_torch/csrc/decode_f32.cuh",
+                        "mfa_tpu/kernels/decode.py:53"),
+        "combine_fp32": ("mfa_tpu_torch/csrc/decode.cu",
+                         "mfa_tpu/kernels/decode.py:148"),
+        "paged_fp32": ("mfa_tpu_torch/csrc/decode_f32.cuh",
+                       "mfa_tpu/kernels/paged.py:122"),
+        "varlen_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
+                        "mfa_tpu/kernels/varlen.py:53"),
+        "paged_prefill_fp32": ("mfa_tpu_torch/csrc/paged_prefill.cu",
+                               "mfa_tpu/kernels/paged_prefill.py:50"),
+        "blockmask_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
+                           "mfa_tpu/kernels/blockmask.py:54"),
     }
     records = {n: {"name": n, "route": "cuda", "source": s, "replaces": r}
                for n, (s, r) in sources.items()}
@@ -5636,7 +6308,9 @@ def main() -> int:
                  ("sinks_kernels", sinks_kernels),
                  ("head_dim_kernels", head_dim_kernels),
                  ("decode_groups", decode_groups),
+                 ("fp32_kernels", lambda: fp32_kernels(records)),
                  ("library_surface", lambda: library_surface(counts)),
+                 ("minimal_fp32", lambda: minimal_fp32_phase(counts)),
                  ("engine_8b", lambda: engine_phase(counts, ident, state)),
                  ("tp_engine_8b",
                   lambda: tp_engine_phase(counts, ident, state, shard)),
@@ -5688,6 +6362,7 @@ def main() -> int:
                   lambda: engine_danube_phase(counts, ident, state)),
                  ("train_danube_1_8b",
                   lambda: train_phase(counts, ident, state, "H2O-Danube-1.8B")),
+                 ("engine_8b_fp32", lambda: engine_fp32_phase(counts, ident, state)),
                  ("cuda_vs_cpu", cpu_vs_cuda_phase),
                  ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
                  ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase),
@@ -5695,6 +6370,7 @@ def main() -> int:
                  ("cuda_vs_cpu_moe", cpu_vs_cuda_moe_phase),
                  ("cuda_vs_cpu_sinks", cpu_vs_cuda_sinks_phase),
                  ("cuda_vs_cpu_danube", cpu_vs_cuda_danube_phase),
+                 ("cuda_vs_cpu_fp32", cpu_vs_cuda_fp32_phase),
                  ("instruments", lambda: instruments_phase(ident)))
     try:
         for name, fn in phase_fns:

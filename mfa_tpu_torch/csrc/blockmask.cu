@@ -27,8 +27,9 @@
 // the band need no mask, since there the OR changes nothing.
 //
 // Layout: q [b, hq, s, D], k/v [b, hkv, s, D] (sq == sk), ids [b, s] int32,
-// o like q. GQA by head index.
-#include "flash_fwd_sm90.cuh"
+// o like q. GQA by head index. fp32 (MFA_F32) runs kind IMAGE of the SIMT
+// tile of flash_fwd_f32.cuh: the same spans, found by the same helpers.
+#include "flash_fwd_f32.cuh"
 
 // ids [batch, s] int32 on the device. Returns a cudaError_t code (0 =
 // launched).
@@ -51,5 +52,11 @@ extern "C" int mfa_image_block_fwd(const void* q, const void* k, const void* v, 
   if (dtype == MFA_F16 && kd == 128) MFA_IMAGE_BLOCK(__half, 128);
   if (dtype == MFA_F16 && kd == 256) MFA_IMAGE_BLOCK(__half, 256);
 #undef MFA_IMAGE_BLOCK
+#define MFA_IMAGE_BLOCK32(D) \
+  return af32::launch_fwd<D, fa90::IMAGE>(q, k, v, o, nullptr, nullptr, batch, s, a, st)
+  if (dtype == MFA_F32 && kd == 64) MFA_IMAGE_BLOCK32(64);
+  if (dtype == MFA_F32 && kd == 128) MFA_IMAGE_BLOCK32(128);
+  if (dtype == MFA_F32 && kd == 256) MFA_IMAGE_BLOCK32(256);
+#undef MFA_IMAGE_BLOCK32
   return MFA_BAD_CONFIG;
 }

@@ -33,9 +33,12 @@
 // drops the row max, its quad shuffles and the rescale of O from the inner
 // loop, which on this tile run beside the other warpgroup's products. bf16
 // only: in fp16 an unshifted p leaves the type's range (ROADMAP Queue 3),
-// and the wrapper sends fp16 to kernel 1. Layout as mfa_prefill_fwd: q [b,
-// hq, sq, D], k/v [b, hkv, sk, D], o like q, lse [b, hq, sq] fp32 or null.
-#include "flash_fwd_sm90.cuh"
+// and the wrapper sends fp16 to kernel 1. fp32 (MFA_F32) runs the same three
+// launches on the SIMT tile of flash_fwd_f32.cuh (64 rows a block, one flag
+// tile each; p = exp2(s c) stays fp32 for P V). Layout as mfa_prefill_fwd:
+// q [b, hq, sq, D], k/v [b, hkv, sk, D], o like q, lse [b, hq, sq] fp32 or
+// null.
+#include "flash_fwd_f32.cuh"
 
 namespace {
 
@@ -45,10 +48,16 @@ using BF = __nv_bfloat16;
 // engine and its repair have no D 64 and run kd 64 at D 128 (mfa_tpu
 // selects them at head_dim % 128 == 0).
 template <int KIND>
-int launch_kind(int d, int kd, const void* q, const void* k, const void* v, void* o,
+int launch_kind(int dtype, int d, int kd, const void* q, const void* k, const void* v, void* o,
                 float* lse, int* table, int batch, fa90::Args a, cudaStream_t s) {
   a.dw = d;
   if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
+  if (dtype == MFA_F32) {
+    if (kd == 64) return af32::launch_fwd<64, KIND>(q, k, v, o, lse, table, batch, a.sq, a, s);
+    if (kd == 128) return af32::launch_fwd<128, KIND>(q, k, v, o, lse, table, batch, a.sq, a, s);
+    return af32::launch_fwd<256, KIND>(q, k, v, o, lse, table, batch, a.sq, a, s);
+  }
+  if (dtype != MFA_BF16) return MFA_BAD_CONFIG;
   if constexpr (KIND == fa90::BOUND || KIND == fa90::UNCHECKED) {
     if (kd == 64) return fa90::launch<BF, 64, KIND>(q, k, v, o, lse, table, batch, a, s);
   }
@@ -63,14 +72,13 @@ int launch_kind(int d, int kd, const void* q, const void* k, const void* v, void
 // The three launches share one C signature. table: the flags (int32
 // [batch, hq, ceil(sq / 64)]; written by mfa_flagged_fwd, where null means
 // none is computed, and read by mfa_repair_fwd) or the risky bits (read by
-// mfa_bound_fwd; null = "unchecked"). lse may be null. dtype must be bf16.
+// mfa_bound_fwd; null = "unchecked"). lse may be null. dtype: bf16 or fp32.
 // The flagged engine and its repair take head_dim 128 and 256 (JAX sends
 // head_dim % 128 != 0 to the bound engine), the bound engine 64, 128 and
 // 256. Each returns a cudaError_t code (0 = launched).
 #define MFA_ZS_PREAMBLE                                                        \
   cudaStream_t s = static_cast<cudaStream_t>(stream);                          \
   if (batch == 0 || sq == 0) return 0;                                         \
-  if (dtype != MFA_BF16) return MFA_BAD_CONFIG;                                \
   fa90::Args a{hq, hkv, sq, sk, window_left, window_right, scale_log2e, 0.f, 0.f}; \
   a.sinks = sinks;                                                             \
   a.kv_off = kv_off;
@@ -81,17 +89,17 @@ int launch_kind(int d, int kd, const void* q, const void* k, const void* v, void
 
 extern "C" int mfa_flagged_fwd(MFA_ZS_ARGS) {
   MFA_ZS_PREAMBLE
-  return launch_kind<fa90::FLAGGED>(d, kd, q, k, v, o, lse, table, batch, a, s);
+  return launch_kind<fa90::FLAGGED>(dtype, d, kd, q, k, v, o, lse, table, batch, a, s);
 }
 
 extern "C" int mfa_repair_fwd(MFA_ZS_ARGS) {
   MFA_ZS_PREAMBLE
-  return launch_kind<fa90::REPAIR>(d, kd, q, k, v, o, lse, table, batch, a, s);
+  return launch_kind<fa90::REPAIR>(dtype, d, kd, q, k, v, o, lse, table, batch, a, s);
 }
 
 extern "C" int mfa_bound_fwd(MFA_ZS_ARGS) {
   MFA_ZS_PREAMBLE
   return table != nullptr
-             ? launch_kind<fa90::BOUND>(d, kd, q, k, v, o, lse, table, batch, a, s)
-             : launch_kind<fa90::UNCHECKED>(d, kd, q, k, v, o, lse, table, batch, a, s);
+             ? launch_kind<fa90::BOUND>(dtype, d, kd, q, k, v, o, lse, table, batch, a, s)
+             : launch_kind<fa90::UNCHECKED>(dtype, d, kd, q, k, v, o, lse, table, batch, a, s);
 }

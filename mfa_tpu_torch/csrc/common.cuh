@@ -22,8 +22,11 @@
 // and int4 as bytes of two features (feature 2c low nibble, 2c + 1 high)
 #define MFA_E4M3 3
 #define MFA_I4 4
+// fp32 q, k, v (and O): the SIMT tile of flash_fwd_f32.cuh
+#define MFA_F32 5
 
-// A paged kernel's page format: 16-bit pages of the q dtype, or one byte
+// A paged kernel's page format: pages of the q dtype (16-bit, or fp32 with
+// fp32 q: F16 names "unquantized" there), or one byte
 // a value (int8, e4m3) or half a byte (int4) with fp32 row scales.
 enum class KV { F16, I8, E4M3, I4 };
 
@@ -71,6 +74,10 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
 }
 
 // Two floats -> one 32-bit register of two 16-bit values, lower column in

@@ -10,8 +10,9 @@
 // also merges the paged decode's splits (paged.cu, kernel 6).
 // Bound: bytes of K + V; splits exist to put enough blocks on the 132 SMs
 // when batch x kv heads is small (dispatch/config.py:num_splits_heuristic,
-// one block of launch 1 an SM).
-#include "decode_sm90.cuh"
+// one block of launch 1 an SM). fp32 q and caches (MFA_F32) run launch 1
+// on the SIMT tile (decode_f32.cuh) and the combine as combine_kernel<float>.
+#include "decode_f32.cuh"
 
 namespace {
 
@@ -86,6 +87,11 @@ extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
   MFA_DEC_D(T, false)
   if (dtype == MFA_BF16) { MFA_DEC(__nv_bfloat16) }
   if (dtype == MFA_F16) { MFA_DEC(__half) }
+  if (dtype == MFA_F32) {
+    if (kd == 64) return af32::launch_decode<64, false, KV::F16>(k, v, a, batch, s);
+    if (kd == 128) return af32::launch_decode<128, false, KV::F16>(k, v, a, batch, s);
+    if (kd == 256) return af32::launch_decode<256, false, KV::F16>(k, v, a, batch, s);
+  }
 #undef MFA_DEC
 #undef MFA_DEC_D
   return MFA_BAD_CONFIG;
@@ -93,7 +99,8 @@ extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
 
 // Launch 2: merge the splits of o_part [b, hkv, splits, q_span * hq / hkv,
 // d] into out [b, q_span, hq, d] (q dtype) and, when lse_out is not null,
-// the fp32 LSE [b, q_span, hq] (q_span 1 but for kernel 6's spans).
+// the fp32 LSE [b, q_span, hq] (q_span 1 but for kernel 6's spans); dtype
+// bf16, fp16 or fp32.
 extern "C" int mfa_decode_combine(const float* o_part, const float* lse_part, void* out,
                                   float* lse_out, int dtype, int batch, int hq, int hkv,
                                   int num_splits, int d, int q_span, void* stream) {
@@ -108,6 +115,9 @@ extern "C" int mfa_decode_combine(const float* o_part, const float* lse_part, vo
   else if (dtype == MFA_F16)
     combine_kernel<__half><<<grid, 128, 0, s>>>(o_part, lse_part, static_cast<__half*>(out),
                                                  lse_out, hkv, group, q_span, num_splits, d);
+  else if (dtype == MFA_F32)
+    combine_kernel<float><<<grid, 128, 0, s>>>(o_part, lse_part, static_cast<float*>(out),
+                                                lse_out, hkv, group, q_span, num_splits, d);
   else
     return MFA_BAD_CONFIG;
   return (int)cudaGetLastError();

@@ -77,7 +77,14 @@
 //
 // Numerics: kernel 1's classic online softmax (flash_fwd_sm90.cuh); a row
 // that sees no column keeps m == MASK and stores O = 0, LSE = -inf.
-#include "flash_fwd_sm90.cuh"
+//
+// fp32 q (MFA_F32, af32::paged_prefill_kernel below) runs
+// the SIMT tile of flash_fwd_f32.cuh on fp32 pages, or on int8 / fp8 / int4
+// pages with q . k in fp32 against the payload values and p rounded to bf16
+// for P V (mfa_tpu/kernels/paged_prefill.py:440-441 keeps fp32 q): 64 rows a
+// block, the same packed rows (64 / group positions of every q head of one
+// kv head), each tile's page rows loaded through the block table.
+#include "flash_fwd_f32.cuh"
 
 namespace pp90 {
 
@@ -613,8 +620,99 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
 
 }  // namespace pp90
 
-// q_dtype: the q/out dtype (quantized pages take bf16 q); kv_dtype: the
-// 16-bit pages' dtype code, or the format code MFA_I8, MFA_E4M3, MFA_I4.
+namespace af32 {
+
+// Kernel 8 in fp32: grid (hkv, batch, ceil(sq / wpos)), wpos = 64 / group
+// chunk positions a block; row r is position t0 + r / group of q head hk
+// group + r % group (rows past wpos group are a dead tail). F: KV::F16 =
+// fp32 pages, else the quantized format.
+template <int D, KV F>
+__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
+    paged_prefill_kernel(const float* __restrict__ q, const void* __restrict__ k_pages,
+                         const void* __restrict__ v_pages, const pp90::Params p) {
+  constexpr int RM = 64;
+  constexpr bool QUANT = F != KV::F16;
+  using PL = Plan<RM, D>;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * p.wpos;  // last q tiles first
+  const int G = p.group, sk = p.lens[b], q0 = p.q_start[b], q_len = p.q_lens[b], dw = p.dw;
+  const float c = p.scale_log2e;
+  float* sm = smem_f32();
+  Row* rows = reinterpret_cast<Row*>(sm + PL::row_off);
+  __shared__ Bounds bnd;
+  if (threadIdx.x == 0) bounds_init(&bnd);
+  __syncthreads();
+  if (threadIdx.x < RM) {
+    const int pi = threadIdx.x / G, hq = hk * G + threadIdx.x % G, t = t0 + pi;
+    Row r{};
+    r.rid = -1;
+    if (pi < p.wpos && t < p.sq) {
+      const size_t qrow = ((size_t)b * p.sq + t) * p.hq + hq;
+      r.q = q + qrow * dw;
+      r.o = static_cast<float*>(p.out) + qrow * dw;
+      r.lse = p.lse + ((size_t)b * p.hq + hq) * p.sq + t;
+      if (t < q_len) {  // rows past q_lens see nothing: O = 0, LSE = -inf
+        const int pos = q0 + t;
+        r.pos = pos;
+        r.lo = p.wl >= 0 ? max(0, pos - p.wl) : 0;
+        r.hi = p.wr >= 0 ? min(sk, pos + p.wr + 1) : sk;
+        r.shi = p.wl >= 0 && p.sinks > 0 ? min(p.sinks, r.hi) : 0;
+        r.slope = p.slopes != nullptr ? p.slopes[hq] * c : 0.f;
+        bounds_add(&bnd, r);
+      }
+    }
+    rows[threadIdx.x] = r;
+  }
+  __syncthreads();
+  const Tiles tl = tiles_of(bnd, PL::BN);
+  const Math mt{c, p.softcap, p.softcap_mul, dw};
+  // lambdas capture by value (a reference capture keeps its variable in
+  // local memory)
+  const int* tab = p.table + (size_t)b * p.pps;
+  const int n_pages = p.num_pages, page = p.page_size;
+  auto page_row = [=](int col) {
+    const int pg = min(max(tab[col / page], 0), n_pages - 1);
+    return ((size_t)hk * n_pages + pg) * page + col % page;
+  };
+  if constexpr (QUANT) {
+    const int8_t* kq = static_cast<const int8_t*>(k_pages);
+    const int8_t* vq = static_cast<const int8_t*>(v_pages);
+    const float *ksc = p.k_scale, *vsc = p.v_scale;
+    auto load = [=](int kv0, float* ksm, float* vsm, float* kss, float* vss) {
+      load_quant<RM, D, F>(kq, vq, ksc, vsc, kv0, sk, dw, ksm, vsm, kss, vss, page_row);
+    };
+    attend<RM, D, false, true, false>(sm, rows, tl, mt, nullptr, 0, load);
+  } else {
+    const float* kf = static_cast<const float*>(k_pages);
+    const float* vf = static_cast<const float*>(v_pages);
+    auto load = [=](int kv0, float* ksm, float* vsm, float*, float*) {
+      load_f32<RM, D>(kf, vf, kv0, sk, dw, ksm, vsm,
+                      [=](int col) { return page_row(col) * dw; });
+    };
+    attend<RM, D, false, false, false>(sm, rows, tl, mt, nullptr, 0, load);
+  }
+}
+
+template <int D, KV F>
+int launch_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
+                         const pp90::Params& p, int batch, cudaStream_t stream) {
+  using PL = Plan<64, D>;
+  const int align = F == KV::I4 ? 32 : F == KV::F16 ? 4 : 16;  // 16-byte row chunks
+  if (p.dw <= 0 || p.dw > D || p.dw % align != 0) return MFA_BAD_CONFIG;
+  auto kern = paged_prefill_kernel<D, F>;
+  if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)PL::bytes))
+    return err;
+  const dim3 grid(p.hkv, batch, (p.sq + p.wpos - 1) / p.wpos);
+  kern<<<grid, THREADS, PL::bytes, stream>>>(static_cast<const float*>(q), k_pages, v_pages, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace af32
+
+// q_dtype: the q/out dtype (quantized pages take bf16 or fp32 q); kv_dtype:
+// the 16-bit or fp32 pages' dtype code (the q dtype), or the format code
+// MFA_I8, MFA_E4M3, MFA_I4.
 // group = hq / hkv from 1 to 64 (a consumer warpgroup's 64 rows hold
 // 64 / group chunk positions, rounded down, of every q head of one kv
 // head); page_size a multiple of 8. d: features of q's and a stored page
@@ -651,5 +749,16 @@ extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void*
   if (kv_dtype == MFA_BF16 && q_dtype == MFA_BF16) { MFA_PP(__nv_bfloat16, KV::F16); }
   if (kv_dtype == MFA_F16 && q_dtype == MFA_F16) { MFA_PP(__half, KV::F16); }
 #undef MFA_PP
+#define MFA_PP32(F)                                                                   \
+  if (kd == 64) return af32::launch_paged_prefill<64, F>(q, k_pages, v_pages, p, batch, s);   \
+  if (kd == 128) return af32::launch_paged_prefill<128, F>(q, k_pages, v_pages, p, batch, s); \
+  return af32::launch_paged_prefill<256, F>(q, k_pages, v_pages, p, batch, s)
+  if (q_dtype == MFA_F32) {
+    if (kv_dtype == MFA_F32) { MFA_PP32(KV::F16); }
+    if (kv_dtype == MFA_I8) { MFA_PP32(KV::I8); }
+    if (kv_dtype == MFA_E4M3) { MFA_PP32(KV::E4M3); }
+    if (kv_dtype == MFA_I4) { MFA_PP32(KV::I4); }
+  }
+#undef MFA_PP32
   return MFA_BAD_CONFIG;
 }

@@ -13,7 +13,7 @@
 // Layout: q [b, hq, sq, d], k/v [b, hkv, sk, d], o like q, lse [b, hq, sq];
 // any row width d that is a multiple of 8 up to 256, run at the
 // instantiated D kd of 64, 128 or 256 at least d (the maps' zero-filled
-// columns past d are inert), bf16 and fp16.
+// columns past d are inert), bf16 and fp16 (fp32: see below).
 //
 // mfa_varlen_fwd replaces mfa_tpu/kernels/varlen.py:_varlen_kernel
 // (varlen_attention's packed route), on the same wgmma + TMA tile: the
@@ -29,13 +29,16 @@
 // softmax_lse layout); d as kernel 1's, bf16 and fp16. Bound: as
 // kernel 1.
 //
+// fp32 q, k, v (dtype MFA_F32) run both on the SIMT tile of
+// flash_fwd_f32.cuh (rows of any width that is a multiple of 4 up to kd).
+//
 // Both: fp32 LSE, GQA by head index (kv head = h / (hq / hkv)); causal is
 // top-left aligned per sequence and expressed as window_right = 0; the
 // window (left, right) counts from each row's own position. sinks: with a
 // left window, columns < sinks stay visible; slopes: ALiBi [hq] in the raw
 // score domain (slope / scale), or null; kv_off (kernel 1 only): row r sits
 // at position r + kv_off.
-#include "flash_fwd_sm90.cuh"
+#include "flash_fwd_f32.cuh"
 
 // lse may be null (no LSE output). Returns a cudaError_t code (0 = launched).
 extern "C" int mfa_prefill_fwd(const void* q, const void* k, const void* v, void* o,
@@ -60,6 +63,12 @@ extern "C" int mfa_prefill_fwd(const void* q, const void* k, const void* v, void
   if (dtype == MFA_F16 && kd == 128) MFA_PREFILL(__half, 128);
   if (dtype == MFA_F16 && kd == 256) MFA_PREFILL(__half, 256);
 #undef MFA_PREFILL
+#define MFA_PREFILL32(D) \
+  return af32::launch_fwd<D, fa90::PREFILL>(q, k, v, o, lse, nullptr, batch, sq, a, s)
+  if (dtype == MFA_F32 && kd == 64) MFA_PREFILL32(64);
+  if (dtype == MFA_F32 && kd == 128) MFA_PREFILL32(128);
+  if (dtype == MFA_F32 && kd == 256) MFA_PREFILL32(256);
+#undef MFA_PREFILL32
   return MFA_BAD_CONFIG;
 }
 
@@ -91,5 +100,11 @@ extern "C" int mfa_varlen_fwd(const void* q, const void* k, const void* v, void*
   if (dtype == MFA_F16 && kd == 128) MFA_VARLEN(__half, 128);
   if (dtype == MFA_F16 && kd == 256) MFA_VARLEN(__half, 256);
 #undef MFA_VARLEN
+#define MFA_VARLEN32(D) \
+  return af32::launch_fwd<D, fa90::PREFILL, true>(q, k, v, o, lse, nullptr, batch, max_sq, a, s)
+  if (dtype == MFA_F32 && kd == 64) MFA_VARLEN32(64);
+  if (dtype == MFA_F32 && kd == 128) MFA_VARLEN32(128);
+  if (dtype == MFA_F32 && kd == 256) MFA_VARLEN32(256);
+#undef MFA_VARLEN32
   return MFA_BAD_CONFIG;
 }

@@ -35,8 +35,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-# dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.int8: 2}
+# dtype codes of csrc/common.cuh (fp32: the SIMT tile of csrc/flash_fwd_f32.cuh)
+DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float32: 5}
 # page-format codes of quantized KV pages (csrc/common.cuh). int4 pages are
 # int8 storage, so a launcher takes the code from the format the caller
 # names (kernels/quant.py:page_format), never from the pages' dtype.
@@ -47,6 +48,13 @@ def kv_code(fmt, pages: torch.Tensor) -> int:
     """The kv_dtype code of a paged kernel: the quantized format's, or the
     16-bit pages' dtype code."""
     return KV_CODES[fmt] if fmt else DTYPE_CODES[pages.dtype]
+
+
+def launch_key(name: str, dtype: torch.dtype) -> str:
+    """The launch-count name of a kernel for inputs of `dtype`: fp32 inputs
+    run the fp32 tile and count as `<name>_fp32`."""
+    return f"{name}_fp32" if dtype == torch.float32 else name
+
 
 launches: collections.Counter = collections.Counter()
 

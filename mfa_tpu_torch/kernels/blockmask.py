@@ -15,7 +15,8 @@ image it gives kernel 1's bits. A CUDA tensor runs the kernel (or raises); a
 CPU tensor runs `_image_block_plain`, the dense fp32 masked softmax of
 models/llama.py:_attention_dense_masked. No gradient: inference only, as
 in the JAX package. Any head_dim up to 256, as kernel 1 takes it
-(dispatch/config.py:head_dim_plan).
+(dispatch/config.py:head_dim_plan). fp32 runs kind IMAGE of the fp32 tile
+(csrc/flash_fwd_f32.cuh; launch name `blockmask_fp32`).
 """
 
 from __future__ import annotations
@@ -117,9 +118,9 @@ def _image_block_plain(q, k, v, block_ids, scale, window_left):
 
 def _image_block_cuda(q, k, v, block_ids, scale, window_left):
     _build.refuse_grad("image_block_prefill", q, k, v)
-    if q.dtype not in (torch.bfloat16, torch.float16):
+    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise NotImplementedError(
-            f"the image-block kernel takes bf16/fp16, got {q.dtype}")
+            f"the image-block kernel takes bf16/fp16/fp32, got {q.dtype}")
     batch, hq, s, d = q.shape
     hkv = k.shape[1]
     plan = head_dim_plan(d)
@@ -138,7 +139,7 @@ def _image_block_cuda(q, k, v, block_ids, scale, window_left):
             plan.stored, plan.kernel_dim, window_left, scale * _LOG2E,
             _build.stream_of(q))
     _build.check("blockmask", rc)
-    _build.launches["blockmask"] += 1
+    _build.launches[_build.launch_key("blockmask", q.dtype)] += 1
     return unpad_features(out, d)
 
 

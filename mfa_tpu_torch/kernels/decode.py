@@ -17,7 +17,9 @@ Any head_dim up to 256 (dispatch/config.py:head_dim_plan: the kernel's D,
 a zero-padded copy only where a row's bytes are not a multiple of 16) and
 any number of q heads a kv head: up to 8 q rows share one m16 tile, more
 run in blocks of 16 rows (the paged kernel's), each block reading its kv
-head's tiles again.
+head's tiles again. fp32 q and caches run launch 1 on the fp32 tile
+(csrc/decode_f32.cuh: 16 rows a block) and the combine writes fp32 O
+(launch names `decode_fp32`, `combine_fp32`).
 """
 
 from __future__ import annotations
@@ -140,10 +142,10 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
     batch, num_heads, d = q.shape
     hkv, max_s = k_cache.shape[1], k_cache.shape[2]
     group = num_heads // hkv
-    if q.dtype not in (torch.bfloat16, torch.float16) or \
+    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32) or \
             k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise NotImplementedError(
-            "the decode kernel takes bf16/fp16 q and cache of one dtype")
+            "the decode kernel takes bf16/fp16/fp32 q and cache of one dtype")
     plan = head_dim_plan(d)
     _build.same_device("decode_attention", q, k_cache, v_cache, lens)
     _build.expect_shape("decode_attention", "k_cache", k_cache,
@@ -171,7 +173,7 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
             scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
             stream)
     _build.check("decode", rc)
-    _build.launches["decode"] += 1
+    _build.launches[_build.launch_key("decode", q.dtype)] += 1
     out = torch.empty_like(q)
     lse = torch.empty((batch, num_heads), dtype=torch.float32, device=dev)
     launch_combine(o_part, lse_part, out, lse)
@@ -191,7 +193,7 @@ def launch_combine(o_part, lse_part, out, lse):
             lse.data_ptr(), _build.DTYPE_CODES[out.dtype], batch, out.shape[-2],
             hkv, num_splits, d, q_span, _build.stream_of(out))
     _build.check("decode", rc)
-    _build.launches["combine"] += 1
+    _build.launches[_build.launch_key("combine", out.dtype)] += 1
 
 
 def decode_attention(

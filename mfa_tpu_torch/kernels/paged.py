@@ -31,6 +31,10 @@ heads a kv head, run the kernel's 16-row blocks (`launch_name`
 With a left window the first `sink_tokens` columns stay visible to every
 row (each read by the split that holds it); ALiBi subtracts slope_h *
 |position - column| at each row's position, on every page format.
+
+fp32 q runs the fp32 tile (csrc/decode_f32.cuh, launch name `paged_fp32`)
+on fp32 pages, or on quantized pages with q . k in fp32 against the
+payload values and p rounded to bf16 for P.V, as mfa_tpu computes it.
 """
 
 from __future__ import annotations
@@ -58,10 +62,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 11 + [_I] * 15 + [_F, _F, _F, _I, _P, _P]
 
 
-def launch_name(kernel: str, quant_dtype, q_span: int = 1) -> str:
+def launch_name(kernel: str, quant_dtype, q_span: int = 1,
+                dtype: Optional[torch.dtype] = None) -> str:
     """Launch-count name of a paged kernel: "paged" / "paged_prefill" for
     16-bit and int8 pages, with "_fp8" or "_int4" for those formats;
-    "paged_span" for kernel 6 on multi-query spans, whatever the format."""
+    "paged_span" for kernel 6 on multi-query spans, whatever the format;
+    "<kernel>_fp32" for fp32 q (the fp32 tile), whatever the pages and
+    the span."""
+    if dtype == torch.float32:
+        return _build.launch_key(kernel, dtype)
     if q_span > 1:
         return "paged_span"
     return f"{kernel}_{quant_dtype}" if quant_dtype in ("fp8", "int4") else kernel
@@ -130,7 +139,9 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
     k, v = gather(k_pages), gather(v_pages)
     vdtype = torch.bfloat16 if quantized else v_pages.dtype
     if quantized and q.dtype == torch.float16:
-        q = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
+        # fp16 q contracts against quantized pages in bf16 (as on TPU); fp32
+        # q stays fp32 (mfa_tpu/kernels/paged.py:521-522)
+        q = q.to(torch.bfloat16)
     qg = q.reshape(batch, span, hkv, group, d).float()
     s = torch.einsum("bihgd,bhsd->bhigs", qg, k.float())
     if quantized:
@@ -233,16 +244,7 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
         raise NotImplementedError(
             f"the paged kernel takes pages of a multiple of 8 rows (one "
             f"swizzled TMA box), got {page}")
-    if quant_dtype is not None:
-        if q.dtype not in (torch.bfloat16, torch.float16):
-            raise NotImplementedError(f"{quant_dtype} pages take bf16/fp16 q")
-        qk = q4.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
-    elif k_pages.dtype == q.dtype and q.dtype in (torch.bfloat16, torch.float16):
-        qk = q4
-    else:
-        raise NotImplementedError(
-            f"the paged kernel takes bf16/fp16 pages of the q dtype or "
-            f"quantized pages, got {k_pages.dtype} pages with {q.dtype} q")
+    qk = quant_q(q4, k_pages, quant_dtype, "paged")
     if v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages dtypes differ")
     k_pages, v_pages = (stored_pages(p, quant_dtype, d_true)
@@ -288,13 +290,34 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
             scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
             _build.stream_of(q))
     _build.check("paged", rc)
-    _build.launches[launch_name("paged", quant_dtype, span)] += 1
+    _build.launches[launch_name("paged", quant_dtype, span, qk.dtype)] += 1
     if num_splits > 1:
         decode.launch_combine(o_part, lse_part, out, lse)
     out = unpad_features(out, d_true)
     if squeeze:
         out, lse = out[:, 0], lse[:, 0]
     return out.to(q.dtype), lse
+
+
+def quant_q(q: torch.Tensor, k_pages: torch.Tensor, quant_dtype,
+            kernel: str) -> torch.Tensor:
+    """q as a paged kernel takes it: pages of q's own dtype (bf16, fp16 or
+    fp32), or quantized pages with bf16 or fp32 q; fp16 q contracts
+    against quantized pages in bf16, fp32 q stays fp32 (q . k in fp32
+    against the payload values, as mfa_tpu/kernels/paged.py:521-522 and
+    paged_prefill.py:440-441 keep it)."""
+    if quant_dtype is not None:
+        if q.dtype == torch.float16:
+            return q.to(torch.bfloat16)
+        if q.dtype in (torch.bfloat16, torch.float32):
+            return q
+        raise NotImplementedError(f"{quant_dtype} pages take bf16/fp16/fp32 q")
+    if k_pages.dtype == q.dtype and q.dtype in (torch.bfloat16, torch.float16,
+                                                 torch.float32):
+        return q
+    raise NotImplementedError(
+        f"the {kernel} kernel takes bf16/fp16/fp32 pages of the q dtype or "
+        f"quantized pages, got {k_pages.dtype} pages with {q.dtype} q")
 
 
 def stored_pages(pages: torch.Tensor, quant_dtype, head_dim: int) -> torch.Tensor:

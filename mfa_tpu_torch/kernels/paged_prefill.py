@@ -22,7 +22,10 @@ fp32 per-row scales. With a left window the first `sink_tokens` columns
 stay visible (the kernel lists their tiles ahead of the band); ALiBi uses
 the chunk's absolute positions. The
 kernel takes pages of a multiple of 8 rows (a TMA box of fewer breaks the
-128-byte swizzle); others are refused on the card.
+128-byte swizzle); others are refused on the card. fp32 q runs the fp32
+tile (csrc/paged_prefill.cu: af32::paged_prefill_kernel, 64 packed rows a
+block; launch name `paged_prefill_fp32`) on fp32 pages, or on quantized
+pages with q . k in fp32 and p rounded to bf16 for P.V.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from mfa_tpu_torch.dispatch.config import (head_dim_plan, pad_features,
                                            softmax_scale_default,
                                            unpad_features)
 from mfa_tpu_torch.kernels import _build
-from mfa_tpu_torch.kernels.paged import launch_name, stored_pages
+from mfa_tpu_torch.kernels.paged import launch_name, quant_q, stored_pages
 from mfa_tpu_torch.kernels.prefill import check_band_options, cuda_slopes
 from mfa_tpu_torch.kernels.quant import (page_features, page_format,
                                          page_values)
@@ -80,7 +83,9 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
     k, v = (page_values(gather(p), quant_dtype) for p in (k_pages, v_pages))
     vdtype = torch.bfloat16 if quantized else v_pages.dtype
     if quantized and q.dtype == torch.float16:
-        q = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
+        # fp16 q contracts against quantized pages in bf16 (as on TPU); fp32
+        # q stays fp32 (mfa_tpu/kernels/paged_prefill.py:440-441)
+        q = q.to(torch.bfloat16)
     qg = q.float().reshape(batch, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
     if quantized:
@@ -146,16 +151,7 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
     plan = cuda_plan(q, k_pages, quant_dtype)
     batch, sq, num_heads, _ = q.shape
     hkv, num_pages, page, _ = k_pages.shape
-    if quant_dtype is not None:
-        if q.dtype not in (torch.bfloat16, torch.float16):
-            raise NotImplementedError(f"{quant_dtype} pages take bf16/fp16 q")
-        qk = q.to(torch.bfloat16)  # quantized pages contract in bf16 (as on TPU)
-    elif k_pages.dtype == q.dtype and q.dtype in (torch.bfloat16, torch.float16):
-        qk = q
-    else:
-        raise NotImplementedError(
-            f"the paged prefill kernel takes bf16/fp16 pages of the q dtype "
-            f"or quantized pages, got {k_pages.dtype} pages with {q.dtype} q")
+    qk = quant_q(q, k_pages, quant_dtype, "paged prefill")
     if v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages dtypes differ")
     k_pages, v_pages = (stored_pages(p, quant_dtype, plan.head_dim)
@@ -195,7 +191,7 @@ def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,
             scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
             _build.stream_of(q))
     _build.check("paged_prefill", rc)
-    _build.launches[launch_name("paged_prefill", quant_dtype)] += 1
+    _build.launches[launch_name("paged_prefill", quant_dtype, 1, qk.dtype)] += 1
     return unpad_features(out, plan.head_dim).to(q.dtype), lse
 
 

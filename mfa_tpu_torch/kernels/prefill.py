@@ -39,6 +39,11 @@ width, d itself unless its bytes are not a multiple of 16 (then a
 zero-padded copy, its output sliced back). The engine choice and the
 softmax scale see the true d.
 
+fp32 inputs run the same engines on the fp32 tile of
+csrc/flash_fwd_f32.cuh (SIMT FFMA products, 64 rows a block, one flag tile
+each; launch names `<name>_fp32`): the zero-shift p = exp2(s * c) stays
+fp32 for P.V, as V's dtype is fp32.
+
 A CUDA tensor runs the kernels (or raises); a CPU tensor runs each
 engine's plain fp32 version, which repeats its block algorithm: the same
 exponent, p cast to V's dtype before P.V, and flags and risky bits per
@@ -245,9 +250,11 @@ def _cuda_inputs(name, q, k, v):
     """The checks every CUDA prefill engine shares -> dense (q, k, v) at
     the head-dim plan's stored width, and the plan."""
     _build.refuse_grad(name, q, k, v)
-    if q.dtype not in (torch.bfloat16, torch.float16):
+    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise NotImplementedError(
-            f"the prefill kernel takes bf16/fp16, got {q.dtype}")
+            f"the prefill kernel takes bf16/fp16/fp32, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k and v dtypes differ")
     batch, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     plan = head_dim_plan(d)
@@ -287,7 +294,7 @@ def _prefill_cuda(q, k, v, scale, window_left, window_right, softcap,
             float(softcap), scale / softcap if softcap else 0.0, sinks, kv_off,
             _build.ptr(slopes), _build.stream_of(q))
     _build.check("prefill", rc)
-    _build.launches["prefill"] += 1
+    _build.launches[_build.launch_key("prefill", q.dtype)] += 1
     out = unpad_features(out, plan.head_dim)
     return (out, lse) if return_lse else out
 
@@ -305,7 +312,7 @@ def _zs_launch(kind, q, k, v, out, lse, table, scale, wl, wr, sinks=0,
             head_dim_plan(d).kernel_dim, wl, wr, scale * _LOG2E,
             sinks, kv_off, _build.stream_of(q))
     _build.check("bound", rc)
-    _build.launches[kind] += 1
+    _build.launches[_build.launch_key(kind, q.dtype)] += 1
 
 
 def _engine_cuda(engine, mode, q, k, v, scale, wl, wr, return_lse, sinks=0,

@@ -11,7 +11,8 @@ zero-shift fast path exist because a TPU grid is static; the classic
 algorithm here computes the same function exactly.
 Sinks and ALiBi act on positions local to each sequence, as in mfa_tpu.
 Any head_dim up to 256, as kernel 1 takes it (dispatch/config.py:
-head_dim_plan).
+head_dim_plan). fp32 runs the packed layout of the fp32 tile
+(csrc/flash_fwd_f32.cuh; launch name `varlen_fp32`).
 A CPU tensor runs `_varlen_plain` (kernel 1's plain version per sequence).
 
 With block_table, k/v are a paged pool and the call goes to the paged
@@ -61,9 +62,11 @@ def _varlen_plain(q, k, v, cu_q, cu_k, scale, window_left, window_right,
 def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
                  window_right, softcap, return_lse, sinks=0, alibi=None):
     _build.refuse_grad("varlen_attention", q, k, v)
-    if q.dtype not in (torch.bfloat16, torch.float16):
+    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise NotImplementedError(
-            f"the varlen kernel takes bf16/fp16, got {q.dtype}")
+            f"the varlen kernel takes bf16/fp16/fp32, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("varlen_attention: q, k and v dtypes differ")
     total_q, hq, d = q.shape
     hkv = k.shape[1]
     plan = head_dim_plan(d)
@@ -86,7 +89,7 @@ def _varlen_cuda(q, k, v, cu_q, cu_k, max_seqlen_q, scale, window_left,
             scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
             _build.stream_of(q))
     _build.check("prefill", rc)
-    _build.launches["varlen"] += 1
+    _build.launches[_build.launch_key("varlen", q.dtype)] += 1
     out = unpad_features(out, d)
     return (out, lse) if return_lse else out
 

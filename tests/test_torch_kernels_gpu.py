@@ -1805,3 +1805,416 @@ def test_head_dim_backward_kernels(dev, d):
                                      do.float(), cu, cu, d ** -0.5, -1, 0, 0.0)
     assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
     _bwd_close(got, ref, "varlen")
+
+
+# ---------------- fp32 inputs: the fp32 tile (csrc/flash_fwd_f32.cuh) ----------------
+# Every forward kernel (1-9) on fp32 inputs against its plain fp32 version:
+# within atol = rtol = 1e-4 on fp32 inputs and pages (LSE too, with the same
+# -inf rows); on quantized pages with fp32 q within the bf16-q case's limits
+# (max 2e-2, mean 2e-3: p is rounded to bf16 for P.V in both). Launch names
+# end in _fp32: no plain route ran.
+
+F32 = torch.float32
+
+
+def _close32(out, lse, ref, ref_lse, tol=1e-4):
+    assert out.dtype == F32 and bool(torch.isfinite(out).all())
+    assert bool(((out - ref.float()).abs() <= tol + tol * ref.float().abs()).all())
+    if lse is not None:
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+        fin = torch.isfinite(ref_lse)
+        if fin.any():
+            assert bool(((lse[fin] - ref_lse[fin]).abs()
+                         <= tol + tol * ref_lse[fin].abs()).all())
+
+
+def _close_quant32(out, lse, ref, ref_lse):
+    assert out.dtype == F32
+    _close(out, lse, ref, ref_lse)
+    assert (out - ref.float()).abs().mean() < 2e-3
+
+
+def _poison_past(kp, vp, ks, vs, quant, table, lens, page):
+    """NaN (scales, fp8 NaN codes) in every row of a sequence's pages at or
+    past its length: rows a kernel must never read."""
+    where = torch.zeros(kp.shape[:3], dtype=torch.bool, device=kp.device)
+    for i, n in enumerate(lens):
+        for j, pg in enumerate(table[i].tolist()):
+            lo = max(0, n - j * page)
+            if lo < page:
+                where[:, pg, lo:] = True
+    for pages, scales in ((kp, ks), (vp, vs)):
+        _poison(pages, scales, quant, where)
+
+
+_F32_PREFILL = [
+    # b, hq, hkv, sq, sk, d, window, softcap, sinks, offset, alibi
+    (2, 8, 2, 100, 130, 128, (-1, 0), 0.0, 0, 0, False),
+    (2, 8, 2, 100, 130, 128, (9, 4), 0.0, 0, 0, False),
+    (1, 4, 4, 64, 64, 128, (-1, 0), 30.0, 0, 0, False),
+    (1, 8, 1, 1, 1, 64, (-1, -1), 0.0, 0, 0, False),        # one row, one column
+    (1, 16, 2, 200, 50, 64, (10, -1), 0.0, 0, 0, False),    # dead rows past sk
+    (2, 8, 4, 300, 300, 256, (-1, 0), 0.0, 0, 0, False),
+    (1, 16, 8, 300, 300, 256, (4095, 0), 50.0, 0, 0, False),  # Gemma2's softcap
+    (2, 8, 2, 333, 333, 80, (-1, 0), 0.0, 0, 0, False),      # d 80 at D 128
+    (16, 32, 8, 256, 256, 128, (-1, 0), 0.0, 0, 0, False),   # the 8B wave
+    (1, 8, 2, 400, 400, 128, (63, 0), 0.0, 10, 0, False),    # sinks
+    (1, 4, 4, 256, 256, 64, (0, -1), 0.0, 128, 0, False),    # sinks fill the gap
+    (2, 8, 2, 300, 300, 128, (-1, 0), 0.0, 0, 0, True),      # ALiBi
+    (1, 8, 4, 200, 330, 256, (63, 0), 0.0, 4, 0, True),
+    (1, 8, 2, 256, 640, 128, (-1, 0), 0.0, 0, 384, False),   # kv_position_offset
+    (1, 8, 4, 300, 700, 256, (-1, 0), 0.0, 0, 200, True),
+]
+
+
+@pytest.mark.parametrize("engine", [False, None, "unchecked"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,softcap,sinks,offset,alibi",
+                         _F32_PREFILL)
+def test_prefill_kernels_fp32(dev, b, hq, hkv, sq, sk, d, window, softcap, sinks,
+                              offset, alibi, engine):
+    """Kernel 1 (engine False), the default (kernels 2 + 3 at d % 128 == 0,
+    kernel 4 else; softcap and ALiBi keep kernel 1) and kernel 4 unchecked."""
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    q, k, v = (_rn(gen, b, hq, sq, d, dtype=F32), _rn(gen, b, hkv, sk, d, dtype=F32),
+               _rn(gen, b, hkv, sk, d, dtype=F32))
+    slopes = _alibi(hq, dev) if alibi else None
+    _build.reset_launches()
+    o, lse = prefill.prefill_attention(q, k, v, window_size=window, logit_softcap=softcap,
+                                       sink_tokens=sinks, kv_position_offset=offset,
+                                       alibi_slopes=slopes, bound_softmax=engine,
+                                       return_lse=True)
+    eng, mode = prefill.select_engine(engine, F32, d, softcap, alibi)
+    assert dict(_build.launches) == {"classic": {"prefill_fp32": 1},
+                                     "flagged": {"flagged_fp32": 1, "repair_fp32": 1},
+                                     "bound": {"bound_fp32": 1}}[eng]
+    sk_ = (sinks if window[0] >= 0 else 0)
+    if eng == "classic":
+        ro, rl = prefill._prefill_plain(q, k, v, d ** -0.5, window[0], window[1], softcap,
+                                        True, sk_, offset, slopes)
+    else:
+        ro, rl, _ = prefill._engine_plain(eng, mode, q, k, v, d ** -0.5, window[0],
+                                          window[1], sk_, offset)
+    _close32(o, lse, ro, rl)
+
+
+def _zs_inputs32(gen, b, hq, hkv, sq, sk, d, kind):
+    """fp32 q, k, v: benign N(0, 1); 'overflow' std 1e3; 'flush' q + 40, k - 40;
+    'risky' q and k x 4 (every tile past the norm bound, scores of std ~16)."""
+    q, k, v = (_rn(gen, b, hq, sq, d, dtype=F32), _rn(gen, b, hkv, sk, d, dtype=F32),
+               _rn(gen, b, hkv, sk, d, dtype=F32))
+    if kind == "overflow":
+        q, k = q * 1e3, k * 1e3
+    elif kind == "risky":
+        q, k = q * 4.0, k * 4.0
+    elif kind == "flush":
+        q, k = q + 40.0, k - 40.0
+    return q, k, v
+
+
+@pytest.mark.parametrize("kind,d,window,sinks", [
+    ("benign", 128, (-1, 0), 0), ("benign", 256, (1023, 0), 0),
+    ("overflow", 128, (-1, 0), 0), ("flush", 128, (-1, 0), 0),
+    ("overflow", 256, (-1, 0), 0), ("overflow", 128, (127, 0), 4),
+])
+def test_flagged_repair_fp32(dev, kind, d, window, sinks):
+    """Kernel 2's flags equal the plain zero-shift flags (0 on benign
+    inputs, > 0 on adversarial ones), and the repaired output equals
+    kernel 1's bit for bit where every tile is flagged."""
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q, k, v = _zs_inputs32(gen, 2, 8, 2, 300, 300, d, kind)
+    kw = dict(window_size=window, sink_tokens=sinks)
+    _build.reset_launches()
+    o, lse, flags = prefill.prefill_attention(q, k, v, return_lse=True,
+                                              bound_softmax="flag_debug", **kw)
+    assert dict(_build.launches) == {"flagged_fp32": 1, "repair_fp32": 1}
+    _, _, pflags = prefill._engine_plain("flagged", "flag_debug", q, k, v, d ** -0.5,
+                                         window[0], window[1], sinks)
+    assert torch.equal(flags, pflags)
+    ro, rl = prefill._prefill_plain(q, k, v, d ** -0.5, window[0], window[1], 0.0, True,
+                                    sinks)
+    if kind == "benign":
+        assert int(flags.sum()) == 0
+        _close32(o, lse, ro, rl)
+        return
+    assert int(flags.sum()) > 0
+    k1, l1 = prefill.prefill_attention(q, k, v, return_lse=True, bound_softmax=False, **kw)
+    rows = flags.bool().repeat_interleave(64, -1)[..., :300]
+    assert torch.equal(o[rows], k1[rows]) and torch.equal(lse[rows], l1[rows])
+    if bool(flags.all()):
+        assert torch.equal(o, k1)
+
+
+@pytest.mark.parametrize("d,mode,kind", [
+    (64, None, "benign"), (64, None, "risky"), (128, "prepass", "risky"),
+    (256, "prepass", "risky"), (64, "unchecked", "benign"), (256, "unchecked", "benign"),
+])
+def test_bound_kernel_fp32(dev, d, mode, kind):
+    """Kernel 4: the risky bits pick the classic softmax per 64-row tile
+    (every tile risky on the 'risky' inputs, none on benign ones). Not on
+    std-1e3 or shifted inputs: scores of 1e4-1e6 carry fp32 rounding that
+    moves p by percents in any summation order, so two fp32 computations
+    cannot agree to 1e-4 there (kernels 2 + 3 are held bit for bit to
+    kernel 1 on them instead)."""
+    from mfa_tpu_torch.kernels import _build, prefill
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    q, k, v = _zs_inputs32(gen, 2, 8, 2, 300, 300, d, kind)
+    _build.reset_launches()
+    o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                       bound_softmax=mode)
+    assert dict(_build.launches) == {"bound_fp32": 1}
+    ro, rl, _ = prefill._engine_plain("bound", mode or "prepass", q, k, v, d ** -0.5,
+                                      -1, 0)
+    _close32(o, lse, ro, rl)
+    bits = prefill._risky_bits(q, k, d ** -0.5 * prefill._LOG2E)
+    assert bool(bits.all()) if kind == "risky" else not bool(bits.any())
+
+
+_F32_DECODE = [
+    # b, hq, hkv, s, d, lens, splits, window, softcap, sinks, alibi
+    (3, 8, 2, 700, 64, [700, 0, 257], (1, 2, 3, 0), -1, 0.0, 0, False),
+    (4, 32, 8, 1000, 128, [1000, 999, 64, 63], (0, 5), 100, 0.0, 0, False),
+    (2, 4, 1, 300, 64, [300, 200], (2,), -1, 20.0, 0, False),
+    (2, 8, 4, 700, 256, [700, 1], (1, 3), 100, 0.0, 0, False),
+    (2, 20, 4, 500, 80, [499, 0], (1, 3), -1, 0.0, 0, False),     # group 5, d 80
+    (2, 32, 2, 600, 128, [600, 300], (1, 2), -1, 0.0, 0, False),  # group 16
+    (4, 32, 8, 8192, 128, [8192, 4099, 4097, 100], (1, 3, 0), 4095, 0.0, 4, False),
+    (2, 8, 4, 1000, 256, [1000, 64], (1, 3), 200, 0.0, 70, True),
+    (16, 32, 8, 8192, 128, [8192] * 16, (0,), -1, 0.0, 0, False),  # the smoke's shape
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,lens,splits,window,softcap,sinks,alibi",
+                         _F32_DECODE)
+def test_decode_kernel_fp32(dev, b, hq, hkv, s, d, lens, splits, window, softcap, sinks,
+                            alibi):
+    """Kernel 5 (launch 1 and the combine) on fp32 q and caches; rows past
+    each length hold NaN and are never read."""
+    from mfa_tpu_torch.kernels import _build, decode
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    q, k, v = (_rn(gen, b, hq, d, dtype=F32), _rn(gen, b, hkv, s, d, dtype=F32),
+               _rn(gen, b, hkv, s, d, dtype=F32))
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    slopes = _alibi(hq, dev) if alibi else None
+    sk_ = sinks if window >= 0 else 0
+    refs = {}
+    for ns in splits:
+        n, tps = decode.split_layout(
+            s, ns if ns else decode.default_splits(b, hkv, s, hq // hkv))
+        po, pl = decode._decode_partials_plain(q, k, v, L, d ** -0.5, n, tps, window,
+                                               softcap, sk_, slopes)
+        refs[ns] = decode.combine_splits(po, pl, axis=2, return_lse=True)
+    for i, n in enumerate(lens):
+        k[i, :, n:] = float("nan")
+        v[i, :, n:] = float("nan")
+    for ns in splits:
+        _build.reset_launches()
+        o, lse = decode.decode_attention(q, k, v, L, num_splits=ns, window_left=window,
+                                         logit_softcap=softcap, sink_tokens=sinks,
+                                         alibi_slopes=slopes, return_lse=True)
+        assert dict(_build.launches) == {"decode_fp32": 1, "combine_fp32": 1}
+        ro, rl = refs[ns]
+        _close32(o, lse, ro.reshape(b, hq, d), rl.reshape(b, hq))
+    assert torch.all(o[L == 0] == 0)
+
+
+_F32_PAGED = [
+    # span, hq, hkv, page, d, quant, pos_offset, window, softcap, sinks, alibi, lens
+    (1, 32, 8, 64, 128, None, 1, -1, 0.0, 0, False, None),
+    (1, 32, 8, 64, 128, "int8", 1, -1, 0.0, 0, False, None),   # the 8B serve step
+    (1, 32, 8, 64, 128, "fp8", 1, 50, 0.0, 0, False, None),
+    (1, 32, 8, 64, 128, "int4", 1, -1, 15.0, 0, False, None),
+    (1, 8, 8, 16, 64, None, 0, 20, 0.0, 0, False, None),       # pages under a tile
+    (1, 8, 8, 16, 64, "int4", 0, -1, 0.0, 0, False, None),
+    (1, 8, 4, 128, 256, None, 1, 100, 0.0, 0, False, None),    # pages past a tile
+    (1, 8, 4, 64, 256, None, 1, 1023, 0.0, 0, False, _GEMMA3_LENS),  # split route
+    (1, 8, 4, 64, 256, "int8", 1, 1023, 0.0, 0, False, _GEMMA3_LENS),
+    (1, 32, 2, 64, 128, "int8", 1, -1, 0.0, 0, False, None),   # group 16
+    (1, 32, 8, 64, 128, None, 1, -1, 0.0, 0, False, [8192]),   # b1: 16 splits
+    (4, 32, 8, 64, 128, None, 4, 4095, 0.0, 4, True, [8192, 4200, 4097, 300]),
+    (4, 32, 8, 64, 128, "int4", 4, 100, 0.0, 4, False, [2000, 650, 4097, 30]),
+    (3, 16, 2, 32, 256, "fp8", 0, 50, 0.0, 8, True, _GEMMA3_LENS),
+    (1, 20, 4, 32, 80, None, 1, -1, 0.0, 0, False, None),      # d 80
+    (1, 20, 4, 32, 80, "int8", 1, -1, 0.0, 0, False, None),
+    (1, 32, 8, 64, 128, "fp8", 1, 100, 0.0, 70, True, [2000, 65, 100, 3]),
+]
+
+
+@pytest.mark.parametrize(
+    "span,hq,hkv,page,d,quant,pos_offset,window,softcap,sinks,alibi,lens", _F32_PAGED)
+def test_paged_kernel_fp32(dev, span, hq, hkv, page, d, quant, pos_offset, window,
+                           softcap, sinks, alibi, lens):
+    """Kernel 6 with fp32 q on fp32 pages and on int8 / fp8 / int4 pages
+    (q . k in fp32), spans, groups, the split route and its combine; rows
+    past each length poisoned."""
+    from mfa_tpu_torch.kernels import _build, paged
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    if lens is None:
+        lens = [300, 0, page, 383 // page * page - 1]
+    b, pps = len(lens), max(max(lens), 400) // page + 1
+    P = b * pps + 3
+    q = _rn(gen, b, span, hq, d, dtype=F32) if span > 1 else _rn(gen, b, hq, d, dtype=F32)
+    kf, vf = _rn(gen, hkv, P, page, d, dtype=F32), _rn(gen, hkv, P, page, d, dtype=F32)
+    kp, vp, ks, vs = _pages(kf, vf, quant)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    slopes = _alibi(hq, dev) if alibi else None
+    sk_ = sinks if window >= 0 else 0
+    ro, rl = paged._paged_plain(q, kp, vp, ks, vs, L, table, d ** -0.5, window, softcap,
+                                pos_offset, quant, sk_, slopes)
+    _poison_past(kp, vp, ks, vs, quant, table, lens, page)
+    splits, _ = paged.split_plan(b, hkv, pps, page)
+    _build.reset_launches()
+    o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
+                                   window_left=window, pos_offset=pos_offset,
+                                   logit_softcap=softcap, quant_dtype=quant,
+                                   sink_tokens=sinks, alibi_slopes=slopes,
+                                   return_lse=True)
+    assert dict(_build.launches) == ({"paged_fp32": 1} if splits == 1
+                                     else {"paged_fp32": 1, "combine_fp32": 1})
+    (_close32 if quant is None else _close_quant32)(o, lse, ro, rl)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(o[i] == 0) and torch.isneginf(lse[i]).all()
+
+
+@pytest.mark.parametrize("lens_q,lens_k,hq,hkv,d,window,softcap,sinks,alibi", [
+    ([200, 1100, 0, 513], [200, 1100, 0, 513], 32, 8, 128, (-1, 0), 0.0, 0, False),
+    ([100, 37, 300], [130, 64, 200], 8, 2, 128, (128, 64), 0.0, 0, False),
+    ([30, 5], [10, 0], 4, 2, 64, (3, 0), 0.0, 0, False),       # dead rows
+    ([65, 1, 64], [65, 1, 64], 4, 4, 64, (-1, 0), 30.0, 0, False),
+    ([100, 37, 300], [130, 64, 200], 8, 4, 256, (127, 32), 0.0, 0, False),
+    ([200, 1100, 0, 513], [200, 1100, 0, 513], 8, 2, 80, (63, 0), 0.0, 4, True),
+])
+def test_varlen_kernel_fp32(dev, lens_q, lens_k, hq, hkv, d, window, softcap, sinks,
+                            alibi):
+    """Kernel 7: the packed layout of the fp32 tile."""
+    from mfa_tpu_torch.kernels import _build, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    q = _rn(gen, sum(lens_q), hq, d, dtype=F32)
+    k, v = (_rn(gen, sum(lens_k), hkv, d, dtype=F32) for _ in range(2))
+    cu_q = torch.tensor([0] + lens_q, device=dev).cumsum(0).int()
+    cu_k = torch.tensor([0] + lens_k, device=dev).cumsum(0).int()
+    slopes = _alibi(hq, dev) if alibi else None
+    _build.reset_launches()
+    o, lse = varlen.varlen_attention(q, k, v, cu_q, cu_k, max(lens_q), max(lens_k),
+                                     window_size=window, logit_softcap=softcap,
+                                     sink_tokens=sinks, alibi_slopes=slopes,
+                                     return_lse=True)
+    assert dict(_build.launches) == {"varlen_fp32": 1}
+    ro, rl = varlen._varlen_plain(q, k, v, cu_q, cu_k, d ** -0.5, window[0], window[1],
+                                  softcap, True, sinks, slopes)
+    _close32(o, lse, ro, rl)
+
+
+@pytest.mark.parametrize(
+    "hq,hkv,page,d,quant,q_start,sq,lens,q_lens,window,softcap,sinks,alibi", [
+        (32, 8, 64, 128, "int8", [0, 128, 320], 192, [192, 320, 370], None, (-1, 0),
+         0.0, 0, False),                                       # the 8B chunk batch
+        (32, 8, 64, 128, None, [0, 128, 320], 192, [192, 320, 370], None, (-1, 0),
+         0.0, 0, False),
+        (8, 2, 16, 128, None, [16, 0], 100, [116, 70], [100, 40], (10, 6), 0.0, 0,
+         False),
+        (32, 8, 64, 128, "fp8", [0, 128, 320], 192, [192, 320, 370], None, (-1, 0),
+         0.0, 0, False),
+        (16, 2, 32, 128, "int4", [96, 0], 64, [160, 64], None, (-1, 0), 20.0, 0, False),
+        (4, 4, 64, 64, None, [64, 0], 130, [194, 100], None, (40, 0), 0.0, 0, False),
+        (4, 4, 64, 64, "int4", [64, 0], 130, [194, 100], None, (40, 0), 0.0, 0, False),
+        (8, 4, 64, 256, None, [0, 128, 320], 192, [192, 320, 370], None, (63, 0), 0.0,
+         0, False),
+        (8, 4, 64, 256, "int8", [1536, 64], 512, [2048, 576], None, (1023, 0), 0.0, 4,
+         True),
+        (28, 4, 64, 128, "int8", [0, 128, 320], 192, [192, 320, 370], None, (-1, 0),
+         0.0, 0, False),                                       # group 7
+        (40, 1, 64, 128, None, [0, 128, 320], 192, [192, 320, 370], None, (-1, 0), 0.0,
+         0, False),                                            # group 40
+        (64, 1, 16, 64, "fp8", [16, 0], 100, [116, 70], [100, 40], (10, 6), 0.0, 0,
+         False),                                               # group 64
+        (20, 4, 32, 80, None, [96, 0], 64, [160, 64], None, (-1, 0), 0.0, 0, True),
+        (32, 8, 64, 128, None, [4608, 5120, 0, 4096], 512, [5120, 5632, 512, 4500],
+         None, (4095, 0), 0.0, 4, True),
+    ])
+def test_paged_prefill_kernel_fp32(dev, hq, hkv, page, d, quant, q_start, sq, lens,
+                                   q_lens, window, softcap, sinks, alibi):
+    """Kernel 8 with fp32 q on fp32 and quantized pages, groups 1-64, rows
+    past q_lens, rows past each length poisoned."""
+    from mfa_tpu_torch.kernels import _build, paged_prefill
+
+    gen = torch.Generator(device=dev).manual_seed(46)
+    b, pps = len(lens), max(max(lens), 400) // page + 1
+    P = b * pps + 3
+    q = _rn(gen, b, sq, hq, d, dtype=F32)
+    kf, vf = _rn(gen, hkv, P, page, d, dtype=F32), _rn(gen, hkv, P, page, d, dtype=F32)
+    kp, vp, ks, vs = _pages(kf, vf, quant)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=dev)
+    ql = (L - qs).clamp(min=0) if q_lens is None else torch.tensor(
+        q_lens, dtype=torch.int32, device=dev)
+    slopes = _alibi(hq, dev) if alibi else None
+    ro, rl = paged_prefill._paged_prefill_plain(
+        q, kp, vp, ks, vs, L, qs, ql, table, d ** -0.5, window[0], window[1], softcap,
+        quant, sinks, slopes)
+    _poison_past(kp, vp, ks, vs, quant, table, lens, page)
+    _build.reset_launches()
+    o, lse = paged_prefill.paged_prefill_attention(
+        q, kp, vp, L, qs, table, q_lens=ql, k_scales=ks, v_scales=vs, causal=False,
+        window_left=window[0], window_right=window[1], logit_softcap=softcap,
+        quant_dtype=quant, sink_tokens=sinks, alibi_slopes=slopes, return_lse=True)
+    assert dict(_build.launches) == {"paged_prefill_fp32": 1}
+    (_close32 if quant is None else _close_quant32)(o, lse, ro, rl)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,runs,window", [
+    (2, 8, 4, 300, 256, [[(10, 80), (150, 280)], [(63, 64), (127, 200)]], -1),
+    (2, 8, 4, 300, 256, [[(10, 80), (150, 280)], [(63, 64), (127, 200)]], 32),
+    (1, 4, 2, 517, 128, [[(0, 3), (100, 355)]], 64),
+    (2, 4, 4, 129, 64, [[(60, 70)], []], 16),
+    (3, 8, 1, 200, 128, [[], [], [(0, 199)]], -1),
+    (2, 8, 4, 300, 80, [[(10, 80), (81, 200)], [(0, 299)]], 50),
+])
+def test_image_block_kernel_fp32(dev, b, hq, hkv, s, d, runs, window):
+    """Kernel 9: kind IMAGE of the fp32 tile against the dense masked fp32
+    softmax."""
+    from mfa_tpu_torch.kernels import _build, blockmask
+
+    gen = torch.Generator(device=dev).manual_seed(47)
+    q, k, v = (_rn(gen, b, hq, s, d, dtype=F32), _rn(gen, b, hkv, s, d, dtype=F32),
+               _rn(gen, b, hkv, s, d, dtype=F32))
+    ids = _run_ids(b, s, runs, dev)
+    _build.reset_launches()
+    o = blockmask.image_block_prefill(q, k, v, ids, window_left=window)
+    assert dict(_build.launches) == {"blockmask_fp32": 1}
+    ref = blockmask._image_block_plain(q, k, v, ids, d ** -0.5, window)
+    _close32(o, None, ref, None)
+
+
+def test_fp32_entry_points(dev):
+    """flash_attn_func, flash_attn_varlen_func and flash_attn_with_kvcache
+    on fp32 tensors run the fp32 kernels and return fp32."""
+    import mfa_tpu_torch
+    from mfa_tpu_torch.kernels import _build
+
+    gen = torch.Generator(device=dev).manual_seed(48)
+    q, k, v = (_rn(gen, 2, 128, 8, 64, dtype=F32) for _ in range(3))
+    _build.reset_launches()
+    o = mfa_tpu_torch.flash_attn_func(q, k, v)   # BASELINE's first config: kernel 4
+    cu = torch.tensor([0, 128, 256], device=dev, dtype=torch.int32)
+    ov = mfa_tpu_torch.flash_attn_varlen_func(q.flatten(0, 1), k.flatten(0, 1),
+                                              v.flatten(0, 1), cu, cu, 128, 128)
+    kc, vc = _rn(gen, 2, 512, 8, 64, dtype=F32), _rn(gen, 2, 512, 8, 64, dtype=F32)
+    od = mfa_tpu_torch.flash_attn_with_kvcache(q[:, :1], kc, vc, cache_seqlens=300)
+    assert all(t.dtype == F32 and bool(torch.isfinite(t).all()) for t in (o, ov, od))
+    got = dict(_build.launches)
+    assert got["bound_fp32"] == 1 and got["varlen_fp32"] == 1
+    assert got["decode_fp32"] == 1 and got["combine_fp32"] == 1
+    assert not any(n in got for n in ("bound", "varlen", "decode", "combine"))

@@ -111,7 +111,7 @@ def test_flash_attn_with_kvcache_paged_matches_jax():
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
 
 
-def test_paged_rejects_what_is_not_ported():
+def test_paged_rejects_what_is_not_ported(monkeypatch):
     q, kp, vp, table, lens = _case(4)
     args = [torch.from_numpy(a) for a in (q, kp, vp, lens, table)]
     span_q = torch.stack([args[0]] * 4, 1)  # q_span 4
@@ -125,8 +125,12 @@ def test_paged_rejects_what_is_not_ported():
     with pytest.raises(ValueError):
         paged_attention(*args, pos_offset=1, window_left=0)
     # the card's route, on meta tensors (nothing built or run): pages off 8
-    # rows and fp32 stay refused at any head_dim
-    from mfa_tpu_torch.kernels import paged
+    # rows stay refused at any head_dim, fp32 q and pages are taken (the C
+    # launch replaced by a stub that reports success)
+    from mfa_tpu_torch.kernels import _build, paged
+
+    monkeypatch.setattr(_build, "function", lambda lib, name, argtypes: lambda *a: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
 
     def meta(d, page, dtype):
         q = torch.empty(2, 8, d, dtype=dtype, device="meta")
@@ -138,8 +142,11 @@ def test_paged_rejects_what_is_not_ported():
     for d in (80, 128):
         with pytest.raises(NotImplementedError, match="multiple of 8"):
             paged._paged_cuda(*meta(d, 12, torch.bfloat16))
-        with pytest.raises(NotImplementedError, match="pages"):
-            paged._paged_cuda(*meta(d, 16, torch.float32))
+        _build.reset_launches()
+        out, lse = paged._paged_cuda(*meta(d, 16, torch.float32))
+        assert out.dtype == torch.float32 and out.shape == (2, 8, d)
+        assert _build.launches["paged_fp32"] == 1
+    _build.reset_launches()
 
 
 def _split_case(seed, quant=False):

@@ -139,7 +139,7 @@ def _check(spec, seed, d):
         assert np.all(to[b, r:] == 0) and np.all(np.isneginf(tl[b, :, r:]))
 
 
-def test_paged_prefill_rejects_what_is_not_ported():
+def test_paged_prefill_rejects_what_is_not_ported(monkeypatch):
     q, kp, vp, table = _case(0)
     args = [torch.from_numpy(a) for a in (q, kp, vp)] + [
         torch.tensor([32, 32]), torch.tensor([0, 0]), torch.from_numpy(table)]
@@ -155,9 +155,13 @@ def test_paged_prefill_rejects_what_is_not_ported():
         paged_prefill_attention(*args, k_scales=torch.ones(kp.shape[:3]),
                                 v_scales=torch.ones(kp.shape[:3]))
     # the card's route, on meta tensors (nothing built or run): more than 64
-    # q heads a kv head, pages off 8 rows and fp32 stay refused at any
-    # head_dim
-    from mfa_tpu_torch.kernels import paged_prefill
+    # q heads a kv head and pages off 8 rows stay refused at any head_dim,
+    # fp32 q and pages are taken (the C launch replaced by a stub that
+    # reports success)
+    from mfa_tpu_torch.kernels import _build, paged_prefill
+
+    monkeypatch.setattr(_build, "function", lambda lib, name, argtypes: lambda *a: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
 
     def meta(d, hq=8, page=16, dtype=torch.bfloat16):
         q = torch.empty(1, 8, hq, d, dtype=dtype, device="meta")
@@ -172,5 +176,8 @@ def test_paged_prefill_rejects_what_is_not_ported():
             paged_prefill._paged_prefill_cuda(*meta(d, hq=65))
         with pytest.raises(NotImplementedError, match="multiple of 8"):
             paged_prefill._paged_prefill_cuda(*meta(d, page=12))
-        with pytest.raises(NotImplementedError, match="pages"):
-            paged_prefill._paged_prefill_cuda(*meta(d, dtype=torch.float32))
+        _build.reset_launches()
+        out, lse = paged_prefill._paged_prefill_cuda(*meta(d, dtype=torch.float32))
+        assert out.dtype == torch.float32 and out.shape == (1, 8, 8, d)
+        assert _build.launches["paged_prefill_fp32"] == 1
+    _build.reset_launches()
