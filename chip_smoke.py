@@ -81,7 +81,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    chunk batch on every page format, kernel 9 at Gemma3-4B's image wave;
    within atol = rtol = 1e-4 (quantized pages: the bf16-q limits), timed
    against bounds of 4-byte rows at 3.35 TB/s and operations at 165
-   TFLOP/s (TF32's 495 over three passes) and SDPA in fp32.
+   TFLOP/s (TF32's 495 over three passes) and SDPA in fp32. Then
+   (fp32_backward_kernels) kernels 11-14 on fp32 inputs (the SIMT tile of
+   csrc/flash_bwd_f32.cuh) against the plain fp32 backward: the 8B train
+   shape, d 64 / 80 / 256, Gemma3-4B's window, sinks, ALiBi, the offset,
+   softcap 50, group 7, kernel 14 on 8 x 512 (bit for bit 12 + 13) and the
+   ragged pack, each of dQ, dK, dV within allclose(rtol 1e-4, atol 1e-4
+   max |ref|), SDPA's fp32 backward as the library time; and
+   (fp32_wmatmul_kernels) kernel 10 and its expert launch on fp32 x (three
+   bf16 parts) at the 8B projections and Mixtral's decode and wave shapes
+   within 1e-5 of the largest output, bounds at 330 TFLOP/s (three bf16
+   passes), torch.matmul on the fp32-dequantized weight as the library.
 3. The main path, each part with every launch count zeroed just before it
    and read just after: the library surface (flash_attn_func,
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
@@ -170,7 +180,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    the first engine's traffic on fp32 and on int8 KV pages, graphed and
    with the graphs off (the same tokens), then the chunked + prefix
    traffic on int8 KV (kernel 8 with fp32 q); fp32 launches of kernels 2,
-   3, 6, 8 and the combine.
+   3, 6, 8 and the combine. train_8b_fp32: three SGD steps of those fp32
+   weights on 4 x 2049 tokens with remat (kernels 2 + 3 and 11 in fp32,
+   32.1 GB of gradients beside the weights). engine_8b_fp32_int8w: the
+   trained weights quantized to int8 with the embedding kept fp32, so
+   every projection runs kernel 10 on fp32 x; the first engine's traffic
+   graphed and graphs off (the same tokens). engine_mixtral_fp32: Mixtral
+   at full width, 4 layers, int8 weights and banks with an fp32 embedding:
+   the expert launch on fp32 x (wmatmul_bank_fp32), graphed and graphs
+   off. The library surface in fp32 (minimal_fp32) also takes the
+   gradients of BASELINE's first config, of flash_attn_func (fused and the
+   split) and of flash_attn_varlen_func (kernels 11-14 in fp32).
    Right after the first engine, the sharding layer (mfa_tpu_torch/shard/):
    tp_engine_8b runs the first engine's weights and traffic behind
    Engine(mesh=) at {"model": 1} over NCCL in this process, graphed
@@ -211,7 +231,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    logits agree (int8 KV); then (cuda_vs_cpu_fp32) 2 layers of the fp32 8B
    at full width on fp32 KV: a prompt wave, four decode steps
    teacher-forced on the card's tokens, two chunks and a prefix-hit suffix,
-   every logit row within relative L2 1e-4 of the CPU's.
+   every logit row within relative L2 1e-4 of the CPU's; then
+   (cuda_vs_cpu_fp32_train) 2 layers of the fp32 8B from the same
+   params_from_numpy weights: the int8-weight forward's logits (kernel 10
+   on fp32 x) within relative L2 1e-4, and one SGD step on 1 x 257 tokens:
+   the loss within relative 1e-5, every gradient within relative L2 1e-4.
 5. The instruments (utils/timing.py, utils/profiling.py, utils/native.py):
    the peak table's entries for this card, scan_timeit of the paged
    decode kernel at the 8B serve step within 2x of its CUDA-event time, a
@@ -1764,9 +1788,9 @@ def backward_kernels(records, rn):
     per visible pair for the whole backward (5 products), 8 for the dK/dV
     launch, 6 for the dQ launch; bytes read q, k, v, O (or delta), dO, LSE
     once and write the launch's gradients once. SDPA's backward alone (a
-    boolean band mask for a window) is the library time."""
+    boolean band mask for a window; on equal lengths, batched, beside
+    kernel 14) is the library time."""
     import torch
-    import torch.nn.functional as F
 
     from mfa_tpu_torch.kernels import backward, prefill, varlen
 
@@ -1824,23 +1848,11 @@ def backward_kernels(records, rn):
         lib = ""
         lib_ms = None
         if wr == 0 and sq == sk:
-            # SDPA's backward alone: autograd.grad over the retained graph of
-            # one SDPA call (is_causal, or a band mask; enable_gqa) at the
-            # same shape
-            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-            if wl < 0:
-                ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                                    enable_gqa=True)
-            else:
-                ol = F.scaled_dot_product_attention(
-                    ql, kl, vl, attn_mask=_band_mask(sq, wl, dev), enable_gqa=True)
-            lib_ms = _time_ms(lambda: torch.autograd.grad(
-                ol, (ql, kl, vl), do, retain_graph=True), iters=5)
+            lib_ms = _sdpa_bwd_ms(q, k, v, do, None if wl < 0 else _band_mask(sq, wl, dev))
             split_ms = ms["bwd_dkv"] + ms["bwd_dq"]
             lib = (f" library_ms(sdpa backward alone) {lib_ms:.4f}; fused / sdpa "
                    f"{ms['bwd_fused'] / lib_ms:.2f}x, split 12 + 13 / sdpa "
                    f"{split_ms / lib_ms:.2f}x")
-            del ql, kl, vl, ol
         if d == 256:  # the split's two launches give the same bits twice
             same = all(torch.equal(a_, b_) for a_, b_ in zip(split, backward.flash_attention_bwd(
                 q, k, v, o, lse, do, fused=False, **kw)))
@@ -1867,7 +1879,8 @@ def backward_kernels(records, rn):
               [256, 1000, 600, 300, 640, 400, 500, 396], (128, 64), 0.0),
              ("one zero-length sequence, causal", [300, 0, 517, 64],
               [300, 0, 517, 64], (-1, 0), 0.0),
-             ("8 packed causal, softcap 30", lens_a, lens_a, (-1, 0), 30.0))
+             ("8 packed causal, softcap 30", lens_a, lens_a, (-1, 0), 30.0),
+             ("8 x 512 equal lengths, causal", [512] * 8, [512] * 8, (-1, 0), 0.0))
     for i, (tag, lq, lk, (wl, wr), cap) in enumerate(cases):
         q = rn(sum(lq), hq, d)
         k, v = rn(sum(lk), hkv, d), rn(sum(lk), hkv, d)
@@ -1904,9 +1917,20 @@ def backward_kernels(records, rn):
         b_kv = _bound(2 * qb + 2 * kb + 2 * row_b + 2 * kb, 8 * pairs * d)
         b_q = _bound(2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)
         b_all = _bound(4 * qb + 4 * kb + row_b, 10 * pairs * d)
+        lib = "library_ms none (ragged)"
+        if len(set(lq)) == 1 and lq == lk and not cap:
+            # equal lengths: SDPA's batched backward computes the same function
+            n_s, s_ = len(lq), lq[0]
+
+            def batched(t):  # [n * s, h, d] -> [n, h, s, d]
+                return t.view(n_s, s_, t.shape[1], d).transpose(1, 2).contiguous()
+
+            lib_ms = _sdpa_bwd_ms(batched(q), batched(k), batched(v), batched(do))
+            lib = (f"library_ms(sdpa batched backward) {lib_ms:.4f}; pair / sdpa "
+                   f"{(ms_kv + ms_q) / lib_ms:.2f}x")
         print(f"  dkv ms {ms_kv:.4f} + dq ms {ms_q:.4f} = {ms_kv + ms_q:.4f} "
               f"plain_ms {plain_ms:.4f} bound_ms {b_all[0]:.4f} ({b_all[1]}; dkv "
-              f"{b_kv[0]:.4f}, dq {b_q[0]:.4f}) library_ms n/a (ragged)", flush=True)
+              f"{b_kv[0]:.4f}, dq {b_q[0]:.4f}) {lib}", flush=True)
         if i == 0:
             records["varlen_bwd_dkv"].update(ms=ms_kv, plain_ms=plain_ms,
                                              bound_ms=b_kv[0], bound_by=b_kv[1],
@@ -1974,9 +1998,14 @@ def _varlen_bwd_gemma3(records, rn):
     qb, kb, row_b = n * s * hq * d * 2, n * s * hkv * d * 2, n * s * hq * 4
     b_kv = _bound(2 * qb + 2 * kb + 2 * row_b + 2 * kb, 8 * pairs * d)
     b_q = _bound(2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)
+    # equal lengths: SDPA's batched backward with the band mask computes the
+    # same function
+    lib_ms = _sdpa_bwd_ms(batched(q), batched(k), batched(v), batched(do),
+                          _band_mask(s, wl, "cuda"))
     print(f"  dkv ms {ms_kv:.4f} (bound {b_kv[0]:.4f}, {b_kv[1]}) + dq ms {ms_q:.4f} "
-          f"(bound {b_q[0]:.4f}, {b_q[1]}) plain_ms {plain_ms:.4f} library_ms n/a",
-          flush=True)
+          f"(bound {b_q[0]:.4f}, {b_q[1]}) plain_ms {plain_ms:.4f} library_ms(sdpa "
+          f"batched backward + band mask) {lib_ms:.4f}; pair / sdpa "
+          f"{(ms_kv + ms_q) / lib_ms:.2f}x", flush=True)
     del q, k, v, do, o, got, ref, args, dense
     torch.cuda.empty_cache()
     return g1 and g2 and same
@@ -3127,7 +3156,7 @@ def checkpoint_phase(counts, ident):
     return ok
 
 
-def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
+def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048), keep=False):
     """Main path, part 4: three SGD train steps of the full Llama-3-8B
     (32 layers, the engines' random bf16 weights, their KV pools freed) on
     b x (s + 1) tokens from numpy.random.RandomState(SEED) (shape = (b, s):
@@ -3137,7 +3166,11 @@ def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
     16 GB of weights and 16 GB of gradients on an 80 GB card. With model
     "Gemma3-4B", the same on the full Gemma3-4B text stack (34 layers,
     head_dim 256; its sliding layers' backward cuts the band at 1024
-    columns): the fused kernel at d 256, 34 launches a step."""
+    columns): the fused kernel at d 256, 34 launches a step. An fp32 config
+    (model "Llama-3-8B fp32": 32.1 GB of weights and 32.1 GB of gradients)
+    runs the fp32 kernels (launch names <name>_fp32) and its share is taken
+    against 165 TFLOP/s (fp32-accurate products) instead of 989. keep: the
+    trained weights go back into state for the next phase."""
     import numpy as np
     import torch
 
@@ -3147,6 +3180,8 @@ def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
 
     params, cfg = state.pop("params"), state.pop("cfg")
     lr, (b, s) = 1.0, shape
+    f32 = cfg.dtype == torch.float32
+    sfx, peak = ("_fp32", PEAK_F32_FLOPS) if f32 else ("", timing.PEAK_BF16_FLOPS)
     rng = np.random.RandomState(SEED)
     tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s + 1)),
                              device="cuda")
@@ -3164,8 +3199,10 @@ def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
         times.append(time.perf_counter() - t0)
         got = dict(_build.launches)
         counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
-        good = got.get("bwd_fused", 0) == cfg.n_layers \
-            and _wave_launches(got, 2 * cfg.n_layers, head_dim=cfg.head_dim)
+        good = got.get("bwd_fused" + sfx, 0) == cfg.n_layers \
+            and _wave_launches(got, 2 * cfg.n_layers, head_dim=cfg.head_dim, suffix=sfx)
+        if f32:  # no 16-bit launch
+            good &= not any(n in got for n in FP32_KERNELS + FP32_BWD)
         fwd = "bound" if cfg.head_dim % 128 else "flagged = repair"
         print(f"train step {step + 1}: loss {losses[-1]:.6f}, {times[-1] * 1e3:.1f} "
               f"ms, launches {got} (bwd_fused = {cfg.n_layers} layers, {fwd} = "
@@ -3189,13 +3226,17 @@ def train_phase(counts, ident, state, model="Llama-3-8B", shape=(4, 2048)):
           f"weights changed {changed}", flush=True)
     print(f"train: step {step_s * 1e3:.1f} ms (mean of steps 2-3; step 1 "
           f"{times[0] * 1e3:.1f} ms), {b * s / step_s:.1f} train tokens/s, peak "
-          f"memory {peak_gb:.2f} GB; model-FLOPs share {model_flops / step_s / timing.PEAK_BF16_FLOPS:.4f} "
-          f"= (6 N T + 12 hq d P) / step time / 989 TFLOP/s with N = {n_mat} "
+          f"memory {peak_gb:.2f} GB; model-FLOPs share {model_flops / step_s / peak:.4f} "
+          f"= (6 N T + 12 hq d P) / step time / {peak / 1e12:.0f} TFLOP/s with N = {n_mat} "
           f"weights in matmuls (layers + lm_head, not the embedding table), T = "
           f"{b * s} tokens, P = {pairs} visible pairs summed over the "
           f"{cfg.n_layers} layers, remat recompute not counted [{ident}]", flush=True)
+    ok &= peak_gb < 80
     for p in llama.param_tensors(params):
         p.grad = None
+        p.requires_grad_(not keep)  # kept weights serve next: no autograd graph
+    if keep:
+        state.update(params=params, cfg=cfg)
     del params, before
     torch.cuda.empty_cache()
     return ok
@@ -5581,17 +5622,22 @@ def pipeline_phase(counts, ident, shard):
 
 FP32_KERNELS = ("prefill", "flagged", "repair", "bound", "decode", "combine", "paged",
                 "varlen", "paged_prefill", "blockmask")
+# the backward's launches (csrc/flash_bwd_f32.cuh on fp32 inputs)
+FP32_BWD = ("bwd_fused", "bwd_dkv", "bwd_dq", "varlen_bwd_dkv", "varlen_bwd_dq")
 # fp32-accurate products on the card: TF32's dense 495 TFLOP/s over the three
 # passes of a split product (3xTF32), the rate an fp32 bound is held to
 PEAK_F32_FLOPS = 495e12 / 3
+# kernel 10 on fp32 x: three bf16 products at the dense bf16 rate, the least
+# any exact route on this card costs
+PEAK_W32_FLOPS = 989e12 / 3
 
 
-def _bound32(nbytes: float, flops: float):
+def _bound32(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """The least ms for fp32 work: bytes over 3.35 TB/s against operations
-    over 165 TFLOP/s, whichever is larger."""
+    over `peak` (165 TFLOP/s), whichever is larger."""
     from mfa_tpu_torch.utils.timing import PEAK_BYTES
 
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -5616,10 +5662,11 @@ def _err32(out, ref, what, lse=None, ref_lse=None, tol=1e-4):
     return float(d.max()), ok
 
 
-def _record32(records, name, tag, mx, ms, plain_ms, lib_ms, nbytes, flops):
+def _record32(records, name, tag, mx, ms, plain_ms, lib_ms, nbytes, flops,
+              peak=PEAK_F32_FLOPS):
     """Print a timing line; the first shape timed for a kernel is its row
     of the kernels line (the error is the largest over its shapes)."""
-    bound_ms, by = _bound32(nbytes, flops)
+    bound_ms, by = _bound32(nbytes, flops, peak)
     lib = (f"library_ms {lib_ms:.4f} (kernel / library {ms / lib_ms:.2f}x)"
            if lib_ms else "library_ms none")
     print(f"  {tag}: ms {ms:.4f} bound_ms {bound_ms:.6f} ({by}, share "
@@ -5979,11 +6026,15 @@ def minimal_fp32_phase(counts):
     heads: flash_attn_func causal (kernels 2 + 3) and with a softcap
     (kernel 1), flash_attn_varlen_func packed (7) and paged (8),
     flash_attn_with_kvcache contiguous (5 + the combine) and paged (6),
-    image_block_prefill (9). Only fp32 launch names may appear."""
+    image_block_prefill (9); then the gradients on fp32 tensors (kernels
+    11-14): BASELINE's first config through flash_attn_func_grad (fused),
+    the 8B heads' flash_attn_func_grad (fused) and flash_attention_bwd with
+    fused=False (12 + 13), flash_attn_varlen_func_grad on the packed
+    sequences (14). Only fp32 launch names may appear."""
     import torch
 
     import mfa_tpu_torch
-    from mfa_tpu_torch.kernels import _build, blockmask
+    from mfa_tpu_torch.kernels import _build, autodiff, backward, blockmask, prefill
     from mfa_tpu_torch.ref import oracle
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
@@ -6039,15 +6090,60 @@ def minimal_fp32_phase(counts):
     ids[:, 100:356] = 0
     outs.append(blockmask.image_block_prefill(rn(2, 8, 600, 256), rn(2, 4, 600, 256),
                                               rn(2, 4, 600, 256), ids, window_left=127))
+    # the gradients: BASELINE's first config, the 8B heads (fused, then the
+    # split through flash_attention_bwd), the packed sequences
+    qb, kb, vb = (rn(2, 128, 8, 64).requires_grad_() for _ in range(3))
+    ob = autodiff.flash_attn_func_grad(qb, kb, vb)
+    grads = list(torch.autograd.grad((ob * ob).sum(), (qb, kb, vb)))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, qv, kv, vv)]
+    og = autodiff.flash_attn_func_grad(*leaves[:3], causal=True)
+    ogv = autodiff.flash_attn_varlen_func_grad(*leaves[3:], cu, cu, 1100, 1100,
+                                               causal=True)
+    grads += torch.autograd.grad((og * outs[0]).sum() + (ogv * outs[2]).sum(), leaves)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ot, lse = prefill.prefill_attention(qt, kt, vt, causal=True, return_lse=True)
+    grads += backward.flash_attention_bwd(qt, kt, vt, ot, lse, ot, causal=True,
+                                          fused=False)
+    outs += [ob, og, ogv] + list(grads)
     torch.cuda.synchronize()
     got = dict(_build.launches)
     counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
     print(f"minimal fp32 launches {minimal}; library surface fp32 launches {got}",
           flush=True)
     ok &= all(o.dtype == torch.float32 and bool(torch.isfinite(o).all()) for o in outs)
-    ok &= all(got.get(f"{n}_fp32", 0) >= 1 for n in FP32_KERNELS)
-    ok &= not any(n in got for n in FP32_KERNELS)  # no bf16 launch, no plain route
+    ok &= all(got.get(f"{n}_fp32", 0) >= 1 for n in FP32_KERNELS + FP32_BWD)
+    # no bf16 launch, no plain route
+    ok &= not any(n in got for n in FP32_KERNELS + FP32_BWD)
     return ok
+
+
+def _serve_traffic(params, cfg, quant, graphed, counts, n_req=16, gen_tokens=32):
+    """The first engine's traffic (n_req prompts of 200-256 tokens from
+    numpy.random.RandomState(SEED), gen_tokens new tokens each) behind a
+    fresh Engine on KV pages of 64 rows (quant: their format), the decode
+    graphs on or off -> (engine, requests, stats, launches, free pages
+    before the run); the launches are added to counts."""
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.serve import graphs
+    from mfa_tpu_torch.serve.engine import Engine
+
+    graphs._ENABLED = graphed
+    try:
+        eng = Engine(params, cfg, num_pages=128, page_size=64, max_seqs=16,
+                     pages_per_seq=8, quant_dtype=quant, device="cuda")
+        free0 = eng.sched.allocator.free_pages
+        rng = np.random.RandomState(SEED)
+        reqs = [eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))), gen_tokens)
+                for n in rng.randint(200, 257, n_req)]
+        _build.reset_launches()
+        stats = eng.run()
+    finally:
+        graphs._ENABLED = True
+    got = dict(_build.launches)
+    counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+    return eng, reqs, stats, got, free0
 
 
 def engine_fp32_phase(counts, ident, state):
@@ -6060,13 +6156,9 @@ def engine_fp32_phase(counts, ident, state):
     in fp32, every decode step kernel 6 in fp32 (fp32 q on int8 pages).
     Then the chunked + prefix traffic on int8 KV (kernel 8 with fp32 q;
     the split route's combine at its long contexts)."""
-    import numpy as np
     import torch
 
-    from mfa_tpu_torch.kernels import _build
     from mfa_tpu_torch.models import llama, wquant
-    from mfa_tpu_torch.serve import graphs
-    from mfa_tpu_torch.serve.engine import Engine
 
     for key in ("params", "cfg"):
         state.pop(key, None)
@@ -6082,24 +6174,12 @@ def engine_fp32_phase(counts, ident, state):
           f"{nbytes / 1e9:.3f} GB from seed {SEED} ({time.perf_counter() - t0:.1f} s "
           f"to build)", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    n_req, gen_tokens, page = 16, 32, 64
+    n_req, gen_tokens = 16, 32
     tokens = {}
     for quant in (None, "int8"):
         for graphed in (True, False):
-            graphs._ENABLED = graphed
-            try:
-                eng = Engine(params, cfg, num_pages=128, page_size=page, max_seqs=16,
-                             pages_per_seq=8, quant_dtype=quant, device="cuda")
-                free0 = eng.sched.allocator.free_pages
-                rng = np.random.RandomState(SEED)
-                reqs = [eng.submit(list(rng.randint(0, cfg.vocab_size, int(n))),
-                                   gen_tokens) for n in rng.randint(200, 257, n_req)]
-                _build.reset_launches()
-                stats = eng.run()
-            finally:
-                graphs._ENABLED = True
-            got = dict(_build.launches)
-            counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+            eng, reqs, stats, got, free0 = _serve_traffic(params, cfg, quant, graphed,
+                                                          counts, n_req, gen_tokens)
             tokens[(quant, graphed)] = [list(r.generated) for r in reqs]
             good = all(len(r.generated) == gen_tokens for r in reqs)
             good &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
@@ -6127,9 +6207,7 @@ def engine_fp32_phase(counts, ident, state):
     ok &= all(same.values()) and peak_gb < 80
     state.update(params=params, cfg=cfg)
     ok &= chunked_engine_phase(counts, ident, state, "int8", "8B fp32")
-    state.pop("params", None)
-    state.pop("cfg", None)
-    del params
+    del params  # state keeps them for train_8b_fp32
     torch.cuda.empty_cache()
     print(f"engine fp32: fp32 launches so far {({f'{n}_fp32': counts.get(f'{n}_fp32', 0) for n in FP32_KERNELS})}",
           flush=True)
@@ -6200,6 +6278,460 @@ def cpu_vs_cuda_fp32_phase():
     print(f"cuda vs cpu fp32: largest relative L2 over every stage {worst:.3e}",
           flush=True)
     return ok
+
+
+def _grads_close32(got, ref, what):
+    """dq, dk and dv (None: skipped) each within torch.allclose(g, r,
+    rtol=1e-4, atol=1e-4 max |r|), fp32 and finite: fp32 products in
+    another order than the plain version's (and the fused launch's dQ
+    additions across blocks). Returns (largest max abs error, ok)."""
+    import torch
+
+    worst, ok = 0.0, True
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        if g is None:
+            continue
+        mx = float((g - r).abs().max())
+        atol = 1e-4 * float(r.abs().max())
+        good = g.dtype == torch.float32 and bool(torch.isfinite(g).all()) \
+            and torch.allclose(g, r, rtol=1e-4, atol=atol)
+        print(f"  {what} {name}: max_abs_err {mx:.3e} (allclose rtol 1e-4, atol "
+              f"{atol:.3e}) {'ok' if good else 'FAIL'}", flush=True)
+        worst, ok = max(worst, mx), ok and good
+    return worst, ok
+
+
+def _sdpa_bwd_ms(q, k, v, do, mask=None):
+    """SDPA's backward alone on [b, h, s, d] tensors: autograd.grad over the
+    retained graph of one call (is_causal, or a bool band mask;
+    enable_gqa). The library time of the backward rows."""
+    import torch
+    import torch.nn.functional as F
+
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    if mask is None:
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    else:
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, enable_gqa=True)
+    ms = _time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+                  iters=3)
+    del ql, kl, vl, ol
+    return ms
+
+
+def fp32_backward_kernels(records):
+    """Phase 2 in fp32, the backward (csrc/flash_bwd_f32.cuh): kernels 11, 12
+    and 13 on fp32 inputs against _bwd_plain in fp32 on the card (TF32
+    off): the 8B train shape (causal b4 hq32 hkv8 s2048 d128); d 64, 80 and
+    256 at b1 hq32 hkv8 s2048; Gemma3-4B's train shape with window (1023,
+    0); 4 sinks with window (2047, 0) at b1 s4096 (kernel 11 alone: the
+    split refuses sinks); ALiBi, kv_position_offset 1024 and softcap 50 at
+    d 256; group 7 (hq28 hkv4). Kernel 14 on 8 x 512 equal lengths (and
+    there bit for bit kernels 12 + 13 on the batched data) and on the
+    ragged pack, against _varlen_bwd_plain. Limit: torch.allclose(got, ref,
+    rtol=1e-4, atol=1e-4 max |ref|) on each of dQ, dK and dV. Timed at
+    the 8B and Gemma3 shapes and the two packs: bounds of 10 / 8 / 6 hq d
+    flops a visible pair (fused / dK,dV / dQ) at 165 TFLOP/s against the
+    4-byte rows at 3.35 TB/s; library: SDPA's backward on the fp32 tensors
+    (the pair 12 + 13 beside the same call; batched for the equal-length
+    pack; none for the ragged one)."""
+    import torch
+
+    from mfa_tpu_torch.kernels import backward, prefill, varlen
+
+    ok = torch.backends.cuda.matmul.allow_tf32 is False \
+        and torch.get_float32_matmul_precision() == "highest"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    #   tag, b, hq, hkv, sq, sk, d, (wl, wr), softcap, sinks, offset, alibi, timed
+    cases = (("8B train shape, causal", 4, 32, 8, 2048, 2048, 128, (-1, 0), 0.0, 0, 0,
+              False, True),
+             ("d 64, causal", 1, 32, 8, 2048, 2048, 64, (-1, 0), 0.0, 0, 0, False, False),
+             ("d 80, causal", 1, 32, 8, 2048, 2048, 80, (-1, 0), 0.0, 0, 0, False, False),
+             ("d 256, causal", 1, 32, 8, 2048, 2048, 256, (-1, 0), 0.0, 0, 0, False, False),
+             ("Gemma3-4B train shape, window (1023, 0)", 4, 8, 4, 2048, 2048, 256,
+              (1023, 0), 0.0, 0, 0, False, True),
+             ("sinks 4, window (2047, 0)", 1, 32, 8, 4096, 4096, 128, (2047, 0), 0.0, 4,
+              0, False, False),
+             ("ALiBi, causal, d 256", 1, 8, 4, 2048, 2048, 256, (-1, 0), 0.0, 0, 0, True,
+              False),
+             ("offset 1024, causal, d 256", 1, 8, 4, 2048, 3072, 256, (-1, 0), 0.0, 0,
+              1024, False, False),
+             ("softcap 50, causal, d 256", 1, 8, 4, 2048, 2048, 256, (-1, 0), 50.0, 0, 0,
+              False, False),
+             ("group 7: hq28 hkv4", 1, 28, 4, 2048, 2048, 128, (-1, 0), 0.0, 0, 0, False,
+              False))
+    for tag, b, hq, hkv, sq, sk, d, (wl, wr), cap, sinks, off, alibi, timed in cases:
+        scale = d ** -0.5
+        q, k, v, do = rn(b, hq, sq, d), rn(b, hkv, sk, d), rn(b, hkv, sk, d), rn(b, hq, sq, d)
+        slopes = _alibi_slopes(hq) if alibi else None
+        kw = dict(window_size=(wl, wr), logit_softcap=cap, sink_tokens=sinks,
+                  kv_position_offset=off, alibi_slopes=slopes)
+        o, lse = prefill.prefill_attention(q, k, v, return_lse=True, **kw)
+        print(f"fp32 backward {tag}: b={b} hq={hq} hkv={hkv} sq={sq} sk={sk} d={d}",
+              flush=True)
+        ref = backward._bwd_plain(q, k, v, o, lse, do, scale, wl, wr, cap, sinks, off,
+                                  slopes)
+        fused = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=True, **kw)
+        e_f, good = _grads_close32(fused, ref, "fused")
+        errs = {"bwd_fused": e_f}
+        if not sinks:
+            split = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+            errs["bwd_dq"], g1 = _grads_close32(split[:1] + (None, None), ref, "split dq")
+            errs["bwd_dkv"], g2 = _grads_close32((None,) + split[1:], ref, "split dkv")
+            good &= g1 and g2
+            del split
+        ok &= good
+        for n, e in errs.items():
+            rec = records[f"{n}_fp32"]
+            rec["max_abs_err"] = max(rec.get("max_abs_err") or 0.0, e)
+        if timed:
+            args = backward._dense_cuda_inputs(q, k, v, o, lse, do) + (scale, wl, wr, cap)
+            launch = {"bwd_fused": backward._launch_fused,
+                      "bwd_dkv": backward._launch_dkv, "bwd_dq": backward._launch_dq}
+            ms = {n: _time_ms(lambda fn=fn: fn(*args), iters=3) for n, fn in launch.items()}
+            plain_ms = _time_ms(lambda: backward._bwd_plain(
+                q, k, v, o, lse, do, scale, wl, wr, cap), iters=2)
+            lib_ms = _sdpa_bwd_ms(q, k, v, do, None if wl < 0 else _band_mask(sq, wl, "cuda"))
+            pairs = b * hq * _visible_pairs(sq, sk, off, wl, wr, sinks)
+            qb, kb, row_b = b * hq * sq * d * 4, b * hkv * sk * d * 4, b * hq * sq * 4
+            work = {"bwd_fused": (4 * qb + 4 * kb + row_b, 10 * pairs * d),
+                    "bwd_dkv": (2 * qb + 2 * kb + 2 * row_b + 2 * kb, 8 * pairs * d),
+                    "bwd_dq": (2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)}
+            for n in launch:
+                _record32(records, n, f"{n} {tag}", errs[n], ms[n], plain_ms, lib_ms,
+                          *work[n])
+            print(f"  pair 12 + 13 {ms['bwd_dkv'] + ms['bwd_dq']:.4f} ms; fused / SDPA "
+                  f"{ms['bwd_fused'] / lib_ms:.2f}x, pair / SDPA "
+                  f"{(ms['bwd_dkv'] + ms['bwd_dq']) / lib_ms:.2f}x", flush=True)
+            del args
+        del q, k, v, do, o, lse, ref, fused
+        torch.cuda.empty_cache()
+
+    # kernel 14: 8 x 512 equal lengths (bit for bit 12 + 13 batched) and the
+    # ragged pack, causal, at the 8B heads
+    hq, hkv, d = 32, 8, 128
+    scale = d ** -0.5
+    for tag, lens in (("8 x 512 equal lengths", [512] * 8),
+                      ("ragged pack", [200, 1100, 512, 300, 700, 384, 450, 450])):
+        n = sum(lens)
+        q, do, k, v = rn(n, hq, d), rn(n, hq, d), rn(n, hkv, d), rn(n, hkv, d)
+        cu = torch.tensor([0] + lens, device="cuda").cumsum(0).int()
+        o, lse = varlen.varlen_attention(q, k, v, cu, cu, max(lens), max(lens),
+                                         causal=True, return_lse=True)
+        print(f"fp32 varlen backward {tag}: lens {lens} hq={hq} hkv={hkv} d={d}",
+              flush=True)
+        got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu, cu, causal=True)
+        ref = backward._varlen_bwd_plain(q, k, v, o, lse, do, cu, cu, scale, -1, 0, 0.0)
+        e_q, g1 = _grads_close32(got[:1] + (None, None), ref, "varlen dq")
+        e_kv, g2 = _grads_close32((None,) + got[1:], ref, "varlen dkv")
+        ok &= g1 and g2
+        lib_ms = None
+        if len(set(lens)) == 1:
+            s = lens[0]
+
+            def batched(t):  # [n, h, d] -> [8, h, s, d]
+                return t.view(len(lens), s, t.shape[1], d).transpose(1, 2).contiguous()
+
+            dense = backward.flash_attention_bwd(
+                batched(q), batched(k), batched(v), batched(o),
+                lse.view(hq, len(lens), s).transpose(0, 1), batched(do), causal=True,
+                fused=False)
+            same = all(torch.equal(batched(a), b_) for a, b_ in zip(got, dense))
+            print(f"  kernel 14 bit for bit kernels 12 + 13 on the batched data: {same}",
+                  flush=True)
+            ok &= same
+            lib_ms = _sdpa_bwd_ms(batched(q), batched(k), batched(v), batched(do))
+            del dense
+        args = backward._varlen_cuda_inputs(q, k, v, o, lse, do, cu, cu)
+        tail = (cu, cu, max(lens), scale, -1, 0, 0.0)
+        ms_kv = _time_ms(lambda: backward._launch_varlen_dkv(*args, *tail), iters=3)
+        ms_q = _time_ms(lambda: backward._launch_varlen_dq(*args, *tail), iters=3)
+        plain_ms = _time_ms(lambda: backward._varlen_bwd_plain(
+            q, k, v, o, lse, do, cu, cu, scale, -1, 0, 0.0), iters=2)
+        pairs = hq * sum(_visible_pairs(x, x, 0, -1, 0) for x in lens)
+        qb, kb, row_b = n * hq * d * 4, n * hkv * d * 4, n * hq * 4
+        _record32(records, "varlen_bwd_dkv", f"varlen_bwd_dkv {tag}", e_kv, ms_kv,
+                  plain_ms, lib_ms, 2 * qb + 2 * kb + 2 * row_b + 2 * kb, 8 * pairs * d)
+        _record32(records, "varlen_bwd_dq", f"varlen_bwd_dq {tag}", e_q, ms_q, plain_ms,
+                  lib_ms, 2 * qb + 2 * kb + 2 * row_b + qb, 6 * pairs * d)
+        del q, k, v, do, o, lse, got, ref, args
+        torch.cuda.empty_cache()
+    return ok
+
+
+def fp32_wmatmul_kernels(records):
+    """Phase 2 in fp32, kernel 10 on fp32 x (csrc/wmatmul.cu: three bf16
+    parts of x against one conversion of W, fp32 out) against
+    _int8_matmul_plain in fp32 (TF32 off): m 16 at the 8B projections wq,
+    wk, w_gate, w_down and the lm_head, m 3601 at w_gate; its expert
+    launch at Mixtral-8x7B's dense decode (m 16, 8 experts: gate / up over
+    shared rows, down over each expert's) and grouped wave (7202
+    expert-sorted rows, one expert empty, one of a single row) shapes.
+    Limit: max |a - r| <= 1e-5 max |r|. Bounds: the int8 weight and 4-byte
+    x and out at 3.35 TB/s against 2 m K N operations at 330 TFLOP/s
+    (three bf16 passes at 989); library: torch.matmul on the
+    fp32-dequantized weight (one an expert over host-known bounds for the
+    grouped form)."""
+    import torch
+
+    from mfa_tpu_torch.kernels import wmatmul
+    from mfa_tpu_torch.models.wquant import dequantize_weight, quantize_weight
+
+    ok = torch.backends.cuda.matmul.allow_tf32 is False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+
+    def check(name, tag, out, ref):
+        mx = float((out - ref).abs().max())
+        lim = 1e-5 * float(ref.abs().max())
+        good = out.dtype == torch.float32 and bool(torch.isfinite(out).all()) and mx <= lim
+        print(f"{name} {tag}: max_abs_err {mx:.3e} (<= {lim:.3e}) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        return mx, good
+
+    for tag, m, K, N in (("wq", 16, 4096, 4096), ("wk", 16, 4096, 1024),
+                         ("w_gate", 16, 4096, 14336), ("w_down", 16, 14336, 4096),
+                         ("lm_head", 16, 4096, 128256), ("w_gate", 3601, 4096, 14336)):
+        x = torch.randn(m, K, generator=gen, device="cuda")
+        w = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5)
+        splits, per = wmatmul.split_k(m, K, N, f32=True)
+        tag = (f"{tag} m={m} K={K} N={N} fp32 x, {wmatmul.block_m(m, True)} rows a "
+               f"block, {splits} K split(s)")
+        mx, good = check("wmatmul_fp32", tag, wmatmul.int8_matmul(x, w.qw, w.scale),
+                         wmatmul._int8_matmul_plain(x, w.qw, w.scale, torch.float32))
+        ok &= good
+        ms = _time_ms(lambda: wmatmul.int8_matmul(x, w.qw, w.scale))
+        plain_ms = _time_ms(lambda: wmatmul._int8_matmul_plain(x, w.qw, w.scale,
+                                                               torch.float32), iters=5)
+        wd = dequantize_weight(w, torch.float32)
+        lib_ms = _time_ms(lambda: torch.matmul(x, wd))
+        _record32(records, "wmatmul", tag, mx, ms, plain_ms, lib_ms,
+                  K * N + 4 * N + 4 * m * K + 4 * m * N, 2 * m * K * N, PEAK_W32_FLOPS)
+        del x, w, wd
+    torch.cuda.empty_cache()
+
+    def offsets(sizes):
+        return torch.tensor([0, *torch.tensor(sizes).cumsum(0).tolist()],
+                            dtype=torch.int32, device="cuda")
+
+    sizes = (1500, 1100, 0, 1303, 1, 1298, 1000, 1000)
+    for K, N, per_expert in ((4096, 14336, False), (14336, 4096, True)):
+        E = 8
+        w = quantize_weight(torch.randn(E, K, N, generator=gen, device="cuda") * K ** -0.5)
+        wd = dequantize_weight(w, torch.float32)
+        proj = "gate/up" if K == 4096 else "down"
+        for form in ("dense", "grouped"):
+            if form == "dense":
+                x = torch.randn(*((E,) if per_expert else ()), 16, K, generator=gen,
+                                device="cuda")
+                offs, rows = None, 16
+            else:
+                x = torch.randn(sum(sizes), K, generator=gen, device="cuda")
+                offs, rows = offsets(sizes), sum(sizes)
+            mr = None if offs is None else max(sizes)
+            tag = f"Mixtral {form} {proj}: E={E} rows={rows} K={K} N={N} fp32 x"
+            mx, good = check("wmatmul_bank_fp32", tag, wmatmul.int8_bank_matmul(
+                x, w.qw, w.scale, offs=offs, max_rows=mr),
+                wmatmul._bank_plain(x, w.qw, w.scale, offs, torch.float32))
+            ok &= good
+            ms = _time_ms(lambda: wmatmul.int8_bank_matmul(x, w.qw, w.scale, offs=offs,
+                                                           max_rows=mr))
+            plain_ms = _time_ms(lambda: wmatmul._bank_plain(x, w.qw, w.scale, offs,
+                                                            torch.float32), iters=3)
+            if offs is None:
+                lib_ms = _time_ms(lambda: torch.matmul(x, wd))
+                flops = 2 * E * rows * K * N
+                nbytes = E * K * N + 4 * E * N + x.numel() * 4 + E * rows * N * 4
+            else:
+                b = offs.tolist()
+                lib_ms = _time_ms(lambda: [torch.matmul(x[b[e]:b[e + 1]], wd[e])
+                                           for e in range(E)])
+                flops = 2 * rows * K * N
+                nbytes = E * K * N + 4 * E * N + rows * (K + N) * 4 + 4 * (E + 1)
+            _record32(records, "wmatmul_bank", tag, mx, ms, plain_ms, lib_ms, nbytes, flops,
+                      PEAK_W32_FLOPS)
+            del x
+        del w, wd
+        torch.cuda.empty_cache()
+    return ok
+
+
+def engine_fp32_int8w_phase(counts, ident, state):
+    """Main path: Llama-3-8B in fp32 on int8 weights. The fp32 weights the
+    train phase left (the fp32 engine's, trained three steps) quantized with
+    wquant.quantize_params(include_embed=False): every projection and the
+    lm_head int8 per output channel, the embedding kept fp32, so the
+    activations stay fp32 and every projection runs kernel 10 on fp32 x
+    (three bf16 parts, launch name wmatmul_fp32); the fp32 weights freed
+    first. The first engine's traffic (16 prompts of 200-256 tokens, 32 new)
+    on int8 KV pages, graphed and with the graphs off (the same tokens):
+    every wave kernels 2 + 3 in fp32, every decode step kernel 6 with fp32
+    q. Weight bytes, peak memory, prefill and decode rates."""
+    import torch
+
+    from mfa_tpu_torch.models import wquant
+
+    params, cfg = state.pop("params"), state.pop("cfg")
+    ok = cfg.dtype == torch.float32
+    qparams = wquant.quantize_params(params, include_embed=False)
+    del params
+    torch.cuda.empty_cache()
+    nbytes = wquant.params_nbytes(qparams)
+    emb = qparams["embed"].numel() * 4
+    print(f"engine fp32 int8 weights: Llama-3-8B width, {cfg.n_layers} layers, "
+          f"{nbytes / 1e9:.3f} GB of weights ({(nbytes - emb) / 1e9:.3f} GB int8 "
+          f"projections, lm_head, scales and norms, {emb / 1e9:.3f} GB fp32 embedding)",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    n_req, gen_tokens, L = 16, 32, cfg.n_layers
+    tokens = {}
+    for graphed in (True, False):
+        eng, reqs, stats, got, free0 = _serve_traffic(qparams, cfg, "int8", graphed, counts,
+                                                      n_req, gen_tokens)
+        tokens[graphed] = [list(r.generated) for r in reqs]
+        passes = stats.prefill_batches + stats.steps
+        good = all(len(r.generated) == gen_tokens for r in reqs)
+        good &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+        good &= eng.sched.allocator.free_pages == free0
+        good &= got.get("wmatmul_fp32", 0) == (7 * L + 1) * passes
+        good &= _wave_launches(got, L * stats.prefill_batches, suffix="_fp32")
+        good &= got.get("paged_fp32", 0) == L * stats.steps
+        good &= not any(n in got for n in FP32_KERNELS + ("wmatmul",))
+        good &= (stats.captures >= 1) == graphed
+        step_tokens = stats.decode_tokens - n_req
+        print(f"engine fp32 int8 weights (int8 KV, graphs {'on' if graphed else 'off'}) "
+              f"launches {got}: wmatmul_fp32 = (7 x {L} + lm_head) x ({stats.prefill_batches}"
+              f" waves + {stats.steps} steps); prefill "
+              f"{stats.prefill_tokens / stats.prefill_s:.1f} tok/s ({stats.prefill_tokens} "
+              f"tokens in {stats.prefill_s:.3f} s), decode {_decode_rates(stats, step_tokens)} "
+              f"{'ok' if good else 'FAIL'} [{ident}]", flush=True)
+        ok &= good
+        del eng
+        torch.cuda.empty_cache()
+    same = tokens[True] == tokens[False]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"engine fp32 int8 weights: graphed tokens equal graphs-off tokens {same}; "
+          f"weights {nbytes / 1e9:.3f} GB, peak memory {peak_gb:.2f} GB (< 80) [{ident}]",
+          flush=True)
+    ok &= same and peak_gb < 80
+    del qparams
+    torch.cuda.empty_cache()
+    return ok
+
+
+def engine_mixtral_fp32_phase(counts, ident, state):
+    """Main path: Mixtral-8x7B at full width on int8 weights and expert banks
+    with fp32 activations, its depth cut to 4 layers (the fp32 activations,
+    not the weights, are what this part adds; full depth runs in
+    engine_mixtral_8x7b): init_params(quantize="int8") on the fp32 config,
+    then the embedding dequantized to fp32, so every projection runs kernel
+    10 on fp32 x and every MoE layer its expert launch on fp32 x
+    (wmatmul_bank_fp32: the dense form in decode steps, the grouped form in
+    waves). The first engine's traffic on int8 KV, graphed and with the
+    graphs off: the same tokens."""
+    import torch
+
+    from mfa_tpu_torch.models import llama, wquant
+
+    for key in ("params", "cfg"):
+        state.pop(key, None)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LlamaConfig.mixtral_8x7b(), n_layers=4,
+                              dtype=torch.float32)
+    params = llama.init_params(cfg, seed=SEED, device="cuda", quantize="int8")
+    params["embed"] = wquant.dequantize_weight(params["embed"], torch.float32)
+    torch.cuda.synchronize()
+    print(f"engine Mixtral fp32: {cfg.n_layers} of 32 layers at full width, int8 "
+          f"weights and banks, fp32 embedding: {wquant.params_nbytes(params) / 1e9:.3f} GB",
+          flush=True)
+    ok, tokens, L = True, {}, cfg.n_layers
+    for graphed in (True, False):
+        eng, reqs, stats, got, _ = _serve_traffic(params, cfg, "int8", graphed, counts)
+        tokens[graphed] = [list(r.generated) for r in reqs]
+        passes = stats.prefill_batches + stats.steps
+        good = all(len(r.generated) == 32 for r in reqs)
+        good &= all(all(math.isfinite(x) for x in r.logprobs) for r in reqs)
+        good &= got.get("wmatmul_bank_fp32", 0) == 3 * L * passes
+        good &= got.get("wmatmul_fp32", 0) == (4 * L + 1) * passes
+        good &= not any(n in got for n in ("wmatmul", "wmatmul_bank"))
+        print(f"engine Mixtral fp32 (graphs {'on' if graphed else 'off'}) launches {got}: "
+              f"wmatmul_bank_fp32 = 3 x {L} x {passes} passes; prefill "
+              f"{stats.prefill_tokens / stats.prefill_s:.1f} tok/s, decode "
+              f"{_decode_rates(stats, stats.decode_tokens - 16)} {'ok' if good else 'FAIL'} "
+              f"[{ident}]", flush=True)
+        ok &= good
+        del eng
+        torch.cuda.empty_cache()
+    same = tokens[True] == tokens[False]
+    print(f"engine Mixtral fp32: graphed tokens equal graphs-off tokens {same}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return ok and same
+
+
+def cpu_vs_cuda_fp32_train_phase():
+    """Phase 4, the fp32 backward and kernel 10 on fp32 x: 2 layers of the
+    fp32 8B at full width, the same weights on the card and on the CPU
+    (plain versions) through params_from_numpy (a numpy tree of mfa_tpu's
+    layout, layers stacked): the int8-weight forward (quantize_params with
+    the embedding kept fp32: kernel 10 on fp32 x against the plain
+    product) on 1 x 257 tokens, every logit row within relative L2 1e-4;
+    then one SGD step on the same tokens (kernels 2 + 3 and 11 in fp32):
+    the loss within relative 1e-5 and every gradient tensor within
+    relative L2 1e-4 (fp32 end to end; the devices differ in the order of
+    their sums)."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama, wquant
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype=torch.float32)
+    src = llama.init_params(cfg, seed=SEED + 9, device="cpu")
+    tree = {k: src[k].numpy() for k in ("embed", "final_norm", "lm_head")}
+    tree["layers"] = {k: np.stack([lp[k].numpy() for lp in src["layers"]])
+                      for k in src["layers"][0]}
+    del src
+    p = {dev: llama.params_from_numpy(tree, cfg, dev) for dev in ("cuda", "cpu")}
+    del tree
+    toks = np.random.RandomState(SEED + 9).randint(0, cfg.vocab_size, (1, 257))
+    logits, res = {}, {}
+    for dev in ("cuda", "cpu"):
+        _build.reset_launches()
+        with torch.no_grad():
+            logits[dev] = llama.forward(wquant.quantize_params(p[dev], include_embed=False),
+                                        torch.as_tensor(toks, device=dev), cfg).float().cpu()
+        fwd = dict(_build.launches)
+        _build.reset_launches()
+        params, loss = llama.train_step(p[dev], toks, cfg, lr=1.0)
+        res[dev] = (float(loss), [t.grad.cpu() for t in llama.param_tensors(params)],
+                    fwd, dict(_build.launches))
+        for t in llama.param_tensors(params):
+            t.grad = None
+    a, r = logits["cuda"][0], logits["cpu"][0]
+    rel = max(_rel_l2(a[i], r[i]) for i in range(a.shape[0]))
+    ok = bool(torch.isfinite(a).all()) and rel < 1e-4
+    ok &= res["cuda"][2].get("wmatmul_fp32", 0) == 7 * cfg.n_layers + 1
+    print(f"cuda vs cpu fp32, int8-weight forward logits [{tuple(a.shape)}] (launches "
+          f"{res['cuda'][2]}): largest row relative L2 {rel:.3e} (< 1e-4), argmax agree "
+          f"{bool(torch.equal(a.argmax(-1), r.argmax(-1)))} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    lc, lp = res["cuda"][0], res["cpu"][0]
+    worst = max(_rel_l2(g, h) for g, h in zip(res["cuda"][1], res["cpu"][1]))
+    good = abs(lc - lp) <= 1e-5 * abs(lp) and worst <= 1e-4
+    good &= res["cuda"][3].get("bwd_fused_fp32", 0) == cfg.n_layers
+    print(f"cuda vs cpu fp32 train_step (2 layers at full width, 1 x 257 tokens, SGD; "
+          f"launches {res['cuda'][3]}): loss {lc:.7f} vs {lp:.7f} (relative "
+          f"{abs(lc - lp) / abs(lp):.2e} <= 1e-5); largest gradient relative L2 over "
+          f"{len(res['cpu'][1])} tensors {worst:.3e} (<= 1e-4) {'ok' if good else 'FAIL'}",
+          flush=True)
+    del p, params
+    torch.cuda.empty_cache()
+    return ok and good
 
 
 def main() -> int:
@@ -6297,6 +6829,22 @@ def main() -> int:
                                "mfa_tpu/kernels/paged_prefill.py:50"),
         "blockmask_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
                            "mfa_tpu/kernels/blockmask.py:54"),
+        # fp32 inputs of the backward (the fp32 tile) and of kernel 10 (x
+        # split into three bf16 parts)
+        "bwd_fused_fp32": ("mfa_tpu_torch/csrc/flash_bwd_f32.cuh",
+                           "mfa_tpu/kernels/backward.py:163"),
+        "bwd_dkv_fp32": ("mfa_tpu_torch/csrc/flash_bwd_f32.cuh",
+                         "mfa_tpu/kernels/backward.py:413"),
+        "bwd_dq_fp32": ("mfa_tpu_torch/csrc/flash_bwd_f32.cuh",
+                        "mfa_tpu/kernels/backward.py:513"),
+        "varlen_bwd_dkv_fp32": ("mfa_tpu_torch/csrc/flash_bwd_f32.cuh",
+                                "mfa_tpu/kernels/backward.py:1060"),
+        "varlen_bwd_dq_fp32": ("mfa_tpu_torch/csrc/flash_bwd_f32.cuh",
+                               "mfa_tpu/kernels/backward.py:1142"),
+        "wmatmul_fp32": ("mfa_tpu_torch/csrc/wmatmul.cu",
+                         "mfa_tpu/kernels/wmatmul.py:34"),
+        "wmatmul_bank_fp32": ("mfa_tpu_torch/csrc/wmatmul.cu",
+                              "mfa_tpu/kernels/wmatmul.py:34"),
     }
     records = {n: {"name": n, "route": "cuda", "source": s, "replaces": r}
                for n, (s, r) in sources.items()}
@@ -6309,6 +6857,8 @@ def main() -> int:
                  ("head_dim_kernels", head_dim_kernels),
                  ("decode_groups", decode_groups),
                  ("fp32_kernels", lambda: fp32_kernels(records)),
+                 ("fp32_backward_kernels", lambda: fp32_backward_kernels(records)),
+                 ("fp32_wmatmul_kernels", lambda: fp32_wmatmul_kernels(records)),
                  ("library_surface", lambda: library_surface(counts)),
                  ("minimal_fp32", lambda: minimal_fp32_phase(counts)),
                  ("engine_8b", lambda: engine_phase(counts, ident, state)),
@@ -6363,6 +6913,12 @@ def main() -> int:
                  ("train_danube_1_8b",
                   lambda: train_phase(counts, ident, state, "H2O-Danube-1.8B")),
                  ("engine_8b_fp32", lambda: engine_fp32_phase(counts, ident, state)),
+                 ("train_8b_fp32",
+                  lambda: train_phase(counts, ident, state, "Llama-3-8B fp32", keep=True)),
+                 ("engine_8b_fp32_int8w",
+                  lambda: engine_fp32_int8w_phase(counts, ident, state)),
+                 ("engine_mixtral_fp32",
+                  lambda: engine_mixtral_fp32_phase(counts, ident, state)),
                  ("cuda_vs_cpu", cpu_vs_cuda_phase),
                  ("cuda_vs_cpu_gemma3", cpu_vs_cuda_gemma3_phase),
                  ("cuda_vs_cpu_int8w", cpu_vs_cuda_int8w_phase),
@@ -6371,6 +6927,7 @@ def main() -> int:
                  ("cuda_vs_cpu_sinks", cpu_vs_cuda_sinks_phase),
                  ("cuda_vs_cpu_danube", cpu_vs_cuda_danube_phase),
                  ("cuda_vs_cpu_fp32", cpu_vs_cuda_fp32_phase),
+                 ("cuda_vs_cpu_fp32_train", cpu_vs_cuda_fp32_train_phase),
                  ("instruments", lambda: instruments_phase(ident)))
     try:
         for name, fn in phase_fns:

@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dQ, dK, dV from the
-// forward's saved LSE. Five launches, all on the warp-specialised wgmma +
-// TMA kernels of flash_bwd_sm90.cuh:
+// forward's saved LSE. Five launches, on bf16 / fp16 inputs all on the
+// warp-specialised wgmma + TMA kernels of flash_bwd_sm90.cuh (fp32: below):
 //
 //  * mfa_bwd_fused (kernel 11) replaces
 //    mfa_tpu/kernels/backward.py:_fused_bwd_kernel (fb90::bwd_kernel<T, D,
@@ -40,15 +40,22 @@
 // the dense launches; sinks: the fused launch only (mfa_tpu's split refuses
 // them).
 //
+// fp32 inputs (dtype MFA_F32) run every launch on the SIMT tile of
+// flash_bwd_f32.cuh (bf32::bwd_kernel<D, MODE, PACKED>: FUSED, DKV, DQ), the
+// same function and options in fp32 products.
+//
 // Bound: tensor-core operations, 10 * hq * d flops per visible (row,
 // column) pair for the fused launch (8 for dK/dV, 6 for dQ); at training
 // shapes it is far from the 295 flops-per-byte line.
-#include "flash_bwd_sm90.cuh"
+#include "flash_bwd_f32.cuh"
 
 // d: the rows' width (a multiple of 8 up to 256), run at the instantiated
-// D kd (Args::dw = d)
-#define MFA_BWD_DISPATCH(CALL)                                         \
+// D kd (Args::dw = d); CALL(T, D) launches a 16-bit dtype, CALL32(D) fp32
+#define MFA_BWD_DISPATCH(CALL, CALL32)                                 \
   if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;                     \
+  if (dtype == MFA_F32 && kd == 64) return CALL32(64);                 \
+  if (dtype == MFA_F32 && kd == 128) return CALL32(128);               \
+  if (dtype == MFA_F32 && kd == 256) return CALL32(256);               \
   if (dtype == MFA_BF16 && kd == 64) return CALL(__nv_bfloat16, 64);   \
   if (dtype == MFA_BF16 && kd == 128) return CALL(__nv_bfloat16, 128); \
   if (dtype == MFA_BF16 && kd == 256) return CALL(__nv_bfloat16, 256); \
@@ -80,7 +87,7 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dO, con
                 const float* slopes, void* stream) {
   if (batch == 0 || sk == 0) return 0;
   if (sq == 0) {  // no row sees a key: dK = dV = 0
-    const size_t bytes = (size_t)batch * hkv * sk * d * 2;
+    const size_t bytes = (size_t)batch * hkv * sk * d * (dtype == MFA_F32 ? 4 : 2);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (int err = (int)cudaMemsetAsync(dk, 0, bytes, st)) return err;
     return (int)cudaMemsetAsync(dv, 0, bytes, st);
@@ -92,8 +99,14 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dO, con
   (dq_ws != nullptr                                                                           \
        ? fb90::launch<T, D, true>(q, k, v, dO, lse, delta, dq_ws, dk, dv, batch, a, st)      \
        : fb90::launch<T, D, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, batch, a, st))
-  MFA_BWD_DISPATCH(MFA_CALL);
+#define MFA_CALL32(D)                                                                         \
+  (dq_ws != nullptr ? bf32::launch<D, bf32::FUSED, false>(q, k, v, dO, lse, delta, dq_ws, dk, \
+                                                          dv, batch, sk, a, st)               \
+                    : bf32::launch<D, bf32::DKV, false>(q, k, v, dO, lse, delta, nullptr, dk, \
+                                                        dv, batch, sk, a, st))
+  MFA_BWD_DISPATCH(MFA_CALL, MFA_CALL32);
 #undef MFA_CALL
+#undef MFA_CALL32
 }
 
 }  // namespace
@@ -134,8 +147,12 @@ extern "C" int mfa_bwd_dq(const void* q, const void* k, const void* v, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MFA_CALL(T, D) \
   fb90::launch_dq<T, D, false>(q, k, v, dO, lse, delta, dq, batch, 0, 0, a, st)
-  MFA_BWD_DISPATCH(MFA_CALL);
+#define MFA_CALL32(D)                                                                     \
+  bf32::launch<D, bf32::DQ, false>(q, k, v, dO, lse, delta, static_cast<float*>(dq), nullptr, \
+                                   nullptr, batch, sq, a, st)
+  MFA_BWD_DISPATCH(MFA_CALL, MFA_CALL32);
 #undef MFA_CALL
+#undef MFA_CALL32
 }
 
 // cu_q/cu_k: [batch + 1] int32 on the device; max_sk bounds every sequence's
@@ -157,8 +174,12 @@ extern "C" int mfa_varlen_bwd_dkv(const void* q, const void* k, const void* v, c
 #define MFA_CALL(T, D)                                                                    \
   fb90::launch_packed_dkv<T, D>(q, k, v, dO, lse, delta, dk, dv, batch, total_k, max_sk, a, \
                                 st)
-  MFA_BWD_DISPATCH(MFA_CALL);
+#define MFA_CALL32(D)                                                                   \
+  bf32::launch<D, bf32::DKV, true>(q, k, v, dO, lse, delta, nullptr, dk, dv, batch, max_sk, \
+                                   a, st)
+  MFA_BWD_DISPATCH(MFA_CALL, MFA_CALL32);
 #undef MFA_CALL
+#undef MFA_CALL32
 }
 
 // dq: [total_q, hq, d], every row of every sequence stored; max_sq bounds
@@ -178,8 +199,12 @@ extern "C" int mfa_varlen_bwd_dq(const void* q, const void* k, const void* v, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MFA_CALL(T, D) \
   fb90::launch_dq<T, D, true>(q, k, v, dO, lse, delta, dq, batch, total_k, max_sq, a, st)
-  MFA_BWD_DISPATCH(MFA_CALL);
+#define MFA_CALL32(D)                                                                     \
+  bf32::launch<D, bf32::DQ, true>(q, k, v, dO, lse, delta, static_cast<float*>(dq), nullptr, \
+                                  nullptr, batch, max_sq, a, st)
+  MFA_BWD_DISPATCH(MFA_CALL, MFA_CALL32);
 #undef MFA_CALL
+#undef MFA_CALL32
 }
 
 // The product of the fused kernel's dQ step alone, with both operands

@@ -207,6 +207,25 @@ __device__ __forceinline__ bool sees(int k0, int q0, const Args& a) {
   return true;
 }
 
+// The q tiles [first, last] of bm rows that see a key of [kv0, kv0 + bn)
+// (last < first: none). The transpose of the forward's band: row r sees
+// key c when r + kv_off - wl <= c <= r + kv_off + wr, or c < sinks: a block
+// holding sink keys walks every q tile from `first` on. Shared with the
+// fp32 tile (flash_bwd_f32.cuh).
+struct QTiles {
+  int first, last;
+};
+__device__ __forceinline__ QTiles q_tiles(int kv0, int bn, int bm, const Args& a) {
+  const int kv_hi = min(kv0 + bn, a.sk) - 1;
+  QTiles t{0, (a.sq + bm - 1) / bm - 1};
+  if (a.wr >= 0) t.first = max(0, kv0 - a.kv_off - a.wr) / bm;
+  if (a.wl >= 0 && kv0 >= a.sinks) {
+    const int r_last = kv_hi + a.wl - a.kv_off;  // the last row that sees kv_hi
+    t.last = r_last < 0 ? -1 : min(t.last, r_last / bm);
+  }
+  return t;
+}
+
 // P^T and dS^T in place of S^T and dP^T (the dK/dV kernel): the thread's
 // keys r0, r0 + 8 are rows of the accumulators, and column c is q row q0 +
 // c at position p_q0 + c, with its log2 LSE and delta in l2s, dls. ALIBI is
@@ -272,17 +291,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     a.sq = a.cu_q[b + 1] - q_row0;
   }
   const int group = a.hq / a.hkv, h0 = hk * group, off = a.kv_off;
-  // q tiles that see a key of this block (the transpose of the forward's
-  // band: row r sees key c when r + off - wl <= c <= r + off + wr, or c <
-  // sinks: a block holding sink keys walks every q tile from q_first on)
-  const int kv_hi = min(kv0 + BN, a.sk) - 1;
-  int q_first = 0, q_last = (a.sq + BM - 1) / BM - 1;
-  if (a.wr >= 0) q_first = max(0, kv0 - off - a.wr) / BM;
-  if (a.wl >= 0 && kv0 >= a.sinks) {
-    const int r_last = kv_hi + a.wl - off;  // the last row that sees kv_hi
-    q_last = r_last < 0 ? -1 : min(q_last, r_last / BM);
-  }
-  const int per_head = max(0, q_last - q_first + 1);
+  const QTiles qt = q_tiles(kv0, BN, BM, a);
+  const int q_first = qt.first;
+  const int per_head = max(0, qt.last - q_first + 1);
   const int n_tiles = group * per_head;
 
   extern __shared__ __align__(16) unsigned char fb90_smem[];

@@ -200,6 +200,16 @@ __device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, uint32
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// Add `bytes` contiguous fp32 values of shared memory into global memory
+// (both 16-byte aligned, bytes a multiple of 16; the adds done in L2), as
+// one bulk async group member. The source must be made visible to the
+// async proxy first.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

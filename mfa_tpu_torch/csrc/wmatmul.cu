@@ -1,8 +1,9 @@
-// w8a16 matmul for Hopper (sm_90a): out[m, N] = (x[m, K] @ qw[K, N]) * scale[N],
-// x bf16 or fp16, qw int8 (per-output-channel symmetric weights,
-// mfa_tpu_torch/models/wquant.py), scale fp32, fp32 accumulation, the
-// scale applied to the accumulator and the result rounded once
-// (mfa_tpu/kernels/wmatmul.py:49).
+// int8-weight matmul for Hopper (sm_90a): out[m, N] = (x[m, K] @ qw[K, N]) *
+// scale[N], x bf16, fp16 or fp32, qw int8 (per-output-channel symmetric
+// weights, mfa_tpu_torch/models/wquant.py), scale fp32, fp32 accumulation,
+// the scale applied to the accumulator and the result rounded once
+// (mfa_tpu/kernels/wmatmul.py:49; fp32 x: out fp32, as mfa_tpu's kernel
+// casts W to x's dtype and contracts in it).
 //
 // Replaces mfa_tpu/kernels/wmatmul.py:_kernel (int8_matmul). In JAX that
 // kernel is a baseline beside XLA's fused convert; eager PyTorch fuses
@@ -52,6 +53,23 @@
 // are multiples of 16 bytes, and a 4-column vector of the output lies
 // wholly inside or outside the matrix).
 //
+// fp32 x (NX = 3): every int8 weight is exact in bf16, and an fp32 x splits
+// exactly into three bf16 parts, x = hi + mid + lo (hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid), each difference exact in fp32:
+// 8 + 8 + 8 bits cover fp32's 24 for normal values; a part that falls
+// below bf16's subnormals loses bits, which only |x| < ~2^-110 reach). A
+// pre-pass kernel (split3_kernel) writes the parts to a bf16 scratch [3,
+// rows, K]; the matmul loads the three x tiles of a K step beside the one
+// W tile and runs the three products against the same converted W^T
+// registers, so W's bytes and conversion are paid once. The three
+// products of a K step go into a fresh fp32 accumulator (lo first, with
+// scale-d 0, then mid, then hi) that is added to the block's sum by FADD:
+// the tensor core truncates its internal sums, and a K step's partial is
+// ~sqrt(K / 64) times smaller than the whole, so the truncation stays
+// near fp32's own rounding of the sum. The step's conversion of the next W tile overlaps
+// its products; its wait retires them before the add. Rows a block <= 128
+// (the step accumulator doubles the registers), one block an SM.
+//
 // The expert-bank launch (mfa_int8_bank_matmul: the int8 MoE banks of
 // mfa_tpu/models/llama.py:_moe_dense_int8 and ragged_qmm, which are XLA
 // einsums and lax.ragged_dot there, no Pallas kernel) is the same body with
@@ -81,21 +99,26 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 // 1024-byte aligned), then the barriers (full[STAGES], empty[STAGES]). The
 // epilogue's staging tile [BMX][BN] fp32 (rows ST_STRIDE bytes apart) reuses
 // the ring.
-template <int BMX>
+// NX: x tiles a K step (3: the bf16 parts of fp32 x).
+template <int BMX, int NX = 1>
 struct Plan {
-  static constexpr int MIN_BLOCKS = BMX <= 32 ? 2 : 1;
-  static constexpr int STAGES = BMX == 256 ? 5 : BMX == 128 ? 8 : BMX == 64 ? 12 : BMX == 32 ? 8 : 10;
-  static constexpr uint32_t X_BYTES = BMX * 128;  // [BMX rows][64 k] 16-bit
+  static_assert(NX == 1 || (NX == 3 && BMX <= 128), "fp32 x: at most 128 rows a block");
+  static constexpr int MIN_BLOCKS = NX == 1 && BMX <= 32 ? 2 : 1;
+  static constexpr int STAGES =
+      NX == 3 ? (BMX == 128 ? 4 : BMX == 64 ? 6 : BMX == 32 ? 10 : 12)
+              : (BMX == 256 ? 5 : BMX == 128 ? 8 : BMX == 64 ? 12 : BMX == 32 ? 8 : 10);
+  static constexpr uint32_t X_BYTES = NX * BMX * 128;  // NX x [BMX rows][64 k] 16-bit
   static constexpr uint32_t STAGE_BYTES = X_BYTES + W_BYTES;
   static constexpr uint32_t bar_off = STAGES * STAGE_BYTES;
   static constexpr size_t bytes = bar_off + 16 * STAGES + 1024;  // + 1 KB to align the base
   static_assert(BMX * ST_STRIDE <= bar_off, "the staging tile must fit in the ring");
+  static_assert(bytes <= 232448, "a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) { return bars + 8 * s; }
-template <int BMX>
+template <int STAGES>
 __device__ __forceinline__ uint32_t bar_empty(uint32_t bars, int s) {
-  return bars + 8 * (Plan<BMX>::STAGES + s);
+  return bars + 8 * (STAGES + s);
 }
 
 // Four signed bytes (k, n), (k, n + 1), (k + 1, n), (k + 1, n + 1) -> the
@@ -171,13 +194,15 @@ struct Bank {
 
 // Grid (row tiles, ceil(N / BN), experts x splits), the splits of a tile
 // one cluster; split z covers K steps [z * steps_per_split, (z + 1) *
-// steps_per_split). Without BANK: one expert, x rows [0, M).
-template <typename T, typename OutT, int BMX, bool BANK>
-__global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
+// steps_per_split). Without BANK: one expert, x rows [0, M). NX = 3: tx
+// maps the bf16 parts of fp32 x, (K, rows, part), the dense bank's
+// matrices an expert as rows ex M + m (T is then bf16).
+template <typename T, typename OutT, int BMX, bool BANK, int NX>
+__global__ void __launch_bounds__(THREADS, (Plan<BMX, NX>::MIN_BLOCKS))
     wmatmul_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                    const float* __restrict__ scale, OutT* __restrict__ out, int M, int N, int K,
                    int steps_per_split, Bank bank) {
-  using P = Plan<BMX>;
+  using P = Plan<BMX, NX>;
   constexpr int STAGES = P::STAGES;
   constexpr bool SETREG = BMX >= 128;  // the accumulator needs the registers
   const int m0 = blockIdx.x * BMX, n0 = blockIdx.y * BN;
@@ -212,7 +237,7 @@ __global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_full(bars, s), 1);
-      mbar_init(bar_empty<BMX>(bars, s), 2 * 128);  // every consumer thread releases
+      mbar_init(bar_empty<STAGES>(bars, s), 2 * 128);  // every consumer thread releases
     }
     mbar_fence_init();
   }
@@ -227,10 +252,17 @@ __global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
       prefetch_tensormap(&tw);
       for (int i = 0; i < n_steps; ++i) {
         const int s = i % STAGES, k0 = (kt0 + i) * BK;
-        mbar_wait(bar_empty<BMX>(bars, s), ((i / STAGES) & 1) ^ 1);
+        mbar_wait(bar_empty<STAGES>(bars, s), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full(bars, s), P::STAGE_BYTES);
         const uint32_t xs = base + s * P::STAGE_BYTES;
-        tma_load_3d(xs, &tx, bar_full(bars, s), k0, x_row0, x_plane);
+        if constexpr (NX == 1) {
+          tma_load_3d(xs, &tx, bar_full(bars, s), k0, x_row0, x_plane);
+        } else {
+#pragma unroll
+          for (int part = 0; part < NX; ++part)
+            tma_load_3d(xs + part * BMX * 128, &tx, bar_full(bars, s), k0, x_plane * M + x_row0,
+                        part);
+        }
         tma_load_3d(xs + P::X_BYTES, &tw, bar_full(bars, s), n0, k0, ex);
       }
     }
@@ -241,36 +273,79 @@ __global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
     float acc[BMX / 2];
 #pragma unroll
     for (int x = 0; x < BMX / 2; ++x) acc[x] = 0.f;
-    // step i converts into `af` while step i - 1's product (reading `prev`)
-    // may still run; its wait then retires step i - 1 and frees its slot
-    auto step = [&](int i, uint32_t (&af)[BK / 16][4], uint32_t (&prev)[BK / 16][4]) {
-      const int s = i % STAGES;
-      const uint32_t xs = base + s * P::STAGE_BYTES;
-      mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
-      load_a<T>(af, xs + P::X_BYTES, unit, lane);
-      fence_regs(acc);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_t<T, BMX, 0>(acc, af[kk], sw128_desc(xs + kk * 32, 0), 1);
-      wg_commit();
-      wg_wait<1>();
-      fence_regs(acc);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) fence_regs(prev[kk]);
-      if (i > 0) mbar_arrive(bar_empty<BMX>(bars, (i - 1) % STAGES));
-    };
     uint32_t fa[BK / 16][4], fb[BK / 16][4];
-    for (int i = 0; i < n_steps; i += 2) {
-      step(i, fa, fb);
-      if (i + 1 < n_steps) step(i + 1, fb, fa);
-    }
-    wg_wait<0>();
-    fence_regs(acc);
+    if constexpr (NX == 1) {
+      // step i converts into `af` while step i - 1's product (reading `prev`)
+      // may still run; its wait then retires step i - 1 and frees its slot
+      auto step = [&](int i, uint32_t (&af)[BK / 16][4], uint32_t (&prev)[BK / 16][4]) {
+        const int s = i % STAGES;
+        const uint32_t xs = base + s * P::STAGE_BYTES;
+        mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
+        load_a<T>(af, xs + P::X_BYTES, unit, lane);
+        fence_regs(acc);
+        wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      fence_regs(fa[kk]);
-      fence_regs(fb[kk]);
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs_t<T, BMX, 0>(acc, af[kk], sw128_desc(xs + kk * 32, 0), 1);
+        wg_commit();
+        wg_wait<1>();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) fence_regs(prev[kk]);
+        if (i > 0) mbar_arrive(bar_empty<STAGES>(bars, (i - 1) % STAGES));
+      };
+      for (int i = 0; i < n_steps; i += 2) {
+        step(i, fa, fb);
+        if (i + 1 < n_steps) step(i + 1, fb, fa);
+      }
+      wg_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        fence_regs(fa[kk]);
+        fence_regs(fb[kk]);
+      }
+    } else {
+      float tmp[BMX / 2];
+#pragma unroll
+      for (int x = 0; x < BMX / 2; ++x) tmp[x] = 0.f;
+      // wait for step i's tiles and convert its W^T into af
+      auto convert = [&](int i, uint32_t (&af)[BK / 16][4]) {
+        const int s = i % STAGES;
+        mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
+        load_a<T>(af, base + s * P::STAGE_BYTES + P::X_BYTES, unit, lane);
+      };
+      // step i's three products into a fresh tmp (scale-d 0 first), the
+      // smallest part first, so that the truncated sums of lo and mid are
+      // taken while tmp is small; step i + 1's W^T converts into `next`
+      // meanwhile; the wait retires them, tmp joins acc by FADD and the
+      // slot is released
+      auto step = [&](int i, uint32_t (&af)[BK / 16][4], uint32_t (&next)[BK / 16][4]) {
+        const uint32_t xs = base + (i % STAGES) * P::STAGE_BYTES;
+        fence_regs(tmp);
+        wg_fence();
+#pragma unroll
+        for (int pi = 0; pi < NX; ++pi)
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_rs_t<T, BMX, 0>(tmp, af[kk],
+                                  sw128_desc(xs + (NX - 1 - pi) * BMX * 128 + kk * 32, 0),
+                                  pi + kk > 0);
+        wg_commit();
+        if (i + 1 < n_steps) convert(i + 1, next);
+        wg_wait<0>();
+        fence_regs(tmp);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) fence_regs(af[kk]);
+#pragma unroll
+        for (int x = 0; x < BMX / 2; ++x) acc[x] += tmp[x];
+        mbar_arrive(bar_empty<STAGES>(bars, i % STAGES));
+      };
+      if (n_steps > 0) convert(0, fa);
+      for (int i = 0; i < n_steps; i += 2) {
+        step(i, fa, fb);
+        if (i + 1 < n_steps) step(i + 1, fb, fa);
+      }
     }
     named_sync(1, 2 * 128);  // no product reads the ring any more
 
@@ -330,15 +405,15 @@ __global__ void __launch_bounds__(THREADS, Plan<BMX>::MIN_BLOCKS)
 
 // tx: the x tensor map; the grid is (m_tiles, ceil(N / BN), experts x
 // splits).
-template <typename T, typename OutT, int BMX, bool BANK>
+template <typename T, typename OutT, int BMX, bool BANK, int NX>
 int launch(const CUtensorMap& tx, const int8_t* qw, const float* scale, void* out, int M, int K,
            int N, int splits, int steps_per_split, Bank bank, int m_tiles, cudaStream_t stream) {
-  using P = Plan<BMX>;
+  using P = Plan<BMX, NX>;
   CUtensorMap tw;
   if (int err = mfa_encode_3d(&tw, qw, CU_TENSOR_MAP_DATA_TYPE_UINT8, N, K, bank.experts,
                               (size_t)N, (size_t)K * N, BN, BK))
     return err;
-  auto kern = wmatmul_kernel<T, OutT, BMX, BANK>;
+  auto kern = wmatmul_kernel<T, OutT, BMX, BANK, NX>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)P::bytes))
     return err;
@@ -360,68 +435,111 @@ int launch(const CUtensorMap& tx, const int8_t* qw, const float* scale, void* ou
   return (int)cudaGetLastError();
 }
 
-// The 2-D launch: one x [M, K], one W.
-template <typename T, typename OutT, int BMX>
+// The 2-D launch: one x [M, K] (NX = 3: its bf16 parts [3, M, K]), one W.
+template <typename T, typename OutT, int BMX, int NX>
 int launch_2d(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K, int N,
               int splits, int steps_per_split, cudaStream_t stream) {
   CUtensorMap tx;
-  if (int err = mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, M, 1, BMX)) return err;
-  return launch<T, OutT, BMX, false>(tx, qw, scale, out, M, K, N, splits, steps_per_split,
-                                     Bank{nullptr, 1, 0}, (M + BMX - 1) / BMX, stream);
+  if (int err = mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, M, NX, BMX)) return err;
+  return launch<T, OutT, BMX, false, NX>(tx, qw, scale, out, M, K, N, splits, steps_per_split,
+                                         Bank{nullptr, 1, 0}, (M + BMX - 1) / BMX, stream);
 }
 
-// x rows a block: kernels/wmatmul.py:block_m.
-template <typename T, typename OutT>
+// x rows a block: kernels/wmatmul.py:block_m (fp32 x: at most 128).
+template <typename T, typename OutT, int NX = 1>
 int launch_m(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K, int N,
              int splits, int steps_per_split, cudaStream_t s) {
-#define MFA_WMM_BM(B) return launch_2d<T, OutT, B>(x, qw, scale, out, M, K, N, splits, steps_per_split, s)
+#define MFA_WMM_BM(B) \
+  return launch_2d<T, OutT, B, NX>(x, qw, scale, out, M, K, N, splits, steps_per_split, s)
   if (M <= 16) MFA_WMM_BM(16);
   if (M <= 32) MFA_WMM_BM(32);
   if (M <= 64) MFA_WMM_BM(64);
-  if (M < 256) MFA_WMM_BM(128);
-  MFA_WMM_BM(256);
+  if constexpr (NX == 3) {
+    MFA_WMM_BM(128);
+  } else {
+    if (M < 256) MFA_WMM_BM(128);
+    MFA_WMM_BM(256);
+  }
 #undef MFA_WMM_BM
 }
 
+// fp32 x [n] (n a multiple of 4) -> its three bf16 parts parts[p][n], x =
+// hi + mid + lo exactly for normal values (the header's split).
+__global__ void split3_kernel(const float4* __restrict__ x, uint2* __restrict__ parts, size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = x[i];
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    float h[4], m[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = __bfloat162float(__float2bfloat16_rn(f[e]));
+      const float r = f[e] - h[e];  // exact
+      m[e] = __bfloat162float(__float2bfloat16_rn(r));
+      l[e] = r - m[e];  // exact, and exact in bf16
+    }
+    parts[i] = make_uint2(pack2<__nv_bfloat16>(h[0], h[1]), pack2<__nv_bfloat16>(h[2], h[3]));
+    parts[n4 + i] = make_uint2(pack2<__nv_bfloat16>(m[0], m[1]), pack2<__nv_bfloat16>(m[2], m[3]));
+    parts[2 * n4 + i] =
+        make_uint2(pack2<__nv_bfloat16>(l[0], l[1]), pack2<__nv_bfloat16>(l[2], l[3]));
+  }
+}
+
+int split3(const void* x, void* parts, size_t n, cudaStream_t s) {
+  const size_t n4 = n / 4;
+  if (n4 == 0) return 0;
+  const int blocks = (int)((n4 + 255) / 256 < 132 * 16 ? (n4 + 255) / 256 : 132 * 16);
+  split3_kernel<<<blocks, 256, 0, s>>>(static_cast<const float4*>(x), static_cast<uint2*>(parts),
+                                       n4);
+  return (int)cudaGetLastError();
+}
+
 // The bank launch at BMX rows a block. Dense: x [M, K] (x_per_expert 0) or
-// [experts, M, K]; grouped: x [M, K] with M the rows of every group.
-template <typename T, int BMX>
+// [experts, M, K]; grouped: x [M, K] with M the rows of every group. NX =
+// 3: x is the parts [3, planes M, K] of the same rows.
+template <typename T, typename OutT, int BMX, int NX>
 int launch_bank(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K,
                 int N, Bank bank, int m_tiles, int splits, int steps_per_split,
                 cudaStream_t stream) {
   CUtensorMap tx;
   const int planes = bank.offs == nullptr && bank.x_per_expert ? bank.experts : 1;
-  if (int err = mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, M, planes, BMX)) return err;
-  return launch<T, T, BMX, true>(tx, qw, scale, out, M, K, N, splits, steps_per_split, bank,
-                                 m_tiles, stream);
+  if (int err = NX == 1 ? mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, M, planes, BMX)
+                        : mfa_tensor_map_3d(&tx, x, kIsBf16<T>, K, planes * M, NX, BMX))
+    return err;
+  return launch<T, OutT, BMX, true, NX>(tx, qw, scale, out, M, K, N, splits, steps_per_split,
+                                        bank, m_tiles, stream);
 }
 
-template <typename T>
+template <typename T, typename OutT, int NX = 1>
 int launch_bank_m(const void* x, const int8_t* qw, const float* scale, void* out, int M, int K,
                   int N, Bank bank, int bm, int m_tiles, int splits, int steps_per_split,
                   cudaStream_t s) {
-#define MFA_WMB_BM(B)                                                                     \
-  if (bm == B)                                                                            \
-    return launch_bank<T, B>(x, qw, scale, out, M, K, N, bank, m_tiles, splits, steps_per_split, \
-                             s);
+#define MFA_WMB_BM(B)                                                                    \
+  if (bm == B)                                                                           \
+    return launch_bank<T, OutT, B, NX>(x, qw, scale, out, M, K, N, bank, m_tiles, splits, \
+                                       steps_per_split, s);
   MFA_WMB_BM(16)
   MFA_WMB_BM(32)
   MFA_WMB_BM(64)
   MFA_WMB_BM(128)
-  MFA_WMB_BM(256)
+  if constexpr (NX == 1) {
+    MFA_WMB_BM(256)
+  }
 #undef MFA_WMB_BM
   return MFA_BAD_CONFIG;
 }
 
 }  // namespace wm90
 
-// x [M, K] (dtype: MFA_BF16 or MFA_F16), qw [K, N] int8, scale [N] fp32,
-// out [M, N] in x's dtype (out_f32 = 0) or fp32 (out_f32 = 1); every pointer
-// 16-byte aligned. Split s of `splits` (at most 8, one cluster) covers K
-// steps of 64 [s * k_steps_per_split, (s + 1) * k_steps_per_split). Returns
-// a cudaError_t code, MFA_TMA_ENCODE or MFA_BAD_CONFIG (0 = launched).
+// x [M, K] (dtype: MFA_BF16, MFA_F16 or MFA_F32), qw [K, N] int8, scale [N]
+// fp32, out [M, N] in x's dtype (out_f32 = 0) or fp32 (out_f32 = 1; fp32 x
+// takes only that); x3: fp32 x's scratch, bf16 [3, M, K] (null otherwise);
+// every pointer 16-byte aligned. Split s of `splits` (at most 8, one
+// cluster) covers K steps of 64 [s * k_steps_per_split, (s + 1) *
+// k_steps_per_split). Returns a cudaError_t code, MFA_TMA_ENCODE or
+// MFA_BAD_CONFIG (0 = launched).
 extern "C" int mfa_int8_matmul(const void* x, const int8_t* qw, const float* scale, void* out,
-                               int dtype, int out_f32, int M, int K, int N, int splits,
+                               void* x3, int dtype, int out_f32, int M, int K, int N, int splits,
                                int k_steps_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
@@ -435,11 +553,18 @@ extern "C" int mfa_int8_matmul(const void* x, const int8_t* qw, const float* sca
   if (dtype == MFA_F16 && !out_f32) MFA_WMM(__half, __half);
   if (dtype == MFA_F16 && out_f32) MFA_WMM(__half, float);
 #undef MFA_WMM
+  if (dtype == MFA_F32) {
+    if (x3 == nullptr || !out_f32) return MFA_BAD_CONFIG;
+    if (int err = wm90::split3(x, x3, (size_t)M * K, s)) return err;
+    return wm90::launch_m<__nv_bfloat16, float, 3>(x3, qw, scale, out, M, K, N, splits,
+                                                   k_steps_per_split, s);
+  }
   return MFA_BAD_CONFIG;
 }
 
 // The expert-bank launch. qw [experts, K, N] int8, scale [experts, N] fp32,
-// x and out in `dtype` (MFA_BF16 or MFA_F16), every pointer 16-byte aligned.
+// x and out in `dtype` (MFA_BF16, MFA_F16 or MFA_F32; fp32 x: x3 its bf16
+// scratch [3, rows of x, K], bm at most 128), every pointer 16-byte aligned.
 // offs == nullptr (dense): x [M, K] (x_per_expert 0) or [experts, M, K],
 // out [experts, M, N]. Else (grouped): offs [experts + 1] int32 on the
 // device, nondecreasing from 0 to M, expert e owning rows offs[e]:offs[e +
@@ -448,8 +573,8 @@ extern "C" int mfa_int8_matmul(const void* x, const int8_t* qw, const float* sca
 // ceil(M / bm)). Splits as mfa_int8_matmul. Returns a cudaError_t code,
 // MFA_TMA_ENCODE or MFA_BAD_CONFIG (0 = launched).
 extern "C" int mfa_int8_bank_matmul(const void* x, const int8_t* qw, const float* scale,
-                                    void* out, const int* offs, int dtype, int M, int K, int N,
-                                    int experts, int x_per_expert, int bm, int m_tiles,
+                                    void* out, const int* offs, void* x3, int dtype, int M, int K,
+                                    int N, int experts, int x_per_expert, int bm, int m_tiles,
                                     int splits, int k_steps_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0 || experts == 0 || m_tiles == 0) return 0;
@@ -457,10 +582,17 @@ extern "C" int mfa_int8_bank_matmul(const void* x, const int8_t* qw, const float
     return MFA_BAD_CONFIG;
   const wm90::Bank bank{offs, experts, x_per_expert};
   if (dtype == MFA_BF16)
-    return wm90::launch_bank_m<__nv_bfloat16>(x, qw, scale, out, M, K, N, bank, bm, m_tiles,
-                                              splits, k_steps_per_split, s);
+    return wm90::launch_bank_m<__nv_bfloat16, __nv_bfloat16>(
+        x, qw, scale, out, M, K, N, bank, bm, m_tiles, splits, k_steps_per_split, s);
   if (dtype == MFA_F16)
-    return wm90::launch_bank_m<__half>(x, qw, scale, out, M, K, N, bank, bm, m_tiles, splits,
-                                       k_steps_per_split, s);
+    return wm90::launch_bank_m<__half, __half>(x, qw, scale, out, M, K, N, bank, bm, m_tiles,
+                                               splits, k_steps_per_split, s);
+  if (dtype == MFA_F32) {
+    if (x3 == nullptr) return MFA_BAD_CONFIG;
+    const size_t rows = (size_t)(offs == nullptr && x_per_expert ? experts : 1) * M;
+    if (int err = wm90::split3(x, x3, rows * K, s)) return err;
+    return wm90::launch_bank_m<__nv_bfloat16, float, 3>(x3, qw, scale, out, M, K, N, bank, bm,
+                                                        m_tiles, splits, k_steps_per_split, s);
+  }
   return MFA_BAD_CONFIG;
 }

@@ -1,7 +1,9 @@
 """Flash-attention backward (counterpart of mfa_tpu/kernels/backward.py).
 
-Kernels 11-14 of the port, the five launches of csrc/backward.cu, all on
-the warp-specialised wgmma + TMA kernels of csrc/flash_bwd_sm90.cuh:
+Kernels 11-14 of the port, the five launches of csrc/backward.cu, on bf16
+and fp16 inputs all on the warp-specialised wgmma + TMA kernels of
+csrc/flash_bwd_sm90.cuh (fp32 inputs: the SIMT tile of
+csrc/flash_bwd_f32.cuh, launch names `<name>_fp32`):
 `mfa_bwd_fused` (kernel 11: dQ, dK and dV in one pass, dQ summed across
 blocks in fp32); the deterministic split, `mfa_bwd_dkv` (kernel 12: the
 same kernel without its dQ step) then `mfa_bwd_dq` (kernel 13: a dQ
@@ -21,8 +23,8 @@ gradients are zero. dK/dV are summed over the GQA group. The forward's
 band options carry over: `kv_position_offset` (kernels 11-13), attention
 sinks (kernel 11 only: the split refuses them, as mfa_tpu does) and ALiBi
 (every launch; P's exponent gets - slope * |position - key|, and the
-slopes' own gradient is zero). A CUDA tensor
-runs the kernels (bf16/fp16, any head_dim up to 256: the head-dim plan's D
+slopes' own gradient is zero). A CUDA tensor runs the kernels
+(bf16/fp16/fp32, any head_dim up to 256: the head-dim plan's D
 of 64, 128 or 256, dispatch/config.py:head_dim_plan; q, k, v and dO are
 copied zero-padded only where a row's bytes are not a multiple of 16, and
 dQ, dK and dV come back at the caller's head_dim; zero features change
@@ -117,9 +119,9 @@ def _varlen_bwd_plain(q, k, v, out, lse, do, cu_q, cu_k, scale, window_left,
 def _check_kernel_inputs(name, q, k, v, out, do, *others):
     """What the card's route checks before it touches a device or a kernel
     -> the head-dim plan (ValueError above 256)."""
-    if q.dtype not in (torch.bfloat16, torch.float16):
-        raise NotImplementedError(f"{name}: the kernels take bf16/fp16, got "
-                                  f"{q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise NotImplementedError(f"{name}: the kernels take bf16/fp16/fp32, "
+                                  f"got {q.dtype}")
     plan = head_dim_plan(q.shape[-1])
     _build.same_device(name, q, k, v, out, do, *others)
     if any(t.dtype != q.dtype for t in (k, v, out, do)):
@@ -149,7 +151,7 @@ def _launch_fused(q, k, v, do, lse, delta, scale, wl, wr, softcap, sinks=0,
             head_dim_plan(d).kernel_dim, wl, wr, scale, softcap, sinks, kv_off,
             _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
-    _build.launches["bwd_fused"] += 1
+    _build.launches[_build.launch_key("bwd_fused", q.dtype)] += 1
     return dq_ws, dk, dv
 
 
@@ -165,7 +167,7 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, wl, wr, softcap, kv_off=0,
             head_dim_plan(d).kernel_dim, wl, wr, scale, softcap, kv_off,
             _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
-    _build.launches["bwd_dkv"] += 1
+    _build.launches[_build.launch_key("bwd_dkv", q.dtype)] += 1
     return dk, dv
 
 
@@ -181,7 +183,7 @@ def _launch_dq(q, k, v, do, lse, delta, scale, wl, wr, softcap, kv_off=0,
             head_dim_plan(d).kernel_dim, wl, wr, scale, softcap, kv_off,
             _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
-    _build.launches["bwd_dq"] += 1
+    _build.launches[_build.launch_key("bwd_dq", q.dtype)] += 1
     return dq
 
 
@@ -299,7 +301,7 @@ def _launch_varlen_dkv(q, k, v, do, lse, delta, cu_q, cu_k, max_sk, scale,
             head_dim_plan(d).kernel_dim, wl, wr, scale, softcap,
             _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
-    _build.launches["varlen_bwd_dkv"] += 1
+    _build.launches[_build.launch_key("varlen_bwd_dkv", q.dtype)] += 1
     return dk, dv
 
 
@@ -315,7 +317,7 @@ def _launch_varlen_dq(q, k, v, do, lse, delta, cu_q, cu_k, max_sq, scale,
             head_dim_plan(d).kernel_dim, wl, wr, scale, softcap,
             _build.ptr(slopes), _build.stream_of(q))
     _build.check("backward", rc)
-    _build.launches["varlen_bwd_dq"] += 1
+    _build.launches[_build.launch_key("varlen_bwd_dq", q.dtype)] += 1
     return dq
 
 

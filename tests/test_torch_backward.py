@@ -158,18 +158,20 @@ def test_kernel_head_dims_checked_without_running():
     """The CUDA route checks its inputs before it looks at a device or a
     kernel (meta tensors typed like a card's): head_dim 96 now passes (the
     kernels run it at D 128 on rows of 96), 256 passes, 257 raises
-    ValueError as mfa_tpu does; fp32 is still refused."""
+    ValueError as mfa_tpu does; fp32 passes (the fp32 tile), fp64 is
+    refused."""
     from mfa_tpu_torch.kernels import backward
 
-    for d, kernel_dim in ((96, 128), (256, 256)):
-        t = torch.empty(1, 2, 8, d, dtype=torch.bfloat16, device="meta")
+    for d, kernel_dim, dt in ((96, 128, torch.bfloat16), (256, 256, torch.bfloat16),
+                              (96, 128, torch.float32)):
+        t = torch.empty(1, 2, 8, d, dtype=dt, device="meta")
         plan = backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
         assert (plan.kernel_dim, plan.stored) == (kernel_dim, d)
     t = torch.empty(1, 2, 8, 257, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="head_dim"):
         backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
-    t = torch.empty(1, 2, 8, 96, dtype=torch.float32, device="meta")
-    with pytest.raises(NotImplementedError, match="bf16/fp16"):
+    t = torch.empty(1, 2, 8, 96, dtype=torch.float64, device="meta")
+    with pytest.raises(NotImplementedError, match="bf16/fp16/fp32"):
         backward._check_kernel_inputs("flash_attention_bwd", t, t, t, t, t)
 
 

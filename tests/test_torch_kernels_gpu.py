@@ -2218,3 +2218,244 @@ def test_fp32_entry_points(dev):
     assert got["bound_fp32"] == 1 and got["varlen_fp32"] == 1
     assert got["decode_fp32"] == 1 and got["combine_fp32"] == 1
     assert not any(n in got for n in ("bound", "varlen", "decode", "combine"))
+
+
+# -- fp32 inputs in the backward (kernels 11-14, csrc/flash_bwd_f32.cuh) and
+# in the int8 matmul (kernel 10: three bf16 parts of x); launch names end in
+# _fp32. Limits: allclose(rtol=1e-4, atol=1e-4 max |ref|) for the gradients
+# (fp32 products in another order than the plain version's, and the fused
+# launch's dQ additions across blocks), 1e-5 of the largest output for
+# kernel 10 (x split exactly, W exact in bf16, fp32 accumulation).
+
+
+def _bwd_close32(got, ref, what):
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert g.dtype == F32 and bool(torch.isfinite(g).all()), (what, name)
+        err = float((g - r).abs().max())
+        assert torch.allclose(g, r, rtol=1e-4, atol=1e-4 * float(r.abs().max())), (
+            what, name, err)
+
+
+_F32_BWD = [
+    # b, hq, hkv, sq, sk, d, window, softcap, sinks, offset, alibi
+    (2, 8, 2, 300, 300, 128, (-1, 0), 0.0, 0, 0, False),
+    (1, 8, 2, 128, 512, 128, (-1, 0), 0.0, 0, 0, False),    # key tiles with no live row
+    (1, 4, 4, 300, 8, 64, (4, 0), 0.0, 0, 0, False),        # dead rows
+    (2, 4, 1, 100, 37, 64, (-1, -1), 0.0, 0, 0, False),
+    (1, 4, 2, 130, 130, 128, (-1, 0), 30.0, 0, 0, False),   # softcap
+    (1, 8, 2, 333, 333, 80, (-1, 0), 0.0, 0, 0, False),     # d 80 at D 128
+    (1, 8, 4, 600, 600, 256, (127, 0), 0.0, 0, 0, False),
+    (1, 4, 2, 130, 130, 256, (-1, 0), 50.0, 0, 0, False),
+    (1, 28, 4, 300, 300, 128, (-1, 0), 0.0, 0, 0, False),   # group 7
+    (1, 8, 2, 200, 1000, 128, (32, 0), 0.0, 0, 0, False),   # key blocks no row sees
+    (1, 8, 2, 1100, 1100, 128, (255, 0), 0.0, 4, 0, False),  # sinks: the fused launch
+    (1, 8, 2, 300, 300, 64, (31, 0), 0.0, 70, 0, False),
+    (1, 8, 2, 512, 512, 128, (-1, 0), 0.0, 0, 0, True),     # ALiBi
+    (1, 8, 2, 256, 640, 128, (-1, 0), 0.0, 0, 384, False),  # kv_position_offset
+    (1, 8, 4, 200, 500, 256, (-1, 0), 0.0, 0, 300, True),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,softcap,sinks,offset,alibi", _F32_BWD)
+def test_backward_kernels_fp32(dev, b, hq, hkv, sq, sk, d, window, softcap, sinks, offset,
+                               alibi):
+    from mfa_tpu_torch.kernels import _build, backward, prefill
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    gen = torch.Generator(device=dev).manual_seed(50)
+    q, k, v, do = (_rn(gen, b, h, s, d, dtype=F32)
+                   for h, s in ((hq, sq), (hkv, sk), (hkv, sk), (hq, sq)))
+    slopes = _alibi(hq, dev) if alibi else None
+    kw = dict(window_size=window, sink_tokens=sinks, kv_position_offset=offset,
+              alibi_slopes=slopes, logit_softcap=softcap)
+    o, lse = prefill.prefill_attention(q, k, v, return_lse=True, **kw)
+    ref = backward._bwd_plain(q, k, v, o, lse, do, d ** -0.5, window[0], window[1],
+                              softcap, sinks, offset, slopes)
+    _build.reset_launches()
+    fused = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=True, **kw)
+    assert dict(_build.launches) == {"bwd_fused_fp32": 1}
+    _bwd_close32(fused, ref, "fused")
+    dead = torch.isneginf(lse)
+    assert torch.all(fused[0][dead] == 0)
+    if sinks:
+        with pytest.raises(NotImplementedError):
+            backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+        return
+    split = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+    assert _build.launches["bwd_dkv_fp32"] == 1 and _build.launches["bwd_dq_fp32"] == 1
+    _bwd_close32(split, ref, "split")
+    again = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(split, again))  # deterministic
+    assert torch.all(split[0][dead] == 0)
+
+
+@pytest.mark.parametrize("lens_q,lens_k,hq,hkv,d,window,softcap,alibi", [
+    ([200, 1100, 0, 513], [200, 1100, 0, 513], 8, 2, 128, (-1, 0), 0.0, False),
+    ([100, 300], [256, 400], 8, 2, 64, (64, 32), 0.0, False),
+    ([300, 0, 517, 64], [300, 0, 517, 64], 8, 4, 256, (-1, 0), 0.0, True),
+    ([130, 70], [130, 70], 4, 2, 128, (-1, 0), 30.0, False),
+    ([90, 45], [90, 45], 7, 1, 80, (-1, 0), 0.0, False),
+])
+def test_varlen_backward_kernels_fp32(dev, lens_q, lens_k, hq, hkv, d, window, softcap,
+                                      alibi):
+    from mfa_tpu_torch.kernels import _build, backward, varlen
+
+    gen = torch.Generator(device=dev).manual_seed(51)
+    q, do = _rn(gen, sum(lens_q), hq, d, dtype=F32), _rn(gen, sum(lens_q), hq, d, dtype=F32)
+    k, v = _rn(gen, sum(lens_k), hkv, d, dtype=F32), _rn(gen, sum(lens_k), hkv, d, dtype=F32)
+    cu_q = torch.tensor([0] + lens_q, device=dev).cumsum(0).int()
+    cu_k = torch.tensor([0] + lens_k, device=dev).cumsum(0).int()
+    slopes = _alibi(hq, dev) if alibi else None
+    kw = dict(window_size=window, logit_softcap=softcap, alibi_slopes=slopes)
+    o, lse = varlen.varlen_attention(q, k, v, cu_q, cu_k, max(lens_q), max(lens_k),
+                                     return_lse=True, **kw)
+    _build.reset_launches()
+    got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu_q, cu_k, **kw)
+    assert dict(_build.launches) == {"varlen_bwd_dkv_fp32": 1, "varlen_bwd_dq_fp32": 1}
+    ref = backward._varlen_bwd_plain(q, k, v, o, lse, do, cu_q, cu_k, d ** -0.5, window[0],
+                                     window[1], softcap, slopes)
+    _bwd_close32(got, ref, "varlen")
+
+
+def test_varlen_backward_fp32_equals_dense_bit_for_bit(dev):
+    """Kernel 14 in fp32 on 4 x 256 equal lengths gives kernels 12 + 13's
+    bits on the same data batched (one tile body, two addressings)."""
+    from mfa_tpu_torch.kernels import backward, varlen
+
+    n, s, hq, hkv, d = 4, 256, 8, 2, 128
+    gen = torch.Generator(device=dev).manual_seed(52)
+    q, do = _rn(gen, n * s, hq, d, dtype=F32), _rn(gen, n * s, hq, d, dtype=F32)
+    k, v = _rn(gen, n * s, hkv, d, dtype=F32), _rn(gen, n * s, hkv, d, dtype=F32)
+    cu = torch.arange(0, n * s + 1, s, device=dev, dtype=torch.int32)
+    o, lse = varlen.varlen_attention(q, k, v, cu, cu, s, s, causal=True, return_lse=True)
+    got = backward.varlen_attention_bwd(q, k, v, o, lse, do, cu, cu, causal=True)
+
+    def batched(t):  # [n * s, h, d] -> [n, h, s, d]
+        return t.view(n, s, t.shape[1], d).transpose(1, 2).contiguous()
+
+    dense = backward.flash_attention_bwd(
+        batched(q), batched(k), batched(v), batched(o), lse.view(hq, n, s).transpose(0, 1),
+        batched(do), causal=True, fused=False)
+    assert all(torch.equal(batched(a), b_) for a, b_ in zip(got, dense))
+
+
+@pytest.mark.parametrize("m,K,N", [
+    (16, 4096, 4096),     # decode: wq, split K
+    (16, 4096, 1024),     # wk
+    (16, 14336, 4096),    # w_down
+    (16, 4096, 14336),    # w_gate
+    (1, 4096, 4096),      # one row
+    (17, 4096, 4096),     # 32 rows a block
+    (40, 14336, 1024),    # 64 rows a block, 8 splits
+    (130, 384, 272),      # 128 rows a block, ragged m, N % 128 != 0
+    (3, 80, 48),          # K % 64 != 0
+    (300, 1040, 400),     # 128 rows a block past 256 rows (fp32 x), K and N tails
+    (3601, 4096, 14336),  # a prefill wave at w_gate
+])
+def test_int8_matmul_kernel_fp32(dev, m, K, N):
+    from mfa_tpu_torch.kernels import _build, wmatmul
+    from mfa_tpu_torch.models.wquant import quantize_weight
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    gen = torch.Generator(device=dev).manual_seed(53)
+    x = _rn(gen, m, K, dtype=F32)
+    w = quantize_weight(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5)
+    _build.reset_launches()
+    out = wmatmul.int8_matmul(x, w.qw, w.scale)
+    assert dict(_build.launches) == {"wmatmul_fp32": 1}
+    assert out.dtype == F32 and out.shape == (m, N)
+    assert torch.equal(out, wmatmul.int8_matmul(x, w.qw, w.scale))
+    ref = wmatmul._int8_matmul_plain(x, w.qw, w.scale, F32)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    with pytest.raises(NotImplementedError):
+        wmatmul.int8_matmul(x, w.qw, w.scale, out_dtype=BF)
+
+
+def test_int8_matmul_fp32_split_prepass(dev):
+    """The pre-pass alone: mfa_int8_matmul's bf16 parts of fp32 x equal the
+    plain split bit for bit, and add back to x exactly, over magnitudes
+    1e-30 to 1e30."""
+    from mfa_tpu_torch.kernels import _build, wmatmul
+    from mfa_tpu_torch.models.wquant import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(54)
+    m, K, N = 48, 256, 128
+    x = (torch.randn(m, K, generator=gen, device=dev)
+         * 10.0 ** (torch.rand(m, K, generator=gen, device=dev) * 60 - 30)).float()
+    w = quantize_weight(torch.randn(K, N, generator=gen, device=dev))
+    x3 = torch.empty((3, m, K), dtype=BF, device=dev)
+    out = torch.empty((m, N), dtype=F32, device=dev)
+    splits, per = wmatmul.split_k(m, K, N, f32=True)
+    fn = _build.function("wmatmul", "mfa_int8_matmul", wmatmul._ARGTYPES)
+    rc = fn(x.data_ptr(), w.qw.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
+            x3.data_ptr(), _build.DTYPE_CODES[F32], 1, m, K, N, splits, per,
+            _build.stream_of(x))
+    _build.check("wmatmul", rc)
+    torch.cuda.synchronize()
+    want = wmatmul._split_bf16x3_plain(x)
+    assert all(torch.equal(x3[i], want[i]) for i in range(3))
+    assert torch.equal(sum(p.double() for p in x3.unbind(0)), x.double())
+
+
+@pytest.mark.parametrize("form", ["shared", "per_expert", "grouped"])
+def test_int8_bank_fp32(dev, form):
+    from mfa_tpu_torch.kernels import _build, wmatmul
+    from mfa_tpu_torch.models.wquant import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(55)
+    E, K, N = 8, 4096, 14336
+    w = quantize_weight(torch.randn(E, K, N, generator=gen, device=dev) * K ** -0.5)
+    offs = None
+    if form == "grouped":
+        sizes = (900, 1, 0, 1200, 2001, 1500, 800, 800)
+        x = _rn(gen, sum(sizes), K, dtype=F32)
+        offs = torch.tensor([0, *torch.tensor(sizes).cumsum(0).tolist()],
+                            dtype=torch.int32, device=dev)
+    else:
+        x = _rn(gen, *((E,) if form == "per_expert" else ()), 16, K, dtype=F32)
+    _build.reset_launches()
+    out = wmatmul.int8_bank_matmul(x, w.qw, w.scale, offs=offs)
+    assert dict(_build.launches) == {"wmatmul_bank_fp32": 1}
+    assert out.dtype == F32
+    ref = wmatmul._bank_plain(x, w.qw, w.scale, offs, F32)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_fp32_train_step_and_int8_forward_on_the_card(dev):
+    """A tiny fp32 model: its int8-weight forward (the embedding kept fp32,
+    so x stays fp32: kernel 10 in fp32) within relative L2 1e-4 of the
+    CPU's logits; then one SGD step on the card (kernels 2 + 3 and 11 in
+    fp32) against the CPU's plain step, the loss within relative 1e-5 and
+    every gradient within relative L2 1e-4."""
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama, wquant
+
+    cfg = llama.LlamaConfig.tiny(vocab=256, dim=256, layers=2, heads=4, kv_heads=2,
+                                 ffn=512)
+    assert cfg.dtype == F32
+    p_gpu = llama.init_params(cfg, seed=3, device=dev)
+    p_cpu = dict(layers=[{k: t.cpu() for k, t in lp.items()} for lp in p_gpu["layers"]],
+                 **{k: p_gpu[k].cpu() for k in ("embed", "final_norm", "lm_head")})
+    toks = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 129))
+    with torch.no_grad():
+        _build.reset_launches()
+        a = llama.forward(wquant.quantize_params(p_gpu, include_embed=False),
+                          torch.as_tensor(toks, device=dev), cfg)
+        assert _build.launches["wmatmul_fp32"] == 7 * cfg.n_layers + 1
+        r = llama.forward(wquant.quantize_params(p_cpu, include_embed=False),
+                          torch.as_tensor(toks), cfg)
+    assert a.dtype == F32
+    assert float((a.cpu() - r).norm()) <= 1e-4 * float(r.norm())
+    res = {}
+    for name, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        _build.reset_launches()
+        params, loss = llama.train_step(params, toks, cfg, lr=0.1)
+        res[name] = (float(loss), [p.grad.cpu() for p in llama.param_tensors(params)],
+                     dict(_build.launches))
+    assert res["cuda"][2].get("bwd_fused_fp32") == cfg.n_layers
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
+    for g, r in zip(res["cuda"][1], res["cpu"][1]):
+        assert float((g - r).norm()) <= 1e-4 * float(r.norm()) + 1e-12
