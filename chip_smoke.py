@@ -82,8 +82,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    within atol = rtol = 1e-4 (quantized pages: the bf16-q limits), timed
    against bounds of 4-byte rows at 3.35 TB/s and operations at 165
    TFLOP/s (TF32's 495 over three passes) and SDPA in fp32. Then
-   (fp32_backward_kernels) kernels 11-14 on fp32 inputs (the SIMT tile of
-   csrc/flash_bwd_f32.cuh) against the plain fp32 backward: the 8B train
+   (fp32_backward_kernels) kernels 11-14 on fp32 inputs (the mma.sync
+   3xTF32 tile of csrc/flash_bwd_f32.cuh) against the plain fp32
+   backward: the 8B train
    shape, d 64 / 80 / 256, Gemma3-4B's window, sinks, ALiBi, the offset,
    softcap 50, group 7, kernel 14 on 8 x 512 (bit for bit 12 + 13) and the
    ragged pack, each of dQ, dK, dV within allclose(rtol 1e-4, atol 1e-4

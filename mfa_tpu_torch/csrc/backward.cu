@@ -40,9 +40,10 @@
 // the dense launches; sinks: the fused launch only (mfa_tpu's split refuses
 // them).
 //
-// fp32 inputs (dtype MFA_F32) run every launch on the SIMT tile of
+// fp32 inputs (dtype MFA_F32) run every launch on the tile of
 // flash_bwd_f32.cuh (bf32::bwd_kernel<D, MODE, PACKED>: FUSED, DKV, DQ), the
-// same function and options in fp32 products.
+// same function and options with its five products on mma.sync in 3xTF32
+// (three TF32 products a product: fp32-class accuracy).
 //
 // Bound: tensor-core operations, 10 * hq * d flops per visible (row,
 // column) pair for the fused launch (8 for dK/dV, 6 for dQ); at training

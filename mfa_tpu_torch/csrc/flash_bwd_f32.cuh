@@ -1,15 +1,15 @@
 // The fp32 backward tile for Hopper (sm_90a): fp32 q, k, v, O and dO, one
-// SIMT block body (bwd_kernel below) behind every backward launch of the
-// port when its inputs are fp32:
-//  - kernel 11 (MODE FUSED, mfa_bwd_fused): a block owns BN keys of one kv
+// block body (bwd_kernel below) behind every backward launch of the port
+// when its inputs are fp32:
+//  - kernel 11 (MODE FUSED, mfa_bwd_fused): a block owns R keys of one kv
 //    head and walks the q tiles that see them, for every q head of the
 //    group; dK and dV stay in registers, dQ is added into the fp32
-//    workspace [b, hq, sq, dw] a row at a time by bulk async reductions
-//    (cp.reduce.async.bulk .add.f32, done in L2), so it varies in the last
-//    bits between runs, as the bf16 kernel's does;
+//    workspace [b, hq, sq, dw] by 16-byte atomic adds (float4 atomicAdd,
+//    done in L2), so it varies in the last bits between runs, as the bf16
+//    kernel's does;
 //  - kernel 12 (MODE DKV, mfa_bwd_dkv): the same block without its dQ step,
 //    deterministic;
-//  - kernel 13 (MODE DQ, mfa_bwd_dq): a block owns BM q rows of one q head
+//  - kernel 13 (MODE DQ, mfa_bwd_dq): a block owns R q rows of one q head
 //    and walks the band's key tiles with dQ in registers, deterministic;
 //  - kernel 14 (DKV and DQ on the packed layout, PACKED: mfa_varlen_bwd_dkv
 //    and mfa_varlen_bwd_dq): offsets from cu_seqlens, a block whose tile
@@ -31,40 +31,64 @@
 // and softcap are fb90::Args', and so is the band arithmetic: a key block
 // walks fb90::q_tiles, a q block the key tiles of fa90::span_of.
 //
-// Why SIMT: wgmma and mma.sync take no fp32 operand, and one TF32 pass
-// keeps about three decimal digits, short of the 1e-4 the fp32 gradients
-// are held to. Each product here is an fp32 FFMA chain, as exact as the
-// plain version's matmuls, in another order.
-//
 // Bound: operations, 10 hq D flops a visible (row, key) pair for the fused
-// launch (8 dK/dV, 6 dQ), at the card's fp32-accurate rate (3xTF32: 495 /
-// 3 TFLOP/s; 67 TFLOP/s of FFMA here). The design is the plain one, right
-// first (speed is later work):
-//  - 256 threads as 16 x 16. Of a [BM rows][BN keys] pair tile, thread (ty,
-//    tx) computes S and dP for rows ty RPT + i and keys tx + 16 j (RPT = BM
-//    / 16, CPT = BN / 16) from float4 reads of the Q, dO, K and V tiles
-//    (rows padded to D + 4 floats: K's and V's reads free of bank
-//    conflicts), forms P and dS in registers, and writes P, then dS, to
-//    one shared [BM][BN + 4] buffer.
-//  - dV += P^T dO and dK += dS^T Q are outer products over the tile's
-//    rows: the thread owns keys ty KPT + kk (KPT = BN / 16) and columns 64
-//    c + 4 tx .. + 3 of its block's dK and dV (registers to the end).
-//  - dQ = dS K is the forward tile's O += P V: the thread owns rows ty RPT
-//    + i and the same columns. FUSED: the partial goes into the Q tile's
-//    shared memory once dK's reads of Q are done, and warp 0 adds it into
-//    the workspace, one bulk reduction a row; the next tile's Q load waits
-//    for those reads.
-//  - Sizes by D (keys BN a tile, q rows BM = 64 a tile; Q, dO, K and V
-//    tiles of D + 4 floats a row, the P / dS buffer, LSE and delta of BM
-//    rows): D 64: BN 64, 87.6 KB; D 128: BN 32, 111.1 KB (two blocks an
-//    SM at both, 128 registers a thread); D 256: BN 32, 209.4 KB (one
-//    block an SM). The accumulators a thread keeps: dK + dV 2 KPT D / 16
-//    floats (32 at D 64 and 128, 64 at D 256), or dQ RPT D / 16 (16 / 32 /
-//    64).
-//  - Masks are per element; rows past sq read as zeros with LSE +inf, keys
-//    past sk as zeros (masked). Rows are dw features wide (a multiple of 4,
-//    <= D): the columns past dw load as zeros, inert in every product, and
-//    are never stored.
+// launch (8 dK/dV, 6 dQ), at the card's fp32-accurate tensor-core rate:
+// 3xTF32, 495 / 3 = 165 TFLOP/s. The design:
+//  - Products on tensor cores in 3xTF32. mma.sync m16n8k8 .tf32 with fp32
+//    accumulation for all five (S or S^T, dP or dP^T, dV, dK, dQ). Each
+//    fp32 operand x is split into hi = rna.tf32(x), lo = rna.tf32(x - hi)
+//    (cvt.rna.tf32's rounding; hi + lo keeps ~22 bits), and a product is
+//    lo.hi + hi.lo + hi.hi, the small terms first, lo.lo dropped. The split
+//    is most of the tile's instructions, so it is done once where shared
+//    memory allows: up to D 128 a walked tile (Q and dO, or K and V) is
+//    split once into hi and lo planes by the whole block after it lands;
+//    the block's own tiles, P and dS, and at D 256 the walked tiles too,
+//    are split in registers as they are read. The tensor core truncates
+//    the sums it accumulates, so every product sums into a fresh
+//    accumulator over at most 64 of its terms (products 1-2: a 64-feature
+//    chunk; dK, dV, dQ: one walked tile) and that is added to the running
+//    sum by FADD, which rounds.
+//  - The elementwise step (exp2, softcap's tanh and its derivative, ALiBi,
+//    masks, delta) stays fp32 SIMT on the accumulator fragments.
+//  - Warps: 8 a block as NR row groups x NC = D / 64 column groups. A
+//    warp's accumulators are 16 of the block's R = 16 NR own rows (keys,
+//    or q rows for DQ) x 64 features (dK and dV, or dQ): 64 / 32 registers
+//    at every D. The pair tile of a walked tile of C = 32 rows is cut the
+//    same way (16 rows x C / NC columns a warp); P and dS go through a
+//    shared exchange buffer [R][C] so that each warp reads its 16 rows
+//    over all C as the A operand of dV += P^T dO, dK += dS^T Q (dQ += dS K).
+//    FUSED: dQ of the q tile = dS K over the block's R keys, one 16-row x
+//    D / 4 slice a warp, added to the workspace by atomics. At D 128 the
+//    two warps of a row group split S and dP by features instead (each
+//    its half of D over all C columns), so that each X row is split once
+//    a tile, and swap the halves through the exchange buffers.
+//  - The mask is skipped where a warp's whole fragment is visible.
+//  - Loads: cp.async with zero fill (rows past the sequence, columns past
+//    dw) into a 2-slot ring of walked tiles (Q, dO, LSE and delta; or K
+//    and V), each slot's completion on an mbarrier that every thread's
+//    cp.async.mbarrier.arrive.noinc feeds. Tile t + 2 is issued as soon as
+//    tile t's reads are done, so it lands while tile t + 1 is in the
+//    products; a warp waits on the barrier of the tile it reads (up to D
+//    128: of the tile it splits next, at the end of tile t), never on a
+//    block barrier for a load.
+//  - Shared memory without bank conflicts: X and Y tiles of D + 8 floats a
+//    row. An operand read along the contraction (K-major) takes two
+//    adjacent features a lane as a float2 (k slots t, t + 4 <- features
+//    2t, 2t + 1, the same pairing for A and B). One read across rows
+//    (MN-major: dO, Q, K as B of dV, dK, dQ) takes two adjacent output
+//    columns as a float2 that feed two interleaved n-tiles, so a lane ends
+//    with four adjacent columns (float4 stores); from split planes it
+//    takes one float a value instead, each straight into the register the
+//    mma reads (a float2 would cost two moves a value). The exchange buffer has
+//    rows of C = 32 floats with column c at c ^ ((r & 3) << 3 | (r & 4)):
+//    conflict-free read along rows (dV, dK, and DQ's dQ) and across them
+//    (FUSED's dQ), and written from the accumulator fragments as float2.
+//  - Sizes (X: the block's K and V, or Q and dO; the ring; the exchange
+//    buffers): D 64: R 128, 177 KB (DQ 161 KB); D 128: R 64, 221 KB (DQ
+//    221 KB); D 256: R 32, 207 KB (DQ 202 KB); one block an SM, at most
+//    255 registers a thread.
+//  - Rows are dw features wide (a multiple of 4, <= D): the columns past dw
+//    load as zeros, inert in every product, and are never stored.
 #pragma once
 
 #include "flash_bwd_sm90.cuh"
@@ -73,241 +97,495 @@ namespace bf32 {
 
 using fb90::Args;
 
-constexpr int THREADS = 256;  // 16 x 16
-constexpr int BM = 64;        // q rows a tile
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int C = 32;  // rows of a walked tile (q rows; keys for DQ)
 enum Mode { FUSED = 0, DKV = 1, DQ = 2 };
 
-template <int D>
+template <int D, int MODE>
 struct Plan {
-  static constexpr int BN = D >= 128 ? 32 : 64;  // keys a tile
-  static constexpr int RPT = BM / 16;            // S rows a thread
-  static constexpr int CPT = BN / 16;            // S keys a thread
-  static constexpr int KPT = BN / 16;            // dK / dV key rows a thread
-  static constexpr int OC = D / 64;              // float4 column chunks a thread
-  static constexpr int QS = D + 4;               // Q, dO, K and V row stride (floats)
-  static constexpr int PS = BN + 4;              // P / dS row stride
-  static constexpr int q_off = 0;
-  static constexpr int do_off = BM * QS;
-  static constexpr int k_off = 2 * BM * QS;
-  static constexpr int v_off = k_off + BN * QS;
-  static constexpr int p_off = v_off + BN * QS;
-  static constexpr int l2_off = p_off + BM * PS;  // log2 LSE [BM]
-  static constexpr int dl_off = l2_off + BM;      // delta [BM]
-  static constexpr size_t bytes = (size_t)(dl_off + BM) * 4;
-  static_assert(D % 64 == 0 && BN % 16 == 0 && (KPT == 2 || KPT == 4), "tile shape");
+  static constexpr int NC = D / 64;       // column groups: 64 features a warp
+  static constexpr int NR = WARPS / NC;   // row groups of 16
+  static constexpr int R = 16 * NR;       // the block's own rows
+  static constexpr int NT = C / NC / 8;   // n-tiles of a warp's pair tile
+  static constexpr int XS = D + 8;        // X and Y row stride (floats)
+  // the walked tiles held as their hi and lo planes (split once a tile)
+  // where shared memory allows; at D 256 split as they are read
+  static constexpr bool PRESPLIT = D <= 128;
+  static constexpr int TILE = (PRESPLIT ? 2 : 1) * C * XS;  // a walked tile's floats
+  // exchange buffers: P (or S's halves at D 128) and dS
+  static constexpr int NE = MODE == DQ && D != 128 ? 1 : 2;
+  static constexpr int x_off = 0;                // X [2][R][XS]
+  static constexpr int y_off = 2 * R * XS;       // ring [2 slots][2][planes][C][XS]
+  static constexpr int e_off = y_off + 4 * TILE;  // exchange [NE][R][C]
+  static constexpr int row_off = e_off + NE * R * C;  // LSE, delta: [2 slots][2][C] or [2][R]
+  static constexpr int bar_off = row_off + (MODE == DQ ? 2 * R : 4 * C);  // 2 mbarriers
+  static constexpr size_t bytes = (size_t)bar_off * 4 + 16;
+  static_assert(D % 64 == 0 && NT >= 1 && C % 32 == 0 && bar_off % 2 == 0, "tile shape");
   static_assert(bytes <= 232448, "a block's shared memory");
 };
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
-}
-
-// Rows [0, NR) of `src` (rows rs floats apart) into a tile of stride QS:
-// zeros past `valid` rows and past dw columns.
-template <int D, int NR>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t rs, int valid,
-                                          int dw) {
-  constexpr int QS = Plan<D>::QS;
-  for (int idx = threadIdx.x; idx < NR * (D / 4); idx += THREADS) {
-    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid && c < dw) x = __ldg(reinterpret_cast<const float4*>(src + r * rs + c));
-    st4(dst + r * QS + c, x);
-  }
-}
-
-// The BM rows' log2 LSE (+inf on a row that saw no column or past `valid`:
-// its P is 0) and delta, from contiguous lse and delta.
-__device__ __forceinline__ void load_rows(float* l2s, float* dls, const float* lse,
-                                          const float* delta, int valid) {
-  for (int r = threadIdx.x; r < BM; r += THREADS) {
-    float l2 = INFINITY, dl = 0.f;
-    if (r < valid) {
-      const float x = __ldg(lse + r);
-      l2 = x == -INFINITY ? INFINITY : x * fb90::LOG2E;
-      dl = __ldg(delta + r);
-    }
-    l2s[r] = l2;
-    dls[r] = dl;
-  }
-}
-
-// The pair tile of q rows (positions p0 + r) and keys kv0 + c in shared
-// memory -> P and dS for the thread's rows ty RPT + i and keys tx + 16 j.
-template <int D>
-__device__ __forceinline__ void p_ds(const float* sm, const Args& a, int p0, int kv0, float sl,
-                                     float (&p)[Plan<D>::RPT][Plan<D>::CPT],
-                                     float (&ds)[Plan<D>::RPT][Plan<D>::CPT]) {
-  using P = Plan<D>;
-  constexpr int RPT = P::RPT, CPT = P::CPT, QS = P::QS;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) p[i][j] = ds[i][j] = 0.f;
-  // S = Q K^T into p, dP = dO V^T into ds: two chains, so that one chain's
-  // operands are live at a time; two k steps at once, one at 64 keys a tile
-  // (there two spilled past the 128 registers of two blocks an SM)
-  constexpr int UNROLL = CPT > 2 ? 1 : 2;
-#pragma unroll UNROLL
-  for (int kk = 0; kk < D; kk += 4) {
-    float4 qa[RPT], kb[CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) qa[i] = ld4(sm + P::q_off + (ty * RPT + i) * QS + kk);
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) kb[j] = ld4(sm + P::k_off + (tx + 16 * j) * QS + kk);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        float x = p[i][j];
-        x = fmaf(qa[i].x, kb[j].x, x);
-        x = fmaf(qa[i].y, kb[j].y, x);
-        x = fmaf(qa[i].z, kb[j].z, x);
-        x = fmaf(qa[i].w, kb[j].w, x);
-        p[i][j] = x;
-      }
-  }
-#pragma unroll UNROLL
-  for (int kk = 0; kk < D; kk += 4) {
-    float4 ga[RPT], vb[CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) ga[i] = ld4(sm + P::do_off + (ty * RPT + i) * QS + kk);
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) vb[j] = ld4(sm + P::v_off + (tx + 16 * j) * QS + kk);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        float x = ds[i][j];
-        x = fmaf(ga[i].x, vb[j].x, x);
-        x = fmaf(ga[i].y, vb[j].y, x);
-        x = fmaf(ga[i].z, vb[j].z, x);
-        x = fmaf(ga[i].w, vb[j].w, x);
-        ds[i][j] = x;
-      }
-  }
-  // P and dS in place, masked per element
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty * RPT + i, pos = p0 + r;
-    const float l2 = sm[P::l2_off + r], dl = sm[P::dl_off + r];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int key = kv0 + tx + 16 * j;
-      bool ok = key < a.sk;
-      if (a.wr >= 0) ok = ok && key <= pos + a.wr;
-      if (a.wl >= 0) ok = ok && (key >= pos - a.wl || key < a.sinks);
-      float x = p[i][j], dcap = 1.f;
-      if (a.softcap > 0.f) {
-        const float t = tanhf(x * a.softcap_mul);
-        x = t * a.softcap;
-        dcap = 1.f - t * t;
-      }
-      float ex = x * a.c2 - l2;
-      if (sl != 0.f) ex -= sl * fabsf((float)(pos - key));
-      const float pr = ok ? exp2f(ex) : 0.f;
-      p[i][j] = pr;
-      ds[i][j] = pr * (ds[i][j] - dl) * a.scale * dcap;
-    }
-  }
-}
-
-// The thread's P or dS elements into the shared [BM][BN + 4] buffer.
-template <int D>
-__device__ __forceinline__ void put_tile(float* psm, const float (&x)[Plan<D>::RPT][Plan<D>::CPT]) {
-  using P = Plan<D>;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < P::RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < P::CPT; ++j) psm[(ty * P::RPT + i) * P::PS + tx + 16 * j] = x[i][j];
-}
-
-// acc[kk][c] += sum_r w[r][key kk] x[r][column c] over the tile's BM rows
-// (dV += P^T dO, dK += dS^T Q): keys ty KPT + kk, columns 64 c + 4 tx.
-template <int D>
-__device__ __forceinline__ void outer_acc(float (&acc)[Plan<D>::KPT][Plan<D>::OC][4],
-                                          const float* psm, const float* xs) {
-  using P = Plan<D>;
-  constexpr int KPT = P::KPT;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int r = 0; r < BM; ++r) {
-    float w[KPT];
-    if constexpr (KPT == 4) {
-      const float4 t = ld4(psm + r * P::PS + ty * 4);
-      w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
-    } else {
-      const float2 t = *reinterpret_cast<const float2*>(psm + r * P::PS + ty * 2);
-      w[0] = t.x, w[1] = t.y;
-    }
-#pragma unroll
-    for (int c = 0; c < P::OC; ++c) {
-      const float4 g = ld4(xs + r * P::QS + 64 * c + 4 * tx);
-#pragma unroll
-      for (int kk = 0; kk < KPT; ++kk) fma4(acc[kk][c], w[kk], g);
-    }
-  }
-}
-
-// acc[i][c] += sum_j dS[row i][j] K[j][column c] over the tile's BN keys:
-// rows ty RPT + i, columns 64 c + 4 tx.
-template <int D>
-__device__ __forceinline__ void dq_acc(float (&acc)[Plan<D>::RPT][Plan<D>::OC][4],
-                                       const float* psm, const float* ks) {
-  using P = Plan<D>;
-  constexpr int RPT = P::RPT;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 2
-  for (int j = 0; j < P::BN; j += 4) {
-    float4 w[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) w[i] = ld4(psm + (ty * RPT + i) * P::PS + j);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-#pragma unroll
-      for (int c = 0; c < P::OC; ++c) {
-        const float4 kv = ld4(ks + (j + e) * P::QS + 64 * c + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) fma4(acc[i][c], comp(w[i], e), kv);
-      }
-    }
-  }
-}
 
 __device__ __forceinline__ float* smem_f32() {
   extern __shared__ __align__(16) float bf32_smem[];
   return bf32_smem;
 }
 
-// FUSED / DKV: grid (hkv, batch, ceil(sk / BN)), packed (hkv, sequence,
-// ceil(max_sk / BN)); the key tile is the slowest axis, so the causal
+// -- loads ------------------------------------------------------------------
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+// The barrier's arrival of this thread once its cp.async copies so far land.
+__device__ __forceinline__ void cp_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Rows [0, NR) of `src` (rows rs floats apart) into a tile of stride D + 8:
+// zeros past `valid` rows and past dw columns.
+template <int D, int NR>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t rs, int valid,
+                                          int dw) {
+  constexpr int CH = D / 4, STEP = THREADS / CH;  // 16-byte chunks a row, rows a pass
+  static_assert(NR % STEP == 0, "whole passes");
+  const int r0 = threadIdx.x / CH, c = (threadIdx.x % CH) * 4;
+  const float* s = src + r0 * rs + c;
+  float* d = dst + r0 * (D + 8) + c;
+#pragma unroll
+  for (int i = 0; i < NR / STEP; ++i) {
+    const bool ok = c < dw && r0 + i * STEP < valid;
+    cp16(d + i * STEP * (D + 8), ok ? s + i * STEP * rs : src, ok);
+  }
+}
+
+// NR rows' LSE and delta (contiguous), zeros past `valid`.
+template <int NR>
+__device__ __forceinline__ void load_rows(float* ls, float* ds, const float* lse,
+                                          const float* delta, int valid) {
+  for (int r = threadIdx.x; r < NR; r += THREADS) {
+    const bool ok = r < valid;
+    cp4(ls + r, ok ? lse + r : lse, ok);
+    cp4(ds + r, ok ? delta + r : delta, ok);
+  }
+}
+
+// -- 3xTF32 -------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
+// cvt.rna.tf32.f32's rounding on a finite x, as two integer operations on
+// its bit pattern (the cvt instruction adds an Inf / NaN guard that
+// doubles the split's cost, and the operands here are finite).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in 3xTF32: lo.hi, hi.lo, then hi.hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t h0, l0, h1, l1;
+  split(b0, h0, l0);
+  split(b1, h1, l1);
+  mma_tf32(d, al, h0, h1);
+  mma_tf32(d, ah, l0, l1);
+  mma_tf32(d, ah, h0, h1);
+}
+// The same with b split already: b0, b1's hi and lo parts.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float2 bh, float2 bl) {
+  const uint32_t h0 = __float_as_uint(bh.x), h1 = __float_as_uint(bh.y);
+  mma_tf32(d, al, h0, h1);
+  mma_tf32(d, ah, __float_as_uint(bl.x), __float_as_uint(bl.y));
+  mma_tf32(d, ah, h0, h1);
+}
+// An A fragment (a0..a3) split into its hi and lo parts.
+__device__ __forceinline__ void split4(float a0, float a1, float a2, float a3, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split(a0, hi[0], lo[0]);
+  split(a1, hi[1], lo[1]);
+  split(a2, hi[2], lo[2]);
+  split(a3, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
+// A walked slot's two tiles (C rows each, hi planes as loaded) split in
+// place: hi stays, lo goes to the plane C rows of stride D + 8 after it.
+template <int D>
+__device__ __forceinline__ void presplit(float* slot) {
+  constexpr int XS = D + 8, CH = D / 4;
+  for (int i = threadIdx.x; i < 2 * C * CH; i += THREADS) {
+    const int t = i / (C * CH), r = (i / CH) % C, c = (i % CH) * 4;
+    float* hi = slot + t * 2 * C * XS + r * XS + c;
+    const float4 x = *reinterpret_cast<const float4*>(hi);
+    uint32_t h[4], l[4];
+    split4(x.x, x.y, x.z, x.w, h, l);
+    *reinterpret_cast<float4*>(hi) = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                                                 __uint_as_float(h[2]), __uint_as_float(h[3]));
+    *reinterpret_cast<float4*>(hi + C * XS) =
+        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                    __uint_as_float(l[3]));
+  }
+}
+
+// Column c of exchange row r (rows of C = 32 floats).
+__device__ __forceinline__ int ex_at(int r, int c) {
+  return r * C + (c ^ (((r & 3) << 3) | (r & 4)));
+}
+
+// -- the products ---------------------------------------------------------
+
+// f[j] = X[r0, r0 + 16)[k0, k0 + 64) . Y[c0 + 8 j, + 8)[k0, k0 + 64)^T, a
+// fresh 64-feature chunk of the pair tile's S (S^T) or dP (dP^T); X and Y
+// K-major, rows of D + 8 floats; BSPLIT: Y is a hi plane with its lo plane
+// C rows after it.
+template <int D, int NT, bool BSPLIT>
+__device__ __forceinline__ void pair_chunk(float (&f)[NT][4], const float* xs, const float* ys,
+                                           int r0, int c0, int k0) {
+  constexpr int XS = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const float* xa = xs + (r0 + g) * XS + 2 * t4 + k0;
+  const float* yb = ys + (c0 + g) * XS + 2 * t4 + k0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 64; kk += 8) {
+    const float2 x0 = ld2(xa + kk), x1 = ld2(xa + 8 * XS + kk);
+    uint32_t ah[4], al[4];
+    split4(x0.x, x1.x, x0.y, x1.y, ah, al);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 y = ld2(yb + 8 * j * XS + kk);
+      if constexpr (BSPLIT)
+        mma3(f[j], ah, al, y, ld2(yb + C * XS + 8 * j * XS + kk));
+      else
+        mma3(f[j], ah, al, y.x, y.y);
+    }
+  }
+}
+
+// s[j] = X[r0, r0 + 16) . Y[c0 + 8 j, + 8)^T over D: the pair tile's S
+// (S^T) or dP (dP^T), its 64-feature chunks added in order.
+template <int D, int NT, bool BSPLIT>
+__device__ __forceinline__ void pair_products(float (&s)[NT][4], const float* xs, const float* ys,
+                                              int r0, int c0) {
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 64) {
+    float f[NT][4];
+    pair_chunk<D, NT, BSPLIT>(f, xs, ys, r0, c0, k0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = k0 == 0 ? f[j][e] : s[j][e] + f[j][e];
+  }
+}
+
+// D 128 (two column groups): S and dP of the warp's 16 columns c0 = 16 cg
+// with each X row split once a tile, not once a column group. The warp
+// takes its feature half [64 cg, + 64) over all C columns, hands the
+// partner warp (same rows, other cg) its half of the partner's columns
+// through the exchange buffers es_s, es_dp (which the partner overwrites
+// with P and dS once read) and adds the partner's half of its own: the
+// same two chunk sums as pair_products.
+template <int D>
+__device__ __forceinline__ void pair_products_halves(float (&s)[2][4], float (&dp)[2][4],
+                                                     const float* xs, const float* ys,
+                                                     const float* x2s, const float* y2s,
+                                                     float* es_s, float* es_dp, int r0, int cg) {
+  static_assert(D == 128, "two feature halves of 64");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float f[4][4], h[4][4];
+  pair_chunk<D, 4, true>(f, xs, ys, r0, 0, 64 * cg);
+  pair_chunk<D, 4, true>(h, x2s, y2s, r0, 0, 64 * cg);
+  // the partner's columns (n-tiles 2 pc + n, pc = 1 - cg) out, by selects on
+  // constant indices so that f and h stay in registers
+  float fo[2][4], ho[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      fo[n][e] = cg ? f[n][e] : f[2 + n][e];
+      ho[n][e] = cg ? h[n][e] : h[2 + n][e];
+      s[n][e] = cg ? f[2 + n][e] : f[n][e];
+      dp[n][e] = cg ? h[2 + n][e] : h[n][e];
+    }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int c = 16 * (1 - cg) + 8 * n + 2 * t4;
+    *reinterpret_cast<float2*>(es_s + ex_at(r0 + g, c)) = make_float2(fo[n][0], fo[n][1]);
+    *reinterpret_cast<float2*>(es_s + ex_at(r0 + g + 8, c)) = make_float2(fo[n][2], fo[n][3]);
+    *reinterpret_cast<float2*>(es_dp + ex_at(r0 + g, c)) = make_float2(ho[n][0], ho[n][1]);
+    *reinterpret_cast<float2*>(es_dp + ex_at(r0 + g + 8, c)) = make_float2(ho[n][2], ho[n][3]);
+  }
+  named_sync(1 + r0 / 16, 64);  // the two warps of rows r0
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int c = 16 * cg + 8 * n + 2 * t4;
+    const float2 s0 = ld2(es_s + ex_at(r0 + g, c)), s1 = ld2(es_s + ex_at(r0 + g + 8, c));
+    const float2 d0 = ld2(es_dp + ex_at(r0 + g, c)), d1 = ld2(es_dp + ex_at(r0 + g + 8, c));
+    s[n][0] += s0.x, s[n][1] += s0.y, s[n][2] += s1.x, s[n][3] += s1.y;
+    dp[n][0] += d0.x, dp[n][1] += d0.y, dp[n][2] += d1.x, dp[n][3] += d1.y;
+  }
+}
+
+// S and dP of the warp's pair-tile fragment (rows r0, columns c0): whole
+// chunks in the warp (pair_products), or at D 128 feature halves swapped
+// with the partner warp through the exchange buffers es_s, es_dp.
+template <int D, int NT, bool BSPLIT>
+__device__ __forceinline__ void s_dp(float (&s)[NT][4], float (&dp)[NT][4], const float* xs,
+                                     const float* ys, const float* x2s, const float* y2s,
+                                     float* es_s, float* es_dp, int r0, int cg, int c0) {
+  if constexpr (D == 128) {
+    static_assert(NT == 2 && BSPLIT, "D 128: two column groups, split planes");
+    pair_products_halves<D>(s, dp, xs, ys, x2s, y2s, es_s, es_dp, r0, cg);
+  } else {
+    pair_products<D, NT, BSPLIT>(s, xs, ys, r0, c0);
+    pair_products<D, NT, BSPLIT>(dp, x2s, y2s, r0, c0);
+  }
+}
+
+// acc += E[r0, r0 + 16)[0, C) . Z[0, C)[cd, cd + 64): dV += P^T dO, dK +=
+// dS^T Q, or dQ += dS K. E: an exchange buffer (A, K-major); Z: rows of D
+// + 8 floats (B, MN-major). acc[p] holds n-tile pair p: columns cd + 16 p
+// + 2 n and + 1 as its two n-tiles, so that a lane's four are adjacent;
+// BSPLIT (Z a hi plane, its lo plane C rows after it): n-tiles 2 p and 2 p
+// + 1 as they are, each B value loaded into the register it is used in.
+template <int D, bool BSPLIT>
+__device__ __forceinline__ void tile_products(float (&acc)[4][8], const float* es,
+                                              const float* zs, int r0, int cd) {
+  constexpr int XS = D + 8, KS = C / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int k = 8 * s + t4;
+    split4(es[ex_at(r0 + g, k)], es[ex_at(r0 + g + 8, k)], es[ex_at(r0 + g, k + 4)],
+           es[ex_at(r0 + g + 8, k + 4)], ah[s], al[s]);
+  }
+  const float* zb = zs + t4 * XS + cd + 2 * g;
+  const float* zn = zs + t4 * XS + cd + g;  // BSPLIT: plain n-tiles
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    float f[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      if constexpr (BSPLIT) {  // n-tiles 2 p and 2 p + 1, b0 and b1 loaded where they go
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float* z = zn + 8 * s * XS + 8 * (2 * p + n);
+          mma3(f[n], ah[s], al[s], make_float2(z[0], z[4 * XS]),
+               make_float2(z[C * XS], z[C * XS + 4 * XS]));
+        }
+      } else {
+        const float2 b0 = ld2(zb + 8 * s * XS + 16 * p), b1 = ld2(zb + (8 * s + 4) * XS + 16 * p);
+        mma3(f[0], ah[s], al[s], b0.x, b1.x);
+        mma3(f[1], ah[s], al[s], b0.y, b1.y);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[p][e] += f[0][e];
+      acc[p][4 + e] += f[1][e];
+    }
+  }
+}
+
+// Store a warp's accumulators (rows r0 + g and + 8 of `out`, rows rs
+// floats apart, `valid` of them; n-tile pairs from column cd, laid out as
+// tile_products<D, BSPLIT> leaves them) below dw.
+template <bool BSPLIT>
+__device__ __forceinline__ void store_acc(float* out, size_t rs, const float (&acc)[4][8], int r0,
+                                          int cd, int valid, int dw) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  if constexpr (BSPLIT) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = cd + 8 * j + 2 * t4;
+      if (col >= dw) continue;
+      const float* f = acc[j / 2] + 4 * (j % 2);
+      if (r0 + g < valid)
+        *reinterpret_cast<float2*>(out + (size_t)(r0 + g) * rs + col) = make_float2(f[0], f[1]);
+      if (r0 + g + 8 < valid)
+        *reinterpret_cast<float2*>(out + (size_t)(r0 + g + 8) * rs + col) =
+            make_float2(f[2], f[3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int col = cd + 16 * p + 4 * t4;
+    if (col >= dw) continue;
+    const float(&f)[8] = acc[p];
+    if (r0 + g < valid)
+      *reinterpret_cast<float4*>(out + (size_t)(r0 + g) * rs + col) =
+          make_float4(f[0], f[4], f[1], f[5]);
+    if (r0 + g + 8 < valid)
+      *reinterpret_cast<float4*>(out + (size_t)(r0 + g + 8) * rs + col) =
+          make_float4(f[2], f[6], f[3], f[7]);
+  }
+}
+
+// P and dS of a pair-tile fragment in place of S and dP (KEYROWS: rows are
+// keys kv0 + row and columns q rows q0 + col; else rows are q rows and
+// columns keys), the row's log2 LSE from its natural-log `ls`, delta `dl`.
+template <bool KEYROWS, bool MASK, int NT>
+__device__ __forceinline__ void p_ds(float (&s)[NT][4], float (&dp)[NT][4], const Args& a,
+                                     const float* ls, const float* dl, int q0, int kv0, int r0,
+                                     int c0, float sl) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e >> 1), col = c0 + 8 * j + 2 * t4 + (e & 1);
+      const int qi = KEYROWS ? col : row, key = kv0 + (KEYROWS ? row : col);
+      const int pos = q0 + qi + a.kv_off;
+      bool ok = true;
+      if constexpr (MASK) {
+        ok = key < a.sk && q0 + qi < a.sq;
+        if (a.wr >= 0) ok = ok && key <= pos + a.wr;
+        if (a.wl >= 0) ok = ok && (key >= pos - a.wl || key < a.sinks);
+      }
+      const float lse = ls[qi];
+      float x = s[j][e], dcap = 1.f;
+      if (a.softcap > 0.f) {
+        const float t = tanhf(x * a.softcap_mul);
+        x = t * a.softcap;
+        dcap = 1.f - t * t;
+      }
+      float ex = x * a.c2 - (lse == -INFINITY ? INFINITY : lse * fb90::LOG2E);
+      if (sl != 0.f) ex -= sl * fabsf((float)(pos - key));
+      const float pr = ok ? exp2f(ex) : 0.f;
+      s[j][e] = pr;
+      dp[j][e] = pr * (dp[j][e] - dl[qi]) * a.scale * dcap;
+    }
+}
+
+// P and dS of the warp's fragment (p_ds), masked unless every one of its
+// pairs is visible: q rows [qa, qa + nq) and keys [ka, ka + nk) inside the
+// sequences and the band.
+template <bool KEYROWS, int NT>
+__device__ __forceinline__ void p_ds_tile(float (&s)[NT][4], float (&dp)[NT][4], const Args& a,
+                                          const float* ls, const float* dl, int q0, int kv0,
+                                          int r0, int c0, float sl) {
+  constexpr int NQ = KEYROWS ? 8 * NT : 16, NK = KEYROWS ? 16 : 8 * NT;
+  const int qa = q0 + (KEYROWS ? c0 : r0), ka = kv0 + (KEYROWS ? r0 : c0);
+  const int pa = qa + a.kv_off;  // the first row's position
+  const bool whole = ka + NK <= a.sk && qa + NQ <= a.sq &&
+                     (a.wr < 0 || ka + NK - 1 <= pa + a.wr) &&
+                     (a.wl < 0 || ka >= pa + NQ - 1 - a.wl);
+  if (whole)
+    p_ds<KEYROWS, false, NT>(s, dp, a, ls, dl, q0, kv0, r0, c0, sl);
+  else
+    p_ds<KEYROWS, true, NT>(s, dp, a, ls, dl, q0, kv0, r0, c0, sl);
+}
+
+// A pair-tile fragment into an exchange buffer, rows r0 + g (+ 8), columns
+// c0 + 8 j + 2 t4 (+ 1).
+template <int NT>
+__device__ __forceinline__ void put_tile(float* es, const float (&x)[NT][4], int r0, int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = c0 + 8 * j + 2 * t4;
+    *reinterpret_cast<float2*>(es + ex_at(r0 + g, c)) = make_float2(x[j][0], x[j][1]);
+    *reinterpret_cast<float2*>(es + ex_at(r0 + g + 8, c)) = make_float2(x[j][2], x[j][3]);
+  }
+}
+
+// FUSED: the q tile's dQ = dS K over the block's R keys (dS^T in `es`, K in
+// `ks`), warp w's rows 16 (w % 2) + g (+ 8) and D / 4 columns from D / 4
+// (w / 2), added into the workspace rows `ws` (dw floats apart, `valid`).
+template <int D, int R>
+__device__ __forceinline__ void dq_step(float* ws, const float* es, const float* ks, int valid,
+                                        int dw) {
+  constexpr int XS = D + 8, NP = D / 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int m0 = 16 * (warp & 1), cd = (D / 4) * (warp >> 1);
+  float acc[NP][2][4];  // n-tile pair p: columns cd + 16 p + 2 n and + 1
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[p][0][e] = acc[p][1][e] = 0.f;
+  const float* kb = ks + t4 * XS + cd + 2 * g;
+#pragma unroll 4
+  for (int kk = 0; kk < R; kk += 8) {
+    uint32_t ah[4], al[4];
+    split4(es[ex_at(kk + t4, m0 + g)], es[ex_at(kk + t4, m0 + g + 8)],
+           es[ex_at(kk + t4 + 4, m0 + g)], es[ex_at(kk + t4 + 4, m0 + g + 8)], ah, al);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float2 b0 = ld2(kb + kk * XS + 16 * p), b1 = ld2(kb + (kk + 4) * XS + 16 * p);
+      mma3(acc[p][0], ah, al, b0.x, b1.x);
+      mma3(acc[p][1], ah, al, b0.y, b1.y);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int col = cd + 16 * p + 4 * t4;
+    if (col >= dw) continue;
+    const float(&f)[4] = acc[p][0];
+    const float(&h)[4] = acc[p][1];
+    if (m0 + g < valid)
+      atomicAdd(reinterpret_cast<float4*>(ws + (size_t)(m0 + g) * dw + col),
+                make_float4(f[0], h[0], f[1], h[1]));
+    if (m0 + g + 8 < valid)
+      atomicAdd(reinterpret_cast<float4*>(ws + (size_t)(m0 + g + 8) * dw + col),
+                make_float4(f[2], h[2], f[3], h[3]));
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[4][8]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[p][e] = 0.f;
+}
+
+// FUSED / DKV: grid (hkv, batch, ceil(sk / R)), packed (hkv, sequence,
+// ceil(max_sk / R)); the key tile is the slowest axis, so the causal
 // blocks with the most q tiles launch first. DQ: grid (hq, batch, ceil(sq
-// / BM)), packed ceil(max_sq / BM), the q tile reversed (the causal blocks
+// / R)), packed ceil(max_sq / R), the q tile reversed (the causal blocks
 // with the most key tiles first). dq: the zeroed fp32 workspace (FUSED) or
 // the dQ output (DQ); dk, dv: the outputs (FUSED, DKV). Layouts as
 // flash_bwd_sm90.cuh's, fp32, rows of dw features.
 template <int D, int MODE, bool PACKED>
-__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
+__global__ void __launch_bounds__(THREADS, 1)
     bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dO,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
                const Args args) {
   static_assert(!(MODE == FUSED && PACKED), "the packed layout runs the split");
-  using P = Plan<D>;
-  constexpr int BN = P::BN, RPT = P::RPT, CPT = P::CPT, KPT = P::KPT, OC = P::OC, QS = P::QS;
+  using P = Plan<D, MODE>;
+  constexpr int R = P::R, NT = P::NT, XS = P::XS, NC = P::NC, TILE = P::TILE;
+  constexpr bool SPLIT = P::PRESPLIT;
   float* sm = smem_f32();
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float* xs = sm + P::x_off;
+  float* ys = sm + P::y_off;
+  float* es = sm + P::e_off;
+  float* rows = sm + P::row_off;
+  const uint32_t bars = smem_u32(sm + P::bar_off);
+  const int warp = threadIdx.x >> 5;
+  const int r0 = 16 * (warp / NC), cg = warp % NC;
+  const int c0 = cg * (C / NC), cd = 64 * cg;  // the warp's pair-tile columns, features
   const int b = blockIdx.y;
   Args a = args;
   const int dw = a.dw, group = a.hq / a.hkv;
@@ -315,9 +593,21 @@ __global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
   const size_t q_rs = PACKED ? (size_t)a.hq * dw : (size_t)dw;
   const size_t k_rs = PACKED ? (size_t)a.hkv * dw : (size_t)dw;
   int q_row0 = 0, k_row0 = 0;
+  // walked tile it: its slot (two tiles of TILE floats), its barrier
+  auto slot_of = [&](int it) { return ys + (it & 1) * 2 * TILE; };
+  auto wait_tile = [&](int it) { mbar_wait(bars + 8 * (it & 1), (it >> 1) & 1); };
+  // tile it + 1 landed and split (SPLIT), before the barrier that ends tile it
+  auto next_ready = [&](int it, int n) {
+    if constexpr (SPLIT) {
+      if (it + 1 < n) {
+        wait_tile(it + 1);
+        presplit<D>(slot_of(it + 1));
+      }
+    }
+  };
 
   if constexpr (MODE == DQ) {
-    const int h = blockIdx.x, q0 = (gridDim.z - 1 - blockIdx.z) * BM;
+    const int h = blockIdx.x, q0 = (gridDim.z - 1 - blockIdx.z) * R;
     if constexpr (PACKED) {
       q_row0 = a.cu_q[b];
       a.sq = a.cu_q[b + 1] - q_row0;
@@ -330,46 +620,54 @@ __global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
     const size_t rh = PACKED ? (size_t)h * a.total_q + q_row0 + q0 : qh;  // LSE, delta
     const float* kbase = k + (PACKED ? (size_t)k_row0 * a.hkv + hk : (size_t)(b * a.hkv + hk) * a.sk) * dw;
     const float* vbase = v + (kbase - k);
-    const int valid = min(BM, a.sq - q0);
-    load_tile<D, BM>(sm + P::q_off, q + qh * dw, q_rs, valid, dw);
-    load_tile<D, BM>(sm + P::do_off, dO + qh * dw, q_rs, valid, dw);
-    load_rows(sm + P::l2_off, sm + P::dl_off, lse + rh, delta + rh, valid);
+    const int valid = min(R, a.sq - q0);
     const int p0 = q0 + a.kv_off;
-    const fa90::Span sp = fa90::span_of(p0, p0 + valid - 1, a.sk, a.wl, a.wr, BN);
-    const float sl = a.slopes != nullptr ? a.slopes[h] : 0.f;
-    float acc[RPT][OC][4];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < OC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
-    for (int t = sp.first; t <= sp.last; ++t) {
-      const int kv0 = t * BN;
-      __syncthreads();  // the previous tile's reads of K, V and dS are done
-      load_tile<D, BN>(sm + P::k_off, kbase + kv0 * k_rs, k_rs, a.sk - kv0, dw);
-      load_tile<D, BN>(sm + P::v_off, vbase + kv0 * k_rs, k_rs, a.sk - kv0, dw);
+    const fa90::Span sp = fa90::span_of(p0, p0 + valid - 1, a.sk, a.wl, a.wr, C);
+    const int n = sp.last - sp.first + 1;
+    float acc[4][8];
+    zero_acc(acc);
+    if (n > 0) {
+      const float sl = a.slopes != nullptr ? a.slopes[h] : 0.f;
+      if (threadIdx.x == 0) {
+        mbar_init(bars, THREADS);
+        mbar_init(bars + 8, THREADS);
+      }
       __syncthreads();
-      float pt[RPT][CPT], dst[RPT][CPT];
-      p_ds<D>(sm, a, p0, kv0, sl, pt, dst);
-      put_tile<D>(sm + P::p_off, dst);
-      __syncthreads();
-      dq_acc<D>(acc, sm + P::p_off, sm + P::k_off);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty * RPT + i;
-      if (r >= valid) continue;
-#pragma unroll
-      for (int c = 0; c < OC; ++c) {
-        const int col = 64 * c + 4 * tx;
-        if (col < dw)
-          st4(dq + (qh * dw) + r * q_rs + col,
-              make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]));
+      auto fill = [&](int it) {  // key tile sp.first + it (K, then V) into its slot
+        const int kv0 = (sp.first + it) * C;
+        float* slot = slot_of(it);
+        load_tile<D, C>(slot, kbase + kv0 * k_rs, k_rs, a.sk - kv0, dw);
+        load_tile<D, C>(slot + TILE, vbase + kv0 * k_rs, k_rs, a.sk - kv0, dw);
+        cp_arrive(bars + 8 * (it & 1));
+      };
+      load_tile<D, R>(xs, q + qh * dw, q_rs, valid, dw);
+      load_tile<D, R>(xs + R * XS, dO + qh * dw, q_rs, valid, dw);
+      load_rows<R>(rows, rows + R, lse + rh, delta + rh, valid);
+      fill(0);
+      if (n > 1) fill(1);
+      if constexpr (SPLIT) {
+        wait_tile(0);
+        presplit<D>(slot_of(0));
+        __syncthreads();
+      }
+      for (int it = 0; it < n; ++it) {
+        const int kv0 = (sp.first + it) * C;
+        const float* kt = slot_of(it);
+        if constexpr (!SPLIT) wait_tile(it);
+        float st[NT][4], dpt[NT][4];  // S = Q K^T, dP = dO V^T
+        s_dp<D, NT, SPLIT>(st, dpt, xs, kt, xs + R * XS, kt + TILE, es + R * C, es, r0, cg, c0);
+        p_ds_tile<false, NT>(st, dpt, a, rows, rows + R, q0, kv0, r0, c0, sl);
+        put_tile<NT>(es, dpt, r0, c0);
+        __syncthreads();  // dS is whole
+        tile_products<D, SPLIT>(acc, es, kt, r0, cd);  // dQ += dS K
+        next_ready(it, n);
+        __syncthreads();  // every read of the slot and of dS is done
+        if (it + 2 < n) fill(it + 2);
       }
     }
+    store_acc<SPLIT>(dq + qh * dw, q_rs, acc, r0, cd, valid, dw);
   } else {
-    const int hk = blockIdx.x, kv0 = blockIdx.z * BN;
+    const int hk = blockIdx.x, kv0 = blockIdx.z * R;
     if constexpr (PACKED) {
       k_row0 = a.cu_k[b];
       a.sk = a.cu_k[b + 1] - k_row0;
@@ -379,89 +677,70 @@ __global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
     }
     const size_t kh = PACKED ? ((size_t)k_row0 + kv0) * a.hkv + hk
                              : (size_t)(b * a.hkv + hk) * a.sk + kv0;
-    const int kvalid = min(BN, a.sk - kv0);
-    load_tile<D, BN>(sm + P::k_off, k + kh * dw, k_rs, kvalid, dw);
-    load_tile<D, BN>(sm + P::v_off, v + kh * dw, k_rs, kvalid, dw);
-    const fb90::QTiles qt = fb90::q_tiles(kv0, BN, BM, a);
-    float dka[KPT][OC][4], dva[KPT][OC][4];
-#pragma unroll
-    for (int kk = 0; kk < KPT; ++kk)
-#pragma unroll
-      for (int c = 0; c < OC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dka[kk][c][e] = dva[kk][c][e] = 0.f;
-    const uint32_t q_smem = smem_u32(sm + P::q_off);
-    for (int hi = 0; hi < group; ++hi) {
-      const int h = hk * group + hi;
-      const float sl = a.slopes != nullptr ? a.slopes[h] : 0.f;
-      for (int t = qt.first; t <= qt.last; ++t) {
-        const int q0 = t * BM;
+    const int kvalid = min(R, a.sk - kv0);
+    const fb90::QTiles qt = fb90::q_tiles(kv0, R, C, a);
+    const int per_head = max(0, qt.last - qt.first + 1);
+    const int n = group * per_head;
+    float dka[4][8], dva[4][8];
+    zero_acc(dka);
+    zero_acc(dva);
+    if (n > 0) {
+      if (threadIdx.x == 0) {
+        mbar_init(bars, THREADS);
+        mbar_init(bars + 8, THREADS);
+      }
+      __syncthreads();
+      // q tile it % per_head of head it / per_head (Q, then dO) into its slot
+      auto fill = [&](int it) {
+        const int h = hk * group + it / per_head, q0 = (qt.first + it % per_head) * C;
         const size_t qh = PACKED ? ((size_t)q_row0 + q0) * a.hq + h
                                  : (size_t)(b * a.hq + h) * a.sq + q0;
         const size_t rh = PACKED ? (size_t)h * a.total_q + q_row0 + q0 : qh;
-        const int valid = min(BM, a.sq - q0);
+        const int valid = min(C, a.sq - q0);
+        float* slot = slot_of(it);
+        float* rs = rows + (it & 1) * 2 * C;
+        load_tile<D, C>(slot, q + qh * dw, q_rs, valid, dw);
+        load_tile<D, C>(slot + TILE, dO + qh * dw, q_rs, valid, dw);
+        load_rows<C>(rs, rs + C, lse + rh, delta + rh, valid);
+        cp_arrive(bars + 8 * (it & 1));
+      };
+      load_tile<D, R>(xs, k + kh * dw, k_rs, kvalid, dw);
+      load_tile<D, R>(xs + R * XS, v + kh * dw, k_rs, kvalid, dw);
+      fill(0);
+      if (n > 1) fill(1);
+      if constexpr (SPLIT) {
+        wait_tile(0);
+        presplit<D>(slot_of(0));
+        __syncthreads();
+      }
+      for (int it = 0; it < n; ++it) {
+        const int h = hk * group + it / per_head, q0 = (qt.first + it % per_head) * C;
+        const float sl = a.slopes != nullptr ? a.slopes[h] : 0.f;
+        const float* qs = slot_of(it);
+        const float* dos = qs + TILE;
+        const float* rs = rows + (it & 1) * 2 * C;
+        if constexpr (!SPLIT) wait_tile(it);
+        float st[NT][4], dpt[NT][4];  // S^T = K Q^T, dP^T = V dO^T
+        s_dp<D, NT, SPLIT>(st, dpt, xs, qs, xs + R * XS, dos, es, es + R * C, r0, cg, c0);
+        p_ds_tile<true, NT>(st, dpt, a, rs, rs + C, q0, kv0, r0, c0, sl);
+        put_tile<NT>(es, st, r0, c0);
+        put_tile<NT>(es + R * C, dpt, r0, c0);
+        __syncthreads();  // P^T and dS^T are whole
+        tile_products<D, SPLIT>(dva, es, dos, r0, cd);         // dV += P^T dO
+        tile_products<D, SPLIT>(dka, es + R * C, qs, r0, cd);  // dK += dS^T Q
         if constexpr (MODE == FUSED) {
-          if (tid < 32) bulk_wait_read();  // the last tile's dQ rows have left the Q tile
+          // the workspace is [b, hq, sq, dw]: row q0 + r of head h
+          dq_step<D, R>(dq + ((size_t)(b * a.hq + h) * a.sq + q0) * dw, es + R * C, xs,
+                        min(C, a.sq - q0), dw);
         }
-        __syncthreads();  // the previous tile's reads are done
-        load_tile<D, BM>(sm + P::q_off, q + qh * dw, q_rs, valid, dw);
-        load_tile<D, BM>(sm + P::do_off, dO + qh * dw, q_rs, valid, dw);
-        load_rows(sm + P::l2_off, sm + P::dl_off, lse + rh, delta + rh, valid);
-        __syncthreads();
-        float pt[RPT][CPT], dst[RPT][CPT];
-        p_ds<D>(sm, a, q0 + a.kv_off, kv0, sl, pt, dst);
-        put_tile<D>(sm + P::p_off, pt);
-        __syncthreads();
-        outer_acc<D>(dva, sm + P::p_off, sm + P::do_off);
-        __syncthreads();
-        put_tile<D>(sm + P::p_off, dst);
-        __syncthreads();
-        outer_acc<D>(dka, sm + P::p_off, sm + P::q_off);
-        if constexpr (MODE == FUSED) {
-          float acc[RPT][OC][4];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i)
-#pragma unroll
-            for (int c = 0; c < OC; ++c)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
-          dq_acc<D>(acc, sm + P::p_off, sm + P::k_off);
-          __syncthreads();  // every read of the Q tile is done: dQ's rows go there
-#pragma unroll
-          for (int i = 0; i < RPT; ++i)
-#pragma unroll
-            for (int c = 0; c < OC; ++c)
-              st4(sm + P::q_off + (ty * RPT + i) * QS + 64 * c + 4 * tx,
-                  make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]));
-          fence_async_smem();
-          __syncthreads();
-          if (tid < 32) {
-            // the workspace is [b, hq, sq, dw]: row q0 + r of head h
-            float* ws = dq + ((size_t)(b * a.hq + h) * a.sq + q0) * dw;
-            for (int r = tid; r < valid; r += 32)
-              bulk_reduce_add_f32(ws + (size_t)r * dw, q_smem + r * QS * 4, dw * 4);
-            bulk_commit();
-          }
-        }
+        next_ready(it, n);
+        __syncthreads();  // every read of the slot and of P^T, dS^T is done
+        if (it + 2 < n) fill(it + 2);
       }
     }
     // dK and dV of the block's keys (zeros for keys no row sees)
-#pragma unroll
-    for (int kk = 0; kk < KPT; ++kk) {
-      const int j = ty * KPT + kk;
-      if (j >= kvalid) continue;
-#pragma unroll
-      for (int c = 0; c < OC; ++c) {
-        const int col = 64 * c + 4 * tx;
-        if (col >= dw) continue;
-        const size_t off = kh * dw + j * k_rs + col;
-        st4(dk + off, make_float4(dka[kk][c][0], dka[kk][c][1], dka[kk][c][2], dka[kk][c][3]));
-        st4(dv + off, make_float4(dva[kk][c][0], dva[kk][c][1], dva[kk][c][2], dva[kk][c][3]));
-      }
-    }
-    if constexpr (MODE == FUSED) {
-      if (tid < 32) bulk_wait();  // the reductions are done before the block leaves
-    }
+    store_acc<SPLIT>(dk + kh * dw, k_rs, dka, r0, cd, kvalid, dw);
+    store_acc<SPLIT>(dv + kh * dw, k_rs, dva, r0, cd, kvalid, dw);
   }
 }
 
@@ -472,14 +751,13 @@ template <int D, int MODE, bool PACKED>
 int launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
            const float* delta, float* dq, void* dk, void* dv, int batch, int rows,
            const Args& a, cudaStream_t stream) {
-  using P = Plan<D>;
+  using P = Plan<D, MODE>;
   if (a.dw <= 0 || a.dw > D || a.dw % 4 != 0) return MFA_BAD_CONFIG;
   auto kern = bwd_kernel<D, MODE, PACKED>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)P::bytes))
     return err;
-  const dim3 grid(MODE == DQ ? a.hq : a.hkv, batch,
-                  MODE == DQ ? (rows + BM - 1) / BM : (rows + P::BN - 1) / P::BN);
+  const dim3 grid(MODE == DQ ? a.hq : a.hkv, batch, (rows + P::R - 1) / P::R);
   kern<<<grid, THREADS, P::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dO), lse, delta, dq, static_cast<float*>(dk),

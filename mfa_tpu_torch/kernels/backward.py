@@ -2,7 +2,7 @@
 
 Kernels 11-14 of the port, the five launches of csrc/backward.cu, on bf16
 and fp16 inputs all on the warp-specialised wgmma + TMA kernels of
-csrc/flash_bwd_sm90.cuh (fp32 inputs: the SIMT tile of
+csrc/flash_bwd_sm90.cuh (fp32 inputs: the mma.sync 3xTF32 tile of
 csrc/flash_bwd_f32.cuh, launch names `<name>_fp32`):
 `mfa_bwd_fused` (kernel 11: dQ, dK and dV in one pass, dQ summed across
 blocks in fp32); the deterministic split, `mfa_bwd_dkv` (kernel 12: the
@@ -30,7 +30,8 @@ copied zero-padded only where a row's bytes are not a multiple of 16, and
 dQ, dK and dV come back at the caller's head_dim; zero features change
 neither delta = rowsum(dO * O) nor P) or raises; a CPU tensor runs
 `_bwd_plain` / `_varlen_bwd_plain`, the same function in fp32 PyTorch
-(the counterpart of autodiff._bwd_jnp_reference).
+(the counterpart of autodiff._bwd_jnp_reference). `_split_tf32_plain` and
+`_matmul_3xtf32_plain` emulate the fp32 tile's products for the tests.
 """
 
 from __future__ import annotations
@@ -58,18 +59,40 @@ _VL_DKV_ARGTYPES = [_P] * 10 + [_I] * 11 + [_F, _F, _P, _P]
 _VL_DQ_ARGTYPES = [_P] * 9 + [_I] * 11 + [_F, _F, _P, _P]
 
 
+def _split_tf32_plain(x):
+    """fp32 x -> (hi, lo), each a TF32 value (10 mantissa bits) in fp32:
+    hi rounds x to nearest with ties away from zero on the bit pattern, as
+    `cvt.rna.tf32.f32` does, and lo rounds x - hi the same way, so hi + lo
+    is within 2^-22 of x relative (finite x)."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def _matmul_3xtf32_plain(a, b):
+    """a @ b as csrc/flash_bwd_f32.cuh forms each product: the TF32 parts
+    of both operands, lo.hi + hi.lo + hi.hi in fp32 (the small terms
+    first), lo.lo dropped."""
+    (ah, al), (bh, bl) = _split_tf32_plain(a), _split_tf32_plain(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
 def _bwd_plain(q, k, v, out, lse, do, scale, window_left, window_right,
-               softcap, sinks=0, kv_off=0, alibi=None):
+               softcap, sinks=0, kv_off=0, alibi=None, matmul=torch.matmul):
     """fp32 reference of the kernels on [b, h, s, d]: P from the saved
     LSE, zero on dead rows, under the forward's band (sinks, kv_off) and
-    ALiBi bias; returns (dq, dk, dv) in the inputs' dtypes."""
+    ALiBi bias; returns (dq, dk, dv) in the inputs' dtypes. `matmul` forms
+    the five products (the tests pass `_matmul_3xtf32_plain`)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
     qf, dof = q.float(), do.float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    s = qf @ kf.transpose(-1, -2)
+    s = matmul(qf, kf.transpose(-1, -2))
     dcap = None
     if softcap:
         t = torch.tanh(s * (scale / softcap))
@@ -86,19 +109,19 @@ def _bwd_plain(q, k, v, out, lse, do, scale, window_left, window_right,
     p = torch.where(live, torch.exp(s - lse_f[..., None]),
                     torch.zeros((), device=q.device))
     delta = (dof * out.float()).sum(-1, keepdim=True)
-    dv = p.transpose(-1, -2) @ dof
-    ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
+    dv = matmul(p.transpose(-1, -2), dof)
+    ds = p * (matmul(dof, vf.transpose(-1, -2)) - delta) * scale
     if dcap is not None:
         ds = ds * dcap
-    dq = ds @ kf
-    dk = ds.transpose(-1, -2) @ qf
+    dq = matmul(ds, kf)
+    dk = matmul(ds.transpose(-1, -2), qf)
     dk = dk.reshape(b, hkv, group, sk, d).sum(2)
     dv = dv.reshape(b, hkv, group, sk, d).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _varlen_bwd_plain(q, k, v, out, lse, do, cu_q, cu_k, scale, window_left,
-                      window_right, softcap, alibi=None):
+                      window_right, softcap, alibi=None, matmul=torch.matmul):
     """fp32 reference of the varlen kernels: `_bwd_plain` on each packed
     sequence (LSE [hq, total_q])."""
     cq, ck = cu_q.tolist(), cu_k.tolist()
@@ -111,7 +134,7 @@ def _varlen_bwd_plain(q, k, v, out, lse, do, cu_q, cu_k, scale, window_left,
 
         g = _bwd_plain(bh(q, qs), bh(k, ks), bh(v, ks), bh(out, qs),
                        lse[:, qs][None], bh(do, qs), scale, window_left,
-                       window_right, softcap, alibi=alibi)
+                       window_right, softcap, alibi=alibi, matmul=matmul)
         dq[qs], dk[ks], dv[ks] = (x[0].transpose(0, 1) for x in g)
     return dq, dk, dv
 

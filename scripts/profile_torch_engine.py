@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_engine.py [--layers 32] [--steps 8] [--out FILE]
         [--phases bf16,chunk,train,int8,gemma3] (also: pipeline, fp8kv, int4kv,
-        sampling, spec)
+        sampling, spec, train_fp32) [--root DIR]
 
 Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
@@ -37,7 +37,15 @@ chip_smoke.py's Llama-3.2-1B-shaped draft (batch 16, int8 KV, k 4), each
 a CUDA graph replayed back to back: one draft decode step, one verify of
 4 tokens, the acceptance, the whole iteration and, beside them, one
 target decode step; from these, the acceptance rate at which an
-iteration emits tokens as fast as graphed decode. For each phase it prints the host wall time (with and without the
+iteration emits tokens as fast as graphed decode. --phases train_fp32
+traces one SGD train step of the model in fp32 (`dtype=float32`, fp32
+weights from seed 0, 4 x 2049 tokens, remat, after one untraced warm
+step): fp32 cuBLAS projections ("matmul"), the fp32 forward attention
+kernels 2 + 3 ("zero-shift prefill kernels"), kernel 11 on the fp32
+backward tile ("backward kernel") and the glue. --root DIR imports
+mfa_tpu_torch from another checkout (e.g. the parent commit unpacked
+with git archive), so two versions compare in one call, one process
+each. For each phase it prints the host wall time (with and without the
 profiler), the device time summed over kernels, the device busy share
 (kernel time / wall time) and the kernel time by group and by name;
 --out FILE also writes the full profiler tables there. Needs a CUDA
@@ -66,6 +74,8 @@ sys.path.insert(0, ROOT)
 # split route merges through combine_kernel (kernel 5's launch 2; the engine
 # reaches it only from the paged kernel).
 _FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
+# their fp32 tile: af32::fwd_kernel<D, kind, packed> (csrc/flash_fwd_f32.cuh)
+_AF32 = re.compile(r"af32::fwd_kernel<(?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
 # kernel 10's expert-bank launch: wmatmul_kernel<T, OutT, BMX, BANK = true>
 _BANK = re.compile(r"wmatmul_kernel<[^>]*, (?:\(bool\))?(?:true|1)>")
 _PAGED = re.compile(r"splitkv_kernel<[^,]+, [^,]+, (?:\(bool\))?(?:true|1)[,>]")
@@ -88,7 +98,7 @@ def _group(name: str) -> str:
         return "paged kernel"
     if _BANK.search(name):
         return "int8 expert-bank launch"
-    m = _FA90.search(name)
+    m = _FA90.search(name) or _AF32.search(name)
     if m:
         kind = m.group(1)
         return GROUPS[0][0] if kind == "0" else "image-block kernel" if kind == "5" \
@@ -583,9 +593,13 @@ def main() -> int:
                          "int8 weights), gemma3, fp8kv, int4kv (wave + decode "
                          "on fp8 / int4 KV pages), sampling (the sampled "
                          "mix's decode steps, the sampler alone), spec (a "
-                         "speculative iteration's pieces)")
+                         "speculative iteration's pieces), train_fp32 (a "
+                         "train step of the fp32 model)")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout to import mfa_tpu_torch from")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import dataclasses
 
@@ -620,8 +634,50 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "gemma3" in phases:
         gemma3_waves(acts, args.out, args.steps)
+    if "train_fp32" in phases:
+        train_fp32_phase(cfg, args, acts)
     print(f"card: {smi}", flush=True)
     return 0
+
+
+def train_fp32_phase(cfg, args, acts) -> None:
+    """One traced SGD train step of the fp32 model (4 x 2048 tokens, remat),
+    after one untraced warm step and one timed untraced step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import profile
+
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.as_tensor(
+        np.random.RandomState(2).randint(0, cfg.vocab_size, (4, 2049)),
+        device="cuda")
+
+    def train():
+        llama.train_step(params, tokens, cfg, lr=1.0, remat=True)
+        torch.cuda.synchronize()
+
+    train()  # warm-up: autograd, the kernels, gradient buffers
+    t0 = time.perf_counter()
+    train()
+    plain = (time.perf_counter() - t0) * 1e3
+    with open(args.out or os.devnull, "a") as out:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            train()
+            wall = (time.perf_counter() - t0) * 1e3
+        _report(f"fp32 train step (4 x 2048 tokens, remat, SGD, {cfg.n_layers} "
+                f"layers, mfa_tpu_torch from {os.path.abspath(args.root)})", prof,
+                wall, plain, 1, "step", out)
+    print(f"fp32 train step: {plain:.1f} ms untraced, "
+          f"{4 * 2048 / plain * 1e3:.1f} tok/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del params
+    torch.cuda.empty_cache()
 
 
 def bf16_phases(cfg, phases, args, acts) -> None:

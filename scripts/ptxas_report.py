@@ -10,14 +10,16 @@ registers a thread, spill stores and loads in bytes, the stack frame,
 whether its SASS (`cuobjdump -sass`) holds HGMMA (wgmma), HMMA (mma.sync)
 and UTMALDG (a TMA load), and the demangled name. --match keeps only the names containing the
 string. HMMA marks an mma.sync product (the decode tile of kernels 5 and
-6). Exits non-zero if a source does not compile, if an instantiation
-spills, if a kernel lacks the instructions its design rests on (REQUIRED:
-the decode tile HMMA and UTMALDG, the wgmma + TMA backward kernels
-`fb90::bwd_kernel` and `fb90::dq_kernel` and the paged prefill kernel
-`pp90::paged_prefill_kernel` HGMMA and UTMALDG), or if a kernel
-of a source holds an instruction its design retired (FORBIDDEN: HMMA in
-backward.cu, whose kernels all run wgmma). Needs nvcc and cuobjdump (the
-CUDA toolkit), not a card.
+6, the fp32 backward tile). Exits non-zero if a source does not compile,
+if an instantiation spills, if a kernel lacks the instructions its design
+rests on (REQUIRED: the decode tile HMMA and UTMALDG, the wgmma + TMA
+backward kernels `fb90::bwd_kernel` and `fb90::dq_kernel` and the paged
+prefill kernel `pp90::paged_prefill_kernel` HGMMA and UTMALDG, the fp32
+backward tile `bf32::bwd_kernel` HMMA: its products on mma.sync in
+3xTF32), or if a kernel holds an instruction its design retired
+(FORBIDDEN: HMMA in the `fb90::` backward kernels, which run wgmma;
+a name fragment matches the demangled name, parameters included).
+Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -83,9 +85,10 @@ def sass_ops(lib: str, ops=("HGMMA", "HMMA", "UTMALDG")):
 REQUIRED = {"kd90::splitkv_kernel": ("HMMA", "UTMALDG"),
             "fb90::bwd_kernel": ("HGMMA", "UTMALDG"),
             "fb90::dq_kernel": ("HGMMA", "UTMALDG"),
-            "pp90::paged_prefill_kernel": ("HGMMA", "UTMALDG")}
-# source -> SASS instructions none of its kernels may hold
-FORBIDDEN = {"backward.cu": ("HMMA",)}
+            "pp90::paged_prefill_kernel": ("HGMMA", "UTMALDG"),
+            "bf32::bwd_kernel": ("HMMA",)}
+# kernel name fragment -> SASS instructions no instantiation may hold
+FORBIDDEN = {"fb90::bwd_kernel": ("HMMA",), "fb90::dq_kernel": ("HMMA",)}
 
 
 def main() -> int:
@@ -123,7 +126,8 @@ def main() -> int:
                       flush=True)
                 missing = [op for frag, need in REQUIRED.items() if frag in name
                            for op in need if not has.get(op)]
-                banned = [op for op in FORBIDDEN.get(src, ()) if has.get(op)]
+                banned = [op for frag, ops in FORBIDDEN.items() if frag in name
+                          for op in ops if has.get(op)]
                 if st or ld or missing or banned:
                     print(f"  FAIL: spills {st} / {ld} B, missing {missing}, "
                           f"forbidden {banned}", flush=True)

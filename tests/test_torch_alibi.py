@@ -20,6 +20,7 @@ from mfa_tpu.kernels.paged_prefill import \
 from mfa_tpu_torch.kernels import autodiff as tad
 from mfa_tpu_torch.kernels.paged import paged_attention
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 SLOPES4 = np.array([0.25, 0.0625, 0.5, 0.125], np.float32)

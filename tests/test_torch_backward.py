@@ -17,6 +17,7 @@ from mfa_tpu.kernels.prefill import prefill_attention as jprefill
 from mfa_tpu_torch.kernels import _build
 from mfa_tpu_torch.kernels import autodiff as tad
 from mfa_tpu_torch.kernels.backward import flash_attention_bwd as tbwd
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

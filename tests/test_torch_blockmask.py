@@ -14,6 +14,7 @@ from mfa_tpu.kernels import blockmask as jb
 from mfa_tpu.models import llama as jl
 from mfa_tpu_torch.kernels import blockmask as tb
 from mfa_tpu_torch.models import llama as tl
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 
 def _ids(b, s, runs):

@@ -20,6 +20,7 @@ from mfa_tpu.kernels.prefill import prefill_attention as jax_prefill
 from mfa_tpu_torch.kernels import prefill
 from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.ref.oracle import attention_ref
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 ADV, BENIGN = 3e-3, 1e-4
 

@@ -31,6 +31,7 @@ from mfa_tpu.serve.engine import Engine as JaxEngine
 from mfa_tpu_torch.models import convert, llama, vision
 from mfa_tpu_torch.serve.engine import Engine
 from mfa_tpu_torch.utils.checkpoint import _flatten
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 COMMON = dict(vocab_size=96, hidden_size=64, intermediate_size=112,
               num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

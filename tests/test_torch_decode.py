@@ -16,6 +16,7 @@ from mfa_tpu_torch.dispatch.config import num_splits_heuristic
 from mfa_tpu_torch.kernels.decode import (BLOCKS_PER_SM, combine_splits,
                                           decode_attention, default_splits,
                                           split_layout)
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

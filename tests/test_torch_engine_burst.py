@@ -15,6 +15,7 @@ from mfa_tpu.models import llama as jl
 from mfa_tpu.serve.engine import Engine as JaxEngine
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.serve.engine import Engine
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 JCFG = jl.LlamaConfig.tiny(vocab=64, dim=64, layers=2, heads=4, kv_heads=2,
                            ffn=128, dtype=jnp.float32)

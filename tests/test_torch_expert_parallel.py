@@ -20,6 +20,7 @@ from mfa_tpu.shard.expert import expert_parallel_moe, expert_parallel_moe_a2a
 from mfa_tpu.shard.mesh import make_mesh
 from mfa_tpu_torch.shard.launch import Ranks
 from tests import torch_rank_fns as R
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -39,6 +39,7 @@ from mfa_tpu.serve.engine import Engine as JaxEngine
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.serve.engine import Engine
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-3, rtol=1e-3)
 KW = dict(num_pages=40, page_size=8, max_seqs=4, pages_per_seq=8)

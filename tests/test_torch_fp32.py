@@ -24,9 +24,11 @@ import torch
 
 import mfa_tpu_torch
 from mfa_tpu_torch.dispatch.config import head_dim_plan
-from mfa_tpu_torch.kernels import (_build, blockmask, decode, paged,
-                                   paged_prefill, prefill, varlen, wmatmul)
+from mfa_tpu_torch.kernels import (_build, backward, blockmask, decode,
+                                   paged, paged_prefill, prefill, varlen,
+                                   wmatmul)
 from mfa_tpu_torch.kernels.quant import FP8, pack_int4, quantize_rows
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 HEAD_DIMS = (64, 80, 128, 256)
 FORMATS = (None, "int8", "fp8", "int4")
@@ -346,26 +348,193 @@ WMM_CU = CUH.parent / "wmatmul.cu"
 SMEM_BLOCK, SMEM_SM = 232448, 233472  # bytes: a block's cap, an SM's
 
 
+def _ex_at(r, c, cols):
+    """flash_bwd_f32.cuh:ex_at: column c of exchange row r (rows of C floats)."""
+    return r * cols + (c ^ (((r & 3) << 3) | (r & 4)))
+
+
+def _conflict_free(words, width=1):
+    """A warp's shared-memory access of `width` words a lane (lane order):
+    every phase (32 / width lanes) touches each of the 32 banks once."""
+    per = 32 // width
+    for h in range(0, 32, per):
+        banks = [(w + i) % 32 for w in words[h:h + per] for i in range(width)]
+        if len(set(banks)) != 32:
+            return False
+    return True
+
+
 @pytest.mark.parametrize("d", (64, 128, 256))
 def test_fp32_backward_tile_fits(d):
-    """A Python mirror of csrc/flash_bwd_f32.cuh's Plan (BM 64 q rows, BN
-    keys read from the source; Q, dO, K and V tiles of D + 4 floats a row,
-    the P / dS buffer of BN + 4, LSE and delta): it fits a block's 227 KB
-    at every D, two blocks share an SM below D 256 (as the kernel's
-    __launch_bounds__ promises), and the thread tiles divide the block."""
+    """A Python mirror of csrc/flash_bwd_f32.cuh's Plan (WARPS, the walked
+    tile's C rows and the row stride D + 8 read from the source; NC = D /
+    64 column groups of 64 features, NR = WARPS / NC row groups of 16, R =
+    16 NR rows of the block's own; X tiles [2][R], a 2-slot ring of two [C]
+    tiles (each as hi and lo planes up to D 128), one (DQ below or above D
+    128) or two exchange buffers [R][C], LSE and delta, two
+    mbarriers): every mode fits a block's 227 KB at every D, a warp's pair
+    tile is whole n-tiles and its accumulators 16 x 64, FUSED's dQ step
+    covers the q tile with the block's 8 warps, and every shared-memory
+    access of the products is free of bank conflicts: the K-major float2
+    reads of products 1-2, the MN-major float2 reads of dV, dK and dQ's B,
+    and the swizzled exchange buffer read along and across its rows and
+    written as float2 from the accumulator fragments."""
     text = BWD_CUH.read_text()
-    bm = int(re.search(r"constexpr int BM = (\d+);", text).group(1))
-    edge, big, small = (int(x) for x in re.search(
-        r"BN = D >= (\d+) \? (\d+) : (\d+);", text).groups())
-    bn = big if d >= edge else small
-    floats = 2 * bm * (d + 4) + 2 * bn * (d + 4) + bm * (bn + 4) + 2 * bm
-    assert 4 * floats <= SMEM_BLOCK
-    if d <= 128:
-        assert 2 * (4 * floats + 1024) <= SMEM_SM
-    assert bm % 16 == 0 and bn % 16 == 0 and bn // 16 in (2, 4) and d % 64 == 0
-    # the split launch's q tiles and the fused launch's key blocks cover a
-    # sequence: a key block's band walk (fb90::q_tiles) uses the same BM
-    assert "q_tiles(kv0, BN, BM, a)" in text
+    warps = int(re.search(r"constexpr int WARPS = (\d+);", text).group(1))
+    cols = int(re.search(r"constexpr int C = (\d+);", text).group(1))
+    assert "XS = D + 8;" in text and "NC = D / 64;" in text
+    assert "PRESPLIT = D <= 128;" in text
+    assert "NE = MODE == DQ && D != 128 ? 1 : 2;" in text
+    assert "(c ^ (((r & 3) << 3) | (r & 4)))" in text
+    nc = d // 64
+    nr = warps // nc
+    rr, xs = 16 * nr, d + 8
+    assert nr * nc == warps and cols % 32 == 0 and (cols // nc) % 8 == 0
+    for mode in ("FUSED", "DKV", "DQ"):
+        ne = 1 if mode == "DQ" and d != 128 else 2  # D 128: S's halves swapped too
+        rows = 2 * rr if mode == "DQ" else 4 * cols
+        planes = 2 if d <= 128 else 1  # a walked tile's hi and lo planes
+        floats = 2 * rr * xs + 4 * planes * cols * xs + ne * rr * cols + rows
+        assert floats % 2 == 0 and 4 * floats + 16 <= SMEM_BLOCK, (mode, floats)
+    # FUSED's dQ step: 8 warps as C / 16 row tiles x 4 column slices of D / 4
+    assert warps == 2 * 4 and cols == 32 and (d // 4) % 16 == 0
+    assert "q_tiles(kv0, R, C, a)" in text and "span_of(p0, p0 + valid - 1, a.sk, a.wl, a.wr, C)" in text
+    lanes = [(ln >> 2, ln & 3) for ln in range(32)]
+    for r0 in range(0, rr, 16):
+        for kk in range(0, d, 8):  # products 1-2: X[r0 + g][kk + 2 t4], float2
+            assert _conflict_free([(r0 + g) * xs + kk + 2 * t for g, t in lanes], 2)
+        for kk in range(0, cols, 8):  # dV, dK, DQ's dQ: A along exchange rows
+            for k4 in (0, 4):
+                for g8 in (0, 8):
+                    assert _conflict_free([_ex_at(r0 + g + g8, kk + t + k4, cols)
+                                           for g, t in lanes])
+        for j in range(cols // nc // 8):  # P, dS written as float2
+            for c0 in range(0, cols, cols // nc):
+                for g8 in (0, 8):
+                    assert _conflict_free([_ex_at(r0 + g + g8, c0 + 8 * j + 2 * t, cols)
+                                           for g, t in lanes], 2)
+    for kk in range(0, max(rr, cols), 8):  # B across rows: Z[kk + t4][cd + 2 g], float2
+        for cd in range(0, d, 16):
+            assert _conflict_free([(kk + t) * xs + cd + 2 * g for g, t in lanes], 2)
+        for cd in range(0, d, 8):  # split planes: Z[kk + t4][cd + g], one float
+            assert _conflict_free([(kk + t) * xs + cd + g for g, t in lanes])
+    for kk in range(0, rr, 8):  # FUSED's dQ: A across exchange rows (dS^T -> dS)
+        for k4 in (0, 4):
+            for m in (0, 8, 16, 24):
+                assert _conflict_free([_ex_at(kk + t + k4, m + g, cols) for g, t in lanes])
+
+
+def _matmul_tf32_1pass(a, b):
+    """One TF32 pass (hi.hi only), the product 3xTF32 improves on."""
+    return backward._split_tf32_plain(a)[0] @ backward._split_tf32_plain(b)[0]
+
+
+def test_split_tf32_keeps_21_bits():
+    """csrc/flash_bwd_f32.cuh's operand split (cvt.rna.tf32 twice): on seeded
+    normal fp32 values of magnitudes 1e-30 to 1e30, hi and lo are TF32
+    values (their 13 low bits zero), hi is x rounded to 11 significant
+    bits with ties away from zero, and hi + lo is within 2^-21 of x
+    relative."""
+    rng = np.random.RandomState(24)
+    x = rng.standard_normal(1 << 16) * 10.0 ** rng.uniform(-30, 30, 1 << 16)
+    x = torch.from_numpy(x.astype(np.float32))
+    hi, lo = backward._split_tf32_plain(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert bool(((hi.double() - x.double()).abs() <= 2.0 ** -11 * x.double().abs()).all())
+    err = ((hi.double() + lo.double() - x.double()).abs() / x.double().abs()).max()
+    assert float(err) <= 2.0 ** -21
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11)])  # halfway: away from zero
+    assert backward._split_tf32_plain(tie)[0].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10)]
+
+
+def _bwd_limit(got, want):
+    """The fp32 kernels' limit on each of dQ, dK and dV: allclose(rtol 1e-4,
+    atol 1e-4 max |want|) -> (within, worst excess over the limit)."""
+    excess = []
+    for g, w in zip(got, want):
+        w = torch.from_numpy(np.array(w))
+        excess.append(float(((g - w).abs() - 1e-4 * (w.abs() + w.abs().max())).max()))
+    return max(excess) <= 0, max(excess)
+
+
+def _jax_dense_case(seed, b, hq, hkv, s, d, window, amp=1.0):
+    """Seeded fp32 inputs (q and k scaled by amp), mfa_tpu's forward and
+    backward in Pallas interpret mode -> (torch inputs, mfa_tpu's grads)."""
+    import jax.numpy as jnp
+
+    from mfa_tpu.kernels.backward import flash_attention_bwd as jbwd
+    from mfa_tpu.kernels.prefill import prefill_attention as jprefill
+
+    rng = np.random.RandomState(seed)
+    q = (rng.standard_normal((b, hq, s, d)) * amp).astype(np.float32)
+    k = (rng.standard_normal((b, hkv, s, d)) * amp).astype(np.float32)
+    v, do = (rng.standard_normal((b, h, s, d)).astype(np.float32) for h in (hkv, hq))
+    kw = dict(causal=window[0] < 0, window_size=window)
+    out, lse = jprefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), return_lse=True, **kw)
+    out, lse = np.array(out), np.array(lse)
+    want = jbwd(*(jnp.asarray(a) for a in (q, k, v, out, lse, do)), **kw)
+    return [torch.from_numpy(np.array(a)) for a in (q, k, v, out, lse, do)], want
+
+
+@pytest.mark.parametrize("b,s,d,window", [
+    (1, 256, 64, (-1, 0)), (2, 128, 128, (-1, 0)), (1, 256, 128, (31, 0)),
+    (2, 200, 64, (63, 0))])
+def test_3xtf32_backward_matches_mfa_tpu(b, s, d, window):
+    """The fp32 tile's arithmetic on the CPU: _bwd_plain with its five
+    products in 3xTF32 (_matmul_3xtf32_plain) within the fp32 kernels'
+    limit (allclose rtol 1e-4, atol 1e-4 max |ref|) of mfa_tpu's backward
+    in Pallas interpret mode on the same seeded inputs (hq 4, hkv 2)."""
+    args, want = _jax_dense_case(24, b, 4, 2, s, d, window)
+    got = backward._bwd_plain(*args, d ** -0.5, window[0], window[1], 0.0,
+                              matmul=backward._matmul_3xtf32_plain)
+    within, excess = _bwd_limit(got, want)
+    assert within, excess
+
+
+@pytest.mark.parametrize("lens,d,window", [
+    ([100, 256, 37], 64, (-1, 0)), ([128, 0, 200], 128, (-1, 0)),
+    ([256, 90], 128, (47, 0))])
+def test_3xtf32_varlen_backward_matches_mfa_tpu(lens, d, window):
+    """The same on the packed layout: _varlen_bwd_plain in 3xTF32 against
+    mfa_tpu's varlen_attention_bwd in interpret mode (hq 4, hkv 2)."""
+    import jax.numpy as jnp
+
+    from mfa_tpu.kernels.backward import varlen_attention_bwd as jvbwd
+    from mfa_tpu.kernels.varlen import varlen_attention as jvarlen
+
+    rng = np.random.RandomState(25)
+    n = sum(lens)
+    q, do = (rng.standard_normal((n, 4, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((n, 2, d)).astype(np.float32) for _ in range(2))
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    kw = dict(causal=window[0] < 0, window_size=window)
+    out, lse = jvarlen(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(cu), jnp.asarray(cu),
+                       max(lens), max(lens), return_lse=True, **kw)
+    out, lse = np.array(out), np.array(lse)
+    want = jvbwd(*(jnp.asarray(a) for a in (q, k, v, out, lse, do)), jnp.asarray(cu),
+                 jnp.asarray(cu), **kw)
+    t = [torch.from_numpy(a) for a in (q, k, v, out, lse, do)]
+    cut = torch.from_numpy(cu)
+    got = backward._varlen_bwd_plain(*t, cut, cut, d ** -0.5, window[0], window[1], 0.0,
+                                     matmul=backward._matmul_3xtf32_plain)
+    within, excess = _bwd_limit(got, want)
+    assert within, excess
+
+
+def test_one_tf32_pass_breaks_the_limit_three_keep_it():
+    """Why three products: at a seeded causal input with larger scores (q
+    and k x 3: |S scale| up to ~46; b1 hq4 hkv2 s256 d128), one TF32 pass
+    (hi.hi) misses the fp32 limit against mfa_tpu's backward in interpret
+    mode, and 3xTF32 keeps it. The GPU tests run the kernels on the same
+    input."""
+    args, want = _jax_dense_case(0, 1, 4, 2, 256, 128, (-1, 0), amp=3.0)
+    tail = (128 ** -0.5, -1, 0, 0.0)
+    one = backward._bwd_plain(*args, *tail, matmul=_matmul_tf32_1pass)
+    three = backward._bwd_plain(*args, *tail, matmul=backward._matmul_3xtf32_plain)
+    assert not _bwd_limit(one, want)[0]
+    within, excess = _bwd_limit(three, want)
+    assert within, excess
 
 
 @pytest.mark.parametrize("bmx", (16, 32, 64, 128))

@@ -27,6 +27,7 @@ from mfa_tpu.serve.engine import Engine as JaxEngine
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.models import vision as tv
 from mfa_tpu_torch.serve.engine import Engine
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 IMG = 100
 GEMMA = dict(vocab_size=128, dim=64, n_layers=3, n_heads=4, n_kv_heads=2,

@@ -43,6 +43,7 @@ from mfa_tpu_torch.kernels.paged_prefill import _paged_prefill_plain
 from mfa_tpu_torch.kernels.quant import FP8, row_width, unpack_int4
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.serve.engine import Engine
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 DIMS = (32, 80, 96, 100)

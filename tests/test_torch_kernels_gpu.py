@@ -2289,6 +2289,66 @@ def test_backward_kernels_fp32(dev, b, hq, hkv, sq, sk, d, window, softcap, sink
     assert torch.all(split[0][dead] == 0)
 
 
+def _fp32_bwd_case(q, k, v, do, window, fused=True, ref=None):
+    """Kernels 11 and 12 + 13 in fp32 on one input against _bwd_plain (or
+    `ref`) -> the plain gradients."""
+    from mfa_tpu_torch.kernels import backward, prefill
+
+    d = q.shape[-1]
+    o, lse = prefill.prefill_attention(q, k, v, window_size=window, return_lse=True)
+    if ref is None:
+        ref = backward._bwd_plain(q, k, v, o, lse, do, d ** -0.5, window[0], window[1], 0.0)
+    if fused:
+        _bwd_close32(backward.flash_attention_bwd(q, k, v, o, lse, do, window_size=window),
+                     ref, "fused")
+    split = backward.flash_attention_bwd(q, k, v, o, lse, do, window_size=window, fused=False)
+    _bwd_close32(split, ref, "split")
+    dead = torch.isneginf(lse)
+    assert torch.all(split[0][dead] == 0)
+    return o, lse, ref
+
+
+# the fp32 tile's block sizes: R own rows (keys, or q rows for dQ: 128 / 64 /
+# 32 at D 64 / 128 / 256) and walked tiles of C = 32 rows
+_F32_EDGE = sorted({(d, sq, sk) for d, r in ((64, 128), (128, 64), (256, 32))
+                    for sq, sk in ((r - 1, r + 1), (r + 1, r - 1), (31, 33), (33, 31))})
+
+
+@pytest.mark.parametrize("d,sq,sk", _F32_EDGE)
+@pytest.mark.parametrize("window", [(-1, 0), (-1, -1)])
+def test_backward_kernels_fp32_tile_edges(dev, d, sq, sk, window):
+    """sq and sk one under and one over the fp32 tile's block sizes at each
+    D (kernels 11, 12 + 13), causal and not, group 2."""
+    gen = torch.Generator(device=dev).manual_seed(56)
+    q, do = (_rn(gen, 1, 4, sq, d, dtype=F32) for _ in range(2))
+    k, v = (_rn(gen, 1, 2, sk, d, dtype=F32) for _ in range(2))
+    _fp32_bwd_case(q, k, v, do, window)
+
+
+def test_backward_kernels_fp32_larger_scores_need_three_products(dev):
+    """tests/test_torch_fp32.py's larger-score input (numpy seed 0, q and k x
+    3, b1 hq4 hkv2 s256 d128, causal): one TF32 pass (hi.hi) of the plain
+    version misses the fp32 limit and the kernels keep it, so their
+    products are not one pass."""
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import backward
+
+    rng = np.random.RandomState(0)
+    q = rng.standard_normal((1, 4, 256, 128)) * 3.0
+    k = rng.standard_normal((1, 2, 256, 128)) * 3.0
+    v, do = rng.standard_normal((1, 2, 256, 128)), rng.standard_normal((1, 4, 256, 128))
+    q, k, v, do = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (q, k, v, do))
+    o, lse, ref = _fp32_bwd_case(q, k, v, do, (-1, 0))
+
+    def one_pass(a, b):
+        return backward._split_tf32_plain(a)[0] @ backward._split_tf32_plain(b)[0]
+
+    one = backward._bwd_plain(q, k, v, o, lse, do, 128 ** -0.5, -1, 0, 0.0, matmul=one_pass)
+    assert not all(torch.allclose(g, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+                   for g, r in zip(one, ref))
+
+
 @pytest.mark.parametrize("lens_q,lens_k,hq,hkv,d,window,softcap,alibi", [
     ([200, 1100, 0, 513], [200, 1100, 0, 513], 8, 2, 128, (-1, 0), 0.0, False),
     ([100, 300], [256, 400], 8, 2, 64, (64, 32), 0.0, False),

@@ -42,6 +42,7 @@ from mfa_tpu_torch.kernels.quant import (FP8, pack_int4, quantize_rows,
                                          unpack_int4)
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.serve.engine import Engine
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 # Paged prefill on quantized pages rounds p to bf16 before P.V: where the

@@ -15,6 +15,7 @@ import torch
 
 from mfa_tpu.models import llama as jl
 from mfa_tpu_torch.models import llama as tl
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 JCFG = jl.LlamaConfig.tiny(vocab=64, dim=256, layers=2, heads=4, kv_heads=2,
                            ffn=256, dtype=jnp.float32)

@@ -23,6 +23,7 @@ from mfa_tpu_torch.kernels import wmatmul
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.models import wquant as tw
 from mfa_tpu_torch.serve.engine import Engine
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BASE = dict(vocab_size=96, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=96,

@@ -18,6 +18,7 @@ from mfa_tpu_torch.serve import multihost as tm
 from mfa_tpu_torch.serve.engine import EngineStats
 from mfa_tpu_torch.shard.launch import Ranks
 from tests import torch_rank_fns as R
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,7 @@ import mfa_tpu_torch
 from mfa_tpu.kernels.paged import paged_attention as jax_paged
 from mfa_tpu.kernels.quant import quantize_rows as jax_quantize
 from mfa_tpu_torch.kernels.paged import paged_attention
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

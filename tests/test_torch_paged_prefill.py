@@ -20,6 +20,7 @@ from mfa_tpu.kernels.paged_prefill import \
     paged_prefill_attention as jax_paged_prefill
 from mfa_tpu.kernels.quant import quantize_rows as jax_quantize
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, SQ, HQ, HKV, D, PAGE, PPS = 2, 32, 8, 2, 128, 16, 6

@@ -16,6 +16,7 @@ import pytest
 from mfa_tpu.models import llama as jl
 from mfa_tpu_torch.shard.launch import Ranks
 from tests import torch_rank_fns as R
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 KW = dict(vocab=64, dim=64, layers=4, heads=4, kv_heads=2, ffn=128)

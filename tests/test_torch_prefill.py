@@ -15,6 +15,7 @@ from mfa_tpu.kernels.prefill import prefill_attention as jax_prefill
 from mfa_tpu.ref import oracle as jax_oracle
 from mfa_tpu_torch.kernels.prefill import prefill_attention
 from mfa_tpu_torch.ref import oracle
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

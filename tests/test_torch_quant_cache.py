@@ -16,6 +16,7 @@ from mfa_tpu.models import llama as jllama
 from mfa_tpu_torch.cache import paged_cache as tcache
 from mfa_tpu_torch.kernels.quant import dequantize_rows, quantize_rows
 from mfa_tpu_torch.models import llama as tllama
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])

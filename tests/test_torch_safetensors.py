@@ -21,6 +21,7 @@ from mfa_tpu.models import convert as jconvert
 from mfa_tpu.models import safetensors_io as jst
 from mfa_tpu_torch.models import convert, llama
 from mfa_tpu_torch.models import safetensors_io as st
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 HF_CFG = dict(
     model_type="llama", vocab_size=96, hidden_size=64,

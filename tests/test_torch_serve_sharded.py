@@ -21,6 +21,7 @@ from mfa_tpu.models import wquant as jw
 from mfa_tpu.serve.engine import Engine as JaxEngine
 from mfa_tpu_torch.shard.launch import Ranks
 from tests import torch_rank_fns as R
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 PROMPTS = [[1, 2, 3, 4, 5], [9, 8, 7], [11] * 12]
 KW = dict(vocab=128, dim=64, layers=2, heads=8, kv_heads=4, ffn=96)

@@ -25,6 +25,7 @@ from mfa_tpu.serve.server import make_server as jax_make_server
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.serve.engine import Engine, EngineStats
 from mfa_tpu_torch.serve.server import _finish_reason, make_server
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 KW = dict(num_pages=64, page_size=8, max_seqs=4, pages_per_seq=8)
 JCFG = jl.LlamaConfig.tiny(vocab=64, dim=128, layers=2, heads=2, kv_heads=1,

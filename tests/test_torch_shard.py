@@ -23,6 +23,7 @@ from mfa_tpu.shard import ring as jr
 from mfa_tpu.shard.mesh import make_mesh
 from mfa_tpu_torch.shard.launch import Ranks
 from tests import torch_rank_fns as R
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 ATOL = 2e-5
 GRAD = dict(atol=1e-4, rtol=1e-4)

@@ -31,6 +31,7 @@ from mfa_tpu_torch.kernels import paged
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.serve.engine import Engine
 from mfa_tpu_torch.serve.sampling import SamplingParams
+from tests.jax_maps import release_jax_code  # noqa: F401
 from tests.test_torch_kv_formats import _payloads
 
 TOL = dict(atol=1e-4, rtol=1e-4)

@@ -16,6 +16,7 @@ import torch
 
 from mfa_tpu.utils import timing as jax_timing
 from mfa_tpu_torch.utils import profiling, timing
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

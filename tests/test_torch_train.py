@@ -13,6 +13,7 @@ import torch
 
 from mfa_tpu.models import llama as jl
 from mfa_tpu_torch.models import llama as tl
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 JCFG = jl.LlamaConfig.tiny(vocab=64, dim=64, layers=2, heads=4, kv_heads=2,
                            ffn=128, dtype=jnp.float32)

@@ -18,6 +18,7 @@ from mfa_tpu import interface as jax_interface
 from mfa_tpu.kernels.varlen import varlen_attention as jax_varlen
 from mfa_tpu_torch.kernels.varlen import varlen_attention
 from mfa_tpu_torch.ref.oracle import varlen_attention_ref
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -16,6 +16,7 @@ from mfa_tpu.kernels.backward import varlen_attention_bwd as jbwd
 from mfa_tpu.kernels.varlen import varlen_attention as jvarlen
 from mfa_tpu_torch.kernels.autodiff import flash_attn_varlen_func_grad as tgrad
 from mfa_tpu_torch.kernels.backward import varlen_attention_bwd as tbwd
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

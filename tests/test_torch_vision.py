@@ -18,6 +18,7 @@ from mfa_tpu.models import llama as jl
 from mfa_tpu.models import vision as jv
 from mfa_tpu_torch.models import llama as tl
 from mfa_tpu_torch.models import vision as tv
+from tests.jax_maps import release_jax_code  # noqa: F401
 
 IMG = 100
 JV = jv.SiglipVisionConfig(hidden=64, intermediate=128, n_layers=2, n_heads=4,
