@@ -5633,6 +5633,16 @@ PEAK_F32_FLOPS = 495e12 / 3
 PEAK_W32_FLOPS = 989e12 / 3
 
 
+def _peak32(quant) -> float:
+    """The rate 4 d flops a visible (row, key) pair are held to with fp32 q:
+    165 TFLOP/s on fp32 K/V (3xTF32, both products). On quantized pages the
+    payload values are exact in bf16, so S = q k needs fp32 q as three bf16
+    parts against k (PEAK_W32_FLOPS, as kernel 10), and P V, p rounded to
+    bf16, one exact bf16 product at 989: 4 flops a pair at
+    4 / (2 / 329.7 + 2 / 989) = 494.5 TFLOP/s."""
+    return PEAK_F32_FLOPS if quant is None else 4 / (2 / PEAK_W32_FLOPS + 2 / 989e12)
+
+
 def _bound32(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """The least ms for fp32 work: bytes over 3.35 TB/s against operations
     over `peak` (165 TFLOP/s), whichever is larger."""
@@ -5723,8 +5733,9 @@ def fp32_kernels(records):
     inputs and pages (the LSE too, the same -inf rows); on quantized pages
     the bf16-q case's (max 2e-2, mean 2e-3). Bounds: 4-byte rows (the page
     bytes for quantized pages) at 3.35 TB/s against the operations at 165
-    TFLOP/s; library: SDPA on the fp32 tensors (kernels 1, 2, 4, 5, 7; 9
-    with a bool mask), none for 3, 6 and 8."""
+    TFLOP/s (494.5 on quantized pages, _peak32); library: SDPA on the fp32
+    tensors (kernels 1, 2, 4, 5, 7; 9 with a bool mask), none for 3, 6 and
+    8."""
     import torch
     import torch.nn.functional as F
 
@@ -5789,6 +5800,8 @@ def fp32_kernels(records):
         ok &= good and same
         _record32(records, "repair", "kernel 3, every tile flagged", mx, ms, plain_ms,
                   None, nbytes, flops)
+        print(f"  kernel 3 beside SDPA fp32 on kernel 1's function: sdpa_ms {lib_ms:.4f} "
+              f"(kernel 3 / sdpa {ms / lib_ms:.2f}x)", flush=True)
         del q, k, v, ro, rl, o, o2, zo, out
         torch.cuda.empty_cache()
     for kind in ("overflow", "flush"):
@@ -5922,7 +5935,8 @@ def fp32_kernels(records):
                       q, kp, vp, L, bt, k_scales=ks, v_scales=vs, pos_offset=1,
                       quant_dtype=quant, return_lse=True)), plain_ms, None,
                   2 * rows * _row_bytes32(quant, d) + b * pps * 4
-                  + 2 * b * hq * d * 4 + b * hq * 4, 4 * (hq // hkv) * rows * d)
+                  + 2 * b * hq * d * 4 + b * hq * 4, 4 * (hq // hkv) * rows * d,
+                  _peak32(quant))
         del kp, vp, ks, vs
     torch.cuda.empty_cache()
     # -- kernel 7: 8 x 512 packed, causal, and a ragged pack with a window
@@ -5987,7 +6001,7 @@ def fp32_kernels(records):
                 q, kp, vp, L, qs, bt, q_lens=ql, k_scales=ks, v_scales=vs,
                 quant_dtype=quant)), plain_ms, None,
             2 * sum(lens) * hkv * _row_bytes32(quant, d) + 2 * b * sq * hq * d * 4,
-            4 * hq * pairs * d)
+            4 * hq * pairs * d, _peak32(quant))
         del kp, vp, ks, vs
     del q, kf, vf
     torch.cuda.empty_cache()

@@ -27,8 +27,8 @@
 // the band need no mask, since there the OR changes nothing.
 //
 // Layout: q [b, hq, s, D], k/v [b, hkv, s, D] (sq == sk), ids [b, s] int32,
-// o like q. GQA by head index. fp32 (MFA_F32) runs kind IMAGE of the SIMT
-// tile of flash_fwd_f32.cuh: the same spans, found by the same helpers.
+// o like q. GQA by head index. fp32 (MFA_F32) runs kind IMAGE of the
+// tensor-core fp32 tile of flash_fwd_f32.cuh (3xTF32): the same spans, found by the same helpers.
 #include "flash_fwd_f32.cuh"
 
 // ids [batch, s] int32 on the device. Returns a cudaError_t code (0 =

@@ -34,8 +34,8 @@
 // loop, which on this tile run beside the other warpgroup's products. bf16
 // only: in fp16 an unshifted p leaves the type's range (ROADMAP Queue 3),
 // and the wrapper sends fp16 to kernel 1. fp32 (MFA_F32) runs the same three
-// launches on the SIMT tile of flash_fwd_f32.cuh (64 rows a block, one flag
-// tile each; p = exp2(s c) stays fp32 for P V). Layout as mfa_prefill_fwd:
+// launches on the tensor-core fp32 tile of flash_fwd_f32.cuh (3xTF32, 64
+// rows a block, one flag tile each; p = exp2(s c) stays fp32 for P V). Layout as mfa_prefill_fwd:
 // q [b, hq, sq, D], k/v [b, hkv, sk, D], o like q, lse [b, hq, sq] fp32 or
 // null.
 #include "flash_fwd_f32.cuh"

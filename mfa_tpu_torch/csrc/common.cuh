@@ -22,7 +22,7 @@
 // and int4 as bytes of two features (feature 2c low nibble, 2c + 1 high)
 #define MFA_E4M3 3
 #define MFA_I4 4
-// fp32 q, k, v (and O): the SIMT tile of flash_fwd_f32.cuh
+// fp32 q, k, v (and O): the fp32 tiles of flash_fwd_f32.cuh
 #define MFA_F32 5
 
 // A paged kernel's page format: pages of the q dtype (16-bit, or fp32 with

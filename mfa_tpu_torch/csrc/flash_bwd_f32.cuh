@@ -36,9 +36,9 @@
 // 3xTF32, 495 / 3 = 165 TFLOP/s. The design:
 //  - Products on tensor cores in 3xTF32. mma.sync m16n8k8 .tf32 with fp32
 //    accumulation for all five (S or S^T, dP or dP^T, dV, dK, dQ). Each
-//    fp32 operand x is split into hi = rna.tf32(x), lo = rna.tf32(x - hi)
-//    (cvt.rna.tf32's rounding; hi + lo keeps ~22 bits), and a product is
-//    lo.hi + hi.lo + hi.hi, the small terms first, lo.lo dropped. The split
+//    fp32 operand x is split into hi = rna.tf32(x) and lo = x - hi passed
+//    whole (tf32.cuh), and a product is lo.hi + hi.lo + hi.hi, the small
+//    terms first, lo.lo dropped. The split
 //    is most of the tile's instructions, so it is done once where shared
 //    memory allows: up to D 128 a walked tile (Q and dO, or K and V) is
 //    split once into hi and lo planes by the whole block after it lands;
@@ -92,10 +92,12 @@
 #pragma once
 
 #include "flash_bwd_sm90.cuh"
+#include "tf32.cuh"
 
 namespace bf32 {
 
 using fb90::Args;
+using namespace tc32;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
@@ -132,21 +134,6 @@ __device__ __forceinline__ float* smem_f32() {
 
 // -- loads ------------------------------------------------------------------
 
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-// The barrier's arrival of this thread once its cp.async copies so far land.
-__device__ __forceinline__ void cp_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
 // Rows [0, NR) of `src` (rows rs floats apart) into a tile of stride D + 8:
 // zeros past `valid` rows and past dw columns.
 template <int D, int NR>
@@ -177,24 +164,6 @@ __device__ __forceinline__ void load_rows(float* ls, float* ds, const float* lse
 
 // -- 3xTF32 -------------------------------------------------------------------
 
-// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
-// cvt.rna.tf32.f32's rounding on a finite x, as two integer operations on
-// its bit pattern (the cvt instruction adds an Inf / NaN guard that
-// doubles the split's cost, and the operands here are finite).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // d += a b in 3xTF32: lo.hi, hi.lo, then hi.hi.
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], float b0, float b1) {
@@ -212,14 +181,6 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, al, h0, h1);
   mma_tf32(d, ah, __float_as_uint(bl.x), __float_as_uint(bl.y));
   mma_tf32(d, ah, h0, h1);
-}
-// An A fragment (a0..a3) split into its hi and lo parts.
-__device__ __forceinline__ void split4(float a0, float a1, float a2, float a3, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  split(a0, hi[0], lo[0]);
-  split(a1, hi[1], lo[1]);
-  split(a2, hi[2], lo[2]);
-  split(a3, hi[3], lo[3]);
 }
 
 __device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }

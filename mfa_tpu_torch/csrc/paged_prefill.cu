@@ -79,11 +79,13 @@
 // that sees no column keeps m == MASK and stores O = 0, LSE = -inf.
 //
 // fp32 q (MFA_F32, af32::paged_prefill_kernel below) runs
-// the SIMT tile of flash_fwd_f32.cuh on fp32 pages, or on int8 / fp8 / int4
-// pages with q . k in fp32 against the payload values and p rounded to bf16
-// for P V (mfa_tpu/kernels/paged_prefill.py:440-441 keeps fp32 q): 64 rows a
-// block, the same packed rows (64 / group positions of every q head of one
-// kv head), each tile's page rows loaded through the block table.
+// the 64-row tensor-core tile of flash_fwd_f32.cuh (3xTF32) on fp32 pages,
+// or on int8 / fp8 / int4 pages with q . k in fp32 against the payload
+// values (two TF32 passes: the values are exact) and p rounded to bf16 for
+// one exact bf16 P V product (mfa_tpu/kernels/paged_prefill.py:440-441
+// keeps fp32 q): 64 rows a block, the same packed rows (64 / group positions
+// of every q head of one kv head), each tile's page rows copied through the
+// block table by cp.async, bytes converted once a tile in shared memory.
 #include "flash_fwd_f32.cuh"
 
 namespace pp90 {
@@ -627,12 +629,11 @@ namespace af32 {
 // group + r % group (rows past wpos group are a dead tail). F: KV::F16 =
 // fp32 pages, else the quantized format.
 template <int D, KV F>
-__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
+__global__ void __launch_bounds__(THREADS, TcPlan<D, F != KV::F16>::BLOCKS)
     paged_prefill_kernel(const float* __restrict__ q, const void* __restrict__ k_pages,
                          const void* __restrict__ v_pages, const pp90::Params p) {
-  constexpr int RM = 64;
-  constexpr bool QUANT = F != KV::F16;
-  using PL = Plan<RM, D>;
+  using PL = TcPlan<D, F != KV::F16>;
+  constexpr int RM = PL::RM;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int t0 = (gridDim.z - 1 - blockIdx.z) * p.wpos;  // last q tiles first
   const int G = p.group, sk = p.lens[b], q0 = p.q_start[b], q_len = p.q_lens[b], dw = p.dw;
@@ -674,34 +675,36 @@ __global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
     const int pg = min(max(tab[col / page], 0), n_pages - 1);
     return ((size_t)hk * n_pages + pg) * page + col % page;
   };
-  if constexpr (QUANT) {
+  if constexpr (F != KV::F16) {
     const int8_t* kq = static_cast<const int8_t*>(k_pages);
     const int8_t* vq = static_cast<const int8_t*>(v_pages);
     const float *ksc = p.k_scale, *vsc = p.v_scale;
-    auto load = [=](int kv0, float* ksm, float* vsm, float* kss, float* vss) {
-      load_quant<RM, D, F>(kq, vq, ksc, vsc, kv0, sk, dw, ksm, vsm, kss, vss, page_row);
+    auto issue = [=](int kv0, float* slot) {
+      issue_quant<D, F>(slot, kq, vq, ksc, vsc, kv0, sk, dw, page_row);
     };
-    attend<RM, D, false, true, false>(sm, rows, tl, mt, nullptr, 0, load);
+    attend_tc<D, false, F, false>(sm, rows, tl, mt, nullptr, 0, issue);
   } else {
     const float* kf = static_cast<const float*>(k_pages);
     const float* vf = static_cast<const float*>(v_pages);
-    auto load = [=](int kv0, float* ksm, float* vsm, float*, float*) {
-      load_f32<RM, D>(kf, vf, kv0, sk, dw, ksm, vsm,
-                      [=](int col) { return page_row(col) * dw; });
+    auto issue = [=](int kv0, float* slot) {
+      issue_f32<D>(slot, kf, vf, kv0, sk, dw, [=](int col) { return page_row(col) * dw; });
     };
-    attend<RM, D, false, false, false>(sm, rows, tl, mt, nullptr, 0, load);
+    attend_tc<D, false, F, false>(sm, rows, tl, mt, nullptr, 0, issue);
   }
 }
 
 template <int D, KV F>
 int launch_paged_prefill(const void* q, const void* k_pages, const void* v_pages,
                          const pp90::Params& p, int batch, cudaStream_t stream) {
-  using PL = Plan<64, D>;
+  using PL = TcPlan<D, F != KV::F16>;
   const int align = F == KV::I4 ? 32 : F == KV::F16 ? 4 : 16;  // 16-byte row chunks
   if (p.dw <= 0 || p.dw > D || p.dw % align != 0) return MFA_BAD_CONFIG;
   auto kern = paged_prefill_kernel<D, F>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           (int)PL::bytes))
+    return err;
+  if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                          100))
     return err;
   const dim3 grid(p.hkv, batch, (p.sq + p.wpos - 1) / p.wpos);
   kern<<<grid, THREADS, PL::bytes, stream>>>(static_cast<const float*>(q), k_pages, v_pages, p);

@@ -29,8 +29,9 @@
 // softmax_lse layout); d as kernel 1's, bf16 and fp16. Bound: as
 // kernel 1.
 //
-// fp32 q, k, v (dtype MFA_F32) run both on the SIMT tile of
-// flash_fwd_f32.cuh (rows of any width that is a multiple of 4 up to kd).
+// fp32 q, k, v (dtype MFA_F32) run both on the tensor-core fp32 tile of
+// flash_fwd_f32.cuh (3xTF32; rows of any width that is a multiple of 4 up
+// to kd).
 //
 // Both: fp32 LSE, GQA by head index (kv head = h / (hq / hkv)); causal is
 // top-left aligned per sequence and expressed as window_right = 0; the

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-# dtype codes of csrc/common.cuh (fp32: the SIMT tile of csrc/flash_fwd_f32.cuh)
+# dtype codes of csrc/common.cuh (fp32: the fp32 tiles of csrc/flash_fwd_f32.cuh)
 DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float32: 5}
 # page-format codes of quantized KV pages (csrc/common.cuh). int4 pages are

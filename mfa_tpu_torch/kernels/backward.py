@@ -62,21 +62,20 @@ _VL_DQ_ARGTYPES = [_P] * 9 + [_I] * 11 + [_F, _F, _P, _P]
 def _split_tf32_plain(x):
     """fp32 x -> (hi, lo), each a TF32 value (10 mantissa bits) in fp32:
     hi rounds x to nearest with ties away from zero on the bit pattern, as
-    `cvt.rna.tf32.f32` does, and lo rounds x - hi the same way, so hi + lo
-    is within 2^-22 of x relative (finite x)."""
-    def rna(t):
-        bits = t.contiguous().view(torch.int32)
-        return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-    hi = rna(x.float())
-    return hi, rna(x.float() - hi)
+    `cvt.rna.tf32.f32` does, and lo is x - hi cut to its TF32 bits, as the
+    tensor core reads an fp32 register passed whole (csrc/tf32.cuh:split),
+    so hi + lo is within 2^-21 of x relative (finite x)."""
+    bits = x.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = (x.float() - hi).contiguous().view(torch.int32) & -0x2000
+    return hi, lo.view(torch.float32)
 
 
 def _matmul_3xtf32_plain(a, b):
-    """a @ b as csrc/flash_bwd_f32.cuh forms each product: the TF32 parts
-    of both operands, lo.hi + hi.lo + hi.hi in fp32 (the small terms
-    first), lo.lo dropped."""
-    (ah, al), (bh, bl) = _split_tf32_plain(a), _split_tf32_plain(b)
+    """a @ b as the fp32 tiles (csrc/flash_fwd_f32.cuh, flash_bwd_f32.cuh)
+    form each product: the TF32 parts of both operands, lo.hi + hi.lo +
+    hi.hi in fp32 (the small terms first), lo.lo dropped."""
+    (ah, al), (bh, bl) = (_split_tf32_plain(x) for x in (a, b))
     return (al @ bh + ah @ bl) + ah @ bh
 
 

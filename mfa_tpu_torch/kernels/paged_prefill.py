@@ -56,14 +56,15 @@ PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
 def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
                          q_start, q_lens, table, scale, window_left,
                          window_right, softcap, quant_dtype=None, sinks=0,
-                         alibi=None):
+                         alibi=None, matmul=torch.matmul):
     """The kernel's function in plain PyTorch: scores in the log2 domain,
     K scales on score columns, ALiBi at the chunk's absolute positions
     (slopes [hq]), V scales folded into the probabilities,
     probabilities rounded to the value dtype (bf16 for quantized pages)
     before P.V (int4 pages unpacked, fp8 converted exactly). Rows r >=
     q_lens give O = 0 and LSE = -inf. q is zero-padded to the pages'
-    features, O sliced back."""
+    features, O sliced back. `matmul` forms the two products (the tests
+    pass kernels/backward.py:_matmul_3xtf32_plain)."""
     d_true = q.shape[-1]
     q = pad_features(q, page_features(quant_dtype, k_pages))
     batch, sq, num_heads, d = q.shape
@@ -87,7 +88,9 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
         # q stays fp32 (mfa_tpu/kernels/paged_prefill.py:440-441)
         q = q.to(torch.bfloat16)
     qg = q.float().reshape(batch, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    cols = pps * page
+    s = matmul(qg.reshape(batch, hkv, group * sq, d), k.float().transpose(-1, -2)
+               ).reshape(batch, hkv, group, sq, cols)
     if quantized:
         s = s * gather(k_scales)[:, :, None, None, :]
     if softcap:
@@ -96,7 +99,7 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
         s = s * (scale * _LOG2E)
     row = torch.arange(sq, device=dev)
     pos = q_start.to(dev).long()[:, None] + row  # [b, sq]
-    col = torch.arange(pps * page, device=dev)
+    col = torch.arange(cols, device=dev)
     if alibi is not None:  # [b, sq, cols] distances, log2 domain
         dist = (pos[..., None] - col).abs().float()
         s = s - (alibi.float().to(dev) * _LOG2E).reshape(1, hkv, group, 1, 1) \
@@ -114,7 +117,8 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
     l = p.sum(dim=-1)
     if quantized:
         p = p * gather(v_scales)[:, :, None, None, :]
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vdtype).float(), v.float())
+    o = matmul(p.to(vdtype).float().reshape(batch, hkv, group * sq, cols), v.float()
+               ).reshape(batch, hkv, group, sq, d)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
     out = (o / l_safe[..., None]).permute(0, 3, 1, 2, 4).reshape(
         batch, sq, num_heads, d)[..., :d_true].to(out_dtype)

@@ -40,9 +40,9 @@ zero-padded copy, its output sliced back). The engine choice and the
 softmax scale see the true d.
 
 fp32 inputs run the same engines on the fp32 tile of
-csrc/flash_fwd_f32.cuh (SIMT FFMA products, 64 rows a block, one flag tile
-each; launch names `<name>_fp32`): the zero-shift p = exp2(s * c) stays
-fp32 for P.V, as V's dtype is fp32.
+csrc/flash_fwd_f32.cuh (3xTF32 products on tensor cores, 64 rows a block,
+one flag tile each; launch names `<name>_fp32`): the zero-shift p =
+exp2(s * c) stays fp32 for P.V, as V's dtype is fp32.
 
 A CUDA tensor runs the kernels (or raises); a CPU tensor runs each
 engine's plain fp32 version, which repeats its block algorithm: the same
@@ -137,16 +137,18 @@ def alibi_bias(slopes, rows, cols):
 
 
 def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
-                   return_lse, sinks=0, kv_off=0, alibi=None):
+                   return_lse, sinks=0, kv_off=0, alibi=None,
+                   matmul=torch.matmul):
     """fp32 reference of kernel 1: same band, sinks, offset, softcap, ALiBi
     and dead-row rules; LSE is the natural log of the scaled (capped,
-    biased) logits."""
+    biased) logits. `matmul` forms the two products (the tests pass
+    kernels/backward.py:_matmul_3xtf32_plain, the fp32 tile's arithmetic)."""
     _, hq, sq, _ = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    s = q.float() @ kf.transpose(-1, -2)
+    s = matmul(q.float(), kf.transpose(-1, -2))
     if softcap:
         s = torch.tanh(s * (scale / softcap)) * softcap
     else:
@@ -162,12 +164,12 @@ def _prefill_plain(q, k, v, scale, window_left, window_right, softcap,
     # shifted by the row max, as the kernel's exp2((s - m) * c): exact for
     # scores far from 0, where s - lse would keep lse's rounding
     p = torch.where(live, torch.softmax(s, dim=-1), torch.zeros((), device=q.device))
-    out = (p @ vf).to(q.dtype)
+    out = matmul(p, vf).to(q.dtype)
     return (out, lse) if return_lse else out
 
 
 def _zero_shift_plain(q, k, v, scale, window_left, window_right, sinks=0,
-                      kv_off=0):
+                      kv_off=0, matmul=torch.matmul):
     """fp32 version of the zero-shift tile (kernels 2 and 4): p =
     exp2(s * scale * log2 e) with no shift, cast to V's dtype before P.V.
     O is normalized by the sum of p as cast (a convex combination of V's
@@ -176,13 +178,14 @@ def _zero_shift_plain(q, k, v, scale, window_left, window_right, sinks=0,
     Returns (O in q's dtype, LSE = ln l, poison flags per 64-row tile
     [b, hq, ceil(sq / 64)] bool): a row is poisoned when its band is not
     structurally empty and l lies outside (_L_MIN, inf), or one of its O
-    values is not finite."""
+    values is not finite. `matmul` forms the two products, as in
+    _prefill_plain."""
     b, hq, sq, _ = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    s = q.float() @ kf.transpose(-1, -2)
+    s = matmul(q.float(), kf.transpose(-1, -2))
     mask, empty = _band(sq, sk, window_left, window_right, q.device, sinks,
                         kv_off)
     p = torch.where(mask, torch.exp2(s * (scale * _LOG2E)),
@@ -190,7 +193,7 @@ def _zero_shift_plain(q, k, v, scale, window_left, window_right, sinks=0,
     l = p.sum(-1)
     p = p.to(v.dtype).float()
     n = p.sum(-1)
-    acc = p @ vf
+    acc = matmul(p, vf)
     bad = (l == 0) | torch.isnan(l)
     l_safe = torch.where(bad, torch.ones_like(l), l)
     o = acc * (1.0 / torch.where(bad, torch.ones_like(n), n))[..., None]

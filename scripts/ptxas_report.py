@@ -10,13 +10,14 @@ registers a thread, spill stores and loads in bytes, the stack frame,
 whether its SASS (`cuobjdump -sass`) holds HGMMA (wgmma), HMMA (mma.sync)
 and UTMALDG (a TMA load), and the demangled name. --match keeps only the names containing the
 string. HMMA marks an mma.sync product (the decode tile of kernels 5 and
-6, the fp32 backward tile). Exits non-zero if a source does not compile,
+6, the fp32 tiles). Exits non-zero if a source does not compile,
 if an instantiation spills, if a kernel lacks the instructions its design
 rests on (REQUIRED: the decode tile HMMA and UTMALDG, the wgmma + TMA
 backward kernels `fb90::bwd_kernel` and `fb90::dq_kernel` and the paged
 prefill kernel `pp90::paged_prefill_kernel` HGMMA and UTMALDG, the fp32
-backward tile `bf32::bwd_kernel` HMMA: its products on mma.sync in
-3xTF32), or if a kernel holds an instruction its design retired
+tiles `bf32::bwd_kernel`, `af32::fwd_kernel` and
+`af32::paged_prefill_kernel` HMMA: their products on mma.sync in 3xTF32),
+or if a kernel holds an instruction its design retired
 (FORBIDDEN: HMMA in the `fb90::` backward kernels, which run wgmma;
 a name fragment matches the demangled name, parameters included).
 Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
@@ -86,7 +87,9 @@ REQUIRED = {"kd90::splitkv_kernel": ("HMMA", "UTMALDG"),
             "fb90::bwd_kernel": ("HGMMA", "UTMALDG"),
             "fb90::dq_kernel": ("HGMMA", "UTMALDG"),
             "pp90::paged_prefill_kernel": ("HGMMA", "UTMALDG"),
-            "bf32::bwd_kernel": ("HMMA",)}
+            "bf32::bwd_kernel": ("HMMA",),
+            "af32::fwd_kernel": ("HMMA",),
+            "af32::paged_prefill_kernel": ("HMMA",)}
 # kernel name fragment -> SASS instructions no instantiation may hold
 FORBIDDEN = {"fb90::bwd_kernel": ("HMMA",), "fb90::dq_kernel": ("HMMA",)}
 

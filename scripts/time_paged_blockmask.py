@@ -3,6 +3,7 @@
 their bounds and the library call where there is one, on one GPU.
 
     python3 scripts/time_paged_blockmask.py [--root DIR] [--label NAME]
+        [--dtype bfloat16|float32]
 
 Kernel 9 at chip_smoke.py's four image cases (Gemma3-4B's image wave b4
 hq8 hkv4 s2048 d256 with one 256-token run at 700 and window 1023, the
@@ -22,6 +23,19 @@ flops per visible (row, key) pair of every q head over 989 TFLOP/s.
 --root imports mfa_tpu_torch from another checkout (e.g. the parent
 commit unpacked with git archive), so two versions compare in one call.
 Prints one line per kernel and shape, and the card's name and power limit.
+
+--dtype float32 times the fp32 tiles instead, at PERF.md's fp32 rows:
+kernel 9 at Gemma3-4B's image wave (beside SDPA + bool mask on the fp32
+tensors), kernel 8 with fp32 q at the chunk batch (4 x 512 at q_start
+0-3072, hq32 hkv8 d128, pages of 64) on int8, fp32, fp8 and int4 pages,
+and kernel 6 with fp32 q at the 8B serve step (b16, lens 300 - 7 i,
+pos_offset 1) on the same four formats and at lens 8192 on fp32 and int8
+pages. Each held against its plain fp32 version: atol = rtol = 1e-4 on
+fp32 inputs and pages (O and LSE, chip_smoke._err32), the bf16-q case's
+limits on quantized pages; bounds as chip_smoke.py's fp32 phase (4-byte
+rows, or the page bytes, at 3.35 TB/s against 4 d flops a visible pair
+at 165 TFLOP/s, or at 494.5 on quantized pages: chip_smoke._peak32).
+TF32 stays off for the plain versions and SDPA.
 """
 
 from __future__ import annotations
@@ -138,10 +152,104 @@ def paged_cases(cs, label, gen):
     return ok
 
 
+def _line32(cs, label, what, ms, nbytes, flops, lib_ms=None, note="", quant=None):
+    bound_ms, by = cs._bound32(nbytes, flops, cs._peak32(quant))
+    lib = f" sdpa_ms {lib_ms:.4f} (/ sdpa {ms / lib_ms:.2f}x)" if lib_ms else " library_ms none"
+    print(f"{label} float32 {what}: ms {ms:.4f} bound_ms {bound_ms:.4f} ({by}) share "
+          f"{bound_ms / ms:.3f}{lib}{note}", flush=True)
+
+
+def _check32(cs, out, lse, ref, ref_lse, quant, what):
+    if quant is None:
+        return cs._err32(out, ref, what, lse, ref_lse)[1]
+    return cs._err(out, ref, what=what)[1] and cs._lse_err(lse, ref_lse, what)
+
+
+def fp32_cases(cs, label, gen) -> bool:
+    """The fp32 rows of kernels 9, 8 and 6 (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import blockmask, paged, paged_prefill
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    ok = True
+    b, hq, hkv, s, d = 4, 8, 4, 2048, 256  # kernel 9
+    q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+    ids = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+    ids[:, 700:956] = 0
+    vis = blockmask.block_mask(ids, 1023)
+    ok &= cs._err32(blockmask.image_block_prefill(q, k, v, ids, window_left=1023),
+                    blockmask._image_block_plain(q, k, v, ids, d ** -0.5, 1023), "kernel 9")[1]
+    _line32(cs, label, "kernel 9 image wave", cs._time_ms(
+        lambda: blockmask.image_block_prefill(q, k, v, ids, window_left=1023)),
+        4 * (2 * q.numel() + 2 * k.numel()) + 4 * b * s, 4 * hq * float(vis.sum()) * d,
+        cs._time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis[:, None],
+                                                           enable_gqa=True)))
+    del q, k, v, vis
+    torch.cuda.empty_cache()
+    hq, hkv, d, page = 32, 8, 128, 64  # kernel 8: the engine chunk batch
+    q_start, sq = [0, 1024, 2048, 3072], 512
+    lens = [s0 + sq for s0 in q_start]
+    b, pps = 4, max(lens) // page + 1
+    P = b * pps + 3
+    q = rn(b, sq, hq, d)
+    kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+    bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+          ).reshape(b, pps).int()
+    L, QS = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, q_start))
+    QL = L - QS
+    pairs = sum(cs._visible_pairs(sq, n, s0, -1, 0) for s0, n in zip(q_start, lens))
+    for quant in ("int8", None, "fp8", "int4"):
+        kp, vp, ks, vs = cs._pages32(kf, vf, quant)
+
+        def run():
+            return paged_prefill.paged_prefill_attention(
+                q, kp, vp, L, QS, bt, q_lens=QL, k_scales=ks, v_scales=vs, quant_dtype=quant,
+                return_lse=True)
+
+        ro, rl = paged_prefill._paged_prefill_plain(q, kp, vp, ks, vs, L, QS, QL, bt,
+                                                    d ** -0.5, -1, 0, 0.0, quant)
+        ok &= _check32(cs, *run(), ro, rl, quant, f"kernel 8 {quant or 'fp32'} pages")
+        _line32(cs, label, f"kernel 8 chunk batch, {quant or 'fp32'} pages", cs._time_ms(run),
+                2 * sum(lens) * hkv * cs._row_bytes32(quant, d) + 2 * b * sq * hq * d * 4,
+                4 * hq * pairs * d, quant=quant)
+        del kp, vp, ks, vs
+    del q, kf, vf
+    torch.cuda.empty_cache()
+    for quant, lens in ((None, None), ("int8", None), ("fp8", None), ("int4", None),
+                        (None, [8192] * 16), ("int8", [8192] * 16)):  # kernel 6
+        lens = lens or [300 - 7 * i for i in range(16)]
+        b, pps = len(lens), max(lens) // page + 1
+        P = b * pps + 1
+        q = rn(b, hq, d)
+        kp, vp, ks, vs = cs._pages32(rn(hkv, P, page, d), rn(hkv, P, page, d), quant)
+        bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+              ).reshape(b, pps).int()
+        L = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+        def run():
+            return paged.paged_attention(q, kp, vp, L, bt, k_scales=ks, v_scales=vs,
+                                         pos_offset=1, quant_dtype=quant, return_lse=True)
+
+        ro, rl = paged._paged_plain(q, kp, vp, ks, vs, L, bt, d ** -0.5, -1, 0.0, 1, quant)
+        ok &= _check32(cs, *run(), ro, rl, quant, f"kernel 6 {quant or 'fp32'} pages")
+        rows = sum(lens) * hkv
+        _line32(cs, label, f"kernel 6 serve step, {quant or 'fp32'} pages, lens {max(lens)}",
+                cs._time_ms(run), 2 * rows * cs._row_bytes32(quant, d) + b * pps * 4
+                + 2 * b * hq * d * 4 + b * hq * 4, 4 * (hq // hkv) * rows * d, quant=quant)
+        del q, kp, vp, ks, vs
+        torch.cuda.empty_cache()
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--label", default="")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs  # timing and bound helpers of this checkout
@@ -157,8 +265,11 @@ def main() -> int:
     print(f"mfa_tpu_torch from {os.path.dirname(blockmask.__file__)}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
-        ok = image_cases(cs, args.label, gen)
-        ok &= paged_cases(cs, args.label, gen)
+        if args.dtype == "float32":
+            ok = fp32_cases(cs, args.label, gen)
+        else:
+            ok = image_cases(cs, args.label, gen)
+            ok &= paged_cases(cs, args.label, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)

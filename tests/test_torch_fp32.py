@@ -318,29 +318,31 @@ def test_quant_q_keeps_fp32():
 
 
 CUH = pathlib.Path(mfa_tpu_torch.__file__).parent / "csrc" / "flash_fwd_f32.cuh"
+DECODE_CUH = CUH.parent / "decode_f32.cuh"
 
 
 def _tile_keys(d):
-    """BN of csrc/flash_fwd_f32.cuh's Plan at head dim D, read from the
-    source (`BN = D >= 128 ? 32 : 64`)."""
-    m = re.search(r"BN = D >= (\d+) \? (\d+) : (\d+);", CUH.read_text())
+    """BN of csrc/decode_f32.cuh's Plan (the 16-row decode tile) at head dim
+    D, read from the source (`BN = D >= 128 ? 32 : 64`)."""
+    m = re.search(r"BN = D >= (\d+) \? (\d+) : (\d+);", DECODE_CUH.read_text())
     edge, big, small = (int(x) for x in m.groups())
     return big if d >= edge else small
 
 
 @pytest.mark.parametrize("d", (64, 128, 256))
 def test_fp32_tile_fits_and_aligns_with_splits(d):
-    """Every key tile of the fp32 tile lies inside one 64-token split unit
-    (so a split reads exactly its own columns), and its shared memory (Q,
-    K, V, P, scales, ids and a 56-byte Row a row) fits a block's 227 KB."""
+    """Every key tile of the 16-row fp32 decode tile (kernels 5 and 6) lies
+    inside one 64-token split unit (so a split reads exactly its own
+    columns), and its shared memory (Q, K, V, P, K and V scales and a
+    56-byte Row a row) fits a block's 227 KB."""
     bn = _tile_keys(d)
     assert decode.TILE % bn == 0
     for max_s, n in ((8192, 7), (300, 2), (64, 1), (4097, 5)):
         _, tps = decode.split_layout(max_s, n)
         assert tps % bn == 0
-    for rows in (64, 16):
-        floats = rows * (d + 4) + bn * (d + 4) + bn * d + rows * (bn + 4) + 3 * bn
-        assert 4 * math.ceil(floats / 4) * 4 + rows * 56 <= 232448
+    rows = 16
+    floats = rows * (d + 4) + bn * (d + 4) + bn * d + rows * (bn + 4) + 2 * bn
+    assert 4 * math.ceil(floats / 4) * 4 + rows * 56 <= 232448
 
 
 BWD_CUH = CUH.parent / "flash_bwd_f32.cuh"
@@ -430,7 +432,8 @@ def _matmul_tf32_1pass(a, b):
 
 
 def test_split_tf32_keeps_21_bits():
-    """csrc/flash_bwd_f32.cuh's operand split (cvt.rna.tf32 twice): on seeded
+    """csrc/tf32.cuh's operand split (hi by cvt.rna.tf32's rule, lo = x - hi
+    read as its TF32 bits, low 13 cut): on seeded
     normal fp32 values of magnitudes 1e-30 to 1e30, hi and lo are TF32
     values (their 13 low bits zero), hi is x rounded to 11 significant
     bits with ties away from zero, and hi + lo is within 2^-21 of x
