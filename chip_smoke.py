@@ -5619,7 +5619,8 @@ def pipeline_phase(counts, ident, shard):
     return ok
 
 
-# fp32: the fp32 tile (csrc/flash_fwd_f32.cuh, decode_f32.cuh, paged_prefill.cu)
+# fp32: the fp32 tile (csrc/flash_fwd_f32.cuh, paged_prefill.cu) and the decode tile
+# (csrc/decode_sm90.cuh) with fp32 q
 
 FP32_KERNELS = ("prefill", "flagged", "repair", "bound", "decode", "combine", "paged",
                 "varlen", "paged_prefill", "blockmask")
@@ -6832,11 +6833,11 @@ def main() -> int:
                         "mfa_tpu/kernels/prefill.py:738"),
         "bound_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
                        "mfa_tpu/kernels/prefill.py:661"),
-        "decode_fp32": ("mfa_tpu_torch/csrc/decode_f32.cuh",
+        "decode_fp32": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                         "mfa_tpu/kernels/decode.py:53"),
         "combine_fp32": ("mfa_tpu_torch/csrc/decode.cu",
                          "mfa_tpu/kernels/decode.py:148"),
-        "paged_fp32": ("mfa_tpu_torch/csrc/decode_f32.cuh",
+        "paged_fp32": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                        "mfa_tpu/kernels/paged.py:122"),
         "varlen_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",
                         "mfa_tpu/kernels/varlen.py:53"),

@@ -11,8 +11,9 @@
 // Bound: bytes of K + V; splits exist to put enough blocks on the 132 SMs
 // when batch x kv heads is small (dispatch/config.py:num_splits_heuristic,
 // one block of launch 1 an SM). fp32 q and caches (MFA_F32) run launch 1
-// on the SIMT tile (decode_f32.cuh) and the combine as combine_kernel<float>.
-#include "decode_f32.cuh"
+// as splitkv_kernel<float, ..> (both products in 3xTF32) and the combine
+// as combine_kernel<float>.
+#include "decode_sm90.cuh"
 
 namespace {
 
@@ -87,11 +88,7 @@ extern "C" int mfa_decode_partials(const void* q, const void* k, const void* v,
   MFA_DEC_D(T, false)
   if (dtype == MFA_BF16) { MFA_DEC(__nv_bfloat16) }
   if (dtype == MFA_F16) { MFA_DEC(__half) }
-  if (dtype == MFA_F32) {
-    if (kd == 64) return af32::launch_decode<64, false, KV::F16>(k, v, a, batch, s);
-    if (kd == 128) return af32::launch_decode<128, false, KV::F16>(k, v, a, batch, s);
-    if (kd == 256) return af32::launch_decode<256, false, KV::F16>(k, v, a, batch, s);
-  }
+  if (dtype == MFA_F32) { MFA_DEC(float) }
 #undef MFA_DEC
 #undef MFA_DEC_D
   return MFA_BAD_CONFIG;

@@ -37,7 +37,7 @@
 // where the tensor cores would be the limit). The design keeps the memory
 // busy and takes the arithmetic off the CUDA cores:
 //  - One producer thread TMA-loads 64-token K and V tiles into a ring of
-//    STAGES slots (about 190 KB) with full/empty mbarriers. A contiguous
+//    STAGES slots (up to 192 KB, Plan) with full/empty mbarriers. A contiguous
 //    cache is one box a tile of a 3-D map over (D, S, b * hkv); the maps
 //    clip at S with zeros. Pages come one box per page (box_rows =
 //    gcd(page, 64) rows, so a larger page is cut into 64-row boxes) of a
@@ -46,9 +46,10 @@
 //    producer warp, 32 table entries a load; quantized pages bring their
 //    row scales beside them by bulk copies. No box is issued for rows outside
 //    [lo, hi): table entries there may be garbage or -1.
-//  - Eight consumer warps in two teams (one team at D 256): team t takes
-//    tiles t, t + 2, ..., and warp w of a team the tile's tokens [16 w,
-//    16 w + 16). Each warp is its own split of the split: its online
+//  - Eight consumer warps in two teams (one team of four at D 256; two of
+//    two for fp32 rows there): team t takes tiles t, t + TEAMS, ..., and
+//    warp w of a team the tile's tokens [16 w, 16 w + 16). Each warp is
+//    its own split of the split: its online
 //    softmax (m, l) and O live in registers, no barrier joins the warps
 //    while the ring runs, and one shared-memory merge ends the block.
 //  - S = Q K^T and O += P V run on mma.sync m16n8k16 (the group's rows
@@ -76,18 +77,56 @@
 //    stored row, finite, and p = 0 is enough there; int8 and int4 codes
 //    are all finite, and the fp8 conversion makes its NaN codes finite).
 //
+//
+// fp32 q (T = float) runs the same ring, warps and merge, O and the
+// partials in fp32:
+//  - fp32 caches and pages: an fp32 row at D has the bytes of a bf16 row at
+//    2 D, so a tile is [D / 32 chunks][tokens][32 floats] in the same
+//    128-byte swizzle, one box per chunk of a map over 4-byte elements.
+//    Both products run in 3xTF32 on mma.sync m16n8k8 .tf32 (tf32.cuh:
+//    lo.hi + hi.lo + hi.hi, lo.lo dropped; kernels/backward.py:
+//    _matmul_3xtf32_plain is the CPU emulation). K and V are split as they
+//    are read, each by the one warp that reads it. S's k step takes
+//    features f, f + 1 in k slots t4, t4 + 4 with f from s_feat (one 8-byte
+//    read of 16-byte units kk % 4 and kk % 4 + 4: no bank conflict under the
+//    swizzle); P stays in registers with tokens 2 t4, 2 t4 + 1 of each 8
+//    in k slots t4, t4 + 4, so V's B fragment reads tokens 2 t4, 2 t4 + 1
+//    of feature g, at bank 4 ((g >> 2) ^ 2 t4) + (g & 3) (no conflict).
+//    Without M16, rows 8-15 of A carry the lo part of rows 0-7: hi.lo in
+//    rows 0-7 of one product, hi.hi and lo.hi in rows 0-7 and 8-15 of the
+//    next, added by FADD, so two products do the work of three. The tensor
+//    core truncates what it accumulates: S takes a fresh accumulator every
+//    64 features, O one every 16 tokens, added to the running sums by
+//    FADD / FFMA. A 64-token fp32 tile is 64 KB at D 128: two slots, one a
+//    team (a slot serves one team: Plan::STAGES); D 256 takes 32-token
+//    tiles (two warps a tile, two teams), two slots of 64 KB too.
+//  - int8 / fp8 / int4 pages: the ring, the conversions and P V are the
+//    bf16 kernel's. q is split once a block into three bf16 parts, hi +
+//    mid + lo = q exactly (kernels/wmatmul.py:_split_bf16x3_plain), so q . k
+//    is three m16n8k16 products against the same converted K fragments,
+//    each product exact in fp32 and each part its own accumulator, added
+//    (lo + mid) + hi by FADD (without M16, hi and mid share one product as
+//    rows 0-7 and 8-15).
+//  - Q lives in shared memory after the barriers, read once a k step:
+//    fp32 rows in the tile's swizzle, or the bf16 parts as the A fragment
+//    words of each k step.
+//
 // Semantics of the plain versions (kernels/decode.py, kernels/paged.py),
 // kept exactly: scores scaled into the log2 domain before the max (softcap
 // first), probabilities rounded to V's dtype (bf16 for int8 pages) before
-// P V while l sums them unrounded, a row with no visible column stores O =
-// 0 and LSE = -inf, and split ranges are whole 64-token tiles.
+// P V while l sums them unrounded (fp32 caches: not rounded), a row with
+// no visible column stores O = 0 and LSE = -inf, and split ranges are
+// whole 64-token units.
 #pragma once
 
-#include "wgmma.cuh"
+#include <type_traits>
+
+#include "tf32.cuh"
 
 namespace kd90 {
 
-constexpr int TILE = 64;  // tokens a tile (kernels/decode.py:TILE)
+// tokens a split unit, and a tile but for fp32 rows at D 256 (kernels/decode.py:TILE)
+constexpr int TILE = 64;
 
 struct Args {
   const void* q;       // [b, hq, dw]
@@ -110,36 +149,78 @@ struct Args {
 };
 
 // Shared memory: STAGES slots of [K tile | V tile (| K scales | V scales)],
-// then the barriers (full[STAGES], empty[STAGES]). A 16-bit tile is [D / 64
-// chunks][64 tokens][64] with the 128-byte swizzle, a quantized tile [RB /
-// CB chunks][64 tokens][CB bytes] with the CB-byte swizzle (none at 32). The final merge
-// reuses the ring: per consumer warp m[ROWS], l[ROWS] and O[ROWS][D] fp32
-// (ROWS 8, or 16 with M16: 64 KB at D 128 and D 256). At D 256
-// one team of four consumer warps: a thread's O alone takes 128 registers,
-// and nine warps could hold no more than 168 a thread (three warps share a
+// then the barriers (full[STAGES], empty[STAGES]), then (fp32 q) Q. A
+// 16-bit tile is [D / 64 chunks][64 tokens][64] with the 128-byte swizzle,
+// an fp32 tile [D / 32][TT tokens][32] in the same swizzle, a quantized
+// tile [RB / CB chunks][64 tokens][CB bytes] with the CB-byte swizzle (none
+// at 32). Q (fp32 q): fp32 rows [D / 32][16][32] in the swizzle, or the
+// bf16 parts [3][16 rows][QW words] (QW = D / 2 + 8: rows 8 banks apart).
+// The final merge reuses the ring: per consumer warp m[ROWS], l[ROWS] and
+// O[ROWS][D] fp32 (ROWS 8, or 16 with M16: 64 KB at D 128 and D 256). At
+// D 256 four consumer warps: a thread's O alone takes 128 registers, and
+// nine warps could hold no more than 168 a thread (three warps share a
 // quarter of the register file).
-template <int D, KV F>
+template <int D, KV F, bool F32 = false>
 struct Plan {
   static constexpr bool QUANT = F != KV::F16;
-  static constexpr int TEAMS = D > 128 ? 1 : 2;  // tiles the consumer warps work on at once
-  static constexpr int CWARPS = 4 * TEAMS;       // consumer warps, 16 tokens of a tile each
+  static constexpr bool F32P = F32 && !QUANT;                // fp32 rows, 3xTF32
+  static constexpr int TT = F32P && D > 128 ? TILE / 2 : TILE;  // tokens a tile
+  static constexpr int WPT = TT / 16;                        // consumer warps a tile
+  static constexpr int CWARPS = D > 128 ? 4 : 8;             // 16 tokens of a tile each
+  static constexpr int TEAMS = CWARPS / WPT;                 // tiles worked on at once
   static constexpr int THREADS = 32 * (1 + CWARPS);
+  static constexpr int EB = F32P ? 4 : 2;                    // bytes of a 16-bit / fp32 value
+  static constexpr int CE = 128 / EB;                        // values of a 128-byte chunk row
   static constexpr int RB = F == KV::I4 ? D / 2 : D;       // bytes of a quantized row
   static constexpr int CB = QUANT && RB < 128 ? RB : 128;  // bytes of a chunk row
-  static constexpr uint32_t CHUNK = TILE * CB;             // bytes of a chunk
-  static constexpr uint32_t KV_BYTES = TILE * (QUANT ? RB : 2 * D);  // one K or V tile
+  static constexpr uint32_t CHUNK = TT * CB;               // bytes of a chunk
+  static constexpr uint32_t KV_BYTES = TT * (QUANT ? RB : EB * D);  // one K or V tile
   static constexpr uint32_t sc_off = 2 * KV_BYTES;  // quantized: K, V scales
   static constexpr uint32_t STAGE_BYTES =  // a slot, 1024-byte aligned for the swizzle
-      (sc_off + (QUANT ? 2 * TILE * 4 : 0) + 1023) / 1024 * 1024;
+      (sc_off + (QUANT ? 2 * TT * 4 : 0) + 1023) / 1024 * 1024;
+  // Slot i % STAGES holds tile i and team i % TEAMS takes it: with STAGES a
+  // multiple of TEAMS every slot has one team, which waits on its phases in
+  // turn (a slot shared by two teams would let a team's parity wait pass on
+  // the other team's phase two phases back).
   static constexpr int FIT = (192 * 1024) / STAGE_BYTES;
-  static constexpr int STAGES = FIT < 16 ? FIT : 16;
+  static constexpr int STAGES = (FIT < 16 ? FIT : 16) / TEAMS * TEAMS;
   static constexpr uint32_t bar_off = STAGES * STAGE_BYTES;
-  static constexpr size_t bytes = bar_off + 16 * STAGES + 1024;  // + 1 KB to align the base
+  static constexpr int QW = D / 2 + 8;  // words of a row of one bf16 part of q
+  static constexpr uint32_t q_off = (bar_off + 16 * STAGES + 127) / 128 * 128;
+  static constexpr uint32_t Q_BYTES = !F32 ? 0 : F32P ? 16 * D * 4 : 3 * 16 * QW * 4;
+  static constexpr size_t bytes = q_off + Q_BYTES + 1024;  // + 1 KB to align the base
   // the merge of ROWS rows a warp: O rows, then (m, l)
   template <int ROWS>
   static constexpr uint32_t ml_off = CWARPS * ROWS * D * 4;
+  static_assert(STAGES >= 2 && STAGES % TEAMS == 0, "a ring of a slot or more a team");
   static_assert(ml_off<16> + CWARPS * 2 * 16 * 4 <= bar_off, "the merge must fit in the ring");
+  static_assert(bytes <= 232448, "a block's shared memory");
 };
+
+// fp32 S: k step kk (8 features) puts features f and f + 1 in k slots t4
+// and t4 + 4, f = 32 (kk / 4) + 4 (kk % 4) + 16 (t4 / 2) + 2 (t4 % 2):
+// lanes t4 0, 1 read 16-byte unit kk % 4 of a 128-byte chunk row, lanes 2,
+// 3 unit kk % 4 + 4, so the 16 lanes of rows g 0-3 (or 4-7) cover the 32
+// banks once under the swizzle.
+__device__ __forceinline__ int s_feat(int kk, int t4) {
+  return 32 * (kk >> 2) + 4 * (kk & 3) + 16 * (t4 >> 1) + 2 * (t4 & 1);
+}
+
+// Byte offset of fp32 (row, col) in a [D / 32][ROWS][32] tile in the
+// 128-byte swizzle (16-byte unit (col % 32) / 4 of row `row` stored at unit
+// ^ row % 8).
+template <int ROWS>
+__device__ __forceinline__ int swz32(int row, int col) {
+  return (col >> 5) * (ROWS * 128) + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) +
+         ((col & 3) << 2);
+}
+
+__device__ __forceinline__ float2 lds2(const unsigned char* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float lds1(const unsigned char* p) {
+  return *reinterpret_cast<const float*>(p);
+}
 
 __device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) { return bars + 8 * s; }
 template <int STAGES>
@@ -268,17 +349,74 @@ __device__ __forceinline__ int merge_col(int r, int x) {
   return QUANT ? x ^ (((r & 7) << 2) | ((x % CB) / (CB / 4))) : x ^ ((r & 7) << 3);
 }
 
-// Grid (splits x row blocks, hkv, batch). PAGED: the source is a page pool
-// through the block table; F: the pages' format (quantized: fp32 row scales,
-// T bf16); M16: 16 query rows a block, each with its own columns (spans,
+// Column of the first of the four q values of k step kk that lane t4's A
+// words hold, ordered as its K (or V) reads: 16-bit, columns 16 kk + 2 t4
+// (+ 1) and + 8 (+ 1); one byte a value, step kk = c NW + w, columns c CB +
+// (CB / 4) t4 + 4 w + 0..3 (the four bytes of K this lane reads there);
+// int4, steps 2 (c NW + w) + h, columns 2 (c CB + (CB / 4) t4 + 4 w) + 4 h
+// + 0..3 (half of the word's eight nibbles each).
+template <KV F, int CB>
+__device__ __forceinline__ int q_col(int kk, int t4) {
+  constexpr int NW = CB / 16;
+  if constexpr (F == KV::I4) {
+    const int W = kk >> 1;
+    return 2 * ((W / NW) * CB + (CB / 4) * t4 + 4 * (W % NW)) + 4 * (kk & 1);
+  } else if constexpr (F != KV::F16) {
+    return (kk / NW) * CB + (CB / 4) * t4 + 4 * (kk % NW);
+  } else {
+    return 16 * kk + 2 * t4;
+  }
+}
+
+// The K words a lane reads of row `row` in a chunk of a quantized tile:
+// bytes [(CB / 4) t4, + CB / 4) (of the row's g), as NW = CB / 16 words.
+template <int CB>
+__device__ __forceinline__ void k_words(const unsigned char* chunk, int row, int t4,
+                                        uint32_t (&kw)[CB / 16]) {
+  if constexpr (CB == 32) {
+    const uint2 u = *reinterpret_cast<const uint2*>(chunk + swz8<CB>(row, 0) + 8 * t4);
+    kw[0] = u.x;
+    kw[1] = u.y;
+  } else {
+#pragma unroll
+    for (int x = 0; x < CB / 64; ++x) {
+      const uint4 u = *reinterpret_cast<const uint4*>(chunk + swz8<CB>(row, (CB / 64) * t4 + x));
+      kw[4 * x] = u.x;
+      kw[4 * x + 1] = u.y;
+      kw[4 * x + 2] = u.z;
+      kw[4 * x + 3] = u.w;
+    }
+  }
+}
+
+// K word -> the bf16 B fragment(s) of its k step(s): two words (int8,
+// fp8), or four (int4: two k steps).
+template <KV F>
+__device__ __forceinline__ void k_frag(uint32_t w, uint32_t (&kb)[4]) {
+  if constexpr (F == KV::I4) {
+    i4x8_to_bf16(w, kb);
+  } else if constexpr (F == KV::E4M3) {
+    e4m3x4_to_bf16(w, kb[0], kb[1]);
+  } else {
+    i8x4_to_bf16(w, kb[0], kb[1]);
+  }
+}
+
+// Grid (splits x row blocks, hkv, batch). T: q's dtype (bf16, fp16 or
+// float). PAGED: the source is a page pool through the block table; F:
+// the pages' format (KV::F16: T's rows; quantized: fp32 row scales, T bf16
+// or float); M16: 16 query rows a block, each with its own columns (spans,
 // groups above 8).
 template <typename T, int D, bool PAGED, KV F, bool M16>
 __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     splitkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                    const Args a) {
-  using P = Plan<D, F>;
-  constexpr bool QUANT = P::QUANT;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  using P = Plan<D, F, F32>;
+  using TM = std::conditional_t<F32, __nv_bfloat16, T>;  // 16-bit operands of the products
+  constexpr bool QUANT = P::QUANT, F32P = P::F32P, F32Q = F32 && QUANT;
   constexpr int STAGES = P::STAGES, TEAMS = P::TEAMS, CWARPS = P::CWARPS, CB = P::CB;
+  constexpr int TT = P::TT, WPT = P::WPT, CE = P::CE;
   constexpr int NCH = P::RB / CB, NW = CB / 16;  // quantized: chunks a row, words a thread reads in each
   constexpr int ROWS = M16 ? 16 : 8;  // rows of the merge a warp
   constexpr int NR = M16 ? 2 : 1;     // rows a thread owns: g (and g + 8)
@@ -306,12 +444,12 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   // the columns every row of the block sees: a warp's tokens inside need no mask
   const int lo_all = M16 ? row_lo(si_last) : lo, hi_all = M16 ? row_hi(si_first) : hi;
   // the split's sink columns [sa_lo, sa_hi) (empty: sa_hi == sa_lo), read
-  // as tiles [sa_lo / TILE, + nsink) ahead of the band's tiles from bfirst
+  // as tiles [sa_lo / TT, + nsink) ahead of the band's tiles from bfirst
   const int sa_lo = s_lo, sa_hi = max(s_lo, min(a.sinks, hi));
-  const int nsink = sa_hi > sa_lo ? (sa_hi + TILE - 1) / TILE - sa_lo / TILE : 0;
-  const int bfirst = max(lo / TILE, sa_lo / TILE + nsink);
-  const int n_tiles = nsink + (lo < hi ? max(0, (hi + TILE - 1) / TILE - bfirst) : 0);
-  auto tile_of = [&](int i) { return i < nsink ? sa_lo / TILE + i : bfirst + (i - nsink); };
+  const int nsink = sa_hi > sa_lo ? (sa_hi + TT - 1) / TT - sa_lo / TT : 0;
+  const int bfirst = max(lo / TT, sa_lo / TT + nsink);
+  const int n_tiles = nsink + (lo < hi ? max(0, (hi + TT - 1) / TT - bfirst) : 0);
+  auto tile_of = [&](int i) { return i < nsink ? sa_lo / TT + i : bfirst + (i - nsink); };
 
   extern __shared__ __align__(16) unsigned char kd_smem[];
   unsigned char* smem = kd_smem + ((1024u - (smem_u32(kd_smem) & 1023u)) & 1023u);
@@ -320,7 +458,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar_full(bars, s), 1);
-      mbar_init(bar_empty<STAGES>(bars, s), 4);  // lane 0 of each warp of the tile's team
+      mbar_init(bar_empty<STAGES>(bars, s), WPT);  // lane 0 of each warp of the tile's team
     }
     mbar_fence_init();
   }
@@ -335,11 +473,11 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
           mbar_wait(bar_empty<STAGES>(bars, s), ((i / STAGES) & 1) ^ 1);
           mbar_expect_tx(bar_full(bars, s), 2 * P::KV_BYTES);
           const uint32_t k_s = base + s * P::STAGE_BYTES, v_s = k_s + P::KV_BYTES;
-          const int row = tile_of(i) * TILE, plane = b * a.hkv + hk;
+          const int row = tile_of(i) * TT, plane = b * a.hkv + hk;
 #pragma unroll
-          for (int ch = 0; ch < D / 64; ++ch) {
-            tma_load_3d(k_s + ch * (TILE * 128), &tk, bar_full(bars, s), ch * 64, row, plane);
-            tma_load_3d(v_s + ch * (TILE * 128), &tv, bar_full(bars, s), ch * 64, row, plane);
+          for (int ch = 0; ch < D / CE; ++ch) {
+            tma_load_3d(k_s + ch * (TT * 128), &tk, bar_full(bars, s), ch * CE, row, plane);
+            tma_load_3d(v_s + ch * (TT * 128), &tv, bar_full(bars, s), ch * CE, row, plane);
           }
         }
       }
@@ -348,19 +486,19 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
       // the next 32 entries when a box's page passes them.
       const int* tbl = a.table + (size_t)b * a.pps;
       const int R = a.box_rows, page = a.page_size, last_pi = (hi - 1) / page;
-      const uint32_t box_bytes = QUANT ? 2 * R * (P::RB + 4) : 2 * R * D * 2;
+      const uint32_t box_bytes = QUANT ? 2 * R * (P::RB + 4) : 2 * R * D * P::EB;
       int ids = 0, id0 = -32;
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES, t0 = tile_of(i) * TILE;
+        const int s = i % STAGES, t0 = tile_of(i) * TT;
         // the hull of the tile's tokens in [sa_lo, sa_hi) and [lo, hi)
-        int tlo = TILE, thi = 0;
-        if (sa_lo < sa_hi && sa_lo < t0 + TILE && sa_hi > t0) {
+        int tlo = TT, thi = 0;
+        if (sa_lo < sa_hi && sa_lo < t0 + TT && sa_hi > t0) {
           tlo = max(sa_lo - t0, 0);
-          thi = min(sa_hi - t0, TILE);
+          thi = min(sa_hi - t0, TT);
         }
-        if (lo < hi && lo < t0 + TILE && hi > t0) {
+        if (lo < hi && lo < t0 + TT && hi > t0) {
           tlo = min(tlo, max(lo - t0, 0));
-          thi = max(thi, min(hi - t0, TILE));
+          thi = max(thi, min(hi - t0, TT));
         }
         const int jb0 = tlo / R, jb1 = (thi + R - 1) / R;
         const uint32_t k_s = base + s * P::STAGE_BYTES, v_s = k_s + P::KV_BYTES;
@@ -387,13 +525,13 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
               const size_t srow = (size_t)plane * page + row;
               const uint32_t sc = k_s + P::sc_off + jb * R * 4;
               bulk_load(sc, a.k_scale + srow, R * 4, bar_full(bars, s));
-              bulk_load(sc + TILE * 4, a.v_scale + srow, R * 4, bar_full(bars, s));
+              bulk_load(sc + TT * 4, a.v_scale + srow, R * 4, bar_full(bars, s));
             } else {
 #pragma unroll
-              for (int ch = 0; ch < D / 64; ++ch) {
-                const uint32_t at = ch * (TILE * 128) + jb * R * 128;
-                tma_load_3d(k_s + at, &tk, bar_full(bars, s), ch * 64, row, plane);
-                tma_load_3d(v_s + at, &tv, bar_full(bars, s), ch * 64, row, plane);
+              for (int ch = 0; ch < D / CE; ++ch) {
+                const uint32_t at = ch * (TT * 128) + jb * R * 128;
+                tma_load_3d(k_s + at, &tk, bar_full(bars, s), ch * CE, row, plane);
+                tma_load_3d(v_s + at, &tv, bar_full(bars, s), ch * CE, row, plane);
               }
             }
           }
@@ -403,7 +541,8 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     return;
   }
 
-  const int cw = warp - 1, team = cw >> 2, quarter = cw & 3;
+  const int cw = warp - 1;  // consumer warp
+  const int team = (unsigned)cw / WPT, quarter = (unsigned)cw % WPT;
   const int g = lane >> 2, t4 = lane & 3;
   // This thread's rows g (and g + 8): [lo, hi) of each, their positions
   // and ALiBi slopes. A padding row (past the group, or past q_span x
@@ -420,38 +559,84 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     rsl[h] = a.slopes != nullptr ? a.slopes[hk * G + rc % G] : 0.f;
   }
   const bool alibi = a.slopes != nullptr;
-  // Q rows as A fragments (qa[kk][h] the low k half of row g + 8 h,
-  // qa[kk][NR + h] the high one; padding rows zero). 16-bit: step kk holds
-  // columns 16 kk + 2 t4 (+1) and 16 kk + 8 + 2 t4 (+1). One byte a value:
-  // step kk = c NW + w holds columns c CB + (CB / 4) t4 + 4 w + 0..1 and +
-  // 2..3, the four bytes of K this thread reads there. int4: steps 2 (c NW
-  // + w) + h hold columns 2 (c CB + (CB / 4) t4 + 4 w) + 4 h + 0..3, half of
-  // the word's eight nibbles each.
-  uint32_t qa[D / 16][2 * NR];
+  // 16-bit q: Q rows as A fragments (qa[kk][h] the low k half of row g + 8
+  // h, qa[kk][NR + h] the high one; padding rows zero), columns from q_col
+  uint32_t qa[F32 ? 1 : D / 16][2 * NR];
+  if constexpr (!F32) {
 #pragma unroll
-  for (int h = 0; h < NR; ++h) {
-    const int r = M16 ? r0 + g + 8 * h : g;
-    const bool live = M16 ? r < R : g < G;
-    const int rc = M16 ? min(r, R - 1) : min(g, G - 1);
-    const int si = M16 ? rc / G : 0, gi = M16 ? rc % G : rc;
-    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
-        static_cast<const T*>(a.q) +
-        (((size_t)b * span + si) * a.hq + (size_t)hk * G + gi) * a.dw);
+    for (int h = 0; h < NR; ++h) {
+      const int r = M16 ? r0 + g + 8 * h : g;
+      const bool live = M16 ? r < R : g < G;
+      const int rc = M16 ? min(r, R - 1) : min(g, G - 1);
+      const int si = M16 ? rc / G : 0, gi = M16 ? rc % G : rc;
+      const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+          static_cast<const T*>(a.q) +
+          (((size_t)b * span + si) * a.hq + (size_t)hk * G + gi) * a.dw);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      int col = 16 * kk + 2 * t4;
-      if constexpr (F == KV::I4) {
-        const int W = kk >> 1;
-        col = 2 * ((W / NW) * CB + (CB / 4) * t4 + 4 * (W % NW)) + 4 * (kk & 1);
-      } else if constexpr (QUANT) {
-        col = (kk / NW) * CB + (CB / 4) * t4 + 4 * (kk % NW);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int col = q_col<F, CB>(kk, t4);
+        // columns past dw are zeros (a quantized step's four columns lie on
+        // one side of dw, a multiple of 16)
+        qa[kk][h] = live && col < a.dw ? qr[col / 2] : 0u;
+        qa[kk][NR + h] = live && col + (QUANT ? 0 : 8) < a.dw ? qr[col / 2 + (QUANT ? 1 : 4)] : 0u;
       }
-      // columns past dw are zeros (a quantized step's four columns lie on
-      // one side of dw, a multiple of 16)
-      qa[kk][h] = live && col < a.dw ? qr[col / 2] : 0u;
-      qa[kk][NR + h] = live && col + (QUANT ? 0 : 8) < a.dw ? qr[col / 2 + (QUANT ? 1 : 4)] : 0u;
     }
+  } else {
+    // fp32 q into shared memory once: the rows (F32P), or the A words of
+    // each k step of its three bf16 parts (F32Q); padding rows and columns
+    // past dw zero
+    unsigned char* qs = smem + P::q_off;
+    for (int i = threadIdx.x - 32; i < 16 * (D / 4); i += 32 * CWARPS) {
+      const int r = i / (D / 4), x = i % (D / 4);  // block row r (without M16: group row r)
+      const int c = F32P ? 4 * x : q_col<F, CB>(x >> 2, x & 3);  // F32Q: step x / 4, lane x % 4
+      const int rr = r0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if ((M16 ? rr < R : r < G) && c < a.dw) {
+        const int si = M16 ? rr / G : 0, gi = M16 ? rr % G : r;
+        const float* qr = reinterpret_cast<const float*>(a.q) +
+                          (((size_t)b * span + si) * a.hq + (size_t)hk * G + gi) * a.dw;
+        v = __ldg(reinterpret_cast<const float4*>(qr + c));
+      }
+      if constexpr (F32P) {
+        *reinterpret_cast<float4*>(qs + swz32<16>(r, c)) = v;
+      } else {
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+        uint32_t part[3][4];  // hi, mid, lo bf16 bits of each value
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat16 h0 = __float2bfloat16_rn(vv[e]);
+          const float r1 = vv[e] - __bfloat162float(h0);
+          const __nv_bfloat16 m0 = __float2bfloat16_rn(r1);
+          const __nv_bfloat16 l0 = __float2bfloat16_rn(r1 - __bfloat162float(m0));
+          part[0][e] = __bfloat16_as_ushort(h0);
+          part[1][e] = __bfloat16_as_ushort(m0);
+          part[2][e] = __bfloat16_as_ushort(l0);
+        }
+        uint32_t* qw = reinterpret_cast<uint32_t*>(qs);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          *reinterpret_cast<uint2*>(qw + (p * 16 + r) * P::QW + 2 * x) =
+              make_uint2(part[p][0] | (part[p][1] << 16), part[p][2] | (part[p][3] << 16));
+      }
+    }
+    named_sync(1, 32 * CWARPS);
   }
+  const unsigned char* qs = smem + P::q_off;
+  // fp32 q's bf16 parts, the A words {low k half, high k half} of part p,
+  // row r (0-15), k step kk. With M16 an ordered load each: left free,
+  // the compiler hoists them all ahead of the products and spills.
+  auto qpart = [&](int p, int r, int kk) {
+    const int off = 4 * ((p * 16 + r) * P::QW + 8 * kk + 2 * t4);
+    if constexpr (M16) {
+      uint2 u;
+      asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                   : "=r"(u.x), "=r"(u.y)
+                   : "r"(base + P::q_off + off));
+      return u;
+    } else {
+      return *reinterpret_cast<const uint2*>(qs + off);
+    }
+  };
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -467,7 +652,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   for (int i = team; i < n_tiles; i += TEAMS) {
     const int s = i % STAGES;
     mbar_wait(bar_full(bars, s), (i / STAGES) & 1);
-    const int tok0 = tile_of(i) * TILE + 16 * quarter;  // this warp's first token
+    const int tok0 = tile_of(i) * TT + 16 * quarter;  // this warp's first token
     if ((tok0 < hi && tok0 + 16 > lo) || (tok0 < sa_hi && tok0 + 16 > sa_lo)) {
       const bool edge = tok0 < lo_all || tok0 + 16 > hi_all;
       const uint32_t k_s = base + s * P::STAGE_BYTES, v_s = k_s + P::KV_BYTES;
@@ -477,61 +662,128 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
       // S = Q K^T over the warp's 16 tokens: two 8-token n-tiles
       float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       if constexpr (QUANT) {
-        // every load of the tile's K words first (bytes [c CB + (CB / 4)
-        // t4, + CB / 4) of row g of each n-tile), then the conversions;
         // with M16 (Q's fragments take twice the registers) one n-tile at a
         // time
         constexpr int JN = M16 ? 1 : 2;
+        constexpr int KS = F == KV::I4 ? 2 : 1;  // k steps a K word
 #pragma unroll
         for (int jb = 0; jb < 2; jb += JN) {
-        uint32_t kw[JN][NCH][NW];
+          if constexpr (F32) {
+            // fp32 q: an accumulator a part for these n-tiles (without M16,
+            // hi and mid as rows 0-7 and 8-15 of one); a chunk's K words at
+            // a time, q's parts of a k step read once for every n-tile
+            constexpr int NP = M16 ? 3 : 2;
+            float sq[NP][JN][4] = {};
 #pragma unroll
-        for (int jn = 0; jn < JN; ++jn) {
+            for (int c = 0; c < NCH; ++c) {
+              uint32_t kw[JN][NW];
 #pragma unroll
-          for (int c = 0; c < NCH; ++c) {
-            const unsigned char* rp = slot + c * P::CHUNK;
-            const int row = row0 + 8 * (jb + jn) + g;
-            if constexpr (CB == 32) {
-              const uint2 u = *reinterpret_cast<const uint2*>(rp + swz8<CB>(row, 0) + 8 * t4);
-              kw[jn][c][0] = u.x;
-              kw[jn][c][1] = u.y;
-            } else {
+              for (int jn = 0; jn < JN; ++jn)
+                k_words<CB>(slot + c * P::CHUNK, row0 + 8 * (jb + jn) + g, t4, kw[jn]);
 #pragma unroll
-              for (int x = 0; x < CB / 64; ++x) {
-                const uint4 u =
-                    *reinterpret_cast<const uint4*>(rp + swz8<CB>(row, (CB / 64) * t4 + x));
-                kw[jn][c][4 * x] = u.x;
-                kw[jn][c][4 * x + 1] = u.y;
-                kw[jn][c][4 * x + 2] = u.z;
-                kw[jn][c][4 * x + 3] = u.w;
-              }
-            }
-          }
-        }
+              for (int w = 0; w < NW; ++w) {
+                const int W = c * NW + w;
+                uint32_t kb[JN][4];
 #pragma unroll
-        for (int jn = 0; jn < JN; ++jn) {
+                for (int jn = 0; jn < JN; ++jn) k_frag<F>(kw[jn][w], kb[jn]);
 #pragma unroll
-          for (int c = 0; c < NCH; ++c) {
+                for (int e = 0; e < KS; ++e) {
+                  uint2 qp[NR][3];
 #pragma unroll
-            for (int w = 0; w < NW; ++w) {
-              const int W = c * NW + w;
-              if constexpr (F == KV::I4) {
-                uint32_t kb[4];
-                i4x8_to_bf16(kw[jn][c][w], kb);
-                mma_rows<T, M16>(sc[jb + jn], qa[2 * W], kb);
-                mma_rows<T, M16>(sc[jb + jn], qa[2 * W + 1], kb + 2);
-              } else {
-                uint32_t kb[2];
-                if constexpr (F == KV::E4M3) {
-                  e4m3x4_to_bf16(kw[jn][c][w], kb[0], kb[1]);
-                } else {
-                  i8x4_to_bf16(kw[jn][c][w], kb[0], kb[1]);
+                  for (int h = 0; h < NR; ++h)
+#pragma unroll
+                    for (int p = 0; p < 3; ++p) qp[h][p] = qpart(p, g + 8 * h, KS * W + e);
+#pragma unroll
+                  for (int jn = 0; jn < JN; ++jn) {
+                    const uint32_t* b2 = kb[jn] + 2 * e;
+                    if constexpr (M16) {
+#pragma unroll
+                      for (int p = 0; p < 3; ++p)
+                        mma16816_full<TM>(sq[p][jn], qp[0][p].x, qp[1][p].x, qp[0][p].y,
+                                          qp[1][p].y, b2);
+                    } else {
+                      mma16816_full<TM>(sq[0][jn], qp[0][0].x, qp[0][1].x, qp[0][0].y,
+                                        qp[0][1].y, b2);
+                      mma16816<TM>(sq[1][jn], qp[0][2].x, qp[0][2].y, b2);
+                    }
+                  }
                 }
-                mma_rows<T, M16>(sc[jb + jn], qa[W], kb);
+              }
+            }
+#pragma unroll
+            for (int jn = 0; jn < JN; ++jn)  // (lo + mid) + hi
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                sc[jb + jn][e] =
+                    M16 ? (sq[2 % NP][jn][e] + sq[1][jn][e]) + sq[0][jn][e]
+                        : (sq[1][jn][e & 1] + sq[0][jn][2 + (e & 1)]) + sq[0][jn][e & 1];
+          } else {
+            // every load of the tile's K words first, then the conversions
+            uint32_t kw[JN][NCH][NW];
+#pragma unroll
+            for (int jn = 0; jn < JN; ++jn)
+#pragma unroll
+              for (int c = 0; c < NCH; ++c)
+                k_words<CB>(slot + c * P::CHUNK, row0 + 8 * (jb + jn) + g, t4, kw[jn][c]);
+#pragma unroll
+            for (int jn = 0; jn < JN; ++jn) {
+#pragma unroll
+              for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+                for (int w = 0; w < NW; ++w) {
+                  uint32_t kb[4];
+                  k_frag<F>(kw[jn][c][w], kb);
+#pragma unroll
+                  for (int e = 0; e < KS; ++e)
+                    mma_rows<T, M16>(sc[jb + jn], qa[KS * (c * NW + w) + e], kb + 2 * e);
+                }
               }
             }
           }
         }
+      } else if constexpr (F32P) {
+        // 3xTF32, a fresh accumulator every 64 features; lane reads of Q
+        // and K at the features s_feat gives them
+        const unsigned char* kt = slot;
+#pragma unroll
+        for (int c0 = 0; c0 < D / 8; c0 += 8) {
+          float f[2][4] = {};
+#pragma unroll
+          for (int kk = c0; kk < c0 + 8; ++kk) {
+            const int x = s_feat(kk, t4);
+            uint32_t qh[NR][2], ql[NR][2];  // rows g (+ 8): k slots t4, t4 + 4
+#pragma unroll
+            for (int h = 0; h < NR; ++h) {
+              const float2 q2 = lds2(qs + swz32<16>(g + 8 * h, x));
+              tc32::split(q2.x, qh[h][0], ql[h][0]);
+              tc32::split(q2.y, qh[h][1], ql[h][1]);
+            }
+#pragma unroll
+            for (int jn = 0; jn < 2; ++jn) {
+              const float2 k2 = lds2(kt + swz32<TT>(row0 + 8 * jn + g, x));
+              uint32_t kh0, kl0, kh1, kl1;
+              tc32::split(k2.x, kh0, kl0);
+              tc32::split(k2.y, kh1, kl1);
+              if constexpr (M16) {
+                const uint32_t al[4] = {ql[0][0], ql[1][0], ql[0][1], ql[1][1]};
+                const uint32_t ah[4] = {qh[0][0], qh[1][0], qh[0][1], qh[1][1]};
+                tc32::mma_tf32(f[jn], al, kh0, kh1);
+                tc32::mma_tf32(f[jn], ah, kl0, kl1);
+                tc32::mma_tf32(f[jn], ah, kh0, kh1);
+              } else {
+                // rows 0-7: hi.lo then hi.hi; rows 8-15: lo.hi
+                const uint32_t a1[4] = {qh[0][0], 0u, qh[0][1], 0u};
+                const uint32_t a2[4] = {qh[0][0], ql[0][0], qh[0][1], ql[0][1]};
+                tc32::mma_tf32(f[jn], a1, kl0, kl1);
+                tc32::mma_tf32(f[jn], a2, kh0, kh1);
+              }
+            }
+          }
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[jn][e] += M16 ? f[jn][e] : f[jn][2 + (e & 1)] + f[jn][e & 1];
         }
       } else {
 #pragma unroll
@@ -550,14 +802,14 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
 #pragma unroll
         for (int jn = 0; jn < 2; ++jn) {
           const float2 k2 = *reinterpret_cast<const float2*>(scl + row0 + 8 * jn + 2 * t4);
-          const float2 v2 = *reinterpret_cast<const float2*>(scl + TILE + row0 + 8 * jn + 2 * t4);
+          const float2 v2 = *reinterpret_cast<const float2*>(scl + TT + row0 + 8 * jn + 2 * t4);
           ks[2 * jn] = k2.x;
           ks[2 * jn + 1] = k2.y;
           vs[2 * jn] = v2.x;
           vs[2 * jn + 1] = v2.y;
         }
       }
-      float v[NR][4];
+      float v[NR][4], alph[NR];  // F32P: alpha of row g + 8 h, for the tile's fresh O sum
 #pragma unroll
       for (int h = 0; h < NR; ++h) {
         float mx = MFA_MASK;
@@ -587,98 +839,159 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
         }
         m[h] = m_new;
         l[h] = alpha * l[h] + ps;
+        if constexpr (F32P) {
+          alph[h] = alpha;
+        } else {
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          acc[j][2 * h] *= alpha;
-          acc[j][2 * h + 1] *= alpha;
+          for (int j = 0; j < D / 8; ++j) {
+            acc[j][2 * h] *= alpha;
+            acc[j][2 * h + 1] *= alpha;
+          }
         }
         if constexpr (QUANT) {  // V scales fold into p; a masked p stays exactly 0
 #pragma unroll
           for (int x = 0; x < 4; ++x) v[h][x] = v[h][x] == 0.f ? 0.f : v[h][x] * vs[x];
         }
       }
-      // P rounded to V's dtype: the A fragments of P V, ordered as qa's
-      uint32_t pa[2 * NR];
-#pragma unroll
-      for (int h = 0; h < NR; ++h) {
-        pa[h] = pack2<T>(v[h][0], v[h][1]);
-        pa[NR + h] = pack2<T>(v[h][2], v[h][3]);
-      }
-      // V fragments of tokens outside the union [lo, hi) + [sa_lo, sa_hi) are
-      // zeroed on an edge: b0 holds tokens 2 t4, 2 t4 + 1, b1 tokens 2 t4 +
-      // 8, 2 t4 + 9
-      uint32_t keep0 = 0xffffffffu, keep1 = 0xffffffffu;
-      if (edge) {
-        const int t = tok0 + 2 * t4;
+      if constexpr (F32P) {
+        // O += P V in 3xTF32: P of 8-token step j from the S accumulators
+        // (k slots t4, t4 + 4 <- tokens 2 t4, 2 t4 + 1), V's rows 2 t4 and
+        // 2 t4 + 1 of the step at feature 8 n + g of n-tile n, split as read
+        // and zeroed outside the union (a row past the length may hold
+        // anything, and 0 * NaN would survive)
+        const unsigned char* vt = slot + P::KV_BYTES;
         auto in_u = [&](int u) { return (u >= lo && u < hi) || (u >= sa_lo && u < sa_hi); };
-        keep0 = (in_u(t) ? 0x0000ffffu : 0u) | (in_u(t + 1) ? 0xffff0000u : 0u);
-        keep1 = (in_u(t + 8) ? 0x0000ffffu : 0u) | (in_u(t + 9) ? 0xffff0000u : 0u);
-      }
-      if constexpr (QUANT) {
-        // rows 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 of the warp's 16: the
-        // k-slots of this thread's B fragments
+        bool keep[2][2];
+        uint32_t ph[2][NR][2], pl[2][NR][2];
 #pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          uint32_t rw[4][CB / 32];
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int row = row0 + 2 * t4 + (r & 1) + 8 * (r >> 1);
-            const unsigned char* vr = slot + P::KV_BYTES + c * P::CHUNK;
-            if constexpr (CB == 128) {
-              const uint4 u = *reinterpret_cast<const uint4*>(vr + swz8<CB>(row, g));
-              rw[r][0] = u.x;
-              rw[r][1] = u.y;
-              rw[r][2] = u.z;
-              rw[r][3] = u.w;
-            } else if constexpr (CB == 64) {
-              const uint2 u =
-                  *reinterpret_cast<const uint2*>(vr + swz8<CB>(row, g >> 1) + (g & 1) * 8);
-              rw[r][0] = u.x;
-              rw[r][1] = u.y;
-            } else {
-              rw[r][0] = *reinterpret_cast<const uint32_t*>(vr + swz8<CB>(row, 0) + 4 * g);
-            }
+          for (int e = 0; e < 2; ++e) {
+            keep[j][e] = !edge || in_u(tok0 + 8 * j + 2 * t4 + e);
+#pragma unroll
+            for (int h = 0; h < NR; ++h) tc32::split(v[h][2 * j + e], ph[j][h][e], pl[j][h][e]);
           }
+        constexpr int NC = M16 ? 4 : 8;  // n-tiles of fresh accumulators at once
 #pragma unroll
-          for (int w = 0; w < CB / 32; ++w) {
-            const uint32_t col4[4] = {rw[0][w], rw[1][w], rw[2][w], rw[3][w]};
-            uint32_t tr[4];
-            transpose4x4(col4, tr);
+        for (int n0 = 0; n0 < D / 8; n0 += NC) {
+          float f[NC][4] = {};
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if constexpr (F == KV::I4) {
-                uint32_t lo4[2], hi4[2];
-                i4x8_tokens_to_bf16(tr[e], lo4, hi4);
-                const int j = c * (CB / 4) + 8 * w + 2 * e;
-                mma_rows<T, M16>(acc[j], pa, lo4);
-                mma_rows<T, M16>(acc[j + 1], pa, hi4);
+          for (int j = 0; j < 2; ++j) {
+            const int row = row0 + 8 * j + 2 * t4;
+#pragma unroll
+            for (int n = 0; n < NC; ++n) {
+              const int col = 8 * (n0 + n) + g;
+              float x0 = lds1(vt + swz32<TT>(row, col)), x1 = lds1(vt + swz32<TT>(row + 1, col));
+              x0 = keep[j][0] ? x0 : 0.f;
+              x1 = keep[j][1] ? x1 : 0.f;
+              uint32_t vh0, vl0, vh1, vl1;
+              tc32::split(x0, vh0, vl0);
+              tc32::split(x1, vh1, vl1);
+              if constexpr (M16) {
+                const uint32_t al[4] = {pl[j][0][0], pl[j][1][0], pl[j][0][1], pl[j][1][1]};
+                const uint32_t ah[4] = {ph[j][0][0], ph[j][1][0], ph[j][0][1], ph[j][1][1]};
+                tc32::mma_tf32(f[n], al, vh0, vh1);
+                tc32::mma_tf32(f[n], ah, vl0, vl1);
+                tc32::mma_tf32(f[n], ah, vh0, vh1);
               } else {
-                uint32_t vb[2];
-                if constexpr (F == KV::E4M3) {
-                  e4m3x4_to_bf16(tr[e], vb[0], vb[1]);
-                  if (edge) {  // the one format with NaN codes (converted finite)
-                    vb[0] &= keep0;
-                    vb[1] &= keep1;
-                  }
-                } else {
-                  i8x4_to_bf16(tr[e], vb[0], vb[1]);
-                }
-                mma_rows<T, M16>(acc[4 * (c * (CB / 32) + w) + e], pa, vb);
+                // rows 0-7: hi.lo then hi.hi; rows 8-15: lo.hi
+                const uint32_t a1[4] = {ph[j][0][0], 0u, ph[j][0][1], 0u};
+                const uint32_t a2[4] = {ph[j][0][0], pl[j][0][0], ph[j][0][1], pl[j][0][1]};
+                tc32::mma_tf32(f[n], a1, vl0, vl1);
+                tc32::mma_tf32(f[n], a2, vh0, vh1);
               }
             }
           }
+#pragma unroll
+          for (int n = 0; n < NC; ++n)
+#pragma unroll
+            for (int e = 0; e < 2 * NR; ++e)
+              acc[n0 + n][e] = fmaf(acc[n0 + n][e], alph[e >> 1],
+                                    M16 ? f[n][e] : f[n][2 + e] + f[n][e]);
         }
       } else {
+        // P rounded to V's dtype: the A fragments of P V, ordered as qa's
+        uint32_t pa[2 * NR];
 #pragma unroll
-        for (int j2 = 0; j2 < D / 16; ++j2) {
-          uint32_t vb[4];
-          ldsm_x4_t(vb, swz(v_s, row0 + (mi & 1) * 8 + lr, 8 * (2 * j2 + (mi >> 1))));
-          vb[0] &= keep0;
-          vb[2] &= keep0;
-          vb[1] &= keep1;
-          vb[3] &= keep1;
-          mma_rows<T, M16>(acc[2 * j2], pa, vb);
-          mma_rows<T, M16>(acc[2 * j2 + 1], pa, vb + 2);
+        for (int h = 0; h < NR; ++h) {
+          pa[h] = pack2<TM>(v[h][0], v[h][1]);
+          pa[NR + h] = pack2<TM>(v[h][2], v[h][3]);
+        }
+        // V fragments of tokens outside the union are zeroed on an edge: b0
+        // holds tokens 2 t4, 2 t4 + 1, b1 tokens 2 t4 + 8, 2 t4 + 9
+        uint32_t keep0 = 0xffffffffu, keep1 = 0xffffffffu;
+        if (edge) {
+          const int t = tok0 + 2 * t4;
+          auto in_u = [&](int u) { return (u >= lo && u < hi) || (u >= sa_lo && u < sa_hi); };
+          keep0 = (in_u(t) ? 0x0000ffffu : 0u) | (in_u(t + 1) ? 0xffff0000u : 0u);
+          keep1 = (in_u(t + 8) ? 0x0000ffffu : 0u) | (in_u(t + 9) ? 0xffff0000u : 0u);
+        }
+        if constexpr (QUANT) {
+          // rows 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 of the warp's 16: the
+          // k-slots of this thread's B fragments
+#pragma unroll
+          for (int c = 0; c < NCH; ++c) {
+            uint32_t rw[4][CB / 32];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int row = row0 + 2 * t4 + (r & 1) + 8 * (r >> 1);
+              const unsigned char* vr = slot + P::KV_BYTES + c * P::CHUNK;
+              if constexpr (CB == 128) {
+                const uint4 u = *reinterpret_cast<const uint4*>(vr + swz8<CB>(row, g));
+                rw[r][0] = u.x;
+                rw[r][1] = u.y;
+                rw[r][2] = u.z;
+                rw[r][3] = u.w;
+              } else if constexpr (CB == 64) {
+                const uint2 u =
+                    *reinterpret_cast<const uint2*>(vr + swz8<CB>(row, g >> 1) + (g & 1) * 8);
+                rw[r][0] = u.x;
+                rw[r][1] = u.y;
+              } else {
+                rw[r][0] = *reinterpret_cast<const uint32_t*>(vr + swz8<CB>(row, 0) + 4 * g);
+              }
+            }
+#pragma unroll
+            for (int w = 0; w < CB / 32; ++w) {
+              const uint32_t col4[4] = {rw[0][w], rw[1][w], rw[2][w], rw[3][w]};
+              uint32_t tr[4];
+              transpose4x4(col4, tr);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                if constexpr (F == KV::I4) {
+                  uint32_t lo4[2], hi4[2];
+                  i4x8_tokens_to_bf16(tr[e], lo4, hi4);
+                  const int j = c * (CB / 4) + 8 * w + 2 * e;
+                  mma_rows<TM, M16>(acc[j], pa, lo4);
+                  mma_rows<TM, M16>(acc[j + 1], pa, hi4);
+                } else {
+                  uint32_t vb[2];
+                  if constexpr (F == KV::E4M3) {
+                    e4m3x4_to_bf16(tr[e], vb[0], vb[1]);
+                    if (edge) {  // the one format with NaN codes (converted finite)
+                      vb[0] &= keep0;
+                      vb[1] &= keep1;
+                    }
+                  } else {
+                    i8x4_to_bf16(tr[e], vb[0], vb[1]);
+                  }
+                  mma_rows<TM, M16>(acc[4 * (c * (CB / 32) + w) + e], pa, vb);
+                }
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j2 = 0; j2 < D / 16; ++j2) {
+            uint32_t vb[4];
+            ldsm_x4_t(vb, swz(v_s, row0 + (mi & 1) * 8 + lr, 8 * (2 * j2 + (mi >> 1))));
+            vb[0] &= keep0;
+            vb[2] &= keep0;
+            vb[1] &= keep1;
+            vb[3] &= keep1;
+            mma_rows<T, M16>(acc[2 * j2], pa, vb);
+            mma_rows<T, M16>(acc[2 * j2 + 1], pa, vb + 2);
+          }
         }
       }
     }
@@ -754,21 +1067,26 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
 // for int4), in boxes of the template's D. Returns a cudaError_t code,
 // MFA_TMA_ENCODE, or 0.
 template <typename T, int D, bool PAGED, KV F, bool M16 = false>
-int launch(const void* k, const void* v, const Args& a, int batch, cudaStream_t stream) {
-  using P = Plan<D, F>;
+int launch(const void* k, const void* v, const Args& args, int batch, cudaStream_t stream) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  using P = Plan<D, F, F32>;
   constexpr bool BF = kIsBf16<T>, QUANT = P::QUANT;
-  if (a.dw <= 0 || a.dw > D) return MFA_BAD_CONFIG;
+  if (args.dw <= 0 || args.dw > D) return MFA_BAD_CONFIG;
+  Args a = args;
+  a.box_rows = a.box_rows < P::TT ? a.box_rows : P::TT;  // gcd(page, TT): both powers of two
+  const CUtensorMapDataType type =
+      QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+            : F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                  : (BF ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16);
   CUtensorMap tk, tv;
   if constexpr (PAGED) {
     const int w = F == KV::I4 ? a.dw / 2 : a.dw;  // elements of a stored row
-    const size_t row_bytes = QUANT ? w : 2 * w;
+    const size_t row_bytes = QUANT ? w : (size_t)P::EB * w;
     const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)a.page_size,
                                 (cuuint64_t)a.hkv * a.num_pages};
     const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)a.page_size * row_bytes};
-    const cuuint32_t box[3] = {QUANT ? (cuuint32_t)P::CB : 64u, (cuuint32_t)a.box_rows, 1};
-    const CUtensorMapDataType type =
-        QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-              : (BF ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16);
+    const cuuint32_t box[3] = {QUANT ? (cuuint32_t)P::CB : (cuuint32_t)P::CE,
+                               (cuuint32_t)a.box_rows, 1};
     const CUtensorMapSwizzle sw = P::CB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                   : P::CB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_NONE;
@@ -778,8 +1096,13 @@ int launch(const void* k, const void* v, const Args& a, int batch, cudaStream_t 
     // S == 0: no tile is ever loaded; the maps only need a valid base
     const bool kv = a.S > 0;
     const int rows = kv ? a.S : 1, planes = kv ? batch * a.hkv : 1;
-    if (int err = mfa_tensor_map_3d(&tk, kv ? k : a.q, BF, a.dw, rows, planes, TILE)) return err;
-    if (int err = mfa_tensor_map_3d(&tv, kv ? v : a.q, BF, a.dw, rows, planes, TILE)) return err;
+    const size_t row_bytes = (size_t)P::EB * a.dw;
+    if (int err = mfa_encode_3d(&tk, kv ? k : a.q, type, a.dw, rows, planes, row_bytes,
+                                rows * row_bytes, P::CE, P::TT))
+      return err;
+    if (int err = mfa_encode_3d(&tv, kv ? v : a.q, type, a.dw, rows, planes, row_bytes,
+                                rows * row_bytes, P::CE, P::TT))
+      return err;
   }
   auto kern = splitkv_kernel<T, D, PAGED, F, M16>;
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

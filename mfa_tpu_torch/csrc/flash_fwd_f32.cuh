@@ -1,13 +1,11 @@
 // The fp32 attention tiles for Hopper (sm_90a): fp32 q, k, v (or fp32 q on
-// int8 / fp8 / int4 pages). Every forward attention kernel of the port runs
-// one of two block bodies when its inputs are fp32:
-//  - the 64-row tile on tensor cores (`attend_tc` below): kernels 1-4, 7
-//    and 9 (fwd_kernel below: the classic, flagged, repair, bound /
-//    unchecked and image kinds of flash_fwd_sm90.cuh, and its packed
-//    layout), launched from prefill.cu, bound.cu and blockmask.cu, and
-//    kernel 8 (paged_prefill.cu);
-//  - the 16-row SIMT tile of kernels 5 and 6 (decode_f32.cuh), which shares
-//    this file's rows, tiles and bounds.
+// int8 / fp8 / int4 pages). The prefill kernels run the 64-row tile on
+// tensor cores (`attend_tc` below) when their inputs are fp32: kernels 1-4,
+// 7 and 9 (fwd_kernel below: the classic, flagged, repair, bound /
+// unchecked and image kinds of flash_fwd_sm90.cuh, and its packed layout),
+// launched from prefill.cu, bound.cu and blockmask.cu, and kernel 8
+// (paged_prefill.cu). The decode kernels 5 and 6 take fp32 q on their own
+// tile (decode_sm90.cuh).
 // Each kernel sets up its block's rows (a Row each: q and O rows, position,
 // visible columns, ALiBi slope) and an issuer of its K/V tiles' copies, and
 // runs the body. The semantics are those of the bf16 tiles and of the plain

@@ -28,11 +28,12 @@
 // head-dim plan's stored width (dispatch/config.py:head_dim_plan: head_dim,
 // widened only to make a row's bytes a multiple of 16), and int4 pairs a
 // row's features, so tokens keep their natural order.
-#include "decode_f32.cuh"
+#include "decode_sm90.cuh"
 
-// fp32 q (MFA_F32) runs the SIMT tile of decode_f32.cuh on fp32 pages or on
-// quantized pages (q . k in fp32 against the payload values; p rounded to
-// bf16 for P V, as mfa_tpu computes it), O in fp32.
+// fp32 q (MFA_F32) runs the same template with T = float on fp32 pages
+// (both products in 3xTF32) or on quantized pages (q . k in fp32 against
+// the payload values, as three exact bf16 products of q's parts; p rounded
+// to bf16 for P V, as mfa_tpu computes it), O in fp32.
 //
 // q [b, q_span, hq, d] (quantized pages take bf16 or fp32 q); kv_dtype:
 // MFA_BF16 / MFA_F16 / MFA_F32 (the q dtype) or the format code MFA_I8,
@@ -108,18 +109,13 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   if (kv_dtype == MFA_I4 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::I4); }
   if (kv_dtype == MFA_BF16 && q_dtype == MFA_BF16) { MFA_PAGED(__nv_bfloat16, KV::F16); }
   if (kv_dtype == MFA_F16 && q_dtype == MFA_F16) { MFA_PAGED(__half, KV::F16); }
+  if (q_dtype == MFA_F32) {
+    if (kv_dtype == MFA_F32) { MFA_PAGED(float, KV::F16); }
+    if (kv_dtype == MFA_I8) { MFA_PAGED(float, KV::I8); }
+    if (kv_dtype == MFA_E4M3) { MFA_PAGED(float, KV::E4M3); }
+    if (kv_dtype == MFA_I4) { MFA_PAGED(float, KV::I4); }
+  }
 #undef MFA_PAGED
 #undef MFA_PAGED_D
-#define MFA_PAGED32(F)                                                                    \
-  if (kd == 64) return af32::launch_decode<64, true, F>(k_pages, v_pages, a, batch, s);   \
-  if (kd == 128) return af32::launch_decode<128, true, F>(k_pages, v_pages, a, batch, s); \
-  return af32::launch_decode<256, true, F>(k_pages, v_pages, a, batch, s)
-  if (q_dtype == MFA_F32) {
-    if (kv_dtype == MFA_F32) { MFA_PAGED32(KV::F16); }
-    if (kv_dtype == MFA_I8) { MFA_PAGED32(KV::I8); }
-    if (kv_dtype == MFA_E4M3) { MFA_PAGED32(KV::E4M3); }
-    if (kv_dtype == MFA_I4) { MFA_PAGED32(KV::I4); }
-  }
-#undef MFA_PAGED32
   return MFA_BAD_CONFIG;
 }

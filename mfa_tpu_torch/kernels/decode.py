@@ -17,9 +17,9 @@ Any head_dim up to 256 (dispatch/config.py:head_dim_plan: the kernel's D,
 a zero-padded copy only where a row's bytes are not a multiple of 16) and
 any number of q heads a kv head: up to 8 q rows share one m16 tile, more
 run in blocks of 16 rows (the paged kernel's), each block reading its kv
-head's tiles again. fp32 q and caches run launch 1 on the fp32 tile
-(csrc/decode_f32.cuh: 16 rows a block) and the combine writes fp32 O
-(launch names `decode_fp32`, `combine_fp32`).
+head's tiles again. fp32 q and caches run launch 1 on the same tile with
+both products in 3xTF32 and the combine writes fp32 O (launch names
+`decode_fp32`, `combine_fp32`).
 """
 
 from __future__ import annotations
@@ -97,14 +97,17 @@ def combine_splits(o_parts: torch.Tensor, lse: torch.Tensor, axis: int = 2,
 
 
 def _decode_partials_plain(q, k_cache, v_cache, lens, scale, num_splits, tps,
-                           window_left, softcap, sinks=0, alibi=None):
+                           window_left, softcap, sinks=0, alibi=None,
+                           matmul=torch.matmul):
     """Per-split partials [b, hkv, splits, group, d] and LSE, as launch 1
-    computes them (probabilities rounded to the cache dtype before P.V)."""
+    computes them (probabilities rounded to the cache dtype before P.V).
+    `matmul` forms the two products (the tests pass
+    kernels/backward.py:_matmul_3xtf32_plain, the fp32 tile's arithmetic)."""
     batch, num_heads, d = q.shape
     hkv, max_s = k_cache.shape[1], k_cache.shape[2]
     group = num_heads // hkv
     qg = q.float().reshape(batch, hkv, group, d)
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float())
+    s = matmul(qg, k_cache.float().transpose(-1, -2))
     if softcap:
         s = torch.tanh(s * (scale / softcap)) * softcap
     else:
@@ -128,7 +131,7 @@ def _decode_partials_plain(q, k_cache, v_cache, lens, scale, num_splits, tps,
         p = torch.exp(z - m)
         l = p.sum(dim=-1)
         pr = p.to(v_cache.dtype).float()
-        o = torch.einsum("bhgs,bhsd->bhgd", pr, v_cache.float())
+        o = matmul(pr, v_cache.float())
         l_safe = torch.where(l == 0, torch.ones_like(l), l)
         parts.append(o / l_safe[..., None])
         lses.append(torch.where(l == 0, torch.full_like(l, float("-inf")),

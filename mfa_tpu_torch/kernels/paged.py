@@ -32,9 +32,10 @@ With a left window the first `sink_tokens` columns stay visible to every
 row (each read by the split that holds it); ALiBi subtracts slope_h *
 |position - column| at each row's position, on every page format.
 
-fp32 q runs the fp32 tile (csrc/decode_f32.cuh, launch name `paged_fp32`)
-on fp32 pages, or on quantized pages with q . k in fp32 against the
-payload values and p rounded to bf16 for P.V, as mfa_tpu computes it.
+fp32 q runs the same tile (launch name `paged_fp32`) on fp32 pages, both
+products in 3xTF32, or on quantized pages with q . k in fp32 against the
+payload values (three exact bf16 products of q's parts) and p rounded to
+bf16 for P.V, as mfa_tpu computes it.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ def _visible_range(lens, window_left, pos_offset, q_span=1):
 
 def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
                 softcap, lo, hi, quant_dtype=None, sinks=0, alibi=None,
-                pos=None, col_lo=0):
+                pos=None, col_lo=0, matmul=torch.matmul):
     """Normalized fp32 O [b, q_span, hq, d] and LSE [b, q_span, hq] of q [b,
     q_span, hq, d] over the columns [lo, hi) ([b, q_span]) of each query
     row, and those below `sinks` and hi, that table entries [first, first +
@@ -122,7 +123,10 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
     ALiBi (slopes [hq]) at the rows' positions pos [b, q_span], V scales
     folded into the probabilities, probabilities rounded to the value dtype
     (bf16 for quantized pages) before P.V. int4 pages unpack, fp8 converts
-    exactly. q is zero-padded to the pages' features, O sliced back."""
+    exactly. q is zero-padded to the pages' features, O sliced back.
+    `matmul` forms the two products (the tests pass the fp32 tile's
+    arithmetic: kernels/backward.py:_matmul_3xtf32_plain, or q's three bf16
+    parts on quantized pages)."""
     batch, span, num_heads, d_true = q.shape
     hkv, _, page, _ = k_pages.shape
     group = num_heads // hkv
@@ -142,8 +146,10 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
         # fp16 q contracts against quantized pages in bf16 (as on TPU); fp32
         # q stays fp32 (mfa_tpu/kernels/paged.py:521-522)
         q = q.to(torch.bfloat16)
-    qg = q.reshape(batch, span, hkv, group, d).float()
-    s = torch.einsum("bihgd,bhsd->bhigs", qg, k.float())
+    rows = span * group  # [span, group] of a kv head, flattened
+    qg = q.reshape(batch, span, hkv, group, d).float().transpose(1, 2)
+    s = matmul(qg.reshape(batch, hkv, rows, d), k.float().transpose(-1, -2)
+               ).reshape(batch, hkv, span, group, -1)
     if quantized:
         ks = k_scales[:, idx].permute(1, 0, 2, 3).reshape(batch, hkv, 1, 1, -1)
         s = s * ks
@@ -165,7 +171,8 @@ def _paged_core(q, k_pages, v_pages, k_scales, v_scales, table, first, scale,
     l = p.sum(dim=-1)
     if quantized:
         p = p * v_scales[:, idx].permute(1, 0, 2, 3).reshape(batch, hkv, 1, 1, -1)
-    o = torch.einsum("bhigs,bhsd->bhigd", p.to(vdtype).float(), v.float())
+    o = matmul(p.to(vdtype).float().reshape(batch, hkv, rows, -1), v.float()
+               ).reshape(batch, hkv, span, group, d)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
     out = (o / l_safe[..., None]).permute(0, 2, 1, 3, 4).reshape(
         batch, span, num_heads, d)[..., :d_true]
@@ -199,10 +206,12 @@ def _paged_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
 
 def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
                        scale, window_left, softcap, pos_offset,
-                       num_splits=None, quant_dtype=None, sinks=0, alibi=None):
+                       num_splits=None, quant_dtype=None, sinks=0, alibi=None,
+                       matmul=torch.matmul):
     """The kernel's split route in plain PyTorch: a partial over each
     split's table entries (`split_pages`) and tokens, merged by
-    decode.combine_splits. num_splits None: the launcher's `split_plan`."""
+    decode.combine_splits. num_splits None: the launcher's `split_plan`.
+    `matmul` as in `_paged_core`."""
     q4, span, squeeze = _spans(q)
     batch = q4.shape[0]
     hkv, _, page, _ = k_pages.shape
@@ -220,7 +229,7 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
                              table[:, first:end], first, scale, softcap,
                              torch.clamp(lo, min=sp * tps),
                              torch.clamp(hi, max=(sp + 1) * tps), quant_dtype,
-                             sinks, alibi, pos, sp * tps)
+                             sinks, alibi, pos, sp * tps, matmul)
         parts.append(o)
         lses.append(lse)
     out, lse = decode.combine_splits(torch.stack(parts, 1), torch.stack(lses, 1),

@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_engine.py [--layers 32] [--steps 8] [--out FILE]
         [--phases bf16,chunk,train,int8,gemma3] (also: pipeline, fp8kv, int4kv,
-        sampling, spec, train_fp32) [--root DIR]
+        sampling, spec, train_fp32, decode_fp32) [--root DIR]
 
 Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
@@ -42,7 +42,11 @@ traces one SGD train step of the model in fp32 (`dtype=float32`, fp32
 weights from seed 0, 4 x 2049 tokens, remat, after one untraced warm
 step): fp32 cuBLAS projections ("matmul"), the fp32 forward attention
 kernels 2 + 3 ("zero-shift prefill kernels"), kernel 11 on the fp32
-backward tile ("backward kernel") and the glue. --root DIR imports
+backward tile ("backward kernel") and the glue. --phases decode_fp32
+traces the fp32 model (the same weights) serving the 16 requests on fp32
+and then on int8 KV pages: a prefill wave and `--steps` decode steps,
+eager, graphed and in graphed bursts of 8, by kernel group (kernel 6 with
+fp32 q is "paged kernel", the projections fp32 cuBLAS). --root DIR imports
 mfa_tpu_torch from another checkout (e.g. the parent commit unpacked
 with git archive), so two versions compare in one call, one process
 each. For each phase it prints the host wall time (with and without the
@@ -79,6 +83,8 @@ _AF32 = re.compile(r"af32::fwd_kernel<(?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
 # kernel 10's expert-bank launch: wmatmul_kernel<T, OutT, BMX, BANK = true>
 _BANK = re.compile(r"wmatmul_kernel<[^>]*, (?:\(bool\))?(?:true|1)>")
 _PAGED = re.compile(r"splitkv_kernel<[^,]+, [^,]+, (?:\(bool\))?(?:true|1)[,>]")
+# an older checkout's fp32 decode tile (--root): af32::decode_kernel<D, paged, F>
+_PAGED_OLD32 = re.compile(r"af32::decode_kernel<(?:\(int\))?\d+, (?:\(bool\))?(?:true|1)[,>]")
 GROUPS = (("prefill kernel", ()),
           ("zero-shift prefill kernels", ()),
           ("int8 expert-bank launch", ()),
@@ -94,7 +100,7 @@ GROUPS = (("prefill kernel", ()),
 
 
 def _group(name: str) -> str:
-    if _PAGED.search(name):
+    if _PAGED.search(name) or _PAGED_OLD32.search(name):
         return "paged kernel"
     if _BANK.search(name):
         return "int8 expert-bank launch"
@@ -594,7 +600,9 @@ def main() -> int:
                          "on fp8 / int4 KV pages), sampling (the sampled "
                          "mix's decode steps, the sampler alone), spec (a "
                          "speculative iteration's pieces), train_fp32 (a "
-                         "train step of the fp32 model)")
+                         "train step of the fp32 model), decode_fp32 (the "
+                         "fp32 model's wave and decode steps on fp32 and "
+                         "int8 KV)")
     ap.add_argument("--root", default=ROOT,
                     help="checkout to import mfa_tpu_torch from")
     args = ap.parse_args()
@@ -636,6 +644,8 @@ def main() -> int:
         gemma3_waves(acts, args.out, args.steps)
     if "train_fp32" in phases:
         train_fp32_phase(cfg, args, acts)
+    if "decode_fp32" in phases:
+        decode_fp32_phase(cfg, args, acts)
     print(f"card: {smi}", flush=True)
     return 0
 
@@ -676,6 +686,25 @@ def train_fp32_phase(cfg, args, acts) -> None:
     print(f"fp32 train step: {plain:.1f} ms untraced, "
           f"{4 * 2048 / plain * 1e3:.1f} tok/s; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def decode_fp32_phase(cfg, args, acts) -> None:
+    """serve_phase of the fp32 model (fp32 weights from seed 0) on fp32 KV
+    pages, then on int8 KV pages."""
+    import dataclasses
+
+    import torch
+
+    from mfa_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    for kv in (None, "int8"):
+        serve_phase(params, cfg, args.steps, acts, args.out,
+                    f"fp32, {kv or 'fp32'} KV (mfa_tpu_torch from "
+                    f"{os.path.abspath(args.root)}), ", kv)
     del params
     torch.cuda.empty_cache()
 

@@ -12,7 +12,8 @@ and UTMALDG (a TMA load), and the demangled name. --match keeps only the names c
 string. HMMA marks an mma.sync product (the decode tile of kernels 5 and
 6, the fp32 tiles). Exits non-zero if a source does not compile,
 if an instantiation spills, if a kernel lacks the instructions its design
-rests on (REQUIRED: the decode tile HMMA and UTMALDG, the wgmma + TMA
+rests on (REQUIRED: the decode tile HMMA and UTMALDG, its fp32-q
+instantiations `splitkv_kernel<float, ..>` included, the wgmma + TMA
 backward kernels `fb90::bwd_kernel` and `fb90::dq_kernel` and the paged
 prefill kernel `pp90::paged_prefill_kernel` HGMMA and UTMALDG, the fp32
 tiles `bf32::bwd_kernel`, `af32::fwd_kernel` and

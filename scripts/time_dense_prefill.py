@@ -2,7 +2,7 @@
 """Time the dense prefill kernels 1-4 against SDPA and their bound, on one GPU.
 
     python3 scripts/time_dense_prefill.py [--root DIR] [--label NAME]
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--kernels 1,4,7,5]
 
 At the shapes chip_smoke.py phase 2 times them (the 8B wave b16 hq32 hkv8
 s256 d128, a long prompt b1 s4096 d128, Gemma3-4B's text wave b4 hq8 hkv4
@@ -27,7 +27,8 @@ tensors. Each is held against its plain fp32 version within atol = rtol
 = 1e-4 (chip_smoke._err32: O and LSE), kernel 3 against kernel 1 bit for
 bit; bounds of 4-byte rows at 3.35 TB/s against 4 d flops a visible pair
 at 165 TFLOP/s (3xTF32, chip_smoke._bound32). TF32 stays off for the plain
-versions and SDPA.
+versions and SDPA. --kernels keeps some of the fp32 rows: 1 (kernels 1-3),
+4, 7, 5.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ def _line32(cs, label, tag, name, ms, nbytes, flops, lib_ms=None, note=""):
           f"share {bound_ms / ms:.3f}{lib}{note}", flush=True)
 
 
-def fp32_shapes(cs, label, gen) -> bool:
-    """The fp32 rows of kernels 1-5 and 7 (see the module docstring)."""
+def fp32_shapes(cs, label, gen, kernels=("1", "4", "7", "5")) -> bool:
+    """The fp32 rows of kernels 1-5 and 7 (see the module docstring), of
+    the groups in `kernels`."""
     import torch
     import torch.nn.functional as F
 
@@ -66,7 +68,7 @@ def fp32_shapes(cs, label, gen) -> bool:
 
     ok = True
     hq, hkv, d = 32, 8, 128
-    for tag, b, s in (("8B wave", 16, 256), ("b1 s4096", 1, 4096)):
+    for tag, b, s in (("8B wave", 16, 256), ("b1 s4096", 1, 4096)) if "1" in kernels else ():
         q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
         scale = d ** -0.5
         nbytes = 4 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
@@ -98,47 +100,50 @@ def fp32_shapes(cs, label, gen) -> bool:
             nbytes, flops, None, f"; equals kernel 1 bit for bit: {same}")
         del q, k, v, ro, out, o1, zo
         torch.cuda.empty_cache()
-    b, s, dk = 16, 256, 64  # kernel 4 at d 64, "unchecked" (zero shift everywhere)
-    q, k, v = rn(b, hq, s, dk), rn(b, hkv, s, dk), rn(b, hkv, s, dk)
-    o4, l4 = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
-                                       bound_softmax="unchecked")
-    zo, zl, _ = prefill._engine_plain("bound", "unchecked", q, k, v, dk ** -0.5, -1, 0)
-    _, good = cs._err32(o4, zo, "kernel 4", l4, zl)
-    ok &= good
-    _line32(cs, label, "d64 8B wave", "kernel 4 (unchecked)", cs._time_ms(
-        lambda: prefill.prefill_attention(q, k, v, causal=True, bound_softmax="unchecked")),
-        4 * (2 * b * hq * s * dk + 2 * b * hkv * s * dk), 4 * b * hq * s * (s + 1) / 2 * dk,
-        cs._time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                           enable_gqa=True)))
-    lens = [512] * 8  # kernel 7
-    n = sum(lens)
-    q, k, v = rn(n, hq, d), rn(n, hkv, d), rn(n, hkv, d)
-    cu = torch.tensor([0] + lens, device="cuda").cumsum(0).int()
-    ro, rl = varlen._varlen_plain(q, k, v, cu, cu, d ** -0.5, -1, 0, 0.0, True)
-    o7, l7 = varlen.varlen_attention(q, k, v, cu, cu, 512, 512, causal=True, return_lse=True)
-    _, good = cs._err32(o7, ro, "kernel 7", l7, rl)
-    ok &= good
-    qb, kb, vb = (x.view(8, 512, -1, d).transpose(1, 2) for x in (q, k, v))
-    _line32(cs, label, "packed 8 x 512", "kernel 7", cs._time_ms(
-        lambda: varlen.varlen_attention(q, k, v, cu, cu, 512, 512, causal=True)),
-        4 * (2 * n * hq * d + 2 * n * hkv * d), 4 * hq * 8 * 512 * 513 / 2 * d,
-        cs._time_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
-                                                           enable_gqa=True)))
-    del q, k, v, qb, kb, vb
-    b, S = 16, 8192  # kernel 5: launch 1 and the combine
-    q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
-    L = torch.full((b,), S, dtype=torch.int32, device="cuda")
-    o5, l5 = decode.decode_attention(q, kc, vc, L, return_lse=True)
-    ns, tps = decode.split_layout(S, decode.default_splits(b, hkv, S, hq // hkv))
-    po, pl = decode._decode_partials_plain(q, kc, vc, L, d ** -0.5, ns, tps, -1, 0.0)
-    ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
-    _, good = cs._err32(o5, ro.reshape(b, hq, d), "kernel 5", l5, rl.reshape(b, hq))
-    ok &= good
-    _line32(cs, label, "b16 S8192", f"kernel 5 + combine ({ns} splits)", cs._time_ms(
-        lambda: decode.decode_attention(q, kc, vc, L)),
-        4 * (2 * b * hkv * S * d + 2 * b * hq * d), 4 * b * hq * S * d,
-        cs._time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
-                                                           enable_gqa=True)))
+    if "4" in kernels:
+        b, s, dk = 16, 256, 64  # kernel 4 at d 64, "unchecked" (zero shift everywhere)
+        q, k, v = rn(b, hq, s, dk), rn(b, hkv, s, dk), rn(b, hkv, s, dk)
+        o4, l4 = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                           bound_softmax="unchecked")
+        zo, zl, _ = prefill._engine_plain("bound", "unchecked", q, k, v, dk ** -0.5, -1, 0)
+        _, good = cs._err32(o4, zo, "kernel 4", l4, zl)
+        ok &= good
+        _line32(cs, label, "d64 8B wave", "kernel 4 (unchecked)", cs._time_ms(
+            lambda: prefill.prefill_attention(q, k, v, causal=True, bound_softmax="unchecked")),
+            4 * (2 * b * hq * s * dk + 2 * b * hkv * s * dk), 4 * b * hq * s * (s + 1) / 2 * dk,
+            cs._time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                               enable_gqa=True)))
+    if "7" in kernels:
+        lens = [512] * 8  # kernel 7
+        n = sum(lens)
+        q, k, v = rn(n, hq, d), rn(n, hkv, d), rn(n, hkv, d)
+        cu = torch.tensor([0] + lens, device="cuda").cumsum(0).int()
+        ro, rl = varlen._varlen_plain(q, k, v, cu, cu, d ** -0.5, -1, 0, 0.0, True)
+        o7, l7 = varlen.varlen_attention(q, k, v, cu, cu, 512, 512, causal=True, return_lse=True)
+        _, good = cs._err32(o7, ro, "kernel 7", l7, rl)
+        ok &= good
+        qb, kb, vb = (x.view(8, 512, -1, d).transpose(1, 2) for x in (q, k, v))
+        _line32(cs, label, "packed 8 x 512", "kernel 7", cs._time_ms(
+            lambda: varlen.varlen_attention(q, k, v, cu, cu, 512, 512, causal=True)),
+            4 * (2 * n * hq * d + 2 * n * hkv * d), 4 * hq * 8 * 512 * 513 / 2 * d,
+            cs._time_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
+                                                               enable_gqa=True)))
+        del q, k, v, qb, kb, vb
+    if "5" in kernels:
+        b, S = 16, 8192  # kernel 5: launch 1 and the combine
+        q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
+        L = torch.full((b,), S, dtype=torch.int32, device="cuda")
+        o5, l5 = decode.decode_attention(q, kc, vc, L, return_lse=True)
+        ns, tps = decode.split_layout(S, decode.default_splits(b, hkv, S, hq // hkv))
+        po, pl = decode._decode_partials_plain(q, kc, vc, L, d ** -0.5, ns, tps, -1, 0.0)
+        ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        _, good = cs._err32(o5, ro.reshape(b, hq, d), "kernel 5", l5, rl.reshape(b, hq))
+        ok &= good
+        _line32(cs, label, "b16 S8192", f"kernel 5 + combine ({ns} splits)", cs._time_ms(
+            lambda: decode.decode_attention(q, kc, vc, L)),
+            4 * (2 * b * hkv * S * d + 2 * b * hq * d), 4 * b * hq * S * d,
+            cs._time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                                               enable_gqa=True)))
     return ok
 
 
@@ -147,6 +152,7 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--label", default="")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--kernels", default="1,4,7,5", help="fp32 rows to time")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs  # timing and bound helpers of this checkout
@@ -165,7 +171,7 @@ def main() -> int:
     ok = True
     if args.dtype == "float32":
         with torch.no_grad():
-            ok = fp32_shapes(cs, args.label, gen)
+            ok = fp32_shapes(cs, args.label, gen, args.kernels.split(","))
     for tag, b, hq, hkv, s, d, wl in SHAPES if args.dtype == "bfloat16" else ():
         q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
                    for h in (hq, hkv, hkv))

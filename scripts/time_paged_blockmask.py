@@ -3,7 +3,7 @@
 their bounds and the library call where there is one, on one GPU.
 
     python3 scripts/time_paged_blockmask.py [--root DIR] [--label NAME]
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--kernels 9,8,6]
 
 Kernel 9 at chip_smoke.py's four image cases (Gemma3-4B's image wave b4
 hq8 hkv4 s2048 d256 with one 256-token run at 700 and window 1023, the
@@ -35,7 +35,8 @@ fp32 inputs and pages (O and LSE, chip_smoke._err32), the bf16-q case's
 limits on quantized pages; bounds as chip_smoke.py's fp32 phase (4-byte
 rows, or the page bytes, at 3.35 TB/s against 4 d flops a visible pair
 at 165 TFLOP/s, or at 494.5 on quantized pages: chip_smoke._peak32).
-TF32 stays off for the plain versions and SDPA.
+TF32 stays off for the plain versions and SDPA. --kernels keeps some of
+the fp32 rows (9, 8, 6).
 """
 
 from __future__ import annotations
@@ -165,8 +166,9 @@ def _check32(cs, out, lse, ref, ref_lse, quant, what):
     return cs._err(out, ref, what=what)[1] and cs._lse_err(lse, ref_lse, what)
 
 
-def fp32_cases(cs, label, gen) -> bool:
-    """The fp32 rows of kernels 9, 8 and 6 (see the module docstring)."""
+def fp32_cases(cs, label, gen, kernels=("9", "8", "6")) -> bool:
+    """The fp32 rows of kernels 9, 8 and 6 (see the module docstring), of
+    those in `kernels`."""
     import torch
     import torch.nn.functional as F
 
@@ -176,51 +178,53 @@ def fp32_cases(cs, label, gen) -> bool:
         return torch.randn(*shape, generator=gen, device="cuda")
 
     ok = True
-    b, hq, hkv, s, d = 4, 8, 4, 2048, 256  # kernel 9
-    q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
-    ids = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
-    ids[:, 700:956] = 0
-    vis = blockmask.block_mask(ids, 1023)
-    ok &= cs._err32(blockmask.image_block_prefill(q, k, v, ids, window_left=1023),
-                    blockmask._image_block_plain(q, k, v, ids, d ** -0.5, 1023), "kernel 9")[1]
-    _line32(cs, label, "kernel 9 image wave", cs._time_ms(
-        lambda: blockmask.image_block_prefill(q, k, v, ids, window_left=1023)),
-        4 * (2 * q.numel() + 2 * k.numel()) + 4 * b * s, 4 * hq * float(vis.sum()) * d,
-        cs._time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis[:, None],
-                                                           enable_gqa=True)))
-    del q, k, v, vis
-    torch.cuda.empty_cache()
-    hq, hkv, d, page = 32, 8, 128, 64  # kernel 8: the engine chunk batch
-    q_start, sq = [0, 1024, 2048, 3072], 512
-    lens = [s0 + sq for s0 in q_start]
-    b, pps = 4, max(lens) // page + 1
-    P = b * pps + 3
-    q = rn(b, sq, hq, d)
-    kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
-    bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
-          ).reshape(b, pps).int()
-    L, QS = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, q_start))
-    QL = L - QS
-    pairs = sum(cs._visible_pairs(sq, n, s0, -1, 0) for s0, n in zip(q_start, lens))
-    for quant in ("int8", None, "fp8", "int4"):
-        kp, vp, ks, vs = cs._pages32(kf, vf, quant)
+    if "9" in kernels:
+        b, hq, hkv, s, d = 4, 8, 4, 2048, 256  # kernel 9
+        q, k, v = rn(b, hq, s, d), rn(b, hkv, s, d), rn(b, hkv, s, d)
+        ids = torch.full((b, s), -1, dtype=torch.int32, device="cuda")
+        ids[:, 700:956] = 0
+        vis = blockmask.block_mask(ids, 1023)
+        ok &= cs._err32(blockmask.image_block_prefill(q, k, v, ids, window_left=1023),
+                        blockmask._image_block_plain(q, k, v, ids, d ** -0.5, 1023), "kernel 9")[1]
+        _line32(cs, label, "kernel 9 image wave", cs._time_ms(
+            lambda: blockmask.image_block_prefill(q, k, v, ids, window_left=1023)),
+            4 * (2 * q.numel() + 2 * k.numel()) + 4 * b * s, 4 * hq * float(vis.sum()) * d,
+            cs._time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis[:, None],
+                                                               enable_gqa=True)))
+        del q, k, v, vis
+        torch.cuda.empty_cache()
+    hq, hkv, d, page = 32, 8, 128, 64
+    if "8" in kernels:  # the engine chunk batch
+        q_start, sq = [0, 1024, 2048, 3072], 512
+        lens = [s0 + sq for s0 in q_start]
+        b, pps = 4, max(lens) // page + 1
+        P = b * pps + 3
+        q = rn(b, sq, hq, d)
+        kf, vf = rn(hkv, P, page, d), rn(hkv, P, page, d)
+        bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+              ).reshape(b, pps).int()
+        L, QS = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, q_start))
+        QL = L - QS
+        pairs = sum(cs._visible_pairs(sq, n, s0, -1, 0) for s0, n in zip(q_start, lens))
+        for quant in ("int8", None, "fp8", "int4"):
+            kp, vp, ks, vs = cs._pages32(kf, vf, quant)
 
-        def run():
-            return paged_prefill.paged_prefill_attention(
-                q, kp, vp, L, QS, bt, q_lens=QL, k_scales=ks, v_scales=vs, quant_dtype=quant,
-                return_lse=True)
+            def run():
+                return paged_prefill.paged_prefill_attention(
+                    q, kp, vp, L, QS, bt, q_lens=QL, k_scales=ks, v_scales=vs, quant_dtype=quant,
+                    return_lse=True)
 
-        ro, rl = paged_prefill._paged_prefill_plain(q, kp, vp, ks, vs, L, QS, QL, bt,
-                                                    d ** -0.5, -1, 0, 0.0, quant)
-        ok &= _check32(cs, *run(), ro, rl, quant, f"kernel 8 {quant or 'fp32'} pages")
-        _line32(cs, label, f"kernel 8 chunk batch, {quant or 'fp32'} pages", cs._time_ms(run),
-                2 * sum(lens) * hkv * cs._row_bytes32(quant, d) + 2 * b * sq * hq * d * 4,
-                4 * hq * pairs * d, quant=quant)
-        del kp, vp, ks, vs
-    del q, kf, vf
-    torch.cuda.empty_cache()
+            ro, rl = paged_prefill._paged_prefill_plain(q, kp, vp, ks, vs, L, QS, QL, bt,
+                                                        d ** -0.5, -1, 0, 0.0, quant)
+            ok &= _check32(cs, *run(), ro, rl, quant, f"kernel 8 {quant or 'fp32'} pages")
+            _line32(cs, label, f"kernel 8 chunk batch, {quant or 'fp32'} pages", cs._time_ms(run),
+                    2 * sum(lens) * hkv * cs._row_bytes32(quant, d) + 2 * b * sq * hq * d * 4,
+                    4 * hq * pairs * d, quant=quant)
+            del kp, vp, ks, vs
+        del q, kf, vf
+        torch.cuda.empty_cache()
     for quant, lens in ((None, None), ("int8", None), ("fp8", None), ("int4", None),
-                        (None, [8192] * 16), ("int8", [8192] * 16)):  # kernel 6
+                        (None, [8192] * 16), ("int8", [8192] * 16)) if "6" in kernels else ():
         lens = lens or [300 - 7 * i for i in range(16)]
         b, pps = len(lens), max(lens) // page + 1
         P = b * pps + 1
@@ -250,6 +254,7 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--label", default="")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--kernels", default="9,8,6", help="fp32 rows to time")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs  # timing and bound helpers of this checkout
@@ -266,7 +271,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
         if args.dtype == "float32":
-            ok = fp32_cases(cs, args.label, gen)
+            ok = fp32_cases(cs, args.label, gen, args.kernels.split(","))
         else:
             ok = image_cases(cs, args.label, gen)
             ok &= paged_cases(cs, args.label, gen)

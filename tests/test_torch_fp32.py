@@ -318,31 +318,54 @@ def test_quant_q_keeps_fp32():
 
 
 CUH = pathlib.Path(mfa_tpu_torch.__file__).parent / "csrc" / "flash_fwd_f32.cuh"
-DECODE_CUH = CUH.parent / "decode_f32.cuh"
+DECODE_CUH = CUH.parent / "decode_sm90.cuh"
 
 
-def _tile_keys(d):
-    """BN of csrc/decode_f32.cuh's Plan (the 16-row decode tile) at head dim
-    D, read from the source (`BN = D >= 128 ? 32 : 64`)."""
-    m = re.search(r"BN = D >= (\d+) \? (\d+) : (\d+);", DECODE_CUH.read_text())
-    edge, big, small = (int(x) for x in m.groups())
-    return big if d >= edge else small
+def _decode_plan(d, fmt):
+    """A mirror of csrc/decode_sm90.cuh's Plan<D, F, F32 = true> (kernels 5
+    and 6 with fp32 q), the constants read from the source: tokens a tile
+    (fp32 rows above D 128 take TILE / 2), teams of 16-token warps (8
+    consumer warps, 4 above D 128), slots of K and V tiles (4-byte values,
+    or the page bytes and two fp32 scales a token) rounded up to 1024
+    bytes, as many as fit the ring's budget (at most 16) in whole teams,
+    the barriers, Q (fp32 rows 16 x D, or three bf16 parts of 16 rows of
+    QW words) and 1 KB to align the base; and the merge (per consumer warp
+    16 fp32 O rows and m, l), which reuses the ring."""
+    src = DECODE_CUH.read_text()
+    edge, div = (int(x) for x in re.search(
+        r"TT = F32P && D > (\d+) \? TILE / (\d+) : TILE", src).groups())
+    budget = int(re.search(r"FIT = \((\d+) \* 1024\) / STAGE_BYTES", src).group(1)) * 1024
+    qw = d // 2 + int(re.search(r"QW = D / 2 \+ (\d+);", src).group(1))
+    rows = int(re.search(r"F32P \? (\d+) \* D \* 4 : 3 \* \d+ \* QW \* 4", src).group(1))
+    f32p = fmt is None
+    tt = decode.TILE // div if f32p and d > edge else decode.TILE
+    rb = d // 2 if fmt == "int4" else d
+    kv = tt * (4 * d if f32p else rb)
+    stage = math.ceil((2 * kv + (0 if f32p else 2 * tt * 4)) / 1024) * 1024
+    cwarps = 4 if d > 128 else 8
+    teams = cwarps // (tt // 16)  # a slot serves one team: a multiple of TEAMS
+    stages = min(budget // stage, 16) // teams * teams
+    q_off = math.ceil((stages * stage + 16 * stages) / 128) * 128
+    return dict(tt=tt, stages=stages, teams=teams, ring=stages * stage,
+                bytes=q_off + (rows * d * 4 if f32p else 3 * rows * qw * 4) + 1024,
+                merge=cwarps * 16 * d * 4 + cwarps * 2 * 16 * 4)
 
 
 @pytest.mark.parametrize("d", (64, 128, 256))
 def test_fp32_tile_fits_and_aligns_with_splits(d):
-    """Every key tile of the 16-row fp32 decode tile (kernels 5 and 6) lies
-    inside one 64-token split unit (so a split reads exactly its own
-    columns), and its shared memory (Q, K, V, P, K and V scales and a
-    56-byte Row a row) fits a block's 227 KB."""
-    bn = _tile_keys(d)
-    assert decode.TILE % bn == 0
-    for max_s, n in ((8192, 7), (300, 2), (64, 1), (4097, 5)):
-        _, tps = decode.split_layout(max_s, n)
-        assert tps % bn == 0
-    rows = 16
-    floats = rows * (d + 4) + bn * (d + 4) + bn * d + rows * (bn + 4) + 2 * bn
-    assert 4 * math.ceil(floats / 4) * 4 + rows * 56 <= 232448
+    """The fp32 decode of kernels 5 and 6 (decode_sm90.cuh's ring with fp32
+    q) on fp32, int8, fp8 and int4 rows: a ring of at least 2 slots, a
+    whole number of them a team, whose merge fits inside it, the whole
+    under a block's 227 KB; every tile of 16-token warp rows lies inside
+    one 64-token split unit (so a split reads exactly its own columns)."""
+    for fmt in (None, "int8", "fp8", "int4"):
+        p = _decode_plan(d, fmt)
+        assert p["stages"] >= 2 and p["stages"] % p["teams"] == 0, (fmt, p)
+        assert p["merge"] <= p["ring"] and p["bytes"] <= 232448, (fmt, p)
+        assert decode.TILE % p["tt"] == 0 and p["tt"] % 16 == 0
+        for max_s, n in ((8192, 7), (300, 2), (64, 1), (4097, 5)):
+            _, tps = decode.split_layout(max_s, n)
+            assert tps % p["tt"] == 0
 
 
 BWD_CUH = CUH.parent / "flash_bwd_f32.cuh"

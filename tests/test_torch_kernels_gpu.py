@@ -2085,6 +2085,36 @@ def test_paged_kernel_fp32(dev, span, hq, hkv, page, d, quant, pos_offset, windo
             assert torch.all(o[i] == 0) and torch.isneginf(lse[i]).all()
 
 
+@pytest.mark.parametrize("d,quant", [(128, None), (128, "int8"), (256, None), (64, None)])
+def test_fp32_decode_repeats_bit_equal(dev, d, quant):
+    """Kernel 6 with fp32 q (and kernel 5 on fp32 caches) over 8192-token
+    sequences at b16 hkv8: every block walks 64 (d 256: 128) tiles through
+    its ring, two teams of warps taking turns. 30 repeats are bit-equal to
+    the first (a slot shared by two teams let a parity wait pass on the
+    other team's phase: wrong data or a fault at these lengths only)."""
+    from mfa_tpu_torch.kernels import decode, paged
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    b, hq, hkv, page, n = 16, 32, 8, 64, 8192 if d < 256 else 4096
+    pps = n // page
+    P = b * pps + 1
+    q = _rn(gen, b, hq, d, dtype=F32)
+    kp, vp, ks, vs = _pages(_rn(gen, hkv, P, page, d, dtype=F32),
+                            _rn(gen, hkv, P, page, d, dtype=F32), quant)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.full((b,), n, dtype=torch.int32, device=dev)
+    runs = [lambda: paged.paged_attention(q, kp, vp, L, table, k_scales=ks,
+                                          v_scales=vs, quant_dtype=quant)]
+    if quant is None:
+        kc = kp[:, table.long()].permute(1, 0, 2, 3, 4).reshape(b, hkv, n, d)
+        vc = vp[:, table.long()].permute(1, 0, 2, 3, 4).reshape(b, hkv, n, d)
+        runs.append(lambda: decode.decode_attention(q, kc, vc, L))
+    for run in runs:
+        first = run()
+        assert all(torch.equal(run(), first) for _ in range(30))
+
+
 @pytest.mark.parametrize("lens_q,lens_k,hq,hkv,d,window,softcap,sinks,alibi", [
     ([200, 1100, 0, 513], [200, 1100, 0, 513], 32, 8, 128, (-1, 0), 0.0, 0, False),
     ([100, 37, 300], [130, 64, 200], 8, 2, 128, (128, 64), 0.0, 0, False),
