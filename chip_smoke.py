@@ -2878,7 +2878,7 @@ def _verify_vs_decode(params, cfg):
 
 
 def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
-                         long_prompts=(2500, 4001), pages=(512, 64)):
+                         long_prompts=(2500, 4001), pages=(512, 64), page=64):
     """Main path, part 3: the same weights behind an engine with chunked
     prefill (chunks of 512) and the prefix cache, on `quant` KV pages
     (int8, and once more each on int4 and fp8). (a) 4 long prompts take
@@ -2891,7 +2891,10 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
     at head_dim 256 on its sliding and global layers), or on Qwen2-7B
     (group 7) and Gemma2-9B (softcap: its waves take kernel 1). The long
     prompts draw their lengths from range(*long_prompts); pages is (pool
-    size, pages a sequence) in pages of 64."""
+    size, pages a sequence) in pages of `page` rows (64). A run at pages of
+    64 keeps its tokens; a run at another page size, its pool and pages a
+    sequence scaled so as to hold the same tokens, must give the same
+    tokens (the same chunks, hits, split plan and tiles)."""
     import numpy as np
     import torch
 
@@ -2900,7 +2903,7 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
 
     params, cfg = state.pop("params"), state.pop("cfg")
     torch.cuda.reset_peak_memory_stats()
-    gen_tokens, page = 32, 64
+    gen_tokens = 32
     k6 = paged.launch_name("paged", quant, 1, cfg.dtype)
     k8 = paged.launch_name("paged_prefill", quant, 1, cfg.dtype)
     sfx = "_fp32" if cfg.dtype == torch.float32 else ""
@@ -2948,6 +2951,15 @@ def chunked_engine_phase(counts, ident, state, quant="int8", model="8B",
         ok &= got.get("wmatmul_bank", 0) == 3 * n_moe * passes
     step_tokens = stats.decode_tokens - len(reqs)  # first tokens come from prefill
     tag = f"chunked engine {model} ({quant} KV)"
+    tokens, seen = [list(r.generated) for r in reqs], state.setdefault("chunked_tokens", {})
+    if page == 64:
+        seen[(model, quant)] = tokens
+    else:
+        tag += f", pages of {page} rows"
+        same = tokens == seen.get((model, quant))
+        print(f"{tag}: tokens of the {len(reqs)} requests equal those at pages of 64: "
+              f"{same}", flush=True)
+        ok &= same
     wave = ("prefill" if cfg.attn_softcap else "bound" if cfg.head_dim % 128
             else "flagged = repair")
     print(f"{tag} launches {got}: {k8} = {cfg.n_layers} "
@@ -3428,25 +3440,44 @@ def cpu_vs_cuda_gemma3_phase():
     return ok
 
 
-def _kv_stage_logits(llama, cfg, params, dev, quant, out, prompts, pages, long, hit):
+def _kv_stage_logits(llama, cfg, params, dev, quant, out, prompts, pages, long, hit,
+                     page=64):
     """cpu_vs_cuda_phase's stages on `dev` over `quant` KV pages -> the
     logits of a prompt wave, a decode step, the second of two 128-token
     chunks and a prefix-hit suffix chunk (the decode step takes the tokens
-    of out["toks"], set by the first device's wave)."""
-    cache = llama.build_kv_caches(cfg, 16, 64, 2, 4, quant, device=dev)
+    of out["toks"], set by the first device's wave). Pages of 64 rows take
+    the table entries given; other page sizes number their pages in order,
+    the hit sharing the long prompt's whole pages of its first 128 tokens
+    (chunks are whole pages: 132 + 124 tokens at page 12)."""
+    if page == 64:
+        pps, chunk_pps, long_pages, hit_pages, shared = 4, 8, [6, 7, 8, 9], [6, 7, 10], 128
+    else:
+        need = [-(-(len(t) + 1) // page) for t in prompts]
+        pages = [list(range(1, 1 + need[0])), list(range(1 + need[0], 1 + sum(need)))]
+        shared = 128 // page * page
+        n_long, n_hit = -(-256 // page), -(-188 // page)
+        long_pages = list(range(1, 1 + n_long))
+        hit_pages = long_pages[:shared // page] + list(
+            range(1 + n_long, 1 + n_long + n_hit - shared // page))
+        pps, chunk_pps = max(need), max(n_long, n_hit)
+    n_pages = 1 + max(sum(len(x) for x in pages), len(long_pages) + len(hit_pages))
+    cache = llama.build_kv_caches(cfg, max(16, n_pages), page, 2, pps, quant, device=dev)
     cache, lg1 = llama.prefill_batch(params, cfg, cache, [0, 1], pages, prompts)
     out.setdefault("toks", lg1.argmax(-1).cpu())
     cache, lg2 = llama.decode_step(params, cfg, cache, [0, 1], out["toks"])
-    cc = llama.build_kv_caches(cfg, 16, 64, 2, 8, quant, device=dev)
-    for off in (0, 128):
-        cc, lg3 = llama.prefill_chunk_batch(params, cfg, cc, [0], [[6, 7, 8, 9]],
-                                            [long[off:off + 128]], [off], [256], 128)
-    cc, lg4 = llama.prefill_chunk_batch(params, cfg, cc, [1], [[6, 7, 10]],
-                                        [hit[128:]], [128], [188], 64)
+    cc = llama.build_kv_caches(cfg, max(16, n_pages), page, 2, chunk_pps, quant, device=dev)
+    lc = -(-128 // page) * page  # chunks are whole pages: 128 tokens, 132 at page 12
+    for off in (0, lc):
+        cc, lg3 = llama.prefill_chunk_batch(params, cfg, cc, [0], [long_pages],
+                                            [long[off:off + lc]], [off], [256], lc)
+    cc, lg4 = llama.prefill_chunk_batch(params, cfg, cc, [1], [hit_pages],
+                                        [hit[shared:]], [shared], [188],
+                                        -(-(188 - shared) // page) * page)
     return tuple(x.float().cpu() for x in (lg1, lg2, lg3, lg4))
 
 
-def _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages, long, hit):
+def _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages, long, hit,
+                        page=64):
     """_kv_stage_logits on the card, then on the CPU -> {"cuda": ..., "cpu":
     ...}. int4's step is 1/7 of a row's absmax: a K or V value on a
     rounding edge, a bf16 ulp apart on the two devices, lands a whole step
@@ -3468,7 +3499,7 @@ def _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages, long, h
             llama._store_rows = store
         try:
             out[dev] = _kv_stage_logits(llama, cfg, params, dev, quant, out, prompts,
-                                        pages, long, hit)
+                                        pages, long, hit, page)
         finally:
             llama._store_rows = store_rows
     return out
@@ -3479,7 +3510,9 @@ def cpu_vs_cuda_phase():
     versions on the CPU, same weights and prompts: whole-prompt prefill, a
     decode step, a 256-token prompt in 2 chunks of 128, and a prefix hit
     (its first 2 pages shared) prefilling only a 60-token suffix chunk, on
-    int8, fp8 and int4 KV pages."""
+    int8, fp8 and int4 KV pages of 64 rows; then the same on pages of 12
+    rows (boxes of 4 rows; chunks of 132 and 124 tokens; the hit shares 10
+    pages, 120 tokens, and prefills a 68-token suffix)."""
     import numpy as np
     import torch
 
@@ -3496,10 +3529,12 @@ def cpu_vs_cuda_phase():
     long = list(rng.randint(0, cfg.vocab_size, 256))
     hit = long[:128] + list(rng.randint(0, cfg.vocab_size, 60))
     ok = True
-    for quant in ("int8",) + KV_FORMATS:
+    for quant, page in [(q, 64) for q in ("int8",) + KV_FORMATS] + [
+            (q, 12) for q in ("int8",) + KV_FORMATS]:
         out = _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages,
-                                  long, hit)
+                                  long, hit, page)
         tag = f"{quant} KV" + (", the card's payloads" if quant == "int4" else "")
+        tag += "" if page == 64 else f", pages of {page} rows"
         for i, name in enumerate(("prefill_batch", "decode_step",
                                   "prefill_chunk_batch 2 x 128",
                                   "prefix-hit suffix chunk")):
@@ -4755,6 +4790,179 @@ def head_dim_kernels():
     return ok
 
 
+def _stale_rows(table, lens, page, hkv, num_pages):
+    """[hkv, P, page] bool: every row of a sequence's table pages at or past
+    its length (each page in one sequence's table at most)."""
+    import torch
+
+    pps = table.shape[1]
+    pos = (torch.arange(pps, device=table.device)[:, None] * page
+           + torch.arange(page, device=table.device)[None])  # [pps, page]
+    past = pos[None] >= torch.as_tensor(lens, device=table.device)[:, None, None]
+    where = torch.zeros(num_pages, page, dtype=torch.bool, device=table.device)
+    where[table.reshape(-1).long()] = past.reshape(-1, page)
+    return where[None].expand(hkv, -1, -1)
+
+
+PAGE_SIZES = (64, 12, 1)  # pages of 64 rows beside pages of 12 and of 1 row
+
+
+def page_rows_kernels(records):
+    """Kernels 6 and 8 on pages of 12 rows and of 1 row (boxes of 4 and of 1
+    row; int8 boxes of 1 row by cp.async), beside pages of 64, and kernel 8
+    above 64 q heads a kv head. Kernel 6: the 8B serve step (b16 hq32 hkv8
+    d128, lens 195-300, pos_offset 1) and lens 8192 on int8 and bf16 pages,
+    and with fp32 q on fp32 pages. Kernel 8: the 8B chunk batch (4 x 512
+    rows at q_start 1536, the last chunk 500 rows) on int8 and bf16 pages;
+    Falcon-7B's heads (hq 71 over one kv head, d 64: two head chunks, 57
+    tail rows in the second) on the same positions, bf16 and int8 pages of
+    64, beside hq 64 over one kv head (one chunk); fp32 q at group 71.
+    Every row of a sequence's pages at or past its length holds NaN (16-bit
+    and fp32 pages) or NaN scales (int8); each case against its plain
+    version on the pages before the poisoning (bf16 q max 2e-2, mean 2e-3,
+    LSE 1e-3 with the same -inf rows; fp32 q on fp32 pages atol = rtol =
+    1e-4), timed beside its bound and its plain time. Inputs from a
+    generator of its own."""
+    import torch
+
+    from mfa_tpu_torch.kernels import paged, paged_prefill
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    F32 = torch.float32
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    ok, summary = True, []
+
+    def check(o, lse, ro, rl, f32, what):
+        if f32:
+            return _err32(o, ro, what, lse, rl)
+        mx, good = _err(o, ro, what=what)
+        return mx, good and _lse_err(lse, rl, what)
+
+    def report(kernel, tag, name, mx, ms, plain_ms, nbytes, flops, f32, quant):
+        bound_ms, by = (_bound32(nbytes, flops, _peak32(quant)) if f32
+                        else _bound(nbytes, flops))
+        print(f"  ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms none bound_ms "
+              f"{bound_ms:.4f} ({by}) bound share {bound_ms / ms:.3f}", flush=True)
+        rec = records[name]
+        rec["max_abs_err"] = max(rec.get("max_abs_err") or 0.0, mx)
+        summary.append((kernel, tag, name, ms, plain_ms, bound_ms, by, mx))
+
+    # -- kernel 6
+    hq, hkv, d = 32, 8, 128
+    for tag, lens_l in (("8B serve step", [300 - 7 * i for i in range(16)]),
+                        ("lens 8192", [8192] * 16)):
+        b = len(lens_l)
+        for quant, dtype, page in (
+                [(q, torch.bfloat16, pg) for q in ("int8", None) for pg in PAGE_SIZES]
+                + [(None, F32, pg) for pg in (64, 12)]):
+            f32 = dtype == F32
+            pps = max(lens_l) // page + 1
+            P = b * pps + 1
+            q = rn(b, hq, d, dtype=dtype)
+            kf, vf = rn(hkv, P, page, d, dtype=dtype), rn(hkv, P, page, d, dtype=dtype)
+            bt = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+                  ).reshape(b, pps).to(torch.int32)
+            L = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+            kp, vp, ks, vs = _pages32(kf, vf, quant)
+            ro, rl = paged._paged_plain(q if f32 else q.float(), kp, vp, ks, vs, L, bt,
+                                        d ** -0.5, -1, 0.0, 1, quant_dtype=quant)
+            plain_ms = _time_ms(lambda: paged._paged_plain(
+                q, kp, vp, ks, vs, L, bt, d ** -0.5, -1, 0.0, 1, quant_dtype=quant),
+                iters=3)
+            _poison_rows_past(kp, vp, ks, vs, quant, bt, lens_l, page)
+
+            def run(kp=kp, vp=vp, ks=ks, vs=vs, quant=quant, q=q, L=L, bt=bt):
+                return paged.paged_attention(q, kp, vp, L, bt, k_scales=ks, v_scales=vs,
+                                             pos_offset=1, quant_dtype=quant,
+                                             return_lse=True)
+
+            o, lse = run()
+            fmt = quant or ("fp32" if f32 else "bf16")
+            name = paged.launch_name("paged", quant, 1, dtype)
+            what = f"paged {fmt} pages of {page} rows, {tag}"
+            print(f"{what}: b={b} hq={hq} hkv={hkv} d={d} lens "
+                  f"{min(lens_l)}..{max(lens_l)} pos_offset 1, splits "
+                  f"{paged.split_plan(b, hkv, pps, page)[0]}, box rows "
+                  f"{math.gcd(page, 64)}", flush=True)
+            mx, good = check(o, lse, ro, rl, f32, "O")
+            ok &= good
+            ms = _time_ms(run)
+            rows = sum(lens_l) * hkv
+            row_b = _row_bytes32(quant, d) if f32 else _row_bytes(quant, d)
+            nbytes = (2 * rows * row_b + sum(-(-n // page) for n in lens_l) * 4
+                      + 2 * b * hq * d * q.element_size() + b * hq * 4)
+            report(6, tag, name, mx, ms, plain_ms, nbytes, 4 * hq // hkv * rows * d,
+                   f32, quant)
+            del q, kf, vf, kp, vp, ks, vs, o, ro
+        torch.cuda.empty_cache()
+
+    # -- kernel 8
+    q_start, q_lens = [1536] * 4, [512, 512, 512, 500]
+    lens = [s_ + n for s_, n in zip(q_start, q_lens)]
+    b, sq = len(lens), max(q_lens)
+    L, QS, QL = (torch.tensor(x, dtype=torch.int32, device="cuda")
+                 for x in (lens, q_start, q_lens))
+    dead = torch.arange(sq, device="cuda")[None] >= QL[:, None]
+    cases = ([("8B chunk batch", 32, 8, 128, q, torch.bfloat16, pg)
+              for q in ("int8", None) for pg in PAGE_SIZES]
+             + [("Falcon-7B heads", 71, 1, 64, q, torch.bfloat16, 64) for q in (None, "int8")]
+             + [("hq 64 over one kv head", 64, 1, 64, q, torch.bfloat16, 64)
+                for q in (None, "int8")]
+             + [("Falcon-7B heads", 71, 1, 64, None, F32, 64)])
+    for tag, hq, hkv, d, quant, dtype, page in cases:
+        f32 = dtype == F32
+        pps = max(lens) // page + 1
+        P = b * pps + 1
+        q = rn(b, sq, hq, d, dtype=dtype)
+        kf, vf = rn(hkv, P, page, d, dtype=dtype), rn(hkv, P, page, d, dtype=dtype)
+        table = (torch.randperm(P - 1, generator=gen, device="cuda")[: b * pps] + 1
+                 ).reshape(b, pps).to(torch.int32)
+        kp, vp, ks, vs = _pages32(kf, vf, quant)
+        ro, rl = paged_prefill._paged_prefill_plain(
+            q if f32 else q.float(), kp, vp, ks, vs, L, QS, QL, table, d ** -0.5, -1, 0,
+            0.0, quant_dtype=quant)
+        plain_ms = _time_ms(lambda: paged_prefill._paged_prefill_plain(
+            q, kp, vp, ks, vs, L, QS, QL, table, d ** -0.5, -1, 0, 0.0, quant_dtype=quant),
+            iters=3)
+        _poison_rows_past(kp, vp, ks, vs, quant, table, lens, page)
+
+        def run(lse=False, kp=kp, vp=vp, ks=ks, vs=vs, quant=quant, q=q, table=table):
+            return paged_prefill.paged_prefill_attention(
+                q, kp, vp, L, QS, table, q_lens=QL, k_scales=ks, v_scales=vs,
+                causal=True, quant_dtype=quant, return_lse=lse)
+
+        o, lse = run(True)
+        fmt = quant or ("fp32" if f32 else "bf16")
+        name = paged.launch_name("paged_prefill", quant, 1, dtype)
+        what = f"paged_prefill {fmt} pages of {page} rows, {tag}"
+        print(f"{what}: {b} x {sq} rows at q_start {q_start}, q_lens {q_lens}, "
+              f"hq={hq} hkv={hkv} (group {hq // hkv}, head chunks "
+              f"{-(-(hq // hkv) // 64)}) d={d}, box rows {math.gcd(page, 128 if d <= 128 else 64)}",
+              flush=True)
+        mx, good = check(o, lse, ro, rl, f32, "O")
+        zero = bool((o[dead] == 0).all()) and bool(torch.isneginf(
+            lse.transpose(1, 2)[dead]).all())
+        print(f"  rows past q_lens: O = 0 and LSE = -inf {zero}", flush=True)
+        ok &= good and zero
+        ms = _time_ms(run)
+        row_b = _row_bytes32(quant, d) if f32 else _row_bytes(quant, d)
+        nbytes = (2 * sum(lens) * hkv * row_b + sum(-(-n // page) for n in lens) * 4
+                  + 2 * b * sq * hq * d * q.element_size())
+        pairs = sum(_visible_pairs(n, n_k, s_, -1, 0)
+                    for s_, n, n_k in zip(q_start, q_lens, lens))
+        report(8, tag, name, mx, ms, plain_ms, nbytes, 4 * hq * pairs * d, f32, quant)
+        del q, kf, vf, kp, vp, ks, vs, o, ro
+        torch.cuda.empty_cache()
+    print("page_rows_kernels summary (kernel, shape, launch name, ms, plain_ms, "
+          "bound_ms, bound_by, max_abs_err):", flush=True)
+    for row in summary:
+        print("  " + json.dumps(row), flush=True)
+    return ok
+
+
 def decode_groups():
     """Phase 2 for kernel 5 with any q-per-kv group: groups 16 and 32 (b16
     hq32 hkv2 and hkv1, S8192, d128, bf16; before this, refused above 8),
@@ -5691,16 +5899,10 @@ def _record32(records, name, tag, mx, ms, plain_ms, lib_ms, nbytes, flops,
 
 
 def _poison_rows_past(kp, vp, ks, vs, quant, table, lens, page):
-    """NaN (fp32 pages), NaN scales and the fp8 NaN code in every row of a
-    sequence's pages at or past its length: rows no kernel may read."""
-    import torch
-
-    where = torch.zeros(kp.shape[:3], dtype=torch.bool, device=kp.device)
-    for i, n in enumerate(lens):
-        for j, pg in enumerate(table[i].tolist()):
-            lo = max(0, n - j * page)
-            if lo < page:
-                where[:, pg, lo:] = True
+    """NaN (16-bit and fp32 pages), NaN scales and the fp8 NaN code in every
+    row of a sequence's pages at or past its length: rows no kernel may
+    read."""
+    where = _stale_rows(table, lens, page, kp.shape[0], kp.shape[1])
     for pages, scales in ((kp, ks), (vp, vs)):
         if quant is None:
             pages[where] = float("nan")
@@ -6872,6 +7074,7 @@ def main() -> int:
                  ("sinks_kernels", sinks_kernels),
                  ("head_dim_kernels", head_dim_kernels),
                  ("decode_groups", decode_groups),
+                 ("page_rows_kernels", lambda: page_rows_kernels(records)),
                  ("fp32_kernels", lambda: fp32_kernels(records)),
                  ("fp32_backward_kernels", lambda: fp32_backward_kernels(records)),
                  ("fp32_wmatmul_kernels", lambda: fp32_wmatmul_kernels(records)),
@@ -6886,6 +7089,9 @@ def main() -> int:
                  ("engine_8b_kvq", lambda: kvq_engine_phase(counts, ident, state)),
                  ("chunked_prefix_engine_8b",
                   lambda: chunked_engine_phase(counts, ident, state)),
+                 ("chunked_prefix_engine_8b_page1",
+                  lambda: chunked_engine_phase(counts, ident, state, pages=(512 * 64, 64 * 64),
+                                               page=1)),
                  ("chunked_prefix_engine_8b_int4",
                   lambda: chunked_engine_phase(counts, ident, state, "int4")),
                  ("chunked_prefix_engine_8b_fp8",

@@ -39,13 +39,21 @@
 //  - One producer thread TMA-loads 64-token K and V tiles into a ring of
 //    STAGES slots (up to 192 KB, Plan) with full/empty mbarriers. A contiguous
 //    cache is one box a tile of a 3-D map over (D, S, b * hkv); the maps
-//    clip at S with zeros. Pages come one box per page (box_rows =
-//    gcd(page, 64) rows, so a larger page is cut into 64-row boxes) of a
-//    map over (D, page, hkv * P), the pool page read from the block table
-//    (clamped into the pool, as the plain version clamps it) by the whole
-//    producer warp, 32 table entries a load; quantized pages bring their
-//    row scales beside them by bulk copies. No box is issued for rows outside
-//    [lo, hi): table entries there may be garbage or -1.
+//    clip at S with zeros. Pages of any row count come in boxes of
+//    box_rows = gcd(page, 64) rows (1 at an odd page, 64 past a multiple of
+//    64; a box never straddles a page) of a map over (D, page, hkv * P), the
+//    pool page read from the block table (clamped into the pool, as the
+//    plain version clamps it) by the whole producer warp, 32 table entries
+//    a load, each lane issuing every 32nd box of a tile. The TMA's swizzle
+//    follows the shared-memory address, so boxes of fewer than 8 rows tile
+//    the swizzle atoms as one 8-row box does; quantized pages bring their
+//    row scales beside them by bulk copies. Quantized boxes of fewer than 4
+//    rows (pages of 1, 2, 6, 10, ... rows) come by cp.async instead, 16-byte
+//    units into the same swizzled places and 4-byte scales, completing on
+//    the slot's full barrier by cp.async.mbarrier.arrive: the TMA writes only
+//    128-byte-aligned shared memory and bulk copies move 16-byte runs. No box
+//    is issued for rows outside [lo, hi): table entries there may be garbage
+//    or -1.
 //  - Eight consumer warps in two teams (one team of four at D 256; two of
 //    two for fp32 rows there): team t takes tiles t, t + TEAMS, ..., and
 //    warp w of a team the tile's tokens [16 w, 16 w + 16). Each warp is
@@ -146,6 +154,10 @@ struct Args {
   int sinks;   // with a left window: columns < sinks stay visible (else 0)
   const float* slopes;  // ALiBi [hq] in the log2 domain, or null
   int dw;      // features of a q, O and stored K/V row (<= D)
+  // the page pools (paged quantized boxes of fewer than 4 rows are copied
+  // by cp.async from them; else only the tensor maps read them)
+  const void* k_pages;
+  const void* v_pages;
 };
 
 // Shared memory: STAGES slots of [K tile | V tile (| K scales | V scales)],
@@ -456,8 +468,11 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
   const uint32_t base = smem_u32(smem);
   const uint32_t bars = base + P::bar_off;
   if (threadIdx.x == 0) {
+    // paged quantized boxes of fewer than 4 rows: 32 producer lanes arrive
+    // by cp.async besides the TMA's announcing arrival
+    const uint32_t full_count = PAGED && QUANT && a.box_rows < 4 ? 33 : 1;
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bar_full(bars, s), 1);
+      mbar_init(bar_full(bars, s), full_count);
       mbar_init(bar_empty<STAGES>(bars, s), WPT);  // lane 0 of each warp of the tile's team
     }
     mbar_fence_init();
@@ -482,11 +497,18 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
         }
       }
     } else {
-      // Lane l holds the pool page of table entry id0 + l; the warp reloads
-      // the next 32 entries when a box's page passes them.
+      // Lane l issues boxes jb0 + l, jb0 + l + 32, ... of a tile and holds
+      // the pool page of table entry id0 + l; the warp reloads 32 entries
+      // when a group of 32 boxes passes them (their pages span at most 32
+      // entries: a box is R rows of one page, R dividing the page).
       const int* tbl = a.table + (size_t)b * a.pps;
       const int R = a.box_rows, page = a.page_size, last_pi = (hi - 1) / page;
-      const uint32_t box_bytes = QUANT ? 2 * R * (P::RB + 4) : 2 * R * D * P::EB;
+      // quantized boxes of R < 4 rows come by cp.async (cp_box): the TMA
+      // writes only to 128-byte-aligned shared memory (a box of 1 row of 64
+      // bytes, or 2 of 32, is not), and bulk copies of scales need 16-byte
+      // runs; their bytes are not in the expected count
+      const bool cp_box = QUANT && R < 4;
+      const uint32_t box_bytes = cp_box ? 0 : QUANT ? 2 * R * (P::RB + 4) : 2 * R * D * P::EB;
       int ids = 0, id0 = -32;
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, t0 = tile_of(i) * TT;
@@ -506,36 +528,69 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
           mbar_wait(bar_empty<STAGES>(bars, s), ((i / STAGES) & 1) ^ 1);
           mbar_expect_tx(bar_full(bars, s), (jb1 - jb0) * box_bytes);
         }
-        for (int jb = jb0; jb < jb1; ++jb) {
-          const int key = t0 + jb * R, pi = key / page, row = key % page;
-          if (pi >= id0 + 32) {  // warp-uniform
-            id0 = pi;
+        __syncwarp();  // the slot is free and its bytes announced
+        for (int jg = jb0; jg < jb1; jg += 32) {
+          // warp-uniform: the page of the group's last box
+          if ((t0 + (min(jg + 32, jb1) - 1) * R) / page >= id0 + 32) {
+            id0 = (t0 + jg * R) / page;
             ids = id0 + lane <= last_pi ? tbl[id0 + lane] : 0;
           }
-          const int pg = min(max(__shfl_sync(0xffffffffu, ids, pi - id0), 0), a.num_pages - 1);
-          if (lane == 0) {
-            const int plane = hk * a.num_pages + pg;
-            if constexpr (QUANT) {
+          const int jb = jg + lane, key = t0 + jb * R, pi = key / page, row = key % page;
+          const int pg =
+              min(max(__shfl_sync(0xffffffffu, ids, (pi - id0) & 31), 0), a.num_pages - 1);
+          if (jb >= jb1) continue;
+          const int plane = hk * a.num_pages + pg;
+          if constexpr (QUANT) {
+            const size_t srow = (size_t)plane * page + row;
+            if (cp_box) {
+              // 16-byte units into the chunks' swizzle, zeros past the
+              // stored row (as the TMA fills them); the scales 4 bytes each
+              const int w = F == KV::I4 ? a.dw / 2 : a.dw;
+              const unsigned char* kg = static_cast<const unsigned char*>(a.k_pages);
+              const unsigned char* vg = static_cast<const unsigned char*>(a.v_pages);
+              unsigned char* sk = smem + s * P::STAGE_BYTES;
+              for (int r = 0; r < R; ++r) {
+                const size_t g0 = (srow + r) * w;
+#pragma unroll
+                for (int c = 0; c < NCH; ++c)
+#pragma unroll
+                  for (int u = 0; u < CB / 16; ++u) {
+                    const int col = c * CB + 16 * u;
+                    const int at = c * P::CHUNK + swz8<CB>(jb * R + r, u);
+                    const bool ok = col < w;
+                    tc32::cp16(sk + at, kg + (ok ? g0 + col : 0), ok);
+                    tc32::cp16(sk + P::KV_BYTES + at, vg + (ok ? g0 + col : 0), ok);
+                  }
+                float* scl = reinterpret_cast<float*>(sk + P::sc_off) + jb * R + r;
+                tc32::cp4(scl, a.k_scale + srow + r, true);
+                tc32::cp4(scl + TT, a.v_scale + srow + r, true);
+              }
+            } else {
 #pragma unroll
               for (int c = 0; c < NCH; ++c) {
                 const uint32_t at = c * P::CHUNK + jb * R * CB;
                 tma_load_3d(k_s + at, &tk, bar_full(bars, s), c * CB, row, plane);
                 tma_load_3d(v_s + at, &tv, bar_full(bars, s), c * CB, row, plane);
               }
-              const size_t srow = (size_t)plane * page + row;
               const uint32_t sc = k_s + P::sc_off + jb * R * 4;
               bulk_load(sc, a.k_scale + srow, R * 4, bar_full(bars, s));
               bulk_load(sc + TT * 4, a.v_scale + srow, R * 4, bar_full(bars, s));
-            } else {
+            }
+          } else {
+            // 16-bit and fp32 rows are 128 bytes a chunk: a box of any R
+            // lands 128-byte aligned, and the TMA's 128-byte swizzle follows
+            // the shared-memory address, so R-row boxes tile the atoms
+            // exactly as one 8-row box does (tests/test_torch_kernels_gpu.py
+            // ::test_tma_boxes_under_8_rows)
 #pragma unroll
-              for (int ch = 0; ch < D / CE; ++ch) {
-                const uint32_t at = ch * (TT * 128) + jb * R * 128;
-                tma_load_3d(k_s + at, &tk, bar_full(bars, s), ch * CE, row, plane);
-                tma_load_3d(v_s + at, &tv, bar_full(bars, s), ch * CE, row, plane);
-              }
+            for (int ch = 0; ch < D / CE; ++ch) {
+              const uint32_t at = ch * (TT * 128) + jb * R * 128;
+              tma_load_3d(k_s + at, &tk, bar_full(bars, s), ch * CE, row, plane);
+              tma_load_3d(v_s + at, &tv, bar_full(bars, s), ch * CE, row, plane);
             }
           }
         }
+        if (cp_box) tc32::cp_arrive(bar_full(bars, s));  // every lane, once its copies land
       }
     }
     return;
@@ -1074,6 +1129,8 @@ int launch(const void* k, const void* v, const Args& args, int batch, cudaStream
   if (args.dw <= 0 || args.dw > D) return MFA_BAD_CONFIG;
   Args a = args;
   a.box_rows = a.box_rows < P::TT ? a.box_rows : P::TT;  // gcd(page, TT): both powers of two
+  a.k_pages = k;
+  a.v_pages = v;
   const CUtensorMapDataType type =
       QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
             : F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32

@@ -7,8 +7,8 @@
 // fp8 (e4m3) or int4 (head_dim / 2 bytes a row, feature pairs) with fp32
 // per-row scales [hkv, num_pages, page_size]. The tile is kernel 5's
 // (decode_sm90.cuh: a TMA ring of 64-token tiles, the products on mma.sync)
-// with one TMA box per page through the block table; quantized rows convert
-// exactly to bf16 in registers. pos_offset > 0 is the deferred-append query
+// with TMA boxes of gcd(page_size, 64) rows through the block table (pages
+// of any row count); quantized rows convert exactly to bf16 in registers. pos_offset > 0 is the deferred-append query
 // position (the query sits pos_offset past the stored length; reads stay
 // bounded by it); span row si sits at stored length + pos_offset - q_span
 // + si and sees the columns before it. q_span > 1 or more than 8 q heads a
@@ -43,8 +43,8 @@
 // hkv, num_splits, q_span * hq / hkv] fp32 (rows [q_span, group]
 // flattened). d: features of q's and a stored page row (int4: 2 a byte), a
 // multiple of 8 (16-bit), 16 (int8, fp8) or 32 (int4) up to 256, run at
-// the instantiated D kd. page_size a multiple of 8; every pointer
-// 16-byte aligned.
+// the instantiated D kd. page_size any row count (boxes of gcd(page_size,
+// 64) rows); every pointer 16-byte aligned.
 // Returns a cudaError_t code.
 extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                 const float* k_scale, const float* v_scale, const int* lens,
@@ -57,11 +57,11 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
                                 void* stream) {
   if (batch == 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
-  if (group < 1 || q_span < 1 || num_pages < 1 || page_size <= 0 || page_size % 8 != 0 ||
-      num_splits < 1 || tokens_per_split % kd90::TILE != 0)
+  if (group < 1 || q_span < 1 || num_pages < 1 || page_size <= 0 || num_splits < 1 ||
+      tokens_per_split % kd90::TILE != 0)
     return MFA_BAD_CONFIG;
   const bool m16 = q_span > 1 || group > 8;  // 16 query rows a block
-  int box_rows = kd90::TILE;  // gcd(page_size, 64): a power of two >= 8
+  int box_rows = kd90::TILE;  // gcd(page_size, 64): a power of two, 1 to 64
   while (page_size % box_rows != 0) box_rows >>= 1;
   kd90::Args a = {};
   a.q = q;
@@ -118,4 +118,55 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
 #undef MFA_PAGED
 #undef MFA_PAGED_D
   return MFA_BAD_CONFIG;
+}
+
+// A probe of the TMA's boxes of fewer than 8 rows (tests only, not a
+// kernel of any path): rows [r0, r0 + rows) of a [*, row_bytes] byte
+// matrix loaded into a 1024-byte-aligned tile as rows / box_rows boxes,
+// box jb at byte jb * box_rows * row_bytes, in the swizzle of
+// `swizzle_bytes` (0, 32, 64 or 128); the tile is then copied out as it
+// lies in shared memory. A page of a row count off 8 comes as such boxes.
+__global__ void tma_box_probe_kernel(const __grid_constant__ CUtensorMap t, unsigned char* out,
+                                     int rows, int row_bytes, int r0, int box_rows) {
+  __shared__ __align__(1024) unsigned char tile[64 * 128];
+  __shared__ __align__(8) uint64_t bar;
+  const uint32_t b = smem_u32(&bar);
+  if (threadIdx.x == 0) {
+    mbar_init(b, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(b, rows * row_bytes);
+    for (int jb = 0; jb < rows / box_rows; ++jb)
+      tma_load_3d(smem_u32(tile) + jb * box_rows * row_bytes, &t, b, 0, r0 + jb * box_rows, 0);
+  }
+  mbar_wait(b, 0);
+  for (int i = threadIdx.x; i < rows * row_bytes; i += blockDim.x) out[i] = tile[i];
+}
+
+// src: [total_rows, row_bytes] bytes; out: [rows, row_bytes]. rows a
+// multiple of box_rows, rows * row_bytes <= 8192, and box_rows * row_bytes
+// a multiple of 128: the TMA writes only 128-byte-aligned shared memory
+// (a box of 64 bytes at a 64-byte offset faults with a misaligned
+// address). Returns a cudaError_t code, MFA_TMA_ENCODE, or MFA_BAD_CONFIG.
+extern "C" int mfa_tma_box_probe(const void* src, void* out, int total_rows, int rows,
+                                 int row_bytes, int r0, int box_rows, int swizzle_bytes,
+                                 void* stream) {
+  if (rows <= 0 || box_rows <= 0 || rows % box_rows != 0 || rows * row_bytes > 64 * 128 ||
+      r0 + rows > total_rows || box_rows * row_bytes % 128 != 0)
+    return MFA_BAD_CONFIG;
+  const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const cuuint64_t dims[3] = {(cuuint64_t)row_bytes, (cuuint64_t)total_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)total_rows * row_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)row_bytes, (cuuint32_t)box_rows, 1};
+  CUtensorMap t;
+  if (int err = mfa_encode(&t, src, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, dims, strides, box, sw))
+    return err;
+  tma_box_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<unsigned char*>(out), rows, row_bytes, r0, box_rows);
+  return (int)cudaGetLastError();
 }

@@ -19,36 +19,49 @@
 // (row, column) pair of every q head, against each row's pages read once).
 // The design is the warp-specialised block of flash_fwd_sm90.cuh:
 //  - A block of 384 threads owns 2 wpos chunk positions of one (sequence,
-//    kv head), wpos = 64 / group (rounded down; any group of 1 to 64).
-//    Warpgroup 0 is the producer (one TMA thread; setmaxnreg hands its
-//    registers to the consumers); consumer warpgroup w owns positions
-//    [t0 + w wpos, + wpos) as packed rows: its row r is position
-//    t0 + w wpos + r / group of q head hk * group + r % group, so every K/V
-//    tile it stages serves all q heads of the kv head (the TPU kernel's
-//    [group, bq] rows, position-major). Rows r >= wpos * group (64 % group
-//    of them: 1 at group 7, 4 at groups 5 and 6) are a dead tail: wgmma
-//    rows are independent, so whatever their shared memory holds reaches
-//    only their own accumulators; they are never stored, and the masking
-//    decisions (all_live, needs_mask) look at the live positions only.
+//    kv head, head chunk), wpos = 64 / hc (rounded down), hc = min(group,
+//    64) q heads a position. Warpgroup 0 is the producer (one warp: TMA and
+//    the block table; setmaxnreg hands its registers to the consumers);
+//    consumer warpgroup w owns positions [t0 + w wpos, + wpos) as packed
+//    rows: its row r is position t0 + w wpos + r / hc of q head hk * group
+//    + h0 + r % hc, so every K/V tile it stages serves all q heads of the
+//    kv head (the TPU kernel's [group, bq] rows, position-major). Up to
+//    group 64 there is one head chunk (h0 = 0, hc = group); above it a
+//    warpgroup holds 64 q heads of one position and the grid takes
+//    ceil(group / 64) head chunks (h0 = 64 c), each reading the K/V tiles
+//    again (Falcon-7B's group 71: 2 chunks). Rows r >= wpos * hc (64 % group
+//    of them: 1 at group 7, 4 at groups 5 and 6) and rows of the last
+//    chunk past the group (57 at group 71) are a dead tail (tail_row):
+//    wgmma rows are independent, so whatever their shared memory holds
+//    reaches only their own accumulators; they are never stored, and the
+//    masking decisions (all_live, needs_mask) look at the live positions
+//    only.
 //  - Q is one TMA box a 64-column chunk of a 4-D map over q [b, sq, hq, D]
-//    (64 columns x group heads x 2 wpos positions) when the group divides
-//    64, else one box a warpgroup (x wpos positions, at the warpgroup's
-//    64-row offset): it lands as the packed rows in the 128-byte swizzle
-//    wgmma reads.
+//    (64 columns x hc heads x 2 wpos positions) when hc divides 64, else
+//    one box a warpgroup (x wpos positions, at the warpgroup's 64-row
+//    offset): it lands as the packed rows in the 128-byte swizzle wgmma
+//    reads. A last head chunk's box reaches past the group into the next
+//    kv head's heads (or past hq: zeros), which only tail rows hold.
 //  - K and V come by TMA into a ring of BN-key tiles (128; 64 at D 256,
-//    Plan) through the block table, one box per page (or per gcd(page,
-//    BN) rows of a larger one)
-//    of a map over the pages [hkv, P, page, D] as (D, page, hkv * P). Page
-//    ids are clamped into the pool, as the plain version clamps them; no
-//    box is issued for rows at or past lens. Rows past lens inside a loaded
-//    page, or left over in the slot, may hold anything: K's columns are
-//    masked, V's rows are zeroed in shared memory before P V (p = 0 there,
-//    but 0 * NaN survives P V). Pages must hold a multiple of 8 rows: a box
-//    of fewer rows would break the 1024-byte swizzle atom.
+//    Plan) through the block table, in boxes of R = gcd(page, BN) rows (1
+//    at an odd page; a box never straddles a page) of a map over the pages
+//    [hkv, P, page, D] as (D, page, hkv * P); the producer warp loads the
+//    table 32 entries at a time and each lane issues every 32nd box. The
+//    TMA's 128-byte swizzle follows the shared-memory address, so 16-bit
+//    boxes of fewer than 8 rows tile its atoms as one 8-row box does.
+//    Page ids are clamped into the pool, as the plain version clamps them;
+//    no box is issued for rows at or past lens. Rows past lens inside a
+//    loaded page, or left over in the slot, may hold anything: K's columns
+//    are masked, V's rows are zeroed in shared memory before P V (p = 0
+//    there, but 0 * NaN survives P V).
 //  - 16-bit pages feed wgmma from the TMA slot as kernel 1 does. Quantized
 //    pages (int8, fp8 e4m3, or int4 rows of D / 2 bytes: feature 2c in
 //    byte c's low nibble, 2c + 1 in its high one) come unswizzled into a
-//    staging slot, their fp32 row scales beside them by bulk copies; the
+//    staging slot, their fp32 row scales beside them by bulk copies (boxes
+//    of fewer than 4 rows by cp.async from the producer lanes instead, 16
+//    bytes and 4-byte scales, completing on the slot's full barrier: the
+//    TMA writes only 128-byte-aligned shared memory, bulk copies 16-byte
+//    runs); the
 //    256 consumer threads convert the payload exactly to bf16 (wgmma.cuh:
 //    i8x4_to_bf16, e4m3x4_to_bf16, i4x8_to_bf16) into one
 //    128-byte-swizzled K/V buffer (every load of a
@@ -108,12 +121,26 @@ struct Params {
   float* lse;  // [b, hq, sq]
   int sq, hq, hkv, group, num_pages, page_size, pps, box_rows, wl, wr;
   float scale_log2e, softcap, softcap_mul;
-  int wpos;     // chunk positions a consumer warpgroup: WG_M / group
-  int q_boxes;  // Q boxes a 64-column chunk: 1 if group divides WG_M, else 2
+  int hc;       // q heads of a position in a warpgroup's rows: min(group, WG_M)
+  int nchunks;  // head chunks of a kv head: ceil(group / WG_M) (a grid axis)
+  int wpos;     // chunk positions a consumer warpgroup: WG_M / hc
+  int q_boxes;  // Q boxes a 64-column chunk: 1 if hc divides WG_M, else 2
   int sinks;             // with a left window: columns < sinks stay visible (else 0)
   const float* slopes;   // ALiBi [hq] in the raw score domain (slope / scale), or null
   int dw;                // features of a q, O and stored K/V row (<= D)
+  // the page pools (quantized boxes of fewer than 4 rows are copied by
+  // cp.async from them; else only the tensor maps read them)
+  const void* k_pages;
+  const void* v_pages;
 };
+
+// Packed row r (0-63) of a warpgroup in the head chunk from q head h0
+// holds head h0 + r % hc (of the kv head's group) at chunk position
+// offset r / hc. Rows past wpos * hc, or whose head is past the group (the
+// last chunk of a group above 64), are the dead tail.
+__device__ __forceinline__ bool tail_row(const Params& p, int h0, int r) {
+  return r >= p.wpos * p.hc || h0 + r % p.hc >= p.group;
+}
 
 // Shared memory: Q [D/64][BM][64]; STAGES ring slots, each K then V
 // [D/64][BN][64] as stored (16-bit pages), or quantized K [BN][RB], V
@@ -235,7 +262,8 @@ __device__ __forceinline__ void convert_tile(const unsigned char* slot, unsigned
 template <typename T, KV F, int D>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, int first,
                                         int n_tiles, int nsink, Span mine, int w, int wtid,
-                                        int b, int hk, int t0, int q_len, int q_start, int sk) {
+                                        int b, int hk, int h0, int t0, int q_len, int q_start,
+                                        int sk) {
   using PL = Plan<D, F>;
   constexpr bool QUANT = PL::QUANT;
   constexpr int BN = PL::BN;
@@ -243,7 +271,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   const uint32_t bars = base + PL::bar_off;
   const uint32_t q_wg = base + w * WG_M * 128;  // this warpgroup's rows of each Q chunk
   const int lane = wtid & 31, g = lane >> 2, t4 = lane & 3;
-  const int group = p.group, wpos = p.wpos, rows = wpos * group;  // rows >= `rows`: dead tail
+  const int group = p.group, hc = p.hc, wpos = p.wpos;
   const int tw = t0 + w * wpos;                   // the warpgroup's first chunk position
   const int r0 = (wtid >> 5) * 16 + g;            // this thread's packed rows: r0, r0 + 8
   // their chunk positions; a tail row's lies past every chunk, so it is
@@ -251,8 +279,8 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   // epilogue, spilled 8 bytes in the d 256 int8 and fp8 instantiations at
   // their 168-register budget: scripts/ptxas_report.py)
   constexpr int NOWHERE = 1 << 29;
-  const int tr0 = r0 < rows ? tw + r0 / group : NOWHERE;
-  const int tr1 = r0 + 8 < rows ? tw + (r0 + 8) / group : NOWHERE;
+  const int tr0 = tail_row(p, h0, r0) ? NOWHERE : tw + r0 / hc;
+  const int tr1 = tail_row(p, h0, r0 + 8) ? NOWHERE : tw + (r0 + 8) / hc;
   const bool live0 = tr0 < q_len, live1 = tr1 < q_len;
   const int pos0 = q_start + tr0, pos1 = q_start + tr1;
   const int pos_lo = q_start + tw, pos_hi = pos_lo + wpos - 1;
@@ -328,8 +356,10 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
       if (p.slopes != nullptr) {  // raw domain: - slope / scale * |position - column|
         // the slopes of the thread's rows' q heads, loaded here so that they
         // hold no register through the loop without ALiBi
-        const float sl0 = p.slopes[hk * group + r0 % group];
-        const float sl1 = p.slopes[hk * group + (r0 + 8) % group];
+        // (a tail row reads a live head's slope: past the group lies
+        // another kv head's, or past hq nothing)
+        const float sl0 = p.slopes[hk * group + min(h0 + r0 % hc, group - 1)];
+        const float sl1 = p.slopes[hk * group + min(h0 + (r0 + 8) % hc, group - 1)];
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -434,7 +464,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   T* out = static_cast<T*>(p.out);
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
-    const int t = trs[x], h = hk * group + (r0 + 8 * x) % group;
+    const int t = trs[x], h = hk * group + h0 + (r0 + 8 * x) % hc;
     if (t >= p.sq) continue;  // past the chunk, or a tail row
     const float m = ms[x], l = ls[x];
     const bool dead = m <= MFA_MASK * 0.5f || l == 0.f;
@@ -453,7 +483,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   }
 }
 
-// Grid (hkv, batch, ceil(sq / (2 wpos))).
+// Grid (hkv x head chunks, batch, ceil(sq / (2 wpos))).
 template <typename T, KV F, int D>
 __global__ void __launch_bounds__(THREADS, 1)
     paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,
@@ -462,9 +492,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   using PL = Plan<D, F>;
   constexpr bool QUANT = PL::QUANT;
   constexpr int RB = PL::RB, BN = PL::BN;
-  const int hk = blockIdx.x, b = blockIdx.y;
+  const int hk = blockIdx.x / p.nchunks, b = blockIdx.y;
+  const int h0 = (blockIdx.x % p.nchunks) * WG_M;  // the head chunk's first q head
   const int qt = gridDim.z - 1 - blockIdx.z;  // last (longest) q tiles first
-  const int group = p.group, wpos = p.wpos, rows = wpos * group;
+  const int group = p.group, hc = p.hc, wpos = p.wpos;
   const int t0 = qt * 2 * wpos;  // the block's first chunk position
   const int q_len = min(max(p.q_lens[b], 0), p.sq);
   if (t0 >= q_len) {
@@ -474,15 +505,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int units = p.dw / 8;  // 16-byte units of an O row
     for (int u = threadIdx.x; u < BM * units; u += THREADS) {
       const int i = u / units, r = i % WG_M;
-      const int t = t0 + (i / WG_M) * wpos + r / group, h = hk * group + r % group;
+      const int t = t0 + (i / WG_M) * wpos + r / hc, h = hk * group + h0 + r % hc;
       T* orow = out + (((size_t)b * p.sq + t) * p.hq + h) * p.dw;
-      if (r < rows && t < p.sq)
+      if (!tail_row(p, h0, r) && t < p.sq)
         *reinterpret_cast<uint4*>(orow + (u % units) * 8) = make_uint4(0u, 0u, 0u, 0u);
     }
     for (int i = threadIdx.x; i < BM; i += THREADS) {
       const int r = i % WG_M;
-      const int t = t0 + (i / WG_M) * wpos + r / group, h = hk * group + r % group;
-      if (r < rows && t < p.sq && p.lse != nullptr)
+      const int t = t0 + (i / WG_M) * wpos + r / hc, h = hk * group + h0 + r % hc;
+      if (!tail_row(p, h0, r) && t < p.sq && p.lse != nullptr)
         p.lse[((size_t)b * p.hq + h) * p.sq + t] = -INFINITY;
     }
     return;
@@ -508,10 +539,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* smem = pp90_smem + ((1024u - (smem_u32(pp90_smem) & 1023u)) & 1023u);
   const uint32_t base = smem_u32(smem);
   const uint32_t bars = base + PL::bar_off;
+  const int R = p.box_rows;
+  // quantized boxes of R < 4 rows come by cp.async from the producer warp's
+  // 32 lanes (the TMA writes only 128-byte-aligned shared memory: 1 row of
+  // 64 bytes, or 2 of 32, is not; bulk copies of scales need 16-byte runs),
+  // each arriving on the full barrier besides the TMA's announcing arrival
+  const bool cp_box = QUANT && R < 4;
   if (threadIdx.x == 0) {
     mbar_init(bar_q(bars), 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bar_full(bars, s), 1);
+      mbar_init(bar_full(bars, s), cp_box ? 33 : 1);
       mbar_init(bar_empty(bars, s), 2 * 128);  // every consumer thread releases
     }
     mbar_fence_init();
@@ -523,38 +560,81 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
   if (wg == 0) {
     regs_dec<fa90::PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
-      // Q: per 64-column chunk, q_boxes boxes of (2 / q_boxes) wpos
-      // positions, box qb at the packed row qb * WG_M
-      const int qpos = 2 * wpos / p.q_boxes;
-      mbar_expect_tx(bar_q(bars), (D / 64) * 2 * rows * 128);
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        // Q: per 64-column chunk, q_boxes boxes of (2 / q_boxes) wpos
+        // positions of hc heads from the chunk's first, box qb at the
+        // packed row qb * WG_M
+        const int qpos = 2 * wpos / p.q_boxes;
+        mbar_expect_tx(bar_q(bars), (D / 64) * 2 * wpos * hc * 128);
 #pragma unroll
-      for (int ch = 0; ch < D / 64; ++ch)
-        for (int qb = 0; qb < p.q_boxes; ++qb)
-          tma_load_4d(base + ch * (BM * 128) + qb * (WG_M * 128), &tq, bar_q(bars), ch * 64,
-                      hk * group, t0 + qb * qpos, b);
+        for (int ch = 0; ch < D / 64; ++ch)
+          for (int qb = 0; qb < p.q_boxes; ++qb)
+            tma_load_4d(base + ch * (BM * 128) + qb * (WG_M * 128), &tq, bar_q(bars), ch * 64,
+                        hk * group + h0, t0 + qb * qpos, b);
+      }
+      // K and V: lane l issues boxes l, l + 32, ... of a tile and holds the
+      // pool page of table entry id0 + l, reloaded 32 entries at a time
+      // (32 boxes of R rows, R dividing the page, span at most 32 pages)
       const int* tbl = p.table + (size_t)b * p.pps;
-      const int R = p.box_rows, page = p.page_size;
+      const int page = p.page_size, last_pi = (sk - 1) / page;
       // bytes of one box of K and V (quantized: payload rows and their scales)
-      const uint32_t box_bytes = QUANT ? 2 * R * (RB + 4) : 2 * R * D * 2;
+      const uint32_t box_bytes = cp_box ? 0 : QUANT ? 2 * R * (RB + 4) : 2 * R * D * 2;
+      int ids = 0, id0 = -32;
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, kv0 = fa90::tile_at(i, nsink, first) * BN;
         const int nb = min(BN / R, (sk - kv0 + R - 1) / R);  // boxes below sk
-        mbar_wait(bar_empty(bars, s), ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(bar_full(bars, s), nb * box_bytes);
+        if (lane == 0) {
+          mbar_wait(bar_empty(bars, s), ((i / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar_full(bars, s), nb * box_bytes);
+        }
+        __syncwarp();  // the slot is free and its bytes announced
         const uint32_t slot = base + PL::ring_off + s * PL::SLOT;
-        for (int jb = 0; jb < nb; ++jb) {
-          const int key = kv0 + jb * R, row = key % page;
-          const int pg = min(max(tbl[key / page], 0), p.num_pages - 1);
+        for (int jg = 0; jg < nb; jg += 32) {
+          if ((kv0 + (min(jg + 32, nb) - 1) * R) / page >= id0 + 32) {  // warp-uniform
+            id0 = (kv0 + jg * R) / page;
+            ids = id0 + lane <= last_pi ? tbl[id0 + lane] : 0;
+          }
+          const int jb = jg + lane, key = kv0 + jb * R, row = key % page;
+          const int pg = min(max(__shfl_sync(0xffffffffu, ids, (key / page - id0) & 31), 0),
+                             p.num_pages - 1);
+          if (jb >= nb) continue;
           const int plane = hk * p.num_pages + pg;
           if constexpr (QUANT) {
-            tma_load_3d(slot + jb * R * RB, &tk, bar_full(bars, s), 0, row, plane);
-            tma_load_3d(slot + BN * RB + jb * R * RB, &tv, bar_full(bars, s), 0, row, plane);
             const size_t srow = (size_t)plane * page + row;
-            bulk_load(slot + 2 * BN * RB + jb * R * 4, p.k_scale + srow, R * 4, bar_full(bars, s));
-            bulk_load(slot + 2 * BN * RB + (BN + jb * R) * 4, p.v_scale + srow, R * 4,
-                      bar_full(bars, s));
+            if (cp_box) {
+              // unswizzled rows, 16-byte units (zeros past the stored row,
+              // as the TMA fills them), then the scales 4 bytes each
+              unsigned char* st = smem + PL::ring_off + s * PL::SLOT;
+              const int w = F == KV::I4 ? p.dw / 2 : p.dw;
+              for (int r = 0; r < R; ++r) {
+                const int x = jb * R + r;
+                const size_t g0 = (srow + r) * w;
+#pragma unroll
+                for (int u = 0; u < RB / 16; ++u) {
+                  const bool ok = 16 * u < w;
+                  const size_t src = ok ? g0 + 16 * u : 0;
+                  tc32::cp16(st + x * RB + 16 * u,
+                             static_cast<const unsigned char*>(p.k_pages) + src, ok);
+                  tc32::cp16(st + BN * RB + x * RB + 16 * u,
+                             static_cast<const unsigned char*>(p.v_pages) + src, ok);
+                }
+                float* sc = reinterpret_cast<float*>(st + 2 * BN * RB);
+                tc32::cp4(sc + x, p.k_scale + srow + r, true);
+                tc32::cp4(sc + BN + x, p.v_scale + srow + r, true);
+              }
+            } else {
+              tma_load_3d(slot + jb * R * RB, &tk, bar_full(bars, s), 0, row, plane);
+              tma_load_3d(slot + BN * RB + jb * R * RB, &tv, bar_full(bars, s), 0, row, plane);
+              bulk_load(slot + 2 * BN * RB + jb * R * 4, p.k_scale + srow, R * 4,
+                        bar_full(bars, s));
+              bulk_load(slot + 2 * BN * RB + (BN + jb * R) * 4, p.v_scale + srow, R * 4,
+                        bar_full(bars, s));
+            }
           } else {
+            // 128-byte chunk rows: a box of any R lands 128-byte aligned,
+            // and the 128-byte swizzle follows the shared-memory address
 #pragma unroll
             for (int ch = 0; ch < D / 64; ++ch) {
               const uint32_t at = slot + ch * (BN * 128) + jb * R * 128;
@@ -563,18 +643,19 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
           }
         }
+        if (cp_box) tc32::cp_arrive(bar_full(bars, s));  // every lane, once its copies land
       }
     }
   } else {
     regs_inc<fa90::CONSUMER_REGS>();
     const int w = wg - 1;
     consume<T, F, D>(p, smem, first, n_tiles, nsink, w == 0 ? s0 : s1, w, threadIdx.x & 127,
-                     b, hk, t0, q_len, q_start, sk);
+                     b, hk, h0, t0, q_len, q_start, sk);
   }
 }
 
 // Encode the maps and launch: q [b, sq, hq, dw] as (dw, hq, sq, b) in boxes
-// of (64, group, 2 wpos / q_boxes, 1); the pages [hkv, P, page, w] (w = dw,
+// of (64, hc, 2 wpos / q_boxes, 1); the pages [hkv, P, page, w] (w = dw,
 // or dw / 2 bytes for int4) as (w, page, hkv * P) in boxes of one page's
 // box_rows rows (16-bit: 64-column chunks, swizzled; quantized: rows of RB
 // bytes, unswizzled), the template's D wide. Returns a cudaError_t code,
@@ -585,8 +666,10 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
   using PL = Plan<D, F>;
   constexpr bool QUANT = PL::QUANT;
   if (p.dw <= 0 || p.dw > D) return MFA_BAD_CONFIG;
-  p.box_rows = PL::BN;  // gcd(page_size, BN): a power of two >= 8
+  p.box_rows = PL::BN;  // gcd(page_size, BN): a power of two, 1 to BN
   while (p.page_size % p.box_rows != 0) p.box_rows >>= 1;
+  p.k_pages = k_pages;
+  p.v_pages = v_pages;
   const CUtensorMapDataType qtype =
       kIsBf16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   CUtensorMap tq, tk, tv;
@@ -595,8 +678,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
                                 (cuuint64_t)batch};
     const cuuint64_t strides[3] = {(cuuint64_t)p.dw * 2, (cuuint64_t)p.hq * p.dw * 2,
                                    (cuuint64_t)p.sq * p.hq * p.dw * 2};
-    const cuuint32_t box[4] = {64, (cuuint32_t)p.group, (cuuint32_t)(2 * p.wpos / p.q_boxes),
-                               1};
+    const cuuint32_t box[4] = {64, (cuuint32_t)p.hc, (cuuint32_t)(2 * p.wpos / p.q_boxes), 1};
     if (int err = mfa_encode(&tq, q, qtype, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
       return err;
   }
@@ -615,7 +697,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
                                           (int)PL::bytes))
     return err;
   const int npos = 2 * p.wpos;
-  const dim3 grid(p.hkv, batch, (p.sq + npos - 1) / npos);
+  const dim3 grid(p.hkv * p.nchunks, batch, (p.sq + npos - 1) / npos);
   kern<<<grid, THREADS, PL::bytes, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -624,17 +706,19 @@ int launch(const void* q, const void* k_pages, const void* v_pages, Params p, in
 
 namespace af32 {
 
-// Kernel 8 in fp32: grid (hkv, batch, ceil(sq / wpos)), wpos = 64 / group
-// chunk positions a block; row r is position t0 + r / group of q head hk
-// group + r % group (rows past wpos group are a dead tail). F: KV::F16 =
-// fp32 pages, else the quantized format.
+// Kernel 8 in fp32: grid (hkv x head chunks, batch, ceil(sq / wpos)), wpos =
+// 64 / hc chunk positions a block; row r is position t0 + r / hc of q head
+// hk group + h0 + r % hc (pp90::tail_row: rows past wpos hc, or past the
+// group in a group's last chunk of 64 heads, are a dead tail). F: KV::F16
+// = fp32 pages, else the quantized format.
 template <int D, KV F>
 __global__ void __launch_bounds__(THREADS, TcPlan<D, F != KV::F16>::BLOCKS)
     paged_prefill_kernel(const float* __restrict__ q, const void* __restrict__ k_pages,
                          const void* __restrict__ v_pages, const pp90::Params p) {
   using PL = TcPlan<D, F != KV::F16>;
   constexpr int RM = PL::RM;
-  const int hk = blockIdx.x, b = blockIdx.y;
+  const int hk = blockIdx.x / p.nchunks, b = blockIdx.y;
+  const int h0 = (blockIdx.x % p.nchunks) * RM;  // the head chunk's first q head
   const int t0 = (gridDim.z - 1 - blockIdx.z) * p.wpos;  // last q tiles first
   const int G = p.group, sk = p.lens[b], q0 = p.q_start[b], q_len = p.q_lens[b], dw = p.dw;
   const float c = p.scale_log2e;
@@ -644,10 +728,10 @@ __global__ void __launch_bounds__(THREADS, TcPlan<D, F != KV::F16>::BLOCKS)
   if (threadIdx.x == 0) bounds_init(&bnd);
   __syncthreads();
   if (threadIdx.x < RM) {
-    const int pi = threadIdx.x / G, hq = hk * G + threadIdx.x % G, t = t0 + pi;
+    const int pi = threadIdx.x / p.hc, hq = hk * G + h0 + threadIdx.x % p.hc, t = t0 + pi;
     Row r{};
     r.rid = -1;
-    if (pi < p.wpos && t < p.sq) {
+    if (!pp90::tail_row(p, h0, threadIdx.x) && t < p.sq) {
       const size_t qrow = ((size_t)b * p.sq + t) * p.hq + hq;
       r.q = q + qrow * dw;
       r.o = static_cast<float*>(p.out) + qrow * dw;
@@ -706,7 +790,7 @@ int launch_paged_prefill(const void* q, const void* k_pages, const void* v_pages
   if (int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                                           100))
     return err;
-  const dim3 grid(p.hkv, batch, (p.sq + p.wpos - 1) / p.wpos);
+  const dim3 grid(p.hkv * p.nchunks, batch, (p.sq + p.wpos - 1) / p.wpos);
   kern<<<grid, THREADS, PL::bytes, stream>>>(static_cast<const float*>(q), k_pages, v_pages, p);
   return (int)cudaGetLastError();
 }
@@ -716,9 +800,10 @@ int launch_paged_prefill(const void* q, const void* k_pages, const void* v_pages
 // q_dtype: the q/out dtype (quantized pages take bf16 or fp32 q); kv_dtype:
 // the 16-bit or fp32 pages' dtype code (the q dtype), or the format code
 // MFA_I8, MFA_E4M3, MFA_I4.
-// group = hq / hkv from 1 to 64 (a consumer warpgroup's 64 rows hold
-// 64 / group chunk positions, rounded down, of every q head of one kv
-// head); page_size a multiple of 8. d: features of q's and a stored page
+// group = hq / hkv, any (a consumer warpgroup's 64 rows hold 64 / group
+// chunk positions, rounded down, of every q head of one kv head; above 64
+// one position of 64 q heads, the grid taking ceil(group / 64) head
+// chunks); page_size any row count. d: features of q's and a stored page
 // row (int4: 2 a byte), a multiple of 8 (16-bit), 16 (int8, fp8) or 32
 // (int4) up to 256, run at the instantiated D kd. Returns a cudaError_t
 // code.
@@ -732,13 +817,14 @@ extern "C" int mfa_paged_prefill(const void* q, const void* k_pages, const void*
                                  int sinks, const float* slopes, void* stream) {
   if (batch == 0 || sq == 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
-  if (group <= 0 || group > fa90::WG_M || page_size <= 0 || page_size % 8 != 0)
-    return MFA_BAD_CONFIG;
+  if (group <= 0 || hq != group * hkv || page_size <= 0) return MFA_BAD_CONFIG;
+  const int hc = group < fa90::WG_M ? group : fa90::WG_M;
   const pp90::Params p{lens,      q_start, q_lens, table,     k_scale,    v_scale,
                        out,       lse,     sq,     hq,        hkv,        group,
                        num_pages, page_size, pps,  0,         window_left, window_right,
-                       scale_log2e, softcap, softcap_mul, fa90::WG_M / group,
-                       fa90::WG_M % group ? 2 : 1, sinks,  slopes,      d};
+                       scale_log2e, softcap, softcap_mul, hc,
+                       (group + fa90::WG_M - 1) / fa90::WG_M, fa90::WG_M / hc,
+                       fa90::WG_M % hc ? 2 : 1, sinks,  slopes,      d, k_pages, v_pages};
   if (!mfa_dims_fit(d, kd)) return MFA_BAD_CONFIG;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFA_PP(T, F)                                                       \

@@ -2,10 +2,11 @@
 
 Kernel 6 of the port: csrc/paged.cu on kernel 5's tile
 (csrc/decode_sm90.cuh): one block per (sequence, kv head, split) reads that
-sequence's pages in place, one TMA box per page through block_table
-(bf16/fp16 pages, or int8, fp8 (e4m3) or int4 pages with fp32 per-row
-scales, converted exactly to bf16 in registers), and runs both products
-on the tensor cores. One split writes the final output and LSE;
+sequence's pages in place, TMA boxes of gcd(page_size, 64) rows through
+block_table (bf16/fp16 pages, or int8, fp8 (e4m3) or int4 pages with fp32
+per-row scales, converted exactly to bf16 in registers), and runs both
+products on the tensor cores. Pages of any row count (int4: an even
+one, as the cache makes them). One split writes the final output and LSE;
 more write fp32 partials that kernel 5's combine launch merges. A CPU
 tensor runs `_paged_plain`, the same function in PyTorch;
 `_paged_split_plain` is the kernel's split route in PyTorch.
@@ -249,10 +250,6 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
     hkv, num_pages, page, _ = k_pages.shape
     group = num_heads // hkv
     plan = head_dim_plan(d_true, quant_dtype)
-    if page % 8:
-        raise NotImplementedError(
-            f"the paged kernel takes pages of a multiple of 8 rows (one "
-            f"swizzled TMA box), got {page}")
     qk = quant_q(q4, k_pages, quant_dtype, "paged")
     if v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages dtypes differ")

@@ -4,12 +4,15 @@ Kernel 8 of the port: csrc/paged_prefill.cu. Query chunks attend to a
 paged KV cache read in place through the block table, with a runtime
 `q_start` per sequence: chunked prefill, prefix-cache suffixes and the
 paged route of `flash_attn_varlen_func`. One warp-specialised wgmma block
-per (q tile, kv head, sequence) holds two consumer warpgroups of 64 rows:
-64 / group chunk positions each (rounded down) of every q head of the kv
-head (the TPU's [group, bq] rows), with K and V brought by TMA one box per
-page through the block table. Any group of 1 to 64 q heads a kv head: one
-that does not divide 64 (Qwen2-7B's 7) leaves 64 % group dead tail rows a
-warpgroup, which are never stored.
+per (q tile, kv head, head chunk, sequence) holds two consumer warpgroups
+of 64 rows: 64 / group chunk positions each (rounded down) of every q head
+of the kv head (the TPU's [group, bq] rows), with K and V brought by TMA
+in boxes of gcd(page_size, tile) rows through the block table. Any group
+of q heads a kv head: one that does not divide 64 (Qwen2-7B's 7) leaves
+64 % group dead tail rows a warpgroup, which are never stored; above 64
+(Falcon-7B's 71) a warpgroup holds 64 q heads of one position, the grid
+takes ceil(group / 64) head chunks, and the last chunk's rows past the
+group are that dead tail.
 A CPU tensor runs `_paged_prefill_plain`, the same function in PyTorch.
 
 Pages are [num_kv_heads, num_pages, page_size, w]: rows of w features
@@ -20,9 +23,8 @@ head_dim up to 256: q is zero-padded to the pages' width and the output
 sliced back; the softmax scale is the true head_dim's. int8, fp8 (e4m3) and int4 pages carry
 fp32 per-row scales. With a left window the first `sink_tokens` columns
 stay visible (the kernel lists their tiles ahead of the band); ALiBi uses
-the chunk's absolute positions. The
-kernel takes pages of a multiple of 8 rows (a TMA box of fewer breaks the
-128-byte swizzle); others are refused on the card. fp32 q runs the fp32
+the chunk's absolute positions. Pages
+of any row count (int4: an even one). fp32 q runs the fp32
 tile (csrc/paged_prefill.cu: af32::paged_prefill_kernel, 64 packed rows a
 block; launch name `paged_prefill_fp32`) on fp32 pages, or on quantized
 pages with q . k in fp32 and p rounded to bf16 for P.V.
@@ -49,8 +51,6 @@ _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 11 + [_I] * 13 + [_F, _F, _F, _I, _P, _P]
-GROUP_ROWS = 64  # q rows per consumer warpgroup: the most q heads a kv head
-PAGE_ROWS = 8    # page sizes the kernel takes are multiples of this
 
 
 def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
@@ -130,20 +130,12 @@ def _paged_prefill_plain(q, k_pages, v_pages, k_scales, v_scales, lens,
 def cuda_plan(q, k_pages, quant_dtype=None):
     """What the card's route checks before it touches a device or a
     kernel -> the head-dim plan: any head_dim up to 256 (ValueError
-    above), a q-per-kv-head group of 1 to GROUP_ROWS and pages of a
-    multiple of PAGE_ROWS rows (NotImplementedError otherwise)."""
+    above) and num_heads a multiple of num_kv_heads, as mfa_tpu checks;
+    any group and page size."""
     num_heads, d = q.shape[2], q.shape[3]
-    hkv, page = k_pages.shape[0], k_pages.shape[2]
-    plan = head_dim_plan(d, quant_dtype)
-    if not 1 <= num_heads // hkv <= GROUP_ROWS:
-        raise NotImplementedError(
-            f"the paged prefill kernel takes a q-per-kv-head group of 1 to "
-            f"{GROUP_ROWS}, got {num_heads // hkv}")
-    if page % PAGE_ROWS:
-        raise NotImplementedError(
-            f"the paged prefill kernel takes pages of a multiple of "
-            f"{PAGE_ROWS} rows, got {page}")
-    return plan
+    if num_heads % k_pages.shape[0]:
+        raise ValueError("num_heads must be divisible by num_kv_heads")
+    return head_dim_plan(d, quant_dtype)
 
 
 def _paged_prefill_cuda(q, k_pages, v_pages, k_scales, v_scales, lens,

@@ -271,17 +271,23 @@ def test_paged_prefill_groups_not_dividing_64_match_jax(group, hkv, pages, softc
         assert torch.all(to[i, r:] == 0) and torch.isneginf(tlse[i, :, r:]).all()
 
 
-def test_paged_prefill_card_route_takes_groups_up_to_64():
-    """The card's route refuses a group past the kernel's 64 rows a
-    warpgroup before any launch (meta tensors: nothing is built or run);
-    groups that do not divide 64 pass its check."""
-    from mfa_tpu_torch.kernels import paged_prefill
+def test_paged_prefill_card_route_takes_groups_up_to_64(monkeypatch):
+    """The card's route takes any q-per-kv-head group, past the kernel's 64
+    rows a warpgroup too (head chunks), and groups that do not divide 64:
+    each records its launch (meta tensors: nothing is built or run; the C
+    launch replaced by a stub that reports success)."""
+    from mfa_tpu_torch.kernels import _build, paged_prefill
 
-    assert paged_prefill.GROUP_ROWS == 64
+    monkeypatch.setattr(_build, "function", lambda lib, name, argtypes: lambda *a: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
     pages = torch.empty(1, 3, 16, 128, dtype=torch.bfloat16, device="meta")
     ints = torch.empty(1, dtype=torch.int32, device="meta")
     table = torch.empty(1, 1, dtype=torch.int32, device="meta")
-    q = torch.empty(1, 8, 65, 128, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="group of 1 to 64"):
-        paged_prefill._paged_prefill_cuda(q, pages, pages, None, None, ints, ints, ints,
-                                          table, 0.1, -1, 0, 0.0)
+    for group in (7, 64, 65, 71, 128):
+        q = torch.empty(1, 8, group, 128, dtype=torch.bfloat16, device="meta")
+        _build.reset_launches()
+        out, lse = paged_prefill._paged_prefill_cuda(q, pages, pages, None, None, ints,
+                                                     ints, ints, table, 0.1, -1, 0, 0.0)
+        assert out.shape == q.shape and lse.shape == (1, group, 8)
+        assert dict(_build.launches) == {"paged_prefill": 1}
+    _build.reset_launches()

@@ -154,8 +154,8 @@ def test_paged_decode_accepts_fp32(recorder, d, fmt):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_paged_prefill_accepts_fp32(recorder, d, fmt):
     """Kernel 8 takes fp32 q on fp32 pages and on every quantized format, at
-    groups 1-64 (the page-of-12-rows refusal stays)."""
-    for hq, hkv in ((8, 2), (7, 1), (64, 1)):
+    any group (65 and 71: head chunks) and on pages of any row count."""
+    for hq, hkv in ((8, 2), (7, 1), (64, 1), (65, 1), (142, 2)):
         recorder.clear()
         _build.reset_launches()
         kp, vp, ks, vs = _pages(fmt, hkv, 12, 16, d)
@@ -169,11 +169,17 @@ def test_paged_prefill_accepts_fp32(recorder, d, fmt):
         assert fname == "mfa_paged_prefill"
         assert args[11] == F32_CODE and args[12] == _build.kv_code(fmt, kp)
         assert dict(_build.launches) == {"paged_prefill_fp32": 1}
-    kp, vp, ks, vs = _pages(fmt, 2, 12, 12, d)
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        paged_prefill._paged_prefill_cuda(meta(1, 8, 8, d), kp, vp, ks, vs,
-                                          ints[:1], ints[:1], ints[:1],
-                                          table[:1], 0.1, -1, 0, 0.0, fmt)
+    for page in (2, 4, 12) if fmt == "int4" else (1, 4, 12):
+        recorder.clear()
+        _build.reset_launches()
+        kp, vp, ks, vs = _pages(fmt, 2, 12, page, d)
+        out, lse = paged_prefill._paged_prefill_cuda(meta(1, 8, 8, d), kp, vp, ks, vs,
+                                                     ints[:1], ints[:1], ints[:1],
+                                                     table[:1], 0.1, -1, 0, 0.0, fmt)
+        assert out.dtype == torch.float32 and out.shape == (1, 8, 8, d)
+        (lib, fname, args), = recorder
+        assert args[18] == page  # page_size
+        assert dict(_build.launches) == {"paged_prefill_fp32": 1}
 
 
 def _bwd_route(launch, d, sinks=0, offset=0, alibi=False, group=4):

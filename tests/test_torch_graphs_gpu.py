@@ -48,16 +48,16 @@ def _assert_same_state(a, b):
             assert torch.equal(as_bytes(x), as_bytes(y)), f
 
 
-def _prefilled(cfg, params, quant, lens):
+def _prefilled(cfg, params, quant, lens, page=PAGE, pps=PPS):
     """A cache with len(lens) rows prefilled to `lens` tokens, every table
     entry of every row mapped; -> (cache, slots, first tokens)."""
     from mfa_tpu_torch.models import llama
 
     gen = torch.Generator().manual_seed(1)
     n = len(lens)
-    cache = llama.build_kv_caches(cfg, n * PPS + 1, PAGE, 4, PPS, quant,
+    cache = llama.build_kv_caches(cfg, n * pps + 1, page, 4, pps, quant,
                                   device="cuda")
-    pages = [list(range(1 + i * PPS, 1 + (i + 1) * PPS)) for i in range(n)]
+    pages = [list(range(1 + i * pps, 1 + (i + 1) * pps)) for i in range(n)]
     prompts = [torch.randint(0, cfg.vocab_size, (ln,), generator=gen).tolist()
                for ln in lens]
     cache, logits = llama.prefill_batch(params, cfg, cache, list(range(n)),
@@ -145,6 +145,46 @@ def test_replay_matches_eager(model, weights, quant):
     print(f"max |graph - eager| logits per replay: {diffs}")
     assert diffs == [0.0] * 4
     assert cache.lengths[:2].tolist() == [PAGE + 4, _split_lens()[1] + 5]
+
+
+@pytest.mark.parametrize("quant,page", [("int8", 12), (None, 12), ("int8", 1)])
+def test_page_rows_replay_matches_eager(model, quant, page):
+    """Pages of 12 rows (boxes of 4) and of 1 row (int8: rows and scales by
+    cp.async), pages a sequence scaled so that a sequence spans 4096
+    tokens as at PAGE: four replays, row 0 crossing a page boundary and row
+    1 the paged kernel's split point, equal the eager steps bit for bit
+    (tokens, logits, the cache's bytes)."""
+    from mfa_tpu_torch.kernels import _build, paged
+    from mfa_tpu_torch.kernels.paged import launch_name
+    from mfa_tpu_torch.models import llama
+
+    cfg, ps = model
+    params = ps["bf16"]
+    pps = PAGE * PPS // page + 1
+    splits, tps = paged.split_plan(2, 8, pps, page)
+    assert splits > 1
+    lens = [5 * page - 1 if page > 1 else 100, tps - 1]
+    cache, slots, tokens = _prefilled(cfg, params, quant, lens, page, pps)
+    ref = _clone(cache)
+    g = _graphs(cfg, params)
+    g.burst(cache, slots, tokens, 1)  # eager first step + capture
+    _, logits = llama.decode_step(params, cfg, ref, slots, tokens)
+    tok, ref_tok = g.buckets[2].tokens.clone(), logits.argmax(-1)
+    for step in range(4):
+        _build.reset_launches()
+        _, logits = llama.decode_step(params, cfg, ref, slots, ref_tok)
+        eager = collections.Counter(_build.launches)
+        _build.reset_launches()
+        toks, _ = g.burst(cache, slots, tok, 1)
+        replayed = collections.Counter(_build.launches)
+        torch.cuda.synchronize()
+        ref_tok, tok = logits.argmax(-1), toks[0]
+        assert torch.equal(g.buckets[2].logits, logits), step
+        assert torch.equal(tok, ref_tok) and replayed == eager
+        assert eager[launch_name("paged", quant)] == cfg.n_layers
+        _assert_same_state(cache, ref)
+    del cache, ref, g
+    torch.cuda.empty_cache()
 
 
 def test_moe_replay_matches_eager():

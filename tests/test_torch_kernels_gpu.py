@@ -355,17 +355,134 @@ def test_paged_kernel_multiquery(dev, span, group, d, quant, pos_offset, window,
             _close(o[:, si], lse[:, si], o1, l1)
 
 
-def test_paged_kernel_refuses_pages_off_8_rows(dev):
-    """A page that is not a multiple of 8 rows cannot keep the swizzle in
-    one TMA box: the kernel does not take it, and the wrapper says so."""
-    from mfa_tpu_torch.kernels import paged
+# pages of every row count: boxes of gcd(page, 64) rows (kernel 8: gcd(page,
+# 128)), quantized boxes of fewer than 4 rows by cp.async
+ROW_PAGES = [(q, p) for q in (None, "int8", "fp8") for p in (1, 2, 4, 6, 12, 24)] + [
+    ("int4", p) for p in (2, 4, 6, 12, 24)]
 
-    q = torch.zeros(1, 4, 64, dtype=BF, device=dev)
-    pages = torch.zeros(2, 3, 12, 64, dtype=BF, device=dev)
-    lens = torch.tensor([10], dtype=torch.int32, device=dev)
-    table = torch.tensor([[1]], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        paged.paged_attention(q, pages, pages, lens, table)
+
+def _any_rows_pages(gen, hkv, P, page, d, quant, dtype):
+    kf = _rn(gen, hkv, P, page, d, dtype=dtype)
+    vf = _rn(gen, hkv, P, page, d, dtype=dtype)
+    return _pages(kf, vf, quant)
+
+
+def _any_rows_close(o, lse, ro, rl, quant, dtype):
+    if dtype == torch.float32:
+        (_close32 if quant is None else _close_quant32)(o, lse, ro, rl)
+    else:
+        _close(o, lse, ro, rl)
+        assert (o.float() - ro.float()).abs().mean() < 2e-3
+
+
+@pytest.mark.parametrize("span", [1, 4])
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("quant,page", ROW_PAGES)
+def test_paged_kernel_pages_of_any_rows(dev, quant, page, d, dtype, span):
+    """Kernel 6 on pages of 1-24 rows, every format, bf16 and fp32 q, q_span
+    1 and 4: 3 sink tokens and a window of 37 whose edge falls inside a
+    page, rows past each length poisoned (NaN, NaN scales, 0x7F fp8 codes),
+    against the plain version on the pages before the poisoning."""
+    from mfa_tpu_torch.kernels import _build, paged
+
+    gen = torch.Generator(device=dev).manual_seed(page + d)
+    hq, hkv, window, sinks = 8, 2, 37, 3
+    lens = [300, 0, 29, 130]
+    b, pps = len(lens), 400 // page + 1
+    P = b * pps + 3
+    q = _rn(gen, b, span, hq, d, dtype=dtype)
+    kp, vp, ks, vs = _any_rows_pages(gen, hkv, P, page, d, quant, dtype)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(window_left=window, pos_offset=span, sink_tokens=sinks,
+              quant_dtype=quant)
+    q_ref = q if dtype == torch.float32 else q.float()
+    ro, rl = paged._paged_plain(q_ref, kp, vp, ks, vs, L, table, d ** -0.5, window,
+                                0.0, span, quant, sinks)
+    _poison_past(kp, vp, ks, vs, quant, table, lens, page)
+    _build.reset_launches()
+    o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
+                                   return_lse=True, **kw)
+    assert _build.launches[paged.launch_name("paged", quant, span, dtype)] == 1
+    _any_rows_close(o, lse, ro, rl, quant, dtype)
+    assert torch.all(o[1] == 0) and torch.isneginf(lse[1]).all()
+
+
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+@pytest.mark.parametrize("quant", [None, "int8", "fp8", "int4"])
+def test_paged_kernel_splits_cut_pages(dev, monkeypatch, quant, dtype):
+    """Pages of 12 rows through 3 splits of 128 tokens: the boundaries cut
+    pages 10 and 21 in two, and each row is read by exactly the split
+    that holds it (against the plain split route and the one-pass plain
+    version)."""
+    from mfa_tpu_torch.kernels import decode, paged
+
+    monkeypatch.setattr(paged, "split_plan",
+                        lambda b, hkv, pps, page: decode.split_layout(pps * page, 3))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    hq, hkv, d, page, pps = 8, 2, 128, 12, 32
+    lens = [380, 200, 129, 0]
+    b = len(lens)
+    P = b * pps + 3
+    q = _rn(gen, b, hq, d, dtype=dtype)
+    kp, vp, ks, vs = _any_rows_pages(gen, hkv, P, page, d, quant, dtype)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (L, table, d ** -0.5, -1, 0.0, 1)
+    q_ref = q if dtype == torch.float32 else q.float()
+    ro, rl = paged._paged_plain(q_ref, kp, vp, ks, vs, *args, quant_dtype=quant)
+    so, sl = paged._paged_split_plain(q_ref, kp, vp, ks, vs, *args, num_splits=3,
+                                      quant_dtype=quant)
+    _poison_past(kp, vp, ks, vs, quant, table, lens, page)
+    o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
+                                   pos_offset=1, quant_dtype=quant, return_lse=True)
+    _any_rows_close(o, lse, ro, rl, quant, dtype)
+    _any_rows_close(o, lse, so, sl, quant, dtype)
+
+
+@pytest.mark.parametrize("row_bytes,swizzle,box_rows", [
+    (128, 128, 1), (128, 128, 2), (128, 128, 4),  # 16-bit / fp32 chunks, int8 d 128
+    (64, 64, 2), (64, 64, 4),                     # int8 d 64, int4 d 128 (kernel 6)
+    (128, 0, 1), (64, 0, 2), (32, 0, 4),          # kernel 8's unswizzled staging
+])
+def test_tma_boxes_under_8_rows(dev, row_bytes, swizzle, box_rows):
+    """A tile of 64 rows loaded as boxes of 1, 2 or 4 rows, from every row
+    offset 0-7 of the source, lies in shared memory byte for byte as one
+    8-row box leaves it: the swizzle XORs address bits 4-6 with bits 7-9
+    (64 B: bits 4-5 with 7-8) of the shared-memory address, wherever a box
+    starts. A box whose bytes are not a multiple of 128 would start off
+    the 128-byte alignment the TMA needs (a fault: 1 row of 64 bytes, 1 or
+    2 of 32); the probe refuses those, and the kernels copy such boxes by
+    cp.async."""
+    import ctypes
+
+    from mfa_tpu_torch.kernels import _build
+
+    fn = _build.function("paged", "mfa_tma_box_probe",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    rows, total = 64, 72
+    gen = torch.Generator(device=dev).manual_seed(row_bytes + box_rows)
+    src = torch.randint(0, 256, (total, row_bytes), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    addr = torch.arange(rows * row_bytes, device=dev)
+    mask = {128: 7, 64: 3, 0: 0}[swizzle]
+    logical = addr ^ (((addr >> 7) & mask) << 4)
+    for r0 in range(8):
+        outs = []
+        for r in (8, box_rows):
+            out = torch.zeros(rows * row_bytes, dtype=torch.uint8, device=dev)
+            _build.check("paged", fn(src.data_ptr(), out.data_ptr(), total, rows,
+                                     row_bytes, r0, r, swizzle, _build.stream_of(src)))
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], src.view(-1)[r0 * row_bytes + logical]), r0
+        assert torch.equal(outs[1], outs[0]), r0
+    bad = torch.zeros(rows * row_bytes, dtype=torch.uint8, device=dev)
+    assert fn(src.data_ptr(), bad.data_ptr(), total, rows, 64, 0, 1, 64,
+              _build.stream_of(src)) == 9999  # MFA_BAD_CONFIG: 64 bytes a box
 
 
 def test_launch_counts_and_misaligned_views(dev):
@@ -619,17 +736,83 @@ def test_paged_prefill_edges(dev, hq, hkv, page, d, quant, dtype, q_start, sq, l
     assert torch.isneginf(lse.transpose(1, 2)[dead]).all()
 
 
-def test_paged_prefill_refuses_pages_under_8_rows(dev):
-    """A page of fewer than 8 rows cannot be one 128-byte-swizzled TMA box:
-    the kernel does not take it, and the wrapper says so."""
-    from mfa_tpu_torch.kernels import paged_prefill
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("quant,page", ROW_PAGES)
+def test_paged_prefill_pages_of_any_rows(dev, quant, page, d, dtype):
+    """Kernel 8 on pages of 1-24 rows, every format, bf16 and fp32 q: a
+    window of 40 whose edge falls inside a page with 3 sink tokens, rows
+    past q_lens, rows past each length poisoned, against the plain version
+    on the pages before the poisoning."""
+    from mfa_tpu_torch.kernels import _build, paged, paged_prefill
 
-    q = torch.zeros(1, 4, 4, 64, dtype=BF, device=dev)
-    pages = torch.zeros(2, 3, 4, 64, dtype=BF, device=dev)
-    lens = torch.tensor([4], dtype=torch.int32, device=dev)
-    table = torch.tensor([[1]], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        paged_prefill.paged_prefill_attention(q, pages, pages, lens, lens * 0, table)
+    gen = torch.Generator(device=dev).manual_seed(page + d + 1)
+    hq, hkv, sq = 8, 2, 70
+    q_start, lens, q_lens = [100, 0, 7], [170, 50, 77], [70, 45, 70]
+    b, pps = len(lens), 200 // page + 1
+    P = b * pps + 3
+    q = _rn(gen, b, sq, hq, d, dtype=dtype)
+    kp, vp, ks, vs = _any_rows_pages(gen, hkv, P, page, d, quant, dtype)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L, qs, ql = (torch.tensor(x, dtype=torch.int32, device=dev)
+                 for x in (lens, q_start, q_lens))
+    q_ref = q if dtype == torch.float32 else q.float()
+    ro, rl = paged_prefill._paged_prefill_plain(
+        q_ref, kp, vp, ks, vs, L, qs, ql, table, d ** -0.5, 40, 0, 0.0,
+        quant_dtype=quant, sinks=3)
+    _poison_past(kp, vp, ks, vs, quant, table, lens, page)
+    _build.reset_launches()
+    o, lse = paged_prefill.paged_prefill_attention(
+        q, kp, vp, L, qs, table, q_lens=ql, k_scales=ks, v_scales=vs, causal=True,
+        window_left=40, sink_tokens=3, quant_dtype=quant, return_lse=True)
+    assert _build.launches[paged.launch_name("paged_prefill", quant, 1, dtype)] == 1
+    _any_rows_close(o, lse, ro, rl, quant, dtype)
+    dead = torch.arange(sq, device=dev)[None] >= ql[:, None]
+    assert torch.equal(o.float()[dead], torch.zeros_like(o.float()[dead]))
+    assert torch.isneginf(lse.transpose(1, 2)[dead]).all()
+
+
+@pytest.mark.parametrize("hq,hkv,quant,dtype,page", [
+    (130, 2, None, BF, 64),                  # group 65
+    (71, 1, None, BF, 64), (71, 1, "int8", BF, 64), (71, 1, "fp8", BF, 12),
+    (71, 1, None, torch.float32, 12), (71, 1, "int8", torch.float32, 64),
+    (96, 1, "int4", BF, 16), (96, 1, None, torch.float32, 1),
+    (128, 1, "int8", BF, 1), (256, 2, None, BF, 6),    # group 128
+])
+def test_paged_prefill_groups_above_64(dev, hq, hkv, quant, dtype, page):
+    """Kernel 8 above 64 q heads a kv head (a warpgroup holds 64 heads of one
+    position; the grid takes ceil(group / 64) head chunks, the last one's
+    rows past the group a dead tail), d 64, with ALiBi, rows past q_lens
+    and rows past each length poisoned, against the plain version."""
+    from mfa_tpu_torch.kernels import _build, paged, paged_prefill
+
+    gen = torch.Generator(device=dev).manual_seed(hq + page)
+    d, sq = 64, 40
+    q_start, lens, q_lens = [60, 0], [100, 33], [40, 30]
+    b, pps = len(lens), 120 // page + 1
+    P = b * pps + 3
+    q = _rn(gen, b, sq, hq, d, dtype=dtype)
+    kp, vp, ks, vs = _any_rows_pages(gen, hkv, P, page, d, quant, dtype)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L, qs, ql = (torch.tensor(x, dtype=torch.int32, device=dev)
+                 for x in (lens, q_start, q_lens))
+    slopes = _alibi(hq, dev)
+    q_ref = q if dtype == torch.float32 else q.float()
+    ro, rl = paged_prefill._paged_prefill_plain(
+        q_ref, kp, vp, ks, vs, L, qs, ql, table, d ** -0.5, -1, 0, 0.0,
+        quant_dtype=quant, alibi=slopes)
+    _poison_past(kp, vp, ks, vs, quant, table, lens, page)
+    _build.reset_launches()
+    o, lse = paged_prefill.paged_prefill_attention(
+        q, kp, vp, L, qs, table, q_lens=ql, k_scales=ks, v_scales=vs, causal=True,
+        quant_dtype=quant, alibi_slopes=slopes, return_lse=True)
+    assert _build.launches[paged.launch_name("paged_prefill", quant, 1, dtype)] == 1
+    _any_rows_close(o, lse, ro, rl, quant, dtype)
+    dead = torch.arange(sq, device=dev)[None] >= ql[:, None]
+    assert torch.equal(o.float()[dead], torch.zeros_like(o.float()[dead]))
+    assert torch.isneginf(lse.transpose(1, 2)[dead]).all()
 
 
 # ---------------- image-block prefill (kernels/blockmask.py) ----------------

@@ -125,8 +125,8 @@ def test_paged_rejects_what_is_not_ported(monkeypatch):
                alibi_slopes=t(np.ones(q.shape[1], np.float32)))
     with pytest.raises(ValueError):
         paged_attention(*args, pos_offset=1, window_left=0)
-    # the card's route, on meta tensors (nothing built or run): pages off 8
-    # rows stay refused at any head_dim, fp32 q and pages are taken (the C
+    # the card's route, on meta tensors (nothing built or run): pages of
+    # any row count at any head_dim, and fp32 q and pages, are taken (the C
     # launch replaced by a stub that reports success)
     from mfa_tpu_torch.kernels import _build, paged
 
@@ -141,8 +141,11 @@ def test_paged_rejects_what_is_not_ported(monkeypatch):
         return q, pages, pages, None, None, ints, table, 0.1, -1, 0.0, 0
 
     for d in (80, 128):
-        with pytest.raises(NotImplementedError, match="multiple of 8"):
-            paged._paged_cuda(*meta(d, 12, torch.bfloat16))
+        for page in (1, 4, 12):
+            _build.reset_launches()
+            out, lse = paged._paged_cuda(*meta(d, page, torch.bfloat16))
+            assert out.dtype == torch.bfloat16 and out.shape == (2, 8, d)
+            assert _build.launches["paged"] == 1
         _build.reset_launches()
         out, lse = paged._paged_cuda(*meta(d, 16, torch.float32))
         assert out.dtype == torch.float32 and out.shape == (2, 8, d)

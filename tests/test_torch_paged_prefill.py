@@ -67,10 +67,10 @@ def test_paged_prefill_head_dim_256(name):
 
 def test_paged_prefill_head_dim_plan_without_running():
     """The card's route checks its inputs before any launch, on meta
-    tensors (nothing is built or run): head_dim 96 now passes (kernel 8
-    runs it at D 128 on rows of 96), 257 raises ValueError as mfa_tpu does,
-    and what stays unported still raises: more than 64 q heads a kv head,
-    pages off 8 rows."""
+    tensors (nothing is built or run): head_dim 96 passes (kernel 8 runs it
+    at D 128 on rows of 96), 257 raises ValueError as mfa_tpu does, and so
+    does a q head count that is not a multiple of the kv heads'; more than
+    64 q heads a kv head and pages of any row count pass."""
     from mfa_tpu_torch.kernels import paged_prefill
 
     def meta(d, hq=8, hkv=2, page=16):
@@ -82,10 +82,12 @@ def test_paged_prefill_head_dim_plan_without_running():
     assert (plan.kernel_dim, plan.stored, plan.padded) == (128, 96, False)
     with pytest.raises(ValueError, match="head_dim"):
         paged_prefill.cuda_plan(*meta(257))
-    with pytest.raises(NotImplementedError, match="group"):
-        paged_prefill.cuda_plan(*meta(96, hq=65, hkv=1))
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        paged_prefill.cuda_plan(*meta(96, page=12))
+    with pytest.raises(ValueError, match="divisible"):
+        paged_prefill.cuda_plan(*meta(96, hq=65, hkv=2))
+    for kw in (dict(hq=65, hkv=1), dict(hq=142, hkv=2), dict(page=1),
+               dict(page=4), dict(page=12)):
+        plan = paged_prefill.cuda_plan(*meta(96, **kw))
+        assert (plan.kernel_dim, plan.stored) == (128, 96)
 
 
 def _check(spec, seed, d):
@@ -156,9 +158,9 @@ def test_paged_prefill_rejects_what_is_not_ported(monkeypatch):
         paged_prefill_attention(*args, k_scales=torch.ones(kp.shape[:3]),
                                 v_scales=torch.ones(kp.shape[:3]))
     # the card's route, on meta tensors (nothing built or run): more than 64
-    # q heads a kv head and pages off 8 rows stay refused at any head_dim,
-    # fp32 q and pages are taken (the C launch replaced by a stub that
-    # reports success)
+    # q heads a kv head and pages of any row count are taken at any
+    # head_dim, and so are fp32 q and pages (the C launch replaced by a stub
+    # that reports success)
     from mfa_tpu_torch.kernels import _build, paged_prefill
 
     monkeypatch.setattr(_build, "function", lambda lib, name, argtypes: lambda *a: 0)
@@ -173,10 +175,12 @@ def test_paged_prefill_rejects_what_is_not_ported(monkeypatch):
                 0, 0.0)
 
     for d in (80, 128):
-        with pytest.raises(NotImplementedError, match="group"):
-            paged_prefill._paged_prefill_cuda(*meta(d, hq=65))
-        with pytest.raises(NotImplementedError, match="multiple of 8"):
-            paged_prefill._paged_prefill_cuda(*meta(d, page=12))
+        for kw in (dict(hq=65), dict(hq=71), dict(page=1), dict(page=4),
+                   dict(page=12)):
+            _build.reset_launches()
+            out, lse = paged_prefill._paged_prefill_cuda(*meta(d, **kw))
+            assert out.shape == (1, 8, kw.get("hq", 8), d)
+            assert _build.launches["paged_prefill"] == 1
         _build.reset_launches()
         out, lse = paged_prefill._paged_prefill_cuda(*meta(d, dtype=torch.float32))
         assert out.dtype == torch.float32 and out.shape == (1, 8, 8, d)
