@@ -75,7 +75,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    fp32 version, TF32 off: kernels 1, 2 + 3 and 3 alone at the 8B wave and
    a 4096-token prompt (0 flags on benign inputs; on std-1e3 and shifted
    ones the plain version's flags, > 0, and every flagged tile equal to
-   kernel 1 bit for bit), kernel 4 at d 64 and BASELINE's first config,
+   kernel 1 bit for bit), kernel 4 at d 64 and BASELINE's first config
+   (and on std-1e3 and shifted inputs against an fp64 reference),
    kernel 5 and the combine at b16 S8192, kernel 6 with fp32 q on fp32,
    int8, fp8 and int4 pages, kernel 7 packed and ragged, kernel 8 at the
    chunk batch on every page format, kernel 9 at Gemma3-4B's image wave;
@@ -98,6 +99,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    flash_attn_varlen_func packed and paged, flash_attn_with_kvcache
    contiguous and paged, and the gradient functions flash_attn_func_grad,
    flash_attention_bwd(fused=False), flash_attn_varlen_func_grad); the
+   per-layer paged KV cache (layer_cache: create_cache, write_prompt,
+   map_page, append_token under kernel 6 for 16 sequences of 200-4000
+   tokens and 32 steps, at Llama-3-8B's and H2O-Danube's attention widths,
+   pages of 64 and 16, bf16 / int8 / fp8 / int4, each step against the
+   plain version, then the card's pages and scales against the CPU's
+   writes of the same K/V: none may differ); the
    serving engine at Llama-3-8B width (32 layers, random bf16 weights from
    a seed, int8 paged KV, page 64) answering 16 requests of 200-256 prompt
    tokens and 32 new tokens each (every engine's decode steps replay the
@@ -112,7 +119,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    short ones, on int8, then int4, then fp8 KV; then the first engine's traffic with run(burst=8,
    pipeline=False) and run(burst=8) (up to 8 decode steps a readback, two
    bursts in flight): tokens identical to the stepwise engine's, every
-   page returned, nothing in flight; then, with the same weights and the
+   page returned, nothing in flight; then the 8B's width cut to 4 layers
+   on a 40-page int8 pool with the prefix cache (engine_8b_pressure):
+   idle prefix pages evicted and requests preempted, stepwise and with
+   run(burst=8), every request at its length and every page accounted
+   for; then, with the same weights and the
    engines freed, three
    SGD train steps of the full 32-layer model on 4 x 2049 tokens with
    remat (every layer's backward through the fused backward kernel); then,
@@ -2337,6 +2348,94 @@ def burst_engine_phase(counts, ident, state):
     return ok
 
 
+def pressure_engine_phase(counts, ident):
+    """Eviction and preemption on the card: Llama-3-8B's width (hq 32, hkv 8,
+    d 128, vocab 128256) cut to 4 layers, random bf16 weights from a seed,
+    int8 KV pages of 64, the prefix cache on, a pool of 40 pages. A
+    1100-token prompt runs first and leaves 17 idle prefix pages; then 6
+    prompts of 300-600 tokens with 160 new tokens each need more pages than
+    are free, so admission evicts idle prefix pages and decode preempts the
+    youngest requests, which re-prefill later. Stepwise, then with
+    run(burst=8) (the pipelined loop drains and falls back to step_burst,
+    which preempts). Held as the CPU tests hold it
+    (tests/test_torch_chunked_prefill.py, test_torch_engine.py,
+    test_torch_engine_burst.py): every request finishes with its length, at
+    least one preemption and one eviction, free pages plus prefix pages =
+    the pool. Printed, not held: for each request, the first generated
+    token that differs from an engine with a pool of 512 pages, which
+    neither evicts nor preempts (the batch shapes differ between the two,
+    and so does bf16 rounding)."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=4)
+    params = llama.init_params(cfg, seed=SEED + 62, device="cuda")
+    rng = np.random.RandomState(SEED + 62)
+    first = list(rng.randint(0, cfg.vocab_size, 1100))
+    wave = [list(rng.randint(0, cfg.vocab_size, int(n)))
+            for n in rng.randint(300, 601, 6)]
+    gen_first, gen_wave = 8, 160
+
+    def serve(num_pages, run_kw):
+        eng = Engine(params, cfg, num_pages=num_pages, page_size=64, max_seqs=8,
+                     pages_per_seq=20, quant_dtype="int8", prefix_cache=True,
+                     device="cuda")
+        evicted = []
+        evict = eng.sched.prefix.evict
+
+        def counted(n, allocator):
+            evicted.append(evict(n, allocator))
+            return evicted[-1]
+
+        eng.sched.prefix.evict = counted
+        _build.reset_launches()
+        reqs = [eng.submit(first, gen_first)]
+        eng.run(**run_kw)
+        idle = len(eng.sched.prefix.idle)
+        reqs += [eng.submit(p, gen_wave) for p in wave]
+        stats = eng.run(**run_kw)
+        got = dict(_build.launches)
+        counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+        pool = eng.sched.allocator.free_pages + len(eng.sched.prefix.pages)
+        out = dict(tokens=[list(r.generated) for r in reqs], stats=stats,
+                   evicted=sum(evicted), idle=idle, pool=pool, launches=got,
+                   finished=all(len(r.generated) == r.max_new_tokens for r in reqs),
+                   finite=all(all(math.isfinite(x) for x in r.logprobs) for r in reqs),
+                   drained=not eng.sched.active and not eng._pending_bursts)
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    ok = True
+    free = serve(512, {})
+    ok &= free["stats"].preemptions == 0 and free["evicted"] == 0 and free["finished"]
+    for tag, run_kw in (("stepwise", {}), ("run(burst=8)", dict(burst=8))):
+        got = serve(40, run_kw)
+        st = got["stats"]
+        good = got["finished"] and got["finite"] and got["drained"] \
+            and st.preemptions > 0 and got["evicted"] > 0 and got["pool"] == 39 \
+            and got["launches"].get("paged", 0) > 0
+        ok &= good
+        parts = _first_divergence(got["tokens"], free["tokens"])
+        print(f"engine 8B width, 4 layers, pool of 40 int8 pages of 64, {tag}: "
+              f"{len(got['tokens'])} requests finished with their lengths "
+              f"{got['finished']}, {st.preemptions} preemptions, {got['evicted']} "
+              f"idle prefix pages evicted (of {got['idle']} idle after the first "
+              f"prompt), free + prefix pages {got['pool']} (pool 39), "
+              f"{st.steps} decode steps; launches {got['launches']} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        print(f"  first token that parts from the unpressured engine's (pool "
+              f"512: {free['stats'].preemptions} preemptions), per request: "
+              f"{parts} of {[len(t) for t in free['tokens']]} [{ident}]", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return ok
+
+
 SAMPLING_MIX = (None, dict(temperature=0.8, top_p=0.9),
                 dict(temperature=1.0, min_p=0.05), dict(repetition_penalty=1.3))
 
@@ -3485,7 +3584,7 @@ def _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages, long, h
     §6). So on int4 KV the CPU takes the payloads and scales the card's
     quantize gave, call for call: both read the same pages and the check
     holds the kernels to their plain versions."""
-    store_rows = llama._store_rows
+    store_rows = llama.payload_rows
     out, written = {}, []
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
         if quant == "int4":
@@ -3496,12 +3595,12 @@ def _device_pair_logits(llama, cfg, p_gpu, p_cpu, quant, prompts, pages, long, h
                 pay, sc = written.pop(0)
                 return pay.cpu(), sc.cpu()
 
-            llama._store_rows = store
+            llama.payload_rows = store
         try:
             out[dev] = _kv_stage_logits(llama, cfg, params, dev, quant, out, prompts,
                                         pages, long, hit, page)
         finally:
-            llama._store_rows = store_rows
+            llama.payload_rows = store_rows
     return out
 
 
@@ -5144,6 +5243,162 @@ def cpu_vs_cuda_danube_phase():
     return ok
 
 
+def _cache_bytes(card, cpu, quant):
+    """Where a card-written page pool differs from the CPU's: (differing
+    payload elements, elements compared, differing scales, scales). int4
+    counts nibble values (a byte holds two features), fp8 bytes."""
+    import torch
+
+    from mfa_tpu_torch.kernels.quant import page_values
+
+    pay = diff = sc = n_sc = 0
+    for f in ("k", "v"):
+        a = page_values(getattr(card, f + "_pages").cpu(), quant)
+        b = page_values(getattr(cpu, f + "_pages"), quant)
+        if a.dtype.itemsize == 1:
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        else:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        diff += int((a != b).sum())
+        pay += a.numel()
+        if quant is not None:
+            x, y = getattr(card, f + "_scales").cpu(), getattr(cpu, f + "_scales")
+            sc += int((x != y).sum())
+            n_sc += x.numel()
+    return diff, pay, sc, n_sc
+
+
+def layer_cache_phase(counts, ident):
+    """The per-layer paged KV cache (cache/paged_cache.py: create_cache,
+    write_prompt, map_page, append_token) under kernel 6, as a library user
+    keeps one layer's cache: one Llama-3-8B attention layer (hq 32, hkv 8, d
+    128) and H2O-Danube-1.8B's (hq 32, hkv 8, d 80), 16 sequences with seeded
+    prompts of 200-4000 tokens on pages of 64 and of 16, in bf16, int8, fp8
+    and int4 KV. Every prompt goes in by write_prompt on the pages it needs;
+    then 32 decode steps, each mapping a page where a sequence crosses into
+    one, appending a token to every sequence and running paged_attention,
+    whose output is held against kernel 6's plain version on the same pages
+    (max 2e-2, mean 2e-3: kv_format_kernels' limits). After the last step
+    the card's pages and scales are compared with those the CPU writes from
+    the same K/V (the counts of differing payload elements and scales are
+    printed; the limit is none differing). Times one step's append_token
+    (with a 64-byte reset of the lengths, so the timed appends overwrite
+    one row) and kernel 6 per format."""
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.cache import paged_cache as pc
+    from mfa_tpu_torch.kernels import _build, paged
+
+    ok = True
+    n_seq, steps, hq, hkv = 16, 32, 32, 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    rng = np.random.RandomState(SEED + 61)
+    lens = [int(n) for n in rng.randint(200, 4001, n_seq)]
+    for model, d in (("Llama-3-8B", 128), ("H2O-Danube-1.8B", 80)):
+        scale = d ** -0.5
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        prompts = [(rn(n, hkv, d), rn(n, hkv, d)) for n in lens]
+        new_k, new_v, qs = rn(steps, n_seq, hkv, d), rn(steps, n_seq, hkv, d), \
+            rn(steps, n_seq, hq, d)
+        for page in (64, 16):
+            pps = -(-(max(lens) + steps) // page)
+            num_pages = sum(-(-(n + steps) // page) for n in lens) + 1
+            for quant in (None, "int8", "fp8", "int4"):
+                fmt = quant or "bf16"
+                kw = dict(num_pages=num_pages, page_size=page, num_kv_heads=hkv,
+                          head_dim=d, max_seqs=n_seq, pages_per_seq=pps,
+                          quant_dtype=quant)
+                cache = pc.create_cache(**kw, device="cuda")
+                host = pc.create_cache(**kw, device="cpu")
+                alloc = pc.PageAllocator(num_pages)
+                held = [alloc.alloc(-(-n // page)) for n in lens]
+                for c in (cache, host):
+                    for i, (k, v) in enumerate(prompts):
+                        pc.write_prompt(c, i, held[i], k.to(c.lengths.device),
+                                        v.to(c.lengths.device))
+                tokens, slots = list(lens), list(range(n_seq))
+                worst, mean_worst, maps = 0.0, 0.0, []
+                _build.reset_launches()
+                for t in range(steps):
+                    for i in slots:  # a page for each row that starts one
+                        if tokens[i] % page == 0:
+                            pid = alloc.alloc(1)[0]
+                            maps.append((i, tokens[i] // page, pid))
+                            for c in (cache, host):
+                                pc.map_page(c, i, tokens[i] // page, pid)
+                    pc.append_token(cache, slots, new_k[t], new_v[t])
+                    pc.append_token(host, slots, new_k[t].cpu(), new_v[t].cpu())
+                    tokens = [n + 1 for n in tokens]
+                    o = paged.paged_attention(
+                        qs[t], cache.k_pages, cache.v_pages, cache.lengths,
+                        cache.block_tables, k_scales=cache.k_scales,
+                        v_scales=cache.v_scales, quant_dtype=quant)
+                    ro, _ = paged._paged_plain(
+                        qs[t].float(), cache.k_pages, cache.v_pages,
+                        cache.k_scales, cache.v_scales, cache.lengths,
+                        cache.block_tables, scale, -1, 0.0, 0, quant_dtype=quant)
+                    diff = (o.float() - ro.float()).abs()
+                    good = bool(torch.isfinite(o.float()).all())
+                    worst = max(worst, float(diff.max()))
+                    mean_worst = max(mean_worst, float(diff.mean()))
+                    ok &= good
+                got = dict(_build.launches)
+                counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
+                name = paged.launch_name("paged", quant)
+                splits = paged.split_plan(n_seq, hkv, pps, page)[0]
+                want = {name: steps, **({"combine": steps} if splits > 1 else {})}
+                good = worst < 2e-2 and mean_worst < 2e-3 and got == want \
+                    and cache.lengths.tolist() == tokens
+                ok &= good
+                diff, pay, sdiff, n_sc = _cache_bytes(cache, host, quant)
+                same = diff == 0 and sdiff == 0
+                ok &= same
+                print(f"layer_cache {model} d{d} {fmt} KV, pages of {page}: "
+                      f"{n_seq} prompts of {min(lens)}-{max(lens)} tokens, "
+                      f"{steps} steps ({len(maps)} pages mapped), splits {splits}; "
+                      f"kernel 6 vs plain: max_abs_err {worst:.3e} (< 2e-2) worst "
+                      f"step mean {mean_worst:.3e} (< 2e-3); launches {got}; card "
+                      f"vs CPU writes: {diff} of {pay} payload "
+                      f"{'nibbles' if quant == 'int4' else 'elements'} and {sdiff} "
+                      f"of {n_sc} scales differ (limit 0) "
+                      f"{'ok' if good and same else 'FAIL'}", flush=True)
+                if page == 64:
+                    base = cache.lengths.clone()
+                    last_k, last_v = new_k[-1], new_v[-1]
+
+                    def append():
+                        cache.lengths.copy_(base)
+                        pc.append_token(cache, slots, last_k, last_v)
+
+                    app_ms = _time_ms(append)  # after the counts were read
+                    cache.lengths.copy_(base)
+                    ms = _time_ms(lambda: paged.paged_attention(
+                        qs[-1], cache.k_pages, cache.v_pages, cache.lengths,
+                        cache.block_tables, k_scales=cache.k_scales,
+                        v_scales=cache.v_scales, quant_dtype=quant))
+                    plain_ms = _time_ms(lambda: paged._paged_plain(
+                        qs[-1], cache.k_pages, cache.v_pages, cache.k_scales,
+                        cache.v_scales, cache.lengths, cache.block_tables, scale,
+                        -1, 0.0, 0, quant_dtype=quant), iters=3)
+                    rows = sum(tokens) * hkv
+                    bound_ms, by = _bound(
+                        2 * rows * _row_bytes(quant, d) + n_seq * pps * 4
+                        + 2 * n_seq * hq * d * 2, 4 * hq * sum(tokens) * d)
+                    print(f"  layer_cache {model} d{d} {fmt} pages of 64, step at "
+                          f"{sum(tokens)} tokens: append_token {app_ms:.4f} ms, "
+                          f"kernel 6 {ms:.4f} ms, plain_ms {plain_ms:.4f} bound_ms "
+                          f"{bound_ms:.4f} ({by}) share {bound_ms / ms:.3f} "
+                          f"[{ident}]", flush=True)
+                del cache, host
+                torch.cuda.empty_cache()
+        del prompts, new_k, new_v, qs
+    return ok
+
+
 def instruments_phase(ident):
     """The port's instruments on the card (not the main path): the peak
     table's entries for this card (utils/timing.py); scan_timeit of kernel
@@ -5920,6 +6175,64 @@ def _row_bytes32(quant, d: int) -> int:
     return _row_bytes(quant, d) if quant else 4 * d
 
 
+def _fp32_bound_vs_fp64(rn, hq, hkv):
+    """fp32 kernel 4 on std-1e3 and shifted (+-40) inputs, b16 s256 causal
+    at d 128 ("prepass") and d 64 (the default). Their 1e4-1e6 scores carry
+    fp32 rounding of about 1e-3 in any summation order, so they are held to
+    an fp64 reference (_causal_reference64) at the bf16 kernel 4's limits
+    on O (max 1e-1, mean 2e-3: zero_shift_kernels) or at twice the
+    distance from fp64 of the plain version in fp32 or in the kernel's own
+    arithmetic (3xTF32 products, backward._matmul_3xtf32_plain; every tile
+    here is risky, so the classic prefill is the function), where that is
+    larger: no summation in that arithmetic does better. The LSE error is
+    taken relative to the row's score bound |q| max |k| scale, which fp32
+    rounding scales with (1e-5, or twice the plain versions'): the bf16
+    check's |lse| (at least 1) fails the fp32 plain version itself on
+    some draws, where a row's LSE sits near 0 among scores of 1e6."""
+    import torch
+
+    from mfa_tpu_torch.kernels import backward, prefill
+
+    ok = True
+    for d4, mode, kind in ((128, "prepass", "std 1e3"), (128, "prepass", "shifted"),
+                           (64, None, "std 1e3"), (64, None, "shifted")):
+        q, k, v = rn(16, hq, 256, d4), rn(16, hkv, 256, d4), rn(16, hkv, 256, d4)
+        q, k = (q * 1e3, k * 1e3) if kind == "std 1e3" else (q + 40.0, k - 40.0)
+        sc = d4 ** -0.5
+        bits = prefill._risky_bits(q, k, sc * prefill._LOG2E)
+        o, lse = prefill.prefill_attention(q, k, v, causal=True, return_lse=True,
+                                           bound_softmax=mode)
+        ro, rl = _causal_reference64(q, k, v, sc)
+        po, pl, _ = prefill._engine_plain("bound", mode or "prepass", q, k, v, sc, -1, 0)
+        to, tl = prefill._prefill_plain(q, k, v, sc, -1, 0, 0.0, True,
+                                        matmul=backward._matmul_3xtf32_plain)
+        group = hq // hkv
+        span = (q.double().norm(dim=-1) * sc * k.double().norm(dim=-1).amax(-1)
+                .repeat_interleave(group, 1)[..., None])
+
+        def dists(out, l_):
+            e = (out.double() - ro).abs()
+            return float(e.max()), float(e.mean()), float(((l_ - rl).abs() / span).max())
+
+        got, fp32, tf32x3 = dists(o, lse), dists(po, pl), dists(to, tl)
+        lim = tuple(max(b, 2 * f, 2 * t) for b, f, t in zip((1e-1, 2e-3, 1e-5), fp32,
+                                                            tf32x3))
+        good = bool(torch.isfinite(o).all()) and all(g < li for g, li in zip(got, lim)) \
+            and bool(bits.all())
+        print(f"bound_fp32 (kernel 4) b16 hq{hq} hkv{hkv} s256 d{d4} "
+              f"{mode or 'default'} on {kind} inputs ({int(bits.sum())} of "
+              f"{bits.numel()} tiles risky), against fp64: max_abs_err {got[0]:.3e} "
+              f"(< {lim[0]:.3e}) mean {got[1]:.3e} (< {lim[1]:.3e}) lse error / "
+              f"|q| max|k| scale {got[2]:.3e} (< {lim[2]:.3e}); the plain version's "
+              f"in fp32: max "
+              f"{fp32[0]:.3e} mean {fp32[1]:.3e} lse {fp32[2]:.3e}, in 3xTF32: max "
+              f"{tf32x3[0]:.3e} mean {tf32x3[1]:.3e} lse {tf32x3[2]:.3e} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+        del q, k, v, o, ro, po, to
+    return ok
+
+
 def fp32_kernels(records):
     """Phase 2 in fp32: every forward kernel and kind on fp32 inputs against
     its plain fp32 version on the card, at the 8B shapes of PERF.md §6 (d
@@ -6056,6 +6369,7 @@ def fp32_kernels(records):
                       _time_ms(lambda: F.scaled_dot_product_attention(
                           q, k, v, is_causal=causal, enable_gqa=True)),
                       4 * (2 * b * h * s * 64 + 2 * b * kvh * s * 64), 4 * pairs * 64)
+    ok &= _fp32_bound_vs_fp64(rn, hq, hkv)
     # -- kernel 5 + the combine: b16 S8192, then a window with sinks and ALiBi
     b, S = 16, 8192
     q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
@@ -7079,6 +7393,7 @@ def main() -> int:
                  ("fp32_backward_kernels", lambda: fp32_backward_kernels(records)),
                  ("fp32_wmatmul_kernels", lambda: fp32_wmatmul_kernels(records)),
                  ("library_surface", lambda: library_surface(counts)),
+                 ("layer_cache", lambda: layer_cache_phase(counts, ident)),
                  ("minimal_fp32", lambda: minimal_fp32_phase(counts)),
                  ("engine_8b", lambda: engine_phase(counts, ident, state)),
                  ("tp_engine_8b",
@@ -7098,6 +7413,7 @@ def main() -> int:
                   lambda: chunked_engine_phase(counts, ident, state, "fp8")),
                  ("engine_8b_burst",
                   lambda: burst_engine_phase(counts, ident, state)),
+                 ("engine_8b_pressure", lambda: pressure_engine_phase(counts, ident)),
                  ("engine_8b_sampling",
                   lambda: sampling_engine_phase(counts, ident, state)),
                  ("engine_8b_speculative",

@@ -1,12 +1,18 @@
 """Paged KV cache (counterpart of mfa_tpu/cache/paged_cache.py).
 
-Device state is one StackedKVCache for all layers with ONE block table and
-lengths vector; page allocation is host-side bookkeeping (PageAllocator).
-Unlike the JAX package, whose arrays are immutable, the functions here
-update the cache's tensors IN PLACE (index_put_ / slice assignment) and
-return the same cache object, so the serving loop never copies a pool.
+Two device states, as in the JAX package: the serving engine's
+StackedKVCache, all layers with ONE block table and lengths vector, and
+PagedKVCache, one layer's cache for callers that keep it themselves
+(create_cache -> write_prompt -> append_token -> kernels/paged.py:
+paged_attention). Page allocation is host-side bookkeeping
+(PageAllocator). Unlike the JAX package, whose arrays are immutable, the
+functions here update the cache's tensors IN PLACE (index_put_ / slice
+assignment) and return the same cache object, so the serving loop never
+copies a pool. map_page(s), release_slot(s) and shard_cache take either
+form.
 
-Pages are [num_kv_heads, n_layers * num_pages, page_size, w]: layer l's
+Pages are [num_kv_heads, num_pages, page_size, w]; a StackedKVCache's are
+[num_kv_heads, n_layers * num_pages, page_size, w], where layer l's
 logical page p is physical page l * num_pages + p (the merged pool of the
 JAX package). A row holds the head-dim plan's stored width
 (dispatch/config.py:head_dim_plan: head_dim, widened with zero features
@@ -15,7 +21,7 @@ needs): w features (16-bit, int8, fp8 as float8_e4m3fn) or w / 2 bytes
 (int4, feature pairs: kernels/quant.py:pack_int4). The JAX package pads
 every row to 128 lanes instead (its TPU DMA's rule), so at head_dim 80 its
 rows are 128 wide where these are 80 (int4: 48 bytes). Quantized pages
-carry fp32 per-row scales [num_kv_heads, n_layers * num_pages, page_size],
+carry fp32 per-row scales [num_kv_heads, pool pages, page_size],
 taken over the true features. Rows of every format are written whole (no
 nibble blend), so any set of positions takes one scatter.
 """
@@ -23,14 +29,51 @@ nibble blend), so any set of positions takes one scatter.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from mfa_tpu_torch.dispatch.config import (head_dim_plan, host_to_device,
-                                           pad_features)
-from mfa_tpu_torch.kernels.quant import (as_bytes, pack_int4, row_width,
+                                           pad_features, resolve_device)
+from mfa_tpu_torch.kernels.quant import (FP8, as_bytes, pack_int4,
+                                         quantize_rows, row_width,
                                          storage_dtype)
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """One layer's paged KV state (mfa_tpu's PagedKVCache)."""
+
+    k_pages: torch.Tensor  # [hkv, num_pages, page, w]
+    v_pages: torch.Tensor
+    k_scales: Optional[torch.Tensor]  # [hkv, num_pages, page] fp32
+    v_scales: Optional[torch.Tensor]
+    block_tables: torch.Tensor  # [max_seqs, pages_per_seq] int32
+    lengths: torch.Tensor  # [max_seqs] int32
+    page_size: int
+    quant_dtype: Optional[str]
+    head_dim: int = 0  # the true head_dim; rows hold the plan's stored width
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.k_pages.shape[0]
+
+    @property
+    def num_pages(self) -> int:
+        return self.k_pages.shape[1]
+
+    @property
+    def page_width(self) -> int:
+        return self.k_pages.shape[-1]
+
+    @property
+    def max_seqs(self) -> int:
+        return self.block_tables.shape[0]
+
+    @property
+    def pages_per_seq(self) -> int:
+        return self.block_tables.shape[1]
 
 
 @dataclasses.dataclass
@@ -46,6 +89,15 @@ class StackedKVCache:
     page_size: int
     quant_dtype: Optional[str]
     layers: int = 1
+    head_dim: int = 0  # the true head_dim; rows hold the plan's stored width
+
+    @property
+    def n_layers(self) -> int:
+        return self.layers
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.k_pages.shape[0]
 
     @property
     def num_pages(self) -> int:
@@ -53,8 +105,67 @@ class StackedKVCache:
         return self.k_pages.shape[1] // self.layers
 
     @property
+    def page_width(self) -> int:
+        return self.k_pages.shape[-1]
+
+    @property
+    def max_seqs(self) -> int:
+        return self.block_tables.shape[0]
+
+    @property
     def pages_per_seq(self) -> int:
         return self.block_tables.shape[1]
+
+
+AnyKVCache = Union[PagedKVCache, StackedKVCache]
+
+
+def _allocate(pool_pages: int, page_size: int, num_kv_heads: int,
+              head_dim: int, max_seqs: int, pages_per_seq: int, dtype,
+              quant_dtype: Optional[str], device) -> dict:
+    """Zeroed pages of pool_pages pages, unit scales (quantized formats),
+    an all-null block table and zero lengths: the tensors of either cache."""
+    store = storage_dtype(quant_dtype) if quant_dtype else dtype
+    shape = (num_kv_heads, pool_pages, page_size,
+             row_width(quant_dtype, head_dim))
+
+    def scales():
+        return (torch.ones(shape[:3], dtype=torch.float32, device=device)
+                if quant_dtype else None)
+
+    return dict(
+        k_pages=torch.zeros(shape, dtype=store, device=device),
+        v_pages=torch.zeros(shape, dtype=store, device=device),
+        k_scales=scales(),
+        v_scales=scales(),
+        block_tables=torch.zeros((max_seqs, pages_per_seq), dtype=torch.int32,
+                                 device=device),
+        lengths=torch.zeros((max_seqs,), dtype=torch.int32, device=device),
+        page_size=page_size,
+        quant_dtype=quant_dtype,
+    )
+
+
+def create_cache(
+    num_pages: int,
+    page_size: int,
+    num_kv_heads: int,
+    head_dim: int,
+    max_seqs: int,
+    pages_per_seq: int,
+    dtype=torch.bfloat16,
+    quant_dtype: Optional[str] = None,
+    device="cuda",
+) -> PagedKVCache:
+    """One layer's cache, on the card unless `device` says otherwise. int4
+    needs an even page_size, as mfa_tpu's token-pair rows do (the port's
+    feature-pair rows would not, but this cache keeps mfa_tpu's contract)."""
+    if quant_dtype == "int4" and page_size % 2:
+        raise ValueError("int4 KV needs an even page_size (row pairing)")
+    return PagedKVCache(
+        **_allocate(num_pages, page_size, num_kv_heads, head_dim, max_seqs,
+                    pages_per_seq, dtype, quant_dtype, resolve_device(device)),
+        head_dim=head_dim)
 
 
 def create_stacked_cache(
@@ -69,26 +180,10 @@ def create_stacked_cache(
     quant_dtype: Optional[str] = None,
     device="cuda",
 ) -> StackedKVCache:
-    store = storage_dtype(quant_dtype) if quant_dtype else dtype
-    shape = (num_kv_heads, n_layers * num_pages, page_size,
-             row_width(quant_dtype, head_dim))
-
-    def scales():
-        return (torch.ones(shape[:3], dtype=torch.float32, device=device)
-                if quant_dtype else None)
-
     return StackedKVCache(
-        k_pages=torch.zeros(shape, dtype=store, device=device),
-        v_pages=torch.zeros(shape, dtype=store, device=device),
-        k_scales=scales(),
-        v_scales=scales(),
-        block_tables=torch.zeros((max_seqs, pages_per_seq), dtype=torch.int32,
-                                 device=device),
-        lengths=torch.zeros((max_seqs,), dtype=torch.int32, device=device),
-        page_size=page_size,
-        quant_dtype=quant_dtype,
-        layers=n_layers,
-    )
+        **_allocate(n_layers * num_pages, page_size, num_kv_heads, head_dim,
+                    max_seqs, pages_per_seq, dtype, quant_dtype, device),
+        layers=n_layers, head_dim=head_dim)
 
 
 class PageAllocator:
@@ -152,8 +247,82 @@ def scatter_span_rows(pages: torch.Tensor, page_ids: torch.Tensor,
         as_bytes(pages).dtype)
 
 
-def map_pages(cache: StackedKVCache, seq_slots, page_indices, page_ids
-              ) -> StackedKVCache:
+def payload_rows(quant_dtype: Optional[str], store_dtype, x):
+    """-> (payload, per-row scales or None): the cache's storage dtype, or
+    quantize_rows' payload (int4 values unpacked; the writes pack them)."""
+    if quant_dtype is None:
+        return x.to(store_dtype), None
+    return quantize_rows(x, quant_dtype)
+
+
+def write_prompt(cache: PagedKVCache, seq_slot: int, pages: Sequence[int],
+                 k_prompt: torch.Tensor, v_prompt: torch.Tensor
+                 ) -> PagedKVCache:
+    """IN PLACE: a whole prompt's K/V [seqlen, hkv, d] into the pages the
+    host allocated for slot seq_slot (at least ceil(seqlen / page_size) of
+    them; all of them enter its table row), zero-padded to whole pages."""
+    seqlen, page = k_prompt.shape[0], cache.page_size
+    n_pages = -(-seqlen // page)
+    if len(pages) < n_pages:
+        raise ValueError(f"a prompt of {seqlen} tokens needs {n_pages} pages "
+                         f"of {page}, got {len(pages)}")
+    if len(pages) > cache.pages_per_seq:
+        raise ValueError(f"{len(pages)} pages exceed the block table's "
+                         f"{cache.pages_per_seq}")
+    dev = cache.lengths.device
+    ids = host_to_device(list(pages), torch.long, dev)
+    pad = (0, 0, 0, 0, 0, n_pages * page - seqlen)
+    for x, pool, scales in ((k_prompt, cache.k_pages, cache.k_scales),
+                            (v_prompt, cache.v_pages, cache.v_scales)):
+        xq, xs = payload_rows(cache.quant_dtype, pool.dtype,
+                              torch.nn.functional.pad(x.to(dev), pad)
+                              .transpose(0, 1))
+        write_pages(pool, ids[:n_pages],
+                    pack_pages_payload(cache.quant_dtype, xq, n_pages, page))
+        if xs is not None:
+            scales[:, ids[:n_pages]] = xs.reshape(xs.shape[0], n_pages, page)
+    cache.block_tables[seq_slot] = 0
+    cache.block_tables[seq_slot, : len(pages)] = ids.to(torch.int32)
+    cache.lengths[seq_slot] = seqlen
+    return cache
+
+
+def append_token(cache: PagedKVCache, seq_slots, new_k: torch.Tensor,
+                 new_v: torch.Tensor) -> PagedKVCache:
+    """IN PLACE: one token's K/V [n, hkv, d] for each sequence of seq_slots
+    at its length, which then grows by one. The page of each write position
+    must already be mapped (map_page). No host wait."""
+    dev = cache.lengths.device
+    slots = (seq_slots.to(dev, torch.long) if isinstance(seq_slots, torch.Tensor)
+             else host_to_device(seq_slots, torch.long, dev))
+    lens = cache.lengths[slots].long()
+    page_ids = cache.block_tables[slots, lens // cache.page_size].long()
+    offs = lens % cache.page_size
+    for x, pool, scales in ((new_k, cache.k_pages, cache.k_scales),
+                            (new_v, cache.v_pages, cache.v_scales)):
+        xq, xs = payload_rows(cache.quant_dtype, pool.dtype,
+                              x.to(dev).transpose(0, 1))
+        scatter_span_rows(pool, page_ids, offs, xq, cache.quant_dtype)
+        if xs is not None:
+            scales[:, page_ids, offs] = xs
+    cache.lengths[slots] = (lens + 1).to(torch.int32)
+    return cache
+
+
+def map_page(cache: AnyKVCache, seq_slot: int, page_index: int,
+             page_id: int) -> AnyKVCache:
+    """IN PLACE: map one allocated page into a sequence's block table."""
+    return map_pages(cache, [seq_slot], [page_index], [page_id])
+
+
+def release_slot(cache: AnyKVCache, seq_slot: int) -> AnyKVCache:
+    """IN PLACE: clear a finished sequence's table row and length (its
+    pages are freed on the host)."""
+    return release_slots(cache, [seq_slot])
+
+
+def map_pages(cache: AnyKVCache, seq_slots, page_indices, page_ids
+              ) -> AnyKVCache:
     """IN PLACE: map many pages into the block table in one scatter
     (enqueued behind the decode bursts in flight: no host wait)."""
     dev = cache.block_tables.device
@@ -164,7 +333,7 @@ def map_pages(cache: StackedKVCache, seq_slots, page_indices, page_ids
     return cache
 
 
-def release_slots(cache: StackedKVCache, seq_slots) -> StackedKVCache:
+def release_slots(cache: AnyKVCache, seq_slots) -> AnyKVCache:
     """IN PLACE: clear finished slots' table rows and lengths (pages are
     freed on the host) in one scatter pair, enqueued without a host wait."""
     idx = host_to_device(seq_slots, torch.long, cache.block_tables.device)
@@ -173,7 +342,7 @@ def release_slots(cache: StackedKVCache, seq_slots) -> StackedKVCache:
     return cache
 
 
-def shard_cache(cache: StackedKVCache, mesh, axis: str) -> StackedKVCache:
+def shard_cache(cache: AnyKVCache, mesh, axis: str) -> AnyKVCache:
     """This rank's kv heads of a full cache, TP by kv head on `axis`
     (mfa_tpu's cache_shardings; raises ValueError when the axis does not
     divide the kv heads). Block tables and lengths are copied: every rank
@@ -189,3 +358,55 @@ def shard_cache(cache: StackedKVCache, mesh, axis: str) -> StackedKVCache:
         cache, k_pages=cut(cache.k_pages), v_pages=cut(cache.v_pages),
         k_scales=cut(cache.k_scales), v_scales=cut(cache.v_scales),
         block_tables=cache.block_tables.clone(), lengths=cache.lengths.clone())
+
+
+def _tensor_of(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a torch tensor; ml_dtypes' bfloat16 and
+    float8_e4m3fn (which torch.from_numpy refuses) through their bits."""
+    a = np.array(a)  # a writable copy: jax's arrays are read-only
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(FP8)
+    return torch.from_numpy(a)
+
+
+def _unpack_token_pairs(packed: torch.Tensor) -> torch.Tensor:
+    """mfa_tpu's int4 rows [..., rows, w], byte (r, c) = token 2r's feature
+    c (low nibble) | token 2r + 1's (high nibble) -> int8 values [...,
+    2 * rows, w] in token order (its kernels/quant.py:unpack_int4_pairs)."""
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
+    return torch.stack([lo, hi], dim=-2).reshape(
+        *packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])
+
+
+def cache_from_numpy(tree, device="cuda") -> AnyKVCache:
+    """mfa_tpu's PagedKVCache or StackedKVCache with numpy leaves
+    (jax.tree.map(np.asarray, cache)) -> the port's, on `device`: rows
+    padded to 128 lanes are cut to the true head_dim and stored at the
+    plan's width, int4 token-pair rows repacked as feature pairs
+    (kernels/quant.py:pack_int4); scales, tables and lengths as they are."""
+    dev = resolve_device(device)
+    fmt, page = tree.quant_dtype, tree.page_size
+    d = tree.head_dim or np.asarray(tree.k_pages).shape[-1]
+
+    def pages(a):
+        t = _tensor_of(a)
+        if fmt == "int4":
+            t = _unpack_token_pairs(t)
+        rows = stored_rows(fmt, t[..., :d].contiguous())
+        return (rows.view(FP8) if fmt == "fp8" else rows).to(dev)
+
+    def opt(a):
+        return None if a is None else _tensor_of(a).to(dev)
+
+    fields = dict(
+        k_pages=pages(tree.k_pages), v_pages=pages(tree.v_pages),
+        k_scales=opt(tree.k_scales), v_scales=opt(tree.v_scales),
+        block_tables=_tensor_of(tree.block_tables).to(dev, torch.int32),
+        lengths=_tensor_of(tree.lengths).to(dev, torch.int32),
+        page_size=page, quant_dtype=fmt)
+    if hasattr(tree, "layers"):
+        return StackedKVCache(**fields, layers=tree.layers, head_dim=d)
+    return PagedKVCache(**fields, head_dim=d)

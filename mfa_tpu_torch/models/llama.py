@@ -96,7 +96,7 @@ import torch.utils.checkpoint
 
 from mfa_tpu_torch.cache.paged_cache import (StackedKVCache,
                                              create_stacked_cache,
-                                             pack_pages_payload,
+                                             pack_pages_payload, payload_rows,
                                              scatter_span_rows, write_pages)
 from mfa_tpu_torch.dispatch.config import host_to_device, resolve_device
 from mfa_tpu_torch.kernels.autodiff import flash_attention_grad
@@ -105,7 +105,7 @@ from mfa_tpu_torch.kernels.blockmask import (dense_masked_attention,
 from mfa_tpu_torch.kernels.paged import paged_attention
 from mfa_tpu_torch.kernels.paged_prefill import paged_prefill_attention
 from mfa_tpu_torch.kernels.prefill import prefill_attention
-from mfa_tpu_torch.kernels.quant import as_bytes, quantize_rows
+from mfa_tpu_torch.kernels.quant import as_bytes
 from mfa_tpu_torch.models.wquant import (QWeight, adapt_shardings, bank_dense,
                                          bank_grouped, qmm, qtake,
                                          quantize_params, quantize_weight,
@@ -1058,14 +1058,6 @@ def build_kv_caches(cfg: LlamaConfig, num_pages: int, page_size: int,
     )
 
 
-def _store_rows(quant_dtype: Optional[str], store_dtype, x):
-    """-> (payload, per-row scales or None): the cache's storage dtype, or
-    quantize_rows' payload (int4 values unpacked; the writes pack them)."""
-    if quant_dtype is None:
-        return x.to(store_dtype), None
-    return quantize_rows(x, quant_dtype)
-
-
 def _merge_deferred(o_c, lse_c, q, kq, ks_new, vq, vs_new, cfg: LlamaConfig):
     """Exact LSE merge of the query's OWN K/V row into the paged-cache
     attention result (the row is appended after the layer loop).
@@ -1225,8 +1217,10 @@ def _prefill(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
         # page payload [n, s, hkv, d] -> [hkv, n*npg, page, d]; appended
         # for all layers by one scatter after the loop, as in JAX
-        kq, ks_new = _store_rows(cache.quant_dtype, store, k.permute(2, 0, 1, 3))
-        vq, vs_new = _store_rows(cache.quant_dtype, store, v.permute(2, 0, 1, 3))
+        kq, ks_new = payload_rows(cache.quant_dtype, store,
+                                  k.permute(2, 0, 1, 3))
+        vq, vs_new = payload_rows(cache.quant_dtype, store,
+                                  v.permute(2, 0, 1, 3))
         kq = pack_pages_payload(cache.quant_dtype, kq, n * npg, page)
         vq = pack_pages_payload(cache.quant_dtype, vq, n * npg, page)
         if image_block_ids is not None:
@@ -1341,10 +1335,10 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         q, k, v = _qkv(h, lp, cfg, n, chunk, mesh=mesh)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
         ids_l = page_ids + li * P
-        kq, ks_new = _store_rows(cache.quant_dtype, store,
-                                 k.permute(2, 0, 1, 3).reshape(hkv, -1, hd))
-        vq, vs_new = _store_rows(cache.quant_dtype, store,
-                                 v.permute(2, 0, 1, 3).reshape(hkv, -1, hd))
+        kq, ks_new = payload_rows(cache.quant_dtype, store,
+                                  k.permute(2, 0, 1, 3).reshape(hkv, -1, hd))
+        vq, vs_new = payload_rows(cache.quant_dtype, store,
+                                  v.permute(2, 0, 1, 3).reshape(hkv, -1, hd))
         write_pages(cache.k_pages, ids_l, pack_pages_payload(
             cache.quant_dtype, kq, n * chunk_pages, page))
         write_pages(cache.v_pages, ids_l, pack_pages_payload(
@@ -1368,6 +1362,16 @@ def _prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
     ).to(cache.lengths.dtype)
     cache.block_tables[seq_slots] = table_rows
     return cache, logits
+
+
+def prefill_step(params, cfg: LlamaConfig, cache: StackedKVCache,
+                 seq_slot: int, pages, tokens_1d, mesh=None):
+    """One prompt through the model into slot seq_slot (mfa_tpu's
+    prefill_step): prefill_batch of one request. Returns (cache, logits
+    [vocab] at its last position)."""
+    cache, logits = prefill_batch(params, cfg, cache, [seq_slot], [list(pages)],
+                                  [tokens_1d], mesh=mesh)
+    return cache, logits[0]
 
 
 def prefill_chunk(params, cfg: LlamaConfig, cache: StackedKVCache,
@@ -1446,10 +1450,10 @@ def verify_step(params, cfg: LlamaConfig, cache: StackedKVCache, seq_slots,
         h = _rms_norm(x, lp["attn_norm"], cfg)
         q, k, v = _qkv(h, lp, cfg, n, span, mesh=mesh)
         q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
-        kq, ks_new = _store_rows(cache.quant_dtype, store,
-                                 k.permute(2, 0, 1, 3).reshape(hkv, n * span, hd))
-        vq, vs_new = _store_rows(cache.quant_dtype, store,
-                                 v.permute(2, 0, 1, 3).reshape(hkv, n * span, hd))
+        kq, ks_new = payload_rows(cache.quant_dtype, store,
+                                  k.permute(2, 0, 1, 3).reshape(hkv, n * span, hd))
+        vq, vs_new = payload_rows(cache.quant_dtype, store,
+                                  v.permute(2, 0, 1, 3).reshape(hkv, n * span, hd))
         o_c, lse_c = paged_attention(
             q.to(cfg.dtype), cache.k_pages, cache.v_pages, lens,
             tables + li * cache.num_pages, k_scales=cache.k_scales,

@@ -167,7 +167,23 @@ def test_cache_shardings_validates_divisibility(ranks):
     assert len(outs) == 4
     for o in outs:
         assert "divide" in o["cache"]  # 3 kv heads over 4 ranks
+        assert "divide" in o["layer_cache"]  # the per-layer cache too
         assert "shard" in o["full_params"]  # Engine(mesh=) takes a shard
+
+
+def test_shard_cache_takes_a_layer_cache(ranks):
+    """shard_cache on a per-layer PagedKVCache (mfa_tpu's cache_shardings on
+    a create_cache): each rank keeps its kv heads' pages and scales, and
+    the whole tables and lengths."""
+    rng = np.random.RandomState(4)
+    k, v = (rng.standard_normal((20, 4, 32)).astype(np.float32) for _ in range(2))
+    outs = [o for o in ranks.run(R.layer_cache_shard, {"model": 2}, k, v)
+            if o is not None]
+    assert len(outs) == 2
+    for part, want, kind in outs:
+        assert kind == "PagedKVCache" and part["k_pages"].shape[0] == 2
+        for f, a in part.items():
+            np.testing.assert_array_equal(a, want[f], err_msg=f)
 
 
 def test_decode_step_sharded_matches_dense(ranks):

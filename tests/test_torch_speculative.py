@@ -14,7 +14,9 @@ and tests/test_multiquery_decode.py:
 - the speculative Engine token-identical to plain greedy decoding and to
   mfa_tpu's speculative Engine with the same spec_proposed / spec_accepted;
   self-draft acceptance exactly 1.0; at table capacity; prefix cache +
-  chunks + int8 KV + draft together; the sampled speculative engine runs.
+  chunks + int8 KV + draft together; the sampled speculative engine runs,
+  and, fed mfa_tpu's key chain as its uniforms, gives mfa_tpu's sampled
+  speculative engine's tokens (stepwise and with prefix cache + chunks).
 """
 
 import jax
@@ -256,6 +258,103 @@ def test_all_features_combined_match_greedy(models):
     assert eng.sched.allocator.free_pages + len(eng.sched.prefix.pages) == 63
     plain, _ = _run(_engines(models, False, 0, base), prompts, 6)
     assert gen == plain
+
+
+class _JaxNoise:
+    """mfa_tpu's Engine's key chain (serve/engine.py: the seed key at :135,
+    a split for each _sample, one for the draft burst at :903 whose step i
+    folds in i, one for the acceptance at :917, which splits it into the
+    acceptance uniforms' key and the residual draw's), served to the
+    port's draws as the uniforms they take, in the order the port's
+    sampled engine draws them: each _sample's, the draft burst's k steps,
+    then speculative_accept's u and residual noise. jax.random.gumbel(key)
+    is -log(-log(uniform(key, minval=tiny))), and the port's
+    gumbel_from_uniform is the same formula, so a draw sees JAX's Gumbel
+    noise up to the last ulp of torch's log against XLA's."""
+
+    TINY = float(np.finfo(np.float32).tiny)
+
+    def __init__(self, seed):
+        self.key = jax.random.key(seed)
+        self.burst_key, self.burst_step, self.residual_key = None, 0, None
+
+    def _split(self):
+        self.key, sub = jax.random.split(self.key)
+        return sub
+
+    @staticmethod
+    def _u(key, shape, lo):
+        return torch.from_numpy(np.array(jax.random.uniform(
+            key, tuple(shape), minval=lo, maxval=1.0)))
+
+    def engine_sample(self, shape, generator, device, out=None):
+        assert out is None
+        return self._u(self._split(), shape, self.TINY)
+
+    def start_burst(self):
+        self.burst_key, self.burst_step = self._split(), 0
+
+    def burst(self, shape, generator, device, out=None):
+        assert out is None and self.burst_key is not None
+        key = jax.random.fold_in(self.burst_key, self.burst_step)
+        self.burst_step += 1
+        return self._u(key, shape, self.TINY)
+
+    def accept(self, shape, generator, device, out=None):
+        assert out is None
+        if self.residual_key is None:  # the acceptance tests' uniforms
+            ku, self.residual_key = jax.random.split(self._split())
+            return self._u(ku, shape, 0.0)
+        key, self.residual_key = self.residual_key, None
+        return self._u(key, shape, self.TINY)
+
+
+def _serve_jax_noise(monkeypatch, seed):
+    from mfa_tpu_torch.serve import engine as te
+    from mfa_tpu_torch.serve import sampling as ts
+
+    noise = _JaxNoise(seed)
+    burst = tl.decode_burst
+
+    def decode_burst(*args, **kw):
+        noise.start_burst()
+        return burst(*args, **kw)
+
+    monkeypatch.setattr(tl, "decode_burst", decode_burst)
+    monkeypatch.setattr(tl, "uniform_noise", noise.burst)
+    monkeypatch.setattr(te, "uniform_noise", noise.engine_sample)
+    monkeypatch.setattr(ts, "uniform_noise", noise.accept)
+
+
+SAMPLED = dict(temperature=0.8, top_p=0.95)
+
+
+@pytest.mark.parametrize("features", ["stepwise", "prefix_chunks"])
+def test_sampled_speculative_engine_matches_jax(models, monkeypatch, features):
+    """The sampled speculative engine under mfa_tpu's noise: the same tokens
+    as mfa_tpu's Engine, logprobs within 1e-3 (tests/test_torch_sampling.py
+    holds the penalty engine so), the same proposals and acceptances."""
+    from mfa_tpu.serve.sampling import SamplingParams as JaxSamplingParams
+
+    kw = dict(num_pages=64, page_size=8, max_seqs=4, pages_per_seq=8)
+    prompts = [[1, 2, 3, 4, 5], [9, 8, 7], [4, 4, 2, 7, 1, 3]]
+    if features == "prefix_chunks":
+        shared = list(np.random.RandomState(5).randint(0, 64, 18))
+        prompts = [shared + [3], shared + [7, 1], [2, 4, 6]]
+        kw.update(prefix_cache=True, prefill_chunk=16)
+    jeng = _engines(models, True, 3, dict(kw, sampling=JaxSamplingParams(**SAMPLED),
+                                          seed=7))
+    jgen, jlps = _run(jeng, prompts, 10)
+    _serve_jax_noise(monkeypatch, 7)
+    eng = _engines(models, False, 3, dict(kw, sampling=SamplingParams(**SAMPLED)))
+    gen, lps = _run(eng, prompts, 10)
+    assert gen == jgen
+    np.testing.assert_allclose(np.concatenate(lps), np.concatenate(jlps), atol=1e-3)
+    assert eng.stats.spec_proposed == jeng.stats.spec_proposed > 0
+    assert eng.stats.spec_accepted == jeng.stats.spec_accepted
+    assert 0 < eng.stats.spec_accepted < eng.stats.spec_proposed
+    assert eng.sched.allocator.free_pages + (
+        len(eng.sched.prefix.pages) if eng.sched.prefix else 0) == 63
 
 
 def test_sampled_speculative_engine_runs(models):

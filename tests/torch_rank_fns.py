@@ -465,7 +465,9 @@ def tp_engine(axes, tree, cfg_kw, engine_kw, prompts, n_new, draft=None,
 
 def tp_engine_refusals(axes, tree, cfg_kw):
     """What Engine(mesh=) and the cache refuse -> their messages."""
-    from mfa_tpu_torch.cache.paged_cache import create_stacked_cache, shard_cache
+    from mfa_tpu_torch.cache.paged_cache import (create_cache,
+                                                 create_stacked_cache,
+                                                 shard_cache)
     from mfa_tpu_torch.models import llama
     from mfa_tpu_torch.serve.engine import Engine
 
@@ -474,11 +476,13 @@ def tp_engine_refusals(axes, tree, cfg_kw):
         return None
     cfg = llama.LlamaConfig.tiny(dtype=torch.float32, **cfg_kw)
     out = {}
-    cache = create_stacked_cache(n_layers=1, num_pages=8, page_size=16,
-                                 num_kv_heads=3, head_dim=32, max_seqs=2,
-                                 pages_per_seq=4, device="cpu")
+    kw = dict(num_pages=8, page_size=16, num_kv_heads=3, head_dim=32,
+              max_seqs=2, pages_per_seq=4, device="cpu")
+    cache = create_stacked_cache(n_layers=1, **kw)
+    layer = create_cache(quant_dtype="int8", **kw)
     for name, fn in (
             ("cache", lambda: shard_cache(cache, mesh, "model")),
+            ("layer_cache", lambda: shard_cache(layer, mesh, "model")),
             ("full_params", lambda: Engine(llama.params_from_numpy(
                 tree, cfg, "cpu"), cfg, device="cpu", mesh=mesh))):
         try:
@@ -487,6 +491,33 @@ def tp_engine_refusals(axes, tree, cfg_kw):
         except ValueError as e:
             out[name] = str(e)
     return out
+
+
+def layer_cache_shard(axes, k, v):
+    """A per-layer int4 cache of k/v's kv heads holding the prompt k/v
+    [s, hkv, d] -> (this rank's shard's tensors, the full cache's slice of
+    this rank's kv heads): the shard is a copy of that slice."""
+    from mfa_tpu_torch.cache.paged_cache import (create_cache, shard_cache,
+                                                 write_prompt)
+
+    mesh = _mesh(axes)
+    if mesh is None:
+        return None
+    s, hkv, d = k.shape
+    full = create_cache(num_pages=8, page_size=16, num_kv_heads=hkv, head_dim=d,
+                        max_seqs=2, pages_per_seq=4, dtype=torch.float32,
+                        quant_dtype="int4", device="cpu")
+    write_prompt(full, 1, [3, 5], _t(k), _t(v))
+    part = shard_cache(full, mesh, "model")
+    n = hkv // M.axis_size(mesh, "model")
+    lo = M.axis_index(mesh, "model") * n
+    names = ("k_pages", "v_pages", "k_scales", "v_scales", "block_tables",
+             "lengths")
+    heads = ("k_pages", "v_pages", "k_scales", "v_scales")
+    return ({f: _np(getattr(part, f)) for f in names},
+            {f: _np(getattr(full, f)[lo: lo + n] if f in heads
+                    else getattr(full, f)) for f in names},
+            type(part).__name__)
 
 
 def tp_decode_step(axes, tree, cfg_kw, prompt, token):
