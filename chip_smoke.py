@@ -14,8 +14,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    same function where one exists (a yardstick only: the port never calls
    it), and the least time the card could take (bytes over 3.35 TB/s vs
    operations over 989 TFLOP/s, counting the work these inputs need).
-   Kernels: prefill, split-KV decode + combine (b16 S8192 d128 at the
-   default split count and 2; then a long cache, b1 S32768, at d 64, 128 and
+   Kernels: prefill, split-KV decode, one launch with the split merge
+   inside it (b16 S8192 d128 at the default split count and 2, the merge
+   printed bit-equal or not to the two-launch design's arithmetic on the
+   launch's own partials; then a long cache, b1 S32768, at d 64, 128 and
    256, groups 1, 2, 4 and 8, window and softcap, lengths 0, 1 and off the
    64-token tile, rows past a length NaN), paged decode, varlen (at d
    128 and 256; on equal lengths bit for bit equal to kernel 1, O and LSE)
@@ -30,7 +32,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    mask beside them); at
    Gemma3-4B's head_dim 256, prefill (causal, window 1023 and none) and
    paged decode (int8 and bf16 pages, group 2, window 1023: 40 blocks, so
-   the paged kernel splits each sequence and kernel 5's combine merges),
+   the paged kernel splits each sequence and merges the splits in its one
+   launch),
    and the image-block prefill (kernel 9) in four cases, one of them with
    no image within the limits of kernel 1's causal output (kernels 1-4, 7
    and 9 run the wgmma + TMA tile); the zero-shift engines
@@ -77,7 +80,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ones the plain version's flags, > 0, and every flagged tile equal to
    kernel 1 bit for bit), kernel 4 at d 64 and BASELINE's first config
    (and on std-1e3 and shifted inputs against an fp64 reference),
-   kernel 5 and the combine at b16 S8192, kernel 6 with fp32 q on fp32,
+   kernel 5 at b16 S8192 (one split and two), kernel 6 with fp32 q on fp32,
    int8, fp8 and int4 pages, kernel 7 packed and ragged, kernel 8 at the
    chunk batch on every page format, kernel 9 at Gemma3-4B's image wave;
    within atol = rtol = 1e-4 (quantized pages: the bf16-q limits), timed
@@ -192,7 +195,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    the first engine's traffic on fp32 and on int8 KV pages, graphed and
    with the graphs off (the same tokens), then the chunked + prefix
    traffic on int8 KV (kernel 8 with fp32 q); fp32 launches of kernels 2,
-   3, 6, 8 and the combine. train_8b_fp32: three SGD steps of those fp32
+   3, 6 and 8. train_8b_fp32: three SGD steps of those fp32
    weights on 4 x 2049 tokens with remat (kernels 2 + 3 and 11 in fp32,
    32.1 GB of gradients beside the weights). engine_8b_fp32_int8w: the
    trained weights quantized to int8 with the embedding kept fp32, so
@@ -231,7 +234,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    one global) with a 2-layer tower at 224 px: image-prompt prefill and
    the next decode step's logits agree, and so do a chunked 1200-token
    text prompt's and a prefix hit's (int8 KV); then the 2-layer 8B with int8
-   weights: prefill and decode logits agree, argmax equal; then Qwen2-7B
+   weights: prefill and decode logits agree, argmax equal, and layer 0's
+   int8 weights (here and in Mixtral's phase) equal the CPU's quantization
+   of the same draw byte for byte; then Qwen2-7B
    and Gemma2-9B at full width cut to 2 layers (int8 KV): prefill, decode,
    chunked and prefix-hit logits agree; then Mixtral-8x7B at full width cut
    to 2 layers with int8 banks: the share of tokens routed to the same top-2
@@ -346,6 +351,27 @@ def _lse_err(lse, ref, what=""):
     return ok
 
 
+def _merge_bits(o, lse, partials, dtype):
+    """Print whether a split launch's O and LSE are bit-equal to the
+    two-launch design's merge (its combine kernel's arithmetic,
+    decode._combine_exact) over the launch's own split partials: printed,
+    not held here (tests/test_torch_kernels_gpu.py holds it)."""
+    from mfa_tpu_torch.kernels import decode
+
+    o_part, lse_part = partials
+    b, hkv, _, rows, d = o_part.shape
+    hq = o.shape[-2]
+    span = rows * hkv // hq
+    eo, el = decode._combine_exact(o_part, lse_part, dtype)
+    eo = eo.reshape(b, hkv, span, hq // hkv, d).transpose(1, 2).reshape(o.shape)
+    el = el.reshape(b, hkv, span, hq // hkv).transpose(1, 2).reshape(lse.shape)
+    n_o, n_l = int((o != eo).sum()), int((lse != el).sum())
+    print(f"  one launch vs the two-launch merge on its {lse_part.shape[2]} splits' "
+          f"partials: bit-equal {n_o == 0 and n_l == 0} ({n_o} of {o.numel()} O and "
+          f"{n_l} of {lse.numel()} LSE values differ)", flush=True)
+    return n_o == 0 and n_l == 0
+
+
 def _wave_launches(got, n, softcap=False, head_dim=128, suffix=""):
     """A bf16 prompt wave runs the default engine: n zero-shift launches,
     each followed by its repair launch, and kernel 1 not at all; with an
@@ -411,8 +437,7 @@ def kernel_phase(records):
             records["prefill"]["max_abs_err"] = max(
                 records["prefill"]["max_abs_err"], mx)
 
-    # -- kernel 5: split-KV decode + combine (b=16, S=8192)
-    from mfa_tpu_torch.dispatch.config import head_dim_plan
+    # -- kernel 5: split-KV decode, one launch at any split count (b=16, S=8192)
     from mfa_tpu_torch.kernels import _build
 
     b, hq, hkv, S = 16, 32, 8, 8192
@@ -424,55 +449,42 @@ def kernel_phase(records):
                           4 * b * hq * S * d)
     for ns in dict.fromkeys((heur, 2)):
         nsp, tps = decode.split_layout(S, ns)
-        o, lse = decode.decode_attention(q, kc, vc, lens, num_splits=ns,
-                                         return_lse=True)
+        partials = (torch.empty((b, hkv, nsp, hq // hkv, d), device=dev),
+                    torch.empty((b, hkv, nsp, hq // hkv), device=dev))
+
+        def call():
+            return decode._decode_cuda(q, kc, vc, lens, d ** -0.5, nsp, tps, -1, 0.0,
+                                       partials=partials)
+
+        def plain():
+            po, pl = decode._decode_partials_plain(q, kc, vc, lens, d ** -0.5, nsp,
+                                                   tps, -1, 0.0)
+            return decode.combine_splits(po, pl, axis=2, return_lse=True)
+
+        _build.reset_launches()
+        o, lse = call()
+        launched = dict(_build.launches)
         po, pl = decode._decode_partials_plain(q.float(), kc.float(), vc.float(),
                                                lens, d ** -0.5, nsp, tps, -1, 0.0)
         ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
-        print(f"decode b={b} hq={hq} hkv={hkv} S={S} d={d} num_splits={nsp} bf16",
-              flush=True)
+        print(f"decode b={b} hq={hq} hkv={hkv} S={S} d={d} num_splits={nsp} bf16: "
+              f"launches {launched}", flush=True)
         mx, good = _err(o, ro.reshape(b, hq, d), what="O")
-        ok &= good and _lse_err(lse, rl.reshape(b, hq), "")
-        for name in ("decode", "combine"):
-            records[name]["max_abs_err"] = max(
-                records[name].get("max_abs_err", 0.0), mx)
-        # each launch alone through its C function, the plain versions, and
-        # one library call computing the whole decode
-        o_part = torch.empty((b, hkv, nsp, hq // hkv, d), device=dev)
-        lse_part = torch.empty((b, hkv, nsp, hq // hkv), device=dev)
-        out, lse_o = torch.empty_like(q), torch.empty((b, hq), device=dev)
-        fn1 = _build.function("decode", "mfa_decode_partials",
-                              decode._PARTIALS_ARGTYPES)
-        fn2 = _build.function("decode", "mfa_decode_combine",
-                              decode._COMBINE_ARGTYPES)
-        stream = _build.stream_of(q)
-        scale_log2e = d ** -0.5 * math.log2(math.e)
-        ms1 = _time_ms(lambda: fn1(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                                   lens.data_ptr(), o_part.data_ptr(),
-                                   lse_part.data_ptr(), 1, b, hq, hkv, S, d,
-                                   head_dim_plan(d).kernel_dim, nsp, tps, -1,
-                                   scale_log2e, 0.0, 0.0, 0, None, stream))
-        ms2 = _time_ms(lambda: fn2(o_part.data_ptr(), lse_part.data_ptr(),
-                                   out.data_ptr(), lse_o.data_ptr(), 1, b, hq,
-                                   hkv, nsp, d, 1, stream))
-        plain_ms = _time_ms(lambda: decode._decode_partials_plain(
-            q, kc, vc, lens, d ** -0.5, nsp, tps, -1, 0.0), iters=3)
-        plain_comb = _time_ms(lambda: decode.combine_splits(o_part, lse_part))
+        ok &= good and _lse_err(lse, rl.reshape(b, hq), "") and launched == {"decode": 1}
+        if nsp > 1:
+            _merge_bits(o, lse, partials, bf)
+        records["decode"]["max_abs_err"] = max(
+            records["decode"].get("max_abs_err", 0.0), mx)
+        ms = _time_ms(call)
+        plain_ms = _time_ms(plain, iters=3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], kc, vc, enable_gqa=True))
-        print(f"  launch 1 ms {ms1:.4f} (plain {plain_ms:.4f}), combine launch "
-              f"ms {ms2:.4f} (plain {plain_comb:.4f}), library_ms(sdpa) "
-              f"{lib_ms:.4f}, bound_ms {bound_ms:.4f} ({by})", flush=True)
+        print(f"  ms {ms:.4f} (one launch) plain_ms {plain_ms:.4f} library_ms(sdpa) "
+              f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({by})", flush=True)
         if ns == heur:
-            records["decode"].update(ms=ms1, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=by,
-                                     library_ms=lib_ms)
-            part_bytes = b * hkv * nsp * (hq // hkv) * (d + 1) * 4
-            cb, cby = _bound(part_bytes + b * hq * (d * 2 + 4),
-                             3 * b * hq * nsp * d)
-            records["combine"].update(ms=ms2, plain_ms=plain_comb,
-                                      bound_ms=cb, bound_by=cby,
-                                      library_ms=None)
+            records["decode"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=by, library_ms=lib_ms)
+    del q, kc, vc, po, pl, ro, partials
 
     # -- kernel 6: paged decode (page 64, pos_offset=1, LSE)
     page = 64
@@ -568,8 +580,8 @@ def kv_format_kernels(records):
     """Kernel 6 (paged decode) and kernel 8 (paged prefill) on fp8 (e4m3)
     and int4 pages, each against its plain version (max 2e-2, mean 2e-3;
     LSE within 1e-3 with the same -inf rows). Kernel 6 at the 8B serve
-    step, lengths 8192, Gemma3-4B's decode step at d 256 (3 splits + the
-    combine), a window with a softcap, and d 64; kernel 8 at the engine's
+    step, lengths 8192, Gemma3-4B's decode step at d 256 (3 splits, one
+    launch), a window with a softcap, and d 64; kernel 8 at the engine's
     chunk batch. Rows past each length in a sequence's last page hold NaN
     scales, and fp8 rows there the NaN code 0x7F: neither may reach O (the
     plain version runs on the rows before the poisoning). Times the serve
@@ -989,6 +1001,14 @@ def gemma3_kernels(records, rn, gen):
               f"pos_offset=1", flush=True)
         mx, good = _err(o, ro, what="O")
         ok &= good and _lse_err(lse, rl, "")
+        nsp = paged.split_plan(nb, hkv, pps, page)[0]
+        if nsp > 1:  # the split route: its partials, for the merge's bits
+            partials = (torch.empty((nb, hkv, nsp, hq // hkv, d), device=dev),
+                        torch.empty((nb, hkv, nsp, hq // hkv), device=dev))
+            o2, lse2 = paged._paged_cuda(qd, kp, vp, ks, vs, L, bt, scale, 1023, 0.0, 1,
+                                         "int8" if quant else None, partials=partials)
+            ok &= torch.equal(o2, o) and torch.equal(lse2, lse)
+            _merge_bits(o2, lse2, partials, torch.bfloat16)
         records["paged"]["max_abs_err"] = max(records["paged"].get("max_abs_err", 0.0), mx)
         ms = _time_ms(run)
         plain_ms = _time_ms(lambda: paged._paged_plain(
@@ -2127,7 +2147,7 @@ def library_surface(counts):
     ok &= all(g.shape == t.shape for g, t in zip(
         grads, leaves + [qt, kt, vt] + leaves_a + [qt, kt, vt]))
     ok &= all(got.get(n, 0) >= 1 for n in (
-        "prefill", "flagged", "repair", "bound", "decode", "combine", "paged",
+        "prefill", "flagged", "repair", "bound", "decode", "paged",
         "varlen", "paged_prefill", "bwd_fused", "bwd_dkv", "bwd_dq",
         "varlen_bwd_dkv", "varlen_bwd_dq"))
     return ok
@@ -3991,6 +4011,38 @@ def engine_mixtral_phase(counts, ident, state):
     return ok
 
 
+def _int8_weights_match_cpu(llama, cfg, seed, p_gpu):
+    """The card's int8 weights of layer 0 (init_params(quantize="int8"))
+    against quantize_weight on the CPU of the same bf16 draw (layer 0 of a
+    one-layer init from the seed; for an expert bank, its expert 0), byte
+    for byte, payloads and scales: both quantize by mfa_tpu's jitted rule,
+    absmax * f32(1 / 127) -> ok."""
+    import torch
+
+    from mfa_tpu_torch.models.wquant import QWeight, quantize_weight
+
+    lp = llama.init_params(dataclasses.replace(cfg, n_layers=1), seed=seed,
+                           device="cuda")["layers"][0]
+    n_q = n_s = tot_q = tot_s = 0
+    for key, card in p_gpu["layers"][0].items():
+        if not isinstance(card, QWeight):
+            continue
+        w = lp[key]
+        if w.ndim == 3:  # an expert bank: its first expert
+            w, card = w[0], QWeight(card.qw[0], card.scale[0], card.axis)
+        host = quantize_weight(w.cpu(), axis=card.axis)
+        n_q += int((host.qw != card.qw.cpu()).sum())
+        n_s += int((host.scale != card.scale.cpu()).sum())
+        tot_q, tot_s = tot_q + host.qw.numel(), tot_s + host.scale.numel()
+    del lp
+    torch.cuda.empty_cache()
+    ok = n_q == 0 and n_s == 0
+    print(f"int8 weights of layer 0, card vs CPU quantize_weight of the same draw: "
+          f"{n_q} of {tot_q} payload bytes and {n_s} of {tot_s} scales differ "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def cpu_vs_cuda_moe_phase():
     """Phase 4, MoE: (a) Mixtral-8x7B at full width cut to 2 layers, int8
     weights and banks, on the card (kernels), on the CPU (plain versions)
@@ -4003,7 +4055,9 @@ def cpu_vs_cuda_moe_phase():
     three runs, the card-vs-CPU logits error (max < 0.25 everywhere, mean <
     0.02 over the forward's rows, the 2-layer limits), the spread of the
     forward's per-row means, and each bf16 run's mean distance from the fp32
-    reference: the card's at most 1.25x the CPU's. (b) 4 layers at
+    reference: the card's at most 1.25x the CPU's; layer 0's int8 weights
+    (expert 0 of each bank) equal to the CPU's quantization of the same
+    draw, byte for byte. (b) 4 layers at
     Mixtral's width with bf16 banks (11.3 GB) behind the engine on the
     card: the bf16 dense form (graphed decode) and grouped form (one
     torch.matmul an expert, the waves); greedy tokens equal to the same
@@ -4019,6 +4073,7 @@ def cpu_vs_cuda_moe_phase():
     cfg = dataclasses.replace(llama.LlamaConfig.mixtral_8x7b(), n_layers=2)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     p_gpu = llama.init_params(cfg, seed=SEED + 7, device="cuda", quantize="int8")
+    weights_ok = _int8_weights_match_cpu(llama, cfg, SEED + 7, p_gpu)
     p_cpu = dict(layers=[{k: v.to("cpu") for k, v in lp.items()} for lp in p_gpu["layers"]],
                  **{k: p_gpu[k].to("cpu") for k in ("embed", "final_norm", "lm_head")})
     p_ref = dict(p_cpu, embed=dequantize_weight(p_cpu["embed"], torch.float32))
@@ -4044,7 +4099,7 @@ def cpu_vs_cuda_moe_phase():
     alike = [a & torch.all(b == r, dim=-1)
              for a, b, r in zip(agree, ids["cuda"], ids["fp32"])]
     share = float(torch.cat(agree).float().mean())
-    ok = share >= 0.9
+    ok = share >= 0.9 and weights_ok
     last = torch.tensor([36, 89])
     rows_ok = [alike[0] & alike[1],
                (alike[2] & alike[3]).reshape(2, -1)[torch.arange(2), last],
@@ -4107,7 +4162,8 @@ def cpu_vs_cuda_int8w_phase():
     init_params(quantize="int8"), kernel 10 on the card against its plain
     version on the CPU with the same weights: whole-prompt prefill and the
     next decode step's logits within max 0.25 / mean 0.02 (as the bf16
-    model above), argmax equal."""
+    model above), argmax equal; and layer 0's int8 weights equal to the
+    CPU's quantization of the same draw, byte for byte."""
     import numpy as np
     import torch
 
@@ -4115,6 +4171,7 @@ def cpu_vs_cuda_int8w_phase():
 
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
     p_gpu = llama.init_params(cfg, seed=SEED + 4, device="cuda", quantize="int8")
+    weights_ok = _int8_weights_match_cpu(llama, cfg, SEED + 4, p_gpu)
     p_cpu = dict(layers=[{k: v.to("cpu") for k, v in lp.items()} for lp in p_gpu["layers"]],
                  **{k: p_gpu[k].to("cpu") for k in ("embed", "final_norm", "lm_head")})
     rng = np.random.RandomState(SEED + 4)
@@ -4128,7 +4185,7 @@ def cpu_vs_cuda_int8w_phase():
         out["toks"] = toks
         cache, lg2 = llama.decode_step(params, cfg, cache, [0, 1], toks)
         out[dev] = tuple(x.float().cpu() for x in (lg1, lg2))
-    ok = True
+    ok = weights_ok
     for i, name in enumerate(("prefill_batch", "decode_step")):
         a, r = out["cuda"][i], out["cpu"][i]
         d = (a - r).abs()
@@ -4286,7 +4343,7 @@ def sinks_kernels():
         ok &= good and _lse_err(lse, rl.reshape(b, hq), "")
         cols = S if wl < 0 else wl + 1 + sinks
         mask = _sdpa_mask(1, S, wl, -1, sinks, S - 1, slopes)
-        _report("decode + combine", _time_ms(lambda: decode.decode_attention(
+        _report("decode (one launch)", _time_ms(lambda: decode.decode_attention(
             q, kc, vc, L, **kw)), _time_ms(lambda: decode._decode_partials_plain(
                 q, kc, vc, L, d ** -0.5, ns, tps, wl, 0.0, sinks, slopes), iters=3),
             _time_ms(lambda: F.scaled_dot_product_attention(
@@ -4818,8 +4875,8 @@ def head_dim_kernels():
         ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
         _, good = _err(o, ro.reshape(16, hq, d), what=f"kernel 5 d{d} O")
         ok &= good and _lse_err(lse, rl.reshape(16, hq), "decode")
-        ok &= dict(_build.launches) == {"decode": 1, "combine": 1}
-        timed(f"kernel 5 (decode + combine), b16 hq{hq} hkv{hkv} S{S}",
+        ok &= dict(_build.launches) == {"decode": 1}
+        timed(f"kernel 5 (one launch), b16 hq{hq} hkv{hkv} S{S}",
               lambda: decode.decode_attention(q, kc, vc, L),
               lambda: decode.decode_attention(qD, kcD, vcD, L),
               lambda: decode._decode_partials_plain(q, kc, vc, L, d ** -0.5, ns, tps, -1,
@@ -5082,8 +5139,11 @@ def decode_groups():
         kc, vc = (torch.randn(b, hkv, S, d, generator=gen, device=dev).to(bf)
                   for _ in range(2))
         ns, tps = decode.split_layout(S, decode.default_splits(b, hkv, S, g))
+        partials = (torch.empty((b, hkv, ns, g, d), device=dev),
+                    torch.empty((b, hkv, ns, g), device=dev))
         _build.reset_launches()
-        o, lse = decode.decode_attention(q, kc, vc, L, return_lse=True)
+        o, lse = decode._decode_cuda(q, kc, vc, L, d ** -0.5, ns, tps, -1, 0.0,
+                                     partials=partials)
         launched = dict(_build.launches)
         po, pl = decode._decode_partials_plain(q.float(), kc.float(), vc.float(), L,
                                                d ** -0.5, ns, tps, -1, 0.0)
@@ -5092,14 +5152,16 @@ def decode_groups():
               f"{decode.row_blocks(g)} row blocks, {ns} split(s) {launched}", flush=True)
         _, good = _err(o, ro.reshape(b, hq, d), what="O")
         ok &= good and _lse_err(lse, rl.reshape(b, hq), "")
-        ok &= launched == {"decode": 1, "combine": 1}
-        _report(f"decode + combine, group {g}", _time_ms(lambda: decode.decode_attention(
+        ok &= launched == {"decode": 1}
+        if ns > 1:
+            _merge_bits(o, lse, partials, bf)
+        _report(f"decode (one launch), group {g}", _time_ms(lambda: decode.decode_attention(
             q, kc, vc, L)), _time_ms(lambda: decode._decode_partials_plain(
                 q, kc, vc, L, d ** -0.5, ns, tps, -1, 0.0), iters=1),
             _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
                                                             enable_gqa=True)),
             2 * b * hkv * S * d * 2 + 2 * b * hq * d * 2, 4 * b * hq * S * d)
-        del q, kc, vc, po, pl, ro, o
+        del q, kc, vc, po, pl, ro, o, partials
         torch.cuda.empty_cache()
     return ok
 
@@ -5350,7 +5412,7 @@ def layer_cache_phase(counts, ident):
                 counts.update({k_: counts.get(k_, 0) + n for k_, n in got.items()})
                 name = paged.launch_name("paged", quant)
                 splits = paged.split_plan(n_seq, hkv, pps, page)[0]
-                want = {name: steps, **({"combine": steps} if splits > 1 else {})}
+                want = {name: steps}  # one launch at any split count
                 good = worst < 2e-2 and mean_worst < 2e-3 and got == want \
                     and cache.lengths.tolist() == tokens
                 ok &= good
@@ -6085,7 +6147,7 @@ def pipeline_phase(counts, ident, shard):
 # fp32: the fp32 tile (csrc/flash_fwd_f32.cuh, paged_prefill.cu) and the decode tile
 # (csrc/decode_sm90.cuh) with fp32 q
 
-FP32_KERNELS = ("prefill", "flagged", "repair", "bound", "decode", "combine", "paged",
+FP32_KERNELS = ("prefill", "flagged", "repair", "bound", "decode", "paged",
                 "varlen", "paged_prefill", "blockmask")
 # the backward's launches (csrc/flash_bwd_f32.cuh on fp32 inputs)
 FP32_BWD = ("bwd_fused", "bwd_dkv", "bwd_dq", "varlen_bwd_dkv", "varlen_bwd_dq")
@@ -6241,8 +6303,8 @@ def fp32_kernels(records):
     inputs: flags equal to the plain version's, > 0, and every flagged tile
     equal to kernel 1 bit for bit), kernel 4 at d 64 (the 8B wave's heads
     and BASELINE's first config) with and without risky bits (q and k x 4:
-    every tile risky), kernel 5 and
-    the combine at b16 S8192, kernel 6 at the 8B serve step on fp32, int8,
+    every tile risky), kernel 5 at
+    b16 S8192 (one split and two), kernel 6 at the 8B serve step on fp32, int8,
     fp8 and int4 pages (fp32 q) and at lens 8192, kernel 7 on 8 x 512 and a
     ragged pack, kernel 8 at the engine chunk batch on every page format,
     kernel 9 at Gemma3-4B's image wave. Limits: atol = rtol = 1e-4 on fp32
@@ -6370,51 +6432,43 @@ def fp32_kernels(records):
                           q, k, v, is_causal=causal, enable_gqa=True)),
                       4 * (2 * b * h * s * 64 + 2 * b * kvh * s * 64), 4 * pairs * 64)
     ok &= _fp32_bound_vs_fp64(rn, hq, hkv)
-    # -- kernel 5 + the combine: b16 S8192, then a window with sinks and ALiBi
+    # -- kernel 5, one launch: b16 S8192 at its split count and at 2, then a
+    # window with sinks and ALiBi
     b, S = 16, 8192
     q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
     L = torch.full((b,), S, dtype=torch.int32, device=dev)
-    ns, tps = decode.split_layout(S, decode.default_splits(b, hkv, S, hq // hkv))
-    for wl, sinks, alibi in ((-1, 0, False), (4095, 4, True)):
+    heur = decode.default_splits(b, hkv, S, hq // hkv)
+    for wl, sinks, alibi, req in ((-1, 0, False, heur), (-1, 0, False, 2),
+                                  (4095, 4, True, heur)):
+        ns, tps = decode.split_layout(S, req)
         slopes = _alibi_slopes(hq) if alibi else None
         po, pl = decode._decode_partials_plain(q, kc, vc, L, scale, ns, tps, wl, 0.0,
                                                sinks, slopes)
         ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+        partials = (torch.empty((b, hkv, ns, hq // hkv, d), device=dev),
+                    torch.empty((b, hkv, ns, hq // hkv), device=dev))
+
+        def call():
+            return decode._decode_cuda(q, kc, vc, L, scale, ns, tps, wl, 0.0, sinks,
+                                       slopes, partials=partials)
+
         _build.reset_launches()
-        o, lse = decode.decode_attention(q, kc, vc, L, window_left=wl, sink_tokens=sinks,
-                                         alibi_slopes=slopes, return_lse=True)
-        print(f"decode_fp32 + combine_fp32 (kernel 5) b{b} hq{hq} hkv{hkv} S{S} d{d}, "
+        o, lse = call()
+        print(f"decode_fp32 (kernel 5) b{b} hq{hq} hkv{hkv} S{S} d{d}, "
               f"{ns} splits, window {wl}, sinks {sinks}, ALiBi {alibi}: "
               f"{dict(_build.launches)}", flush=True)
         mx, good = _err32(o, ro.reshape(b, hq, d), "O", lse, rl.reshape(b, hq))
-        ok &= good and dict(_build.launches) == {"decode_fp32": 1, "combine_fp32": 1}
-        if wl < 0:
-            o_part = torch.empty((b, hkv, ns, hq // hkv, d), device=dev)
-            lse_part = torch.empty((b, hkv, ns, hq // hkv), device=dev)
-            out, lse_o = torch.empty_like(q), torch.empty((b, hq), device=dev)
-            fn1 = _build.function("decode", "mfa_decode_partials",
-                                  decode._PARTIALS_ARGTYPES)
-            fn2 = _build.function("decode", "mfa_decode_combine", decode._COMBINE_ARGTYPES)
-            stream, code = _build.stream_of(q), _build.DTYPE_CODES[torch.float32]
-            ms1 = _time_ms(lambda: fn1(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                                       L.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
-                                       code, b, hq, hkv, S, d, d, ns, tps, -1,
-                                       scale * math.log2(math.e), 0.0, 0.0, 0, None,
-                                       stream))
-            ms2 = _time_ms(lambda: fn2(o_part.data_ptr(), lse_part.data_ptr(),
-                                       out.data_ptr(), lse_o.data_ptr(), code, b, hq,
-                                       hkv, ns, d, 1, stream))
-            _record32(records, "decode", f"launch 1 ({ns} splits)", mx, ms1, _time_ms(
-                lambda: decode._decode_partials_plain(q, kc, vc, L, scale, ns, tps, -1,
-                                                      0.0), iters=3),
-                _time_ms(lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], kc, vc, enable_gqa=True)),
-                2 * b * hkv * S * d * 4 + 2 * b * hq * d * 4, 4 * b * hq * S * d)
-            _record32(records, "combine", "combine launch", mx, ms2, _time_ms(
-                lambda: decode.combine_splits(o_part, lse_part)), None,
-                b * hkv * ns * (hq // hkv) * (d + 1) * 4 + b * hq * (d + 1) * 4,
-                3 * b * hq * ns * d)
-    del q, kc, vc
+        ok &= good and dict(_build.launches) == {"decode_fp32": 1}
+        if ns > 1:
+            _merge_bits(o, lse, partials, torch.float32)
+        if wl < 0 and req == heur:
+            _record32(records, "decode", f"one launch ({ns} splits)", mx, _time_ms(call),
+                      _time_ms(lambda: decode.combine_splits(*decode._decode_partials_plain(
+                          q, kc, vc, L, scale, ns, tps, -1, 0.0), axis=2), iters=3),
+                      _time_ms(lambda: F.scaled_dot_product_attention(
+                          q[:, :, None], kc, vc, enable_gqa=True)),
+                      2 * b * hkv * S * d * 4 + 2 * b * hq * d * 4, 4 * b * hq * S * d)
+    del q, kc, vc, po, pl, ro, partials
     torch.cuda.empty_cache()
     # -- kernel 6: the 8B serve step (fp32 q) on every page format, and lens 8192
     page = 64
@@ -6557,7 +6611,7 @@ def minimal_fp32_phase(counts):
     hold them; then every fp32 kernel through its entry point at the 8B
     heads: flash_attn_func causal (kernels 2 + 3) and with a softcap
     (kernel 1), flash_attn_varlen_func packed (7) and paged (8),
-    flash_attn_with_kvcache contiguous (5 + the combine) and paged (6),
+    flash_attn_with_kvcache contiguous (5) and paged (6),
     image_block_prefill (9); then the gradients on fp32 tensors (kernels
     11-14): BASELINE's first config through flash_attn_func_grad (fused),
     the 8B heads' flash_attn_func_grad (fused) and flash_attention_bwd with
@@ -6687,7 +6741,7 @@ def engine_fp32_phase(counts, ident, state):
     with the graphs off (the same tokens): every wave runs kernels 2 + 3
     in fp32, every decode step kernel 6 in fp32 (fp32 q on int8 pages).
     Then the chunked + prefix traffic on int8 KV (kernel 8 with fp32 q;
-    the split route's combine at its long contexts)."""
+    kernel 6's split route at its long contexts)."""
     import torch
 
     from mfa_tpu_torch.models import llama, wquant
@@ -6744,7 +6798,7 @@ def engine_fp32_phase(counts, ident, state):
     print(f"engine fp32: fp32 launches so far {({f'{n}_fp32': counts.get(f'{n}_fp32', 0) for n in FP32_KERNELS})}",
           flush=True)
     ok &= all(counts.get(f"{n}_fp32", 0) > 0 for n in
-              ("flagged", "repair", "paged", "paged_prefill", "combine"))
+              ("flagged", "repair", "paged", "paged_prefill"))
     return ok
 
 
@@ -7300,8 +7354,6 @@ def main() -> int:
                     "mfa_tpu/kernels/prefill.py:178"),
         "decode": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                    "mfa_tpu/kernels/decode.py:53"),
-        "combine": ("mfa_tpu_torch/csrc/decode.cu",
-                    "mfa_tpu/kernels/decode.py:148"),
         "paged": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                   "mfa_tpu/kernels/paged.py:122"),
         "paged_fp8": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
@@ -7351,8 +7403,6 @@ def main() -> int:
                        "mfa_tpu/kernels/prefill.py:661"),
         "decode_fp32": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                         "mfa_tpu/kernels/decode.py:53"),
-        "combine_fp32": ("mfa_tpu_torch/csrc/decode.cu",
-                         "mfa_tpu/kernels/decode.py:148"),
         "paged_fp32": ("mfa_tpu_torch/csrc/decode_sm90.cuh",
                        "mfa_tpu/kernels/paged.py:122"),
         "varlen_fp32": ("mfa_tpu_torch/csrc/flash_fwd_f32.cuh",

@@ -247,12 +247,15 @@ def scatter_span_rows(pages: torch.Tensor, page_ids: torch.Tensor,
         as_bytes(pages).dtype)
 
 
-def payload_rows(quant_dtype: Optional[str], store_dtype, x):
+def payload_rows(quant_dtype: Optional[str], store_dtype, x,
+                 reciprocal: bool = True):
     """-> (payload, per-row scales or None): the cache's storage dtype, or
-    quantize_rows' payload (int4 values unpacked; the writes pack them)."""
+    quantize_rows' payload (int4 values unpacked; the writes pack them).
+    reciprocal: the scale rule of mfa_tpu's jitted writers (its engine's
+    steps and append_token); write_prompt, eager there, passes False."""
     if quant_dtype is None:
         return x.to(store_dtype), None
-    return quantize_rows(x, quant_dtype)
+    return quantize_rows(x, quant_dtype, reciprocal)
 
 
 def write_prompt(cache: PagedKVCache, seq_slot: int, pages: Sequence[int],
@@ -276,7 +279,7 @@ def write_prompt(cache: PagedKVCache, seq_slot: int, pages: Sequence[int],
                             (v_prompt, cache.v_pages, cache.v_scales)):
         xq, xs = payload_rows(cache.quant_dtype, pool.dtype,
                               torch.nn.functional.pad(x.to(dev), pad)
-                              .transpose(0, 1))
+                              .transpose(0, 1), reciprocal=False)
         write_pages(pool, ids[:n_pages],
                     pack_pages_payload(cache.quant_dtype, xq, n_pages, page))
         if xs is not None:

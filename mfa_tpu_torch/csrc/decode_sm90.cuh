@@ -28,9 +28,11 @@
 // still comes from the shapes alone). ALiBi subtracts slope * |position -
 // column| from each row's log2-domain scores, the slope of the row's q
 // head pre-multiplied by log2 e (decode.py:108-111, paged.py:363-370).
-// With one split and `out` set the block stores the final O in
-// the q dtype and the natural-log LSE; otherwise each split's normalized
-// fp32 O and LSE for the combine (decode.cu, launch 2).
+// With one split the block stores the final O in the q dtype and the
+// natural-log LSE. With more, each block stores its split's normalized fp32
+// O and LSE, and the last block of its (batch, kv head, row block) to do so
+// merges every split's into O and the LSE (merge_splits): one launch at any
+// split count.
 //
 // Bound: device-memory bytes, K and V read once (a decode row does 4 D
 // operations per 4 D cache bytes, far below the ~295 operations a byte
@@ -135,6 +137,9 @@ namespace kd90 {
 
 // tokens a split unit, and a tile but for fp32 rows at D 256 (kernels/decode.py:TILE)
 constexpr int TILE = 64;
+// the most splits a launch takes (kernels/decode.py:MAX_SPLITS): the merge
+// keeps a weight per split and row in shared memory
+constexpr int MAX_SPLITS = 128;
 
 struct Args {
   const void* q;       // [b, hq, dw]
@@ -147,8 +152,11 @@ struct Args {
   const int* table;      // [b, pps] pool pages
   const float* k_scale;  // quantized pages: [hkv, P, page] fp32
   const float* v_scale;
-  void* out;             // one split: O [b, hq, dw] in T (else null)
-  float* lse_out;        // and its LSE [b, hq]
+  void* out;             // O [b, q_span, hq, dw] in T
+  float* lse_out;        // and its LSE [b, q_span, hq] (or null)
+  // splits > 1: one ticket counter per (batch, kv head, row block), zero
+  // before the launch and again after it (kernels/_build.py:split_counters)
+  int* counters;
   int num_pages, page_size, pps, box_rows, pos_offset;
   int q_span;  // M16: span positions of q [b, q_span, hq, D] (else 1)
   int sinks;   // with a left window: columns < sinks stay visible (else 0)
@@ -206,6 +214,13 @@ struct Plan {
   static constexpr uint32_t ml_off = CWARPS * ROWS * D * 4;
   static_assert(STAGES >= 2 && STAGES % TEAMS == 0, "a ring of a slot or more a team");
   static_assert(ml_off<16> + CWARPS * 2 * 16 * 4 <= bar_off, "the merge must fit in the ring");
+  // the split merge: the weights below (m, l), the staged partials from
+  // past them to the barriers, at least one split's rows at a time
+  template <int ROWS>
+  static constexpr uint32_t stage_off = (ml_off<ROWS> + CWARPS * 2 * ROWS * 4 + 15) / 16 * 16;
+  static_assert(8 * (MAX_SPLITS + 2) * 4 <= ml_off<8> && 16 * (MAX_SPLITS + 2) * 4 <= ml_off<16>,
+                "the split merge's weights must fit below (m, l)");
+  static_assert(stage_off<16> + 16 * D * 4 <= bar_off, "a split's rows must fit the stage");
   static_assert(bytes <= 232448, "a block's shared memory");
 };
 
@@ -411,6 +426,129 @@ __device__ __forceinline__ void k_frag(uint32_t w, uint32_t (&kb)[4]) {
     e4m3x4_to_bf16(w, kb[0], kb[1]);
   } else {
     i8x4_to_bf16(w, kb[0], kb[1]);
+  }
+}
+
+// The split merge of one (batch, kv head, row block) by the NT consumer
+// threads of the block that arrived last: rows r0 .. r0 + nrows - 1 of the
+// partials o_part / lse_part (other blocks wrote them: read through L2)
+// into O in T and the LSE. The arithmetic of the two-launch design's merge
+// kernel, expression for expression and in split order: m = the largest
+// LSE (0 if all are -inf), w_s = expf(lse_s - m), denominator = the w_s
+// summed in order (1 if 0), O = sum_s w_s o_s / denominator (one fused
+// multiply-add a split), LSE = m + logf(denominator) (-inf if all are
+// -inf). So O and the LSE are the bits that merge gave, whatever the order
+// in which the splits ended. The tail is latency: the partials come into
+// shared memory by cp.async, every split's rows in flight at once (in
+// chunks of as many splits as [stage_off, stage_end) holds), while the
+// weights are formed. Shared memory from sm: the weights [nrows][splits],
+// then the rows' m and denominators; named barrier 1 joins the NT threads.
+template <typename T, int D, int ROWS, int NT, bool M16>
+__device__ __forceinline__ void merge_splits(const Args& a, int b, int hk, int r0, int nrows,
+                                             int span, unsigned char* sm, uint32_t stage_off,
+                                             uint32_t stage_end) {
+  const int ns = a.num_splits, G = a.group, R = span * G, dw = a.dw;
+  const int tid = threadIdx.x - 32;
+  float* w = reinterpret_cast<float*>(sm);  // the LSE, then the weight, of row r, split s
+  float* mrow = w + ROWS * MAX_SPLITS;      // a row's largest LSE
+  float* drow = mrow + ROWS;                // its safe denominator
+  float* stage = reinterpret_cast<float*>(sm + stage_off);  // [splits][nrows][dw]
+  const int per_split = nrows * dw;  // floats of one split's rows: contiguous in o_part
+  const int chunk = min(ns, (int)((stage_end - stage_off) / 4) / per_split);
+  const size_t part0 = ((size_t)b * a.hkv + hk) * ns * R + r0;  // split 0's row r0
+  auto stage_splits = [&](int s0, int n) {
+    for (int i = tid; i < n * per_split / 4; i += NT) {
+      const int sp = i / (per_split / 4), u = i % (per_split / 4);
+      tc32::cp16(stage + 4 * i, a.o_part + (part0 + (size_t)(s0 + sp) * R) * dw + 4 * u, true);
+    }
+    tc32::cp_commit();
+  };
+  stage_splits(0, chunk);
+  for (int i = tid; i < nrows * ns; i += NT) {
+    const int r = i / ns, sp = i % ns;
+    w[i] = __ldcg(a.lse_part + part0 + (size_t)sp * R + r);
+  }
+  named_sync(1, NT);
+  if (tid < nrows) {
+    float m = -INFINITY;
+    for (int sp = 0; sp < ns; ++sp) m = fmaxf(m, w[tid * ns + sp]);
+    mrow[tid] = m;
+  }
+  named_sync(1, NT);
+  for (int i = tid; i < nrows * ns; i += NT) {
+    const float m = mrow[i / ns];
+    w[i] = expf(w[i] - (m == -INFINITY ? 0.f : m));
+  }
+  named_sync(1, NT);
+  // row r0 + r of the (batch, kv head): its row of O and of the LSE
+  auto out_row = [&](int r) {
+    const int rr = r0 + r, si = M16 ? rr / G : 0, gi = M16 ? rr % G : rr;
+    return ((size_t)b * span + si) * a.hq + (size_t)hk * G + gi;
+  };
+  if (tid < nrows) {
+    float denom = 0.f;
+    for (int sp = 0; sp < ns; ++sp) denom += w[tid * ns + sp];
+    const float dsafe = denom == 0.f ? 1.f : denom;
+    drow[tid] = dsafe;
+    const bool all_empty = mrow[tid] == -INFINITY;
+    if (a.lse_out != nullptr)
+      a.lse_out[out_row(tid)] = all_empty ? -INFINITY : mrow[tid] + logf(dsafe);
+  }
+  // four columns of a row a thread, EPT of them (D, not dw, in the index
+  // arithmetic, as in the block's own merge). Up to D 128 (EPT <= 2) a
+  // column's splits run 4 at a time; at D 256 a split's EPT reads go out
+  // together, one split at a time (more held 4 x EPT float4s in flight and
+  // spilled beside the 16-row tile's 255 registers).
+  constexpr int EPT = (ROWS * D / 4 + NT - 1) / NT;
+  int at[EPT], wat[EPT];  // row * dw + column in a split's staged rows (or
+                          // -1), and row * splits: the row's weights
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) {
+    const int i = tid + k * NT, r = i / (D / 4), x = 4 * (i % (D / 4));
+    at[k] = r < nrows && x < dw ? r * dw + x : -1;
+    wat[k] = r * ns;
+  }
+  float acc[EPT][4] = {};
+  auto fma4 = [&](int k, int sp, int s0) {
+    const float4 o = *reinterpret_cast<const float4*>(stage + sp * per_split + at[k]);
+    const float ws = w[wat[k] + s0 + sp];
+    acc[k][0] += ws * o.x;
+    acc[k][1] += ws * o.y;
+    acc[k][2] += ws * o.z;
+    acc[k][3] += ws * o.w;
+  };
+  for (int s0 = 0; s0 < ns; s0 += chunk) {
+    const int n = min(chunk, ns - s0);
+    tc32::cp_wait<0>();
+    named_sync(1, NT);  // splits [s0, s0 + n) staged (and the denominators stored)
+    if constexpr (EPT <= 2) {
+#pragma unroll
+      for (int k = 0; k < EPT; ++k) {
+        if (at[k] < 0) continue;
+#pragma unroll 4
+        for (int sp = 0; sp < n; ++sp) fma4(k, sp, s0);
+      }
+    } else {
+#pragma unroll 1
+      for (int sp = 0; sp < n; ++sp) {
+#pragma unroll
+        for (int k = 0; k < EPT; ++k)
+          if (at[k] >= 0) fma4(k, sp, s0);
+      }
+    }
+    if (s0 + n < ns) {
+      named_sync(1, NT);  // every thread is done with this chunk
+      stage_splits(s0 + n, min(chunk, ns - s0 - n));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) {
+    if (at[k] < 0) continue;
+    const int r = wat[k] / ns, x = at[k] - r * dw;
+    const float dsafe = drow[r];
+    T* out = static_cast<T*>(a.out) + out_row(r) * dw + x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = from_float<T>(acc[k][e] / dsafe);
   }
 }
 
@@ -1083,7 +1221,7 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
     }
   }
   named_sync(1, 32 * CWARPS);
-  const bool final_out = a.out != nullptr;  // one split: O in T and the LSE
+  const bool final_out = a.num_splits == 1;  // O in T and the LSE
   const int dw = a.dw;
   for (int idx = threadIdx.x - 32; idx < nrows * D; idx += 32 * CWARPS) {
     // D, not dw, in the index arithmetic: a division by a run-time dw here
@@ -1115,6 +1253,29 @@ __global__ void __launch_bounds__(Plan<D, F>::THREADS, 1)
       if (x == 0) a.lse_part[prow] = lse;
     }
   }
+  if (final_out) return;
+  // Every block gets here, whatever its split held (no tile, lengths short
+  // of the split, a window that empties it: its partial is O = 0, LSE =
+  // -inf): a block that left before its ticket would leave the counter
+  // short for the next launch. The ticket goes after this block's partial
+  // is in L2; the block that takes the last one merges.
+  __threadfence();
+  named_sync(1, 32 * CWARPS);  // every partial stored, and mo / ml free
+  int* last = reinterpret_cast<int*>(ml);
+  if (threadIdx.x == 32) {
+    const int row_blocks = M16 ? (R + 15) / 16 : 1;
+    int* ctr = a.counters + ((size_t)b * a.hkv + hk) * row_blocks + r0 / 16;
+    const int ticket = atomicAdd(ctr, 1);
+    if (ticket == a.num_splits - 1) {
+      *ctr = 0;  // every split is in: zero for the next launch or graph replay
+      __threadfence();
+    }
+    *last = ticket == a.num_splits - 1;
+  }
+  named_sync(1, 32 * CWARPS);
+  if (*last)
+    merge_splits<T, D, ROWS, 32 * CWARPS, M16>(a, b, hk, r0, nrows, span, smem,
+                                                P::template stage_off<ROWS>, P::bar_off);
 }
 
 // Encode the K and V maps and launch (a contiguous cache k, v [b, hkv, S,

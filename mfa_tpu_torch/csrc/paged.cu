@@ -20,8 +20,9 @@
 // The TPU kernel walks a sequence's pages in order; here a grid that does
 // not fill the 132 SMs splits each sequence's pages into whole 64-token
 // tiles (num_splits, tokens_per_split from kernels/paged.py:split_plan).
-// One split writes the final O and LSE in this launch; more write fp32
-// partials that decode.cu's mfa_decode_combine merges.
+// One split writes the final O and LSE; with more, each block writes its
+// fp32 partial and the last block of each (sequence, kv head, row block)
+// to finish merges them into O and the LSE, in the same launch.
 //
 // The TPU-only layout tricks (128-lane page padding, fp8-as-int8 bits, int4
 // token-pair order) do not exist here: rows are d values wide, d the
@@ -37,20 +38,24 @@
 //
 // q [b, q_span, hq, d] (quantized pages take bf16 or fp32 q); kv_dtype:
 // MFA_BF16 / MFA_F16 / MFA_F32 (the q dtype) or the format code MFA_I8,
-// MFA_E4M3, MFA_I4; with num_splits == 1:
-// out [b, q_span, hq, d] in the q dtype and lse_out [b, q_span, hq] fp32,
-// else o_part [b, hkv, num_splits, q_span * hq / hkv, d] and lse_part [b,
-// hkv, num_splits, q_span * hq / hkv] fp32 (rows [q_span, group]
-// flattened). d: features of q's and a stored page row (int4: 2 a byte), a
-// multiple of 8 (16-bit), 16 (int8, fp8) or 32 (int4) up to 256, run at
-// the instantiated D kd. page_size any row count (boxes of gcd(page_size,
+// MFA_E4M3, MFA_I4. out [b, q_span, hq, d] in the q dtype and lse_out [b,
+// q_span, hq] fp32 (or null); num_splits > 1 (at most kd90::MAX_SPLITS)
+// also takes scratch o_part [b, hkv, num_splits, q_span * hq / hkv, d] and
+// lse_part [b, hkv, num_splits, q_span * hq / hkv] fp32 (rows [q_span,
+// group] flattened) and counters, b * hkv * row blocks int32 zeros (row
+// blocks: 1, or one per 16 rows with spans and groups above 8), zero again
+// when the launch ends; launches that share them run one at a time. d:
+// features of q's and a stored page row (int4: 2 a byte), a multiple of 8
+// (16-bit), 16 (int8, fp8) or 32 (int4) up to 256, run at the
+// instantiated D kd. page_size any row count (boxes of gcd(page_size,
 // 64) rows); every pointer 16-byte aligned.
 // Returns a cudaError_t code.
 extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                 const float* k_scale, const float* v_scale, const int* lens,
                                 const int* table, void* out, float* lse_out, float* o_part,
-                                float* lse_part, int q_dtype, int kv_dtype, int batch, int hq,
-                                int hkv, int num_pages, int page_size, int pps, int d, int kd,
+                                float* lse_part, int* counters, int q_dtype, int kv_dtype,
+                                int batch, int hq, int hkv, int num_pages, int page_size,
+                                int pps, int d, int kd,
                                 int q_span, int num_splits, int tokens_per_split, int pos_offset,
                                 int window_left, float scale_log2e, float softcap,
                                 float softcap_mul, int sinks, const float* slopes,
@@ -58,7 +63,7 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   if (batch == 0) return 0;
   const int group = hkv > 0 ? hq / hkv : 0;
   if (group < 1 || q_span < 1 || num_pages < 1 || page_size <= 0 || num_splits < 1 ||
-      tokens_per_split % kd90::TILE != 0)
+      num_splits > kd90::MAX_SPLITS || tokens_per_split % kd90::TILE != 0)
     return MFA_BAD_CONFIG;
   const bool m16 = q_span > 1 || group > 8;  // 16 query rows a block
   int box_rows = kd90::TILE;  // gcd(page_size, 64): a power of two, 1 to 64
@@ -81,8 +86,9 @@ extern "C" int mfa_paged_decode(const void* q, const void* k_pages, const void* 
   a.table = table;
   a.k_scale = k_scale;
   a.v_scale = v_scale;
-  a.out = num_splits == 1 ? out : nullptr;
+  a.out = out;
   a.lse_out = lse_out;
+  a.counters = counters;
   a.num_pages = num_pages;
   a.page_size = page_size;
   a.pps = pps;

@@ -10,6 +10,9 @@ loads a stale library. Nothing is built at import time.
 `launches` counts kernel launches by name. A wrapper adds one right after
 its launch and nowhere else, so a run can show which kernels it went
 through; `reset_launches()` zeroes the counts.
+
+`split_counters` owns the ticket counters of the split-KV decode launches
+(kernels 5 and 6), one persistent buffer per device.
 """
 
 from __future__ import annotations
@@ -58,12 +61,45 @@ def launch_key(name: str, dtype: torch.dtype) -> str:
 
 launches: collections.Counter = collections.Counter()
 
+# The split-KV decode merges its splits in its one launch: the last block
+# of each (batch, kv head, row block) to finish takes the last ticket of its
+# int32 counter, merges, and zeroes the counter again. A launch takes one
+# counter per (batch, kv head, row block), SPLIT_COUNTERS at most.
+SPLIT_COUNTERS = 1 << 16
+_counters: Dict[torch.device, torch.Tensor] = {}
+
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Optional[float] = None
 
 
 def reset_launches() -> None:
     launches.clear()
+
+
+def split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's zeroed int32 ticket counters for a split-KV decode
+    launch of n (batch x kv head x row block) merges (kernels/decode.py,
+    kernels/paged.py). Allocated at the device's first split launch and
+    never reallocated, since a captured CUDA graph keeps its address; each
+    launch leaves them zero, so a replay needs no memset. Launches that take
+    them must not run at once on two streams of one device (the engine runs
+    one stream a device). Raises ValueError past SPLIT_COUNTERS merges, and
+    RuntimeError if the first use comes inside a CUDA graph capture."""
+    if n > SPLIT_COUNTERS:
+        raise ValueError(f"a split decode launch of {n} (batch x kv head x row "
+                         f"block) merges exceeds the {SPLIT_COUNTERS} counters")
+    buf = _counters.get(device)
+    if buf is None:
+        cuda = device.type == "cuda"
+        if cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the split decode's counters are allocated at the "
+                               "device's first split launch, which must not be "
+                               "inside a CUDA graph capture: run one step eagerly")
+        buf = torch.zeros(SPLIT_COUNTERS, dtype=torch.int32, device=device)
+        if cuda:
+            torch.cuda.synchronize(device)  # zero before any stream launches on it
+        _counters[device] = buf
+    return buf
 
 
 def _nvcc() -> str:

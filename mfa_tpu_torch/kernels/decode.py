@@ -1,11 +1,13 @@
 """Split-KV flash decoding (counterpart of mfa_tpu/kernels/decode.py).
 
-Kernel 5 of the port: csrc/decode.cu. Launch 1 (csrc/decode_sm90.cuh: a
-TMA ring of K/V tiles, the products on the tensor cores) runs one block per
-(batch, kv head, split) over a contiguous [b, hkv, S, d] cache and writes
-normalized fp32 partials with their LSE; launch 2 merges the splits
-(`combine_splits`, max subtracted first, empty splits skipped). A CPU
-tensor runs the same two steps in plain PyTorch.
+Kernel 5 of the port: csrc/decode.cu, one launch (csrc/decode_sm90.cuh: a
+TMA ring of K/V tiles, the products on the tensor cores) of one block per
+(batch, kv head, split) over a contiguous [b, hkv, S, d] cache. One split
+writes O and the LSE; with more, each block writes its normalized fp32
+partial with its LSE and the last block of each (batch, kv head) to finish
+merges them in the same launch, by `combine_splits`'s function (max
+subtracted first, empty splits weighted 0). A CPU tensor runs the
+partials and `combine_splits` in plain PyTorch.
 
 Split ranges are whole 64-token tiles: split s covers tokens
 [s * tps, (s + 1) * tps) with tps = ceil(ceil(S / 64) / splits) * 64, so a
@@ -17,9 +19,8 @@ Any head_dim up to 256 (dispatch/config.py:head_dim_plan: the kernel's D,
 a zero-padded copy only where a row's bytes are not a multiple of 16) and
 any number of q heads a kv head: up to 8 q rows share one m16 tile, more
 run in blocks of 16 rows (the paged kernel's), each block reading its kv
-head's tiles again. fp32 q and caches run launch 1 on the same tile with
-both products in 3xTF32 and the combine writes fp32 O (launch names
-`decode_fp32`, `combine_fp32`).
+head's tiles again. fp32 q and caches run the same tile with both
+products in 3xTF32 (launch name `decode_fp32`).
 """
 
 from __future__ import annotations
@@ -45,9 +46,10 @@ BLOCKS_PER_SM = 1
 # zero), or 16 a block when the group is larger (csrc/decode_sm90.cuh M16)
 TILE_ROWS, M16_ROWS = 8, 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _F, _F, _F, _I, _P, _P]
-_COMBINE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# the most splits a launch takes: the merge keeps a weight a split and row
+# in shared memory (csrc/decode_sm90.cuh MAX_SPLITS; the heuristic's own cap)
+MAX_SPLITS = 128
+_PARTIALS_ARGTYPES = [_P] * 9 + [_I] * 10 + [_F, _F, _F, _I, _P, _P]
 
 
 def row_blocks(group: int) -> int:
@@ -67,9 +69,9 @@ def default_splits(batch: int, num_kv_heads: int, max_s: int,
 
 def split_layout(max_s: int, num_splits: int):
     """-> (num_splits, tokens_per_split) with every split non-empty in
-    tiles (the last one may end past max_s)."""
+    tiles (the last one may end past max_s), MAX_SPLITS at most."""
     n_tiles = max(1, cdiv(max_s, TILE))
-    num_splits = max(1, min(num_splits, n_tiles))
+    num_splits = max(1, min(num_splits, n_tiles, MAX_SPLITS))
     tiles_per_split = cdiv(n_tiles, num_splits)
     return cdiv(n_tiles, tiles_per_split), tiles_per_split * TILE
 
@@ -77,7 +79,7 @@ def split_layout(max_s: int, num_splits: int):
 def combine_splits(o_parts: torch.Tensor, lse: torch.Tensor, axis: int = 2,
                    return_lse: bool = False):
     """Max-normalized LSE combine over a splits axis (plain version of the
-    combine launch; mfa_tpu/kernels/decode.py:combine_splits).
+    split merge of kernels 5 and 6; mfa_tpu/kernels/decode.py:combine_splits).
 
     o_parts: [..., splits, ..., d] normalized fp32 partials; lse: matching
     natural-log LSE per partial (-inf = empty split)."""
@@ -94,6 +96,34 @@ def combine_splits(o_parts: torch.Tensor, lse: torch.Tensor, axis: int = 2,
                             torch.full_like(lse_g, float("-inf")), lse_g)
         return out, lse_g
     return out
+
+
+def _combine_exact(o_part: torch.Tensor, lse_part: torch.Tensor,
+                   dtype: torch.dtype):
+    """The split merge with the kernel's arithmetic (csrc/decode_sm90.cuh:
+    merge_splits), to check its bits on the card: o_part [b, hkv, splits,
+    rows, d] and lse_part [b, hkv, splits, rows] fp32 -> (O [b, hkv, rows,
+    d] in dtype, LSE [b, hkv, rows]). Splits in order; each O step is one
+    fused multiply-add, formed in fp64 (the product exact) and rounded to
+    fp32, which can part from the kernel's single rounding only where the
+    fp64 sum lands on an fp32 tie."""
+    splits = lse_part.shape[2]
+    m = torch.full_like(lse_part[:, :, 0], float("-inf"))
+    for s in range(splits):
+        m = torch.fmax(m, lse_part[:, :, s])
+    all_empty = m == float("-inf")
+    m = torch.where(all_empty, torch.zeros_like(m), m)
+    w = torch.exp(lse_part - m[:, :, None])
+    denom = torch.zeros_like(m)
+    acc = torch.zeros_like(o_part[:, :, 0])
+    for s in range(splits):
+        denom = denom + w[:, :, s]
+        acc = (w[:, :, s, :, None].double() * o_part[:, :, s].double()
+               + acc.double()).float()
+    dsafe = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    lse = torch.where(all_empty, torch.full_like(m, float("-inf")),
+                      m + torch.log(dsafe))
+    return (acc / dsafe[..., None]).to(dtype), lse
 
 
 def _decode_partials_plain(q, k_cache, v_cache, lens, scale, num_splits, tps,
@@ -140,7 +170,11 @@ def _decode_partials_plain(q, k_cache, v_cache, lens, scale, num_splits, tps,
 
 
 def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
-                 window_left, softcap, sinks=0, alibi=None):
+                 window_left, softcap, sinks=0, alibi=None, partials=None):
+    """One launch of kernel 5. partials: (o_part [b, hkv, splits, group,
+    d], lse_part [b, hkv, splits, group]) fp32 scratch for the splits'
+    partials when there are more than one (a test reads them after the
+    launch); else allocated."""
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     batch, num_heads, d = q.shape
     hkv, max_s = k_cache.shape[1], k_cache.shape[2]
@@ -161,42 +195,32 @@ def _decode_cuda(q, k_cache, v_cache, lens, scale, num_splits, tps,
     lens = lens.to(torch.int32).contiguous()
     dev = q.device
     slopes = cuda_slopes(alibi, _LOG2E, num_heads, dev)
-    o_part = torch.empty((batch, hkv, num_splits, group, d),
-                         dtype=torch.float32, device=dev)
-    lse_part = torch.empty((batch, hkv, num_splits, group),
-                           dtype=torch.float32, device=dev)
-    stream = _build.stream_of(q)
-    code = _build.DTYPE_CODES[q.dtype]
-    fn = _build.function("decode", "mfa_decode_partials", _PARTIALS_ARGTYPES)
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(), code,
-            batch, num_heads, hkv, max_s, d, plan.kernel_dim, num_splits, tps,
-            window_left,
-            _LOG2E if softcap else scale * _LOG2E, float(softcap),
-            scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
-            stream)
-    _build.check("decode", rc)
-    _build.launches[_build.launch_key("decode", q.dtype)] += 1
     out = torch.empty_like(q)
     lse = torch.empty((batch, num_heads), dtype=torch.float32, device=dev)
-    launch_combine(o_part, lse_part, out, lse)
-    return unpad_features(out, plan.head_dim), lse
-
-
-def launch_combine(o_part, lse_part, out, lse):
-    """Launch 2 (mfa_decode_combine): fp32 partials [b, hkv, splits, rows,
-    d] and their LSE -> out [b, hq, d] in its dtype and lse [b, hq]. Also
-    the paged decode's merge (kernels/paged.py), whose multi-query spans
-    give rows = q_span * group, out [b, q_span, hq, d] and lse [b, q_span,
-    hq]."""
-    batch, hkv, num_splits, _, d = o_part.shape
-    q_span = out.shape[1] if out.ndim == 4 else 1
-    fn = _build.function("decode", "mfa_decode_combine", _COMBINE_ARGTYPES)
-    rc = fn(o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _build.DTYPE_CODES[out.dtype], batch, out.shape[-2],
-            hkv, num_splits, d, q_span, _build.stream_of(out))
+    o_part = lse_part = counters = None
+    if num_splits > 1:
+        o_part, lse_part = partials if partials is not None else (
+            torch.empty((batch, hkv, num_splits, group, d), dtype=torch.float32,
+                        device=dev),
+            torch.empty((batch, hkv, num_splits, group), dtype=torch.float32,
+                        device=dev))
+        _build.expect_shape("decode_attention", "o_part", o_part,
+                            (batch, hkv, num_splits, group, d))
+        _build.expect_shape("decode_attention", "lse_part", lse_part,
+                            (batch, hkv, num_splits, group))
+        counters = _build.split_counters(dev, batch * hkv * row_blocks(group))
+    fn = _build.function("decode", "mfa_decode_partials", _PARTIALS_ARGTYPES)
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), lse.data_ptr(), _build.ptr(o_part),
+            _build.ptr(lse_part), _build.ptr(counters),
+            _build.DTYPE_CODES[q.dtype], batch, num_heads, hkv, max_s, d,
+            plan.kernel_dim, num_splits, tps, window_left,
+            _LOG2E if softcap else scale * _LOG2E, float(softcap),
+            scale / softcap if softcap else 0.0, sinks, _build.ptr(slopes),
+            _build.stream_of(q))
     _build.check("decode", rc)
-    _build.launches[_build.launch_key("combine", out.dtype)] += 1
+    _build.launches[_build.launch_key("decode", q.dtype)] += 1
+    return unpad_features(out, plan.head_dim), lse
 
 
 def decode_attention(

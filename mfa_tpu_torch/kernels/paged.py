@@ -6,10 +6,12 @@ sequence's pages in place, TMA boxes of gcd(page_size, 64) rows through
 block_table (bf16/fp16 pages, or int8, fp8 (e4m3) or int4 pages with fp32
 per-row scales, converted exactly to bf16 in registers), and runs both
 products on the tensor cores. Pages of any row count (int4: an even
-one, as the cache makes them). One split writes the final output and LSE;
-more write fp32 partials that kernel 5's combine launch merges. A CPU
-tensor runs `_paged_plain`, the same function in PyTorch;
-`_paged_split_plain` is the kernel's split route in PyTorch.
+one, as the cache makes them). One launch at any split count: one split
+writes the final output and LSE; with more, each block writes its fp32
+partial and the last block of each (sequence, kv head, row block) to
+finish merges them (kernel 5's merge). A CPU tensor runs `_paged_plain`,
+the same function in PyTorch; `_paged_split_plain` is the kernel's split
+route in PyTorch.
 
 Pages are [num_kv_heads, num_pages, page_size, w]: rows of w features
 (int4: w / 2 bytes of feature pairs, kernels/quant.py:pack_int4), w the
@@ -61,7 +63,7 @@ _LOG2E = math.log2(math.e)
 # Blocks of the kernel an SM holds: its ring takes 150-190 KB of shared memory
 BLOCKS_PER_SM = 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 11 + [_I] * 15 + [_F, _F, _F, _I, _P, _P]
+_ARGTYPES = [_P] * 12 + [_I] * 15 + [_F, _F, _F, _I, _P, _P]
 
 
 def launch_name(kernel: str, quant_dtype, q_span: int = 1,
@@ -242,7 +244,11 @@ def _paged_split_plain(q, k_pages, v_pages, k_scales, v_scales, lens, table,
 
 def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
                 window_left, softcap, pos_offset, quant_dtype=None, sinks=0,
-                alibi=None):
+                alibi=None, partials=None):
+    """One launch of kernel 6. partials: (o_part [b, hkv, splits, q_span *
+    group, d], lse_part [b, hkv, splits, q_span * group]) fp32 scratch for
+    the splits' partials when split_plan gives more than one (a test reads
+    them after the launch); else allocated."""
     _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales,
                        v_scales)
     q4, span, squeeze = _spans(q)
@@ -278,17 +284,24 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
     out = torch.empty_like(qk)
     lse = torch.empty((batch, span, num_heads), dtype=torch.float32,
                       device=q.device)
-    o_part = lse_part = None
+    o_part = lse_part = counters = None
     if num_splits > 1:
-        o_part = torch.empty((batch, hkv, num_splits, span * group, d),
-                             dtype=torch.float32, device=q.device)
-        lse_part = torch.empty((batch, hkv, num_splits, span * group),
-                               dtype=torch.float32, device=q.device)
+        rows = span * group
+        o_part, lse_part = partials if partials is not None else (
+            torch.empty((batch, hkv, num_splits, rows, d), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((batch, hkv, num_splits, rows), dtype=torch.float32,
+                        device=q.device))
+        _build.expect_shape(name, "o_part", o_part, (batch, hkv, num_splits, rows, d))
+        _build.expect_shape(name, "lse_part", lse_part, (batch, hkv, num_splits, rows))
+        row_blocks = 1 if span == 1 and group <= decode.TILE_ROWS else cdiv(
+            rows, decode.M16_ROWS)
+        counters = _build.split_counters(q.device, batch * hkv * row_blocks)
     fn = _build.function("paged", "mfa_paged_decode", _ARGTYPES)
     rc = fn(qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _build.ptr(k_scales), _build.ptr(v_scales), lens.data_ptr(),
             table.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _build.ptr(o_part), _build.ptr(lse_part),
+            _build.ptr(o_part), _build.ptr(lse_part), _build.ptr(counters),
             _build.DTYPE_CODES[qk.dtype], _build.kv_code(quant_dtype, k_pages),
             batch, num_heads, hkv, num_pages, page, pps, d, plan.kernel_dim,
             span, num_splits, tps, pos_offset, window_left,
@@ -297,8 +310,6 @@ def _paged_cuda(q, k_pages, v_pages, k_scales, v_scales, lens, table, scale,
             _build.stream_of(q))
     _build.check("paged", rc)
     _build.launches[launch_name("paged", quant_dtype, span, qk.dtype)] += 1
-    if num_splits > 1:
-        decode.launch_combine(o_part, lse_part, out, lse)
     out = unpad_features(out, d_true)
     if squeeze:
         out, lse = out[:, 0], lse[:, 0]

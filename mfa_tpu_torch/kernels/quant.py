@@ -56,22 +56,37 @@ def page_features(quant_dtype: Optional[str], pages: torch.Tensor) -> int:
     return 2 * pages.shape[-1] if quant_dtype == "int4" else pages.shape[-1]
 
 
-def quantize_rows(x: torch.Tensor, quant_dtype: str
+def scale_of(absmax: torch.Tensor, qmax: float,
+             reciprocal: bool = False) -> torch.Tensor:
+    """fp32 scales absmax / qmax (1 where absmax is 0) by the rule of the
+    mfa_tpu caller the port's quantizer stands for. Eager jnp divides;
+    inside jax.jit XLA turns the division by the constant into absmax *
+    f32(1 / qmax), the reciprocal rounded to fp32 (reciprocal=True). Both
+    operands are tensors, so the card and the CPU compute the same float:
+    PyTorch's CUDA division by a Python scalar multiplies by its
+    reciprocal, its CPU division divides."""
+    if reciprocal:
+        inv = (torch.ones((), dtype=torch.float32)
+               / torch.full((), qmax, dtype=torch.float32)).item()
+        scale = absmax * torch.full_like(absmax, inv)
+    else:
+        scale = absmax / torch.full_like(absmax, qmax)
+    return torch.where(absmax == 0.0, torch.ones_like(absmax), scale)
+
+
+def quantize_rows(x: torch.Tensor, quant_dtype: str, reciprocal: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., head_dim] float -> (payload [..., head_dim], fp32 scales
-    [...]). Symmetric, scale = absmax / quant_max (1 for an all-zero row).
-    int8/int4: payload = round(x / scale) clipped (torch.round rounds half
-    to even, as jnp.round does), int8 storage, int4 values UNPACKED in [-7,
-    7]; fp8: x / scale clipped to +-448, cast to e4m3 (round to nearest
-    even). Payloads match the JAX package byte for byte."""
+    [...]). Symmetric, scale = absmax / quant_max (1 for an all-zero row;
+    reciprocal: by mfa_tpu's jitted rule, `scale_of`). int8/int4: payload
+    = round(x / scale) clipped (torch.round rounds half to even, as
+    jnp.round does), int8 storage, int4 values UNPACKED in [-7, 7]; fp8: x
+    / scale clipped to +-448, cast to e4m3 (round to nearest even).
+    Payloads match the JAX package byte for byte: eager quantize_rows
+    without reciprocal, the one inside its jitted steps with it."""
     qmax = quant_max(quant_dtype)
     xf = x.float()
-    absmax = xf.abs().amax(dim=-1)
-    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
-    # by its rounded reciprocal, which put 4% (int8) to 58% (fp8, int4) of the
-    # card's scales one ulp from the CPU's and mfa_tpu's absmax / qmax
-    scale = torch.where(absmax == 0.0, torch.ones_like(absmax),
-                        absmax / torch.full_like(absmax, qmax))
+    scale = scale_of(xf.abs().amax(dim=-1), qmax, reciprocal)
     scaled = xf / scale[..., None]
     if quant_dtype == "fp8":
         return torch.clamp(scaled, -qmax, qmax).to(FP8), scale

@@ -33,6 +33,7 @@ from typing import Any
 
 import torch
 
+from mfa_tpu_torch.kernels.quant import scale_of
 from mfa_tpu_torch.kernels.wmatmul import int8_bank_matmul, int8_matmul
 from mfa_tpu_torch.shard.mesh import Sharding
 
@@ -77,15 +78,16 @@ class QWeight:
 
 def _quantize_body(w, axis: int):
     wf = w.float()
-    absmax = wf.abs().amax(dim=axis)
-    scale = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / 127.0)
+    # mfa_tpu's _quantize_body is jitted: absmax * f32(1 / 127)
+    scale = scale_of(wf.abs().amax(dim=axis), 127.0, reciprocal=True)
     qw = torch.clamp(torch.round(wf / scale.unsqueeze(axis)), -127, 127)
     return qw.to(torch.int8), scale
 
 
 def quantize_weight(w: torch.Tensor, axis: int = -2) -> QWeight:
-    """Symmetric absmax int8 quantization along `axis`: scale = absmax / 127
-    (1 where absmax is 0), round half to even, clip to +-127. A large 2-D
+    """Symmetric absmax int8 quantization along `axis`: scale = absmax *
+    f32(1 / 127) as mfa_tpu's jitted body computes it (1 where absmax is
+    0), round half to even, clip to +-127. A large 2-D
     tensor quantizes in slices along its other axis, which caps the fp32
     transient (a 128k-vocab table is 2.1 GB in fp32); an expert bank [E, K,
     N] (axis -2) one expert at a time (Mixtral's is 1.9 GB in fp32)."""

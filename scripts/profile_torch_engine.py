@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_engine.py [--layers 32] [--steps 8] [--out FILE]
         [--phases bf16,chunk,train,int8,gemma3] (also: pipeline, fp8kv, int4kv,
-        sampling, spec, train_fp32, decode_fp32) [--root DIR]
+        sampling, spec, train_fp32, decode_fp32, split_decode) [--root DIR]
 
 Builds the Llama-3-8B-width engine of chip_smoke.py (random bf16 weights
 from a seed, int8 paged KV, page 64), warms it with one short run, then
@@ -46,7 +46,14 @@ backward tile ("backward kernel") and the glue. --phases decode_fp32
 traces the fp32 model (the same weights) serving the 16 requests on fp32
 and then on int8 KV pages: a prefill wave and `--steps` decode steps,
 eager, graphed and in graphed bursts of 8, by kernel group (kernel 6 with
-fp32 q is "paged kernel", the projections fp32 cuBLAS). --root DIR imports
+fp32 q is "paged kernel", the projections fp32 cuBLAS). --phases
+split_decode traces decode steps whose paged kernel splits each sequence
+(grids under the card's 132 SMs), eager, graphed and in graphed bursts,
+with the device ms of a graph replay: the 8B model (`--layers`) on 2
+requests of 1000-1100 tokens (int8 KV, 8 splits), Mistral-7B with 4
+attention sinks at `--layers` on chip_smoke.py's 8 prompts of 4200-6000
+tokens (bf16 KV, 2 splits), and Gemma3-4B's text stack at full depth on
+4 prompts of 300-1800 tokens (int8 KV, window 1023, 16 blocks). --root DIR imports
 mfa_tpu_torch from another checkout (e.g. the parent commit unpacked
 with git archive), so two versions compare in one call, one process
 each. For each phase it prints the host wall time (with and without the
@@ -74,9 +81,10 @@ sys.path.insert(0, ROOT)
 # packed), 1-4 the zero-shift engines (flagged, repair, bound, unchecked), 5
 # the image-block kernel (9). Kernel 8 is pp90::paged_prefill_kernel, kernel
 # 10 wm90::wmatmul_kernel. Kernel 5's launch 1 and kernel 6 are
-# kd90::splitkv_kernel<T, D, paged, KV format>: paged true is kernel 6, whose
-# split route merges through combine_kernel (kernel 5's launch 2; the engine
-# reaches it only from the paged kernel).
+# kd90::splitkv_kernel<T, D, paged, KV format>: paged true is kernel 6, which
+# merges its splits in the same launch; a checkout before that (--root)
+# merged them in combine_kernel, a launch of its own, counted with the paged
+# kernel (the engine reached it only from kernel 6).
 _FA90 = re.compile(r"fa90::fwd_kernel<[^,]+, (?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
 # their fp32 tile: af32::fwd_kernel<D, kind, packed> (csrc/flash_fwd_f32.cuh)
 _AF32 = re.compile(r"af32::fwd_kernel<(?:\(int\))?\d+, (?:\(int\))?(\d)[,>]")
@@ -602,7 +610,9 @@ def main() -> int:
                          "speculative iteration's pieces), train_fp32 (a "
                          "train step of the fp32 model), decode_fp32 (the "
                          "fp32 model's wave and decode steps on fp32 and "
-                         "int8 KV)")
+                         "int8 KV), split_decode (decode steps on the paged "
+                         "kernel's split route: 8B at batch 2, Mistral-7B "
+                         "sinks, Gemma3-4B)")
     ap.add_argument("--root", default=ROOT,
                     help="checkout to import mfa_tpu_torch from")
     args = ap.parse_args()
@@ -646,6 +656,8 @@ def main() -> int:
         train_fp32_phase(cfg, args, acts)
     if "decode_fp32" in phases:
         decode_fp32_phase(cfg, args, acts)
+    if "split_decode" in phases:
+        split_decode_phase(cfg, args, acts)
     print(f"card: {smi}", flush=True)
     return 0
 
@@ -688,6 +700,54 @@ def train_fp32_phase(cfg, args, acts) -> None:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     del params
     torch.cuda.empty_cache()
+
+
+def split_decode_phase(cfg, args, acts) -> None:
+    """decode_steps on the paged kernel's split route (one launch a layer
+    that merges its splits; before, a second, combine, launch a layer): the
+    8B model at batch 2, Mistral-7B with sinks, Gemma3-4B's text stack."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mfa_tpu_torch.kernels import paged
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.serve.engine import Engine
+
+    root = os.path.abspath(args.root)
+    runs = (
+        ("8B", cfg, [1000, 1100], dict(num_pages=2 * 32 + 1, pages_per_seq=32,
+                                       quant_dtype="int8")),
+        ("Mistral-7B, 4 sinks", dataclasses.replace(
+            llama.LlamaConfig.mistral_7b(), attn_sinks=4, n_layers=args.layers),
+         list(np.random.RandomState(0).randint(4200, 6001, 8)),
+         dict(num_pages=8 * 128 + 8, pages_per_seq=128)),
+        ("Gemma3-4B text", llama.LlamaConfig.gemma3_4b(),
+         [300 + (1500 * i) // 3 for i in range(4)],
+         dict(num_pages=4 * 32 + 1, pages_per_seq=32, quant_dtype="int8")),
+    )
+    for name, c, lens, kw in runs:
+        params = llama.init_params(c, seed=0, device="cuda")
+        kv = kw.get("quant_dtype") or "bf16"
+        splits = paged.split_plan(len(lens), c.n_kv_heads, kw["pages_per_seq"], 64)[0]
+
+        def engine(c=c, params=params, lens=lens, kw=kw):
+            eng = Engine(params, c, page_size=64, max_seqs=len(lens), device="cuda",
+                         **kw)
+            rng = np.random.RandomState(1)
+            for n in lens:
+                eng.submit(list(rng.randint(0, c.vocab_size, int(n))),
+                           2 * args.steps + 4)
+            return eng
+
+        engine().run()  # warm-up
+        decode_steps(engine, args.steps, acts, args.out,
+                     f"{name} decode step (batch {len(lens)}, {c.n_layers} layers, "
+                     f"{kv} KV, kernel 6 at {splits} splits, mfa_tpu_torch from "
+                     f"{root})")
+        del params
+        torch.cuda.empty_cache()
 
 
 def decode_fp32_phase(cfg, args, acts) -> None:

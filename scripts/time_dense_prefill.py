@@ -21,8 +21,8 @@ Prints one line per kernel and shape, and the card's name and power limit.
 --dtype float32 times the fp32 tiles instead, at PERF.md's fp32 rows:
 kernels 1, 2 (alone) and 3 (every tile flagged) at the 8B wave and b1
 s4096, kernel 4 "unchecked" at d 64 on the 8B wave's heads, kernel 7 on 8
-x 512 packed rows (hq 32, hkv 8, d 128, causal) and kernel 5 (launch 1 and
-the combine, b16 hq32 hkv8 S8192 d128) beside SDPA on the same fp32
+x 512 packed rows (hq 32, hkv 8, d 128, causal) and kernel 5 (the whole
+call, b16 hq32 hkv8 S8192 d128) beside SDPA on the same fp32
 tensors. Each is held against its plain fp32 version within atol = rtol
 = 1e-4 (chip_smoke._err32: O and LSE), kernel 3 against kernel 1 bit for
 bit; bounds of 4-byte rows at 3.35 TB/s against 4 d flops a visible pair
@@ -130,7 +130,7 @@ def fp32_shapes(cs, label, gen, kernels=("1", "4", "7", "5")) -> bool:
                                                                enable_gqa=True)))
         del q, k, v, qb, kb, vb
     if "5" in kernels:
-        b, S = 16, 8192  # kernel 5: launch 1 and the combine
+        b, S = 16, 8192  # kernel 5: the whole call
         q, kc, vc = rn(b, hq, d), rn(b, hkv, S, d), rn(b, hkv, S, d)
         L = torch.full((b,), S, dtype=torch.int32, device="cuda")
         o5, l5 = decode.decode_attention(q, kc, vc, L, return_lse=True)
@@ -139,7 +139,7 @@ def fp32_shapes(cs, label, gen, kernels=("1", "4", "7", "5")) -> bool:
         ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
         _, good = cs._err32(o5, ro.reshape(b, hq, d), "kernel 5", l5, rl.reshape(b, hq))
         ok &= good
-        _line32(cs, label, "b16 S8192", f"kernel 5 + combine ({ns} splits)", cs._time_ms(
+        _line32(cs, label, "b16 S8192", f"kernel 5 ({ns} splits)", cs._time_ms(
             lambda: decode.decode_attention(q, kc, vc, L)),
             4 * (2 * b * hkv * S * d + 2 * b * hq * d), 4 * b * hq * S * d,
             cs._time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,

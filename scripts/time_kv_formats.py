@@ -6,8 +6,8 @@ int8, fp8 (e4m3) and int4 KV pages, on one GPU.
 
 Kernel 6 at chip_smoke.py's shapes: the Llama-3-8B serve step (b16 hq32
 hkv8 d128, pages of 64, lengths 195-300, pos_offset 1), Gemma3-4B's
-decode step (b10 hq8 hkv4 d256, lengths 300-2000, window 1023: 3 splits
-and the combine) and lengths 8192 (the 8B heads); then a sweep of the
+decode step (b10 hq8 hkv4 d256, lengths 300-2000, window 1023: 3 splits)
+and lengths 8192 (the 8B heads); then a sweep of the
 8B heads at lengths 512 to 32768 on int8, fp8 and int4 pages, whose
 int4 / int8 time ratio gives dispatch/config.py's
 INT4_KV_CROSSOVER_TOKENS: the first length from which int4 pages are
@@ -15,8 +15,9 @@ read faster than int8 pages at every swept length. Kernel 8 at the
 engine's chunk batch (4 x 512 at q_start 0/1024/2048/3072, the 8B heads,
 pages of 64). Each output is held to its plain version (max 2e-2, mean
 2e-3, LSE 1e-3 with the same -inf rows). Times are CUDA-event means
-(chip_smoke._time_ms) of the whole call (the wrapper's split count and,
-past one split, the combine launch); the bound is the larger of the bytes
+(chip_smoke._time_ms) of the whole call at the wrapper's split count (one
+launch; before the split merge moved into it, past one split a combine
+launch too); the bound is the larger of the bytes
 (each visible K/V row once: 2 d bytes bf16, d + 4 int8 and fp8, d / 2 + 4
 int4, with its scale; q, O, LSE and the table) over 3.35 TB/s and the
 operations (4 d flops per visible (row, key) pair of every q head) over

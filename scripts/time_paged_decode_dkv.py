@@ -9,8 +9,9 @@ hq32 hkv8 d128, int8 pages of 64, lengths 195-300, pos_offset 1), Gemma3-4B's
 decode step (b10 hq8 hkv4 d256, int8 pages of 64, lengths 300-2000, window
 1023, pos_offset 1) and lengths 8192 (the 8B heads, int8 pages of 64); and
 the 8B serve step on bf16 pages of 64 (the int8 conversion's share). The
-time is the whole call: the split count the wrapper picks and, past one
-split, the combine launch. Kernels 12 (dK/dV) and 13 (dQ) at the training
+time is the whole call at the split count the wrapper picks (one launch;
+a checkout before the split merge moved into it: past one split, a
+combine launch too). Kernels 12 (dK/dV) and 13 (dQ) at the training
 shape (causal b4 hq32 hkv8 s2048 d128 bf16), each launch alone. No single
 PyTorch call computes any of them. Kernel 5 (split-KV decode, whose tile
 kernel 6 shares) at chip_smoke.py's main shape, b16 hq32 hkv8 S8192 d128

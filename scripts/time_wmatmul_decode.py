@@ -9,11 +9,11 @@ Shapes, bf16 from seed 0: kernel 10 at the Llama-3-8B projections for a
 decode batch (m 16: wq 4096 -> 4096, wk -> 1024, w_gate -> 14336, w_down
 14336 -> 4096, the lm_head -> 128256) and for a prefill wave (m 3601,
 w_gate); the yardstick is torch.matmul on the dequantized bf16 weight
-(cuBLAS). Kernel 5's first launch (the split partials, through its C
-function as chip_smoke.py phase 2 times it) at b16 hq32 hkv8 S8192 for d
-64, 128 and 256 and at b1 S32768 d128, each at the default split count,
-then a sweep of split counts at b16 S8192 d128 and b1 S32768 d128 (whole
-calls, both launches); the yardstick is SDPA with enable_gqa on the same
+(cuBLAS). Kernel 5, whole calls (one launch; a checkout before the
+split merge moved into it: the partials' launch and the combine launch),
+at b16 hq32 hkv8 S8192 for d 64, 128 and 256 and at b1 S32768 d128, each
+at the default split count, then a sweep of split counts at b16 S8192
+d128 and b1 S32768 d128; the yardstick is SDPA with enable_gqa on the same
 cache (chip_smoke.py phase 2). Every output is held against its plain
 version (kernel 10: 2^-8 of the largest output; kernel 5: max 2e-2, mean
 2e-3). Times are CUDA-event means (chip_smoke._time_ms); bounds as
@@ -27,8 +27,6 @@ the card's name and power limit. Exits non-zero if an output is off.
 from __future__ import annotations
 
 import argparse
-import inspect
-import math
 import os
 import subprocess
 import sys
@@ -95,12 +93,10 @@ def sweep_splits(cs, wmatmul, x, w, label):
 
 
 def _decode_case(cs, decode, b, S, d, ns, gen, label, sweep=False):
-    """One decode shape at `ns` splits (0: the default): launch 1 alone
-    (sweep=False) or the whole call (sweep=True). Returns ok."""
+    """One decode shape at `ns` splits (0: the default), the whole call,
+    with the plain version's time unless sweep. Returns ok."""
     import torch
     import torch.nn.functional as F
-
-    from mfa_tpu_torch.kernels import _build
 
     hq, hkv = 32, 8
     q = torch.randn(b, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -123,27 +119,14 @@ def _decode_case(cs, decode, b, S, d, ns, gen, label, sweep=False):
                              4 * b * hq * S * d)
     lib_ms = cs._time_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], kc, vc, enable_gqa=True))
-    if sweep:
-        ms = cs._time_ms(lambda: decode.decode_attention(q, kc, vc, lens, num_splits=nsp))
-        what, plain = "whole call", ""
-    else:
-        o_part = torch.empty((b, hkv, nsp, hq // hkv, d), device="cuda")
-        lse_part = torch.empty((b, hkv, nsp, hq // hkv), device="cuda")
-        fn = _build.function("decode", "mfa_decode_partials", decode._PARTIALS_ARGTYPES)
-        stream = _build.stream_of(q)
-        # sinks and ALiBi slopes (0, null) where the checkout's decode takes them
-        takes_band = "sink_tokens" in inspect.signature(decode.decode_attention).parameters
-        extra = (0, None) if takes_band else ()
-        # the kernel D after d where the checkout's launch takes one (one
-        # argument more; d is an instantiated head dim here, so D = d)
-        kd = (d,) if len(decode._PARTIALS_ARGTYPES) > 21 else ()
-        ms = cs._time_ms(lambda: fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                                    lens.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
-                                    1, b, hq, hkv, S, d, *kd, nsp, tps, -1,
-                                    scale * math.log2(math.e), 0.0, 0.0, *extra, stream))
+    # the whole call: one launch, or (before the merge moved into it) the
+    # partials' launch and the combine launch
+    ms = cs._time_ms(lambda: decode.decode_attention(q, kc, vc, lens, num_splits=nsp))
+    what, plain = "whole call", ""
+    if not sweep:
         plain_ms = cs._time_ms(lambda: decode._decode_partials_plain(
             q, kc, vc, lens, scale, nsp, tps, -1, 0.0), iters=3)
-        what, plain = "launch 1", f"; plain {plain_ms:.4f} ms"
+        plain = f"; plain {plain_ms:.4f} ms"
     print(f"{label} kernel 5 b{b} hq{hq} hkv{hkv} S{S} d{d} splits {nsp} ({what}): ms "
           f"{ms:.4f} bound_ms {bound_ms:.4f} ({by}) bound share {bound_ms / ms:.3f}{plain}; "
           f"sdpa {lib_ms:.4f} ms, kernel / sdpa {ms / lib_ms:.2f}x; max_abs_err "

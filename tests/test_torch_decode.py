@@ -1,6 +1,6 @@
 """The port's split-KV decode (plain path on CPU: per-split partials plus
-the combine, as the kernel's two launches) against mfa_tpu's decode kernel
-in Pallas interpret mode. Inputs from numpy with a seed. Tolerance: fp32,
+the combine, as the kernel's one launch computes them) against mfa_tpu's
+decode kernel in Pallas interpret mode. Inputs from numpy with a seed. Tolerance: fp32,
 atol = rtol = 1e-4 (same softmax, other split boundaries and summation
 order)."""
 

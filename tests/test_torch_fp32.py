@@ -74,7 +74,7 @@ def _kd(d):
 
 
 def _dense_route(kernel, d):
-    """Drive kernel 1, 2 + 3, 4, 5 (+ combine), 7 or 9 on fp32 meta tensors
+    """Drive kernel 1, 2 + 3, 4, 5, 7 or 9 on fp32 meta tensors
     -> the launch names it expects."""
     b, hq, hkv, s = 2, 8, 2, 100
     q, k = meta(b, hq, s, d), meta(b, hkv, s, d)
@@ -93,7 +93,7 @@ def _dense_route(kernel, d):
         n, tps = decode.split_layout(4096, 3)
         decode._decode_cuda(meta(b, hq, d), meta(b, hkv, 4096, d),
                             meta(b, hkv, 4096, d), lens, scale, n, tps, -1, 0.0)
-        return ["decode_fp32", "combine_fp32"]
+        return ["decode_fp32"]  # one launch: the split merge is inside it
     if kernel == 7:
         cu = meta(3, dtype=torch.int32)
         varlen._varlen_cuda(meta(200, hq, d), meta(200, hkv, d),
@@ -108,7 +108,7 @@ def _dense_route(kernel, d):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("kernel", [1, 2, 4, 5, 7, 9])
 def test_dense_routes_accept_fp32(recorder, kernel, d):
-    """Kernels 1-4, 5 (+ the combine), 7 and 9 take fp32: the fp32 dtype code,
+    """Kernels 1-4, 5, 7 and 9 take fp32: the fp32 dtype code,
     the plan's stored width and D, and launch names ending in _fp32."""
     names = _dense_route(kernel, d)
     assert sorted(_build.launches) == sorted(names)
@@ -116,9 +116,8 @@ def test_dense_routes_accept_fp32(recorder, kernel, d):
     plan = head_dim_plan(d)
     for lib, fname, args in recorder:
         assert F32_CODE in args, (lib, fname)
-        if fname != "mfa_decode_combine":
-            i = args.index(plan.stored)  # the stored width, then the kernel D
-            assert args[i + 1] == _kd(plan.stored) == plan.kernel_dim
+        i = args.index(plan.stored)  # the stored width, then the kernel D
+        assert args[i + 1] == _kd(plan.stored) == plan.kernel_dim
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -126,7 +125,8 @@ def test_dense_routes_accept_fp32(recorder, kernel, d):
 def test_paged_decode_accepts_fp32(recorder, d, fmt):
     """Kernel 6 takes fp32 q on fp32 pages and on int8 / fp8 / int4 pages
     (fp32 q stays fp32: the q dtype code is fp32's), one split and the
-    split route with its combine; spans too."""
+    split route, one launch either way (the merge is inside it); spans
+    too."""
     hkv, group, page = 2, 4, 64
     kp, vp, ks, vs = _pages(fmt, hkv, 40, page, d)
     for b, pps, q_span in ((16, 2, 1), (1, 16, 1), (2, 4, 3)):
@@ -140,14 +140,12 @@ def test_paged_decode_accepts_fp32(recorder, d, fmt):
         assert lse.shape == (b, q_span, hkv * group)
         n_splits, _ = paged.split_plan(b, hkv, pps, page)
         (lib, fname, args), *rest = recorder
-        assert fname == "mfa_paged_decode"
-        assert args[11] == F32_CODE  # q dtype
-        assert args[12] == _build.kv_code(fmt, kp)
-        assert _build.launches["paged_fp32"] == 1
-        assert len(rest) == (n_splits > 1)
-        if rest:
-            assert rest[0][1] == "mfa_decode_combine" and rest[0][2][4] == F32_CODE
-            assert _build.launches["combine_fp32"] == 1
+        assert fname == "mfa_paged_decode" and not rest
+        assert args[12] == F32_CODE  # q dtype
+        assert args[13] == _build.kv_code(fmt, kp)
+        assert dict(_build.launches) == {"paged_fp32": 1}
+        # the split route's scratch and counters, and only there
+        assert (args[9] is not None) == (args[11] is not None) == (n_splits > 1)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)

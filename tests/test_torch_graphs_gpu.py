@@ -147,6 +147,41 @@ def test_replay_matches_eager(model, weights, quant):
     assert cache.lengths[:2].tolist() == [PAGE + 4, _split_lens()[1] + 5]
 
 
+@pytest.mark.parametrize("quant", ["int8", None])
+def test_split_merge_replays_stay_bit_equal(model, quant):
+    """100 replays from row 1 one token before the paged kernel's first
+    split boundary: the kernel merges its splits in its one launch through
+    ticket counters that each launch leaves at zero, so a replay needs no
+    memset node. Every replay's tokens and logits equal an eager step's
+    bit for bit, the caches end equal, one paged launch a layer and no
+    other, and the counters end at zero."""
+    from mfa_tpu_torch.kernels import _build
+    from mfa_tpu_torch.kernels.paged import launch_name
+    from mfa_tpu_torch.models import llama
+
+    cfg, ps = model
+    params = ps["bf16"]
+    cache, slots, tokens = _prefilled(cfg, params, quant, _split_lens())
+    ref = _clone(cache)
+    g = _graphs(cfg, params)
+    g.burst(cache, slots, tokens, 1)  # eager first step + capture
+    _, logits = llama.decode_step(params, cfg, ref, slots, tokens)
+    tok, ref_tok = g.buckets[2].tokens.clone(), logits.argmax(-1)
+    for step in range(100):
+        _, logits = llama.decode_step(params, cfg, ref, slots, ref_tok)
+        _build.reset_launches()
+        toks, _ = g.burst(cache, slots, tok, 1)
+        replayed = dict(_build.launches)
+        ref_tok, tok = logits.argmax(-1), toks[0]
+        assert torch.equal(g.buckets[2].logits, logits), step
+        assert torch.equal(tok, ref_tok), step
+        assert replayed.get(launch_name("paged", quant)) == cfg.n_layers
+        assert "combine" not in replayed
+    _assert_same_state(cache, ref)
+    assert cache.lengths[:2].tolist() == [PAGE + 100, _split_lens()[1] + 101]
+    assert not _build.split_counters(torch.device("cuda", 0), 1).any()
+
+
 @pytest.mark.parametrize("quant,page", [("int8", 12), (None, 12), ("int8", 1)])
 def test_page_rows_replay_matches_eager(model, quant, page):
     """Pages of 12 rows (boxes of 4) and of 1 row (int8: rows and scales by

@@ -111,7 +111,6 @@ ENTRY_POINTS = {
     ("bound", "mfa_bound_fwd"): prefill._ZS_ARGTYPES,
     ("blockmask", "mfa_image_block_fwd"): blockmask._ARGTYPES,
     ("decode", "mfa_decode_partials"): decode._PARTIALS_ARGTYPES,
-    ("decode", "mfa_decode_combine"): decode._COMBINE_ARGTYPES,
     ("paged", "mfa_paged_decode"): paged._ARGTYPES,
     ("paged_prefill", "mfa_paged_prefill"): paged_prefill._ARGTYPES,
     ("backward", "mfa_bwd_fused"): backward._FUSED_ARGTYPES,
@@ -149,7 +148,7 @@ def test_c_entry_points_match_their_argtypes(src, name):
     params = _c_params(src, name)
     assert [ctype[t] for t, _ in params] == ENTRY_POINTS[(src, name)]
     names = [n for _, n in params]
-    if src != "wmatmul" and name != "mfa_decode_combine":
+    if src != "wmatmul":
         assert names[names.index("d") + 1] == "kd"
 
 

@@ -118,7 +118,7 @@ def test_decode_kernel(dev, b, hq, hkv, s, d, lens, splits, window, softcap,
         o, lse = decode.decode_attention(q, k, v, L, num_splits=ns,
                                          window_left=window,
                                          logit_softcap=softcap, return_lse=True)
-        assert dict(_build.launches) == {"decode": 1, "combine": 1}
+        assert dict(_build.launches) == {"decode": 1}  # the split merge is inside it
         n, tps = decode.split_layout(s, ns if ns else decode.default_splits(b, hkv, s))
         po, pl = decode._decode_partials_plain(q.float(), k.float(), v.float(), L,
                                                d ** -0.5, n, tps, window, softcap)
@@ -155,6 +155,114 @@ def test_decode_kernel_every_split_count(dev, b, s, d):
         _close(o, lse, ro.reshape(b, hq, d), rl.reshape(b, hq))
         o1 = o.float() if o1 is None else o1
         assert (o.float() - o1).abs().max() <= 1e-2
+
+
+def _merge_bits_equal(o, lse, partials, dtype):
+    """The one launch's O and LSE against the two-launch design's merge
+    arithmetic over the launch's own split partials (decode._combine_exact):
+    bit for bit. o [b, (q_span,) hq, d], lse [b, (q_span,) hq]."""
+    from mfa_tpu_torch.kernels import decode
+
+    o_part, lse_part = partials
+    b, hkv, _, rows, d = o_part.shape
+    hq = o.shape[-2]
+    span = rows * hkv // hq
+    eo, el = decode._combine_exact(o_part, lse_part, dtype)
+    eo = eo.reshape(b, hkv, span, hq // hkv, d).transpose(1, 2).reshape(b, span, hq, d)
+    el = el.reshape(b, hkv, span, hq // hkv).transpose(1, 2).reshape(b, span, hq)
+    assert torch.equal(o.reshape(eo.shape), eo)
+    assert torch.equal(lse.reshape(el.shape), el)
+
+
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+@pytest.mark.parametrize("ns", [1, 2, 3, 8, 15, 30])
+def test_decode_split_merge_in_one_launch(dev, ns, dtype):
+    """Kernel 5 at b2 hq32 hkv8 S30720 d128 (480 tiles: each split count
+    here divides them), the second length inside the first split (the
+    other splits of its row hold nothing): one launch at every split
+    count; O and the
+    LSE within the plain limits of combine_splits over the plain
+    partials, and, past one split, bit-equal to the two-launch merge over
+    the launch's own partials."""
+    from mfa_tpu_torch.kernels import _build, decode
+
+    gen = torch.Generator(device=dev).manual_seed(ns)
+    b, hq, hkv, s, d = 2, 32, 8, 30720, 128
+    q, k, v = (_rn(gen, b, hq, d, dtype=dtype), _rn(gen, b, hkv, s, d, dtype=dtype),
+               _rn(gen, b, hkv, s, d, dtype=dtype))
+    L = torch.tensor([s - 5, 100], dtype=torch.int32, device=dev)
+    n, tps = decode.split_layout(s, ns)
+    assert n == ns
+    partials = (torch.empty(b, hkv, n, hq // hkv, d, device=dev),
+                torch.empty(b, hkv, n, hq // hkv, device=dev))
+    _build.reset_launches()
+    o, lse = decode._decode_cuda(q, k, v, L, d ** -0.5, n, tps, -1, 0.0,
+                                 partials=partials)
+    assert dict(_build.launches) == {_build.launch_key("decode", dtype): 1}
+    po, pl = decode._decode_partials_plain(q.float(), k.float(), v.float(), L, d ** -0.5,
+                                           n, tps, -1, 0.0)
+    ro, rl = decode.combine_splits(po, pl, axis=2, return_lse=True)
+    (_close if dtype == BF else _close32)(o, lse, ro.reshape(b, hq, d), rl.reshape(b, hq))
+    if n > 1:
+        _merge_bits_equal(o, lse, partials, dtype)
+
+
+# tag: span, hq, hkv, d, lens, window, sinks, splits (a longest length of
+# 7679: 120 pages of 64, 120 tiles, which each split count here divides)
+_MERGE_CASES = {
+    **{f"group 4, {n} splits": (1, 32, 8, 128, [7679, 700, 65, 1], -1, 0, n)
+       for n in (2, 3, 8, 15, 30)},
+    "span 4 (16-row blocks)": (4, 32, 8, 128, [7679, 700], -1, 0, 3),
+    "group 16 (16-row blocks)": (1, 32, 2, 128, [7679, 300], -1, 0, 8),
+    "sinks, a window emptying splits 1-5": (1, 32, 8, 128, [7679, 5000], 1000, 4, 8),
+    "Gemma3-4B heads, d 256": (1, 8, 4, 256, [2000, 300, 1300], 1023, 0, 3),
+}
+
+
+@pytest.mark.parametrize("quant,dtype", [(None, BF), ("int8", BF), ("fp8", BF),
+                                         ("int4", BF), (None, torch.float32),
+                                         ("int8", torch.float32)])
+@pytest.mark.parametrize("tag", list(_MERGE_CASES))
+def test_paged_split_merge_in_one_launch(dev, monkeypatch, tag, quant, dtype):
+    """Kernel 6 through a forced split count (pages of 64): one launch;
+    O and the LSE within the plain limits of the plain split route
+    (combine_splits over the plain partials) and bit-equal to the
+    two-launch merge over the launch's own partials. Splits past a
+    length, and splits a window empties (the sinks sit in split 0), hold
+    nothing and must still take their ticket."""
+    from mfa_tpu_torch.kernels import _build, decode, paged
+
+    span, hq, hkv, d, lens, window, sinks, ns = _MERGE_CASES[tag]
+    monkeypatch.setattr(paged, "split_plan",
+                        lambda b, hkv, pps, page: decode.split_layout(pps * page, ns))
+    gen = torch.Generator(device=dev).manual_seed(ns + d)
+    page = 64
+    b, pps = len(lens), max(lens) // page + 1
+    P = b * pps + 1
+    q = _rn(gen, b, span, hq, d, dtype=dtype) if span > 1 else _rn(gen, b, hq, d, dtype=dtype)
+    kf, vf = _rn(gen, hkv, P, page, d, dtype=dtype), _rn(gen, hkv, P, page, d, dtype=dtype)
+    kp, vp, ks, vs = _pages(kf, vf, quant)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: b * pps] + 1
+             ).reshape(b, pps).int()
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n, tps = decode.split_layout(pps * page, ns)
+    assert n == ns
+    rows = span * (hq // hkv)
+    partials = (torch.empty(b, hkv, n, rows, d, device=dev),
+                torch.empty(b, hkv, n, rows, device=dev))
+    args = (L, table, d ** -0.5, window, 0.0, 0)
+    _build.reset_launches()
+    o, lse = paged._paged_cuda(q, kp, vp, ks, vs, *args, quant, sinks, None,
+                               partials=partials)
+    assert dict(_build.launches) == {paged.launch_name("paged", quant, span, dtype): 1}
+    q_ref = q if dtype == torch.float32 else q.float()
+    ro, rl = paged._paged_split_plain(q_ref, kp, vp, ks, vs, *args, num_splits=n,
+                                      quant_dtype=quant, sinks=sinks)
+    if dtype == BF:
+        _close(o, lse, ro, rl)
+    else:
+        (_close32 if quant is None else _close_quant32)(o, lse, ro, rl)
+    _merge_bits_equal(o, lse, partials, dtype)
 
 
 _GEMMA3_LENS = [300 + (1700 * i) // 9 for i in range(10)]  # 300-2000
@@ -229,10 +337,8 @@ def test_paged_kernel(dev, hq, hkv, page, d, quant, dtype, pos_offset, window,
                                    window_left=window, pos_offset=pos_offset,
                                    logit_softcap=softcap, quant_dtype=quant,
                                    return_lse=True)
-    # one launch at one split; the combine launch merges more
-    name = paged.launch_name("paged", quant)
-    assert dict(_build.launches) == ({name: 1} if splits == 1
-                                     else {name: 1, "combine": 1})
+    # one launch at any split count: the split merge is inside it
+    assert dict(_build.launches) == {paged.launch_name("paged", quant): 1}
     # quantized pages contract in bf16: the kernel rounds fp16 q to bf16 first
     q_ref = q.to(BF).float() if quant else q.float()
     ro, rl = paged._paged_plain(q_ref, kp, vp, ks, vs, L, table, d ** -0.5,
@@ -302,7 +408,7 @@ def test_paged_kernel_ignores_rows_past_lens(dev, quant, page, d, window):
     (8, 4, 256, None, 0, 100, 0.0, None),      # 32 rows at d 256
     (8, 4, 256, "int8", 8, -1, 0.0, None),
     (4, 2, 64, "int4", 4, -1, 0.0, None),
-    (4, 4, 128, "int8", 4, -1, 0.0, _GEMMA3_LENS),  # split route + combine
+    (4, 4, 128, "int8", 4, -1, 0.0, _GEMMA3_LENS),  # the split route
     (3, 8, 256, "fp8", 0, 1023, 0.0, _GEMMA3_LENS),
 ])
 def test_paged_kernel_multiquery(dev, span, group, d, quant, pos_offset, window,
@@ -335,12 +441,10 @@ def test_paged_kernel_multiquery(dev, span, group, d, quant, pos_offset, window,
     L = torch.tensor(lens, dtype=torch.int32, device=dev)
     kw = dict(window_left=window, pos_offset=pos_offset, logit_softcap=softcap,
               quant_dtype=quant)
-    splits = paged.split_plan(b, hkv, pps, page)[0]
     _build.reset_launches()
     o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks,
                                    v_scales=vs, return_lse=True, **kw)
-    assert dict(_build.launches) == ({"paged_span": 1} if splits == 1
-                                     else {"paged_span": 1, "combine": 1})
+    assert dict(_build.launches) == {"paged_span": 1}
     assert o.shape == q.shape and lse.shape == (b, span, hq)
     ro, rl = paged._paged_plain(q.float(), *clean, L, table, d ** -0.5, window,
                                 softcap, pos_offset, quant_dtype=quant)
@@ -1844,7 +1948,7 @@ def test_head_dim_decode_kernel(dev, d):
             _build.reset_launches()
             o, lse = decode.decode_attention(q, k, v, L, num_splits=ns, window_left=300,
                                              sink_tokens=3, return_lse=True)
-            assert dict(_build.launches) == {"decode": 1, "combine": 1}
+            assert dict(_build.launches) == {"decode": 1}
             n, tps = decode.split_layout(700, ns)
             po, pl = decode._decode_partials_plain(q.float(), k.float(), v.float(), L,
                                                    d ** -0.5, n, tps, 300, 0.0, 3)
@@ -1869,7 +1973,7 @@ def test_decode_kernel_any_group(dev, group, hkv, d):
     for ns in (0, 4):
         _build.reset_launches()
         o, lse = decode.decode_attention(q, k, v, L, num_splits=ns, return_lse=True)
-        assert dict(_build.launches) == {"decode": 1, "combine": 1}
+        assert dict(_build.launches) == {"decode": 1}
         n, tps = decode.split_layout(s, ns or decode.default_splits(b, hkv, s, group))
         po, pl = decode._decode_partials_plain(q.float(), k.float(), v.float(), L,
                                                d ** -0.5, n, tps, -1, 0.0)
@@ -2175,8 +2279,8 @@ _F32_DECODE = [
                          _F32_DECODE)
 def test_decode_kernel_fp32(dev, b, hq, hkv, s, d, lens, splits, window, softcap, sinks,
                             alibi):
-    """Kernel 5 (launch 1 and the combine) on fp32 q and caches; rows past
-    each length hold NaN and are never read."""
+    """Kernel 5 (one launch, the split merge inside it) on fp32 q and
+    caches; rows past each length hold NaN and are never read."""
     from mfa_tpu_torch.kernels import _build, decode
 
     gen = torch.Generator(device=dev).manual_seed(43)
@@ -2200,7 +2304,7 @@ def test_decode_kernel_fp32(dev, b, hq, hkv, s, d, lens, splits, window, softcap
         o, lse = decode.decode_attention(q, k, v, L, num_splits=ns, window_left=window,
                                          logit_softcap=softcap, sink_tokens=sinks,
                                          alibi_slopes=slopes, return_lse=True)
-        assert dict(_build.launches) == {"decode_fp32": 1, "combine_fp32": 1}
+        assert dict(_build.launches) == {"decode_fp32": 1}
         ro, rl = refs[ns]
         _close32(o, lse, ro.reshape(b, hq, d), rl.reshape(b, hq))
     assert torch.all(o[L == 0] == 0)
@@ -2233,7 +2337,7 @@ _F32_PAGED = [
 def test_paged_kernel_fp32(dev, span, hq, hkv, page, d, quant, pos_offset, window,
                            softcap, sinks, alibi, lens):
     """Kernel 6 with fp32 q on fp32 pages and on int8 / fp8 / int4 pages
-    (q . k in fp32), spans, groups, the split route and its combine; rows
+    (q . k in fp32), spans, groups, the split route (one launch); rows
     past each length poisoned."""
     from mfa_tpu_torch.kernels import _build, paged
 
@@ -2253,15 +2357,13 @@ def test_paged_kernel_fp32(dev, span, hq, hkv, page, d, quant, pos_offset, windo
     ro, rl = paged._paged_plain(q, kp, vp, ks, vs, L, table, d ** -0.5, window, softcap,
                                 pos_offset, quant, sk_, slopes)
     _poison_past(kp, vp, ks, vs, quant, table, lens, page)
-    splits, _ = paged.split_plan(b, hkv, pps, page)
     _build.reset_launches()
     o, lse = paged.paged_attention(q, kp, vp, L, table, k_scales=ks, v_scales=vs,
                                    window_left=window, pos_offset=pos_offset,
                                    logit_softcap=softcap, quant_dtype=quant,
                                    sink_tokens=sinks, alibi_slopes=slopes,
                                    return_lse=True)
-    assert dict(_build.launches) == ({"paged_fp32": 1} if splits == 1
-                                     else {"paged_fp32": 1, "combine_fp32": 1})
+    assert dict(_build.launches) == {"paged_fp32": 1}
     (_close32 if quant is None else _close_quant32)(o, lse, ro, rl)
     for i, n in enumerate(lens):
         if n == 0:
@@ -2429,7 +2531,7 @@ def test_fp32_entry_points(dev):
     assert all(t.dtype == F32 and bool(torch.isfinite(t).all()) for t in (o, ov, od))
     got = dict(_build.launches)
     assert got["bound_fp32"] == 1 and got["varlen_fp32"] == 1
-    assert got["decode_fp32"] == 1 and got["combine_fp32"] == 1
+    assert got["decode_fp32"] == 1 and "combine_fp32" not in got
     assert not any(n in got for n in ("bound", "varlen", "decode", "combine"))
 
 
